@@ -1,4 +1,5 @@
 from video_vae_tpu_torch.core.config import (
+    DynamicHParams,
     LossConfig,
     ModelConfig,
     OptimConfig,
@@ -8,6 +9,7 @@ from video_vae_tpu_torch.core.config import (
 from video_vae_tpu_torch.core.device import resolve_device
 
 __all__ = [
+    "DynamicHParams",
     "LossConfig",
     "ModelConfig",
     "OptimConfig",

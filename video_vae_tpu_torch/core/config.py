@@ -3,12 +3,16 @@
 Field names and defaults are those of the JAX package's ``core/config.py``
 (a test holds the field sets equal), so one config describes both models.
 Layout-only fields (``unet_layout``, ``unet_s2d_full``, ``unet_s2d_last``,
-``remat``, ``attention_impl``, ``scan_rollout_decode``) are accepted and change
-nothing here: the port always computes the unpacked channels-first math, which
-those options leave unchanged in the JAX package.
+``attention_impl``, ``scan_rollout_decode``) are accepted and change nothing
+here: the port always computes the unpacked channels-first math in one
+batched decode, which those options leave unchanged in the JAX package.
+``remat`` acts as in the JAX package: in training, each ``FactoredAttention``
+block and each UNet down and up block runs under activation checkpointing
+(same math, less memory, a second forward in the backward).
 
-The mesh, data and trainer configs and the traced ``DynamicHParams`` come with
-the training slice of the port.
+``DynamicHParams`` holds the per-step loss weights and the compression-rate
+target as plain floats. The mesh, data and trainer configs come with later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -187,3 +191,23 @@ def tiny_config(**model_overrides) -> VAEConfig:
         optim=OptimConfig(learning_rate=1e-3, warmup_steps=10, decay_steps=1000),
         loss=LossConfig(use_perceptual=False),
     )
+
+
+@dataclass(frozen=True)
+class DynamicHParams:
+    """Per-step loss weights and schedule targets (the JAX ``DynamicHParams``)."""
+
+    gamma_selection: float = 0.2
+    gamma_kl: float = 1e-3
+    gamma_perceptual: float = 0.1
+    gamma_mae: float = 0.05
+    rl_loss_weight: float = 0.01
+    max_compression_rate: float = 2.0
+    magnify_negatives_rate: float = 100.0
+
+    @classmethod
+    def default(cls, **overrides) -> "DynamicHParams":
+        return cls(**overrides)
+
+    def with_compression_rate(self, rate: float) -> "DynamicHParams":
+        return dataclasses.replace(self, max_compression_rate=float(rate))

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from einops import rearrange
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from video_vae_tpu_torch.ops.flash_attention import fused_qkv_attention
 from video_vae_tpu_torch.ops.norm import LN_EPS, layer_norm
@@ -174,25 +175,39 @@ class MLP(nn.Module):
         return self.linear2(F.silu(self.linear1(self.norm(x))))
 
 
+def maybe_remat(enabled: bool, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``enabled`` and autograd
+    records (the JAX package's ``nnx.remat``): the block's activations are
+    dropped after the forward and recomputed in the backward."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 class FactoredAttention(nn.Module):
     """Axial block: temporal attention+MLP over (b·hw, t), then spatial over (b·t, hw).
 
     The (b, t) temporal key mask is expanded to the (b·hw) batch here; the
-    spatial pass is unmasked (padded frames are masked in the loss).
+    spatial pass is unmasked (padded frames are masked in the loss). With
+    ``remat`` the block runs under activation checkpointing in training.
     """
 
     def __init__(self, in_features: int, mlp_dim: int, num_heads: int, qkv_features: int,
                  gen: torch.Generator, *, rope_base: float = 10000.0,
-                 rope_alpha: float = 1.0, dtype: torch.dtype):
+                 rope_alpha: float = 1.0, remat: bool = False, dtype: torch.dtype):
         super().__init__()
         kw = dict(rope_base=rope_base, rope_alpha=rope_alpha, dtype=dtype)
         self.TemporalAttention = Attention(in_features, num_heads, qkv_features, gen, **kw)
         self.TemporalMLP = MLP(in_features, mlp_dim, gen, dtype=dtype)
         self.SpatialAttention = Attention(in_features, num_heads, qkv_features, gen, **kw)
         self.SpatialMLP = MLP(in_features, mlp_dim, gen, dtype=dtype)
+        self.remat = remat
 
     def forward(self, x: torch.Tensor, temporal_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (b, t, hw, c); temporal_mask: (b, t) bool key mask or None."""
+        return maybe_remat(self.remat, self._forward, x, temporal_mask)
+
+    def _forward(self, x: torch.Tensor, temporal_mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, t, hw, _ = x.shape
         tx = rearrange(x, "b t hw c -> (b hw) t c")
         mask = None

@@ -8,7 +8,9 @@ zero-initialised 1×1×1 final conv. Every 3-D conv goes through
 :func:`conv3d_cf` (the UpBlock's first one through :func:`conv3d_cf_cat2`, so
 the skip concat is never built); the final 1×1×1 conv is an einsum. The JAX
 package's space-to-depth phase packing is the same math and is not carried
-over. Parameters keep the JAX names and layouts (DHWIO conv kernels).
+over. Parameters keep the JAX names and layouts (DHWIO conv kernels). With
+``remat`` each down and up block runs under activation checkpointing in
+training, as the JAX blocks do under ``nnx.remat``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from video_vae_tpu_torch.models.layers import variance_scaling
+from video_vae_tpu_torch.models.layers import maybe_remat, variance_scaling
 from video_vae_tpu_torch.ops.conv3d import conv3d_cf, conv3d_cf_cat2
 from video_vae_tpu_torch.ops.norm import group_norm_cf, max_pool_2x_cf
 
@@ -108,13 +110,17 @@ class DownBlock3D(nn.Module):
     """2 × ConvBlock3D; returns (spatially pooled, pre-pool skip)."""
 
     def __init__(self, in_channels: int, out_channels: int, gen: torch.Generator, *,
-                 temporal_kernel: int = 3, dtype: torch.dtype):
+                 temporal_kernel: int = 3, remat: bool = False, dtype: torch.dtype):
         super().__init__()
         kw = dict(temporal_kernel=temporal_kernel, dtype=dtype)
         self.conv1 = ConvBlock3D(in_channels, out_channels, 3, gen, **kw)
         self.conv2 = ConvBlock3D(out_channels, out_channels, 3, gen, **kw)
+        self.remat = remat
 
     def forward(self, x: torch.Tensor):
+        return maybe_remat(self.remat, self._forward, x)
+
+    def _forward(self, x: torch.Tensor):
         skip = self.conv2(self.conv1(x))
         return max_pool_2x_cf(skip), skip
 
@@ -123,14 +129,18 @@ class UpBlock3D(nn.Module):
     """Spatial 2× transpose conv, skip concat, 2 × ConvBlock3D."""
 
     def __init__(self, in_channels: int, out_channels: int, gen: torch.Generator, *,
-                 temporal_kernel: int = 3, dtype: torch.dtype):
+                 temporal_kernel: int = 3, remat: bool = False, dtype: torch.dtype):
         super().__init__()
         kw = dict(temporal_kernel=temporal_kernel, dtype=dtype)
         self.upsample = ConvTranspose2x(in_channels, out_channels, gen, dtype=dtype)
         self.conv1 = ConvBlock3D(out_channels * 2, out_channels, 3, gen, **kw)
         self.conv2 = ConvBlock3D(out_channels, out_channels, 3, gen, **kw)
+        self.remat = remat
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return maybe_remat(self.remat, self._forward, x, skip)
+
+    def _forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         return self.conv2(self.conv1.call_cat2(self.upsample(x), skip))
 
 
@@ -138,16 +148,18 @@ class UNet3D(nn.Module):
     """(b, t, c_in, h, w) → (b, t, c_out, h, w), zero-initialised output."""
 
     def __init__(self, channels: int, base_features: int, num_levels: int, out_features: int,
-                 gen: torch.Generator, *, temporal_kernel: int = 3, dtype: torch.dtype):
+                 gen: torch.Generator, *, temporal_kernel: int = 3, remat: bool = False,
+                 dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
         kw = dict(temporal_kernel=temporal_kernel, dtype=dtype)
+        blocks = dict(kw, remat=remat)
         self.patch_mixer = Conv3D(channels, channels, (temporal_kernel, 7, 7), gen, dtype=dtype)
         self.encoders = nn.ModuleList()
         in_ch = channels
         for i in range(num_levels):
             out_ch = base_features * 2**i
-            self.encoders.append(DownBlock3D(in_ch, out_ch, gen, **kw))
+            self.encoders.append(DownBlock3D(in_ch, out_ch, gen, **blocks))
             in_ch = out_ch
         bottleneck_ch = base_features * 2**num_levels
         self.bottleneck1 = ConvBlock3D(in_ch, bottleneck_ch, 3, gen, **kw)
@@ -156,7 +168,7 @@ class UNet3D(nn.Module):
         in_ch = bottleneck_ch
         for i in range(num_levels - 1, -1, -1):
             out_ch = base_features * 2**i
-            self.decoders.append(UpBlock3D(in_ch, out_ch, gen, **kw))
+            self.decoders.append(UpBlock3D(in_ch, out_ch, gen, **blocks))
             in_ch = out_ch
         self.final_conv = Conv3D(
             base_features, out_features, (1, 1, 1), gen, dtype=dtype, zero_init=True

@@ -1,13 +1,15 @@
 """VideoVAE: factored space/time transformer VAE with learned frame selection.
 
 Counterpart of the JAX package's ``models/vae.py``: the same modules, names
-and parameter layouts, and the deterministic sub-paths the serving pass uses
-(``encode``, ``blend_fill``, ``decode``). The training forward (latent noise
-and the paired Bernoulli rollouts) comes with the training slice.
+and parameter layouts, the deterministic sub-paths the serving pass uses
+(``encode``, ``blend_fill``, ``decode``) and the training forward
+(``forward``: the reparameterised latent and, in ``"rl"`` mode, two paired
+Bernoulli rollouts per clip).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -25,11 +27,28 @@ from video_vae_tpu_torch.models.layers import (
 from video_vae_tpu_torch.models.unet import UNet3D
 
 
+NUM_ROLLOUTS = 2  # paired rollouts for the REINFORCE advantage
+
+
+@dataclass
+class VAEOutput:
+    """All tensors are at batch size b·rollouts (rollouts=2 in "rl" mode)."""
+
+    reconstruction: torch.Tensor  # (B, t, H, W, C)
+    latent: torch.Tensor  # (B, t, hw, latent_dim), fill-blended
+    selection_prob: torch.Tensor  # (B, t, 1, 1) keep probability
+    selection_mask: torch.Tensor  # (B, t, 1, 1) hard {0,1} keep decision
+    log_variance: torch.Tensor  # (B, t, hw, latent_dim)
+    mean: torch.Tensor  # (B, t, hw, latent_dim)
+    rollouts: int = 1
+
+
 def _block_stack(cfg: ModelConfig, depth: int, gen: torch.Generator) -> nn.ModuleList:
     return nn.ModuleList(
         FactoredAttention(
             cfg.embed_dim, cfg.mlp_dim, cfg.num_heads, cfg.qkv_features, gen,
-            rope_base=cfg.rope_base, rope_alpha=cfg.rope_alpha, dtype=cfg.compute_dtype(),
+            rope_base=cfg.rope_base, rope_alpha=cfg.rope_alpha, remat=cfg.remat,
+            dtype=cfg.compute_dtype(),
         )
         for _ in range(depth)
     )
@@ -87,7 +106,8 @@ class Decoder(nn.Module):
         )
         self.unet = UNet3D(
             cfg.channels * cfg.unembedding_upsample_rate, cfg.unet_base_features,
-            cfg.unet_levels, cfg.channels, gen, temporal_kernel=cfg.temporal_kernel, dtype=dt,
+            cfg.unet_levels, cfg.channels, gen, temporal_kernel=cfg.temporal_kernel,
+            remat=cfg.remat, dtype=dt,
         )
 
     def forward(self, z: torch.Tensor, key_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -135,3 +155,72 @@ class VideoVAE(nn.Module):
         """Replace dropped frames (selection_mask 0) with the learned fill token."""
         sel = selection_mask.to(latent.dtype)
         return self.fill_token.to(latent.dtype) * (1.0 - sel) + latent * sel
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        frame_mask: torch.Tensor,
+        *,
+        train: bool = True,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+        uniforms: Optional[torch.Tensor] = None,
+    ) -> VAEOutput:
+        """Training forward: encode, sample, select, fill-blend, decode.
+
+        ``noise`` (the shape of log_variance, compute dtype) and ``uniforms``
+        ((b·2, t, 1, 1) f32; a frame is kept where uniform < p) take the place
+        of the JAX model's two ``rngs.sampling()`` draws; without them both
+        are drawn from ``generator`` (torch's default one when that is None).
+        Rollouts repeat b-major, r-minor, as the JAX ``repeat(..., "b ... ->
+        (b r) ...")`` does.
+        """
+        cfg = self.cfg
+        key_mask = _key_mask(frame_mask)
+        mean, log_variance, logits = self.encoder(x, key_mask)
+
+        def draw(fn, shape, dtype):
+            dev = generator.device if generator is not None else mean.device
+            return fn(shape, generator=generator, dtype=dtype, device=dev).to(mean.device)
+
+        if train:
+            if noise is None:
+                noise = draw(torch.randn, log_variance.shape, mean.dtype)
+            noise = noise.to(device=mean.device, dtype=mean.dtype)
+            latent = mean + noise * torch.exp(log_variance.float() / 2).to(mean.dtype)
+        else:
+            latent = mean
+
+        prob = torch.sigmoid(logits)  # (b, t, 1)
+        if cfg.selection_mode == "rl":
+            rep = lambda v: v.repeat_interleave(NUM_ROLLOUTS, dim=0)  # noqa: E731
+            prob = rep(prob)[..., None]  # (b·2, t, 1, 1)
+            latent, mean, log_variance, key_mask = (
+                rep(latent), rep(mean), rep(log_variance), rep(key_mask)
+            )
+            if uniforms is None:
+                uniforms = draw(torch.rand, prob.shape, torch.float32)
+            uniforms = uniforms.to(device=prob.device, dtype=torch.float32)
+            selection_mask = (uniforms < prob.float()).to(latent.dtype)
+            rollouts = NUM_ROLLOUTS
+        elif cfg.selection_mode == "none":
+            prob = prob[..., None]
+            selection_mask = torch.ones_like(prob)
+            rollouts = 1
+        else:
+            raise NotImplementedError(
+                'selection_mode="ste" is not ported yet (ROADMAP.md, Queue 1: '
+                '"ste", scan_rollout_decode and the eval step)'
+            )
+
+        blended = self.blend_fill(latent, selection_mask)
+        reconstruction = self.decoder(blended, key_mask)
+        return VAEOutput(
+            reconstruction=reconstruction,
+            latent=blended,
+            selection_prob=prob,
+            selection_mask=selection_mask,
+            log_variance=log_variance,
+            mean=mean,
+            rollouts=rollouts,
+        )

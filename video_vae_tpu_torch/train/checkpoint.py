@@ -7,7 +7,9 @@ fill token), so the mapping is one to one by path: the JAX path
 ``encoder/layers/0/TemporalAttention/qkv_projection/kernel`` is the port's
 parameter ``encoder.layers.0.TemporalAttention.qkv_projection.kernel``.
 The flat dict comes from ``nnx.state(model, nnx.Param).flat_state()`` on
-the JAX side, paths joined with ``/``.
+the JAX side, paths joined with ``/``. The same bridge fills the perceptual
+loss's VGG (``models/vgg.py``) from the JAX ``VGG16Features``: its HWIO
+kernels sit under ``convs/<name>/kernel`` on both sides.
 """
 
 from __future__ import annotations
