@@ -4,38 +4,46 @@
     python3 chip_smoke.py
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
-It builds the port's four CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
+It builds the port's seven CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
 
 1. holds each kernel against its plain PyTorch version on the card, at every
-   shape the flagship serving pass and train step give it (the attention
-   forward and backward, the conv forward, its input gradient through the
-   same kernel, and the filter gradient), and times the kernel, the plain
-   version and one library call for the same function;
+   shape the flagship serving pass and train step give it (the fused
+   attention forward and backward, the plain masked attention forward and
+   backward, the one-entry-point attention sublayer, the conv forward, its
+   input gradient through the same kernel, and the filter gradient), and
+   times the kernel, the plain version and one library call (or chain of
+   calls) for the same function;
 2. runs the serving pass (encode → keep/drop → fill-blend → decode) at the
    flagship width and reduced depth in float32 on the card and on the CPU,
-   with the same seeded weights, and compares the two;
+   with the same seeded weights, and compares the two, once per attention
+   path (``attention_impl="fused"``, ``"pallas"``, and ``"fused"`` with
+   ``VVT_ATTN_SUBLAYER=1``);
 3. runs the full-depth flagship serving pass in bfloat16 on a batch of
-   2 clips × 16 frames, checks the output, counts the kernels' launches in
-   one pass, times the pass, then traces three passes with
-   ``torch.profiler`` and prints device time per launching torch op (and
-   per kernel for the port's own) and the device's idle share;
+   2 clips × 16 frames on each attention path: checks the output (the new
+   paths against the default path's), counts the kernels' launches in one
+   pass, times the pass, then traces passes with ``torch.profiler`` and
+   prints device time per launching torch op (and per kernel for the port's
+   own) and the device's idle share;
 4. runs one float32 train step (RL forward, the full objective with the VGG
    perceptual loss, backward) at the flagship width and depth 1 on the card
    and on the CPU with the same weights and random draws, and compares the
    loss, every metric and every parameter's gradient;
 5. runs the full-depth flagship train step in bfloat16 on 1 clip × 16
-   frames (remat off): counts every kernel's launches in one step, checks
-   the loss, the gradient norm and the update, times 10 steps, checks that a
-   remat-on step gives the same loss and gradients, and profiles one step.
+   frames (remat off) on each attention path: counts every kernel's launches
+   in one step, checks the loss, the gradient norm and the update, times the
+   steps, holds the new paths' loss to the default path's for the same
+   draws, checks (default path) that a remat-on step gives the same loss and
+   gradients, and profiles a step.
 
 Every failure ends the script with a non-zero exit and no result line. The
 last line of standard output is ``{"ok": true, "device": {...}}``; the line
 before it holds the per-kernel record (times in ms on this card, summed over
-one train step's launches; the serving pass's sums under ``by_path``).
+the launches of the kernel's main path; every path's sums under ``by_path``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -62,13 +70,55 @@ BATCH, FRAMES = 2, 16  # the serving batch; the train step's decoder runs 2 roll
 TRAIN_BATCH = 1
 TIMED_FORWARDS = 10
 TIMED_STEPS, WARMUP_STEPS = 10, 3
+NEW_PATH_TIMED_STEPS = 5
+# bf16 serving pass of a new attention path against the default path's, same weights
+PATH_BF16_TOL = 5e-2
+# bf16 train step of a new path against the default path's for the same draws: the
+# loss is a mean over 1.5 M pixels and 16 frames, so roundings at other places
+# average out; 3e-2 relative is the bound the CPU tests hold the port's bf16 step
+# to against the JAX package
+PATH_LOSS_TOL = 3e-2
 REPLACES = {
     "vvt_fused_attention_fwd": "video_vae_tpu/ops/flash_attention.py:425",
     "vvt_conv3d_cf": "video_vae_tpu/ops/conv3d.py:178",
     "vvt_fused_attention_bwd": "video_vae_tpu/ops/flash_attention.py:724",
     "vvt_conv3d_wgrad": "video_vae_tpu/ops/conv3d.py:873",
+    "vvt_flash_attention_fwd": "video_vae_tpu/ops/flash_attention.py:39",
+    "vvt_flash_attention_bwd": "video_vae_tpu/ops/flash_attention.py:60",
+    "vvt_attention_sublayer": "video_vae_tpu/ops/flash_attention.py:448",
 }
-PATHS = ("train", "serving")
+# attention path -> (ModelConfig.attention_impl, VVT_ATTN_SUBLAYER)
+ATTENTION_PATHS = {"fused": ("fused", False), "pallas": ("pallas", False), "sublayer": ("fused", True)}
+PATHS = ("train", "serving", "serving-pallas", "serving-sublayer", "train-pallas", "train-sublayer")
+# the path whose sums stand at the top level of a kernel's record
+MAIN_PATH = {
+    "vvt_flash_attention_fwd": "train-pallas", "vvt_flash_attention_bwd": "train-pallas",
+    "vvt_attention_sublayer": "train-sublayer",
+}
+
+
+def path_name(entry: str, attention: str) -> str:
+    return entry if attention == "fused" else f"{entry}-{attention}"
+
+
+@contextlib.contextmanager
+def attention_path(cfg, attention: str):
+    """``cfg`` on that attention path, with VVT_ATTN_SUBLAYER set while the block runs."""
+    impl, sublayer = ATTENTION_PATHS[attention]
+    before = os.environ.get("VVT_ATTN_SUBLAYER")
+    os.environ["VVT_ATTN_SUBLAYER"] = "1" if sublayer else "0"
+    try:
+        yield cfg.replace(attention_impl=impl)
+    finally:
+        if before is None:
+            del os.environ["VVT_ATTN_SUBLAYER"]
+        else:
+            os.environ["VVT_ATTN_SUBLAYER"] = before
+
+
+def per_path(per: dict, **paths) -> dict:
+    """Launch counts of ``per`` (by entry point) under other path names."""
+    return {new: per[entry] for new, entry in paths.items() if entry in per}
 
 
 def log(*parts):
@@ -165,8 +215,39 @@ def _record(rows, kernel, case, shape, dtype, err, ms, plain_ms, library_ms, lib
     log("kernel-check", json.dumps(rows[-1]))
 
 
+def _key_mask(cfg, dev, name, B, S, padded):
+    """(key mask or None, kept keys) of one attention case.
+
+    A temporal call's mask is the clips' frame mask expanded over the patches;
+    the bounds count only the keys it leaves in.
+    """
+    import torch
+
+    if not name.startswith("temporal"):
+        return None, B * S
+    clips = B // cfg.num_patches
+    frames = torch.ones(clips, S, dtype=torch.bool)
+    if padded:
+        frames[-1, S - 3:] = False
+    mask = frames[:, None, :].expand(clips, B // clips, S).reshape(B, S).to(dev)
+    return mask, int(mask.sum())
+
+
+def _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype):
+    """(qkv, g, q_scale, k_scale, key mask, kept keys) of one attention case."""
+    import torch
+
+    H, D = cfg.num_heads, cfg.head_dim
+    tdt = getattr(torch, dtype)
+    qkv = torch.randn(B, S, 3 * H * D, generator=gen).to(dev, tdt)
+    g = torch.randn(B, S, H * D, generator=gen).to(dev, tdt)
+    qs = (1 + 0.2 * torch.randn(D, generator=gen)).to(dev)
+    ks = (1 + 0.2 * torch.randn(D, generator=gen)).to(dev)
+    return (qkv, g, qs, ks, *_key_mask(cfg, dev, name, B, S, padded))
+
+
 def phase_attention_kernels(cfg, dev, rows):
-    """Attention forward and backward kernels against their plain versions."""
+    """Fused attention forward and backward kernels against their plain versions."""
     import torch
     import torch.nn.functional as F
 
@@ -175,19 +256,7 @@ def phase_attention_kernels(cfg, dev, rows):
     gen = torch.Generator().manual_seed(0)
     H, D = cfg.num_heads, cfg.head_dim
     for name, B, S, padded, dtype, per in attention_cases(cfg):
-        tdt = getattr(torch, dtype)
-        qkv = torch.randn(B, S, 3 * H * D, generator=gen).to(dev, tdt)
-        g = torch.randn(B, S, H * D, generator=gen).to(dev, tdt)
-        qs = (1 + 0.2 * torch.randn(D, generator=gen)).to(dev)
-        ks = (1 + 0.2 * torch.randn(D, generator=gen)).to(dev)
-        mask = None
-        if name.startswith("temporal"):  # the frame mask, expanded over the patches
-            clips = B // cfg.num_patches
-            frames = torch.ones(clips, S, dtype=torch.bool)
-            if padded:
-                frames[-1, S - 3:] = False
-            mask = frames[:, None, :].expand(clips, B // clips, S).reshape(B, S).to(dev)
-        keys = B * S if mask is None else int(mask.sum())  # the keys this run's mask leaves in
+        qkv, g, qs, ks, mask, keys = _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
         q, k, v = (t.reshape(B, S, H, D).transpose(1, 2).contiguous() for t in qkv.split(H * D, -1))
         amask = None if mask is None else mask[:, None, None, :]
 
@@ -222,9 +291,130 @@ def phase_attention_kernels(cfg, dev, rows):
             time_ms(lambda: torch.autograd.grad(o, leaves, g_heads, retain_graph=True), 10),
             "scaled_dot_product_attention backward, core only",
             bound_ms(nbytes(qkv, g, mask) + nbytes(*got), bwd_flops, dtype),
-            {"train": per["train"]} if per else {},
+            per_path(per, **{"train": "train", "train-sublayer": "train"}),
         )
         del qkv, g, out, got, q, k, v, leaves, o, g_heads
+    torch.cuda.empty_cache()
+
+
+def phase_flash_kernels(cfg, dev, rows):
+    """Plain masked attention forward and backward kernels against their plain versions.
+
+    q and k are contiguous (B, S, H, D) tensors and v a view into a fused QKV
+    projection, as the model's ``"pallas"`` path hands them over.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from video_vae_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(10)
+    H, D = cfg.num_heads, cfg.head_dim
+    for name, B, S, padded, dtype, per in attention_cases(cfg):
+        qkv, g, _, _, mask, keys = _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
+        q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
+        q, k, g = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
+        amask = None if mask is None else mask[:, None, None, :]
+        lq, lk, lv, lg = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))  # SDPA's (B,H,S,D)
+
+        out = fa.flash_attention_cuda(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = check_close(f"flash {name} {dtype}", out, fa.flash_attention_plain(q, k, v, mask), dtype)
+        _record(
+            rows, fa.FLASH_ATTENTION, f"{name} {dtype}", [B, S, H, D], dtype, err,
+            time_ms(lambda: fa.flash_attention_cuda(q, k, v, mask), 20),
+            time_ms(lambda: fa.flash_attention_plain(q, k, v, mask), 5),
+            time_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask), 20),
+            "scaled_dot_product_attention",
+            bound_ms(nbytes(q, k, v, out, mask), 4.0 * H * S * keys * D, dtype),
+            per_path(per, **{"serving-pallas": "serving", "train-pallas": "train"}),
+        )
+
+        got = fa.flash_attention_bwd_cuda(q, k, v, mask, g)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_plain(q, k, v, mask, g)
+        err = max(check_close(f"flash bwd {name} {dtype} {part}", a, b, dtype)
+                  for part, a, b in zip(("dq", "dk", "dv"), got, ref))
+        del ref
+        leaves = [t.detach().requires_grad_() for t in (lq, lk, lv)]
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=amask)
+        _record(
+            rows, fa.FLASH_ATTENTION_BWD, f"{name} {dtype}", [B, S, H, D], dtype, err,
+            time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, mask, g), 10),
+            time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, mask, g), 3),
+            time_ms(lambda: torch.autograd.grad(o, leaves, lg, retain_graph=True), 10),
+            "scaled_dot_product_attention backward",
+            bound_ms(nbytes(q, k, v, g, mask) + nbytes(*got), 10.0 * H * S * keys * D, dtype),
+            per_path(per, **{"train-pallas": "train"}),
+        )
+        del qkv, g, out, got, q, k, v, lq, lk, lv, lg, leaves, o
+    torch.cuda.empty_cache()
+
+
+def phase_sublayer_kernel(cfg, dev, rows):
+    """The attention sublayer kernel against its plain version, both variants.
+
+    The training variant returns y and the qkv and o residuals; the inference
+    variant (the autograd wrapper under ``no_grad``) must give the same y. The
+    library yardstick is the chain LayerNorm -> matmul -> SDPA -> matmul on
+    bf16 weights. The bound counts x in, y out and the weights once (the
+    inference variant) and the two projections plus the attention's products
+    at the bf16 tensor-core peak, whatever x's dtype: the kernel's products
+    run on bf16 operands either way.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from video_vae_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(20)
+    H, D, C = cfg.num_heads, cfg.head_dim, cfg.embed_dim
+    HD = H * D
+    rn = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    params = [t.to(dev) for t in (
+        1 + 0.2 * rn(C), 0.2 * rn(C), rn(C, 3 * HD) / C**0.5, 0.2 * rn(3 * HD),
+        1 + 0.2 * rn(D), 1 + 0.2 * rn(D), 0.1 * rn(HD, C) / HD**0.5, 0.2 * rn(C),
+    )]
+    lng, lnb, wqkv, bqkv, qs, ks, wout, bout = params
+    w16 = [t.to(torch.bfloat16) for t in (wqkv, bqkv, wout, bout)]
+    for name, B, S, padded, dtype, per in attention_cases(cfg):
+        tdt = getattr(torch, dtype)
+        mask, keys = _key_mask(cfg, dev, name, B, S, padded)
+        x = rn(B, S, C).to(dev, tdt)
+        amask = None if mask is None else mask[:, None, None, :]
+
+        def run():
+            return fa.fused_attention_sublayer_cuda(x, lng, lnb, wqkv, bqkv, qs, ks, wout, bout, mask, H)
+
+        def plain():
+            return fa.fused_attention_sublayer_plain(x, lng, lnb, wqkv, bqkv, qs, ks, wout, bout, mask, H)
+
+        def library():
+            xa = F.layer_norm(x, (C,), lng.to(tdt), lnb.to(tdt), 1e-6).to(torch.bfloat16)
+            q, k, v = (t.reshape(B, S, H, D).transpose(1, 2)
+                       for t in (torch.matmul(xa, w16[0]) + w16[1]).split(HD, -1))
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=amask)
+            return x + (torch.matmul(o.transpose(1, 2).reshape(B, S, HD), w16[2]) + w16[3]).to(tdt)
+
+        got = run()
+        torch.cuda.synchronize()
+        # bf16 GEMM operands on both sides whatever x's dtype: the bf16 bound
+        err = max(check_close(f"sublayer {name} {dtype} {part}", a, b, "bfloat16")
+                  for part, a, b in zip(("y", "qkv", "o"), got, plain()))
+        with torch.no_grad():
+            y = fa.fused_attention_sublayer(x, lng, lnb, wqkv, bqkv, qs, ks, wout, bout, mask, H)
+        torch.cuda.synchronize()
+        if not torch.equal(y, got[0]):
+            raise AssertionError(f"sublayer {name} {dtype}: the inference variant's y differs")
+        flops = 2.0 * B * S * C * 3 * HD + 2.0 * B * S * HD * C + 4.0 * H * S * keys * D
+        _record(
+            rows, fa.ATTENTION_SUBLAYER, f"{name} {dtype}", [B, S, C], dtype, err,
+            time_ms(run, 10), time_ms(plain, 2), time_ms(library, 10),
+            "layer_norm -> matmul -> scaled_dot_product_attention -> matmul, bf16 weights",
+            bound_ms(nbytes(x, x, *w16, lng, lnb, mask), flops, "bfloat16"),
+            per_path(per, **{"serving-sublayer": "serving", "train-sublayer": "train"}),
+        )
+        del x, got, y
     torch.cuda.empty_cache()
 
 
@@ -298,38 +488,45 @@ def phase_conv_kernels(cfg, dev, rows):
     torch.cuda.empty_cache()
 
 
-def phase_f32_forward(dev):
-    """Flagship width, depth 1: the float32 serving pass on the card against the CPU."""
+def phase_f32_forward(dev, attention="fused"):
+    """Flagship width, depth 1: the float32 serving pass on the card against the CPU.
+
+    The sublayer path rounds its GEMM operands to bf16 by design, on both
+    devices, so there a rounding that flips is a bf16 step: it is held to the
+    bf16 bound instead.
+    """
     import torch
 
     from video_vae_tpu_torch import ModelConfig, VideoVAE, reconstruct
 
-    cfg = ModelConfig(dtype="float32", encoder_depth=1, decoder_depth=1)
-    cpu_model = VideoVAE(cfg, device="cpu", seed=1)
-    gen = torch.Generator().manual_seed(2)
-    with torch.no_grad():  # the zero-initialised final conv would hide the whole UNet
-        fc = cpu_model.decoder.unet.final_conv.kernel
-        fc.copy_(torch.randn(fc.shape, generator=gen) / fc.shape[-2] ** 0.5)
-    gpu_model = VideoVAE(cfg, device=dev, seed=1)
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    video = torch.rand(1, 8, cfg.height, cfg.width, cfg.channels, generator=gen)
-    mask = torch.ones(1, 8)
-    mask[0, 6:] = 0
-    with torch.inference_mode():
-        keep_cpu = cpu_model.encode(video, mask)[2] >= 0.5
-        keep_gpu = (gpu_model.encode(video.to(dev), mask.to(dev))[2] >= 0.5).cpu()
-    if not torch.equal(keep_cpu, keep_gpu):
-        raise AssertionError(f"keep decisions differ: cpu {keep_cpu.ravel()} gpu {keep_gpu.ravel()}")
-    ref = reconstruct(cpu_model, video, mask, device="cpu")
-    out = reconstruct(gpu_model, video.to(dev), mask.to(dev), device=dev).cpu()
+    tol = KERNEL_TOL["bfloat16"] if attention == "sublayer" else FORWARD_F32_TOL
+    with attention_path(ModelConfig(dtype="float32", encoder_depth=1, decoder_depth=1), attention) as cfg:
+        cpu_model = VideoVAE(cfg, device="cpu", seed=1)
+        gen = torch.Generator().manual_seed(2)
+        with torch.no_grad():  # the zero-initialised final conv would hide the whole UNet
+            fc = cpu_model.decoder.unet.final_conv.kernel
+            fc.copy_(torch.randn(fc.shape, generator=gen) / fc.shape[-2] ** 0.5)
+        gpu_model = VideoVAE(cfg, device=dev, seed=1)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        video = torch.rand(1, 8, cfg.height, cfg.width, cfg.channels, generator=gen)
+        mask = torch.ones(1, 8)
+        mask[0, 6:] = 0
+        with torch.inference_mode():
+            keep_cpu = cpu_model.encode(video, mask)[2] >= 0.5
+            keep_gpu = (gpu_model.encode(video.to(dev), mask.to(dev))[2] >= 0.5).cpu()
+        if not torch.equal(keep_cpu, keep_gpu):
+            raise AssertionError(f"keep decisions differ: cpu {keep_cpu.ravel()} gpu {keep_gpu.ravel()}")
+        ref = reconstruct(cpu_model, video, mask, device="cpu")
+        out = reconstruct(gpu_model, video.to(dev), mask.to(dev), device=dev).cpu()
     if out.shape != ref.shape or not torch.isfinite(out).all():
         raise AssertionError(f"f32 forward: shape {tuple(out.shape)} or non-finite values")
     rel = ((out - ref).abs().max() / ref.abs().max()).item()
-    if not rel <= FORWARD_F32_TOL:
-        raise AssertionError(f"f32 forward card vs CPU: relative max-abs error {rel} > {FORWARD_F32_TOL}")
+    if not rel <= tol:
+        raise AssertionError(f"f32 forward ({attention}) card vs CPU: relative max-abs error {rel} > {tol}")
     log("f32-forward", json.dumps({
+        "attention_path": attention,
         "config": "flagship width, encoder/decoder depth 1, b1 x 8 frames (2 padded)",
-        "rel_max_abs_err": rel, "tol": FORWARD_F32_TOL, "kept_frames": int(keep_cpu.sum()),
+        "rel_max_abs_err": rel, "tol": tol, "kept_frames": int(keep_cpu.sum()),
     }))
 
 
@@ -346,56 +543,98 @@ def read_launches() -> dict:
     return {kernel.symbol: kernel.launches for kernel in KERNELS}
 
 
-def phase_serving(cfg, dev):
-    """Full-depth bf16 serving pass: launch counts of one pass, its time, its profile."""
+def expected_launches(cfg, entry: str, attention: str) -> dict:
+    """Launches of every kernel in one serving pass or one train step on a path.
+
+    Two attention calls per block; the mixer, 2 convs per down and up block
+    and 2 bottleneck convs. A train step adds each conv's input gradient
+    (the forward kernel again) and filter gradient, and each attention's
+    backward; the sublayer's backward is the fused attention backward.
+    """
+    from video_vae_tpu_torch.ops import KERNELS
+
+    attn = 2 * (cfg.encoder_depth + cfg.decoder_depth)
+    convs = 1 + 4 * cfg.unet_levels + 2
+    train = entry == "train"
+    forward, backward = {
+        "fused": ("vvt_fused_attention_fwd", "vvt_fused_attention_bwd"),
+        "pallas": ("vvt_flash_attention_fwd", "vvt_flash_attention_bwd"),
+        "sublayer": ("vvt_attention_sublayer", "vvt_fused_attention_bwd"),
+    }[attention]
+    want = {kernel.symbol: 0 for kernel in KERNELS}
+    want["vvt_conv3d_cf"] = 2 * convs if train else convs
+    want[forward] = attn
+    if train:
+        want["vvt_conv3d_wgrad"] = convs
+        want[backward] = attn
+    return want
+
+
+def phase_serving(cfg, dev, attention="fused", reference=None):
+    """Full-depth bf16 serving pass on one attention path: launch counts of one
+    pass, its time, its profile. ``reference`` is the default path's (output,
+    keep probabilities); a new path is held to it. Returns (launches, (output,
+    probabilities))."""
     import torch
 
     from video_vae_tpu_torch import VideoVAE, reconstruct
 
-    model = VideoVAE(cfg, device=dev, seed=0)
-    gen = torch.Generator().manual_seed(3)
-    video = torch.rand(BATCH, FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
-    mask = torch.ones(BATCH, FRAMES, device=dev)
-    mask[1, FRAMES - 3:] = 0
+    label = path_name("serving", attention)
+    with attention_path(cfg, attention) as cfg:
+        model = VideoVAE(cfg, device=dev, seed=0)
+        gen = torch.Generator().manual_seed(3)
+        video = torch.rand(BATCH, FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
+        mask = torch.ones(BATCH, FRAMES, device=dev)
+        mask[1, FRAMES - 3:] = 0
 
-    reset_launches()
-    out = reconstruct(model, video, mask, device=dev)
-    torch.cuda.synchronize()
-    launches = read_launches()
-
-    want = (BATCH, FRAMES, cfg.height, cfg.width, cfg.channels)
-    if tuple(out.shape) != want or not torch.isfinite(out.float()).all():
-        raise AssertionError(f"serving pass: shape {tuple(out.shape)} (want {want}) or non-finite")
-    expected = {  # two attention calls per block; the mixer, 2 per down/up block, 2 bottleneck
-        "vvt_fused_attention_fwd": 2 * (cfg.encoder_depth + cfg.decoder_depth),
-        "vvt_conv3d_cf": 1 + 4 * cfg.unet_levels + 2,
-        "vvt_fused_attention_bwd": 0,
-        "vvt_conv3d_wgrad": 0,
-    }
-    if launches != expected:
-        raise AssertionError(f"launches per serving pass {launches}, expected {expected}")
-
-    for _ in range(2):
-        reconstruct(model, video, mask, device=dev)
-    times = []
-    for _ in range(TIMED_FORWARDS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        reconstruct(model, video, mask, device=dev)
-        end.record()
+        reset_launches()
+        out = reconstruct(model, video, mask, device=dev)
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = statistics.median(times)
-    log("serving", json.dumps({
-        "config": f"flagship, bf16, b{BATCH} x {FRAMES} frames", "launches": launches,
-        "ms_per_forward_median": ms, "clips_per_s": BATCH / (ms / 1e3),
-        "ms_per_forward_all": times,
-        "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-    }))
-    profile_device("serving", lambda: reconstruct(model, video, mask, device=dev), ms)
+        launches = read_launches()
+
+        want = (BATCH, FRAMES, cfg.height, cfg.width, cfg.channels)
+        if tuple(out.shape) != want or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"{label} pass: shape {tuple(out.shape)} (want {want}) or non-finite")
+        expected = expected_launches(cfg, "serving", attention)
+        if launches != expected:
+            raise AssertionError(f"launches per {label} pass {launches}, expected {expected}")
+        with torch.inference_mode():
+            prob = model.encode(video.to(cfg.compute_dtype()), mask)[2].float()
+        versus = {}
+        if reference is not None:
+            ref_out, ref_prob = reference
+            rel = ((out.float() - ref_out.float()).abs().max() / ref_out.float().abs().max()).item()
+            clear = ((ref_prob - 0.5).abs() > MIN_MARGIN) & ((prob - 0.5).abs() > MIN_MARGIN)
+            if not rel <= PATH_BF16_TOL:
+                raise AssertionError(f"{label} vs the default path: relative max-abs error {rel} > {PATH_BF16_TOL}")
+            if not torch.equal((prob >= 0.5)[clear], (ref_prob >= 0.5)[clear]):
+                raise AssertionError(f"{label}: keep decisions differ from the default path's")
+            versus = {"rel_max_abs_err_vs_default": rel, "tol": PATH_BF16_TOL,
+                      "keep_decisions_compared": int(clear.sum()), "kept": int((prob >= 0.5).sum())}
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(2):
+            reconstruct(model, video, mask, device=dev)
+        times = []
+        for _ in range(TIMED_FORWARDS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            reconstruct(model, video, mask, device=dev)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        log(label, json.dumps({
+            "config": f"flagship, bf16, b{BATCH} x {FRAMES} frames, attention path {attention}",
+            "launches": launches, "ms_per_forward_median": ms, "clips_per_s": BATCH / (ms / 1e3),
+            "ms_per_forward_all": times,
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30, **versus,
+        }))
+        profile_device(label, lambda: reconstruct(model, video, mask, device=dev), ms,
+                       passes=3 if attention == "fused" else 2)
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, (out, prob)
 
 
 def profile_device(label: str, run, ms_per_run: float, passes: int = 3):
@@ -534,8 +773,16 @@ def _set_remat(model, on: bool):
             module.remat = on
 
 
-def phase_train(cfg, dev):
-    """Full-depth bf16 b1 x 16f train step: launches, checks, time, remat, profile."""
+def phase_train(cfg, dev, attention="fused", reference=None):
+    """Full-depth bf16 b1 x 16f train step on one attention path.
+
+    Launch counts of one step, checks of the metrics and the update, the step
+    time and peak memory, then the loss for fixed draws. On the default path
+    those draws are made here, the remat-on step is held to the remat-off one
+    and 10 steps are timed; a new path takes the default path's ``reference``
+    (draws, loss, kept-frame density), is held to it, and times 5 steps.
+    Returns (launches, reference).
+    """
     import torch
 
     from video_vae_tpu_torch import (
@@ -549,92 +796,107 @@ def phase_train(cfg, dev):
     )
     from video_vae_tpu_torch.train.step import loss_and_grads
 
-    model = VideoVAE(cfg, device=dev, seed=0)
-    opt = create_optimizer(model, OptimConfig())
-    loss_cfg, hp = LossConfig(), DynamicHParams.default()
-    perceptual = build_perceptual(loss_cfg, device=dev)
-    gen = torch.Generator().manual_seed(8)
-    video = torch.rand(TRAIN_BATCH, FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
-    mask = torch.ones(TRAIN_BATCH, FRAMES, device=dev)
-    draws = torch.Generator(device=dev).manual_seed(9)
+    label = path_name("train", attention)
+    default = attention == "fused"
+    with attention_path(cfg, attention) as cfg:
+        model = VideoVAE(cfg, device=dev, seed=0)
+        opt = create_optimizer(model, OptimConfig())
+        loss_cfg, hp = LossConfig(), DynamicHParams.default()
+        perceptual = build_perceptual(loss_cfg, device=dev)
+        gen = torch.Generator().manual_seed(8)
+        video = torch.rand(TRAIN_BATCH, FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
+        mask = torch.ones(TRAIN_BATCH, FRAMES, device=dev)
+        draws = torch.Generator(device=dev).manual_seed(9)
+        video_c = video.to(cfg.compute_dtype())
 
-    def step():
-        return train_step(model, opt, video, mask, hp, loss_cfg, perceptual, generator=draws)
+        # the loss for fixed draws, before any update: what the paths are compared on
+        if default:
+            noise, uniforms = _draws(model, video_c, mask, seed=10)
+        else:
+            noise, uniforms = reference["draws"]
+        torch.backends.cudnn.deterministic = True  # the VGG's cuDNN algorithms, run to run
+        loss0, metrics0, grads0 = loss_and_grads(model, video_c, mask, hp, loss_cfg, perceptual,
+                                                 noise=noise.to(dev), uniforms=uniforms.to(dev))
+        fixed = {"loss": float(loss0.detach()), "kept_frame_density": float(metrics0["kept_frame_density"])}
+        versus = {}
+        if default:
+            # remat on and off: the same loss and gradients for the same draws
+            _set_remat(model, True)
+            loss1, _, grads1 = loss_and_grads(model, video_c, mask, hp, loss_cfg, perceptual,
+                                              noise=noise.to(dev), uniforms=uniforms.to(dev))
+            _set_remat(model, False)
+            l0, l1 = fixed["loss"], float(loss1.detach())
+            worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                        for a, b in zip(grads1, grads0))
+            if not (abs(l0 - l1) <= 1e-6 * abs(l0) and worst <= 1e-5):
+                raise AssertionError(f"remat on vs off: loss {l1} vs {l0}, worst gradient error {worst}")
+            log("train-remat", json.dumps({"loss_remat_off": l0, "loss_remat_on": l1, "worst_grad_rel_err": worst}))
+            del grads1
+        else:
+            ref_loss = reference["loss"]
+            if fixed["kept_frame_density"] != reference["kept_frame_density"]:
+                raise AssertionError(f"{label}: keep decisions differ from the default path's for the same draws")
+            if not abs(fixed["loss"] - ref_loss) <= PATH_LOSS_TOL * abs(ref_loss):
+                raise AssertionError(f"{label}: loss {fixed['loss']} vs the default path's {ref_loss}")
+            versus = {"loss_fixed_draws": fixed["loss"], "default_path_loss": ref_loss,
+                      "rel_err": abs(fixed["loss"] - ref_loss) / abs(ref_loss), "tol": PATH_LOSS_TOL}
+        torch.backends.cudnn.deterministic = False
+        del grads0, loss0, metrics0
 
-    initial = [p.detach().clone() for p in model.parameters()]
-    reset_launches()
-    first = step()
-    torch.cuda.synchronize()
-    launches = read_launches()
-    expected = {
-        "vvt_fused_attention_fwd": 2 * (cfg.encoder_depth + cfg.decoder_depth),
-        "vvt_fused_attention_bwd": 2 * (cfg.encoder_depth + cfg.decoder_depth),
-        "vvt_conv3d_cf": 2 * (1 + 4 * cfg.unet_levels + 2),  # forward and input gradient
-        "vvt_conv3d_wgrad": 1 + 4 * cfg.unet_levels + 2,
-    }
-    if launches != expected:
-        raise AssertionError(f"launches per train step {launches}, expected {expected}")
-    metrics = {k: float(v) for k, v in first.items()}
-    if not all(map(lambda v: v == v and abs(v) != float("inf"), metrics.values())):
-        raise AssertionError(f"train step: non-finite metrics {metrics}")
-    if not metrics["grad_norm"] > 0:
-        raise AssertionError(f"train step: grad_norm {metrics['grad_norm']}")
-    if any(not torch.equal(p, q) for p, q in zip(model.parameters(), initial)):
-        raise AssertionError("the first step (lr 0) changed a parameter")
-    second = {k: float(v) for k, v in step().items()}
-    changed = sum(not torch.equal(p, q) for p, q in zip(model.parameters(), initial))
-    if changed == 0:
-        raise AssertionError("no parameter changed by step 2")
-    del initial
+        def step():
+            return train_step(model, opt, video, mask, hp, loss_cfg, perceptual, generator=draws)
 
-    for _ in range(WARMUP_STEPS - 2):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    times = []
-    for _ in range(TIMED_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        step()
-        end.record()
+        initial = [p.detach().clone() for p in model.parameters()]
+        reset_launches()
+        first = step()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = statistics.median(times)
-    log("train", json.dumps({
-        "config": f"flagship, bf16 compute, f32 params, b{TRAIN_BATCH} x {FRAMES} frames, "
-                  "rl (2 rollouts), perceptual on, remat off",
-        "launches": launches, "ms_per_step_median": ms, "ms_per_step_all": times,
-        "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-        "step1_metrics": metrics, "step2_metrics": second, "leaves_changed_by_step2": changed,
-        "leaves": len(list(model.parameters())),
-    }))
+        launches = read_launches()
+        expected = expected_launches(cfg, "train", attention)
+        if launches != expected:
+            raise AssertionError(f"launches per {label} step {launches}, expected {expected}")
+        metrics = {k: float(v) for k, v in first.items()}
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), metrics.values())):
+            raise AssertionError(f"{label} step: non-finite metrics {metrics}")
+        if not metrics["grad_norm"] > 0:
+            raise AssertionError(f"{label} step: grad_norm {metrics['grad_norm']}")
+        if any(not torch.equal(p, q) for p, q in zip(model.parameters(), initial)):
+            raise AssertionError("the first step (lr 0) changed a parameter")
+        second = {k: float(v) for k, v in step().items()}
+        changed = sum(not torch.equal(p, q) for p, q in zip(model.parameters(), initial))
+        if changed == 0:
+            raise AssertionError("no parameter changed by step 2")
+        del initial
 
-    # remat on and off: the same loss and gradients for the same draws
-    video_c, mask_c = video.to(cfg.compute_dtype()), mask
-    noise = torch.randn((TRAIN_BATCH, FRAMES, cfg.num_patches, cfg.latent_dim), generator=gen)
-    uniforms = torch.rand((2 * TRAIN_BATCH, FRAMES, 1, 1), generator=gen)
-    outs = []
-    torch.backends.cudnn.deterministic = True  # the VGG's cuDNN algorithms, run to run
-    for on in (False, True):
-        _set_remat(model, on)
-        loss, _, grads = loss_and_grads(model, video_c, mask_c, hp, loss_cfg, perceptual,
-                                        noise=noise.to(dev), uniforms=uniforms.to(dev))
-        outs.append((float(loss.detach()), grads))
-    _set_remat(model, False)
-    torch.backends.cudnn.deterministic = False
-    (l0, g0), (l1, g1) = outs
-    worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(g1, g0))
-    if not (abs(l0 - l1) <= 1e-6 * abs(l0) and worst <= 1e-5):
-        raise AssertionError(f"remat on vs off: loss {l1} vs {l0}, worst gradient error {worst}")
-    log("train-remat", json.dumps({"loss_remat_off": l0, "loss_remat_on": l1, "worst_grad_rel_err": worst}))
-    del outs, g0, g1
-
-    profile_device("train", step, ms, passes=2)
-    return launches
+        for _ in range(WARMUP_STEPS - 2):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(TIMED_STEPS if default else NEW_PATH_TIMED_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        log(label, json.dumps({
+            "config": f"flagship, bf16 compute, f32 params, b{TRAIN_BATCH} x {FRAMES} frames, "
+                      f"rl (2 rollouts), perceptual on, remat off, attention path {attention}",
+            "launches": launches, "ms_per_step_median": ms, "ms_per_step_all": times,
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "step1_metrics": metrics, "step2_metrics": second, "leaves_changed_by_step2": changed,
+            "leaves": len(list(model.parameters())), **versus,
+        }))
+        profile_device(label, step, ms, passes=2 if default else 1)
+    del model, opt, perceptual
+    torch.cuda.empty_cache()
+    return launches, {"draws": (noise, uniforms), **fixed}
 
 
 def kernel_record(rows, launches_by_path):
-    """One entry per kernel; times and bounds summed over one train step.
+    """One entry per kernel; times and bounds summed over the launches of its main
+    path (the default train step, or the train step of the path that runs it).
 
     ``by_path`` holds the same sums for each path that runs the kernel.
     """
@@ -660,7 +922,7 @@ def kernel_record(rows, launches_by_path):
                 "bound_by": "operations" if 2 * by_ops >= total("bound_ms") else "bytes",
                 "library_ms": total("library_ms"),
             }
-        main = by_path["train"]
+        main = by_path[MAIN_PATH.get(kernel.symbol, "train")]
         out.append({
             "name": kernel.symbol, "route": "cuda",
             "source": f"video_vae_tpu_torch/csrc/{kernel.source}",
@@ -704,12 +966,22 @@ def main() -> int:
     cfg = ModelConfig()
     rows = []
     phase_attention_kernels(cfg, dev, rows)
+    phase_flash_kernels(cfg, dev, rows)
+    phase_sublayer_kernel(cfg, dev, rows)
     phase_conv_kernels(cfg, dev, rows)
-    phase_f32_forward(dev)
-    serving = phase_serving(cfg, dev)
+    launches = {}
+    serving_ref = train_ref = None
+    for attention in ATTENTION_PATHS:
+        phase_f32_forward(dev, attention)
+        launches[path_name("serving", attention)], out = phase_serving(cfg, dev, attention, serving_ref)
+        serving_ref = serving_ref or out
     phase_f32_train(dev)
-    train = phase_train(cfg.replace(remat=False), dev)
-    log(json.dumps(kernel_record(rows, {"serving": serving, "train": train})))
+    for attention in ATTENTION_PATHS:
+        launches[path_name("train", attention)], ref = phase_train(
+            cfg.replace(remat=False), dev, attention, train_ref
+        )
+        train_ref = train_ref or ref
+    log(json.dumps(kernel_record(rows, launches)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

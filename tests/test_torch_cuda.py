@@ -19,8 +19,18 @@ from video_vae_tpu_torch.ops.conv3d import (
     conv3d_wgrad_plain,
 )
 from video_vae_tpu_torch.ops.flash_attention import (
+    ATTENTION_SUBLAYER,
+    FLASH_ATTENTION,
+    FLASH_ATTENTION_BWD,
     FUSED_ATTENTION,
     FUSED_ATTENTION_BWD,
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_plain,
+    flash_attention_cuda,
+    flash_attention_plain,
+    fused_attention_sublayer,
+    fused_attention_sublayer_cuda,
+    fused_attention_sublayer_plain,
     fused_qkv_attention,
     fused_qkv_attention_bwd_cuda,
     fused_qkv_attention_bwd_plain,
@@ -177,3 +187,138 @@ def test_attention_backward_launches_bwd_kernel(device):
     torch.cuda.synchronize()
     assert FUSED_ATTENTION_BWD.launches == before + 1
     assert all(torch.isfinite(x).all() for x in grads)
+
+
+def _flash_inputs(device, dtype, B, S, masked, strided):
+    H, D = 8, 64
+    gen = torch.Generator(device="cpu").manual_seed(S + 2)
+    if strided:  # q, k, v as views into one fused (B, S, 3*H*D) projection
+        qkv = torch.randn(B, S, 3 * H * D, generator=gen).to(device, dtype)
+        q, k, v = (t.reshape(B, S, H, D) for t in qkv.chunk(3, dim=-1))
+        assert not v.is_contiguous()
+    else:
+        q, k, v = (torch.randn(B, S, H, D, generator=gen).to(device, dtype) for _ in range(3))
+    g = torch.randn(B, S, H, D, generator=gen).to(device, dtype)
+    mask = None
+    if masked:
+        lengths = torch.randint(0, S + 1, (B,), generator=gen)  # 0: a fully masked sequence
+        lengths[0] = 0
+        mask = (torch.arange(S)[None, :] < lengths[:, None]).to(device)
+    return q, k, v, g, mask
+
+
+FLASH_CASES = [(40, 16, True, False), (3, 256, False, True), (5, 37, True, True), (2, 200, True, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,masked,strided", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(device, dtype, B, S, masked, strided):
+    q, k, v, _, mask = _flash_inputs(device, dtype, B, S, masked, strided)
+    before = FLASH_ATTENTION.launches
+    out = flash_attention_cuda(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION.launches == before + 1
+    ref = flash_attention_plain(q, k, v, mask)
+    assert out.dtype == dtype and out.is_contiguous() and torch.isfinite(out.float()).all()
+    assert _rel_err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,masked,strided", FLASH_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(device, dtype, B, S, masked, strided):
+    q, k, v, g, mask = _flash_inputs(device, dtype, B, S, masked, strided)
+    before = FLASH_ATTENTION_BWD.launches
+    out = flash_attention_bwd_cuda(q, k, v, mask, g)
+    again = flash_attention_bwd_cuda(q, k, v, mask, g)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION_BWD.launches == before + 2
+    ref = flash_attention_bwd_plain(q, k, v, mask, g)
+    for a, b, c in zip(out, ref, again):
+        assert a.dtype == dtype and _rel_err(a, b) <= TOL[dtype]
+        assert torch.equal(a, c)  # no atomics: the same bits on every run
+
+
+def _sublayer_args(device, dtype, B, S, C, H, masked):
+    D = 64
+    gen = torch.Generator(device="cpu").manual_seed(B + S)
+    rn = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    args = [
+        rn(B, S, C).to(dtype), 1 + 0.2 * rn(C), 0.2 * rn(C), rn(C, 3 * H * D) / C**0.5,
+        0.2 * rn(3 * H * D), 1 + 0.2 * rn(D), 1 + 0.2 * rn(D), rn(H * D, C) / (H * D) ** 0.5,
+        0.2 * rn(C),
+    ]
+    mask = None
+    if masked:
+        lengths = torch.randint(1, S + 1, (B,), generator=gen)
+        mask = (torch.arange(S)[None, :] < lengths[:, None]).to(device)
+    return [a.to(device) for a in args], mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,C,H,masked",
+    [(64, 16, 768, 8, True), (3, 256, 768, 8, False), (5, 37, 136, 3, True)],  # the last: ragged tiles
+)
+def test_attention_sublayer_kernel_matches_plain(device, dtype, B, S, C, H, masked):
+    args, mask = _sublayer_args(device, dtype, B, S, C, H, masked)
+    before, fused_before = ATTENTION_SUBLAYER.launches, FUSED_ATTENTION.launches
+    out = fused_attention_sublayer_cuda(*args, mask, H)
+    torch.cuda.synchronize()
+    assert ATTENTION_SUBLAYER.launches == before + 1
+    assert FUSED_ATTENTION.launches == fused_before  # its attention is the sublayer's own launch
+    ref = fused_attention_sublayer_plain(*args, mask, H)
+    # both sides round the GEMM operands to bf16 whatever x's dtype is
+    for name, a, b in zip(("y", "qkv", "o"), out, ref):
+        assert a.dtype == dtype and _rel_err(a, b) <= TOL[torch.bfloat16], name
+
+
+def test_attention_sublayer_backward_launches_fused_bwd_kernel(device):
+    args, mask = _sublayer_args(device, torch.bfloat16, 6, 16, 768, 8, True)
+    leaves = [a.requires_grad_() for a in args]
+    counts = (ATTENTION_SUBLAYER.launches, FUSED_ATTENTION.launches, FUSED_ATTENTION_BWD.launches)
+    y = fused_attention_sublayer(*leaves, mask, 8)
+    g = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)).to(device, y.dtype)
+    grads = torch.autograd.grad(y, leaves, g)
+    torch.cuda.synchronize()
+    assert ATTENTION_SUBLAYER.launches == counts[0] + 1
+    assert FUSED_ATTENTION.launches == counts[1] and FUSED_ATTENTION_BWD.launches == counts[2] + 1
+    cpu = [a.detach().cpu().requires_grad_() for a in args]
+    ref = torch.autograd.grad(fused_attention_sublayer(*cpu, mask.cpu(), 8), cpu, g.cpu())
+    for a, b in zip(grads, ref):
+        assert a.dtype == b.dtype and _rel_err(a.cpu(), b) <= TOL[torch.bfloat16]
+
+
+def _small_model(device, **overrides):
+    from video_vae_tpu_torch import ModelConfig, VideoVAE
+
+    cfg = ModelConfig(height=64, width=64, encoder_depth=1, decoder_depth=1, remat=False, **overrides)
+    return cfg, VideoVAE(cfg, device=device, seed=0)
+
+
+@pytest.mark.parametrize("path", ["pallas", "sublayer"])
+def test_model_paths_launch_their_kernels(device, path, monkeypatch):
+    """One train step per path: 2 attention calls per block, forward and backward."""
+    from video_vae_tpu_torch import DynamicHParams, LossConfig
+    from video_vae_tpu_torch.ops import KERNELS
+    from video_vae_tpu_torch.train.step import loss_and_grads
+
+    if path == "sublayer":
+        monkeypatch.setenv("VVT_ATTN_SUBLAYER", "1")
+        cfg, model = _small_model(device, attention_impl="fused")
+        used = {"vvt_attention_sublayer": 4, "vvt_fused_attention_bwd": 4}
+    else:
+        monkeypatch.delenv("VVT_ATTN_SUBLAYER", raising=False)
+        cfg, model = _small_model(device, attention_impl="pallas")
+        used = {"vvt_flash_attention_fwd": 4, "vvt_flash_attention_bwd": 4}
+    before = {k.symbol: k.launches for k in KERNELS}
+    video = torch.rand(1, 4, 64, 64, 3, generator=torch.Generator().manual_seed(0)).to(device)
+    loss, _, grads = loss_and_grads(
+        model, video, torch.ones(1, 4, device=device), DynamicHParams.default(),
+        LossConfig(use_perceptual=False), None, generator=torch.Generator(device=device).manual_seed(1),
+    )
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
+    for kernel in KERNELS:
+        if kernel.symbol.startswith("vvt_conv3d"):
+            continue
+        assert kernel.launches - before[kernel.symbol] == used.get(kernel.symbol, 0), kernel.symbol

@@ -247,6 +247,12 @@ def test_remat_matches_no_remat(jax_f32):
 
 
 def test_ste_mode_is_not_ported_yet():
+    """The name dates from when "ste" raised; the mode now runs (its values are
+    held to the JAX package in test_torch_attention_paths.py)."""
     model = VideoVAE(tiny_config(selection_mode="ste").model, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 8, 32, 32, 3), torch.ones(1, 8))
+    with torch.no_grad():
+        out = model(torch.rand(1, 8, 32, 32, 3), torch.ones(1, 8),
+                    generator=torch.Generator().manual_seed(0))
+    assert out.rollouts == 1 and out.reconstruction.shape == (1, 8, 32, 32, 3)
+    assert out.selection_mask.shape == (1, 8, 1, 1)
+    assert set(out.selection_mask.unique().tolist()) <= {0.0, 1.0}

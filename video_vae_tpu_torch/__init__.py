@@ -17,7 +17,7 @@ from video_vae_tpu_torch.core.config import (
 from video_vae_tpu_torch.models.vae import VideoVAE
 from video_vae_tpu_torch.train.checkpoint import load_jax_params
 from video_vae_tpu_torch.train.setup import create_optimizer
-from video_vae_tpu_torch.train.step import build_perceptual, reconstruct, train_step
+from video_vae_tpu_torch.train.step import build_perceptual, eval_step, reconstruct, train_step
 
 __all__ = [
     "DynamicHParams",
@@ -28,6 +28,7 @@ __all__ = [
     "VideoVAE",
     "build_perceptual",
     "create_optimizer",
+    "eval_step",
     "load_jax_params",
     "reconstruct",
     "tiny_config",

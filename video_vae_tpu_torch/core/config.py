@@ -2,10 +2,12 @@
 
 Field names and defaults are those of the JAX package's ``core/config.py``
 (a test holds the field sets equal), so one config describes both models.
-Layout-only fields (``unet_layout``, ``unet_s2d_full``, ``unet_s2d_last``,
-``attention_impl``, ``scan_rollout_decode``) are accepted and change nothing
-here: the port always computes the unpacked channels-first math in one
-batched decode, which those options leave unchanged in the JAX package.
+Layout-only fields (``unet_layout``, ``unet_s2d_full``, ``unet_s2d_last``)
+are accepted and change nothing here: the port always computes the unpacked
+channels-first math, which those options leave unchanged in the JAX package.
+``attention_impl`` picks the attention chain of every block (``"fused"``,
+``"xla"`` or ``"pallas"``) and ``scan_rollout_decode`` decodes the paired
+rollouts one at a time, as in the JAX package.
 ``remat`` acts as in the JAX package: in training, each ``FactoredAttention``
 block and each UNet down and up block runs under activation checkpointing
 (same math, less memory, a second forward in the backward).

@@ -1,0 +1,163 @@
+// Plain masked attention forward over separate q, k, v of layout (B, S, H, D).
+//
+// Replaces: video_vae_tpu/ops/flash_attention.py, _flash_fwd -> _fwd_kernel.
+// Per (sequence, head): s = q k^T / sqrt(D) in f32, masked keys set to -1e30
+// (so a fully masked row gets uniform weights), p = exp(s - max) / sum in f32,
+// p rounded to v's dtype, o = p v accumulated in f32, one rounding to the
+// output dtype. D = 64, S <= 256; f32 or bf16.
+//
+// What bounds it on the H100: 4 * S * S * D FLOPs per (sequence, head) over
+// 3 * S * D inputs and S * D outputs; at the model's shapes (S = 16 and
+// S = 256, B * H = 4096 .. 256 pairs) that is bytes-bound on paper, about
+// 10 us at 3.35 TB/s. This version does its arithmetic in f32 on the CUDA
+// cores, so at S = 256 the FLOPs on the 67 TFLOP/s f32 pipe are the real limit.
+//
+// What the design does about it: the layout of fused_attention.cu. One thread
+// owns one query row (q and the f32 accumulator in registers); k and v of the
+// block's (sequence, head) pairs sit in shared memory as f32 and are read as
+// broadcasts; a block holds 256 rows (one pair at S = 256, sixteen at S = 16).
+// The TPU kernel normalises p and rounds it to v's dtype before p v, which an
+// online softmax cannot reproduce, so the keys are walked twice: once for the
+// row max and sum, once for the rounded normalised weights times v. The scores
+// are recomputed in the second walk (6 * S * S * D FLOPs in all) rather than
+// kept, since 256 scores per thread do not fit in registers. Each tensor is
+// addressed as base + (b * S + i) * row_stride + h * D + d, so v may be a view
+// into the fused QKV projection.
+
+#include "flash_common.cuh"
+
+namespace {
+
+constexpr int MAX_ROWS = 256;  // query rows (= threads) per block
+
+__device__ __forceinline__ float dot_row(const float (&q)[D], const float* row) {
+  const float4* r4 = reinterpret_cast<const float4*>(row);
+  float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+#pragma unroll
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const float4 kk = r4[d4];
+    p0 = fmaf(q[4 * d4], kk.x, p0);
+    p1 = fmaf(q[4 * d4 + 1], kk.y, p1);
+    p2 = fmaf(q[4 * d4 + 2], kk.z, p2);
+    p3 = fmaf(q[4 * d4 + 3], kk.w, p3);
+  }
+  return (p0 + p1) + (p2 + p3);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(MAX_ROWS)
+flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const unsigned char* __restrict__ mask,
+                           T* __restrict__ out, long long q_stride, long long k_stride,
+                           long long v_stride, int B, int S, int H, int pairs_per_block,
+                           float scale) {
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);
+  const int rows = pairs_per_block * S;  // row r: local pair r / S, position r % S
+  float* v_s = k_s + rows * ROW;
+  float* keep = v_s + rows * ROW;  // 1: key kept, 0: key masked
+  const long long n_pairs = (long long)B * H;
+  const long long pair0 = (long long)blockIdx.x * pairs_per_block;
+  const int r = threadIdx.x;
+
+  stage_heads(k_s, k, k_stride, pair0, rows, S, H, n_pairs);
+  stage_heads(v_s, v, v_stride, pair0, rows, S, H, n_pairs);
+  for (int rr = threadIdx.x; rr < rows; rr += blockDim.x) {
+    const long long pair = pair0 + rr / S;
+    float kp = 1.f;
+    if (mask != nullptr && pair < n_pairs) kp = mask[(pair / H) * S + rr % S] ? 1.f : 0.f;
+    keep[rr] = kp;
+  }
+  __syncthreads();
+  if (r >= rows || pair0 + r / S >= n_pairs) return;
+
+  const int g = r / S, i = r % S;
+  const long long pair = pair0 + g;
+  const long long b = pair / H;
+  const int h = (int)(pair % H);
+  float qr[D];
+  {
+    const T* src = q + (b * S + i) * q_stride + h * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) qr[d] = to_float(src[d]);
+  }
+  const float* kb = k_s + g * S * ROW;
+  const float* vb = v_s + g * S * ROW;
+  const float* kp = keep + g * S;
+
+  // first walk: the row max m and l = sum_j exp(s_j - m)
+  float m = -INFINITY, l = 0.f;
+  for (int j = 0; j < S; ++j) {
+    float s = dot_row(qr, kb + j * ROW) * scale;
+    if (kp[j] == 0.f) s = NEG_INF;
+    const float m_new = fmaxf(m, s);
+    l = l * expf(m - m_new) + expf(s - m_new);  // expf(-inf) = 0 on the first key
+    m = m_new;
+  }
+  const float inv_l = 1.f / l;
+
+  // second walk: normalised weights, rounded to v's dtype, times v
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int j = 0; j < S; ++j) {
+    float s = dot_row(qr, kb + j * ROW) * scale;
+    if (kp[j] == 0.f) s = NEG_INF;
+    const float p = to_float(from_float<T>(expf(s - m) * inv_l));
+    const float4* vr = reinterpret_cast<const float4*>(vb + j * ROW);
+#pragma unroll
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      const float4 vv = vr[d4];
+      acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
+      acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
+      acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
+      acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+    }
+  }
+  T* o = out + ((b * S + i) * H + h) * D;
+#pragma unroll
+  for (int d = 0; d < D; ++d) o[d] = from_float<T>(acc[d]);
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
+                   long long q_stride, long long k_stride, long long v_stride, int B, int S, int H,
+                   cudaStream_t stream) {
+  const int pairs_per_block = MAX_ROWS / S;
+  const int rows = pairs_per_block * S;
+  const int threads = (rows + 31) / 32 * 32;
+  const size_t smem = (2 * (size_t)rows * ROW + rows) * sizeof(float);
+  auto kernel = flash_attention_fwd_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long n_pairs = (long long)B * H;
+  const unsigned blocks = (unsigned)((n_pairs + pairs_per_block - 1) / pairs_per_block);
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const unsigned char*>(mask), static_cast<T*>(out), q_stride, k_stride, v_stride,
+      B, S, H, pairs_per_block, 1.f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, out). mask: (B, S) uint8 key mask, or null.
+// *_stride: elements between rows (b, i) and (b, i + 1) of that tensor; out is contiguous.
+extern "C" int vvt_flash_attention_fwd(const void* q, const void* k, const void* v,
+                                       const void* mask, void* out, long long q_stride,
+                                       long long k_stride, long long v_stride, int B, int S, int H,
+                                       int head_dim, int dtype, void* stream) {
+  if (head_dim != D || S < 1 || S > MAX_ROWS || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch<float>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H, st);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H,
+                                      st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* vvt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

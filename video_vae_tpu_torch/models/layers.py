@@ -10,6 +10,7 @@ its parameters in the param dtype, as the JAX modules do.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -18,8 +19,10 @@ from einops import rearrange
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from video_vae_tpu_torch.ops.flash_attention import fused_qkv_attention
+from video_vae_tpu_torch.ops.attention import masked_attention
+from video_vae_tpu_torch.ops.flash_attention import fused_attention_sublayer, fused_qkv_attention
 from video_vae_tpu_torch.ops.norm import LN_EPS, layer_norm
+from video_vae_tpu_torch.ops.rope import apply_rope
 
 # stddev of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -134,15 +137,23 @@ class PatchUnEmbedding(nn.Module):
 
 
 class Attention(nn.Module):
-    """Pre-LN multi-head attention: fused QKV, per-head QK-norm, RoPE."""
+    """Pre-LN multi-head attention: fused QKV, per-head QK-norm, RoPE.
+
+    ``attention_impl`` picks the chain after the QKV projection, as in the
+    JAX module: ``"fused"`` is one kernel off the fused projection (f32
+    statistics and rotation, one rounding); ``"xla"`` and ``"pallas"`` split,
+    apply the per-head LayerNorm and the RoPE in the compute dtype, and call
+    :func:`masked_attention` with that implementation.
+    """
 
     def __init__(self, in_features: int, num_heads: int, qkv_features: int,
                  gen: torch.Generator, *, rope_base: float = 10000.0,
-                 rope_alpha: float = 1.0, dtype: torch.dtype):
+                 rope_alpha: float = 1.0, attention_impl: str = "xla", dtype: torch.dtype):
         super().__init__()
         self.num_heads = num_heads
         self.rope_base = rope_base
         self.rope_alpha = rope_alpha
+        self.attention_impl = attention_impl
         head_dim = qkv_features // num_heads
         self.input_norm = LayerNorm(in_features)
         self.qkv_projection = Linear(in_features, qkv_features * 3, gen, dtype=dtype)
@@ -154,11 +165,39 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         qkv = self.qkv_projection(self.input_norm(x))
-        out = fused_qkv_attention(
-            qkv, self.q_norm.scale, self.k_norm.scale, mask,
-            self.num_heads, self.rope_base, self.rope_alpha,
+        if self.attention_impl == "fused":
+            out = fused_qkv_attention(
+                qkv, self.q_norm.scale, self.k_norm.scale, mask,
+                self.num_heads, self.rope_base, self.rope_alpha,
+            )
+            return self.out_projection(out)
+        b, s, _ = qkv.shape
+        q, k, v = (t.reshape(b, s, self.num_heads, -1) for t in qkv.chunk(3, dim=-1))
+        q, k = apply_rope(
+            self.q_norm(q), self.k_norm(k), base=self.rope_base, alpha=self.rope_alpha
         )
-        return self.out_projection(out)
+        out = masked_attention(q, k, v, mask, impl=self.attention_impl)
+        return self.out_projection(out.reshape(b, s, -1))
+
+
+def apply_attention(attn: Attention, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Residual attention sublayer: x + Attention(x).
+
+    With ``attention_impl="fused"`` and ``VVT_ATTN_SUBLAYER=1`` in the
+    environment (read at every call, the JAX package's knob) the whole
+    sublayer (input LN, QKV projection, attention, out projection, residual)
+    goes through :func:`fused_attention_sublayer`.
+    """
+    if attn.attention_impl == "fused" and os.environ.get("VVT_ATTN_SUBLAYER", "0") == "1":
+        return fused_attention_sublayer(
+            x,
+            attn.input_norm.scale, attn.input_norm.bias,
+            attn.qkv_projection.kernel, attn.qkv_projection.bias,
+            attn.q_norm.scale, attn.k_norm.scale,
+            attn.out_projection.kernel, attn.out_projection.bias,
+            mask, attn.num_heads, attn.rope_base, attn.rope_alpha,
+        )
+    return x + attn(x, mask)
 
 
 class MLP(nn.Module):
@@ -194,9 +233,11 @@ class FactoredAttention(nn.Module):
 
     def __init__(self, in_features: int, mlp_dim: int, num_heads: int, qkv_features: int,
                  gen: torch.Generator, *, rope_base: float = 10000.0,
-                 rope_alpha: float = 1.0, remat: bool = False, dtype: torch.dtype):
+                 rope_alpha: float = 1.0, attention_impl: str = "xla", remat: bool = False,
+                 dtype: torch.dtype):
         super().__init__()
-        kw = dict(rope_base=rope_base, rope_alpha=rope_alpha, dtype=dtype)
+        kw = dict(rope_base=rope_base, rope_alpha=rope_alpha, attention_impl=attention_impl,
+                  dtype=dtype)
         self.TemporalAttention = Attention(in_features, num_heads, qkv_features, gen, **kw)
         self.TemporalMLP = MLP(in_features, mlp_dim, gen, dtype=dtype)
         self.SpatialAttention = Attention(in_features, num_heads, qkv_features, gen, **kw)
@@ -213,11 +254,11 @@ class FactoredAttention(nn.Module):
         mask = None
         if temporal_mask is not None:
             mask = temporal_mask[:, None, :].expand(b, hw, t).reshape(b * hw, t)
-        tx = tx + self.TemporalAttention(tx, mask)
+        tx = apply_attention(self.TemporalAttention, tx, mask)
         tx = tx + self.TemporalMLP(tx)
         x = rearrange(tx, "(b hw) t c -> b t hw c", b=b, hw=hw)
 
         sx = rearrange(x, "b t hw c -> (b t) hw c")
-        sx = sx + self.SpatialAttention(sx, None)
+        sx = apply_attention(self.SpatialAttention, sx, None)
         sx = sx + self.SpatialMLP(sx)
         return rearrange(sx, "(b t) hw c -> b t hw c", b=b, t=t)

@@ -3,8 +3,10 @@
 Counterpart of the JAX package's ``models/vae.py``: the same modules, names
 and parameter layouts, the deterministic sub-paths the serving pass uses
 (``encode``, ``blend_fill``, ``decode``) and the training forward
-(``forward``: the reparameterised latent and, in ``"rl"`` mode, two paired
-Bernoulli rollouts per clip).
+(``forward``: the reparameterised latent, then the selection of
+``ModelConfig.selection_mode``: two paired Bernoulli rollouts per clip in
+``"rl"`` mode, a Gumbel-sigmoid straight-through gate in ``"ste"`` mode, every
+frame kept in ``"none"`` mode).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from video_vae_tpu_torch.core.config import ModelConfig
 from video_vae_tpu_torch.core.device import resolve_device
@@ -25,6 +28,7 @@ from video_vae_tpu_torch.models.layers import (
     PatchUnEmbedding,
 )
 from video_vae_tpu_torch.models.unet import UNet3D
+from video_vae_tpu_torch.ops.ste import gumbel_sigmoid_sample
 
 
 NUM_ROLLOUTS = 2  # paired rollouts for the REINFORCE advantage
@@ -47,7 +51,8 @@ def _block_stack(cfg: ModelConfig, depth: int, gen: torch.Generator) -> nn.Modul
     return nn.ModuleList(
         FactoredAttention(
             cfg.embed_dim, cfg.mlp_dim, cfg.num_heads, cfg.qkv_features, gen,
-            rope_base=cfg.rope_base, rope_alpha=cfg.rope_alpha, remat=cfg.remat,
+            rope_base=cfg.rope_base, rope_alpha=cfg.rope_alpha,
+            attention_impl=cfg.attention_impl, remat=cfg.remat,
             dtype=cfg.compute_dtype(),
         )
         for _ in range(depth)
@@ -156,6 +161,29 @@ class VideoVAE(nn.Module):
         sel = selection_mask.to(latent.dtype)
         return self.fill_token.to(latent.dtype) * (1.0 - sel) + latent * sel
 
+    def _decode_rollouts_in_turn(
+        self, blended: torch.Tensor, key_mask: torch.Tensor, rollouts: int
+    ) -> torch.Tensor:
+        """Decode one rollout at a time, each under activation checkpointing.
+
+        The rollouts are independent decodes with the same weights, so this
+        equals the batched (b·rollouts) decode while the decoder's backward
+        temporaries are one rollout's at a time (the JAX package's checkpointed
+        scan over the rollout axis). The (b r) batch order is kept.
+        """
+        def decode(z, m):
+            return self.decoder(z, m)
+
+        recon = []
+        for r in range(rollouts):
+            z, m = blended[r::rollouts], key_mask[r::rollouts]
+            if torch.is_grad_enabled():
+                recon.append(checkpoint(decode, z, m, use_reentrant=False))
+            else:
+                recon.append(decode(z, m))
+        out = torch.stack(recon, dim=1)  # (b, r, t, H, W, C)
+        return out.reshape(-1, *out.shape[2:])
+
     def forward(
         self,
         x: torch.Tensor,
@@ -169,11 +197,13 @@ class VideoVAE(nn.Module):
         """Training forward: encode, sample, select, fill-blend, decode.
 
         ``noise`` (the shape of log_variance, compute dtype) and ``uniforms``
-        ((b·2, t, 1, 1) f32; a frame is kept where uniform < p) take the place
-        of the JAX model's two ``rngs.sampling()`` draws; without them both
-        are drawn from ``generator`` (torch's default one when that is None).
-        Rollouts repeat b-major, r-minor, as the JAX ``repeat(..., "b ... ->
-        (b r) ...")`` does.
+        (f32) take the place of the JAX model's two ``rngs.sampling()`` draws;
+        without them both are drawn from ``generator`` (torch's default one
+        when that is None). In ``"rl"`` mode the uniforms are (b·2, t, 1, 1)
+        and a frame is kept where uniform < p; in ``"ste"`` mode they are
+        (b, t, 1) and feed the gate's logistic noise (no draw when ``train``
+        is False). Rollouts repeat b-major, r-minor, as the JAX ``repeat(...,
+        "b ... -> (b r) ...")`` does.
         """
         cfg = self.cfg
         key_mask = _key_mask(frame_mask)
@@ -207,14 +237,21 @@ class VideoVAE(nn.Module):
             prob = prob[..., None]
             selection_mask = torch.ones_like(prob)
             rollouts = 1
-        else:
-            raise NotImplementedError(
-                'selection_mode="ste" is not ported yet (ROADMAP.md, Queue 1: '
-                '"ste", scan_rollout_decode and the eval step)'
+        else:  # "ste"
+            if train and uniforms is None:
+                uniforms = draw(torch.rand, logits.shape, torch.float32)
+            gate = gumbel_sigmoid_sample(
+                logits, uniforms=uniforms, temperature=cfg.gumbel_temperature, train=train
             )
+            selection_mask = gate[..., None]
+            prob = prob[..., None]
+            rollouts = 1
 
         blended = self.blend_fill(latent, selection_mask)
-        reconstruction = self.decoder(blended, key_mask)
+        if cfg.scan_rollout_decode and rollouts > 1:
+            reconstruction = self._decode_rollouts_in_turn(blended, key_mask, rollouts)
+        else:
+            reconstruction = self.decoder(blended, key_mask)
         return VAEOutput(
             reconstruction=reconstruction,
             latent=blended,

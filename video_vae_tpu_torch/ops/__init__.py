@@ -1,25 +1,39 @@
 """Kernels and plain tensor functions of the port.
 
 ``KERNELS`` lists every CUDA kernel of the serving and training paths with
-its launch count.
+its launch count. (``flash_attention`` the function is not re-exported
+here: the name is the submodule's.)
 """
 
+from video_vae_tpu_torch.ops.attention import masked_attention
 from video_vae_tpu_torch.ops.conv3d import CONV3D, CONV3D_WGRAD, conv3d_cf, conv3d_cf_cat2
 from video_vae_tpu_torch.ops.flash_attention import (
+    ATTENTION_SUBLAYER,
+    FLASH_ATTENTION,
+    FLASH_ATTENTION_BWD,
     FUSED_ATTENTION,
     FUSED_ATTENTION_BWD,
+    fused_attention_sublayer,
     fused_qkv_attention,
 )
 
-KERNELS = (FUSED_ATTENTION, CONV3D, FUSED_ATTENTION_BWD, CONV3D_WGRAD)
+KERNELS = (
+    FUSED_ATTENTION, CONV3D, FUSED_ATTENTION_BWD, CONV3D_WGRAD,
+    FLASH_ATTENTION, FLASH_ATTENTION_BWD, ATTENTION_SUBLAYER,
+)
 
 __all__ = [
+    "ATTENTION_SUBLAYER",
     "CONV3D",
     "CONV3D_WGRAD",
+    "FLASH_ATTENTION",
+    "FLASH_ATTENTION_BWD",
     "FUSED_ATTENTION",
     "FUSED_ATTENTION_BWD",
     "KERNELS",
     "conv3d_cf",
     "conv3d_cf_cat2",
+    "fused_attention_sublayer",
     "fused_qkv_attention",
+    "masked_attention",
 ]

@@ -2,8 +2,10 @@
 
 Each source compiles with nvcc into its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). Libraries land in
-``video_vae_tpu_torch/_build/`` under a name keyed by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one is reused.
+``video_vae_tpu_torch/_build/`` under a name keyed by a hash of the source, the
+``csrc`` headers it includes and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. nvcc finds a quoted include beside
+the source that names it.
 Nothing is built when a module is imported: a kernel builds at its first
 launch, or all at once through :func:`build`.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -35,9 +38,24 @@ def _nvcc() -> str:
     raise RuntimeError(f"nvcc not found (looked in {cuda_home}/bin and on PATH)")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(source: str, seen: tuple[str, ...] = ()) -> tuple[str, ...]:
+    """``source`` and every ``csrc`` header it includes with quotes, transitively."""
+    if source in seen:
+        return seen
+    seen += (source,)
+    for header in _LOCAL_INCLUDE.findall((CSRC / source).read_text()):
+        seen = _with_headers(header, seen)
+    return seen
+
+
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
-    digest = hashlib.sha256((CSRC / source).read_bytes())
+    digest = hashlib.sha256()
+    for name in _with_headers(source):
+        digest.update((CSRC / name).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

@@ -1,16 +1,26 @@
-"""Fused QK-norm + RoPE + attention, straight off the fused QKV projection.
+"""The attention kernels: fused QK-norm + RoPE + attention, plain masked
+attention, and the whole attention sublayer.
 
-Counterpart of the JAX package's ``ops/flash_attention.py:fused_qkv_attention``
-(the Pallas ``_fused_kernel`` forward and ``_fused_bwd_kernel`` backward).
-Layout (B, S, 3·H·D) → (B, S, H·D).
+Counterparts of the JAX package's ``ops/flash_attention.py``:
 
-:func:`fused_qkv_attention` is a ``torch.autograd.Function``. Forward and
-backward each dispatch by the tensor's device: a CPU tensor takes the plain
-PyTorch version, a CUDA tensor takes the CUDA kernel
-(``csrc/fused_attention.cu`` forward, ``csrc/fused_attention_bwd.cu``
-backward) or the call raises. The backward recomputes the LN, RoPE and
-softmax chain from the saved qkv, as the JAX kernel does, and returns
-(dqkv, dq_scale, dk_scale).
+* :func:`fused_qkv_attention` (the Pallas ``_fused_kernel`` forward and
+  ``_fused_bwd_kernel`` backward): split + per-head LayerNorm + RoPE + masked
+  softmax attention straight off the fused QKV projection, layout
+  (B, S, 3·H·D) → (B, S, H·D). The backward recomputes the LN, RoPE and
+  softmax chain from the saved qkv and returns (dqkv, dq_scale, dk_scale).
+* :func:`flash_attention` (``_fwd_kernel`` / ``_bwd_kernel``): masked softmax
+  attention over separate q, k, v of layout (B, S, H, D); the probabilities
+  are normalised and rounded to v's dtype before P·V, the backward
+  recomputes them in f32.
+* :func:`fused_attention_sublayer` (``_sublayer_kernel``): y = x +
+  out_proj(attention(qk-LN + RoPE(LN(x)·Wqkv + b))) behind one kernel entry
+  point; its backward is GEMMs in plain PyTorch around the fused attention
+  backward kernel.
+
+Each is a ``torch.autograd.Function`` whose forward and backward dispatch by
+the tensor's device: a CPU tensor takes the plain PyTorch version
+(``*_plain``), a CUDA tensor takes the CUDA kernel (``*_cuda``, sources in
+``csrc/``) or the call raises.
 """
 
 from __future__ import annotations
@@ -37,6 +47,22 @@ FUSED_ATTENTION_BWD = CudaKernel(
     "fused_attention_bwd.cu",
     "vvt_fused_attention_bwd",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+
+FLASH_ATTENTION = CudaKernel(
+    "flash_attention.cu",
+    "vvt_flash_attention_fwd",
+    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+)
+FLASH_ATTENTION_BWD = CudaKernel(
+    "flash_attention_bwd.cu",
+    "vvt_flash_attention_bwd",
+    [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+)
+ATTENTION_SUBLAYER = CudaKernel(
+    "attention_sublayer.cu",
+    "vvt_attention_sublayer",
+    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -308,3 +334,353 @@ def fused_qkv_attention_bwd_cuda(
         )
     dqs, dks = partials.sum(dim=1)
     return dqkv, dqs, dks
+
+
+# ---------------------------------------------------------------------------
+# Plain masked attention over separate q, k, v of layout (B, S, H, D).
+# ---------------------------------------------------------------------------
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, mask)
+        if q.device.type == "cuda":
+            return flash_attention_cuda(q, k, v, mask)
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, mask, g)
+        elif q.device.type == "cuda":
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, mask, g)
+        else:
+            raise ValueError(f"flash_attention: unsupported device {q.device}")
+        return dq, dk, dv, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """softmax(q·kᵀ/√D + key mask)·v over (B, S, H, D); returns (B, S, H, D).
+
+    mask: (B,1,1,S) or (B,S) key-padding mask (True keeps a key), or None. A
+    row whose keys are all masked attends uniformly (masked scores are −1e30,
+    not −inf).
+    """
+    b, s = q.shape[:2]
+    return _FlashAttention.apply(q, k, v, key_mask(mask, b, s))
+
+
+def _masked_probs(q, k, mask):
+    """f32 softmax of the masked scores q·kᵀ/√D as (B, H, S, S)."""
+    scores = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * (1.0 / q.shape[-1] ** 0.5)
+    if mask is not None:
+        scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+def flash_attention_plain(q, k, v, mask):
+    """The forward kernel's arithmetic in plain PyTorch.
+
+    f32 scores and softmax, the normalised probabilities rounded to v's dtype,
+    P·V accumulated in f32, one rounding to q's dtype. ``mask`` is a (B, S)
+    bool key mask or None.
+    """
+    p = _masked_probs(q, k, mask).to(v.dtype)
+    return torch.einsum("bhij,bjhd->bihd", p.float(), v.float()).to(q.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, mask, g):
+    """The backward kernel's arithmetic in plain PyTorch, all in f32.
+
+    Recomputes P (not rounded), then dv = Pᵀ·dO, dP = dO·vᵀ, row = Σ_j P∘dP,
+    dS = P∘(dP − row)/√D, dq = dS·k, dk = dSᵀ·q; each in its input's dtype.
+    """
+    p = _masked_probs(q, k, mask)
+    do = g.float()
+    dv = torch.einsum("bhij,bihd->bjhd", p, do)
+    dp = torch.einsum("bihd,bjhd->bhij", do, v.float())
+    row = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - row) * (1.0 / q.shape[-1] ** 0.5)
+    dq = torch.einsum("bhij,bjhd->bihd", ds, k.float())
+    dk = torch.einsum("bhij,bihd->bjhd", ds, q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _rows_of_heads(t: torch.Tensor):
+    """(tensor, row stride) the kernels can address as base + row·stride + h·D + d.
+
+    A (B, S, H, D) tensor whose heads are dense and whose rows (b, i) are
+    evenly spaced and 16-byte aligned (the kernels load 8 elements at a time)
+    is taken as it is (v as a view into the fused QKV projection); anything
+    else is copied.
+    """
+    b, s, h, d = t.shape
+    st = t.stride()
+    dense_heads = st[3] == 1 and st[2] == d and st[1] >= h * d
+    aligned = st[1] % 8 == 0 and t.data_ptr() % 16 == 0
+    if not (dense_heads and aligned and (b == 1 or st[0] == s * st[1])):
+        t = t.contiguous()
+    return t, t.stride(1)
+
+
+def _check_flash_args(name, q, k, v, mask):
+    if not q.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash attention kernels take float32 or bfloat16, not {q.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("q, k, v must share one (B, S, H, D) shape")
+    if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must share one dtype and device")
+    b, s, h, d = q.shape
+    if d != KERNEL_HEAD_DIM or not 1 <= s <= KERNEL_MAX_SEQ:
+        raise ValueError(
+            f"kernel takes head_dim {KERNEL_HEAD_DIM} and 1 <= S <= {KERNEL_MAX_SEQ}, got {d}, {s}"
+        )
+    if mask is not None and mask.shape != (b, s):
+        raise ValueError("mask must be a (B, S) key mask")
+    return b, s, h, d
+
+
+def _mask_bytes(mask, device):
+    return None if mask is None else mask.to(device=device, dtype=torch.uint8).contiguous()
+
+
+def flash_attention_cuda(q, k, v, mask):
+    """Launch the forward kernel. ``mask`` is a (B, S) bool key mask or None."""
+    b, s, h, d = _check_flash_args("flash_attention_cuda", q, k, v, mask)
+    device = q.device
+    (q, qs), (k, ks), (v, vs) = _rows_of_heads(q), _rows_of_heads(k), _rows_of_heads(v)
+    mask = _mask_bytes(mask, device)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=device)
+    with torch.cuda.device(device):
+        FLASH_ATTENTION.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            qs, ks, vs, b, s, h, d, _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    return out
+
+
+def flash_attention_bwd_cuda(q, k, v, mask, g):
+    """Launch the backward kernel: (dq, dk, dv), contiguous, in the inputs' dtype."""
+    b, s, h, d = _check_flash_args("flash_attention_bwd_cuda", q, k, v, mask)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError("g must have q's shape, dtype and device")
+    device = q.device
+    (q, qs), (k, ks), (v, vs), (g, gs) = (_rows_of_heads(t) for t in (q, k, v, g))
+    mask = _mask_bytes(mask, device)
+    dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=device) for _ in range(3))
+    work = torch.empty(3 * b * h * s, dtype=torch.float32, device=device)  # m, l, row per query
+    with torch.cuda.device(device):
+        FLASH_ATTENTION_BWD.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
+            qs, ks, vs, gs, b, s, h, d, _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# The whole attention sublayer: y = x + out_proj(attention(LN(x)·Wqkv + b)).
+# ---------------------------------------------------------------------------
+
+
+def _ln_affine(x, ln_scale, ln_bias):
+    """Token LN + affine as the sublayer kernel computes it: (bf16 xa, f32 xn, f32 r)."""
+    xn, r = _ln_unscaled(x.float())
+    xa = (xn * ln_scale.float() + ln_bias.float()).to(torch.bfloat16)
+    return xa, xn, r
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for 2-D bf16 operands with f32 accumulation and an f32 result.
+
+    On the card one cuBLAS call on the bf16 operands with an f32 output; on
+    the CPU, where ``mm`` has no ``out_dtype``, the same sums on upcast
+    operands (a bf16 product is exact in f32).
+    """
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _AttentionSublayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, q_scale, k_scale, wout, bout, mask,
+                num_heads, rope_base, rope_alpha):
+        args = (x, ln_scale, ln_bias, wqkv, bqkv, q_scale, k_scale, wout, bout, mask,
+                num_heads, rope_base, rope_alpha)
+        if x.device.type == "cpu":
+            y, qkv, o = fused_attention_sublayer_plain(*args)
+        elif x.device.type == "cuda":
+            y, qkv, o = fused_attention_sublayer_cuda(*args)
+        else:
+            raise ValueError(f"fused_attention_sublayer: unsupported device {x.device}")
+        if any(ctx.needs_input_grad):  # the training variant keeps qkv and o
+            ctx.save_for_backward(x, ln_scale, ln_bias, wqkv, q_scale, k_scale, wout, mask, qkv, o)
+            ctx.rope = (num_heads, rope_base, rope_alpha)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        """Out-projection GEMMs, the fused attention backward on the saved qkv,
+        the qkv-projection GEMMs, then the token LN backward; GEMM operands in
+        bf16 with f32 accumulation, as the forward."""
+        x, ln_scale, ln_bias, wqkv, q_scale, k_scale, wout, mask, qkv, o = ctx.saved_tensors
+        b, s, c = x.shape
+        hd = wout.shape[0]
+        n = b * s
+        bf16 = torch.bfloat16
+        dyf = dy.float()
+        dy16 = dy.to(bf16).reshape(n, c)
+        xa, xn, r = _ln_affine(x, ln_scale, ln_bias)
+        xa = xa.reshape(n, c)
+
+        do = _matmul_f32(dy16, wout.to(bf16).t())  # (N, HD)
+        dwout = _matmul_f32(o.to(bf16).reshape(n, hd).t(), dy16)  # (HD, C)
+        dbout = dyf.reshape(n, c).sum(dim=0)
+
+        g = do.reshape(b, s, hd).to(qkv.dtype)
+        bwd = fused_qkv_attention_bwd_plain if x.device.type == "cpu" else fused_qkv_attention_bwd_cuda
+        dqkv, dqs, dks = bwd(qkv, q_scale, k_scale, mask, g, *ctx.rope)
+
+        dqkv16 = dqkv.to(bf16).reshape(n, 3 * hd)
+        dwqkv = _matmul_f32(xa.t(), dqkv16)  # (C, 3HD)
+        dbqkv = dqkv.float().reshape(n, 3 * hd).sum(dim=0)
+        dxa = _matmul_f32(dqkv16, wqkv.to(bf16).t()).reshape(b, s, c)
+
+        dscale = (dxa * xn).reshape(n, c).sum(dim=0)
+        dbias = dxa.reshape(n, c).sum(dim=0)
+        du = dxa * ln_scale.float()
+        dx_ln = r * (du - du.mean(dim=-1, keepdim=True) - xn * (du * xn).mean(dim=-1, keepdim=True))
+        return (
+            (dyf + dx_ln).to(x.dtype),
+            dscale.to(ln_scale.dtype), dbias.to(ln_bias.dtype),
+            dwqkv.to(wqkv.dtype), dbqkv.to(wqkv.dtype),
+            dqs.to(q_scale.dtype), dks.to(k_scale.dtype),
+            dwout.to(wout.dtype), dbout.to(wout.dtype),
+            None, None, None, None,
+        )
+
+
+def fused_attention_sublayer(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    wqkv: torch.Tensor,
+    bqkv: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_scale: torch.Tensor,
+    wout: torch.Tensor,
+    bout: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    num_heads: int,
+    rope_base: float = 10000.0,
+    rope_alpha: float = 1.0,
+) -> torch.Tensor:
+    """y = x + out_proj(attention(qk-LN + RoPE(LN(x)·Wqkv + bqkv))) for x (B, S, C).
+
+    Parameters arrive in their stored dtype; both projections run on bf16
+    operands with f32 accumulation whatever x's dtype is. mask: (B,1,1,S) or
+    (B,S) key-padding mask, or None.
+    """
+    b, s, _ = x.shape
+    return _AttentionSublayer.apply(
+        x, ln_scale, ln_bias, wqkv, bqkv, q_scale, k_scale, wout, bout, key_mask(mask, b, s),
+        num_heads, rope_base, rope_alpha,
+    )
+
+
+def fused_attention_sublayer_plain(
+    x, ln_scale, ln_bias, wqkv, bqkv, q_scale, k_scale, wout, bout, mask,
+    num_heads, rope_base=10000.0, rope_alpha=1.0,
+):
+    """The sublayer kernel's arithmetic in plain PyTorch: (y, qkv, o).
+
+    xa = LN(x) rounded to bf16, qkv = xa·Wqkv (bf16 operands, f32
+    accumulation) + bqkv rounded to x's dtype, o = the fused attention on that
+    qkv in x's dtype, y = f32(x) + (o·Wout + bout in f32) with one rounding.
+    ``mask`` is a (B, S) bool key mask or None.
+    """
+    bf16 = torch.bfloat16
+    b, s, c = x.shape
+    xa, _, _ = _ln_affine(x, ln_scale, ln_bias)
+    qkv = _matmul_f32(xa.reshape(b * s, c), wqkv.to(bf16)) + bqkv.float()
+    qkv = qkv.reshape(b, s, -1).to(x.dtype)
+    o = fused_qkv_attention_plain(qkv, q_scale, k_scale, mask, num_heads, rope_base, rope_alpha)
+    y = _matmul_f32(o.to(bf16).reshape(b * s, -1), wout.to(bf16)) + bout.float()
+    return (x.float() + y.reshape(b, s, c)).to(x.dtype), qkv, o
+
+
+def fused_attention_sublayer_cuda(
+    x, ln_scale, ln_bias, wqkv, bqkv, q_scale, k_scale, wout, bout, mask,
+    num_heads, rope_base=10000.0, rope_alpha=1.0,
+):
+    """Launch the sublayer kernel: (y, qkv, o), the last two in x's dtype.
+
+    ``mask`` is a (B, S) bool key mask or None. The weights are cast to bf16
+    here, outside the kernel, as the JAX wrapper does.
+    """
+    if not x.is_cuda:
+        raise ValueError("fused_attention_sublayer_cuda needs a CUDA tensor")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the sublayer kernel takes float32 or bfloat16, not {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError("x must be (B, S, C)")
+    b, s, c = x.shape
+    hd = wout.shape[0]
+    if wqkv.shape != (c, 3 * hd) or wout.shape != (hd, c) or hd % num_heads:
+        raise ValueError("wqkv must be (C, 3*H*D) and wout (H*D, C)")
+    d = hd // num_heads
+    if d != KERNEL_HEAD_DIM or not 1 <= s <= KERNEL_MAX_SEQ or c % 8:
+        raise ValueError(
+            f"kernel takes head_dim {KERNEL_HEAD_DIM}, 1 <= S <= {KERNEL_MAX_SEQ} and C % 8 == 0, "
+            f"got {d}, {s}, {c}"
+        )
+    if ln_scale.shape != (c,) or ln_bias.shape != (c,) or bqkv.shape != (3 * hd,) or bout.shape != (c,):
+        raise ValueError("ln_scale, ln_bias, bout must be (C,) and bqkv (3*H*D,)")
+    if q_scale.shape != (d,) or k_scale.shape != (d,):
+        raise ValueError("q_scale and k_scale must have shape (head_dim,)")
+    if mask is not None and mask.shape != (b, s):
+        raise ValueError("mask must be a (B, S) key mask")
+    device = x.device
+    x = x.contiguous()
+
+    def f32(t):
+        return t.to(device=device, dtype=torch.float32).contiguous()
+
+    def weight(t):
+        return t.to(device=device, dtype=torch.bfloat16).contiguous()
+
+    lng, lnb, bq, bo = f32(ln_scale), f32(ln_bias), f32(bqkv), f32(bout)
+    wq, wo = weight(wqkv), weight(wout)
+    qs, ks, cos, sin, mask = _kernel_operands(x, q_scale, k_scale, mask, s, d, rope_base, rope_alpha)
+    y = torch.empty_like(x)
+    qkv = torch.empty((b, s, 3 * hd), dtype=x.dtype, device=device)
+    o = torch.empty((b, s, hd), dtype=x.dtype, device=device)
+    xa = torch.empty((b, s, c), dtype=torch.bfloat16, device=device)
+    if any(t.data_ptr() % 16 for t in (x, wq, wo, y, qkv, o, xa)):
+        raise ValueError("the sublayer kernel needs 16-byte aligned tensors")
+    with torch.cuda.device(device):
+        ATTENTION_SUBLAYER.launch(
+            x.data_ptr(), None if mask is None else mask.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
+            wq.data_ptr(), bq.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            wo.data_ptr(), bo.data_ptr(), y.data_ptr(), qkv.data_ptr(), o.data_ptr(), xa.data_ptr(),
+            b, s, c, num_heads, d, _DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    return y, qkv, o

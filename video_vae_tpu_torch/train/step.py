@@ -2,8 +2,8 @@
 
 Counterparts of the JAX package's ``train/step.py``: ``make_train_step``
 (forward with paired rollouts → ``vae_loss`` → backward → gradient telemetry →
-clipped Adam) as :func:`train_step`, ``build_perceptual`` and
-``make_reconstruct_fn`` as :func:`reconstruct`. The eval step comes later.
+clipped Adam) as :func:`train_step`, ``make_eval_step`` as :func:`eval_step`,
+``build_perceptual`` and ``make_reconstruct_fn`` as :func:`reconstruct`.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from video_vae_tpu_torch.models.vae import VideoVAE
 from video_vae_tpu_torch.models.vgg import load_vgg
 from video_vae_tpu_torch.train.setup import Optimizer
 from video_vae_tpu_torch.utils.debug import global_max_abs
+from video_vae_tpu_torch.utils.metrics import masked_psnr
 
 
 def loss_and_grads(
@@ -80,6 +81,43 @@ def train_step(
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["max_grad"] = global_max_abs(grads)
     metrics["grad_norm"] = optimizer.update(grads)
+    return metrics
+
+
+def eval_step(
+    model: VideoVAE,
+    video,
+    frame_mask,
+    hp: DynamicHParams,
+    loss_cfg: LossConfig,
+    perceptual_fn: Optional[PerceptualFn] = None,
+    *,
+    sample_latent: bool = True,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
+) -> dict:
+    """The loss metrics of one batch without gradients, plus ``psnr_sampled``.
+
+    ``sample_latent=True`` keeps the training forward's latent sampling and
+    stochastic selection, as the JAX package's eval does; False evaluates at
+    the latent mean. ``psnr_sampled`` is the masked PSNR of the
+    reconstruction against the target repeated across the rollouts. The
+    draws are those of :func:`train_step`.
+    """
+    with torch.no_grad():
+        video = torch.as_tensor(video, device=model.device).to(model.cfg.compute_dtype())
+        frame_mask = torch.as_tensor(frame_mask, device=model.device)
+        out = model(
+            video, frame_mask, train=sample_latent, generator=generator, noise=noise,
+            uniforms=uniforms,
+        )
+        _, metrics = vae_loss(out, video, frame_mask, hp, loss_cfg, perceptual_fn)
+        r = out.rollouts
+        metrics["psnr_sampled"] = masked_psnr(
+            out.reconstruction, video.repeat_interleave(r, dim=0),
+            frame_mask.repeat_interleave(r, dim=0),
+        )
     return metrics
 
 
