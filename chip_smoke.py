@@ -4,24 +4,27 @@
     python3 chip_smoke.py
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
-It builds the port's seven CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
+It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
 
 1. holds each kernel against its plain PyTorch version on the card, at every
-   shape the flagship serving pass and train step give it (the fused
-   attention forward and backward, the plain masked attention forward and
-   backward, the one-entry-point attention sublayer, the conv forward, its
-   input gradient through the same kernel, and the filter gradient), and
-   times the kernel, the plain version and one library call (or chain of
-   calls) for the same function;
+   shape its path gives it (the fused attention forward and backward, the
+   plain masked attention forward and backward, the one-entry-point
+   attention sublayer, the one-entry-point MLP sublayer in both variants, the
+   conv forward, its input gradient through the same kernel, its pooled
+   second output, the filter gradient, and the tap-dot conv; the convs at the
+   flagship UNet's shapes and at the tap-dot model's, where the gate decides
+   which kernel a shape goes to), and times the kernel, the plain version and
+   one library call (or chain of calls) for the same function;
 2. runs the serving pass (encode → keep/drop → fill-blend → decode) at the
    flagship width and reduced depth in float32 on the card and on the CPU,
-   with the same seeded weights, and compares the two, once per attention
-   path (``attention_impl="fused"``, ``"pallas"``, and ``"fused"`` with
-   ``VVT_ATTN_SUBLAYER=1``);
+   with the same seeded weights, and compares the two, once per path
+   (``attention_impl="fused"``, ``"pallas"``, ``"fused"`` with
+   ``VVT_ATTN_SUBLAYER=1``, and ``"fused"`` with ``VVT_MLP_FUSED=1``);
 3. runs the full-depth flagship serving pass in bfloat16 on a batch of
-   2 clips × 16 frames on each attention path: checks the output (the new
-   paths against the default path's), counts the kernels' launches in one
-   pass, times the pass, then traces passes with ``torch.profiler`` and
+   2 clips × 16 frames on each of those paths and on the combined one
+   (``VVT_ATTN_SUBLAYER=1`` with ``VVT_MLP_FUSED=1``): checks the output (the
+   new paths against the default path's), counts the kernels' launches in
+   one pass, times the pass, then traces passes with ``torch.profiler`` and
    prints device time per launching torch op (and per kernel for the port's
    own) and the device's idle share;
 4. runs one float32 train step (RL forward, the full objective with the VGG
@@ -29,11 +32,16 @@ It builds the port's seven CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    and on the CPU with the same weights and random draws, and compares the
    loss, every metric and every parameter's gradient;
 5. runs the full-depth flagship train step in bfloat16 on 1 clip × 16
-   frames (remat off) on each attention path: counts every kernel's launches
-   in one step, checks the loss, the gradient norm and the update, times the
-   steps, holds the new paths' loss to the default path's for the same
-   draws, checks (default path) that a remat-on step gives the same loss and
-   gradients, and profiles a step.
+   frames (remat off) on each of the four paths: counts every kernel's
+   launches in one step, checks the loss, the gradient norm and the update,
+   times the steps, holds the new paths' loss to the default path's for the
+   same draws, checks (default path) that a remat-on step gives the same
+   loss and gradients, and profiles a step;
+6. runs the serving pass and the train step of the tap-dot path: the model
+   with a kt = 1 UNet of base width 64 (``ModelConfig(temporal_kernel=1,
+   unet_base_features=64, unet_s2d_full=False)``, the UNet at full size, the
+   transformer cut to depth 1) with ``VVT_TAPDOT=1``, held to the same model
+   and weights with ``VVT_TAPDOT=0``, launches counted exactly on both.
 
 Every failure ends the script with a non-zero exit and no result line. The
 last line of standard output is ``{"ok": true, "device": {...}}``; the line
@@ -49,6 +57,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 import warnings
 
 # kernel vs plain on the card: max-abs error over max|plain|
@@ -70,7 +79,8 @@ BATCH, FRAMES = 2, 16  # the serving batch; the train step's decoder runs 2 roll
 TRAIN_BATCH = 1
 TIMED_FORWARDS = 10
 TIMED_STEPS, WARMUP_STEPS = 10, 3
-NEW_PATH_TIMED_STEPS = 5
+# the paths beside the default one time fewer runs, so that the script stays short
+NEW_PATH_TIMED_FORWARDS, NEW_PATH_TIMED_STEPS = 5, 3
 # bf16 serving pass of a new attention path against the default path's, same weights
 PATH_BF16_TOL = 5e-2
 # bf16 train step of a new path against the default path's for the same draws: the
@@ -86,34 +96,102 @@ REPLACES = {
     "vvt_flash_attention_fwd": "video_vae_tpu/ops/flash_attention.py:39",
     "vvt_flash_attention_bwd": "video_vae_tpu/ops/flash_attention.py:60",
     "vvt_attention_sublayer": "video_vae_tpu/ops/flash_attention.py:448",
+    "vvt_fused_mlp": "video_vae_tpu/ops/fused_block.py:84",
+    "vvt_conv3d_tapdot": "video_vae_tpu/ops/conv3d.py:419",
 }
-# attention path -> (ModelConfig.attention_impl, VVT_ATTN_SUBLAYER)
-ATTENTION_PATHS = {"fused": ("fused", False), "pallas": ("pallas", False), "sublayer": ("fused", True)}
-PATHS = ("train", "serving", "serving-pallas", "serving-sublayer", "train-pallas", "train-sublayer")
+# beside the nine kernels' counts: how many of the MLP kernel's launches wrote the residuals
+MLP_TRAINING_VARIANT = "vvt_fused_mlp, training variant"
+KNOBS = ("VVT_ATTN_SUBLAYER", "VVT_MLP_FUSED", "VVT_TAPDOT")
+# path -> (ModelConfig.attention_impl, the knobs set to 1 on it)
+MODEL_PATHS = {
+    "fused": ("fused", ()),
+    "pallas": ("pallas", ()),
+    "sublayer": ("fused", ("VVT_ATTN_SUBLAYER",)),
+    "mlp": ("fused", ("VVT_MLP_FUSED",)),
+    "sublayer-mlp": ("fused", ("VVT_ATTN_SUBLAYER", "VVT_MLP_FUSED")),
+    "tapdot": ("fused", ("VVT_TAPDOT",)),
+    "tapdot-off": ("fused", ()),  # the tap-dot path's model with the knob off: its reference
+}
+# the paths driven on the flagship model, serving and training
+FLAGSHIP_PATHS = ("fused", "pallas", "sublayer", "mlp")
+PATHS = (
+    "train", "serving", "serving-pallas", "serving-sublayer", "train-pallas", "train-sublayer",
+    "serving-mlp", "train-mlp", "serving-sublayer-mlp", "serving-tapdot", "train-tapdot",
+)
 # the path whose sums stand at the top level of a kernel's record
 MAIN_PATH = {
     "vvt_flash_attention_fwd": "train-pallas", "vvt_flash_attention_bwd": "train-pallas",
-    "vvt_attention_sublayer": "train-sublayer",
+    "vvt_attention_sublayer": "train-sublayer", "vvt_fused_mlp": "train-mlp",
+    "vvt_conv3d_tapdot": "train-tapdot",
 }
+# the tap-dot path times fewer runs: its UNet is several times the flagship's conv work
+TAPDOT_TIMED_FORWARDS, TAPDOT_TIMED_STEPS = 3, 2
 
 
-def path_name(entry: str, attention: str) -> str:
-    return entry if attention == "fused" else f"{entry}-{attention}"
+def path_name(entry: str, path: str) -> str:
+    return entry if path == "fused" else f"{entry}-{path}"
 
 
 @contextlib.contextmanager
-def attention_path(cfg, attention: str):
-    """``cfg`` on that attention path, with VVT_ATTN_SUBLAYER set while the block runs."""
-    impl, sublayer = ATTENTION_PATHS[attention]
-    before = os.environ.get("VVT_ATTN_SUBLAYER")
-    os.environ["VVT_ATTN_SUBLAYER"] = "1" if sublayer else "0"
+def model_path(cfg, path: str):
+    """``cfg`` on that path, with the VVT_* knobs set to the path's values while the block runs."""
+    impl, on = MODEL_PATHS[path]
+    before = {knob: os.environ.get(knob) for knob in KNOBS}
+    for knob in KNOBS:
+        os.environ[knob] = "1" if knob in on else "0"
     try:
         yield cfg.replace(attention_impl=impl)
     finally:
-        if before is None:
-            del os.environ["VVT_ATTN_SUBLAYER"]
-        else:
-            os.environ["VVT_ATTN_SUBLAYER"] = before
+        for knob, value in before.items():
+            if value is None:
+                del os.environ[knob]
+            else:
+                os.environ[knob] = value
+
+
+def describe(cfg) -> str:
+    """The model a line was measured on, with every cut of depth."""
+    unet = f"UNet kt={cfg.temporal_kernel} base {cfg.unet_base_features}"
+    return (f"width {cfg.embed_dim}, {cfg.height}x{cfg.width}, encoder/decoder depth "
+            f"{cfg.encoder_depth}/{cfg.decoder_depth}, {unet}")
+
+
+def rounds_to_bf16(path: str) -> bool:
+    """Whether the path's fused sublayers multiply bf16 operands inside a float32 model."""
+    return bool({"VVT_ATTN_SUBLAYER", "VVT_MLP_FUSED"} & set(MODEL_PATHS[path][1]))
+
+
+def tapdot_model_config():
+    """The tap-dot path's model: a kt = 1 UNet of base width 64 at full size
+    (unpacked, as the port always computes it), the transformer cut to depth 1."""
+    from video_vae_tpu_torch import ModelConfig
+
+    return ModelConfig(temporal_kernel=1, unet_base_features=64, unet_s2d_full=False,
+                       encoder_depth=1, decoder_depth=1)
+
+
+def takes_tapdot(cins, cout, k, w) -> bool:
+    """The gate of the tap-dot kernel for a bf16 conv, written out from its rule."""
+    cin = sum(cins)
+    return (k[0] == 1 and w >= 128 and cin >= 128 and cin % 8 == 0 and cout % 8 == 0
+            and all(c % 8 == 0 for c in cins))
+
+
+def tapdot_launches(cfg) -> tuple[dict, dict]:
+    """The UNet's convs the gate sends to the tap-dot kernel with ``VVT_TAPDOT=1``:
+    ({(source channels, cout, k, h, w): forward launches}, {...: input-gradient
+    launches}); an input gradient is the conv of g (cout channels) to cin channels."""
+    forward, dgrad = {}, {}
+    for _, h, w, cins, cout, k, dtype in conv_cases(cfg):
+        if dtype != "bfloat16":
+            continue
+        if takes_tapdot(cins, cout, k, w):
+            key = (tuple(cins), cout, tuple(k), h, w)
+            forward[key] = forward.get(key, 0) + 1
+        if takes_tapdot((cout,), sum(cins), k, w):
+            key = ((cout,), sum(cins), tuple(k), h, w)
+            dgrad[key] = dgrad.get(key, 0) + 1
+    return forward, dgrad
 
 
 def per_path(per: dict, **paths) -> dict:
@@ -246,8 +324,9 @@ def _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype):
     return (qkv, g, qs, ks, *_key_mask(cfg, dev, name, B, S, padded))
 
 
-def phase_attention_kernels(cfg, dev, rows):
-    """Fused attention forward and backward kernels against their plain versions."""
+def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train"):
+    """Fused attention forward and backward kernels against their plain versions,
+    at the launches of ``cfg``'s serving pass and train step on the paths named."""
     import torch
     import torch.nn.functional as F
 
@@ -256,6 +335,8 @@ def phase_attention_kernels(cfg, dev, rows):
     gen = torch.Generator().manual_seed(0)
     H, D = cfg.num_heads, cfg.head_dim
     for name, B, S, padded, dtype, per in attention_cases(cfg):
+        if not per and serving != "serving":
+            continue  # a case no path counts is checked once, with the flagship's
         qkv, g, qs, ks, mask, keys = _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
         q, k, v = (t.reshape(B, S, H, D).transpose(1, 2).contiguous() for t in qkv.split(H * D, -1))
         amask = None if mask is None else mask[:, None, None, :]
@@ -269,7 +350,8 @@ def phase_attention_kernels(cfg, dev, rows):
             time_ms(lambda: fa.fused_qkv_attention_plain(qkv, qs, ks, mask, H), 5),
             time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask), 20),
             "scaled_dot_product_attention, core only",
-            bound_ms(nbytes(qkv, out, mask), 4.0 * H * S * keys * D, dtype), per,
+            bound_ms(nbytes(qkv, out, mask), 4.0 * H * S * keys * D, dtype),
+            per_path(per, **{serving: "serving", train: "train"}),
         )
 
         got = fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
@@ -291,7 +373,7 @@ def phase_attention_kernels(cfg, dev, rows):
             time_ms(lambda: torch.autograd.grad(o, leaves, g_heads, retain_graph=True), 10),
             "scaled_dot_product_attention backward, core only",
             bound_ms(nbytes(qkv, g, mask) + nbytes(*got), bwd_flops, dtype),
-            per_path(per, **{"train": "train", "train-sublayer": "train"}),
+            per_path(per, **{train: "train", **({"train-sublayer": "train"} if train == "train" else {})}),
         )
         del qkv, g, out, got, q, k, v, leaves, o, g_heads
     torch.cuda.empty_cache()
@@ -418,8 +500,12 @@ def phase_sublayer_kernel(cfg, dev, rows):
     torch.cuda.empty_cache()
 
 
-def phase_conv_kernels(cfg, dev, rows):
-    """Conv forward, input gradient (same kernel) and filter gradient against plain."""
+def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=False):
+    """Conv forward, input gradient (same kernel) and filter gradient against plain,
+    at every conv of ``cfg``'s UNet, counted on the paths named. With ``tapdot``
+    (the bf16 path with ``VVT_TAPDOT=1``) a forward conv or an input gradient that
+    passes the tap-dot gate is left to :func:`phase_tapdot_kernel`: the direct
+    kernel is held at the shapes this path gives it and no other."""
     import torch
     import torch.nn.functional as F
 
@@ -427,6 +513,8 @@ def phase_conv_kernels(cfg, dev, rows):
 
     gen = torch.Generator().manual_seed(1)
     for name, h, w, cins, cout, k, dtype in conv_cases(cfg):
+        if tapdot and dtype != "bfloat16":
+            continue
         tdt = getattr(torch, dtype)
         cin = sum(cins)
         xs = [torch.randn(BATCH, FRAMES, c, h, w, generator=gen).to(dev, tdt) for c in cins]
@@ -441,36 +529,38 @@ def phase_conv_kernels(cfg, dev, rows):
         g_ncdhw = g.transpose(1, 2).contiguous()
         w_oidhw = kernel.permute(4, 3, 0, 1, 2).contiguous()
 
-        out = conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias)
-        torch.cuda.synchronize()
-        err = check_close(f"conv {name}", out, conv3d.conv3d_cf_plain(xs[0], x2, kernel, bias), dtype)
-        lib_bias = bias.to(tdt)
-        _record(
-            rows, conv3d.CONV3D, name, [BATCH, FRAMES, list(cins), h, w, cout, list(k)], dtype, err,
-            time_ms(lambda: conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias), 5),
-            time_ms(lambda: conv3d.conv3d_cf_plain(xs[0], x2, kernel, bias), 1, warmup=0),
-            time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), 5),
-            "torch.nn.functional.conv3d (cuDNN), concatenated input",
-            bound_ms(nbytes(*xs, kernel, bias, out), flops, dtype), {"serving": 1, "train": 1},
-        )
-        del out
+        if not (tapdot and takes_tapdot(cins, cout, k, w)):
+            out = conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias)
+            torch.cuda.synchronize()
+            err = check_close(f"conv {name}", out, conv3d.conv3d_cf_plain(xs[0], x2, kernel, bias), dtype)
+            lib_bias = bias.to(tdt)
+            _record(
+                rows, conv3d.CONV3D, name, [BATCH, FRAMES, list(cins), h, w, cout, list(k)], dtype, err,
+                time_ms(lambda: conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias), 5),
+                time_ms(lambda: conv3d.conv3d_cf_plain(xs[0], x2, kernel, bias), 1, warmup=0),
+                time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), 5),
+                "torch.nn.functional.conv3d (cuDNN), concatenated input",
+                bound_ms(nbytes(*xs, kernel, bias, out), flops, dtype), {serving: 1, train: 1},
+            )
+            del out
 
         # input gradient: the forward kernel on g with the flipped, IO-swapped kernel
         flipped = kernel.flip(0, 1, 2).transpose(3, 4).contiguous()
-        zero = torch.zeros(cin, dtype=torch.float32, device=dev)
-        dx = conv3d.conv3d_cf_cuda(g, None, flipped, zero)
-        torch.cuda.synchronize()
-        err = check_close(f"conv dgrad {name}", dx, conv3d.conv3d_cf_plain(g, None, flipped, zero), dtype)
-        w_flip = flipped.permute(4, 3, 0, 1, 2).contiguous()
-        _record(
-            rows, conv3d.CONV3D, f"{name} dgrad", [BATCH, FRAMES, cout, h, w, cin, list(k)], dtype, err,
-            time_ms(lambda: conv3d.conv3d_cf_cuda(g, None, flipped, zero), 5),
-            time_ms(lambda: conv3d.conv3d_cf_plain(g, None, flipped, zero), 1, warmup=0),
-            time_ms(lambda: F.conv3d(g_ncdhw, w_flip, padding=pad), 5),
-            "torch.nn.functional.conv3d (cuDNN) of g, flipped kernel",
-            bound_ms(nbytes(g, flipped, dx), flops, dtype), {"train": 1},
-        )
-        del dx
+        if not (tapdot and takes_tapdot((cout,), cin, k, w)):
+            zero = torch.zeros(cin, dtype=torch.float32, device=dev)
+            dx = conv3d.conv3d_cf_cuda(g, None, flipped, zero)
+            torch.cuda.synchronize()
+            err = check_close(f"conv dgrad {name}", dx, conv3d.conv3d_cf_plain(g, None, flipped, zero), dtype)
+            w_flip = flipped.permute(4, 3, 0, 1, 2).contiguous()
+            _record(
+                rows, conv3d.CONV3D, f"{name} dgrad", [BATCH, FRAMES, cout, h, w, cin, list(k)], dtype, err,
+                time_ms(lambda: conv3d.conv3d_cf_cuda(g, None, flipped, zero), 5),
+                time_ms(lambda: conv3d.conv3d_cf_plain(g, None, flipped, zero), 1, warmup=0),
+                time_ms(lambda: F.conv3d(g_ncdhw, w_flip, padding=pad), 5),
+                "torch.nn.functional.conv3d (cuDNN) of g, flipped kernel",
+                bound_ms(nbytes(g, flipped, dx), flops, dtype), {train: 1},
+            )
+            del dx
 
         dw = conv3d.conv3d_wgrad_cuda(xs[0], x2, g, *k)
         torch.cuda.synchronize()
@@ -482,30 +572,241 @@ def phase_conv_kernels(cfg, dev, rows):
             time_ms(lambda: conv3d.conv3d_wgrad_plain(xs[0], x2, g, *k), 1, warmup=0),
             time_ms(lambda: torch.nn.grad.conv3d_weight(x_ncdhw, w_shape, g_ncdhw, padding=pad), 5),
             "torch.nn.grad.conv3d_weight (cuDNN), concatenated input",
-            bound_ms(nbytes(*xs, g, dw), flops, dtype), {"train": 1},
+            bound_ms(nbytes(*xs, g, dw), flops, dtype), {train: 1},
         )
         del xs, x2, g, dw, x_ncdhw, g_ncdhw, flipped
     torch.cuda.empty_cache()
 
 
-def phase_f32_forward(dev, attention="fused"):
+def phase_mlp_kernel(cfg, dev, rows):
+    """The MLP sublayer kernel against its plain version, both variants.
+
+    N = 8192 rows is a b2 x 16f serving pass (or the train step's decoder, 2
+    rollouts of 1 clip), N = 4096 the train step's encoder; a float32 x and a
+    ragged row count are checked as well. The training variant returns y and
+    the bf16 residuals xa and h, the inference variant y alone, and the two
+    must give the same y. The library yardstick is the chain layer_norm ->
+    linear -> silu -> linear -> add on bf16 weights. The bound counts x in, y
+    out, the weights once (and the residuals written by the training variant)
+    against the two products at the bf16 peak, whatever x's dtype.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from video_vae_tpu_torch.ops import fused_block as fb
+
+    gen = torch.Generator().manual_seed(30)
+    C, Fd = cfg.embed_dim, cfg.mlp_dim
+    enc, dec = 2 * cfg.encoder_depth, 2 * cfg.decoder_depth  # MLP sublayers per stack
+    tokens = FRAMES * cfg.num_patches
+    rn = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    lng, lnb, w1, b1, w2, b2 = (t.to(dev) for t in (
+        1 + 0.2 * rn(C), 0.2 * rn(C), rn(C, Fd) / C**0.5, 0.2 * rn(Fd), 0.1 * rn(Fd, C) / Fd**0.5,
+        0.2 * rn(C),
+    ))
+    w16 = [t.to(torch.bfloat16) for t in (w1, b1, w2, b2)]
+    cases = [  # (rows, dtype, launches per path of the inference variant, of the training variant)
+        ((BATCH * tokens,), "bfloat16", {"serving-mlp": enc + dec, "serving-sublayer-mlp": enc + dec},
+         {"train-mlp": dec}),
+        ((TRAIN_BATCH * tokens,), "bfloat16", {}, {"train-mlp": enc}),
+        ((BATCH * tokens,), "float32", {}, {}),
+        ((1, 13), "bfloat16", {}, {}),
+    ]
+    for lead, dtype, per_inference, per_training in cases:
+        tdt = getattr(torch, dtype)
+        x = rn(*lead, C).to(dev, tdt)
+        n = x.numel() // C
+
+        def run(save):
+            return fb.fused_mlp_sublayer_cuda(x, lng, lnb, w1, b1, w2, b2, save_residuals=save)
+
+        def plain():
+            return fb.fused_mlp_sublayer_plain(x, lng, lnb, w1, b1, w2, b2)
+
+        def library():
+            xa = F.layer_norm(x, (C,), lng.to(tdt), lnb.to(tdt), 1e-6).to(torch.bfloat16)
+            return x + F.linear(F.silu(F.linear(xa, w16[0].t(), w16[1])), w16[2].t(), w16[3]).to(tdt)
+
+        got = run(True)
+        torch.cuda.synchronize()
+        # bf16 GEMM operands on both sides whatever x's dtype: the bf16 bound
+        err = max(check_close(f"mlp N={n} {dtype} {part}", a, b, "bfloat16")
+                  for part, a, b in zip(("y", "xa", "h"), got, plain()))
+        # the autograd wrapper without a graph takes the inference variant, even
+        # where its parameters require gradients, as a model's do
+        leaves = [t.detach().requires_grad_() for t in (lng, lnb, w1, b1, w2, b2)]
+        variants = dict(fb.VARIANT_LAUNCHES)
+        with torch.no_grad():
+            y = fb.fused_mlp_sublayer(x.reshape(1, n, C), *leaves).reshape(x.shape)
+        torch.cuda.synchronize()
+        if fb.VARIANT_LAUNCHES != {**variants, "inference": variants["inference"] + 1}:
+            raise AssertionError(f"mlp N={n} {dtype}: no_grad launched {fb.VARIANT_LAUNCHES} after {variants}")
+        if not torch.equal(y, got[0]):
+            raise AssertionError(f"mlp N={n} {dtype}: the inference variant's y differs")
+        plain_ms, library_ms = time_ms(plain, 2), time_ms(library, 10)
+        for variant, save, per in (("inference", False, per_inference), ("training", True, per_training)):
+            written = (x, *got[1:]) if save else (x,)
+            _record(
+                rows, fb.FUSED_MLP, f"N={n} {variant} {dtype}", [n, C, Fd], dtype, err,
+                time_ms(lambda: run(save), 10), plain_ms, library_ms,
+                "layer_norm -> linear -> silu -> linear -> add, bf16 weights",
+                bound_ms(nbytes(x, *written, *w16, lng, lnb), 4.0 * n * C * Fd, "bfloat16"), per,
+            )
+        del x, got, y
+    torch.cuda.empty_cache()
+
+
+def phase_tapdot_kernel(cfg, dev, rows):
+    """The tap-dot conv against its plain version at every shape the gate sends
+    it on the tap-dot path (forward convs, one and two sources, and input
+    gradients), and once with the pooled second output. The library yardstick
+    is ``F.conv3d`` on the concatenated input."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_vae_tpu_torch.ops import conv3d
+
+    gen = torch.Generator().manual_seed(31)
+    forward, dgrad = tapdot_launches(cfg)
+    shapes = list(dict.fromkeys([*forward, *dgrad]))
+    dtype, tdt = "bfloat16", torch.bfloat16
+    for i, key in enumerate(shapes):
+        cins, cout, k, h, w = key
+        cin = sum(cins)
+        pool = i == 0  # the first shape also with the pooled output
+        xs = [torch.randn(BATCH, FRAMES, c, h, w, generator=gen).to(dev, tdt) for c in cins]
+        x2 = xs[1] if len(xs) == 2 else None
+        kernel = (torch.randn(*k, cin, cout, generator=gen) / (cin * k[1] * k[2]) ** 0.5).to(dev, tdt)
+        bias = (0.1 * torch.randn(cout, generator=gen)).to(dev)
+        flops = 2.0 * BATCH * FRAMES * cout * cin * valid_taps(h, k[1]) * valid_taps(w, k[2])
+        x_ncdhw = torch.cat(xs, dim=2).transpose(1, 2).contiguous()
+        w_oidhw = kernel.permute(4, 3, 0, 1, 2).contiguous()
+        lib_bias = bias.to(tdt)
+        per = {}
+        if key in forward:
+            per.update({"serving-tapdot": forward[key], "train-tapdot": forward[key]})
+        if key in dgrad:
+            per["train-tapdot"] = per.get("train-tapdot", 0) + dgrad[key]
+
+        out = conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias)
+        torch.cuda.synchronize()
+        ref = conv3d.conv3d_tapdot_plain(xs[0], x2, kernel, bias, pool=pool)
+        name = f"{'+'.join(map(str, cins))}->{cout} @{h}x{w}"
+        err = check_close(f"tapdot {name}", out, ref[0] if pool else ref, dtype)
+        _record(
+            rows, conv3d.CONV3D_TAPDOT, name, [BATCH, FRAMES, list(cins), h, w, cout, list(k)], dtype, err,
+            time_ms(lambda: conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias), 5),
+            time_ms(lambda: conv3d.conv3d_tapdot_plain(xs[0], x2, kernel, bias), 1, warmup=0),
+            time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=(0, k[1] // 2, k[2] // 2)), 5),
+            "torch.nn.functional.conv3d (cuDNN), concatenated input",
+            bound_ms(nbytes(*xs, kernel, bias, out), flops, dtype), per,
+        )
+        if pool:
+            full, pooled = conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias, pool=True)
+            torch.cuda.synchronize()
+            if not torch.equal(full, out):
+                raise AssertionError(f"tapdot {name}: the pooled variant's full output differs")
+            err = check_close(f"tapdot {name} pooled", pooled, ref[1], dtype)
+            _record(
+                rows, conv3d.CONV3D_TAPDOT, f"{name} pooled", [BATCH, FRAMES, list(cins), h, w, cout, list(k)],
+                dtype, err,
+                time_ms(lambda: conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias, pool=True), 5),
+                time_ms(lambda: conv3d.conv3d_tapdot_plain(xs[0], x2, kernel, bias, pool=True), 1, warmup=0),
+                time_ms(lambda: F.max_pool3d(F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=(0, k[1] // 2, k[2] // 2)),
+                                             (1, 2, 2)), 5),
+                "conv3d (cuDNN) then max_pool3d",
+                bound_ms(nbytes(*xs, kernel, bias, full, pooled), flops, dtype), {},
+            )
+            del full, pooled
+        del xs, x2, out, ref, x_ncdhw
+    torch.cuda.empty_cache()
+
+
+def phase_pooled_conv(cfg, dev, rows):
+    """``conv3d_cf_pooled`` through the direct conv kernel at the flagship's first
+    level-0 shape (12 -> 16 at 256 x 256), bf16 and f32: both outputs against the
+    plain version, the full output against the kernel without the pool, and the
+    float32 gradients of a loss on both outputs against the CPU's at a cut frame."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_vae_tpu_torch.ops import conv3d
+
+    gen = torch.Generator().manual_seed(32)
+    name, h, w, cins, cout, k, _ = conv_cases(cfg)[1]
+    cin = cins[0]
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        x = torch.randn(BATCH, FRAMES, cin, h, w, generator=gen).to(dev, tdt)
+        kernel = (torch.randn(*k, cin, cout, generator=gen) / (cin * k[0] * k[1] * k[2]) ** 0.5).to(dev, tdt)
+        bias = (0.1 * torch.randn(cout, generator=gen)).to(dev)
+        flops = 2.0 * BATCH * cout * cin * valid_taps(FRAMES, k[0]) * valid_taps(h, k[1]) * valid_taps(w, k[2])
+        before = conv3d.CONV3D.launches
+        full, pooled = conv3d.conv3d_cf_pooled(x, kernel, bias)
+        torch.cuda.synchronize()
+        if conv3d.CONV3D.launches != before + 1:
+            raise AssertionError("conv3d_cf_pooled did not launch the direct conv kernel once")
+        ref_full, ref_pooled = conv3d.conv3d_cf_plain(x, None, kernel, bias, pool=True)
+        err = max(check_close(f"pooled conv {dtype} full", full, ref_full, dtype),
+                  check_close(f"pooled conv {dtype} pooled", pooled, ref_pooled, dtype))
+        if not torch.equal(full, conv3d.conv3d_cf_cuda(x, None, kernel, bias)):
+            raise AssertionError(f"pooled conv {dtype}: the full output differs from the unpooled kernel's")
+        x_ncdhw = x.transpose(1, 2).contiguous()
+        w_oidhw = kernel.permute(4, 3, 0, 1, 2).contiguous()
+        lib_bias, pad = bias.to(tdt), tuple(s // 2 for s in k)
+        _record(
+            rows, conv3d.CONV3D, f"{name} pooled {dtype}", [BATCH, FRAMES, [cin], h, w, cout, list(k)], dtype, err,
+            time_ms(lambda: conv3d.conv3d_cf_cuda(x, None, kernel, bias, pool=True), 5),
+            time_ms(lambda: conv3d.conv3d_cf_plain(x, None, kernel, bias, pool=True), 1, warmup=0),
+            time_ms(lambda: F.max_pool3d(F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), (1, 2, 2)), 5),
+            "conv3d (cuDNN) then max_pool3d",
+            bound_ms(nbytes(x, kernel, bias, full, pooled), flops, dtype), {},
+        )
+        del full, pooled, ref_full, ref_pooled, x_ncdhw
+        if dtype != "float32":
+            continue
+        # The backward at a cut frame, against the CPU's (the plain versions), in
+        # float32 only: the pool's VJP follows the argmax of the saved output, and
+        # a bf16 rounding that differs between card and CPU would move it.
+        leaves = [t[:1, :2, :, :32, :64].contiguous().requires_grad_() if t is x else t.clone().requires_grad_()
+                  for t in (x, kernel, bias)]
+        outs = conv3d.conv3d_cf_pooled(*leaves)
+        gs = [torch.randn(o.shape, generator=gen).to(dev, tdt) for o in outs]
+        grads = torch.autograd.grad(outs, leaves, gs)
+        cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+        refs = torch.autograd.grad(conv3d.conv3d_cf_pooled(*cpu), cpu, [g.cpu() for g in gs])
+        worst = max(check_close(f"pooled conv {dtype} d{part}", a.cpu(), b, dtype)
+                    for part, a, b in zip(("x", "kernel", "bias"), grads, refs))
+        log("pooled-conv-backward", json.dumps({"dtype": dtype, "max_abs_err": worst}))
+        del x
+    torch.cuda.empty_cache()
+
+
+def random_final_conv(model, gen):
+    """Redraw the UNet's zero-initialised final conv, which would hide the whole UNet."""
+    import torch
+
+    with torch.no_grad():
+        fc = model.decoder.unet.final_conv.kernel
+        fc.copy_((torch.randn(fc.shape, generator=gen) / fc.shape[-2] ** 0.5).to(fc.device))
+
+
+def phase_f32_forward(dev, path="fused"):
     """Flagship width, depth 1: the float32 serving pass on the card against the CPU.
 
-    The sublayer path rounds its GEMM operands to bf16 by design, on both
-    devices, so there a rounding that flips is a bf16 step: it is held to the
-    bf16 bound instead.
+    The fused sublayers round their GEMM operands to bf16 by design, on both
+    devices, so there a rounding that flips is a bf16 step: those paths are
+    held to the bf16 bound instead.
     """
     import torch
 
     from video_vae_tpu_torch import ModelConfig, VideoVAE, reconstruct
 
-    tol = KERNEL_TOL["bfloat16"] if attention == "sublayer" else FORWARD_F32_TOL
-    with attention_path(ModelConfig(dtype="float32", encoder_depth=1, decoder_depth=1), attention) as cfg:
+    tol = KERNEL_TOL["bfloat16"] if rounds_to_bf16(path) else FORWARD_F32_TOL
+    with model_path(ModelConfig(dtype="float32", encoder_depth=1, decoder_depth=1), path) as cfg:
         cpu_model = VideoVAE(cfg, device="cpu", seed=1)
         gen = torch.Generator().manual_seed(2)
-        with torch.no_grad():  # the zero-initialised final conv would hide the whole UNet
-            fc = cpu_model.decoder.unet.final_conv.kernel
-            fc.copy_(torch.randn(fc.shape, generator=gen) / fc.shape[-2] ** 0.5)
+        random_final_conv(cpu_model, gen)
         gpu_model = VideoVAE(cfg, device=dev, seed=1)
         gpu_model.load_state_dict(cpu_model.state_dict())
         video = torch.rand(1, 8, cfg.height, cfg.width, cfg.channels, generator=gen)
@@ -522,67 +823,91 @@ def phase_f32_forward(dev, attention="fused"):
         raise AssertionError(f"f32 forward: shape {tuple(out.shape)} or non-finite values")
     rel = ((out - ref).abs().max() / ref.abs().max()).item()
     if not rel <= tol:
-        raise AssertionError(f"f32 forward ({attention}) card vs CPU: relative max-abs error {rel} > {tol}")
+        raise AssertionError(f"f32 forward ({path}) card vs CPU: relative max-abs error {rel} > {tol}")
     log("f32-forward", json.dumps({
-        "attention_path": attention,
+        "path": path,
         "config": "flagship width, encoder/decoder depth 1, b1 x 8 frames (2 padded)",
         "rel_max_abs_err": rel, "tol": tol, "kept_frames": int(keep_cpu.sum()),
     }))
 
 
 def reset_launches():
-    from video_vae_tpu_torch.ops import KERNELS
+    from video_vae_tpu_torch.ops import KERNELS, fused_block
 
     for kernel in KERNELS:
         kernel.launches = 0
+    for variant in fused_block.VARIANT_LAUNCHES:
+        fused_block.VARIANT_LAUNCHES[variant] = 0
 
 
 def read_launches() -> dict:
-    from video_vae_tpu_torch.ops import KERNELS
+    from video_vae_tpu_torch.ops import KERNELS, fused_block
 
-    return {kernel.symbol: kernel.launches for kernel in KERNELS}
+    counts = {kernel.symbol: kernel.launches for kernel in KERNELS}
+    variants = fused_block.VARIANT_LAUNCHES
+    if sum(variants.values()) != counts["vvt_fused_mlp"]:
+        raise AssertionError(f"the MLP kernel's variants {variants} do not add up to its {counts['vvt_fused_mlp']}")
+    return {**counts, MLP_TRAINING_VARIANT: variants["training"]}
 
 
-def expected_launches(cfg, entry: str, attention: str) -> dict:
+def expected_launches(cfg, entry: str, path: str) -> dict:
     """Launches of every kernel in one serving pass or one train step on a path.
 
-    Two attention calls per block; the mixer, 2 convs per down and up block
-    and 2 bottleneck convs. A train step adds each conv's input gradient
-    (the forward kernel again) and filter gradient, and each attention's
-    backward; the sublayer's backward is the fused attention backward.
+    Two attention calls and two MLP sublayers per block; the mixer, 2 convs
+    per down and up block and 2 bottleneck convs. A train step adds each
+    conv's input gradient (a forward kernel again) and filter gradient, and
+    each attention's backward; the attention sublayer's backward is the fused
+    attention backward, the MLP sublayer's has no kernel. The MLP kernel runs
+    its training variant (the residuals written) in a train step and its
+    inference variant in a serving pass, whose parameters require gradients
+    all the same. With ``VVT_TAPDOT`` the convs and input gradients that pass
+    its gate go to the tap-dot kernel.
     """
     from video_vae_tpu_torch.ops import KERNELS
 
+    impl, knobs = MODEL_PATHS[path]
     attn = 2 * (cfg.encoder_depth + cfg.decoder_depth)
     convs = 1 + 4 * cfg.unet_levels + 2
     train = entry == "train"
     forward, backward = {
         "fused": ("vvt_fused_attention_fwd", "vvt_fused_attention_bwd"),
         "pallas": ("vvt_flash_attention_fwd", "vvt_flash_attention_bwd"),
-        "sublayer": ("vvt_attention_sublayer", "vvt_fused_attention_bwd"),
-    }[attention]
-    want = {kernel.symbol: 0 for kernel in KERNELS}
+    }[impl]
+    if "VVT_ATTN_SUBLAYER" in knobs:
+        forward = "vvt_attention_sublayer"
+    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0}
     want["vvt_conv3d_cf"] = 2 * convs if train else convs
     want[forward] = attn
+    if "VVT_MLP_FUSED" in knobs:
+        want["vvt_fused_mlp"] = attn
+        want[MLP_TRAINING_VARIANT] = attn if train else 0
     if train:
         want["vvt_conv3d_wgrad"] = convs
         want[backward] = attn
+    if "VVT_TAPDOT" in knobs:
+        fwd, dgrad = (sum(d.values()) for d in tapdot_launches(cfg))
+        want["vvt_conv3d_tapdot"] = fwd + dgrad if train else fwd
+        want["vvt_conv3d_cf"] -= want["vvt_conv3d_tapdot"]
     return want
 
 
-def phase_serving(cfg, dev, attention="fused", reference=None):
-    """Full-depth bf16 serving pass on one attention path: launch counts of one
-    pass, its time, its profile. ``reference`` is the default path's (output,
-    keep probabilities); a new path is held to it. Returns (launches, (output,
-    probabilities))."""
+def phase_serving(cfg, dev, path="fused", reference=None, timed=TIMED_FORWARDS, redraw_final_conv=False):
+    """The bf16 b2 x 16f serving pass of ``cfg`` on one path: launch counts of
+    one pass, its time, its profile. ``reference`` is the (output, keep
+    probabilities) of the path this one is held to: the default path's on the
+    flagship, the knob-off run's on the tap-dot model (whose final conv is
+    redrawn, or the zero-initialised one would hide the UNet from the
+    comparison). Returns (launches, (output, probabilities))."""
     import torch
 
     from video_vae_tpu_torch import VideoVAE, reconstruct
 
-    label = path_name("serving", attention)
-    with attention_path(cfg, attention) as cfg:
+    label = path_name("serving", path)
+    with model_path(cfg, path) as cfg:
         model = VideoVAE(cfg, device=dev, seed=0)
         gen = torch.Generator().manual_seed(3)
+        if redraw_final_conv:
+            random_final_conv(model, torch.Generator().manual_seed(33))
         video = torch.rand(BATCH, FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
         mask = torch.ones(BATCH, FRAMES, device=dev)
         mask[1, FRAMES - 3:] = 0
@@ -595,7 +920,7 @@ def phase_serving(cfg, dev, attention="fused", reference=None):
         want = (BATCH, FRAMES, cfg.height, cfg.width, cfg.channels)
         if tuple(out.shape) != want or not torch.isfinite(out.float()).all():
             raise AssertionError(f"{label} pass: shape {tuple(out.shape)} (want {want}) or non-finite")
-        expected = expected_launches(cfg, "serving", attention)
+        expected = expected_launches(cfg, "serving", path)
         if launches != expected:
             raise AssertionError(f"launches per {label} pass {launches}, expected {expected}")
         with torch.inference_mode():
@@ -606,17 +931,17 @@ def phase_serving(cfg, dev, attention="fused", reference=None):
             rel = ((out.float() - ref_out.float()).abs().max() / ref_out.float().abs().max()).item()
             clear = ((ref_prob - 0.5).abs() > MIN_MARGIN) & ((prob - 0.5).abs() > MIN_MARGIN)
             if not rel <= PATH_BF16_TOL:
-                raise AssertionError(f"{label} vs the default path: relative max-abs error {rel} > {PATH_BF16_TOL}")
+                raise AssertionError(f"{label} vs its reference path: relative max-abs error {rel} > {PATH_BF16_TOL}")
             if not torch.equal((prob >= 0.5)[clear], (ref_prob >= 0.5)[clear]):
-                raise AssertionError(f"{label}: keep decisions differ from the default path's")
-            versus = {"rel_max_abs_err_vs_default": rel, "tol": PATH_BF16_TOL,
+                raise AssertionError(f"{label}: keep decisions differ from its reference path's")
+            versus = {"rel_max_abs_err_vs_reference": rel, "tol": PATH_BF16_TOL,
                       "keep_decisions_compared": int(clear.sum()), "kept": int((prob >= 0.5).sum())}
 
         torch.cuda.reset_peak_memory_stats(dev)
         for _ in range(2):
             reconstruct(model, video, mask, device=dev)
         times = []
-        for _ in range(TIMED_FORWARDS):
+        for _ in range(timed):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             reconstruct(model, video, mask, device=dev)
@@ -625,13 +950,13 @@ def phase_serving(cfg, dev, attention="fused", reference=None):
             times.append(start.elapsed_time(end))
         ms = statistics.median(times)
         log(label, json.dumps({
-            "config": f"flagship, bf16, b{BATCH} x {FRAMES} frames, attention path {attention}",
+            "config": f"{describe(cfg)}, bf16, b{BATCH} x {FRAMES} frames, path {path}",
             "launches": launches, "ms_per_forward_median": ms, "clips_per_s": BATCH / (ms / 1e3),
             "ms_per_forward_all": times,
             "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30, **versus,
         }))
         profile_device(label, lambda: reconstruct(model, video, mask, device=dev), ms,
-                       passes=3 if attention == "fused" else 2)
+                       passes=3 if path == "fused" else 2)
     del model
     torch.cuda.empty_cache()
     return launches, (out, prob)
@@ -725,9 +1050,7 @@ def phase_f32_train(dev):
     loss_cfg, hp = LossConfig(), DynamicHParams.default()
     cpu_model = VideoVAE(cfg, device="cpu", seed=4)
     gen = torch.Generator().manual_seed(5)
-    with torch.no_grad():  # the zero-initialised final conv would cut the UNet's gradients
-        fc = cpu_model.decoder.unet.final_conv.kernel
-        fc.copy_(torch.randn(fc.shape, generator=gen) / fc.shape[-2] ** 0.5)
+    random_final_conv(cpu_model, gen)  # the zero-initialised one would cut the UNet's gradients
     gpu_model = VideoVAE(cfg, device=dev, seed=4)
     gpu_model.load_state_dict(cpu_model.state_dict())
     video = torch.rand(1, 4, cfg.height, cfg.width, cfg.channels, generator=gen)
@@ -773,15 +1096,17 @@ def _set_remat(model, on: bool):
             module.remat = on
 
 
-def phase_train(cfg, dev, attention="fused", reference=None):
-    """Full-depth bf16 b1 x 16f train step on one attention path.
+def phase_train(cfg, dev, path="fused", reference=None, timed=TIMED_STEPS, redraw_final_conv=False):
+    """The bf16 b1 x 16f train step of ``cfg`` on one path.
 
     Launch counts of one step, checks of the metrics and the update, the step
-    time and peak memory, then the loss for fixed draws. On the default path
-    those draws are made here, the remat-on step is held to the remat-off one
-    and 10 steps are timed; a new path takes the default path's ``reference``
-    (draws, loss, kept-frame density), is held to it, and times 5 steps.
-    Returns (launches, reference).
+    time and peak memory, then the loss for fixed draws. Without a
+    ``reference`` those draws are made here (and on the default path the
+    remat-on step is held to the remat-off one); a path with a ``reference``
+    (draws, loss, kept-frame density of the path it is held to) is compared
+    with it. The tap-dot model's final conv is redrawn, or the
+    zero-initialised one would cut the UNet's gradients. Returns (launches,
+    reference).
     """
     import torch
 
@@ -796,10 +1121,12 @@ def phase_train(cfg, dev, attention="fused", reference=None):
     )
     from video_vae_tpu_torch.train.step import loss_and_grads
 
-    label = path_name("train", attention)
-    default = attention == "fused"
-    with attention_path(cfg, attention) as cfg:
+    label = path_name("train", path)
+    default = path == "fused"
+    with model_path(cfg, path) as cfg:
         model = VideoVAE(cfg, device=dev, seed=0)
+        if redraw_final_conv:
+            random_final_conv(model, torch.Generator().manual_seed(33))
         opt = create_optimizer(model, OptimConfig())
         loss_cfg, hp = LossConfig(), DynamicHParams.default()
         perceptual = build_perceptual(loss_cfg, device=dev)
@@ -810,7 +1137,7 @@ def phase_train(cfg, dev, attention="fused", reference=None):
         video_c = video.to(cfg.compute_dtype())
 
         # the loss for fixed draws, before any update: what the paths are compared on
-        if default:
+        if reference is None:
             noise, uniforms = _draws(model, video_c, mask, seed=10)
         else:
             noise, uniforms = reference["draws"]
@@ -832,13 +1159,13 @@ def phase_train(cfg, dev, attention="fused", reference=None):
                 raise AssertionError(f"remat on vs off: loss {l1} vs {l0}, worst gradient error {worst}")
             log("train-remat", json.dumps({"loss_remat_off": l0, "loss_remat_on": l1, "worst_grad_rel_err": worst}))
             del grads1
-        else:
+        if reference is not None:
             ref_loss = reference["loss"]
             if fixed["kept_frame_density"] != reference["kept_frame_density"]:
-                raise AssertionError(f"{label}: keep decisions differ from the default path's for the same draws")
+                raise AssertionError(f"{label}: keep decisions differ from its reference path's for the same draws")
             if not abs(fixed["loss"] - ref_loss) <= PATH_LOSS_TOL * abs(ref_loss):
-                raise AssertionError(f"{label}: loss {fixed['loss']} vs the default path's {ref_loss}")
-            versus = {"loss_fixed_draws": fixed["loss"], "default_path_loss": ref_loss,
+                raise AssertionError(f"{label}: loss {fixed['loss']} vs its reference path's {ref_loss}")
+            versus = {"loss_fixed_draws": fixed["loss"], "reference_path_loss": ref_loss,
                       "rel_err": abs(fixed["loss"] - ref_loss) / abs(ref_loss), "tol": PATH_LOSS_TOL}
         torch.backends.cudnn.deterministic = False
         del grads0, loss0, metrics0
@@ -851,7 +1178,7 @@ def phase_train(cfg, dev, attention="fused", reference=None):
         first = step()
         torch.cuda.synchronize()
         launches = read_launches()
-        expected = expected_launches(cfg, "train", attention)
+        expected = expected_launches(cfg, "train", path)
         if launches != expected:
             raise AssertionError(f"launches per {label} step {launches}, expected {expected}")
         metrics = {k: float(v) for k, v in first.items()}
@@ -872,7 +1199,7 @@ def phase_train(cfg, dev, attention="fused", reference=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         times = []
-        for _ in range(TIMED_STEPS if default else NEW_PATH_TIMED_STEPS):
+        for _ in range(timed):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             step()
@@ -881,8 +1208,8 @@ def phase_train(cfg, dev, attention="fused", reference=None):
             times.append(start.elapsed_time(end))
         ms = statistics.median(times)
         log(label, json.dumps({
-            "config": f"flagship, bf16 compute, f32 params, b{TRAIN_BATCH} x {FRAMES} frames, "
-                      f"rl (2 rollouts), perceptual on, remat off, attention path {attention}",
+            "config": f"{describe(cfg)}, bf16 compute, f32 params, b{TRAIN_BATCH} x {FRAMES} frames, "
+                      f"rl (2 rollouts), perceptual on, remat off, path {path}",
             "launches": launches, "ms_per_step_median": ms, "ms_per_step_all": times,
             "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
             "step1_metrics": metrics, "step2_metrics": second, "leaves_changed_by_step2": changed,
@@ -896,9 +1223,12 @@ def phase_train(cfg, dev, attention="fused", reference=None):
 
 def kernel_record(rows, launches_by_path):
     """One entry per kernel; times and bounds summed over the launches of its main
-    path (the default train step, or the train step of the path that runs it).
+    path (the default train step, or the train step of the path that runs it),
+    each launch at the time of its shape's kernel check.
 
-    ``by_path`` holds the same sums for each path that runs the kernel.
+    ``by_path`` holds the same sums for each path that runs the kernel; a path
+    stands there only if every launch it made of the kernel was at a shape the
+    kernel was held against its plain version at.
     """
     from video_vae_tpu_torch.ops import KERNELS
 
@@ -914,6 +1244,12 @@ def kernel_record(rows, launches_by_path):
             def total(key, rs=used, path=path):
                 return sum(r[key] * r["per_pass"][path] for r in rs)
 
+            checked = sum(r["per_pass"][path] for r in used)
+            if checked != launches_by_path[path][kernel.symbol]:
+                raise AssertionError(
+                    f"{kernel.symbol} on {path}: {launches_by_path[path][kernel.symbol]} launches, "
+                    f"{checked} of them held against the plain version at their shape"
+                )
             by_ops = total("bound_ms", [r for r in used if r["bound_by"] == "operations"])
             by_path[path] = {
                 "launches": launches_by_path[path][kernel.symbol],
@@ -964,23 +1300,62 @@ def main() -> int:
                 log(f"nvcc {source}: {line.strip()}")
 
     cfg = ModelConfig()
+    wide = tapdot_model_config()
+    log("cuts", json.dumps({
+        "flagship paths": "none: full width and depth; the float32 card-vs-CPU checks run at depth 1",
+        "tap-dot path": f"{describe(wide)}: the transformer cut from depth {cfg.encoder_depth}/"
+                        f"{cfg.decoder_depth} to 1/1, the UNet at full size; {TAPDOT_TIMED_FORWARDS} "
+                        f"passes and {TAPDOT_TIMED_STEPS} steps timed",
+    }))
+    if [sum(d.values()) for d in tapdot_launches(wide)] != [4, 4]:
+        raise AssertionError(f"the tap-dot model's gate counts changed: {tapdot_launches(wide)}")
     rows = []
+    started = time.monotonic()
     phase_attention_kernels(cfg, dev, rows)
     phase_flash_kernels(cfg, dev, rows)
     phase_sublayer_kernel(cfg, dev, rows)
+    phase_mlp_kernel(cfg, dev, rows)
     phase_conv_kernels(cfg, dev, rows)
+    phase_pooled_conv(cfg, dev, rows)
+    # the tap-dot model's own shapes: its depth-1 transformer's attention, the tap-dot
+    # kernel where the gate holds, the direct conv and the filter gradient everywhere else
+    phase_attention_kernels(wide, dev, rows, "serving-tapdot", "train-tapdot")
+    phase_tapdot_kernel(wide, dev, rows)
+    phase_conv_kernels(wide, dev, rows, "serving-tapdot", "train-tapdot", tapdot=True)
+    log("seconds", json.dumps({"kernel checks": time.monotonic() - started}))
+    started = time.monotonic()
     launches = {}
     serving_ref = train_ref = None
-    for attention in ATTENTION_PATHS:
-        phase_f32_forward(dev, attention)
-        launches[path_name("serving", attention)], out = phase_serving(cfg, dev, attention, serving_ref)
+    for path in FLAGSHIP_PATHS:
+        phase_f32_forward(dev, path)
+        launches[path_name("serving", path)], out = phase_serving(
+            cfg, dev, path, serving_ref, TIMED_FORWARDS if path == "fused" else NEW_PATH_TIMED_FORWARDS
+        )
         serving_ref = serving_ref or out
+    launches["serving-sublayer-mlp"], _ = phase_serving(
+        cfg, dev, "sublayer-mlp", serving_ref, NEW_PATH_TIMED_FORWARDS
+    )
+    _, wide_ref = phase_serving(wide, dev, "tapdot-off", None, TAPDOT_TIMED_FORWARDS, redraw_final_conv=True)
+    launches["serving-tapdot"], _ = phase_serving(
+        wide, dev, "tapdot", wide_ref, TAPDOT_TIMED_FORWARDS, redraw_final_conv=True
+    )
+    del serving_ref, wide_ref
+    log("seconds", json.dumps({"serving paths": time.monotonic() - started}))
+    started = time.monotonic()
     phase_f32_train(dev)
-    for attention in ATTENTION_PATHS:
-        launches[path_name("train", attention)], ref = phase_train(
-            cfg.replace(remat=False), dev, attention, train_ref
+    for path in FLAGSHIP_PATHS:
+        launches[path_name("train", path)], ref = phase_train(
+            cfg.replace(remat=False), dev, path, train_ref,
+            TIMED_STEPS if path == "fused" else NEW_PATH_TIMED_STEPS,
         )
         train_ref = train_ref or ref
+    _, wide_ref = phase_train(
+        wide.replace(remat=False), dev, "tapdot-off", None, TAPDOT_TIMED_STEPS, redraw_final_conv=True
+    )
+    launches["train-tapdot"], _ = phase_train(
+        wide.replace(remat=False), dev, "tapdot", wide_ref, TAPDOT_TIMED_STEPS, redraw_final_conv=True
+    )
+    log("seconds", json.dumps({"train paths": time.monotonic() - started}))
     log(json.dumps(kernel_record(rows, launches)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from video_vae_tpu_torch import VideoVAE, reconstruct, tiny_config
-from video_vae_tpu_torch.ops.conv3d import conv3d_cf_cuda
+from video_vae_tpu_torch.ops.conv3d import conv3d_cf_cuda, conv3d_tapdot_cuda
 from video_vae_tpu_torch.ops.flash_attention import fused_qkv_attention_cuda
+from video_vae_tpu_torch.ops.fused_block import fused_mlp_sublayer_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -56,3 +57,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros(1, 2, 4, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
         conv3d_cf_cuda(x, None, torch.zeros(3, 3, 3, 4, 4), torch.zeros(4))
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3d_tapdot_cuda(x.bfloat16(), None, torch.zeros(1, 3, 3, 4, 8).bfloat16(), torch.zeros(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_sublayer_cuda(torch.zeros(1, 4, 8), torch.ones(8), torch.zeros(8), torch.zeros(8, 16),
+                                torch.zeros(16), torch.zeros(16, 8), torch.zeros(8))

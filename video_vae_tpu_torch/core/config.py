@@ -5,6 +5,15 @@ Field names and defaults are those of the JAX package's ``core/config.py``
 Layout-only fields (``unet_layout``, ``unet_s2d_full``, ``unet_s2d_last``)
 are accepted and change nothing here: the port always computes the unpacked
 channels-first math, which those options leave unchanged in the JAX package.
+So the environment knob ``VVT_TAPDOT=1`` (read at every conv call) acts on the
+unpacked convs only: a kt = 1 conv with at least 128 input channels on a
+frame at least 128 wide, in bf16, goes to the tap-dot kernel, forward and
+input gradient; the flagship's UNet has none, a ``temporal_kernel=1,
+unet_base_features=64`` one has four (and four input gradients).
+``VVT_MLP_FUSED=1`` (read at every call) routes each block's two MLP
+sublayers through the one-kernel MLP sublayer, and ``VVT_ATTN_SUBLAYER=1``
+each attention sublayer through its one-kernel form; both multiply bf16
+operands whatever ``dtype`` is.
 ``attention_impl`` picks the attention chain of every block (``"fused"``,
 ``"xla"`` or ``"pallas"``) and ``scan_rollout_decode`` decodes the paired
 rollouts one at a time, as in the JAX package.

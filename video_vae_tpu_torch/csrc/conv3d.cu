@@ -24,6 +24,11 @@
 // 8 column groups) hit 32 distinct banks. A second source is read where the
 // input channel is >= c1. Temporal taps that fall outside the clip are
 // skipped (zero padding). Tensor cores (wgmma) and TMA come later.
+//
+// The optional second output (the TPU kernel's pool=True) is the 2x2 spatial
+// max pool of the f32 sums + bias, rounded once: a thread's 4 pixels pair up
+// along the row, and the row below belongs to the lane 8 further on in the same
+// warp, so one shuffle per value finishes the pool in the epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,11 +60,12 @@ __host__ __device__ constexpr int in_stride(int kw) {
   return in_width(kw) + ((1 - in_width(kw)) % 4 + 4) % 4;
 }
 
-template <typename T, int KW>
+template <typename T, int KW, bool POOL>
 __global__ void __launch_bounds__(THREADS)
 conv3d_cf_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int c1, int c2,
                  const T* __restrict__ w, const float* __restrict__ bias, T* __restrict__ y,
-                 int Tn, int Hh, int Ww, int cout, int kt, int kh, int tiles_w, int tiles_hw) {
+                 T* __restrict__ pooled, int Tn, int Hh, int Ww, int cout, int kt, int kh,
+                 int tiles_w, int tiles_hw) {
   constexpr int IW = in_width(KW);
   constexpr int IWP = in_stride(KW);
   extern __shared__ float4 smem4[];
@@ -135,6 +141,24 @@ conv3d_cf_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int c1, int
   }
 
   const int gy = y0 + pr;
+  if constexpr (POOL) {  // Hh and Ww are even here
+    const int H2 = Hh / 2, W2 = Ww / 2;
+    const int px = (x0 + pc * PX) / 2;
+#pragma unroll
+    for (int o = 0; o < CO_T; ++o) {
+      const int co = co0 + cog * CO_T + o;
+      const float bv = co < cout ? bias[co] : 0.f;
+#pragma unroll
+      for (int q = 0; q < PX / 2; ++q) {
+        const float m = fmaxf(acc[2 * q][o], acc[2 * q + 1][o]);
+        // rows pr and pr + 1 sit 8 lanes apart (TW / PX column groups a row)
+        const float both = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, TW / PX));
+        if (pr % 2 == 0 && co < cout && gy + 1 < Hh && px + q < W2)
+          pooled[((size_t)(b * Tn + t) * cout + co) * H2 * W2 + (size_t)(gy / 2) * W2 + px + q] =
+              from_float<T>(both + bv);
+      }
+    }
+  }
   if (gy >= Hh) return;
 #pragma unroll
   for (int o = 0; o < CO_T; ++o) {
@@ -152,53 +176,59 @@ conv3d_cf_kernel(const T* __restrict__ x1, const T* __restrict__ x2, int c1, int
 
 template <typename T, int KW>
 cudaError_t launch(const void* x1, const void* x2, int c1, int c2, const void* w,
-                   const void* bias, void* y, int B, int Tn, int Hh, int Ww, int cout, int kt,
-                   int kh, cudaStream_t stream) {
+                   const void* bias, void* y, void* pooled, int B, int Tn, int Hh, int Ww,
+                   int cout, int kt, int kh, cudaStream_t stream) {
   const int tiles_w = (Ww + TW - 1) / TW, tiles_h = (Hh + TH - 1) / TH;
   const int tiles_hw = tiles_w * tiles_h;
   const int co_tiles = (cout + COT - 1) / COT;
   const size_t smem =
       ((size_t)kh * KW * CI * COT + (size_t)CI * (TH + kh - 1) * in_stride(KW)) * sizeof(float);
-  auto kernel = conv3d_cf_kernel<T, KW>;
+  // the pooled epilogue is its own instantiation, so the plain one pays nothing for it
+  auto kernel = pooled != nullptr ? conv3d_cf_kernel<T, KW, true> : conv3d_cf_kernel<T, KW, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(tiles_hw * co_tiles), (unsigned)(B * Tn));
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x1), static_cast<const T*>(x2), c1, c2, static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<T*>(y), Tn, Hh, Ww, cout, kt, kh, tiles_w,
-      tiles_hw);
+      static_cast<const float*>(bias), static_cast<T*>(y), static_cast<T*>(pooled), Tn, Hh, Ww,
+      cout, kt, kh, tiles_w, tiles_hw);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_kw(const void* x1, const void* x2, int c1, int c2, const void* w,
-                        const void* bias, void* y, int B, int Tn, int Hh, int Ww, int cout,
-                        int kt, int kh, int kw, cudaStream_t stream) {
+                        const void* bias, void* y, void* pooled, int B, int Tn, int Hh, int Ww,
+                        int cout, int kt, int kh, int kw, cudaStream_t stream) {
+#define VVT_CONV_ARGS x1, x2, c1, c2, w, bias, y, pooled, B, Tn, Hh, Ww, cout, kt, kh, stream
   switch (kw) {
-    case 1: return launch<T, 1>(x1, x2, c1, c2, w, bias, y, B, Tn, Hh, Ww, cout, kt, kh, stream);
-    case 3: return launch<T, 3>(x1, x2, c1, c2, w, bias, y, B, Tn, Hh, Ww, cout, kt, kh, stream);
-    case 5: return launch<T, 5>(x1, x2, c1, c2, w, bias, y, B, Tn, Hh, Ww, cout, kt, kh, stream);
-    case 7: return launch<T, 7>(x1, x2, c1, c2, w, bias, y, B, Tn, Hh, Ww, cout, kt, kh, stream);
+    case 1: return launch<T, 1>(VVT_CONV_ARGS);
+    case 3: return launch<T, 3>(VVT_CONV_ARGS);
+    case 5: return launch<T, 5>(VVT_CONV_ARGS);
+    case 7: return launch<T, 7>(VVT_CONV_ARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef VVT_CONV_ARGS
 }
 
 }  // namespace
 
-// x2 may be null with c2 = 0. dtype: 0 = float32, 1 = bfloat16 (x1, x2, w, y).
+// x2 may be null with c2 = 0. dtype: 0 = float32, 1 = bfloat16 (x1, x2, w, y, pooled).
+// pooled: (B, Tn, cout, Hh/2, Ww/2) or null; Hh and Ww must be even when it is given.
 extern "C" int vvt_conv3d_cf(const void* x1, const void* x2, int c1, int c2, const void* w,
-                             const void* bias, void* y, int B, int Tn, int Hh, int Ww, int cout,
-                             int kt, int kh, int kw, int dtype, void* stream) {
+                             const void* bias, void* y, void* pooled, int B, int Tn, int Hh,
+                             int Ww, int cout, int kt, int kh, int kw, int dtype, void* stream) {
   if (B < 1 || Tn < 1 || Hh < 1 || Ww < 1 || c1 < 1 || c2 < 0 || cout < 1) return (int)cudaErrorInvalidValue;
   if (kt < 1 || kt % 2 == 0 || kh < 1 || kh % 2 == 0 || kh > MAX_K) return (int)cudaErrorInvalidValue;
   if ((long long)B * Tn > 65535) return (int)cudaErrorInvalidValue;
+  if (pooled != nullptr && (Hh % 2 || Ww % 2)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_kw<float>(x1, x2, c1, c2, w, bias, y, B, Tn, Hh, Ww, cout, kt, kh, kw, st);
+    return (int)dispatch_kw<float>(x1, x2, c1, c2, w, bias, y, pooled, B, Tn, Hh, Ww, cout, kt, kh,
+                                   kw, st);
   if (dtype == 1)
-    return (int)dispatch_kw<__nv_bfloat16>(x1, x2, c1, c2, w, bias, y, B, Tn, Hh, Ww, cout, kt, kh,
-                                           kw, st);
+    return (int)dispatch_kw<__nv_bfloat16>(x1, x2, c1, c2, w, bias, y, pooled, B, Tn, Hh, Ww, cout,
+                                           kt, kh, kw, st);
   return (int)cudaErrorInvalidValue;
 }
 

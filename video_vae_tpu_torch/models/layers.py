@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from video_vae_tpu_torch.ops.attention import masked_attention
 from video_vae_tpu_torch.ops.flash_attention import fused_attention_sublayer, fused_qkv_attention
+from video_vae_tpu_torch.ops.fused_block import fused_mlp_sublayer
 from video_vae_tpu_torch.ops.norm import LN_EPS, layer_norm
 from video_vae_tpu_torch.ops.rope import apply_rope
 
@@ -214,6 +215,24 @@ class MLP(nn.Module):
         return self.linear2(F.silu(self.linear1(self.norm(x))))
 
 
+def apply_mlp(mlp: MLP, x: torch.Tensor) -> torch.Tensor:
+    """Residual MLP sublayer: x + MLP(x).
+
+    With ``VVT_MLP_FUSED=1`` in the environment (read at every call, the JAX
+    package's knob) the whole sublayer (LN, both products, SiLU, residual)
+    goes through :func:`fused_mlp_sublayer`, whose products run on bf16
+    operands whatever the compute dtype.
+    """
+    if os.environ.get("VVT_MLP_FUSED", "0") == "1":
+        return fused_mlp_sublayer(
+            x,
+            mlp.norm.scale, mlp.norm.bias,
+            mlp.linear1.kernel, mlp.linear1.bias,
+            mlp.linear2.kernel, mlp.linear2.bias,
+        )
+    return x + mlp(x)
+
+
 def maybe_remat(enabled: bool, fn, *args):
     """``fn(*args)``, under activation checkpointing when ``enabled`` and autograd
     records (the JAX package's ``nnx.remat``): the block's activations are
@@ -255,10 +274,10 @@ class FactoredAttention(nn.Module):
         if temporal_mask is not None:
             mask = temporal_mask[:, None, :].expand(b, hw, t).reshape(b * hw, t)
         tx = apply_attention(self.TemporalAttention, tx, mask)
-        tx = tx + self.TemporalMLP(tx)
+        tx = apply_mlp(self.TemporalMLP, tx)
         x = rearrange(tx, "(b hw) t c -> b t hw c", b=b, hw=hw)
 
         sx = rearrange(x, "b t hw c -> (b t) hw c")
         sx = apply_attention(self.SpatialAttention, sx, None)
-        sx = sx + self.SpatialMLP(sx)
+        sx = apply_mlp(self.SpatialMLP, sx)
         return rearrange(sx, "(b t) hw c -> b t hw c", b=b, t=t)

@@ -21,6 +21,8 @@ import subprocess
 from pathlib import Path
 from typing import Iterable, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
@@ -28,6 +30,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# the dtype argument of every kernel's entry point
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _nvcc() -> str:

@@ -1,38 +1,53 @@
 """Stride-1 SAME 3-D convolution on channels-first (b, t, c, h, w) activations.
 
-Counterpart of the JAX package's ``ops/conv3d.py:conv3d_cf`` and
-``conv3d_cf_cat2`` (the Pallas ``_conv_kernel`` forward and ``_wgrad_kernel``
-filter gradient, with the custom VJP ``_cf_grads``). The kernel stays DHWIO
-(kt, kh, kw, cin, cout) as in the JAX params; the bias is f32; accumulation
-is f32 and the output takes the input dtype.
+Counterpart of the JAX package's ``ops/conv3d.py:conv3d_cf``,
+``conv3d_cf_cat2`` and ``conv3d_cf_pooled`` (the Pallas ``_conv_kernel`` and
+``_tapdot_kernel`` forwards and the ``_wgrad_kernel`` filter gradient, with
+the custom VJP ``_cf_grads``). The kernel stays DHWIO (kt, kh, kw, cin, cout)
+as in the JAX params; the bias is f32; accumulation is f32 and the output
+takes the input dtype.
 
-Both entry points are ``torch.autograd.Function``s. Each piece dispatches by
+The entry points are ``torch.autograd.Function``s. Each piece dispatches by
 the tensor's device: a CPU tensor takes the plain PyTorch version, a CUDA
 tensor takes the CUDA kernel or the call raises.
 
-* forward: ``csrc/conv3d.cu``;
+* forward: ``csrc/conv3d.cu``, or, with ``VVT_TAPDOT=1`` in the environment
+  (read at every call, the JAX package's knob) and a conv that
+  :func:`tapdot_supported` accepts (kt = 1, at least 128 input channels, a
+  frame at least 128 wide, bf16), ``csrc/conv3d_tapdot.cu``: one tensor-core
+  product per spatial tap;
 * input gradient: the forward conv of g with the spatially flipped,
-  IO-swapped kernel and a zero bias, so ``csrc/conv3d.cu`` again;
+  IO-swapped kernel and a zero bias, through the same dispatch;
 * filter gradient: ``csrc/conv3d_wgrad.cu`` over one or two sources (the
   UpBlock's skip concat is never built);
-* bias gradient: the f32 sum of g over (b, t, h, w).
+* bias gradient: the f32 sum of g over (b, t, h, w);
+* :func:`conv3d_cf_pooled` also returns the conv's 2×2 spatial max pool,
+  written by the epilogue of whichever forward kernel ran.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from video_vae_tpu_torch.ops._build import CudaKernel
+from video_vae_tpu_torch.ops._build import DTYPE_CODES, CudaKernel
+from video_vae_tpu_torch.ops.norm import max_pool_2x_cf
 
 CONV3D = CudaKernel(
     "conv3d.cu",
     "vvt_conv3d_cf",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+)
+CONV3D_TAPDOT = CudaKernel(
+    "conv3d_tapdot.cu",
+    "vvt_conv3d_tapdot",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 CONV3D_WGRAD = CudaKernel(
     "conv3d_wgrad.cu",
@@ -42,19 +57,66 @@ CONV3D_WGRAD = CudaKernel(
 
 KERNEL_WIDTHS = (1, 3, 5, 7)
 KERNEL_MAX_HEIGHT = 7
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The filter-gradient kernel's output tile (rows of the (kt·kh·kw·cin) axis ×
 # output channels) and the number of blocks it aims to keep in flight: the
 # pixel reduction is split across blocks until the grid has about this many.
 WGRAD_TILE_K, WGRAD_TILE_CO, WGRAD_TARGET_BLOCKS = 128, 16, 1056
 
 
-def _dispatch(x1, x2, kernel, bias):
+def tapdot_supported(x1, x2, kernel) -> bool:
+    """Whether this conv takes the tap-dot kernel: the JAX package's gate.
+
+    ``VVT_TAPDOT=1`` in the environment (read at every call), kt = 1, a frame
+    at least 128 wide, at least 128 input channels, input, output and each
+    source's channels multiples of 8, and a 2-byte dtype (a float32 conv
+    stays on the direct kernel).
+    """
+    kt, _, _, cin, cout = kernel.shape
+    sources = [x1] if x2 is None else [x1, x2]
+    return (
+        os.environ.get("VVT_TAPDOT", "0") == "1"
+        and kt == 1
+        and x1.shape[4] >= 128
+        and cin >= 128
+        and cin % 8 == 0
+        and cout % 8 == 0
+        and all(s.shape[2] % 8 == 0 for s in sources)
+        and x1.dtype == torch.bfloat16
+    )
+
+
+def _dispatch(x1, x2, kernel, bias, pool=False):
+    """The forward conv by device and gate; with ``pool`` also its 2×2 max pool."""
+    tapdot = tapdot_supported(x1, x2, kernel)
     if x1.device.type == "cpu":
-        return conv3d_cf_plain(x1, x2, kernel, bias)
+        plain = conv3d_tapdot_plain if tapdot else conv3d_cf_plain
+        return plain(x1, x2, kernel, bias, pool=pool)
     if x1.device.type == "cuda":
-        return conv3d_cf_cuda(x1, x2, kernel, bias)
+        launch = conv3d_tapdot_cuda if tapdot else conv3d_cf_cuda
+        return launch(x1, x2, kernel, bias, pool=pool)
     raise ValueError(f"conv3d_cf: unsupported device {x1.device}")
+
+
+def _cf_grads(x1, x2, kernel, g, need_dx, bias_dtype):
+    """(dx1, dx2, dkernel, dbias) of the conv of [x1; x2] for the cotangent g.
+
+    g may be f32 (the pooled entry point sums two cotangents in f32): the
+    bias gradient is the sum of that, the kernels take g in the input dtype.
+    """
+    kt, kh, kw, cin, _ = kernel.shape
+    dbias = g.float().sum(dim=(0, 1, 3, 4)).to(bias_dtype)
+    g = g.to(x1.dtype).contiguous()
+    dx1 = dx2 = None
+    if need_dx:
+        # stride 1, SAME, odd taps: dx is the forward conv of g with the
+        # spatially flipped, IO-swapped kernel
+        flipped = kernel.flip(0, 1, 2).transpose(3, 4).contiguous()
+        zero = torch.zeros(cin, dtype=torch.float32, device=g.device)
+        dx = _dispatch(g, None, flipped, zero)
+        c1 = x1.shape[2]
+        dx1, dx2 = (dx, None) if x2 is None else (dx[:, :, :c1], dx[:, :, c1:])
+    dkernel = conv3d_wgrad(x1, x2, g, kt, kh, kw).to(kernel.dtype)
+    return dx1, dx2, dkernel, dbias
 
 
 class _Conv3dCF(torch.autograd.Function):
@@ -67,20 +129,30 @@ class _Conv3dCF(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x1, x2, kernel = ctx.saved_tensors
-        kt, kh, kw, cin, cout = kernel.shape
-        g = g.to(x1.dtype).contiguous()
-        dx1 = dx2 = None
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            # stride 1, SAME, odd taps: dx is the forward conv of g with the
-            # spatially flipped, IO-swapped kernel
-            flipped = kernel.flip(0, 1, 2).transpose(3, 4).contiguous()
-            zero = torch.zeros(cin, dtype=torch.float32, device=g.device)
-            dx = _dispatch(g, None, flipped, zero)
-            c1 = x1.shape[2]
-            dx1, dx2 = (dx, None) if x2 is None else (dx[:, :, :c1], dx[:, :, c1:])
-        dkernel = conv3d_wgrad(x1, x2, g, kt, kh, kw).to(kernel.dtype)
-        dbias = g.float().sum(dim=(0, 1, 3, 4)).to(ctx.bias_dtype)
-        return dx1, dx2, dkernel, dbias
+        need_dx = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        return _cf_grads(x1, x2, kernel, g, need_dx, ctx.bias_dtype)
+
+
+class _Conv3dCFPooled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        full, pooled = _dispatch(x, None, kernel, bias, pool=True)
+        ctx.save_for_backward(x, kernel, full)
+        ctx.bias_dtype = bias.dtype
+        return full, pooled
+
+    @staticmethod
+    def backward(ctx, g_full, g_pool):
+        """The pooled cotangent goes through the max pool's own VJP on the
+        saved conv output, is added to g_full in f32, then one conv backward."""
+        x, kernel, full = ctx.saved_tensors
+        with torch.enable_grad():
+            leaf = full.detach().requires_grad_()
+            pooled = max_pool_2x_cf(leaf)
+        (g_from_pool,) = torch.autograd.grad(pooled, leaf, g_pool.to(full.dtype))
+        g = g_full.float() + g_from_pool.float()
+        dx, _, dkernel, dbias = _cf_grads(x, None, kernel, g, ctx.needs_input_grad[0], ctx.bias_dtype)
+        return dx, dkernel, dbias
 
 
 def conv3d_cf(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -93,6 +165,18 @@ def conv3d_cf_cat2(
 ) -> torch.Tensor:
     """The conv of the channel concat [x1; x2]; the concat is never built."""
     return _Conv3dCF.apply(x1, x2, kernel, bias)
+
+
+def conv3d_cf_pooled(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor):
+    """The conv and its 2×2 spatial max pool: (full, pooled), h and w even.
+
+    The pooled output comes out of the forward kernel's epilogue (taken from
+    the f32 sums, rounded once). Only for a pool that follows the conv
+    directly; the UNet's DownBlocks pool after GroupNorm + SiLU.
+    """
+    if x.shape[3] % 2 or x.shape[4] % 2:
+        raise ValueError(f"conv3d_cf_pooled needs an even frame, got {tuple(x.shape[3:])}")
+    return _Conv3dCFPooled.apply(x, kernel, bias)
 
 
 def conv3d_wgrad(
@@ -116,11 +200,13 @@ def conv3d_cf_plain(
     x2: Optional[torch.Tensor],
     kernel: torch.Tensor,
     bias: torch.Tensor,
-) -> torch.Tensor:
+    pool: bool = False,
+):
     """The kernel's arithmetic in plain PyTorch: one f32 product per tap.
 
     Sums kt·kh·kw shifted (b,t,cin,h,w)·(cin,cout) contractions of the
-    zero-padded input in f32, adds the bias and rounds once.
+    zero-padded input in f32, adds the bias and rounds once. With ``pool``
+    returns (full, pooled): the 2×2 spatial max of the f32 sums, rounded.
     """
     b, t, _, h, w = x1.shape
     kt, kh, kw, _, cout = kernel.shape
@@ -133,6 +219,39 @@ def conv3d_cf_plain(
                 xs = xp[:, dt : dt + t, :, dh : dh + h, dw : dw + w]
                 y += torch.einsum("btchw,cd->btdhw", xs, wf[dt, dh, dw])
     y += bias.float()[None, None, :, None, None]
+    if pool:
+        return y.to(x1.dtype), max_pool_2x_cf(y).to(x1.dtype)
+    return y.to(x1.dtype)
+
+
+def conv3d_tapdot_plain(
+    x1: torch.Tensor,
+    x2: Optional[torch.Tensor],
+    kernel: torch.Tensor,
+    bias: torch.Tensor,
+    pool: bool = False,
+):
+    """The tap-dot kernel's arithmetic in plain PyTorch, for a kt = 1 kernel.
+
+    One (cout × cin)·(cin × pixels) f32 product per spatial tap, in tap
+    order, over the channels of both sources, zero outside the frame; the
+    bias added in f32, one rounding. With ``pool`` returns (full, pooled),
+    the pooled output taken from the f32 sums.
+    """
+    b, t, _, h, w = x1.shape
+    kt, kh, kw, _, cout = kernel.shape
+    if kt != 1:
+        raise ValueError(f"the tap-dot conv takes kt = 1, got {kt}")
+    xp = _padded_f32(x1, x2, 1, kh, kw).reshape(b * t, -1, h + kh - 1, w + kw - 1)
+    wf = kernel.float()[0]
+    y = torch.zeros((b * t, cout, h * w), dtype=torch.float32, device=x1.device)
+    for dh in range(kh):
+        for dw in range(kw):
+            window = xp[:, :, dh : dh + h, dw : dw + w].reshape(b * t, -1, h * w)
+            y += torch.matmul(wf[dh, dw].t(), window)
+    y = (y + bias.float()[None, :, None]).reshape(b, t, cout, h, w)
+    if pool:
+        return y.to(x1.dtype), max_pool_2x_cf(y).to(x1.dtype)
     return y.to(x1.dtype)
 
 
@@ -165,7 +284,7 @@ def _check_sources(name, x1, x2):
     """Device, dtype, layout checks shared by both CUDA wrappers; returns c2."""
     if not x1.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
-    if x1.dtype not in _DTYPE_CODES:
+    if x1.dtype not in DTYPE_CODES:
         raise TypeError(f"conv kernels take float32 or bfloat16, not {x1.dtype}")
     for s in [x1] if x2 is None else [x1, x2]:
         if s.dim() != 5 or not s.is_contiguous():
@@ -182,15 +301,10 @@ def _check_kernel_size(kt, kh, kw):
         raise ValueError(f"kernel size {(kt, kh, kw)} not supported (odd, kh <= 7, kw in 1,3,5,7)")
 
 
-def conv3d_cf_cuda(
-    x1: torch.Tensor,
-    x2: Optional[torch.Tensor],
-    kernel: torch.Tensor,
-    bias: torch.Tensor,
-) -> torch.Tensor:
-    """Launch the CUDA kernel over one source, or two without their concat."""
-    c2 = _check_sources("conv3d_cf_cuda", x1, x2)
-    b, t, c1, h, w = x1.shape
+def _check_conv_operands(name, x1, x2, kernel, bias, pool):
+    """Checks shared by the two forward wrappers; returns c2."""
+    c2 = _check_sources(name, x1, x2)
+    c1, h, w = x1.shape[2:]
     if kernel.dim() != 5 or not kernel.is_contiguous() or kernel.dtype != x1.dtype:
         raise ValueError("kernel must be a contiguous DHWIO tensor in the input dtype")
     kt, kh, kw, cin, cout = kernel.shape
@@ -201,15 +315,80 @@ def conv3d_cf_cuda(
         raise ValueError("bias must be a contiguous float32 (cout,) tensor")
     if kernel.device != x1.device or bias.device != x1.device:
         raise ValueError("kernel and bias must be on the activations' device")
+    if pool and (h % 2 or w % 2):
+        raise ValueError(f"the pooled output needs an even frame, got {(h, w)}")
+    return c2
+
+
+def _empty_outputs(x1, cout, pool):
+    b, t, _, h, w = x1.shape
     y = torch.empty((b, t, cout, h, w), dtype=x1.dtype, device=x1.device)
+    pooled = None
+    if pool:
+        pooled = torch.empty((b, t, cout, h // 2, w // 2), dtype=x1.dtype, device=x1.device)
+    return y, pooled
+
+
+def conv3d_cf_cuda(
+    x1: torch.Tensor,
+    x2: Optional[torch.Tensor],
+    kernel: torch.Tensor,
+    bias: torch.Tensor,
+    pool: bool = False,
+):
+    """Launch the direct conv kernel over one source, or two without their concat.
+
+    With ``pool`` the kernel's epilogue also writes the 2×2 spatial max pool
+    and the call returns (full, pooled).
+    """
+    c2 = _check_conv_operands("conv3d_cf_cuda", x1, x2, kernel, bias, pool)
+    b, t, c1, h, w = x1.shape
+    kt, kh, kw, _, cout = kernel.shape
+    y, pooled = _empty_outputs(x1, cout, pool)
     with torch.cuda.device(x1.device):
         CONV3D.launch(
             x1.data_ptr(), None if x2 is None else x2.data_ptr(), c1, c2,
             kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            b, t, h, w, cout, kt, kh, kw, _DTYPE_CODES[x1.dtype],
+            None if pooled is None else pooled.data_ptr(),
+            b, t, h, w, cout, kt, kh, kw, DTYPE_CODES[x1.dtype],
             torch.cuda.current_stream(x1.device).cuda_stream,
         )
-    return y
+    return (y, pooled) if pool else y
+
+
+def conv3d_tapdot_cuda(
+    x1: torch.Tensor,
+    x2: Optional[torch.Tensor],
+    kernel: torch.Tensor,
+    bias: torch.Tensor,
+    pool: bool = False,
+):
+    """Launch the tap-dot kernel (kt = 1, bf16, channels multiples of 8).
+
+    One source, or two without their concat; with ``pool`` the call returns
+    (full, pooled).
+    """
+    c2 = _check_conv_operands("conv3d_tapdot_cuda", x1, x2, kernel, bias, pool)
+    b, t, c1, h, w = x1.shape
+    kt, kh, kw, cin, cout = kernel.shape
+    if x1.dtype != torch.bfloat16:
+        raise TypeError(f"the tap-dot kernel takes bfloat16, not {x1.dtype}")
+    if kt != 1:
+        raise ValueError(f"the tap-dot kernel takes kt = 1, got {kt}")
+    if cin % 8 or cout % 8:
+        raise ValueError(f"the tap-dot kernel takes channels that are multiples of 8, got {cin}, {cout}")
+    y, pooled = _empty_outputs(x1, cout, pool)
+    if any(s.data_ptr() % 16 for s in (x1, x2, kernel, y) if s is not None):
+        raise ValueError("the tap-dot kernel needs 16-byte aligned tensors")
+    with torch.cuda.device(x1.device):
+        CONV3D_TAPDOT.launch(
+            x1.data_ptr(), None if x2 is None else x2.data_ptr(), c1, c2,
+            kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            None if pooled is None else pooled.data_ptr(),
+            b * t, h, w, cout, kh, kw,
+            torch.cuda.current_stream(x1.device).cuda_stream,
+        )
+    return (y, pooled) if pool else y
 
 
 def wgrad_splits(k_rows: int, cout: int, segments: int) -> int:
@@ -249,7 +428,7 @@ def conv3d_wgrad_cuda(
         CONV3D_WGRAD.launch(
             x1.data_ptr(), None if x2 is None else x2.data_ptr(), g.data_ptr(),
             partials.data_ptr(), dw.data_ptr(),
-            c1, c2, b, t, h, w, cout, kt, kh, kw, splits, _DTYPE_CODES[x1.dtype],
+            c1, c2, b, t, h, w, cout, kt, kh, kw, splits, DTYPE_CODES[x1.dtype],
             torch.cuda.current_stream(x1.device).cuda_stream,
         )
     return dw

@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from video_vae_tpu_torch.ops._build import CudaKernel
+from video_vae_tpu_torch.ops._build import DTYPE_CODES, CudaKernel
 from video_vae_tpu_torch.ops.norm import LN_EPS
 from video_vae_tpu_torch.ops.rope import rope_tables, rotate_half
 
@@ -65,7 +65,6 @@ ATTENTION_SUBLAYER = CudaKernel(
     [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # rows of the LN/RoPE backward per block: its dscale partials are (blocks, D)
 BWD_ROWS_PER_BLOCK = 64
 
@@ -240,7 +239,7 @@ def _check_kernel_args(name, qkv, q_scale, k_scale, mask, num_heads):
     """Shared checks of both CUDA wrappers; returns (B, S, D)."""
     if not qkv.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor")
-    if qkv.dtype not in _DTYPE_CODES:
+    if qkv.dtype not in DTYPE_CODES:
         raise TypeError(f"fused attention kernels take float32 or bfloat16, not {qkv.dtype}")
     if qkv.dim() != 3 or not qkv.is_contiguous():
         raise ValueError("qkv must be a contiguous (B, S, 3*H*D) tensor")
@@ -287,7 +286,7 @@ def fused_qkv_attention_cuda(
         FUSED_ATTENTION.launch(
             qkv.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            b, s, num_heads, d, _DTYPE_CODES[qkv.dtype],
+            b, s, num_heads, d, DTYPE_CODES[qkv.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
     return out
@@ -329,7 +328,7 @@ def fused_qkv_attention_bwd_cuda(
             qkv.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             None if mask is None else mask.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
             partials[0].data_ptr(), partials[1].data_ptr(), work.data_ptr(),
-            b, s, num_heads, d, n_blocks, _DTYPE_CODES[qkv.dtype],
+            b, s, num_heads, d, n_blocks, DTYPE_CODES[qkv.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
     dqs, dks = partials.sum(dim=1)
@@ -436,7 +435,7 @@ def _rows_of_heads(t: torch.Tensor):
 def _check_flash_args(name, q, k, v, mask):
     if not q.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES:
         raise TypeError(f"flash attention kernels take float32 or bfloat16, not {q.dtype}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k, v must share one (B, S, H, D) shape")
@@ -467,7 +466,7 @@ def flash_attention_cuda(q, k, v, mask):
         FLASH_ATTENTION.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            qs, ks, vs, b, s, h, d, _DTYPE_CODES[q.dtype],
+            qs, ks, vs, b, s, h, d, DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
     return out
@@ -488,7 +487,7 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             None if mask is None else mask.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
-            qs, ks, vs, gs, b, s, h, d, _DTYPE_CODES[q.dtype],
+            qs, ks, vs, gs, b, s, h, d, DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
     return dq, dk, dv
@@ -499,14 +498,14 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
 # ---------------------------------------------------------------------------
 
 
-def _ln_affine(x, ln_scale, ln_bias):
+def ln_affine(x, ln_scale, ln_bias):
     """Token LN + affine as the sublayer kernel computes it: (bf16 xa, f32 xn, f32 r)."""
     xn, r = _ln_unscaled(x.float())
     xa = (xn * ln_scale.float() + ln_bias.float()).to(torch.bfloat16)
     return xa, xn, r
 
 
-def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b for 2-D bf16 operands with f32 accumulation and an f32 result.
 
     On the card one cuBLAS call on the bf16 operands with an f32 output; on
@@ -547,11 +546,11 @@ class _AttentionSublayer(torch.autograd.Function):
         bf16 = torch.bfloat16
         dyf = dy.float()
         dy16 = dy.to(bf16).reshape(n, c)
-        xa, xn, r = _ln_affine(x, ln_scale, ln_bias)
+        xa, xn, r = ln_affine(x, ln_scale, ln_bias)
         xa = xa.reshape(n, c)
 
-        do = _matmul_f32(dy16, wout.to(bf16).t())  # (N, HD)
-        dwout = _matmul_f32(o.to(bf16).reshape(n, hd).t(), dy16)  # (HD, C)
+        do = matmul_f32(dy16, wout.to(bf16).t())  # (N, HD)
+        dwout = matmul_f32(o.to(bf16).reshape(n, hd).t(), dy16)  # (HD, C)
         dbout = dyf.reshape(n, c).sum(dim=0)
 
         g = do.reshape(b, s, hd).to(qkv.dtype)
@@ -559,9 +558,9 @@ class _AttentionSublayer(torch.autograd.Function):
         dqkv, dqs, dks = bwd(qkv, q_scale, k_scale, mask, g, *ctx.rope)
 
         dqkv16 = dqkv.to(bf16).reshape(n, 3 * hd)
-        dwqkv = _matmul_f32(xa.t(), dqkv16)  # (C, 3HD)
+        dwqkv = matmul_f32(xa.t(), dqkv16)  # (C, 3HD)
         dbqkv = dqkv.float().reshape(n, 3 * hd).sum(dim=0)
-        dxa = _matmul_f32(dqkv16, wqkv.to(bf16).t()).reshape(b, s, c)
+        dxa = matmul_f32(dqkv16, wqkv.to(bf16).t()).reshape(b, s, c)
 
         dscale = (dxa * xn).reshape(n, c).sum(dim=0)
         dbias = dxa.reshape(n, c).sum(dim=0)
@@ -618,11 +617,11 @@ def fused_attention_sublayer_plain(
     """
     bf16 = torch.bfloat16
     b, s, c = x.shape
-    xa, _, _ = _ln_affine(x, ln_scale, ln_bias)
-    qkv = _matmul_f32(xa.reshape(b * s, c), wqkv.to(bf16)) + bqkv.float()
+    xa, _, _ = ln_affine(x, ln_scale, ln_bias)
+    qkv = matmul_f32(xa.reshape(b * s, c), wqkv.to(bf16)) + bqkv.float()
     qkv = qkv.reshape(b, s, -1).to(x.dtype)
     o = fused_qkv_attention_plain(qkv, q_scale, k_scale, mask, num_heads, rope_base, rope_alpha)
-    y = _matmul_f32(o.to(bf16).reshape(b * s, -1), wout.to(bf16)) + bout.float()
+    y = matmul_f32(o.to(bf16).reshape(b * s, -1), wout.to(bf16)) + bout.float()
     return (x.float() + y.reshape(b, s, c)).to(x.dtype), qkv, o
 
 
@@ -637,7 +636,7 @@ def fused_attention_sublayer_cuda(
     """
     if not x.is_cuda:
         raise ValueError("fused_attention_sublayer_cuda needs a CUDA tensor")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in DTYPE_CODES:
         raise TypeError(f"the sublayer kernel takes float32 or bfloat16, not {x.dtype}")
     if x.dim() != 3:
         raise ValueError("x must be (B, S, C)")
@@ -680,7 +679,7 @@ def fused_attention_sublayer_cuda(
             x.data_ptr(), None if mask is None else mask.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
             wq.data_ptr(), bq.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), y.data_ptr(), qkv.data_ptr(), o.data_ptr(), xa.data_ptr(),
-            b, s, c, num_heads, d, _DTYPE_CODES[x.dtype],
+            b, s, c, num_heads, d, DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
     return y, qkv, o
