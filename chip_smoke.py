@@ -284,11 +284,11 @@ def conv_cases(cfg):
     ]
 
 
-def _record(rows, kernel, case, shape, dtype, err, ms, plain_ms, library_ms, library, bound, per):
+def _record(rows, kernel, case, shape, dtype, err, ms, plain_ms, library_ms, library, bound, per, **extra):
     rows.append(dict(
         kernel=kernel.symbol, case=case, shape=shape, dtype=dtype, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, library_ms=library_ms, library=library, bound_ms=bound[0],
-        bound_by=bound[1], per_pass=per if dtype == "bfloat16" else {},
+        bound_by=bound[1], per_pass=per if dtype == "bfloat16" else {}, **extra,
     ))
     log("kernel-check", json.dumps(rows[-1]))
 
@@ -563,16 +563,23 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
             del dx
 
         dw = conv3d.conv3d_wgrad_cuda(xs[0], x2, g, *k)
+        again = conv3d.conv3d_wgrad_cuda(xs[0], x2, g, *k)
         torch.cuda.synchronize()
         err = check_close(f"conv wgrad {name}", dw, conv3d.conv3d_wgrad_plain(xs[0], x2, g, *k), "float32")
+        if not torch.equal(dw, again):  # no atomics: the same bits on every run
+            raise AssertionError(f"conv wgrad {name}: two launches gave different bits")
+        del again
         w_shape = (cout, cin, *k)
+        ms = time_ms(lambda: conv3d.conv3d_wgrad_cuda(xs[0], x2, g, *k), 5)
+        cudnn_ms = time_ms(lambda: torch.nn.grad.conv3d_weight(x_ncdhw, w_shape, g_ncdhw, padding=pad), 5)
+        log("wgrad-vs-cudnn", json.dumps({
+            "case": name, "dtype": dtype, "ms": ms, "cudnn_ms": cudnn_ms, "tflops": flops / ms / 1e9,
+        }))
         _record(
             rows, conv3d.CONV3D_WGRAD, name, [BATCH, FRAMES, list(cins), h, w, cout, list(k)], dtype, err,
-            time_ms(lambda: conv3d.conv3d_wgrad_cuda(xs[0], x2, g, *k), 5),
-            time_ms(lambda: conv3d.conv3d_wgrad_plain(xs[0], x2, g, *k), 1, warmup=0),
-            time_ms(lambda: torch.nn.grad.conv3d_weight(x_ncdhw, w_shape, g_ncdhw, padding=pad), 5),
+            ms, time_ms(lambda: conv3d.conv3d_wgrad_plain(xs[0], x2, g, *k), 1, warmup=0), cudnn_ms,
             "torch.nn.grad.conv3d_weight (cuDNN), concatenated input",
-            bound_ms(nbytes(*xs, g, dw), flops, dtype), {train: 1},
+            bound_ms(nbytes(*xs, g, dw), flops, dtype), {train: 1}, tflops=flops / ms / 1e9,
         )
         del xs, x2, g, dw, x_ncdhw, g_ncdhw, flipped
     torch.cuda.empty_cache()

@@ -145,6 +145,11 @@ def test_fused_attention_bwd_kernel_matches_plain(device, dtype, B, S, masked):
         ((1, 4, 33, 65), (16, 16), 16, (3, 3, 3)),
         ((2, 2, 16, 32), (64,), 128, (3, 3, 3)),
         ((1, 3, 9, 11), (5,), 3, (1, 5, 1)),
+        ((1, 5, 24, 72), (12,), 12, (3, 7, 7)),  # the flagship patch mixer, a cut frame
+        ((1, 3, 16, 48), (32,), 256, (3, 3, 3)),  # cout across four output-channel tiles
+        ((2, 2, 20, 48), (12,), 12, (1, 7, 7)),  # the tap-dot model's kt = 1 patch mixer
+        ((1, 2, 8, 16), (256, 256), 256, (1, 3, 3)),  # its (256+256) -> 256 decoder conv
+        ((2, 2, 12, 6), (16,), 32, (3, 3, 3)),  # a frame narrower than 16 pixels
     ],
 )
 def test_conv3d_wgrad_kernel_matches_plain(device, dtype, shape, cins, cout, k):
@@ -161,7 +166,7 @@ def test_conv3d_wgrad_kernel_matches_plain(device, dtype, shape, cins, cout, k):
     ref = conv3d_wgrad_plain(xs[0], x2, g, *k)
     # f32 output either way: bf16 operands multiply exactly, sums are f32
     assert out.dtype == torch.float32 and _rel_err(out, ref) <= TOL[torch.float32]
-    assert torch.equal(out, again)
+    assert torch.equal(out, again)  # no atomics: the same bits on every run
 
 
 @pytest.mark.parametrize("two_sources", [False, True])

@@ -23,7 +23,8 @@
 // block stages the halo'd window TRANSPOSED, [row][column][channel] with the 16
 // channels of a pixel in one 32-byte line, and the chunk's weights of every
 // tap. A tap's A operand is then the same staged window read from a pixel
-// offset (row-major, 32-byte aligned whatever the shift), so no shifted copy is
+// offset (row-major, 32-byte aligned whatever the shift; the staging lives in
+// conv_window.cuh, shared with the bf16 filter gradient), so no shifted copy is
 // ever made: the TPU kernel's halo DMA, lane rolls and VMEM tile search have no
 // counterpart here. The epilogue goes through a per-warp f32 tile: bias, one
 // rounding, 16-byte stores along the row; the pooled output from the same tile.
@@ -33,15 +34,17 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "conv_window.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
+using conv_window::CK;  // input channels per staged chunk: one wmma K step
+using conv_window::TH;  // output rows per block
+using conv_window::TW;  // output columns per block
 
-constexpr int TH = 8;        // output rows per block
-constexpr int TW = 32;       // output columns per block
 constexpr int COT = 64;      // output channels per block
-constexpr int CK = 16;       // input channels per staged chunk: one wmma K step
 constexpr int W_LD = COT + 8;  // 144-byte weight rows: 16-byte aligned vectors, 32-byte aligned tiles
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -55,7 +58,7 @@ conv3d_tapdot_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2, i
                      int kh, int kw, int tiles_w, int tiles_hw, int vec_ok) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int IH = TH + kh - 1, IW = TW + kw - 1;
-  const int ph = kh / 2, pw = kw / 2, taps = kh * kw;
+  const int taps = kh * kw;
   bf16* win = reinterpret_cast<bf16*>(smem_raw);           // [IH][IW][CK]
   bf16* w_s = win + IH * IW * CK;                          // [taps][CK][W_LD]
   float* stage = reinterpret_cast<float*>(w_s + taps * CK * W_LD);  // [WARPS][STAGE]
@@ -68,7 +71,6 @@ conv3d_tapdot_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2, i
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rp = warp / 2, ch = warp % 2;  // row pair and column half of the tile
   const size_t plane = (size_t)Hh * Ww;
-  const bf16 zero = __float2bfloat16(0.f);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][COT / 16];
 #pragma unroll
@@ -78,43 +80,8 @@ conv3d_tapdot_kernel(const bf16* __restrict__ x1, const bf16* __restrict__ x2, i
 
   for (int ci0 = 0; ci0 < cin; ci0 += CK) {
     __syncthreads();  // the previous chunk's reads are done
-    // the window's interior columns: 8 pixels of one channel and row per step,
-    // consecutive lanes on consecutive channels (one 32-byte line of the window)
-    for (int e = tid; e < CK * IH * (TW / 8); e += THREADS) {
-      const int cl = e % CK, v = (e / CK) % (TW / 8), wr = e / (CK * (TW / 8));
-      const int c = ci0 + cl, gy = y0 + wr - ph, gx = x0 + v * 8;
-      __align__(16) bf16 vals[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vals[j] = zero;
-      if (c < cin && gy >= 0 && gy < Hh && gx < Ww) {
-        const bf16* src = (c < c1 ? x1 + ((size_t)frame * c1 + c) * plane
-                                  : x2 + ((size_t)frame * c2 + (c - c1)) * plane) +
-                          (size_t)gy * Ww + gx;
-        if (vec_ok && gx + 8 <= Ww) {
-          *reinterpret_cast<uint4*>(vals) = *reinterpret_cast<const uint4*>(src);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (gx + j < Ww) vals[j] = src[j];
-        }
-      }
-      bf16* dst = win + ((size_t)(wr * IW + pw + v * 8)) * CK + cl;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[j * CK] = vals[j];
-    }
-    // the kw - 1 halo columns, one element per step
-    for (int e = tid; e < CK * IH * (kw - 1); e += THREADS) {
-      const int cl = e % CK, hc = (e / CK) % (kw - 1), wr = e / (CK * (kw - 1));
-      const int wc = hc < pw ? hc : TW + hc;  // left of the interior, or right of it
-      const int c = ci0 + cl, gy = y0 + wr - ph, gx = x0 + wc - pw;
-      bf16 val = zero;
-      if (c < cin && gy >= 0 && gy < Hh && gx >= 0 && gx < Ww) {
-        const bf16* src = c < c1 ? x1 + ((size_t)frame * c1 + c) * plane
-                                 : x2 + ((size_t)frame * c2 + (c - c1)) * plane;
-        val = src[(size_t)gy * Ww + gx];
-      }
-      win[((size_t)(wr * IW + wc)) * CK + cl] = val;
-    }
+    const conv_window::Window src{x1, x2, c1, c2, frame, ci0, y0, x0, Hh, Ww, kh, kw, vec_ok};
+    conv_window::stage_window<THREADS>(win, src, tid);
     // the chunk's weights of every tap: 8 output channels per step
     for (int e = tid; e < taps * CK * (COT / 8); e += THREADS) {
       const int cv = e % (COT / 8), cl = (e / (COT / 8)) % CK, tap = e / ((COT / 8) * CK);

@@ -19,7 +19,10 @@ tensor takes the CUDA kernel or the call raises.
 * input gradient: the forward conv of g with the spatially flipped,
   IO-swapped kernel and a zero bias, through the same dispatch;
 * filter gradient: ``csrc/conv3d_wgrad.cu`` over one or two sources (the
-  UpBlock's skip concat is never built);
+  UpBlock's skip concat is never built): bf16 inputs take its tensor-core
+  implicit GEMM (wmma, f32 accumulators, the input window staged by
+  ``csrc/conv_window.cuh``, shared with the tap-dot conv; launch geometry from
+  :func:`wgrad_plan`), f32 inputs its CUDA-core kernel in f32;
 * bias gradient: the f32 sum of g over (b, t, h, w);
 * :func:`conv3d_cf_pooled` also returns the conv's 2×2 spatial max pool,
   written by the epilogue of whichever forward kernel ran.
@@ -28,8 +31,9 @@ tensor takes the CUDA kernel or the call raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -52,15 +56,24 @@ CONV3D_TAPDOT = CudaKernel(
 CONV3D_WGRAD = CudaKernel(
     "conv3d_wgrad.cu",
     "vvt_conv3d_wgrad",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
 )
 
 KERNEL_WIDTHS = (1, 3, 5, 7)
 KERNEL_MAX_HEIGHT = 7
-# The filter-gradient kernel's output tile (rows of the (kt·kh·kw·cin) axis ×
-# output channels) and the number of blocks it aims to keep in flight: the
+# The f32 filter-gradient kernel's output tile (rows of the (kt·kh·kw·cin) axis
+# × output channels) and the number of blocks it aims to keep in flight: the
 # pixel reduction is split across blocks until the grid has about this many.
 WGRAD_TILE_K, WGRAD_TILE_CO, WGRAD_TARGET_BLOCKS = 128, 16, 1056
+# The bf16 (tensor-core) filter-gradient kernel, ``csrc/conv3d_wgrad.cu``: the
+# pixel tile (rows, columns), the warps of a block, the accumulator fragments a
+# warp holds, the 16-wide output-channel fragments a block owns at most, the
+# blocks the pixel split aims for (4 per SM of the H100) and the most f32
+# elements of partials it may take (32 MiB).
+WGRAD_MMA_TILE = (8, 32)
+WGRAD_MMA_WARPS, WGRAD_MMA_MAX_FRAGS, WGRAD_MMA_MAX_NJ = 8, 7, 4
+WGRAD_MMA_TARGET_BLOCKS, WGRAD_MMA_MAX_WORKSPACE = 528, 8 << 20
+CUDA_MAX_GRID_Y = 65535
 
 
 def tapdot_supported(x1, x2, kernel) -> bool:
@@ -392,9 +405,101 @@ def conv3d_tapdot_cuda(
 
 
 def wgrad_splits(k_rows: int, cout: int, segments: int) -> int:
-    """How many blocks share one output tile's pixel reduction."""
+    """How many blocks share one output tile's pixel reduction (the f32 kernel)."""
     tiles = -(-k_rows // WGRAD_TILE_K) * -(-cout // WGRAD_TILE_CO)
     return max(1, min(segments, WGRAD_TARGET_BLOCKS // tiles))
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """Launch geometry of the bf16 filter-gradient kernel for one conv.
+
+    Grid (chunks · co_tiles · kt, splits): a block owns one 16-channel input
+    chunk, ``nj`` 16-wide output-channel fragments and one temporal tap dt, and
+    the ``splits``-th share of the pixel tiles of the frames whose tap dt lands
+    inside the clip. Its kh·kw·nj accumulator fragments are dealt out to the
+    consumer warps of each of ``row_groups`` groups, which split a tile's rows
+    (four more warps stage the tiles); every (split, row group) writes its own
+    f32 partial of the padded (kt, kh, kw, cin_pad, cout_pad) gradient, summed
+    in a fixed order after.
+    """
+
+    cin: int
+    cout: int
+    kt: int
+    kh: int
+    kw: int
+    nj: int
+    row_groups: int
+    pixel_tiles: int  # tiles of the centre tap, which reads every frame
+    splits: int
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.cin // 16)
+
+    @property
+    def co_tiles(self) -> int:
+        return -(-self.cout // (16 * self.nj))
+
+    @property
+    def cin_pad(self) -> int:
+        return 16 * self.chunks
+
+    @property
+    def cout_pad(self) -> int:
+        return 16 * self.nj * self.co_tiles
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return self.chunks * self.co_tiles * self.kt, self.splits
+
+    @property
+    def workspace(self) -> int:
+        """f32 elements of the partials."""
+        taps = self.kt * self.kh * self.kw
+        return self.splits * self.row_groups * taps * self.cin_pad * self.cout_pad
+
+    def fragments(self) -> Iterator[tuple[int, int, int, int, int, int]]:
+        """(block x, warp, dt, spatial tap, first input channel, first output
+        channel) of every 16 × 16 accumulator fragment of one split, as the
+        kernel deals them out."""
+        lanes = WGRAD_MMA_WARPS // self.row_groups
+        taps = self.kh * self.kw
+        for bx in range(self.grid[0]):
+            chunk, co_tile = bx % self.chunks, (bx // self.chunks) % self.co_tiles
+            dt = bx // (self.chunks * self.co_tiles)
+            for warp in range(WGRAD_MMA_WARPS):
+                for f in range(warp % lanes, taps * self.nj, lanes):
+                    yield bx, warp, dt, f // self.nj, 16 * chunk, 16 * (self.nj * co_tile + f % self.nj)
+
+
+def wgrad_plan(cin: int, cout: int, b: int, t: int, h: int, w: int, kt: int, kh: int, kw: int) -> WgradPlan:
+    """The bf16 filter-gradient kernel's geometry (see :class:`WgradPlan`).
+
+    Up to 64 output channels a block (16, 32 or 64), fewer where kh·kw
+    fragments of 16 would not fit its warps; the row groups that give the
+    busiest warp the fewest products, with a whole number of output-channel
+    blocks in each group's warps; the pixel tiles split until the grid has about
+    ``WGRAD_MMA_TARGET_BLOCKS`` blocks, within the workspace bound.
+    """
+    taps = kh * kw
+    # a power of two, so that a warp's fragments can share one output-channel block
+    nj = min(WGRAD_MMA_MAX_NJ, 1 << (-(-cout // 16) - 1).bit_length())
+    while taps * nj > WGRAD_MMA_WARPS * WGRAD_MMA_MAX_FRAGS:
+        nj //= 2
+    rows = WGRAD_MMA_TILE[0]
+    fits = [
+        g for g in (1, 2, 4, 8)
+        if (WGRAD_MMA_WARPS // g) % nj == 0
+        and -(-taps * nj // (WGRAD_MMA_WARPS // g)) <= WGRAD_MMA_MAX_FRAGS
+    ]
+    row_groups = min(fits, key=lambda g: -(-taps * nj // (WGRAD_MMA_WARPS // g)) * (rows // g))
+    pixel_tiles = b * t * -(-h // rows) * -(-w // WGRAD_MMA_TILE[1])
+    one = WgradPlan(cin, cout, kt, kh, kw, nj, row_groups, pixel_tiles, splits=1)
+    splits = min(pixel_tiles, CUDA_MAX_GRID_Y, -(-WGRAD_MMA_TARGET_BLOCKS // one.grid[0]),
+                 WGRAD_MMA_MAX_WORKSPACE // one.workspace)
+    return dataclasses.replace(one, splits=max(1, splits))
 
 
 def conv3d_wgrad_cuda(
@@ -407,9 +512,10 @@ def conv3d_wgrad_cuda(
 ) -> torch.Tensor:
     """Launch the filter-gradient kernel: f32 (kt, kh, kw, c1 + c2, cout).
 
-    The kernel splits the pixel reduction across blocks, each writing an f32
-    partial of its output tile, and a second pass sums the partials in a
-    fixed order: no atomics, the same bits on every run.
+    bf16 inputs take the tensor-core kernel (geometry from :func:`wgrad_plan`),
+    f32 inputs the CUDA-core one. Either splits the pixel reduction across
+    blocks, each writing an f32 partial of its output tile, and a second pass
+    sums the partials in a fixed order: no atomics, the same bits on every run.
     """
     c2 = _check_sources("conv3d_wgrad_cuda", x1, x2)
     b, t, c1, h, w = x1.shape
@@ -419,16 +525,21 @@ def conv3d_wgrad_cuda(
         raise ValueError("g must be contiguous, in the activations' dtype and device")
     _check_kernel_size(kt, kh, kw)
     cout = g.shape[2]
-    k_rows = kt * kh * kw * (c1 + c2)
-    # the pixel reduction runs over row segments of 32 pixels
-    splits = wgrad_splits(k_rows, cout, b * t * h * -(-w // 32))
-    partials = torch.empty((splits, k_rows, cout), dtype=torch.float32, device=x1.device)
+    if x1.dtype == torch.bfloat16:
+        plan = wgrad_plan(c1 + c2, cout, b, t, h, w, kt, kh, kw)
+        splits, nj, row_groups, workspace = plan.splits, plan.nj, plan.row_groups, plan.workspace
+    else:
+        k_rows = kt * kh * kw * (c1 + c2)
+        # the pixel reduction runs over row segments of 32 pixels
+        splits = wgrad_splits(k_rows, cout, b * t * h * -(-w // 32))
+        nj, row_groups, workspace = 1, 1, splits * k_rows * cout
+    partials = torch.empty(workspace, dtype=torch.float32, device=x1.device)
     dw = torch.empty((kt, kh, kw, c1 + c2, cout), dtype=torch.float32, device=x1.device)
     with torch.cuda.device(x1.device):
         CONV3D_WGRAD.launch(
             x1.data_ptr(), None if x2 is None else x2.data_ptr(), g.data_ptr(),
             partials.data_ptr(), dw.data_ptr(),
-            c1, c2, b, t, h, w, cout, kt, kh, kw, splits, DTYPE_CODES[x1.dtype],
+            c1, c2, b, t, h, w, cout, kt, kh, kw, splits, nj, row_groups, DTYPE_CODES[x1.dtype],
             torch.cuda.current_stream(x1.device).cuda_stream,
         )
     return dw
