@@ -14,7 +14,11 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    second output, the filter gradient, and the tap-dot conv; the convs at the
    flagship UNet's shapes and at the tap-dot model's, where the gate decides
    which kernel a shape goes to), and times the kernel, the plain version and
-   one library call (or chain of calls) for the same function;
+   one library call (or chain of calls) for the same function; the fused
+   attention forward also with the same bits on two launches, with a sequence
+   whose keys are all masked, and an "attention-fwd" line per shape with the
+   kernel's and SDPA's device time per call from ``torch.profiler`` and the
+   kernel's TFLOP/s and GB/s;
 2. runs the serving pass (encode → keep/drop → fill-blend → decode) at the
    flagship width and reduced depth in float32 on the card and on the CPU,
    with the same seeded weights, and compares the two, once per path
@@ -218,6 +222,35 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, traces: int = 3) -> float:
+    """Device time per call of the kernels ``fn`` launches, from ``torch.profiler``.
+
+    Unlike :func:`time_ms`, whose events also count where the device waits on
+    the host to enqueue, it sums only the kernels' own time: a call shorter
+    than its Python wrapper is not timed at the host's pace. On the H100 a
+    trace now and then lacks a kernel's record, or every record: each kernel
+    counts as its mean over the records kept times the launches a call makes
+    of it, and a trace with no record is taken again.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us: dict[str, list[float]] = {}  # kernel name -> durations
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                us.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+        if us:
+            return sum(sum(t) / len(t) * max(1, round(len(t) / iters)) for t in us.values()) / 1e3
+    raise AssertionError(f"torch.profiler saw no kernel on the device in {traces} traces")
+
+
 def bound_ms(nbytes: int, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -342,17 +375,39 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train"):
         amask = None if mask is None else mask[:, None, None, :]
 
         out = fa.fused_qkv_attention_cuda(qkv, qs, ks, mask, H)
+        again = fa.fused_qkv_attention_cuda(qkv, qs, ks, mask, H)
         torch.cuda.synchronize()
         err = check_close(f"attention {name} {dtype}", out, fa.fused_qkv_attention_plain(qkv, qs, ks, mask, H), dtype)
+        if not torch.equal(out, again):  # no atomics: the same bits on every run
+            raise AssertionError(f"attention {name} {dtype}: two launches gave different bits")
+        del again
+        flops, moved = 4.0 * H * S * keys * D, nbytes(qkv, out, mask)
+        ms = time_ms(lambda: fa.fused_qkv_attention_cuda(qkv, qs, ks, mask, H), 20)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask), 20)
+        dev_ms = device_ms(lambda: fa.fused_qkv_attention_cuda(qkv, qs, ks, mask, H))
+        log("attention-fwd", json.dumps({
+            "case": f"{name} {dtype}", "paths": [serving, train], "ms": ms, "sdpa_core_ms": sdpa_ms,
+            "device_ms": dev_ms,
+            "sdpa_core_device_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask)),
+            "tflops": flops / dev_ms / 1e9, "gb_per_s": moved / dev_ms / 1e6,
+        }))
         _record(
-            rows, fa.FUSED_ATTENTION, f"{name} {dtype}", [B, S, 3 * H * D], dtype, err,
-            time_ms(lambda: fa.fused_qkv_attention_cuda(qkv, qs, ks, mask, H), 20),
-            time_ms(lambda: fa.fused_qkv_attention_plain(qkv, qs, ks, mask, H), 5),
-            time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask), 20),
-            "scaled_dot_product_attention, core only",
-            bound_ms(nbytes(qkv, out, mask), 4.0 * H * S * keys * D, dtype),
+            rows, fa.FUSED_ATTENTION, f"{name} {dtype}", [B, S, 3 * H * D], dtype, err, ms,
+            time_ms(lambda: fa.fused_qkv_attention_plain(qkv, qs, ks, mask, H), 5), sdpa_ms,
+            "scaled_dot_product_attention, core only", bound_ms(moved, flops, dtype),
             per_path(per, **{serving: "serving", train: "train"}),
         )
+        if padded and serving == "serving":
+            # one sequence with every key masked: its rows average all S keys
+            empty = mask.clone()
+            empty[0] = False
+            held = fa.fused_qkv_attention_cuda(qkv, qs, ks, empty, H)
+            torch.cuda.synchronize()
+            ref = fa.fused_qkv_attention_plain(qkv, qs, ks, empty, H)
+            err = max(check_close(f"attention {name} {dtype} all keys masked", held, ref, dtype),
+                      check_close(f"attention {name} {dtype} the masked sequence", held[0], ref[0], dtype))
+            log("attention-fwd-masked-row", json.dumps({"case": f"{name} {dtype}", "max_abs_err": err}))
+            del empty, held, ref
 
         got = fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
         torch.cuda.synchronize()
@@ -1303,7 +1358,7 @@ def main() -> int:
 
     for source, messages in build([k.source for k in KERNELS]).items():
         for line in messages.splitlines():
-            if "Used" in line or "spill" in line or "error" in line:
+            if "Used" in line or "spill" in line or "error" in line or "entry function" in line:
                 log(f"nvcc {source}: {line.strip()}")
 
     cfg = ModelConfig()

@@ -21,7 +21,8 @@ from video_vae_tpu_torch.ops.rope import rope_tables
 # f32: the same arithmetic in another order (the JAX kernel takes per-head
 # statistics through segment matmuls and divides after P.V)
 F32_TOL = 1e-4
-# bf16: the JAX kernel rounds P to bf16 before P.V; the port keeps it in f32
+# bf16: the JAX kernel rounds P to bf16 before P.V, as the port's CUDA kernel
+# does; the plain version, which a CPU tensor takes, keeps P in f32
 BF16_TOL = 2e-2
 
 

@@ -5,6 +5,8 @@ JAX (``tests/conftest.py`` imports it):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import math
+
 import pytest
 import torch
 
@@ -28,6 +30,7 @@ from video_vae_tpu_torch.ops.flash_attention import (
     FLASH_ATTENTION_BWD,
     FUSED_ATTENTION,
     FUSED_ATTENTION_BWD,
+    NEG_INF,
     flash_attention_bwd_cuda,
     flash_attention_bwd_plain,
     flash_attention_cuda,
@@ -47,6 +50,7 @@ from video_vae_tpu_torch.ops.fused_block import (
     fused_mlp_sublayer_cuda,
     fused_mlp_sublayer_plain,
 )
+from video_vae_tpu_torch.ops.rope import rope_tables, rotate_half
 
 pytestmark = pytest.mark.cuda
 
@@ -67,10 +71,13 @@ def _rel_err(out, ref):
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,masked", [(40, 16, True), (3, 256, False), (5, 37, True)])
-def test_fused_attention_kernel_matches_plain(device, dtype, B, S, masked):
-    H, D = 8, 64
+def _check_fused_attention(device, dtype, B, S, H, masked):
+    """One fused forward launch against the plain version; a bf16 one twice, same bits.
+
+    masked: False, True (each sequence keeps a prefix of at least one key) or
+    "empty" (as True, and sequence 0 keeps no key: its rows average all S keys).
+    """
+    D = 64
     gen = torch.Generator(device="cpu").manual_seed(S)
     qkv = torch.randn(B, S, 3 * H * D, generator=gen).to(device, dtype)
     qs = (1 + 0.2 * torch.randn(D, generator=gen)).to(device)
@@ -78,6 +85,8 @@ def test_fused_attention_kernel_matches_plain(device, dtype, B, S, masked):
     mask = None
     if masked:
         lengths = torch.randint(1, S + 1, (B,), generator=gen)
+        if masked == "empty":
+            lengths[0] = 0
         mask = (torch.arange(S)[None, :] < lengths[:, None]).to(device)
     before = FUSED_ATTENTION.launches
     out = fused_qkv_attention_cuda(qkv, qs, ks, mask, H)
@@ -85,6 +94,132 @@ def test_fused_attention_kernel_matches_plain(device, dtype, B, S, masked):
     assert FUSED_ATTENTION.launches == before + 1
     ref = fused_qkv_attention_plain(qkv, qs, ks, mask, H)
     assert out.dtype == dtype and _rel_err(out, ref) <= TOL[dtype]
+    if masked == "empty":
+        assert _rel_err(out[0], ref[0]) <= TOL[dtype]
+    if dtype == torch.bfloat16:  # no atomics: the same bits on every run
+        assert torch.equal(out, fused_qkv_attention_cuda(qkv, qs, ks, mask, H))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,masked",
+    [(40, 16, True), (3, 256, False), (5, 37, True), (7, 1, False), (6, 17, True), (2, 256, True),
+     (12, 16, "empty")],
+)
+def test_fused_attention_kernel_matches_plain(device, dtype, B, S, masked):
+    _check_fused_attention(device, dtype, B, S, 8, masked)
+
+
+@pytest.mark.parametrize(
+    "B,S,H,masked",
+    [
+        (5, 16, 2, True),  # four sequences a slab block, the last block part empty
+        (3, 80, 8, True),  # P normalised before its rounding over two key chunks
+        (2, 64, 8, "empty"),  # a 64-row tile, one chunk, normalised first
+        (3, 200, 3, True),  # a ragged last warp tile and key chunk
+    ],
+)
+def test_fused_attention_bf16_kernel_geometries(device, B, S, H, masked):
+    _check_fused_attention(device, torch.bfloat16, B, S, H, masked)
+
+
+# Share of the bf16 outputs whose bits may differ from the JAX rounding chain:
+# f32 sums taken in another order flip a last bit now and then. On the H100 the
+# kernel differs in at most 0.02 % (the test prints the shares), each chain
+# with one rounding left out or the other rule for P in 17-42 %. A max-abs
+# bound this tight could not hold: one flip near 2 is 2^-6.
+ROUNDING_SHARE_TOL = 1e-2
+
+
+def _jax_rounding_chain(qkv, qs, ks, mask, H, round_qk=True, round_p=True, normalize=None):
+    """The JAX package's bf16 rounding chain of the fused forward, in f32.
+
+    LN + RoPE in f32, q~ and k~ rounded to bf16, f32 scores, P rounded to bf16
+    before P.V: normalised first on JAX's packed rule (S < 128, S*H % 128 ==
+    0), else unnormalised with 1/l on the f32 output, against the running max
+    of 64-key chunks as the kernel keeps it (exact up to 64 keys). The keyword
+    arguments leave a rounding out or take the other rule for P.
+    """
+    B, S, _ = qkv.shape
+    D = 64
+    if normalize is None:
+        normalize = S < 128 and S * H % 128 == 0
+    cos, sin = rope_tables(S, D, device=str(qkv.device))
+    q, k, v = (t.reshape(B, S, H, D).transpose(1, 2).float() for t in qkv.split(H * D, -1))
+
+    def norm_rope(x, scale):
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp(x.square().mean(-1, keepdim=True) - mean.square(), min=0.0)
+        xn = (x - mean) * torch.rsqrt(var + 1e-6) * scale
+        y = xn * cos + rotate_half(xn) * sin
+        return y.bfloat16().float() if round_qk else y
+
+    scores = norm_rope(q, qs) @ norm_rope(k, ks).transpose(-1, -2)
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    c = 0.125 * math.log2(math.e)  # 1/sqrt(D) in the exp2 domain, as the kernel's
+
+    def rnd(p):
+        return p.bfloat16().float() if round_p else p
+
+    if normalize:
+        p = torch.exp2((scores - scores.amax(-1, keepdim=True)) * c)
+        o = rnd(p * (1 / p.sum(-1, keepdim=True))) @ v
+    else:
+        m = torch.full_like(scores[..., :1], -math.inf)
+        l = torch.zeros_like(m)
+        o = torch.zeros_like(q)
+        for c0 in range(0, S, 64):
+            s_c = scores[..., c0 : c0 + 64]
+            m_new = torch.maximum(m, s_c.amax(-1, keepdim=True))
+            corr = torch.exp2((m - m_new) * c)
+            p = torch.exp2((s_c - m_new) * c)
+            l = l * corr + p.sum(-1, keepdim=True)
+            o = o * corr + rnd(p) @ v[..., c0 : c0 + 64, :]
+            m = m_new
+        o = o * (1 / l)
+    return o.transpose(1, 2).reshape(B, S, H * D).bfloat16()
+
+
+def _bits_differ(out, ref):
+    """Share of the elements of two bf16 tensors whose bits differ."""
+    return (out.view(torch.int16) != ref.view(torch.int16)).float().mean().item()
+
+
+@pytest.mark.parametrize(
+    "B,S,H",
+    [
+        (64, 16, 8),  # the temporal shape: normalised before the rounding, one chunk
+        (32, 16, 2),  # S*H not a multiple of 128: unnormalised
+        (6, 80, 8),  # normalised over two key chunks (a first pass of scores)
+        (2, 256, 8),  # the spatial shape: unnormalised, running max over four chunks
+    ],
+)
+def test_fused_attention_bf16_kernel_rounds_as_jax(device, B, S, H):
+    """The bf16 kernel rounds q~, k~ and P where the JAX package does: its
+    output's bits match the JAX chain's but for a few ulp flips from f32 sums
+    taken in another order, while each chain with one rounding left out or
+    the other rule for P misses far more of them."""
+    D = 64
+    gen = torch.Generator(device="cpu").manual_seed(S * H)
+    qkv = torch.randn(B, S, 3 * H * D, generator=gen).to(device, torch.bfloat16)
+    qs = (1 + 0.2 * torch.randn(D, generator=gen)).to(device)
+    ks = (1 + 0.2 * torch.randn(D, generator=gen)).to(device)
+    lengths = torch.randint(1, S + 1, (B,), generator=gen)
+    lengths[0] = 0  # sequence 0 keeps no key
+    mask = (torch.arange(S)[None, :] < lengths[:, None]).to(device)
+    out = fused_qkv_attention_cuda(qkv, qs, ks, mask, H)
+    share = _bits_differ(out, _jax_rounding_chain(qkv, qs, ks, mask, H))
+    normalize = S < 128 and S * H % 128 == 0
+    others = {
+        name: _bits_differ(out, _jax_rounding_chain(qkv, qs, ks, mask, H, **kw))
+        for name, kw in (("q~k~ in f32", dict(round_qk=False)), ("P in f32", dict(round_p=False)),
+                         ("the other P rule", dict(normalize=not normalize)))
+    }
+    print(f"rounding B={B} S={S} H={H}: bits differ {share:.5f}; " + ", ".join(f"{k} {v:.4f}" for k, v in others.items()))
+    assert share <= ROUNDING_SHARE_TOL
+    for name, other in others.items():
+        assert other > 5 * ROUNDING_SHARE_TOL, name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -5,38 +5,83 @@
 // (B, S, 3*H*D) row, LayerNorm q and k over D (no bias, f32 statistics,
 // E[x^2]-mean^2 clamped at 0, eps 1e-6, times the (D,) scale), rotate-half
 // RoPE with (S, D) f32 tables, softmax(q k^T / sqrt(D) + key mask) v, one
-// rounding to the output dtype. D = 64, S <= 256.
+// rounding to the output dtype. D = 64, 1 <= S <= 256. A masked key (j < S,
+// mask 0) scores -1e30, so a row whose keys are all masked averages all S
+// keys; a key past S (a tile's padding) adds exactly 0.
 //
-// What bounds it on the H100: at the model's shapes every call is memory
-// bound on paper (temporal: S = 16, 0.27 GFLOP over 33.6 MB; spatial: S = 256,
-// 4.3 GFLOP over 33.6 MB), i.e. ~10 us at 3.35 TB/s. This first version does
-// its arithmetic in f32 on the CUDA cores, so at S = 256 the 4*S*S*D FLOPs per
-// (sequence, head) on the 67 TFLOP/s f32 pipe are the real limit.
+// What bounds it on the H100: bytes. Every call reads the (B, S, 3*H*D)
+// projection once and writes (B, S, H*D): 33.6 MB at the model's b2 calls
+// (temporal S = 16 over 512 sequences, spatial S = 256 over 32), ~10 us at
+// 3.35 TB/s. The products are 4*S*S*D FLOPs per (sequence, head): 0.27 GFLOP
+// (temporal) and 4.3 GFLOP (spatial) a call, 4.3 us at the 989 TFLOP/s bf16
+// peak, so the spatial call is within 2.3x of the ridge (171 FLOPs a byte,
+// against ~295).
 //
-// What the design does about it: every byte of q, k, v is read from device
-// memory once and the S x S scores never leave the SM. One thread owns one
-// query row: it keeps its normalised, rotated q and its f32 output
-// accumulator in registers and walks the keys in chunks of 16 with an online
-// softmax, so k and v are read from shared memory as broadcasts (all threads
-// of a (sequence, head) read the same key row). A block holds 256 rows: one
-// (sequence, head) at S = 256, sixteen at the temporal S = 16. Normalised
-// k and v sit in shared memory as f32 (2 x 256 x 68 floats, 139 KB, above the
-// 48 KB default, so the launcher raises the block's dynamic limit).
-// Tensor cores (wgmma) and a bf16 P.V are left for a later version.
-
+// bf16 qkv: a tensor-core kernel (fused_attention_mma.cuh), one launch:
+// - Products: mma.sync m16n8k16, bf16 operands and f32 accumulators, with
+//   ldmatrix from shared memory (ldmatrix.trans for V). Not wgmma: at S = 16
+//   one (sequence, head) is exactly one 16-row tile, and wgmma's 64-row tile
+//   would waste 3/4 of its products on block-diagonal packing; at S = 256 the
+//   products take about as long as the bytes even at a fraction of peak.
+//   mma.sync's documented accumulator layout keeps the softmax in registers:
+//   two adjacent 16x8 score accumulators are, as they stand, the A fragment of
+//   a 16-key step of P.V, with no trip through shared memory.
+// - Staging: cp.async copies every q, k and v head row of the block into
+//   shared memory (16 bytes a thread, each token's row in order, so all of a
+//   block's loads are in flight at once), q and k as one group and v as a
+//   second that P.V alone waits for. Then four lanes a row apply LayerNorm +
+//   RoPE to q and k in place and round them to bf16: a lane holds a 16-byte
+//   piece and its rotate-half partner 32 elements on, so the rotation takes no
+//   shuffle, and the row's sums take two __shfl_xor; the same four lanes take
+//   the q row and the k row of one position, so one load of the cos/sin rows
+//   serves both.
+// - Geometry (the variant and the sequences a slab block from
+//   ops/flash_attention.py:fused_attention_plan; warps and shared memory
+//   derived here): S <= 64, "slab": a block stages whole sequences with all H
+//   heads (48 KB of qkv a sequence at S = 16, coalesced loads and (S, H*D)
+//   stores), and a warp takes one 16-query-row tile of one head at a time.
+//   S > 64, "tile": a block owns one (sequence, head) pair and all its query
+//   rows, a warp for each 16 (16 warps at S = 256, 110 KB of shared memory),
+//   so the pair's k and v are read and normalised once.
+// - Softmax: a warp holds its 16 query rows' q fragments in registers and
+//   walks the keys in chunks of up to 64 with a running (online) max: one
+//   chunk, so an exact max, up to S = 64; four at S = 256, where an exact max
+//   would cost a second QK^T. O accumulates as 16 x 64 f32 in registers and
+//   leaves through the warp's own q rows in shared memory, 16 bytes a lane.
+// Measured on the H100 (PERF.md): the temporal call takes about twice its
+// bytes bound, with staging, LN and the products in turn; the spatial call is
+// set by its products (111 TFLOP/s over the whole call).
+// Roundings, as the JAX package's: q~ and k~ (after LN and RoPE) to bf16
+// before q~k~^T (its non-TPU chain, _reference_fused_chain, does the same);
+// P to bf16 before P.V (_attention_core). Where JAX takes its packed path
+// (S < 128 and S*H a multiple of 128; the model's temporal S = 16 with 8
+// heads) P is normalised first and then rounded (on one chunk the row's sum
+// is at hand; past 64 keys a first pass of scores gives the exact max and
+// sum); otherwise P = exp(s - running max) is rounded unnormalised and 1/l
+// scales the f32 output. The output is rounded to bf16 once.
+//
+// f32 qkv keeps the first version on the CUDA cores (fused_attention_core.cuh,
+// shared with the attention sublayer): one thread a query row, f32 throughout.
+// A later version would issue wgmma from warpgroups and stage with TMA under
+// warp specialisation, so that one tile's loads and LN overlap another's
+// products.
 
 #include "fused_attention_core.cuh"
+#include "fused_attention_mma.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. mask: (B, S) uint8 key mask, or null.
+// variant, unit: the bf16 kernel's plan (slab 0 or tile 1; sequences a slab
+// block, 1 for a tile); the f32 kernel takes its geometry from the shape.
 extern "C" int vvt_fused_attention_fwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
                                        void* out, int B, int S, int H, int head_dim, int dtype,
-                                       void* stream) {
+                                       int variant, int unit, void* stream) {
   if (head_dim != D || S < 1 || S > MAX_ROWS || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_fused_attention<float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, st);
   if (dtype == 1)
-    return (int)launch_fused_attention<__nv_bfloat16>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, st);
+    return (int)fa_mma::launch_attention_mma(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant,
+                                             unit, st);
   return (int)cudaErrorInvalidValue;
 }
 

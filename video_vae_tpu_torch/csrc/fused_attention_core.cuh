@@ -1,7 +1,10 @@
-// Device code of the fused QK-norm + RoPE + attention forward, shared by
-// fused_attention.cu (the kernel on its own) and attention_sublayer.cu (the same
-// attention between the sublayer's two projections). The design note is in
-// fused_attention.cu. launch_fused_attention<T>() enqueues the kernel on a stream and returns the
+// Device code of the first, CUDA-core version of the fused QK-norm + RoPE +
+// attention forward: the f32 path of fused_attention.cu (whose bf16 path is the
+// tensor-core kernel of fused_attention_mma.cuh) and the attention core of
+// attention_sublayer.cu in both dtypes (the same attention between the
+// sublayer's two projections). One thread owns one query row, f32 throughout;
+// the kernel design notes are in fused_attention.cu.
+// launch_fused_attention<T>() enqueues the kernel on a stream and returns the
 // launch's cudaError_t.
 
 #pragma once

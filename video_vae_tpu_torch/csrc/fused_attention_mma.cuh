@@ -1,0 +1,540 @@
+// Device code of the bf16 fused QK-norm + RoPE + attention forward on the tensor
+// cores (mma.sync m16n8k16, bf16 operands, f32 accumulators). The design note is
+// in fused_attention.cu. launch_attention_mma() enqueues the kernel on a stream
+// and returns the launch's cudaError_t.
+//
+// Shared-memory layout. Every q, k and v head row (64 bf16) sits in a 72-element
+// row (144 bytes): the 8 row addresses of an ldmatrix then fall on 8 distinct
+// 16-byte bank groups, so every ldmatrix is free of bank conflicts. Rows are staged in 16-row units; a row past the sequence is
+// zero-filled, so a padding key's v row adds exactly 0 to P.V.
+//   slab (S <= 64): per sequence of the block, q | k | v, each [head][row], then
+//                   the key bits of every sequence;
+//   tile (S > 64):  k [row] | v [row] | q [row] of one (sequence, head) pair, then
+//                   the pair's key bits.
+// Key bits: bit j % 64 of word j / 64 is 1 where key j is kept.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include <algorithm>
+#include <cstdint>
+
+namespace fa_mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int D = 64;            // head dim the kernel is written for
+constexpr int ROW = D + 8;       // shared-memory row in bf16 (144 bytes)
+constexpr int ROW_BYTES = 2 * ROW;
+constexpr int MAX_WARPS = 16;
+constexpr int SLAB_WARPS = 8;  // warps of a slab block at most
+constexpr int SLAB_MAX_SEQ = 64;
+constexpr int MAX_SMEM = 232448;  // what one block may ask for on the H100 (227 KB)
+constexpr int SLAB = 0, TILE = 1;  // the plan's variant codes
+constexpr float NEG_INF = -1e30f;  // the JAX kernels' masked score
+constexpr float LN_EPS = 1e-6f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__host__ __device__ __forceinline__ int rows16(int S) { return (S + 15) / 16 * 16; }
+__host__ __device__ __forceinline__ int key_words(int S) { return (S + 63) / 64; }
+// 16-key steps per online-softmax chunk: the whole row up to 64 keys, then 64 at a time
+__host__ __device__ __forceinline__ int chunk_steps(int S) { return rows16(S) <= 16 ? 1 : rows16(S) <= 32 ? 2 : 4; }
+
+// Shared memory of one block (unit: sequences of a slab block).
+__host__ __forceinline__ size_t smem_bytes(int variant, int S, int H, int unit) {
+  const size_t words = 8 * (size_t)key_words(S);
+  if (variant == SLAB) return (size_t)unit * (3 * (size_t)H * rows16(S) * ROW_BYTES + words);
+  return 3 * (size_t)rows16(S) * ROW_BYTES + words;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a (16 x 16, row major) * b (16 x 8, column major)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16, the first in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// LN + RoPE lanes: four own a row. Lane c = lane & 3 holds elements 8c .. 8c + 7
+// and their rotate-half partners 32 + 8c .. 32 + 8c + 7, so the rotation needs
+// no shuffle; the row's sums come from __shfl_xor over the four.
+constexpr int LN_LANES = 4;
+
+// The scales of the 16 elements a lane owns, in the order it holds them.
+__device__ __forceinline__ void load_lane_scale(float (&dst)[16], const float* __restrict__ scale) {
+  const int c = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(scale + 8 * c) + h);
+    const float4 b = __ldg(reinterpret_cast<const float4*>(scale + D / 2 + 8 * c) + h);
+    dst[4 * h] = a.x, dst[4 * h + 1] = a.y, dst[4 * h + 2] = a.z, dst[4 * h + 3] = a.w;
+    dst[8 + 4 * h] = b.x, dst[8 + 4 * h + 1] = b.y, dst[8 + 4 * h + 2] = b.z, dst[8 + 4 * h + 3] = b.w;
+  }
+}
+
+// LayerNorm (no bias; f32 statistics, E[x^2] - mean^2 clamped at 0) times the (D,)
+// scale, then rotate-half RoPE, of two 64-element bf16 rows in shared memory that
+// share a position (a q row and a k row), in place, rounded to bf16: one load of
+// the cos/sin rows serves both, and their two chains run side by side. Every
+// lane of the warp calls it (the shuffles take all 32); a row whose `live` is
+// false is neither read nor written.
+__device__ __forceinline__ void norm_rope_pair(bf16* row0, bool live0, const float (&scale0)[16],
+                                               bf16* row1, bool live1, const float (&scale1)[16],
+                                               const float* __restrict__ cos_row,
+                                               const float* __restrict__ sin_row) {
+  const int c = threadIdx.x & 3;
+  bf16* rows[2] = {row0, row1};
+  const bool live[2] = {live0, live1};
+  uint4 raw[2][2];
+  float cs[16], sn[16];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)  // every load issued before the reductions wait on them
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      raw[u][hf] = live[u] ? *reinterpret_cast<const uint4*>(rows[u] + hf * D / 2 + 8 * c) : make_uint4(0u, 0u, 0u, 0u);
+  const bool any = live0 || live1;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {  // float4 q of the lane's 16 table entries
+    const int d = (q >> 1) * D / 2 + 8 * c + 4 * (q & 1);
+    const float4 cv = any ? __ldg(reinterpret_cast<const float4*>(cos_row + d)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 sv = any ? __ldg(reinterpret_cast<const float4*>(sin_row + d)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    cs[4 * q] = cv.x, cs[4 * q + 1] = cv.y, cs[4 * q + 2] = cv.z, cs[4 * q + 3] = cv.w;
+    sn[4 * q] = sv.x, sn[4 * q + 1] = sv.y, sn[4 * q + 2] = sv.z, sn[4 * q + 3] = sv.w;
+  }
+  float x[2][16], s[2], sq[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    s[u] = sq[u] = 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const bf16* xb = reinterpret_cast<const bf16*>(&raw[u][hf]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        x[u][8 * hf + e] = __bfloat162float(xb[e]);
+        s[u] += x[u][8 * hf + e];
+        sq[u] += x[u][8 * hf + e] * x[u][8 * hf + e];
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < LN_LANES; off <<= 1)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+      sq[u] += __shfl_xor_sync(0xffffffffu, sq[u], off);
+    }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const float mean = s[u] * (1.f / D);
+    const float r = rsqrtf(fmaxf(sq[u] * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+    uint32_t lo[4], hi[4];
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      float ya[2], yb[2];
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const float sa = u ? scale1[e + v] : scale0[e + v], sb = u ? scale1[8 + e + v] : scale0[8 + e + v];
+        const float a = (x[u][e + v] - mean) * r * sa;      // x1 (element 8c + e)
+        const float b = (x[u][8 + e + v] - mean) * r * sb;  // x2 (32 + 8c + e)
+        ya[v] = a * cs[e + v] - b * sn[e + v];  // rotate_half: (-x2, x1)
+        yb[v] = b * cs[8 + e + v] + a * sn[8 + e + v];
+      }
+      lo[e / 2] = pack_bf16(ya[0], ya[1]);
+      hi[e / 2] = pack_bf16(yb[0], yb[1]);
+    }
+    if (live[u]) {
+      *reinterpret_cast<uint4*>(rows[u] + 8 * c) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(rows[u] + D / 2 + 8 * c) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    }
+  }
+}
+
+// The masked scores q.k of one 16-row query tile against one chunk of keys: a
+// masked key NEG_INF, a padding key (j >= S) -inf, so that it adds exactly 0
+// whatever the row holds. The softmax scale is applied in the exponent.
+template <int KT>
+__device__ __forceinline__ void chunk_scores(float (&s)[2 * KT][4], const uint32_t (&qf)[4][4],
+                                             const bf16* k_s, int c0, int steps, int S,
+                                             unsigned long long keep) {
+  const int lane = threadIdx.x & 31;
+  // A chunk starts on a word of key bits (64 keys, or the only chunk). Every key
+  // of it inside the sequence and kept: nothing to mask.
+  constexpr unsigned long long CHUNK_BITS = KT == 4 ? ~0ull : (1ull << 16 * KT) - 1;
+  const bool whole = c0 + 16 * KT <= S && (keep & CHUNK_BITS) == CHUNK_BITS;
+#pragma unroll
+  for (int nt = 0; nt < 2 * KT; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    if (nt / 2 < steps) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {  // d in [32 hf, 32 hf + 32): two 16-deep k-steps
+        uint32_t kb[4];
+        ldsm_x4(kb, k_s + (c0 + 8 * nt + (lane & 7)) * ROW + 32 * hf + 8 * (lane >> 3));
+        mma(s[nt], qf[2 * hf], kb[0], kb[1]);
+        mma(s[nt], qf[2 * hf + 1], kb[2], kb[3]);
+      }
+    }
+    if (!whole) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = c0 + 8 * nt + 2 * (lane & 3) + (e & 1);
+        const bool kept = (keep >> (j & 63)) & 1ull;
+        s[nt][e] = j >= S ? -INFINITY : kept ? s[nt][e] : NEG_INF;
+      }
+    }
+  }
+}
+
+// One warp: softmax(q k^T / sqrt(D) + key mask) v for 16 query rows (q_rows, in
+// shared memory, row0 their first position) against the S keys of k_s and v_s,
+// rounded to bf16 into out (row i at out + i * H * D). The output passes through
+// q_rows, which the warp owns and no longer needs once its fragments are loaded.
+template <int KT>
+__device__ __forceinline__ void attend(bf16* q_rows, const bf16* k_s, const bf16* v_s,
+                                       const unsigned long long* keep, int S, bool normalize,
+                                       bf16* __restrict__ out, int row0, int H) {
+  constexpr int CH = 16 * KT;  // keys per chunk
+  constexpr float C = 0.125f * LOG2E;  // 1/sqrt(D), in the exp2 domain
+  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
+  uint32_t qf[4][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) ldsm_x4(qf[ks], q_rows + (lane & 15) * ROW + 16 * ks + 8 * (lane >> 4));
+
+  float o[8][4];
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+  const int chunks = (S + CH - 1) / CH;
+  // Normalise-then-round needs the row's max and sum before its first P.V: with
+  // one chunk they come from that chunk; with more, from a first pass of scores.
+  const bool two_pass = normalize && chunks > 1;
+  float s[2 * KT][4];
+  if (two_pass) {
+    for (int c = 0; c < chunks; ++c) {
+      const int c0 = c * CH;
+      chunk_scores<KT>(s, qf, k_s, c0, min(KT, (S - c0 + 15) / 16), S, keep[c0 >> 6]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 2 * KT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+        const float m_new = fmaxf(m[r], quad_max(mx));
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 2 * KT; ++nt)
+          sum += exp2f((s[nt][2 * r] - m_new) * C) + exp2f((s[nt][2 * r + 1] - m_new) * C);
+        l[r] = l[r] * exp2f((m[r] - m_new) * C) + sum;
+        m[r] = m_new;
+      }
+    }
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+  }
+
+  for (int c = 0; c < chunks; ++c) {
+    const int c0 = c * CH;
+    const int steps = min(KT, (S - c0 + 15) / 16);
+    chunk_scores<KT>(s, qf, k_s, c0, steps, S, keep[c0 >> 6]);
+    if (!two_pass) {  // online max: rescale what the earlier chunks summed
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 2 * KT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+        const float m_new = fmaxf(m[r], quad_max(mx));
+        const float corr = exp2f((m[r] - m_new) * C);  // 0 on the first chunk
+        m[r] = m_new;
+        l[r] *= corr;
+#pragma unroll
+        for (int dn = 0; dn < 8; ++dn) {
+          o[dn][2 * r] *= corr;
+          o[dn][2 * r + 1] *= corr;
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f((s[nt][e] - m[e >> 1]) * C);
+        if (!two_pass) l[e >> 1] += s[nt][e];
+      }
+    if (normalize) {  // the packed rule: P normalised before it is rounded
+      const float inv0 = 1.f / (two_pass ? l[0] : quad_sum(l[0]));
+      const float inv1 = 1.f / (two_pass ? l[1] : quad_sum(l[1]));
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt) {
+        s[nt][0] *= inv0, s[nt][1] *= inv0;
+        s[nt][2] *= inv1, s[nt][3] *= inv1;
+      }
+    }
+    // P (rounded to bf16) . V: score tiles 2kk and 2kk + 1 are the A fragment of
+    // 16-key step kk as they stand; V^T's fragments come through ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      if (kk < steps) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const bf16* vrow = v_s + (c0 + 16 * kk + (lane & 15)) * ROW + 8 * (lane >> 4);
+#pragma unroll
+        for (int dp = 0; dp < 4; ++dp) {
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, vrow + 16 * dp);
+          mma(o[2 * dp], a, vb[0], vb[1]);
+          mma(o[2 * dp + 1], a, vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  float inv[2] = {1.f, 1.f};
+  if (!normalize) {  // P was rounded unnormalised: 1/l on the f32 output
+    inv[0] = 1.f / quad_sum(l[0]);
+    inv[1] = 1.f / quad_sum(l[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn) {
+    *reinterpret_cast<uint32_t*>(q_rows + g * ROW + 8 * dn + 2 * t) = pack_bf16(o[dn][0] * inv[0], o[dn][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(q_rows + (g + 8) * ROW + 8 * dn + 2 * t) =
+        pack_bf16(o[dn][2] * inv[1], o[dn][3] * inv[1]);
+  }
+  __syncwarp();
+  const size_t stride = (size_t)H * D;
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {  // 16 rows x 128 bytes, 16 bytes a lane
+    const int r = 4 * it + (lane >> 3), piece = lane & 7;
+    if (row0 + r < S)
+      *reinterpret_cast<uint4*>(out + (row0 + r) * stride + 8 * piece) =
+          *reinterpret_cast<const uint4*>(q_rows + r * ROW + 8 * piece);
+  }
+}
+
+// The key bits of sequence b into keep[0 .. key_words(S)), one warp a word.
+__device__ __forceinline__ void stage_key_bits(unsigned long long* keep, const unsigned char* __restrict__ mask,
+                                               long long b, int S, int first_word, int word_step) {
+  const int lane = threadIdx.x & 31;
+  for (int w = first_word; w < key_words(S); w += word_step) {
+    const int j0 = 64 * w + lane, j1 = j0 + 32;
+    const bool k0 = j0 < S && (mask == nullptr || mask[b * S + j0]);
+    const bool k1 = j1 < S && (mask == nullptr || mask[b * S + j1]);
+    const unsigned lo = __ballot_sync(0xffffffffu, k0), hi = __ballot_sync(0xffffffffu, k1);
+    if (lane == 0) keep[w] = (unsigned long long)lo | ((unsigned long long)hi << 32);
+  }
+}
+
+// grid: slab, one block per `unit` sequences; tile, one block per (sequence,
+// head) pair, a warp for each 16 of its query rows. tests/test_torch_attention_plan.py
+// walks the same items on the CPU.
+template <int KT>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_scale,
+                     const float* __restrict__ k_scale, const float* __restrict__ cos_t,
+                     const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
+                     bf16* __restrict__ out, int B, int S, int H, int variant, int unit, bool normalize) {
+  extern __shared__ float4 smem4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int s16 = rows16(S), words = key_words(S);
+  const size_t token = 3 * (size_t)H * D;  // elements of one qkv row
+  const size_t part_stride = (size_t)H * D;
+
+  if (variant == SLAB) {
+    const long long seq0 = (long long)blockIdx.x * unit;
+    const size_t head_rows = (size_t)s16 * ROW, seq_elems = 3 * (size_t)H * head_rows;
+    auto row_of = [&](int sl, int part, int h, int i) {  // [sequence][part][head][row]
+      return smem + sl * seq_elems + (part * H + h) * head_rows + (size_t)i * ROW;
+    };
+    unsigned long long* keep = reinterpret_cast<unsigned long long*>(smem + unit * seq_elems);
+    // Group 0, q and k; group 1, v (P.V alone reads it). Thread p copies the
+    // same 16-byte piece of every token, so the warps read each token's row in order.
+    for (int group = 0; group < 2; ++group) {
+      const int first = group ? 2 * H : 0, rows = group ? H : 2 * H;  // head rows of a token
+      for (int p = threadIdx.x; p < 8 * rows; p += blockDim.x) {
+        const int piece = p & 7, part = (first + (p >> 3)) / H, h = (first + (p >> 3)) % H;
+        for (int sl = 0; sl < unit; ++sl)
+          for (int i = 0; i < s16; ++i) {
+            const long long b = seq0 + sl;
+            const bool inside = b < B && i < S;
+            const bf16* src = inside ? qkv + ((size_t)b * S + i) * token + part * part_stride + h * D + 8 * piece : qkv;
+            cp_async16(row_of(sl, part, h, i) + 8 * piece, src, inside ? 16 : 0);
+          }
+      }
+      cp_async_commit();
+    }
+    for (int sl = 0; sl < unit; ++sl)
+      stage_key_bits(keep + sl * words, mask, seq0 + sl < B ? seq0 + sl : 0, S, warp, warps);
+    cp_async_wait<1>();
+    __syncthreads();
+    // LN + RoPE of the q and k rows of each (sequence, position, head), four
+    // lanes each, heads fastest: a warp's eight tasks read the same cos/sin rows
+    float qsc[16], ksc[16];
+    load_lane_scale(qsc, q_scale);
+    load_lane_scale(ksc, k_scale);
+    const int tasks = unit * S * H, per_warp = 32 / LN_LANES;
+    for (int base = per_warp * warp; base < tasks; base += per_warp * warps) {
+      const int t = min(base + lane / LN_LANES, tasks - 1);
+      const int h = t % H, i = (t / H) % S, sl = t / (H * S);
+      const bool live = base + lane / LN_LANES < tasks && seq0 + sl < B;
+      norm_rope_pair(row_of(sl, 0, h, i), live, qsc, row_of(sl, 1, h, i), live, ksc, cos_t + (size_t)i * D,
+                     sin_t + (size_t)i * D);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    const int tiles = s16 / 16, items = unit * H * tiles;
+    for (int it = warp; it < items; it += warps) {
+      const int mt = it % tiles, h = (it / tiles) % H, sl = it / (tiles * H);
+      const long long b = seq0 + sl;
+      if (b >= B) continue;
+      attend<KT>(row_of(sl, 0, h, 16 * mt), row_of(sl, 1, h, 0), row_of(sl, 2, h, 0), keep + sl * words, S,
+                 normalize, out + (size_t)b * S * part_stride + h * D, 16 * mt, H);
+    }
+    return;
+  }
+
+  // tile: one (sequence, head) pair
+  const long long b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  bf16* k_s = smem;
+  bf16* v_s = k_s + (size_t)s16 * ROW;
+  bf16* q_s = v_s + (size_t)s16 * ROW;
+  unsigned long long* keep = reinterpret_cast<unsigned long long*>(q_s + (size_t)s16 * ROW);
+  const bf16* base = qkv + (size_t)b * S * token + h * D;
+  const int piece = threadIdx.x & 7, row_step = blockDim.x >> 3;
+  // group 0: the k rows, then the q rows; group 1: the v rows (P.V alone reads them)
+  for (int r = threadIdx.x >> 3; r < 2 * s16; r += row_step) {
+    const bool is_k = r < s16;
+    const int i = is_k ? r : r - s16;
+    const bool inside = i < S;
+    cp_async16((is_k ? k_s : q_s) + (size_t)i * ROW + 8 * piece,
+               inside ? base + (size_t)i * token + (is_k ? part_stride : 0) + 8 * piece : qkv, inside ? 16 : 0);
+  }
+  cp_async_commit();
+  for (int r = threadIdx.x >> 3; r < s16; r += row_step) {
+    const bool inside = r < S;
+    cp_async16(v_s + (size_t)r * ROW + 8 * piece, inside ? base + (size_t)r * token + 2 * part_stride + 8 * piece : qkv,
+               inside ? 16 : 0);
+  }
+  cp_async_commit();
+  stage_key_bits(keep, mask, b, S, warp, warps);
+  cp_async_wait<1>();
+  __syncthreads();
+  // LN + RoPE of k row i and q row i, four lanes each
+  float qsc[16], ksc[16];
+  load_lane_scale(qsc, q_scale);
+  load_lane_scale(ksc, k_scale);
+  const int per_warp = 32 / LN_LANES;
+  for (int first = per_warp * warp; first < S; first += per_warp * warps) {
+    const int i = first + lane / LN_LANES;
+    const bool live = i < S;
+    const int at = live ? i : 0;
+    norm_rope_pair(k_s + (size_t)at * ROW, live, ksc, q_s + (size_t)at * ROW, live, qsc, cos_t + (size_t)at * D,
+                   sin_t + (size_t)at * D);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (16 * warp < S)
+    attend<KT>(q_s + (size_t)16 * warp * ROW, k_s, v_s, keep, S, normalize, out + (size_t)b * S * part_stride + h * D,
+               16 * warp, H);
+}
+
+template <int KT>
+cudaError_t launch_kt(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
+                      const void* sin_t, const void* mask, void* out, int B, int S, int H, int variant,
+                      int unit, int warps, bool normalize, int smem, unsigned blocks, cudaStream_t stream) {
+  auto kernel = attention_mma_kernel<KT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, 32 * warps, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), B, S, H, variant, unit, normalize);
+  return cudaGetLastError();
+}
+
+// Checks the plan (ops/flash_attention.py:fused_attention_plan: the variant, and
+// the sequences a slab block) against the shape, derives the rest and launches.
+inline cudaError_t launch_attention_mma(const void* qkv, const void* q_scale, const void* k_scale,
+                                        const void* cos_t, const void* sin_t, const void* mask, void* out,
+                                        int B, int S, int H, int variant, int unit, cudaStream_t stream) {
+  const long long tiles = rows16(S) / 16;  // 16-row query tiles of one head
+  long long blocks, warps;
+  if (variant == SLAB) {
+    if (S > SLAB_MAX_SEQ || unit < 1) return cudaErrorInvalidValue;
+    blocks = ((long long)B + unit - 1) / unit;
+    warps = std::min<long long>(SLAB_WARPS, (long long)unit * H * tiles);
+  } else if (variant == TILE) {
+    if (unit != 1) return cudaErrorInvalidValue;
+    blocks = (long long)B * H;
+    warps = tiles;  // at most MAX_WARPS, as S <= 256
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = smem_bytes(variant, S, H, unit);
+  if (blocks > 0x7fffffffLL || smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  // P normalised before its rounding where the JAX package takes its packed
+  // path (flash_attention.py:_packed_and_bb), else rounded unnormalised
+  const bool normalize = S < 128 && (long long)S * H % 128 == 0;
+  switch (chunk_steps(S)) {
+    case 1:
+      return launch_kt<1>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
+                          normalize, (int)smem, (unsigned)blocks, stream);
+    case 2:
+      return launch_kt<2>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
+                          normalize, (int)smem, (unsigned)blocks, stream);
+    default:
+      return launch_kt<4>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
+                          normalize, (int)smem, (unsigned)blocks, stream);
+  }
+}
+
+}  // namespace fa_mma

@@ -21,11 +21,21 @@ Each is a ``torch.autograd.Function`` whose forward and backward dispatch by
 the tensor's device: a CPU tensor takes the plain PyTorch version
 (``*_plain``), a CUDA tensor takes the CUDA kernel (``*_cuda``, sources in
 ``csrc/``) or the call raises.
+
+Roundings of the fused forward, by dtype. The plain version computes in f32
+throughout and rounds once, to qkv's dtype. On the card, bf16 qkv takes the
+tensor-core kernel, which rounds as the JAX package does: q̃ and k̃ (after LN
+and RoPE) to bf16 before q̃k̃ᵀ, P to bf16 before P·V (normalised first where
+JAX takes its packed small-S path, ``S < 128`` and ``S·H % 128 == 0``;
+otherwise unnormalised, with 1/l on the f32 output), the output once; its
+block layout comes from :func:`fused_attention_plan`. f32 qkv takes the
+CUDA-core kernel, f32 throughout with one rounding, as the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -41,7 +51,7 @@ KERNEL_MAX_SEQ = 256
 FUSED_ATTENTION = CudaKernel(
     "fused_attention.cu",
     "vvt_fused_attention_fwd",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 )
 FUSED_ATTENTION_BWD = CudaKernel(
     "fused_attention_bwd.cu",
@@ -67,6 +77,35 @@ ATTENTION_SUBLAYER = CudaKernel(
 
 # rows of the LN/RoPE backward per block: its dscale partials are (blocks, D)
 BWD_ROWS_PER_BLOCK = 64
+
+# The bf16 forward kernel (csrc/fused_attention_mma.cuh): a q, k or v head row
+# takes 64 bf16 padded to 72 in shared memory; a warp owns 16 query rows.
+MMA_ROW_BYTES = 2 * (KERNEL_HEAD_DIM + 8)
+MMA_SLAB_WARPS = 8  # warps of a slab block at most
+MMA_SLAB_MAX_SEQ = 64  # the longest sequence a block stages whole, all heads
+MMA_SLAB_MAX_SMEM = 100 * 1024  # a slab block at most this, so that two fit an SM
+MMA_VARIANTS = ("slab", "tile")  # as csrc/fused_attention_mma.cuh numbers them
+
+
+@functools.lru_cache(maxsize=64)
+def fused_attention_plan(batch: int, seq: int, heads: int) -> tuple[str, int]:
+    """(variant, sequences a block) of the bf16 fused attention kernel.
+
+    ``"slab"`` where the sequence is at most 64 long and one sequence's q, k
+    and v rows fit ``MMA_SLAB_MAX_SMEM``: a block stages whole sequences, all
+    heads, as many as give it up to 8 warps of 16-row query tiles, and its
+    warps take those tiles in turn. Otherwise ``"tile"``, one sequence a
+    block: a block stages one (sequence, head) pair, all its rows, and has a
+    warp for each 16 of them (16 warps at S = 256), so that the pair's keys
+    are staged and normalised once. The C entry point derives the warps, the
+    shared memory and P's rounding rule from these and the shape.
+    """
+    rows16 = -(-seq // 16) * 16
+    seq_smem = 3 * heads * rows16 * MMA_ROW_BYTES + 8 * -(-seq // 64)  # q, k, v rows and key bits
+    if seq <= MMA_SLAB_MAX_SEQ and seq_smem <= MMA_SLAB_MAX_SMEM:
+        tiles = heads * rows16 // 16  # query tiles of one sequence
+        return "slab", max(1, min(MMA_SLAB_WARPS // tiles, MMA_SLAB_MAX_SMEM // seq_smem, batch))
+    return "tile", 1
 
 
 def key_mask(mask: Optional[torch.Tensor], batch: int, seq: int) -> Optional[torch.Tensor]:
@@ -263,8 +302,10 @@ def _kernel_operands(qkv, q_scale, k_scale, mask, s, d, rope_base, rope_alpha):
     qs = q_scale.to(device=device, dtype=torch.float32).contiguous()
     ks = k_scale.to(device=device, dtype=torch.float32).contiguous()
     cos, sin = rope_tables(s, d, rope_base, rope_alpha, str(device))
-    if mask is not None:
-        mask = mask.to(device=device, dtype=torch.uint8).contiguous()
+    if mask is not None:  # a bool mask is read as its bytes (0 or 1), as a uint8 one
+        if mask.dtype != torch.bool:
+            mask = mask.to(torch.uint8)
+        mask = mask.to(device).contiguous()
     return qs, ks, cos, sin, mask
 
 
@@ -277,16 +318,26 @@ def fused_qkv_attention_cuda(
     rope_base: float = 10000.0,
     rope_alpha: float = 1.0,
 ) -> torch.Tensor:
-    """Launch the forward kernel. ``mask`` is a (B, S) bool key mask or None."""
+    """Launch the forward kernel. ``mask`` is a (B, S) bool key mask or None.
+
+    bf16 qkv takes the tensor-core kernel with the geometry of
+    :func:`fused_attention_plan`, f32 qkv the CUDA-core kernel.
+    """
     b, s, d = _check_kernel_args("fused_qkv_attention_cuda", qkv, q_scale, k_scale, mask, num_heads)
     device = qkv.device
     qs, ks, cos, sin, mask = _kernel_operands(qkv, q_scale, k_scale, mask, s, d, rope_base, rope_alpha)
     out = torch.empty((b, s, num_heads * d), dtype=qkv.dtype, device=device)
+    variant, unit = 0, 1  # the f32 kernel takes its geometry from the shape
+    if qkv.dtype == torch.bfloat16:
+        name, unit = fused_attention_plan(b, s, num_heads)
+        variant = MMA_VARIANTS.index(name)
+        if qkv.data_ptr() % 16:  # the kernel copies 16 bytes at a time
+            qkv = qkv.clone()
     with torch.cuda.device(device):
         FUSED_ATTENTION.launch(
             qkv.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            b, s, num_heads, d, DTYPE_CODES[qkv.dtype],
+            b, s, num_heads, d, DTYPE_CODES[qkv.dtype], variant, unit,
             torch.cuda.current_stream(device).cuda_stream,
         )
     return out
