@@ -18,7 +18,11 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    attention forward also with the same bits on two launches, with a sequence
    whose keys are all masked, and an "attention-fwd" line per shape with the
    kernel's and SDPA's device time per call from ``torch.profiler`` and the
-   kernel's TFLOP/s and GB/s;
+   kernel's TFLOP/s and GB/s; the direct conv's lines (forward, input gradient,
+   pooled) and the fused attention backward's add the kernel's and the library
+   call's device time per call (``device_ms``, ``library_device_ms``) and the
+   kernel's TFLOP/s, and the direct conv and the filter gradient give the same
+   bits on two launches;
 2. runs the serving pass (encode → keep/drop → fill-blend → decode) at the
    flagship width and reduced depth in float32 on the card and on the CPU,
    with the same seeded weights, and compares the two, once per path
@@ -251,6 +255,13 @@ def device_ms(fn, iters: int = 20, traces: int = 3) -> float:
     raise AssertionError(f"torch.profiler saw no kernel on the device in {traces} traces")
 
 
+def conv_device_times(kernel_fn, library_fn, flops: float) -> dict:
+    """A conv's device time per call (kernel and library, :func:`device_ms`) and the
+    kernel's TFLOP/s over the taps inside the clip and the frame."""
+    ms = device_ms(kernel_fn, 10)
+    return {"device_ms": ms, "library_device_ms": device_ms(library_fn, 10), "tflops": flops / ms / 1e9}
+
+
 def bound_ms(nbytes: int, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -421,6 +432,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train"):
         g_heads = g.reshape(B, S, H, D).transpose(1, 2).contiguous()
         # recompute of the scores, dv, dP, dq, dk over the kept keys
         bwd_flops = 10.0 * H * S * keys * D
+        dev_ms = device_ms(lambda: fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H), 10)
         _record(
             rows, fa.FUSED_ATTENTION_BWD, f"{name} {dtype}", [B, S, 3 * H * D], dtype, err,
             time_ms(lambda: fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H), 10),
@@ -429,6 +441,9 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train"):
             "scaled_dot_product_attention backward, core only",
             bound_ms(nbytes(qkv, g, mask) + nbytes(*got), bwd_flops, dtype),
             per_path(per, **{train: "train", **({"train-sublayer": "train"} if train == "train" else {})}),
+            device_ms=dev_ms,
+            library_device_ms=device_ms(lambda: torch.autograd.grad(o, leaves, g_heads, retain_graph=True), 10),
+            tflops=bwd_flops / dev_ms / 1e9,
         )
         del qkv, g, out, got, q, k, v, leaves, o, g_heads
     torch.cuda.empty_cache()
@@ -586,8 +601,11 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
 
         if not (tapdot and takes_tapdot(cins, cout, k, w)):
             out = conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias)
+            again = conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias)
             torch.cuda.synchronize()
             err = check_close(f"conv {name}", out, conv3d.conv3d_cf_plain(xs[0], x2, kernel, bias), dtype)
+            if not torch.equal(out, again):  # no split-K, no atomics: the same bits on every run
+                raise AssertionError(f"conv {name}: two launches gave different bits")
             lib_bias = bias.to(tdt)
             _record(
                 rows, conv3d.CONV3D, name, [BATCH, FRAMES, list(cins), h, w, cout, list(k)], dtype, err,
@@ -596,16 +614,21 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
                 time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), 5),
                 "torch.nn.functional.conv3d (cuDNN), concatenated input",
                 bound_ms(nbytes(*xs, kernel, bias, out), flops, dtype), {serving: 1, train: 1},
+                **conv_device_times(lambda: conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias),
+                                    lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), flops),
             )
-            del out
+            del out, again
 
         # input gradient: the forward kernel on g with the flipped, IO-swapped kernel
         flipped = kernel.flip(0, 1, 2).transpose(3, 4).contiguous()
         if not (tapdot and takes_tapdot((cout,), cin, k, w)):
             zero = torch.zeros(cin, dtype=torch.float32, device=dev)
             dx = conv3d.conv3d_cf_cuda(g, None, flipped, zero)
+            again = conv3d.conv3d_cf_cuda(g, None, flipped, zero)
             torch.cuda.synchronize()
             err = check_close(f"conv dgrad {name}", dx, conv3d.conv3d_cf_plain(g, None, flipped, zero), dtype)
+            if not torch.equal(dx, again):
+                raise AssertionError(f"conv dgrad {name}: two launches gave different bits")
             w_flip = flipped.permute(4, 3, 0, 1, 2).contiguous()
             _record(
                 rows, conv3d.CONV3D, f"{name} dgrad", [BATCH, FRAMES, cout, h, w, cin, list(k)], dtype, err,
@@ -614,8 +637,10 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
                 time_ms(lambda: F.conv3d(g_ncdhw, w_flip, padding=pad), 5),
                 "torch.nn.functional.conv3d (cuDNN) of g, flipped kernel",
                 bound_ms(nbytes(g, flipped, dx), flops, dtype), {train: 1},
+                **conv_device_times(lambda: conv3d.conv3d_cf_cuda(g, None, flipped, zero),
+                                    lambda: F.conv3d(g_ncdhw, w_flip, padding=pad), flops),
             )
-            del dx
+            del dx, again
 
         dw = conv3d.conv3d_wgrad_cuda(xs[0], x2, g, *k)
         again = conv3d.conv3d_wgrad_cuda(xs[0], x2, g, *k)
@@ -816,6 +841,12 @@ def phase_pooled_conv(cfg, dev, rows):
         x_ncdhw = x.transpose(1, 2).contiguous()
         w_oidhw = kernel.permute(4, 3, 0, 1, 2).contiguous()
         lib_bias, pad = bias.to(tdt), tuple(s // 2 for s in k)
+        if dtype == "bfloat16":  # no split-K, no atomics: the same bits on every run
+            again = conv3d.conv3d_cf_cuda(x, None, kernel, bias, pool=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(full, again[0]) and torch.equal(pooled, again[1])):
+                raise AssertionError("pooled conv: two launches gave different bits")
+            del again
         _record(
             rows, conv3d.CONV3D, f"{name} pooled {dtype}", [BATCH, FRAMES, [cin], h, w, cout, list(k)], dtype, err,
             time_ms(lambda: conv3d.conv3d_cf_cuda(x, None, kernel, bias, pool=True), 5),
@@ -823,6 +854,9 @@ def phase_pooled_conv(cfg, dev, rows):
             time_ms(lambda: F.max_pool3d(F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), (1, 2, 2)), 5),
             "conv3d (cuDNN) then max_pool3d",
             bound_ms(nbytes(x, kernel, bias, full, pooled), flops, dtype), {},
+            **conv_device_times(lambda: conv3d.conv3d_cf_cuda(x, None, kernel, bias, pool=True),
+                                lambda: F.max_pool3d(F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), (1, 2, 2)),
+                                flops),
         )
         del full, pooled, ref_full, ref_pooled, x_ncdhw
         if dtype != "float32":

@@ -230,6 +230,11 @@ def test_fused_attention_bf16_kernel_rounds_as_jax(device, B, S, H):
         ((1, 4, 33, 65), (16, 16), 16, (3, 3, 3)),
         ((2, 2, 16, 32), (64,), 128, (3, 3, 3)),
         ((1, 3, 9, 11), (5,), 3, (1, 5, 1)),
+        ((2, 2, 20, 48), (12,), 12, (1, 7, 7)),  # the tap-dot model's kt = 1 patch mixer
+        ((1, 3, 17, 40), (24,), 40, (3, 5, 3)),  # kh != kw, ragged rows
+        ((2, 3, 1, 37), (8,), 24, (3, 3, 5)),  # one row a frame
+        ((1, 2, 32, 32), (512,), 512, (1, 3, 3)),  # the tap-dot model's bottleneck
+        ((1, 3, 12, 24), (20, 12), 24, (3, 3, 3)),  # a chunk across both sources
     ],
 )
 def test_conv3d_kernel_matches_plain(device, dtype, shape, cins, cout, k):
@@ -245,6 +250,87 @@ def test_conv3d_kernel_matches_plain(device, dtype, shape, cins, cout, k):
     assert CONV3D.launches == before + 1
     ref = conv3d_cf_plain(xs[0], x2, kernel, bias)
     assert out.dtype == dtype and _rel_err(out, ref) <= TOL[dtype]
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits); 0 at x = 0."""
+    x = x.float().abs()
+    return torch.where(x > 0, torch.exp2(torch.floor(torch.log2(x.clamp_min(1e-30))) - 7), torch.zeros_like(x))
+
+
+def _conv_rounding_partials(x1, x2, kernel, bias, chunk=16):
+    """The conv with its f32 partial sums rounded to bf16 after every temporal tap
+    and 16-channel chunk: the rounding the kernel must not make."""
+    b, t, _, h, w = x1.shape
+    kt, kh, kw, cin, cout = kernel.shape
+    x = x1 if x2 is None else torch.cat([x1, x2], dim=2)
+    xp = torch.nn.functional.pad(x.float(), (kw // 2, kw // 2, kh // 2, kh // 2, 0, 0, kt // 2, kt // 2))
+    wf = kernel.float()
+    acc = torch.zeros((b, t, cout, h, w), dtype=torch.float32, device=x1.device)
+    for dt in range(kt):
+        for c0 in range(0, cin, chunk):
+            for dh in range(kh):
+                for dw in range(kw):
+                    xs = xp[:, dt : dt + t, c0 : c0 + chunk, dh : dh + h, dw : dw + w]
+                    acc += torch.einsum("btchw,cd->btdhw", xs, wf[dt, dh, dw, c0 : c0 + chunk])
+            acc = acc.to(torch.bfloat16).float()
+    return (acc + bias.float()[None, None, :, None, None]).to(x1.dtype)
+
+
+# a bf16 conv against conv3d_cf_plain (the JAX rounding: f32 sums, bias, one
+# rounding): each element within 1 ulp of the plain output plus 1e-5 of its
+# largest value (sums taken in another order flip a rounding now and then), and
+# under ROUNDING_SHARE_TOL of the elements with other bits
+ROUNDING_ABS_TOL = 1e-5
+
+
+def _conv_rounding_gap(out, ref):
+    """(elements past 1 ulp + 1e-5 max|ref|, share of elements whose bits differ)."""
+    bound = _bf16_ulp(ref) + ROUNDING_ABS_TOL * ref.float().abs().max()
+    past = int(((out.float() - ref.float()).abs() > bound).sum())
+    return past, (out != ref).float().mean().item()
+
+
+@pytest.mark.parametrize(
+    "shape,cins,cout,k",
+    [
+        ((1, 4, 24, 40), (48,), 32, (3, 3, 3)),  # 3 chunks x 3 temporal taps
+        ((1, 3, 16, 48), (24, 24), 16, (3, 3, 3)),  # two sources
+        ((2, 3, 20, 40), (12,), 12, (3, 7, 7)),  # the patch mixer
+    ],
+)
+def test_conv3d_bf16_kernel_rounds_as_jax(device, shape, cins, cout, k):
+    """The bf16 direct conv sums every tap and channel in f32 and rounds once, as
+    the JAX kernel and conv3d_cf_plain do; the same call twice gives the same
+    bits, and a bf16 and an f32 call each launch the kernel once. A variant that
+    rounds its partial sums to bf16 after every temporal tap and channel chunk
+    misses the same bound."""
+    b, t, h, w = shape
+    gen = torch.Generator(device="cpu").manual_seed(sum(cins) * cout)
+    xs = [torch.randn(b, t, c, h, w, generator=gen).to(device, torch.bfloat16) for c in cins]
+    kernel = (torch.randn(*k, sum(cins), cout, generator=gen) / (sum(cins) * k[0] * k[1] * k[2]) ** 0.5)
+    kernel = kernel.to(device, torch.bfloat16)
+    bias = (0.1 * torch.randn(cout, generator=gen)).to(device)
+    x2 = xs[1] if len(xs) == 2 else None
+    before = CONV3D.launches
+    out = conv3d_cf_cuda(xs[0], x2, kernel, bias)
+    torch.cuda.synchronize()
+    assert CONV3D.launches == before + 1
+    again = conv3d_cf_cuda(xs[0], x2, kernel, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)  # no split-K, no atomics: the same bits on every launch
+    ref = conv3d_cf_plain(xs[0], x2, kernel, bias)
+    past, share = _conv_rounding_gap(out, ref)
+    rounded_past, rounded_share = _conv_rounding_gap(_conv_rounding_partials(xs[0], x2, kernel, bias), ref)
+    print(f"conv rounding {shape} {cins}->{cout} {k}: {past} past the bound, bits differ {share:.5f}; "
+          f"partials rounded: {rounded_past} past, {rounded_share:.4f}")
+    assert past == 0 and share < ROUNDING_SHARE_TOL
+    assert rounded_past > 0 or rounded_share >= ROUNDING_SHARE_TOL
+
+    before = CONV3D.launches
+    conv3d_cf_cuda(xs[0].float(), None if x2 is None else x2.float(), kernel.float(), bias)
+    torch.cuda.synchronize()
+    assert CONV3D.launches == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,37 +1,70 @@
 // Direct 3-D convolution, channels-first, stride 1, SAME zero padding, bias fused,
-// over one source or the channel concat of two sources (never materialised).
+// over one source or the channel concat of two sources (never materialised), with
+// an optional 2x2 max-pooled second output.
 //
 // Replaces: video_vae_tpu/ops/conv3d.py, _conv3d_pallas_cf -> _conv_kernel (the
-// UNet's conv3d_cf and conv3d_cf_cat2). Activations are (b, t, c, h, w), the
-// kernel is DHWIO (kt, kh, kw, cin, cout) as in the JAX params, the bias f32.
-// f32 accumulation, bias added in f32, one rounding to the input dtype.
+// UNet's conv3d_cf, conv3d_cf_cat2 and conv3d_cf_pooled, and the input gradient
+// of each, which is the same call with the spatially flipped, IO-swapped kernel).
+// Activations are (b, t, c, h, w), the kernel is DHWIO (kt, kh, kw, cin, cout) as
+// in the JAX params, the bias f32. Taps outside the clip or the frame count as
+// zero. Sums in f32 over every tap and input channel (the MXU's
+// preferred_element_type=f32), the f32 bias added, one rounding to the input
+// dtype; the pooled output is the 2x2 max of the f32 sums + bias, rounded once.
 //
-// What bounds it on the H100: the UNet's convs are compute bound (K = cin*kt*kh*kw
-// is 324..3456 against cout 12..128): the flagship's 15 convs are ~0.49 TFLOP
-// at b2 x 16 frames, ~0.5 ms at the 989 TFLOP/s bf16 tensor-core rate, while the
-// largest moves ~0.13 GB (~40 us). This first version multiplies on the CUDA
-// cores in f32 (67 TFLOP/s), which is its real limit.
+// What bounds it on the H100: operations. K = cin*kt*kh*kw is 324..4608 against
+// cout 12..512; the flagship's 15 convs at b2 x 16 frames are 0.50 TFLOP (0.55 ms
+// at the 989 TFLOP/s bf16 tensor-core peak) over 1.1 GB (0.34 ms at 3.35 TB/s).
+// The 256^2 level carries 43 % of the work at cout <= 16, so the design has to
+// be good at narrow N.
 //
-// What the design does about it: an implicit GEMM with the halo in shared
-// memory. A block owns one output frame, a 16 x 32 pixel tile and 16 output
-// channels; each of its 256 threads owns 4 adjacent pixels x 8 channels (32
-// f32 accumulators). Per temporal tap and per chunk of 4 input channels the
-// block stages the halo'd input tile (4 x (16+kh-1) x (32+kw-1)) and the
-// matching weights (kh*kw x 4 x 16) in shared memory; each input row segment
-// a thread loads is reused across the kw taps, and the weights are read as
-// broadcast float4s, so there are 8 FMAs per shared-memory load. The input
-// row stride is padded to 1 mod 4 words, which makes a warp's loads (4 rows x
-// 8 column groups) hit 32 distinct banks. A second source is read where the
-// input channel is >= c1. Temporal taps that fall outside the clip are
-// skipped (zero padding). Tensor cores (wgmma) and TMA come later.
+// bf16 (conv3d_mma.cuh): an implicit GEMM on the tensor cores, mma.sync
+// m16n8k16 with f32 accumulators: M = output pixels, N = output channels,
+// K = 16-channel input chunks, once per (temporal, spatial) tap. A work item is
+// one output frame, a th x 32 pixel tile and nb = 8, 16, 32 or 64 output
+// channels: the plan (ops/conv3d.py: conv_plan) picks the narrowest block that
+// holds cout, 64 at most, with the tallest tile (16, 8 or 4 rows) whose buffers
+// fit shared memory. Each of 8 consumer warps owns 2 output rows x 32 columns
+// (4 M tiles) by 8, 16 or 32 channels, so its accumulators stay in registers
+// for the item's whole K loop; the epilogue writes the bias-added sums, rounded
+// once, straight from them, and the 2x2 pool pairs rows inside a warp and
+// columns one shuffle apart. A stage is one temporal tap inside the clip x one
+// input chunk. Its window is held TRANSPOSED, [row][column][16 channels], so
+// every spatial tap's A operand is the same buffer read from a pixel offset
+// with ldmatrix (no shifted copy, no im2col); its weights, zero-padded to 16
+// input and nb output channels (cin 12 -> 16, cout 12 -> 16), are read with
+// ldmatrix.trans; a consumer loads tap i + 1's fragments while it multiplies
+// tap i's. The block is warp specialised, as the bf16 filter gradient: 4
+// producer warps prepare stage k while the consumers multiply stage k - 1, the
+// two handing buffers over on named barriers. The producers copy stage k + 1's
+// window as the sources hold it (channel planes, 16-byte pieces) and stage k's
+// weights with cp.async, a thread walking one (row, piece) down the channels
+// with a pointer step, then transpose stage k's window, copied a stage
+// earlier, shared memory to shared memory (byte permutes, 16-byte stores).
+// Blocks are persistent (one an SM) and walk their items in turn, so the copies
+// run ahead across item boundaries and under the epilogue. Each output is
+// summed by one warp of one block in a fixed order: every launch gives the same
+// bits; no split-K, no atomics, no rounding before the end.
+// What sets its pace on the H100 (PERF.md): the staging. With it cut out the
+// block runs 1.3-1.55x faster, at about 160 TFLOP/s where N = 16 (one A
+// fragment feeds 2 products) and 400 where N = 64, near what mma.sync gives.
+// What is left for a later version: leaner staging, wgmma from a warpgroup (the
+// transposed window is a gather a TMA box cannot make, so it would stay a
+// producer stage), and an input frame reused across the kt output frames it
+// feeds.
 //
-// The optional second output (the TPU kernel's pool=True) is the 2x2 spatial
-// max pool of the f32 sums + bias, rounded once: a thread's 4 pixels pair up
-// along the row, and the row below belongs to the lane 8 further on in the same
-// warp, so one shuffle per value finishes the pool in the epilogue.
+// f32 keeps the first version on the CUDA cores (conv3d_cf_kernel below): a
+// block owns one output frame, a 16 x 32 pixel tile and 16 output channels;
+// each of its 256 threads owns 4 adjacent pixels x 8 channels (32 f32
+// accumulators). Per temporal tap and per chunk of 4 input channels the block
+// stages the halo'd input tile and the matching weights in shared memory, and
+// multiplies in f32 FMAs (8 a shared-memory load). The optional pool comes
+// from the f32 sums in the epilogue, one shuffle a value. TF32 would not hold
+// the float32 card-vs-CPU gates (1e-4).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "conv3d_mma.cuh"
 
 namespace {
 
@@ -46,13 +79,9 @@ constexpr int THREADS = PIX_GROUPS * (COT / CO_T);   // 256
 constexpr int MAX_K = 7;   // largest kh / kw
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __host__ __device__ constexpr int in_width(int kw) { return TW + kw - 1; }
 // smallest stride >= the tile width that is 1 mod 4 (bank-conflict-free rows)
@@ -215,9 +244,12 @@ cudaError_t dispatch_kw(const void* x1, const void* x2, int c1, int c2, const vo
 
 // x2 may be null with c2 = 0. dtype: 0 = float32, 1 = bfloat16 (x1, x2, w, y, pooled).
 // pooled: (B, Tn, cout, Hh/2, Ww/2) or null; Hh and Ww must be even when it is given.
+// wn, wgn, blocks: the bf16 kernel's plan (video_vae_tpu_torch/ops/conv3d.py:
+// conv_plan); float32 ignores them.
 extern "C" int vvt_conv3d_cf(const void* x1, const void* x2, int c1, int c2, const void* w,
                              const void* bias, void* y, void* pooled, int B, int Tn, int Hh,
-                             int Ww, int cout, int kt, int kh, int kw, int dtype, void* stream) {
+                             int Ww, int cout, int kt, int kh, int kw, int dtype, int wn, int wgn,
+                             int blocks, void* stream) {
   if (B < 1 || Tn < 1 || Hh < 1 || Ww < 1 || c1 < 1 || c2 < 0 || cout < 1) return (int)cudaErrorInvalidValue;
   if (kt < 1 || kt % 2 == 0 || kh < 1 || kh % 2 == 0 || kh > MAX_K) return (int)cudaErrorInvalidValue;
   if ((long long)B * Tn > 65535) return (int)cudaErrorInvalidValue;
@@ -227,8 +259,8 @@ extern "C" int vvt_conv3d_cf(const void* x1, const void* x2, int c1, int c2, con
     return (int)dispatch_kw<float>(x1, x2, c1, c2, w, bias, y, pooled, B, Tn, Hh, Ww, cout, kt, kh,
                                    kw, st);
   if (dtype == 1)
-    return (int)dispatch_kw<__nv_bfloat16>(x1, x2, c1, c2, w, bias, y, pooled, B, Tn, Hh, Ww, cout,
-                                           kt, kh, kw, st);
+    return (int)conv_mma::launch_conv_mma(x1, x2, c1, c2, w, bias, y, pooled, B, Tn, Hh, Ww, cout,
+                                          kt, kh, kw, wn, wgn, blocks, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,7 +15,13 @@ tensor takes the CUDA kernel or the call raises.
   (read at every call, the JAX package's knob) and a conv that
   :func:`tapdot_supported` accepts (kt = 1, at least 128 input channels, a
   frame at least 128 wide, bf16), ``csrc/conv3d_tapdot.cu``: one tensor-core
-  product per spatial tap;
+  product per spatial tap. ``csrc/conv3d.cu`` takes bf16 to its tensor-core
+  implicit GEMM (``csrc/conv3d_mma.cuh``: mma.sync with f32 accumulators over
+  every tap and input channel, the bias, one rounding; warp-specialised, with
+  the input window copied by cp.async a stage ahead and transposed in shared
+  memory; launch geometry from :func:`conv_plan`, held by
+  ``tests/test_torch_conv_plan.py`` on the CPU) at every shape it accepts, and
+  f32 to its CUDA-core kernel in f32 (TF32 would not hold the f32 gates);
 * input gradient: the forward conv of g with the spatially flipped,
   IO-swapped kernel and a zero bias, through the same dispatch;
 * filter gradient: ``csrc/conv3d_wgrad.cu`` over one or two sources (the
@@ -45,7 +51,7 @@ CONV3D = CudaKernel(
     "conv3d.cu",
     "vvt_conv3d_cf",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 12 + [ctypes.c_void_p],
 )
 CONV3D_TAPDOT = CudaKernel(
     "conv3d_tapdot.cu",
@@ -74,6 +80,15 @@ WGRAD_MMA_TILE = (8, 32)
 WGRAD_MMA_WARPS, WGRAD_MMA_MAX_FRAGS, WGRAD_MMA_MAX_NJ = 8, 7, 4
 WGRAD_MMA_TARGET_BLOCKS, WGRAD_MMA_MAX_WORKSPACE = 528, 8 << 20
 CUDA_MAX_GRID_Y = 65535
+# The bf16 (tensor-core) direct conv, ``csrc/conv3d_mma.cuh``: the tile width, the
+# consumer warps of a block (each 2 rows x 32 columns), the input channels of a
+# stage, the (n8 tiles a warp, warps side by side in N) that make up each
+# output-channel block width, in the order tried (taller tiles first), the
+# shared memory a block may use, and the persistent blocks it launches (one an
+# SM of the H100).
+CONV_MMA_TILE_W, CONV_MMA_WARPS, CONV_MMA_CHUNK = 32, 8, 16
+CONV_MMA_N_BLOCKS = {8: [(1, 1)], 16: [(2, 1), (1, 2)], 32: [(4, 1), (2, 2), (1, 4)], 64: [(4, 2), (2, 4)]}
+CONV_MMA_MAX_SMEM, CONV_MMA_BLOCKS = 232448, 132
 
 
 def tapdot_supported(x1, x2, kernel) -> bool:
@@ -342,6 +357,93 @@ def _empty_outputs(x1, cout, pool):
     return y, pooled
 
 
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """Launch geometry of the bf16 direct conv kernel for one conv.
+
+    A work item is one output frame, a ``tile_h`` × 32 pixel tile and
+    ``n_block`` output channels; each of the 8 consumer warps owns 2 rows × 32
+    columns of the tile by ``wn`` 8-wide channel tiles, ``wgn`` warps side by
+    side in N. ``blocks`` persistent blocks deal the items out in turn: block
+    i takes items i, i + blocks, … (frame-major, then tile, then channel
+    block), each from its first stage to its epilogue.
+    """
+
+    cin: int
+    cout: int
+    frames: int
+    h: int
+    w: int
+    kt: int
+    kh: int
+    kw: int
+    wn: int
+    wgn: int
+    blocks: int
+
+    @property
+    def n_block(self) -> int:
+        return 8 * self.wn * self.wgn
+
+    @property
+    def tile_h(self) -> int:
+        return 2 * CONV_MMA_WARPS // self.wgn
+
+    @property
+    def tiles_w(self) -> int:
+        return -(-self.w // CONV_MMA_TILE_W)
+
+    @property
+    def tiles_h(self) -> int:
+        return -(-self.h // self.tile_h)
+
+    @property
+    def co_tiles(self) -> int:
+        return -(-self.cout // self.n_block)
+
+    @property
+    def items(self) -> int:
+        return self.frames * self.tiles_h * self.tiles_w * self.co_tiles
+
+    @property
+    def smem(self) -> int:
+        return conv_mma_smem(self.wn, self.wgn, self.kh, self.kw)
+
+
+def conv_mma_smem(wn: int, wgn: int, kh: int, kw: int) -> int:
+    """Shared memory of the bf16 conv kernel, two of each: the transposed window
+    (rows of 32 + kw pixels, each pixel's 16 channels in a 48-byte line), the
+    weights of every spatial tap (16 rows of the output-channel block, padded to
+    an odd number of 16-byte units) and the raw window (16 channel planes of rows
+    of 96 bytes), each rounded up to 128 bytes."""
+    n = 8 * wn * wgn
+    ld = n if (n // 8) % 2 else n + 8
+    rows = 2 * CONV_MMA_WARPS // wgn + kh - 1
+    parts = (rows * (CONV_MMA_TILE_W + kw) * 48, kh * kw * CONV_MMA_CHUNK * ld * 2, CONV_MMA_CHUNK * rows * 96)
+    return 2 * sum(-(-part // 128) * 128 for part in parts)
+
+
+def conv_plan(cin: int, cout: int, b: int, t: int, h: int, w: int, kt: int, kh: int, kw: int) -> ConvPlan:
+    """The bf16 direct conv kernel's geometry (see :class:`ConvPlan`).
+
+    The narrowest output-channel block that holds cout, 64 at most (cout 12 →
+    16, 3 → 8, 512 → 8 blocks of 64), with the tallest tile whose buffers fit
+    the block's shared memory, and a narrower block where none does (a 7×7
+    kernel's weights); one persistent block an SM, fewer where there are fewer
+    items.
+    """
+    widths = sorted(CONV_MMA_N_BLOCKS)
+    n = next((width for width in widths if width >= cout), widths[-1])
+    while True:
+        fits = [wn_wgn for wn_wgn in CONV_MMA_N_BLOCKS[n] if conv_mma_smem(*wn_wgn, kh, kw) <= CONV_MMA_MAX_SMEM]
+        if fits or n == widths[0]:
+            break
+        n //= 2
+    wn, wgn = fits[0]
+    one = ConvPlan(cin, cout, b * t, h, w, kt, kh, kw, wn, wgn, blocks=1)
+    return dataclasses.replace(one, blocks=min(one.items, CONV_MMA_BLOCKS))
+
+
 def conv3d_cf_cuda(
     x1: torch.Tensor,
     x2: Optional[torch.Tensor],
@@ -351,19 +453,21 @@ def conv3d_cf_cuda(
 ):
     """Launch the direct conv kernel over one source, or two without their concat.
 
-    With ``pool`` the kernel's epilogue also writes the 2×2 spatial max pool
-    and the call returns (full, pooled).
+    bf16 takes the tensor-core kernel (geometry from :func:`conv_plan`), f32
+    the CUDA-core one. With ``pool`` the kernel's epilogue also writes the 2×2
+    spatial max pool and the call returns (full, pooled).
     """
     c2 = _check_conv_operands("conv3d_cf_cuda", x1, x2, kernel, bias, pool)
     b, t, c1, h, w = x1.shape
     kt, kh, kw, _, cout = kernel.shape
+    plan = conv_plan(c1 + c2, cout, b, t, h, w, kt, kh, kw)
     y, pooled = _empty_outputs(x1, cout, pool)
     with torch.cuda.device(x1.device):
         CONV3D.launch(
             x1.data_ptr(), None if x2 is None else x2.data_ptr(), c1, c2,
             kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
             None if pooled is None else pooled.data_ptr(),
-            b, t, h, w, cout, kt, kh, kw, DTYPE_CODES[x1.dtype],
+            b, t, h, w, cout, kt, kh, kw, DTYPE_CODES[x1.dtype], plan.wn, plan.wgn, plan.blocks,
             torch.cuda.current_stream(x1.device).cuda_stream,
         )
     return (y, pooled) if pool else y
