@@ -14,15 +14,16 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    second output, the filter gradient, and the tap-dot conv; the convs at the
    flagship UNet's shapes and at the tap-dot model's, where the gate decides
    which kernel a shape goes to), and times the kernel, the plain version and
-   one library call (or chain of calls) for the same function; the fused
-   attention forward also with the same bits on two launches, with a sequence
-   whose keys are all masked, and an "attention-fwd" line per shape with the
-   kernel's and SDPA's device time per call from ``torch.profiler`` and the
-   kernel's TFLOP/s and GB/s; the direct conv's lines (forward, input gradient,
-   pooled) and the fused attention backward's add the kernel's and the library
-   call's device time per call (``device_ms``, ``library_device_ms``) and the
-   kernel's TFLOP/s, and the direct conv and the filter gradient give the same
-   bits on two launches;
+   one library call (or chain of calls) for the same function; every
+   "kernel-check" line but the fused attention forward's adds the kernel's and
+   the library call's device time per call from ``torch.profiler``
+   (``device_ms``, ``library_device_ms``), the convs' and the fused attention
+   backward's the kernel's TFLOP/s too; the fused attention forward has an
+   "attention-fwd" line per shape with its and SDPA's device time and its
+   TFLOP/s and GB/s. The fused attention forward and backward, the direct conv
+   and the filter gradient give the same bits on two launches, and the fused
+   attention forward and backward are held at a sequence whose keys are all
+   masked;
 2. runs the serving pass (encode → keep/drop → fill-blend → decode) at the
    flagship width and reduced depth in float32 on the card and on the CPU,
    with the same seeded weights, and compares the two, once per path
@@ -226,7 +227,7 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, traces: int = 3) -> float:
+def device_ms(fn, iters: int = 20, traces: int = 6) -> float:
     """Device time per call of the kernels ``fn`` launches, from ``torch.profiler``.
 
     Unlike :func:`time_ms`, whose events also count where the device waits on
@@ -255,11 +256,13 @@ def device_ms(fn, iters: int = 20, traces: int = 3) -> float:
     raise AssertionError(f"torch.profiler saw no kernel on the device in {traces} traces")
 
 
-def conv_device_times(kernel_fn, library_fn, flops: float) -> dict:
-    """A conv's device time per call (kernel and library, :func:`device_ms`) and the
-    kernel's TFLOP/s over the taps inside the clip and the frame."""
+def device_times(kernel_fn, library_fn, flops: float | None = None) -> dict:
+    """A kernel's and its library call's device time per call (:func:`device_ms`),
+    and with ``flops`` the kernel's TFLOP/s (a conv's over the taps inside the
+    clip and the frame)."""
     ms = device_ms(kernel_fn, 10)
-    return {"device_ms": ms, "library_device_ms": device_ms(library_fn, 10), "tflops": flops / ms / 1e9}
+    times = {"device_ms": ms, "library_device_ms": device_ms(library_fn, 10)}
+    return times if flops is None else {**times, "tflops": flops / ms / 1e9}
 
 
 def bound_ms(nbytes: int, flops: float, dtype: str) -> tuple[float, str]:
@@ -421,11 +424,28 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train"):
             del empty, held, ref
 
         got = fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
+        again = fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
         torch.cuda.synchronize()
         ref = fa.fused_qkv_attention_bwd_plain(qkv, qs, ks, mask, g, H)
         err = max(check_close(f"attention bwd {name} {dtype} {part}", a, b, dtype)
                   for part, a, b in zip(("dqkv", "dq_scale", "dk_scale"), got, ref))
-        del ref
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):  # no atomics: the same bits on every run
+            raise AssertionError(f"attention bwd {name} {dtype}: two launches gave different bits")
+        del ref, again
+        if padded and serving == "serving":
+            # one sequence with every key masked: its rows spread P over all S keys
+            empty = mask.clone()
+            empty[0] = False
+            held = fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, empty, g, H)
+            torch.cuda.synchronize()
+            ref = fa.fused_qkv_attention_bwd_plain(qkv, qs, ks, empty, g, H)
+            masked_err = max(
+                *(check_close(f"attention bwd {name} {dtype} all keys masked {part}", a, b, dtype)
+                  for part, a, b in zip(("dqkv", "dq_scale", "dk_scale"), held, ref)),
+                check_close(f"attention bwd {name} {dtype} the masked sequence", held[0][0], ref[0][0], dtype),
+            )
+            log("attention-bwd-masked-row", json.dumps({"case": f"{name} {dtype}", "max_abs_err": masked_err}))
+            del empty, held, ref
         # library yardstick: SDPA's backward on already normalised, rotated q/k
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         o = F.scaled_dot_product_attention(*leaves, attn_mask=amask)
@@ -480,6 +500,8 @@ def phase_flash_kernels(cfg, dev, rows):
             "scaled_dot_product_attention",
             bound_ms(nbytes(q, k, v, out, mask), 4.0 * H * S * keys * D, dtype),
             per_path(per, **{"serving-pallas": "serving", "train-pallas": "train"}),
+            **device_times(lambda: fa.flash_attention_cuda(q, k, v, mask),
+                           lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask)),
         )
 
         got = fa.flash_attention_bwd_cuda(q, k, v, mask, g)
@@ -498,6 +520,8 @@ def phase_flash_kernels(cfg, dev, rows):
             "scaled_dot_product_attention backward",
             bound_ms(nbytes(q, k, v, g, mask) + nbytes(*got), 10.0 * H * S * keys * D, dtype),
             per_path(per, **{"train-pallas": "train"}),
+            **device_times(lambda: fa.flash_attention_bwd_cuda(q, k, v, mask, g),
+                           lambda: torch.autograd.grad(o, leaves, lg, retain_graph=True)),
         )
         del qkv, g, out, got, q, k, v, lq, lk, lv, lg, leaves, o
     torch.cuda.empty_cache()
@@ -565,6 +589,7 @@ def phase_sublayer_kernel(cfg, dev, rows):
             "layer_norm -> matmul -> scaled_dot_product_attention -> matmul, bf16 weights",
             bound_ms(nbytes(x, x, *w16, lng, lnb, mask), flops, "bfloat16"),
             per_path(per, **{"serving-sublayer": "serving", "train-sublayer": "train"}),
+            **device_times(run, library),
         )
         del x, got, y
     torch.cuda.empty_cache()
@@ -614,8 +639,8 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
                 time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), 5),
                 "torch.nn.functional.conv3d (cuDNN), concatenated input",
                 bound_ms(nbytes(*xs, kernel, bias, out), flops, dtype), {serving: 1, train: 1},
-                **conv_device_times(lambda: conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias),
-                                    lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), flops),
+                **device_times(lambda: conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias),
+                               lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), flops),
             )
             del out, again
 
@@ -637,8 +662,8 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
                 time_ms(lambda: F.conv3d(g_ncdhw, w_flip, padding=pad), 5),
                 "torch.nn.functional.conv3d (cuDNN) of g, flipped kernel",
                 bound_ms(nbytes(g, flipped, dx), flops, dtype), {train: 1},
-                **conv_device_times(lambda: conv3d.conv3d_cf_cuda(g, None, flipped, zero),
-                                    lambda: F.conv3d(g_ncdhw, w_flip, padding=pad), flops),
+                **device_times(lambda: conv3d.conv3d_cf_cuda(g, None, flipped, zero),
+                               lambda: F.conv3d(g_ncdhw, w_flip, padding=pad), flops),
             )
             del dx, again
 
@@ -659,7 +684,9 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
             rows, conv3d.CONV3D_WGRAD, name, [BATCH, FRAMES, list(cins), h, w, cout, list(k)], dtype, err,
             ms, time_ms(lambda: conv3d.conv3d_wgrad_plain(xs[0], x2, g, *k), 1, warmup=0), cudnn_ms,
             "torch.nn.grad.conv3d_weight (cuDNN), concatenated input",
-            bound_ms(nbytes(*xs, g, dw), flops, dtype), {train: 1}, tflops=flops / ms / 1e9,
+            bound_ms(nbytes(*xs, g, dw), flops, dtype), {train: 1},
+            **device_times(lambda: conv3d.conv3d_wgrad_cuda(xs[0], x2, g, *k),
+                           lambda: torch.nn.grad.conv3d_weight(x_ncdhw, w_shape, g_ncdhw, padding=pad), flops),
         )
         del xs, x2, g, dw, x_ncdhw, g_ncdhw, flipped
     torch.cuda.empty_cache()
@@ -731,6 +758,7 @@ def phase_mlp_kernel(cfg, dev, rows):
         if not torch.equal(y, got[0]):
             raise AssertionError(f"mlp N={n} {dtype}: the inference variant's y differs")
         plain_ms, library_ms = time_ms(plain, 2), time_ms(library, 10)
+        library_device_ms = device_ms(library, 10)
         for variant, save, per in (("inference", False, per_inference), ("training", True, per_training)):
             written = (x, *got[1:]) if save else (x,)
             _record(
@@ -738,6 +766,7 @@ def phase_mlp_kernel(cfg, dev, rows):
                 time_ms(lambda: run(save), 10), plain_ms, library_ms,
                 "layer_norm -> linear -> silu -> linear -> add, bf16 weights",
                 bound_ms(nbytes(x, *written, *w16, lng, lnb), 4.0 * n * C * Fd, "bfloat16"), per,
+                device_ms=device_ms(lambda: run(save), 10), library_device_ms=library_device_ms,
             )
         del x, got, y
     torch.cuda.empty_cache()
@@ -787,6 +816,8 @@ def phase_tapdot_kernel(cfg, dev, rows):
             time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=(0, k[1] // 2, k[2] // 2)), 5),
             "torch.nn.functional.conv3d (cuDNN), concatenated input",
             bound_ms(nbytes(*xs, kernel, bias, out), flops, dtype), per,
+            **device_times(lambda: conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias),
+                           lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=(0, k[1] // 2, k[2] // 2)), flops),
         )
         if pool:
             full, pooled = conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias, pool=True)
@@ -803,6 +834,9 @@ def phase_tapdot_kernel(cfg, dev, rows):
                                              (1, 2, 2)), 5),
                 "conv3d (cuDNN) then max_pool3d",
                 bound_ms(nbytes(*xs, kernel, bias, full, pooled), flops, dtype), {},
+                **device_times(lambda: conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias, pool=True),
+                               lambda: F.max_pool3d(F.conv3d(x_ncdhw, w_oidhw, lib_bias,
+                                                             padding=(0, k[1] // 2, k[2] // 2)), (1, 2, 2)), flops),
             )
             del full, pooled
         del xs, x2, out, ref, x_ncdhw
@@ -854,9 +888,9 @@ def phase_pooled_conv(cfg, dev, rows):
             time_ms(lambda: F.max_pool3d(F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), (1, 2, 2)), 5),
             "conv3d (cuDNN) then max_pool3d",
             bound_ms(nbytes(x, kernel, bias, full, pooled), flops, dtype), {},
-            **conv_device_times(lambda: conv3d.conv3d_cf_cuda(x, None, kernel, bias, pool=True),
-                                lambda: F.max_pool3d(F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), (1, 2, 2)),
-                                flops),
+            **device_times(lambda: conv3d.conv3d_cf_cuda(x, None, kernel, bias, pool=True),
+                           lambda: F.max_pool3d(F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), (1, 2, 2)),
+                           flops),
         )
         del full, pooled, ref_full, ref_pooled, x_ncdhw
         if dtype != "float32":

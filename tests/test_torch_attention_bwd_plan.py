@@ -1,0 +1,185 @@
+"""Launch geometry of the bf16 fused attention backward kernel
+(``ops/flash_attention.py:fused_attention_bwd_plan``).
+
+At every attention call of the flagship and of the tap-dot model (the shapes
+``chip_smoke.py`` holds the kernel at) and at ragged shapes: on each side,
+query and key, every (sequence, head, row) is computed by exactly one warp of
+one block, which staged the pair; each warp's chunks walk every key (query
+side) or query (key side) j < S and no row past the staged ones, and a query
+chunk's keys lie in one word of key bits; shared memory, warps and grid stay
+within what the kernel and the H100 accept. :class:`Geometry` derives the
+rest of the launch from the plan as ``launch_attention_bwd_mma`` in
+``csrc/fused_attention_bwd_mma.cuh`` does, and deals out the tiles and chunks
+as ``attention_bwd_kernel`` walks them.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import chip_smoke
+from video_vae_tpu_torch import ModelConfig
+from video_vae_tpu_torch.ops.flash_attention import (
+    BWD_SLAB_MAX_SEQ,
+    BWD_SLAB_WARPS,
+    BWD_TILE_WARPS,
+    MMA_ROW_BYTES,
+    fused_attention_bwd_plan,
+)
+
+# what the H100 accepts of one block and one grid; the kernel's __launch_bounds__ per variant
+MAX_SMEM, MAX_GRID_X = 232448, 2**31 - 1
+LAUNCH_BOUND_WARPS = {"slab": 4, "tile": 16}
+D = 64
+
+MODEL_CASES = sorted({
+    (model, name, B, S, cfg.num_heads)
+    for model, cfg in (("flagship", ModelConfig()), ("tapdot", chip_smoke.tapdot_model_config()))
+    for name, B, S, _, _, _ in chip_smoke.attention_cases(cfg)
+})
+# B = 1, and B = 3 and 5, which no pairs-per-block count of these shapes divides
+RAGGED_CASES = [
+    (B, S, H)
+    for S in (1, 15, 16, 17, 37, 64, 65, 255, 256)
+    for B, H in ((1, 8), (3, 8), (5, 2))
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch of the kernel: the plan and what the C entry point derives from it."""
+
+    batch: int
+    seq: int
+    heads: int
+
+    @property
+    def plan(self) -> tuple[str, int, int]:
+        return fused_attention_bwd_plan(self.batch, self.seq, self.heads)
+
+    @property
+    def rows16(self) -> int:
+        return -(-self.seq // 16) * 16
+
+    @property
+    def tiles(self) -> int:
+        return self.rows16 // 16
+
+    @property
+    def pairs(self) -> int:
+        return self.batch * self.heads
+
+    @property
+    def grid(self) -> int:
+        variant, unit, _ = self.plan
+        return -(-self.pairs // unit) if variant == "slab" else self.pairs
+
+    @property
+    def kt(self) -> int:
+        """16-key steps of a query-side chunk: the whole row in a slab block
+        (``chunk_steps``), ``TILE_KT`` in a tile block."""
+        if self.plan[0] == "tile":
+            return 2
+        return 1 if self.rows16 <= 16 else 2 if self.rows16 <= 32 else 4
+
+    @property
+    def smem(self) -> int:
+        """``bwd_smem_bytes``: rows, P and dS (slab) or the row statistics (tile),
+        key bits, and each warp's (2, D) f32 dscale partials and 8 f32 staging
+        rows of D + 8."""
+        variant, unit, warps = self.plan
+        words = 8 * -(-self.seq // 64)
+        red = warps * (2 * D + 8 * (D + 8)) * 4
+        if variant == "slab":
+            pair = 4 * self.rows16 * MMA_ROW_BYTES + 2 * self.rows16 * (self.rows16 + 8) * 2
+            return unit * (pair + words) + red
+        return 4 * self.rows16 * MMA_ROW_BYTES + 3 * self.rows16 * 4 + words + red
+
+    def block_pairs(self, block: int) -> list[int]:
+        """The (sequence, head) pairs, as b·H + h, whose rows the block stages."""
+        _, unit, _ = self.plan
+        return [p for p in range(block * unit, (block + 1) * unit) if p < self.pairs]
+
+    def tiles_dealt(self):
+        """(block, warp, pair, first row) of every 16-row tile a warp takes, on
+        either side: the query side and the key side deal the same items."""
+        _, unit, warps = self.plan
+        for block in range(self.grid):
+            for item in range(unit * self.tiles):
+                pair = block * unit + item // self.tiles
+                if pair < self.pairs:
+                    yield block, item % warps, pair, 16 * (item % self.tiles)
+
+    def query_chunks(self) -> list[tuple[int, int]]:
+        """(first key, 16-key steps) of every chunk a query tile walks."""
+        ch = 16 * self.kt
+        return [(c0, min(self.kt, -(-(self.seq - c0) // 16))) for c0 in range(0, self.seq, ch)]
+
+    def key_steps(self) -> list[int]:
+        """First query of every 16-query step a key tile walks."""
+        return list(range(0, self.seq, 16))
+
+
+def _check_plan(B, S, H):
+    geo = Geometry(B, S, H)
+    variant, unit, warps = geo.plan
+    assert variant in ("slab", "tile") and unit >= 1
+    assert variant == "tile" or S <= BWD_SLAB_MAX_SEQ
+    assert variant == "slab" or unit == 1
+    assert 1 <= warps <= min(LAUNCH_BOUND_WARPS[variant], BWD_SLAB_WARPS if variant == "slab" else BWD_TILE_WARPS)
+    assert geo.smem <= MAX_SMEM
+    assert 1 <= geo.grid <= MAX_GRID_X
+
+    owners = np.zeros((B * H, S), dtype=np.int32)
+    for block, warp, pair, row0 in geo.tiles_dealt():
+        assert 0 <= block < geo.grid and 0 <= warp < warps
+        assert row0 % 16 == 0 and 0 <= row0 < S
+        assert pair in geo.block_pairs(block)  # the block staged the pair's rows
+        owners[pair, row0 : row0 + 16] += 1
+    assert (owners == 1).all()
+
+    # query side: every key j < S once, no staged row past rows16, each chunk in one word of key bits
+    seen = np.zeros(S, dtype=np.int32)
+    for c0, steps in geo.query_chunks():
+        assert 1 <= steps <= geo.kt and c0 % 16 == 0
+        assert c0 + 16 * steps <= geo.rows16
+        assert c0 % 64 + 16 * geo.kt <= 64
+        seen[c0 : c0 + 16 * steps] += 1
+    assert (seen == 1).all()
+    if variant == "slab":  # one chunk, so P and dS of every key column reach shared memory
+        assert len(geo.query_chunks()) == 1 and 16 * geo.query_chunks()[0][1] == geo.rows16
+
+    # key side: every query i < S once, no staged row past rows16
+    seen = np.zeros(S, dtype=np.int32)
+    for q0 in geo.key_steps():
+        assert q0 + 16 <= geo.rows16
+        seen[q0 : q0 + 16] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("model,name,B,S,H", MODEL_CASES, ids=[f"{c[0]}-{c[1]}" for c in MODEL_CASES])
+def test_attention_bwd_plan_at_model_shapes(model, name, B, S, H):
+    _check_plan(B, S, H)
+
+
+def test_attention_bwd_plan_covers_every_model_call():
+    # temporal and spatial at b2 and b1, for each model
+    assert len(MODEL_CASES) == 8
+
+
+@pytest.mark.parametrize("B,S,H", RAGGED_CASES)
+def test_attention_bwd_plan_at_ragged_shapes(B, S, H):
+    _check_plan(B, S, H)
+
+
+def test_attention_bwd_plan_at_the_models_shapes_is_as_designed():
+    """Temporal S = 16, 8 heads: a slab block of half a sequence's pairs, a
+    warp a pair, four blocks an SM; spatial S = 256: one block a pair, 16
+    warps of 16 rows on each side, 32-key chunks walked twice."""
+    temporal = Geometry(512, 16, 8)
+    assert (temporal.plan, temporal.grid, temporal.kt) == (("slab", 4, 4), 1024, 1)
+    assert 4 * temporal.smem <= MAX_SMEM
+    spatial = Geometry(32, 256, 8)
+    assert (spatial.plan, spatial.grid, spatial.kt) == (("tile", 1, 16), 256, 2)
+    assert len(spatial.query_chunks()) == 8 and len(spatial.key_steps()) == 16

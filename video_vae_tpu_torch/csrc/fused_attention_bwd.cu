@@ -7,20 +7,75 @@
 // row = sum_j P_ij dP_ij (f32), dS = P o (dP - row) / sqrt(D), dq~ = dS k~, dk~ = dS^T q~,
 // and back through RoPE (its transpose), the scale (a per-dim partial
 // sum_rows dln * xn) and the LN: dx = r * (dxn - mean(dxn) - xn * mean(dxn * xn)).
-// D = 64, S <= 256; f32 or bf16 in and out, f32 arithmetic throughout.
+// D = 64, 1 <= S <= 256. A masked key (j < S, mask 0) scores -1e30, so a row
+// whose keys are all masked spreads P evenly over all S keys; a key past S (a
+// tile's padding) adds exactly 0.
 //
-// What bounds it on the H100: per (sequence, head) it does 5 S x S x D products
-// (two score recomputes, dv, dP, dq~/dk~ share the rest), 10 * S^2 * D FLOPs, over
-// 4 * S * D inputs and 3 * S * D outputs. At the train step's shapes that is
-// bytes-bound on paper (S = 16: 2.7 GFLOP over 67 MB for the decoder's temporal
-// call; S = 256: 43 GFLOP over 67 MB for its spatial call, ~20 us either way at
-// 3.35 TB/s). This first version does its arithmetic in f32 on the CUDA cores
-// (67 TFLOP/s), so at S = 256 the FLOPs are the real limit.
+// What bounds it on the H100: each call reads qkv and dO and writes dqkv once,
+// 59 MB at the model's b2 calls (temporal S = 16 over 512 sequences, spatial
+// S = 256 over 32), 17.5 us at 3.35 TB/s. The products are 10 S^2 D FLOPs per
+// (sequence, head) on paper: 1.3 GFLOP a temporal b2 call, 21 GFLOP a spatial
+// one, 21 us at the 989 TFLOP/s bf16 peak. So the temporal call is bytes, and the
+// spatial call sits on the ridge, where any recompute or an mma.sync rate below
+// the peak makes it the products'.
 //
-// What the design does about it: the TPU kernel holds a whole (sequence, head)
-// in VMEM and computes all of it in one grid step. A block here cannot hold
-// f32 q~, k~, v and dO of one sequence at S = 256 (256 KB), and dk/dv sum over
-// queries while dq sums over keys. So four passes, none with atomics:
+// bf16 qkv: a tensor-core kernel (fused_attention_bwd_mma.cuh), one launch, no
+// workspace but the (blocks, D) dscale partials:
+// - Products: mma.sync m16n8k16, bf16 operands and f32 accumulators, ldmatrix
+//   (and .trans) from 144-byte shared-memory rows, as the forward: 16-row tiles
+//   suit S = 16, where wgmma's 64-row tile would waste 3/4 of its work. The
+//   accumulators of P and dS are, as they stand, the A fragments of the next
+//   product, and dims d and d + 32 of a row sit in one lane, so the RoPE
+//   transpose of the epilogue needs no shuffle.
+// - Staging: cp.async copies the block's q, k (one group) and v, dO rows (a
+//   second); then four lanes a row apply LN + RoPE to q and k in place and round
+//   them to bf16 (the forward's norm_rope_pair).
+// - Geometry (ops/flash_attention.py:fused_attention_bwd_plan: the variant, the
+//   pairs a slab block, the warps; shared memory derived here). Both variants
+//   deal the 16-row query tiles to the warps, then, after a barrier, the 16-row
+//   key tiles, so every sum has one owner and one order: no atomics.
+//   * S <= 64, "slab": a block stages several (sequence, head) pairs (the heads
+//     of a sequence side by side in memory). The query side holds a tile's
+//     scores and dP for all keys in registers (one chunk: the exact max), writes
+//     P and dS as bf16 to shared memory and takes dq~ = dS k~; the key side reads
+//     them back transposed (ldmatrix.trans) for dv = P^T dO and dk~ = dS^T q~.
+//     5 products of S^2 D a pair, the fewest the function needs.
+//     Small blocks (up to 4 warps, at least 4 blocks an SM, so 128 registers
+//     a thread), so that one block's copies overlap another's products.
+//   * S > 64, "tile": a block owns one pair, all its rows (147 KB at S = 256;
+//     P and dS of the pair would not fit beside them). The query side walks
+//     the keys in 32-key chunks twice: q~k~^T and dO v^T give m, l and row
+//     online, then again for P, dS and dq~; m, 1/l and row go to shared
+//     memory. The key side walks the queries in 16s: k~q~^T and v dO^T give
+//     P^T and dS^T, then dv and dk~. 9 products a pair, 3 exp a score.
+// - Epilogue: a warp's 16 x 64 accumulators pass through its own 8 staging rows
+//   in shared memory, so that a half-warp takes a whole row, a lane holding dims
+//   d and d + 32 (RoPE's transpose needs no shuffle) and every global access of
+//   a row being one contiguous piece: dv is rounded and stored; for dq~ and dk~
+//   the raw q or k row is re-read (an L2 hit) for xn and r, and the LN backward
+//   runs in f32. Each warp sums its rows' dln * xn in a fixed order into shared
+//   memory and the block writes one (D,) partial of each scale, summed by the
+//   wrapper.
+// Measured on the H100 (PERF.md; video_vae_tpu_torch/utils/kernel_phases.py
+// times copies with one phase cut out): neither call is near its bound. The
+// spatial call issues about one mma.sync per 7 cycles an SM: 16 warps capped at
+// 128 registers wait on their own chains. Its key side takes 46 % (19 %
+// recomputing k~q~^T and v dO^T), the query side 40 %, the staging and LN
+// 18 %; within the sides, the epilogues take 24 % and the exp 10 %. The
+// temporal call spends half its time staging and in the LN and 39 % in the
+// epilogues, whose chains of loads and row sums wait on L2.
+// Roundings (between the TPU kernel, whose products are f32, and the JAX
+// package's non-TPU backward, the vjp of _reference_fused_chain, which rounds
+// these and more; SDPA's backward rounds the same): q~ and k~ to bf16 after LN
+// and RoPE, as the forward does, so P is the P the forward used; P normalised
+// (exp(s - m) / l with the exact row max and sum, f32) and then rounded to bf16
+// for dv; dS computed in f32 from f32 P and rounded to bf16 for dq~ and dk~;
+// v and dO are bf16 already. Everything else is f32: LN statistics, scores,
+// softmax, dP, row, accumulators, the RoPE transpose and the LN backward. dqkv
+// is rounded once.
+//
+// f32 qkv keeps the first version, four passes on the CUDA cores through an
+// f32 workspace, f32 throughout (it backs the f32 card-vs-CPU train step):
 //   1. prep: one warp per row writes q~, k~ (LN, scale, RoPE), v and dO as f32
 //      rows of a workspace;
 //   2. query side: two threads per query row (each owns half of D, as
@@ -31,11 +86,12 @@
 //      row) from shared memory and accumulate dk~ and dv;
 //   4. LN/RoPE backward: one warp per row, lanes own dims d and d + 32 (the
 //      RoPE pairs); per-block dscale partials, summed by the wrapper.
-// Tensor cores (mma/wgmma) and a bf16 workspace are left for a later version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "fused_attention_bwd_mma.cuh"
 
 namespace {
 
@@ -460,22 +516,30 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (qkv, g, dqkv). mask: (B, S) uint8 key mask, or null.
-// dqs_part, dks_part: (n_blocks, D) f32 partials, n_blocks = ceil(B * H * S / 64).
-// work: f32 scratch of 6 * B * H * S * D + 3 * B * H * S floats.
+// dqs_part, dks_part: (n_blocks, D) f32 partials of the scale gradients.
+// f32: n_blocks = ceil(B * H * S / 64), work = f32 scratch of 6 * B * H * S * D +
+// 3 * B * H * S floats; variant, unit and warps are not read.
+// bf16: variant (slab 0, tile 1), unit (pairs a slab block, 1 for a tile) and
+// warps from the plan; n_blocks = the grid; work is not read.
 extern "C" int vvt_fused_attention_bwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
                                        const void* g, void* dqkv, void* dqs_part, void* dks_part,
                                        void* work, int B, int S, int H, int head_dim, int n_blocks,
-                                       int dtype, void* stream) {
+                                       int dtype, int variant, int unit, int warps, void* stream) {
   if (head_dim != D || S < 1 || S > MAX_S || B < 1 || H < 1 || n_blocks < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch<float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv, dqs_part,
                               dks_part, work, B, S, H, n_blocks, st);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv,
-                                      dqs_part, dks_part, work, B, S, H, n_blocks, st);
+  if (dtype == 1) {
+    const fa_mma::bwd::Args a{static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(q_scale),
+                              static_cast<const float*>(k_scale), static_cast<const float*>(cos_t),
+                              static_cast<const float*>(sin_t), static_cast<const unsigned char*>(mask),
+                              static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dqkv),
+                              static_cast<float*>(dqs_part), static_cast<float*>(dks_part), B, S, H, unit};
+    return (int)fa_mma::bwd::launch_attention_bwd_mma(a, variant, warps, n_blocks, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

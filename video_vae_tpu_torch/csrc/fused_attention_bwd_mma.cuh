@@ -1,0 +1,570 @@
+// Device code of the bf16 fused QK-norm + RoPE + attention backward on the tensor
+// cores (mma.sync m16n8k16, bf16 operands, f32 accumulators). The design note is
+// in fused_attention_bwd.cu. launch_attention_bwd_mma() enqueues the kernel on a
+// stream and returns the launch's cudaError_t. The helpers it shares with the
+// forward (cp.async, ldmatrix, mma, the LN + RoPE of a row pair, the key bits)
+// are in fused_attention_mma_common.cuh.
+//
+// Shared-memory layout. Rows of 64 bf16 sit in 72-element rows (144 bytes) as
+// in the forward, staged in 16-row units, a row past the sequence zero-filled.
+//   slab (S <= 64): per (sequence, head) pair of the block: q~ | k~ | v | dO
+//                   [row], then P and dS as bf16 [query][key] (rows of
+//                   rows16(S) + 8 elements, an odd count of 16-byte units, so
+//                   ldmatrix.trans reads them without bank conflicts); then the
+//                   key bits of every pair;
+//   tile (S > 64):  q~ | k~ | v | dO [row] of one pair, then its rows' softmax
+//                   max m, 1/l and row term (f32), then its key bits.
+// Last, both: the per-warp dscale partials, [warp][q, k][D] f32, then each
+// warp's 8 staging rows of the epilogue, [warp][8][STAGE_ROW] f32.
+
+#pragma once
+
+#include "fused_attention_mma_common.cuh"
+
+namespace fa_mma {
+namespace bwd {
+
+constexpr int SLAB_MAX_SEQ = 64;     // the longest sequence whose P and dS a block keeps
+constexpr int SLAB_WARPS = 4;        // warps of a slab block at most
+constexpr int TILE_WARPS = 16;       // warps of a tile block at most (S = 256)
+constexpr int TILE_KT = 2;           // 16-key steps of a query-side chunk in a tile block
+constexpr int SLAB_MIN_BLOCKS = 4;   // slab blocks an SM at least: 128 registers a thread
+constexpr int STAGE_ROW = D + 8;     // f32 staging row of the epilogue (no bank conflicts)
+constexpr float SM_SCALE = 0.125f;   // 1/sqrt(D)
+constexpr float C = SM_SCALE * LOG2E;  // 1/sqrt(D) in the exp2 domain
+
+__host__ __device__ __forceinline__ int ps_row(int S) { return rows16(S) + 8; }
+
+// bf16 elements of one pair's rows in a slab block: q~, k~, v, dO, then P and dS
+__host__ __device__ __forceinline__ size_t slab_pair_elems(int S) {
+  return 4 * (size_t)rows16(S) * ROW + 2 * (size_t)rows16(S) * ps_row(S);
+}
+
+// Shared memory of one block (unit: pairs of a slab block).
+__host__ __forceinline__ size_t bwd_smem_bytes(int variant, int S, int unit, int warps) {
+  const size_t words = 8 * (size_t)key_words(S);
+  // each warp's (2, D) dscale partials and 8 staging rows
+  const size_t red = (size_t)warps * (2 * D + 8 * STAGE_ROW) * sizeof(float);
+  if (variant == SLAB) return (size_t)unit * (2 * slab_pair_elems(S) + words) + red;
+  return 4 * (size_t)rows16(S) * ROW_BYTES + 3 * (size_t)rows16(S) * sizeof(float) + words + red;
+}
+
+struct Args {
+  const bf16* qkv;  // (B, S, 3 H D)
+  const float* q_scale;
+  const float* k_scale;
+  const float* cos_t;  // (S, D)
+  const float* sin_t;
+  const unsigned char* mask;  // (B, S) or null
+  const bf16* g;              // dO, (B, S, H D)
+  bf16* dqkv;                 // (B, S, 3 H D)
+  float* dqs_part;            // (blocks, D)
+  float* dks_part;
+  int B, S, H, unit;
+};
+
+// acc[nt] = A . B^T, A the 16 x 64 fragments af, B the rows c0 + 8 nt .. + 7 of
+// b_s (64 wide): the 16-row-by-8 tiles of a product over D, for nt / 2 < steps.
+template <int KT>
+__device__ __forceinline__ void row_dots(float (&acc)[2 * KT][4], const uint32_t (&af)[4][4], const bf16* b_s,
+                                         int c0, int steps) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < 2 * KT; ++nt) {
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    if (nt / 2 < steps) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {  // d in [32 hf, 32 hf + 32): two 16-deep k-steps
+        uint32_t b[4];
+        ldsm_x4(b, b_s + (c0 + 8 * nt + (lane & 7)) * ROW + 32 * hf + 8 * (lane >> 3));
+        mma(acc[nt], af[2 * hf], b[0], b[1]);
+        mma(acc[nt], af[2 * hf + 1], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The 16 x 64 A fragments of 16 rows of a 64-wide bf16 array in shared memory.
+__device__ __forceinline__ void load_rows(uint32_t (&f)[4][4], const bf16* rows) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) ldsm_x4(f[ks], rows + (lane & 15) * ROW + 16 * ks + 8 * (lane >> 4));
+}
+
+// acc (16 x 64) += a (16 x 16) . the 16 rows of b_rows (64 wide), read through ldmatrix.trans.
+__device__ __forceinline__ void mma_rows(float (&acc)[8][4], const uint32_t (&a)[4], const bf16* b_rows) {
+  const int lane = threadIdx.x & 31;
+  const bf16* row = b_rows + (lane & 15) * ROW + 8 * (lane >> 4);
+#pragma unroll
+  for (int dp = 0; dp < 4; ++dp) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, row + 16 * dp);
+    mma(acc[2 * dp], a, b[0], b[1]);
+    mma(acc[2 * dp + 1], a, b[2], b[3]);
+  }
+}
+
+// Score tiles 2kk and 2kk + 1 rounded to bf16: the A fragment of 16-key step kk.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&s)[N][4], int kk) {
+  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+}
+
+// Mask one chunk of scores (keys c0 .. c0 + 16 KT, within one word of key bits):
+// a masked key NEG_INF, a padding key (j >= S) -inf, so that it adds exactly 0.
+template <int KT>
+__device__ __forceinline__ void mask_scores(float (&s)[2 * KT][4], int c0, int S, const unsigned long long* keep) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long bits = keep[c0 >> 6] >> (c0 & 63);
+  constexpr unsigned long long CHUNK_BITS = KT == 4 ? ~0ull : (1ull << 16 * KT) - 1;
+  if (c0 + 16 * KT <= S && (bits & CHUNK_BITS) == CHUNK_BITS) return;  // nothing to mask
+#pragma unroll
+  for (int nt = 0; nt < 2 * KT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int jl = 8 * nt + 2 * (lane & 3) + (e & 1);
+      s[nt][e] = c0 + jl >= S ? -INFINITY : ((bits >> jl) & 1ull) ? s[nt][e] : NEG_INF;
+    }
+}
+
+// The query side of one warp: 16 query rows (q_rows, do_rows: their q~ and dO
+// rows) against the S keys of k_s and v_s. P = softmax(q~k~^T / sqrt(D) + key
+// mask) with the exact row max m and sum l, dP = dO v^T, row = sum_j P dP,
+// dS = P (dP - row) / sqrt(D), all f32; dq~ = dS . k~ with dS rounded to bf16.
+// One chunk of up to 64 keys (!TWO_PASS): the scores and dP stay in registers.
+// More (TWO_PASS): a first pass over the chunks gives m, l and row online, the
+// second recomputes the scores and dP. stat: (m, 1/l, row) of rows g and g + 8.
+// With p_rows (slab), P and dS rounded to bf16 go to shared memory for the key
+// side: query row r of this tile at p_rows + r * pstride, dS at ds_rows.
+template <int KT, bool TWO_PASS>
+__device__ __forceinline__ void query_side(const bf16* q_rows, const bf16* do_rows, const bf16* k_s, const bf16* v_s,
+                                           const unsigned long long* keep, int S, float (&dq)[8][4],
+                                           float (&stat)[2][3], bf16* p_rows, bf16* ds_rows, int pstride) {
+  constexpr int CH = 16 * KT;
+  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
+  uint32_t qf[4][4], df[4][4];
+  load_rows(qf, q_rows);
+  load_rows(df, do_rows);
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+  float s[2 * KT][4], dp[2 * KT][4];
+  const int chunks = TWO_PASS ? (S + CH - 1) / CH : 1;
+  for (int c = 0; c < (TWO_PASS ? chunks : 1); ++c) {  // m, l and sum_j exp(s - m) dP
+    const int c0 = c * CH, steps = min(KT, (S - c0 + 15) / 16);
+    row_dots<KT>(s, qf, k_s, c0, steps);
+    mask_scores<KT>(s, c0, S, keep);
+    row_dots<KT>(dp, df, v_s, c0, steps);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+      const float m_new = fmaxf(m[r], quad_max(mx));
+      const float corr = exp2f((m[r] - m_new) * C);  // 0 on the first chunk
+      float sum = 0.f, acc = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float p = exp2f((s[nt][e] - m_new) * C);
+          sum += p;
+          acc += p * dp[nt][e];
+        }
+      l[r] = l[r] * corr + sum;
+      rs[r] = rs[r] * corr + acc;
+      m[r] = m_new;
+    }
+  }
+  float il[2], row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    il[r] = 1.f / quad_sum(l[r]);
+    row[r] = quad_sum(rs[r]) * il[r];
+    stat[r][0] = m[r], stat[r][1] = il[r], stat[r][2] = row[r];
+  }
+
+  for (int c = 0; c < chunks; ++c) {
+    const int c0 = c * CH, steps = min(KT, (S - c0 + 15) / 16);
+    if (TWO_PASS) {
+      row_dots<KT>(s, qf, k_s, c0, steps);
+      mask_scores<KT>(s, c0, S, keep);
+      row_dots<KT>(dp, df, v_s, c0, steps);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((s[nt][e] - m[e >> 1]) * C) * il[e >> 1];  // P, normalised, f32
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - row[e >> 1]) * SM_SCALE;  // dS, f32
+      }
+    if (p_rows != nullptr) {  // P and dS as bf16 [query][key] for the key side
+#pragma unroll
+      for (int nt = 0; nt < 2 * KT; ++nt) {
+        if (nt / 2 < steps) {
+          const int col = c0 + 8 * nt + 2 * t;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            *reinterpret_cast<uint32_t*>(p_rows + (g + 8 * r) * pstride + col) = pack_bf16(s[nt][2 * r], s[nt][2 * r + 1]);
+            *reinterpret_cast<uint32_t*>(ds_rows + (g + 8 * r) * pstride + col) =
+                pack_bf16(dp[nt][2 * r], dp[nt][2 * r + 1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {  // dq~ += dS (bf16) . k~
+      if (kk < steps) {
+        uint32_t a[4];
+        pack_a(a, dp, kk);
+        mma_rows(dq, a, k_s + (size_t)(c0 + 16 * kk) * ROW);
+      }
+    }
+  }
+}
+
+// The key side of one warp in a slab block: key rows k0 .. k0 + 15 of one pair,
+// dv = P^T . dO and dk~ = dS^T . q~ over the pair's query rows, with P and dS
+// (bf16, [query][key]) from shared memory read through ldmatrix.trans.
+__device__ __forceinline__ void key_side_slab(const bf16* p_s, const bf16* ds_s, int pstride, const bf16* q_s,
+                                              const bf16* do_s, int k0, int S, float (&dv)[8][4], float (&dk)[8][4]) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[dn][e] = dk[dn][e] = 0.f;
+  // matrix mi of the x4 load: queries q0 + 8 (mi >> 1) .., keys k0 + 8 (mi & 1) ..
+  const int at = ((lane & 7) + 8 * (mi >> 1)) * pstride + k0 + 8 * (mi & 1);
+  for (int q0 = 0; q0 < S; q0 += 16) {
+    uint32_t ap[4], ad[4];
+    ldsm_x4_trans(ap, p_s + q0 * pstride + at);
+    ldsm_x4_trans(ad, ds_s + q0 * pstride + at);
+    mma_rows(dv, ap, do_s + (size_t)q0 * ROW);
+    mma_rows(dk, ad, q_s + (size_t)q0 * ROW);
+  }
+}
+
+// The key side of one warp in a tile block: key rows k0 .. k0 + 15 of the pair.
+// For each 16 queries: s^T = k~ q~^T and dP^T = v dO^T, P^T from the query rows'
+// (m, 1/l, row) that the query side left in shared memory, dS^T; then
+// dv += P^T . dO and dk~ += dS^T . q~, P^T and dS^T rounded to bf16.
+__device__ __forceinline__ void key_side_tile(const bf16* q_s, const bf16* k_s, const bf16* v_s, const bf16* do_s,
+                                              const float* m_s, const float* il_s, const float* row_s,
+                                              const unsigned long long* keep, int k0, int S, float (&dv)[8][4],
+                                              float (&dk)[8][4]) {
+  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
+  uint32_t kf[4][4], vf[4][4];
+  load_rows(kf, k_s + (size_t)k0 * ROW);
+  load_rows(vf, v_s + (size_t)k0 * ROW);
+#pragma unroll
+  for (int dn = 0; dn < 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[dn][e] = dk[dn][e] = 0.f;
+  bool masked[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + g + 8 * r;
+    masked[r] = !((keep[j >> 6] >> (j & 63)) & 1ull);  // also a padding key: its rows are not written
+  }
+  for (int q0 = 0; q0 < S; q0 += 16) {
+    float st[2][4], dt[2][4];
+    row_dots<1>(st, kf, q_s, q0, 1);
+    row_dots<1>(dt, vf, do_s, q0, 1);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int i = q0 + 8 * nt + 2 * t + e1;
+        const float mi = m_s[i], il = il_s[i], row = row_s[i];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + e1;
+          const float p = i < S ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * C) * il : 0.f;
+          st[nt][e] = p;
+          dt[nt][e] = p * (dt[nt][e] - row) * SM_SCALE;
+        }
+      }
+    uint32_t ap[4], ad[4];
+    pack_a(ap, st, 0);
+    pack_a(ad, dt, 0);
+    mma_rows(dv, ap, do_s + (size_t)q0 * ROW);
+    mma_rows(dk, ad, q_s + (size_t)q0 * ROW);
+  }
+}
+
+// The 8 rows 8 r .. 8 r + 7 of a 16 x 64 f32 accumulator tile into the warp's
+// staging rows, so that a half-warp can then take a whole row: lane l of it
+// owns dims 2 l, 2 l + 1 and their RoPE partners 2 l + 32, 2 l + 33, and each
+// global load and store of a row is one contiguous 64- or 128-byte piece.
+__device__ __forceinline__ void stage_half(const float (&acc)[8][4], float* stage, int r) {
+  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
+  __syncwarp();
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+    *reinterpret_cast<float2*>(stage + g * STAGE_ROW + 8 * nt + 2 * t) = make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+  __syncwarp();
+}
+
+__device__ __forceinline__ float half_sum(float x) {  // over the 16 lanes of a half-warp
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// dv: 16 rows of f32 accumulators, rounded to bf16 at dst (row i at dst + i *
+// stride) for the rows row0 + .. below S, through the staging rows.
+__device__ __forceinline__ void store_rows(const float (&acc)[8][4], float* stage, bf16* __restrict__ dst,
+                                           size_t stride, int row0, int S) {
+  const int lane = threadIdx.x & 31, d0 = 2 * (lane & 15);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    stage_half(acc, stage, r);
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int rl = 2 * it + (lane >> 4), i = row0 + 8 * r + rl;
+      const float2 lo = *reinterpret_cast<const float2*>(stage + rl * STAGE_ROW + d0);
+      const float2 hi = *reinterpret_cast<const float2*>(stage + rl * STAGE_ROW + d0 + D / 2);
+      if (i < S) {
+        *reinterpret_cast<uint32_t*>(dst + (size_t)i * stride + d0) = pack_bf16(lo.x, lo.y);
+        *reinterpret_cast<uint32_t*>(dst + (size_t)i * stride + d0 + D / 2) = pack_bf16(hi.x, hi.y);
+      }
+    }
+  }
+}
+
+// Back through RoPE, the scale and the LN for the 16 rows row0 + .. of one
+// pair, from du = dq~ or dk~ (16 x 64 f32 accumulators): dln = RoPE^T(du),
+// dx = r (dln s - mean(dln s) - xn mean(dln s xn)), rounded to bf16 at dst (row i
+// at dst + i * stride). xn and r come from the raw row re-read at src. The rows'
+// sum of dln xn (the scale's gradient) is added to red (D floats, this warp's).
+// The accumulators pass through the warp's staging rows, 8 rows at a time, and
+// a half-warp takes a row (stage_half): a lane holds dims d and d + 32, so
+// RoPE's transpose needs no shuffle, and every global access of a row is one
+// contiguous piece; the row's sums take four __shfl_xor over its half-warp.
+__device__ __forceinline__ void ln_rope_bwd(const float (&du)[8][4], float* stage, const bf16* __restrict__ src,
+                                            bf16* __restrict__ dst, size_t stride, int row0, int S,
+                                            const float* __restrict__ scale, const float* __restrict__ cos_t,
+                                            const float* __restrict__ sin_t, float* red) {
+  const int lane = threadIdx.x & 31, d0 = 2 * (lane & 15);
+  const float2 sc_lo = __ldg(reinterpret_cast<const float2*>(scale + d0));
+  const float2 sc_hi = __ldg(reinterpret_cast<const float2*>(scale + d0 + D / 2));
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // sum over the lane's rows of dln xn at d0, d0 + 1, d0 + 32, d0 + 33
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    stage_half(du, stage, r);
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int rl = 2 * it + (lane >> 4), i = row0 + 8 * r + rl;
+      const bool live = i < S;
+      const int at = live ? i : 0;
+      const float2 u_lo = *reinterpret_cast<const float2*>(stage + rl * STAGE_ROW + d0);
+      const float2 u_hi = *reinterpret_cast<const float2*>(stage + rl * STAGE_ROW + d0 + D / 2);
+      const bf16* row = src + (size_t)at * stride;
+      const float2 x_lo = live ? __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(row + d0)))
+                               : make_float2(0.f, 0.f);
+      const float2 x_hi = live ? __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(row + d0 + D / 2)))
+                               : make_float2(0.f, 0.f);
+      const float mean = half_sum(x_lo.x + x_lo.y + x_hi.x + x_hi.y) * (1.f / D);
+      const float sq = half_sum(x_lo.x * x_lo.x + x_lo.y * x_lo.y + x_hi.x * x_hi.x + x_hi.y * x_hi.y);
+      const float rstd = rsqrtf(fmaxf(sq * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+      const float* c = cos_t + (size_t)at * D;
+      const float* sn = sin_t + (size_t)at * D;
+      const float2 c_lo = __ldg(reinterpret_cast<const float2*>(c + d0));
+      const float2 c_hi = __ldg(reinterpret_cast<const float2*>(c + d0 + D / 2));
+      const float2 s_lo = __ldg(reinterpret_cast<const float2*>(sn + d0));
+      const float2 s_hi = __ldg(reinterpret_cast<const float2*>(sn + d0 + D / 2));
+      // RoPE transpose: rot^T(v)[d < D/2] = v[d + D/2], else -v[d - D/2]
+      const float dln[4] = {u_lo.x * c_lo.x + u_hi.x * s_hi.x, u_lo.y * c_lo.y + u_hi.y * s_hi.y,
+                            u_hi.x * c_hi.x - u_lo.x * s_lo.x, u_hi.y * c_hi.y - u_lo.y * s_lo.y};
+      const float xn[4] = {(x_lo.x - mean) * rstd, (x_lo.y - mean) * rstd, (x_hi.x - mean) * rstd,
+                           (x_hi.y - mean) * rstd};
+      const float sc[4] = {sc_lo.x, sc_lo.y, sc_hi.x, sc_hi.y};
+      float dxn[4], m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (live) acc[k] += dln[k] * xn[k];
+        dxn[k] = dln[k] * sc[k];
+        m1 += dxn[k];
+        m2 += dxn[k] * xn[k];
+      }
+      m1 = half_sum(m1) * (1.f / D);
+      m2 = half_sum(m2) * (1.f / D);
+      if (live) {
+        bf16* out = dst + (size_t)i * stride;
+        *reinterpret_cast<uint32_t*>(out + d0) =
+            pack_bf16(rstd * (dxn[0] - m1 - xn[0] * m2), rstd * (dxn[1] - m1 - xn[1] * m2));
+        *reinterpret_cast<uint32_t*>(out + d0 + D / 2) =
+            pack_bf16(rstd * (dxn[2] - m1 - xn[2] * m2), rstd * (dxn[3] - m1 - xn[3] * m2));
+      }
+    }
+  }
+  // the warp's sum over its rows, in a fixed order: the two half-warps, then into red
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], 16);
+  if (lane < 16) {
+    red[d0] += acc[0], red[d0 + 1] += acc[1];
+    red[d0 + D / 2] += acc[2], red[d0 + D / 2 + 1] += acc[3];
+  }
+  __syncwarp();
+}
+
+// grid: slab, one block per `unit` consecutive (sequence, head) pairs; tile,
+// one block per pair. Both: the query side of every 16-row query tile, dealt to
+// the warps in turn; a barrier; the key side of every 16-row key tile, dealt
+// the same way. tests/test_torch_attention_bwd_plan.py walks the same items on
+// the CPU.
+template <int KT, bool TILE, int MAX_WARPS_, int MIN_BLOCKS_>
+__global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem4);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int S = a.S, H = a.H, s16 = rows16(S), words = key_words(S), tiles = s16 / 16;
+  const size_t token = 3 * (size_t)H * D, HD = (size_t)H * D;
+  const long long pairs = (long long)a.B * H;
+  const int unit = TILE ? 1 : a.unit;
+  const long long p0 = (long long)blockIdx.x * unit;
+  const size_t pair_elems = TILE ? 4 * (size_t)s16 * ROW : slab_pair_elems(S);
+  const int pstride = ps_row(S);
+  // part 0 q~, 1 k~, 2 v, 3 dO of the block's pair pl; a slab pair's P, then dS, begin at part 4
+  auto rows_of = [&](int pl, int part) {
+    return smem + pl * pair_elems + (size_t)part * s16 * ROW;
+  };
+  float* stats = reinterpret_cast<float*>(smem + unit * pair_elems);  // tile: m | 1/l | row
+  unsigned long long* keep = reinterpret_cast<unsigned long long*>(TILE ? stats + 3 * s16 : stats);
+  float* red = reinterpret_cast<float*>(keep + unit * words);  // [warp][q, k][D]
+  float* stage = red + warps * 2 * D + warp * 8 * STAGE_ROW;      // this warp's staging rows
+
+  // Group 0, the q and k rows; group 1, the v and dO rows. Consecutive threads
+  // copy consecutive 16-byte pieces of one position's rows: the pairs of a
+  // block are consecutive heads of a sequence, adjacent in memory.
+  for (int group = 0; group < 2; ++group) {
+    for (int e = threadIdx.x; e < 2 * s16 * unit * 8; e += blockDim.x) {
+      const int piece = e & 7, pl = (e >> 3) % unit, ri = (e >> 3) / unit;
+      const int i = ri % s16, part = 2 * group + ri / s16;
+      const long long p = p0 + pl;
+      const bool inside = p < pairs && i < S;
+      const bf16* src = a.qkv;
+      if (inside) {
+        const long long b = p / H;
+        const int h = (int)(p % H);
+        src = part < 3 ? a.qkv + ((size_t)b * S + i) * token + part * HD + h * D + 8 * piece
+                       : a.g + ((size_t)b * S + i) * HD + h * D + 8 * piece;
+      }
+      cp_async16(rows_of(pl, part) + (size_t)i * ROW + 8 * piece, src, inside ? 16 : 0);
+    }
+    cp_async_commit();
+  }
+  for (int pl = 0; pl < unit; ++pl)
+    stage_key_bits(keep + pl * words, a.mask, p0 + pl < pairs ? (p0 + pl) / H : 0, S, warp, warps);
+  for (int e = lane; e < 2 * D; e += 32) red[warp * 2 * D + e] = 0.f;
+  cp_async_wait<1>();
+  __syncthreads();
+  {  // LN + RoPE of the q and k rows of each (pair, position), four lanes each, pairs fastest
+    float qsc[16], ksc[16];
+    load_lane_scale(qsc, a.q_scale);
+    load_lane_scale(ksc, a.k_scale);
+    const int tasks = unit * S, per_warp = 32 / LN_LANES;
+    for (int base = per_warp * warp; base < tasks; base += per_warp * warps) {
+      const int tk = min(base + lane / LN_LANES, tasks - 1);
+      const int pl = tk % unit, i = tk / unit;
+      const bool live = base + lane / LN_LANES < tasks && p0 + pl < pairs;
+      norm_rope_pair(rows_of(pl, 0) + (size_t)i * ROW, live, qsc, rows_of(pl, 1) + (size_t)i * ROW, live, ksc,
+                     a.cos_t + (size_t)i * D, a.sin_t + (size_t)i * D);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int items = unit * tiles;
+  for (int it = warp; it < items; it += warps) {  // query side
+    const int pl = it / tiles, mt = it % tiles;
+    const long long p = p0 + pl;
+    if (p >= pairs) continue;  // uniform per warp
+    bf16* p_rows = TILE ? nullptr : rows_of(pl, 4) + (size_t)16 * mt * pstride;
+    float dq[8][4], st[2][3];
+    query_side<KT, TILE>(rows_of(pl, 0) + (size_t)16 * mt * ROW, rows_of(pl, 3) + (size_t)16 * mt * ROW,
+                         rows_of(pl, 1), rows_of(pl, 2), keep + pl * words, S, dq, st, p_rows,
+                         TILE ? nullptr : p_rows + (size_t)s16 * pstride, pstride);
+    if (TILE && (lane & 3) == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 16 * mt + (lane >> 2) + 8 * r;
+        stats[i] = st[r][0], stats[s16 + i] = st[r][1], stats[2 * s16 + i] = st[r][2];
+      }
+    }
+    const size_t base = (size_t)(p / H) * S * token + (size_t)(p % H) * D;
+    ln_rope_bwd(dq, stage, a.qkv + base, a.dqkv + base, token, 16 * mt, S, a.q_scale, a.cos_t, a.sin_t,
+                red + warp * 2 * D);
+  }
+  __syncthreads();
+  for (int it = warp; it < items; it += warps) {  // key side
+    const int pl = it / tiles, kt = it % tiles;
+    const long long p = p0 + pl;
+    if (p >= pairs) continue;
+    float dv[8][4], dk[8][4];
+    if (TILE)
+      key_side_tile(rows_of(0, 0), rows_of(0, 1), rows_of(0, 2), rows_of(0, 3), stats, stats + s16, stats + 2 * s16,
+                    keep, 16 * kt, S, dv, dk);
+    else
+      key_side_slab(rows_of(pl, 4), rows_of(pl, 4) + (size_t)s16 * pstride, pstride, rows_of(pl, 0), rows_of(pl, 3),
+                    16 * kt, S, dv, dk);
+    const size_t base = (size_t)(p / H) * S * token + (size_t)(p % H) * D;
+    store_rows(dv, stage, a.dqkv + base + 2 * HD, token, 16 * kt, S);
+    ln_rope_bwd(dk, stage, a.qkv + base + HD, a.dqkv + base + HD, token, 16 * kt, S, a.k_scale, a.cos_t, a.sin_t,
+                red + warp * 2 * D + D);
+  }
+  __syncthreads();
+  // the block's dscale partials: the warps' sums in warp order
+  for (int e = threadIdx.x; e < 2 * D; e += blockDim.x) {
+    const int part = e / D, d = e % D;
+    float sum = 0.f;
+    for (int w = 0; w < warps; ++w) sum += red[(w * 2 + part) * D + d];
+    (part ? a.dks_part : a.dqs_part)[(size_t)blockIdx.x * D + d] = sum;
+  }
+}
+
+template <int KT, bool TILE>
+cudaError_t launch_bwd(const Args& a, int warps, int smem, unsigned blocks, cudaStream_t stream) {
+  auto kernel = attention_bwd_kernel<KT, TILE, TILE ? TILE_WARPS : SLAB_WARPS, TILE ? 1 : SLAB_MIN_BLOCKS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, 32 * warps, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Checks the plan (ops/flash_attention.py:fused_attention_bwd_plan: the variant,
+// the pairs a slab block and the warps a block) and the partials' row count
+// against the shape, and launches.
+inline cudaError_t launch_attention_bwd_mma(const Args& a, int variant, int warps, int n_blocks,
+                                            cudaStream_t stream) {
+  const long long pairs = (long long)a.B * a.H;
+  long long blocks;
+  if (variant == SLAB) {
+    if (a.S > SLAB_MAX_SEQ || a.unit < 1 || warps < 1 || warps > SLAB_WARPS) return cudaErrorInvalidValue;
+    blocks = (pairs + a.unit - 1) / a.unit;
+  } else if (variant == TILE) {
+    if (a.unit != 1 || warps < 1 || warps > TILE_WARPS) return cudaErrorInvalidValue;
+    blocks = pairs;
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  const size_t smem = bwd_smem_bytes(variant, a.S, a.unit, warps);
+  if (blocks != n_blocks || blocks > 0x7fffffffLL || smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)blocks;
+  if (variant == TILE) return launch_bwd<TILE_KT, true>(a, warps, (int)smem, grid, stream);
+  switch (chunk_steps(a.S)) {  // one chunk holds every key
+    case 1:
+      return launch_bwd<1, false>(a, warps, (int)smem, grid, stream);
+    case 2:
+      return launch_bwd<2, false>(a, warps, (int)smem, grid, stream);
+    default:
+      return launch_bwd<4, false>(a, warps, (int)smem, grid, stream);
+  }
+}
+
+}  // namespace bwd
+}  // namespace fa_mma

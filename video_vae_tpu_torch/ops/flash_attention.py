@@ -30,6 +30,15 @@ JAX takes its packed small-S path, ``S < 128`` and ``S·H % 128 == 0``;
 otherwise unnormalised, with 1/l on the f32 output), the output once; its
 block layout comes from :func:`fused_attention_plan`. f32 qkv takes the
 CUDA-core kernel, f32 throughout with one rounding, as the plain version.
+
+Roundings of the fused backward, by dtype. The plain version is f32
+throughout with one rounding of dqkv. On the card, bf16 takes the
+tensor-core kernel, one launch with no workspace: q̃ and k̃ rounded to bf16
+as the forward rounds them, P normalised (exact row max and sum) and then
+rounded to bf16 for dv = Pᵀ·dO, dS computed in f32 and rounded to bf16 for
+dq̃ = dS·k̃ and dk̃ = dSᵀ·q̃, everything else f32, dqkv rounded once; its block
+layout comes from :func:`fused_attention_bwd_plan`. f32 keeps the four-pass
+CUDA-core kernel through an f32 workspace, f32 throughout with one rounding.
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ FUSED_ATTENTION = CudaKernel(
 FUSED_ATTENTION_BWD = CudaKernel(
     "fused_attention_bwd.cu",
     "vvt_fused_attention_bwd",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 )
 
 FLASH_ATTENTION = CudaKernel(
@@ -75,7 +84,7 @@ ATTENTION_SUBLAYER = CudaKernel(
     [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 
-# rows of the LN/RoPE backward per block: its dscale partials are (blocks, D)
+# rows of the f32 backward's LN/RoPE pass per block: its dscale partials are (blocks, D)
 BWD_ROWS_PER_BLOCK = 64
 
 # The bf16 forward kernel (csrc/fused_attention_mma.cuh): a q, k or v head row
@@ -84,7 +93,7 @@ MMA_ROW_BYTES = 2 * (KERNEL_HEAD_DIM + 8)
 MMA_SLAB_WARPS = 8  # warps of a slab block at most
 MMA_SLAB_MAX_SEQ = 64  # the longest sequence a block stages whole, all heads
 MMA_SLAB_MAX_SMEM = 100 * 1024  # a slab block at most this, so that two fit an SM
-MMA_VARIANTS = ("slab", "tile")  # as csrc/fused_attention_mma.cuh numbers them
+MMA_VARIANTS = ("slab", "tile")  # as csrc/fused_attention_mma_common.cuh numbers them
 
 
 @functools.lru_cache(maxsize=64)
@@ -106,6 +115,35 @@ def fused_attention_plan(batch: int, seq: int, heads: int) -> tuple[str, int]:
         tiles = heads * rows16 // 16  # query tiles of one sequence
         return "slab", max(1, min(MMA_SLAB_WARPS // tiles, MMA_SLAB_MAX_SMEM // seq_smem, batch))
     return "tile", 1
+
+
+# The bf16 backward kernel (csrc/fused_attention_bwd_mma.cuh), in the forward's
+# row layout; its variants are numbered as MMA_VARIANTS.
+BWD_SLAB_MAX_SEQ = 64  # the longest sequence whose P and dS a block keeps
+BWD_SLAB_WARPS = 4  # warps of a slab block at most: four blocks or more an SM
+BWD_TILE_WARPS = 16  # warps of a tile block at most
+
+
+@functools.lru_cache(maxsize=64)
+def fused_attention_bwd_plan(batch: int, seq: int, heads: int) -> tuple[str, int, int]:
+    """(variant, (sequence, head) pairs a block, warps a block) of the bf16
+    fused attention backward kernel.
+
+    ``"slab"`` where the sequence is at most 64 long: a block stages
+    consecutive pairs (the heads of a sequence, side by side in memory) with
+    their P and dS, as many as give it up to 4 warps of 16-row tiles: small
+    blocks, so that several share an SM and one block's copies overlap
+    another's products. Otherwise ``"tile"``: a block stages one pair, all
+    its rows, with a warp for each 16 of them up to ``BWD_TILE_WARPS``.
+    Either way a block's warps take its query tiles in turn, then its key
+    tiles, and the grid is ceil(B·H / pairs a block). The C entry point
+    derives the shared memory from these and the shape.
+    """
+    tiles = -(-seq // 16)
+    if seq <= BWD_SLAB_MAX_SEQ:
+        unit = max(1, min(BWD_SLAB_WARPS // tiles, batch * heads))
+        return "slab", unit, min(BWD_SLAB_WARPS, unit * tiles)
+    return "tile", 1, min(BWD_TILE_WARPS, tiles)
 
 
 def key_mask(mask: Optional[torch.Tensor], batch: int, seq: int) -> Optional[torch.Tensor]:
@@ -355,8 +393,11 @@ def fused_qkv_attention_bwd_cuda(
 ):
     """Launch the backward kernel: (dqkv, f32 dq_scale (D,), f32 dk_scale (D,)).
 
-    The kernel writes per-block f32 partials of the two scale gradients;
-    they are summed here in a fixed order, so every run gives the same bits.
+    bf16 takes the tensor-core kernel with the geometry of
+    :func:`fused_attention_bwd_plan`, f32 the four-pass CUDA-core kernel and
+    its workspace. Either writes per-block f32 partials of the two scale
+    gradients; they are summed here in a fixed order, so every run gives the
+    same bits.
     """
     b, s, d = _check_kernel_args(
         "fused_qkv_attention_bwd_cuda", qkv, q_scale, k_scale, mask, num_heads
@@ -367,19 +408,28 @@ def fused_qkv_attention_bwd_cuda(
         raise ValueError("g must be on qkv's device")
     device = qkv.device
     qs, ks, cos, sin, mask = _kernel_operands(qkv, q_scale, k_scale, mask, s, d, rope_base, rope_alpha)
-    rows = b * num_heads * s
     f32 = dict(dtype=torch.float32, device=device)
-    # q̃, k̃, v, dO, dq̃, dk̃ as f32 (pair, S, D) rows, then m, l, row per query
-    work = torch.empty(6 * rows * d + 3 * rows, **f32)
-    n_blocks = -(-rows // BWD_ROWS_PER_BLOCK)
+    work = None
+    variant, unit, warps = 0, 1, 1  # the f32 kernel takes its geometry from the shape
+    if qkv.dtype == torch.bfloat16:
+        name, unit, warps = fused_attention_bwd_plan(b, s, num_heads)
+        variant = MMA_VARIANTS.index(name)
+        n_blocks = -(-b * num_heads // unit)
+        # the kernel copies 16 bytes at a time
+        qkv, g = (t.clone() if t.data_ptr() % 16 else t for t in (qkv, g))
+    else:
+        rows = b * num_heads * s
+        # q̃, k̃, v, dO, dq̃, dk̃ as f32 (pair, S, D) rows, then m, l, row per query
+        work = torch.empty(6 * rows * d + 3 * rows, **f32)
+        n_blocks = -(-rows // BWD_ROWS_PER_BLOCK)
     partials = torch.empty((2, n_blocks, d), **f32)
     dqkv = torch.empty_like(qkv)
     with torch.cuda.device(device):
         FUSED_ATTENTION_BWD.launch(
             qkv.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             None if mask is None else mask.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-            partials[0].data_ptr(), partials[1].data_ptr(), work.data_ptr(),
-            b, s, num_heads, d, n_blocks, DTYPE_CODES[qkv.dtype],
+            partials[0].data_ptr(), partials[1].data_ptr(), None if work is None else work.data_ptr(),
+            b, s, num_heads, d, n_blocks, DTYPE_CODES[qkv.dtype], variant, unit, warps,
             torch.cuda.current_stream(device).cuda_stream,
         )
     dqs, dks = partials.sum(dim=1)
