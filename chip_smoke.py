@@ -17,12 +17,13 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    one library call (or chain of calls) for the same function; every
    "kernel-check" line but the fused attention forward's adds the kernel's and
    the library call's device time per call from ``torch.profiler``
-   (``device_ms``, ``library_device_ms``), the convs' and the fused attention
-   backward's the kernel's TFLOP/s too; the fused attention forward has an
+   (``device_ms``, ``library_device_ms``), the convs' and both attention
+   backwards' the kernel's TFLOP/s too; the fused attention forward has an
    "attention-fwd" line per shape with its and SDPA's device time and its
-   TFLOP/s and GB/s. The fused attention forward and backward, the direct conv
-   and the filter gradient give the same bits on two launches, and the fused
-   attention forward and backward are held at a sequence whose keys are all
+   TFLOP/s and GB/s. The fused attention forward and backward, the plain
+   attention backward, the direct conv and the filter gradient give the same
+   bits on two launches, and the fused attention forward and backward and
+   the plain attention backward are held at a sequence whose keys are all
    masked;
 2. runs the serving pass (encode → keep/drop → fill-blend → decode) at the
    flagship width and reduced depth in float32 on the card and on the CPU,
@@ -505,23 +506,43 @@ def phase_flash_kernels(cfg, dev, rows):
         )
 
         got = fa.flash_attention_bwd_cuda(q, k, v, mask, g)
+        again = fa.flash_attention_bwd_cuda(q, k, v, mask, g)
         torch.cuda.synchronize()
         ref = fa.flash_attention_bwd_plain(q, k, v, mask, g)
         err = max(check_close(f"flash bwd {name} {dtype} {part}", a, b, dtype)
                   for part, a, b in zip(("dq", "dk", "dv"), got, ref))
-        del ref
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):  # no atomics: the same bits on every run
+            raise AssertionError(f"flash bwd {name} {dtype}: two launches gave different bits")
+        del ref, again
+        if padded:
+            # one sequence with every key masked: its rows spread P over all S keys
+            empty = mask.clone()
+            empty[0] = False
+            held = fa.flash_attention_bwd_cuda(q, k, v, empty, g)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_bwd_plain(q, k, v, empty, g)
+            masked_err = max(
+                *(check_close(f"flash bwd {name} {dtype} all keys masked {part}", a, b, dtype)
+                  for part, a, b in zip(("dq", "dk", "dv"), held, ref)),
+                *(check_close(f"flash bwd {name} {dtype} the masked sequence {part}", a[0], b[0], dtype)
+                  for part, a, b in zip(("dq", "dk", "dv"), held, ref)),
+            )
+            log("flash-bwd-masked-row", json.dumps({"case": f"{name} {dtype}", "max_abs_err": masked_err}))
+            del empty, held, ref
         leaves = [t.detach().requires_grad_() for t in (lq, lk, lv)]
         o = F.scaled_dot_product_attention(*leaves, attn_mask=amask)
+        # recompute of the scores, dv, dP, dq, dk over the kept keys
+        bwd_flops = 10.0 * H * S * keys * D
         _record(
             rows, fa.FLASH_ATTENTION_BWD, f"{name} {dtype}", [B, S, H, D], dtype, err,
             time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, mask, g), 10),
             time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, mask, g), 3),
             time_ms(lambda: torch.autograd.grad(o, leaves, lg, retain_graph=True), 10),
             "scaled_dot_product_attention backward",
-            bound_ms(nbytes(q, k, v, g, mask) + nbytes(*got), 10.0 * H * S * keys * D, dtype),
+            bound_ms(nbytes(q, k, v, g, mask) + nbytes(*got), bwd_flops, dtype),
             per_path(per, **{"train-pallas": "train"}),
             **device_times(lambda: fa.flash_attention_bwd_cuda(q, k, v, mask, g),
-                           lambda: torch.autograd.grad(o, leaves, lg, retain_graph=True)),
+                           lambda: torch.autograd.grad(o, leaves, lg, retain_graph=True), bwd_flops),
         )
         del qkv, g, out, got, q, k, v, lq, lk, lv, lg, leaves, o
     torch.cuda.empty_cache()

@@ -569,9 +569,9 @@ def test_attention_backward_launches_bwd_kernel(device):
     assert all(torch.isfinite(x).all() for x in grads)
 
 
-def _flash_inputs(device, dtype, B, S, masked, strided):
-    H, D = 8, 64
-    gen = torch.Generator(device="cpu").manual_seed(S + 2)
+def _flash_inputs(device, dtype, B, S, masked, strided, H=8, seed=None):
+    D = 64
+    gen = torch.Generator(device="cpu").manual_seed(S + 2 if seed is None else seed)
     if strided:  # q, k, v as views into one fused (B, S, 3*H*D) projection
         qkv = torch.randn(B, S, 3 * H * D, generator=gen).to(device, dtype)
         q, k, v = (t.reshape(B, S, H, D) for t in qkv.chunk(3, dim=-1))
@@ -587,13 +587,26 @@ def _flash_inputs(device, dtype, B, S, masked, strided):
     return q, k, v, g, mask
 
 
-FLASH_CASES = [(40, 16, True, False), (3, 256, False, True), (5, 37, True, True), (2, 200, True, False)]
+# (B, S, H, masked, strided); masked: sequence 0 keeps no key, the others a prefix
+FLASH_CASES = [
+    (40, 16, 8, True, False),
+    (3, 256, 8, False, True),
+    (5, 37, 8, True, True),
+    (2, 200, 8, True, False),
+    (7, 1, 8, False, True),  # one key: P = 1, dS = 0, dq and dk exactly 0
+    (5, 16, 2, True, True),  # slab blocks of pairs from several sequences
+    (6, 17, 8, True, True),  # one row past a 16-row tile
+    (3, 64, 8, True, True),  # the longest slab: four query tiles share a pair's P and dS
+    (3, 65, 8, True, True),  # the shortest tile block: one key past a 64-key word
+    (3, 80, 8, True, False),
+    (2, 256, 8, True, True),
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,masked,strided", FLASH_CASES)
-def test_flash_attention_kernel_matches_plain(device, dtype, B, S, masked, strided):
-    q, k, v, _, mask = _flash_inputs(device, dtype, B, S, masked, strided)
+@pytest.mark.parametrize("B,S,H,masked,strided", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(device, dtype, B, S, H, masked, strided):
+    q, k, v, _, mask = _flash_inputs(device, dtype, B, S, masked, strided, H)
     before = FLASH_ATTENTION.launches
     out = flash_attention_cuda(q, k, v, mask)
     torch.cuda.synchronize()
@@ -604,9 +617,9 @@ def test_flash_attention_kernel_matches_plain(device, dtype, B, S, masked, strid
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,masked,strided", FLASH_CASES)
-def test_flash_attention_bwd_kernel_matches_plain(device, dtype, B, S, masked, strided):
-    q, k, v, g, mask = _flash_inputs(device, dtype, B, S, masked, strided)
+@pytest.mark.parametrize("B,S,H,masked,strided", FLASH_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(device, dtype, B, S, H, masked, strided):
+    q, k, v, g, mask = _flash_inputs(device, dtype, B, S, masked, strided, H)
     before = FLASH_ATTENTION_BWD.launches
     out = flash_attention_bwd_cuda(q, k, v, mask, g)
     again = flash_attention_bwd_cuda(q, k, v, mask, g)
@@ -614,8 +627,96 @@ def test_flash_attention_bwd_kernel_matches_plain(device, dtype, B, S, masked, s
     assert FLASH_ATTENTION_BWD.launches == before + 2
     ref = flash_attention_bwd_plain(q, k, v, mask, g)
     for a, b, c in zip(out, ref, again):
-        assert a.dtype == dtype and _rel_err(a, b) <= TOL[dtype]
+        assert a.dtype == dtype and a.is_contiguous() and _within(a, b, TOL[dtype])
         assert torch.equal(a, c)  # no atomics: the same bits on every run
+        if masked:  # sequence 0 keeps no key: P spreads over all S keys
+            assert _within(a[0], b[0], TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_one_launch_no_workspace(device, dtype):
+    """A bf16 call launches the kernel once and allocates nothing but dq, dk and
+    dv; an f32 call launches once and adds its workspace of m, l and row."""
+    B, S, H = 40, 16, 8
+    q, k, v, g, _ = _flash_inputs(device, dtype, B, S, False, False, H)
+    flash_attention_bwd_cuda(q, k, v, None, g)  # build and load first
+    torch.cuda.synchronize()
+    before, allocated = FLASH_ATTENTION_BWD.launches, torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = flash_attention_bwd_cuda(q, k, v, None, g)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION_BWD.launches == before + 1
+    outputs = sum(t.numel() * t.element_size() for t in out)
+    workspace = 0 if dtype == torch.bfloat16 else 3 * B * H * S * 4
+    assert torch.cuda.max_memory_allocated(device) - allocated == outputs + workspace
+
+
+def _flash_rounding_chain(q, k, v, mask, g, round_p=True, round_ds=True):
+    """The bf16 plain attention backward's rounding rule, in f32 torch on the
+    same inputs: (dq, dk, dv), each rounded to bf16 once.
+
+    f32 scores and exact softmax P; P rounded to bf16 for dv = P^T dO; dP =
+    dO v^T, row = sum_j P dP and dS = P (dP - row) / sqrt(D) in f32 from f32 P,
+    dS rounded to bf16 for dq = dS k and dk = dS^T q. The keyword arguments
+    leave a rounding out.
+    """
+    qf, kf, vf, do = (t.float().transpose(1, 2) for t in (q, k, v, g))  # (B, H, S, D)
+
+    def rnd(x, on):
+        return x.bfloat16().float() if on else x
+
+    scores = (qf @ kf.transpose(-1, -2)) * 0.125
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    dv = rnd(p, round_p).transpose(-1, -2) @ do
+    dp = do @ vf.transpose(-1, -2)
+    ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * 0.125, round_ds)
+    return tuple(t.transpose(1, 2).bfloat16() for t in (ds @ kf, ds.transpose(-1, -2) @ qf, dv))
+
+
+# The bf16 plain attention backward against its rounding chain: in each of dq,
+# dk and dv at most this share of the elements may have other bits (f32 sums
+# taken in another order flip a last bit now and then).
+FLASH_BWD_ROUNDING_SHARE_TOL = 5e-3
+
+
+@pytest.mark.parametrize(
+    "B,S,H",
+    [
+        (64, 16, 8),  # the temporal shape: a slab block of 4 pairs
+        (32, 16, 2),  # slab blocks of pairs from several sequences
+        (6, 80, 8),  # a tile block, a ragged last tile of queries and keys
+        (2, 256, 8),  # the spatial shape
+    ],
+)
+def test_flash_attention_bwd_bf16_kernel_rounds_as_chain(device, B, S, H):
+    """The bf16 backward rounds P and dS where its rule says and nowhere else:
+    its dq, dk and dv match the chain's bits but for a few flips, while each
+    chain with one of those roundings left out misses far more of them. v is
+    a view into a fused projection and sequence 0 keeps no key."""
+    q, k, v, g, mask = _flash_inputs(device, torch.bfloat16, B, S, True, True, H, seed=S * H)
+    before = FLASH_ATTENTION_BWD.launches
+    got = flash_attention_bwd_cuda(q, k, v, mask, g)
+    torch.cuda.synchronize()
+    assert FLASH_ATTENTION_BWD.launches == before + 1
+    parts = ("dq", "dk", "dv")
+
+    def shares(ref):
+        return dict(zip(parts, (_bits_differ(a, b) for a, b in zip(got, ref))))
+
+    share = shares(_flash_rounding_chain(q, k, v, mask, g))
+    # each rounding left out, and the gradients it reaches
+    others = {
+        name: (shares(_flash_rounding_chain(q, k, v, mask, g, **kw)), reach)
+        for name, kw, reach in (("P in f32", dict(round_p=False), ("dv",)),
+                                ("dS in f32", dict(round_ds=False), ("dq", "dk")))
+    }
+    print(f"flash bwd rounding B={B} S={S} H={H}: bits differ {share}; "
+          + "; ".join(f"{k} {v[0]}" for k, v in others.items()))
+    assert max(share.values()) <= FLASH_BWD_ROUNDING_SHARE_TOL
+    for name, (other, reach) in others.items():
+        assert min(other[part] for part in reach) > 2 * FLASH_BWD_ROUNDING_SHARE_TOL, name
 
 
 def _sublayer_args(device, dtype, B, S, C, H, masked):

@@ -1,0 +1,151 @@
+"""Launch geometry of the bf16 plain attention backward kernel
+(``ops/flash_attention.py:flash_attention_bwd_plan``).
+
+At every attention call of the flagship and of the tap-dot model (the shapes
+``chip_smoke.py`` holds the kernel at) and at ragged shapes, the cases of
+``test_torch_attention_bwd_plan.py``: every (sequence, head, row) is computed
+by exactly one warp of one block, which staged the pair, on the query side and
+on the key side; no chunk walks past the staged rows; shared memory, warps and
+grid stay within what the kernel and the H100 accept. Slab blocks (S ≤ 64)
+deal their tiles as the fused backward's do (:class:`Geometry` of that test);
+a tile block (S > 64) gives each warp 16 query rows for the statistics and 16
+key rows for the rounds, and deals each round's 16 × 16 tiles of dq in turn.
+:class:`FlashGeometry` derives the launch from the plan as
+``launch_flash_bwd_mma`` in ``csrc/flash_attention_bwd_mma.cuh`` does, and
+walks the items as ``flash_bwd_slab_kernel`` and ``flash_bwd_tile_kernel`` do.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+from test_torch_attention_bwd_plan import MAX_GRID_X, MAX_SMEM, MODEL_CASES, RAGGED_CASES, Geometry
+
+from video_vae_tpu_torch.ops.flash_attention import (
+    BWD_SLAB_MAX_SEQ,
+    BWD_SLAB_WARPS,
+    BWD_TILE_WARPS,
+    FLASH_BWD_ROUND,
+    MMA_ROW_BYTES,
+    flash_attention_bwd_plan,
+)
+
+# the kernels' __launch_bounds__ per variant
+LAUNCH_BOUND_WARPS = {"slab": 4, "tile": 16}
+D = 64
+STAGE_ROW_BYTES = (D + 8) * 4  # a warp's f32 staging row of the epilogue
+KEY_GROUP = 64  # keys a cp.async group of a tile block brings
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashGeometry(Geometry):
+    """One launch of the kernel: the plan and what the C entry point derives from it."""
+
+    @property
+    def plan(self) -> tuple[str, int, int]:
+        return flash_attention_bwd_plan(self.batch, self.seq, self.heads)
+
+    @property
+    def smem(self) -> int:
+        """``smem_bytes``: the rows, P and dS (slab) or a round's dS^T and the row
+        statistics (tile), key bits, and each warp's 8 f32 staging rows."""
+        variant, unit, warps = self.plan
+        words = 8 * -(-self.seq // 64)
+        stage = warps * 8 * STAGE_ROW_BYTES
+        if variant == "slab":
+            pair = 4 * self.rows16 * MMA_ROW_BYTES + 2 * self.rows16 * (self.rows16 + 8) * 2
+            return unit * (pair + words) + stage
+        ds_t = self.rows16 * (FLASH_BWD_ROUND + 8) * 2
+        return 4 * self.rows16 * MMA_ROW_BYTES + ds_t + 3 * self.rows16 * 4 + words + stage
+
+    def rounds(self) -> list[tuple[int, int]]:
+        """(first query, end) of each round of a tile block."""
+        return [(q0, min(q0 + FLASH_BWD_ROUND, self.rows16)) for q0 in range(0, self.rows16, FLASH_BWD_ROUND)]
+
+    def dq_tiles_dealt(self):
+        """(warp, first query, first dim) of every 16 x 16 dq tile of every round."""
+        warps = self.plan[2]
+        for q0, q1 in self.rounds():
+            for it in range((q1 - q0) // 16 * 4):
+                yield it % warps, q0 + 16 * (it >> 2), 16 * (it & 3)
+
+    def stats_chunks(self) -> list[tuple[int, int]]:
+        """(first key, 16-key steps) of every chunk of a tile block's statistics."""
+        ch = 32  # TILE_KT 16-key steps
+        return [(c0, min(2, -(-(self.seq - c0) // 16))) for c0 in range(0, self.seq, ch)]
+
+
+def _check_plan(B, S, H):
+    geo = FlashGeometry(B, S, H)
+    variant, unit, warps = geo.plan
+    assert variant in ("slab", "tile") and unit >= 1
+    assert variant == "tile" or S <= BWD_SLAB_MAX_SEQ
+    assert 1 <= warps <= min(LAUNCH_BOUND_WARPS[variant],
+                             BWD_SLAB_WARPS if variant == "slab" else BWD_TILE_WARPS)
+    assert geo.smem <= MAX_SMEM
+    assert 1 <= geo.grid <= MAX_GRID_X
+
+    if variant == "slab":
+        # query side, then key side: the same 16-row tiles dealt to the warps in turn
+        owners = np.zeros((B * H, S), dtype=np.int32)
+        for block, warp, pair, row0 in geo.tiles_dealt():
+            assert 0 <= block < geo.grid and 0 <= warp < warps
+            assert pair in geo.block_pairs(block)  # the block staged the pair's rows
+            owners[pair, row0 : row0 + 16] += 1
+        assert (owners == 1).all()
+        # one chunk of every key up to rows16, so that P and dS of every key reach shared memory
+        (c0, steps), = geo.query_chunks()
+        assert c0 == 0 and 16 * steps == geo.rows16 and geo.kt <= 4
+        assert geo.key_steps() == list(range(0, S, 16))
+        return
+
+    # tile: a block a pair, a warp each 16 rows: its query rows' statistics, its key rows' rounds
+    assert unit == 1 and geo.grid == B * H and warps == geo.tiles
+    rows = np.zeros(geo.rows16, dtype=np.int32)
+    for warp in range(warps):
+        rows[16 * warp : 16 * warp + 16] += 1
+    assert (rows == 1).all()  # as query rows in the statistics and as key rows in the rounds
+    # the statistics walk every key j < S once, within the staged rows and one word of key bits,
+    # each chunk inside one cp.async group of 64 keys (the kernel waits for a group at its first chunk)
+    seen = np.zeros(S, dtype=np.int32)
+    for c0, steps in geo.stats_chunks():
+        assert 1 <= steps <= 2 and c0 % 32 == 0
+        assert c0 + 16 * steps <= geo.rows16
+        assert c0 % 64 + 32 <= 64 and c0 // KEY_GROUP == (c0 + 16 * steps - 1) // KEY_GROUP
+        seen[c0 : c0 + 16 * steps] += 1
+    assert (seen == 1).all()
+    # the rounds: every query row once, a multiple of 16 and at most ROUND wide (the dS^T columns)
+    seen = np.zeros(geo.rows16, dtype=np.int32)
+    for q0, q1 in geo.rounds():
+        assert q0 % 16 == 0 and (q1 - q0) % 16 == 0 and 0 < q1 - q0 <= FLASH_BWD_ROUND
+        seen[q0:q1] += 1
+    assert (seen == 1).all()
+    # dq: every (query row, dim) of the pair once, by a warp of the block
+    dq = np.zeros((geo.rows16, D), dtype=np.int32)
+    for warp, q0, d0 in geo.dq_tiles_dealt():
+        assert 0 <= warp < warps
+        dq[q0 : q0 + 16, d0 : d0 + 16] += 1
+    assert (dq == 1).all()
+
+
+@pytest.mark.parametrize("model,name,B,S,H", MODEL_CASES, ids=[f"{c[0]}-{c[1]}" for c in MODEL_CASES])
+def test_flash_bwd_plan_at_model_shapes(model, name, B, S, H):
+    _check_plan(B, S, H)
+
+
+@pytest.mark.parametrize("B,S,H", RAGGED_CASES)
+def test_flash_bwd_plan_at_ragged_shapes(B, S, H):
+    _check_plan(B, S, H)
+
+
+def test_flash_bwd_plan_at_the_models_shapes_is_as_designed():
+    """Temporal S = 16, 8 heads: a slab block of half a sequence's pairs, a
+    warp a pair, four blocks an SM; spatial S = 256: one block a pair, 16
+    warps, four rounds of 64 queries, within the 227 KB a block may have."""
+    temporal = FlashGeometry(512, 16, 8)
+    assert (temporal.plan, temporal.grid, temporal.kt) == (("slab", 4, 4), 1024, 1)
+    assert 4 * temporal.smem <= MAX_SMEM
+    spatial = FlashGeometry(32, 256, 8)
+    assert (spatial.plan, spatial.grid) == (("tile", 1, 16), 256)
+    assert len(spatial.rounds()) == 4 and len(spatial.stats_chunks()) == 8
+    assert spatial.smem == 224288

@@ -2,32 +2,77 @@
 //
 // Replaces: video_vae_tpu/ops/flash_attention.py, _flash_bwd -> _bwd_kernel.
 // Per (sequence, head), from q, k, v and the output gradient dO: recompute
-// p = softmax(q k^T / sqrt(D), masked keys at -1e30) in f32 (not rounded, as
-// the TPU kernel's backward), then dv = p^T dO, dp = dO v^T,
-// row = sum_j p_ij dp_ij, ds = p o (dp - row) / sqrt(D), dq = ds k, dk = ds^T q,
-// all in f32, each written once in its input's dtype. D = 64, S <= 256.
+// p = softmax(q k^T / sqrt(D), masked keys at -1e30) with the exact row max and
+// sum, then dv = p^T dO, dp = dO v^T, row = sum_j p_ij dp_ij,
+// ds = p o (dp - row) / sqrt(D), dq = ds k, dk = ds^T q, each written once in
+// its input's dtype. D = 64, 1 <= S <= 256. A row whose keys are all masked
+// spreads p evenly over all S keys; a key past S (a tile's padding) adds
+// exactly 0.
 //
-// What bounds it on the H100: 10 * S^2 * D FLOPs per (sequence, head) (two
-// score recomputes, dv, dp, dq, dk) over 4 * S * D inputs and 3 * S * D
-// outputs: bytes-bound on paper at the model's shapes (about 20 us at
-// 3.35 TB/s); in f32 on the CUDA cores the FLOPs at S = 256 are the real limit.
+// What bounds it on the H100: each call reads q, k, v and dO and writes dq, dk
+// and dv once, 59 MB at the model's b2 calls (temporal S = 16 over 512
+// sequences, spatial S = 256 over 32), 17.5 us at 3.35 TB/s. The products are
+// 10 S^2 D FLOPs per (sequence, head) on paper (five products): 0.67 GFLOP a
+// temporal b2 call, 10.7 GFLOP a spatial one, 10.9 us at the 989 TFLOP/s bf16
+// peak. So both calls are bytes on paper; at the rate mma.sync reaches, the
+// spatial call's products set its pace.
 //
-// What the design does about it: the query-side and key-side passes of
-// fused_attention_bwd.cu, reading the tensors directly. dq sums over keys and
-// dk, dv over queries, so two launches and no atomics (the same bits every
-// run):
+// bf16: a tensor-core kernel (flash_attention_bwd_mma.cuh), one launch, no
+// workspace, no atomics. It is the fused attention backward's design
+// (fused_attention_bwd.cu) without the LN, RoPE and scale gradients around it,
+// on the same device code (fa_mma::bwd in fused_attention_mma_common.cuh), and
+// at S > 64 with the third walk over the scores replaced by an exchange of dS:
+// - Products: mma.sync m16n8k16, bf16 operands and f32 accumulators, ldmatrix
+//   (and .trans) from 144-byte shared-memory rows; 16-row tiles suit S = 16,
+//   where wgmma's 64-row tile would waste 3/4 of its work.
+// - Staging: cp.async copies the block's q, dO, k and v rows straight into
+//   bf16 rows, each input addressed as base + (b * S + i) * row_stride + h * D
+//   + d (the model's "pallas" path passes v as a view into the fused QKV
+//   projection), 16 bytes at a time.
+// - Geometry (ops/flash_attention.py:flash_attention_bwd_plan: the variant, the
+//   pairs a slab block, the warps; shared memory derived here). Every sum has
+//   one owner and one order:
+//   * S <= 64, "slab": a block stages up to 4 (sequence, head) pairs and deals
+//     their 16-row query tiles to its warps, then, after a barrier, the key
+//     tiles. The query side holds a tile's scores and dP for all keys in
+//     registers (the exact max), writes P and dS as bf16 to shared memory and
+//     takes dq = dS k; the key side reads them back transposed for
+//     dv = P^T dO and dk = dS^T q. 5 products of S^2 D a pair, the fewest.
+//   * S > 64, "tile": a block owns one pair, all its rows (147 KB at S = 256),
+//     and a warp each 16 rows. (1) Each warp walks the keys once for its query
+//     rows' m, 1/l and row (scores and dP, online), starting on the first 64
+//     keys while the copies of the others are in flight. (2) In rounds of 64
+//     queries, each warp recomputes k q^T and v dO^T for its 16 key rows from
+//     the staged statistics, adds to dv and dk, and leaves the round's dS^T
+//     (bf16) in shared memory; after a barrier the warps take the round's
+//     16 x 16 tiles of dq = dS k. 7 products of S^2 D a pair and 2 exp a
+//     score, where the fused backward's tile takes 9 and 3.
+// - Epilogue: a warp's 16 x 64 accumulators of dv, dk (and the slab's dq)
+//   pass through its own 8 staging rows in shared memory, so that a half-warp
+//   takes a whole row and every global store of a row is one contiguous
+//   128-byte piece; the tile's dq tiles are stored as they stand, 32 bytes a row.
+// Roundings (between the TPU kernel, whose products are f32, and the JAX
+// package's non-TPU backward, the autodiff of jax.nn.dot_product_attention,
+// which rounds the probabilities to v's dtype; SDPA's backward rounds the same
+// places): P normalised (exp(s - m) / l with the exact row max and sum, f32)
+// and then rounded to bf16 for dv; dS computed in f32 from f32 P and rounded to
+// bf16 for dq and dk; q, k, v and dO are bf16 already. Scores, softmax, dP, row
+// and the accumulators are f32; each output is rounded once.
+//
+// f32 keeps the first version, two launches on the CUDA cores through an f32
+// workspace of 3 * B * H * S floats, f32 throughout (it backs the f32
+// card-vs-CPU phases of the "pallas" path):
 //   1. query side: two threads per query row (each owns half of D as
 //      interleaved float4 chunks); k and v of the block's sequences sit in
 //      shared memory as f32; one online walk gives the row max m, the sum l and
-//      the row term, a second gives dq; m, l and row go to an f32 workspace of
-//      3 * B * H * S floats;
+//      the row term, a second gives dq; m, l and row go to the workspace;
 //   2. key side: two threads per key row hold k_j and v_j and stream q, dO,
 //      m, l, row of the block's sequences from shared memory, accumulating dk
 //      and dv.
 // For S <= 128 a block owns several whole sequences; above, one sequence with
 // a chunk of 128 of its rows and the other side staged whole (139 KB).
-// Each input is addressed as base + (b * S + i) * row_stride + h * D + d.
 
+#include "flash_attention_bwd_mma.cuh"
 #include "flash_common.cuh"
 
 namespace {
@@ -283,20 +328,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the three outputs).
 // mask: (B, S) uint8 key mask, or null. *_stride: elements between rows (b, i)
 // and (b, i + 1) of that input; dq, dk, dv are contiguous (B, S, H, D).
-// work: f32 scratch of 3 * B * H * S floats.
+// work: f32 scratch of 3 * B * H * S floats for float32, null for bfloat16.
+// variant (0 slab, 1 tile), unit (pairs a slab block), warps and n_blocks: the
+// bf16 kernel's plan (ops/flash_attention.py:flash_attention_bwd_plan), checked
+// against the shape; float32 ignores them.
 extern "C" int vvt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* d_o, const void* mask, void* dq, void* dk,
                                        void* dv, void* work, long long q_stride,
                                        long long k_stride, long long v_stride,
                                        long long do_stride, int B, int S, int H, int head_dim,
-                                       int dtype, void* stream) {
+                                       int dtype, int variant, int unit, int warps, int n_blocks,
+                                       void* stream) {
   if (head_dim != D || S < 1 || S > MAX_S || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
-  const Strides st{q_stride, k_stride, v_stride, do_stride};
-  if (dtype == 0)
+  if (dtype == 0) {
+    if (work == nullptr) return (int)cudaErrorInvalidValue;
+    const Strides st{q_stride, k_stride, v_stride, do_stride};
     return (int)launch<float>(q, k, v, d_o, mask, dq, dk, dv, work, st, B, S, H, stream_);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, d_o, mask, dq, dk, dv, work, st, B, S, H, stream_);
+  }
+  if (dtype == 1) {
+    using fa_mma::bf16;
+    const fa_mma::flash_bwd::Args a{
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(d_o), static_cast<const unsigned char*>(mask), static_cast<bf16*>(dq),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), q_stride, k_stride, v_stride, do_stride,
+        B, S, H, unit};
+    return (int)fa_mma::flash_bwd::launch_flash_bwd_mma(a, variant, warps, n_blocks, stream_);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,7 +3,9 @@
 // in fused_attention_bwd.cu. launch_attention_bwd_mma() enqueues the kernel on a
 // stream and returns the launch's cudaError_t. The helpers it shares with the
 // forward (cp.async, ldmatrix, mma, the LN + RoPE of a row pair, the key bits)
-// are in fused_attention_mma_common.cuh.
+// and with the plain attention backward (the products of a row tile, the
+// query side, the slab's key side, the epilogue of dv; namespace bwd) are in
+// fused_attention_mma_common.cuh.
 //
 // Shared-memory layout. Rows of 64 bf16 sit in 72-element rows (144 bytes) as
 // in the forward, staged in 16-row units, a row past the sequence zero-filled.
@@ -23,22 +25,6 @@
 
 namespace fa_mma {
 namespace bwd {
-
-constexpr int SLAB_MAX_SEQ = 64;     // the longest sequence whose P and dS a block keeps
-constexpr int SLAB_WARPS = 4;        // warps of a slab block at most
-constexpr int TILE_WARPS = 16;       // warps of a tile block at most (S = 256)
-constexpr int TILE_KT = 2;           // 16-key steps of a query-side chunk in a tile block
-constexpr int SLAB_MIN_BLOCKS = 4;   // slab blocks an SM at least: 128 registers a thread
-constexpr int STAGE_ROW = D + 8;     // f32 staging row of the epilogue (no bank conflicts)
-constexpr float SM_SCALE = 0.125f;   // 1/sqrt(D)
-constexpr float C = SM_SCALE * LOG2E;  // 1/sqrt(D) in the exp2 domain
-
-__host__ __device__ __forceinline__ int ps_row(int S) { return rows16(S) + 8; }
-
-// bf16 elements of one pair's rows in a slab block: q~, k~, v, dO, then P and dS
-__host__ __device__ __forceinline__ size_t slab_pair_elems(int S) {
-  return 4 * (size_t)rows16(S) * ROW + 2 * (size_t)rows16(S) * ps_row(S);
-}
 
 // Shared memory of one block (unit: pairs of a slab block).
 __host__ __forceinline__ size_t bwd_smem_bytes(int variant, int S, int unit, int warps) {
@@ -62,191 +48,6 @@ struct Args {
   float* dks_part;
   int B, S, H, unit;
 };
-
-// acc[nt] = A . B^T, A the 16 x 64 fragments af, B the rows c0 + 8 nt .. + 7 of
-// b_s (64 wide): the 16-row-by-8 tiles of a product over D, for nt / 2 < steps.
-template <int KT>
-__device__ __forceinline__ void row_dots(float (&acc)[2 * KT][4], const uint32_t (&af)[4][4], const bf16* b_s,
-                                         int c0, int steps) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int nt = 0; nt < 2 * KT; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    if (nt / 2 < steps) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {  // d in [32 hf, 32 hf + 32): two 16-deep k-steps
-        uint32_t b[4];
-        ldsm_x4(b, b_s + (c0 + 8 * nt + (lane & 7)) * ROW + 32 * hf + 8 * (lane >> 3));
-        mma(acc[nt], af[2 * hf], b[0], b[1]);
-        mma(acc[nt], af[2 * hf + 1], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// The 16 x 64 A fragments of 16 rows of a 64-wide bf16 array in shared memory.
-__device__ __forceinline__ void load_rows(uint32_t (&f)[4][4], const bf16* rows) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) ldsm_x4(f[ks], rows + (lane & 15) * ROW + 16 * ks + 8 * (lane >> 4));
-}
-
-// acc (16 x 64) += a (16 x 16) . the 16 rows of b_rows (64 wide), read through ldmatrix.trans.
-__device__ __forceinline__ void mma_rows(float (&acc)[8][4], const uint32_t (&a)[4], const bf16* b_rows) {
-  const int lane = threadIdx.x & 31;
-  const bf16* row = b_rows + (lane & 15) * ROW + 8 * (lane >> 4);
-#pragma unroll
-  for (int dp = 0; dp < 4; ++dp) {
-    uint32_t b[4];
-    ldsm_x4_trans(b, row + 16 * dp);
-    mma(acc[2 * dp], a, b[0], b[1]);
-    mma(acc[2 * dp + 1], a, b[2], b[3]);
-  }
-}
-
-// Score tiles 2kk and 2kk + 1 rounded to bf16: the A fragment of 16-key step kk.
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&s)[N][4], int kk) {
-  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-}
-
-// Mask one chunk of scores (keys c0 .. c0 + 16 KT, within one word of key bits):
-// a masked key NEG_INF, a padding key (j >= S) -inf, so that it adds exactly 0.
-template <int KT>
-__device__ __forceinline__ void mask_scores(float (&s)[2 * KT][4], int c0, int S, const unsigned long long* keep) {
-  const int lane = threadIdx.x & 31;
-  const unsigned long long bits = keep[c0 >> 6] >> (c0 & 63);
-  constexpr unsigned long long CHUNK_BITS = KT == 4 ? ~0ull : (1ull << 16 * KT) - 1;
-  if (c0 + 16 * KT <= S && (bits & CHUNK_BITS) == CHUNK_BITS) return;  // nothing to mask
-#pragma unroll
-  for (int nt = 0; nt < 2 * KT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int jl = 8 * nt + 2 * (lane & 3) + (e & 1);
-      s[nt][e] = c0 + jl >= S ? -INFINITY : ((bits >> jl) & 1ull) ? s[nt][e] : NEG_INF;
-    }
-}
-
-// The query side of one warp: 16 query rows (q_rows, do_rows: their q~ and dO
-// rows) against the S keys of k_s and v_s. P = softmax(q~k~^T / sqrt(D) + key
-// mask) with the exact row max m and sum l, dP = dO v^T, row = sum_j P dP,
-// dS = P (dP - row) / sqrt(D), all f32; dq~ = dS . k~ with dS rounded to bf16.
-// One chunk of up to 64 keys (!TWO_PASS): the scores and dP stay in registers.
-// More (TWO_PASS): a first pass over the chunks gives m, l and row online, the
-// second recomputes the scores and dP. stat: (m, 1/l, row) of rows g and g + 8.
-// With p_rows (slab), P and dS rounded to bf16 go to shared memory for the key
-// side: query row r of this tile at p_rows + r * pstride, dS at ds_rows.
-template <int KT, bool TWO_PASS>
-__device__ __forceinline__ void query_side(const bf16* q_rows, const bf16* do_rows, const bf16* k_s, const bf16* v_s,
-                                           const unsigned long long* keep, int S, float (&dq)[8][4],
-                                           float (&stat)[2][3], bf16* p_rows, bf16* ds_rows, int pstride) {
-  constexpr int CH = 16 * KT;
-  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
-  uint32_t qf[4][4], df[4][4];
-  load_rows(qf, q_rows);
-  load_rows(df, do_rows);
-#pragma unroll
-  for (int dn = 0; dn < 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
-  float s[2 * KT][4], dp[2 * KT][4];
-  const int chunks = TWO_PASS ? (S + CH - 1) / CH : 1;
-  for (int c = 0; c < (TWO_PASS ? chunks : 1); ++c) {  // m, l and sum_j exp(s - m) dP
-    const int c0 = c * CH, steps = min(KT, (S - c0 + 15) / 16);
-    row_dots<KT>(s, qf, k_s, c0, steps);
-    mask_scores<KT>(s, c0, S, keep);
-    row_dots<KT>(dp, df, v_s, c0, steps);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < 2 * KT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      const float m_new = fmaxf(m[r], quad_max(mx));
-      const float corr = exp2f((m[r] - m_new) * C);  // 0 on the first chunk
-      float sum = 0.f, acc = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 2 * KT; ++nt)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          const float p = exp2f((s[nt][e] - m_new) * C);
-          sum += p;
-          acc += p * dp[nt][e];
-        }
-      l[r] = l[r] * corr + sum;
-      rs[r] = rs[r] * corr + acc;
-      m[r] = m_new;
-    }
-  }
-  float il[2], row[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    il[r] = 1.f / quad_sum(l[r]);
-    row[r] = quad_sum(rs[r]) * il[r];
-    stat[r][0] = m[r], stat[r][1] = il[r], stat[r][2] = row[r];
-  }
-
-  for (int c = 0; c < chunks; ++c) {
-    const int c0 = c * CH, steps = min(KT, (S - c0 + 15) / 16);
-    if (TWO_PASS) {
-      row_dots<KT>(s, qf, k_s, c0, steps);
-      mask_scores<KT>(s, c0, S, keep);
-      row_dots<KT>(dp, df, v_s, c0, steps);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2 * KT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f((s[nt][e] - m[e >> 1]) * C) * il[e >> 1];  // P, normalised, f32
-        s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - row[e >> 1]) * SM_SCALE;  // dS, f32
-      }
-    if (p_rows != nullptr) {  // P and dS as bf16 [query][key] for the key side
-#pragma unroll
-      for (int nt = 0; nt < 2 * KT; ++nt) {
-        if (nt / 2 < steps) {
-          const int col = c0 + 8 * nt + 2 * t;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            *reinterpret_cast<uint32_t*>(p_rows + (g + 8 * r) * pstride + col) = pack_bf16(s[nt][2 * r], s[nt][2 * r + 1]);
-            *reinterpret_cast<uint32_t*>(ds_rows + (g + 8 * r) * pstride + col) =
-                pack_bf16(dp[nt][2 * r], dp[nt][2 * r + 1]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {  // dq~ += dS (bf16) . k~
-      if (kk < steps) {
-        uint32_t a[4];
-        pack_a(a, dp, kk);
-        mma_rows(dq, a, k_s + (size_t)(c0 + 16 * kk) * ROW);
-      }
-    }
-  }
-}
-
-// The key side of one warp in a slab block: key rows k0 .. k0 + 15 of one pair,
-// dv = P^T . dO and dk~ = dS^T . q~ over the pair's query rows, with P and dS
-// (bf16, [query][key]) from shared memory read through ldmatrix.trans.
-__device__ __forceinline__ void key_side_slab(const bf16* p_s, const bf16* ds_s, int pstride, const bf16* q_s,
-                                              const bf16* do_s, int k0, int S, float (&dv)[8][4], float (&dk)[8][4]) {
-  const int lane = threadIdx.x & 31, mi = lane >> 3;
-#pragma unroll
-  for (int dn = 0; dn < 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv[dn][e] = dk[dn][e] = 0.f;
-  // matrix mi of the x4 load: queries q0 + 8 (mi >> 1) .., keys k0 + 8 (mi & 1) ..
-  const int at = ((lane & 7) + 8 * (mi >> 1)) * pstride + k0 + 8 * (mi & 1);
-  for (int q0 = 0; q0 < S; q0 += 16) {
-    uint32_t ap[4], ad[4];
-    ldsm_x4_trans(ap, p_s + q0 * pstride + at);
-    ldsm_x4_trans(ad, ds_s + q0 * pstride + at);
-    mma_rows(dv, ap, do_s + (size_t)q0 * ROW);
-    mma_rows(dk, ad, q_s + (size_t)q0 * ROW);
-  }
-}
 
 // The key side of one warp in a tile block: key rows k0 .. k0 + 15 of the pair.
 // For each 16 queries: s^T = k~ q~^T and dP^T = v dO^T, P^T from the query rows'
@@ -296,44 +97,10 @@ __device__ __forceinline__ void key_side_tile(const bf16* q_s, const bf16* k_s, 
   }
 }
 
-// The 8 rows 8 r .. 8 r + 7 of a 16 x 64 f32 accumulator tile into the warp's
-// staging rows, so that a half-warp can then take a whole row: lane l of it
-// owns dims 2 l, 2 l + 1 and their RoPE partners 2 l + 32, 2 l + 33, and each
-// global load and store of a row is one contiguous 64- or 128-byte piece.
-__device__ __forceinline__ void stage_half(const float (&acc)[8][4], float* stage, int r) {
-  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
-  __syncwarp();
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-    *reinterpret_cast<float2*>(stage + g * STAGE_ROW + 8 * nt + 2 * t) = make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
-  __syncwarp();
-}
-
 __device__ __forceinline__ float half_sum(float x) {  // over the 16 lanes of a half-warp
 #pragma unroll
   for (int off = 1; off < 16; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
-}
-
-// dv: 16 rows of f32 accumulators, rounded to bf16 at dst (row i at dst + i *
-// stride) for the rows row0 + .. below S, through the staging rows.
-__device__ __forceinline__ void store_rows(const float (&acc)[8][4], float* stage, bf16* __restrict__ dst,
-                                           size_t stride, int row0, int S) {
-  const int lane = threadIdx.x & 31, d0 = 2 * (lane & 15);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    stage_half(acc, stage, r);
-#pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int rl = 2 * it + (lane >> 4), i = row0 + 8 * r + rl;
-      const float2 lo = *reinterpret_cast<const float2*>(stage + rl * STAGE_ROW + d0);
-      const float2 hi = *reinterpret_cast<const float2*>(stage + rl * STAGE_ROW + d0 + D / 2);
-      if (i < S) {
-        *reinterpret_cast<uint32_t*>(dst + (size_t)i * stride + d0) = pack_bf16(lo.x, lo.y);
-        *reinterpret_cast<uint32_t*>(dst + (size_t)i * stride + d0 + D / 2) = pack_bf16(hi.x, hi.y);
-      }
-    }
-  }
 }
 
 // Back through RoPE, the scale and the LN for the 16 rows row0 + .. of one

@@ -10,8 +10,9 @@ Counterparts of the JAX package's ``ops/flash_attention.py``:
   softmax chain from the saved qkv and returns (dqkv, dq_scale, dk_scale).
 * :func:`flash_attention` (``_fwd_kernel`` / ``_bwd_kernel``): masked softmax
   attention over separate q, k, v of layout (B, S, H, D); the probabilities
-  are normalised and rounded to v's dtype before P·V, the backward
-  recomputes them in f32.
+  are normalised and rounded to v's dtype before P·V. The backward recomputes
+  them in f32 (exact row max and sum); its plain version stays f32
+  throughout.
 * :func:`fused_attention_sublayer` (``_sublayer_kernel``): y = x +
   out_proj(attention(qk-LN + RoPE(LN(x)·Wqkv + b))) behind one kernel entry
   point; its backward is GEMMs in plain PyTorch around the fused attention
@@ -39,6 +40,17 @@ rounded to bf16 for dv = Pᵀ·dO, dS computed in f32 and rounded to bf16 for
 dq̃ = dS·k̃ and dk̃ = dSᵀ·q̃, everything else f32, dqkv rounded once; its block
 layout comes from :func:`fused_attention_bwd_plan`. f32 keeps the four-pass
 CUDA-core kernel through an f32 workspace, f32 throughout with one rounding.
+
+Roundings of the plain attention backward, by dtype. The plain version is
+f32 throughout, each gradient rounded once. On the card, bf16 takes the
+tensor-core kernel, the fused backward's softmax backward without its LN and
+RoPE, one launch with no workspace: P normalised (exact row max and sum) and
+then rounded to bf16 for dv = Pᵀ·dO, dS computed in f32 and rounded to bf16
+for dq = dS·k and dk = dSᵀ·q, q, k, v and dO bf16 already, everything else
+f32, each gradient rounded once (as the JAX package's non-TPU backward and
+SDPA's backward round); its block layout comes from
+:func:`flash_attention_bwd_plan`. f32 keeps the two-pass CUDA-core kernel
+through an f32 workspace, f32 throughout with one rounding.
 """
 
 from __future__ import annotations
@@ -76,7 +88,7 @@ FLASH_ATTENTION = CudaKernel(
 FLASH_ATTENTION_BWD = CudaKernel(
     "flash_attention_bwd.cu",
     "vvt_flash_attention_bwd",
-    [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 )
 ATTENTION_SUBLAYER = CudaKernel(
     "attention_sublayer.cu",
@@ -144,6 +156,27 @@ def fused_attention_bwd_plan(batch: int, seq: int, heads: int) -> tuple[str, int
         unit = max(1, min(BWD_SLAB_WARPS // tiles, batch * heads))
         return "slab", unit, min(BWD_SLAB_WARPS, unit * tiles)
     return "tile", 1, min(BWD_TILE_WARPS, tiles)
+
+
+# The bf16 plain attention backward (csrc/flash_attention_bwd_mma.cuh) takes
+# the fused backward's plan; a tile block exchanges dS in rounds of this many queries.
+FLASH_BWD_ROUND = 64
+
+
+def flash_attention_bwd_plan(batch: int, seq: int, heads: int) -> tuple[str, int, int]:
+    """(variant, (sequence, head) pairs a block, warps a block) of the bf16
+    plain attention backward kernel: those of :func:`fused_attention_bwd_plan`.
+
+    ``"slab"`` for S ≤ 64: a block stages consecutive pairs with their P and
+    dS, and its warps (up to 4) take the query tiles in turn, then the key
+    tiles. Otherwise ``"tile"``: a pair a block with a warp for each 16 rows
+    (16 at S = 256); each warp takes its query rows' statistics, then, in
+    rounds of ``FLASH_BWD_ROUND`` queries, its key rows' share of dv and dk,
+    and the round's 16 × 16 tiles of dq in turn. The grid is
+    ceil(B·H / pairs a block); the C entry point derives the shared memory
+    from these and the shape.
+    """
+    return fused_attention_bwd_plan(batch, seq, heads)
 
 
 def key_mask(mask: Optional[torch.Tensor], batch: int, seq: int) -> Optional[torch.Tensor]:
@@ -574,7 +607,16 @@ def flash_attention_cuda(q, k, v, mask):
 
 
 def flash_attention_bwd_cuda(q, k, v, mask, g):
-    """Launch the backward kernel: (dq, dk, dv), contiguous, in the inputs' dtype."""
+    """Launch the backward kernel: (dq, dk, dv), contiguous, in the inputs' dtype.
+
+    bf16 takes the tensor-core kernel with the geometry of
+    :func:`flash_attention_bwd_plan`: one launch, no workspace, no atomics.
+    Its roundings: P normalised (exact row max and sum, f32) and then rounded
+    to bf16 for dv = Pᵀ·dO; dS computed in f32 from f32 P and rounded to bf16
+    for dq = dS·k and dk = dSᵀ·q; scores, softmax, dP, row and the sums in
+    f32; each gradient rounded once. f32 takes the two-pass CUDA-core kernel
+    through an f32 workspace of m, l and row per query, f32 throughout.
+    """
     b, s, h, d = _check_flash_args("flash_attention_bwd_cuda", q, k, v, mask)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError("g must have q's shape, dtype and device")
@@ -582,13 +624,20 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
     (q, qs), (k, ks), (v, vs), (g, gs) = (_rows_of_heads(t) for t in (q, k, v, g))
     mask = _mask_bytes(mask, device)
     dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=device) for _ in range(3))
-    work = torch.empty(3 * b * h * s, dtype=torch.float32, device=device)  # m, l, row per query
+    work = None
+    variant, unit, warps, n_blocks = 0, 1, 1, 0  # the f32 kernel takes its geometry from the shape
+    if q.dtype == torch.bfloat16:
+        name, unit, warps = flash_attention_bwd_plan(b, s, h)
+        variant = MMA_VARIANTS.index(name)
+        n_blocks = -(-b * h // unit)
+    else:
+        work = torch.empty(3 * b * h * s, dtype=torch.float32, device=device)  # m, l, row per query
     with torch.cuda.device(device):
         FLASH_ATTENTION_BWD.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             None if mask is None else mask.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
-            qs, ks, vs, gs, b, s, h, d, DTYPE_CODES[q.dtype],
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if work is None else work.data_ptr(),
+            qs, ks, vs, gs, b, s, h, d, DTYPE_CODES[q.dtype], variant, unit, warps, n_blocks,
             torch.cuda.current_stream(device).cuda_stream,
         )
     return dq, dk, dv

@@ -1,12 +1,14 @@
-"""What sets the pace of the bf16 fused attention backward kernel (#3).
+"""What sets the pace of the bf16 attention backward kernels (#3, #6).
 
-    python3 -m video_vae_tpu_torch.utils.kernel_phases
+    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 3|6]
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
-It builds copies of ``csrc/fused_attention_bwd.cu`` with one phase of
-``csrc/fused_attention_bwd_mma.cuh`` cut out (a loop that runs no times, a
-call that is skipped, a load replaced by a constant; the outputs of a cut
-copy are wrong, only its time counts), all at once, into
+It builds copies of the kernel's source (#3, the default:
+``csrc/fused_attention_bwd.cu``; #6: ``csrc/flash_attention_bwd.cu``) with one
+phase of its device code (its own header and the softmax backward it shares
+in ``csrc/fused_attention_mma_common.cuh``) cut out (a loop that runs no
+times, a call that is skipped, a load replaced by a constant; the outputs of a
+cut copy are wrong, only its time counts), all at once, into
 ``video_vae_tpu_torch/_build/phases/``, and prints, for each bf16 attention
 call of the flagship train step, the device time per call of each copy from
 ``chip_smoke.device_ms``. The time a phase takes is the full kernel's less
@@ -15,6 +17,7 @@ the copy without it. Nothing here runs on import.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import shutil
@@ -23,47 +26,74 @@ import subprocess
 from video_vae_tpu_torch.ops import _build
 from video_vae_tpu_torch.ops import flash_attention as fa
 
-HEADER = "fused_attention_bwd_mma.cuh"
+COMMON = "fused_attention_mma_common.cuh"
 _NEVER = "S < 0"  # a condition no launch meets
+_SIDE = "it < items; it += warps) {{  // {} side"
+_CUT_SIDE = f"it < items && {_NEVER}; it += warps) {{"
 
-# name -> (text of the header, its replacement), each found at least once
-CUTS = {
-    "full": [],
-    "no_query_side": [("it < items; it += warps) {  // query side", f"it < items && {_NEVER}; it += warps) {{")],
-    "no_key_side": [("it < items; it += warps) {  // key side", f"it < items && {_NEVER}; it += warps) {{")],
-    "no_sides": [("it < items; it += warps) {  // query side", f"it < items && {_NEVER}; it += warps) {{"),
-                 ("it < items; it += warps) {  // key side", f"it < items && {_NEVER}; it += warps) {{")],
-    "no_query_first_pass": [("c < (TWO_PASS ? chunks : 1); ++c) {", "c < (TWO_PASS ? 0 : 1); ++c) {")],
-    "no_key_recompute": [("row_dots<1>(st, kf, q_s, q0, 1);", "row_dots<1>(st, kf, q_s, q0, 0);"),
-                         ("row_dots<1>(dt, vf, do_s, q0, 1);", "row_dots<1>(dt, vf, do_s, q0, 0);")],
-    "no_exp": [("exp2f(", "(")],
-    "no_epilogues": [("    ln_rope_bwd(d", f"    if ({_NEVER}) ln_rope_bwd(d"),
-                     ("    store_rows(dv,", f"    if ({_NEVER}) store_rows(dv,")],
-    "no_epilogue_tables": [(f"__ldg(reinterpret_cast<const float2*>({t} + d0{hi}))", "make_float2(0.5f, 0.25f)")
-                           for t in ("c", "sn") for hi in ("", " + D / 2")],
+# the query and key sides of #3 and of #6's slab blocks
+SIDE_CUTS = {
+    "no_query_side": [(_SIDE.format("query"), _CUT_SIDE)],
+    "no_key_side": [(_SIDE.format("key"), _CUT_SIDE)],
+    "no_sides": [(_SIDE.format("query"), _CUT_SIDE), (_SIDE.format("key"), _CUT_SIDE)],
+}
+
+# kernel -> (source, its own header, launch counter in ops.flash_attention, cuts: name -> [(text, replacement)])
+KERNELS = {
+    "3": ("fused_attention_bwd.cu", "fused_attention_bwd_mma.cuh", "FUSED_ATTENTION_BWD", {
+        "full": [],
+        **SIDE_CUTS,
+        "no_query_first_pass": [("c < (TWO_PASS ? chunks : 1); ++c) {", "c < (TWO_PASS ? 0 : 1); ++c) {")],
+        "no_key_recompute": [("row_dots<1>(st, kf, q_s, q0, 1);", "row_dots<1>(st, kf, q_s, q0, 0);"),
+                             ("row_dots<1>(dt, vf, do_s, q0, 1);", "row_dots<1>(dt, vf, do_s, q0, 0);")],
+        "no_exp": [("exp2f(", "(")],
+        "no_epilogues": [("    ln_rope_bwd(d", f"    if ({_NEVER}) ln_rope_bwd(d"),
+                         ("    store_rows(dv,", f"    if ({_NEVER}) store_rows(dv,")],
+        "no_epilogue_tables": [(f"__ldg(reinterpret_cast<const float2*>({t} + d0{hi}))", "make_float2(0.5f, 0.25f)")
+                               for t in ("c", "sn") for hi in ("", " + D / 2")],
+    }),
+    # slab blocks (S <= 64): the sides; tile blocks (S > 64): the statistics, the
+    # key side's rounds (its recompute of the scores and dP), the dq tiles
+    "6": ("flash_attention_bwd.cu", "flash_attention_bwd_mma.cuh", "FLASH_ATTENTION_BWD", {
+        "full": [],
+        **SIDE_CUTS,
+        "no_stats": [("      bwd::online_chunk<TILE_KT>(", f"      if ({_NEVER}) bwd::online_chunk<TILE_KT>(")],
+        "no_key_rounds": [("    key_round(q_s,", f"    if ({_NEVER}) key_round(q_s,")],
+        "no_key_recompute": [("row_dots<1>(st, f, q_s, i0, 1);", "row_dots<1>(st, f, q_s, i0, 0);"),
+                             ("row_dots<1>(dt, f, do_s, i0, 1);", "row_dots<1>(dt, f, do_s, i0, 0);")],
+        "no_dq_tiles": [("it < (q1 - q0) / 16 * 4; it += warps) {", f"it < (q1 - q0) / 16 * 4 && {_NEVER}; it += warps) {{")],
+        "no_exp": [("exp2f(", "(")],
+        "no_epilogues": [("    bwd::store_rows(d", f"    if ({_NEVER}) bwd::store_rows(d")],
+        "no_staging": [("e < (part1 - part0) * n * unit * 8; e += blockDim.x) {",
+                        f"e < (part1 - part0) * n * unit * 8 && {_NEVER}; e += blockDim.x) {{")],
+    }),
 }
 
 
-def _build_cut(name: str):
-    """Start nvcc on a copy of csrc with the cut applied; (process, library path)."""
-    out_dir = _build.BUILD_DIR / "phases" / name
+def _build_cut(kernel: str, name: str, edits):
+    """Start nvcc on a copy of csrc with the cut applied; (process, library path).
+
+    Each replacement applies to every one of the kernel's two headers that
+    holds the text, and must be found in at least one."""
+    source, header, _, _ = KERNELS[kernel]
+    out_dir = _build.BUILD_DIR / "phases" / kernel / name
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.copytree(_build.CSRC, out_dir)
-    text = (out_dir / HEADER).read_text()
-    for old, new in CUTS[name]:
-        if old not in text:
-            raise RuntimeError(f"cut {name}: {old!r} is not in {HEADER}")
-        text = text.replace(old, new)
-    (out_dir / HEADER).write_text(text)
-    lib = out_dir / "fused_attention_bwd.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(out_dir / "fused_attention_bwd.cu")]
+    texts = {h: (out_dir / h).read_text() for h in (header, COMMON)}
+    for old, new in edits:
+        if not any(old in t for t in texts.values()):
+            raise RuntimeError(f"cut {name}: {old!r} is in neither {header} nor {COMMON}")
+        texts = {h: t.replace(old, new) for h, t in texts.items()}
+    for h, t in texts.items():
+        (out_dir / h).write_text(t)
+    lib = out_dir / source.replace(".cu", ".so")
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(out_dir / source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
-def _kernel(lib_path) -> _build.CudaKernel:
-    """The backward's entry point bound from another library, counted like FUSED_ATTENTION_BWD."""
-    kernel = _build.CudaKernel(fa.FUSED_ATTENTION_BWD.source, fa.FUSED_ATTENTION_BWD.symbol,
-                               fa.FUSED_ATTENTION_BWD.argtypes)
+def _kernel(counter: _build.CudaKernel, lib_path) -> _build.CudaKernel:
+    """The entry point of ``counter`` bound from another library, counted like it."""
+    kernel = _build.CudaKernel(counter.source, counter.symbol, counter.argtypes)
     lib = ctypes.CDLL(str(lib_path))
     kernel._fn = getattr(lib, kernel.symbol)
     kernel._fn.argtypes, kernel._fn.restype = kernel.argtypes, ctypes.c_int
@@ -72,41 +102,55 @@ def _kernel(lib_path) -> _build.CudaKernel:
     return kernel
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
     import chip_smoke
     from video_vae_tpu_torch import ModelConfig
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernel", choices=sorted(KERNELS), default="3")
+    kernel_id = parser.parse_args(argv).kernel
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases needs a CUDA card")
-    builds = {name: _build_cut(name) for name in CUTS}
+    _, _, attr, cuts = KERNELS[kernel_id]
+    full = getattr(fa, attr)
+    builds = {name: _build_cut(kernel_id, name, edits) for name, edits in cuts.items()}
     kernels = {}
     for name, (proc, lib) in builds.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc for cut {name} exited {proc.returncode}:\n{log}")
-        kernels[name] = _kernel(lib)
+        kernels[name] = _kernel(full, lib)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
     dev = torch.device("cuda")
     cfg = ModelConfig()
+    H, D = cfg.num_heads, cfg.head_dim
     gen = torch.Generator().manual_seed(0)
-    full = fa.FUSED_ATTENTION_BWD
     try:
         for name, B, S, padded, dtype, _ in chip_smoke.attention_cases(cfg):
             qkv, g, qs, ks, mask, _ = chip_smoke._attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
             if dtype != "bfloat16":
                 continue
+            if kernel_id == "3":
+                def call():
+                    return fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
+            else:  # q and k contiguous, v a view into qkv, as the "pallas" path hands them over
+                q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
+                q, k, g_heads = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
+
+                def call():
+                    return fa.flash_attention_bwd_cuda(q, k, v, mask, g_heads)
             times = {}
             for cut, kernel in kernels.items():
-                fa.FUSED_ATTENTION_BWD = kernel
-                times[cut] = chip_smoke.device_ms(
-                    lambda: fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, cfg.num_heads))
-            print("kernel-phases", json.dumps({"case": name, "B": B, "S": S, "device_ms": times}), flush=True)
+                setattr(fa, attr, kernel)
+                times[cut] = chip_smoke.device_ms(call)
+            print("kernel-phases", json.dumps({"kernel": kernel_id, "case": name, "B": B, "S": S, "device_ms": times}),
+                  flush=True)
     finally:
-        fa.FUSED_ATTENTION_BWD = full
+        setattr(fa, attr, full)
     return 0
 
 
