@@ -20,11 +20,13 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    (``device_ms``, ``library_device_ms``), the convs' and both attention
    backwards' the kernel's TFLOP/s too; the fused attention forward has an
    "attention-fwd" line per shape with its and SDPA's device time and its
-   TFLOP/s and GB/s. The fused attention forward and backward, the plain
-   attention backward, the direct conv and the filter gradient give the same
-   bits on two launches, and the fused attention forward and backward and
-   the plain attention backward are held at a sequence whose keys are all
-   masked;
+   TFLOP/s and GB/s; the MLP sublayer's lines add the device time of each of
+   its three launches (token LN, xa·W1, a·W2) and each product's TFLOP/s.
+   The fused attention forward and backward, the plain attention backward,
+   the MLP sublayer in both variants, the direct conv and the filter
+   gradient give the same bits on two launches, and the fused attention
+   forward and backward and the plain attention backward are held at a
+   sequence whose keys are all masked;
 2. runs the serving pass (encode → keep/drop → fill-blend → decode) at the
    flagship width and reduced depth in float32 on the card and on the CPU,
    with the same seeded weights, and compares the two, once per path
@@ -109,6 +111,8 @@ REPLACES = {
     "vvt_fused_mlp": "video_vae_tpu/ops/fused_block.py:84",
     "vvt_conv3d_tapdot": "video_vae_tpu/ops/conv3d.py:419",
 }
+# the MLP kernel's three launches in order, by a part of each kernel's name
+MLP_LAUNCHES = ("token_ln_kernel", "gemm_kernel", "gemm_kernel")
 # beside the nine kernels' counts: how many of the MLP kernel's launches wrote the residuals
 MLP_TRAINING_VARIANT = "vvt_fused_mlp, training variant"
 KNOBS = ("VVT_ATTN_SUBLAYER", "VVT_MLP_FUSED", "VVT_TAPDOT")
@@ -255,6 +259,30 @@ def device_ms(fn, iters: int = 20, traces: int = 6) -> float:
         if us:
             return sum(sum(t) / len(t) * max(1, round(len(t) / iters)) for t in us.values()) / 1e3
     raise AssertionError(f"torch.profiler saw no kernel on the device in {traces} traces")
+
+
+def device_launch_ms(fn, names: tuple[str, ...], iters: int = 10, traces: int = 6) -> list[float]:
+    """Device ms of the kernels one call of ``fn`` launches whose names hold one
+    of ``names`` (other kernels it launches, such as casts, are left out), in
+    launch order: each the mean over ``iters`` calls of one ``torch.profiler``
+    trace. A trace that kept other than ``len(names) * iters`` such records is
+    taken again (see :func:`device_ms`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((ev.time_range.start, ev.time_range.elapsed_us()) for ev in prof.events()
+                         if ev.device_type == torch.autograd.DeviceType.CUDA
+                         and any(name in ev.name for name in names))
+        if len(kernels) == len(names) * iters:
+            return [sum(us for _, us in kernels[i::len(names)]) / iters / 1e3 for i in range(len(names))]
+    raise AssertionError(f"torch.profiler kept no whole trace of the launches {names} in {traces} traces")
 
 
 def device_times(kernel_fn, library_fn, flops: float | None = None) -> dict:
@@ -720,8 +748,10 @@ def phase_mlp_kernel(cfg, dev, rows):
     rollouts of 1 clip), N = 4096 the train step's encoder; a float32 x and a
     ragged row count are checked as well. The training variant returns y and
     the bf16 residuals xa and h, the inference variant y alone, and the two
-    must give the same y. The library yardstick is the chain layer_norm ->
-    linear -> silu -> linear -> add on bf16 weights. The bound counts x in, y
+    must give the same y; two launches of either variant give the same bits.
+    Each line adds the device ms of the three launches from one profiler
+    trace and each product's TFLOP/s. The library yardstick is the chain
+    layer_norm -> linear -> silu -> linear -> add on bf16 weights. The bound counts x in, y
     out, the weights once (and the residuals written by the training variant)
     against the two products at the bf16 peak, whatever x's dtype.
     """
@@ -763,10 +793,15 @@ def phase_mlp_kernel(cfg, dev, rows):
             return x + F.linear(F.silu(F.linear(xa, w16[0].t(), w16[1])), w16[2].t(), w16[3]).to(tdt)
 
         got = run(True)
+        again, y_only, y_again = run(True), run(False), run(False)
         torch.cuda.synchronize()
         # bf16 GEMM operands on both sides whatever x's dtype: the bf16 bound
         err = max(check_close(f"mlp N={n} {dtype} {part}", a, b, "bfloat16")
                   for part, a, b in zip(("y", "xa", "h"), got, plain()))
+        # no split-K, no atomics: the same bits on every launch of either variant
+        if not (all(torch.equal(a, b) for a, b in zip(got, again)) and torch.equal(y_only[0], y_again[0])):
+            raise AssertionError(f"mlp N={n} {dtype}: two launches gave different bits")
+        del again, y_only, y_again
         # the autograd wrapper without a graph takes the inference variant, even
         # where its parameters require gradients, as a model's do
         leaves = [t.detach().requires_grad_() for t in (lng, lnb, w1, b1, w2, b2)]
@@ -780,14 +815,20 @@ def phase_mlp_kernel(cfg, dev, rows):
             raise AssertionError(f"mlp N={n} {dtype}: the inference variant's y differs")
         plain_ms, library_ms = time_ms(plain, 2), time_ms(library, 10)
         library_device_ms = device_ms(library, 10)
+        product_flops = 2.0 * n * C * Fd
         for variant, save, per in (("inference", False, per_inference), ("training", True, per_training)):
             written = (x, *got[1:]) if save else (x,)
+            # the kernel's three launches: token LN, xa·W1 with the SiLU epilogue, a·W2 + x;
+            # the wrapper's casts of the f32 weights to bf16 count in device_ms only
+            ln_ms, up_ms, down_ms = device_launch_ms(lambda: run(save), MLP_LAUNCHES)
             _record(
                 rows, fb.FUSED_MLP, f"N={n} {variant} {dtype}", [n, C, Fd], dtype, err,
                 time_ms(lambda: run(save), 10), plain_ms, library_ms,
                 "layer_norm -> linear -> silu -> linear -> add, bf16 weights",
-                bound_ms(nbytes(x, *written, *w16, lng, lnb), 4.0 * n * C * Fd, "bfloat16"), per,
+                bound_ms(nbytes(x, *written, *w16, lng, lnb), 2 * product_flops, "bfloat16"), per,
                 device_ms=device_ms(lambda: run(save), 10), library_device_ms=library_device_ms,
+                launch_device_ms={"ln": ln_ms, "up": up_ms, "down": down_ms},
+                tflops={"up": product_flops / up_ms / 1e9, "down": product_flops / down_ms / 1e9},
             )
         del x, got, y
     torch.cuda.empty_cache()

@@ -5,11 +5,13 @@ JAX (``tests/conftest.py`` imports it):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import ctypes
 import math
 
 import pytest
 import torch
 
+from video_vae_tpu_torch.ops._build import CudaKernel
 from video_vae_tpu_torch.ops.conv3d import (
     CONV3D,
     CONV3D_TAPDOT,
@@ -43,6 +45,7 @@ from video_vae_tpu_torch.ops.flash_attention import (
     fused_qkv_attention_bwd_plain,
     fused_qkv_attention_cuda,
     fused_qkv_attention_plain,
+    ln_affine,
 )
 from video_vae_tpu_torch.ops.fused_block import (
     FUSED_MLP,
@@ -813,6 +816,90 @@ def test_fused_mlp_backward_matches_cpu(device):
     ref = torch.autograd.grad(fused_mlp_sublayer(*cpu), cpu, g.cpu())
     for a, b in zip(grads, ref):
         assert a.dtype == b.dtype and _rel_err(a.cpu(), b) <= TOL[torch.bfloat16]
+
+
+def _mlp_rounding_chain(x, lng, lnb, w1, b1, w2, b2, round_h=True, round_a=True, round_branch=False):
+    """y of the MLP sublayer with the kernel's roundings, or with one left out
+    (h or a kept in f32) or the module chain's added (the branch rounded to
+    x's dtype before the residual add)."""
+    c = x.shape[-1]
+    x2 = x.reshape(-1, c)
+    xa, _, _ = ln_affine(x2, lng, lnb)
+    h = torch.mm(xa.float(), w1.bfloat16().float()) + b1.float()
+    if round_h:
+        h = h.bfloat16().float()
+    a = h * (1.0 / (1.0 + torch.exp(-h)))
+    if round_a:
+        a = a.bfloat16().float()
+    branch = torch.mm(a, w2.bfloat16().float()) + b2.float()
+    if round_branch:
+        branch = branch.to(x.dtype).float()
+    return (x2.float() + branch).to(x.dtype)
+
+
+@pytest.mark.parametrize("rows", [(8192,), (1, 13)])
+def test_fused_mlp_bf16_kernel_rounds_as_jax(device, rows):
+    """The kernel rounds xa, h and a where the JAX kernel does and y once: the
+    bits of y, xa and h match the plain version's but for flips from f32 sums
+    taken in another order, while each chain with the h or the a rounding
+    left out, or with the branch rounded before the add, misses far more of
+    y's bits. Two launches of each variant give the same bits. On the H100
+    (the test prints the shares): y, xa, h 0.085 %, 0.002 %, 0.035 % at N =
+    8192 and none at N = 13, y against the torch chain 0.71 % and 0.18 %;
+    without the h rounding 42.7 % and 43.6 %, without the a rounding 29.9 %,
+    the branch rounded first 26.3 % and 26.2 %."""
+    args = _mlp_args(device, torch.bfloat16, rows, 768, 1536)
+    out = fused_mlp_sublayer_cuda(*args, save_residuals=True)
+    again = fused_mlp_sublayer_cuda(*args, save_residuals=True)
+    y_only = fused_mlp_sublayer_cuda(*args, save_residuals=False)
+    y_again = fused_mlp_sublayer_cuda(*args, save_residuals=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert torch.equal(y_only[0], y_again[0]) and torch.equal(y_only[0], out[0])
+    shares = {name: _bits_differ(a, b) for name, a, b in zip(("y", "xa", "h"), out, fused_mlp_sublayer_plain(*args))}
+    chain = _bits_differ(out[0], _mlp_rounding_chain(*args))
+    others = {
+        name: _bits_differ(out[0], _mlp_rounding_chain(*args, **kw))
+        for name, kw in (("h in f32", dict(round_h=False)), ("a in f32", dict(round_a=False)),
+                         ("branch rounded", dict(round_branch=True)))
+    }
+    print(f"mlp rounding rows={rows}: bits differ " + ", ".join(f"{k} {v:.5f}" for k, v in shares.items())
+          + f", y against the chain {chain:.5f}; " + ", ".join(f"{k} {v:.4f}" for k, v in others.items()))
+    for share in (*shares.values(), chain):
+        assert share <= ROUNDING_SHARE_TOL
+    for name, other in others.items():
+        assert other > 5 * ROUNDING_SHARE_TOL, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_wide_rows_match_plain(device, dtype):
+    """Rows wider than a warp keeps in registers (C > 2048) take the token LN's
+    two-pass path: the kernel matches the plain version and repeats its bits."""
+    args = _mlp_args(device, dtype, (3, 100), 2560, 512)
+    out = fused_mlp_sublayer_cuda(*args, save_residuals=True)
+    again = fused_mlp_sublayer_cuda(*args, save_residuals=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y", "xa", "h"), out, fused_mlp_sublayer_plain(*args)):
+        assert a.shape == b.shape and _rel_err(a, b) <= TOL[torch.bfloat16], name
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+SILU_CHECK = CudaKernel(
+    "mlp_silu_check.cu", "vvt_mlp_silu_check", [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+)
+
+
+def test_fused_mlp_silu_matches_the_division(device):
+    """The MLP kernel's SiLU takes the division's fast path without its check:
+    at every bf16 input (all h can be) it gives the bits of v * (1.f / (1.f +
+    expf(-v))) with the IEEE division, NaN for NaN."""
+    bits = torch.arange(-(2**15), 2**15, dtype=torch.int32).to(torch.int16).to(device)
+    fast, exact = (torch.empty(bits.numel(), dtype=torch.float32, device=device) for _ in range(2))
+    SILU_CHECK.launch(bits.data_ptr(), fast.data_ptr(), exact.data_ptr(), bits.numel(),
+                      torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    same = (fast.view(torch.int32) == exact.view(torch.int32)) | (fast.isnan() & exact.isnan())
+    assert same.all(), f"{(~same).sum().item()} of {same.numel()} differ"
 
 
 @pytest.mark.parametrize(

@@ -22,8 +22,8 @@
 // 50 MB L2 at the model's sizes):
 //   1. token LN -> xa (bf16), one warp per token (gemm_bf16.cuh);
 //   2. qkv = xa . Wqkv + bqkv on the tensor cores (the wmma GEMM of
-//      gemm_bf16.cuh, shared with fused_mlp.cu: a block owns a 128 x 128 output
-//      tile, 8 warps of 64 x 32);
+//      gemm_bf16.cuh: a block owns a 128 x 128 output tile, 8 warps of
+//      64 x 32);
 //   3. the fused QK-norm + RoPE + attention kernel of fused_attention_core.cuh;
 //   4. y = x + o . Wout + bout, the same GEMM with the residual in its epilogue.
 // wgmma, TMA and a multi-stage pipeline are left for a later version.
@@ -57,16 +57,16 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
   if (err != cudaSuccess) return err;
 
   err = launch_gemm<bf16, T, EPI_BIAS>(xa_t, static_cast<const bf16*>(wqkv),
-                                       static_cast<const float*>(bqkv), nullptr, qkv_t, nullptr, n,
-                                       C, 3 * HD, stream);
+                                       static_cast<const float*>(bqkv), nullptr, qkv_t, n, C, 3 * HD,
+                                       stream);
   if (err != cudaSuccess) return err;
 
   err = launch_fused_attention<T>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H, stream);
   if (err != cudaSuccess) return err;
 
   return launch_gemm<T, T, EPI_RESIDUAL>(o_t, static_cast<const bf16*>(wout),
-                                         static_cast<const float*>(bout), xt, static_cast<T*>(y),
-                                         nullptr, n, HD, C, stream);
+                                         static_cast<const float*>(bout), xt, static_cast<T*>(y), n,
+                                         HD, C, stream);
 }
 
 }  // namespace

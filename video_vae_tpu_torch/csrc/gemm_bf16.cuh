@@ -1,6 +1,8 @@
-// Token LayerNorm and a bf16 tensor-core GEMM with a fused epilogue, shared by
-// attention_sublayer.cu (the two projections around the attention) and
-// fused_mlp.cu (the MLP sublayer's two products).
+// Token LayerNorm and a bf16 tensor-core GEMM with a fused epilogue, for
+// attention_sublayer.cu (the two projections around the attention). The MLP
+// sublayer (fused_mlp.cu) runs the wgmma GEMM of gemm_sm90.cuh instead; the
+// attention sublayer's redesign is to move its projections onto that GEMM
+// and retire this one.
 //
 //   launch_token_ln<T>:  xa = bf16(LN(x) * gamma + beta), f32 statistics
 //                        (E[x^2] - mean^2 clamped at 0, eps 1e-6), one warp a token.
@@ -8,8 +10,6 @@
 //                        bf16, f32 accumulators), then by epilogue
 //     EPI_BIAS      out = TO(acc + bias)
 //     EPI_RESIDUAL  out = TO(f32(resid) + (acc + bias)), one rounding
-//     EPI_SILU      h = bf16(acc + bias), written to h_out where it is not
-//                   null; out = bf16(silu(f32(h)))
 //
 // A block owns a 128 x 128 output tile, 8 warps of 64 x 32; A and W are staged
 // through padded shared memory 32 columns of K at a time, the next slab's
@@ -35,7 +35,7 @@ constexpr int B_LD = BN + 8;   // 272-byte rows
 constexpr int WARP_M = 64, WARP_N = 32;  // 2 x 4 warps over the block's tile
 constexpr int LN_WARPS = 8;
 
-enum Epilogue { EPI_BIAS = 0, EPI_RESIDUAL = 1, EPI_SILU = 2 };
+enum Epilogue { EPI_BIAS = 0, EPI_RESIDUAL = 1 };
 
 __device__ __forceinline__ float as_f32(float x) { return x; }
 __device__ __forceinline__ float as_f32(bf16 x) { return __bfloat162float(x); }
@@ -129,13 +129,12 @@ __device__ __forceinline__ void fetch_tiles(uint4 (&a_reg)[A_VECS], uint4 (&b_re
 
 // A: (N, K) row-major, TA = bf16 or f32 (rounded to bf16 as it is staged).
 // W: (K, M) row-major bf16. bias: (M,) f32. resid (EPI_RESIDUAL), out: (N, M)
-// row-major TO. h_out (EPI_SILU): (N, M) bf16 or null. K and M are multiples of
-// 8; N is arbitrary: the ragged last row tile is masked here.
+// row-major TO. K and M are multiples of 8; N is arbitrary: the ragged last
+// row tile is masked here.
 template <typename TA, typename TO, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const TA* __restrict__ A, const bf16* __restrict__ W, const float* __restrict__ bias,
-            const TO* __restrict__ resid, TO* __restrict__ out, bf16* __restrict__ h_out,
-            long long N, int K, int M) {
+            const TO* __restrict__ resid, TO* __restrict__ out, long long N, int K, int M) {
   __shared__ __align__(32) bf16 a_s[BM * A_LD];
   __shared__ __align__(32) bf16 b_s[BK * B_LD];
   __shared__ __align__(32) float c_s[GEMM_THREADS / 32][16 * 16];
@@ -204,12 +203,6 @@ gemm_kernel(const TA* __restrict__ A, const bf16* __restrict__ W, const float* _
         for (int e = 0; e < 8; ++e) {
           float val = stage_tile[er * 16 + ec + e] + bias[col + e];
           if constexpr (EPI == EPI_RESIDUAL) val = as_f32(resid[o + e]) + val;
-          if constexpr (EPI == EPI_SILU) {
-            const bf16 h = __float2bfloat16(val);
-            if (h_out != nullptr) h_out[o + e] = h;
-            const float hf = __bfloat162float(h);
-            val = hf * (1.f / (1.f + expf(-hf)));
-          }
           out[o + e] = round_to<TO>(val);
         }
       }
@@ -220,10 +213,9 @@ gemm_kernel(const TA* __restrict__ A, const bf16* __restrict__ W, const float* _
 
 template <typename TA, typename TO, int EPI>
 cudaError_t launch_gemm(const TA* A, const bf16* W, const float* bias, const TO* resid, TO* out,
-                        bf16* h_out, long long N, int K, int M, cudaStream_t stream) {
+                        long long N, int K, int M, cudaStream_t stream) {
   const dim3 grid((unsigned)((M + BN - 1) / BN), (unsigned)((N + BM - 1) / BM));
-  gemm_kernel<TA, TO, EPI><<<grid, GEMM_THREADS, 0, stream>>>(A, W, bias, resid, out, h_out, N, K,
-                                                              M);
+  gemm_kernel<TA, TO, EPI><<<grid, GEMM_THREADS, 0, stream>>>(A, W, bias, resid, out, N, K, M);
   return cudaGetLastError();
 }
 

@@ -21,6 +21,11 @@ b2) cast once. That is not the module chain's rounding (``x + mlp(x)`` rounds
 the branch before the add), and a float32 model on this path still multiplies
 bf16 operands.
 
+The kernel is three launches (``csrc/fused_mlp.cu``): the token LN, then two
+warp-specialised wgmma GEMMs with fused epilogues (``csrc/gemm_sm90.cuh``),
+whose tile width, ring stages and persistent grid come from
+:func:`mlp_plan`.
+
 The backward has no kernel in the JAX package and none here: cuBLAS GEMMs on
 bf16 operands with f32 output around the SiLU and LayerNorm VJPs in f32.
 """
@@ -28,6 +33,7 @@ bf16 operands with f32 output around the SiLU and LayerNorm VJPs in f32.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -37,10 +43,92 @@ from video_vae_tpu_torch.ops.flash_attention import ln_affine, matmul_f32
 FUSED_MLP = CudaKernel(
     "fused_mlp.cu",
     "vvt_fused_mlp",
-    [ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 11 + [ctypes.c_void_p],
 )
 # FUSED_MLP's launches by variant: "training" writes the residuals, "inference" y alone
 VARIANT_LAUNCHES = {"inference": 0, "training": 0}
+
+# The GEMM of csrc/gemm_sm90.cuh: a block owns GEMM_BM rows by a tile width of
+# GEMM_WIDTHS, its ring holds slabs of GEMM_BK columns of K, W arrives in TMA
+# boxes GEMM_PANEL columns wide; two consumer warpgroups of 64 rows each.
+GEMM_BM, GEMM_BK, GEMM_PANEL = 128, 64, 64
+GEMM_WIDTHS = (256, 128)
+GEMM_CONSUMER_WARPGROUPS = 2
+GEMM_MAX_STAGES = 5
+GEMM_SMEM_ALIGN = 1024
+# the epilogue's staging: each consumer warp's 16 rows by 64 columns in f32
+GEMM_EPI_BYTES = GEMM_CONSUMER_WARPGROUPS * 4 * 16 * 64 * 4
+MAX_SMEM = 232_448  # a block's shared memory on the H100
+H100_SMS = 132
+
+
+def gemm_smem(bn: int, stages: int) -> int:
+    """Dynamic shared memory of a GEMM block (``gemm_sm90.cuh:gemm_smem_bytes``):
+    alignment slack, the ring's A and W slabs, the epilogue's staging, a full
+    and an empty mbarrier a stage."""
+    ring = stages * (GEMM_BM * GEMM_BK * 2 + GEMM_BK * bn * 2)
+    return GEMM_SMEM_ALIGN + ring + GEMM_EPI_BYTES + stages * 2 * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """One product (n, k) · (k, m) of the MLP kernel.
+
+    A block owns a ``GEMM_BM`` × ``bn`` output tile; ``blocks`` persistent
+    blocks walk the tiles, block b taking tiles b, b + blocks, … with the
+    column tile fastest; the ring holds ``stages`` slabs of K.
+    """
+
+    n: int
+    k: int
+    m: int
+    bn: int
+    stages: int
+    blocks: int
+
+    @property
+    def col_tiles(self) -> int:
+        return -(-self.m // self.bn)
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.n // GEMM_BM) * self.col_tiles
+
+    @property
+    def smem(self) -> int:
+        return gemm_smem(self.bn, self.stages)
+
+    @property
+    def args(self) -> tuple[int, int, int, int]:
+        """The fields the C entry point takes, in its order."""
+        return self.bn, self.stages, self.blocks, self.smem
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpPlan:
+    """The MLP kernel's two products: ``up`` = xa · W1 (K = C, M = F) and
+    ``down`` = a · W2 (K = F, M = C)."""
+
+    up: GemmPlan
+    down: GemmPlan
+
+
+def gemm_plan(n: int, k: int, m: int, sms: int = H100_SMS) -> GemmPlan:
+    """The tile width with the least work in its last wave (waves × width; the
+    wider tile on a tie), the most stages that fit, one block an SM."""
+    def cost(bn):
+        tiles = -(-n // GEMM_BM) * -(-m // bn)
+        return -(-tiles // sms) * bn
+
+    bn = min(GEMM_WIDTHS, key=cost)  # the first of equals: the wider
+    stages = min(GEMM_MAX_STAGES, max(s for s in range(2, GEMM_MAX_STAGES + 1) if gemm_smem(bn, s) <= MAX_SMEM))
+    plan = GemmPlan(n, k, m, bn, stages, blocks=1)
+    return dataclasses.replace(plan, blocks=min(plan.tiles, sms))
+
+
+def mlp_plan(n: int, C: int, F: int, sms: int = H100_SMS) -> MlpPlan:
+    """The MLP kernel's geometry for n tokens of width C and hidden width F."""
+    return MlpPlan(up=gemm_plan(n, C, F, sms), down=gemm_plan(n, F, C, sms))
 
 
 class _MLPSublayer(torch.autograd.Function):
@@ -142,7 +230,8 @@ def fused_mlp_sublayer_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, save_residuals
     """Launch the MLP kernel: (y, xa, h); xa and h are None for the inference variant.
 
     x is (..., C) with any number of rows. The weights are cast to bf16 and
-    the vectors to f32 here, outside the kernel, as the JAX wrapper does.
+    the vectors to f32 here, outside the kernel, as the JAX wrapper does; the
+    geometry of the two products is :func:`mlp_plan`'s for this card's SMs.
     """
     if not x.is_cuda:
         raise ValueError("fused_mlp_sublayer_cuda needs a CUDA tensor")
@@ -174,14 +263,19 @@ def fused_mlp_sublayer_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, save_residuals
     xa = torch.empty((n, c), dtype=torch.bfloat16, device=device)
     a = torch.empty((n, f), dtype=torch.bfloat16, device=device)
     h = torch.empty((n, f), dtype=torch.bfloat16, device=device) if save_residuals else None
-    if any(t.data_ptr() % 16 for t in (x, w1b, w2b, y, xa, a) + (() if h is None else (h,))):
+    tensors = (x, lng, lnb, w1b, b1f, w2b, b2f, y, xa, a) + (() if h is None else (h,))
+    if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the MLP kernel needs 16-byte aligned tensors")
+    if n >= 2**31:
+        raise ValueError(f"the MLP kernel takes fewer than 2^31 rows, got {n}")
+    plan = mlp_plan(n, c, f, torch.cuda.get_device_properties(device).multi_processor_count)
     with torch.cuda.device(device):
         FUSED_MLP.launch(
             x.data_ptr(), lng.data_ptr(), lnb.data_ptr(), w1b.data_ptr(), b1f.data_ptr(),
             w2b.data_ptr(), b2f.data_ptr(), y.data_ptr(), xa.data_ptr(),
             None if h is None else h.data_ptr(), a.data_ptr(),
-            n, c, f, DTYPE_CODES[x.dtype], torch.cuda.current_stream(device).cuda_stream,
+            n, c, f, DTYPE_CODES[x.dtype], *plan.up.args, *plan.down.args,
+            torch.cuda.current_stream(device).cuda_stream,
         )
     VARIANT_LAUNCHES["training" if save_residuals else "inference"] += 1
     return (y, xa, h) if save_residuals else (y, None, None)

@@ -1,18 +1,22 @@
-"""What sets the pace of the bf16 attention backward kernels (#3, #6).
+"""What sets the pace of the bf16 attention backward kernels (#3, #6) and of
+the MLP sublayer kernel (#8).
 
-    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 3|6]
+    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 3|6|8]
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
 It builds copies of the kernel's source (#3, the default:
-``csrc/fused_attention_bwd.cu``; #6: ``csrc/flash_attention_bwd.cu``) with one
-phase of its device code (its own header and the softmax backward it shares
-in ``csrc/fused_attention_mma_common.cuh``) cut out (a loop that runs no
-times, a call that is skipped, a load replaced by a constant; the outputs of a
-cut copy are wrong, only its time counts), all at once, into
-``video_vae_tpu_torch/_build/phases/``, and prints, for each bf16 attention
-call of the flagship train step, the device time per call of each copy from
-``chip_smoke.device_ms``. The time a phase takes is the full kernel's less
-the copy without it. Nothing here runs on import.
+``csrc/fused_attention_bwd.cu``; #6: ``csrc/flash_attention_bwd.cu``; #8:
+``csrc/fused_mlp.cu``) with one phase of its device code (its own headers:
+for #3 and #6 also the softmax backward they share in
+``csrc/fused_attention_mma_common.cuh``) cut out (a loop that runs no times, a
+call that is skipped, a load replaced by a constant; the outputs of a cut copy
+are wrong, only its time counts), all at once, into
+``video_vae_tpu_torch/_build/phases/``, and prints the device time per call
+of each copy: for #3 and #6 at each bf16 attention call of the flagship train
+step (``chip_smoke.device_ms``), for #8 at its N = 8192 and N = 4096 calls,
+each of its three launches (``chip_smoke.device_launch_ms``). The time a phase
+takes is the full kernel's less the copy without it. Nothing here runs on
+import.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import subprocess
 
 from video_vae_tpu_torch.ops import _build
 from video_vae_tpu_torch.ops import flash_attention as fa
+from video_vae_tpu_torch.ops import fused_block as fb
 
 COMMON = "fused_attention_mma_common.cuh"
 _NEVER = "S < 0"  # a condition no launch meets
@@ -38,9 +43,10 @@ SIDE_CUTS = {
     "no_sides": [(_SIDE.format("query"), _CUT_SIDE), (_SIDE.format("key"), _CUT_SIDE)],
 }
 
-# kernel -> (source, its own header, launch counter in ops.flash_attention, cuts: name -> [(text, replacement)])
+# kernel -> (source, its headers, the ops module and the name of its launch counter there,
+# cuts: name -> [(text, replacement)])
 KERNELS = {
-    "3": ("fused_attention_bwd.cu", "fused_attention_bwd_mma.cuh", "FUSED_ATTENTION_BWD", {
+    "3": ("fused_attention_bwd.cu", ("fused_attention_bwd_mma.cuh", COMMON), fa, "FUSED_ATTENTION_BWD", {
         "full": [],
         **SIDE_CUTS,
         "no_query_first_pass": [("c < (TWO_PASS ? chunks : 1); ++c) {", "c < (TWO_PASS ? 0 : 1); ++c) {")],
@@ -54,7 +60,7 @@ KERNELS = {
     }),
     # slab blocks (S <= 64): the sides; tile blocks (S > 64): the statistics, the
     # key side's rounds (its recompute of the scores and dP), the dq tiles
-    "6": ("flash_attention_bwd.cu", "flash_attention_bwd_mma.cuh", "FLASH_ATTENTION_BWD", {
+    "6": ("flash_attention_bwd.cu", ("flash_attention_bwd_mma.cuh", COMMON), fa, "FLASH_ATTENTION_BWD", {
         "full": [],
         **SIDE_CUTS,
         "no_stats": [("      bwd::online_chunk<TILE_KT>(", f"      if ({_NEVER}) bwd::online_chunk<TILE_KT>(")],
@@ -67,22 +73,30 @@ KERNELS = {
         "no_staging": [("e < (part1 - part0) * n * unit * 8; e += blockDim.x) {",
                         f"e < (part1 - part0) * n * unit * 8 && {_NEVER}; e += blockDim.x) {{")],
     }),
+    # the GEMMs' products, the finishing of the epilogue (staging read back, SiLU or
+    # residual, 16-byte stores: the stores' cut leaves the accumulators staged), the SiLU
+    "8": ("fused_mlp.cu", ("gemm_sm90.cuh",), fb, "FUSED_MLP", {
+        "full": [],
+        "no_products": [("Wgmma<BN>::mma(d,", "if (K < 0) Wgmma<BN>::mma(d,")],
+        "no_finish": [("if (row >= N || col >= M) continue;", "if (row >= N || col >= M || N > 0) continue;")],
+        "no_silu": [("silu8(v);", "(void)v;")],
+    }),
 }
 
 
 def _build_cut(kernel: str, name: str, edits):
     """Start nvcc on a copy of csrc with the cut applied; (process, library path).
 
-    Each replacement applies to every one of the kernel's two headers that
-    holds the text, and must be found in at least one."""
-    source, header, _, _ = KERNELS[kernel]
+    Each replacement applies to every one of the kernel's headers that holds
+    the text, and must be found in at least one."""
+    source, headers, _, _, _ = KERNELS[kernel]
     out_dir = _build.BUILD_DIR / "phases" / kernel / name
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.copytree(_build.CSRC, out_dir)
-    texts = {h: (out_dir / h).read_text() for h in (header, COMMON)}
+    texts = {h: (out_dir / h).read_text() for h in headers}
     for old, new in edits:
         if not any(old in t for t in texts.values()):
-            raise RuntimeError(f"cut {name}: {old!r} is in neither {header} nor {COMMON}")
+            raise RuntimeError(f"cut {name}: {old!r} is in none of {headers}")
         texts = {h: t.replace(old, new) for h, t in texts.items()}
     for h, t in texts.items():
         (out_dir / h).write_text(t)
@@ -102,19 +116,68 @@ def _kernel(counter: _build.CudaKernel, lib_path) -> _build.CudaKernel:
     return kernel
 
 
-def main(argv=None) -> int:
+def _attention_calls(kernel_id, dev):
+    """(case, its fields, call) of each bf16 attention call of the flagship train step."""
     import torch
 
     import chip_smoke
     from video_vae_tpu_torch import ModelConfig
+
+    cfg = ModelConfig()
+    H, D = cfg.num_heads, cfg.head_dim
+    gen = torch.Generator().manual_seed(0)
+    for name, B, S, padded, dtype, _ in chip_smoke.attention_cases(cfg):
+        qkv, g, qs, ks, mask, _ = chip_smoke._attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
+        if dtype != "bfloat16":
+            continue
+        if kernel_id == "3":
+            def call(qkv=qkv, qs=qs, ks=ks, mask=mask, g=g):
+                return fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
+        else:  # q and k contiguous, v a view into qkv, as the "pallas" path hands them over
+            q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
+            q, k, g_heads = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
+
+            def call(q=q, k=k, v=v, mask=mask, g_heads=g_heads):
+                return fa.flash_attention_bwd_cuda(q, k, v, mask, g_heads)
+        yield name, {"B": B, "S": S}, call
+
+
+def _mlp_calls(dev):
+    """(case, its fields, call) of the MLP kernel's calls in a b2 x 16f serving pass
+    (inference variant, N = 8192) and a b1 x 16f train step (training variant,
+    N = 8192 and 4096), on f32 weights as the model hands them over."""
+    import torch
+
+    import chip_smoke
+    from video_vae_tpu_torch import ModelConfig
+
+    cfg = ModelConfig()
+    C, F = cfg.embed_dim, cfg.mlp_dim
+    gen = torch.Generator().manual_seed(30)
+    rn = lambda *shape: torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
+    params = (1 + 0.2 * rn(C), 0.2 * rn(C), rn(C, F) / C**0.5, 0.2 * rn(F), 0.1 * rn(F, C) / F**0.5, 0.2 * rn(C))
+    tokens = chip_smoke.FRAMES * cfg.num_patches
+    for n, save in ((chip_smoke.BATCH * tokens, False), (chip_smoke.BATCH * tokens, True),
+                    (chip_smoke.TRAIN_BATCH * tokens, True)):
+        x = rn(n, C).to(torch.bfloat16)
+
+        def call(x=x, save=save):
+            return fb.fused_mlp_sublayer_cuda(x, *params, save_residuals=save)
+        yield f"N={n} {'training' if save else 'inference'}", {"N": n}, call
+
+
+def main(argv=None) -> int:
+    import torch
+
+    import chip_smoke
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernel", choices=sorted(KERNELS), default="3")
     kernel_id = parser.parse_args(argv).kernel
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases needs a CUDA card")
-    _, _, attr, cuts = KERNELS[kernel_id]
-    full = getattr(fa, attr)
+    _, _, module, attr, cuts = KERNELS[kernel_id]
+    full = getattr(module, attr)
     builds = {name: _build_cut(kernel_id, name, edits) for name, edits in cuts.items()}
     kernels = {}
     for name, (proc, lib) in builds.items():
@@ -126,31 +189,18 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
     dev = torch.device("cuda")
-    cfg = ModelConfig()
-    H, D = cfg.num_heads, cfg.head_dim
-    gen = torch.Generator().manual_seed(0)
+    calls = _mlp_calls(dev) if kernel_id == "8" else _attention_calls(kernel_id, dev)
     try:
-        for name, B, S, padded, dtype, _ in chip_smoke.attention_cases(cfg):
-            qkv, g, qs, ks, mask, _ = chip_smoke._attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
-            if dtype != "bfloat16":
-                continue
-            if kernel_id == "3":
-                def call():
-                    return fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
-            else:  # q and k contiguous, v a view into qkv, as the "pallas" path hands them over
-                q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
-                q, k, g_heads = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
-
-                def call():
-                    return fa.flash_attention_bwd_cuda(q, k, v, mask, g_heads)
+        for name, fields, call in calls:
             times = {}
             for cut, kernel in kernels.items():
-                setattr(fa, attr, kernel)
-                times[cut] = chip_smoke.device_ms(call)
-            print("kernel-phases", json.dumps({"kernel": kernel_id, "case": name, "B": B, "S": S, "device_ms": times}),
+                setattr(module, attr, kernel)
+                times[cut] = (chip_smoke.device_launch_ms(call, chip_smoke.MLP_LAUNCHES) if kernel_id == "8"
+                              else chip_smoke.device_ms(call))
+            print("kernel-phases", json.dumps({"kernel": kernel_id, "case": name, **fields, "device_ms": times}),
                   flush=True)
     finally:
-        setattr(fa, attr, full)
+        setattr(module, attr, full)
     return 0
 
 
