@@ -17,16 +17,16 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    one library call (or chain of calls) for the same function; every
    "kernel-check" line but the fused attention forward's adds the kernel's and
    the library call's device time per call from ``torch.profiler``
-   (``device_ms``, ``library_device_ms``), the convs' and both attention
-   backwards' the kernel's TFLOP/s too; the fused attention forward has an
+   (``device_ms``, ``library_device_ms``), the convs', the plain attention
+   forward's and both attention backwards' the kernel's TFLOP/s too; the fused attention forward has an
    "attention-fwd" line per shape with its and SDPA's device time and its
    TFLOP/s and GB/s; the MLP sublayer's lines add the device time of each of
    its three launches (token LN, xa·W1, a·W2) and each product's TFLOP/s.
-   The fused attention forward and backward, the plain attention backward,
-   the MLP sublayer in both variants, the direct conv and the filter
-   gradient give the same bits on two launches, and the fused attention
-   forward and backward and the plain attention backward are held at a
-   sequence whose keys are all masked;
+   The fused attention forward and backward, the plain attention forward
+   and backward, the MLP sublayer in both variants, the direct conv and the
+   filter gradient give the same bits on two launches, and both attention
+   forwards and both backwards are held at a sequence whose keys are all
+   masked;
 2. runs the serving pass (encode → keep/drop → fill-blend → decode) at the
    flagship width and reduced depth in float32 on the card and on the CPU,
    with the same seeded weights, and compares the two, once per path
@@ -519,19 +519,35 @@ def phase_flash_kernels(cfg, dev, rows):
         lq, lk, lv, lg = (t.transpose(1, 2).contiguous() for t in (q, k, v, g))  # SDPA's (B,H,S,D)
 
         out = fa.flash_attention_cuda(q, k, v, mask)
+        again = fa.flash_attention_cuda(q, k, v, mask)
         torch.cuda.synchronize()
         err = check_close(f"flash {name} {dtype}", out, fa.flash_attention_plain(q, k, v, mask), dtype)
+        if not torch.equal(out, again):  # no atomics: the same bits on every run
+            raise AssertionError(f"flash {name} {dtype}: two launches gave different bits")
+        del again
+        flops = 4.0 * H * S * keys * D  # q·kᵀ and P·V over the kept keys
         _record(
             rows, fa.FLASH_ATTENTION, f"{name} {dtype}", [B, S, H, D], dtype, err,
             time_ms(lambda: fa.flash_attention_cuda(q, k, v, mask), 20),
             time_ms(lambda: fa.flash_attention_plain(q, k, v, mask), 5),
             time_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask), 20),
             "scaled_dot_product_attention",
-            bound_ms(nbytes(q, k, v, out, mask), 4.0 * H * S * keys * D, dtype),
+            bound_ms(nbytes(q, k, v, out, mask), flops, dtype),
             per_path(per, **{"serving-pallas": "serving", "train-pallas": "train"}),
             **device_times(lambda: fa.flash_attention_cuda(q, k, v, mask),
-                           lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask)),
+                           lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask), flops),
         )
+        if padded:
+            # one sequence with every key masked: its rows average all S keys
+            empty = mask.clone()
+            empty[0] = False
+            held = fa.flash_attention_cuda(q, k, v, empty)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_plain(q, k, v, empty)
+            masked_err = max(check_close(f"flash {name} {dtype} all keys masked", held, ref, dtype),
+                             check_close(f"flash {name} {dtype} the masked sequence", held[0], ref[0], dtype))
+            log("flash-fwd-masked-row", json.dumps({"case": f"{name} {dtype}", "max_abs_err": masked_err}))
+            del empty, held, ref
 
         got = fa.flash_attention_bwd_cuda(q, k, v, mask, g)
         again = fa.flash_attention_bwd_cuda(q, k, v, mask, g)

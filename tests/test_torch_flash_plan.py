@@ -1,0 +1,159 @@
+"""Launch geometry of the bf16 plain attention forward kernel
+(``ops/flash_attention.py:flash_attention_plan``).
+
+At every attention call of the flagship and of the tap-dot model (the shapes
+``chip_smoke.py`` holds the kernel at) and at the ragged shapes of the card
+test's ``FLASH_CASES``: every (sequence, head, query row) is written by
+exactly one warp of one block, which staged the pair; every cp.async copy
+lands in its own staged row once, from a 16-byte aligned source, also with v a
+view into a fused QKV projection (row stride 3·H·D); no key chunk walks past
+the staged rows, and a chunk's keys lie in one word of key bits; shared
+memory, warps and grid stay within what the kernel and the H100 accept. :class:`FlashGeometry` derives the launch
+from the plan as ``launch_flash_mma`` in ``csrc/flash_attention_mma.cuh`` does,
+and walks the copies, the query tiles and the key chunks as
+``flash_fwd_kernel`` and ``attend`` do.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from test_torch_attention_plan import MAX_GRID_X, MAX_SMEM, MODEL_CASES, Geometry
+
+from video_vae_tpu_torch.ops.flash_attention import MMA_SLAB_MAX_SEQ, _rows_of_heads, flash_attention_plan
+
+LAUNCH_BOUND_WARPS = 16  # flash_fwd_kernel's __launch_bounds__
+D = 64
+
+# the S and H of FLASH_CASES in tests/test_torch_cuda.py, at B = 1, 3 and 5
+RAGGED_CASES = [(B, S, H) for S in (1, 17, 37, 64, 65, 80, 200, 256) for H in (2, 8) for B in (1, 3, 5)]
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashGeometry(Geometry):
+    """One launch of the kernel: the plan, the launch the C entry point derives
+    from it, and the copies, tiles and chunks the kernel walks."""
+
+    @property
+    def plan(self) -> tuple[str, int]:
+        return flash_attention_plan(self.batch, self.seq, self.heads)
+
+    @property
+    def kt(self) -> int:
+        """16-key steps a chunk (``chunk_steps``)."""
+        return 1 if self.rows16 <= 16 else 2 if self.rows16 <= 32 else 4
+
+    @property
+    def two_pass(self) -> bool:
+        """``attend`` with P normalised first walks the keys twice past one chunk."""
+        return len(self.key_steps()) > 1
+
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    def slab_copies(self, block: int):
+        """(local sequence, part, head, row, piece, sequence) of every 16-byte
+        copy of a slab block: thread p takes (part, head, piece) = (p / 8H,
+        p / 8 % H, p % 8), and p + threads after it, at every position."""
+        _, unit = self.plan
+        H = self.heads
+        for t in range(self.threads()):
+            for p in range(t, 3 * H * 8, self.threads()):
+                piece, part, h = p & 7, (p >> 3) // H, (p >> 3) % H
+                for sl in range(unit):
+                    for i in range(self.rows16):
+                        yield sl, part, h, i, piece, block * unit + sl
+
+    def tile_copies(self):
+        """(part, row, piece) of every 16-byte copy of a tile block: thread t
+        takes piece t % 8 of rows t / 8, t / 8 + threads / 8, ... of each input."""
+        for t in range(self.threads()):
+            for part in range(3):
+                for i in range(t >> 3, self.rows16, self.threads() >> 3):
+                    yield part, i, t & 7
+
+
+def _check_plan(B, S, H):
+    geo = FlashGeometry(B, S, H)
+    variant, unit = geo.plan
+    assert variant in ("slab", "tile") and unit >= 1
+    assert variant == "tile" or S <= MMA_SLAB_MAX_SEQ
+    assert variant == "slab" or unit == 1
+    assert geo.smem <= MAX_SMEM
+    assert 1 <= geo.grid <= MAX_GRID_X
+    assert 1 <= geo.warps <= LAUNCH_BOUND_WARPS
+
+    # every (sequence, head, query row) by one warp of a block that staged the pair
+    owners = np.zeros((B, H, S), dtype=np.int32)
+    for block, warp, b, h, row0 in geo.row_tiles():
+        assert 0 <= block < geo.grid and 0 <= warp < geo.warps
+        assert row0 % 16 == 0 and 0 <= row0 < S
+        assert (b, h) in geo.block_pairs(block)
+        owners[b, h, row0 : row0 + 16] += 1
+    assert (owners == 1).all()
+    if variant == "tile":  # the kernel calls attend from every warp
+        assert geo.warps == geo.rows16 // 16
+
+    # the key chunks: every key j < S once, within the staged rows, and each in
+    # one word of key bits
+    seen = np.zeros(S, dtype=np.int32)
+    for c0, steps in geo.key_steps():
+        assert 1 <= steps <= geo.kt and c0 % 16 == 0
+        assert c0 + 16 * steps <= geo.rows16
+        assert c0 // 64 == (c0 + 16 * steps - 1) // 64
+        seen[c0 : c0 + 16 * steps] += 1
+    assert (seen == 1).all()
+
+    # the copies: every staged row of every input once (one cp.async group,
+    # waited for before any warp reads it)
+    if variant == "slab":
+        for block in {0, geo.grid - 1}:  # a full block and the last, perhaps part empty
+            staged = np.zeros((unit, 3, H, geo.rows16, 8), dtype=np.int32)
+            for sl, part, h, i, piece, b in geo.slab_copies(block):
+                staged[sl, part, h, i, piece] += 1
+            assert (staged == 1).all()
+    else:
+        staged = np.zeros((3, geo.rows16, 8), dtype=np.int32)
+        for part, i, piece in geo.tile_copies():
+            staged[part, i, piece] += 1
+        assert (staged == 1).all()
+
+
+@pytest.mark.parametrize("model,name,B,S,H", MODEL_CASES, ids=[f"{c[0]}-{c[1]}" for c in MODEL_CASES])
+def test_flash_plan_at_model_shapes(model, name, B, S, H):
+    _check_plan(B, S, H)
+
+
+@pytest.mark.parametrize("B,S,H", RAGGED_CASES)
+def test_flash_plan_at_ragged_shapes(B, S, H):
+    _check_plan(B, S, H)
+
+
+@pytest.mark.parametrize("B,S,H", [(3, 16, 8), (1, 256, 8), (5, 37, 2), (2, 17, 8)])
+def test_flash_plan_sources_are_16_byte_aligned(B, S, H):
+    """q and k contiguous and v a view into a fused (B, S, 3·H·D) projection, as
+    the model's "pallas" path hands them over: ``_rows_of_heads`` takes each as
+    it is, and every 16-byte copy's source, base + ((b·S + i)·stride + h·D +
+    8·piece)·2 bytes, is 16-byte aligned."""
+    qkv = torch.zeros(B, S, 3 * H * D, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
+    b, i, h, piece = np.meshgrid(np.arange(B), np.arange(S), np.arange(H), np.arange(8), indexing="ij")
+    for t, row_stride in ((q.contiguous(), H * D), (k.contiguous(), H * D), (v, 3 * H * D)):
+        taken, stride = _rows_of_heads(t)
+        assert taken is t and stride == row_stride  # no copy
+        offsets = taken.data_ptr() + ((b * S + i) * stride + h * D + 8 * piece) * 2
+        assert (offsets % 16 == 0).all()
+
+
+def test_flash_plan_at_the_models_shapes_is_as_designed():
+    """Temporal S = 16, 8 heads: one sequence a slab block, a warp a head, one
+    chunk; spatial S = 256: one block a (sequence, head) pair, 16 warps, the
+    keys walked twice in four chunks, 110 KB of shared memory."""
+    temporal = FlashGeometry(512, 16, 8)
+    assert (temporal.plan, temporal.warps, temporal.grid) == (("slab", 1), 8, 512)
+    assert not temporal.two_pass and temporal.kt == 1
+    spatial = FlashGeometry(32, 256, 8)
+    assert (spatial.plan, spatial.warps, spatial.grid) == (("tile", 1), 16, 256)
+    assert spatial.two_pass and len(spatial.key_steps()) == 4
+    assert spatial.smem == 3 * 256 * 144 + 4 * 8

@@ -1,29 +1,71 @@
 // Plain masked attention forward over separate q, k, v of layout (B, S, H, D).
 //
 // Replaces: video_vae_tpu/ops/flash_attention.py, _flash_fwd -> _fwd_kernel.
-// Per (sequence, head): s = q k^T / sqrt(D) in f32, masked keys set to -1e30
-// (so a fully masked row gets uniform weights), p = exp(s - max) / sum in f32,
-// p rounded to v's dtype, o = p v accumulated in f32, one rounding to the
-// output dtype. D = 64, S <= 256; f32 or bf16.
+// Per (sequence, head): s = q k^T / sqrt(D) with an f32 accumulator, masked
+// keys set to -1e30 (so a fully masked row gets uniform weights), p =
+// exp(s - max) / sum in f32 with the exact row max and sum, p rounded to v's
+// dtype, o = p v accumulated in f32, one rounding to the output dtype. D = 64,
+// 1 <= S <= 256; f32 or bf16. Each tensor is addressed as base + (b * S + i) *
+// row_stride + h * D + d, so v may be a view into the fused QKV projection
+// (row stride 3 * H * D, as the model's "pallas" path hands it over).
 //
-// What bounds it on the H100: 4 * S * S * D FLOPs per (sequence, head) over
-// 3 * S * D inputs and S * D outputs; at the model's shapes (S = 16 and
-// S = 256, B * H = 4096 .. 256 pairs) that is bytes-bound on paper, about
-// 10 us at 3.35 TB/s. This version does its arithmetic in f32 on the CUDA
-// cores, so at S = 256 the FLOPs on the 67 TFLOP/s f32 pipe are the real limit.
+// What bounds it on the H100: bytes, on paper. A call reads q, k and v and
+// writes o once: 33.6 MB at the model's b2 calls (temporal S = 16 over 512
+// sequences, spatial S = 256 over 32), 10 us at 3.35 TB/s. The products take
+// 4 * S * S * D FLOPs a (sequence, head): 0.27 GFLOP a temporal b2 call, 4.3
+// GFLOP a spatial one, 4.3 us at the 989 TFLOP/s bf16 peak. Rounding P after
+// it is normalised needs the row's exact max and sum before the first P.V, so
+// wherever a row spans more than one 64-key chunk the scores are computed
+// twice: the spatial call really takes 6 * S * S * D, 6.4 GFLOP. At the rate
+// mma.sync reaches, the spatial call's products (and its two exp a score) set
+// the pace; the temporal call is its staging and its stores.
 //
-// What the design does about it: the layout of fused_attention.cu. One thread
-// owns one query row (q and the f32 accumulator in registers); k and v of the
-// block's (sequence, head) pairs sit in shared memory as f32 and are read as
-// broadcasts; a block holds 256 rows (one pair at S = 256, sixteen at S = 16).
-// The TPU kernel normalises p and rounds it to v's dtype before p v, which an
-// online softmax cannot reproduce, so the keys are walked twice: once for the
-// row max and sum, once for the rounded normalised weights times v. The scores
-// are recomputed in the second walk (6 * S * S * D FLOPs in all) rather than
-// kept, since 256 scores per thread do not fit in registers. Each tensor is
-// addressed as base + (b * S + i) * row_stride + h * D + d, so v may be a view
-// into the fused QKV projection.
+// bf16: a tensor-core kernel (flash_attention_mma.cuh), one launch, no
+// workspace, no atomics: the fused forward's design (fused_attention.cu)
+// without its LN and RoPE, on the same warp code (fa_mma::attend in
+// fused_attention_mma.cuh), with P normalised before its rounding at every S.
+// - Products: mma.sync m16n8k16, bf16 operands and f32 accumulators, ldmatrix
+//   (and .trans for V) from 144-byte shared-memory rows. Not wgmma: at S = 16
+//   a (sequence, head) is one 16-row tile, and a 64-row wgmma tile would waste
+//   3/4 of its products. Two adjacent 16 x 8 score accumulators are, as they
+//   stand, the A fragment of a 16-key step of P.V: P never leaves registers.
+// - Staging: cp.async straight into bf16 rows, 16 bytes a thread, from three
+//   base pointers with their own row strides, all of a block's rows in one
+//   group. Copies in groups (q with the first 64 keys, each further 64 keys,
+//   then v), each waited for inside the first walk where it is first read,
+//   measured no faster at S = 256 on the H100 (PERF.md), so there is one. A
+//   thread's pieces step down the rows by a fixed stride: no index is divided
+//   per copy (dividing by H and S per copy cost a fifth of the S = 16 calls).
+// - Geometry (the variant and the sequences a slab block from
+//   ops/flash_attention.py:flash_attention_plan, which is the fused forward's
+//   plan; warps and shared memory derived here as the fused forward does):
+//   * "slab" (S <= 64 and a sequence's rows within 100 KB): a block stages
+//     whole sequences, all heads (48 KB a sequence at S = 16), and a warp
+//     takes one head's 16-row query tile at a time: one chunk of keys, so the
+//     row's max and sum are at hand when P is rounded;
+//   * "tile" (otherwise): a block owns one (sequence, head) pair, a warp for
+//     each 16 query rows (16 warps, 110 KB at S = 256). Past 64 keys each warp
+//     walks the keys twice: a first walk for the exact max and sum, then the
+//     scores again, P normalised, rounded and multiplied by V.
+// - Epilogue: o leaves through the warp's own q rows in shared memory, 16
+//   bytes a lane, whole 128-byte rows of the (B, S, H, D) output.
+// Measured on the H100 (PERF.md, utils/kernel_phases.py --kernel 5): the
+// temporal call is paced by its staging, the spatial call by its products and
+// exps on 16 warps an SM, P.V the largest phase.
+// Roundings, as JAX's _fwd_kernel: scores and softmax in f32 (the scale
+// applied in the exp2 domain), the exact row max and sum, P normalised and
+// then rounded to bf16, P.V accumulated in f32, o rounded to bf16 once. Two
+// launches on the same inputs give the same bits.
+//
+// f32 keeps the first version on the CUDA cores: one thread owns one query row
+// (q and the f32 accumulator in registers); k and v of the block's (sequence,
+// head) pairs sit in shared memory as f32 and are read as broadcasts; a block
+// holds 256 rows (one pair at S = 256, sixteen at S = 16). The keys are walked
+// twice, once for the row max and sum, once for the rounded normalised weights
+// times v, recomputing the scores (6 * S * S * D FLOPs in all on the f32 pipe).
+// It backs the f32 card-vs-CPU phases of the "pallas" path.
 
+#include "flash_attention_mma.cuh"
 #include "flash_common.cuh"
 
 namespace {
@@ -144,17 +186,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out). mask: (B, S) uint8 key mask, or null.
 // *_stride: elements between rows (b, i) and (b, i + 1) of that tensor; out is contiguous.
+// variant, unit: the bf16 kernel's plan (slab 0 or tile 1; sequences a slab
+// block, 1 for a tile); the f32 kernel takes its geometry from the shape.
 extern "C" int vvt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const void* mask, void* out, long long q_stride,
                                        long long k_stride, long long v_stride, int B, int S, int H,
-                                       int head_dim, int dtype, void* stream) {
+                                       int head_dim, int dtype, int variant, int unit, void* stream) {
   if (head_dim != D || S < 1 || S > MAX_ROWS || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch<float>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H, st);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H,
-                                      st);
+  if (dtype == 1) {
+    using fa_mma::bf16;
+    const fa_mma::flash_fwd::Args a{
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), q_stride, k_stride, v_stride,
+        B, S, H, unit};
+    return (int)fa_mma::flash_fwd::launch_flash_mma(a, variant, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -41,6 +41,15 @@ dq̃ = dS·k̃ and dk̃ = dSᵀ·q̃, everything else f32, dqkv rounded once; it
 layout comes from :func:`fused_attention_bwd_plan`. f32 keeps the four-pass
 CUDA-core kernel through an f32 workspace, f32 throughout with one rounding.
 
+Roundings of the plain attention forward, by dtype. The plain version and
+both kernels round as the JAX package's ``_fwd_kernel``: f32 scores and
+softmax with the exact row max and sum, P normalised and then rounded to v's
+dtype, P·V accumulated in f32, one rounding of o. On the card, bf16 takes the
+tensor-core kernel, the fused forward's softmax without its LN and RoPE
+(walking the keys twice past 64 of them, for the exact max and sum first);
+its block layout comes from :func:`flash_attention_plan`. f32 keeps the
+CUDA-core kernel.
+
 Roundings of the plain attention backward, by dtype. The plain version is
 f32 throughout, each gradient rounded once. On the card, bf16 takes the
 tensor-core kernel, the fused backward's softmax backward without its LN and
@@ -83,7 +92,7 @@ FUSED_ATTENTION_BWD = CudaKernel(
 FLASH_ATTENTION = CudaKernel(
     "flash_attention.cu",
     "vvt_flash_attention_fwd",
-    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 )
 FLASH_ATTENTION_BWD = CudaKernel(
     "flash_attention_bwd.cu",
@@ -127,6 +136,21 @@ def fused_attention_plan(batch: int, seq: int, heads: int) -> tuple[str, int]:
         tiles = heads * rows16 // 16  # query tiles of one sequence
         return "slab", max(1, min(MMA_SLAB_WARPS // tiles, MMA_SLAB_MAX_SMEM // seq_smem, batch))
     return "tile", 1
+
+
+def flash_attention_plan(batch: int, seq: int, heads: int) -> tuple[str, int]:
+    """(variant, sequences a block) of the bf16 plain attention forward kernel
+    (``csrc/flash_attention_mma.cuh``): those of :func:`fused_attention_plan`.
+
+    ``"slab"`` where the sequence is at most 64 long and one sequence's q, k
+    and v rows fit ``MMA_SLAB_MAX_SMEM``: a block stages whole sequences, all
+    heads, and its warps (up to 8) take the 16-row query tiles in turn.
+    Otherwise ``"tile"``: a block stages one (sequence, head) pair with a warp
+    for each 16 query rows; past 64 keys each warp walks the keys twice, for
+    the exact row max and sum first. The C entry point derives the warps and
+    the shared memory from these and the shape.
+    """
+    return fused_attention_plan(batch, seq, heads)
 
 
 # The bf16 backward kernel (csrc/fused_attention_bwd_mma.cuh), in the forward's
@@ -590,17 +614,28 @@ def _mask_bytes(mask, device):
 
 
 def flash_attention_cuda(q, k, v, mask):
-    """Launch the forward kernel. ``mask`` is a (B, S) bool key mask or None."""
+    """Launch the forward kernel. ``mask`` is a (B, S) bool key mask or None.
+
+    bf16 takes the tensor-core kernel with the geometry of
+    :func:`flash_attention_plan`: one launch, no workspace, no atomics, the
+    roundings of :func:`flash_attention_plain` (P normalised with the exact
+    row max and sum, then rounded to bf16; P·V in f32; one rounding of o).
+    f32 takes the CUDA-core kernel, f32 throughout.
+    """
     b, s, h, d = _check_flash_args("flash_attention_cuda", q, k, v, mask)
     device = q.device
     (q, qs), (k, ks), (v, vs) = _rows_of_heads(q), _rows_of_heads(k), _rows_of_heads(v)
     mask = _mask_bytes(mask, device)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=device)
+    variant, unit = 0, 1  # the f32 kernel takes its geometry from the shape
+    if q.dtype == torch.bfloat16:
+        name, unit = flash_attention_plan(b, s, h)
+        variant = MMA_VARIANTS.index(name)
     with torch.cuda.device(device):
         FLASH_ATTENTION.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            qs, ks, vs, b, s, h, d, DTYPE_CODES[q.dtype],
+            qs, ks, vs, b, s, h, d, DTYPE_CODES[q.dtype], variant, unit,
             torch.cuda.current_stream(device).cuda_stream,
         )
     return out

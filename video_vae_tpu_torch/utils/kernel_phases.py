@@ -1,19 +1,20 @@
-"""What sets the pace of the bf16 attention backward kernels (#3, #6) and of
-the MLP sublayer kernel (#8).
+"""What sets the pace of the bf16 attention kernels (#3, #5, #6) and of the
+MLP sublayer kernel (#8).
 
-    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 3|6|8]
+    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 3|5|6|8]
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
 It builds copies of the kernel's source (#3, the default:
-``csrc/fused_attention_bwd.cu``; #6: ``csrc/flash_attention_bwd.cu``; #8:
-``csrc/fused_mlp.cu``) with one phase of its device code (its own headers:
-for #3 and #6 also the softmax backward they share in
-``csrc/fused_attention_mma_common.cuh``) cut out (a loop that runs no times, a
-call that is skipped, a load replaced by a constant; the outputs of a cut copy
-are wrong, only its time counts), all at once, into
-``video_vae_tpu_torch/_build/phases/``, and prints the device time per call
-of each copy: for #3 and #6 at each bf16 attention call of the flagship train
-step (``chip_smoke.device_ms``), for #8 at its N = 8192 and N = 4096 calls,
+``csrc/fused_attention_bwd.cu``; #5: ``csrc/flash_attention.cu``; #6:
+``csrc/flash_attention_bwd.cu``; #8: ``csrc/fused_mlp.cu``) with one phase of
+its device code (its own headers: for #3 and #6 also the softmax backward
+they share in ``csrc/fused_attention_mma_common.cuh``, for #5 the fused
+forward's ``csrc/fused_attention_mma.cuh``, whose softmax it runs) cut out (a
+loop that runs no times, a call that is skipped, a load replaced by a
+constant; the outputs of a cut copy are wrong, only its time counts), all at
+once, into ``video_vae_tpu_torch/_build/phases/``, and prints the device time
+per call of each copy: for #3, #5 and #6 at each bf16 attention call of the
+flagship train step (``chip_smoke.device_ms``), for #8 at its N = 8192 and N = 4096 calls,
 each of its three launches (``chip_smoke.device_launch_ms``). The time a phase
 takes is the full kernel's less the copy without it. Nothing here runs on
 import.
@@ -57,6 +58,18 @@ KERNELS = {
                          ("    store_rows(dv,", f"    if ({_NEVER}) store_rows(dv,")],
         "no_epilogue_tables": [(f"__ldg(reinterpret_cast<const float2*>({t} + d0{hi}))", "make_float2(0.5f, 0.25f)")
                                for t in ("c", "sn") for hi in ("", " + D / 2")],
+    }),
+    # the first walk over the keys (its products and exps), P.V, every exp, the
+    # output's stores, the staging copies
+    "5": ("flash_attention.cu", ("flash_attention_mma.cuh", "fused_attention_mma.cuh"), fa, "FLASH_ATTENTION", {
+        "full": [],
+        "no_first_walk": [("  if (two_pass) {\n    for (int c = 0; c < chunks; ++c) {",
+                           f"  if (two_pass) {{\n    for (int c = 0; c < chunks && {_NEVER}; ++c) {{")],
+        "no_pv": [("if (kk < steps) {", f"if (kk < steps && {_NEVER}) {{")],
+        "no_exp": [("exp2f(", "(")],
+        "no_stores": [("if (row0 + r < S)", f"if (row0 + r < S && {_NEVER})")],
+        "no_staging": [("p < 3 * H * 8; p += blockDim.x) {", f"p < 3 * H * 8 && {_NEVER}; p += blockDim.x) {{"),
+                       ("i < s16; i += row_step)", f"i < s16 && {_NEVER}; i += row_step)")],
     }),
     # slab blocks (S <= 64): the sides; tile blocks (S > 64): the statistics, the
     # key side's rounds (its recompute of the scores and dP), the dq tiles
@@ -138,6 +151,8 @@ def _attention_calls(kernel_id, dev):
             q, k, g_heads = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
 
             def call(q=q, k=k, v=v, mask=mask, g_heads=g_heads):
+                if kernel_id == "5":
+                    return fa.flash_attention_cuda(q, k, v, mask)
                 return fa.flash_attention_bwd_cuda(q, k, v, mask, g_heads)
         yield name, {"B": B, "S": S}, call
 
