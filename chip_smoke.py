@@ -21,7 +21,10 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    forward's and both attention backwards' the kernel's TFLOP/s too; the fused attention forward has an
    "attention-fwd" line per shape with its and SDPA's device time and its
    TFLOP/s and GB/s; the MLP sublayer's lines add the device time of each of
-   its three launches (token LN, xa·W1, a·W2) and each product's TFLOP/s.
+   its three launches (token LN, xa·W1, a·W2) and each product's TFLOP/s, the
+   attention sublayer's of each of its four (token LN, xa·Wqkv, the
+   attention, o·Wout; f32 x also the cast of o to bf16) and each product's
+   TFLOP/s.
    The fused attention forward and backward, the plain attention forward
    and backward, the MLP sublayer in both variants, the direct conv and the
    filter gradient give the same bits on two launches, and both attention
@@ -113,6 +116,14 @@ REPLACES = {
 }
 # the MLP kernel's three launches in order, by a part of each kernel's name
 MLP_LAUNCHES = ("token_ln_kernel", "gemm_kernel", "gemm_kernel")
+# the attention sublayer kernel's launches in order, by x's dtype: (label, a part of
+# the kernel's name); f32 o is cast to bf16 before the second product
+SUBLAYER_LAUNCHES = {
+    "bfloat16": (("ln", "token_ln_kernel"), ("qkv", "gemm_kernel"), ("attention", "attention"),
+                 ("out", "gemm_kernel")),
+    "float32": (("ln", "token_ln_kernel"), ("qkv", "gemm_kernel"), ("attention", "attention"),
+                ("cast", "o_to_bf16_kernel"), ("out", "gemm_kernel")),
+}
 # beside the nine kernels' counts: how many of the MLP kernel's launches wrote the residuals
 MLP_TRAINING_VARIANT = "vvt_fused_mlp, training variant"
 KNOBS = ("VVT_ATTN_SUBLAYER", "VVT_MLP_FUSED", "VVT_TAPDOT")
@@ -601,7 +612,9 @@ def phase_sublayer_kernel(cfg, dev, rows):
     bf16 weights. The bound counts x in, y out and the weights once (the
     inference variant) and the two projections plus the attention's products
     at the bf16 tensor-core peak, whatever x's dtype: the kernel's products
-    run on bf16 operands either way.
+    run on bf16 operands either way. Each line adds the device ms of each of
+    the kernel's launches from one profiler trace (``SUBLAYER_LAUNCHES``) and
+    each product's TFLOP/s.
     """
     import torch
     import torch.nn.functional as F
@@ -647,14 +660,19 @@ def phase_sublayer_kernel(cfg, dev, rows):
         torch.cuda.synchronize()
         if not torch.equal(y, got[0]):
             raise AssertionError(f"sublayer {name} {dtype}: the inference variant's y differs")
-        flops = 2.0 * B * S * C * 3 * HD + 2.0 * B * S * HD * C + 4.0 * H * S * keys * D
+        qkv_flops, out_flops = 2.0 * B * S * C * 3 * HD, 2.0 * B * S * HD * C
+        flops = qkv_flops + out_flops + 4.0 * H * S * keys * D
+        labels, names = zip(*SUBLAYER_LAUNCHES[dtype])
+        # the wrapper's casts of the f32 weights to bf16 count in device_ms only
+        launch_ms = dict(zip(labels, device_launch_ms(run, names)))
         _record(
             rows, fa.ATTENTION_SUBLAYER, f"{name} {dtype}", [B, S, C], dtype, err,
             time_ms(run, 10), time_ms(plain, 2), time_ms(library, 10),
             "layer_norm -> matmul -> scaled_dot_product_attention -> matmul, bf16 weights",
             bound_ms(nbytes(x, x, *w16, lng, lnb, mask), flops, "bfloat16"),
             per_path(per, **{"serving-sublayer": "serving", "train-sublayer": "train"}),
-            **device_times(run, library),
+            **device_times(run, library), launch_device_ms=launch_ms,
+            tflops={"qkv": qkv_flops / launch_ms["qkv"] / 1e9, "out": out_flops / launch_ms["out"] / 1e9},
         )
         del x, got, y
     torch.cuda.empty_cache()
@@ -1434,9 +1452,10 @@ def kernel_record(rows, launches_by_path):
     path (the default train step, or the train step of the path that runs it),
     each launch at the time of its shape's kernel check.
 
-    ``by_path`` holds the same sums for each path that runs the kernel; a path
-    stands there only if every launch it made of the kernel was at a shape the
-    kernel was held against its plain version at.
+    ``by_path`` holds the same sums for each path that runs the kernel (with
+    the profiler's device ms, and by launch, where each of its rows has them);
+    a path stands there only if every launch it made of the kernel was at a
+    shape the kernel was held against its plain version at.
     """
     from video_vae_tpu_torch.ops import KERNELS
 
@@ -1466,6 +1485,14 @@ def kernel_record(rows, launches_by_path):
                 "bound_by": "operations" if 2 * by_ops >= total("bound_ms") else "bytes",
                 "library_ms": total("library_ms"),
             }
+            for key in ("device_ms", "library_device_ms"):  # profiler sums where each row has one
+                if all(key in r for r in used):
+                    by_path[path][key] = total(key)
+            if all("launch_device_ms" in r for r in used):  # and by launch
+                by_path[path]["launch_device_ms"] = {
+                    label: sum(r["launch_device_ms"][label] * r["per_pass"][path] for r in used)
+                    for label in used[0]["launch_device_ms"]
+                }
         main = by_path[MAIN_PATH.get(kernel.symbol, "train")]
         out.append({
             "name": kernel.symbol, "route": "cuda",

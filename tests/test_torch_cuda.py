@@ -46,6 +46,7 @@ from video_vae_tpu_torch.ops.flash_attention import (
     fused_qkv_attention_cuda,
     fused_qkv_attention_plain,
     ln_affine,
+    matmul_f32,
 )
 from video_vae_tpu_torch.ops.fused_block import (
     FUSED_MLP,
@@ -813,11 +814,11 @@ def _sublayer_args(device, dtype, B, S, C, H, masked):
     return [a.to(device) for a in args], mask
 
 
+SUBLAYER_CASES = [(64, 16, 768, 8, True), (3, 256, 768, 8, False), (5, 37, 136, 3, True)]  # the last: ragged tiles
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "B,S,C,H,masked",
-    [(64, 16, 768, 8, True), (3, 256, 768, 8, False), (5, 37, 136, 3, True)],  # the last: ragged tiles
-)
+@pytest.mark.parametrize("B,S,C,H,masked", SUBLAYER_CASES)
 def test_attention_sublayer_kernel_matches_plain(device, dtype, B, S, C, H, masked):
     args, mask = _sublayer_args(device, dtype, B, S, C, H, masked)
     before, fused_before = ATTENTION_SUBLAYER.launches, FUSED_ATTENTION.launches
@@ -845,6 +846,48 @@ def test_attention_sublayer_backward_launches_fused_bwd_kernel(device):
     ref = torch.autograd.grad(fused_attention_sublayer(*cpu, mask.cpu(), 8), cpu, g.cpu())
     for a, b in zip(grads, ref):
         assert a.dtype == b.dtype and _rel_err(a.cpu(), b) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("B,S,C,H,masked", SUBLAYER_CASES)
+def test_attention_sublayer_bf16_attention_is_fused_attention(device, B, S, C, H, masked):
+    """bf16 x runs the fused attention's tensor-core kernel as it stands: the
+    sublayer's o is fused_qkv_attention_cuda's on the sublayer's own qkv, bit
+    for bit."""
+    args, mask = _sublayer_args(device, torch.bfloat16, B, S, C, H, masked)
+    _, qkv, o = fused_attention_sublayer_cuda(*args, mask, H)
+    before = FUSED_ATTENTION.launches
+    ref = fused_qkv_attention_cuda(qkv, args[5], args[6], mask, H)
+    torch.cuda.synchronize()
+    assert FUSED_ATTENTION.launches == before + 1 and torch.equal(o, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,C,H,masked", SUBLAYER_CASES)
+def test_attention_sublayer_kernel_same_bits_twice(device, dtype, B, S, C, H, masked):
+    """No split-K and no atomics: two launches give the same y, qkv and o."""
+    args, mask = _sublayer_args(device, dtype, B, S, C, H, masked)
+    out = fused_attention_sublayer_cuda(*args, mask, H)
+    again = fused_attention_sublayer_cuda(*args, mask, H)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y", "qkv", "o"), out, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("B,S,C,H,masked", SUBLAYER_CASES)
+def test_attention_sublayer_f32_reads_o_as_bf16(device, B, S, C, H, masked):
+    """f32 x: the out product reads the f32 o rounded to bf16, as the plain
+    version does. y matches a torch copy of that rule to f32 summation order,
+    and misses the same product on the unrounded o by far more."""
+    args, mask = _sublayer_args(device, torch.float32, B, S, C, H, masked)
+    x, wout, bout = args[0], args[7], args[8]
+    y, _, o = fused_attention_sublayer_cuda(*args, mask, H)
+    o2, w16 = o.reshape(B * S, -1), wout.to(torch.bfloat16)
+    rounded = x + (matmul_f32(o2.to(torch.bfloat16), w16) + bout).reshape(x.shape)
+    unrounded = x + (o2 @ w16.float() + bout).reshape(x.shape)
+    err = _rel_err(y, rounded)
+    print(f"sublayer f32 B={B} S={S}: y against o.to(bf16) {err:.3e}, against f32 o {_rel_err(y, unrounded):.3e}")
+    assert err <= TOL[torch.float32]
+    assert _rel_err(y, unrounded) > 10 * err
 
 
 def _mlp_args(device, dtype, rows, C, F):

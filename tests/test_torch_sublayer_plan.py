@@ -1,0 +1,68 @@
+"""Launch geometry of the attention sublayer kernel (``ops/flash_attention.py:sublayer_plan``).
+
+At every shape ``chip_smoke.py:phase_sublayer_kernel``, the card tests and
+``tiny_config`` give the kernel (the flagship's b2 and b1 temporal and
+spatial calls; (64, 16, 768, 8), (3, 256, 768, 8), the ragged (5, 37, 136,
+3) and the backward test's (6, 16, 768, 8); ``tiny_config``'s calls at its
+width in the kernel's 64-wide heads), both products on the GEMM of
+``csrc/gemm_sm90.cuh`` (xa · Wqkv and o · Wout) are walked as
+``tests/test_torch_mlp_plan.py`` walks the MLP's: the persistent blocks take
+every tile once, every output element has one owner, the shared memory and
+the grid stay within CUDA's limits, and the TMA boxes and strides keep TMA's
+rules. The attention's plan is :func:`fused_attention_plan`'s, and the
+arguments the C entry point takes are the plan's, in its order.
+"""
+
+import pytest
+
+import chip_smoke
+from test_torch_mlp_plan import _check_gemm
+from video_vae_tpu_torch import ModelConfig
+from video_vae_tpu_torch.core.config import tiny_config
+from video_vae_tpu_torch.ops.flash_attention import (
+    KERNEL_HEAD_DIM,
+    MMA_VARIANTS,
+    fused_attention_plan,
+    sublayer_plan,
+)
+from video_vae_tpu_torch.ops.fused_block import GEMM_BK
+
+FLAGSHIP = ModelConfig()
+TINY = tiny_config().model
+TINY_FRAMES = 8  # the CPU tests' clips: (2, 8, 32, 32, 3)
+CASES = sorted(
+    {(B, S, FLAGSHIP.embed_dim, FLAGSHIP.num_heads) for _, B, S, _, _, _ in chip_smoke.attention_cases(FLAGSHIP)}
+    | {(64, 16, 768, 8), (3, 256, 768, 8), (5, 37, 136, 3), (6, 16, 768, 8)}  # the card tests'
+    | {(2 * TINY.num_patches, TINY_FRAMES, TINY.embed_dim, TINY.num_heads),
+       (2 * TINY_FRAMES, TINY.num_patches, TINY.embed_dim, TINY.num_heads)}
+)
+TMA_MAX_DIM = 2**32  # a tensor map's global extent, each dimension
+
+
+@pytest.mark.parametrize("B,S,C,H", CASES)
+def test_sublayer_plan_at_the_kernel_shapes(B, S, C, H):
+    n, hd = B * S, H * KERNEL_HEAD_DIM
+    plan = sublayer_plan(B, S, C, H)
+    _check_gemm(plan.qkv, n, C, 3 * hd)
+    _check_gemm(plan.out, n, hd, C)
+    for gemm in (plan.qkv, plan.out):  # K in slabs, the last zero-filled past K
+        assert -(-gemm.k // GEMM_BK) * GEMM_BK >= gemm.k and max(gemm.n, gemm.k, gemm.m) < TMA_MAX_DIM
+    assert plan.attention == fused_attention_plan(B, S, H)
+    variant, unit = plan.attention
+    assert plan.args == (*plan.qkv.args, *plan.out.args, MMA_VARIANTS.index(variant), unit)
+
+
+def test_sublayer_plan_shares_the_card():
+    """A b2 call (N = 8192) takes 128 x 256 tiles for xa · Wqkv and 128 x 128
+    for o · Wout, 384 tiles each over 132 persistent blocks; at N = 4096 the
+    first takes 128 x 128 tiles and the second 96 tiles of 128 x 256 (one
+    wave); the ragged (5, 37, 136, 3) has K = 136: three slabs, the last zero past K."""
+    big = sublayer_plan(32, 256, 768, 8)
+    assert (big.qkv.bn, big.qkv.tiles, big.qkv.blocks) == (256, 384, 132)
+    assert (big.out.bn, big.out.tiles, big.out.blocks) == (128, 384, 132)
+    assert big.attention == ("tile", 1) and sublayer_plan(512, 16, 768, 8).attention[0] == "slab"
+    small = sublayer_plan(16, 256, 768, 8)
+    assert (small.qkv.bn, small.qkv.tiles) == (128, 384)
+    assert (small.out.bn, small.out.tiles, small.out.blocks) == (256, 96, 96)
+    ragged = sublayer_plan(5, 37, 136, 3)
+    assert (ragged.qkv.k, ragged.qkv.m, -(-ragged.qkv.k // GEMM_BK)) == (136, 576, 3)

@@ -2,13 +2,14 @@
 //   y = x + Wout . attention(qk-LN + RoPE(LN(x) . Wqkv + bqkv)) + bout
 //
 // Replaces: video_vae_tpu/ops/flash_attention.py, _sublayer_pallas -> _sublayer_kernel.
-// Roundings, as there: token LN with f32 statistics (E[x^2] - mean^2 clamped at
-// 0, eps 1e-6), xa = LN(x) * g + b rounded to bf16; Wqkv and Wout arrive as
-// bf16; qkv = xa . Wqkv (f32 accumulation) + bqkv rounded to x's dtype; the
-// attention of fused_attention.cu on that qkv, o in x's dtype (read as bf16 by
-// the second product); y = f32(x) + (o . Wout in f32 + bout), one rounding.
-// The training variant keeps qkv and o (the backward's residuals); the
-// inference variant writes them to scratch the caller drops.
+// Roundings: token LN with f32 statistics (E[x^2] - mean^2 clamped at 0,
+// eps 1e-6), xa = LN(x) * g + b rounded to bf16; Wqkv and Wout arrive as
+// bf16; qkv = xa . Wqkv (f32 accumulation) + bqkv rounded once to x's dtype;
+// the attention of fused_attention.cu on that qkv, o in x's dtype (bf16 qkv
+// takes #1's tensor-core rule: q~, k~ and P rounded to bf16); the second
+// product reads o as bf16; y = f32(x) + (o . Wout in f32 + bout), one
+// rounding. The training variant keeps qkv and o (the backward's residuals);
+// the inference variant writes them to scratch the caller drops.
 //
 // What bounds it on the H100: the two products are 2 * N * C * 3HD +
 // 2 * N * HD * C FLOPs (25.8 GFLOP at N = 8192 tokens, C = 768, HD = 512:
@@ -17,79 +18,134 @@
 //
 // What the design does about it: the TPU kernel keeps a tile of tokens in VMEM
 // through both products. Here one sequence's xa and qkv at S = 256 (1.2 MB) are
-// over a block's 227 KB, so the entry point enqueues four kernels on the
-// stream, with xa, qkv and o in device memory between them (they stay in the
-// 50 MB L2 at the model's sizes):
-//   1. token LN -> xa (bf16), one warp per token (gemm_bf16.cuh);
-//   2. qkv = xa . Wqkv + bqkv on the tensor cores (the wmma GEMM of
-//      gemm_bf16.cuh: a block owns a 128 x 128 output tile, 8 warps of
-//      64 x 32);
-//   3. the fused QK-norm + RoPE + attention kernel of fused_attention_core.cuh;
+// over a block's 227 KB, so the entry point enqueues four launches of device
+// code the port already runs elsewhere, with xa, qkv and o in device memory
+// between them (they stay in the 50 MB L2 at the model's sizes):
+//   1. token LN -> xa (bf16), one warp a token, x read once (gemm_sm90.cuh);
+//   2. qkv = xa . Wqkv + bqkv on the warp-specialised wgmma GEMM of
+//      gemm_sm90.cuh (TMA ring, two consumer warpgroups of m64nBNk16,
+//      persistent blocks), its EPI_BIAS epilogue rounding once;
+//   3. the attention: bf16 qkv takes #1's mma.sync kernel
+//      (fused_attention_mma.cuh, as fused_attention.cu launches it); f32 qkv
+//      the CUDA-core kernel of fused_attention_core.cuh, whose f32 o one more
+//      launch casts to a bf16 scratch, since TMA loads the A operand in bf16;
 //   4. y = x + o . Wout + bout, the same GEMM with the residual in its epilogue.
-// wgmma, TMA and a multi-stage pipeline are left for a later version.
+// The tile width, stages and grid of each product come from
+// ops/flash_attention.py:sublayer_plan (ops/fused_block.py:gemm_plan), the
+// attention's variant and sequences a block from fused_attention_plan; the
+// plan is held on the CPU by tests/test_torch_sublayer_plan.py.
+// Measured on the H100 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's
+// "kernel-check" lines, PERF.md): bf16, device ms summed over the 42 calls of
+// a train step 3.76 / 3.71 (two runs; LN 0.34, xa . Wqkv 1.18, the attention
+// 0.97, o . Wout 0.95, the wrapper's weight casts the rest), 4.0x its bound of
+// 0.94 and 1.7x ahead of layer_norm -> matmul -> SDPA -> matmul (6.42); over
+// a b2 serving pass 4.63 / 4.57 against 8.00. xa . Wqkv runs at 500-570
+// TFLOP/s, o . Wout at 205-240: its K = 512 is 8 slabs a tile, so filling the
+// ring and the epilogue weigh more.
 
 #include "fused_attention_core.cuh"
-#include "gemm_bf16.cuh"
+#include "fused_attention_mma.cuh"
+#include "gemm_sm90.cuh"
+
+#include <algorithm>
 
 namespace {
 
-using vvt_gemm::bf16;
-using vvt_gemm::EPI_BIAS;
-using vvt_gemm::EPI_RESIDUAL;
-using vvt_gemm::launch_gemm;
-using vvt_gemm::launch_token_ln;
+using vvt_sm90::bf16;
+using vvt_sm90::GemmPlan;
+
+constexpr int CAST_THREADS = 256;
+constexpr long long CAST_MAX_BLOCKS = 4096;
+
+// o16 = bf16(o), round to nearest even as torch's cast: 8 values a step.
+__global__ void __launch_bounds__(CAST_THREADS)
+o_to_bf16_kernel(const float* __restrict__ o, bf16* __restrict__ o16, long long vecs) {
+  for (long long i = (long long)blockIdx.x * CAST_THREADS + threadIdx.x; i < vecs;
+       i += (long long)gridDim.x * CAST_THREADS) {
+    float v[8];
+    vvt_sm90::load8(o + 8 * i, v);
+    vvt_sm90::store8(o16 + 8 * i, v);
+  }
+}
 
 template <typename T>
 cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, const void* ln_b,
                             const void* wqkv, const void* bqkv, const void* q_scale,
                             const void* k_scale, const void* cos_t, const void* sin_t,
                             const void* wout, const void* bout, void* y, void* qkv, void* o,
-                            void* xa, int B, int S, int C, int H, cudaStream_t stream) {
-  const long long n = (long long)B * S;
+                            void* xa, void* o16, int B, int S, int C, int H, GemmPlan qkv_plan,
+                            GemmPlan out_plan, int variant, int unit, cudaStream_t stream) {
+  const int n = B * S;
   const int HD = H * D;
   const T* xt = static_cast<const T*>(x);
   bf16* xa_t = static_cast<bf16*>(xa);
-  T* qkv_t = static_cast<T*>(qkv);
-  T* o_t = static_cast<T*>(o);
 
-  cudaError_t err = launch_token_ln<T>(xt, static_cast<const float*>(ln_g),
-                                       static_cast<const float*>(ln_b), xa_t, n, C, stream);
+  cudaError_t err = vvt_sm90::launch_token_ln<T>(xt, static_cast<const float*>(ln_g),
+                                                 static_cast<const float*>(ln_b), xa_t, n, C, stream);
   if (err != cudaSuccess) return err;
 
-  err = launch_gemm<bf16, T, EPI_BIAS>(xa_t, static_cast<const bf16*>(wqkv),
-                                       static_cast<const float*>(bqkv), nullptr, qkv_t, n, C, 3 * HD,
-                                       stream);
+  err = vvt_sm90::launch_gemm<vvt_sm90::EPI_BIAS, T>(
+      xa_t, static_cast<const bf16*>(wqkv), static_cast<const float*>(bqkv), nullptr,
+      static_cast<T*>(qkv), nullptr, n, C, 3 * HD, qkv_plan, stream);
   if (err != cudaSuccess) return err;
 
-  err = launch_fused_attention<T>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H, stream);
+  const bf16* o_bf16;
+  if constexpr (sizeof(T) == 2) {
+    err = fa_mma::launch_attention_mma(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H,
+                                       variant, unit, stream);
+    o_bf16 = static_cast<const bf16*>(o);
+  } else {
+    err = launch_fused_attention<float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H, stream);
+    if (err != cudaSuccess) return err;
+    const long long vecs = (long long)n * HD / 8;
+    const long long blocks = std::min<long long>((vecs + CAST_THREADS - 1) / CAST_THREADS, CAST_MAX_BLOCKS);
+    o_to_bf16_kernel<<<(unsigned)blocks, CAST_THREADS, 0, stream>>>(static_cast<const float*>(o),
+                                                                  static_cast<bf16*>(o16), vecs);
+    err = cudaGetLastError();
+    o_bf16 = static_cast<const bf16*>(o16);
+  }
   if (err != cudaSuccess) return err;
 
-  return launch_gemm<T, T, EPI_RESIDUAL>(o_t, static_cast<const bf16*>(wout),
-                                         static_cast<const float*>(bout), xt, static_cast<T*>(y), n,
-                                         HD, C, stream);
+  return vvt_sm90::launch_gemm<vvt_sm90::EPI_RESIDUAL, T>(
+      o_bf16, static_cast<const bf16*>(wout), static_cast<const float*>(bout), xt,
+      static_cast<T*>(y), nullptr, n, HD, C, out_plan, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, y, qkv, o). x, y: (B, S, C); qkv: (B, S, 3*H*D);
-// o: (B, S, H*D); xa: bf16 scratch (B, S, C). ln_g, ln_b, bqkv, bout, q_scale, k_scale,
-// cos_t, sin_t: f32. wqkv (C, 3*H*D) and wout (H*D, C): bf16, row-major.
-// mask: (B, S) uint8 key mask, or null. C a multiple of 8. Every pointer 16-byte aligned.
+// o: (B, S, H*D); xa: bf16 scratch (B, S, C); o16: bf16 scratch (B, S, H*D) for
+// float32 x, null for bfloat16. ln_g, ln_b, bqkv, bout, q_scale, k_scale, cos_t,
+// sin_t: f32. wqkv (C, 3*H*D) and wout (H*D, C): bf16, row-major. mask: (B, S)
+// uint8 key mask, or null. C a multiple of 8; B * S below 2^31. Every pointer
+// 16-byte aligned. qkv_* and out_*: the plan of the first (xa . Wqkv) and the
+// second (o . Wout) product: tile width, stages, blocks and shared-memory bytes;
+// variant, unit: the bf16 attention's (ops/flash_attention.py:sublayer_plan).
 extern "C" int vvt_attention_sublayer(const void* x, const void* mask, const void* ln_g,
                                       const void* ln_b, const void* wqkv, const void* bqkv,
                                       const void* q_scale, const void* k_scale, const void* cos_t,
                                       const void* sin_t, const void* wout, const void* bout,
-                                      void* y, void* qkv, void* o, void* xa, int B, int S, int C,
-                                      int H, int head_dim, int dtype, void* stream) {
-  if (head_dim != D || S < 1 || S > MAX_ROWS || B < 1 || H < 1 || C < 8 || C % 8)
+                                      void* y, void* qkv, void* o, void* xa, void* o16, int B,
+                                      int S, int C, int H, int head_dim, int dtype, int qkv_bn,
+                                      int qkv_stages, int qkv_blocks, int qkv_smem, int out_bn,
+                                      int out_stages, int out_blocks, int out_smem, int variant,
+                                      int unit, void* stream) {
+  if (head_dim != D || S < 1 || S > MAX_ROWS || B < 1 || H < 1 || C < 8 || C % 8 ||
+      (long long)B * S > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  const GemmPlan qkv_plan{qkv_bn, qkv_stages, qkv_blocks, qkv_smem};
+  const GemmPlan out_plan{out_bn, out_stages, out_blocks, out_smem};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0) {
+    if (o16 == nullptr) return (int)cudaErrorInvalidValue;
     return (int)launch_sublayer<float>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t,
-                                       sin_t, wout, bout, y, qkv, o, xa, B, S, C, H, st);
+                                       sin_t, wout, bout, y, qkv, o, xa, o16, B, S, C, H, qkv_plan,
+                                       out_plan, variant, unit, st);
+  }
   if (dtype == 1)
     return (int)launch_sublayer<bf16>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t,
-                                      sin_t, wout, bout, y, qkv, o, xa, B, S, C, H, st);
+                                      sin_t, wout, bout, y, qkv, o, xa, o16, B, S, C, H, qkv_plan,
+                                      out_plan, variant, unit, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,8 @@
 // Device code of the first, CUDA-core version of the fused QK-norm + RoPE +
 // attention forward: the f32 path of fused_attention.cu (whose bf16 path is the
-// tensor-core kernel of fused_attention_mma.cuh) and the attention core of
-// attention_sublayer.cu in both dtypes (the same attention between the
-// sublayer's two projections). One thread owns one query row, f32 throughout;
+// tensor-core kernel of fused_attention_mma.cuh) and the attention of
+// attention_sublayer.cu for f32 x (the same attention between the sublayer's
+// two projections). One thread owns one query row, f32 throughout;
 // the kernel design notes are in fused_attention.cu.
 // launch_fused_attention<T>() enqueues the kernel on a stream and returns the
 // launch's cudaError_t.

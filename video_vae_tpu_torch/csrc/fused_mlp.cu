@@ -40,12 +40,9 @@ namespace {
 using vvt_sm90::bf16;
 using vvt_sm90::EPI_RESIDUAL;
 using vvt_sm90::EPI_SILU;
+using vvt_sm90::GemmPlan;
 using vvt_sm90::launch_gemm;
 using vvt_sm90::launch_token_ln;
-
-struct GemmPlan {
-  int bn, stages, blocks, smem;
-};
 
 template <typename T>
 cudaError_t launch_mlp(const void* x, const void* ln_g, const void* ln_b, const void* w1,
@@ -62,14 +59,12 @@ cudaError_t launch_mlp(const void* x, const void* ln_g, const void* ln_b, const 
 
   err = launch_gemm<EPI_SILU, bf16>(xa_t, static_cast<const bf16*>(w1),
                                     static_cast<const float*>(b1), nullptr, a_t,
-                                    static_cast<bf16*>(h), n, C, F, up.bn, up.stages, up.blocks,
-                                    up.smem, stream);
+                                    static_cast<bf16*>(h), n, C, F, up, stream);
   if (err != cudaSuccess) return err;
 
   return launch_gemm<EPI_RESIDUAL, T>(a_t, static_cast<const bf16*>(w2),
                                       static_cast<const float*>(b2), xt, static_cast<T*>(y),
-                                      nullptr, n, F, C, down.bn, down.stages, down.blocks,
-                                      down.smem, stream);
+                                      nullptr, n, F, C, down, stream);
 }
 
 }  // namespace

@@ -65,14 +65,18 @@ through an f32 workspace, f32 throughout with one rounding.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
 from video_vae_tpu_torch.ops._build import DTYPE_CODES, CudaKernel
 from video_vae_tpu_torch.ops.norm import LN_EPS
 from video_vae_tpu_torch.ops.rope import rope_tables, rotate_half
+
+if TYPE_CHECKING:
+    from video_vae_tpu_torch.ops.fused_block import GemmPlan
 
 NEG_INF = -1e30  # the masked score of the JAX kernels
 KERNEL_HEAD_DIM = 64
@@ -102,7 +106,7 @@ FLASH_ATTENTION_BWD = CudaKernel(
 ATTENTION_SUBLAYER = CudaKernel(
     "attention_sublayer.cu",
     "vvt_attention_sublayer",
-    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 17 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
 )
 
 # rows of the f32 backward's LN/RoPE pass per block: its dscale partials are (blocks, D)
@@ -702,6 +706,40 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.float(), b.float())
 
 
+@dataclasses.dataclass(frozen=True)
+class SublayerPlan:
+    """The attention sublayer kernel's geometry: its two products on the GEMM
+    of ``csrc/gemm_sm90.cuh`` and its bf16 attention's plan."""
+
+    qkv: GemmPlan  # xa · Wqkv: (N, C) · (C, 3·H·D)
+    out: GemmPlan  # o · Wout: (N, H·D) · (H·D, C)
+    attention: tuple[str, int]  # fused_attention_plan's (variant, sequences a block)
+
+    @property
+    def args(self) -> tuple[int, ...]:
+        """The fields the C entry point takes, in its order."""
+        variant, unit = self.attention
+        return (*self.qkv.args, *self.out.args, MMA_VARIANTS.index(variant), unit)
+
+
+@functools.lru_cache(maxsize=64)
+def sublayer_plan(batch: int, seq: int, width: int, heads: int, sms: Optional[int] = None) -> SublayerPlan:
+    """The geometry of the sublayer kernel for ``batch`` sequences of ``seq``
+    tokens of width ``width`` and ``heads`` heads of 64: each product's
+    ``fused_block.gemm_plan`` (for ``sms`` SMs, the H100's 132 by default) and
+    the attention's :func:`fused_attention_plan`. The f32 attention kernel
+    takes its geometry from the shape and ignores the latter."""
+    from video_vae_tpu_torch.ops.fused_block import H100_SMS, gemm_plan  # fused_block imports this module
+
+    n, hd = batch * seq, heads * KERNEL_HEAD_DIM
+    sms = sms or H100_SMS
+    return SublayerPlan(
+        qkv=gemm_plan(n, width, 3 * hd, sms),
+        out=gemm_plan(n, hd, width, sms),
+        attention=fused_attention_plan(batch, seq, heads),
+    )
+
+
 class _AttentionSublayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, wqkv, bqkv, q_scale, k_scale, wout, bout, mask,
@@ -817,7 +855,10 @@ def fused_attention_sublayer_cuda(
     """Launch the sublayer kernel: (y, qkv, o), the last two in x's dtype.
 
     ``mask`` is a (B, S) bool key mask or None. The weights are cast to bf16
-    here, outside the kernel, as the JAX wrapper does.
+    here, outside the kernel, as the JAX wrapper does; the geometry is
+    :func:`sublayer_plan`'s for this card's SMs. bf16 x takes the fused
+    attention's tensor-core kernel, f32 x its CUDA-core kernel, whose o the
+    kernel casts to a bf16 scratch for the second product.
     """
     if not x.is_cuda:
         raise ValueError("fused_attention_sublayer_cuda needs a CUDA tensor")
@@ -857,14 +898,20 @@ def fused_attention_sublayer_cuda(
     qkv = torch.empty((b, s, 3 * hd), dtype=x.dtype, device=device)
     o = torch.empty((b, s, hd), dtype=x.dtype, device=device)
     xa = torch.empty((b, s, c), dtype=torch.bfloat16, device=device)
-    if any(t.data_ptr() % 16 for t in (x, wq, wo, y, qkv, o, xa)):
+    o16 = torch.empty((b, s, hd), dtype=torch.bfloat16, device=device) if x.dtype == torch.float32 else None
+    tensors = (x, wq, wo, y, qkv, o, xa) + (() if o16 is None else (o16,))
+    if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the sublayer kernel needs 16-byte aligned tensors")
+    if b * s >= 2**31:
+        raise ValueError(f"the sublayer kernel takes fewer than 2^31 tokens, got {b * s}")
+    plan = sublayer_plan(b, s, c, num_heads, torch.cuda.get_device_properties(device).multi_processor_count)
     with torch.cuda.device(device):
         ATTENTION_SUBLAYER.launch(
             x.data_ptr(), None if mask is None else mask.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
             wq.data_ptr(), bq.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), y.data_ptr(), qkv.data_ptr(), o.data_ptr(), xa.data_ptr(),
-            b, s, c, num_heads, d, DTYPE_CODES[x.dtype],
+            None if o16 is None else o16.data_ptr(),
+            b, s, c, num_heads, d, DTYPE_CODES[x.dtype], *plan.args,
             torch.cuda.current_stream(device).cuda_stream,
         )
     return y, qkv, o
