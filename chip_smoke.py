@@ -24,10 +24,13 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    its three launches (token LN, xa·W1, a·W2) and each product's TFLOP/s, the
    attention sublayer's of each of its four (token LN, xa·Wqkv, the
    attention, o·Wout; f32 x also the cast of o to bf16) and each product's
-   TFLOP/s.
+   TFLOP/s; the tap-dot conv's of its launches (the channels-last copies,
+   the GEMM), with a "tapdot-vs-direct" line per shape beside the direct
+   conv's (#2's) device time and TFLOP/s on the same operands.
    The fused attention forward and backward, the plain attention forward
-   and backward, the MLP sublayer in both variants, the direct conv and the
-   filter gradient give the same bits on two launches, and both attention
+   and backward, the MLP sublayer in both variants, the direct conv, the
+   tap-dot conv and the filter gradient give the same bits on two launches,
+   and both attention
    forwards and both backwards are held at a sequence whose keys are all
    masked;
 2. runs the serving pass (encode → keep/drop → fill-blend → decode) at the
@@ -45,7 +48,9 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
 4. runs one float32 train step (RL forward, the full objective with the VGG
    perceptual loss, backward) at the flagship width and depth 1 on the card
    and on the CPU with the same weights and random draws, and compares the
-   loss, every metric and every parameter's gradient;
+   loss, every metric and every parameter's gradient; likewise one train
+   step with ``selection_mode="ste"``, one with ``scan_rollout_decode=True``
+   and the eval step's metrics (``psnr_sampled`` too);
 5. runs the full-depth flagship train step in bfloat16 on 1 clip × 16
    frames (remat off) on each of the four paths: counts every kernel's
    launches in one step, checks the loss, the gradient norm and the update,
@@ -85,6 +90,11 @@ FORWARD_F32_TOL = 1e-4
 # step to against the JAX package (loss and metrics; the perceptual term,
 # whose VGG runs in bf16; every gradient against its leaf's largest value)
 TRAIN_F32_TOL, PERCEPTUAL_F32_TOL, GRAD_F32_TOL = 1e-4, 1e-3, 1e-3
+# a leaf whose true gradient is 0 (the selection head's biases, some conv biases)
+# is rounding noise on both sides: under this share of the step's largest
+# gradient on the CPU, it is held to stay under it on the card (the rule of the
+# CPU train-step tests)
+ZERO_GRAD_TOL = 1e-6
 # keep decisions are compared only where no probability sits near its uniform
 MIN_MARGIN = 0.02
 # published H100 SXM peaks the bounds are taken against
@@ -116,6 +126,9 @@ REPLACES = {
 }
 # the MLP kernel's three launches in order, by a part of each kernel's name
 MLP_LAUNCHES = ("token_ln_kernel", "gemm_kernel", "gemm_kernel")
+# the tap-dot kernel's launches in order: a channels-last copy of each of up to two
+# sources, then the GEMM (a call with one source makes the last two)
+TAPDOT_LAUNCHES = ("channels_last_kernel", "channels_last_kernel", "tapdot_kernel")
 # the attention sublayer kernel's launches in order, by x's dtype: (label, a part of
 # the kernel's name); f32 o is cast to bf16 before the second product
 SUBLAYER_LAUNCHES = {
@@ -871,8 +884,13 @@ def phase_mlp_kernel(cfg, dev, rows):
 def phase_tapdot_kernel(cfg, dev, rows):
     """The tap-dot conv against its plain version at every shape the gate sends
     it on the tap-dot path (forward convs, one and two sources, and input
-    gradients), and once with the pooled second output. The library yardstick
-    is ``F.conv3d`` on the concatenated input."""
+    gradients), and once with the pooled second output; two launches give the
+    same bits. The library yardstick is ``F.conv3d`` on the concatenated input.
+    Each line adds the device ms of the kernel's launches (the channels-last
+    copy of each source, then the GEMM; the wrapper's weight layout counts in
+    ``device_ms`` only) and, on a "tapdot-vs-direct" line, the direct conv
+    kernel's (#2, which the gate would take with the knob off) device ms and
+    TFLOP/s on the same operands."""
     import torch
     import torch.nn.functional as F
 
@@ -901,19 +919,33 @@ def phase_tapdot_kernel(cfg, dev, rows):
             per["train-tapdot"] = per.get("train-tapdot", 0) + dgrad[key]
 
         out = conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias)
+        again = conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias)
         torch.cuda.synchronize()
         ref = conv3d.conv3d_tapdot_plain(xs[0], x2, kernel, bias, pool=pool)
         name = f"{'+'.join(map(str, cins))}->{cout} @{h}x{w}"
         err = check_close(f"tapdot {name}", out, ref[0] if pool else ref, dtype)
+        if not torch.equal(out, again):  # no split-K, no atomics: the same bits on every run
+            raise AssertionError(f"tapdot {name}: two launches gave different bits")
+        del again
+        times = device_times(lambda: conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias),
+                             lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=(0, k[1] // 2, k[2] // 2)), flops)
+        *copies, gemm = device_launch_ms(lambda: conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias),
+                                         TAPDOT_LAUNCHES[-len(xs) - 1:])
+        direct_ms = device_ms(lambda: conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias), 10)
+        log("tapdot-vs-direct", json.dumps({
+            "case": name, "launches_per_step": per.get("train-tapdot", 0), "tapdot_device_ms": times["device_ms"],
+            "tapdot_tflops": times["tflops"], "direct_device_ms": direct_ms, "direct_tflops": flops / direct_ms / 1e9,
+            "cudnn_device_ms": times["library_device_ms"],
+            "cudnn_tflops": flops / times["library_device_ms"] / 1e9,
+        }))
         _record(
             rows, conv3d.CONV3D_TAPDOT, name, [BATCH, FRAMES, list(cins), h, w, cout, list(k)], dtype, err,
             time_ms(lambda: conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias), 5),
             time_ms(lambda: conv3d.conv3d_tapdot_plain(xs[0], x2, kernel, bias), 1, warmup=0),
             time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=(0, k[1] // 2, k[2] // 2)), 5),
             "torch.nn.functional.conv3d (cuDNN), concatenated input",
-            bound_ms(nbytes(*xs, kernel, bias, out), flops, dtype), per,
-            **device_times(lambda: conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias),
-                           lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=(0, k[1] // 2, k[2] // 2)), flops),
+            bound_ms(nbytes(*xs, kernel, bias, out), flops, dtype), per, **times,
+            launch_device_ms={"copy": sum(copies), "gemm": gemm}, direct_device_ms=direct_ms,
         )
         if pool:
             full, pooled = conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias, pool=True)
@@ -1247,18 +1279,28 @@ def profile_device(label: str, run, ms_per_run: float, passes: int = 3):
             log(f"profile-{label}-op {ms:9.4f} ms/run {kernels:6.1f} kernels  {key}")
 
 
-def _draws(model, video, mask, seed):
-    """Latent noise and Bernoulli uniforms from ``seed``, with no near-tie keep decision."""
+def _draws(model, video, mask, seed, rollouts_differ=False):
+    """Latent noise and Bernoulli uniforms from ``seed``, with no near-tie keep decision.
+
+    With ``rollouts_differ`` the two rollouts of a clip also keep different
+    frames of the clip: where they keep the same ones, the REINFORCE advantage
+    is 0 and the selection head's gradient is exactly 0, which leaves a
+    card-vs-CPU comparison of that gradient nothing but rounding to compare.
+    """
     import torch
 
     with torch.no_grad():
         mean, _, prob = model.encode(video, mask)
-    p = prob.float().repeat_interleave(2, dim=0)[..., None]
+    p = prob.float().repeat_interleave(2, dim=0)[..., None].cpu()
+    valid = mask.cpu()[..., None, None] > 0
     for s in range(seed, seed + 100):
         gen = torch.Generator().manual_seed(s)
         noise = torch.randn(mean.shape, generator=gen)
         uniforms = torch.rand(p.shape, generator=gen)
-        if (uniforms - p.cpu()).abs().min() > MIN_MARGIN:
+        keep = uniforms < p
+        if rollouts_differ and torch.equal(keep[0::2][valid], keep[1::2][valid]):
+            continue
+        if (uniforms - p).abs().min() > MIN_MARGIN:
             return noise, uniforms
     raise AssertionError("no draw without a near-tie keep decision")
 
@@ -1313,6 +1355,93 @@ def phase_f32_train(dev):
         "tols": [TRAIN_F32_TOL, PERCEPTUAL_F32_TOL, GRAD_F32_TOL],
     }))
     del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+
+
+def _ste_uniforms(model, video, mask, seed):
+    """(b, t, 1) uniforms for the ``"ste"`` gate whose noisy sigmoid stays clear of 0.5."""
+    import torch
+
+    with torch.no_grad():
+        logits = torch.logit(model.encode(video, mask)[2].float().cpu())
+    for s in range(seed, seed + 100):
+        uniforms = torch.rand(logits.shape, generator=torch.Generator().manual_seed(s))
+        gate = torch.sigmoid(logits + torch.log(uniforms / (1 - uniforms)))
+        if (gate - 0.5).abs().min() > MIN_MARGIN:
+            return uniforms
+    raise AssertionError("no draw without a near-tie ste gate")
+
+
+def phase_f32_modes(dev):
+    """Flagship width, depth 1, b1 x 4 frames, float32, card against CPU: one train
+    step with ``selection_mode="ste"``, one with ``scan_rollout_decode=True``
+    (each: loss, metrics, every gradient), and the eval step's metrics with
+    ``psnr_sampled``, under :func:`phase_f32_train`'s bounds; a gradient that
+    is rounding noise on the CPU (``ZERO_GRAD_TOL``) is held to stay noise."""
+    import torch
+
+    from video_vae_tpu_torch import DynamicHParams, LossConfig, ModelConfig, VideoVAE, eval_step
+    from video_vae_tpu_torch.losses import make_perceptual_loss_fn
+    from video_vae_tpu_torch.models.vgg import load_vgg
+    from video_vae_tpu_torch.train.step import loss_and_grads
+
+    loss_cfg, hp = LossConfig(), DynamicHParams.default()
+    modes = (("ste", {"selection_mode": "ste"}), ("scan_rollout_decode", {"scan_rollout_decode": True}),
+             ("eval_step", {}))
+    for label, overrides in modes:
+        cfg = ModelConfig(dtype="float32", encoder_depth=1, decoder_depth=1, remat=False, **overrides)
+        cpu_model = VideoVAE(cfg, device="cpu", seed=11)
+        gen = torch.Generator().manual_seed(12)
+        random_final_conv(cpu_model, gen)
+        gpu_model = VideoVAE(cfg, device=dev, seed=11)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        video = torch.rand(1, 4, cfg.height, cfg.width, cfg.channels, generator=gen)
+        mask = torch.ones(1, 4)
+        mask[0, 3:] = 0
+        if label == "ste":
+            noise, _ = _draws(cpu_model, video, mask, seed=13)
+            uniforms = _ste_uniforms(cpu_model, video, mask, seed=13)
+        else:
+            noise, uniforms = _draws(cpu_model, video, mask, seed=13, rollouts_differ=True)
+        results = {}
+        for name, model, device in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
+            perceptual = make_perceptual_loss_fn(load_vgg(None, device=device))
+            draws = {"noise": noise.to(device), "uniforms": uniforms.to(device)}
+            if label == "eval_step":
+                metrics = eval_step(model, video.to(device), mask.to(device), hp, loss_cfg, perceptual, **draws)
+                grads = []
+            else:
+                _, metrics, grads = loss_and_grads(model, video.to(device), mask.to(device), hp, loss_cfg,
+                                                   perceptual, **draws)
+            results[name] = ({k: float(v.detach()) for k, v in metrics.items()}, [g.cpu() for g in grads])
+        (m_cpu, g_cpu), (m_gpu, g_gpu) = results["cpu"], results["gpu"]
+        errs = {}
+        for key, ref in m_cpu.items():
+            tol = PERCEPTUAL_F32_TOL if key == "perceptual_loss" else TRAIN_F32_TOL
+            scale = 1.0 if key == "rl_loss" else abs(ref)  # rl_loss is 0 up to rounding
+            errs[key] = abs(m_gpu[key] - ref) / scale if scale else abs(m_gpu[key] - ref)
+            if not abs(m_gpu[key] - ref) <= tol * scale:
+                raise AssertionError(f"f32 {label} {key}: card {m_gpu[key]} vs CPU {ref}")
+        worst = (0.0, "")
+        scale = max((float(b.abs().max()) for b in g_cpu), default=0.0)
+        for (name, _), a, b in zip(cpu_model.named_parameters(), g_gpu, g_cpu):
+            if float(b.abs().max()) <= ZERO_GRAD_TOL * scale:
+                if not float(a.abs().max()) <= ZERO_GRAD_TOL * scale:
+                    raise AssertionError(f"f32 {label} gradient {name}: {float(a.abs().max())} on the card where "
+                                         f"the CPU's is rounding noise (<= {ZERO_GRAD_TOL} * {scale})")
+                continue
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            if not rel <= GRAD_F32_TOL:
+                raise AssertionError(f"f32 {label} gradient {name}: relative error {rel} > {GRAD_F32_TOL}")
+            worst = max(worst, (rel, name))
+        log(f"f32-{label}", json.dumps({
+            "config": f"flagship width, encoder/decoder depth 1, b1 x 4 frames (1 padded), perceptual on, {overrides}",
+            "metrics_cpu": m_cpu, "metric_rel_err": errs, "worst_grad_rel_err": worst[0],
+            "worst_grad_leaf": worst[1], "leaves": len(g_cpu),
+            "leaves_at_rounding_noise": sum(float(b.abs().max()) <= ZERO_GRAD_TOL * scale for b in g_cpu),
+            "tols": [TRAIN_F32_TOL, PERCEPTUAL_F32_TOL, GRAD_F32_TOL, ZERO_GRAD_TOL],
+        }))
+        del cpu_model, gpu_model
     torch.cuda.empty_cache()
 
 
@@ -1485,7 +1614,7 @@ def kernel_record(rows, launches_by_path):
                 "bound_by": "operations" if 2 * by_ops >= total("bound_ms") else "bytes",
                 "library_ms": total("library_ms"),
             }
-            for key in ("device_ms", "library_device_ms"):  # profiler sums where each row has one
+            for key in ("device_ms", "library_device_ms", "direct_device_ms"):  # profiler sums where each row has one
                 if all(key in r for r in used):
                     by_path[path][key] = total(key)
             if all("launch_device_ms" in r for r in used):  # and by launch
@@ -1578,6 +1707,7 @@ def main() -> int:
     log("seconds", json.dumps({"serving paths": time.monotonic() - started}))
     started = time.monotonic()
     phase_f32_train(dev)
+    phase_f32_modes(dev)
     for path in FLAGSHIP_PATHS:
         launches[path_name("train", path)], ref = phase_train(
             cfg.replace(remat=False), dev, path, train_ref,

@@ -1048,6 +1048,39 @@ def test_tapdot_kernel_matches_plain(device, shape, cins, cout, k, pool):
         assert a.dtype == dtype and a.shape == r.shape and _rel_err(a, r) <= TOL[dtype]
 
 
+# the convs the gate sends to the tap-dot kernel on the tap-dot model (forward
+# convs and input gradients; chip_smoke.tapdot_launches), and cout = 64 at 256^2
+# from one source
+TAPDOT_MODEL_SHAPES = [  # (h, w), source channels, cout
+    ((128, 128), (128,), 128), ((128, 128), (128, 128), 128), ((256, 256), (64, 64), 64),
+    ((128, 128), (128,), 64), ((128, 128), (128,), 256), ((256, 256), (128,), 64),
+]
+
+
+@pytest.mark.parametrize("pool", [False, True])
+@pytest.mark.parametrize("hw,cins,cout", TAPDOT_MODEL_SHAPES)
+def test_tapdot_kernel_at_the_model_shapes(device, hw, cins, cout, pool):
+    """b1 x 1 frame of each shape against the plain version; two launches give
+    the same bits; the pooled variant's full output is the unpooled call's."""
+    h, w = hw
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cpu").manual_seed(sum(cins) + cout + h)
+    xs = [torch.randn(1, 1, c, h, w, generator=gen).to(device, dtype) for c in cins]
+    kernel = (torch.randn(1, 3, 3, sum(cins), cout, generator=gen) / (sum(cins) * 9) ** 0.5).to(device, dtype)
+    bias = torch.randn(cout, generator=gen).to(device)
+    x2 = xs[1] if len(xs) == 2 else None
+    out = conv3d_tapdot_cuda(xs[0], x2, kernel, bias, pool=pool)
+    again = conv3d_tapdot_cuda(xs[0], x2, kernel, bias, pool=pool)
+    unpooled = conv3d_tapdot_cuda(xs[0], x2, kernel, bias)
+    torch.cuda.synchronize()
+    ref = conv3d_tapdot_plain(xs[0], x2, kernel, bias, pool=pool)
+    outs, agains, refs = (t if pool else (t,) for t in (out, again, ref))
+    for a, b, r in zip(outs, agains, refs):
+        assert a.dtype == dtype and a.shape == r.shape and _rel_err(a, r) <= TOL[dtype]
+        assert torch.equal(a, b)
+    assert torch.equal(outs[0], unpooled)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "shape,cin,cout,k", [((1, 2, 64, 64), 12, 16, (3, 3, 3)), ((2, 2, 18, 44), 5, 19, (1, 3, 5))]

@@ -1,7 +1,6 @@
 // The halo'd input window of one conv tile, staged TRANSPOSED in shared memory:
 // [row][column][channel], the CK = 16 channels of a pixel in one 32-byte line.
-// Shared by the tap-dot conv (conv3d_tapdot.cu) and the bf16 filter gradient
-// (conv3d_wgrad.cu).
+// Used by the bf16 filter gradient (conv3d_wgrad.cu).
 //
 // A tile is TH x TW output pixels of one frame; its window is (TH + kh - 1) x
 // (TW + kw - 1) pixels of one 16-channel chunk, zero outside the frame and past

@@ -15,9 +15,12 @@ tensor takes the CUDA kernel or the call raises.
   (read at every call, the JAX package's knob) and a conv that
   :func:`tapdot_supported` accepts (kt = 1, at least 128 input channels, a
   frame at least 128 wide, bf16), ``csrc/conv3d_tapdot.cu``: one tensor-core
-  product per spatial tap. ``csrc/conv3d.cu`` takes bf16 to its tensor-core
-  implicit GEMM (``csrc/conv3d_mma.cuh``: mma.sync with f32 accumulators over
-  every tap and input channel, the bias, one rounding; warp-specialised, with
+  product per spatial tap, a wgmma implicit GEMM fed by TMA from a
+  channels-last copy of the input (tiles, rings and store route from
+  :func:`tapdot_plan`, held by ``tests/test_torch_tapdot_plan.py`` on the
+  CPU). ``csrc/conv3d.cu`` takes bf16 to its tensor-core implicit GEMM
+  (``csrc/conv3d_mma.cuh``: mma.sync with f32 accumulators over every tap
+  and input channel, the bias, one rounding; warp-specialised, with
   the input window copied by cp.async a stage ahead and transposed in shared
   memory; launch geometry from :func:`conv_plan`, held by
   ``tests/test_torch_conv_plan.py`` on the CPU) at every shape it accepts, and
@@ -27,8 +30,8 @@ tensor takes the CUDA kernel or the call raises.
 * filter gradient: ``csrc/conv3d_wgrad.cu`` over one or two sources (the
   UpBlock's skip concat is never built): bf16 inputs take its tensor-core
   implicit GEMM (wmma, f32 accumulators, the input window staged by
-  ``csrc/conv_window.cuh``, shared with the tap-dot conv; launch geometry from
-  :func:`wgrad_plan`), f32 inputs its CUDA-core kernel in f32;
+  ``csrc/conv_window.cuh``; launch geometry from :func:`wgrad_plan`), f32
+  inputs its CUDA-core kernel in f32;
 * bias gradient: the f32 sum of g over (b, t, h, w);
 * :func:`conv3d_cf_pooled` also returns the conv's 2×2 spatial max pool,
   written by the epilogue of whichever forward kernel ran.
@@ -56,8 +59,8 @@ CONV3D = CudaKernel(
 CONV3D_TAPDOT = CudaKernel(
     "conv3d_tapdot.cu",
     "vvt_conv3d_tapdot",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 13 + [ctypes.c_void_p],
 )
 CONV3D_WGRAD = CudaKernel(
     "conv3d_wgrad.cu",
@@ -89,6 +92,12 @@ CUDA_MAX_GRID_Y = 65535
 CONV_MMA_TILE_W, CONV_MMA_WARPS, CONV_MMA_CHUNK = 32, 8, 16
 CONV_MMA_N_BLOCKS = {8: [(1, 1)], 16: [(2, 1), (1, 2)], 32: [(4, 1), (2, 2), (1, 4)], 64: [(4, 2), (2, 4)]}
 CONV_MMA_MAX_SMEM, CONV_MMA_BLOCKS = 232448, 132
+# The tap-dot conv, ``csrc/conv3d_tapdot.cu``: input channels a slab (K), pixels
+# of a B panel (one image row segment, one TMA box), the most slots of either
+# ring, the alignment slack of its shared memory; the shared memory and
+# persistent blocks are the direct conv's.
+TAPDOT_BK, TAPDOT_PANEL = 64, 64
+TAPDOT_MAX_STAGES, TAPDOT_SMEM_ALIGN = 6, 1024
 
 
 def tapdot_supported(x1, x2, kernel) -> bool:
@@ -444,6 +453,144 @@ def conv_plan(cin: int, cout: int, b: int, t: int, h: int, w: int, kt: int, kh: 
     return dataclasses.replace(one, blocks=min(one.items, CONV_MMA_BLOCKS))
 
 
+@dataclasses.dataclass(frozen=True)
+class TapdotPlan:
+    """Launch geometry of the tap-dot kernel for one conv.
+
+    A tile is one frame, ``bm`` output channels and ``rows`` image rows of 64
+    pixels (one TMA box, a B panel, each); ``blocks`` persistent blocks deal
+    the tiles out in turn (block i takes tiles i, i + blocks, …; output-channel
+    tile fastest, then column tile, row tile, frame). A tile runs ``groups``
+    B groups, dw-major: for each column shift dw the 64-channel slabs of x1,
+    then of x2; a group is ``panels`` boxes of 64 pixels × 64 channels of the
+    source's channels-last copy (which the kernel's first launch makes), the
+    tile's rows and the kh − 1 rows of its taps' halo (``b_box``), in a ring
+    of ``b_stages`` slots; each of its kh taps (dh) takes the weights' ``bm``
+    × 64 box (``a_box``) from a ring of ``a_stages`` slots and the group's
+    panels dh … dh + rows − 1. ``tma_store``: each consumer warpgroup's
+    output goes through a staging tile to a TMA store, where TMA can describe
+    the output (its strides multiples of 16 bytes: w % 8 == 0); else the
+    second route, stores from registers.
+    """
+
+    c1: int
+    c2: int
+    cout: int
+    frames: int
+    h: int
+    w: int
+    kh: int
+    kw: int
+    bm: int
+    bn: int
+    a_stages: int
+    b_stages: int
+    blocks: int
+    tma_store: bool
+
+    @property
+    def rows(self) -> int:
+        return self.bn // TAPDOT_PANEL
+
+    @property
+    def tiles_w(self) -> int:
+        return -(-self.w // TAPDOT_PANEL)
+
+    @property
+    def tiles_h(self) -> int:
+        return -(-self.h // self.rows)
+
+    @property
+    def co_tiles(self) -> int:
+        return -(-self.cout // self.bm)
+
+    @property
+    def tiles(self) -> int:
+        return self.frames * self.tiles_h * self.tiles_w * self.co_tiles
+
+    @property
+    def slabs1(self) -> int:
+        return -(-self.c1 // TAPDOT_BK)
+
+    @property
+    def slabs(self) -> int:
+        return self.slabs1 + -(-self.c2 // TAPDOT_BK)
+
+    @property
+    def groups(self) -> int:
+        return self.kw * self.slabs
+
+    @property
+    def panels(self) -> int:
+        return self.rows + self.kh - 1
+
+    @property
+    def smem(self) -> int:
+        return tapdot_smem(self.bm, self.bn, self.kh, self.a_stages, self.b_stages)
+
+    def tile(self, t: int) -> tuple[int, int, int, int]:
+        """(frame, first row, first column, first output channel) of tile t."""
+        co_t, t = t % self.co_tiles, t // self.co_tiles
+        tx, t = t % self.tiles_w, t // self.tiles_w
+        return t // self.tiles_h, (t % self.tiles_h) * self.rows, tx * TAPDOT_PANEL, co_t * self.bm
+
+    def slab(self, s: int) -> tuple[int, int, int]:
+        """(source 0 or 1, its first channel, the weights' K column) of slab s."""
+        first = s < self.slabs1
+        ci0 = (s if first else s - self.slabs1) * TAPDOT_BK
+        return (0, ci0, ci0) if first else (1, ci0, self.c1 + ci0)
+
+    def a_box(self, t: int, tap: int, s: int) -> tuple[int, int]:
+        """(K column, row) of the weights' bm x 64 box: rows tap · cout + co0 …"""
+        return self.slab(s)[2], tap * self.cout + self.tile(t)[3]
+
+    def b_box(self, t: int, dw: int, s: int, q: int) -> tuple[int, int, int, int]:
+        """(channel, x, y, frame) of panel q's 64-channel × 64-pixel box of the
+        B group (dw, slab s) in the source's channels-last copy, innermost
+        first: image row y0 − kh // 2 + q, columns shifted by dw − kw // 2,
+        negative or past the edge where SAME pads."""
+        frame, y0, x0, _ = self.tile(t)
+        return self.slab(s)[1], x0 + dw - self.kw // 2, y0 - self.kh // 2 + q, frame
+
+
+def tapdot_smem(bm: int, bn: int, kh: int, a_stages: int, b_stages: int) -> int:
+    """Dynamic shared memory of a tap-dot block (``conv3d_tapdot.cu:tapdot_smem_bytes``):
+    alignment slack, the ring of weight slabs, the ring of B groups (bn / 64 +
+    kh − 1 panels each), the two consumer warpgroups' output staging tiles (64
+    channels by their pixels), a full and an empty mbarrier a slot."""
+    panel = TAPDOT_PANEL * TAPDOT_BK * 2
+    staging = 64 * (bn if bm == 128 else bn // 2) * 2
+    return (TAPDOT_SMEM_ALIGN + a_stages * bm * TAPDOT_BK * 2 + b_stages * (bn // TAPDOT_PANEL + kh - 1) * panel
+            + 2 * staging + (a_stages + b_stages) * 2 * 8)
+
+
+def tapdot_plan(c1: int, c2: int, cout: int, b: int, t: int, h: int, w: int, kh: int, kw: int) -> TapdotPlan:
+    """The tap-dot kernel's geometry (see :class:`TapdotPlan`).
+
+    64 output channels a tile where cout ≤ 64 (both consumer warpgroups on
+    them, each on half of 4 rows), else 128; 4 rows of 64 pixels, or 2 where
+    4-row tiles would not fill every SM once or their rings would not fit;
+    three B group slots where four or more weight slots fit beside them, else
+    two, and the most weight slots that fit (at most ``TAPDOT_MAX_STAGES``);
+    one persistent block an SM; TMA stores where w % 8 == 0.
+    """
+    frames = b * t
+    if cout <= 64:
+        bm, widths = 64, (256,)
+    else:
+        bm = 128
+        tiles = frames * -(-h // 4) * -(-w // TAPDOT_PANEL) * -(-cout // bm)
+        widths = (256, 128) if tiles >= CONV_MMA_BLOCKS else (128,)
+    for bn in widths:
+        for b_stages, least in ((3, 4), (2, 2)):
+            fit = [a for a in range(2, TAPDOT_MAX_STAGES + 1)
+                   if tapdot_smem(bm, bn, kh, a, b_stages) <= CONV_MMA_MAX_SMEM]
+            if fit and max(fit) >= least:
+                one = TapdotPlan(c1, c2, cout, frames, h, w, kh, kw, bm, bn, max(fit), b_stages, 1, w % 8 == 0)
+                return dataclasses.replace(one, blocks=min(one.tiles, CONV_MMA_BLOCKS))
+    raise ValueError(f"no tap-dot tile fits a {kh}-row kernel")
+
+
 def conv3d_cf_cuda(
     x1: torch.Tensor,
     x2: Optional[torch.Tensor],
@@ -483,7 +630,10 @@ def conv3d_tapdot_cuda(
     """Launch the tap-dot kernel (kt = 1, bf16, channels multiples of 8).
 
     One source, or two without their concat; with ``pool`` the call returns
-    (full, pooled).
+    (full, pooled). The kernel's weights are laid out here, once a call, as
+    (kh·kw·cout, cin), tap-major: the JAX wrapper's ``wmat``, a K-major A;
+    the kernel's first launch copies each source channels-last into scratch
+    allocated here. Tiles, rings and store route from :func:`tapdot_plan`.
     """
     c2 = _check_conv_operands("conv3d_tapdot_cuda", x1, x2, kernel, bias, pool)
     b, t, c1, h, w = x1.shape
@@ -492,17 +642,23 @@ def conv3d_tapdot_cuda(
         raise TypeError(f"the tap-dot kernel takes bfloat16, not {x1.dtype}")
     if kt != 1:
         raise ValueError(f"the tap-dot kernel takes kt = 1, got {kt}")
-    if cin % 8 or cout % 8:
-        raise ValueError(f"the tap-dot kernel takes channels that are multiples of 8, got {cin}, {cout}")
+    if c1 % 8 or c2 % 8 or cout % 8:
+        raise ValueError(f"the tap-dot kernel takes channels that are multiples of 8, got {c1}, {c2}, {cout}")
+    plan = tapdot_plan(c1, c2, cout, b, t, h, w, kh, kw)
+    wmat = kernel[0].permute(0, 1, 3, 2).reshape(kh * kw * cout, cin).contiguous()
     y, pooled = _empty_outputs(x1, cout, pool)
-    if any(s.data_ptr() % 16 for s in (x1, x2, kernel, y) if s is not None):
+    xt1 = torch.empty((b * t, h, w, c1), dtype=x1.dtype, device=x1.device)
+    xt2 = None if x2 is None else torch.empty((b * t, h, w, c2), dtype=x1.dtype, device=x1.device)
+    if any(s.data_ptr() % 16 for s in (x1, x2, wmat, y) if s is not None):
         raise ValueError("the tap-dot kernel needs 16-byte aligned tensors")
     with torch.cuda.device(x1.device):
         CONV3D_TAPDOT.launch(
             x1.data_ptr(), None if x2 is None else x2.data_ptr(), c1, c2,
-            kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            wmat.data_ptr(), bias.data_ptr(), y.data_ptr(),
             None if pooled is None else pooled.data_ptr(),
-            b * t, h, w, cout, kh, kw,
+            xt1.data_ptr(), None if xt2 is None else xt2.data_ptr(),
+            b * t, h, w, cout, kh, kw, plan.bm, plan.bn, plan.a_stages, plan.b_stages, plan.blocks,
+            int(plan.tma_store), plan.smem,
             torch.cuda.current_stream(x1.device).cuda_stream,
         )
     return (y, pooled) if pool else y

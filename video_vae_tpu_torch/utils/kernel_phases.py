@@ -1,12 +1,13 @@
-"""What sets the pace of the bf16 attention kernels (#3, #5, #6) and of the
-MLP sublayer kernel (#8).
+"""What sets the pace of the bf16 attention kernels (#3, #5, #6), of the
+MLP sublayer kernel (#8) and of the tap-dot conv (#9).
 
-    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 3|5|6|8]
+    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 3|5|6|8|9]
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
 It builds copies of the kernel's source (#3, the default:
 ``csrc/fused_attention_bwd.cu``; #5: ``csrc/flash_attention.cu``; #6:
-``csrc/flash_attention_bwd.cu``; #8: ``csrc/fused_mlp.cu``) with one phase of
+``csrc/flash_attention_bwd.cu``; #8: ``csrc/fused_mlp.cu``; #9:
+``csrc/conv3d_tapdot.cu``) with one phase of
 its device code (its own headers: for #3 and #6 also the softmax backward
 they share in ``csrc/fused_attention_mma_common.cuh``, for #5 the fused
 forward's ``csrc/fused_attention_mma.cuh``, whose softmax it runs) cut out (a
@@ -15,9 +16,10 @@ constant; the outputs of a cut copy are wrong, only its time counts), all at
 once, into ``video_vae_tpu_torch/_build/phases/``, and prints the device time
 per call of each copy: for #3, #5 and #6 at each bf16 attention call of the
 flagship train step (``chip_smoke.device_ms``), for #8 at its N = 8192 and N = 4096 calls,
-each of its three launches (``chip_smoke.device_launch_ms``). The time a phase
-takes is the full kernel's less the copy without it. Nothing here runs on
-import.
+each of its three launches (``chip_smoke.device_launch_ms``), for #9 at each
+of its calls on the tap-dot model (b2 x 16 frames), the whole call and its
+launches (the channels-last copies, the GEMM). The time a phase takes is the
+full kernel's less the copy without it. Nothing here runs on import.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import json
 import shutil
 import subprocess
 
-from video_vae_tpu_torch.ops import _build
+from video_vae_tpu_torch.ops import _build, conv3d
 from video_vae_tpu_torch.ops import flash_attention as fa
 from video_vae_tpu_torch.ops import fused_block as fb
 
@@ -93,6 +95,16 @@ KERNELS = {
         "no_products": [("Wgmma<BN>::mma(d,", "if (K < 0) Wgmma<BN>::mma(d,")],
         "no_finish": [("if (row >= N || col >= M) continue;", "if (row >= N || col >= M || N > 0) continue;")],
         "no_silu": [("silu8(v);", "(void)v;")],
+    }),
+    # the products, the input's TMA boxes (the weights' still arrive), the
+    # channels-last copy (its launches stay, empty), the epilogue's stores
+    "9": ("conv3d_tapdot.cu", ("conv3d_tapdot.cu",), conv3d, "CONV3D_TAPDOT", {
+        "full": [],
+        "no_products": [("WgmmaKK<WG_N>::mma(d,", "if (g.H < 0) WgmmaKK<WG_N>::mma(d,")],
+        "no_tap_loads": [("mbar_expect_tx(&b_full[b.slot], b_bytes);", "mbar_expect_tx(&b_full[b.slot], 0);"),
+                         ("for (int q = 0; q < panels; ++q) {", "for (int q = 0; q < panels && g.H < 0; ++q) {")],
+        "no_copy": [("i < CL_TILE * CL_TILE / 8; i += CL_THREADS) {", "i < CL_TILE * CL_TILE / 8 && C < 0; i += CL_THREADS) {")],
+        "no_epilogue": [("for (int j = 0; j < WG_N / 8; ++j) {", "for (int j = 0; j < WG_N / 8 && g.H < 0; ++j) {")],
     }),
 }
 
@@ -181,6 +193,28 @@ def _mlp_calls(dev):
         yield f"N={n} {'training' if save else 'inference'}", {"N": n}, call
 
 
+def _tapdot_calls(dev):
+    """(case, its fields, call) of each of the tap-dot kernel's calls on the tap-dot
+    model at b2 x 16 frames (``chip_smoke.tapdot_launches``), with its launches' names."""
+    import torch
+
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(31)
+    forward, dgrad = chip_smoke.tapdot_launches(chip_smoke.tapdot_model_config())
+    for cins, cout, k, h, w in dict.fromkeys([*forward, *dgrad]):
+        xs = [torch.randn(chip_smoke.BATCH, chip_smoke.FRAMES, c, h, w, generator=gen).to(dev, torch.bfloat16)
+              for c in cins]
+        kernel = (torch.randn(*k, sum(cins), cout, generator=gen) / (sum(cins) * 9) ** 0.5).to(dev, torch.bfloat16)
+        bias = torch.randn(cout, generator=gen).to(dev)
+        x2 = xs[1] if len(xs) == 2 else None
+
+        def call(xs=xs, x2=x2, kernel=kernel, bias=bias):
+            return conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias)
+        names = chip_smoke.TAPDOT_LAUNCHES[-len(xs) - 1:]
+        yield f"{'+'.join(map(str, cins))}->{cout} @{h}x{w}", {"launches": names}, call
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -204,14 +238,19 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
     dev = torch.device("cuda")
-    calls = _mlp_calls(dev) if kernel_id == "8" else _attention_calls(kernel_id, dev)
+    calls = {"8": lambda: _mlp_calls(dev), "9": lambda: _tapdot_calls(dev)}.get(
+        kernel_id, lambda: _attention_calls(kernel_id, dev))()
     try:
         for name, fields, call in calls:
             times = {}
             for cut, kernel in kernels.items():
                 setattr(module, attr, kernel)
-                times[cut] = (chip_smoke.device_launch_ms(call, chip_smoke.MLP_LAUNCHES) if kernel_id == "8"
-                              else chip_smoke.device_ms(call))
+                if kernel_id == "8":
+                    times[cut] = chip_smoke.device_launch_ms(call, chip_smoke.MLP_LAUNCHES)
+                elif kernel_id == "9":  # the whole call, then its launches
+                    times[cut] = [chip_smoke.device_ms(call), chip_smoke.device_launch_ms(call, fields["launches"])]
+                else:
+                    times[cut] = chip_smoke.device_ms(call)
             print("kernel-phases", json.dumps({"kernel": kernel_id, "case": name, **fields, "device_ms": times}),
                   flush=True)
     finally:
