@@ -61,7 +61,18 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    with a kt = 1 UNet of base width 64 (``ModelConfig(temporal_kernel=1,
    unet_base_features=64, unet_s2d_full=False)``, the UNet at full size, the
    transformer cut to depth 1) with ``VVT_TAPDOT=1``, held to the same model
-   and weights with ``VVT_TAPDOT=0``, launches counted exactly on both.
+   and weights with ``VVT_TAPDOT=0``, launches counted exactly on both;
+7. drives the training entry point: ``Trainer`` on the config
+   ``cli/train.py --synthetic`` builds (the flagship at full width and depth,
+   b2 x 32 frames, remat on, perceptual on with the random VGG) over 6
+   synthetic clips: ``run_epoch(0)`` (3 steps, the video dump on the last, a
+   checkpoint) and ``run_eval(0)``, each step's launches counted; checks the
+   logged metrics, restores a fresh ``Trainer`` from the checkpoint bit-exactly
+   and takes a step, holds step 1 to ``train_step`` called by hand on the same
+   state, batch and draws, and prints a "trainer" line (ms per step, device ms
+   and idle share from ``torch.profiler``, the host's data wait, checkpoint
+   save and restore seconds, peak memory, the parameter count). Kernels #1-#4
+   are held to their plain versions at the trainer's shapes beforehand.
 
 Every failure ends the script with a non-zero exit and no result line. The
 last line of standard output is ``{"ok": true, "device": {...}}``; the line
@@ -154,7 +165,7 @@ MODEL_PATHS = {
 FLAGSHIP_PATHS = ("fused", "pallas", "sublayer", "mlp")
 PATHS = (
     "train", "serving", "serving-pallas", "serving-sublayer", "train-pallas", "train-sublayer",
-    "serving-mlp", "train-mlp", "serving-sublayer-mlp", "serving-tapdot", "train-tapdot",
+    "serving-mlp", "train-mlp", "serving-sublayer-mlp", "serving-tapdot", "train-tapdot", "trainer",
 )
 # the path whose sums stand at the top level of a kernel's record
 MAIN_PATH = {
@@ -164,6 +175,18 @@ MAIN_PATH = {
 }
 # the tap-dot path times fewer runs: its UNet is several times the flagship's conv work
 TAPDOT_TIMED_FORWARDS, TAPDOT_TIMED_STEPS = 3, 2
+# the trainer phase: cli/train.py's flagship config (b2 x 32 frames, remat on) on this
+# many synthetic clips, so that an epoch is 3 steps; its video dump on the last step
+TRAINER_BATCH, TRAINER_FRAMES, TRAINER_CLIPS = 2, 32, 6
+TRAINER_STEPS = TRAINER_CLIPS // TRAINER_BATCH
+# the JAX train step's metrics, which every logged step must carry
+TRAIN_METRICS = ("loss", "MSE", "per_sample_MAE", "perceptual_loss", "selection_loss", "kl_loss",
+                 "kept_frame_density", "rl_loss", "mean_trajectory_prob", "grad_norm", "max_grad")
+# the trainer's step 1 against train_step called by hand on the same state, batch and
+# draws: the float32 train-step bounds, scaled for bf16 compute by the ratio of the
+# kernel bounds (2e-2 / 1e-4), as the bf16 path checks scale theirs
+BF16_SCALE = KERNEL_TOL["bfloat16"] / KERNEL_TOL["float32"]
+TRAINER_STEP_TOL, TRAINER_PERCEPTUAL_TOL = TRAIN_F32_TOL * BF16_SCALE, PERCEPTUAL_F32_TOL * BF16_SCALE
 
 
 def path_name(entry: str, path: str) -> str:
@@ -232,9 +255,9 @@ def tapdot_launches(cfg) -> tuple[dict, dict]:
     return forward, dgrad
 
 
-def per_path(per: dict, **paths) -> dict:
-    """Launch counts of ``per`` (by entry point) under other path names."""
-    return {new: per[entry] for new, entry in paths.items() if entry in per}
+def per_path(per: dict, paths: dict) -> dict:
+    """Launch counts of ``per`` (by entry point) under other path names (a None name is left out)."""
+    return {new: per[entry] for new, entry in paths.items() if new is not None and entry in per}
 
 
 def log(*parts):
@@ -396,17 +419,21 @@ def _record(rows, kernel, case, shape, dtype, err, ms, plain_ms, library_ms, lib
 def _key_mask(cfg, dev, name, B, S, padded):
     """(key mask or None, kept keys) of one attention case.
 
-    A temporal call's mask is the clips' frame mask expanded over the patches;
-    the bounds count only the keys it leaves in.
+    A temporal call's mask is the clips' frame mask expanded over the patches:
+    ``padded`` is that (clips, S) mask itself, or True for clips whose last
+    ends in 3 padded frames. The bounds count only the keys it leaves in.
     """
     import torch
 
-    if not name.startswith("temporal"):
+    if "temporal" not in name:
         return None, B * S
     clips = B // cfg.num_patches
-    frames = torch.ones(clips, S, dtype=torch.bool)
-    if padded:
-        frames[-1, S - 3:] = False
+    if isinstance(padded, torch.Tensor):
+        frames = padded.bool().cpu()
+    else:
+        frames = torch.ones(clips, S, dtype=torch.bool)
+        if padded:
+            frames[-1, S - 3:] = False
     mask = frames[:, None, :].expand(clips, B // clips, S).reshape(B, S).to(dev)
     return mask, int(mask.sum())
 
@@ -424,9 +451,11 @@ def _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype):
     return (qkv, g, qs, ks, *_key_mask(cfg, dev, name, B, S, padded))
 
 
-def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train"):
+def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", cases=None, remat=False):
     """Fused attention forward and backward kernels against their plain versions,
-    at the launches of ``cfg``'s serving pass and train step on the paths named."""
+    at the launches of ``cfg``'s serving pass and train step on the paths named
+    (``serving=None``: no serving path). ``cases`` replace ``attention_cases(cfg)``;
+    with ``remat`` each forward runs twice in a step (the recompute)."""
     import torch
     import torch.nn.functional as F
 
@@ -434,7 +463,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train"):
 
     gen = torch.Generator().manual_seed(0)
     H, D = cfg.num_heads, cfg.head_dim
-    for name, B, S, padded, dtype, per in attention_cases(cfg):
+    for name, B, S, padded, dtype, per in attention_cases(cfg) if cases is None else cases:
         if not per and serving != "serving":
             continue  # a case no path counts is checked once, with the flagship's
         qkv, g, qs, ks, mask, keys = _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
@@ -458,13 +487,15 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train"):
             "sdpa_core_device_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask)),
             "tflops": flops / dev_ms / 1e9, "gb_per_s": moved / dev_ms / 1e6,
         }))
+        fwd_per = per_path(per, {serving: "serving", train: "train"})
+        if remat and train in fwd_per:
+            fwd_per[train] *= 2
         _record(
             rows, fa.FUSED_ATTENTION, f"{name} {dtype}", [B, S, 3 * H * D], dtype, err, ms,
             time_ms(lambda: fa.fused_qkv_attention_plain(qkv, qs, ks, mask, H), 5), sdpa_ms,
-            "scaled_dot_product_attention, core only", bound_ms(moved, flops, dtype),
-            per_path(per, **{serving: "serving", train: "train"}),
+            "scaled_dot_product_attention, core only", bound_ms(moved, flops, dtype), fwd_per,
         )
-        if padded and serving == "serving":
+        if padded is True and serving == "serving":
             # one sequence with every key masked: its rows average all S keys
             empty = mask.clone()
             empty[0] = False
@@ -485,7 +516,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train"):
         if not all(torch.equal(a, b) for a, b in zip(got, again)):  # no atomics: the same bits on every run
             raise AssertionError(f"attention bwd {name} {dtype}: two launches gave different bits")
         del ref, again
-        if padded and serving == "serving":
+        if padded is True and serving == "serving":
             # one sequence with every key masked: its rows spread P over all S keys
             empty = mask.clone()
             empty[0] = False
@@ -513,7 +544,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train"):
             time_ms(lambda: torch.autograd.grad(o, leaves, g_heads, retain_graph=True), 10),
             "scaled_dot_product_attention backward, core only",
             bound_ms(nbytes(qkv, g, mask) + nbytes(*got), bwd_flops, dtype),
-            per_path(per, **{train: "train", **({"train-sublayer": "train"} if train == "train" else {})}),
+            per_path(per, {train: "train", **({"train-sublayer": "train"} if train == "train" else {})}),
             device_ms=dev_ms,
             library_device_ms=device_ms(lambda: torch.autograd.grad(o, leaves, g_heads, retain_graph=True), 10),
             tflops=bwd_flops / dev_ms / 1e9,
@@ -557,7 +588,7 @@ def phase_flash_kernels(cfg, dev, rows):
             time_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask), 20),
             "scaled_dot_product_attention",
             bound_ms(nbytes(q, k, v, out, mask), flops, dtype),
-            per_path(per, **{"serving-pallas": "serving", "train-pallas": "train"}),
+            per_path(per, {"serving-pallas": "serving", "train-pallas": "train"}),
             **device_times(lambda: fa.flash_attention_cuda(q, k, v, mask),
                            lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask), flops),
         )
@@ -608,7 +639,7 @@ def phase_flash_kernels(cfg, dev, rows):
             time_ms(lambda: torch.autograd.grad(o, leaves, lg, retain_graph=True), 10),
             "scaled_dot_product_attention backward",
             bound_ms(nbytes(q, k, v, g, mask) + nbytes(*got), bwd_flops, dtype),
-            per_path(per, **{"train-pallas": "train"}),
+            per_path(per, {"train-pallas": "train"}),
             **device_times(lambda: fa.flash_attention_bwd_cuda(q, k, v, mask, g),
                            lambda: torch.autograd.grad(o, leaves, lg, retain_graph=True), bwd_flops),
         )
@@ -683,7 +714,7 @@ def phase_sublayer_kernel(cfg, dev, rows):
             time_ms(run, 10), time_ms(plain, 2), time_ms(library, 10),
             "layer_norm -> matmul -> scaled_dot_product_attention -> matmul, bf16 weights",
             bound_ms(nbytes(x, x, *w16, lng, lnb, mask), flops, "bfloat16"),
-            per_path(per, **{"serving-sublayer": "serving", "train-sublayer": "train"}),
+            per_path(per, {"serving-sublayer": "serving", "train-sublayer": "train"}),
             **device_times(run, library), launch_device_ms=launch_ms,
             tflops={"qkv": qkv_flops / launch_ms["qkv"] / 1e9, "out": out_flops / launch_ms["out"] / 1e9},
         )
@@ -691,12 +722,16 @@ def phase_sublayer_kernel(cfg, dev, rows):
     torch.cuda.empty_cache()
 
 
-def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=False):
+def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=False,
+                       batch=BATCH, frames=FRAMES, remat=False):
     """Conv forward, input gradient (same kernel) and filter gradient against plain,
-    at every conv of ``cfg``'s UNet, counted on the paths named. With ``tapdot``
-    (the bf16 path with ``VVT_TAPDOT=1``) a forward conv or an input gradient that
-    passes the tap-dot gate is left to :func:`phase_tapdot_kernel`: the direct
-    kernel is held at the shapes this path gives it and no other."""
+    at every conv of ``cfg``'s UNet on ``batch`` clips of ``frames`` frames, counted
+    on the paths named (``serving=None``: no serving path; then the float32 cases
+    are left out). With ``tapdot`` (the bf16 path with ``VVT_TAPDOT=1``) a forward
+    conv or an input gradient that passes the tap-dot gate is left to
+    :func:`phase_tapdot_kernel`: the direct kernel is held at the shapes this path
+    gives it and no other. With ``remat`` the down and up blocks' convs run their
+    forward twice in a step (the recompute)."""
     import torch
     import torch.nn.functional as F
 
@@ -704,18 +739,20 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
 
     gen = torch.Generator().manual_seed(1)
     for name, h, w, cins, cout, k, dtype in conv_cases(cfg):
-        if tapdot and dtype != "bfloat16":
+        if (tapdot or serving is None) and dtype != "bfloat16":
             continue
+        forward_per = per_path({"serving": 1, "train": 2 if remat and name.startswith(("encoders", "decoders")) else 1},
+                               {serving: "serving", train: "train"})
         tdt = getattr(torch, dtype)
         cin = sum(cins)
-        xs = [torch.randn(BATCH, FRAMES, c, h, w, generator=gen).to(dev, tdt) for c in cins]
+        xs = [torch.randn(batch, frames, c, h, w, generator=gen).to(dev, tdt) for c in cins]
         x2 = xs[1] if len(xs) == 2 else None
         kernel = (torch.randn(*k, cin, cout, generator=gen) / (cin * k[0] * k[1] * k[2]) ** 0.5).to(dev, tdt)
         bias = (0.1 * torch.randn(cout, generator=gen)).to(dev)
-        g = torch.randn(BATCH, FRAMES, cout, h, w, generator=gen).to(dev, tdt)
+        g = torch.randn(batch, frames, cout, h, w, generator=gen).to(dev, tdt)
         pad = (k[0] // 2, k[1] // 2, k[2] // 2)
         # only the taps that land inside the clip and the frame: SAME padding adds zeros
-        flops = 2.0 * BATCH * cout * cin * valid_taps(FRAMES, k[0]) * valid_taps(h, k[1]) * valid_taps(w, k[2])
+        flops = 2.0 * batch * cout * cin * valid_taps(frames, k[0]) * valid_taps(h, k[1]) * valid_taps(w, k[2])
         x_ncdhw = torch.cat(xs, dim=2).transpose(1, 2).contiguous()
         g_ncdhw = g.transpose(1, 2).contiguous()
         w_oidhw = kernel.permute(4, 3, 0, 1, 2).contiguous()
@@ -729,12 +766,12 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
                 raise AssertionError(f"conv {name}: two launches gave different bits")
             lib_bias = bias.to(tdt)
             _record(
-                rows, conv3d.CONV3D, name, [BATCH, FRAMES, list(cins), h, w, cout, list(k)], dtype, err,
+                rows, conv3d.CONV3D, name, [batch, frames, list(cins), h, w, cout, list(k)], dtype, err,
                 time_ms(lambda: conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias), 5),
                 time_ms(lambda: conv3d.conv3d_cf_plain(xs[0], x2, kernel, bias), 1, warmup=0),
                 time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), 5),
                 "torch.nn.functional.conv3d (cuDNN), concatenated input",
-                bound_ms(nbytes(*xs, kernel, bias, out), flops, dtype), {serving: 1, train: 1},
+                bound_ms(nbytes(*xs, kernel, bias, out), flops, dtype), forward_per,
                 **device_times(lambda: conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias),
                                lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=pad), flops),
             )
@@ -752,7 +789,7 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
                 raise AssertionError(f"conv dgrad {name}: two launches gave different bits")
             w_flip = flipped.permute(4, 3, 0, 1, 2).contiguous()
             _record(
-                rows, conv3d.CONV3D, f"{name} dgrad", [BATCH, FRAMES, cout, h, w, cin, list(k)], dtype, err,
+                rows, conv3d.CONV3D, f"{name} dgrad", [batch, frames, cout, h, w, cin, list(k)], dtype, err,
                 time_ms(lambda: conv3d.conv3d_cf_cuda(g, None, flipped, zero), 5),
                 time_ms(lambda: conv3d.conv3d_cf_plain(g, None, flipped, zero), 1, warmup=0),
                 time_ms(lambda: F.conv3d(g_ncdhw, w_flip, padding=pad), 5),
@@ -777,7 +814,7 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
             "case": name, "dtype": dtype, "ms": ms, "cudnn_ms": cudnn_ms, "tflops": flops / ms / 1e9,
         }))
         _record(
-            rows, conv3d.CONV3D_WGRAD, name, [BATCH, FRAMES, list(cins), h, w, cout, list(k)], dtype, err,
+            rows, conv3d.CONV3D_WGRAD, name, [batch, frames, list(cins), h, w, cout, list(k)], dtype, err,
             ms, time_ms(lambda: conv3d.conv3d_wgrad_plain(xs[0], x2, g, *k), 1, warmup=0), cudnn_ms,
             "torch.nn.grad.conv3d_weight (cuDNN), concatenated input",
             bound_ms(nbytes(*xs, g, dw), flops, dtype), {train: 1},
@@ -1277,6 +1314,8 @@ def profile_device(label: str, run, ms_per_run: float, passes: int = 3):
     for key, (ms, kernels) in sorted(by_op.items(), key=lambda kv: -kv[1][0]):
         if ms >= 0.05:
             log(f"profile-{label}-op {ms:9.4f} ms/run {kernels:6.1f} kernels  {key}")
+    return {"device_busy_ms_per_run": busy, "device_ops_per_run": count / passes,
+            "idle_share_vs_median": 1.0 - busy / ms_per_run}
 
 
 def _draws(model, video, mask, seed, rollouts_differ=False):
@@ -1576,6 +1615,260 @@ def phase_train(cfg, dev, path="fused", reference=None, timed=TIMED_STEPS, redra
     return launches, {"draws": (noise, uniforms), **fixed}
 
 
+def trainer_config(checkpoint_dir: str):
+    """The config ``python -m video_vae_tpu_torch.cli.train --synthetic`` trains (the
+    flagship at full width and depth, b2 x 32 frames, remat on, bf16, perceptual on with
+    the random VGG), on ``TRAINER_CLIPS`` clips, every step logged, the video dump and a
+    checkpoint on the epoch's last step, everything written under ``checkpoint_dir``."""
+    from video_vae_tpu_torch.cli.train import build_parser, config_from_args
+
+    cfg = config_from_args(build_parser().parse_args(["--synthetic", "--checkpoint_dir", checkpoint_dir]))
+    return cfg.replace(
+        data=cfg.data.replace(synthetic_num_clips=TRAINER_CLIPS),
+        train=cfg.train.replace(log_every=1, video_every=TRAINER_STEPS, checkpoint_every_steps=TRAINER_STEPS,
+                                video_save_dir=os.path.join(checkpoint_dir, "videos")),
+    )
+
+
+def trainer_frame_mask(cfg):
+    """The (b, t) frame mask of the trainer's first batch: its clips' true lengths."""
+    import torch
+
+    from video_vae_tpu_torch.data.pipeline import create_dataloader
+    from video_vae_tpu_torch.train.trainer import curriculum_plan
+
+    plan = curriculum_plan(cfg, 0)
+    data_cfg = cfg.data.replace(batch_size=plan.batch_size, max_frames=plan.max_frames)
+    return torch.from_numpy(next(iter(create_dataloader(data_cfg, seed=cfg.data.seed)))["mask"]).bool()
+
+
+def trainer_attention_cases(cfg, frame_mask=None):
+    """(name, B, S, frame mask, dtype, {"train": backward launches}) of each attention call
+    of a trainer step on b clips of t frames (``frame_mask`` (b, t), else b2 x 32f): the
+    encoder's on the clips, the decoder's on their 2 rollouts."""
+    b, t = (TRAINER_BATCH, TRAINER_FRAMES) if frame_mask is None else tuple(frame_mask.shape)
+    rollouts = None if frame_mask is None else frame_mask.repeat_interleave(2, dim=0)
+    hw, enc, dec = cfg.num_patches, cfg.encoder_depth, cfg.decoder_depth
+    return [
+        (f"trainer temporal b{b}x{t}", b * hw, t, frame_mask, "bfloat16", {"train": enc}),
+        (f"trainer spatial b{b}x{t}", b * t, hw, False, "bfloat16", {"train": enc}),
+        (f"trainer temporal b{2 * b}x{t}", 2 * b * hw, t, rollouts, "bfloat16", {"train": dec}),
+        (f"trainer spatial b{2 * b}x{t}", 2 * b * t, hw, False, "bfloat16", {"train": dec}),
+    ]
+
+
+def trainer_launches(cfg) -> dict:
+    """Launches of every kernel in one trainer step: the default path's train step, plus
+    with remat the recompute of each attention forward and of the down and up blocks' convs."""
+    want = expected_launches(cfg, "train", "fused")
+    if cfg.remat:
+        want["vvt_fused_attention_fwd"] *= 2
+        want["vvt_conv3d_cf"] += 4 * cfg.unet_levels
+    return want
+
+
+def phase_trainer_kernels(dev, rows):
+    """Kernels #1-#4 against their plain versions at the trainer's shapes: the attention
+    calls with the first batch's padding, the convs on its 2 x 2 rollout clips of 32 frames."""
+    cfg = trainer_config("checkpoints")  # only its shapes are read: nothing is written
+    mask = trainer_frame_mask(cfg)
+    model = cfg.model
+    phase_attention_kernels(model, dev, rows, None, "trainer", trainer_attention_cases(model, mask), remat=model.remat)
+    phase_conv_kernels(model, dev, rows, None, "trainer", batch=2 * mask.shape[0], frames=mask.shape[1],
+                       remat=model.remat)
+    log("trainer-frames", json.dumps({"true_frames": mask.sum(dim=1).tolist(), "of": mask.shape[1]}))
+
+
+def _host_state(model, optimizer) -> dict:
+    """A copy of the model's and the optimizer's state, to load back later."""
+    return {
+        "model": {k: v.detach().clone() for k, v in model.state_dict().items()},
+        "optimizer": {"count": optimizer.count, "mu": [t.clone() for t in optimizer.mu],
+                      "nu": [t.clone() for t in optimizer.nu]},
+    }
+
+
+def _same_state(a, b) -> bool:
+    """Whether two trainers' parameters, moments and counts are bit-equal."""
+    import torch
+
+    pairs = [*zip(a.model.parameters(), b.model.parameters()), *zip(a.optimizer.mu, b.optimizer.mu),
+             *zip(a.optimizer.nu, b.optimizer.nu)]
+    return a.optimizer.count == b.optimizer.count and all(torch.equal(x, y) for x, y in pairs)
+
+
+def _finite(values: dict) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values.values())
+
+
+def phase_trainer(dev):
+    """The training entry point at the flagship's full width and depth on the card.
+
+    ``Trainer(cfg)`` on :func:`trainer_config` runs ``run_epoch(0)`` (3 steps, the
+    video dump on the last, a checkpoint) and ``run_eval(0)``; every launch is
+    counted, each step's alone. Then a fresh ``Trainer`` restores the checkpoint
+    bit-exactly and takes one more step, and the first step is held to
+    ``train_step`` called by hand from the same state, batch and draws. Returns the
+    launches of one step.
+    """
+    import tempfile
+
+    import torch
+
+    from video_vae_tpu_torch.train.checkpoint import load_checkpoint
+    from video_vae_tpu_torch.train.step import train_step
+    from video_vae_tpu_torch.train.trainer import Trainer
+    from video_vae_tpu_torch.utils.metrics import count_params
+
+    with tempfile.TemporaryDirectory(prefix="vvt-trainer-") as tmp:
+        cfg = trainer_config(tmp)
+        started = time.perf_counter()
+        trainer = Trainer(cfg, device=dev, install_signal_handlers=False)
+        build_s = time.perf_counter() - started
+        model, opt = trainer.model, trainer.optimizer
+        if not all(t.device.type == dev.type for t in [*model.parameters(), *opt.mu, *opt.nu]):
+            raise AssertionError("trainer: a parameter or an Adam moment is not on the card")
+        initial, draws = _host_state(model, opt), trainer.generator.get_state()
+
+        steps, first = [], {}
+        inner = trainer.train_step
+
+        def counted_step(model, optimizer, video, mask, hp, **kw):
+            if not first:
+                first.update(video=video.clone(), mask=mask.clone(), hp=hp)
+            before = read_launches()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = inner(model, optimizer, video, mask, hp, **kw)
+            end.record()
+            after = read_launches()
+            steps.append({"launches": {k: after[k] - before[k] for k in after}, "events": (start, end),
+                          "metrics": metrics})
+            return metrics
+
+        trainer.train_step = counted_step
+        save_s = [0.0]
+        for name in ("save", "wait"):  # the snapshot to the host, then the write on its thread
+            def timed(*args, _fn=getattr(trainer.ckpt, name), **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    save_s[0] += time.perf_counter() - t0
+            setattr(trainer.ckpt, name, timed)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        started = time.perf_counter()
+        if not trainer.run_epoch(0):
+            raise AssertionError("trainer: run_epoch(0) stopped early")
+        epoch_s = time.perf_counter() - started
+        evaluated = trainer.run_eval(0)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        eval_s = time.perf_counter() - started - epoch_s
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+
+        per_step = trainer_launches(cfg.model)
+        if len(steps) != TRAINER_STEPS or trainer.global_step != TRAINER_STEPS:
+            raise AssertionError(f"trainer: {len(steps)} steps, global_step {trainer.global_step}")
+        for i, step in enumerate(steps):
+            if step["launches"] != per_step:
+                raise AssertionError(f"trainer step {i + 1} launches {step['launches']}, expected {per_step}")
+        # the eval's 3 batches and the dump's reconstruct: a forward pass each, no recompute
+        forward = expected_launches(cfg.model, "serving", "fused")
+        passes = TRAINER_CLIPS // TRAINER_BATCH + 1
+        total = {k: TRAINER_STEPS * per_step[k] + passes * forward[k] for k in per_step}
+        if launches != total:
+            raise AssertionError(f"trainer run launches {launches}, expected {total}")
+
+        with open(os.path.join(tmp, "train.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        logged = [line for line in lines if "loss" in line]
+        if [line["step"] for line in logged] != list(range(1, TRAINER_STEPS + 1)):
+            raise AssertionError(f"trainer: logged steps {[line['step'] for line in logged]}")
+        for line in logged:
+            metrics = {k: line[k] for k in TRAIN_METRICS}
+            if not _finite(metrics) or not metrics["grad_norm"] > 0:
+                raise AssertionError(f"trainer step {line['step']}: metrics {metrics}")
+        dumps = [line for line in lines if "dump_psnr_det" in line]
+        if [line["step"] for line in dumps] != [TRAINER_STEPS] or not _finite({"p": dumps[0]["dump_psnr_det"]}):
+            raise AssertionError(f"trainer: video dump lines {dumps}")
+        if evaluated is None or not _finite(evaluated) or "psnr_sampled" not in evaluated:
+            raise AssertionError(f"trainer: eval {evaluated}")
+        times = [start.elapsed_time(end) for start, end in (step["events"] for step in steps)]
+        step1 = {k: float(v) for k, v in steps[0]["metrics"].items()}
+
+        # restore a fresh trainer from the checkpoint directory, then take one more step
+        started = time.perf_counter()
+        fresh = Trainer(cfg, device=dev, install_signal_handlers=False)
+        torch.cuda.synchronize()
+        trainer_restore_s = time.perf_counter() - started
+        if fresh.global_step != TRAINER_STEPS or not _same_state(trainer, fresh):
+            raise AssertionError(f"trainer: restored step {fresh.global_step} or state differs from the saved one")
+        started = time.perf_counter()
+        load_checkpoint(fresh.model, fresh.optimizer, fresh.ckpt.step_dir(TRAINER_STEPS))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - started
+        before = [p.detach().clone() for p in fresh.model.parameters()]
+        reset_launches()
+        resumed = fresh.train_step(fresh.model, fresh.optimizer, first["video"], first["mask"],
+                                   fresh.hparams_for_step(fresh.global_step), generator=fresh.generator)
+        torch.cuda.synchronize()
+        if read_launches() != per_step:
+            raise AssertionError(f"trainer: the restored trainer's step launched {read_launches()}")
+        resumed = {k: float(v) for k, v in resumed.items()}
+        changed = sum(not torch.equal(p, q) for p, q in zip(fresh.model.parameters(), before))
+        if not _finite(resumed) or fresh.optimizer.count != TRAINER_STEPS + 1 or changed == 0:
+            raise AssertionError(f"trainer: the restored step gave {resumed}, {changed} leaves changed")
+        del before
+
+        # step 1 against train_step called by hand from the same state, batch and draws
+        fresh.model.load_state_dict(initial["model"])
+        fresh.optimizer.load_state_dict(initial["optimizer"])
+        generator = torch.Generator(dev)
+        generator.set_state(draws)
+        hand = train_step(fresh.model, fresh.optimizer, first["video"], first["mask"], first["hp"], cfg.loss,
+                          fresh.perceptual_fn, generator=generator)
+        hand = {k: float(v) for k, v in hand.items()}
+        errs = {}
+        for key, ref in hand.items():
+            tol = TRAINER_PERCEPTUAL_TOL if key == "perceptual_loss" else TRAINER_STEP_TOL
+            scale = 1.0 if key == "rl_loss" else abs(ref)  # rl_loss is 0 up to rounding
+            errs[key] = abs(step1[key] - ref) / scale if scale else abs(step1[key] - ref)
+            if not abs(step1[key] - ref) <= tol * scale:
+                raise AssertionError(f"trainer step 1 {key}: {step1[key]} vs train_step by hand {ref}")
+
+        ms = statistics.median(times[1:])
+        profile = profile_device(
+            "trainer",
+            lambda: inner(model, opt, first["video"], first["mask"], first["hp"], generator=trainer.generator),
+            ms, passes=2,
+        )
+        log("trainer", json.dumps({
+            "config": f"{describe(cfg.model)}, bf16 compute, f32 params, b{TRAINER_BATCH} x {TRAINER_FRAMES} frames, "
+                      f"rl (2 rollouts), perceptual on (random VGG), remat on, {TRAINER_CLIPS} synthetic clips; "
+                      f"cli/train.py --synthetic",
+            "params": count_params(model), "steps": TRAINER_STEPS,
+            "ms_per_step": ms, "ms_per_step_all": times,
+            "device_ms_per_step": profile["device_busy_ms_per_run"],
+            "device_ops_per_step": profile["device_ops_per_run"],
+            "idle_share": profile["idle_share_vs_median"],
+            "data_wait_ms_per_step": trainer.data_wait_s * 1e3 / TRAINER_STEPS,
+            "checkpoint_save_s": save_s[0], "checkpoint_restore_s": restore_s,
+            "trainer_build_s": build_s, "trainer_build_and_restore_s": trainer_restore_s,
+            "epoch_s": epoch_s, "eval_s": eval_s, "peak_memory_gib": peak_gib,
+            "launches_per_step": per_step, "launches_run": launches,
+            "step1_metrics": step1, "step1_vs_hand_rel_err": errs,
+            "tols": [TRAINER_STEP_TOL, TRAINER_PERCEPTUAL_TOL],
+            "eval": evaluated, "dump_psnr_det": dumps[0]["dump_psnr_det"], "restored_step_metrics": resumed,
+        }))
+        del trainer, fresh, model, opt, initial, first, steps
+    torch.cuda.empty_cache()
+    return per_step
+
+
 def kernel_record(rows, launches_by_path):
     """One entry per kernel; times and bounds summed over the launches of its main
     path (the default train step, or the train step of the path that runs it),
@@ -1670,6 +1963,8 @@ def main() -> int:
         "tap-dot path": f"{describe(wide)}: the transformer cut from depth {cfg.encoder_depth}/"
                         f"{cfg.decoder_depth} to 1/1, the UNet at full size; {TAPDOT_TIMED_FORWARDS} "
                         f"passes and {TAPDOT_TIMED_STEPS} steps timed",
+        "trainer": f"none of width or depth; {TRAINER_CLIPS} synthetic clips, so one epoch of "
+                   f"{TRAINER_STEPS} steps and an eval of {TRAINER_CLIPS // TRAINER_BATCH} batches",
     }))
     if [sum(d.values()) for d in tapdot_launches(wide)] != [4, 4]:
         raise AssertionError(f"the tap-dot model's gate counts changed: {tapdot_launches(wide)}")
@@ -1686,6 +1981,8 @@ def main() -> int:
     phase_attention_kernels(wide, dev, rows, "serving-tapdot", "train-tapdot")
     phase_tapdot_kernel(wide, dev, rows)
     phase_conv_kernels(wide, dev, rows, "serving-tapdot", "train-tapdot", tapdot=True)
+    # the trainer's shapes: b2 x 32 frames with its first batch's padding, remat on
+    phase_trainer_kernels(dev, rows)
     log("seconds", json.dumps({"kernel checks": time.monotonic() - started}))
     started = time.monotonic()
     launches = {}
@@ -1721,6 +2018,9 @@ def main() -> int:
         wide.replace(remat=False), dev, "tapdot", wide_ref, TAPDOT_TIMED_STEPS, redraw_final_conv=True
     )
     log("seconds", json.dumps({"train paths": time.monotonic() - started}))
+    started = time.monotonic()
+    launches["trainer"] = phase_trainer(dev)
+    log("seconds", json.dumps({"trainer": time.monotonic() - started}))
     log(json.dumps(kernel_record(rows, launches)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -38,6 +38,10 @@ MODEL_CASES = sorted({
     for model, cfg in (("flagship", ModelConfig()), ("tapdot", chip_smoke.tapdot_model_config()))
     for name, B, S, _, _, _ in chip_smoke.attention_cases(cfg)
 })
+# the trainer's step (cli/train.py's b2 x 32 frames): the encoder's calls on the clips,
+# the decoder's on their 2 rollouts
+TRAINER_CASES = [(name, B, S, ModelConfig().num_heads)
+                 for name, B, S, _, _, _ in chip_smoke.trainer_attention_cases(ModelConfig())]
 # B = 1, and B = 3 and 5, which no pairs-per-block count of these shapes divides
 RAGGED_CASES = [
     (B, S, H)
@@ -166,6 +170,15 @@ def test_attention_bwd_plan_at_model_shapes(model, name, B, S, H):
 def test_attention_bwd_plan_covers_every_model_call():
     # temporal and spatial at b2 and b1, for each model
     assert len(MODEL_CASES) == 8
+
+
+@pytest.mark.parametrize("name,B,S,H", TRAINER_CASES, ids=[c[0] for c in TRAINER_CASES])
+def test_attention_bwd_plan_at_trainer_shapes(name, B, S, H):
+    _check_plan(B, S, H)
+
+
+def test_attention_bwd_plan_covers_every_trainer_call():
+    assert [(B, S) for _, B, S, _ in TRAINER_CASES] == [(512, 32), (64, 256), (1024, 32), (128, 256)]
 
 
 @pytest.mark.parametrize("B,S,H", RAGGED_CASES)

@@ -9,9 +9,12 @@ import pytest
 import torch
 
 from video_vae_tpu_torch import VideoVAE, reconstruct, tiny_config
+from video_vae_tpu_torch.cli import train as train_cli
+from video_vae_tpu_torch.models.vgg import load_vgg
 from video_vae_tpu_torch.ops.conv3d import conv3d_cf_cuda, conv3d_tapdot_cuda
 from video_vae_tpu_torch.ops.flash_attention import fused_qkv_attention_cuda
 from video_vae_tpu_torch.ops.fused_block import fused_mlp_sublayer_cuda
+from video_vae_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,7 +41,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_entry_points_raise_without_cuda():
+def test_entry_points_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("the rule under test needs a host without CUDA")
     cfg = tiny_config().model
@@ -48,6 +51,12 @@ def test_entry_points_raise_without_cuda():
     video = np.zeros((1, 8, 32, 32, 3), np.float32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         reconstruct(model, video, np.ones((1, 8), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(tiny_config(), install_signal_handlers=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--tiny", "--steps", "1", "--checkpoint_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_vgg(None)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

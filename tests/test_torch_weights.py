@@ -58,7 +58,9 @@ def test_load_jax_params_rejects_mismatch():
         load_jax_params(port, {**params, key: params[key][..., :1]})
 
 
-@pytest.mark.parametrize("name", ["ModelConfig", "LossConfig", "OptimConfig"])
+@pytest.mark.parametrize(
+    "name", ["ModelConfig", "LossConfig", "OptimConfig", "MeshConfig", "DataConfig", "TrainConfig"]
+)
 def test_config_fields_match_jax(name):
     theirs = [(f.name, f.default) for f in dataclasses.fields(getattr(jax_config, name))]
     ours = [(f.name, f.default) for f in dataclasses.fields(getattr(config, name))]
@@ -71,9 +73,12 @@ def test_tiny_config_matches_jax():
     assert dataclasses.asdict(ours.model) == dataclasses.asdict(theirs.model)
     assert dataclasses.asdict(ours.loss) == dataclasses.asdict(theirs.loss)
     assert dataclasses.asdict(ours.optim) == dataclasses.asdict(theirs.optim)
-    assert {f.name for f in dataclasses.fields(config.VAEConfig)} <= {
+    assert dataclasses.asdict(ours.data) == dataclasses.asdict(theirs.data)
+    assert dataclasses.asdict(ours.train) == dataclasses.asdict(theirs.train)
+    assert [f.name for f in dataclasses.fields(config.VAEConfig)] == [
         f.name for f in dataclasses.fields(jax_config.VAEConfig)
-    }
+    ]
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

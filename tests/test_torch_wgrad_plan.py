@@ -28,6 +28,13 @@ MODEL_CASES = [
     for name, h, w, cins, cout, k, dtype in chip_smoke.conv_cases(cfg)
     if dtype == "bfloat16"
 ]
+# the trainer's step (cli/train.py's b2 x 32 frames): the UNet runs on the 2 rollouts of each clip
+TRAINER_SHAPE = (2 * chip_smoke.TRAINER_BATCH, chip_smoke.TRAINER_FRAMES)
+TRAINER_CASES = [
+    (name, (*TRAINER_SHAPE, h, w), sum(cins), cout, k)
+    for name, h, w, cins, cout, k, dtype in chip_smoke.conv_cases(ModelConfig())
+    if dtype == "bfloat16"
+]
 RAGGED_CASES = [  # (b, t, h, w), cin, cout, k of tests/test_torch_cuda.py
     ((2, 3, 20, 40), 12, 12, (3, 7, 7)),
     ((1, 4, 33, 65), 32, 16, (3, 3, 3)),
@@ -79,6 +86,15 @@ def test_wgrad_plan_at_model_shapes(model, name, shape, cin, cout, k):
 
 def test_wgrad_plan_covers_every_model_conv():
     assert len(MODEL_CASES) == 30
+
+
+@pytest.mark.parametrize("name,shape,cin,cout,k", TRAINER_CASES, ids=[c[0] for c in TRAINER_CASES])
+def test_wgrad_plan_at_trainer_shapes(name, shape, cin, cout, k):
+    _check_plan(shape, cin, cout, k)
+
+
+def test_wgrad_plan_covers_every_trainer_conv():
+    assert len(TRAINER_CASES) == 15 and TRAINER_CASES[0][1] == (4, 32, 256, 256)
 
 
 @pytest.mark.parametrize("shape,cin,cout,k", RAGGED_CASES)

@@ -1,8 +1,10 @@
 """PyTorch + CUDA port of the video VAE, beside the JAX package ``video_vae_tpu``.
 
-It mirrors the JAX package's layout (``core``, ``ops``, ``models``, ``train``)
-and its module and parameter names, and imports nothing of JAX. Entry points
-run on the card unless the caller passes ``device="cpu"``; on a CPU tensor a
+It mirrors the JAX package's layout (``core``, ``ops``, ``models``, ``losses``,
+``train``, ``data``, ``cli``) and its module and parameter names, and imports
+nothing of JAX. Entry points (``VideoVAE``, ``reconstruct``, ``Trainer``,
+``python -m video_vae_tpu_torch.cli.train``) run on the card unless the
+caller passes ``device="cpu"`` (``--device cpu``); on a CPU tensor a
 kernel's plain PyTorch version runs, on a CUDA tensor the CUDA kernel.
 """
 

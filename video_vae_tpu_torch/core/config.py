@@ -21,15 +21,19 @@ rollouts one at a time, as in the JAX package.
 block and each UNet down and up block runs under activation checkpointing
 (same math, less memory, a second forward in the backward).
 
+``MeshConfig``, ``DataConfig`` and ``TrainConfig`` carry the JAX package's
+fields and defaults for the data pipeline (``data/``) and the trainer
+(``train/trainer.py``, ``cli/train.py``). The port trains on one device: a
+mesh other than one data-parallel device is refused by the trainer.
 ``DynamicHParams`` holds the per-step loss weights and the compression-rate
-target as plain floats. The mesh, data and trainer configs come with later
-slices of the port.
+target as plain floats.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 import torch
 
@@ -166,12 +170,99 @@ class OptimConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh axes: data (over the batch), fsdp (parameter shards), tensor.
+
+    The port runs on one device (ROADMAP Queue 1 item 6): the trainer takes
+    data ∈ {-1, 1} with fsdp = tensor = 1 and refuses any other mesh.
+    """
+
+    data: int = -1  # -1: use all remaining devices
+    fsdp: int = 1
+    tensor: int = 1
+
+    axis_names: Tuple[str, str, str] = ("data", "fsdp", "tensor")
+
+    def replace(self, **kw) -> "MeshConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Video data pipeline (``data/pipeline.py``)."""
+
+    base_dir: str = "/mnt/t9/videos"
+    eval_dir: Optional[str] = None
+    batch_size: int = 2
+    max_frames: int = 32
+    resize: Tuple[int, int] = (256, 256)
+    crop_size: int = 512
+    shuffle: bool = True
+    num_workers: int = 4
+    prefetch_size: int = 16
+    drop_remainder: bool = True
+    seed: int = 0
+    # a decode failure: "zeros" gives a zero video with an all-ones mask,
+    # "skip" resamples another clip, "raise" propagates
+    on_error: str = "zeros"
+    # multi-process sampling: False partitions every epoch across processes,
+    # True has each process sample its full dataset with its own seed
+    independent_shards: bool = False
+    synthetic: bool = False
+    synthetic_num_clips: int = 64
+    # "threaded" | "native" | "auto"; "grain" is not available in the port
+    backend: str = "auto"
+
+    def replace(self, **kw) -> "DataConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training driver (``train/trainer.py``)."""
+
+    num_epochs: int = 100
+    seed: int = 3
+    model_seed: int = 2
+    # each epoch halves the batch and doubles the frames, up to these caps
+    curriculum: bool = True
+    curriculum_max_frames: int = 64
+    curriculum_min_batch: int = 1
+    # the compression-rate target: initial until this step, then relaxed;
+    # a resumed run takes the resume value
+    negative_penalty_training_steps: int = 2000
+    initial_max_compression_rate: float = 2.0
+    relaxed_max_compression_rate: float = 10000.0
+    resume_max_compression_rate: float = 100000.0
+
+    log_every: int = 50
+    video_every: int = 500
+    checkpoint_every_steps: int = 10_000
+    checkpoint_dir: str = "checkpoints"
+    video_save_dir: str = "outputs"
+    # a JAX buffer-donation switch; the port's step updates in place either way
+    donate_state: bool = True
+    # torch.profiler trace of steps [profile_start_step, + profile_num_steps)
+    profile_dir: Optional[str] = None
+    profile_start_step: int = 10
+    profile_num_steps: int = 5
+    # gs://bucket/run: video dumps and checkpoints mirrored there by gcloud
+    gcs_upload_prefix: Optional[str] = None
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
 class VAEConfig:
-    """Top-level bundle (the model, loss and optimizer parts so far)."""
+    """Top-level bundle."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     def replace(self, **kw) -> "VAEConfig":
         return dataclasses.replace(self, **kw)
@@ -199,6 +290,7 @@ def tiny_config(**model_overrides) -> VAEConfig:
     kwargs.update(model_overrides)
     return VAEConfig(
         model=ModelConfig(**kwargs),
+        data=DataConfig(batch_size=2, max_frames=8, resize=(32, 32), synthetic=True),
         optim=OptimConfig(learning_rate=1e-3, warmup_steps=10, decay_steps=1000),
         loss=LossConfig(use_perceptual=False),
     )

@@ -8,13 +8,21 @@ three activations the loss reads (relu1_1, relu1_2, relu2_1) are computed.
 Kernels stay HWIO under ``convs.<name>.kernel``, as in the JAX params, so
 ``load_jax_params`` fills them by path. These convs are XLA convolutions in
 the JAX package, not Pallas kernels, so ``F.conv2d`` computes them here.
+
+Pretrained weights come as the ``.npz`` that the JAX package's converter
+writes (``conv1_1.kernel`` HWIO, ``conv1_1.bias``, …):
+``python -m video_vae_tpu_torch.cli.convert_vgg vgg16.pth vgg16.npz`` makes
+the same file from a torchvision VGG16 state dict, and
+``load_vgg(weights_path)`` reads it.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -76,28 +84,60 @@ class VGG16Features(nn.Module):
 def load_vgg(
     weights_path: Optional[str] = None,
     *,
+    normalize: bool = True,
+    layout: str = "nhwc",
+    dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
     seed: int = 0,
 ) -> VGG16Features:
     """The feature extractor with frozen parameters on ``device``.
 
-    Without ``weights_path`` the filters are random (fan-in truncated normal)
-    and a warning says so: a random VGG is a materially different objective
-    from the ImageNet-pretrained one. Loading converted ``.npz`` weights is
-    not ported yet; fill a model from the JAX package's VGG with
-    ``load_jax_params`` instead.
+    With ``weights_path`` the filters come from that ``.npz`` (HWIO kernels
+    under ``<conv>.kernel``, biases under ``<conv>.bias``). Without it they
+    are random (fan-in truncated normal from ``seed``) and a warning says
+    so: a random VGG is a materially different objective from the
+    ImageNet-pretrained one. ``layout="cf"`` (the JAX package's
+    channels-first VGG on the direct conv kernel) is not ported yet.
     """
     dev = resolve_device(device)
+    if layout != "nhwc":
+        raise NotImplementedError(f"vgg layout {layout!r} is not ported yet")
+    model = VGG16Features(torch.Generator().manual_seed(seed), normalize=normalize, dtype=dtype)
     if weights_path:
-        raise NotImplementedError(
-            "loading VGG weights from .npz is not ported yet; use load_jax_params"
+        if not os.path.exists(weights_path):
+            raise FileNotFoundError(weights_path)
+        data = np.load(weights_path)
+        with torch.no_grad():
+            for name, _, _ in TRUNCATED_PLAN:
+                conv = model.convs[name]
+                kernel, bias = data[f"{name}.kernel"], data[f"{name}.bias"]
+                if kernel.shape != tuple(conv.kernel.shape) or bias.shape != tuple(conv.bias.shape):
+                    raise ValueError(f"{name}: kernel {kernel.shape}, bias {bias.shape} in {weights_path}, "
+                                     f"expected {tuple(conv.kernel.shape)}, {tuple(conv.bias.shape)}")
+                conv.kernel.copy_(torch.from_numpy(np.asarray(kernel, np.float32)))
+                conv.bias.copy_(torch.from_numpy(np.asarray(bias, np.float32)))
+    else:
+        warnings.warn(
+            "Perceptual loss is using RANDOM VGG filters: no weights_path was given. "
+            "This is a materially different training objective from an "
+            "ImageNet-pretrained VGG16. Convert weights with `python -m "
+            "video_vae_tpu_torch.cli.convert_vgg vgg16.pth vgg16.npz` and pass "
+            "--vgg_weights / weights_path.",
+            stacklevel=2,
         )
-    warnings.warn(
-        "Perceptual loss is using RANDOM VGG filters: no weights_path was given. "
-        "This is a materially different training objective from an "
-        "ImageNet-pretrained VGG16.",
-        stacklevel=2,
-    )
-    model = VGG16Features(torch.Generator().manual_seed(seed))
     model.requires_grad_(False)
     return model.to(dev)
+
+
+# torchvision's vgg16 ``features`` index of each conv this model keeps
+TORCHVISION_INDEX = {"conv1_1": 0, "conv1_2": 2, "conv2_1": 5}
+
+
+def convert_torchvision_state_dict(state_dict: Mapping[str, np.ndarray], out_path: str) -> None:
+    """torchvision vgg16 state dict (OIHW weights) → ``.npz`` with HWIO kernels."""
+    arrays = {}
+    for name, idx in TORCHVISION_INDEX.items():
+        w = np.asarray(state_dict[f"features.{idx}.weight"])  # (out, in, kh, kw)
+        arrays[f"{name}.kernel"] = np.transpose(w, (2, 3, 1, 0))  # → (kh, kw, in, out)
+        arrays[f"{name}.bias"] = np.asarray(state_dict[f"features.{idx}.bias"])
+    np.savez(out_path, **arrays)

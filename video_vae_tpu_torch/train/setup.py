@@ -15,7 +15,7 @@ not ``torch.optim.Adam``, so that it follows optax's arithmetic:
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Optional
 
 import torch
 
@@ -49,11 +49,17 @@ class Optimizer:
     """Global-norm clip, then Adam with the warmup-cosine learning rate.
 
     Holds the step count and the f32 first and second moments of each
-    parameter. :meth:`update` changes the parameters in place.
+    parameter. :meth:`update` changes the parameters in place. ``names``
+    (the model's parameter paths, from :func:`create_optimizer`) key the
+    moments when a JAX optimizer state is loaded.
     """
 
-    def __init__(self, params: Iterable[torch.Tensor], cfg: OptimConfig):
+    def __init__(self, params: Iterable[torch.Tensor], cfg: OptimConfig,
+                 names: Optional[Iterable[str]] = None):
         self.params: List[torch.Tensor] = list(params)
+        self.names: List[str] = list(names) if names is not None else [str(i) for i in range(len(self.params))]
+        if len(self.names) != len(self.params):
+            raise ValueError(f"{len(self.names)} names for {len(self.params)} parameters")
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg)
         self.count = 0
@@ -88,7 +94,25 @@ class Optimizer:
                 p.copy_((p.float() - lr * s).to(p.dtype))
         return norm
 
+    def state_dict(self) -> dict:
+        """``{"count": int, "mu": [...], "nu": [...]}``, the moments in parameter order."""
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy ``count`` and the moments of :meth:`state_dict` in, on the moments' device."""
+        for key in ("mu", "nu"):
+            if len(state[key]) != len(self.params):
+                raise ValueError(f"{key}: {len(state[key])} moments for {len(self.params)} parameters")
+            for i, (ours, theirs) in enumerate(zip(getattr(self, key), state[key])):
+                if tuple(theirs.shape) != tuple(ours.shape):
+                    raise ValueError(f"{key} of {self.names[i]}: shape {tuple(theirs.shape)}, "
+                                     f"expected {tuple(ours.shape)}")
+                ours.copy_(theirs)
+        self.count = int(state["count"])
+
 
 def create_optimizer(model: torch.nn.Module, cfg: OptimConfig) -> Optimizer:
     """The optimizer over every parameter of ``model``, in ``named_parameters`` order."""
-    return Optimizer(model.parameters(), cfg)
+    named = list(model.named_parameters())
+    return Optimizer([p for _, p in named], cfg, names=[n.replace(".", "/") for n, _ in named])

@@ -127,7 +127,11 @@ def build_perceptual(
     *,
     device: str | torch.device = "cuda",
 ) -> Optional[PerceptualFn]:
-    """The perceptual fn the loss config asks for (or None), its VGG on ``device``."""
+    """The perceptual fn the loss config asks for (or None), its VGG on ``device``.
+
+    The VGG's filters come from the ``.npz`` at ``weights_path`` (see
+    ``models/vgg.py:load_vgg``), random ones with a warning without it.
+    """
     if not loss_cfg.use_perceptual:
         return None
     if loss_cfg.vgg_layout != "nhwc":

@@ -1,4 +1,4 @@
-"""Quality metrics. Counterpart of the JAX package's ``utils/metrics.py``."""
+"""Quality metrics and parameter counting. Counterpart of the JAX package's ``utils/metrics.py``."""
 
 from __future__ import annotations
 
@@ -22,3 +22,8 @@ def masked_psnr(
         pixels = err.shape[2] * err.shape[3] * err.shape[4]
         mse = (err * m).sum() / torch.clamp(m.sum() * pixels, min=1.0)
     return 10.0 * torch.log10(max_val**2 / torch.clamp(mse, min=1e-12))
+
+
+def count_params(module: torch.nn.Module) -> int:
+    """The number of parameter elements of ``module``."""
+    return sum(p.numel() for p in module.parameters())
