@@ -72,7 +72,20 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    state, batch and draws, and prints a "trainer" line (ms per step, device ms
    and idle share from ``torch.profiler``, the host's data wait, checkpoint
    save and restore seconds, peak memory, the parameter count). Kernels #1-#4
-   are held to their plain versions at the trainer's shapes beforehand.
+   are held to their plain versions at the trainer's shapes beforehand;
+8. holds the attention kernels (#1, #3, #5, #6, #7) at head_dim 16 and 32 to
+   their plain versions, at the calls of the ``--tiny`` and ``--small``
+   presets' train steps (head_dim 16) and at the same shapes with head_dim 32,
+   in bf16 and f32, masked, with a fully masked sequence, the same bits twice;
+   #2 and #4 at tiny's UNet; and #2 at the ``cf`` VGG's six shapes (three
+   convs, three input gradients) beside cuDNN. Then the "tiny" phase runs
+   ``cli/train.py``'s ``main`` with ``--synthetic --tiny --steps 5`` under its
+   default device (every step's launches counted and held), the float32 tiny
+   train step card against CPU ("f32-tiny"), one ``--small`` train step
+   ("train-small": launches, device ms, peak memory), and the flagship b1 x 16f
+   step with ``LossConfig(vgg_layout="cf")`` held to the ``train`` line's loss,
+   perceptual term and keep decisions ("train-vgg-cf": 39 launches of #2, 15 of
+   #4, device ms, and the VGG's forward and backward alone in both layouts).
 
 Every failure ends the script with a non-zero exit and no result line. The
 last line of standard output is ``{"ok": true, "device": {...}}``; the line
@@ -165,7 +178,7 @@ MODEL_PATHS = {
 FLAGSHIP_PATHS = ("fused", "pallas", "sublayer", "mlp")
 PATHS = (
     "train", "serving", "serving-pallas", "serving-sublayer", "train-pallas", "train-sublayer",
-    "serving-mlp", "train-mlp", "serving-sublayer-mlp", "serving-tapdot", "train-tapdot", "trainer",
+    "serving-mlp", "train-mlp", "serving-sublayer-mlp", "serving-tapdot", "train-tapdot", "trainer", "tiny",
 )
 # the path whose sums stand at the top level of a kernel's record
 MAIN_PATH = {
@@ -187,6 +200,18 @@ TRAIN_METRICS = ("loss", "MSE", "per_sample_MAE", "perceptual_loss", "selection_
 # kernel bounds (2e-2 / 1e-4), as the bf16 path checks scale theirs
 BF16_SCALE = KERNEL_TOL["bfloat16"] / KERNEL_TOL["float32"]
 TRAINER_STEP_TOL, TRAINER_PERCEPTUAL_TOL = TRAIN_F32_TOL * BF16_SCALE, PERCEPTUAL_F32_TOL * BF16_SCALE
+# the JAX smoke command's counterpart, run by the "tiny" phase under its default device
+TINY_ARGS = ("--synthetic", "--tiny", "--steps", "5")
+# the --small preset's train step: cli/train.py's default batch of 2 clips of 32 frames
+SMALL_ARGS = ("--synthetic", "--small")
+# the frames of one VGG pass (LossConfig().perceptual_chunk_frames): the b1 x 16f step's 2 rollouts
+VGG_FRAMES = 32
+# the cf VGG's convs on the direct conv kernel: (name, h = w, cin, cout, launches a step),
+# each forward run on the reconstruction and the target, each input gradient once
+VGG_CONV_CASES = (
+    ("conv1_1", 256, 3, 64, 2), ("conv1_2", 256, 64, 64, 2), ("conv2_1", 128, 64, 128, 2),
+    ("conv2_1 dgrad", 128, 128, 64, 1), ("conv1_2 dgrad", 256, 64, 64, 1), ("conv1_1 dgrad", 256, 64, 3, 1),
+)
 
 
 def path_name(entry: str, path: str) -> str:
@@ -220,6 +245,45 @@ def describe(cfg) -> str:
 def rounds_to_bf16(path: str) -> bool:
     """Whether the path's fused sublayers multiply bf16 operands inside a float32 model."""
     return bool({"VVT_ATTN_SUBLAYER", "VVT_MLP_FUSED"} & set(MODEL_PATHS[path][1]))
+
+
+def cli_config(args):
+    """The VAEConfig ``cli/train.py`` builds from ``args``."""
+    from video_vae_tpu_torch.cli.train import build_parser, config_from_args
+
+    return config_from_args(build_parser().parse_args(list(args)))
+
+
+def head_dim_configs():
+    """(label, ModelConfig, clips, frames) of the presets whose attention runs at
+    head_dim 16, ``--tiny`` (tiny_config: 32², 2 heads) and ``--small`` (256², 8
+    heads), each with its data's batch, and the same shapes at head_dim 32
+    (qkv_features doubled): the kernels' other head dims beside the flagship's 64."""
+    out = []
+    for label, args in (("tiny", TINY_ARGS), ("small", SMALL_ARGS)):
+        cfg = cli_config(args)
+        model = cfg.model
+        out.append((label, model, cfg.data.batch_size, cfg.data.max_frames))
+        out.append((f"{label}-d32", model.replace(qkv_features=2 * model.qkv_features), cfg.data.batch_size,
+                    cfg.data.max_frames))
+    return out
+
+
+def preset_attention_cases(label, cfg, clips, frames, full=True):
+    """(name, B, S, padded clip, dtype, {"train": launches a step}) of the attention calls
+    of a train step on ``clips`` clips of ``frames`` frames, the last clip ending in 3
+    padded frames: the encoder's on the clips, the decoder's on their 2 rollouts, then
+    the encoder's again in float32 (counted on no path). ``full=False`` keeps the
+    decoder's and one float32 call."""
+    hw, enc, dec = cfg.num_patches, cfg.encoder_depth, cfg.decoder_depth
+    cases = [
+        (f"{label} temporal b{clips}x{frames}", clips * hw, frames, True, "bfloat16", {"train": enc}),
+        (f"{label} spatial b{clips}x{frames}", clips * frames, hw, False, "bfloat16", {"train": enc}),
+        (f"{label} temporal b{2 * clips}x{frames}", 2 * clips * hw, frames, True, "bfloat16", {"train": dec}),
+        (f"{label} spatial b{2 * clips}x{frames}", 2 * clips * frames, hw, False, "bfloat16", {"train": dec}),
+    ]
+    f32 = [(name, B, S, padded, "float32", {}) for name, B, S, padded, _, _ in cases[:2]]
+    return cases + f32 if full else cases[2:] + f32[:1]
 
 
 def tapdot_model_config():
@@ -451,11 +515,14 @@ def _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype):
     return (qkv, g, qs, ks, *_key_mask(cfg, dev, name, B, S, padded))
 
 
-def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", cases=None, remat=False):
+def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", cases=None, remat=False,
+                            masked_rows=None):
     """Fused attention forward and backward kernels against their plain versions,
     at the launches of ``cfg``'s serving pass and train step on the paths named
-    (``serving=None``: no serving path). ``cases`` replace ``attention_cases(cfg)``;
-    with ``remat`` each forward runs twice in a step (the recompute)."""
+    (``serving=None``: no serving path; ``train=None``: counted on no path either).
+    ``cases`` replace ``attention_cases(cfg)``; with ``remat`` each forward runs
+    twice in a step (the recompute). ``masked_rows`` (by default on the flagship's
+    serving path) also holds each padded case with one sequence's keys all masked."""
     import torch
     import torch.nn.functional as F
 
@@ -463,8 +530,9 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
 
     gen = torch.Generator().manual_seed(0)
     H, D = cfg.num_heads, cfg.head_dim
+    masked_rows = serving == "serving" if masked_rows is None else masked_rows
     for name, B, S, padded, dtype, per in attention_cases(cfg) if cases is None else cases:
-        if not per and serving != "serving":
+        if not per and cases is None and serving != "serving":
             continue  # a case no path counts is checked once, with the flagship's
         qkv, g, qs, ks, mask, keys = _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
         q, k, v = (t.reshape(B, S, H, D).transpose(1, 2).contiguous() for t in qkv.split(H * D, -1))
@@ -482,7 +550,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
         sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask), 20)
         dev_ms = device_ms(lambda: fa.fused_qkv_attention_cuda(qkv, qs, ks, mask, H))
         log("attention-fwd", json.dumps({
-            "case": f"{name} {dtype}", "paths": [serving, train], "ms": ms, "sdpa_core_ms": sdpa_ms,
+            "case": f"{name} {dtype}", "head_dim": D, "paths": [serving, train], "ms": ms, "sdpa_core_ms": sdpa_ms,
             "device_ms": dev_ms,
             "sdpa_core_device_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=amask)),
             "tflops": flops / dev_ms / 1e9, "gb_per_s": moved / dev_ms / 1e6,
@@ -495,7 +563,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
             time_ms(lambda: fa.fused_qkv_attention_plain(qkv, qs, ks, mask, H), 5), sdpa_ms,
             "scaled_dot_product_attention, core only", bound_ms(moved, flops, dtype), fwd_per,
         )
-        if padded is True and serving == "serving":
+        if padded is True and masked_rows:
             # one sequence with every key masked: its rows average all S keys
             empty = mask.clone()
             empty[0] = False
@@ -516,7 +584,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
         if not all(torch.equal(a, b) for a, b in zip(got, again)):  # no atomics: the same bits on every run
             raise AssertionError(f"attention bwd {name} {dtype}: two launches gave different bits")
         del ref, again
-        if padded is True and serving == "serving":
+        if padded is True and masked_rows:
             # one sequence with every key masked: its rows spread P over all S keys
             empty = mask.clone()
             empty[0] = False
@@ -553,8 +621,10 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
     torch.cuda.empty_cache()
 
 
-def phase_flash_kernels(cfg, dev, rows):
-    """Plain masked attention forward and backward kernels against their plain versions.
+def phase_flash_kernels(cfg, dev, rows, cases=None, paths=True):
+    """Plain masked attention forward and backward kernels against their plain versions,
+    at ``attention_cases(cfg)`` or ``cases``, counted on the ``"pallas"`` paths
+    (``paths=False``: on none).
 
     q and k are contiguous (B, S, H, D) tensors and v a view into a fused QKV
     projection, as the model's ``"pallas"`` path hands them over.
@@ -566,7 +636,8 @@ def phase_flash_kernels(cfg, dev, rows):
 
     gen = torch.Generator().manual_seed(10)
     H, D = cfg.num_heads, cfg.head_dim
-    for name, B, S, padded, dtype, per in attention_cases(cfg):
+    for name, B, S, padded, dtype, per in attention_cases(cfg) if cases is None else cases:
+        per = per if paths else {}
         qkv, g, _, _, mask, keys = _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
         q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
         q, k, g = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
@@ -647,8 +718,10 @@ def phase_flash_kernels(cfg, dev, rows):
     torch.cuda.empty_cache()
 
 
-def phase_sublayer_kernel(cfg, dev, rows):
-    """The attention sublayer kernel against its plain version, both variants.
+def phase_sublayer_kernel(cfg, dev, rows, cases=None, paths=True):
+    """The attention sublayer kernel against its plain version, both variants, at
+    ``attention_cases(cfg)`` or ``cases``, counted on the sublayer paths
+    (``paths=False``: on none).
 
     The training variant returns y and the qkv and o residuals; the inference
     variant (the autograd wrapper under ``no_grad``) must give the same y. The
@@ -675,7 +748,8 @@ def phase_sublayer_kernel(cfg, dev, rows):
     )]
     lng, lnb, wqkv, bqkv, qs, ks, wout, bout = params
     w16 = [t.to(torch.bfloat16) for t in (wqkv, bqkv, wout, bout)]
-    for name, B, S, padded, dtype, per in attention_cases(cfg):
+    for name, B, S, padded, dtype, per in attention_cases(cfg) if cases is None else cases:
+        per = per if paths else {}
         tdt = getattr(torch, dtype)
         mask, keys = _key_mask(cfg, dev, name, B, S, padded)
         x = rn(B, S, C).to(dev, tdt)
@@ -1344,8 +1418,13 @@ def _draws(model, video, mask, seed, rollouts_differ=False):
     raise AssertionError("no draw without a near-tie keep decision")
 
 
-def phase_f32_train(dev):
-    """Flagship width, depth 1, b1 x 4 frames: one f32 train step, card against CPU."""
+def phase_f32_train(dev, tiny=False):
+    """Flagship width, depth 1, b1 x 4 frames: one f32 train step, card against CPU.
+
+    ``tiny``: ``tiny_config`` itself in float32 (head_dim 16, no perceptual term, as
+    its LossConfig) on 2 clips of 8 frames; a gradient that is rounding noise on the
+    CPU (``ZERO_GRAD_TOL``) is held to stay noise, as :func:`phase_f32_modes` holds it.
+    """
     import torch
 
     from video_vae_tpu_torch import DynamicHParams, LossConfig, ModelConfig, VideoVAE
@@ -1353,23 +1432,31 @@ def phase_f32_train(dev):
     from video_vae_tpu_torch.models.vgg import load_vgg
     from video_vae_tpu_torch.train.step import loss_and_grads
 
-    cfg = ModelConfig(dtype="float32", encoder_depth=1, decoder_depth=1, remat=False)
-    loss_cfg, hp = LossConfig(), DynamicHParams.default()
+    if tiny:
+        tiny_cfg = cli_config(TINY_ARGS)
+        cfg, loss_cfg, clips, frames = (tiny_cfg.model.replace(dtype="float32"), tiny_cfg.loss,
+                                        tiny_cfg.data.batch_size, tiny_cfg.data.max_frames)
+        label, text = "f32-tiny", f"tiny_config, float32, b{clips} x {frames} frames (3 padded), perceptual off"
+    else:
+        cfg = ModelConfig(dtype="float32", encoder_depth=1, decoder_depth=1, remat=False)
+        loss_cfg, clips, frames = LossConfig(), 1, 4
+        label, text = "f32-train", "flagship width, encoder/decoder depth 1, b1 x 4 frames (1 padded), perceptual on"
+    hp = DynamicHParams.default()
     cpu_model = VideoVAE(cfg, device="cpu", seed=4)
     gen = torch.Generator().manual_seed(5)
     random_final_conv(cpu_model, gen)  # the zero-initialised one would cut the UNet's gradients
     gpu_model = VideoVAE(cfg, device=dev, seed=4)
     gpu_model.load_state_dict(cpu_model.state_dict())
-    video = torch.rand(1, 4, cfg.height, cfg.width, cfg.channels, generator=gen)
-    mask = torch.ones(1, 4)
-    mask[0, 3:] = 0
+    video = torch.rand(clips, frames, cfg.height, cfg.width, cfg.channels, generator=gen)
+    mask = torch.ones(clips, frames)
+    mask[-1, frames - 1 if not tiny else frames - 3:] = 0
     noise, uniforms = _draws(cpu_model, video, mask, seed=6)
 
     results = {}
     for name, model, device in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
-        vgg = load_vgg(None, device=device)
+        perceptual = make_perceptual_loss_fn(load_vgg(None, device=device)) if loss_cfg.use_perceptual else None
         loss, metrics, grads = loss_and_grads(
-            model, video.to(device), mask.to(device), hp, loss_cfg, make_perceptual_loss_fn(vgg),
+            model, video.to(device), mask.to(device), hp, loss_cfg, perceptual,
             noise=noise.to(device), uniforms=uniforms.to(device),
         )
         results[name] = ({k: float(v.detach()) for k, v in metrics.items()}, [g.cpu() for g in grads])
@@ -1380,18 +1467,25 @@ def phase_f32_train(dev):
         scale = 1.0 if key == "rl_loss" else abs(ref)  # rl_loss is 0 up to rounding
         errs[key] = abs(m_gpu[key] - ref) / scale if scale else abs(m_gpu[key] - ref)
         if not abs(m_gpu[key] - ref) <= tol * scale:
-            raise AssertionError(f"f32 train step {key}: card {m_gpu[key]} vs CPU {ref}")
-    worst = (0.0, "")
+            raise AssertionError(f"{label} step {key}: card {m_gpu[key]} vs CPU {ref}")
+    worst, noise_leaves = (0.0, ""), 0
+    scale = max(float(b.abs().max()) for b in g_cpu)
     for (name, _), a, b in zip(cpu_model.named_parameters(), g_gpu, g_cpu):
+        if tiny and float(b.abs().max()) <= ZERO_GRAD_TOL * scale:
+            if not float(a.abs().max()) <= ZERO_GRAD_TOL * scale:
+                raise AssertionError(f"{label} gradient {name}: {float(a.abs().max())} on the card where "
+                                     f"the CPU's is rounding noise (<= {ZERO_GRAD_TOL} * {scale})")
+            noise_leaves += 1
+            continue
         rel = ((a - b).abs().max() / b.abs().max()).item()
         if not (a - b).abs().max() <= GRAD_F32_TOL * b.abs().max():
-            raise AssertionError(f"f32 train step gradient {name}: relative error {rel} > {GRAD_F32_TOL}")
+            raise AssertionError(f"{label} step gradient {name}: relative error {rel} > {GRAD_F32_TOL}")
         worst = max(worst, (rel, name))
-    log("f32-train", json.dumps({
-        "config": "flagship width, encoder/decoder depth 1, b1 x 4 frames (1 padded), perceptual on",
+    log(label, json.dumps({
+        "config": text,
         "metrics_cpu": m_cpu, "metric_rel_err": errs, "worst_grad_rel_err": worst[0],
-        "worst_grad_leaf": worst[1], "leaves": len(g_cpu),
-        "tols": [TRAIN_F32_TOL, PERCEPTUAL_F32_TOL, GRAD_F32_TOL],
+        "worst_grad_leaf": worst[1], "leaves": len(g_cpu), "leaves_at_rounding_noise": noise_leaves,
+        "tols": [TRAIN_F32_TOL, PERCEPTUAL_F32_TOL, GRAD_F32_TOL] + ([ZERO_GRAD_TOL] if tiny else []),
     }))
     del cpu_model, gpu_model
     torch.cuda.empty_cache()
@@ -1538,7 +1632,8 @@ def phase_train(cfg, dev, path="fused", reference=None, timed=TIMED_STEPS, redra
         torch.backends.cudnn.deterministic = True  # the VGG's cuDNN algorithms, run to run
         loss0, metrics0, grads0 = loss_and_grads(model, video_c, mask, hp, loss_cfg, perceptual,
                                                  noise=noise.to(dev), uniforms=uniforms.to(dev))
-        fixed = {"loss": float(loss0.detach()), "kept_frame_density": float(metrics0["kept_frame_density"])}
+        fixed = {"loss": float(loss0.detach()), "kept_frame_density": float(metrics0["kept_frame_density"]),
+                 "perceptual_loss": float(metrics0["perceptual_loss"].detach())}
         versus = {}
         if default:
             # remat on and off: the same loss and gradients for the same draws
@@ -1869,6 +1964,297 @@ def phase_trainer(dev):
     return per_step
 
 
+def phase_head_dim_kernels(dev, rows):
+    """Kernels #1, #3, #5, #6 and #7 against their plain versions at head_dim 16 and
+    32: at the calls of a ``--tiny`` and a ``--small`` train step and at the same
+    shapes with head_dim 32 (:func:`head_dim_configs`), bf16 and f32, masked and with
+    a sequence whose keys are all masked, the same bits twice. The tiny preset's
+    fused attention launches are counted on the ``"tiny"`` path (its UNet's convs,
+    #2 and #4, are held at its shapes here too), the small preset's on
+    ``"train-small"``; #5, #6 and #7 on no path (those presets run
+    ``attention_impl="fused"``)."""
+    for label, cfg, clips, frames in head_dim_configs():
+        full = not label.endswith("-d32")
+        cases = preset_attention_cases(label, cfg, clips, frames, full=full)
+        path = {"tiny": "tiny", "small": "train-small"}.get(label)
+        phase_attention_kernels(cfg, dev, rows, None, path, cases, remat=cfg.remat, masked_rows=True)
+        side = cases if not full else cases[2:4] + cases[4:5]  # the decoder's calls and one float32 call
+        phase_flash_kernels(cfg, dev, rows, side, paths=False)
+        phase_sublayer_kernel(cfg, dev, rows, side, paths=False)
+        if label == "tiny":  # the rollouts' clips through the UNet
+            phase_conv_kernels(cfg, dev, rows, None, "tiny", batch=2 * clips, frames=frames)
+
+
+def phase_vgg_conv_kernels(dev, rows):
+    """The direct conv kernel (#2) at the cf VGG's six shapes against its plain version,
+    on one VGG pass of ``VGG_FRAMES`` frames: the three convs and the three input
+    gradients a train step runs (conv1_1's into the reconstruction), with cuDNN's
+    ``F.conv3d`` on the same operands beside each and the same bits twice."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_vae_tpu_torch.ops import conv3d
+
+    gen = torch.Generator().manual_seed(40)
+    for name, side, cin, cout, launches in VGG_CONV_CASES:
+        x = torch.randn(1, VGG_FRAMES, cin, side, side, generator=gen).to(dev, torch.bfloat16)
+        kernel = (torch.randn(1, 3, 3, cin, cout, generator=gen) / (9 * cin) ** 0.5).to(dev, torch.bfloat16)
+        bias = (torch.zeros(cout) if "dgrad" in name else 0.1 * torch.randn(cout, generator=gen)).to(dev)
+        out = conv3d.conv3d_cf_cuda(x, None, kernel, bias)
+        again = conv3d.conv3d_cf_cuda(x, None, kernel, bias)
+        torch.cuda.synchronize()
+        err = check_close(f"vgg conv {name}", out, conv3d.conv3d_cf_plain(x, None, kernel, bias), "bfloat16")
+        if not torch.equal(out, again):
+            raise AssertionError(f"vgg conv {name}: two launches gave different bits")
+        x_ncdhw = x.transpose(1, 2).contiguous()
+        w_oidhw = kernel.permute(4, 3, 0, 1, 2).contiguous()
+        lib_bias = bias.to(torch.bfloat16)
+        flops = 2.0 * VGG_FRAMES * cout * cin * valid_taps(side, 3) ** 2
+
+        def run():
+            return conv3d.conv3d_cf_cuda(x, None, kernel, bias)
+
+        def library():
+            return F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=(0, 1, 1))
+
+        _record(
+            rows, conv3d.CONV3D, f"vgg {name}", [1, VGG_FRAMES, cin, side, side, cout, [1, 3, 3]], "bfloat16", err,
+            time_ms(run, 5), time_ms(lambda: conv3d.conv3d_cf_plain(x, None, kernel, bias), 1, warmup=0),
+            time_ms(library, 5), "torch.nn.functional.conv3d (cuDNN), (1, 3, 3) kernel",
+            bound_ms(nbytes(x, kernel, bias, out), flops, "bfloat16"), {"train-vgg-cf": launches},
+            **device_times(run, library, flops),
+        )
+        del x, out, again, x_ncdhw
+    torch.cuda.empty_cache()
+
+
+def phase_tiny(dev):
+    """The JAX smoke command's counterpart: ``cli/train.py``'s ``main`` with
+    ``--synthetic --tiny --steps 5`` under its default device, checkpoints in a
+    temporary directory (the working directory while it runs). Every step's
+    launches are counted and held to a tiny train step's; the run's metrics are
+    finite and its checkpoint is written. Returns the launches of one step."""
+    import tempfile
+
+    import torch
+
+    from video_vae_tpu_torch.cli import train as cli_train
+    from video_vae_tpu_torch.train import trainer as trainer_module
+
+    cfg = cli_config(TINY_ARGS)
+    want = expected_launches(cfg.model, "train", "fused")
+    steps, last = [], {}
+    inner = trainer_module.train_step
+
+    def counted(*args, **kw):
+        before = read_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = inner(*args, **kw)
+        end.record()
+        after = read_launches()
+        steps.append({"launches": {k: after[k] - before[k] for k in after}, "events": (start, end),
+                      "metrics": metrics})
+        last.update(args=args, kw=kw)
+        return metrics
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="vvt-tiny-") as tmp:
+        trainer_module.train_step = counted  # the Trainer binds it when it is built
+        os.chdir(tmp)
+        try:
+            reset_launches()
+            started = time.perf_counter()
+            cli_train.main([*TINY_ARGS, "--checkpoint_dir", os.path.join(tmp, "checkpoints")])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - started
+        finally:
+            os.chdir(here)
+            trainer_module.train_step = inner
+        launches = read_launches()
+        n = len(steps)
+        saved = os.path.exists(os.path.join(tmp, "checkpoints", str(n), "state.pt"))
+    epoch = cfg.data.synthetic_num_clips // cfg.data.batch_size  # --steps is checked between epochs
+    if n != epoch or not saved:
+        raise AssertionError(f"tiny: {n} steps (want {epoch}), checkpoint written: {saved}")
+    for i, step in enumerate(steps):
+        if step["launches"] != want:
+            raise AssertionError(f"tiny step {i + 1} launches {step['launches']}, expected {want}")
+        metrics = {k: float(v) for k, v in step["metrics"].items()}
+        if not _finite(metrics) or not metrics["grad_norm"] > 0:
+            raise AssertionError(f"tiny step {i + 1}: metrics {metrics}")
+    if launches != {k: n * v for k, v in want.items()}:
+        raise AssertionError(f"tiny run launches {launches}, expected {n} x {want}")
+    times = [start.elapsed_time(end) for start, end in (step["events"] for step in steps)]
+    ms = statistics.median(times[2:])
+    profile = profile_device("tiny", lambda: inner(*last["args"], **last["kw"]), ms, passes=3)
+    log("tiny", json.dumps({
+        "config": f"{describe(cfg.model)}, head_dim {cfg.model.head_dim}, b{cfg.data.batch_size} x "
+                  f"{cfg.data.max_frames} frames, synthetic; cli/train.py {' '.join(TINY_ARGS)}",
+        "steps": n, "run_s": run_s, "ms_per_step_median": ms, "ms_per_step_all": times,
+        "device_ms_per_step": profile["device_busy_ms_per_run"],
+        "device_ops_per_step": profile["device_ops_per_run"], "idle_share": profile["idle_share_vs_median"],
+        "launches_per_step": want, "launches_run": launches,
+        "last_step_metrics": {k: float(v) for k, v in steps[-1]["metrics"].items()},
+    }))
+    del steps, last
+    torch.cuda.empty_cache()
+    return want
+
+
+def phase_train_small(dev):
+    """One train step of the ``--small`` preset (256², 2 + 2 blocks of 8 heads of 16,
+    remat on, perceptual on with the random VGG) on cli/train.py's default batch,
+    2 clips of 32 frames: launches held to the step's, finite metrics, its device ms
+    and peak memory ("train-small" line)."""
+    import torch
+
+    from video_vae_tpu_torch import DynamicHParams, VideoVAE, build_perceptual, create_optimizer, train_step
+
+    vae_cfg = cli_config(SMALL_ARGS)
+    cfg, clips, frames = vae_cfg.model, vae_cfg.data.batch_size, vae_cfg.data.max_frames
+    model = VideoVAE(cfg, device=dev, seed=0)
+    opt = create_optimizer(model, vae_cfg.optim)
+    perceptual = build_perceptual(vae_cfg.loss, device=dev)
+    gen = torch.Generator().manual_seed(50)
+    video = torch.rand(clips, frames, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
+    mask = torch.ones(clips, frames, device=dev)
+    mask[-1, frames - 3:] = 0
+    hp, draws = DynamicHParams.default(), torch.Generator(device=dev).manual_seed(51)
+
+    def step():
+        return train_step(model, opt, video, mask, hp, vae_cfg.loss, perceptual, generator=draws)
+
+    reset_launches()
+    first = {k: float(v) for k, v in step().items()}
+    torch.cuda.synchronize()
+    launches, want = read_launches(), trainer_launches(cfg)
+    if launches != want:
+        raise AssertionError(f"train-small launches {launches}, expected {want}")
+    if not _finite(first) or not first["grad_norm"] > 0:
+        raise AssertionError(f"train-small step: metrics {first}")
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    profile = profile_device("train-small", step, ms, passes=1)
+    log("train-small", json.dumps({
+        "config": f"{describe(cfg)}, head_dim {cfg.head_dim}, bf16 compute, f32 params, b{clips} x {frames} "
+                  f"frames, rl (2 rollouts), perceptual on (random VGG), remat on; cli/train.py {' '.join(SMALL_ARGS)}",
+        "launches": launches, "ms_per_step_median": ms, "ms_per_step_all": times,
+        "device_ms_per_step": profile["device_busy_ms_per_run"],
+        "device_ops_per_step": profile["device_ops_per_run"], "idle_share": profile["idle_share_vs_median"],
+        "peak_memory_gib": peak, "step1_metrics": first,
+    }))
+    del model, opt, perceptual
+    torch.cuda.empty_cache()
+
+
+def phase_train_vgg_cf(cfg, dev, reference):
+    """The flagship b1 x 16f train step with ``LossConfig(vgg_layout="cf")``: the
+    ``train`` line's model (seed 0), batch and draws, its loss, perceptual term and
+    keep decisions held to that line's (nhwc) ones; the launches of a step (#2 runs
+    the VGG's 6 forward convs and 3 input gradients besides the UNet's 30, #4 the
+    UNet's 15 and no VGG filter gradient); the step's device ms, and the VGG's
+    forward and backward alone on both layouts with their device ms by op."""
+    import torch
+
+    from video_vae_tpu_torch import (
+        DynamicHParams,
+        LossConfig,
+        OptimConfig,
+        VideoVAE,
+        build_perceptual,
+        create_optimizer,
+        train_step,
+    )
+    from video_vae_tpu_torch.train.step import loss_and_grads
+
+    cfg = cfg.replace(remat=False)
+    model = VideoVAE(cfg, device=dev, seed=0)
+    opt = create_optimizer(model, OptimConfig())
+    loss_cfg, hp = LossConfig(vgg_layout="cf"), DynamicHParams.default()
+    perceptual = build_perceptual(loss_cfg, device=dev)
+    gen = torch.Generator().manual_seed(8)
+    video = torch.rand(TRAIN_BATCH, FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
+    mask = torch.ones(TRAIN_BATCH, FRAMES, device=dev)
+    noise, uniforms = reference["draws"]
+    loss0, metrics0, grads0 = loss_and_grads(model, video.to(cfg.compute_dtype()), mask, hp, loss_cfg, perceptual,
+                                             noise=noise.to(dev), uniforms=uniforms.to(dev))
+    got = {"loss": float(loss0.detach()), "perceptual_loss": float(metrics0["perceptual_loss"]),
+           "kept_frame_density": float(metrics0["kept_frame_density"])}
+    del loss0, metrics0, grads0
+    if got["kept_frame_density"] != reference["kept_frame_density"]:
+        raise AssertionError("train-vgg-cf: keep decisions differ from the train line's for the same draws")
+    errs = {k: abs(got[k] - reference[k]) / abs(reference[k]) for k in ("loss", "perceptual_loss")}
+    if not max(errs.values()) <= PATH_LOSS_TOL:
+        raise AssertionError(f"train-vgg-cf: {got} vs the train line's {reference} (tol {PATH_LOSS_TOL})")
+
+    draws = torch.Generator(device=dev).manual_seed(9)
+
+    def step():
+        return train_step(model, opt, video, mask, hp, loss_cfg, perceptual, generator=draws)
+
+    reset_launches()
+    first = {k: float(v) for k, v in step().items()}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = expected_launches(cfg, "train", "fused")
+    want["vvt_conv3d_cf"] += sum(n for *_, n in VGG_CONV_CASES)
+    if launches != want:
+        raise AssertionError(f"train-vgg-cf launches {launches}, expected {want}")
+    if not _finite(first) or not first["grad_norm"] > 0:
+        raise AssertionError(f"train-vgg-cf step: metrics {first}")
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    profile = profile_device("train-vgg-cf", step, ms, passes=1)
+    del model, opt
+    # the VGG alone, forward and backward on a step's reconstructions, in each layout
+    x = torch.rand(2 * TRAIN_BATCH, FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
+    target = torch.rand(TRAIN_BATCH, FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
+    x.requires_grad_()
+    vgg = {}
+    for layout in ("cf", "nhwc"):
+        fn = build_perceptual(LossConfig(vgg_layout=layout), device=dev)
+
+        def run(fn=fn):
+            return torch.autograd.grad(fn(x, target, 2).sum(), [x])
+
+        vgg_ms = device_ms(run, iters=3)
+        vgg[layout] = {"device_ms": vgg_ms, **profile_device(f"vgg-{layout}", run, vgg_ms, passes=2)}
+    log("train-vgg-cf", json.dumps({
+        "config": f"{describe(cfg)}, bf16 compute, f32 params, b{TRAIN_BATCH} x {FRAMES} frames, rl (2 rollouts), "
+                  "perceptual on with vgg_layout='cf' (random VGG), remat off, path fused",
+        "launches": launches, "fixed_draws": got, "train_line": {k: reference[k] for k in got},
+        "rel_err": errs, "tol": PATH_LOSS_TOL, "ms_per_step_median": ms, "ms_per_step_all": times,
+        "device_ms_per_step": profile["device_busy_ms_per_run"],
+        "device_ops_per_step": profile["device_ops_per_run"], "idle_share": profile["idle_share_vs_median"],
+        "peak_memory_gib": peak, "vgg_fwd_bwd_device_ms": {layout: v["device_ms"] for layout, v in vgg.items()}, "step1_metrics": first,
+    }))
+    del x, target
+    torch.cuda.empty_cache()
+
+
 def kernel_record(rows, launches_by_path):
     """One entry per kernel; times and bounds summed over the launches of its main
     path (the default train step, or the train step of the path that runs it),
@@ -1965,6 +2351,8 @@ def main() -> int:
                         f"passes and {TAPDOT_TIMED_STEPS} steps timed",
         "trainer": f"none of width or depth; {TRAINER_CLIPS} synthetic clips, so one epoch of "
                    f"{TRAINER_STEPS} steps and an eval of {TRAINER_CLIPS // TRAINER_BATCH} batches",
+        "tiny": "none: cli/train.py --synthetic --tiny --steps 5 as it stands (one epoch of 32 steps)",
+        "train-small": "none of width or depth; one step timed 3 times",
     }))
     if [sum(d.values()) for d in tapdot_launches(wide)] != [4, 4]:
         raise AssertionError(f"the tap-dot model's gate counts changed: {tapdot_launches(wide)}")
@@ -1984,6 +2372,11 @@ def main() -> int:
     # the trainer's shapes: b2 x 32 frames with its first batch's padding, remat on
     phase_trainer_kernels(dev, rows)
     log("seconds", json.dumps({"kernel checks": time.monotonic() - started}))
+    started = time.monotonic()
+    # head_dim 16 and 32 (the tiny and small presets), tiny's UNet, the cf VGG's convs
+    phase_head_dim_kernels(dev, rows)
+    phase_vgg_conv_kernels(dev, rows)
+    log("seconds", json.dumps({"head-dim and vgg kernel checks": time.monotonic() - started}))
     started = time.monotonic()
     launches = {}
     serving_ref = train_ref = None
@@ -2011,6 +2404,7 @@ def main() -> int:
             TIMED_STEPS if path == "fused" else NEW_PATH_TIMED_STEPS,
         )
         train_ref = train_ref or ref
+    phase_train_vgg_cf(cfg, dev, train_ref)
     _, wide_ref = phase_train(
         wide.replace(remat=False), dev, "tapdot-off", None, TAPDOT_TIMED_STEPS, redraw_final_conv=True
     )
@@ -2021,6 +2415,11 @@ def main() -> int:
     started = time.monotonic()
     launches["trainer"] = phase_trainer(dev)
     log("seconds", json.dumps({"trainer": time.monotonic() - started}))
+    started = time.monotonic()
+    launches["tiny"] = phase_tiny(dev)
+    phase_f32_train(dev, tiny=True)
+    phase_train_small(dev)
+    log("seconds", json.dumps({"tiny and small": time.monotonic() - started}))
     log(json.dumps(kernel_record(rows, launches)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -2,7 +2,9 @@
 (``ops/flash_attention.py:fused_attention_bwd_plan``).
 
 At every attention call of the flagship and of the tap-dot model (the shapes
-``chip_smoke.py`` holds the kernel at) and at ragged shapes: on each side,
+``chip_smoke.py`` holds the kernel at), of the ``--tiny`` and ``--small``
+presets and at the same shapes with head_dim 32, and at ragged shapes at every
+head dim the kernel takes: on each side,
 query and key, every (sequence, head, row) is computed by exactly one warp of
 one block, which staged the pair; each warp's chunks walk every key (query
 side) or query (key side) j < S and no row past the staged ones, and a query
@@ -24,14 +26,14 @@ from video_vae_tpu_torch.ops.flash_attention import (
     BWD_SLAB_MAX_SEQ,
     BWD_SLAB_WARPS,
     BWD_TILE_WARPS,
-    MMA_ROW_BYTES,
+    KERNEL_HEAD_DIMS,
     fused_attention_bwd_plan,
+    mma_row_bytes,
 )
 
 # what the H100 accepts of one block and one grid; the kernel's __launch_bounds__ per variant
 MAX_SMEM, MAX_GRID_X = 232448, 2**31 - 1
 LAUNCH_BOUND_WARPS = {"slab": 4, "tile": 16}
-D = 64
 
 MODEL_CASES = sorted({
     (model, name, B, S, cfg.num_heads)
@@ -48,6 +50,13 @@ RAGGED_CASES = [
     for S in (1, 15, 16, 17, 37, 64, 65, 255, 256)
     for B, H in ((1, 8), (3, 8), (5, 2))
 ]
+# the presets' calls at head_dim 16 and the same shapes at 32 (chip_smoke.head_dim_configs)
+PRESET_CASES = sorted({
+    (label, name, B, S, cfg.num_heads, cfg.head_dim)
+    for label, cfg, clips, frames in chip_smoke.head_dim_configs()
+    for name, B, S, _, _, _ in chip_smoke.preset_attention_cases(label, cfg, clips, frames)
+})
+RAGGED_HEAD_DIM_CASES = [(B, S, H, D) for B, S, H in RAGGED_CASES for D in KERNEL_HEAD_DIMS if D != 64]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,10 +66,11 @@ class Geometry:
     batch: int
     seq: int
     heads: int
+    head_dim: int = 64
 
     @property
     def plan(self) -> tuple[str, int, int]:
-        return fused_attention_bwd_plan(self.batch, self.seq, self.heads)
+        return fused_attention_bwd_plan(self.batch, self.seq, self.heads, self.head_dim)
 
     @property
     def rows16(self) -> int:
@@ -93,12 +103,13 @@ class Geometry:
         key bits, and each warp's (2, D) f32 dscale partials and 8 f32 staging
         rows of D + 8."""
         variant, unit, warps = self.plan
+        D, row = self.head_dim, mma_row_bytes(self.head_dim)
         words = 8 * -(-self.seq // 64)
         red = warps * (2 * D + 8 * (D + 8)) * 4
         if variant == "slab":
-            pair = 4 * self.rows16 * MMA_ROW_BYTES + 2 * self.rows16 * (self.rows16 + 8) * 2
+            pair = 4 * self.rows16 * row + 2 * self.rows16 * (self.rows16 + 8) * 2
             return unit * (pair + words) + red
-        return 4 * self.rows16 * MMA_ROW_BYTES + 3 * self.rows16 * 4 + words + red
+        return 4 * self.rows16 * row + 3 * self.rows16 * 4 + words + red
 
     def block_pairs(self, block: int) -> list[int]:
         """The (sequence, head) pairs, as b·H + h, whose rows the block stages."""
@@ -125,8 +136,8 @@ class Geometry:
         return list(range(0, self.seq, 16))
 
 
-def _check_plan(B, S, H):
-    geo = Geometry(B, S, H)
+def _check_plan(B, S, H, D=64):
+    geo = Geometry(B, S, H, D)
     variant, unit, warps = geo.plan
     assert variant in ("slab", "tile") and unit >= 1
     assert variant == "tile" or S <= BWD_SLAB_MAX_SEQ
@@ -196,3 +207,25 @@ def test_attention_bwd_plan_at_the_models_shapes_is_as_designed():
     spatial = Geometry(32, 256, 8)
     assert (spatial.plan, spatial.grid, spatial.kt) == (("tile", 1, 16), 256, 2)
     assert len(spatial.query_chunks()) == 8 and len(spatial.key_steps()) == 16
+
+
+@pytest.mark.parametrize("label,name,B,S,H,D", PRESET_CASES, ids=[f"{c[0]}-{c[1]}" for c in PRESET_CASES])
+def test_attention_bwd_plan_at_preset_shapes(label, name, B, S, H, D):
+    _check_plan(B, S, H, D)
+
+
+@pytest.mark.parametrize("B,S,H,D", RAGGED_HEAD_DIM_CASES)
+def test_attention_bwd_plan_at_ragged_shapes_other_head_dims(B, S, H, D):
+    _check_plan(B, S, H, D)
+
+
+def test_attention_bwd_plan_is_the_same_at_every_head_dim():
+    """The variant, pairs and warps do not depend on head_dim (the largest block
+    fits at 64); the shared memory shrinks with it; other head dims are refused."""
+    for B, S, H in RAGGED_CASES:
+        plans = {fused_attention_bwd_plan(B, S, H, D) for D in KERNEL_HEAD_DIMS}
+        assert len(plans) == 1
+        smem = [Geometry(B, S, H, D).smem for D in KERNEL_HEAD_DIMS]
+        assert smem == sorted(smem) and smem[-1] <= MAX_SMEM
+    with pytest.raises(ValueError, match="head_dim"):
+        fused_attention_bwd_plan(4, 16, 8, 128)

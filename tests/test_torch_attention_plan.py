@@ -1,7 +1,9 @@
 """Launch geometry of the bf16 fused attention kernel (``ops/flash_attention.py:fused_attention_plan``).
 
 At every attention call of the flagship and of the tap-dot model (the shapes
-``chip_smoke.py`` holds the kernel at) and at ragged shapes: every (sequence,
+``chip_smoke.py`` holds the kernel at), of the ``--tiny`` and ``--small``
+presets (head_dim 16) and at the same shapes with head_dim 32, and at ragged
+shapes at every head dim the kernel takes: every (sequence,
 head, query row) is computed by exactly one warp, that warp's block stages the
 (sequence, head) pair's keys and its chunks walk every key j < S and no row
 past the staged ones, and shared memory, warps and grid stay within CUDA's
@@ -18,10 +20,11 @@ import pytest
 import chip_smoke
 from video_vae_tpu_torch import ModelConfig
 from video_vae_tpu_torch.ops.flash_attention import (
-    MMA_ROW_BYTES,
+    KERNEL_HEAD_DIMS,
     MMA_SLAB_MAX_SEQ,
     MMA_SLAB_WARPS,
     fused_attention_plan,
+    mma_row_bytes,
 )
 
 # the warps of the kernel's __launch_bounds__; what the H100 accepts of one block and one grid
@@ -42,6 +45,14 @@ RAGGED_CASES = [
     for S in (1, 15, 16, 17, 37, 64, 65, 255, 256)
     for B, H in ((1, 8), (3, 8), (5, 2))
 ]
+# the presets' calls at head_dim 16 and the same shapes at 32 (chip_smoke.head_dim_configs)
+PRESET_CASES = sorted({
+    (label, name, B, S, cfg.num_heads, cfg.head_dim)
+    for label, cfg, clips, frames in chip_smoke.head_dim_configs()
+    for name, B, S, _, _, _ in chip_smoke.preset_attention_cases(label, cfg, clips, frames)
+})
+# the ragged shapes at the head dims other than the flagship's
+RAGGED_HEAD_DIM_CASES = [(B, S, H, D) for B, S, H in RAGGED_CASES for D in KERNEL_HEAD_DIMS if D != 64]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,10 +62,11 @@ class Geometry:
     batch: int
     seq: int
     heads: int
+    head_dim: int = 64
 
     @property
     def plan(self) -> tuple[str, int]:
-        return fused_attention_plan(self.batch, self.seq, self.heads)
+        return fused_attention_plan(self.batch, self.seq, self.heads, self.head_dim)
 
     @property
     def rows16(self) -> int:
@@ -85,9 +97,10 @@ class Geometry:
         """``smem_bytes``: the q, k, v rows and the key bits of a block."""
         variant, unit = self.plan
         words = 8 * -(-self.seq // 64)
+        row = mma_row_bytes(self.head_dim)
         if variant == "slab":
-            return unit * (3 * self.heads * self.rows16 * MMA_ROW_BYTES + words)
-        return 3 * self.rows16 * MMA_ROW_BYTES + words
+            return unit * (3 * self.heads * self.rows16 * row + words)
+        return 3 * self.rows16 * row + words
 
     def block_pairs(self, block: int) -> list[tuple[int, int]]:
         """The (sequence, head) pairs whose keys (all S of them) the block stages."""
@@ -119,8 +132,8 @@ class Geometry:
         return [(c0, min(self.kt, -(-(self.seq - c0) // 16))) for c0 in range(0, self.seq, ch)]
 
 
-def _check_plan(B, S, H):
-    geo = Geometry(B, S, H)
+def _check_plan(B, S, H, D=64):
+    geo = Geometry(B, S, H, D)
     variant, unit = geo.plan
     assert variant in ("slab", "tile") and unit >= 1
     assert variant == "tile" or S <= MMA_SLAB_MAX_SEQ
@@ -182,3 +195,35 @@ def test_attention_plan_at_the_models_shapes_is_as_designed():
     spatial = Geometry(32, 256, 8)
     assert (spatial.plan, spatial.warps, spatial.grid) == (("tile", 1), 16, 256)
     assert not spatial.normalize_first and spatial.kt == 4
+
+
+@pytest.mark.parametrize("label,name,B,S,H,D", PRESET_CASES, ids=[f"{c[0]}-{c[1]}" for c in PRESET_CASES])
+def test_attention_plan_at_preset_shapes(label, name, B, S, H, D):
+    _check_plan(B, S, H, D)
+
+
+def test_attention_plan_covers_the_presets_at_16_and_32():
+    assert {D for *_, D in PRESET_CASES} == {16, 32}
+    assert {(label.split("-")[0], S) for label, _, _, S, _, _ in PRESET_CASES} == {
+        ("tiny", 8), ("tiny", 16), ("small", 32), ("small", 256)}
+
+
+@pytest.mark.parametrize("B,S,H,D", RAGGED_HEAD_DIM_CASES)
+def test_attention_plan_at_ragged_shapes_other_head_dims(B, S, H, D):
+    _check_plan(B, S, H, D)
+
+
+def test_attention_plan_follows_the_head_dim():
+    """A head row takes head_dim + 8 bf16: at S = 64 with 8 heads one sequence's
+    rows (3 x 8 x 64 rows) are over a slab block's 100 KB at head_dim 64 (a tile
+    block a pair) and fit at 16 (a slab block a sequence); heads the kernels do
+    not take are refused."""
+    assert [mma_row_bytes(d) for d in KERNEL_HEAD_DIMS] == [48, 80, 144]
+    assert fused_attention_plan(4, 64, 8, 64) == ("tile", 1)
+    assert fused_attention_plan(4, 64, 8, 16) == ("slab", 1)
+    assert Geometry(4, 64, 8, 16).smem == 3 * 8 * 64 * 48 + 8
+    tiny = Geometry(32, 8, 2, 16)  # tiny_config's temporal call: 4 sequences a block, a warp a head
+    assert (tiny.plan, tiny.warps, tiny.grid) == (("slab", 4), 8, 8)
+    for bad in (8, 48, 128):
+        with pytest.raises(ValueError, match="head_dim"):
+            fused_attention_plan(4, 16, 8, bad)

@@ -2,7 +2,9 @@
 
 At every conv of the flagship UNet and of the tap-dot model's (b2 × 16 frames,
 the shapes ``chip_smoke.py`` holds the kernel at), at their input gradients
-(cin and cout swapped) and at the ragged shapes of the card tests: the
+(cin and cout swapped), at ``tiny_config``'s UNet, at the ``cf`` VGG's six
+shapes (three convs and three input gradients on one 32-frame pass) and at
+the ragged shapes of the card tests: the
 persistent blocks take every work item once, every output (frame, channel,
 pixel) is owned by exactly one accumulator fragment of one warp of one block,
 the pool's row pairs stay inside a warp, and the shared memory and the grid
@@ -45,6 +47,18 @@ TRAINER_CASES = [
     if dtype == "bfloat16"
     for dgrad in (False, True)
 ]
+# tiny_config's UNet on the 2 rollouts of cli/train.py --tiny's 2 clips of 8 frames
+TINY = chip_smoke.cli_config(chip_smoke.TINY_ARGS)
+TINY_CASES = [
+    (f"tiny-{name}{' dgrad' if dgrad else ''}", (2 * TINY.data.batch_size, TINY.data.max_frames, h, w),
+     cout if dgrad else sum(cins), sum(cins) if dgrad else cout, k)
+    for name, h, w, cins, cout, k, dtype in chip_smoke.conv_cases(TINY.model)
+    if dtype == "bfloat16"
+    for dgrad in (False, True)
+]
+# the cf VGG's convs and input gradients, (1, 3, 3) kernels on one pass of 32 frames
+VGG_CASES = [(f"vgg-{name}", (1, chip_smoke.VGG_FRAMES, side, side), cin, cout, (1, 3, 3))
+             for name, side, cin, cout, _ in chip_smoke.VGG_CONV_CASES]
 RAGGED_CASES = [  # (b, t, h, w), cin, cout, k of tests/test_torch_cuda.py
     ((2, 3, 20, 40), 12, 12, (3, 7, 7)),
     ((1, 4, 33, 65), 32, 16, (3, 3, 3)),
@@ -138,3 +152,26 @@ def test_conv_plan_fits_every_channel_count(k, widest):
         widths[cout] = plan.n_block
     assert widths[12] == 16 and widths[3] == 8
     assert widths[512] == widest
+
+
+@pytest.mark.parametrize("name,shape,cin,cout,k", TINY_CASES, ids=[c[0] for c in TINY_CASES])
+def test_conv_plan_at_tiny_shapes(name, shape, cin, cout, k):
+    _check_plan(shape, cin, cout, k)
+
+
+@pytest.mark.parametrize("name,shape,cin,cout,k", VGG_CASES, ids=[c[0] for c in VGG_CASES])
+def test_conv_plan_at_vgg_shapes(name, shape, cin, cout, k):
+    _check_plan(shape, cin, cout, k)
+
+
+def test_conv_plan_covers_the_vgg_and_tiny():
+    """Six VGG shapes (3 -> 64, 64 -> 64, 64 -> 128 and back, 64 -> 3 the
+    gradient into the reconstruction) and tiny's 7 convs and their input
+    gradients; conv1_1's gradient takes an 8-wide channel block, conv2_1's
+    forward two blocks of 64."""
+    assert [(cin, cout) for _, _, cin, cout, _ in VGG_CASES] == [(3, 64), (64, 64), (64, 128), (128, 64), (64, 64),
+                                                               (64, 3)]
+    assert len(TINY_CASES) == 14 and TINY_CASES[0][1] == (4, 8, 32, 32)
+    assert conv_plan(64, 3, 1, 32, 256, 256, 1, 3, 3).n_block == 8
+    plan = conv_plan(64, 128, 1, 32, 128, 128, 1, 3, 3)
+    assert (plan.n_block, plan.co_tiles) == (64, 2)

@@ -32,6 +32,7 @@ from video_vae_tpu_torch.ops.flash_attention import (
     FLASH_ATTENTION_BWD,
     FUSED_ATTENTION,
     FUSED_ATTENTION_BWD,
+    KERNEL_HEAD_DIMS,
     NEG_INF,
     flash_attention_bwd_cuda,
     flash_attention_bwd_plain,
@@ -60,6 +61,8 @@ pytestmark = pytest.mark.cuda
 
 # max-abs error over max|plain|: f32 sums in another order; bf16 one output rounding
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# every head dim the attention kernels are instantiated for
+HEAD_DIMS = pytest.mark.parametrize("D", KERNEL_HEAD_DIMS)
 
 
 @pytest.fixture
@@ -75,13 +78,12 @@ def _rel_err(out, ref):
     return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-def _check_fused_attention(device, dtype, B, S, H, masked):
+def _check_fused_attention(device, dtype, B, S, H, masked, D=64):
     """One fused forward launch against the plain version; a bf16 one twice, same bits.
 
     masked: False, True (each sequence keeps a prefix of at least one key) or
     "empty" (as True, and sequence 0 keeps no key: its rows average all S keys).
     """
-    D = 64
     gen = torch.Generator(device="cpu").manual_seed(S)
     qkv = torch.randn(B, S, 3 * H * D, generator=gen).to(device, dtype)
     qs = (1 + 0.2 * torch.randn(D, generator=gen)).to(device)
@@ -110,8 +112,9 @@ def _check_fused_attention(device, dtype, B, S, H, masked):
     [(40, 16, True), (3, 256, False), (5, 37, True), (7, 1, False), (6, 17, True), (2, 256, True),
      (12, 16, "empty")],
 )
-def test_fused_attention_kernel_matches_plain(device, dtype, B, S, masked):
-    _check_fused_attention(device, dtype, B, S, 8, masked)
+@HEAD_DIMS
+def test_fused_attention_kernel_matches_plain(device, dtype, B, S, masked, D):
+    _check_fused_attention(device, dtype, B, S, 8, masked, D)
 
 
 @pytest.mark.parametrize(
@@ -123,8 +126,35 @@ def test_fused_attention_kernel_matches_plain(device, dtype, B, S, masked):
         (3, 200, 3, True),  # a ragged last warp tile and key chunk
     ],
 )
-def test_fused_attention_bf16_kernel_geometries(device, B, S, H, masked):
-    _check_fused_attention(device, torch.bfloat16, B, S, H, masked)
+@HEAD_DIMS
+def test_fused_attention_bf16_kernel_geometries(device, B, S, H, masked, D):
+    _check_fused_attention(device, torch.bfloat16, B, S, H, masked, D)
+
+
+@pytest.mark.parametrize("D", [8, 48, 128])
+def test_attention_kernels_refuse_other_head_dims(device, D):
+    """A head dim the kernels are not instantiated for raises on the card, naming
+    the ones they take; nothing falls back to the plain version."""
+    B, S, H = 2, 16, 2
+    qkv = torch.zeros(B, S, 3 * H * D, device=device, dtype=torch.bfloat16)
+    qs = torch.ones(D, device=device)
+    q = torch.zeros(B, S, H, D, device=device, dtype=torch.bfloat16)
+    kernels = (FUSED_ATTENTION, FUSED_ATTENTION_BWD, FLASH_ATTENTION, FLASH_ATTENTION_BWD, ATTENTION_SUBLAYER)
+    before = [k.launches for k in kernels]
+    calls = [
+        lambda: fused_qkv_attention_cuda(qkv, qs, qs, None, H),
+        lambda: fused_qkv_attention_bwd_cuda(qkv, qs, qs, None, qkv[..., : H * D].contiguous(), H),
+        lambda: flash_attention_cuda(q, q, q, None),
+        lambda: flash_attention_bwd_cuda(q, q, q, None, q),
+        lambda: fused_attention_sublayer_cuda(
+            torch.zeros(B, S, 64, device=device), torch.ones(64, device=device), torch.zeros(64, device=device),
+            torch.zeros(64, 3 * H * D, device=device), torch.zeros(3 * H * D, device=device), qs, qs,
+            torch.zeros(H * D, 64, device=device), torch.zeros(64, device=device), None, H),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64\)"):
+            call()
+    assert before == [k.launches for k in kernels]
 
 
 # Share of the bf16 outputs whose bits may differ from the JAX rounding chain:
@@ -144,8 +174,8 @@ def _jax_rounding_chain(qkv, qs, ks, mask, H, round_qk=True, round_p=True, norma
     of 64-key chunks as the kernel keeps it (exact up to 64 keys). The keyword
     arguments leave a rounding out or take the other rule for P.
     """
-    B, S, _ = qkv.shape
-    D = 64
+    B, S, three_hd = qkv.shape
+    D = three_hd // (3 * H)
     if normalize is None:
         normalize = S < 128 and S * H % 128 == 0
     cos, sin = rope_tables(S, D, device=str(qkv.device))
@@ -161,7 +191,7 @@ def _jax_rounding_chain(qkv, qs, ks, mask, H, round_qk=True, round_p=True, norma
     scores = norm_rope(q, qs) @ norm_rope(k, ks).transpose(-1, -2)
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
-    c = 0.125 * math.log2(math.e)  # 1/sqrt(D) in the exp2 domain, as the kernel's
+    c = D**-0.5 * math.log2(math.e)  # 1/sqrt(D) in the exp2 domain, as the kernel's
 
     def rnd(p):
         return p.bfloat16().float() if round_p else p
@@ -199,12 +229,12 @@ def _bits_differ(out, ref):
         (2, 256, 8),  # the spatial shape: unnormalised, running max over four chunks
     ],
 )
-def test_fused_attention_bf16_kernel_rounds_as_jax(device, B, S, H):
+@HEAD_DIMS
+def test_fused_attention_bf16_kernel_rounds_as_jax(device, B, S, H, D):
     """The bf16 kernel rounds q~, k~ and P where the JAX package does: its
     output's bits match the JAX chain's but for a few ulp flips from f32 sums
     taken in another order, while each chain with one rounding left out or
     the other rule for P misses far more of them."""
-    D = 64
     gen = torch.Generator(device="cpu").manual_seed(S * H)
     qkv = torch.randn(B, S, 3 * H * D, generator=gen).to(device, torch.bfloat16)
     qs = (1 + 0.2 * torch.randn(D, generator=gen)).to(device)
@@ -220,7 +250,7 @@ def test_fused_attention_bf16_kernel_rounds_as_jax(device, B, S, H):
         for name, kw in (("q~k~ in f32", dict(round_qk=False)), ("P in f32", dict(round_p=False)),
                          ("the other P rule", dict(normalize=not normalize)))
     }
-    print(f"rounding B={B} S={S} H={H}: bits differ {share:.5f}; " + ", ".join(f"{k} {v:.4f}" for k, v in others.items()))
+    print(f"rounding B={B} S={S} H={H} D={D}: bits differ {share:.5f}; " + ", ".join(f"{k} {v:.4f}" for k, v in others.items()))
     assert share <= ROUNDING_SHARE_TOL
     for name, other in others.items():
         assert other > 5 * ROUNDING_SHARE_TOL, name
@@ -343,10 +373,9 @@ def _within(out, ref, tol):
     return ((out.float() - ref.float()).abs().max() <= tol * ref.float().abs().max()).item()
 
 
-def _bwd_inputs(device, dtype, B, S, H, masked, seed):
+def _bwd_inputs(device, dtype, B, S, H, masked, seed, D=64):
     """(qkv, g, q_scale, k_scale, key mask) of a fused attention backward call;
     masked as in :func:`_check_fused_attention` ("empty": sequence 0 keeps no key)."""
-    D = 64
     gen = torch.Generator(device="cpu").manual_seed(seed)
     qkv = torch.randn(B, S, 3 * H * D, generator=gen).to(device, dtype)
     g = torch.randn(B, S, H * D, generator=gen).to(device, dtype)
@@ -379,8 +408,9 @@ def _bwd_inputs(device, dtype, B, S, H, masked, seed):
         (2, 256, 8, "empty"),
     ],
 )
-def test_fused_attention_bwd_kernel_matches_plain(device, dtype, B, S, H, masked):
-    qkv, g, qs, ks, mask = _bwd_inputs(device, dtype, B, S, H, masked, S + 1)
+@HEAD_DIMS
+def test_fused_attention_bwd_kernel_matches_plain(device, dtype, B, S, H, masked, D):
+    qkv, g, qs, ks, mask = _bwd_inputs(device, dtype, B, S, H, masked, S + 1, D)
     before = FUSED_ATTENTION_BWD.launches
     out = fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
     again = fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
@@ -405,8 +435,8 @@ def _bwd_rounding_chain(qkv, g, qs, ks, mask, H, round_qk=True, round_p=True, ro
     dq~ = dS k~ and dk~ = dS^T q~; RoPE transpose and LN backward in f32. The
     keyword arguments leave a rounding out.
     """
-    B, S, _ = qkv.shape
-    D = 64
+    B, S, three_hd = qkv.shape
+    D = three_hd // (3 * H)
     cos, sin = rope_tables(S, D, device=str(qkv.device))
     q, k, v = (t.reshape(B, S, H, D).transpose(1, 2).float() for t in qkv.split(H * D, -1))
     do = g.float().reshape(B, S, H, D).transpose(1, 2)
@@ -426,13 +456,13 @@ def _bwd_rounding_chain(qkv, g, qs, ks, mask, H, round_qk=True, round_p=True, ro
         return x * cos + rotate_half(x) * sin
 
     qr, kr = rnd(rope(xq * qs), round_qk), rnd(rope(xk * ks), round_qk)
-    scores = (qr @ kr.transpose(-1, -2)) * 0.125
+    scores = (qr @ kr.transpose(-1, -2)) * D**-0.5
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
     p = torch.softmax(scores, dim=-1)
     dv = rnd(p, round_p).transpose(-1, -2) @ do
     dp = do @ v.transpose(-1, -2)
-    ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * 0.125, round_ds)
+    ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * D**-0.5, round_ds)
     dqr, dkr = ds @ kr, ds.transpose(-1, -2) @ qr
 
     def ln_rope_bwd(du, xn, r, scale):
@@ -474,12 +504,13 @@ def _bits_differ_parts(dqkv, ref):
         (2, 256, 8),  # the spatial shape
     ],
 )
-def test_fused_attention_bwd_bf16_kernel_rounds_as_chain(device, B, S, H):
+@HEAD_DIMS
+def test_fused_attention_bwd_bf16_kernel_rounds_as_chain(device, B, S, H, D):
     """The bf16 backward rounds q~, k~, P and dS where its rule says and nowhere
     else: its dqkv's bits match the chain's but for a few flips, while each
     chain with one of those roundings left out misses far more of them. A bf16
     and an f32 call each launch the kernel once."""
-    qkv, g, qs, ks, mask = _bwd_inputs(device, torch.bfloat16, B, S, H, "empty", S * H)
+    qkv, g, qs, ks, mask = _bwd_inputs(device, torch.bfloat16, B, S, H, "empty", S * H, D)
     before = FUSED_ATTENTION_BWD.launches
     dqkv, dqs, dks = fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
     torch.cuda.synchronize()
@@ -494,7 +525,7 @@ def test_fused_attention_bwd_bf16_kernel_rounds_as_chain(device, B, S, H):
                                 ("P in f32", dict(round_p=False), ("dv",)),
                                 ("dS in f32", dict(round_ds=False), ("dq", "dk")))
     }
-    print(f"bwd rounding B={B} S={S} H={H}: bits differ {share}, scale gradients {scale_err:.2e}; "
+    print(f"bwd rounding B={B} S={S} H={H} D={D}: bits differ {share}, scale gradients {scale_err:.2e}; "
           + "; ".join(f"{k} {v[0]}" for k, v in others.items()))
     assert max(share.values()) <= BWD_ROUNDING_SHARE_TOL and scale_err <= BWD_SCALE_TOL
     for name, (other, parts) in others.items():
@@ -573,8 +604,7 @@ def test_attention_backward_launches_bwd_kernel(device):
     assert all(torch.isfinite(x).all() for x in grads)
 
 
-def _flash_inputs(device, dtype, B, S, masked, strided, H=8, seed=None):
-    D = 64
+def _flash_inputs(device, dtype, B, S, masked, strided, H=8, seed=None, D=64):
     gen = torch.Generator(device="cpu").manual_seed(S + 2 if seed is None else seed)
     if strided:  # q, k, v as views into one fused (B, S, 3*H*D) projection
         qkv = torch.randn(B, S, 3 * H * D, generator=gen).to(device, dtype)
@@ -609,8 +639,9 @@ FLASH_CASES = [
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,masked,strided", FLASH_CASES)
-def test_flash_attention_kernel_matches_plain(device, dtype, B, S, H, masked, strided):
-    q, k, v, _, mask = _flash_inputs(device, dtype, B, S, masked, strided, H)
+@HEAD_DIMS
+def test_flash_attention_kernel_matches_plain(device, dtype, B, S, H, masked, strided, D):
+    q, k, v, _, mask = _flash_inputs(device, dtype, B, S, masked, strided, H, D=D)
     before = FLASH_ATTENTION.launches
     out = flash_attention_cuda(q, k, v, mask)
     torch.cuda.synchronize()
@@ -621,11 +652,12 @@ def test_flash_attention_kernel_matches_plain(device, dtype, B, S, H, masked, st
 
 
 @pytest.mark.parametrize("B,S,H", [(40, 16, 8), (3, 256, 8)])
-def test_flash_attention_bf16_kernel_same_bits_twice(device, B, S, H):
+@HEAD_DIMS
+def test_flash_attention_bf16_kernel_same_bits_twice(device, B, S, H, D):
     """No split over the keys and no atomics: two bf16 launches on the same
     inputs (v a view into a fused projection, sequence 0 keeping no key) give
     the same bits, one launch a call."""
-    q, k, v, _, mask = _flash_inputs(device, torch.bfloat16, B, S, True, True, H)
+    q, k, v, _, mask = _flash_inputs(device, torch.bfloat16, B, S, True, True, H, D=D)
     before = FLASH_ATTENTION.launches
     out = flash_attention_cuda(q, k, v, mask)
     assert FLASH_ATTENTION.launches == before + 1
@@ -645,7 +677,7 @@ def _flash_fwd_chain(q, k, v, mask, round_p=True, normalize=True):
     off its packed path).
     """
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
-    s = (qf @ kf.transpose(-1, -2)) * 0.125
+    s = (qf @ kf.transpose(-1, -2)) * qf.shape[-1] ** -0.5
     if mask is not None:
         s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
@@ -667,7 +699,8 @@ def _flash_fwd_chain(q, k, v, mask, round_p=True, normalize=True):
         (2, 256, 8),  # the spatial shape: four chunks walked twice
     ],
 )
-def test_flash_attention_bf16_kernel_rounds_as_jax(device, B, S, H):
+@HEAD_DIMS
+def test_flash_attention_bf16_kernel_rounds_as_jax(device, B, S, H, D):
     """The bf16 kernel rounds P where JAX's ``_fwd_kernel`` does, normalised
     with the exact row max and sum: its output's bits match that chain's but
     for a few flips from f32 sums taken in another order (and the scale taken
@@ -677,8 +710,8 @@ def test_flash_attention_bf16_kernel_rounds_as_jax(device, B, S, H):
     H100 the kernel's bits differ from the chain's in 0, 0, 0.009 % and
     0.038 % of o at its four shapes, the chain with P in f32 in
     34.3, 33.7, 37.1 and 21.1 %, the one with P rounded unnormalised in 38.1,
-    37.6, 42.3 and 24.6 % (the test prints them)."""
-    q, k, v, _, mask = _flash_inputs(device, torch.bfloat16, B, S, True, True, H, seed=S * H)
+    37.6, 42.3 and 24.6 % (the test prints them; at D = 64)."""
+    q, k, v, _, mask = _flash_inputs(device, torch.bfloat16, B, S, True, True, H, seed=S * H, D=D)
     before = FLASH_ATTENTION.launches
     out = flash_attention_cuda(q, k, v, mask)
     torch.cuda.synchronize()
@@ -688,7 +721,7 @@ def test_flash_attention_bf16_kernel_rounds_as_jax(device, B, S, H):
         name: _bits_differ(out, _flash_fwd_chain(q, k, v, mask, **kw))
         for name, kw in (("P in f32", dict(round_p=False)), ("P rounded unnormalised", dict(normalize=False)))
     }
-    print(f"flash fwd rounding B={B} S={S} H={H}: bits differ {share:.5f}; "
+    print(f"flash fwd rounding B={B} S={S} H={H} D={D}: bits differ {share:.5f}; "
           + ", ".join(f"{k} {v:.4f}" for k, v in others.items()))
     assert share <= ROUNDING_SHARE_TOL
     for name, other in others.items():
@@ -697,8 +730,9 @@ def test_flash_attention_bf16_kernel_rounds_as_jax(device, B, S, H):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,masked,strided", FLASH_CASES)
-def test_flash_attention_bwd_kernel_matches_plain(device, dtype, B, S, H, masked, strided):
-    q, k, v, g, mask = _flash_inputs(device, dtype, B, S, masked, strided, H)
+@HEAD_DIMS
+def test_flash_attention_bwd_kernel_matches_plain(device, dtype, B, S, H, masked, strided, D):
+    q, k, v, g, mask = _flash_inputs(device, dtype, B, S, masked, strided, H, D=D)
     before = FLASH_ATTENTION_BWD.launches
     out = flash_attention_bwd_cuda(q, k, v, mask, g)
     again = flash_attention_bwd_cuda(q, k, v, mask, g)
@@ -744,13 +778,14 @@ def _flash_rounding_chain(q, k, v, mask, g, round_p=True, round_ds=True):
     def rnd(x, on):
         return x.bfloat16().float() if on else x
 
-    scores = (qf @ kf.transpose(-1, -2)) * 0.125
+    scale = qf.shape[-1] ** -0.5
+    scores = (qf @ kf.transpose(-1, -2)) * scale
     if mask is not None:
         scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
     p = torch.softmax(scores, dim=-1)
     dv = rnd(p, round_p).transpose(-1, -2) @ do
     dp = do @ vf.transpose(-1, -2)
-    ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * 0.125, round_ds)
+    ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * scale, round_ds)
     return tuple(t.transpose(1, 2).bfloat16() for t in (ds @ kf, ds.transpose(-1, -2) @ qf, dv))
 
 
@@ -769,12 +804,13 @@ FLASH_BWD_ROUNDING_SHARE_TOL = 5e-3
         (2, 256, 8),  # the spatial shape
     ],
 )
-def test_flash_attention_bwd_bf16_kernel_rounds_as_chain(device, B, S, H):
+@HEAD_DIMS
+def test_flash_attention_bwd_bf16_kernel_rounds_as_chain(device, B, S, H, D):
     """The bf16 backward rounds P and dS where its rule says and nowhere else:
     its dq, dk and dv match the chain's bits but for a few flips, while each
     chain with one of those roundings left out misses far more of them. v is
     a view into a fused projection and sequence 0 keeps no key."""
-    q, k, v, g, mask = _flash_inputs(device, torch.bfloat16, B, S, True, True, H, seed=S * H)
+    q, k, v, g, mask = _flash_inputs(device, torch.bfloat16, B, S, True, True, H, seed=S * H, D=D)
     before = FLASH_ATTENTION_BWD.launches
     got = flash_attention_bwd_cuda(q, k, v, mask, g)
     torch.cuda.synchronize()
@@ -791,15 +827,14 @@ def test_flash_attention_bwd_bf16_kernel_rounds_as_chain(device, B, S, H):
         for name, kw, reach in (("P in f32", dict(round_p=False), ("dv",)),
                                 ("dS in f32", dict(round_ds=False), ("dq", "dk")))
     }
-    print(f"flash bwd rounding B={B} S={S} H={H}: bits differ {share}; "
+    print(f"flash bwd rounding B={B} S={S} H={H} D={D}: bits differ {share}; "
           + "; ".join(f"{k} {v[0]}" for k, v in others.items()))
     assert max(share.values()) <= FLASH_BWD_ROUNDING_SHARE_TOL
     for name, (other, reach) in others.items():
         assert min(other[part] for part in reach) > 2 * FLASH_BWD_ROUNDING_SHARE_TOL, name
 
 
-def _sublayer_args(device, dtype, B, S, C, H, masked):
-    D = 64
+def _sublayer_args(device, dtype, B, S, C, H, masked, D=64):
     gen = torch.Generator(device="cpu").manual_seed(B + S)
     rn = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
     args = [
@@ -814,13 +849,16 @@ def _sublayer_args(device, dtype, B, S, C, H, masked):
     return [a.to(device) for a in args], mask
 
 
-SUBLAYER_CASES = [(64, 16, 768, 8, True), (3, 256, 768, 8, False), (5, 37, 136, 3, True)]  # the last: ragged tiles
+# the third: ragged tiles; the last: tiny_config's width and heads (H·D = 32 at D = 16:
+# o·Wout's K under one 64-column slab)
+SUBLAYER_CASES = [(64, 16, 768, 8, True), (3, 256, 768, 8, False), (5, 37, 136, 3, True), (32, 16, 192, 2, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,C,H,masked", SUBLAYER_CASES)
-def test_attention_sublayer_kernel_matches_plain(device, dtype, B, S, C, H, masked):
-    args, mask = _sublayer_args(device, dtype, B, S, C, H, masked)
+@HEAD_DIMS
+def test_attention_sublayer_kernel_matches_plain(device, dtype, B, S, C, H, masked, D):
+    args, mask = _sublayer_args(device, dtype, B, S, C, H, masked, D)
     before, fused_before = ATTENTION_SUBLAYER.launches, FUSED_ATTENTION.launches
     out = fused_attention_sublayer_cuda(*args, mask, H)
     torch.cuda.synchronize()
@@ -849,11 +887,12 @@ def test_attention_sublayer_backward_launches_fused_bwd_kernel(device):
 
 
 @pytest.mark.parametrize("B,S,C,H,masked", SUBLAYER_CASES)
-def test_attention_sublayer_bf16_attention_is_fused_attention(device, B, S, C, H, masked):
+@HEAD_DIMS
+def test_attention_sublayer_bf16_attention_is_fused_attention(device, B, S, C, H, masked, D):
     """bf16 x runs the fused attention's tensor-core kernel as it stands: the
     sublayer's o is fused_qkv_attention_cuda's on the sublayer's own qkv, bit
     for bit."""
-    args, mask = _sublayer_args(device, torch.bfloat16, B, S, C, H, masked)
+    args, mask = _sublayer_args(device, torch.bfloat16, B, S, C, H, masked, D)
     _, qkv, o = fused_attention_sublayer_cuda(*args, mask, H)
     before = FUSED_ATTENTION.launches
     ref = fused_qkv_attention_cuda(qkv, args[5], args[6], mask, H)
@@ -863,9 +902,10 @@ def test_attention_sublayer_bf16_attention_is_fused_attention(device, B, S, C, H
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,C,H,masked", SUBLAYER_CASES)
-def test_attention_sublayer_kernel_same_bits_twice(device, dtype, B, S, C, H, masked):
+@HEAD_DIMS
+def test_attention_sublayer_kernel_same_bits_twice(device, dtype, B, S, C, H, masked, D):
     """No split-K and no atomics: two launches give the same y, qkv and o."""
-    args, mask = _sublayer_args(device, dtype, B, S, C, H, masked)
+    args, mask = _sublayer_args(device, dtype, B, S, C, H, masked, D)
     out = fused_attention_sublayer_cuda(*args, mask, H)
     again = fused_attention_sublayer_cuda(*args, mask, H)
     torch.cuda.synchronize()
@@ -874,18 +914,19 @@ def test_attention_sublayer_kernel_same_bits_twice(device, dtype, B, S, C, H, ma
 
 
 @pytest.mark.parametrize("B,S,C,H,masked", SUBLAYER_CASES)
-def test_attention_sublayer_f32_reads_o_as_bf16(device, B, S, C, H, masked):
+@HEAD_DIMS
+def test_attention_sublayer_f32_reads_o_as_bf16(device, B, S, C, H, masked, D):
     """f32 x: the out product reads the f32 o rounded to bf16, as the plain
     version does. y matches a torch copy of that rule to f32 summation order,
     and misses the same product on the unrounded o by far more."""
-    args, mask = _sublayer_args(device, torch.float32, B, S, C, H, masked)
+    args, mask = _sublayer_args(device, torch.float32, B, S, C, H, masked, D)
     x, wout, bout = args[0], args[7], args[8]
     y, _, o = fused_attention_sublayer_cuda(*args, mask, H)
     o2, w16 = o.reshape(B * S, -1), wout.to(torch.bfloat16)
     rounded = x + (matmul_f32(o2.to(torch.bfloat16), w16) + bout).reshape(x.shape)
     unrounded = x + (o2 @ w16.float() + bout).reshape(x.shape)
     err = _rel_err(y, rounded)
-    print(f"sublayer f32 B={B} S={S}: y against o.to(bf16) {err:.3e}, against f32 o {_rel_err(y, unrounded):.3e}")
+    print(f"sublayer f32 B={B} S={S} D={D}: y against o.to(bf16) {err:.3e}, against f32 o {_rel_err(y, unrounded):.3e}")
     assert err <= TOL[torch.float32]
     assert _rel_err(y, unrounded) > 10 * err
 
@@ -1232,15 +1273,14 @@ def test_tapdot_path_launches_its_kernel(device, monkeypatch):
 
 @pytest.mark.parametrize("overlap", ["1", "0"])
 def test_tiny_trainer_two_steps(device, overlap, tmp_path, monkeypatch):
-    """Two steps of the training entry point on the card: ``tiny_config`` with the
-    model of ``_small_model`` (64², flagship widths, depth 1, remat on: the kernels
-    take head_dim 64 only) on 64² clips of 8 frames. Each step launches #1-#4 alike,
-    the batch copy on the side stream (``VVT_H2D_OVERLAP=1``) or on the compute stream
-    gives the same metrics, the checkpoint restores bit-exactly."""
+    """Two steps of the training entry point on the card: ``tiny_config`` itself
+    (32², head_dim 16, one UNet level of 4 channels) on 2 clips of 8 frames a
+    step. Each step launches #1-#4 alike, the batch copy on the side stream
+    (``VVT_H2D_OVERLAP=1``) or on the compute stream gives the same metrics, the
+    checkpoint restores bit-exactly."""
     import json
     import os
 
-    from video_vae_tpu_torch import ModelConfig
     from video_vae_tpu_torch.core.config import tiny_config
     from video_vae_tpu_torch.ops import KERNELS
     from video_vae_tpu_torch.train.trainer import Trainer
@@ -1248,8 +1288,7 @@ def test_tiny_trainer_two_steps(device, overlap, tmp_path, monkeypatch):
     monkeypatch.setenv("VVT_H2D_OVERLAP", overlap)
     cfg = tiny_config()
     cfg = cfg.replace(
-        model=ModelConfig(height=64, width=64, encoder_depth=1, decoder_depth=1),
-        data=cfg.data.replace(synthetic_num_clips=4, resize=(64, 64)),
+        data=cfg.data.replace(synthetic_num_clips=4),
         train=cfg.train.replace(log_every=1, video_every=0, checkpoint_dir=str(tmp_path / "ckpt")),
     )
     trainer = Trainer(cfg, install_signal_handlers=False)

@@ -19,21 +19,27 @@ import dataclasses
 
 import numpy as np
 import pytest
-from test_torch_attention_bwd_plan import MAX_GRID_X, MAX_SMEM, MODEL_CASES, RAGGED_CASES, Geometry
+from test_torch_attention_bwd_plan import (
+    MAX_GRID_X,
+    MAX_SMEM,
+    MODEL_CASES,
+    PRESET_CASES,
+    RAGGED_CASES,
+    RAGGED_HEAD_DIM_CASES,
+    Geometry,
+)
 
 from video_vae_tpu_torch.ops.flash_attention import (
     BWD_SLAB_MAX_SEQ,
     BWD_SLAB_WARPS,
     BWD_TILE_WARPS,
     FLASH_BWD_ROUND,
-    MMA_ROW_BYTES,
     flash_attention_bwd_plan,
+    mma_row_bytes,
 )
 
 # the kernels' __launch_bounds__ per variant
 LAUNCH_BOUND_WARPS = {"slab": 4, "tile": 16}
-D = 64
-STAGE_ROW_BYTES = (D + 8) * 4  # a warp's f32 staging row of the epilogue
 KEY_GROUP = 64  # keys a cp.async group of a tile block brings
 
 
@@ -43,20 +49,21 @@ class FlashGeometry(Geometry):
 
     @property
     def plan(self) -> tuple[str, int, int]:
-        return flash_attention_bwd_plan(self.batch, self.seq, self.heads)
+        return flash_attention_bwd_plan(self.batch, self.seq, self.heads, self.head_dim)
 
     @property
     def smem(self) -> int:
         """``smem_bytes``: the rows, P and dS (slab) or a round's dS^T and the row
         statistics (tile), key bits, and each warp's 8 f32 staging rows."""
         variant, unit, warps = self.plan
+        row = mma_row_bytes(self.head_dim)
         words = 8 * -(-self.seq // 64)
-        stage = warps * 8 * STAGE_ROW_BYTES
+        stage = warps * 8 * (self.head_dim + 8) * 4  # a warp's f32 staging rows of the epilogue
         if variant == "slab":
-            pair = 4 * self.rows16 * MMA_ROW_BYTES + 2 * self.rows16 * (self.rows16 + 8) * 2
+            pair = 4 * self.rows16 * row + 2 * self.rows16 * (self.rows16 + 8) * 2
             return unit * (pair + words) + stage
         ds_t = self.rows16 * (FLASH_BWD_ROUND + 8) * 2
-        return 4 * self.rows16 * MMA_ROW_BYTES + ds_t + 3 * self.rows16 * 4 + words + stage
+        return 4 * self.rows16 * row + ds_t + 3 * self.rows16 * 4 + words + stage
 
     def rounds(self) -> list[tuple[int, int]]:
         """(first query, end) of each round of a tile block."""
@@ -64,10 +71,10 @@ class FlashGeometry(Geometry):
 
     def dq_tiles_dealt(self):
         """(warp, first query, first dim) of every 16 x 16 dq tile of every round."""
-        warps = self.plan[2]
+        warps, dims = self.plan[2], self.head_dim // 16
         for q0, q1 in self.rounds():
-            for it in range((q1 - q0) // 16 * 4):
-                yield it % warps, q0 + 16 * (it >> 2), 16 * (it & 3)
+            for it in range((q1 - q0) // 16 * dims):
+                yield it % warps, q0 + 16 * (it // dims), 16 * (it % dims)
 
     def stats_chunks(self) -> list[tuple[int, int]]:
         """(first key, 16-key steps) of every chunk of a tile block's statistics."""
@@ -75,8 +82,8 @@ class FlashGeometry(Geometry):
         return [(c0, min(2, -(-(self.seq - c0) // 16))) for c0 in range(0, self.seq, ch)]
 
 
-def _check_plan(B, S, H):
-    geo = FlashGeometry(B, S, H)
+def _check_plan(B, S, H, D=64):
+    geo = FlashGeometry(B, S, H, D)
     variant, unit, warps = geo.plan
     assert variant in ("slab", "tile") and unit >= 1
     assert variant == "tile" or S <= BWD_SLAB_MAX_SEQ
@@ -149,3 +156,13 @@ def test_flash_bwd_plan_at_the_models_shapes_is_as_designed():
     assert (spatial.plan, spatial.grid) == (("tile", 1, 16), 256)
     assert len(spatial.rounds()) == 4 and len(spatial.stats_chunks()) == 8
     assert spatial.smem == 224288
+
+
+@pytest.mark.parametrize("label,name,B,S,H,D", PRESET_CASES, ids=[f"{c[0]}-{c[1]}" for c in PRESET_CASES])
+def test_flash_bwd_plan_at_preset_shapes(label, name, B, S, H, D):
+    _check_plan(B, S, H, D)
+
+
+@pytest.mark.parametrize("B,S,H,D", RAGGED_HEAD_DIM_CASES)
+def test_flash_bwd_plan_at_ragged_shapes_other_head_dims(B, S, H, D):
+    _check_plan(B, S, H, D)

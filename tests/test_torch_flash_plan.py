@@ -19,9 +19,14 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from test_torch_attention_plan import MAX_GRID_X, MAX_SMEM, MODEL_CASES, Geometry
+from test_torch_attention_plan import MAX_GRID_X, MAX_SMEM, MODEL_CASES, PRESET_CASES, Geometry
 
-from video_vae_tpu_torch.ops.flash_attention import MMA_SLAB_MAX_SEQ, _rows_of_heads, flash_attention_plan
+from video_vae_tpu_torch.ops.flash_attention import (
+    KERNEL_HEAD_DIMS,
+    MMA_SLAB_MAX_SEQ,
+    _rows_of_heads,
+    flash_attention_plan,
+)
 
 LAUNCH_BOUND_WARPS = 16  # flash_fwd_kernel's __launch_bounds__
 D = 64
@@ -37,7 +42,12 @@ class FlashGeometry(Geometry):
 
     @property
     def plan(self) -> tuple[str, int]:
-        return flash_attention_plan(self.batch, self.seq, self.heads)
+        return flash_attention_plan(self.batch, self.seq, self.heads, self.head_dim)
+
+    @property
+    def pieces(self) -> int:
+        """16-byte pieces of a head row."""
+        return self.head_dim // 8
 
     @property
     def kt(self) -> int:
@@ -54,28 +64,30 @@ class FlashGeometry(Geometry):
 
     def slab_copies(self, block: int):
         """(local sequence, part, head, row, piece, sequence) of every 16-byte
-        copy of a slab block: thread p takes (part, head, piece) = (p / 8H,
-        p / 8 % H, p % 8), and p + threads after it, at every position."""
+        copy of a slab block: thread p takes (part, head, piece) = (p / PH,
+        p / P % H, p % P), P pieces a row, and p + threads after it, at every
+        position."""
         _, unit = self.plan
-        H = self.heads
+        H, P = self.heads, self.pieces
         for t in range(self.threads()):
-            for p in range(t, 3 * H * 8, self.threads()):
-                piece, part, h = p & 7, (p >> 3) // H, (p >> 3) % H
+            for p in range(t, 3 * H * P, self.threads()):
+                piece, part, h = p % P, (p // P) // H, (p // P) % H
                 for sl in range(unit):
                     for i in range(self.rows16):
                         yield sl, part, h, i, piece, block * unit + sl
 
     def tile_copies(self):
         """(part, row, piece) of every 16-byte copy of a tile block: thread t
-        takes piece t % 8 of rows t / 8, t / 8 + threads / 8, ... of each input."""
+        takes piece t % P of rows t / P, t / P + threads / P, ... of each input."""
+        P = self.pieces
         for t in range(self.threads()):
             for part in range(3):
-                for i in range(t >> 3, self.rows16, self.threads() >> 3):
-                    yield part, i, t & 7
+                for i in range(t // P, self.rows16, self.threads() // P):
+                    yield part, i, t % P
 
 
-def _check_plan(B, S, H):
-    geo = FlashGeometry(B, S, H)
+def _check_plan(B, S, H, D=64):
+    geo = FlashGeometry(B, S, H, D)
     variant, unit = geo.plan
     assert variant in ("slab", "tile") and unit >= 1
     assert variant == "tile" or S <= MMA_SLAB_MAX_SEQ
@@ -109,12 +121,12 @@ def _check_plan(B, S, H):
     # waited for before any warp reads it)
     if variant == "slab":
         for block in {0, geo.grid - 1}:  # a full block and the last, perhaps part empty
-            staged = np.zeros((unit, 3, H, geo.rows16, 8), dtype=np.int32)
+            staged = np.zeros((unit, 3, H, geo.rows16, geo.pieces), dtype=np.int32)
             for sl, part, h, i, piece, b in geo.slab_copies(block):
                 staged[sl, part, h, i, piece] += 1
             assert (staged == 1).all()
     else:
-        staged = np.zeros((3, geo.rows16, 8), dtype=np.int32)
+        staged = np.zeros((3, geo.rows16, geo.pieces), dtype=np.int32)
         for part, i, piece in geo.tile_copies():
             staged[part, i, piece] += 1
         assert (staged == 1).all()
@@ -136,9 +148,19 @@ def test_flash_plan_sources_are_16_byte_aligned(B, S, H):
     the model's "pallas" path hands them over: ``_rows_of_heads`` takes each as
     it is, and every 16-byte copy's source, base + ((b·S + i)·stride + h·D +
     8·piece)·2 bytes, is 16-byte aligned."""
+    _check_sources(B, S, H, D)
+
+
+@pytest.mark.parametrize("B,S,H", [(3, 16, 8), (5, 37, 2)])
+@pytest.mark.parametrize("D", [d for d in KERNEL_HEAD_DIMS if d != 64])
+def test_flash_plan_sources_are_16_byte_aligned_other_head_dims(B, S, H, D):
+    _check_sources(B, S, H, D)
+
+
+def _check_sources(B, S, H, D):
     qkv = torch.zeros(B, S, 3 * H * D, dtype=torch.bfloat16)
     q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
-    b, i, h, piece = np.meshgrid(np.arange(B), np.arange(S), np.arange(H), np.arange(8), indexing="ij")
+    b, i, h, piece = np.meshgrid(np.arange(B), np.arange(S), np.arange(H), np.arange(D // 8), indexing="ij")
     for t, row_stride in ((q.contiguous(), H * D), (k.contiguous(), H * D), (v, 3 * H * D)):
         taken, stride = _rows_of_heads(t)
         assert taken is t and stride == row_stride  # no copy
@@ -157,3 +179,13 @@ def test_flash_plan_at_the_models_shapes_is_as_designed():
     assert (spatial.plan, spatial.warps, spatial.grid) == (("tile", 1), 16, 256)
     assert spatial.two_pass and len(spatial.key_steps()) == 4
     assert spatial.smem == 3 * 256 * 144 + 4 * 8
+
+
+@pytest.mark.parametrize("label,name,B,S,H,D", PRESET_CASES, ids=[f"{c[0]}-{c[1]}" for c in PRESET_CASES])
+def test_flash_plan_at_preset_shapes(label, name, B, S, H, D):
+    _check_plan(B, S, H, D)
+
+
+@pytest.mark.parametrize("B,S,H,D", [(B, S, H, D) for B, S, H in RAGGED_CASES for D in KERNEL_HEAD_DIMS if D != 64])
+def test_flash_plan_at_ragged_shapes_other_head_dims(B, S, H, D):
+    _check_plan(B, S, H, D)

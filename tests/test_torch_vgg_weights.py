@@ -84,8 +84,11 @@ def test_load_vgg_checks_its_file(tmp_path, npz_paths):
         load_vgg(str(tmp_path / "bad.npz"), device="cpu")
     with pytest.warns(UserWarning, match="RANDOM VGG filters"):
         load_vgg(None, device="cpu")
-    with pytest.raises(NotImplementedError, match="cf"):
-        load_vgg(None, layout="cf", device="cpu")
+    # the cf layout reads the same file into the same filters; an unknown layout is refused
+    cf, nhwc = (load_vgg(npz_paths[0], layout=layout, device="cpu") for layout in ("cf", "nhwc"))
+    assert cf.layout == "cf" and all(torch.equal(a, b) for a, b in zip(cf.parameters(), nhwc.parameters()))
+    with pytest.raises(ValueError, match="layout"):
+        load_vgg(None, layout="nchw", device="cpu")
 
 
 def test_build_perceptual_reads_the_npz(npz_paths):

@@ -68,7 +68,7 @@ o_to_bf16_kernel(const float* __restrict__ o, bf16* __restrict__ o16, long long 
   }
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, const void* ln_b,
                             const void* wqkv, const void* bqkv, const void* q_scale,
                             const void* k_scale, const void* cos_t, const void* sin_t,
@@ -91,11 +91,11 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
 
   const bf16* o_bf16;
   if constexpr (sizeof(T) == 2) {
-    err = fa_mma::launch_attention_mma(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H,
-                                       variant, unit, stream);
+    err = fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H,
+                                          variant, unit, stream);
     o_bf16 = static_cast<const bf16*>(o);
   } else {
-    err = launch_fused_attention<float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H, stream);
+    err = launch_fused_attention<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H, stream);
     if (err != cudaSuccess) return err;
     const long long vecs = (long long)n * HD / 8;
     const long long blocks = std::min<long long>((vecs + CAST_THREADS - 1) / CAST_THREADS, CAST_MAX_BLOCKS);
@@ -113,6 +113,7 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
 
 }  // namespace
 
+// head_dim D: 16, 32 or 64; any other is refused.
 // dtype: 0 = float32, 1 = bfloat16 (x, y, qkv, o). x, y: (B, S, C); qkv: (B, S, 3*H*D);
 // o: (B, S, H*D); xa: bf16 scratch (B, S, C); o16: bf16 scratch (B, S, H*D) for
 // float32 x, null for bfloat16. ln_g, ln_b, bqkv, bout, q_scale, k_scale, cos_t,
@@ -130,23 +131,20 @@ extern "C" int vvt_attention_sublayer(const void* x, const void* mask, const voi
                                       int qkv_stages, int qkv_blocks, int qkv_smem, int out_bn,
                                       int out_stages, int out_blocks, int out_smem, int variant,
                                       int unit, void* stream) {
-  if (head_dim != D || S < 1 || S > MAX_ROWS || B < 1 || H < 1 || C < 8 || C % 8 ||
-      (long long)B * S > 0x7fffffffLL)
+  if (S < 1 || S > MAX_ROWS || B < 1 || H < 1 || C < 8 || C % 8 || (long long)B * S > 0x7fffffffLL ||
+      (dtype != 0 && dtype != 1) || (dtype == 0 && o16 == nullptr))
     return (int)cudaErrorInvalidValue;
   const GemmPlan qkv_plan{qkv_bn, qkv_stages, qkv_blocks, qkv_smem};
   const GemmPlan out_plan{out_bn, out_stages, out_blocks, out_smem};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (o16 == nullptr) return (int)cudaErrorInvalidValue;
-    return (int)launch_sublayer<float>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t,
-                                       sin_t, wout, bout, y, qkv, o, xa, o16, B, S, C, H, qkv_plan,
-                                       out_plan, variant, unit, st);
-  }
-  if (dtype == 1)
-    return (int)launch_sublayer<bf16>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t,
-                                      sin_t, wout, bout, y, qkv, o, xa, o16, B, S, C, H, qkv_plan,
-                                      out_plan, variant, unit, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch_sublayer<float, D>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t, sin_t, wout,
+                                       bout, y, qkv, o, xa, o16, B, S, C, H, qkv_plan, out_plan, variant, unit, st);
+    return launch_sublayer<bf16, D>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t, sin_t, wout, bout,
+                                    y, qkv, o, xa, o16, B, S, C, H, qkv_plan, out_plan, variant, unit, st);
+  });
 }
 
 extern "C" const char* vvt_error_string(int code) {

@@ -4,8 +4,8 @@
 // Per (sequence, head): s = q k^T / sqrt(D) with an f32 accumulator, masked
 // keys set to -1e30 (so a fully masked row gets uniform weights), p =
 // exp(s - max) / sum in f32 with the exact row max and sum, p rounded to v's
-// dtype, o = p v accumulated in f32, one rounding to the output dtype. D = 64,
-// 1 <= S <= 256; f32 or bf16. Each tensor is addressed as base + (b * S + i) *
+// dtype, o = p v accumulated in f32, one rounding to the output dtype. D in
+// {16, 32, 64} (a template parameter of every kernel), 1 <= S <= 256; f32 or bf16. Each tensor is addressed as base + (b * S + i) *
 // row_stride + h * D + d, so v may be a view into the fused QKV projection
 // (row stride 3 * H * D, as the model's "pallas" path hands it over).
 //
@@ -72,6 +72,7 @@ namespace {
 
 constexpr int MAX_ROWS = 256;  // query rows (= threads) per block
 
+template <int D>
 __device__ __forceinline__ float dot_row(const float (&q)[D], const float* row) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
   float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
@@ -86,13 +87,14 @@ __device__ __forceinline__ float dot_row(const float (&q)[D], const float* row) 
   return (p0 + p1) + (p2 + p3);
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(MAX_ROWS)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const unsigned char* __restrict__ mask,
                            T* __restrict__ out, long long q_stride, long long k_stride,
                            long long v_stride, int B, int S, int H, int pairs_per_block,
                            float scale) {
+  constexpr int ROW = F32_ROW<D>;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
   const int rows = pairs_per_block * S;  // row r: local pair r / S, position r % S
@@ -102,8 +104,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long pair0 = (long long)blockIdx.x * pairs_per_block;
   const int r = threadIdx.x;
 
-  stage_heads(k_s, k, k_stride, pair0, rows, S, H, n_pairs);
-  stage_heads(v_s, v, v_stride, pair0, rows, S, H, n_pairs);
+  stage_heads<D>(k_s, k, k_stride, pair0, rows, S, H, n_pairs);
+  stage_heads<D>(v_s, v, v_stride, pair0, rows, S, H, n_pairs);
   for (int rr = threadIdx.x; rr < rows; rr += blockDim.x) {
     const long long pair = pair0 + rr / S;
     float kp = 1.f;
@@ -161,15 +163,15 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < D; ++d) o[d] = from_float<T>(acc[d]);
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    long long q_stride, long long k_stride, long long v_stride, int B, int S, int H,
                    cudaStream_t stream) {
   const int pairs_per_block = MAX_ROWS / S;
   const int rows = pairs_per_block * S;
   const int threads = (rows + 31) / 32 * 32;
-  const size_t smem = (2 * (size_t)rows * ROW + rows) * sizeof(float);
-  auto kernel = flash_attention_fwd_kernel<T>;
+  const size_t smem = (2 * (size_t)rows * F32_ROW<D> + rows) * sizeof(float);
+  auto kernel = flash_attention_fwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
@@ -192,19 +194,18 @@ extern "C" int vvt_flash_attention_fwd(const void* q, const void* k, const void*
                                        const void* mask, void* out, long long q_stride,
                                        long long k_stride, long long v_stride, int B, int S, int H,
                                        int head_dim, int dtype, int variant, int unit, void* stream) {
-  if (head_dim != D || S < 1 || S > MAX_ROWS || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > MAX_ROWS || B < 1 || H < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H, st);
-  if (dtype == 1) {
-    using fa_mma::bf16;
-    const fa_mma::flash_fwd::Args a{
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), q_stride, k_stride, v_stride,
-        B, S, H, unit};
-    return (int)fa_mma::flash_fwd::launch_flash_mma(a, variant, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  using fa_mma::bf16;
+  const fa_mma::flash_fwd::Args a{
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), q_stride, k_stride, v_stride,
+      B, S, H, unit};
+  return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0) return launch<float, D>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H, st);
+    return fa_mma::flash_fwd::launch_flash_mma<D>(a, variant, st);
+  });
 }
 
 extern "C" const char* vvt_error_string(int code) {

@@ -5,7 +5,8 @@
 // p = softmax(q k^T / sqrt(D), masked keys at -1e30) with the exact row max and
 // sum, then dv = p^T dO, dp = dO v^T, row = sum_j p_ij dp_ij,
 // ds = p o (dp - row) / sqrt(D), dq = ds k, dk = ds^T q, each written once in
-// its input's dtype. D = 64, 1 <= S <= 256. A row whose keys are all masked
+// its input's dtype. D in {16, 32, 64} (a template parameter of every
+// kernel), 1 <= S <= 256. A row whose keys are all masked
 // spreads p evenly over all S keys; a key past S (a tile's padding) adds
 // exactly 0.
 //
@@ -47,10 +48,10 @@
 //     (bf16) in shared memory; after a barrier the warps take the round's
 //     16 x 16 tiles of dq = dS k. 7 products of S^2 D a pair and 2 exp a
 //     score, where the fused backward's tile takes 9 and 3.
-// - Epilogue: a warp's 16 x 64 accumulators of dv, dk (and the slab's dq)
-//   pass through its own 8 staging rows in shared memory, so that a half-warp
-//   takes a whole row and every global store of a row is one contiguous
-//   128-byte piece; the tile's dq tiles are stored as they stand, 32 bytes a row.
+// - Epilogue: a warp's 16 x D accumulators of dv, dk (and the slab's dq)
+//   pass through its own 8 staging rows in shared memory, so that D/4 lanes (a
+//   half-warp at D = 64) take a whole row and every global store of a row is
+//   one contiguous 2D-byte piece; the tile's dq tiles are stored as they stand, 32 bytes a row.
 // Roundings (between the TPU kernel, whose products are f32, and the JAX
 // package's non-TPU backward, the autodiff of jax.nn.dot_product_attention,
 // which rounds the probabilities to v's dtype; SDPA's backward rounds the same
@@ -77,14 +78,13 @@
 
 namespace {
 
-constexpr int HALF = D / 2;
 constexpr int THREADS = 256;
 constexpr int SIDE_ROWS = THREADS / 2;  // query or key rows per block
 constexpr int MAX_S = 256;
 
 // Thread half hf owns float4 chunks 2c + hf (c = 0..7) of a 64-element row.
 
-template <typename T>
+template <int HALF, typename T>
 __device__ __forceinline__ void load_half(float (&a)[HALF], const T* row, int hf) {
 #pragma unroll
   for (int c = 0; c < HALF / 4; ++c)
@@ -92,7 +92,7 @@ __device__ __forceinline__ void load_half(float (&a)[HALF], const T* row, int hf
     for (int e = 0; e < 4; ++e) a[4 * c + e] = to_float(row[4 * (2 * c + hf) + e]);
 }
 
-template <typename T>
+template <int HALF, typename T>
 __device__ __forceinline__ void store_half(T* row, const float (&a)[HALF], int hf) {
 #pragma unroll
   for (int c = 0; c < HALF / 4; ++c)
@@ -101,6 +101,7 @@ __device__ __forceinline__ void store_half(T* row, const float (&a)[HALF], int h
 }
 
 // the full 64-dim dot product with a shared-memory row, identical on both threads of the pair
+template <int HALF>
 __device__ __forceinline__ float dot_pair(const float (&a)[HALF], const float* row, int hf) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
   float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
@@ -117,6 +118,7 @@ __device__ __forceinline__ float dot_pair(const float (&a)[HALF], const float* r
   return hf == 0 ? part + other : other + part;
 }
 
+template <int HALF>
 __device__ __forceinline__ void axpy_half(float (&acc)[HALF], float coef, const float* row,
                                           int hf) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
@@ -163,19 +165,20 @@ struct Strides {
   long long q, k, v, d_o;
 };
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 query_side_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ d_o, const unsigned char* __restrict__ mask,
                   T* __restrict__ dq, float* __restrict__ stats, Strides st, int S, int H,
                   long long n_pairs, float scale) {
+  constexpr int HALF = D / 2, ROW = F32_ROW<D>;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
   const Tile t = tile_of(S, n_pairs);
   float* v_s = k_s + t.staged * ROW;
   float* keep = v_s + t.staged * ROW;
-  stage_heads(k_s, k, st.k, t.pair0, t.staged, S, H, n_pairs);
-  stage_heads(v_s, v, st.v, t.pair0, t.staged, S, H, n_pairs);
+  stage_heads<D>(k_s, k, st.k, t.pair0, t.staged, S, H, n_pairs);
+  stage_heads<D>(v_s, v, st.v, t.pair0, t.staged, S, H, n_pairs);
   for (int r = threadIdx.x; r < t.staged; r += blockDim.x) {
     const long long pair = t.pair0 + r / S;
     float kp = 1.f;
@@ -233,12 +236,13 @@ query_side_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 key_side_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ d_o, const unsigned char* __restrict__ mask,
                 T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ stats,
                 Strides st, int S, int H, long long n_pairs, float scale) {
+  constexpr int HALF = D / 2, ROW = F32_ROW<D>;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
   const Tile t = tile_of(S, n_pairs);
@@ -248,8 +252,8 @@ key_side_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float* r_s = l_s + t.staged;
   const long long rows = n_pairs * S;
   const long long row0 = t.pair0 * S;
-  stage_heads(q_s, q, st.q, t.pair0, t.staged, S, H, n_pairs);
-  stage_heads(do_s, d_o, st.d_o, t.pair0, t.staged, S, H, n_pairs);
+  stage_heads<D>(q_s, q, st.q, t.pair0, t.staged, S, H, n_pairs);
+  stage_heads<D>(do_s, d_o, st.d_o, t.pair0, t.staged, S, H, n_pairs);
   for (int r = threadIdx.x; r < t.staged; r += blockDim.x) {
     const bool in = row0 + r < rows;
     m_s[r] = in ? stats[row0 + r] : 0.f;
@@ -286,7 +290,7 @@ key_side_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   store_half(dv + o, dv_acc, hf);
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o, const void* mask,
                    void* dq, void* dk, void* dv, void* work, Strides st, int B, int S, int H,
                    cudaStream_t stream) {
@@ -303,10 +307,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
   const int chunks = (S + SIDE_ROWS - 1) / SIDE_ROWS;
   const unsigned blocks = (unsigned)(((n_pairs + ppb - 1) / ppb) * chunks);
   const int staged = ppb * S;
-  const size_t q_smem = (2 * (size_t)staged * ROW + staged) * sizeof(float);
-  const size_t k_smem = (2 * (size_t)staged * ROW + 3 * (size_t)staged) * sizeof(float);
+  const size_t q_smem = (2 * (size_t)staged * F32_ROW<D> + staged) * sizeof(float);
+  const size_t k_smem = (2 * (size_t)staged * F32_ROW<D> + 3 * (size_t)staged) * sizeof(float);
 
-  auto query_fn = query_side_kernel<T>;
+  auto query_fn = query_side_kernel<T, D>;
   cudaError_t err =
       cudaFuncSetAttribute(query_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
   if (err != cudaSuccess) return err;
@@ -315,7 +319,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto key_fn = key_side_kernel<T>;
+  auto key_fn = key_side_kernel<T, D>;
   err = cudaFuncSetAttribute(key_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k_smem);
   if (err != cudaSuccess) return err;
   key_fn<<<blocks, THREADS, k_smem, stream>>>(qt, kt, vt, gt, mk, static_cast<T*>(dk),
@@ -339,23 +343,21 @@ extern "C" int vvt_flash_attention_bwd(const void* q, const void* k, const void*
                                        long long do_stride, int B, int S, int H, int head_dim,
                                        int dtype, int variant, int unit, int warps, int n_blocks,
                                        void* stream) {
-  if (head_dim != D || S < 1 || S > MAX_S || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > MAX_S || B < 1 || H < 1 || (dtype != 0 && dtype != 1) || (dtype == 0 && work == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (work == nullptr) return (int)cudaErrorInvalidValue;
-    const Strides st{q_stride, k_stride, v_stride, do_stride};
-    return (int)launch<float>(q, k, v, d_o, mask, dq, dk, dv, work, st, B, S, H, stream_);
-  }
-  if (dtype == 1) {
-    using fa_mma::bf16;
-    const fa_mma::flash_bwd::Args a{
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(d_o), static_cast<const unsigned char*>(mask), static_cast<bf16*>(dq),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), q_stride, k_stride, v_stride, do_stride,
-        B, S, H, unit};
-    return (int)fa_mma::flash_bwd::launch_flash_bwd_mma(a, variant, warps, n_blocks, stream_);
-  }
-  return (int)cudaErrorInvalidValue;
+  const Strides st{q_stride, k_stride, v_stride, do_stride};
+  using fa_mma::bf16;
+  const fa_mma::flash_bwd::Args a{
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(d_o), static_cast<const unsigned char*>(mask), static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), q_stride, k_stride, v_stride, do_stride,
+      B, S, H, unit};
+  return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0) return launch<float, D>(q, k, v, d_o, mask, dq, dk, dv, work, st, B, S, H, stream_);
+    return fa_mma::flash_bwd::launch_flash_bwd_mma<D>(a, variant, warps, n_blocks, stream_);
+  });
 }
 
 extern "C" const char* vvt_error_string(int code) {

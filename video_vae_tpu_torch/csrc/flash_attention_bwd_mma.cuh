@@ -7,8 +7,8 @@
 // RoPE around it; the tile variant exchanges dS through shared memory instead
 // of recomputing the scores a third time.
 //
-// Shared-memory layout. Rows of 64 bf16 sit in 72-element rows (144 bytes),
-// staged in 16-row units, a row past the sequence zero-filled.
+// Shared-memory layout. Rows of D bf16 sit in D + 8-element rows (144 bytes at
+// D = 64), staged in 16-row units, a row past the sequence zero-filled.
 //   slab (S <= 64): per (sequence, head) pair of the block: q | dO | k | v
 //                   [row], then P and dS as bf16 [query][key] (rows of
 //                   rows16(S) + 8 elements); then the key bits of every pair;
@@ -25,11 +25,9 @@ namespace fa_mma {
 namespace flash_bwd {
 
 // the fused backward's plan (ops/flash_attention.py:flash_attention_bwd_plan)
-using bwd::C;
 using bwd::SLAB_MAX_SEQ;
 using bwd::SLAB_MIN_BLOCKS;
 using bwd::SLAB_WARPS;
-using bwd::SM_SCALE;
 using bwd::STAGE_ROW;
 using bwd::TILE_KT;
 using bwd::TILE_WARPS;
@@ -38,11 +36,12 @@ constexpr int ROUND = 64;           // queries whose dS a tile block exchanges a
 constexpr int DS_ROW = ROUND + 8;   // bf16 row of the round's dS^T (144 bytes: ldmatrix without bank conflicts)
 
 // Shared memory of one block (unit: pairs of a slab block).
+template <int D>
 __host__ __forceinline__ size_t smem_bytes(int variant, int S, int unit, int warps) {
   const size_t words = 8 * (size_t)key_words(S);
-  const size_t stage = (size_t)warps * 8 * STAGE_ROW * sizeof(float);  // each warp's staging rows
-  if (variant == SLAB) return (size_t)unit * (2 * bwd::slab_pair_elems(S) + words) + stage;
-  return 4 * (size_t)rows16(S) * ROW_BYTES + (size_t)rows16(S) * DS_ROW * sizeof(bf16) +
+  const size_t stage = (size_t)warps * 8 * STAGE_ROW<D> * sizeof(float);  // each warp's staging rows
+  if (variant == SLAB) return (size_t)unit * (2 * bwd::slab_pair_elems<D>(S) + words) + stage;
+  return 4 * (size_t)rows16(S) * ROW_BYTES<D> + (size_t)rows16(S) * DS_ROW * sizeof(bf16) +
          3 * (size_t)rows16(S) * sizeof(float) + words + stage;
 }
 
@@ -65,13 +64,14 @@ struct Args {
 // zero-filled. Consecutive threads copy consecutive 16-byte pieces of one
 // position's rows: the pairs of a block are consecutive heads of a sequence,
 // adjacent in memory. The caller commits the group.
-template <typename RowsOf>
+template <int D, typename RowsOf>
 __device__ __forceinline__ void copy_rows(const Args& a, RowsOf rows_of, long long p0, int unit, int part0, int part1,
                                           int i0, int i1) {
+  constexpr int P = PIECES<D>;
   const int S = a.S, H = a.H, n = i1 - i0;
   const long long pairs = (long long)a.B * H;
-  for (int e = threadIdx.x; e < (part1 - part0) * n * unit * 8; e += blockDim.x) {
-    const int piece = e & 7, pl = (e >> 3) % unit, ri = (e >> 3) / unit;
+  for (int e = threadIdx.x; e < (part1 - part0) * n * unit * P; e += blockDim.x) {
+    const int piece = e % P, pl = (e / P) % unit, ri = (e / P) / unit;
     const int i = i0 + ri % n, part = part0 + ri / n;
     const long long p = p0 + pl;
     const bool inside = p < pairs && i < S;
@@ -83,7 +83,7 @@ __device__ __forceinline__ void copy_rows(const Args& a, RowsOf rows_of, long lo
       const int h = (int)(p % H);
       src = base + (b * S + i) * stride + h * D + 8 * piece;
     }
-    cp_async16(rows_of(pl, part) + (size_t)i * ROW + 8 * piece, src, inside ? 16 : 0);
+    cp_async16(rows_of(pl, part) + (size_t)i * ROW<D> + 8 * piece, src, inside ? 16 : 0);
   }
 }
 
@@ -103,22 +103,23 @@ __device__ __forceinline__ void cp_async_wait_at_most(int n) {
 // of every 16-row query tile, dealt to the warps in turn (P and dS to shared
 // memory, dq); a barrier; the key side of every 16-row key tile, dealt the same
 // way (dv, dk). tests/test_torch_flash_bwd_plan.py walks the same items on the CPU.
-template <int KT>
+template <int D, int KT>
 __global__ void __launch_bounds__(SLAB_WARPS * 32, SLAB_MIN_BLOCKS) flash_bwd_slab_kernel(Args a) {
   extern __shared__ float4 smem4[];
   bf16* smem = reinterpret_cast<bf16*>(smem4);
+  constexpr int ROW = fa_mma::ROW<D>, STAGE_ROW = bwd::STAGE_ROW<D>;
   const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const int S = a.S, H = a.H, s16 = rows16(S), words = key_words(S), tiles = s16 / 16, unit = a.unit;
   const size_t HD = (size_t)H * D;
   const long long pairs = (long long)a.B * H;
   const long long p0 = (long long)blockIdx.x * unit;
-  const size_t pair_elems = bwd::slab_pair_elems(S);
+  const size_t pair_elems = bwd::slab_pair_elems<D>(S);
   const int pstride = bwd::ps_row(S);
   // part 0 q, 1 dO, 2 k, 3 v of the block's pair pl; its P, then dS, begin at part 4
   auto rows_of = [&](int pl, int part) { return smem + pl * pair_elems + (size_t)part * s16 * ROW; };
   unsigned long long* keep = reinterpret_cast<unsigned long long*>(smem + unit * pair_elems);
   float* stage = reinterpret_cast<float*>(keep + unit * words) + warp * 8 * STAGE_ROW;  // this warp's
-  copy_rows(a, rows_of, p0, unit, 0, 4, 0, s16);
+  copy_rows<D>(a, rows_of, p0, unit, 0, 4, 0, s16);
   cp_async_commit();
   for (int pl = 0; pl < unit; ++pl)
     stage_key_bits(keep + pl * words, a.mask, p0 + pl < pairs ? (p0 + pl) / H : 0, S, warp, warps);
@@ -131,24 +132,24 @@ __global__ void __launch_bounds__(SLAB_WARPS * 32, SLAB_MIN_BLOCKS) flash_bwd_sl
     const long long p = p0 + pl;
     if (p >= pairs) continue;  // uniform per warp
     bf16* p_rows = rows_of(pl, 4) + (size_t)16 * mt * pstride;
-    float dq[8][4], st[2][3];
-    bwd::query_side<KT, false>(rows_of(pl, 0) + (size_t)16 * mt * ROW, rows_of(pl, 1) + (size_t)16 * mt * ROW,
+    float dq[D / 8][4], st[2][3];
+    bwd::query_side<D, KT, false>(rows_of(pl, 0) + (size_t)16 * mt * ROW, rows_of(pl, 1) + (size_t)16 * mt * ROW,
                                rows_of(pl, 2), rows_of(pl, 3), keep + pl * words, S, dq, st, p_rows,
                                p_rows + (size_t)s16 * pstride, pstride);
     const size_t base = (size_t)(p / H) * S * HD + (size_t)(p % H) * D;
-    bwd::store_rows(dq, stage, a.dq + base, HD, 16 * mt, S);
+    bwd::store_rows<D>(dq, stage, a.dq + base, HD, 16 * mt, S);
   }
   __syncthreads();
   for (int it = warp; it < items; it += warps) {  // key side
     const int pl = it / tiles, kt = it % tiles;
     const long long p = p0 + pl;
     if (p >= pairs) continue;
-    float dv[8][4], dk[8][4];
-    bwd::key_side_slab(rows_of(pl, 4), rows_of(pl, 4) + (size_t)s16 * pstride, pstride, rows_of(pl, 0),
+    float dv[D / 8][4], dk[D / 8][4];
+    bwd::key_side_slab<D>(rows_of(pl, 4), rows_of(pl, 4) + (size_t)s16 * pstride, pstride, rows_of(pl, 0),
                        rows_of(pl, 1), 16 * kt, S, dv, dk);
     const size_t base = (size_t)(p / H) * S * HD + (size_t)(p % H) * D;
-    bwd::store_rows(dv, stage, a.dv + base, HD, 16 * kt, S);
-    bwd::store_rows(dk, stage, a.dk + base, HD, 16 * kt, S);
+    bwd::store_rows<D>(dv, stage, a.dv + base, HD, 16 * kt, S);
+    bwd::store_rows<D>(dk, stage, a.dk + base, HD, 16 * kt, S);
   }
 }
 
@@ -159,19 +160,21 @@ __global__ void __launch_bounds__(SLAB_WARPS * 32, SLAB_MIN_BLOCKS) flash_bwd_sl
 // bf16, and the rounded dS^T to ds_t (row k0 + r, column i - q0). The k and v
 // fragments are loaded again for each 16 queries, so that the registers of dv
 // and dk are not spilled. masked: keys k0 + g and k0 + g + 8 masked or past S.
+template <int D>
 __device__ __forceinline__ void key_round(const bf16* q_s, const bf16* do_s, const bf16* k_s, const bf16* v_s,
                                           const float* m_s, const float* il_s, const float* row_s, const bool (&masked)[2],
-                                          int k0, int q0, int q1, int S, bf16* ds_t, float (&dv)[8][4],
-                                          float (&dk)[8][4]) {
+                                          int k0, int q0, int q1, int S, bf16* ds_t, float (&dv)[D / 8][4],
+                                          float (&dk)[D / 8][4]) {
+  constexpr int ROW = fa_mma::ROW<D>;
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
   for (int i0 = q0; i0 < q1; i0 += 16) {
     float st[2][4], dt[2][4];
     {
-      uint32_t f[4][4];
-      bwd::load_rows(f, k_s + (size_t)k0 * ROW);
-      bwd::row_dots<1>(st, f, q_s, i0, 1);
-      bwd::load_rows(f, v_s + (size_t)k0 * ROW);
-      bwd::row_dots<1>(dt, f, do_s, i0, 1);
+      uint32_t f[D / 16][4];
+      bwd::load_rows<D>(f, k_s + (size_t)k0 * ROW);
+      bwd::row_dots<D, 1>(st, f, q_s, i0, 1);
+      bwd::load_rows<D>(f, v_s + (size_t)k0 * ROW);
+      bwd::row_dots<D, 1>(dt, f, do_s, i0, 1);
     }
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
@@ -183,16 +186,16 @@ __device__ __forceinline__ void key_round(const bf16* q_s, const bf16* do_s, con
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int e = 2 * r + e1;
-          const float p = live ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * C) * il : 0.f;
+          const float p = live ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * C<D>) * il : 0.f;
           st[nt][e] = p;
-          dt[nt][e] = p * (dt[nt][e] - row) * SM_SCALE;
+          dt[nt][e] = p * (dt[nt][e] - row) * SM_SCALE<D>;
         }
       }
     uint32_t ap[4], ad[4];
     bwd::pack_a(ap, st, 0);
     bwd::pack_a(ad, dt, 0);
-    bwd::mma_rows(dv, ap, do_s + (size_t)i0 * ROW);
-    bwd::mma_rows(dk, ad, q_s + (size_t)i0 * ROW);
+    bwd::mma_rows<D>(dv, ap, do_s + (size_t)i0 * ROW);
+    bwd::mma_rows<D>(dk, ad, q_s + (size_t)i0 * ROW);
     // ad[2 h + r]: key row k0 + g + 8 r, queries i0 + 8 h + 2 t, + 1
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -206,7 +209,9 @@ __device__ __forceinline__ void key_round(const bf16* q_s, const bf16* do_s, con
 // d0 .. d0 + 15: the sum over the keys j < s16 of dS_ij k_jd, dS read from
 // ds_t through ldmatrix.trans, k through ldmatrix.trans. acc[nt]: dims
 // d0 + 8 nt .. in the m16n8 accumulator layout. A key past S has a zero k row.
+template <int D>
 __device__ __forceinline__ void dq_tile(float (&acc)[2][4], const bf16* ds_t, const bf16* k_s, int c0, int d0, int s16) {
+  constexpr int ROW = fa_mma::ROW<D>;
   const int lane = threadIdx.x & 31, mi = lane >> 3;
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
@@ -231,9 +236,11 @@ __device__ __forceinline__ void dq_tile(float (&acc)[2][4], const bf16* ds_t, co
 //    and store them; a barrier.
 // 3. Each warp stores its dv and dk rows. 7 products of S^2 D and 2 exp a
 // score. tests/test_torch_flash_bwd_plan.py walks the same items on the CPU.
+template <int D>
 __global__ void __launch_bounds__(TILE_WARPS * 32, 1) flash_bwd_tile_kernel(Args a) {
   extern __shared__ float4 smem4[];
   bf16* smem = reinterpret_cast<bf16*>(smem4);
+  constexpr int ROW = fa_mma::ROW<D>, STAGE_ROW = bwd::STAGE_ROW<D>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
   const int t = lane & 3, g = lane >> 2;
   const int S = a.S, s16 = rows16(S), words = key_words(S);
@@ -250,10 +257,10 @@ __global__ void __launch_bounds__(TILE_WARPS * 32, 1) flash_bwd_tile_kernel(Args
   // group 0, the q and dO rows; group 1 + c, the k and v rows of keys 64 c ..
   // 64 c + 63: the statistics start on the first keys while the rest arrive
   const int key_groups = (s16 + 63) / 64;
-  copy_rows(a, rows_of, p, 1, 0, 2, 0, s16);
+  copy_rows<D>(a, rows_of, p, 1, 0, 2, 0, s16);
   cp_async_commit();
   for (int c = 0; c < key_groups; ++c) {
-    copy_rows(a, rows_of, p, 1, 2, 4, 64 * c, min(64 * c + 64, s16));
+    copy_rows<D>(a, rows_of, p, 1, 2, 4, 64 * c, min(64 * c + 64, s16));
     cp_async_commit();
   }
   stage_key_bits(keep, a.mask, p / a.H, S, warp, warps);
@@ -263,9 +270,9 @@ __global__ void __launch_bounds__(TILE_WARPS * 32, 1) flash_bwd_tile_kernel(Args
   {  // 1: the query rows' statistics
     cp_async_wait_at_most(key_groups - 1);  // the q and dO rows and the first 64 keys
     __syncthreads();
-    uint32_t qf[4][4], df[4][4];
-    bwd::load_rows(qf, q_s + (size_t)r0 * ROW);
-    bwd::load_rows(df, do_s + (size_t)r0 * ROW);
+    uint32_t qf[D / 16][4], df[D / 16][4];
+    bwd::load_rows<D>(qf, q_s + (size_t)r0 * ROW);
+    bwd::load_rows<D>(df, do_s + (size_t)r0 * ROW);
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
     float s[2 * TILE_KT][4], dp[2 * TILE_KT][4];
     for (int c0 = 0; c0 < S; c0 += 16 * TILE_KT) {
@@ -273,7 +280,7 @@ __global__ void __launch_bounds__(TILE_WARPS * 32, 1) flash_bwd_tile_kernel(Args
         cp_async_wait_at_most(key_groups - 1 - c0 / 64);
         __syncthreads();
       }
-      bwd::online_chunk<TILE_KT>(s, dp, qf, df, k_s, v_s, keep, S, c0, m, l, rs);
+      bwd::online_chunk<D, TILE_KT>(s, dp, qf, df, k_s, v_s, keep, S, c0, m, l, rs);
     }
     float il[2], row[2], st[2][3];
     bwd::finish_stats(m, l, rs, il, row, st);
@@ -293,19 +300,19 @@ __global__ void __launch_bounds__(TILE_WARPS * 32, 1) flash_bwd_tile_kernel(Args
     const int j = r0 + g + 8 * r;
     masked[r] = !((keep[j >> 6] >> (j & 63)) & 1ull);  // also a padding key: its rows are not written
   }
-  float dv[8][4], dk[8][4];
+  float dv[D / 8][4], dk[D / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn)
+  for (int dn = 0; dn < D / 8; ++dn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dv[dn][e] = dk[dn][e] = 0.f;
   for (int q0 = 0; q0 < s16; q0 += ROUND) {  // 2: rounds of queries
     const int q1 = min(q0 + ROUND, s16);
-    key_round(q_s, do_s, k_s, v_s, m_s, il_s, row_s, masked, r0, q0, q1, S, ds_t, dv, dk);
+    key_round<D>(q_s, do_s, k_s, v_s, m_s, il_s, row_s, masked, r0, q0, q1, S, ds_t, dv, dk);
     __syncthreads();
-    for (int it = warp; it < (q1 - q0) / 16 * 4; it += warps) {  // the round's dq tiles
-      const int c0 = 16 * (it >> 2), d0 = 16 * (it & 3);
+    for (int it = warp; it < (q1 - q0) / 16 * (D / 16); it += warps) {  // the round's dq tiles
+      const int c0 = 16 * (it / (D / 16)), d0 = 16 * (it % (D / 16));
       float acc[2][4];
-      dq_tile(acc, ds_t, k_s, c0, d0, s16);
+      dq_tile<D>(acc, ds_t, k_s, c0, d0, s16);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = q0 + c0 + g + 8 * r;
@@ -319,13 +326,13 @@ __global__ void __launch_bounds__(TILE_WARPS * 32, 1) flash_bwd_tile_kernel(Args
     }
     __syncthreads();
   }
-  bwd::store_rows(dv, stage, a.dv + base, HD, r0, S);  // 3
-  bwd::store_rows(dk, stage, a.dk + base, HD, r0, S);
+  bwd::store_rows<D>(dv, stage, a.dv + base, HD, r0, S);  // 3
+  bwd::store_rows<D>(dk, stage, a.dk + base, HD, r0, S);
 }
 
-template <int KT>
+template <int D, int KT>
 cudaError_t launch_slab(const Args& a, int warps, int smem, unsigned blocks, cudaStream_t stream) {
-  auto kernel = flash_bwd_slab_kernel<KT>;
+  auto kernel = flash_bwd_slab_kernel<D, KT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, 32 * warps, smem, stream>>>(a);
@@ -335,7 +342,8 @@ cudaError_t launch_slab(const Args& a, int warps, int smem, unsigned blocks, cud
 // Checks the plan (ops/flash_attention.py:flash_attention_bwd_plan: the
 // variant, the pairs a slab block, the warps a block and the grid) against the
 // shape, and launches.
-inline cudaError_t launch_flash_bwd_mma(const Args& a, int variant, int warps, long long n_blocks,
+template <int D>
+cudaError_t launch_flash_bwd_mma(const Args& a, int variant, int warps, long long n_blocks,
                                         cudaStream_t stream) {
   const long long pairs = (long long)a.B * a.H;
   long long blocks;
@@ -348,23 +356,23 @@ inline cudaError_t launch_flash_bwd_mma(const Args& a, int variant, int warps, l
   } else {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes(variant, a.S, a.unit, warps);
+  const size_t smem = smem_bytes<D>(variant, a.S, a.unit, warps);
   if (blocks != n_blocks || blocks > 0x7fffffffLL || smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   const unsigned grid = (unsigned)blocks;
   if (variant == TILE) {
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_tile_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_tile_kernel<<<grid, 32 * warps, smem, stream>>>(a);
+    flash_bwd_tile_kernel<D><<<grid, 32 * warps, smem, stream>>>(a);
     return cudaGetLastError();
   }
   switch (chunk_steps(a.S)) {  // one chunk holds every key
     case 1:
-      return launch_slab<1>(a, warps, (int)smem, grid, stream);
+      return launch_slab<D, 1>(a, warps, (int)smem, grid, stream);
     case 2:
-      return launch_slab<2>(a, warps, (int)smem, grid, stream);
+      return launch_slab<D, 2>(a, warps, (int)smem, grid, stream);
     default:
-      return launch_slab<4>(a, warps, (int)smem, grid, stream);
+      return launch_slab<D, 4>(a, warps, (int)smem, grid, stream);
   }
 }
 

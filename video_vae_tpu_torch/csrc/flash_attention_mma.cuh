@@ -9,8 +9,8 @@
 //         bits of every sequence;
 //   tile: k [row] | v [row] | q [row] of one (sequence, head) pair, then the
 //         pair's key bits.
-// Rows of 64 bf16 in 72-element rows (144 bytes), staged in 16-row units, a
-// row past the sequence zero-filled (a padding key's v row adds exactly 0).
+// Rows of D bf16 in D + 8-element rows (144 bytes at D = 64), staged in 16-row
+// units, a row past the sequence zero-filled (a padding key's v row adds exactly 0).
 
 #pragma once
 
@@ -31,6 +31,7 @@ struct Args {
 
 // cp.async the 16-byte piece `piece` of row i of head h of sequence b of
 // input `part` (0 q, 1 k, 2 v) to dst; zero-filled where `inside` is false.
+template <int D>
 __device__ __forceinline__ void copy_piece(bf16* dst, const Args& a, int part, long long b, int i, int h, int piece,
                                            bool inside) {
   const bf16* src = part == 0 ? a.q : part == 1 ? a.k : a.v;
@@ -43,10 +44,11 @@ __device__ __forceinline__ void copy_piece(bf16* dst, const Args& a, int part, l
 // for each 16 of its query rows. Every q, k and v row of the block is copied in
 // one cp.async group before any warp starts. tests/test_torch_flash_plan.py
 // walks the same items on the CPU.
-template <int KT>
+template <int D, int KT>
 __global__ void __launch_bounds__(MAX_WARPS * 32) flash_fwd_kernel(const Args a, int variant) {
   extern __shared__ float4 smem4[];
   bf16* smem = reinterpret_cast<bf16*>(smem4);
+  constexpr int ROW = fa_mma::ROW<D>, P = PIECES<D>;
   const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const int S = a.S, H = a.H, s16 = rows16(S), words = key_words(S);
   const size_t out_row = (size_t)H * D;  // elements of one (b, i) row of the output
@@ -60,15 +62,15 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) flash_fwd_kernel(const Args a,
     };
     unsigned long long* keep = reinterpret_cast<unsigned long long*>(smem + unit * seq_elems);
     // Thread p copies one 16-byte piece of one head row, (input, head, piece)
-    // = (p / 8H, p / 8 % H, p % 8), at every position of the block's sequences:
+    // = (p / PH, p / P % H, p % P), at every position of the block's sequences:
     // consecutive threads take consecutive pieces of a position's heads of one
     // input, adjacent in memory, and no index is divided inside the loops.
-    for (int p = threadIdx.x; p < 3 * H * 8; p += blockDim.x) {
-      const int piece = p & 7, part = (p >> 3) / H, h = (p >> 3) % H;
+    for (int p = threadIdx.x; p < 3 * H * P; p += blockDim.x) {
+      const int piece = p % P, part = (p / P) / H, h = (p / P) % H;
       for (int sl = 0; sl < unit; ++sl) {
         const long long b = seq0 + sl;
         for (int i = 0; i < s16; ++i)
-          copy_piece(row_of(sl, part, h, i) + 8 * piece, a, part, b, i, h, piece, b < a.B && i < S);
+          copy_piece<D>(row_of(sl, part, h, i) + 8 * piece, a, part, b, i, h, piece, b < a.B && i < S);
       }
     }
     cp_async_commit();
@@ -81,7 +83,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) flash_fwd_kernel(const Args a,
       const int mt = it % tiles, h = (it / tiles) % H, sl = it / (tiles * H);
       const long long b = seq0 + sl;
       if (b >= a.B) continue;
-      attend<KT>(row_of(sl, 0, h, 16 * mt), row_of(sl, 1, h, 0), row_of(sl, 2, h, 0), keep + sl * words, S, true,
+      attend<D, KT>(row_of(sl, 0, h, 16 * mt), row_of(sl, 1, h, 0), row_of(sl, 2, h, 0), keep + sl * words, S, true,
                  a.out + (size_t)b * S * out_row + h * D, 16 * mt, H);
     }
     return;
@@ -95,24 +97,24 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) flash_fwd_kernel(const Args a,
   bf16* q_s = v_s + (size_t)s16 * ROW;
   unsigned long long* keep = reinterpret_cast<unsigned long long*>(q_s + (size_t)s16 * ROW);
   // a row's 8 pieces on consecutive threads; each thread steps down the rows
-  const int piece = threadIdx.x & 7, row_step = blockDim.x >> 3;
+  const int piece = threadIdx.x % P, row_step = blockDim.x / P;
   for (int part = 0; part < 3; ++part) {
     bf16* rows = part == 0 ? q_s : part == 1 ? k_s : v_s;
-    for (int i = threadIdx.x >> 3; i < s16; i += row_step)
-      copy_piece(rows + (size_t)i * ROW + 8 * piece, a, part, b, i, h, piece, i < S);
+    for (int i = threadIdx.x / P; i < s16; i += row_step)
+      copy_piece<D>(rows + (size_t)i * ROW + 8 * piece, a, part, b, i, h, piece, i < S);
   }
   cp_async_commit();
   stage_key_bits(keep, a.mask, b, S, warp, warps);
   cp_async_wait<0>();
   __syncthreads();
   // warps = rows16(S) / 16, so every warp has query rows
-  attend<KT>(q_s + (size_t)16 * warp * ROW, k_s, v_s, keep, S, true, a.out + (size_t)b * S * out_row + h * D,
+  attend<D, KT>(q_s + (size_t)16 * warp * ROW, k_s, v_s, keep, S, true, a.out + (size_t)b * S * out_row + h * D,
              16 * warp, H);
 }
 
-template <int KT>
+template <int D, int KT>
 cudaError_t launch_kt(const Args& a, int variant, int warps, int smem, unsigned blocks, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<KT>;
+  auto kernel = flash_fwd_kernel<D, KT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, 32 * warps, smem, stream>>>(a, variant);
@@ -122,7 +124,8 @@ cudaError_t launch_kt(const Args& a, int variant, int warps, int smem, unsigned 
 // Checks the plan (ops/flash_attention.py:flash_attention_plan: the variant, and
 // the sequences a slab block) against the shape, derives the rest as
 // launch_attention_mma does, and launches.
-inline cudaError_t launch_flash_mma(const Args& a, int variant, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_flash_mma(const Args& a, int variant, cudaStream_t stream) {
   const int S = a.S, H = a.H;
   const long long tiles = rows16(S) / 16;  // 16-row query tiles of one head
   long long blocks, warps;
@@ -137,12 +140,12 @@ inline cudaError_t launch_flash_mma(const Args& a, int variant, cudaStream_t str
   } else {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes(variant, S, H, a.unit);
+  const size_t smem = smem_bytes<D>(variant, S, H, a.unit);
   if (blocks > 0x7fffffffLL || smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   switch (chunk_steps(S)) {
-    case 1: return launch_kt<1>(a, variant, (int)warps, (int)smem, (unsigned)blocks, stream);
-    case 2: return launch_kt<2>(a, variant, (int)warps, (int)smem, (unsigned)blocks, stream);
-    default: return launch_kt<4>(a, variant, (int)warps, (int)smem, (unsigned)blocks, stream);
+    case 1: return launch_kt<D, 1>(a, variant, (int)warps, (int)smem, (unsigned)blocks, stream);
+    case 2: return launch_kt<D, 2>(a, variant, (int)warps, (int)smem, (unsigned)blocks, stream);
+    default: return launch_kt<D, 4>(a, variant, (int)warps, (int)smem, (unsigned)blocks, stream);
   }
 }
 

@@ -10,8 +10,8 @@
 
 namespace {
 
-constexpr int D = 64;          // head dim the kernels are written for
-constexpr int ROW = D + 4;     // smem row stride in floats: 16-byte rows, conflict-free float4 by row
+// smem row stride of a D-wide f32 row: 16-byte rows, conflict-free float4 by row
+template <int D> constexpr int F32_ROW = D + 4;
 constexpr float NEG_INF = -1e30f;  // the JAX kernels' masked score
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -41,11 +41,11 @@ __device__ __forceinline__ void load8(float (&a)[8], const __nv_bfloat16* p) {
 }
 
 // Stage `rows` (pair, position) rows of a (B, S, H, D) tensor, addressed as
-// base + (b * S + i) * stride + h * D + d, as f32 rows of stride ROW. Row r is
+// base + (b * S + i) * stride + h * D + d, as f32 rows of stride F32_ROW. Row r is
 // local pair r / S, position r % S; rows of pairs past the end are zero. Each
 // thread moves 8 elements at a time, so the base and the stride must keep
 // 16-byte alignment (the wrappers check).
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void stage_heads(float* dst, const T* __restrict__ src,
                                             long long stride, long long pair0, int rows, int S,
                                             int H, long long n_pairs) {
@@ -59,7 +59,7 @@ __device__ __forceinline__ void stage_heads(float* dst, const T* __restrict__ sr
       const int h = (int)(pair - b * H);
       load8(a, src + (b * S + i) * stride + h * D + c);
     }
-    float4* out = reinterpret_cast<float4*>(dst + r * ROW + c);
+    float4* out = reinterpret_cast<float4*>(dst + r * F32_ROW<D> + c);
     out[0] = make_float4(a[0], a[1], a[2], a[3]);
     out[1] = make_float4(a[4], a[5], a[6], a[7]);
   }

@@ -5,7 +5,8 @@
 // (B, S, 3*H*D) row, LayerNorm q and k over D (no bias, f32 statistics,
 // E[x^2]-mean^2 clamped at 0, eps 1e-6, times the (D,) scale), rotate-half
 // RoPE with (S, D) f32 tables, softmax(q k^T / sqrt(D) + key mask) v, one
-// rounding to the output dtype. D = 64, 1 <= S <= 256. A masked key (j < S,
+// rounding to the output dtype. D in {16, 32, 64} (a template parameter of
+// every kernel, one instantiation each), 1 <= S <= 256. A masked key (j < S,
 // mask 0) scores -1e30, so a row whose keys are all masked averages all S
 // keys; a key past S (a tile's padding) adds exactly 0.
 //
@@ -46,7 +47,7 @@
 // - Softmax: a warp holds its 16 query rows' q fragments in registers and
 //   walks the keys in chunks of up to 64 with a running (online) max: one
 //   chunk, so an exact max, up to S = 64; four at S = 256, where an exact max
-//   would cost a second QK^T. O accumulates as 16 x 64 f32 in registers and
+//   would cost a second QK^T. O accumulates as 16 x D f32 in registers and
 //   leaves through the warp's own q rows in shared memory, 16 bytes a lane.
 // Measured on the H100 (PERF.md): the temporal call takes about twice its
 // bytes bound, with staging, LN and the products in turn; the spatial call is
@@ -72,17 +73,18 @@
 // dtype: 0 = float32, 1 = bfloat16. mask: (B, S) uint8 key mask, or null.
 // variant, unit: the bf16 kernel's plan (slab 0 or tile 1; sequences a slab
 // block, 1 for a tile); the f32 kernel takes its geometry from the shape.
+// head_dim: 16, 32 or 64; any other is refused.
 extern "C" int vvt_fused_attention_fwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
                                        void* out, int B, int S, int H, int head_dim, int dtype,
                                        int variant, int unit, void* stream) {
-  if (head_dim != D || S < 1 || S > MAX_ROWS || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (S < 1 || S > MAX_ROWS || B < 1 || H < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_fused_attention<float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, st);
-  if (dtype == 1)
-    return (int)fa_mma::launch_attention_mma(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant,
-                                             unit, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0) return launch_fused_attention<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, st);
+    return fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, st);
+  });
 }
 
 extern "C" const char* vvt_error_string(int code) {

@@ -7,7 +7,8 @@
 // row = sum_j P_ij dP_ij (f32), dS = P o (dP - row) / sqrt(D), dq~ = dS k~, dk~ = dS^T q~,
 // and back through RoPE (its transpose), the scale (a per-dim partial
 // sum_rows dln * xn) and the LN: dx = r * (dxn - mean(dxn) - xn * mean(dxn * xn)).
-// D = 64, 1 <= S <= 256. A masked key (j < S, mask 0) scores -1e30, so a row
+// D in {16, 32, 64} (a template parameter of every kernel), 1 <= S <= 256. A
+// masked key (j < S, mask 0) scores -1e30, so a row
 // whose keys are all masked spreads P evenly over all S keys; a key past S (a
 // tile's padding) adds exactly 0.
 //
@@ -22,10 +23,10 @@
 // bf16 qkv: a tensor-core kernel (fused_attention_bwd_mma.cuh), one launch, no
 // workspace but the (blocks, D) dscale partials:
 // - Products: mma.sync m16n8k16, bf16 operands and f32 accumulators, ldmatrix
-//   (and .trans) from 144-byte shared-memory rows, as the forward: 16-row tiles
+//   (and .trans) from D + 8-element shared-memory rows, as the forward: 16-row tiles
 //   suit S = 16, where wgmma's 64-row tile would waste 3/4 of its work. The
 //   accumulators of P and dS are, as they stand, the A fragments of the next
-//   product, and dims d and d + 32 of a row sit in one lane, so the RoPE
+//   product, and dims d and d + D/2 of a row sit in one lane, so the RoPE
 //   transpose of the epilogue needs no shuffle.
 // - Staging: cp.async copies the block's q, k (one group) and v, dO rows (a
 //   second); then four lanes a row apply LN + RoPE to q and k in place and round
@@ -48,9 +49,9 @@
 //     online, then again for P, dS and dq~; m, 1/l and row go to shared
 //     memory. The key side walks the queries in 16s: k~q~^T and v dO^T give
 //     P^T and dS^T, then dv and dk~. 9 products a pair, 3 exp a score.
-// - Epilogue: a warp's 16 x 64 accumulators pass through its own 8 staging rows
-//   in shared memory, so that a half-warp takes a whole row, a lane holding dims
-//   d and d + 32 (RoPE's transpose needs no shuffle) and every global access of
+// - Epilogue: a warp's 16 x D accumulators pass through its own 8 staging rows
+//   in shared memory, so that D/4 lanes (a half-warp at D = 64) take a whole
+//   row, a lane holding dims d and d + D/2 (RoPE's transpose needs no shuffle) and every global access of
 //   a row being one contiguous piece: dv is rounded and stored; for dq~ and dk~
 //   the raw q or k row is re-read (an L2 hit) for xn and r, and the LN backward
 //   runs in f32. Each warp sums its rows' dln * xn in a fixed order into shared
@@ -77,15 +78,15 @@
 // f32 qkv keeps the first version, four passes on the CUDA cores through an
 // f32 workspace, f32 throughout (it backs the f32 card-vs-CPU train step):
 //   1. prep: one warp per row writes q~, k~ (LN, scale, RoPE), v and dO as f32
-//      rows of a workspace;
+//      rows of a workspace (lane l < D/2 owns dims l and l + D/2);
 //   2. query side: two threads per query row (each owns half of D, as
 //      interleaved float4 chunks, so the pair reads two bank groups); the
 //      keys (k~, v) of the block's sequences sit in shared memory; one online
 //      pass gives the row max m, sum l and row term, a second gives dq~;
 //   3. key side: two threads per key row stream the queries (q~, dO, m, l,
 //      row) from shared memory and accumulate dk~ and dv;
-//   4. LN/RoPE backward: one warp per row, lanes own dims d and d + 32 (the
-//      RoPE pairs); per-block dscale partials, summed by the wrapper.
+//   4. LN/RoPE backward: one warp per row, lanes l < D/2 own dims l and
+//      l + D/2 (the RoPE pairs); per-block dscale partials, summed by the wrapper.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,9 +96,7 @@
 
 namespace {
 
-constexpr int D = 64;
-constexpr int HALF = D / 2;
-constexpr int ROW = D + 4;        // smem row stride in floats (16-byte rows)
+template <int D> constexpr int F32_ROW = D + 4;  // smem row stride in floats (16-byte rows)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int SIDE_ROWS = THREADS / 2;  // query or key rows per block in passes 2, 3
@@ -125,6 +124,7 @@ struct Work {  // f32 workspace, rows = B * H * S, row index (b * H + h) * S + i
   float *qr, *kr, *v, *d_o, *dqr, *dkr, *m, *l, *row;
 };
 
+template <int D>
 __host__ __device__ __forceinline__ Work carve(float* base, long long rows) {
   Work w;
   w.qr = base;
@@ -141,19 +141,27 @@ __host__ __device__ __forceinline__ Work carve(float* base, long long rows) {
 
 // ---- pass 1: LN + scale + RoPE of q and k, f32 copies of v and dO ----------
 
-// LN (no bias) then rotate-half RoPE; lane owns dims lane and lane + 32.
+// Lane l < D/2 of a warp owns dims l and l + D/2 of a row (the RoPE pairs); the
+// other lanes hold zeros, which add nothing to the row's sums.
+template <int D>
+__device__ __forceinline__ bool owns_dims(int lane) { return D == 64 || lane < D / 2; }
+
+// LN (no bias) then rotate-half RoPE; lane owns dims lane and lane + D/2.
+template <int D>
 __device__ __forceinline__ void norm_rope(float& x0, float& x1, int lane, const float* scale,
                                           const float* cos_row, const float* sin_row) {
+  constexpr int HALF = D / 2;
   const float mean = warp_sum(x0 + x1) * (1.f / D);
   const float var = fmaxf(warp_sum(x0 * x0 + x1 * x1) * (1.f / D) - mean * mean, 0.f);
   const float r = rsqrtf(var + LN_EPS);
+  if (!owns_dims<D>(lane)) return;
   const float a = (x0 - mean) * r * scale[lane];
   const float b = (x1 - mean) * r * scale[lane + HALF];
   x0 = a * cos_row[lane] - b * sin_row[lane];
   x1 = b * cos_row[lane + HALF] + a * sin_row[lane + HALF];
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 prep_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
             const float* __restrict__ k_scale, const float* __restrict__ cos_t,
@@ -165,14 +173,17 @@ prep_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
   const long long pair = rr / S;
   const int i = (int)(rr % S), h = (int)(pair % H);
   const long long b = pair / H;
+  constexpr int HALF = D / 2;
   const int HD = H * D;
   const T* src = qkv + ((size_t)b * S + i) * 3 * HD + h * D;
   const float* c = cos_t + (size_t)i * D;
   const float* s = sin_t + (size_t)i * D;
-  float q0 = to_float(src[lane]), q1 = to_float(src[lane + HALF]);
-  float k0 = to_float(src[HD + lane]), k1 = to_float(src[HD + lane + HALF]);
-  norm_rope(q0, q1, lane, q_scale, c, s);
-  norm_rope(k0, k1, lane, k_scale, c, s);
+  const bool on = owns_dims<D>(lane);
+  float q0 = on ? to_float(src[lane]) : 0.f, q1 = on ? to_float(src[lane + HALF]) : 0.f;
+  float k0 = on ? to_float(src[HD + lane]) : 0.f, k1 = on ? to_float(src[HD + lane + HALF]) : 0.f;
+  norm_rope<D>(q0, q1, lane, q_scale, c, s);
+  norm_rope<D>(k0, k1, lane, k_scale, c, s);
+  if (!on) return;
   const size_t o = (size_t)rr * D;
   w.qr[o + lane] = q0;
   w.qr[o + lane + HALF] = q1;
@@ -186,8 +197,9 @@ prep_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
 }
 
 // ---- passes 2 and 3: two threads per row, each with half of D -------------
-// Thread half hf owns float4 chunks 2c + hf (c = 0..7) of a 64-float row.
+// Thread half hf owns float4 chunks 2c + hf (c = 0 .. D/8 - 1) of a D-float row.
 
+template <int HALF>
 __device__ __forceinline__ void load_half(float (&a)[HALF], const float* row, int hf) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
 #pragma unroll
@@ -200,6 +212,7 @@ __device__ __forceinline__ void load_half(float (&a)[HALF], const float* row, in
   }
 }
 
+template <int HALF>
 __device__ __forceinline__ void store_half(float* row, const float (&a)[HALF], int hf) {
   float4* r4 = reinterpret_cast<float4*>(row);
 #pragma unroll
@@ -207,7 +220,8 @@ __device__ __forceinline__ void store_half(float* row, const float (&a)[HALF], i
     r4[2 * c + hf] = make_float4(a[4 * c], a[4 * c + 1], a[4 * c + 2], a[4 * c + 3]);
 }
 
-// the full 64-dim dot product, identical on both threads of the pair
+// the full D-dim dot product, identical on both threads of the pair
+template <int HALF>
 __device__ __forceinline__ float dot_pair(const float (&a)[HALF], const float* row, int hf) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
   float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
@@ -224,6 +238,7 @@ __device__ __forceinline__ float dot_pair(const float (&a)[HALF], const float* r
   return hf == 0 ? part + other : other + part;
 }
 
+template <int HALF>
 __device__ __forceinline__ void axpy_half(float (&acc)[HALF], float coef, const float* row, int hf) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
 #pragma unroll
@@ -267,8 +282,9 @@ __device__ __forceinline__ Tile tile_of(int S, long long n_pairs) {
   return t;
 }
 
-// Copy `staged` f32 rows starting at row0 into smem rows of stride ROW; rows
+// Copy `staged` f32 rows starting at row0 into smem rows of stride F32_ROW; rows
 // past the end are zero.
+template <int D>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, long long row0,
                                            int staged, long long rows) {
   const float4* s4 = reinterpret_cast<const float4*>(src);
@@ -276,13 +292,15 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, long lo
     const int r = e / (D / 4), c = e % (D / 4);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < rows) v = s4[(row0 + r) * (D / 4) + c];
-    reinterpret_cast<float4*>(dst + r * ROW)[c] = v;
+    reinterpret_cast<float4*>(dst + r * F32_ROW<D>)[c] = v;
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 query_side_kernel(Work w, const unsigned char* __restrict__ mask, int S, int H,
                   long long n_pairs, float scale) {
+  constexpr int HALF = D / 2, ROW = F32_ROW<D>;
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
   const Tile t = tile_of(S, n_pairs);
@@ -290,8 +308,8 @@ query_side_kernel(Work w, const unsigned char* __restrict__ mask, int S, int H,
   float* keep = v_s + t.staged * ROW;
   const long long rows = n_pairs * S;
   const long long row0 = t.pair0 * S;
-  stage_rows(k_s, w.kr, row0, t.staged, rows);
-  stage_rows(v_s, w.v, row0, t.staged, rows);
+  stage_rows<D>(k_s, w.kr, row0, t.staged, rows);
+  stage_rows<D>(v_s, w.v, row0, t.staged, rows);
   for (int r = threadIdx.x; r < t.staged; r += blockDim.x) {
     const long long pair = t.pair0 + r / S;
     float kp = 1.f;
@@ -345,10 +363,11 @@ query_side_kernel(Work w, const unsigned char* __restrict__ mask, int S, int H,
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 key_side_kernel(Work w, const unsigned char* __restrict__ mask, T* __restrict__ dqkv, int S,
                 int H, long long n_pairs, float scale) {
+  constexpr int HALF = D / 2, ROW = F32_ROW<D>;
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
   const Tile t = tile_of(S, n_pairs);
@@ -358,8 +377,8 @@ key_side_kernel(Work w, const unsigned char* __restrict__ mask, T* __restrict__ 
   float* r_s = l_s + t.staged;
   const long long rows = n_pairs * S;
   const long long row0 = t.pair0 * S;
-  stage_rows(q_s, w.qr, row0, t.staged, rows);
-  stage_rows(do_s, w.d_o, row0, t.staged, rows);
+  stage_rows<D>(q_s, w.qr, row0, t.staged, rows);
+  stage_rows<D>(do_s, w.d_o, row0, t.staged, rows);
   for (int r = threadIdx.x; r < t.staged; r += blockDim.x) {
     const bool in = row0 + r < rows;
     m_s[r] = in ? w.m[row0 + r] : 0.f;
@@ -404,17 +423,19 @@ key_side_kernel(Work w, const unsigned char* __restrict__ mask, T* __restrict__ 
 
 // ---- pass 4: back through RoPE, the scale and the LN ----------------------
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 ln_rope_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
                    const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                    const float* __restrict__ sin_t, Work w, T* __restrict__ dqkv,
                    float* __restrict__ dqs_part, float* __restrict__ dks_part, int S, int H,
                    long long rows) {
+  constexpr int HALF = D / 2;
   __shared__ float red[2][WARPS][D];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const bool on = owns_dims<D>(lane);
   const int HD = H * D;
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [q/k][dim lane, lane + 32]
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [q/k][dim lane, lane + D/2]
   for (int n = 0; n < LN_ROWS_PER_WARP; ++n) {
     const long long rr =
         ((long long)blockIdx.x * WARPS + warp) * LN_ROWS_PER_WARP + n;
@@ -430,29 +451,35 @@ ln_rope_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
       const float* scale = part == 0 ? q_scale : k_scale;
       const float* du = (part == 0 ? w.dqr : w.dkr) + (size_t)rr * D;
       const T* src = qkv + base + part * HD;
-      const float x0 = to_float(src[lane]), x1 = to_float(src[lane + HALF]);
+      const float x0 = on ? to_float(src[lane]) : 0.f, x1 = on ? to_float(src[lane + HALF]) : 0.f;
       const float mean = warp_sum(x0 + x1) * (1.f / D);
       const float var = fmaxf(warp_sum(x0 * x0 + x1 * x1) * (1.f / D) - mean * mean, 0.f);
       const float r = rsqrtf(var + LN_EPS);
-      const float xn0 = (x0 - mean) * r, xn1 = (x1 - mean) * r;
-      const float u0 = du[lane], u1 = du[lane + HALF];
+      // a lane without dims holds zeros: its xn, dln and dxn are 0
+      const float xn0 = on ? (x0 - mean) * r : 0.f, xn1 = on ? (x1 - mean) * r : 0.f;
+      const float u0 = on ? du[lane] : 0.f, u1 = on ? du[lane + HALF] : 0.f;
+      const int dl = on ? lane : 0;  // a lane without dims reads dim 0's tables, times 0
       // RoPE transpose: rot^T(v)[d < D/2] = v[d + D/2], else -v[d - D/2]
-      const float dln0 = u0 * c[lane] + u1 * s[lane + HALF];
-      const float dln1 = u1 * c[lane + HALF] - u0 * s[lane];
+      const float dln0 = u0 * c[dl] + u1 * s[dl + HALF];
+      const float dln1 = u1 * c[dl + HALF] - u0 * s[dl];
       acc[part][0] += dln0 * xn0;
       acc[part][1] += dln1 * xn1;
-      const float dxn0 = dln0 * scale[lane], dxn1 = dln1 * scale[lane + HALF];
+      const float dxn0 = dln0 * scale[dl], dxn1 = dln1 * scale[dl + HALF];
       const float m1 = warp_sum(dxn0 + dxn1) * (1.f / D);
       const float m2 = warp_sum(dxn0 * xn0 + dxn1 * xn1) * (1.f / D);
       T* dst = dqkv + base + part * HD;
-      dst[lane] = from_float<T>(r * (dxn0 - m1 - xn0 * m2));
-      dst[lane + HALF] = from_float<T>(r * (dxn1 - m1 - xn1 * m2));
+      if (on) {
+        dst[lane] = from_float<T>(r * (dxn0 - m1 - xn0 * m2));
+        dst[lane + HALF] = from_float<T>(r * (dxn1 - m1 - xn1 * m2));
+      }
     }
   }
 #pragma unroll
   for (int part = 0; part < 2; ++part) {
-    red[part][warp][lane] = acc[part][0];
-    red[part][warp][lane + HALF] = acc[part][1];
+    if (on) {
+      red[part][warp][lane] = acc[part][0];
+      red[part][warp][lane + HALF] = acc[part][1];
+    }
   }
   __syncthreads();
   if (threadIdx.x < 2 * D) {
@@ -463,7 +490,7 @@ ln_rope_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
   }
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                    const void* sin_t, const void* mask, const void* g, void* dqkv, void* dqs_part,
                    void* dks_part, void* work, int B, int S, int H, int n_blocks,
@@ -472,7 +499,7 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
   const long long rows = n_pairs * S;
   const int ln_rows = WARPS * LN_ROWS_PER_WARP;
   if ((long long)n_blocks != (rows + ln_rows - 1) / ln_rows) return cudaErrorInvalidValue;
-  const Work w = carve(static_cast<float*>(work), rows);
+  const Work w = carve<D>(static_cast<float*>(work), rows);
   const float scale = 1.f / sqrtf((float)D);
   const T* qkv_t = static_cast<const T*>(qkv);
   const float* qs = static_cast<const float*>(q_scale);
@@ -482,7 +509,7 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
   T* dq = static_cast<T*>(dqkv);
 
-  prep_kernel<T><<<(unsigned)((rows + WARPS - 1) / WARPS), THREADS, 0, stream>>>(
+  prep_kernel<T, D><<<(unsigned)((rows + WARPS - 1) / WARPS), THREADS, 0, stream>>>(
       qkv_t, qs, ks, ct, st, static_cast<const T*>(g), w, S, H, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -491,23 +518,23 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
   const int chunks = (S + SIDE_ROWS - 1) / SIDE_ROWS;
   const unsigned side_blocks = (unsigned)(((n_pairs + ppb - 1) / ppb) * chunks);
   const int staged = ppb * S;
-  const size_t q_smem = (2 * (size_t)staged * ROW + staged) * sizeof(float);
-  const size_t k_smem = (2 * (size_t)staged * ROW + 3 * (size_t)staged) * sizeof(float);
-  auto query_fn = query_side_kernel;
+  const size_t q_smem = (2 * (size_t)staged * F32_ROW<D> + staged) * sizeof(float);
+  const size_t k_smem = (2 * (size_t)staged * F32_ROW<D> + 3 * (size_t)staged) * sizeof(float);
+  auto query_fn = query_side_kernel<D>;
   err = cudaFuncSetAttribute(query_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
   if (err != cudaSuccess) return err;
   query_fn<<<side_blocks, THREADS, q_smem, stream>>>(w, mk, S, H, n_pairs, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto key_fn = key_side_kernel<T>;
+  auto key_fn = key_side_kernel<T, D>;
   err = cudaFuncSetAttribute(key_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)k_smem);
   if (err != cudaSuccess) return err;
   key_fn<<<side_blocks, THREADS, k_smem, stream>>>(w, mk, dq, S, H, n_pairs, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  ln_rope_bwd_kernel<T><<<(unsigned)n_blocks, THREADS, 0, stream>>>(
+  ln_rope_bwd_kernel<T, D><<<(unsigned)n_blocks, THREADS, 0, stream>>>(
       qkv_t, qs, ks, ct, st, w, dq, static_cast<float*>(dqs_part),
       static_cast<float*>(dks_part), S, H, rows);
   return cudaGetLastError();
@@ -515,6 +542,7 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
 
 }  // namespace
 
+// head_dim D: 16, 32 or 64; any other is refused.
 // dtype: 0 = float32, 1 = bfloat16 (qkv, g, dqkv). mask: (B, S) uint8 key mask, or null.
 // dqs_part, dks_part: (n_blocks, D) f32 partials of the scale gradients.
 // f32: n_blocks = ceil(B * H * S / 64), work = f32 scratch of 6 * B * H * S * D +
@@ -526,21 +554,21 @@ extern "C" int vvt_fused_attention_bwd(const void* qkv, const void* q_scale, con
                                        const void* g, void* dqkv, void* dqs_part, void* dks_part,
                                        void* work, int B, int S, int H, int head_dim, int n_blocks,
                                        int dtype, int variant, int unit, int warps, void* stream) {
-  if (head_dim != D || S < 1 || S > MAX_S || B < 1 || H < 1 || n_blocks < 1)
+  if (S < 1 || S > MAX_S || B < 1 || H < 1 || n_blocks < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv, dqs_part,
-                              dks_part, work, B, S, H, n_blocks, st);
-  if (dtype == 1) {
-    const fa_mma::bwd::Args a{static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(q_scale),
-                              static_cast<const float*>(k_scale), static_cast<const float*>(cos_t),
-                              static_cast<const float*>(sin_t), static_cast<const unsigned char*>(mask),
-                              static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dqkv),
-                              static_cast<float*>(dqs_part), static_cast<float*>(dks_part), B, S, H, unit};
-    return (int)fa_mma::bwd::launch_attention_bwd_mma(a, variant, warps, n_blocks, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const fa_mma::bwd::Args a{static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(q_scale),
+                            static_cast<const float*>(k_scale), static_cast<const float*>(cos_t),
+                            static_cast<const float*>(sin_t), static_cast<const unsigned char*>(mask),
+                            static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dqkv),
+                            static_cast<float*>(dqs_part), static_cast<float*>(dks_part), B, S, H, unit};
+  return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv, dqs_part, dks_part, work, B, S,
+                              H, n_blocks, st);
+    return fa_mma::bwd::launch_attention_bwd_mma<D>(a, variant, warps, n_blocks, st);
+  });
 }
 
 extern "C" const char* vvt_error_string(int code) {

@@ -7,8 +7,9 @@
 // query side, the slab's key side, the epilogue of dv; namespace bwd) are in
 // fused_attention_mma_common.cuh.
 //
-// Shared-memory layout. Rows of 64 bf16 sit in 72-element rows (144 bytes) as
-// in the forward, staged in 16-row units, a row past the sequence zero-filled.
+// Shared-memory layout. Rows of D bf16 sit in D + 8-element rows (144 bytes at
+// D = 64) as in the forward, staged in 16-row units, a row past the sequence
+// zero-filled.
 //   slab (S <= 64): per (sequence, head) pair of the block: q~ | k~ | v | dO
 //                   [row], then P and dS as bf16 [query][key] (rows of
 //                   rows16(S) + 8 elements, an odd count of 16-byte units, so
@@ -27,12 +28,13 @@ namespace fa_mma {
 namespace bwd {
 
 // Shared memory of one block (unit: pairs of a slab block).
+template <int D>
 __host__ __forceinline__ size_t bwd_smem_bytes(int variant, int S, int unit, int warps) {
   const size_t words = 8 * (size_t)key_words(S);
   // each warp's (2, D) dscale partials and 8 staging rows
-  const size_t red = (size_t)warps * (2 * D + 8 * STAGE_ROW) * sizeof(float);
-  if (variant == SLAB) return (size_t)unit * (2 * slab_pair_elems(S) + words) + red;
-  return 4 * (size_t)rows16(S) * ROW_BYTES + 3 * (size_t)rows16(S) * sizeof(float) + words + red;
+  const size_t red = (size_t)warps * (2 * D + 8 * STAGE_ROW<D>) * sizeof(float);
+  if (variant == SLAB) return (size_t)unit * (2 * slab_pair_elems<D>(S) + words) + red;
+  return 4 * (size_t)rows16(S) * ROW_BYTES<D> + 3 * (size_t)rows16(S) * sizeof(float) + words + red;
 }
 
 struct Args {
@@ -53,16 +55,17 @@ struct Args {
 // For each 16 queries: s^T = k~ q~^T and dP^T = v dO^T, P^T from the query rows'
 // (m, 1/l, row) that the query side left in shared memory, dS^T; then
 // dv += P^T . dO and dk~ += dS^T . q~, P^T and dS^T rounded to bf16.
+template <int D>
 __device__ __forceinline__ void key_side_tile(const bf16* q_s, const bf16* k_s, const bf16* v_s, const bf16* do_s,
                                               const float* m_s, const float* il_s, const float* row_s,
-                                              const unsigned long long* keep, int k0, int S, float (&dv)[8][4],
-                                              float (&dk)[8][4]) {
+                                              const unsigned long long* keep, int k0, int S, float (&dv)[D / 8][4],
+                                              float (&dk)[D / 8][4]) {
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
-  uint32_t kf[4][4], vf[4][4];
-  load_rows(kf, k_s + (size_t)k0 * ROW);
-  load_rows(vf, v_s + (size_t)k0 * ROW);
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_rows<D>(kf, k_s + (size_t)k0 * ROW<D>);
+  load_rows<D>(vf, v_s + (size_t)k0 * ROW<D>);
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn)
+  for (int dn = 0; dn < D / 8; ++dn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dv[dn][e] = dk[dn][e] = 0.f;
   bool masked[2];
@@ -73,8 +76,8 @@ __device__ __forceinline__ void key_side_tile(const bf16* q_s, const bf16* k_s, 
   }
   for (int q0 = 0; q0 < S; q0 += 16) {
     float st[2][4], dt[2][4];
-    row_dots<1>(st, kf, q_s, q0, 1);
-    row_dots<1>(dt, vf, do_s, q0, 1);
+    row_dots<D, 1>(st, kf, q_s, q0, 1);
+    row_dots<D, 1>(dt, vf, do_s, q0, 1);
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -84,48 +87,52 @@ __device__ __forceinline__ void key_side_tile(const bf16* q_s, const bf16* k_s, 
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int e = 2 * r + e1;
-          const float p = i < S ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * C) * il : 0.f;
+          const float p = i < S ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * C<D>) * il : 0.f;
           st[nt][e] = p;
-          dt[nt][e] = p * (dt[nt][e] - row) * SM_SCALE;
+          dt[nt][e] = p * (dt[nt][e] - row) * SM_SCALE<D>;
         }
       }
     uint32_t ap[4], ad[4];
     pack_a(ap, st, 0);
     pack_a(ad, dt, 0);
-    mma_rows(dv, ap, do_s + (size_t)q0 * ROW);
-    mma_rows(dk, ad, q_s + (size_t)q0 * ROW);
+    mma_rows<D>(dv, ap, do_s + (size_t)q0 * ROW<D>);
+    mma_rows<D>(dk, ad, q_s + (size_t)q0 * ROW<D>);
   }
 }
 
-__device__ __forceinline__ float half_sum(float x) {  // over the 16 lanes of a half-warp
+template <int D>
+__device__ __forceinline__ float row_sum(float x) {  // over the ROW_LANES lanes of a row
 #pragma unroll
-  for (int off = 1; off < 16; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  for (int off = 1; off < ROW_LANES<D>; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
 // Back through RoPE, the scale and the LN for the 16 rows row0 + .. of one
-// pair, from du = dq~ or dk~ (16 x 64 f32 accumulators): dln = RoPE^T(du),
+// pair, from du = dq~ or dk~ (16 x D f32 accumulators): dln = RoPE^T(du),
 // dx = r (dln s - mean(dln s) - xn mean(dln s xn)), rounded to bf16 at dst (row i
 // at dst + i * stride). xn and r come from the raw row re-read at src. The rows'
 // sum of dln xn (the scale's gradient) is added to red (D floats, this warp's).
 // The accumulators pass through the warp's staging rows, 8 rows at a time, and
-// a half-warp takes a row (stage_half): a lane holds dims d and d + 32, so
+// ROW_LANES lanes take a row (stage_half): a lane holds dims d and d + D/2, so
 // RoPE's transpose needs no shuffle, and every global access of a row is one
-// contiguous piece; the row's sums take four __shfl_xor over its half-warp.
-__device__ __forceinline__ void ln_rope_bwd(const float (&du)[8][4], float* stage, const bf16* __restrict__ src,
+// contiguous piece; the row's sums take __shfl_xor over its lanes.
+template <int D>
+__device__ __forceinline__ void ln_rope_bwd(const float (&du)[D / 8][4], float* stage, const bf16* __restrict__ src,
                                             bf16* __restrict__ dst, size_t stride, int row0, int S,
                                             const float* __restrict__ scale, const float* __restrict__ cos_t,
                                             const float* __restrict__ sin_t, float* red) {
-  const int lane = threadIdx.x & 31, d0 = 2 * (lane & 15);
+  constexpr int LR = ROW_LANES<D>, RPI = 32 / LR;  // lanes a row, rows at a time
+  constexpr int STAGE_ROW = bwd::STAGE_ROW<D>;
+  const int lane = threadIdx.x & 31, d0 = 2 * (lane % LR);
   const float2 sc_lo = __ldg(reinterpret_cast<const float2*>(scale + d0));
   const float2 sc_hi = __ldg(reinterpret_cast<const float2*>(scale + d0 + D / 2));
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // sum over the lane's rows of dln xn at d0, d0 + 1, d0 + 32, d0 + 33
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // sum over the lane's rows of dln xn at d0, d0 + 1, d0 + D/2, + 1
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    stage_half(du, stage, r);
+    stage_half<D>(du, stage, r);
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int rl = 2 * it + (lane >> 4), i = row0 + 8 * r + rl;
+    for (int it = 0; it < 8 / RPI; ++it) {
+      const int rl = RPI * it + lane / LR, i = row0 + 8 * r + rl;
       const bool live = i < S;
       const int at = live ? i : 0;
       const float2 u_lo = *reinterpret_cast<const float2*>(stage + rl * STAGE_ROW + d0);
@@ -135,8 +142,8 @@ __device__ __forceinline__ void ln_rope_bwd(const float (&du)[8][4], float* stag
                                : make_float2(0.f, 0.f);
       const float2 x_hi = live ? __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(row + d0 + D / 2)))
                                : make_float2(0.f, 0.f);
-      const float mean = half_sum(x_lo.x + x_lo.y + x_hi.x + x_hi.y) * (1.f / D);
-      const float sq = half_sum(x_lo.x * x_lo.x + x_lo.y * x_lo.y + x_hi.x * x_hi.x + x_hi.y * x_hi.y);
+      const float mean = row_sum<D>(x_lo.x + x_lo.y + x_hi.x + x_hi.y) * (1.f / D);
+      const float sq = row_sum<D>(x_lo.x * x_lo.x + x_lo.y * x_lo.y + x_hi.x * x_hi.x + x_hi.y * x_hi.y);
       const float rstd = rsqrtf(fmaxf(sq * (1.f / D) - mean * mean, 0.f) + LN_EPS);
       const float* c = cos_t + (size_t)at * D;
       const float* sn = sin_t + (size_t)at * D;
@@ -158,8 +165,8 @@ __device__ __forceinline__ void ln_rope_bwd(const float (&du)[8][4], float* stag
         m1 += dxn[k];
         m2 += dxn[k] * xn[k];
       }
-      m1 = half_sum(m1) * (1.f / D);
-      m2 = half_sum(m2) * (1.f / D);
+      m1 = row_sum<D>(m1) * (1.f / D);
+      m2 = row_sum<D>(m2) * (1.f / D);
       if (live) {
         bf16* out = dst + (size_t)i * stride;
         *reinterpret_cast<uint32_t*>(out + d0) =
@@ -169,10 +176,13 @@ __device__ __forceinline__ void ln_rope_bwd(const float (&du)[8][4], float* stag
       }
     }
   }
-  // the warp's sum over its rows, in a fixed order: the two half-warps, then into red
+  // the warp's sum over its rows, in a fixed order: the lanes of the rows taken
+  // at a time (the two half-warps at D = 64), then into red
 #pragma unroll
-  for (int k = 0; k < 4; ++k) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], 16);
-  if (lane < 16) {
+  for (int off = LR; off < 32; off <<= 1)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+  if (lane < LR) {
     red[d0] += acc[0], red[d0 + 1] += acc[1];
     red[d0 + D / 2] += acc[2], red[d0 + D / 2 + 1] += acc[3];
   }
@@ -184,17 +194,18 @@ __device__ __forceinline__ void ln_rope_bwd(const float (&du)[8][4], float* stag
 // the warps in turn; a barrier; the key side of every 16-row key tile, dealt
 // the same way. tests/test_torch_attention_bwd_plan.py walks the same items on
 // the CPU.
-template <int KT, bool TILE, int MAX_WARPS_, int MIN_BLOCKS_>
+template <int D, int KT, bool TILE, int MAX_WARPS_, int MIN_BLOCKS_>
 __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_kernel(Args a) {
   extern __shared__ float4 smem4[];
   bf16* smem = reinterpret_cast<bf16*>(smem4);
+  constexpr int ROW = fa_mma::ROW<D>, P = PIECES<D>, LANES = LN_LANES<D>, STAGE_ROW = bwd::STAGE_ROW<D>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
   const int S = a.S, H = a.H, s16 = rows16(S), words = key_words(S), tiles = s16 / 16;
   const size_t token = 3 * (size_t)H * D, HD = (size_t)H * D;
   const long long pairs = (long long)a.B * H;
   const int unit = TILE ? 1 : a.unit;
   const long long p0 = (long long)blockIdx.x * unit;
-  const size_t pair_elems = TILE ? 4 * (size_t)s16 * ROW : slab_pair_elems(S);
+  const size_t pair_elems = TILE ? 4 * (size_t)s16 * ROW : slab_pair_elems<D>(S);
   const int pstride = ps_row(S);
   // part 0 q~, 1 k~, 2 v, 3 dO of the block's pair pl; a slab pair's P, then dS, begin at part 4
   auto rows_of = [&](int pl, int part) {
@@ -209,8 +220,8 @@ __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_ke
   // copy consecutive 16-byte pieces of one position's rows: the pairs of a
   // block are consecutive heads of a sequence, adjacent in memory.
   for (int group = 0; group < 2; ++group) {
-    for (int e = threadIdx.x; e < 2 * s16 * unit * 8; e += blockDim.x) {
-      const int piece = e & 7, pl = (e >> 3) % unit, ri = (e >> 3) / unit;
+    for (int e = threadIdx.x; e < 2 * s16 * unit * P; e += blockDim.x) {
+      const int piece = e % P, pl = (e / P) % unit, ri = (e / P) / unit;
       const int i = ri % s16, part = 2 * group + ri / s16;
       const long long p = p0 + pl;
       const bool inside = p < pairs && i < S;
@@ -232,14 +243,14 @@ __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_ke
   __syncthreads();
   {  // LN + RoPE of the q and k rows of each (pair, position), four lanes each, pairs fastest
     float qsc[16], ksc[16];
-    load_lane_scale(qsc, a.q_scale);
-    load_lane_scale(ksc, a.k_scale);
-    const int tasks = unit * S, per_warp = 32 / LN_LANES;
+    load_lane_scale<D>(qsc, a.q_scale);
+    load_lane_scale<D>(ksc, a.k_scale);
+    const int tasks = unit * S, per_warp = 32 / LANES;
     for (int base = per_warp * warp; base < tasks; base += per_warp * warps) {
-      const int tk = min(base + lane / LN_LANES, tasks - 1);
+      const int tk = min(base + lane / LANES, tasks - 1);
       const int pl = tk % unit, i = tk / unit;
-      const bool live = base + lane / LN_LANES < tasks && p0 + pl < pairs;
-      norm_rope_pair(rows_of(pl, 0) + (size_t)i * ROW, live, qsc, rows_of(pl, 1) + (size_t)i * ROW, live, ksc,
+      const bool live = base + lane / LANES < tasks && p0 + pl < pairs;
+      norm_rope_pair<D>(rows_of(pl, 0) + (size_t)i * ROW, live, qsc, rows_of(pl, 1) + (size_t)i * ROW, live, ksc,
                      a.cos_t + (size_t)i * D, a.sin_t + (size_t)i * D);
     }
   }
@@ -252,8 +263,8 @@ __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_ke
     const long long p = p0 + pl;
     if (p >= pairs) continue;  // uniform per warp
     bf16* p_rows = TILE ? nullptr : rows_of(pl, 4) + (size_t)16 * mt * pstride;
-    float dq[8][4], st[2][3];
-    query_side<KT, TILE>(rows_of(pl, 0) + (size_t)16 * mt * ROW, rows_of(pl, 3) + (size_t)16 * mt * ROW,
+    float dq[D / 8][4], st[2][3];
+    query_side<D, KT, TILE>(rows_of(pl, 0) + (size_t)16 * mt * ROW, rows_of(pl, 3) + (size_t)16 * mt * ROW,
                          rows_of(pl, 1), rows_of(pl, 2), keep + pl * words, S, dq, st, p_rows,
                          TILE ? nullptr : p_rows + (size_t)s16 * pstride, pstride);
     if (TILE && (lane & 3) == 0) {
@@ -264,7 +275,7 @@ __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_ke
       }
     }
     const size_t base = (size_t)(p / H) * S * token + (size_t)(p % H) * D;
-    ln_rope_bwd(dq, stage, a.qkv + base, a.dqkv + base, token, 16 * mt, S, a.q_scale, a.cos_t, a.sin_t,
+    ln_rope_bwd<D>(dq, stage, a.qkv + base, a.dqkv + base, token, 16 * mt, S, a.q_scale, a.cos_t, a.sin_t,
                 red + warp * 2 * D);
   }
   __syncthreads();
@@ -272,16 +283,16 @@ __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_ke
     const int pl = it / tiles, kt = it % tiles;
     const long long p = p0 + pl;
     if (p >= pairs) continue;
-    float dv[8][4], dk[8][4];
+    float dv[D / 8][4], dk[D / 8][4];
     if (TILE)
-      key_side_tile(rows_of(0, 0), rows_of(0, 1), rows_of(0, 2), rows_of(0, 3), stats, stats + s16, stats + 2 * s16,
+      key_side_tile<D>(rows_of(0, 0), rows_of(0, 1), rows_of(0, 2), rows_of(0, 3), stats, stats + s16, stats + 2 * s16,
                     keep, 16 * kt, S, dv, dk);
     else
-      key_side_slab(rows_of(pl, 4), rows_of(pl, 4) + (size_t)s16 * pstride, pstride, rows_of(pl, 0), rows_of(pl, 3),
+      key_side_slab<D>(rows_of(pl, 4), rows_of(pl, 4) + (size_t)s16 * pstride, pstride, rows_of(pl, 0), rows_of(pl, 3),
                     16 * kt, S, dv, dk);
     const size_t base = (size_t)(p / H) * S * token + (size_t)(p % H) * D;
-    store_rows(dv, stage, a.dqkv + base + 2 * HD, token, 16 * kt, S);
-    ln_rope_bwd(dk, stage, a.qkv + base + HD, a.dqkv + base + HD, token, 16 * kt, S, a.k_scale, a.cos_t, a.sin_t,
+    store_rows<D>(dv, stage, a.dqkv + base + 2 * HD, token, 16 * kt, S);
+    ln_rope_bwd<D>(dk, stage, a.qkv + base + HD, a.dqkv + base + HD, token, 16 * kt, S, a.k_scale, a.cos_t, a.sin_t,
                 red + warp * 2 * D + D);
   }
   __syncthreads();
@@ -294,9 +305,9 @@ __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_ke
   }
 }
 
-template <int KT, bool TILE>
+template <int D, int KT, bool TILE>
 cudaError_t launch_bwd(const Args& a, int warps, int smem, unsigned blocks, cudaStream_t stream) {
-  auto kernel = attention_bwd_kernel<KT, TILE, TILE ? TILE_WARPS : SLAB_WARPS, TILE ? 1 : SLAB_MIN_BLOCKS>;
+  auto kernel = attention_bwd_kernel<D, KT, TILE, TILE ? TILE_WARPS : SLAB_WARPS, TILE ? 1 : SLAB_MIN_BLOCKS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, 32 * warps, smem, stream>>>(a);
@@ -306,7 +317,8 @@ cudaError_t launch_bwd(const Args& a, int warps, int smem, unsigned blocks, cuda
 // Checks the plan (ops/flash_attention.py:fused_attention_bwd_plan: the variant,
 // the pairs a slab block and the warps a block) and the partials' row count
 // against the shape, and launches.
-inline cudaError_t launch_attention_bwd_mma(const Args& a, int variant, int warps, int n_blocks,
+template <int D>
+cudaError_t launch_attention_bwd_mma(const Args& a, int variant, int warps, int n_blocks,
                                             cudaStream_t stream) {
   const long long pairs = (long long)a.B * a.H;
   long long blocks;
@@ -319,17 +331,17 @@ inline cudaError_t launch_attention_bwd_mma(const Args& a, int variant, int warp
   } else {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = bwd_smem_bytes(variant, a.S, a.unit, warps);
+  const size_t smem = bwd_smem_bytes<D>(variant, a.S, a.unit, warps);
   if (blocks != n_blocks || blocks > 0x7fffffffLL || smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   const unsigned grid = (unsigned)blocks;
-  if (variant == TILE) return launch_bwd<TILE_KT, true>(a, warps, (int)smem, grid, stream);
+  if (variant == TILE) return launch_bwd<D, TILE_KT, true>(a, warps, (int)smem, grid, stream);
   switch (chunk_steps(a.S)) {  // one chunk holds every key
     case 1:
-      return launch_bwd<1, false>(a, warps, (int)smem, grid, stream);
+      return launch_bwd<D, 1, false>(a, warps, (int)smem, grid, stream);
     case 2:
-      return launch_bwd<2, false>(a, warps, (int)smem, grid, stream);
+      return launch_bwd<D, 2, false>(a, warps, (int)smem, grid, stream);
     default:
-      return launch_bwd<4, false>(a, warps, (int)smem, grid, stream);
+      return launch_bwd<D, 4, false>(a, warps, (int)smem, grid, stream);
   }
 }
 

@@ -4,8 +4,8 @@
 // attention_sublayer.cu for f32 x (the same attention between the sublayer's
 // two projections). One thread owns one query row, f32 throughout;
 // the kernel design notes are in fused_attention.cu.
-// launch_fused_attention<T>() enqueues the kernel on a stream and returns the
-// launch's cudaError_t.
+// launch_fused_attention<T, D>() enqueues the kernel for head dim D on a stream
+// and returns the launch's cudaError_t.
 
 #pragma once
 
@@ -15,9 +15,8 @@
 
 namespace {
 
-constexpr int D = 64;          // head dim the kernel is written for
-constexpr int HALF = D / 2;
-constexpr int ROW = D + 4;     // smem row stride: 16-byte rows, conflict-free float4 by row
+// smem row stride of a D-wide f32 row: 16-byte rows, conflict-free float4 by row
+template <int D> constexpr int CORE_ROW = D + 4;
 constexpr int MAX_ROWS = 256;  // query rows (= threads) per block
 constexpr int CHUNK = 16;      // keys per online-softmax step
 constexpr float NEG_INF = -1e30f;  // the JAX kernels' masked score
@@ -33,6 +32,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 
 // LayerNorm (no bias) then rotate-half RoPE of one D-row held in registers.
+template <int D>
 __device__ __forceinline__ void norm_rope(float (&x)[D], const float* __restrict__ scale,
                                           const float* __restrict__ cos_row,
                                           const float* __restrict__ sin_row) {
@@ -48,13 +48,14 @@ __device__ __forceinline__ void norm_rope(float (&x)[D], const float* __restrict
 #pragma unroll
   for (int d = 0; d < D; ++d) x[d] = (x[d] - mean) * r * scale[d];
 #pragma unroll
-  for (int d = 0; d < HALF; ++d) {
-    const float a = x[d], b = x[d + HALF];
+  for (int d = 0; d < D / 2; ++d) {
+    const float a = x[d], b = x[d + D / 2];
     x[d] = a * cos_row[d] - b * sin_row[d];
-    x[d + HALF] = b * cos_row[d + HALF] + a * sin_row[d + HALF];
+    x[d + D / 2] = b * cos_row[d + D / 2] + a * sin_row[d + D / 2];
   }
 }
 
+template <int D>
 __device__ __forceinline__ void load_row(float (&x)[D], const float* src) {
   const float4* s4 = reinterpret_cast<const float4*>(src);
 #pragma unroll
@@ -68,7 +69,7 @@ __device__ __forceinline__ void load_row(float (&x)[D], const float* src) {
 }
 
 // Stage one of q (part 0), k (1) or v (2) of every row of the block as f32.
-template <typename T>
+template <int D, typename T>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ qkv, int part, int pair0,
                                       int rows, int S, int H, int n_pairs) {
   const int HD = H * D;
@@ -80,11 +81,11 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ qkv, int
       const int b = pair / H, h = pair % H, i = r % S;
       v = to_float(qkv[((size_t)b * S + i) * 3 * HD + part * HD + h * D + d]);
     }
-    dst[r * ROW + d] = v;
+    dst[r * CORE_ROW<D> + d] = v;
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(MAX_ROWS)
 fused_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
                            const float* __restrict__ k_scale, const float* __restrict__ cos_t,
@@ -93,6 +94,7 @@ fused_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ 
                            float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int ROW = CORE_ROW<D>;
   const int rows = pairs_per_block * S;  // row r: local pair r / S, position r % S
   float* buf_a = smem;                   // q, then v
   float* buf_b = smem + rows * ROW;      // k
@@ -103,8 +105,8 @@ fused_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ 
   const bool active = r < rows && pair0 + r / S < n_pairs;
   const int i = r % S;
 
-  stage(buf_a, qkv, 0, pair0, rows, S, H, n_pairs);
-  stage(buf_b, qkv, 1, pair0, rows, S, H, n_pairs);
+  stage<D>(buf_a, qkv, 0, pair0, rows, S, H, n_pairs);
+  stage<D>(buf_b, qkv, 1, pair0, rows, S, H, n_pairs);
   for (int rr = threadIdx.x; rr < rows; rr += blockDim.x) {
     const int pair = pair0 + rr / S;
     float kp = 1.f;
@@ -126,7 +128,7 @@ fused_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ 
     norm_rope(q, q_scale, cos_t + (size_t)i * D, sin_t + (size_t)i * D);
   }
   __syncthreads();  // q is in registers: buf_a takes v
-  stage(buf_a, qkv, 2, pair0, rows, S, H, n_pairs);
+  stage<D>(buf_a, qkv, 2, pair0, rows, S, H, n_pairs);
   __syncthreads();
   if (!active) return;
 
@@ -196,15 +198,15 @@ fused_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ 
   for (int d = 0; d < D; ++d) o[d] = from_float<T>(acc[d] * inv);
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch_fused_attention(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                    const void* sin_t, const void* mask, void* out, int B, int S, int H,
                    cudaStream_t stream) {
   const int pairs_per_block = MAX_ROWS / S;
   const int rows = pairs_per_block * S;
   const int threads = (rows + 31) / 32 * 32;
-  const size_t smem = (2 * (size_t)rows * ROW + rows) * sizeof(float);
-  auto kernel = fused_attention_fwd_kernel<T>;
+  const size_t smem = (2 * (size_t)rows * CORE_ROW<D> + rows) * sizeof(float);
+  auto kernel = fused_attention_fwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;

@@ -4,9 +4,10 @@
 // and returns the launch's cudaError_t. The helpers it shares with the backward
 // are in fused_attention_mma_common.cuh.
 //
-// Shared-memory layout. Every q, k and v head row (64 bf16) sits in a 72-element
-// row (144 bytes, fused_attention_mma_common.cuh). Rows are staged in 16-row units; a row past the sequence is
-// zero-filled, so a padding key's v row adds exactly 0 to P.V.
+// Shared-memory layout. Every q, k and v head row (D bf16) sits in a D + 8-element
+// row (144 bytes at D = 64, fused_attention_mma_common.cuh). Rows are staged in
+// 16-row units; a row past the sequence is zero-filled, so a padding key's v row
+// adds exactly 0 to P.V.
 //   slab (S <= 64): per sequence of the block, q | k | v, each [head][row], then
 //                   the key bits of every sequence;
 //   tile (S > 64):  k [row] | v [row] | q [row] of one (sequence, head) pair, then
@@ -24,17 +25,18 @@ constexpr int SLAB_WARPS = 8;  // warps of a slab block at most
 constexpr int SLAB_MAX_SEQ = 64;
 
 // Shared memory of one block (unit: sequences of a slab block).
+template <int D>
 __host__ __forceinline__ size_t smem_bytes(int variant, int S, int H, int unit) {
   const size_t words = 8 * (size_t)key_words(S);
-  if (variant == SLAB) return (size_t)unit * (3 * (size_t)H * rows16(S) * ROW_BYTES + words);
-  return 3 * (size_t)rows16(S) * ROW_BYTES + words;
+  if (variant == SLAB) return (size_t)unit * (3 * (size_t)H * rows16(S) * ROW_BYTES<D> + words);
+  return 3 * (size_t)rows16(S) * ROW_BYTES<D> + words;
 }
 
 // The masked scores q.k of one 16-row query tile against one chunk of keys: a
 // masked key NEG_INF, a padding key (j >= S) -inf, so that it adds exactly 0
 // whatever the row holds. The softmax scale is applied in the exponent.
-template <int KT>
-__device__ __forceinline__ void chunk_scores(float (&s)[2 * KT][4], const uint32_t (&qf)[4][4],
+template <int D, int KT>
+__device__ __forceinline__ void chunk_scores(float (&s)[2 * KT][4], const uint32_t (&qf)[D / 16][4],
                                              const bf16* k_s, int c0, int steps, int S,
                                              unsigned long long keep) {
   const int lane = threadIdx.x & 31;
@@ -45,15 +47,7 @@ __device__ __forceinline__ void chunk_scores(float (&s)[2 * KT][4], const uint32
 #pragma unroll
   for (int nt = 0; nt < 2 * KT; ++nt) {
     s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    if (nt / 2 < steps) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {  // d in [32 hf, 32 hf + 32): two 16-deep k-steps
-        uint32_t kb[4];
-        ldsm_x4(kb, k_s + (c0 + 8 * nt + (lane & 7)) * ROW + 32 * hf + 8 * (lane >> 3));
-        mma(s[nt], qf[2 * hf], kb[0], kb[1]);
-        mma(s[nt], qf[2 * hf + 1], kb[2], kb[3]);
-      }
-    }
+    if (nt / 2 < steps) dot_rows8<D>(s[nt], qf, k_s + (c0 + 8 * nt) * ROW<D>);
     if (!whole) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -69,20 +63,21 @@ __device__ __forceinline__ void chunk_scores(float (&s)[2 * KT][4], const uint32
 // shared memory, row0 their first position) against the S keys of k_s and v_s,
 // rounded to bf16 into out (row i at out + i * H * D). The output passes through
 // q_rows, which the warp owns and no longer needs once its fragments are loaded.
-template <int KT>
+template <int D, int KT>
 __device__ __forceinline__ void attend(bf16* q_rows, const bf16* k_s, const bf16* v_s,
                                        const unsigned long long* keep, int S, bool normalize,
                                        bf16* __restrict__ out, int row0, int H) {
   constexpr int CH = 16 * KT;  // keys per chunk
-  constexpr float C = 0.125f * LOG2E;  // 1/sqrt(D), in the exp2 domain
+  constexpr float C = fa_mma::C<D>;  // 1/sqrt(D), in the exp2 domain
+  constexpr int ROW = fa_mma::ROW<D>;
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
-  uint32_t qf[4][4];
+  uint32_t qf[D / 16][4];
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) ldsm_x4(qf[ks], q_rows + (lane & 15) * ROW + 16 * ks + 8 * (lane >> 4));
+  for (int ks = 0; ks < D / 16; ++ks) ldsm_x4(qf[ks], q_rows + (lane & 15) * ROW + 16 * ks + 8 * (lane >> 4));
 
-  float o[8][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
   const int chunks = (S + CH - 1) / CH;
   // Normalise-then-round needs the row's max and sum before its first P.V: with
@@ -92,7 +87,7 @@ __device__ __forceinline__ void attend(bf16* q_rows, const bf16* k_s, const bf16
   if (two_pass) {
     for (int c = 0; c < chunks; ++c) {
       const int c0 = c * CH;
-      chunk_scores<KT>(s, qf, k_s, c0, min(KT, (S - c0 + 15) / 16), S, keep[c0 >> 6]);
+      chunk_scores<D, KT>(s, qf, k_s, c0, min(KT, (S - c0 + 15) / 16), S, keep[c0 >> 6]);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float mx = -INFINITY;
@@ -114,7 +109,7 @@ __device__ __forceinline__ void attend(bf16* q_rows, const bf16* k_s, const bf16
   for (int c = 0; c < chunks; ++c) {
     const int c0 = c * CH;
     const int steps = min(KT, (S - c0 + 15) / 16);
-    chunk_scores<KT>(s, qf, k_s, c0, steps, S, keep[c0 >> 6]);
+    chunk_scores<D, KT>(s, qf, k_s, c0, steps, S, keep[c0 >> 6]);
     if (!two_pass) {  // online max: rescale what the earlier chunks summed
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -126,7 +121,7 @@ __device__ __forceinline__ void attend(bf16* q_rows, const bf16* k_s, const bf16
         m[r] = m_new;
         l[r] *= corr;
 #pragma unroll
-        for (int dn = 0; dn < 8; ++dn) {
+        for (int dn = 0; dn < D / 8; ++dn) {
           o[dn][2 * r] *= corr;
           o[dn][2 * r + 1] *= corr;
         }
@@ -158,7 +153,7 @@ __device__ __forceinline__ void attend(bf16* q_rows, const bf16* k_s, const bf16
                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
         const bf16* vrow = v_s + (c0 + 16 * kk + (lane & 15)) * ROW + 8 * (lane >> 4);
 #pragma unroll
-        for (int dp = 0; dp < 4; ++dp) {
+        for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t vb[4];
           ldsm_x4_trans(vb, vrow + 16 * dp);
           mma(o[2 * dp], a, vb[0], vb[1]);
@@ -175,16 +170,17 @@ __device__ __forceinline__ void attend(bf16* q_rows, const bf16* k_s, const bf16
   }
   __syncwarp();
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn) {
+  for (int dn = 0; dn < D / 8; ++dn) {
     *reinterpret_cast<uint32_t*>(q_rows + g * ROW + 8 * dn + 2 * t) = pack_bf16(o[dn][0] * inv[0], o[dn][1] * inv[0]);
     *reinterpret_cast<uint32_t*>(q_rows + (g + 8) * ROW + 8 * dn + 2 * t) =
         pack_bf16(o[dn][2] * inv[1], o[dn][3] * inv[1]);
   }
   __syncwarp();
   const size_t stride = (size_t)H * D;
+  constexpr int P = PIECES<D>, RPI = 32 / P;  // 16-byte pieces of a row; rows at a time
 #pragma unroll
-  for (int it = 0; it < 4; ++it) {  // 16 rows x 128 bytes, 16 bytes a lane
-    const int r = 4 * it + (lane >> 3), piece = lane & 7;
+  for (int it = 0; it < 16 / RPI; ++it) {  // 16 rows x 2D bytes, 16 bytes a lane
+    const int r = RPI * it + lane / P, piece = lane % P;
     if (row0 + r < S)
       *reinterpret_cast<uint4*>(out + (row0 + r) * stride + 8 * piece) =
           *reinterpret_cast<const uint4*>(q_rows + r * ROW + 8 * piece);
@@ -194,7 +190,7 @@ __device__ __forceinline__ void attend(bf16* q_rows, const bf16* k_s, const bf16
 // grid: slab, one block per `unit` sequences; tile, one block per (sequence,
 // head) pair, a warp for each 16 of its query rows. tests/test_torch_attention_plan.py
 // walks the same items on the CPU.
-template <int KT>
+template <int D, int KT>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_scale,
                      const float* __restrict__ k_scale, const float* __restrict__ cos_t,
@@ -204,6 +200,7 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_s
   bf16* smem = reinterpret_cast<bf16*>(smem4);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
   const int s16 = rows16(S), words = key_words(S);
+  constexpr int ROW = fa_mma::ROW<D>, P = PIECES<D>, LANES = LN_LANES<D>;
   const size_t token = 3 * (size_t)H * D;  // elements of one qkv row
   const size_t part_stride = (size_t)H * D;
 
@@ -218,8 +215,8 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_s
     // same 16-byte piece of every token, so the warps read each token's row in order.
     for (int group = 0; group < 2; ++group) {
       const int first = group ? 2 * H : 0, rows = group ? H : 2 * H;  // head rows of a token
-      for (int p = threadIdx.x; p < 8 * rows; p += blockDim.x) {
-        const int piece = p & 7, part = (first + (p >> 3)) / H, h = (first + (p >> 3)) % H;
+      for (int p = threadIdx.x; p < P * rows; p += blockDim.x) {
+        const int piece = p % P, part = (first + p / P) / H, h = (first + p / P) % H;
         for (int sl = 0; sl < unit; ++sl)
           for (int i = 0; i < s16; ++i) {
             const long long b = seq0 + sl;
@@ -237,14 +234,14 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_s
     // LN + RoPE of the q and k rows of each (sequence, position, head), four
     // lanes each, heads fastest: a warp's eight tasks read the same cos/sin rows
     float qsc[16], ksc[16];
-    load_lane_scale(qsc, q_scale);
-    load_lane_scale(ksc, k_scale);
-    const int tasks = unit * S * H, per_warp = 32 / LN_LANES;
+    load_lane_scale<D>(qsc, q_scale);
+    load_lane_scale<D>(ksc, k_scale);
+    const int tasks = unit * S * H, per_warp = 32 / LANES;
     for (int base = per_warp * warp; base < tasks; base += per_warp * warps) {
-      const int t = min(base + lane / LN_LANES, tasks - 1);
+      const int t = min(base + lane / LANES, tasks - 1);
       const int h = t % H, i = (t / H) % S, sl = t / (H * S);
-      const bool live = base + lane / LN_LANES < tasks && seq0 + sl < B;
-      norm_rope_pair(row_of(sl, 0, h, i), live, qsc, row_of(sl, 1, h, i), live, ksc, cos_t + (size_t)i * D,
+      const bool live = base + lane / LANES < tasks && seq0 + sl < B;
+      norm_rope_pair<D>(row_of(sl, 0, h, i), live, qsc, row_of(sl, 1, h, i), live, ksc, cos_t + (size_t)i * D,
                      sin_t + (size_t)i * D);
     }
     cp_async_wait<0>();
@@ -254,7 +251,7 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_s
       const int mt = it % tiles, h = (it / tiles) % H, sl = it / (tiles * H);
       const long long b = seq0 + sl;
       if (b >= B) continue;
-      attend<KT>(row_of(sl, 0, h, 16 * mt), row_of(sl, 1, h, 0), row_of(sl, 2, h, 0), keep + sl * words, S,
+      attend<D, KT>(row_of(sl, 0, h, 16 * mt), row_of(sl, 1, h, 0), row_of(sl, 2, h, 0), keep + sl * words, S,
                  normalize, out + (size_t)b * S * part_stride + h * D, 16 * mt, H);
     }
     return;
@@ -268,9 +265,9 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_s
   bf16* q_s = v_s + (size_t)s16 * ROW;
   unsigned long long* keep = reinterpret_cast<unsigned long long*>(q_s + (size_t)s16 * ROW);
   const bf16* base = qkv + (size_t)b * S * token + h * D;
-  const int piece = threadIdx.x & 7, row_step = blockDim.x >> 3;
+  const int piece = threadIdx.x % P, row_step = blockDim.x / P;
   // group 0: the k rows, then the q rows; group 1: the v rows (P.V alone reads them)
-  for (int r = threadIdx.x >> 3; r < 2 * s16; r += row_step) {
+  for (int r = threadIdx.x / P; r < 2 * s16; r += row_step) {
     const bool is_k = r < s16;
     const int i = is_k ? r : r - s16;
     const bool inside = i < S;
@@ -278,7 +275,7 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_s
                inside ? base + (size_t)i * token + (is_k ? part_stride : 0) + 8 * piece : qkv, inside ? 16 : 0);
   }
   cp_async_commit();
-  for (int r = threadIdx.x >> 3; r < s16; r += row_step) {
+  for (int r = threadIdx.x / P; r < s16; r += row_step) {
     const bool inside = r < S;
     cp_async16(v_s + (size_t)r * ROW + 8 * piece, inside ? base + (size_t)r * token + 2 * part_stride + 8 * piece : qkv,
                inside ? 16 : 0);
@@ -287,30 +284,30 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_s
   stage_key_bits(keep, mask, b, S, warp, warps);
   cp_async_wait<1>();
   __syncthreads();
-  // LN + RoPE of k row i and q row i, four lanes each
+  // LN + RoPE of k row i and q row i, D / 16 lanes each
   float qsc[16], ksc[16];
-  load_lane_scale(qsc, q_scale);
-  load_lane_scale(ksc, k_scale);
-  const int per_warp = 32 / LN_LANES;
+  load_lane_scale<D>(qsc, q_scale);
+  load_lane_scale<D>(ksc, k_scale);
+  const int per_warp = 32 / LANES;
   for (int first = per_warp * warp; first < S; first += per_warp * warps) {
-    const int i = first + lane / LN_LANES;
+    const int i = first + lane / LANES;
     const bool live = i < S;
     const int at = live ? i : 0;
-    norm_rope_pair(k_s + (size_t)at * ROW, live, ksc, q_s + (size_t)at * ROW, live, qsc, cos_t + (size_t)at * D,
+    norm_rope_pair<D>(k_s + (size_t)at * ROW, live, ksc, q_s + (size_t)at * ROW, live, qsc, cos_t + (size_t)at * D,
                    sin_t + (size_t)at * D);
   }
   cp_async_wait<0>();
   __syncthreads();
   if (16 * warp < S)
-    attend<KT>(q_s + (size_t)16 * warp * ROW, k_s, v_s, keep, S, normalize, out + (size_t)b * S * part_stride + h * D,
+    attend<D, KT>(q_s + (size_t)16 * warp * ROW, k_s, v_s, keep, S, normalize, out + (size_t)b * S * part_stride + h * D,
                16 * warp, H);
 }
 
-template <int KT>
+template <int D, int KT>
 cudaError_t launch_kt(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                       const void* sin_t, const void* mask, void* out, int B, int S, int H, int variant,
                       int unit, int warps, bool normalize, int smem, unsigned blocks, cudaStream_t stream) {
-  auto kernel = attention_mma_kernel<KT>;
+  auto kernel = attention_mma_kernel<D, KT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, 32 * warps, smem, stream>>>(
@@ -322,7 +319,8 @@ cudaError_t launch_kt(const void* qkv, const void* q_scale, const void* k_scale,
 
 // Checks the plan (ops/flash_attention.py:fused_attention_plan: the variant, and
 // the sequences a slab block) against the shape, derives the rest and launches.
-inline cudaError_t launch_attention_mma(const void* qkv, const void* q_scale, const void* k_scale,
+template <int D>
+cudaError_t launch_attention_mma(const void* qkv, const void* q_scale, const void* k_scale,
                                         const void* cos_t, const void* sin_t, const void* mask, void* out,
                                         int B, int S, int H, int variant, int unit, cudaStream_t stream) {
   const long long tiles = rows16(S) / 16;  // 16-row query tiles of one head
@@ -338,20 +336,20 @@ inline cudaError_t launch_attention_mma(const void* qkv, const void* q_scale, co
   } else {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes(variant, S, H, unit);
+  const size_t smem = smem_bytes<D>(variant, S, H, unit);
   if (blocks > 0x7fffffffLL || smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   // P normalised before its rounding where the JAX package takes its packed
   // path (flash_attention.py:_packed_and_bb), else rounded unnormalised
   const bool normalize = S < 128 && (long long)S * H % 128 == 0;
   switch (chunk_steps(S)) {
     case 1:
-      return launch_kt<1>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
+      return launch_kt<D, 1>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
                           normalize, (int)smem, (unsigned)blocks, stream);
     case 2:
-      return launch_kt<2>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
+      return launch_kt<D, 2>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
                           normalize, (int)smem, (unsigned)blocks, stream);
     default:
-      return launch_kt<4>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
+      return launch_kt<D, 4>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
                           normalize, (int)smem, (unsigned)blocks, stream);
   }
 }

@@ -6,10 +6,13 @@
 // key bits of a key mask, and (namespace bwd) the softmax backward of a 16-row
 // tile that both backward kernels run.
 //
-// Rows of 64 bf16 sit in shared memory in 72-element rows (144 bytes): the 8
-// row addresses of an ldmatrix then fall on 8 distinct 16-byte bank groups, so
-// every ldmatrix is free of bank conflicts. Key bits: bit j % 64 of word j / 64
-// is 1 where key j is kept.
+// The head dim D is a template parameter of every kernel and of every helper
+// that depends on it; HEAD_DIMS lists the values the entry points instantiate
+// (with_head_dim). Rows of D bf16 sit in shared memory in D + 8-element rows
+// (144 bytes at D = 64; 48 and 80 at D = 16 and 32): the 8 row addresses of an
+// ldmatrix then fall on 8 distinct 16-byte bank groups (row strides of 12, 20
+// and 36 words), so every ldmatrix is free of bank conflicts. Key bits: bit
+// j % 64 of word j / 64 is 1 where key j is kept.
 
 #pragma once
 
@@ -19,19 +22,37 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 namespace fa_mma {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int D = 64;            // head dim the kernel is written for
-constexpr int ROW = D + 8;       // shared-memory row in bf16 (144 bytes)
-constexpr int ROW_BYTES = 2 * ROW;
+template <int D> constexpr int ROW = D + 8;  // shared-memory row in bf16
+template <int D> constexpr int ROW_BYTES = 2 * ROW<D>;
+template <int D> constexpr int PIECES = D / 8;  // 16-byte pieces of a head row
 constexpr int MAX_SMEM = 232448;  // what one block may ask for on the H100 (227 KB)
 constexpr int SLAB = 0, TILE = 1;  // the plan's variant codes
 constexpr float NEG_INF = -1e30f;  // the JAX kernels' masked score
 constexpr float LN_EPS = 1e-6f;
 constexpr float LOG2E = 1.4426950408889634f;
+// The softmax scale 1/sqrt(D), the f32 rounding of the exact value (the JAX
+// kernels' Python float 1 / d**0.5), and the same in the exp2 domain.
+template <int D>
+constexpr float SM_SCALE = D == 16 ? 1.f / 4 : D == 32 ? 0.17677669529663687f : D == 64 ? 1.f / 8 : 0.f;
+template <int D> constexpr float C = SM_SCALE<D> * LOG2E;
+
+// Calls f(std::integral_constant<int, D>{}) for the head dims the kernels are
+// instantiated for (ops/flash_attention.py:KERNEL_HEAD_DIMS); any other is refused.
+template <typename F>
+cudaError_t with_head_dim(int head_dim, F&& f) {
+  switch (head_dim) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 __host__ __device__ __forceinline__ int rows16(int S) { return (S + 15) / 16 * 16; }
 __host__ __device__ __forceinline__ int key_words(int S) { return (S + 63) / 64; }
@@ -56,6 +77,14 @@ __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_gr
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// two 8 x 8 matrices: lanes 0-7 give the rows of the first, lanes 8-15 of the second
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p))
                : "memory");
 }
@@ -92,14 +121,37 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// LN + RoPE lanes: four own a row. Lane c = lane & 3 holds elements 8c .. 8c + 7
-// and their rotate-half partners 32 + 8c .. 32 + 8c + 7, so the rotation needs
-// no shuffle; the row's sums come from __shfl_xor over the four.
-constexpr int LN_LANES = 4;
+// acc (16 x 8) += A . B^T over D: A the 16 x D fragments af (af[ks]: dims
+// 16 ks .. 16 ks + 15), B the 8 D-wide rows from b_row0 in shared memory, read
+// by ldmatrix (an x4 for each 32 dims; an x2 at D = 16).
+template <int D>
+__device__ __forceinline__ void dot_rows8(float (&acc)[4], const uint32_t (&af)[D / 16][4], const bf16* b_row0) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (D == 16) {
+    uint32_t b[2];
+    ldsm_x2(b, b_row0 + (lane & 7) * ROW<D> + 8 * ((lane >> 3) & 1));
+    mma(acc, af[0], b[0], b[1]);
+  } else {
+#pragma unroll
+    for (int hf = 0; hf < D / 32; ++hf) {  // d in [32 hf, 32 hf + 32): two 16-deep k-steps
+      uint32_t b[4];
+      ldsm_x4(b, b_row0 + (lane & 7) * ROW<D> + 32 * hf + 8 * (lane >> 3));
+      mma(acc, af[2 * hf], b[0], b[1]);
+      mma(acc, af[2 * hf + 1], b[2], b[3]);
+    }
+  }
+}
+
+// LN + RoPE lanes: D / 16 own a row (4 at D = 64, 1 at D = 16). Lane c of them
+// holds elements 8c .. 8c + 7 and their rotate-half partners D/2 + 8c .. D/2 +
+// 8c + 7, so the rotation needs no shuffle; the row's sums come from __shfl_xor
+// over the row's lanes.
+template <int D> constexpr int LN_LANES = D / 16;
 
 // The scales of the 16 elements a lane owns, in the order it holds them.
+template <int D>
 __device__ __forceinline__ void load_lane_scale(float (&dst)[16], const float* __restrict__ scale) {
-  const int c = threadIdx.x & 3;
+  const int c = threadIdx.x & (LN_LANES<D> - 1);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float4 a = __ldg(reinterpret_cast<const float4*>(scale + 8 * c) + h);
@@ -110,16 +162,17 @@ __device__ __forceinline__ void load_lane_scale(float (&dst)[16], const float* _
 }
 
 // LayerNorm (no bias; f32 statistics, E[x^2] - mean^2 clamped at 0) times the (D,)
-// scale, then rotate-half RoPE, of two 64-element bf16 rows in shared memory that
+// scale, then rotate-half RoPE, of two D-element bf16 rows in shared memory that
 // share a position (a q row and a k row), in place, rounded to bf16: one load of
 // the cos/sin rows serves both, and their two chains run side by side. Every
 // lane of the warp calls it (the shuffles take all 32); a row whose `live` is
 // false is neither read nor written.
+template <int D>
 __device__ __forceinline__ void norm_rope_pair(bf16* row0, bool live0, const float (&scale0)[16],
                                                bf16* row1, bool live1, const float (&scale1)[16],
                                                const float* __restrict__ cos_row,
                                                const float* __restrict__ sin_row) {
-  const int c = threadIdx.x & 3;
+  const int c = threadIdx.x & (LN_LANES<D> - 1);
   bf16* rows[2] = {row0, row1};
   const bool live[2] = {live0, live1};
   uint4 raw[2][2];
@@ -154,7 +207,7 @@ __device__ __forceinline__ void norm_rope_pair(bf16* row0, bool live0, const flo
     }
   }
 #pragma unroll
-  for (int off = 1; off < LN_LANES; off <<= 1)
+  for (int off = 1; off < LN_LANES<D>; off <<= 1)
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
@@ -172,7 +225,7 @@ __device__ __forceinline__ void norm_rope_pair(bf16* row0, bool live0, const flo
       for (int v = 0; v < 2; ++v) {
         const float sa = u ? scale1[e + v] : scale0[e + v], sb = u ? scale1[8 + e + v] : scale0[8 + e + v];
         const float a = (x[u][e + v] - mean) * r * sa;      // x1 (element 8c + e)
-        const float b = (x[u][8 + e + v] - mean) * r * sb;  // x2 (32 + 8c + e)
+        const float b = (x[u][8 + e + v] - mean) * r * sb;  // x2 (D/2 + 8c + e)
         ya[v] = a * cs[e + v] - b * sn[e + v];  // rotate_half: (-x2, x1)
         yb[v] = b * cs[8 + e + v] + a * sn[8 + e + v];
       }
@@ -211,51 +264,43 @@ constexpr int SLAB_WARPS = 4;        // warps of a slab block at most
 constexpr int TILE_WARPS = 16;       // warps of a tile block at most (S = 256)
 constexpr int SLAB_MIN_BLOCKS = 4;   // slab blocks an SM at least: 128 registers a thread
 constexpr int TILE_KT = 2;           // 16-key steps of a query-side chunk in a tile block
-constexpr int STAGE_ROW = D + 8;     // f32 staging row of the epilogue (no bank conflicts)
-constexpr float SM_SCALE = 0.125f;   // 1/sqrt(D)
-constexpr float C = SM_SCALE * LOG2E;  // 1/sqrt(D) in the exp2 domain
+template <int D> constexpr int STAGE_ROW = D + 8;  // f32 staging row of the epilogue (no bank conflicts)
 
 __host__ __device__ __forceinline__ int ps_row(int S) { return rows16(S) + 8; }
 
 // bf16 elements of one pair's rows in a slab block: q~, k~, v, dO, then P and dS
+template <int D>
 __host__ __device__ __forceinline__ size_t slab_pair_elems(int S) {
-  return 4 * (size_t)rows16(S) * ROW + 2 * (size_t)rows16(S) * ps_row(S);
+  return 4 * (size_t)rows16(S) * ROW<D> + 2 * (size_t)rows16(S) * ps_row(S);
 }
 
-// acc[nt] = A . B^T, A the 16 x 64 fragments af, B the rows c0 + 8 nt .. + 7 of
-// b_s (64 wide): the 16-row-by-8 tiles of a product over D, for nt / 2 < steps.
-template <int KT>
-__device__ __forceinline__ void row_dots(float (&acc)[2 * KT][4], const uint32_t (&af)[4][4], const bf16* b_s,
+// acc[nt] = A . B^T, A the 16 x D fragments af, B the rows c0 + 8 nt .. + 7 of
+// b_s (D wide): the 16-row-by-8 tiles of a product over D, for nt / 2 < steps.
+template <int D, int KT>
+__device__ __forceinline__ void row_dots(float (&acc)[2 * KT][4], const uint32_t (&af)[D / 16][4], const bf16* b_s,
                                          int c0, int steps) {
-  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int nt = 0; nt < 2 * KT; ++nt) {
     acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    if (nt / 2 < steps) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {  // d in [32 hf, 32 hf + 32): two 16-deep k-steps
-        uint32_t b[4];
-        ldsm_x4(b, b_s + (c0 + 8 * nt + (lane & 7)) * ROW + 32 * hf + 8 * (lane >> 3));
-        mma(acc[nt], af[2 * hf], b[0], b[1]);
-        mma(acc[nt], af[2 * hf + 1], b[2], b[3]);
-      }
-    }
+    if (nt / 2 < steps) dot_rows8<D>(acc[nt], af, b_s + (size_t)(c0 + 8 * nt) * ROW<D>);
   }
 }
 
-// The 16 x 64 A fragments of 16 rows of a 64-wide bf16 array in shared memory.
-__device__ __forceinline__ void load_rows(uint32_t (&f)[4][4], const bf16* rows) {
+// The 16 x D A fragments of 16 rows of a D-wide bf16 array in shared memory.
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t (&f)[D / 16][4], const bf16* rows) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) ldsm_x4(f[ks], rows + (lane & 15) * ROW + 16 * ks + 8 * (lane >> 4));
+  for (int ks = 0; ks < D / 16; ++ks) ldsm_x4(f[ks], rows + (lane & 15) * ROW<D> + 16 * ks + 8 * (lane >> 4));
 }
 
-// acc (16 x 64) += a (16 x 16) . the 16 rows of b_rows (64 wide), read through ldmatrix.trans.
-__device__ __forceinline__ void mma_rows(float (&acc)[8][4], const uint32_t (&a)[4], const bf16* b_rows) {
+// acc (16 x D) += a (16 x 16) . the 16 rows of b_rows (D wide), read through ldmatrix.trans.
+template <int D>
+__device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t (&a)[4], const bf16* b_rows) {
   const int lane = threadIdx.x & 31;
-  const bf16* row = b_rows + (lane & 15) * ROW + 8 * (lane >> 4);
+  const bf16* row = b_rows + (lane & 15) * ROW<D> + 8 * (lane >> 4);
 #pragma unroll
-  for (int dp = 0; dp < 4; ++dp) {
+  for (int dp = 0; dp < D / 16; ++dp) {
     uint32_t b[4];
     ldsm_x4_trans(b, row + 16 * dp);
     mma(acc[2 * dp], a, b[0], b[1]);
@@ -293,28 +338,28 @@ __device__ __forceinline__ void mask_scores(float (&s)[2 * KT][4], int c0, int S
 // their q and dO fragments): the scores s (masked) and dP of keys c0 .. c0 +
 // 16 KT, folded into this lane's running max m, sum l = sum_j exp(s - m) and
 // rs = sum_j exp(s - m) dP of rows g and g + 8. s and dP stay for the caller.
-template <int KT>
-__device__ __forceinline__ void online_chunk(float (&s)[2 * KT][4], float (&dp)[2 * KT][4], const uint32_t (&qf)[4][4],
-                                             const uint32_t (&df)[4][4], const bf16* k_s, const bf16* v_s,
+template <int D, int KT>
+__device__ __forceinline__ void online_chunk(float (&s)[2 * KT][4], float (&dp)[2 * KT][4], const uint32_t (&qf)[D / 16][4],
+                                             const uint32_t (&df)[D / 16][4], const bf16* k_s, const bf16* v_s,
                                              const unsigned long long* keep, int S, int c0, float (&m)[2],
                                              float (&l)[2], float (&rs)[2]) {
   const int steps = min(KT, (S - c0 + 15) / 16);
-  row_dots<KT>(s, qf, k_s, c0, steps);
+  row_dots<D, KT>(s, qf, k_s, c0, steps);
   mask_scores<KT>(s, c0, S, keep);
-  row_dots<KT>(dp, df, v_s, c0, steps);
+  row_dots<D, KT>(dp, df, v_s, c0, steps);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = -INFINITY;
 #pragma unroll
     for (int nt = 0; nt < 2 * KT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
     const float m_new = fmaxf(m[r], quad_max(mx));
-    const float corr = exp2f((m[r] - m_new) * C);  // 0 on the first chunk
+    const float corr = exp2f((m[r] - m_new) * C<D>);  // 0 on the first chunk
     float sum = 0.f, acc = 0.f;
 #pragma unroll
     for (int nt = 0; nt < 2 * KT; ++nt)
 #pragma unroll
       for (int e = 2 * r; e < 2 * r + 2; ++e) {
-        const float p = exp2f((s[nt][e] - m_new) * C);
+        const float p = exp2f((s[nt][e] - m_new) * C<D>);
         sum += p;
         acc += p * dp[nt][e];
       }
@@ -345,22 +390,22 @@ __device__ __forceinline__ void finish_stats(const float (&m)[2], const float (&
 // second recomputes the scores and dP. stat: (m, 1/l, row) of rows g and g + 8.
 // With p_rows (slab), P and dS rounded to bf16 go to shared memory for the key
 // side: query row r of this tile at p_rows + r * pstride, dS at ds_rows.
-template <int KT, bool TWO_PASS>
+template <int D, int KT, bool TWO_PASS>
 __device__ __forceinline__ void query_side(const bf16* q_rows, const bf16* do_rows, const bf16* k_s, const bf16* v_s,
-                                           const unsigned long long* keep, int S, float (&dq)[8][4],
+                                           const unsigned long long* keep, int S, float (&dq)[D / 8][4],
                                            float (&stat)[2][3], bf16* p_rows, bf16* ds_rows, int pstride) {
   constexpr int CH = 16 * KT;
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
-  uint32_t qf[4][4], df[4][4];
-  load_rows(qf, q_rows);
-  load_rows(df, do_rows);
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  load_rows<D>(qf, q_rows);
+  load_rows<D>(df, do_rows);
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+  for (int dn = 0; dn < D / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
   float s[2 * KT][4], dp[2 * KT][4];
   const int chunks = TWO_PASS ? (S + CH - 1) / CH : 1;
   for (int c = 0; c < (TWO_PASS ? chunks : 1); ++c) {  // m, l and sum_j exp(s - m) dP
-    online_chunk<KT>(s, dp, qf, df, k_s, v_s, keep, S, c * CH, m, l, rs);
+    online_chunk<D, KT>(s, dp, qf, df, k_s, v_s, keep, S, c * CH, m, l, rs);
   }
   float il[2], row[2];
   finish_stats(m, l, rs, il, row, stat);
@@ -368,17 +413,17 @@ __device__ __forceinline__ void query_side(const bf16* q_rows, const bf16* do_ro
   for (int c = 0; c < chunks; ++c) {
     const int c0 = c * CH, steps = min(KT, (S - c0 + 15) / 16);
     if (TWO_PASS) {
-      row_dots<KT>(s, qf, k_s, c0, steps);
+      row_dots<D, KT>(s, qf, k_s, c0, steps);
       mask_scores<KT>(s, c0, S, keep);
-      row_dots<KT>(dp, df, v_s, c0, steps);
+      row_dots<D, KT>(dp, df, v_s, c0, steps);
     }
 #pragma unroll
     for (int nt = 0; nt < 2 * KT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f((s[nt][e] - m[e >> 1]) * C) * il[e >> 1];  // P, normalised, f32
+        const float p = exp2f((s[nt][e] - m[e >> 1]) * C<D>) * il[e >> 1];  // P, normalised, f32
         s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - row[e >> 1]) * SM_SCALE;  // dS, f32
+        dp[nt][e] = p * (dp[nt][e] - row[e >> 1]) * SM_SCALE<D>;  // dS, f32
       }
     if (p_rows != nullptr) {  // P and dS as bf16 [query][key] for the key side
 #pragma unroll
@@ -399,7 +444,7 @@ __device__ __forceinline__ void query_side(const bf16* q_rows, const bf16* do_ro
       if (kk < steps) {
         uint32_t a[4];
         pack_a(a, dp, kk);
-        mma_rows(dq, a, k_s + (size_t)(c0 + 16 * kk) * ROW);
+        mma_rows<D>(dq, a, k_s + (size_t)(c0 + 16 * kk) * ROW<D>);
       }
     }
   }
@@ -408,11 +453,13 @@ __device__ __forceinline__ void query_side(const bf16* q_rows, const bf16* do_ro
 // The key side of one warp in a slab block: key rows k0 .. k0 + 15 of one pair,
 // dv = P^T . dO and dk~ = dS^T . q~ over the pair's query rows, with P and dS
 // (bf16, [query][key]) from shared memory read through ldmatrix.trans.
+template <int D>
 __device__ __forceinline__ void key_side_slab(const bf16* p_s, const bf16* ds_s, int pstride, const bf16* q_s,
-                                              const bf16* do_s, int k0, int S, float (&dv)[8][4], float (&dk)[8][4]) {
+                                              const bf16* do_s, int k0, int S, float (&dv)[D / 8][4],
+                                              float (&dk)[D / 8][4]) {
   const int lane = threadIdx.x & 31, mi = lane >> 3;
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn)
+  for (int dn = 0; dn < D / 8; ++dn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dv[dn][e] = dk[dn][e] = 0.f;
   // matrix mi of the x4 load: queries q0 + 8 (mi >> 1) .., keys k0 + 8 (mi & 1) ..
@@ -421,38 +468,46 @@ __device__ __forceinline__ void key_side_slab(const bf16* p_s, const bf16* ds_s,
     uint32_t ap[4], ad[4];
     ldsm_x4_trans(ap, p_s + q0 * pstride + at);
     ldsm_x4_trans(ad, ds_s + q0 * pstride + at);
-    mma_rows(dv, ap, do_s + (size_t)q0 * ROW);
-    mma_rows(dk, ad, q_s + (size_t)q0 * ROW);
+    mma_rows<D>(dv, ap, do_s + (size_t)q0 * ROW<D>);
+    mma_rows<D>(dk, ad, q_s + (size_t)q0 * ROW<D>);
   }
 }
 
-// The 8 rows 8 r .. 8 r + 7 of a 16 x 64 f32 accumulator tile into the warp's
-// staging rows, so that a half-warp can then take a whole row: lane l of it
-// owns dims 2 l, 2 l + 1 and their RoPE partners 2 l + 32, 2 l + 33, and each
-// global load and store of a row is one contiguous 64- or 128-byte piece.
-__device__ __forceinline__ void stage_half(const float (&acc)[8][4], float* stage, int r) {
+// The epilogue's lanes: D / 4 take one row (16 at D = 64, 4 at D = 16), lane l
+// of them dims 2 l, 2 l + 1 and their RoPE partners 2 l + D/2, 2 l + D/2 + 1,
+// so that each global load and store of a row is one contiguous piece; a warp
+// takes 32 / (D / 4) rows at a time.
+template <int D> constexpr int ROW_LANES = D / 4;
+
+// The 8 rows 8 r .. 8 r + 7 of a 16 x D f32 accumulator tile into the warp's
+// staging rows, so that the row's ROW_LANES lanes can then take it whole.
+template <int D>
+__device__ __forceinline__ void stage_half(const float (&acc)[D / 8][4], float* stage, int r) {
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
   __syncwarp();
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-    *reinterpret_cast<float2*>(stage + g * STAGE_ROW + 8 * nt + 2 * t) = make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+  for (int nt = 0; nt < D / 8; ++nt)
+    *reinterpret_cast<float2*>(stage + g * STAGE_ROW<D> + 8 * nt + 2 * t) =
+        make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
   __syncwarp();
 }
 
 // 16 rows of f32 accumulators (dv; dq and dk of the plain attention), rounded
 // to bf16 at dst (row i at dst + i * stride) for the rows row0 + .. below S,
 // through the staging rows.
-__device__ __forceinline__ void store_rows(const float (&acc)[8][4], float* stage, bf16* __restrict__ dst,
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float* stage, bf16* __restrict__ dst,
                                            size_t stride, int row0, int S) {
-  const int lane = threadIdx.x & 31, d0 = 2 * (lane & 15);
+  constexpr int LR = ROW_LANES<D>, RPI = 32 / LR;  // lanes a row, rows at a time
+  const int lane = threadIdx.x & 31, d0 = 2 * (lane % LR);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    stage_half(acc, stage, r);
+    stage_half<D>(acc, stage, r);
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int rl = 2 * it + (lane >> 4), i = row0 + 8 * r + rl;
-      const float2 lo = *reinterpret_cast<const float2*>(stage + rl * STAGE_ROW + d0);
-      const float2 hi = *reinterpret_cast<const float2*>(stage + rl * STAGE_ROW + d0 + D / 2);
+    for (int it = 0; it < 8 / RPI; ++it) {
+      const int rl = RPI * it + lane / LR, i = row0 + 8 * r + rl;
+      const float2 lo = *reinterpret_cast<const float2*>(stage + rl * STAGE_ROW<D> + d0);
+      const float2 hi = *reinterpret_cast<const float2*>(stage + rl * STAGE_ROW<D> + d0 + D / 2);
       if (i < S) {
         *reinterpret_cast<uint32_t*>(dst + (size_t)i * stride + d0) = pack_bf16(lo.x, lo.y);
         *reinterpret_cast<uint32_t*>(dst + (size_t)i * stride + d0 + D / 2) = pack_bf16(hi.x, hi.y);

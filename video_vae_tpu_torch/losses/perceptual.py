@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``losses/perceptual.py``: flatten (b, t) into
 frames, run the truncated VGG on the prediction and (without gradient) on the
 target, sum the per-frame MSEs over relu1_1, relu1_2 and relu2_1, and average
 over frames. Both videos are rounded to bf16 before the VGG, whatever the
-model's dtype. Past ``chunk_frames`` frames the passes run chunk by chunk
+model's dtype. The cf VGG's (1, N, c, h, w) activations are read as (N, c,
+h, w). Past ``chunk_frames`` frames the passes run chunk by chunk
 (the last chunk zero-padded), each chunk's whole loss under activation
 checkpointing, which bounds the memory the feature maps take.
 """
@@ -34,8 +35,10 @@ def make_perceptual_loss_fn(
             acts_t = vgg(tgt_flat)
         loss = 0.0
         for layer in PERCEPTUAL_LAYERS:
-            diff = acts_x[layer].float() - acts_t[layer].float()
-            loss = loss + diff.square().mean(dim=(1, 2, 3))
+            fx, ft = acts_x[layer].float(), acts_t[layer].float()
+            if fx.dim() == 5:  # cf layout: (1, N, c, h, w) -> (N, c, h, w)
+                fx, ft = fx[0], ft[0]
+            loss = loss + (fx - ft).square().mean(dim=(1, 2, 3))
         return loss
 
     def perceptual_loss(x: torch.Tensor, target: torch.Tensor, rollouts: int = 1) -> torch.Tensor:

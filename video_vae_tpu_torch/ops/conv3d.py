@@ -27,12 +27,13 @@ tensor takes the CUDA kernel or the call raises.
   f32 to its CUDA-core kernel in f32 (TF32 would not hold the f32 gates);
 * input gradient: the forward conv of g with the spatially flipped,
   IO-swapped kernel and a zero bias, through the same dispatch;
-* filter gradient: ``csrc/conv3d_wgrad.cu`` over one or two sources (the
+* filter gradient, only where the filter needs one (a frozen VGG's launches
+  none): ``csrc/conv3d_wgrad.cu`` over one or two sources (the
   UpBlock's skip concat is never built): bf16 inputs take its tensor-core
   implicit GEMM (wmma, f32 accumulators, the input window staged by
   ``csrc/conv_window.cuh``; launch geometry from :func:`wgrad_plan`), f32
   inputs its CUDA-core kernel in f32;
-* bias gradient: the f32 sum of g over (b, t, h, w);
+* bias gradient, likewise only where needed: the f32 sum of g over (b, t, h, w);
 * :func:`conv3d_cf_pooled` also returns the conv's 2×2 spatial max pool,
   written by the epilogue of whichever forward kernel ran.
 """
@@ -134,14 +135,16 @@ def _dispatch(x1, x2, kernel, bias, pool=False):
     raise ValueError(f"conv3d_cf: unsupported device {x1.device}")
 
 
-def _cf_grads(x1, x2, kernel, g, need_dx, bias_dtype):
-    """(dx1, dx2, dkernel, dbias) of the conv of [x1; x2] for the cotangent g.
+def _cf_grads(x1, x2, kernel, g, need_dx, need_dkernel, need_dbias, bias_dtype):
+    """(dx1, dx2, dkernel, dbias) of the conv of [x1; x2] for the cotangent g;
+    each None where its input needs no gradient (a frozen filter launches no
+    filter gradient).
 
     g may be f32 (the pooled entry point sums two cotangents in f32): the
     bias gradient is the sum of that, the kernels take g in the input dtype.
     """
     kt, kh, kw, cin, _ = kernel.shape
-    dbias = g.float().sum(dim=(0, 1, 3, 4)).to(bias_dtype)
+    dbias = g.float().sum(dim=(0, 1, 3, 4)).to(bias_dtype) if need_dbias else None
     g = g.to(x1.dtype).contiguous()
     dx1 = dx2 = None
     if need_dx:
@@ -152,7 +155,7 @@ def _cf_grads(x1, x2, kernel, g, need_dx, bias_dtype):
         dx = _dispatch(g, None, flipped, zero)
         c1 = x1.shape[2]
         dx1, dx2 = (dx, None) if x2 is None else (dx[:, :, :c1], dx[:, :, c1:])
-    dkernel = conv3d_wgrad(x1, x2, g, kt, kh, kw).to(kernel.dtype)
+    dkernel = conv3d_wgrad(x1, x2, g, kt, kh, kw).to(kernel.dtype) if need_dkernel else None
     return dx1, dx2, dkernel, dbias
 
 
@@ -166,8 +169,8 @@ class _Conv3dCF(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x1, x2, kernel = ctx.saved_tensors
-        need_dx = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        return _cf_grads(x1, x2, kernel, g, need_dx, ctx.bias_dtype)
+        need = ctx.needs_input_grad
+        return _cf_grads(x1, x2, kernel, g, need[0] or need[1], need[2], need[3], ctx.bias_dtype)
 
 
 class _Conv3dCFPooled(torch.autograd.Function):
@@ -188,7 +191,8 @@ class _Conv3dCFPooled(torch.autograd.Function):
             pooled = max_pool_2x_cf(leaf)
         (g_from_pool,) = torch.autograd.grad(pooled, leaf, g_pool.to(full.dtype))
         g = g_full.float() + g_from_pool.float()
-        dx, _, dkernel, dbias = _cf_grads(x, None, kernel, g, ctx.needs_input_grad[0], ctx.bias_dtype)
+        need = ctx.needs_input_grad
+        dx, _, dkernel, dbias = _cf_grads(x, None, kernel, g, need[0], need[1], need[2], ctx.bias_dtype)
         return dx, dkernel, dbias
 
 

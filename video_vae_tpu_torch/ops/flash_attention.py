@@ -23,6 +23,13 @@ the tensor's device: a CPU tensor takes the plain PyTorch version
 (``*_plain``), a CUDA tensor takes the CUDA kernel (``*_cuda``, sources in
 ``csrc/``) or the call raises.
 
+The kernels take head dims ``KERNEL_HEAD_DIMS`` (16, 32 and 64: every
+configuration the JAX package ships, ``tiny_config`` and the ``--small``
+preset at 16, the flagship at 64; one instantiation each) and sequences of 1
+to ``KERNEL_MAX_SEQ`` = 256 tokens: a block holds a whole sequence's keys,
+as the JAX kernels hold it in VMEM, and no configuration the repo ships has a
+longer one. A CUDA tensor outside those raises; there is no fallback.
+
 Roundings of the fused forward, by dtype. The plain version computes in f32
 throughout and rounds once, to qkv's dtype. On the card, bf16 qkv takes the
 tensor-core kernel, which rounds as the JAX package does: q̃ and k̃ (after LN
@@ -79,7 +86,7 @@ if TYPE_CHECKING:
     from video_vae_tpu_torch.ops.fused_block import GemmPlan
 
 NEG_INF = -1e30  # the masked score of the JAX kernels
-KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIMS = (16, 32, 64)  # the C entry points' instantiations (csrc: with_head_dim)
 KERNEL_MAX_SEQ = 256
 
 FUSED_ATTENTION = CudaKernel(
@@ -112,21 +119,32 @@ ATTENTION_SUBLAYER = CudaKernel(
 # rows of the f32 backward's LN/RoPE pass per block: its dscale partials are (blocks, D)
 BWD_ROWS_PER_BLOCK = 64
 
-# The bf16 forward kernel (csrc/fused_attention_mma.cuh): a q, k or v head row
-# takes 64 bf16 padded to 72 in shared memory; a warp owns 16 query rows.
-MMA_ROW_BYTES = 2 * (KERNEL_HEAD_DIM + 8)
+# The bf16 forward kernel (csrc/fused_attention_mma.cuh): a warp owns 16 query rows.
 MMA_SLAB_WARPS = 8  # warps of a slab block at most
 MMA_SLAB_MAX_SEQ = 64  # the longest sequence a block stages whole, all heads
 MMA_SLAB_MAX_SMEM = 100 * 1024  # a slab block at most this, so that two fit an SM
 MMA_VARIANTS = ("slab", "tile")  # as csrc/fused_attention_mma_common.cuh numbers them
 
 
+def mma_row_bytes(head_dim: int) -> int:
+    """Shared memory of one q, k or v head row in the bf16 kernels: head_dim
+    bf16 padded by 8 (144 bytes at 64), so that ldmatrix has no bank conflicts."""
+    return 2 * (head_dim + 8)
+
+
+def check_head_dim(head_dim: int) -> None:
+    """Raise unless the kernels are instantiated for ``head_dim``."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the attention kernels take head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+
+
 @functools.lru_cache(maxsize=64)
-def fused_attention_plan(batch: int, seq: int, heads: int) -> tuple[str, int]:
+def fused_attention_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, int]:
     """(variant, sequences a block) of the bf16 fused attention kernel.
 
     ``"slab"`` where the sequence is at most 64 long and one sequence's q, k
-    and v rows fit ``MMA_SLAB_MAX_SMEM``: a block stages whole sequences, all
+    and v rows (``mma_row_bytes(head_dim)`` each) fit ``MMA_SLAB_MAX_SMEM``:
+    a block stages whole sequences, all
     heads, as many as give it up to 8 warps of 16-row query tiles, and its
     warps take those tiles in turn. Otherwise ``"tile"``, one sequence a
     block: a block stages one (sequence, head) pair, all its rows, and has a
@@ -134,15 +152,16 @@ def fused_attention_plan(batch: int, seq: int, heads: int) -> tuple[str, int]:
     are staged and normalised once. The C entry point derives the warps, the
     shared memory and P's rounding rule from these and the shape.
     """
+    check_head_dim(head_dim)
     rows16 = -(-seq // 16) * 16
-    seq_smem = 3 * heads * rows16 * MMA_ROW_BYTES + 8 * -(-seq // 64)  # q, k, v rows and key bits
+    seq_smem = 3 * heads * rows16 * mma_row_bytes(head_dim) + 8 * -(-seq // 64)  # q, k, v rows and key bits
     if seq <= MMA_SLAB_MAX_SEQ and seq_smem <= MMA_SLAB_MAX_SMEM:
         tiles = heads * rows16 // 16  # query tiles of one sequence
         return "slab", max(1, min(MMA_SLAB_WARPS // tiles, MMA_SLAB_MAX_SMEM // seq_smem, batch))
     return "tile", 1
 
 
-def flash_attention_plan(batch: int, seq: int, heads: int) -> tuple[str, int]:
+def flash_attention_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, int]:
     """(variant, sequences a block) of the bf16 plain attention forward kernel
     (``csrc/flash_attention_mma.cuh``): those of :func:`fused_attention_plan`.
 
@@ -154,7 +173,7 @@ def flash_attention_plan(batch: int, seq: int, heads: int) -> tuple[str, int]:
     the exact row max and sum first. The C entry point derives the warps and
     the shared memory from these and the shape.
     """
-    return fused_attention_plan(batch, seq, heads)
+    return fused_attention_plan(batch, seq, heads, head_dim)
 
 
 # The bf16 backward kernel (csrc/fused_attention_bwd_mma.cuh), in the forward's
@@ -165,9 +184,11 @@ BWD_TILE_WARPS = 16  # warps of a tile block at most
 
 
 @functools.lru_cache(maxsize=64)
-def fused_attention_bwd_plan(batch: int, seq: int, heads: int) -> tuple[str, int, int]:
+def fused_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, int, int]:
     """(variant, (sequence, head) pairs a block, warps a block) of the bf16
-    fused attention backward kernel.
+    fused attention backward kernel: the same at every head dim the kernels
+    take (a slab pair's rows with its P and dS, 55 KB at S = 64 and D = 64,
+    and a tile pair's rows, 147 KB at S = 256, fit a block at each).
 
     ``"slab"`` where the sequence is at most 64 long: a block stages
     consecutive pairs (the heads of a sequence, side by side in memory) with
@@ -179,6 +200,7 @@ def fused_attention_bwd_plan(batch: int, seq: int, heads: int) -> tuple[str, int
     tiles, and the grid is ceil(B·H / pairs a block). The C entry point
     derives the shared memory from these and the shape.
     """
+    check_head_dim(head_dim)
     tiles = -(-seq // 16)
     if seq <= BWD_SLAB_MAX_SEQ:
         unit = max(1, min(BWD_SLAB_WARPS // tiles, batch * heads))
@@ -191,7 +213,7 @@ def fused_attention_bwd_plan(batch: int, seq: int, heads: int) -> tuple[str, int
 FLASH_BWD_ROUND = 64
 
 
-def flash_attention_bwd_plan(batch: int, seq: int, heads: int) -> tuple[str, int, int]:
+def flash_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, int, int]:
     """(variant, (sequence, head) pairs a block, warps a block) of the bf16
     plain attention backward kernel: those of :func:`fused_attention_bwd_plan`.
 
@@ -204,7 +226,7 @@ def flash_attention_bwd_plan(batch: int, seq: int, heads: int) -> tuple[str, int
     ceil(B·H / pairs a block); the C entry point derives the shared memory
     from these and the shape.
     """
-    return fused_attention_bwd_plan(batch, seq, heads)
+    return fused_attention_bwd_plan(batch, seq, heads, head_dim)
 
 
 def key_mask(mask: Optional[torch.Tensor], batch: int, seq: int) -> Optional[torch.Tensor]:
@@ -374,7 +396,8 @@ def fused_qkv_attention_bwd_plain(
 
 
 def _check_kernel_args(name, qkv, q_scale, k_scale, mask, num_heads):
-    """Shared checks of both CUDA wrappers; returns (B, S, D)."""
+    """Shared checks of both CUDA wrappers; returns (B, S, D). D in
+    ``KERNEL_HEAD_DIMS``, 1 <= S <= ``KERNEL_MAX_SEQ``."""
     if not qkv.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor")
     if qkv.dtype not in DTYPE_CODES:
@@ -385,10 +408,9 @@ def _check_kernel_args(name, qkv, q_scale, k_scale, mask, num_heads):
     if three_hd % (3 * num_heads):
         raise ValueError(f"last dim {three_hd} is not 3 * num_heads * head_dim")
     d = three_hd // (3 * num_heads)
-    if d != KERNEL_HEAD_DIM or not 1 <= s <= KERNEL_MAX_SEQ:
-        raise ValueError(
-            f"kernel takes head_dim {KERNEL_HEAD_DIM} and 1 <= S <= {KERNEL_MAX_SEQ}, got {d}, {s}"
-        )
+    check_head_dim(d)
+    if not 1 <= s <= KERNEL_MAX_SEQ:
+        raise ValueError(f"kernel takes 1 <= S <= {KERNEL_MAX_SEQ}, got {s}")
     if q_scale.shape != (d,) or k_scale.shape != (d,):
         raise ValueError("q_scale and k_scale must have shape (head_dim,)")
     if mask is not None and mask.shape != (b, s):
@@ -420,7 +442,8 @@ def fused_qkv_attention_cuda(
     """Launch the forward kernel. ``mask`` is a (B, S) bool key mask or None.
 
     bf16 qkv takes the tensor-core kernel with the geometry of
-    :func:`fused_attention_plan`, f32 qkv the CUDA-core kernel.
+    :func:`fused_attention_plan`, f32 qkv the CUDA-core kernel. head_dim in
+    ``KERNEL_HEAD_DIMS`` and 1 <= S <= ``KERNEL_MAX_SEQ``, or it raises.
     """
     b, s, d = _check_kernel_args("fused_qkv_attention_cuda", qkv, q_scale, k_scale, mask, num_heads)
     device = qkv.device
@@ -428,7 +451,7 @@ def fused_qkv_attention_cuda(
     out = torch.empty((b, s, num_heads * d), dtype=qkv.dtype, device=device)
     variant, unit = 0, 1  # the f32 kernel takes its geometry from the shape
     if qkv.dtype == torch.bfloat16:
-        name, unit = fused_attention_plan(b, s, num_heads)
+        name, unit = fused_attention_plan(b, s, num_heads, d)
         variant = MMA_VARIANTS.index(name)
         if qkv.data_ptr() % 16:  # the kernel copies 16 bytes at a time
             qkv = qkv.clone()
@@ -458,7 +481,8 @@ def fused_qkv_attention_bwd_cuda(
     :func:`fused_attention_bwd_plan`, f32 the four-pass CUDA-core kernel and
     its workspace. Either writes per-block f32 partials of the two scale
     gradients; they are summed here in a fixed order, so every run gives the
-    same bits.
+    same bits. head_dim in ``KERNEL_HEAD_DIMS`` and 1 <= S <=
+    ``KERNEL_MAX_SEQ``, or it raises.
     """
     b, s, d = _check_kernel_args(
         "fused_qkv_attention_bwd_cuda", qkv, q_scale, k_scale, mask, num_heads
@@ -473,7 +497,7 @@ def fused_qkv_attention_bwd_cuda(
     work = None
     variant, unit, warps = 0, 1, 1  # the f32 kernel takes its geometry from the shape
     if qkv.dtype == torch.bfloat16:
-        name, unit, warps = fused_attention_bwd_plan(b, s, num_heads)
+        name, unit, warps = fused_attention_bwd_plan(b, s, num_heads, d)
         variant = MMA_VARIANTS.index(name)
         n_blocks = -(-b * num_heads // unit)
         # the kernel copies 16 bytes at a time
@@ -604,10 +628,9 @@ def _check_flash_args(name, q, k, v, mask):
     if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must share one dtype and device")
     b, s, h, d = q.shape
-    if d != KERNEL_HEAD_DIM or not 1 <= s <= KERNEL_MAX_SEQ:
-        raise ValueError(
-            f"kernel takes head_dim {KERNEL_HEAD_DIM} and 1 <= S <= {KERNEL_MAX_SEQ}, got {d}, {s}"
-        )
+    check_head_dim(d)
+    if not 1 <= s <= KERNEL_MAX_SEQ:
+        raise ValueError(f"kernel takes 1 <= S <= {KERNEL_MAX_SEQ}, got {s}")
     if mask is not None and mask.shape != (b, s):
         raise ValueError("mask must be a (B, S) key mask")
     return b, s, h, d
@@ -624,7 +647,8 @@ def flash_attention_cuda(q, k, v, mask):
     :func:`flash_attention_plan`: one launch, no workspace, no atomics, the
     roundings of :func:`flash_attention_plain` (P normalised with the exact
     row max and sum, then rounded to bf16; P·V in f32; one rounding of o).
-    f32 takes the CUDA-core kernel, f32 throughout.
+    f32 takes the CUDA-core kernel, f32 throughout. head_dim in
+    ``KERNEL_HEAD_DIMS`` and 1 <= S <= ``KERNEL_MAX_SEQ``, or it raises.
     """
     b, s, h, d = _check_flash_args("flash_attention_cuda", q, k, v, mask)
     device = q.device
@@ -633,7 +657,7 @@ def flash_attention_cuda(q, k, v, mask):
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=device)
     variant, unit = 0, 1  # the f32 kernel takes its geometry from the shape
     if q.dtype == torch.bfloat16:
-        name, unit = flash_attention_plan(b, s, h)
+        name, unit = flash_attention_plan(b, s, h, d)
         variant = MMA_VARIANTS.index(name)
     with torch.cuda.device(device):
         FLASH_ATTENTION.launch(
@@ -655,6 +679,8 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
     for dq = dS·k and dk = dSᵀ·q; scores, softmax, dP, row and the sums in
     f32; each gradient rounded once. f32 takes the two-pass CUDA-core kernel
     through an f32 workspace of m, l and row per query, f32 throughout.
+    head_dim in ``KERNEL_HEAD_DIMS`` and 1 <= S <= ``KERNEL_MAX_SEQ``, or it
+    raises.
     """
     b, s, h, d = _check_flash_args("flash_attention_bwd_cuda", q, k, v, mask)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
@@ -666,7 +692,7 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
     work = None
     variant, unit, warps, n_blocks = 0, 1, 1, 0  # the f32 kernel takes its geometry from the shape
     if q.dtype == torch.bfloat16:
-        name, unit, warps = flash_attention_bwd_plan(b, s, h)
+        name, unit, warps = flash_attention_bwd_plan(b, s, h, d)
         variant = MMA_VARIANTS.index(name)
         n_blocks = -(-b * h // unit)
     else:
@@ -723,20 +749,26 @@ class SublayerPlan:
 
 
 @functools.lru_cache(maxsize=64)
-def sublayer_plan(batch: int, seq: int, width: int, heads: int, sms: Optional[int] = None) -> SublayerPlan:
+def sublayer_plan(
+    batch: int, seq: int, width: int, heads: int, head_dim: int, sms: Optional[int] = None
+) -> SublayerPlan:
     """The geometry of the sublayer kernel for ``batch`` sequences of ``seq``
-    tokens of width ``width`` and ``heads`` heads of 64: each product's
-    ``fused_block.gemm_plan`` (for ``sms`` SMs, the H100's 132 by default) and
-    the attention's :func:`fused_attention_plan`. The f32 attention kernel
-    takes its geometry from the shape and ignores the latter."""
+    tokens of width ``width`` and ``heads`` heads of ``head_dim``: each
+    product's ``fused_block.gemm_plan`` (for ``sms`` SMs, the H100's 132 by
+    default) and the attention's :func:`fused_attention_plan`. The f32
+    attention kernel takes its geometry from the shape and ignores the latter.
+
+    The products run at hd = heads·head_dim, 32 for ``tiny_config``: o·Wout's
+    K is then under one 64-column slab, and the TMA box reads zeros past K
+    (``csrc/gemm_sm90.cuh``), so a ragged K needs no other plan."""
     from video_vae_tpu_torch.ops.fused_block import H100_SMS, gemm_plan  # fused_block imports this module
 
-    n, hd = batch * seq, heads * KERNEL_HEAD_DIM
+    n, hd = batch * seq, heads * head_dim
     sms = sms or H100_SMS
     return SublayerPlan(
         qkv=gemm_plan(n, width, 3 * hd, sms),
         out=gemm_plan(n, hd, width, sms),
-        attention=fused_attention_plan(batch, seq, heads),
+        attention=fused_attention_plan(batch, seq, heads, head_dim),
     )
 
 
@@ -858,7 +890,9 @@ def fused_attention_sublayer_cuda(
     here, outside the kernel, as the JAX wrapper does; the geometry is
     :func:`sublayer_plan`'s for this card's SMs. bf16 x takes the fused
     attention's tensor-core kernel, f32 x its CUDA-core kernel, whose o the
-    kernel casts to a bf16 scratch for the second product.
+    kernel casts to a bf16 scratch for the second product. head_dim in
+    ``KERNEL_HEAD_DIMS``, 1 <= S <= ``KERNEL_MAX_SEQ`` and C % 8 == 0, or it
+    raises.
     """
     if not x.is_cuda:
         raise ValueError("fused_attention_sublayer_cuda needs a CUDA tensor")
@@ -871,11 +905,9 @@ def fused_attention_sublayer_cuda(
     if wqkv.shape != (c, 3 * hd) or wout.shape != (hd, c) or hd % num_heads:
         raise ValueError("wqkv must be (C, 3*H*D) and wout (H*D, C)")
     d = hd // num_heads
-    if d != KERNEL_HEAD_DIM or not 1 <= s <= KERNEL_MAX_SEQ or c % 8:
-        raise ValueError(
-            f"kernel takes head_dim {KERNEL_HEAD_DIM}, 1 <= S <= {KERNEL_MAX_SEQ} and C % 8 == 0, "
-            f"got {d}, {s}, {c}"
-        )
+    check_head_dim(d)
+    if not 1 <= s <= KERNEL_MAX_SEQ or c % 8:
+        raise ValueError(f"kernel takes 1 <= S <= {KERNEL_MAX_SEQ} and C % 8 == 0, got {s}, {c}")
     if ln_scale.shape != (c,) or ln_bias.shape != (c,) or bqkv.shape != (3 * hd,) or bout.shape != (c,):
         raise ValueError("ln_scale, ln_bias, bout must be (C,) and bqkv (3*H*D,)")
     if q_scale.shape != (d,) or k_scale.shape != (d,):
@@ -904,7 +936,7 @@ def fused_attention_sublayer_cuda(
         raise ValueError("the sublayer kernel needs 16-byte aligned tensors")
     if b * s >= 2**31:
         raise ValueError(f"the sublayer kernel takes fewer than 2^31 tokens, got {b * s}")
-    plan = sublayer_plan(b, s, c, num_heads, torch.cuda.get_device_properties(device).multi_processor_count)
+    plan = sublayer_plan(b, s, c, num_heads, d, torch.cuda.get_device_properties(device).multi_processor_count)
     with torch.cuda.device(device):
         ATTENTION_SUBLAYER.launch(
             x.data_ptr(), None if mask is None else mask.data_ptr(), lng.data_ptr(), lnb.data_ptr(),

@@ -130,13 +130,13 @@ def build_perceptual(
     """The perceptual fn the loss config asks for (or None), its VGG on ``device``.
 
     The VGG's filters come from the ``.npz`` at ``weights_path`` (see
-    ``models/vgg.py:load_vgg``), random ones with a warning without it.
+    ``models/vgg.py:load_vgg``), random ones with a warning without it; its
+    layout is ``loss_cfg.vgg_layout`` (``"cf"``: the convs on the direct conv
+    kernel).
     """
     if not loss_cfg.use_perceptual:
         return None
-    if loss_cfg.vgg_layout != "nhwc":
-        raise NotImplementedError(f"vgg_layout={loss_cfg.vgg_layout!r} is not ported yet")
-    vgg = load_vgg(weights_path, device=device)
+    vgg = load_vgg(weights_path, layout=loss_cfg.vgg_layout, device=device)
     return make_perceptual_loss_fn(vgg, chunk_frames=loss_cfg.perceptual_chunk_frames)
 
 

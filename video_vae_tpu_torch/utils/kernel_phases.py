@@ -53,11 +53,11 @@ KERNELS = {
         "full": [],
         **SIDE_CUTS,
         "no_query_first_pass": [("c < (TWO_PASS ? chunks : 1); ++c) {", "c < (TWO_PASS ? 0 : 1); ++c) {")],
-        "no_key_recompute": [("row_dots<1>(st, kf, q_s, q0, 1);", "row_dots<1>(st, kf, q_s, q0, 0);"),
-                             ("row_dots<1>(dt, vf, do_s, q0, 1);", "row_dots<1>(dt, vf, do_s, q0, 0);")],
+        "no_key_recompute": [("row_dots<D, 1>(st, kf, q_s, q0, 1);", "row_dots<D, 1>(st, kf, q_s, q0, 0);"),
+                             ("row_dots<D, 1>(dt, vf, do_s, q0, 1);", "row_dots<D, 1>(dt, vf, do_s, q0, 0);")],
         "no_exp": [("exp2f(", "(")],
-        "no_epilogues": [("    ln_rope_bwd(d", f"    if ({_NEVER}) ln_rope_bwd(d"),
-                         ("    store_rows(dv,", f"    if ({_NEVER}) store_rows(dv,")],
+        "no_epilogues": [("    ln_rope_bwd<D>(d", f"    if ({_NEVER}) ln_rope_bwd<D>(d"),
+                         ("    store_rows<D>(dv,", f"    if ({_NEVER}) store_rows<D>(dv,")],
         "no_epilogue_tables": [(f"__ldg(reinterpret_cast<const float2*>({t} + d0{hi}))", "make_float2(0.5f, 0.25f)")
                                for t in ("c", "sn") for hi in ("", " + D / 2")],
     }),
@@ -70,7 +70,7 @@ KERNELS = {
         "no_pv": [("if (kk < steps) {", f"if (kk < steps && {_NEVER}) {{")],
         "no_exp": [("exp2f(", "(")],
         "no_stores": [("if (row0 + r < S)", f"if (row0 + r < S && {_NEVER})")],
-        "no_staging": [("p < 3 * H * 8; p += blockDim.x) {", f"p < 3 * H * 8 && {_NEVER}; p += blockDim.x) {{"),
+        "no_staging": [("p < 3 * H * P; p += blockDim.x) {", f"p < 3 * H * P && {_NEVER}; p += blockDim.x) {{"),
                        ("i < s16; i += row_step)", f"i < s16 && {_NEVER}; i += row_step)")],
     }),
     # slab blocks (S <= 64): the sides; tile blocks (S > 64): the statistics, the
@@ -78,15 +78,16 @@ KERNELS = {
     "6": ("flash_attention_bwd.cu", ("flash_attention_bwd_mma.cuh", COMMON), fa, "FLASH_ATTENTION_BWD", {
         "full": [],
         **SIDE_CUTS,
-        "no_stats": [("      bwd::online_chunk<TILE_KT>(", f"      if ({_NEVER}) bwd::online_chunk<TILE_KT>(")],
-        "no_key_rounds": [("    key_round(q_s,", f"    if ({_NEVER}) key_round(q_s,")],
-        "no_key_recompute": [("row_dots<1>(st, f, q_s, i0, 1);", "row_dots<1>(st, f, q_s, i0, 0);"),
-                             ("row_dots<1>(dt, f, do_s, i0, 1);", "row_dots<1>(dt, f, do_s, i0, 0);")],
-        "no_dq_tiles": [("it < (q1 - q0) / 16 * 4; it += warps) {", f"it < (q1 - q0) / 16 * 4 && {_NEVER}; it += warps) {{")],
+        "no_stats": [("      bwd::online_chunk<D, TILE_KT>(", f"      if ({_NEVER}) bwd::online_chunk<D, TILE_KT>(")],
+        "no_key_rounds": [("    key_round<D>(q_s,", f"    if ({_NEVER}) key_round<D>(q_s,")],
+        "no_key_recompute": [("row_dots<D, 1>(st, f, q_s, i0, 1);", "row_dots<D, 1>(st, f, q_s, i0, 0);"),
+                             ("row_dots<D, 1>(dt, f, do_s, i0, 1);", "row_dots<D, 1>(dt, f, do_s, i0, 0);")],
+        "no_dq_tiles": [("it < (q1 - q0) / 16 * (D / 16); it += warps) {",
+                         f"it < (q1 - q0) / 16 * (D / 16) && {_NEVER}; it += warps) {{")],
         "no_exp": [("exp2f(", "(")],
-        "no_epilogues": [("    bwd::store_rows(d", f"    if ({_NEVER}) bwd::store_rows(d")],
-        "no_staging": [("e < (part1 - part0) * n * unit * 8; e += blockDim.x) {",
-                        f"e < (part1 - part0) * n * unit * 8 && {_NEVER}; e += blockDim.x) {{")],
+        "no_epilogues": [("    bwd::store_rows<D>(d", f"    if ({_NEVER}) bwd::store_rows<D>(d")],
+        "no_staging": [("e < (part1 - part0) * n * unit * P; e += blockDim.x) {",
+                        f"e < (part1 - part0) * n * unit * P && {_NEVER}; e += blockDim.x) {{")],
     }),
     # the GEMMs' products, the finishing of the epilogue (staging read back, SiLU or
     # residual, 16-byte stores: the stores' cut leaves the accumulators staged), the SiLU
