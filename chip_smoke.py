@@ -85,7 +85,19 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    ("train-small": launches, device ms, peak memory), and the flagship b1 x 16f
    step with ``LossConfig(vgg_layout="cf")`` held to the ``train`` line's loss,
    perceptual term and keep decisions ("train-vgg-cf": 39 launches of #2, 15 of
-   #4, device ms, and the VGG's forward and backward alone in both layouts).
+   #4, device ms, and the VGG's forward and backward alone in both layouts);
+9. holds the attention kernels (#1, #3, #5, #6, #7) at head_dim 128 to their
+   plain versions at the calls of a ``ModelConfig(num_heads=4)`` train step
+   (the flagship's width in 4 heads of 128), bf16 and f32, masked, with a
+   fully masked sequence, the same bits twice, SDPA beside each; #1-#4 at the
+   curriculum's second bucket, b1 x 64 frames; runs that model's full-depth
+   bf16 b1 x 16f train step ("train-h4": 42 launches of #1 and of #3, device
+   ms) and its f32 depth-1 step card against CPU ("f32-h4"); then
+   ``cli/cache_latents.py`` and ``cli/decode_latents.py`` at their defaults on
+   two synthetic clips through an in-memory video source ("cache-latents",
+   "decode-latents": launches per video, the written latents and video
+   equal to a hand-called model's bit for bit, clips/s, device ms a clip,
+   peak memory).
 
 Every failure ends the script with a non-zero exit and no result line. The
 last line of standard output is ``{"ok": true, "device": {...}}``; the line
@@ -179,6 +191,7 @@ FLAGSHIP_PATHS = ("fused", "pallas", "sublayer", "mlp")
 PATHS = (
     "train", "serving", "serving-pallas", "serving-sublayer", "train-pallas", "train-sublayer",
     "serving-mlp", "train-mlp", "serving-sublayer-mlp", "serving-tapdot", "train-tapdot", "trainer", "tiny",
+    "train-h4", "cache-latents", "decode-latents",  # the last two: launches per video
 )
 # the path whose sums stand at the top level of a kernel's record
 MAIN_PATH = {
@@ -206,6 +219,12 @@ TINY_ARGS = ("--synthetic", "--tiny", "--steps", "5")
 SMALL_ARGS = ("--synthetic", "--small")
 # the frames of one VGG pass (LossConfig().perceptual_chunk_frames): the b1 x 16f step's 2 rollouts
 VGG_FRAMES = 32
+# cli/cache_latents.py and cli/decode_latents.py at their defaults (--resize 256,
+# --max_frames 64) on two synthetic clips: 64 frames and 40 frames (padded to 64)
+LATENT_RESIZE, LATENT_FRAMES = 256, 64
+LATENT_CLIP_FRAMES = (64, 40)
+LATENT_VIDEOS = len(LATENT_CLIP_FRAMES)
+H4_CLIPS, H4_FRAMES = 1, 16  # the head_dim-128 train step (ModelConfig(num_heads=4))
 # the cf VGG's convs on the direct conv kernel: (name, h = w, cin, cout, launches a step),
 # each forward run on the reconstruction and the target, each input gradient once
 VGG_CONV_CASES = (
@@ -267,6 +286,28 @@ def head_dim_configs():
         out.append((f"{label}-d32", model.replace(qkv_features=2 * model.qkv_features), cfg.data.batch_size,
                     cfg.data.max_frames))
     return out
+
+
+def h4_config():
+    """The flagship at its full width in 4 heads of 128 (``ModelConfig(num_heads=4)``):
+    the attention kernels at head_dim 128."""
+    from video_vae_tpu_torch import ModelConfig
+
+    return ModelConfig(num_heads=4)
+
+
+def latent_attention_cases(cfg, frames=LATENT_FRAMES):
+    """(name, B, S, padded clip, dtype, launches per entry) of the attention calls of
+    one clip of ``frames`` frames through ``cli/cache_latents.py`` (the encoder's,
+    under ``"serving"``) and ``cli/decode_latents.py`` (the decoder's, under
+    ``"train"``), counted per video; :func:`phase_latent_kernels` names the two
+    paths. A padded clip ends in 3 masked frames."""
+    hw, enc, dec = cfg.num_patches, cfg.encoder_depth, cfg.decoder_depth
+    per = {"serving": enc, "train": dec}
+    return [
+        (f"temporal b1x{frames}", hw, frames, True, "bfloat16", per),
+        (f"spatial b1x{frames}", frames, hw, False, "bfloat16", per),
+    ]
 
 
 def preset_attention_cases(label, cfg, clips, frames, full=True):
@@ -516,13 +557,15 @@ def _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype):
 
 
 def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", cases=None, remat=False,
-                            masked_rows=None):
+                            masked_rows=None, backward=True):
     """Fused attention forward and backward kernels against their plain versions,
     at the launches of ``cfg``'s serving pass and train step on the paths named
     (``serving=None``: no serving path; ``train=None``: counted on no path either).
     ``cases`` replace ``attention_cases(cfg)``; with ``remat`` each forward runs
     twice in a step (the recompute). ``masked_rows`` (by default on the flagship's
-    serving path) also holds each padded case with one sequence's keys all masked."""
+    serving path) also holds each padded case with one sequence's keys all masked.
+    ``backward=False``: the backward is held at these shapes but counted on no path
+    (both paths named run forwards only)."""
     import torch
     import torch.nn.functional as F
 
@@ -612,7 +655,8 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
             time_ms(lambda: torch.autograd.grad(o, leaves, g_heads, retain_graph=True), 10),
             "scaled_dot_product_attention backward, core only",
             bound_ms(nbytes(qkv, g, mask) + nbytes(*got), bwd_flops, dtype),
-            per_path(per, {train: "train", **({"train-sublayer": "train"} if train == "train" else {})}),
+            per_path(per, {train: "train", **({"train-sublayer": "train"} if train == "train" else {})})
+            if backward else {},
             device_ms=dev_ms,
             library_device_ms=device_ms(lambda: torch.autograd.grad(o, leaves, g_heads, retain_graph=True), 10),
             tflops=bwd_flops / dev_ms / 1e9,
@@ -797,7 +841,7 @@ def phase_sublayer_kernel(cfg, dev, rows, cases=None, paths=True):
 
 
 def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=False,
-                       batch=BATCH, frames=FRAMES, remat=False):
+                       batch=BATCH, frames=FRAMES, remat=False, f32=True):
     """Conv forward, input gradient (same kernel) and filter gradient against plain,
     at every conv of ``cfg``'s UNet on ``batch`` clips of ``frames`` frames, counted
     on the paths named (``serving=None``: no serving path; then the float32 cases
@@ -805,7 +849,8 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
     conv or an input gradient that passes the tap-dot gate is left to
     :func:`phase_tapdot_kernel`: the direct kernel is held at the shapes this path
     gives it and no other. With ``remat`` the down and up blocks' convs run their
-    forward twice in a step (the recompute)."""
+    forward twice in a step (the recompute). ``f32=False`` leaves the float32
+    cases out (held at the flagship's shapes already)."""
     import torch
     import torch.nn.functional as F
 
@@ -813,7 +858,7 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
 
     gen = torch.Generator().manual_seed(1)
     for name, h, w, cins, cout, k, dtype in conv_cases(cfg):
-        if (tapdot or serving is None) and dtype != "bfloat16":
+        if (tapdot or serving is None or not f32) and dtype != "bfloat16":
             continue
         forward_per = per_path({"serving": 1, "train": 2 if remat and name.startswith(("encoders", "decoders")) else 1},
                                {serving: "serving", train: "train"})
@@ -868,7 +913,7 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
                 time_ms(lambda: conv3d.conv3d_cf_plain(g, None, flipped, zero), 1, warmup=0),
                 time_ms(lambda: F.conv3d(g_ncdhw, w_flip, padding=pad), 5),
                 "torch.nn.functional.conv3d (cuDNN) of g, flipped kernel",
-                bound_ms(nbytes(g, flipped, dx), flops, dtype), {train: 1},
+                bound_ms(nbytes(g, flipped, dx), flops, dtype), per_path({"train": 1}, {train: "train"}),
                 **device_times(lambda: conv3d.conv3d_cf_cuda(g, None, flipped, zero),
                                lambda: F.conv3d(g_ncdhw, w_flip, padding=pad), flops),
             )
@@ -891,7 +936,7 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
             rows, conv3d.CONV3D_WGRAD, name, [batch, frames, list(cins), h, w, cout, list(k)], dtype, err,
             ms, time_ms(lambda: conv3d.conv3d_wgrad_plain(xs[0], x2, g, *k), 1, warmup=0), cudnn_ms,
             "torch.nn.grad.conv3d_weight (cuDNN), concatenated input",
-            bound_ms(nbytes(*xs, g, dw), flops, dtype), {train: 1},
+            bound_ms(nbytes(*xs, g, dw), flops, dtype), per_path({"train": 1}, {train: "train"}),
             **device_times(lambda: conv3d.conv3d_wgrad_cuda(xs[0], x2, g, *k),
                            lambda: torch.nn.grad.conv3d_weight(x_ncdhw, w_shape, g_ncdhw, padding=pad), flops),
         )
@@ -1418,12 +1463,14 @@ def _draws(model, video, mask, seed, rollouts_differ=False):
     raise AssertionError("no draw without a near-tie keep decision")
 
 
-def phase_f32_train(dev, tiny=False):
+def phase_f32_train(dev, tiny=False, h4=False):
     """Flagship width, depth 1, b1 x 4 frames: one f32 train step, card against CPU.
 
     ``tiny``: ``tiny_config`` itself in float32 (head_dim 16, no perceptual term, as
     its LossConfig) on 2 clips of 8 frames; a gradient that is rounding noise on the
     CPU (``ZERO_GRAD_TOL``) is held to stay noise, as :func:`phase_f32_modes` holds it.
+    ``h4``: the flagship's width in 4 heads of 128 (:func:`h4_config`), otherwise as
+    the default ("f32-h4").
     """
     import torch
 
@@ -1438,9 +1485,12 @@ def phase_f32_train(dev, tiny=False):
                                         tiny_cfg.data.batch_size, tiny_cfg.data.max_frames)
         label, text = "f32-tiny", f"tiny_config, float32, b{clips} x {frames} frames (3 padded), perceptual off"
     else:
-        cfg = ModelConfig(dtype="float32", encoder_depth=1, decoder_depth=1, remat=False)
+        cfg = (h4_config() if h4 else ModelConfig()).replace(dtype="float32", encoder_depth=1, decoder_depth=1,
+                                                             remat=False)
         loss_cfg, clips, frames = LossConfig(), 1, 4
         label, text = "f32-train", "flagship width, encoder/decoder depth 1, b1 x 4 frames (1 padded), perceptual on"
+        if h4:
+            label, text = "f32-h4", text.replace("flagship width", "flagship width in 4 heads of 128")
     hp = DynamicHParams.default()
     cpu_model = VideoVAE(cfg, device="cpu", seed=4)
     gen = torch.Generator().manual_seed(5)
@@ -1584,7 +1634,7 @@ def _set_remat(model, on: bool):
             module.remat = on
 
 
-def phase_train(cfg, dev, path="fused", reference=None, timed=TIMED_STEPS, redraw_final_conv=False):
+def phase_train(cfg, dev, path="fused", reference=None, timed=TIMED_STEPS, redraw_final_conv=False, label=None):
     """The bf16 b1 x 16f train step of ``cfg`` on one path.
 
     Launch counts of one step, checks of the metrics and the update, the step
@@ -1593,8 +1643,9 @@ def phase_train(cfg, dev, path="fused", reference=None, timed=TIMED_STEPS, redra
     remat-on step is held to the remat-off one); a path with a ``reference``
     (draws, loss, kept-frame density of the path it is held to) is compared
     with it. The tap-dot model's final conv is redrawn, or the
-    zero-initialised one would cut the UNet's gradients. Returns (launches,
-    reference).
+    zero-initialised one would cut the UNet's gradients. ``label`` names a
+    model other than the path's (no remat comparison, one profiled step).
+    Returns (launches, reference).
     """
     import torch
 
@@ -1609,8 +1660,8 @@ def phase_train(cfg, dev, path="fused", reference=None, timed=TIMED_STEPS, redra
     )
     from video_vae_tpu_torch.train.step import loss_and_grads
 
-    label = path_name("train", path)
-    default = path == "fused"
+    default = path == "fused" and label is None
+    label = label or path_name("train", path)
     with model_path(cfg, path) as cfg:
         model = VideoVAE(cfg, device=dev, seed=0)
         if redraw_final_conv:
@@ -1697,8 +1748,8 @@ def phase_train(cfg, dev, path="fused", reference=None, timed=TIMED_STEPS, redra
             times.append(start.elapsed_time(end))
         ms = statistics.median(times)
         log(label, json.dumps({
-            "config": f"{describe(cfg)}, bf16 compute, f32 params, b{TRAIN_BATCH} x {FRAMES} frames, "
-                      f"rl (2 rollouts), perceptual on, remat off, path {path}",
+            "config": f"{describe(cfg)}, {cfg.num_heads} heads of {cfg.head_dim}, bf16 compute, f32 params, "
+                      f"b{TRAIN_BATCH} x {FRAMES} frames, rl (2 rollouts), perceptual on, remat off, path {path}",
             "launches": launches, "ms_per_step_median": ms, "ms_per_step_all": times,
             "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
             "step1_metrics": metrics, "step2_metrics": second, "leaves_changed_by_step2": changed,
@@ -1983,6 +2034,190 @@ def phase_head_dim_kernels(dev, rows):
         phase_sublayer_kernel(cfg, dev, rows, side, paths=False)
         if label == "tiny":  # the rollouts' clips through the UNet
             phase_conv_kernels(cfg, dev, rows, None, "tiny", batch=2 * clips, frames=frames)
+
+
+def phase_h4_kernels(dev, rows):
+    """Kernels #1, #3, #5, #6 and #7 against their plain versions at head_dim 128: at
+    the calls of a ``ModelConfig(num_heads=4)`` b1 x 16f train step (its encoder's
+    on the clip, its decoder's on the 2 rollouts, the last clip padded; counted on
+    ``"train-h4"``) and the same in float32, masked and with a sequence whose keys
+    are all masked, the same bits twice, SDPA (or #7's LN → matmul → SDPA → matmul
+    chain) beside each; #5, #6 and #7 at the decoder's calls and one float32 call
+    (counted on no path: the model runs ``attention_impl="fused"``)."""
+    cfg = h4_config()
+    cases = preset_attention_cases("h4", cfg, H4_CLIPS, H4_FRAMES)
+    phase_attention_kernels(cfg, dev, rows, None, "train-h4", cases, masked_rows=True)
+    side = cases[2:4] + cases[4:5]
+    phase_flash_kernels(cfg, dev, rows, side, paths=False)
+    phase_sublayer_kernel(cfg, dev, rows, side, paths=False)
+
+
+def phase_latent_kernels(cfg, dev, rows):
+    """Kernels #1-#4 at the curriculum's second bucket, b1 x 64 frames, which
+    ``cli/cache_latents.py`` and ``cli/decode_latents.py`` run at their defaults:
+    #1 at the encoder's and decoder's calls (counted per video on
+    ``"cache-latents"`` and ``"decode-latents"``) and #3 there; #2 at the UNet's
+    convs and input gradients (its forward counted per video on
+    ``"decode-latents"``) and #4 there. The backward kernels are counted on no
+    path: no train step at b1 x 64f is driven."""
+    phase_attention_kernels(cfg, dev, rows, "cache-latents", "decode-latents", latent_attention_cases(cfg),
+                            masked_rows=True, backward=False)
+    phase_conv_kernels(cfg, dev, rows, "decode-latents", None, batch=1, frames=LATENT_FRAMES, f32=False)
+
+
+def _latent_clip(frames: int, total: int, side: int, gen):
+    """(video (total, side, side, 3) f32 in [0, 1], mask) of a synthetic clip of
+    ``frames`` true frames, zero-padded as ``load_video`` pads: two scenes of 8 x 8
+    smooth colour blocks with a little noise, a dark one and a bright one (their
+    value histograms do not overlap, so the cut halfway is a scene change)."""
+    import numpy as np
+
+    scenes = np.stack([gen.uniform(0.05, 0.3, (8, 8, 3)), gen.uniform(0.6, 0.95, (8, 8, 3))])
+    video = np.zeros((total, side, side, 3), np.float32)
+    for i in range(frames):
+        video[i] = np.kron(scenes[2 * i // frames], np.ones((side // 8, side // 8, 1))) + gen.normal(
+            0, 0.02, (side, side, 3))
+    mask = np.zeros(total, np.float32)
+    mask[:frames] = 1.0
+    return np.clip(video, 0.0, 1.0), mask
+
+
+def phase_latent_clis(dev, resize=LATENT_RESIZE, frames=LATENT_FRAMES, clip_frames=LATENT_CLIP_FRAMES):
+    """``cli/cache_latents.py``'s and ``cli/decode_latents.py``'s ``main`` at their
+    defaults (the flagship at 256², ``--max_frames 64``) under their default device,
+    on ``LATENT_VIDEOS`` synthetic clips (64 frames, and 40 padded to 64), with no
+    checkpoint (the CLIs warn and run the seeded weights). The card machine has no
+    OpenCV, so ``list_video_files``, ``load_video`` and ``write_video`` are replaced by
+    in-memory stand-ins for the run. Each video's launches are held to one encode
+    (decode) of the model; each written ``mean`` and ``selection_prob`` to a
+    hand-called ``model.encode`` on the same clip, and each decoded video to a
+    hand-called decode of its ``.npz``, bit for bit. Prints clips/s, device ms a clip
+    (torch.profiler) and peak memory; returns the launches of one video of each.
+    ``resize`` and ``frames`` other than the defaults are passed as flags."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from video_vae_tpu_torch import ModelConfig, VideoVAE
+    from video_vae_tpu_torch.cli import cache_latents, decode_latents
+    from video_vae_tpu_torch.data import source, video_io
+
+    cfg = ModelConfig(height=resize, width=resize)  # what both CLIs build
+    flags = [] if (resize, frames) == (LATENT_RESIZE, LATENT_FRAMES) else [
+        "--resize", str(resize), "--max_frames", str(frames)]
+    gen = np.random.default_rng(50)
+    clips = {f"clip{i}.mp4": _latent_clip(n, frames, resize, gen) for i, n in enumerate(clip_frames)}
+    convs = 1 + 4 * cfg.unet_levels + 2
+    want = {
+        "cache-latents": {**{k: 0 for k in read_launches()}, "vvt_fused_attention_fwd": 2 * cfg.encoder_depth},
+        "decode-latents": {**{k: 0 for k in read_launches()}, "vvt_fused_attention_fwd": 2 * cfg.decoder_depth,
+                           "vvt_conv3d_cf": convs},
+    }
+    marks, written = [], {}
+
+    def fake_list(data_dir, max_shards=100):
+        return [os.path.join(data_dir, name) for name in sorted(clips)]
+
+    def fake_load(path, max_frames=None, resize=None, crop_size=512, *, rng=None, on_error="zeros"):
+        if (max_frames, resize, on_error) != (frames, (cfg.height, cfg.width), "skip"):
+            raise AssertionError(f"load_video called with {max_frames}, {resize}, {on_error}")
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), read_launches()))
+        video, mask = clips[os.path.basename(path)]
+        return video.copy(), mask.copy()
+
+    def fake_write(batch, output_path, fps=30.0, sample_index=0):
+        written[os.path.basename(output_path)] = (np.asarray(batch["video"], np.float32), np.asarray(batch["mask"]))
+
+    def per_video(end):
+        """(seconds, launches) of each video between the marks, the last ending at ``end``."""
+        stops = marks[1:] + [end]
+        return [(b[0] - a[0], {k: b[1][k] - a[1][k] for k in a[1]}) for a, b in zip(marks, stops)]
+
+    saved = source.list_video_files, video_io.load_video, video_io.write_video
+    source.list_video_files, video_io.load_video, video_io.write_video = fake_list, fake_load, fake_write
+    results = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="vvt-latents-") as tmp:
+            missing = os.path.join(tmp, "no_checkpoint")
+            torch.cuda.reset_peak_memory_stats(dev)
+            started = time.perf_counter()
+            cache_latents.main(["--model_path", missing, "--data_dir", tmp, "--out_dir", os.path.join(tmp, "latents"),
+                                *flags])
+            torch.cuda.synchronize()
+            encoded = per_video((time.perf_counter(), read_launches()))
+            results["cache-latents"] = (encoded, time.perf_counter() - started,
+                                        torch.cuda.max_memory_allocated(dev) / 2**30)
+            latents = {name: dict(np.load(os.path.join(tmp, "latents", name.replace(".mp4", ".npz"))))
+                       for name in clips}
+            decoded = []
+            torch.cuda.reset_peak_memory_stats(dev)
+            started = time.perf_counter()
+            for name in sorted(clips):
+                before = (time.perf_counter(), read_launches())
+                decode_latents.main(["--model_path", missing, "--latents",
+                                     os.path.join(tmp, "latents", name.replace(".mp4", ".npz")),
+                                     "--out", os.path.join(tmp, name), *flags[:2]])
+                torch.cuda.synchronize()
+                after = (time.perf_counter(), read_launches())
+                decoded.append((after[0] - before[0], {k: after[1][k] - before[1][k] for k in after[1]}))
+            results["decode-latents"] = (decoded, time.perf_counter() - started,
+                                         torch.cuda.max_memory_allocated(dev) / 2**30)
+    finally:
+        source.list_video_files, video_io.load_video, video_io.write_video = saved
+
+    model = VideoVAE(cfg, device=dev)  # the CLIs' seeded weights
+    model.eval()
+    inputs = {}
+    for name, (video, mask) in clips.items():
+        npz = latents[name]
+        x = torch.from_numpy(video)[None].to(dev, torch.bfloat16)
+        m = torch.from_numpy(mask)[None].to(dev)
+        with torch.inference_mode():
+            mean, logvar, prob = model.encode(x, m)
+            z = torch.from_numpy(npz["mean"])[None].to(dev, torch.bfloat16)
+            keep = (torch.from_numpy(npz["selection_prob"])[None].to(dev) >= 0.5).to(z.dtype)[..., None]
+            recon = model.decode(model.blend_fill(z, keep), m)[0].float().cpu().numpy()
+        same = {key: np.array_equal(npz[key], ours[0].float().cpu().numpy())
+                for key, ours in (("mean", mean), ("log_variance", logvar), ("selection_prob", prob))}
+        same["video"] = np.array_equal(written[name][0], recon)
+        same["mask"] = np.array_equal(npz["mask"], mask) and np.array_equal(written[name][1], mask)
+        if not all(same.values()):
+            raise AssertionError(f"latent CLIs on {name}: not the hand-called model's bits: {same}")
+        if npz["scene_changes"].tolist() != [0, (int(mask.sum()) + 1) // 2] or str(npz["source"]) != os.path.join(
+                tmp, name):
+            raise AssertionError(f"latent CLIs on {name}: scene changes {npz['scene_changes']}, source {npz['source']}")
+        inputs[name] = (x, m, z, keep)
+    x, m, z, keep = inputs[sorted(clips)[0]]
+
+    def encode():
+        with torch.inference_mode():
+            return model.encode(x, m)
+
+    def decode():
+        with torch.inference_mode():
+            return model.decode(model.blend_fill(z, keep), m)
+
+    for label, run in (("cache-latents", encode), ("decode-latents", decode)):
+        videos, run_s, peak = results[label]
+        for i, (_, launches) in enumerate(videos):
+            if launches != want[label]:
+                raise AssertionError(f"{label} video {i}: launches {launches}, expected {want[label]}")
+        seconds = [t for t, _ in videos]
+        profile = profile_device(label, run, 1e3 * seconds[-1], passes=2)
+        log(label, json.dumps({
+            "config": f"{describe(cfg)}, cli/{label.replace('-', '_')}.py --resize {resize} --max_frames {frames}"
+                      f"{'' if flags else ' (its defaults)'}, seeded weights, {len(clips)} synthetic clips of "
+                      f"{list(clip_frames)} frames (padded to {frames}), in-memory video source",
+            "videos": len(videos), "run_s": run_s, "s_per_video": seconds,
+            "clips_per_s": len(videos) / sum(seconds), "device_ms_per_clip": profile["device_busy_ms_per_run"],
+            "device_ops_per_clip": profile["device_ops_per_run"], "peak_memory_gib": peak,
+            "launches_per_video": want[label], "same_bits_as_hand_called_model": True,
+        }))
+    del model, inputs, x, m, z, keep
+    torch.cuda.empty_cache()
+    return want
 
 
 def phase_vgg_conv_kernels(dev, rows):
@@ -2353,6 +2588,9 @@ def main() -> int:
                    f"{TRAINER_STEPS} steps and an eval of {TRAINER_CLIPS // TRAINER_BATCH} batches",
         "tiny": "none: cli/train.py --synthetic --tiny --steps 5 as it stands (one epoch of 32 steps)",
         "train-small": "none of width or depth; one step timed 3 times",
+        "train-h4": "none: the flagship's width and depth in 4 heads of 128; the float32 card-vs-CPU step at "
+                    "depth 1",
+        "cache-latents / decode-latents": f"none of width or depth; {LATENT_VIDEOS} synthetic clips",
     }))
     if [sum(d.values()) for d in tapdot_launches(wide)] != [4, 4]:
         raise AssertionError(f"the tap-dot model's gate counts changed: {tapdot_launches(wide)}")
@@ -2377,6 +2615,11 @@ def main() -> int:
     phase_head_dim_kernels(dev, rows)
     phase_vgg_conv_kernels(dev, rows)
     log("seconds", json.dumps({"head-dim and vgg kernel checks": time.monotonic() - started}))
+    started = time.monotonic()
+    # head_dim 128 (ModelConfig(num_heads=4)), and #1-#4 at b1 x 64 frames (the latent CLIs)
+    phase_h4_kernels(dev, rows)
+    phase_latent_kernels(cfg, dev, rows)
+    log("seconds", json.dumps({"head-dim-128 and b1x64f kernel checks": time.monotonic() - started}))
     started = time.monotonic()
     launches = {}
     serving_ref = train_ref = None
@@ -2413,6 +2656,11 @@ def main() -> int:
     )
     log("seconds", json.dumps({"train paths": time.monotonic() - started}))
     started = time.monotonic()
+    launches["train-h4"], _ = phase_train(h4_config().replace(remat=False), dev, "fused", None, NEW_PATH_TIMED_STEPS,
+                                          label="train-h4")
+    phase_f32_train(dev, h4=True)
+    log("seconds", json.dumps({"head_dim 128 steps": time.monotonic() - started}))
+    started = time.monotonic()
     launches["trainer"] = phase_trainer(dev)
     log("seconds", json.dumps({"trainer": time.monotonic() - started}))
     started = time.monotonic()
@@ -2420,6 +2668,9 @@ def main() -> int:
     phase_f32_train(dev, tiny=True)
     phase_train_small(dev)
     log("seconds", json.dumps({"tiny and small": time.monotonic() - started}))
+    started = time.monotonic()
+    launches.update(phase_latent_clis(dev))
+    log("seconds", json.dumps({"latent CLIs": time.monotonic() - started}))
     log(json.dumps(kernel_record(rows, launches)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

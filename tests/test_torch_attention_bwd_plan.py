@@ -26,14 +26,17 @@ from video_vae_tpu_torch.ops.flash_attention import (
     BWD_SLAB_MAX_SEQ,
     BWD_SLAB_WARPS,
     BWD_TILE_WARPS,
+    BWD_WIDE_TILE_WARPS,
     KERNEL_HEAD_DIMS,
     fused_attention_bwd_plan,
     mma_row_bytes,
 )
+from test_torch_attention_plan import D128_BATCHES, H4_CASES, LATENT_CASES
 
 # what the H100 accepts of one block and one grid; the kernel's __launch_bounds__ per variant
+# (the tile's at head_dim 128: attention_bwd_wide_kernel's)
 MAX_SMEM, MAX_GRID_X = 232448, 2**31 - 1
-LAUNCH_BOUND_WARPS = {"slab": 4, "tile": 16}
+LAUNCH_BOUND_WARPS = {"slab": 4, "tile": 16, "wide tile": 8}
 
 MODEL_CASES = sorted({
     (model, name, B, S, cfg.num_heads)
@@ -98,13 +101,22 @@ class Geometry:
         return 1 if self.rows16 <= 16 else 2 if self.rows16 <= 32 else 4
 
     @property
+    def variant(self) -> str:
+        """The kernel the plan launches: the tile's at head_dim 128 is the wide tile."""
+        variant = self.plan[0]
+        return "wide tile" if variant == "tile" and self.head_dim == 128 else variant
+
+    @property
     def smem(self) -> int:
         """``bwd_smem_bytes``: rows, P and dS (slab) or the row statistics (tile),
         key bits, and each warp's (2, D) f32 dscale partials and 8 f32 staging
-        rows of D + 8."""
+        rows of D + 8; the wide tile's (``wide_tile_smem_bytes``): three D-row
+        arrays, the row statistics, key bits and each warp's (2, D) partials."""
         variant, unit, warps = self.plan
         D, row = self.head_dim, mma_row_bytes(self.head_dim)
         words = 8 * -(-self.seq // 64)
+        if self.variant == "wide tile":
+            return 3 * self.rows16 * row + 3 * self.rows16 * 4 + words + warps * 2 * D * 4
         red = warps * (2 * D + 8 * (D + 8)) * 4
         if variant == "slab":
             pair = 4 * self.rows16 * row + 2 * self.rows16 * (self.rows16 + 8) * 2
@@ -142,7 +154,8 @@ def _check_plan(B, S, H, D=64):
     assert variant in ("slab", "tile") and unit >= 1
     assert variant == "tile" or S <= BWD_SLAB_MAX_SEQ
     assert variant == "slab" or unit == 1
-    assert 1 <= warps <= min(LAUNCH_BOUND_WARPS[variant], BWD_SLAB_WARPS if variant == "slab" else BWD_TILE_WARPS)
+    assert 1 <= warps <= min(LAUNCH_BOUND_WARPS[geo.variant],
+                             BWD_SLAB_WARPS if variant == "slab" else BWD_TILE_WARPS)
     assert geo.smem <= MAX_SMEM
     assert 1 <= geo.grid <= MAX_GRID_X
 
@@ -220,12 +233,48 @@ def test_attention_bwd_plan_at_ragged_shapes_other_head_dims(B, S, H, D):
 
 
 def test_attention_bwd_plan_is_the_same_at_every_head_dim():
-    """The variant, pairs and warps do not depend on head_dim (the largest block
-    fits at 64); the shared memory shrinks with it; other head dims are refused."""
+    """The variant and pairs do not depend on head_dim, nor the warps but at
+    head_dim 128's tile blocks (at most ``BWD_WIDE_TILE_WARPS``); the shared
+    memory grows with it and fits at each; other head dims are refused."""
     for B, S, H in RAGGED_CASES:
-        plans = {fused_attention_bwd_plan(B, S, H, D) for D in KERNEL_HEAD_DIMS}
+        plans = {fused_attention_bwd_plan(B, S, H, D) for D in KERNEL_HEAD_DIMS if D != 128}
         assert len(plans) == 1
+        (variant, unit, warps), = plans
+        wide = fused_attention_bwd_plan(B, S, H, 128)
+        assert wide == (variant, unit, warps if variant == "slab" else min(warps, BWD_WIDE_TILE_WARPS))
         smem = [Geometry(B, S, H, D).smem for D in KERNEL_HEAD_DIMS]
         assert smem == sorted(smem) and smem[-1] <= MAX_SMEM
-    with pytest.raises(ValueError, match="head_dim"):
-        fused_attention_bwd_plan(4, 16, 8, 128)
+    for bad in (8, 48, 96, 256):
+        with pytest.raises(ValueError, match="head_dim"):
+            fused_attention_bwd_plan(4, 16, 8, bad)
+
+
+@pytest.mark.parametrize("name,B,S,H,D", H4_CASES, ids=[c[0] for c in H4_CASES])
+def test_attention_bwd_plan_at_h4_shapes(name, B, S, H, D):
+    _check_plan(B, S, H, D)
+
+
+@pytest.mark.parametrize("S", range(1, 257))
+def test_attention_bwd_plan_at_head_dim_128(S):
+    for B, H in D128_BATCHES:
+        _check_plan(B, S, H, 128)
+
+
+def test_attention_bwd_plan_at_head_dim_128_is_as_designed():
+    """ModelConfig(num_heads=4): temporal S = 16, slab blocks of 4 pairs (76 KB
+    with the warps' staging rows); spatial S = 256, a wide tile block a pair: 8
+    warps taking two 16-row tiles on each side, q~ | k~ | v rows (dO's after
+    the query side) in 220 KB, where four arrays would take 278 KB."""
+    temporal = Geometry(256, 16, 4, 128)
+    assert (temporal.plan, temporal.grid, temporal.kt) == (("slab", 4, 4), 256, 1)
+    assert temporal.smem == 4 * (4 * 16 * 272 + 2 * 16 * 24 * 2 + 8) + 4 * (256 + 8 * 136) * 4
+    spatial = Geometry(16, 256, 4, 128)
+    assert (spatial.plan, spatial.variant, spatial.grid, spatial.kt) == (("tile", 1, 8), "wide tile", 64, 2)
+    assert spatial.smem == 3 * 256 * 272 + 3 * 256 * 4 + 32 + 8 * 256 * 4 == 220192
+    assert 4 * 256 * 272 > MAX_SMEM
+    assert {warp for _, warp, _, _ in spatial.tiles_dealt()} == set(range(8))
+
+
+@pytest.mark.parametrize("name,B,S,H", LATENT_CASES, ids=[c[0] for c in LATENT_CASES])
+def test_attention_bwd_plan_at_latent_cli_shapes(name, B, S, H):
+    _check_plan(B, S, H)

@@ -2,8 +2,10 @@
 
 At every attention call of the flagship and of the tap-dot model (the shapes
 ``chip_smoke.py`` holds the kernel at), of the ``--tiny`` and ``--small``
-presets (head_dim 16) and at the same shapes with head_dim 32, and at ragged
-shapes at every head dim the kernel takes: every (sequence,
+presets (head_dim 16) and at the same shapes with head_dim 32, of a
+``ModelConfig(num_heads=4)`` train step (head_dim 128) and of the latent
+CLIs (b1 × 64 frames), at every S at head_dim 128, and at ragged shapes at
+every head dim the kernel takes: every (sequence,
 head, query row) is computed by exactly one warp, that warp's block stages the
 (sequence, head) pair's keys and its chunks walk every key j < S and no row
 past the staged ones, and shared memory, warps and grid stay within CUDA's
@@ -24,11 +26,12 @@ from video_vae_tpu_torch.ops.flash_attention import (
     MMA_SLAB_MAX_SEQ,
     MMA_SLAB_WARPS,
     fused_attention_plan,
+    mma_max_warps,
     mma_row_bytes,
 )
 
-# the warps of the kernel's __launch_bounds__; what the H100 accepts of one block and one grid
-MAX_WARPS, MAX_SMEM, MAX_GRID_X = 16, 232448, 2**31 - 1
+# what the H100 accepts of one block and one grid (the kernel's __launch_bounds__ is mma_max_warps)
+MAX_SMEM, MAX_GRID_X = 232448, 2**31 - 1
 
 MODEL_CASES = sorted({
     (model, name, B, S, cfg.num_heads)
@@ -53,6 +56,16 @@ PRESET_CASES = sorted({
 })
 # the ragged shapes at the head dims other than the flagship's
 RAGGED_HEAD_DIM_CASES = [(B, S, H, D) for B, S, H in RAGGED_CASES for D in KERNEL_HEAD_DIMS if D != 64]
+# head_dim 128: the calls of a ModelConfig(num_heads=4) train step (chip_smoke.h4_config), and
+# every S the kernels take at the batches and heads below
+H4 = chip_smoke.h4_config()
+H4_CASES = [(name, B, S, H4.num_heads, H4.head_dim)
+            for name, B, S, _, _, _ in chip_smoke.preset_attention_cases("h4", H4, chip_smoke.H4_CLIPS,
+                                                                        chip_smoke.H4_FRAMES)]
+D128_BATCHES = [(1, 4), (3, 4), (5, 1), (2, 6)]  # (B, H)
+# the latent CLIs' calls at their defaults (b1 x 64 frames, the flagship's head_dim 64)
+LATENT_CASES = [(name, B, S, ModelConfig().num_heads)
+                for name, B, S, _, _, _ in chip_smoke.latent_attention_cases(ModelConfig())]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +103,8 @@ class Geometry:
     def warps(self) -> int:
         variant, unit = self.plan
         tiles = self.rows16 // 16
-        return min(MMA_SLAB_WARPS, unit * self.heads * tiles) if variant == "slab" else tiles
+        return min(MMA_SLAB_WARPS, unit * self.heads * tiles) if variant == "slab" else min(
+            tiles, mma_max_warps(self.head_dim))
 
     @property
     def smem(self) -> int:
@@ -121,10 +135,11 @@ class Geometry:
                     b = block * unit + item // (tiles * self.heads)
                     if b < self.batch:
                         yield block, item % self.warps, b, item // tiles % self.heads, 16 * (item % tiles)
-            else:
+            else:  # each warp takes the tiles in turn
                 for warp in range(self.warps):
-                    if 16 * warp < self.seq:
-                        yield block, warp, block // self.heads, block % self.heads, 16 * warp
+                    for mt in range(warp, tiles, self.warps):
+                        if 16 * mt < self.seq:
+                            yield block, warp, block // self.heads, block % self.heads, 16 * mt
 
     def key_steps(self) -> list[tuple[int, int]]:
         """(first key, 16-key steps) of every chunk a warp walks."""
@@ -140,7 +155,7 @@ def _check_plan(B, S, H, D=64):
     assert variant == "slab" or unit == 1
     assert geo.smem <= MAX_SMEM
     assert 1 <= geo.grid <= MAX_GRID_X
-    assert 1 <= geo.warps <= MAX_WARPS
+    assert 1 <= geo.warps <= mma_max_warps(D)
 
     owners = np.zeros((B, H, S), dtype=np.int32)
     for block, warp, b, h, row0 in geo.row_tiles():
@@ -218,12 +233,56 @@ def test_attention_plan_follows_the_head_dim():
     rows (3 x 8 x 64 rows) are over a slab block's 100 KB at head_dim 64 (a tile
     block a pair) and fit at 16 (a slab block a sequence); heads the kernels do
     not take are refused."""
-    assert [mma_row_bytes(d) for d in KERNEL_HEAD_DIMS] == [48, 80, 144]
+    assert [mma_row_bytes(d) for d in KERNEL_HEAD_DIMS] == [48, 80, 144, 272]
     assert fused_attention_plan(4, 64, 8, 64) == ("tile", 1)
     assert fused_attention_plan(4, 64, 8, 16) == ("slab", 1)
     assert Geometry(4, 64, 8, 16).smem == 3 * 8 * 64 * 48 + 8
     tiny = Geometry(32, 8, 2, 16)  # tiny_config's temporal call: 4 sequences a block, a warp a head
     assert (tiny.plan, tiny.warps, tiny.grid) == (("slab", 4), 8, 8)
-    for bad in (8, 48, 128):
+    for bad in (8, 48, 96, 256):
         with pytest.raises(ValueError, match="head_dim"):
             fused_attention_plan(4, 16, 8, bad)
+
+
+@pytest.mark.parametrize("name,B,S,H,D", H4_CASES, ids=[c[0] for c in H4_CASES])
+def test_attention_plan_at_h4_shapes(name, B, S, H, D):
+    _check_plan(B, S, H, D)
+
+
+@pytest.mark.parametrize("S", range(1, 257))
+def test_attention_plan_at_head_dim_128(S):
+    for B, H in D128_BATCHES:
+        _check_plan(B, S, H, 128)
+
+
+def test_attention_plan_at_head_dim_128_is_as_designed():
+    """ModelConfig(num_heads=4): temporal S = 16 has 4 heads of 128 (52 KB a
+    sequence), one sequence a slab block with a warp a head; spatial S = 256
+    takes a tile block of 205 KB, 8 warps of two 16-row tiles each (255
+    registers a thread for a 16 x 128 f32 output)."""
+    assert [c[1:4] for c in H4_CASES] == [(256, 16, 4), (16, 256, 4), (512, 16, 4), (32, 256, 4), (256, 16, 4),
+                                          (16, 256, 4)]
+    temporal = Geometry(256, 16, 4, 128)
+    assert (temporal.plan, temporal.warps, temporal.grid, temporal.smem) == (("slab", 1), 4, 256, 3 * 4 * 16 * 272 + 8)
+    spatial = Geometry(16, 256, 4, 128)
+    assert (spatial.plan, spatial.warps, spatial.grid) == (("tile", 1), 8, 64)
+    assert spatial.smem == 3 * 256 * 272 + 4 * 8 == 208928
+    assert {warp for _, warp, _, _, _ in spatial.row_tiles()} == set(range(8))
+    assert mma_max_warps(64) == 16 and Geometry(16, 256, 4, 64).warps == 16
+
+
+@pytest.mark.parametrize("name,B,S,H", LATENT_CASES, ids=[c[0] for c in LATENT_CASES])
+def test_attention_plan_at_latent_cli_shapes(name, B, S, H):
+    _check_plan(B, S, H)
+
+
+def test_check_head_dim_takes_the_four():
+    """The kernels take head_dim 16, 32, 64 and 128; another raises, naming the four."""
+    from video_vae_tpu_torch.ops.flash_attention import check_head_dim
+
+    assert KERNEL_HEAD_DIMS == (16, 32, 64, 128)
+    for d in KERNEL_HEAD_DIMS:
+        check_head_dim(d)
+    for bad in (0, 8, 24, 48, 96, 192, 256):
+        with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64, 128\), got " + str(bad)):
+            check_head_dim(bad)

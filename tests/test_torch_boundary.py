@@ -28,14 +28,22 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 banned = ("jax", "jaxlib", "flax", "orbax", "video_vae_tpu")
 bad = [m for m in sys.modules if m.split(".")[0] in banned]
 print("BAD", bad)
-sys.exit(1 if bad else 0)
+missing = [m for m in REQUIRED if m not in sys.modules]
+print("MISSING", missing)
+sys.exit(1 if bad or missing else 0)
 """
+# modules the walk must reach (a package without an __init__ would drop out of it)
+REQUIRED = (
+    "video_vae_tpu_torch.cli.cache_latents", "video_vae_tpu_torch.cli.decode_latents",
+    "video_vae_tpu_torch.cli.check_videos", "video_vae_tpu_torch.ops.embeddings",
+    "video_vae_tpu_torch.utils.debug", "video_vae_tpu_torch.utils.metrics", "video_vae_tpu_torch.cli.train",
+)
 
 
 def test_port_and_chip_smoke_import_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+        [sys.executable, "-c", f"REQUIRED = {REQUIRED!r}\n" + _IMPORT_ALL], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr

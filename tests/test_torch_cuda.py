@@ -131,7 +131,7 @@ def test_fused_attention_bf16_kernel_geometries(device, B, S, H, masked, D):
     _check_fused_attention(device, torch.bfloat16, B, S, H, masked, D)
 
 
-@pytest.mark.parametrize("D", [8, 48, 128])
+@pytest.mark.parametrize("D", [8, 48, 256])
 def test_attention_kernels_refuse_other_head_dims(device, D):
     """A head dim the kernels are not instantiated for raises on the card, naming
     the ones they take; nothing falls back to the plain version."""
@@ -152,7 +152,7 @@ def test_attention_kernels_refuse_other_head_dims(device, D):
             torch.zeros(H * D, 64, device=device), torch.zeros(64, device=device), None, H),
     ]
     for call in calls:
-        with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64\)"):
+        with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64, 128\)"):
             call()
     assert before == [k.launches for k in kernels]
 
@@ -1325,3 +1325,68 @@ def test_tiny_trainer_two_steps(device, overlap, tmp_path, monkeypatch):
         for key in a:
             if key != "elapsed":
                 assert abs(a[key] - b[key]) <= 1e-5 * max(abs(b[key]), 1e-30), key
+
+
+def test_h4_train_step_is_finite(device):
+    """One bf16 train step of ``ModelConfig(num_heads=4)`` (the flagship's width in
+    4 heads of 128) at reduced size on the fused path: #1 and #3 launch at head_dim
+    128 once per attention call, and the loss and gradient norm are finite."""
+    from video_vae_tpu_torch import DynamicHParams, LossConfig, ModelConfig, OptimConfig, VideoVAE
+    from video_vae_tpu_torch import create_optimizer, train_step
+
+    cfg = ModelConfig(num_heads=4, height=64, width=64, encoder_depth=1, decoder_depth=1, remat=False)
+    assert cfg.head_dim == 128
+    model = VideoVAE(cfg, device=device)
+    opt = create_optimizer(model, OptimConfig())
+    gen = torch.Generator().manual_seed(0)
+    video = torch.rand(1, 16, 64, 64, 3, generator=gen).to(device)
+    mask = torch.ones(1, 16, device=device)
+    mask[0, 13:] = 0
+    before = (FUSED_ATTENTION.launches, FUSED_ATTENTION_BWD.launches)
+    metrics = train_step(model, opt, video, mask, DynamicHParams.default(), LossConfig(use_perceptual=False), None,
+                         generator=torch.Generator(device=device).manual_seed(1))
+    torch.cuda.synchronize()
+    calls = 2 * (cfg.encoder_depth + cfg.decoder_depth)
+    assert (FUSED_ATTENTION.launches - before[0], FUSED_ATTENTION_BWD.launches - before[1]) == (calls, calls)
+    assert math.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+
+
+def test_latent_clis_on_the_card(device, tmp_path, monkeypatch, capsys):
+    """``cli/cache_latents.py`` and ``cli/decode_latents.py`` at ``--tiny`` under their
+    default device (CUDA), on two in-memory clips (the card machine has no OpenCV):
+    the latents and the decoded video are finite and of the JAX CLI's shapes, and the
+    encode launched #1 once per attention call of each clip."""
+    import numpy as np
+
+    from video_vae_tpu_torch.cli import cache_latents, decode_latents
+    from video_vae_tpu_torch.core.config import tiny_config
+
+    cfg = tiny_config().model
+    rng = np.random.default_rng(0)
+    clips = {}
+    for name, frames in (("a.mp4", 8), ("b.mp4", 5)):
+        video = np.zeros((8, 32, 32, 3), np.float32)
+        video[:frames] = rng.uniform(0, 1, (frames, 32, 32, 3))
+        mask = (np.arange(8) < frames).astype(np.float32)
+        clips[name] = (video, mask)
+    written = {}
+    monkeypatch.setattr("video_vae_tpu_torch.data.source.list_video_files",
+                        lambda d, max_shards=100: [str(tmp_path / n) for n in sorted(clips)])
+    monkeypatch.setattr("video_vae_tpu_torch.data.video_io.load_video",
+                        lambda path, *a, **k: tuple(x.copy() for x in clips[path.split("/")[-1]]))
+    monkeypatch.setattr("video_vae_tpu_torch.data.video_io.write_video",
+                        lambda batch, path, fps=30.0, sample_index=0: written.update({path: batch}))
+    before = FUSED_ATTENTION.launches
+    cache_latents.main(["--model_path", str(tmp_path / "none"), "--data_dir", str(tmp_path),
+                        "--out_dir", str(tmp_path / "out"), "--tiny", "--max_frames", "8"])
+    assert FUSED_ATTENTION.launches - before == 2 * 2 * cfg.encoder_depth
+    assert "WARNING: checkpoint restore failed" in capsys.readouterr().out
+    for name, (video, mask) in clips.items():
+        npz = np.load(tmp_path / "out" / name.replace(".mp4", ".npz"))
+        assert npz["mean"].shape == (8, cfg.num_patches, cfg.latent_dim) and np.isfinite(npz["mean"]).all()
+        assert npz["selection_prob"].shape == (8, 1) and np.array_equal(npz["mask"], mask)
+        decode_latents.main(["--model_path", str(tmp_path / "none"), "--latents",
+                             str(tmp_path / "out" / name.replace(".mp4", ".npz")), "--out", str(tmp_path / name),
+                             "--tiny"])
+        recon = written[str(tmp_path / name)]["video"]
+        assert recon.shape == video.shape and np.isfinite(recon).all()

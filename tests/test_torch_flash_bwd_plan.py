@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import pytest
 from test_torch_attention_bwd_plan import (
+    LAUNCH_BOUND_WARPS,
     MAX_GRID_X,
     MAX_SMEM,
     MODEL_CASES,
@@ -28,6 +29,7 @@ from test_torch_attention_bwd_plan import (
     RAGGED_HEAD_DIM_CASES,
     Geometry,
 )
+from test_torch_attention_plan import D128_BATCHES, H4_CASES
 
 from video_vae_tpu_torch.ops.flash_attention import (
     BWD_SLAB_MAX_SEQ,
@@ -38,8 +40,6 @@ from video_vae_tpu_torch.ops.flash_attention import (
     mma_row_bytes,
 )
 
-# the kernels' __launch_bounds__ per variant
-LAUNCH_BOUND_WARPS = {"slab": 4, "tile": 16}
 KEY_GROUP = 64  # keys a cp.async group of a tile block brings
 
 
@@ -58,6 +58,8 @@ class FlashGeometry(Geometry):
         variant, unit, warps = self.plan
         row = mma_row_bytes(self.head_dim)
         words = 8 * -(-self.seq // 64)
+        if self.variant == "wide tile":  # the fused backward's wide tile without the dscale partials
+            return 3 * self.rows16 * row + 3 * self.rows16 * 4 + words
         stage = warps * 8 * (self.head_dim + 8) * 4  # a warp's f32 staging rows of the epilogue
         if variant == "slab":
             pair = 4 * self.rows16 * row + 2 * self.rows16 * (self.rows16 + 8) * 2
@@ -87,10 +89,19 @@ def _check_plan(B, S, H, D=64):
     variant, unit, warps = geo.plan
     assert variant in ("slab", "tile") and unit >= 1
     assert variant == "tile" or S <= BWD_SLAB_MAX_SEQ
-    assert 1 <= warps <= min(LAUNCH_BOUND_WARPS[variant],
+    assert 1 <= warps <= min(LAUNCH_BOUND_WARPS[geo.variant],
                              BWD_SLAB_WARPS if variant == "slab" else BWD_TILE_WARPS)
     assert geo.smem <= MAX_SMEM
     assert 1 <= geo.grid <= MAX_GRID_X
+
+    if geo.variant == "wide tile":  # the fused backward's: its Geometry walks the same items
+        assert warps == min(geo.tiles, LAUNCH_BOUND_WARPS["wide tile"])
+        owners = np.zeros((B * H, S), dtype=np.int32)
+        for block, warp, pair, row0 in geo.tiles_dealt():
+            assert 0 <= warp < warps and pair == block
+            owners[pair, row0 : row0 + 16] += 1
+        assert (owners == 1).all()
+        return
 
     if variant == "slab":
         # query side, then key side: the same 16-row tiles dealt to the warps in turn
@@ -166,3 +177,24 @@ def test_flash_bwd_plan_at_preset_shapes(label, name, B, S, H, D):
 @pytest.mark.parametrize("B,S,H,D", RAGGED_HEAD_DIM_CASES)
 def test_flash_bwd_plan_at_ragged_shapes_other_head_dims(B, S, H, D):
     _check_plan(B, S, H, D)
+
+
+@pytest.mark.parametrize("name,B,S,H,D", H4_CASES, ids=[c[0] for c in H4_CASES])
+def test_flash_bwd_plan_at_h4_shapes(name, B, S, H, D):
+    _check_plan(B, S, H, D)
+
+
+@pytest.mark.parametrize("S", range(1, 257))
+def test_flash_bwd_plan_at_head_dim_128(S):
+    for B, H in D128_BATCHES:
+        _check_plan(B, S, H, 128)
+
+
+def test_flash_bwd_plan_at_head_dim_128_is_as_designed():
+    """At S = 256 and head_dim 128 the exchange tile's four row arrays and a
+    round's dS^T (315 KB) do not fit: the plan's tile is the fused backward's
+    wide tile, 8 warps, q | k | v (then dO) rows in 212 KB."""
+    spatial = FlashGeometry(16, 256, 4, 128)
+    assert (spatial.plan, spatial.variant) == (("tile", 1, 8), "wide tile")
+    assert spatial.smem == 3 * 256 * 272 + 3 * 256 * 4 + 32 == 212000
+    assert 4 * 256 * 272 + 256 * (FLASH_BWD_ROUND + 8) * 2 > MAX_SMEM

@@ -19,16 +19,16 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from test_torch_attention_plan import MAX_GRID_X, MAX_SMEM, MODEL_CASES, PRESET_CASES, Geometry
+from test_torch_attention_plan import D128_BATCHES, H4_CASES, MAX_GRID_X, MAX_SMEM, MODEL_CASES, PRESET_CASES, Geometry
 
 from video_vae_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
     MMA_SLAB_MAX_SEQ,
     _rows_of_heads,
     flash_attention_plan,
+    mma_max_warps,
 )
 
-LAUNCH_BOUND_WARPS = 16  # flash_fwd_kernel's __launch_bounds__
 D = 64
 
 # the S and H of FLASH_CASES in tests/test_torch_cuda.py, at B = 1, 3 and 5
@@ -94,7 +94,7 @@ def _check_plan(B, S, H, D=64):
     assert variant == "slab" or unit == 1
     assert geo.smem <= MAX_SMEM
     assert 1 <= geo.grid <= MAX_GRID_X
-    assert 1 <= geo.warps <= LAUNCH_BOUND_WARPS
+    assert 1 <= geo.warps <= mma_max_warps(D)  # flash_fwd_kernel's __launch_bounds__
 
     # every (sequence, head, query row) by one warp of a block that staged the pair
     owners = np.zeros((B, H, S), dtype=np.int32)
@@ -105,7 +105,7 @@ def _check_plan(B, S, H, D=64):
         owners[b, h, row0 : row0 + 16] += 1
     assert (owners == 1).all()
     if variant == "tile":  # the kernel calls attend from every warp
-        assert geo.warps == geo.rows16 // 16
+        assert geo.warps == min(geo.rows16 // 16, mma_max_warps(D))
 
     # the key chunks: every key j < S once, within the staged rows, and each in
     # one word of key bits
@@ -189,3 +189,23 @@ def test_flash_plan_at_preset_shapes(label, name, B, S, H, D):
 @pytest.mark.parametrize("B,S,H,D", [(B, S, H, D) for B, S, H in RAGGED_CASES for D in KERNEL_HEAD_DIMS if D != 64])
 def test_flash_plan_at_ragged_shapes_other_head_dims(B, S, H, D):
     _check_plan(B, S, H, D)
+
+
+@pytest.mark.parametrize("name,B,S,H,D", H4_CASES, ids=[c[0] for c in H4_CASES])
+def test_flash_plan_at_h4_shapes(name, B, S, H, D):
+    _check_plan(B, S, H, D)
+
+
+@pytest.mark.parametrize("S", range(1, 257))
+def test_flash_plan_at_head_dim_128(S):
+    for B, H in D128_BATCHES:
+        _check_plan(B, S, H, 128)
+
+
+def test_flash_plan_at_head_dim_128_is_as_designed():
+    """S = 256 at head_dim 128: a tile block of 8 warps, each taking two 16-row
+    query tiles, walking the keys twice in four chunks, 205 KB of rows."""
+    spatial = FlashGeometry(16, 256, 4, 128)
+    assert (spatial.plan, spatial.warps, spatial.grid) == (("tile", 1), 8, 64)
+    assert spatial.two_pass and spatial.smem == 3 * 256 * 272 + 4 * 8
+    assert sorted(row0 for _, _, b, h, row0 in spatial.row_tiles() if (b, h) == (0, 0)) == list(range(0, 256, 16))

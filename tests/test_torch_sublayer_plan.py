@@ -47,6 +47,10 @@ HEAD_DIM_CASES = sorted(
     | {(B, S, cfg.embed_dim, cfg.num_heads, cfg.head_dim)
        for label, cfg, clips, frames in chip_smoke.head_dim_configs()
        for _, B, S, _, _, _ in chip_smoke.preset_attention_cases(label, cfg, clips, frames)}
+    # a ModelConfig(num_heads=4) step's calls: head_dim 128, o · Wout's K = H·D = 512 as the flagship's
+    | {(B, S, chip_smoke.h4_config().embed_dim, 4, 128)
+       for _, B, S, _, _, _ in chip_smoke.preset_attention_cases("h4", chip_smoke.h4_config(), chip_smoke.H4_CLIPS,
+                                                               chip_smoke.H4_FRAMES)}
 )
 
 

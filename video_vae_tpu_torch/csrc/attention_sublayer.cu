@@ -42,6 +42,9 @@
 // a b2 serving pass 4.63 / 4.57 against 8.00. xa . Wqkv runs at 500-570
 // TFLOP/s, o . Wout at 205-240: its K = 512 is 8 slabs a tile, so filling the
 // ring and the epilogue weigh more.
+// D = 128 (e.g. 4 heads at H D = 512): the products are the flagship's (o .
+// Wout's K = 512 in 8 slabs); the attention launch is #1's at D = 128 (8
+// warps a bf16 block, the quad kernel for f32 x).
 
 #include "fused_attention_core.cuh"
 #include "fused_attention_mma.cuh"
@@ -113,7 +116,7 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
 
 }  // namespace
 
-// head_dim D: 16, 32 or 64; any other is refused.
+// head_dim D: 16, 32, 64 or 128; any other is refused.
 // dtype: 0 = float32, 1 = bfloat16 (x, y, qkv, o). x, y: (B, S, C); qkv: (B, S, 3*H*D);
 // o: (B, S, H*D); xa: bf16 scratch (B, S, C); o16: bf16 scratch (B, S, H*D) for
 // float32 x, null for bfloat16. ln_g, ln_b, bqkv, bout, q_scale, k_scale, cos_t,

@@ -5,7 +5,7 @@
 // keys set to -1e30 (so a fully masked row gets uniform weights), p =
 // exp(s - max) / sum in f32 with the exact row max and sum, p rounded to v's
 // dtype, o = p v accumulated in f32, one rounding to the output dtype. D in
-// {16, 32, 64} (a template parameter of every kernel), 1 <= S <= 256; f32 or bf16. Each tensor is addressed as base + (b * S + i) *
+// {16, 32, 64, 128} (a template parameter of every kernel), 1 <= S <= 256; f32 or bf16. Each tensor is addressed as base + (b * S + i) *
 // row_stride + h * D + d, so v may be a view into the fused QKV projection
 // (row stride 3 * H * D, as the model's "pallas" path hands it over).
 //
@@ -64,7 +64,13 @@
 // twice, once for the row max and sum, once for the rounded normalised weights
 // times v, recomputing the scores (6 * S * S * D FLOPs in all on the f32 pipe).
 // It backs the f32 card-vs-CPU phases of the "pallas" path.
+//
+// D = 128: bf16 as above with at most 8 warps a block (FWD_WARPS<128>, each
+// warp of a tile block taking two 16-row query tiles at S = 256); f32 the
+// quad kernel of attention_f32_wide.cuh (the thread-a-row kernel would need
+// 256 registers and 270 KB of staged k and v).
 
+#include "attention_f32_wide.cuh"
 #include "flash_attention_mma.cuh"
 #include "flash_common.cuh"
 
@@ -163,10 +169,22 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < D; ++d) o[d] = from_float<T>(acc[d]);
 }
 
+// At D = 128 (f32 only) the quad kernel of attention_f32_wide.cuh.
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    long long q_stride, long long k_stride, long long v_stride, int B, int S, int H,
                    cudaStream_t stream) {
+  if constexpr (D == 128) {
+    static_assert(sizeof(T) == 4, "the D = 128 CUDA-core attention takes f32");
+    const long long HD = (long long)H * D;
+    auto rows = [&](const void* p, long long stride) {
+      return fa_wide::Rows{static_cast<const float*>(p), S * stride, D, stride};
+    };
+    return fa_wide::launch_fwd<D>(false, rows(q, q_stride), rows(k, k_stride), rows(v, v_stride),
+                                  static_cast<const unsigned char*>(mask),
+                                  fa_wide::OutRows{static_cast<float*>(out), S * HD, D, HD}, B, S, H, nullptr,
+                                  nullptr, nullptr, nullptr, stream);
+  } else {
   const int pairs_per_block = MAX_ROWS / S;
   const int rows = pairs_per_block * S;
   const int threads = (rows + 31) / 32 * 32;
@@ -182,6 +200,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
       static_cast<const unsigned char*>(mask), static_cast<T*>(out), q_stride, k_stride, v_stride,
       B, S, H, pairs_per_block, 1.f / sqrtf((float)D));
   return cudaGetLastError();
+  }
 }
 
 }  // namespace

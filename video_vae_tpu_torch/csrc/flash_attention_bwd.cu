@@ -5,7 +5,7 @@
 // p = softmax(q k^T / sqrt(D), masked keys at -1e30) with the exact row max and
 // sum, then dv = p^T dO, dp = dO v^T, row = sum_j p_ij dp_ij,
 // ds = p o (dp - row) / sqrt(D), dq = ds k, dk = ds^T q, each written once in
-// its input's dtype. D in {16, 32, 64} (a template parameter of every
+// its input's dtype. D in {16, 32, 64, 128} (a template parameter of every
 // kernel), 1 <= S <= 256. A row whose keys are all masked
 // spreads p evenly over all S keys; a key past S (a tile's padding) adds
 // exactly 0.
@@ -72,7 +72,15 @@
 //      and dv.
 // For S <= 128 a block owns several whole sequences; above, one sequence with
 // a chunk of 128 of its rows and the other side staged whole (139 KB).
+//
+// D = 128: bf16 slab blocks as above with one block an SM at least; a tile
+// block runs the fused backward's wide tile without LN or RoPE
+// (bwd::wide_tile_bwd: q | k | v rows, then dO over v; dO and v fragments
+// from device memory; 8 warps, 212 KB): the exchange's four row arrays and a
+// round's dS^T (315 KB) do not fit, so the key side recomputes the scores (9
+// products, not 7). f32 runs the quad kernels of attention_f32_wide.cuh.
 
+#include "attention_f32_wide.cuh"
 #include "flash_attention_bwd_mma.cuh"
 #include "flash_common.cuh"
 
@@ -302,7 +310,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
   const T* gt = static_cast<const T*>(d_o);
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
   float* stats = static_cast<float*>(work);
-
+  if constexpr (D == 128) {  // f32 only: the quad kernels of attention_f32_wide.cuh
+    static_assert(sizeof(T) == 4, "the D = 128 CUDA-core attention takes f32");
+    const long long HD = (long long)H * D;
+    auto in = [&](const T* p, long long stride) { return fa_wide::Rows{p, S * stride, D, stride}; };
+    auto out = [&](void* p) { return fa_wide::OutRows{static_cast<float*>(p), S * HD, D, HD}; };
+    return fa_wide::launch_sides<D>(in(qt, st.q), in(kt, st.k), in(vt, st.v), in(gt, st.d_o), mk, out(dq), out(dk),
+                                    out(dv), stats, B, S, H, stream);
+  } else {
   const int ppb = S <= SIDE_ROWS ? SIDE_ROWS / S : 1;
   const int chunks = (S + SIDE_ROWS - 1) / SIDE_ROWS;
   const unsigned blocks = (unsigned)(((n_pairs + ppb - 1) / ppb) * chunks);
@@ -325,6 +340,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
   key_fn<<<blocks, THREADS, k_smem, stream>>>(qt, kt, vt, gt, mk, static_cast<T*>(dk),
                                               static_cast<T*>(dv), stats, st, S, H, n_pairs, scale);
   return cudaGetLastError();
+  }
 }
 
 }  // namespace

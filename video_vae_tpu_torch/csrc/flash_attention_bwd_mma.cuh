@@ -25,8 +25,8 @@ namespace fa_mma {
 namespace flash_bwd {
 
 // the fused backward's plan (ops/flash_attention.py:flash_attention_bwd_plan)
+using bwd::SLAB_BLOCKS;
 using bwd::SLAB_MAX_SEQ;
-using bwd::SLAB_MIN_BLOCKS;
 using bwd::SLAB_WARPS;
 using bwd::STAGE_ROW;
 using bwd::TILE_KT;
@@ -104,7 +104,7 @@ __device__ __forceinline__ void cp_async_wait_at_most(int n) {
 // memory, dq); a barrier; the key side of every 16-row key tile, dealt the same
 // way (dv, dk). tests/test_torch_flash_bwd_plan.py walks the same items on the CPU.
 template <int D, int KT>
-__global__ void __launch_bounds__(SLAB_WARPS * 32, SLAB_MIN_BLOCKS) flash_bwd_slab_kernel(Args a) {
+__global__ void __launch_bounds__(SLAB_WARPS * 32, SLAB_BLOCKS<D>) flash_bwd_slab_kernel(Args a) {
   extern __shared__ float4 smem4[];
   bf16* smem = reinterpret_cast<bf16*>(smem4);
   constexpr int ROW = fa_mma::ROW<D>, STAGE_ROW = bwd::STAGE_ROW<D>;
@@ -330,6 +330,24 @@ __global__ void __launch_bounds__(TILE_WARPS * 32, 1) flash_bwd_tile_kernel(Args
   bwd::store_rows<D>(dk, stage, a.dk + base, HD, r0, S);
 }
 
+// The tile variant at D = 128: the fused backward's wide tile
+// (bwd::wide_tile_bwd in fused_attention_mma_common.cuh) without LN or RoPE,
+// one block per (sequence, head) pair. It recomputes the scores on the key
+// side (9 products of S^2 D) where the D <= 64 tile exchanges dS (7): the
+// exchange's dS^T rows would not fit beside the three D-wide arrays.
+template <int D>
+__global__ void __launch_bounds__(bwd::WIDE_TILE_WARPS * 32, 1) flash_bwd_wide_kernel(Args a) {
+  const long long p = blockIdx.x, b = p / a.H;
+  const int h = (int)(p % a.H);
+  const size_t out = (size_t)b * a.S * a.H * D + (size_t)h * D;
+  const bwd::PairRows io{{a.q + b * a.S * a.q_stride + h * D, a.k + b * a.S * a.k_stride + h * D,
+                          a.v + b * a.S * a.v_stride + h * D, a.g + b * a.S * a.g_stride + h * D},
+                         {(size_t)a.q_stride, (size_t)a.k_stride, (size_t)a.v_stride, (size_t)a.g_stride},
+                         {a.dq + out, a.dk + out, a.dv + out},
+                         (size_t)a.H * D};
+  bwd::wide_tile_bwd<D, false>(io, bwd::NormRope{}, a.mask, b, a.S, nullptr, nullptr);
+}
+
 template <int D, int KT>
 cudaError_t launch_slab(const Args& a, int warps, int smem, unsigned blocks, cudaStream_t stream) {
   auto kernel = flash_bwd_slab_kernel<D, KT>;
@@ -351,19 +369,24 @@ cudaError_t launch_flash_bwd_mma(const Args& a, int variant, int warps, long lon
     if (a.S > SLAB_MAX_SEQ || a.unit < 1 || warps < 1 || warps > SLAB_WARPS) return cudaErrorInvalidValue;
     blocks = (pairs + a.unit - 1) / a.unit;
   } else if (variant == TILE) {
-    if (a.unit != 1 || warps != rows16(a.S) / 16 || warps > TILE_WARPS) return cudaErrorInvalidValue;
+    const int tile_warps = D == 128 ? std::min(rows16(a.S) / 16, bwd::WIDE_TILE_WARPS) : rows16(a.S) / 16;
+    if (a.unit != 1 || warps != tile_warps || warps > TILE_WARPS) return cudaErrorInvalidValue;
     blocks = pairs;
   } else {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = smem_bytes<D>(variant, a.S, a.unit, warps);
+  const size_t smem = D == 128 && variant == TILE ? bwd::wide_tile_smem_bytes<D>(a.S, warps, false)
+                                                  : smem_bytes<D>(variant, a.S, a.unit, warps);
   if (blocks != n_blocks || blocks > 0x7fffffffLL || smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   const unsigned grid = (unsigned)blocks;
   if (variant == TILE) {
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_tile_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    auto kernel = [] {
+      if constexpr (D == 128) return flash_bwd_wide_kernel<D>;
+      else return flash_bwd_tile_kernel<D>;
+    }();
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_tile_kernel<D><<<grid, 32 * warps, smem, stream>>>(a);
+    kernel<<<grid, 32 * warps, smem, stream>>>(a);
     return cudaGetLastError();
   }
   switch (chunk_steps(a.S)) {  // one chunk holds every key

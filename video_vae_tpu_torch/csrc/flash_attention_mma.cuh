@@ -41,11 +41,12 @@ __device__ __forceinline__ void copy_piece(bf16* dst, const Args& a, int part, l
 
 // grid: slab, one block per `unit` sequences, its warps taking the 16-row query
 // tiles of every head in turn; tile, one block per (sequence, head) pair, a warp
-// for each 16 of its query rows. Every q, k and v row of the block is copied in
+// for each 16 of its query rows (up to FWD_WARPS<D>, each then taking the tiles
+// in turn). Every q, k and v row of the block is copied in
 // one cp.async group before any warp starts. tests/test_torch_flash_plan.py
 // walks the same items on the CPU.
 template <int D, int KT>
-__global__ void __launch_bounds__(MAX_WARPS * 32) flash_fwd_kernel(const Args a, int variant) {
+__global__ void __launch_bounds__(FWD_WARPS<D> * 32) flash_fwd_kernel(const Args a, int variant) {
   extern __shared__ float4 smem4[];
   bf16* smem = reinterpret_cast<bf16*>(smem4);
   constexpr int ROW = fa_mma::ROW<D>, P = PIECES<D>;
@@ -107,9 +108,10 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) flash_fwd_kernel(const Args a,
   stage_key_bits(keep, a.mask, b, S, warp, warps);
   cp_async_wait<0>();
   __syncthreads();
-  // warps = rows16(S) / 16, so every warp has query rows
-  attend<D, KT>(q_s + (size_t)16 * warp * ROW, k_s, v_s, keep, S, true, a.out + (size_t)b * S * out_row + h * D,
-             16 * warp, H);
+  // warps = min(rows16(S) / 16, FWD_WARPS<D>), so every warp has query rows
+  for (int mt = warp; 16 * mt < S; mt += warps)
+    attend<D, KT>(q_s + (size_t)16 * mt * ROW, k_s, v_s, keep, S, true, a.out + (size_t)b * S * out_row + h * D,
+                  16 * mt, H);
 }
 
 template <int D, int KT>
@@ -136,7 +138,7 @@ cudaError_t launch_flash_mma(const Args& a, int variant, cudaStream_t stream) {
   } else if (variant == TILE) {
     if (a.unit != 1) return cudaErrorInvalidValue;
     blocks = (long long)a.B * H;
-    warps = tiles;  // at most MAX_WARPS, as S <= 256
+    warps = std::min<long long>(tiles, FWD_WARPS<D>);  // tiles <= 16, as S <= 256
   } else {
     return cudaErrorInvalidValue;
   }

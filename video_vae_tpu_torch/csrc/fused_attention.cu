@@ -5,7 +5,7 @@
 // (B, S, 3*H*D) row, LayerNorm q and k over D (no bias, f32 statistics,
 // E[x^2]-mean^2 clamped at 0, eps 1e-6, times the (D,) scale), rotate-half
 // RoPE with (S, D) f32 tables, softmax(q k^T / sqrt(D) + key mask) v, one
-// rounding to the output dtype. D in {16, 32, 64} (a template parameter of
+// rounding to the output dtype. D in {16, 32, 64, 128} (a template parameter of
 // every kernel, one instantiation each), 1 <= S <= 256. A masked key (j < S,
 // mask 0) scores -1e30, so a row whose keys are all masked averages all S
 // keys; a key past S (a tile's padding) adds exactly 0.
@@ -66,6 +66,14 @@
 // A later version would issue wgmma from warpgroups and stage with TMA under
 // warp specialisation, so that one tile's loads and LN overlap another's
 // products.
+//
+// D = 128: the bf16 kernel is the same code with at most 8 warps a block
+// (FWD_WARPS<128>): a warp's 16 x 128 f32 output and its q fragments take 96
+// registers a lane, so 16 warps capped at 128 registers would spill; a tile
+// block (205 KB of q, k, v rows at S = 256) then gives each warp two 16-row
+// query tiles in turn. f32 takes the quad kernel of attention_f32_wide.cuh
+// (four lanes a row, k~ and v staged in 64-key chunks): one thread a row would
+// need 256 registers and the whole sequence's f32 k and v 270 KB.
 
 #include "fused_attention_core.cuh"
 #include "fused_attention_mma.cuh"
@@ -73,7 +81,7 @@
 // dtype: 0 = float32, 1 = bfloat16. mask: (B, S) uint8 key mask, or null.
 // variant, unit: the bf16 kernel's plan (slab 0 or tile 1; sequences a slab
 // block, 1 for a tile); the f32 kernel takes its geometry from the shape.
-// head_dim: 16, 32 or 64; any other is refused.
+// head_dim: 16, 32, 64 or 128; any other is refused.
 extern "C" int vvt_fused_attention_fwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
                                        void* out, int B, int S, int H, int head_dim, int dtype,

@@ -7,7 +7,7 @@
 // row = sum_j P_ij dP_ij (f32), dS = P o (dP - row) / sqrt(D), dq~ = dS k~, dk~ = dS^T q~,
 // and back through RoPE (its transpose), the scale (a per-dim partial
 // sum_rows dln * xn) and the LN: dx = r * (dxn - mean(dxn) - xn * mean(dxn * xn)).
-// D in {16, 32, 64} (a template parameter of every kernel), 1 <= S <= 256. A
+// D in {16, 32, 64, 128} (a template parameter of every kernel), 1 <= S <= 256. A
 // masked key (j < S, mask 0) scores -1e30, so a row
 // whose keys are all masked spreads P evenly over all S keys; a key past S (a
 // tile's padding) adds exactly 0.
@@ -87,11 +87,24 @@
 //      row) from shared memory and accumulate dk~ and dv;
 //   4. LN/RoPE backward: one warp per row, lanes l < D/2 own dims l and
 //      l + D/2 (the RoPE pairs); per-block dscale partials, summed by the wrapper.
+//
+// D = 128. bf16 slab blocks are the same code with one block an SM at least
+// (bwd::SLAB_BLOCKS<128>: up to 255 registers for 16 x 128 accumulators). A
+// tile block cannot stage a pair's four row arrays (4 x 69.6 KB at S = 256):
+// it runs bwd::wide_tile_bwd (fused_attention_mma_common.cuh), which keeps
+// q~ | k~ | v in shared memory, reads the query side's dO and the key side's v
+// as mma.sync A fragments from device memory, copies dO over v between the
+// sides, and takes its epilogues (LN + RoPE backward, dv) straight from the
+// accumulators, whose lanes hold each column's RoPE partner: 8 warps, 220
+// KB, the same products and roundings. f32 passes 1 and 4 give a lane two
+// RoPE pairs (LANE_PAIRS<128>); passes 2 and 3 are the quad kernels of
+// attention_f32_wide.cuh (four lanes a row, the other side in 64-row chunks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_f32_wide.cuh"
 #include "fused_attention_bwd_mma.cuh"
 
 namespace {
@@ -141,24 +154,37 @@ __host__ __device__ __forceinline__ Work carve(float* base, long long rows) {
 
 // ---- pass 1: LN + scale + RoPE of q and k, f32 copies of v and dO ----------
 
-// Lane l < D/2 of a warp owns dims l and l + D/2 of a row (the RoPE pairs); the
-// other lanes hold zeros, which add nothing to the row's sums.
-template <int D>
-__device__ __forceinline__ bool owns_dims(int lane) { return D == 64 || lane < D / 2; }
+// Lane l < D/2 of a warp owns dims l and l + D/2 of a row (the RoPE pairs); at
+// D = 128 it owns LANE_PAIRS = 2 such pairs, dims l + 32 j and l + 32 j + D/2.
+// The other lanes (D < 64) hold zeros, which add nothing to the row's sums.
+template <int D> constexpr int LANE_PAIRS = D == 128 ? 2 : 1;
 
-// LN (no bias) then rotate-half RoPE; lane owns dims lane and lane + D/2.
 template <int D>
-__device__ __forceinline__ void norm_rope(float& x0, float& x1, int lane, const float* scale,
-                                          const float* cos_row, const float* sin_row) {
+__device__ __forceinline__ bool owns_dims(int lane) { return D >= 64 || lane < D / 2; }
+
+// LN (no bias) then rotate-half RoPE; lane owns dims lane + 32 j and lane + 32 j + D/2.
+template <int D>
+__device__ __forceinline__ void norm_rope(float (&x0)[LANE_PAIRS<D>], float (&x1)[LANE_PAIRS<D>], int lane,
+                                          const float* scale, const float* cos_row, const float* sin_row) {
   constexpr int HALF = D / 2;
-  const float mean = warp_sum(x0 + x1) * (1.f / D);
-  const float var = fmaxf(warp_sum(x0 * x0 + x1 * x1) * (1.f / D) - mean * mean, 0.f);
+  float s = x0[0] + x1[0], sq = x0[0] * x0[0] + x1[0] * x1[0];
+#pragma unroll
+  for (int j = 1; j < LANE_PAIRS<D>; ++j) {
+    s += x0[j] + x1[j];
+    sq += x0[j] * x0[j] + x1[j] * x1[j];
+  }
+  const float mean = warp_sum(s) * (1.f / D);
+  const float var = fmaxf(warp_sum(sq) * (1.f / D) - mean * mean, 0.f);
   const float r = rsqrtf(var + LN_EPS);
   if (!owns_dims<D>(lane)) return;
-  const float a = (x0 - mean) * r * scale[lane];
-  const float b = (x1 - mean) * r * scale[lane + HALF];
-  x0 = a * cos_row[lane] - b * sin_row[lane];
-  x1 = b * cos_row[lane + HALF] + a * sin_row[lane + HALF];
+#pragma unroll
+  for (int j = 0; j < LANE_PAIRS<D>; ++j) {
+    const int d = lane + 32 * j;
+    const float a = (x0[j] - mean) * r * scale[d];
+    const float b = (x1[j] - mean) * r * scale[d + HALF];
+    x0[j] = a * cos_row[d] - b * sin_row[d];
+    x1[j] = b * cos_row[d + HALF] + a * sin_row[d + HALF];
+  }
 }
 
 template <typename T, int D>
@@ -178,22 +204,32 @@ prep_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
   const T* src = qkv + ((size_t)b * S + i) * 3 * HD + h * D;
   const float* c = cos_t + (size_t)i * D;
   const float* s = sin_t + (size_t)i * D;
+  constexpr int J = LANE_PAIRS<D>;
   const bool on = owns_dims<D>(lane);
-  float q0 = on ? to_float(src[lane]) : 0.f, q1 = on ? to_float(src[lane + HALF]) : 0.f;
-  float k0 = on ? to_float(src[HD + lane]) : 0.f, k1 = on ? to_float(src[HD + lane + HALF]) : 0.f;
+  float q0[J], q1[J], k0[J], k1[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int d = lane + 32 * j;
+    q0[j] = on ? to_float(src[d]) : 0.f, q1[j] = on ? to_float(src[d + HALF]) : 0.f;
+    k0[j] = on ? to_float(src[HD + d]) : 0.f, k1[j] = on ? to_float(src[HD + d + HALF]) : 0.f;
+  }
   norm_rope<D>(q0, q1, lane, q_scale, c, s);
   norm_rope<D>(k0, k1, lane, k_scale, c, s);
   if (!on) return;
   const size_t o = (size_t)rr * D;
-  w.qr[o + lane] = q0;
-  w.qr[o + lane + HALF] = q1;
-  w.kr[o + lane] = k0;
-  w.kr[o + lane + HALF] = k1;
-  w.v[o + lane] = to_float(src[2 * HD + lane]);
-  w.v[o + lane + HALF] = to_float(src[2 * HD + lane + HALF]);
   const T* go = g + ((size_t)b * S + i) * HD + h * D;
-  w.d_o[o + lane] = to_float(go[lane]);
-  w.d_o[o + lane + HALF] = to_float(go[lane + HALF]);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int d = lane + 32 * j;
+    w.qr[o + d] = q0[j];
+    w.qr[o + d + HALF] = q1[j];
+    w.kr[o + d] = k0[j];
+    w.kr[o + d + HALF] = k1[j];
+    w.v[o + d] = to_float(src[2 * HD + d]);
+    w.v[o + d + HALF] = to_float(src[2 * HD + d + HALF]);
+    w.d_o[o + d] = to_float(go[d]);
+    w.d_o[o + d + HALF] = to_float(go[d + HALF]);
+  }
 }
 
 // ---- passes 2 and 3: two threads per row, each with half of D -------------
@@ -430,12 +466,12 @@ ln_rope_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
                    const float* __restrict__ sin_t, Work w, T* __restrict__ dqkv,
                    float* __restrict__ dqs_part, float* __restrict__ dks_part, int S, int H,
                    long long rows) {
-  constexpr int HALF = D / 2;
+  constexpr int HALF = D / 2, J = LANE_PAIRS<D>;
   __shared__ float red[2][WARPS][D];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const bool on = owns_dims<D>(lane);
   const int HD = H * D;
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [q/k][dim lane, lane + D/2]
+  float acc[2][J][2] = {};  // [q/k][pair j][dim lane + 32 j, lane + 32 j + D/2]
   for (int n = 0; n < LN_ROWS_PER_WARP; ++n) {
     const long long rr =
         ((long long)blockIdx.x * WARPS + warp) * LN_ROWS_PER_WARP + n;
@@ -451,34 +487,59 @@ ln_rope_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
       const float* scale = part == 0 ? q_scale : k_scale;
       const float* du = (part == 0 ? w.dqr : w.dkr) + (size_t)rr * D;
       const T* src = qkv + base + part * HD;
-      const float x0 = on ? to_float(src[lane]) : 0.f, x1 = on ? to_float(src[lane + HALF]) : 0.f;
-      const float mean = warp_sum(x0 + x1) * (1.f / D);
-      const float var = fmaxf(warp_sum(x0 * x0 + x1 * x1) * (1.f / D) - mean * mean, 0.f);
+      float x0[J], x1[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        x0[j] = on ? to_float(src[lane + 32 * j]) : 0.f, x1[j] = on ? to_float(src[lane + 32 * j + HALF]) : 0.f;
+      float sx = x0[0] + x1[0], sxx = x0[0] * x0[0] + x1[0] * x1[0];
+#pragma unroll
+      for (int j = 1; j < J; ++j) {
+        sx += x0[j] + x1[j];
+        sxx += x0[j] * x0[j] + x1[j] * x1[j];
+      }
+      const float mean = warp_sum(sx) * (1.f / D);
+      const float var = fmaxf(warp_sum(sxx) * (1.f / D) - mean * mean, 0.f);
       const float r = rsqrtf(var + LN_EPS);
       // a lane without dims holds zeros: its xn, dln and dxn are 0
-      const float xn0 = on ? (x0 - mean) * r : 0.f, xn1 = on ? (x1 - mean) * r : 0.f;
-      const float u0 = on ? du[lane] : 0.f, u1 = on ? du[lane + HALF] : 0.f;
-      const int dl = on ? lane : 0;  // a lane without dims reads dim 0's tables, times 0
-      // RoPE transpose: rot^T(v)[d < D/2] = v[d + D/2], else -v[d - D/2]
-      const float dln0 = u0 * c[dl] + u1 * s[dl + HALF];
-      const float dln1 = u1 * c[dl + HALF] - u0 * s[dl];
-      acc[part][0] += dln0 * xn0;
-      acc[part][1] += dln1 * xn1;
-      const float dxn0 = dln0 * scale[dl], dxn1 = dln1 * scale[dl + HALF];
-      const float m1 = warp_sum(dxn0 + dxn1) * (1.f / D);
-      const float m2 = warp_sum(dxn0 * xn0 + dxn1 * xn1) * (1.f / D);
+      float xn0[J], xn1[J], dxn0[J], dxn1[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        xn0[j] = on ? (x0[j] - mean) * r : 0.f, xn1[j] = on ? (x1[j] - mean) * r : 0.f;
+        const int dl = on ? lane + 32 * j : 0;  // a lane without dims reads dim 0's tables, times 0
+        const float u0 = on ? du[dl] : 0.f, u1 = on ? du[dl + HALF] : 0.f;
+        // RoPE transpose: rot^T(v)[d < D/2] = v[d + D/2], else -v[d - D/2]
+        const float dln0 = u0 * c[dl] + u1 * s[dl + HALF];
+        const float dln1 = u1 * c[dl + HALF] - u0 * s[dl];
+        acc[part][j][0] += dln0 * xn0[j];
+        acc[part][j][1] += dln1 * xn1[j];
+        dxn0[j] = dln0 * scale[dl], dxn1[j] = dln1 * scale[dl + HALF];
+      }
+      float s1 = dxn0[0] + dxn1[0], s2 = dxn0[0] * xn0[0] + dxn1[0] * xn1[0];
+#pragma unroll
+      for (int j = 1; j < J; ++j) {
+        s1 += dxn0[j] + dxn1[j];
+        s2 += dxn0[j] * xn0[j] + dxn1[j] * xn1[j];
+      }
+      const float m1 = warp_sum(s1) * (1.f / D);
+      const float m2 = warp_sum(s2) * (1.f / D);
       T* dst = dqkv + base + part * HD;
       if (on) {
-        dst[lane] = from_float<T>(r * (dxn0 - m1 - xn0 * m2));
-        dst[lane + HALF] = from_float<T>(r * (dxn1 - m1 - xn1 * m2));
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          dst[lane + 32 * j] = from_float<T>(r * (dxn0[j] - m1 - xn0[j] * m2));
+          dst[lane + 32 * j + HALF] = from_float<T>(r * (dxn1[j] - m1 - xn1[j] * m2));
+        }
       }
     }
   }
 #pragma unroll
   for (int part = 0; part < 2; ++part) {
     if (on) {
-      red[part][warp][lane] = acc[part][0];
-      red[part][warp][lane + HALF] = acc[part][1];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        red[part][warp][lane + 32 * j] = acc[part][j][0];
+        red[part][warp][lane + 32 * j + HALF] = acc[part][j][1];
+      }
     }
   }
   __syncthreads();
@@ -514,6 +575,14 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
+  if constexpr (D == 128) {  // passes 2 and 3 by the quad kernels of attention_f32_wide.cuh
+    static_assert(sizeof(T) == 4, "the D = 128 CUDA-core attention takes f32");
+    const long long HD = (long long)H * D, token = 3 * HD;
+    auto ws = [&](float* p) { return fa_wide::OutRows{p, H * (long long)S * D, (long long)S * D, D}; };
+    auto in = [&](float* p) { return fa_wide::Rows{p, H * (long long)S * D, (long long)S * D, D}; };
+    err = fa_wide::launch_sides<D>(in(w.qr), in(w.kr), in(w.v), in(w.d_o), mk, ws(w.dqr), ws(w.dkr),
+                                   fa_wide::OutRows{dq + 2 * HD, S * token, D, token}, w.m, B, S, H, stream);
+  } else {
   const int ppb = S <= SIDE_ROWS ? SIDE_ROWS / S : 1;
   const int chunks = (S + SIDE_ROWS - 1) / SIDE_ROWS;
   const unsigned side_blocks = (unsigned)(((n_pairs + ppb - 1) / ppb) * chunks);
@@ -532,6 +601,7 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
   if (err != cudaSuccess) return err;
   key_fn<<<side_blocks, THREADS, k_smem, stream>>>(w, mk, dq, S, H, n_pairs, scale);
   err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
 
   ln_rope_bwd_kernel<T, D><<<(unsigned)n_blocks, THREADS, 0, stream>>>(
@@ -542,7 +612,7 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
 
 }  // namespace
 
-// head_dim D: 16, 32 or 64; any other is refused.
+// head_dim D: 16, 32, 64 or 128; any other is refused.
 // dtype: 0 = float32, 1 = bfloat16 (qkv, g, dqkv). mask: (B, S) uint8 key mask, or null.
 // dqs_part, dks_part: (n_blocks, D) f32 partials of the scale gradients.
 // f32: n_blocks = ceil(B * H * S / 64), work = f32 scratch of 6 * B * H * S * D +

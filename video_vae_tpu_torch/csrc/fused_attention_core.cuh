@@ -5,13 +5,16 @@
 // two projections). One thread owns one query row, f32 throughout;
 // the kernel design notes are in fused_attention.cu.
 // launch_fused_attention<T, D>() enqueues the kernel for head dim D on a stream
-// and returns the launch's cudaError_t.
+// and returns the launch's cudaError_t; at D = 128 it enqueues the quad kernel
+// of attention_f32_wide.cuh instead (a row per thread would take 256 registers).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "attention_f32_wide.cuh"
 
 namespace {
 
@@ -198,10 +201,21 @@ fused_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ 
   for (int d = 0; d < D; ++d) o[d] = from_float<T>(acc[d] * inv);
 }
 
+// At D = 128 (f32 only) the quad kernel of attention_f32_wide.cuh.
 template <typename T, int D>
 cudaError_t launch_fused_attention(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                    const void* sin_t, const void* mask, void* out, int B, int S, int H,
                    cudaStream_t stream) {
+  if constexpr (D == 128) {
+    static_assert(sizeof(T) == 4, "the D = 128 CUDA-core attention takes f32");
+    const long long HD = (long long)H * D, token = 3 * HD;
+    const float* x = static_cast<const float*>(qkv);
+    const fa_wide::Rows q{x, S * token, D, token}, k{x + HD, S * token, D, token}, v{x + 2 * HD, S * token, D, token};
+    return fa_wide::launch_fwd<D>(true, q, k, v, static_cast<const unsigned char*>(mask),
+                                  fa_wide::OutRows{static_cast<float*>(out), S * HD, D, HD}, B, S, H,
+                                  static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
+                                  static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), stream);
+  } else {
   const int pairs_per_block = MAX_ROWS / S;
   const int rows = pairs_per_block * S;
   const int threads = (rows + 31) / 32 * 32;
@@ -218,6 +232,7 @@ cudaError_t launch_fused_attention(const void* qkv, const void* q_scale, const v
       static_cast<const float*>(sin_t), static_cast<const unsigned char*>(mask),
       static_cast<T*>(out), B, S, H, pairs_per_block, 1.f / sqrtf((float)D));
   return cudaGetLastError();
+  }
 }
 
 }  // namespace

@@ -23,6 +23,10 @@ namespace fa_mma {
 constexpr int MAX_WARPS = 16;
 constexpr int SLAB_WARPS = 8;  // warps of a slab block at most
 constexpr int SLAB_MAX_SEQ = 64;
+// Warps of a block at most: 16 (128 registers a thread), but 8 at D = 128, where
+// a warp's 16 x 128 f32 output and its q fragments alone take 96 registers a
+// lane; a tile block's warps then take two 16-row query tiles each at S = 256.
+template <int D> constexpr int FWD_WARPS = D == 128 ? 8 : MAX_WARPS;
 
 // Shared memory of one block (unit: sequences of a slab block).
 template <int D>
@@ -188,10 +192,11 @@ __device__ __forceinline__ void attend(bf16* q_rows, const bf16* k_s, const bf16
 }
 
 // grid: slab, one block per `unit` sequences; tile, one block per (sequence,
-// head) pair, a warp for each 16 of its query rows. tests/test_torch_attention_plan.py
+// head) pair, a warp for each 16 of its query rows (up to FWD_WARPS<D>, each
+// then taking the tiles in turn). tests/test_torch_attention_plan.py
 // walks the same items on the CPU.
 template <int D, int KT>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
+__global__ void __launch_bounds__(FWD_WARPS<D> * 32)
 attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_scale,
                      const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                      const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
@@ -298,9 +303,9 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_s
   }
   cp_async_wait<0>();
   __syncthreads();
-  if (16 * warp < S)
-    attend<D, KT>(q_s + (size_t)16 * warp * ROW, k_s, v_s, keep, S, normalize, out + (size_t)b * S * part_stride + h * D,
-               16 * warp, H);
+  for (int mt = warp; 16 * mt < S; mt += warps)
+    attend<D, KT>(q_s + (size_t)16 * mt * ROW, k_s, v_s, keep, S, normalize, out + (size_t)b * S * part_stride + h * D,
+                  16 * mt, H);
 }
 
 template <int D, int KT>
@@ -332,7 +337,7 @@ cudaError_t launch_attention_mma(const void* qkv, const void* q_scale, const voi
   } else if (variant == TILE) {
     if (unit != 1) return cudaErrorInvalidValue;
     blocks = (long long)B * H;
-    warps = tiles;  // at most MAX_WARPS, as S <= 256
+    warps = std::min<long long>(tiles, FWD_WARPS<D>);  // tiles <= 16, as S <= 256
   } else {
     return cudaErrorInvalidValue;
   }

@@ -9,10 +9,10 @@
 // The head dim D is a template parameter of every kernel and of every helper
 // that depends on it; HEAD_DIMS lists the values the entry points instantiate
 // (with_head_dim). Rows of D bf16 sit in shared memory in D + 8-element rows
-// (144 bytes at D = 64; 48 and 80 at D = 16 and 32): the 8 row addresses of an
-// ldmatrix then fall on 8 distinct 16-byte bank groups (row strides of 12, 20
-// and 36 words), so every ldmatrix is free of bank conflicts. Key bits: bit
-// j % 64 of word j / 64 is 1 where key j is kept.
+// (144 bytes at D = 64; 48, 80 and 272 at D = 16, 32 and 128): the 8 row
+// addresses of an ldmatrix then fall on 8 distinct 16-byte bank groups (row
+// strides of 12, 20, 36 and 68 words), so every ldmatrix is free of bank
+// conflicts. Key bits: bit j % 64 of word j / 64 is 1 where key j is kept.
 
 #pragma once
 
@@ -39,7 +39,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 // The softmax scale 1/sqrt(D), the f32 rounding of the exact value (the JAX
 // kernels' Python float 1 / d**0.5), and the same in the exp2 domain.
 template <int D>
-constexpr float SM_SCALE = D == 16 ? 1.f / 4 : D == 32 ? 0.17677669529663687f : D == 64 ? 1.f / 8 : 0.f;
+constexpr float SM_SCALE = D == 16    ? 1.f / 4
+                           : D == 32  ? 0.17677669529663687f
+                           : D == 64  ? 1.f / 8
+                           : D == 128 ? 0.0883883461356163f
+                                      : 0.f;
 template <int D> constexpr float C = SM_SCALE<D> * LOG2E;
 
 // Calls f(std::integral_constant<int, D>{}) for the head dims the kernels are
@@ -50,6 +54,7 @@ cudaError_t with_head_dim(int head_dim, F&& f) {
     case 16: return f(std::integral_constant<int, 16>{});
     case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
     default: return cudaErrorInvalidValue;
   }
 }
@@ -263,6 +268,8 @@ constexpr int SLAB_MAX_SEQ = 64;     // the longest sequence whose P and dS a bl
 constexpr int SLAB_WARPS = 4;        // warps of a slab block at most
 constexpr int TILE_WARPS = 16;       // warps of a tile block at most (S = 256)
 constexpr int SLAB_MIN_BLOCKS = 4;   // slab blocks an SM at least: 128 registers a thread
+// ... but one at D = 128, where a warp's 16 x 128 accumulators alone take 64 registers
+template <int D> constexpr int SLAB_BLOCKS = D == 128 ? 1 : SLAB_MIN_BLOCKS;
 constexpr int TILE_KT = 2;           // 16-key steps of a query-side chunk in a tile block
 template <int D> constexpr int STAGE_ROW = D + 8;  // f32 staging row of the epilogue (no bank conflicts)
 
@@ -390,15 +397,15 @@ __device__ __forceinline__ void finish_stats(const float (&m)[2], const float (&
 // second recomputes the scores and dP. stat: (m, 1/l, row) of rows g and g + 8.
 // With p_rows (slab), P and dS rounded to bf16 go to shared memory for the key
 // side: query row r of this tile at p_rows + r * pstride, dS at ds_rows.
+// query_frags takes the rows' q~ and dO fragments (qf, df) as they stand;
+// query_side loads them from q_rows and do_rows in shared memory first.
 template <int D, int KT, bool TWO_PASS>
-__device__ __forceinline__ void query_side(const bf16* q_rows, const bf16* do_rows, const bf16* k_s, const bf16* v_s,
-                                           const unsigned long long* keep, int S, float (&dq)[D / 8][4],
-                                           float (&stat)[2][3], bf16* p_rows, bf16* ds_rows, int pstride) {
+__device__ __forceinline__ void query_frags(const uint32_t (&qf)[D / 16][4], const uint32_t (&df)[D / 16][4],
+                                            const bf16* k_s, const bf16* v_s, const unsigned long long* keep, int S,
+                                            float (&dq)[D / 8][4], float (&stat)[2][3], bf16* p_rows, bf16* ds_rows,
+                                            int pstride) {
   constexpr int CH = 16 * KT;
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_rows<D>(qf, q_rows);
-  load_rows<D>(df, do_rows);
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
@@ -448,6 +455,16 @@ __device__ __forceinline__ void query_side(const bf16* q_rows, const bf16* do_ro
       }
     }
   }
+}
+
+template <int D, int KT, bool TWO_PASS>
+__device__ __forceinline__ void query_side(const bf16* q_rows, const bf16* do_rows, const bf16* k_s, const bf16* v_s,
+                                           const unsigned long long* keep, int S, float (&dq)[D / 8][4],
+                                           float (&stat)[2][3], bf16* p_rows, bf16* ds_rows, int pstride) {
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  load_rows<D>(qf, q_rows);
+  load_rows<D>(df, do_rows);
+  query_frags<D, KT, TWO_PASS>(qf, df, k_s, v_s, keep, S, dq, stat, p_rows, ds_rows, pstride);
 }
 
 // The key side of one warp in a slab block: key rows k0 .. k0 + 15 of one pair,
@@ -512,6 +529,323 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float* 
         *reinterpret_cast<uint32_t*>(dst + (size_t)i * stride + d0) = pack_bf16(lo.x, lo.y);
         *reinterpret_cast<uint32_t*>(dst + (size_t)i * stride + d0 + D / 2) = pack_bf16(hi.x, hi.y);
       }
+    }
+  }
+}
+
+// ---- The tile variant at D = 128 (S > 64), shared by both backward kernels ----
+// At D = 128 a pair's four D-wide arrays (q~, k~, v, dO) would take 4 x 69.6 KB
+// at S = 256, over a block's 227 KB, and 16 warps capped at 128 registers
+// would spill their 16 x 128 accumulators. So a block keeps three arrays, q~ |
+// k~ | v, and v gives way to dO between the sides: the query side reads its
+// dO rows, and the key side its v rows, as mma.sync A fragments straight from
+// device memory (load_rows_global: an A operand needs no other layout), while
+// every B operand (k~ and v, then q~ and dO) comes from shared memory through
+// ldmatrix. Up to WIDE_TILE_WARPS warps of up to 255 registers take the 16-row
+// tiles in turn, the query tiles and then, after a barrier and dO's copy, the
+// key tiles. The epilogues work on the accumulators as they stand
+// (store_rows_acc, ln_rope_bwd_acc), so no staging rows are needed either.
+// The products and roundings are the D <= 64 tile's: 9 products of S^2 D a
+// pair, q~, k~, P and dS rounded to bf16.
+constexpr int WIDE_TILE_WARPS = 8;
+
+// Shared memory of one wide tile block: q~ | k~ | v (then dO) rows, m | 1/l |
+// row (f32), the key bits, and with LN (fused) each warp's (2, D) dscale partials.
+template <int D>
+__host__ __forceinline__ size_t wide_tile_smem_bytes(int S, int warps, bool fused) {
+  return 3 * (size_t)rows16(S) * ROW_BYTES<D> + 3 * (size_t)rows16(S) * sizeof(float) + 8 * (size_t)key_words(S) +
+         (fused ? (size_t)warps * 2 * D * sizeof(float) : 0);
+}
+
+// The 16 x D A fragments of rows r0 .. r0 + 15 of a bf16 array in device
+// memory (row i at rows + i * stride), as load_rows gives them from shared
+// memory: lane (g, t) holds columns 16 ks + 2 t (+ 8) of rows g and g + 8. A
+// row at or past S reads as zeros.
+template <int D>
+__device__ __forceinline__ void load_rows_global(uint32_t (&f)[D / 16][4], const bf16* __restrict__ rows,
+                                                 size_t stride, int r0, int S) {
+  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
+  const bool lo_in = r0 + g < S, hi_in = r0 + g + 8 < S;
+  const unsigned* lo = reinterpret_cast<const unsigned*>(rows + (size_t)(lo_in ? r0 + g : 0) * stride + 2 * t);
+  const unsigned* hi = reinterpret_cast<const unsigned*>(rows + (size_t)(hi_in ? r0 + g + 8 : 0) * stride + 2 * t);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {  // 2-element words: column 16 ks + 2 t is word 8 ks + t
+    f[ks][0] = lo_in ? __ldg(lo + 8 * ks) : 0u;
+    f[ks][1] = hi_in ? __ldg(hi + 8 * ks) : 0u;
+    f[ks][2] = lo_in ? __ldg(lo + 8 * ks + 4) : 0u;
+    f[ks][3] = hi_in ? __ldg(hi + 8 * ks + 4) : 0u;
+  }
+}
+
+// 16 rows of f32 accumulators rounded to bf16 at dst (row i at dst + i *
+// stride) for the rows row0 + .. below S, straight from the m16n8 layout:
+// lane (g, t) stores columns 8 nt + 2 t, + 1 of rows g and g + 8.
+template <int D>
+__device__ __forceinline__ void store_rows_acc(const float (&acc)[D / 8][4], bf16* __restrict__ dst, size_t stride,
+                                               int row0, int S) {
+  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + g + 8 * r;
+    if (i < S) {
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)i * stride + 8 * nt + 2 * t) =
+            pack_bf16(acc[nt][2 * r], acc[nt][2 * r + 1]);
+    }
+  }
+}
+
+// Back through RoPE, the scale and the LN, as ln_rope_bwd in
+// fused_attention_bwd_mma.cuh, for the 16 rows row0 + .. of du straight from
+// the accumulators: lane (g, t) holds columns c = 8 nt + 2 t, c + 1 of rows g
+// and g + 8 and their RoPE partners c + D/2 (tile nt + D/16); a row's sums take
+// quad_sum over its four lanes. xn and r come from the raw row re-read at src
+// (row i at src + i * stride, as dst). The rows' sum of dln xn is added to red
+// (this warp's D floats), summed over the warp's 8 row groups in a fixed order.
+template <int D>
+__device__ __forceinline__ void ln_rope_bwd_acc(const float (&du)[D / 8][4], const bf16* __restrict__ src,
+                                                bf16* __restrict__ dst, size_t stride, int row0, int S,
+                                                const float* __restrict__ scale, const float* __restrict__ cos_t,
+                                                const float* __restrict__ sin_t, float* red) {
+  constexpr int NT = D / 8, HT = D / 16;  // tiles of a row, of its first half
+  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
+  float part[NT][2];  // the sum over the lane's rows of dln xn at its columns
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) part[nt][0] = part[nt][1] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + g + 8 * r;
+    const bool live = i < S;
+    const int at = live ? i : 0;
+    const bf16* row = src + (size_t)at * stride;
+    float xn[NT][2], dxn[NT][2], s = 0.f, sq = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 x = live ? __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(row + 8 * nt + 2 * t)))
+                            : make_float2(0.f, 0.f);
+      xn[nt][0] = x.x, xn[nt][1] = x.y;
+      s += x.x + x.y;
+      sq += x.x * x.x + x.y * x.y;
+    }
+    const float mean = quad_sum(s) * (1.f / D);
+    const float rstd = rsqrtf(fmaxf(quad_sum(sq) * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+    const float* c = cos_t + (size_t)at * D;
+    const float* sn = sin_t + (size_t)at * D;
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < HT; ++nt) {
+      const int col = 8 * nt + 2 * t;
+      const float2 c_lo = __ldg(reinterpret_cast<const float2*>(c + col));
+      const float2 c_hi = __ldg(reinterpret_cast<const float2*>(c + col + D / 2));
+      const float2 s_lo = __ldg(reinterpret_cast<const float2*>(sn + col));
+      const float2 s_hi = __ldg(reinterpret_cast<const float2*>(sn + col + D / 2));
+      const float2 sc_lo = __ldg(reinterpret_cast<const float2*>(scale + col));
+      const float2 sc_hi = __ldg(reinterpret_cast<const float2*>(scale + col + D / 2));
+      const float u_lo[2] = {du[nt][2 * r], du[nt][2 * r + 1]};
+      const float u_hi[2] = {du[nt + HT][2 * r], du[nt + HT][2 * r + 1]};
+      // RoPE transpose: rot^T(v)[d < D/2] = v[d + D/2], else -v[d - D/2]
+      const float dln[2][2] = {{u_lo[0] * c_lo.x + u_hi[0] * s_hi.x, u_lo[1] * c_lo.y + u_hi[1] * s_hi.y},
+                               {u_hi[0] * c_hi.x - u_lo[0] * s_lo.x, u_hi[1] * c_hi.y - u_lo[1] * s_lo.y}};
+      const float sc[2][2] = {{sc_lo.x, sc_lo.y}, {sc_hi.x, sc_hi.y}};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // column c, then its partner c + D/2
+        const int tile = nt + h * HT;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          xn[tile][e] = (xn[tile][e] - mean) * rstd;
+          if (live) part[tile][e] += dln[h][e] * xn[tile][e];
+          dxn[tile][e] = dln[h][e] * sc[h][e];
+          m1 += dxn[tile][e];
+          m2 += dxn[tile][e] * xn[tile][e];
+        }
+      }
+    }
+    m1 = quad_sum(m1) * (1.f / D);
+    m2 = quad_sum(m2) * (1.f / D);
+    if (live) {
+      bf16* out = dst + (size_t)i * stride;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        *reinterpret_cast<uint32_t*>(out + 8 * nt + 2 * t) = pack_bf16(
+            rstd * (dxn[nt][0] - m1 - xn[nt][0] * m2), rstd * (dxn[nt][1] - m1 - xn[nt][1] * m2));
+    }
+  }
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) part[nt][e] += __shfl_xor_sync(0xffffffffu, part[nt][e], off);
+  if (g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) red[8 * nt + 2 * t] += part[nt][0], red[8 * nt + 2 * t + 1] += part[nt][1];
+  }
+  __syncwarp();
+}
+
+// The key side of one warp in a wide tile block: key rows k0 .. k0 + 15 of the
+// pair, as key_side_tile in fused_attention_bwd_mma.cuh, with the k~ fragments
+// from shared memory and the v fragments from device memory, both loaded again
+// for each 16 queries so that dv and dk keep their registers.
+template <int D>
+__device__ __forceinline__ void key_side_wide(const bf16* q_s, const bf16* do_s, const bf16* k_s,
+                                              const bf16* __restrict__ v_rows, size_t v_stride, const float* m_s,
+                                              const float* il_s, const float* row_s, const unsigned long long* keep,
+                                              int k0, int S, float (&dv)[D / 8][4], float (&dk)[D / 8][4]) {
+  const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[dn][e] = dk[dn][e] = 0.f;
+  bool masked[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + g + 8 * r;
+    masked[r] = !((keep[j >> 6] >> (j & 63)) & 1ull);  // also a padding key: its rows are not written
+  }
+  for (int q0 = 0; q0 < S; q0 += 16) {
+    float st[2][4], dt[2][4];
+    {
+      uint32_t f[D / 16][4];
+      load_rows<D>(f, k_s + (size_t)k0 * ROW<D>);
+      row_dots<D, 1>(st, f, q_s, q0, 1);
+      load_rows_global<D>(f, v_rows, v_stride, k0, S);
+      row_dots<D, 1>(dt, f, do_s, q0, 1);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int i = q0 + 8 * nt + 2 * t + e1;
+        const float mi = m_s[i], il = il_s[i], row = row_s[i];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + e1;
+          const float p = i < S ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * C<D>) * il : 0.f;
+          st[nt][e] = p;
+          dt[nt][e] = p * (dt[nt][e] - row) * SM_SCALE<D>;
+        }
+      }
+    uint32_t ap[4], ad[4];
+    pack_a(ap, st, 0);
+    pack_a(ad, dt, 0);
+    mma_rows<D>(dv, ap, do_s + (size_t)q0 * ROW<D>);
+    mma_rows<D>(dk, ad, q_s + (size_t)q0 * ROW<D>);
+  }
+}
+
+// The rows of the (sequence, head) pair a wide tile block reads and writes:
+// input part p (0 q, 1 k, 2 v, 3 dO) row i at src[p] + i * src_stride[p],
+// gradient part p (0 dq, 1 dk, 2 dv) row i at dst[p] + i * dst_stride.
+struct PairRows {
+  const bf16* src[4];
+  size_t src_stride[4];
+  bf16* dst[3];
+  size_t dst_stride;
+};
+
+// The LN + RoPE operands of the fused backward (unread by the plain one).
+struct NormRope {
+  const float *q_scale, *k_scale, *cos_t, *sin_t;
+};
+
+// One wide tile block (one pair of sequence b): the fused backward's with
+// FUSED (LN + RoPE of q and k after staging, its epilogues through the LN and
+// the block's dscale partials at row blockIdx.x), the plain backward's
+// without. tests/test_torch_attention_bwd_plan.py walks the same items on the CPU.
+template <int D, bool FUSED>
+__device__ __forceinline__ void wide_tile_bwd(const PairRows& io, const NormRope& nr,
+                                              const unsigned char* __restrict__ mask, long long b, int S,
+                                              float* dqs_part, float* dks_part) {
+  extern __shared__ float4 smem4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem4);
+  constexpr int ROW = fa_mma::ROW<D>, P = PIECES<D>, LANES = LN_LANES<D>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int s16 = rows16(S), words = key_words(S), tiles = s16 / 16;
+  bf16* q_s = smem;
+  bf16* k_s = q_s + (size_t)s16 * ROW;
+  bf16* x_s = k_s + (size_t)s16 * ROW;  // v, then dO
+  float* m_s = reinterpret_cast<float*>(x_s + (size_t)s16 * ROW);
+  float* il_s = m_s + s16;
+  float* row_s = il_s + s16;
+  unsigned long long* keep = reinterpret_cast<unsigned long long*>(row_s + s16);
+  float* red = reinterpret_cast<float*>(keep + words);  // FUSED: [warp][q, k][D]
+  auto copy = [&](bf16* dst, int p) {  // the rows of input part p, a row's pieces on consecutive threads
+    for (int e = threadIdx.x; e < s16 * P; e += blockDim.x) {
+      const int i = e / P, piece = e % P;
+      const bool inside = i < S;
+      cp_async16(dst + (size_t)i * ROW + 8 * piece,
+                 inside ? io.src[p] + (size_t)i * io.src_stride[p] + 8 * piece : io.src[p], inside ? 16 : 0);
+    }
+  };
+  copy(q_s, 0);  // group 0, the q and k rows; group 1, the v rows
+  copy(k_s, 1);
+  cp_async_commit();
+  copy(x_s, 2);
+  cp_async_commit();
+  stage_key_bits(keep, mask, b, S, warp, warps);
+  if constexpr (FUSED)
+    for (int e = lane; e < 2 * D; e += 32) red[warp * 2 * D + e] = 0.f;
+  cp_async_wait<1>();
+  __syncthreads();
+  if constexpr (FUSED) {  // LN + RoPE of q row i and k row i, D / 16 lanes each
+    float qsc[16], ksc[16];
+    load_lane_scale<D>(qsc, nr.q_scale);
+    load_lane_scale<D>(ksc, nr.k_scale);
+    const int per_warp = 32 / LANES;
+    for (int first = per_warp * warp; first < S; first += per_warp * warps) {
+      const int i = first + lane / LANES;
+      const bool live = i < S;
+      const int at = live ? i : 0;
+      norm_rope_pair<D>(q_s + (size_t)at * ROW, live, qsc, k_s + (size_t)at * ROW, live, ksc,
+                        nr.cos_t + (size_t)at * D, nr.sin_t + (size_t)at * D);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int mt = warp; mt < tiles; mt += warps) {  // query side
+    uint32_t qf[D / 16][4], df[D / 16][4];
+    load_rows<D>(qf, q_s + (size_t)16 * mt * ROW);
+    load_rows_global<D>(df, io.src[3], io.src_stride[3], 16 * mt, S);
+    float dq[D / 8][4], st[2][3];
+    query_frags<D, TILE_KT, true>(qf, df, k_s, x_s, keep, S, dq, st, nullptr, nullptr, 0);
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 16 * mt + (lane >> 2) + 8 * r;
+        m_s[i] = st[r][0], il_s[i] = st[r][1], row_s[i] = st[r][2];
+      }
+    }
+    if constexpr (FUSED)
+      ln_rope_bwd_acc<D>(dq, io.src[0], io.dst[0], io.dst_stride, 16 * mt, S, nr.q_scale, nr.cos_t, nr.sin_t,
+                         red + warp * 2 * D);
+    else
+      store_rows_acc<D>(dq, io.dst[0], io.dst_stride, 16 * mt, S);
+  }
+  __syncthreads();  // the query side is done with v: its rows take dO's
+  copy(x_s, 3);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int kt = warp; kt < tiles; kt += warps) {  // key side
+    float dv[D / 8][4], dk[D / 8][4];
+    key_side_wide<D>(q_s, x_s, k_s, io.src[2], io.src_stride[2], m_s, il_s, row_s, keep, 16 * kt, S, dv, dk);
+    store_rows_acc<D>(dv, io.dst[2], io.dst_stride, 16 * kt, S);
+    if constexpr (FUSED)
+      ln_rope_bwd_acc<D>(dk, io.src[1], io.dst[1], io.dst_stride, 16 * kt, S, nr.k_scale, nr.cos_t, nr.sin_t,
+                         red + warp * 2 * D + D);
+    else
+      store_rows_acc<D>(dk, io.dst[1], io.dst_stride, 16 * kt, S);
+  }
+  if constexpr (FUSED) {  // the block's dscale partials: the warps' sums in warp order
+    __syncthreads();
+    for (int e = threadIdx.x; e < 2 * D; e += blockDim.x) {
+      const int part = e / D, d = e % D;
+      float sum = 0.f;
+      for (int w = 0; w < warps; ++w) sum += red[(w * 2 + part) * D + d];
+      (part ? dks_part : dqs_part)[(size_t)blockIdx.x * D + d] = sum;
     }
   }
 }

@@ -23,12 +23,18 @@ the tensor's device: a CPU tensor takes the plain PyTorch version
 (``*_plain``), a CUDA tensor takes the CUDA kernel (``*_cuda``, sources in
 ``csrc/``) or the call raises.
 
-The kernels take head dims ``KERNEL_HEAD_DIMS`` (16, 32 and 64: every
+The kernels take head dims ``KERNEL_HEAD_DIMS`` (16, 32, 64 and 128: every
 configuration the JAX package ships, ``tiny_config`` and the ``--small``
-preset at 16, the flagship at 64; one instantiation each) and sequences of 1
-to ``KERNEL_MAX_SEQ`` = 256 tokens: a block holds a whole sequence's keys,
-as the JAX kernels hold it in VMEM, and no configuration the repo ships has a
-longer one. A CUDA tensor outside those raises; there is no fallback.
+preset at 16, the flagship at 64, and 128, where the JAX kernels also run,
+e.g. the flagship's width in 4 heads; one instantiation each) and sequences
+of 1 to ``KERNEL_MAX_SEQ`` = 256 tokens: a block holds a whole sequence's
+keys, as the JAX kernels hold it in VMEM, and no configuration the repo ships
+has a longer one. A CUDA tensor outside those raises; there is no fallback.
+At 128 the bf16 kernels cap a block at 8 warps (255 registers a thread for a
+warp's 16 × 128 f32 accumulators), and the backward's tile blocks keep three
+of a pair's four row arrays in shared memory (``csrc``:
+``bwd::wide_tile_bwd``); the f32 kernels give a row four lanes and stage the
+other side's rows in chunks (``csrc/attention_f32_wide.cuh``).
 
 Roundings of the fused forward, by dtype. The plain version computes in f32
 throughout and rounds once, to qkv's dtype. On the card, bf16 qkv takes the
@@ -86,7 +92,7 @@ if TYPE_CHECKING:
     from video_vae_tpu_torch.ops.fused_block import GemmPlan
 
 NEG_INF = -1e30  # the masked score of the JAX kernels
-KERNEL_HEAD_DIMS = (16, 32, 64)  # the C entry points' instantiations (csrc: with_head_dim)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # the C entry points' instantiations (csrc: with_head_dim)
 KERNEL_MAX_SEQ = 256
 
 FUSED_ATTENTION = CudaKernel(
@@ -126,6 +132,13 @@ MMA_SLAB_MAX_SMEM = 100 * 1024  # a slab block at most this, so that two fit an 
 MMA_VARIANTS = ("slab", "tile")  # as csrc/fused_attention_mma_common.cuh numbers them
 
 
+def mma_max_warps(head_dim: int) -> int:
+    """Warps of a bf16 forward block at most (csrc: ``FWD_WARPS``): 16, but 8 at
+    head_dim 128, whose tile blocks then give each warp two 16-row query tiles
+    at S = 256."""
+    return 8 if head_dim == 128 else 16
+
+
 def mma_row_bytes(head_dim: int) -> int:
     """Shared memory of one q, k or v head row in the bf16 kernels: head_dim
     bf16 padded by 8 (144 bytes at 64), so that ldmatrix has no bank conflicts."""
@@ -148,8 +161,10 @@ def fused_attention_plan(batch: int, seq: int, heads: int, head_dim: int) -> tup
     heads, as many as give it up to 8 warps of 16-row query tiles, and its
     warps take those tiles in turn. Otherwise ``"tile"``, one sequence a
     block: a block stages one (sequence, head) pair, all its rows, and has a
-    warp for each 16 of them (16 warps at S = 256), so that the pair's keys
-    are staged and normalised once. The C entry point derives the warps, the
+    warp for each 16 of them (16 warps at S = 256; at most
+    :func:`mma_max_warps`, 8 at head_dim 128, each warp then taking the tiles
+    in turn), so that the pair's keys are staged and normalised once (205 KB
+    at S = 256 and head_dim 128). The C entry point derives the warps, the
     shared memory and P's rounding rule from these and the shape.
     """
     check_head_dim(head_dim)
@@ -181,31 +196,36 @@ def flash_attention_plan(batch: int, seq: int, heads: int, head_dim: int) -> tup
 BWD_SLAB_MAX_SEQ = 64  # the longest sequence whose P and dS a block keeps
 BWD_SLAB_WARPS = 4  # warps of a slab block at most: four blocks or more an SM
 BWD_TILE_WARPS = 16  # warps of a tile block at most
+BWD_WIDE_TILE_WARPS = 8  # ... at head_dim 128 (csrc: bwd::WIDE_TILE_WARPS)
 
 
 @functools.lru_cache(maxsize=64)
 def fused_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, int, int]:
     """(variant, (sequence, head) pairs a block, warps a block) of the bf16
-    fused attention backward kernel: the same at every head dim the kernels
-    take (a slab pair's rows with its P and dS, 55 KB at S = 64 and D = 64,
-    and a tile pair's rows, 147 KB at S = 256, fit a block at each).
+    fused attention backward kernel: the variant and the pairs are the same at
+    every head dim the kernels take (a slab pair's rows with its P and dS, 55
+    KB at S = 64 and D = 64, 88 KB at D = 128, fit a block at each).
 
     ``"slab"`` where the sequence is at most 64 long: a block stages
     consecutive pairs (the heads of a sequence, side by side in memory) with
     their P and dS, as many as give it up to 4 warps of 16-row tiles: small
     blocks, so that several share an SM and one block's copies overlap
     another's products. Otherwise ``"tile"``: a block stages one pair, all
-    its rows, with a warp for each 16 of them up to ``BWD_TILE_WARPS``.
-    Either way a block's warps take its query tiles in turn, then its key
-    tiles, and the grid is ceil(B·H / pairs a block). The C entry point
-    derives the shared memory from these and the shape.
+    its rows (147 KB at S = 256 and D = 64), with a warp for each 16 of them
+    up to ``BWD_TILE_WARPS``. At head_dim 128 a pair's four row arrays (278
+    KB) do not fit: the block keeps q̃, k̃ and v (then dO) and reads the other
+    operand rows straight from device memory, with up to
+    ``BWD_WIDE_TILE_WARPS`` warps. Either way a block's warps take its query
+    tiles in turn, then its key tiles, and the grid is ceil(B·H / pairs a
+    block). The C entry point derives the shared memory from these and the
+    shape.
     """
     check_head_dim(head_dim)
     tiles = -(-seq // 16)
     if seq <= BWD_SLAB_MAX_SEQ:
         unit = max(1, min(BWD_SLAB_WARPS // tiles, batch * heads))
         return "slab", unit, min(BWD_SLAB_WARPS, unit * tiles)
-    return "tile", 1, min(BWD_TILE_WARPS, tiles)
+    return "tile", 1, min(BWD_WIDE_TILE_WARPS if head_dim == 128 else BWD_TILE_WARPS, tiles)
 
 
 # The bf16 plain attention backward (csrc/flash_attention_bwd_mma.cuh) takes
@@ -222,8 +242,10 @@ def flash_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) ->
     tiles. Otherwise ``"tile"``: a pair a block with a warp for each 16 rows
     (16 at S = 256); each warp takes its query rows' statistics, then, in
     rounds of ``FLASH_BWD_ROUND`` queries, its key rows' share of dv and dk,
-    and the round's 16 × 16 tiles of dq in turn. The grid is
-    ceil(B·H / pairs a block); the C entry point derives the shared memory
+    and the round's 16 × 16 tiles of dq in turn. At head_dim 128 the tile
+    block is the fused backward's (up to ``BWD_WIDE_TILE_WARPS`` warps taking
+    the query tiles, then the key tiles, in turn) without LN or RoPE. The grid
+    is ceil(B·H / pairs a block); the C entry point derives the shared memory
     from these and the shape.
     """
     return fused_attention_bwd_plan(batch, seq, heads, head_dim)

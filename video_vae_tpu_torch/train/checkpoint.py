@@ -72,6 +72,15 @@ def load_checkpoint(model: nn.Module, optimizer: Optimizer, path: str) -> None:
     optimizer.load_state_dict(state["optimizer"])
 
 
+def load_model_state(model: nn.Module, path: str) -> None:
+    """Restore only the model's weights from the checkpoint directory ``path``
+    (its ``state.pt`` entry ``"model"``), in place, onto the model's device."""
+    device = next(model.parameters()).device
+    state = torch.load(os.path.join(os.path.abspath(path), CHECKPOINT_FILE),
+                       map_location=device, weights_only=True)
+    model.load_state_dict(state["model"])
+
+
 class CheckpointManager:
     """Step-indexed checkpoints, written on a thread, the newest ``max_to_keep`` kept.
 

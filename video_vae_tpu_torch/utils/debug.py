@@ -1,7 +1,7 @@
 """Gradient-health telemetry: f32 global norm and max |x| over a list of tensors.
 
 Counterpart of the JAX package's ``utils/debug.py`` (``global_norm``,
-``global_max_abs``). Both stay on the device (no host sync).
+``global_max_abs``, ``param_norm``). Each stays on the device (no host sync).
 """
 
 from __future__ import annotations
@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+from torch import nn
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -24,3 +25,8 @@ def global_max_abs(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     if not tensors:
         return torch.zeros(())
     return torch.stack(torch._foreach_norm([t.float() for t in tensors], float("inf"))).max()
+
+
+def param_norm(module: nn.Module) -> torch.Tensor:
+    """The f32 global norm of ``module``'s parameters (the JAX ``nnx.Param`` state)."""
+    return global_norm(list(module.parameters()))

@@ -6,9 +6,10 @@
 ``save`` imports ``video_vae_tpu_torch`` from ``<package root>`` (the root of a
 checkout of this commit or of another, e.g. an unpacked ``git archive`` of the
 parent), builds its five attention kernels (#1, #3, #5, #6, #7) and runs each
-at head_dim 64, in bf16 and f32, on four shapes (the flagship's temporal and
-spatial calls and two ragged ones) with seeded inputs and key masks that
-leave some sequences no key, then saves every output. ``compare`` prints how
+at head_dims 16, 32 and 64 (``HEAD_DIMS``), in bf16 and f32, on four shapes
+(the flagship's temporal and spatial calls and two ragged ones) with seeded
+inputs and key masks that leave some sequences no key, then saves every
+output. ``compare`` prints how
 many of two files' outputs are equal bit for bit. Run it by path, so that
 the package comes from the root given, not from the working directory; run
 the two commits in turns on one card (a, b, b, a).
@@ -21,7 +22,7 @@ import sys
 SOURCES = ("fused_attention.cu", "fused_attention_bwd.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "attention_sublayer.cu")
 SHAPES = ((512, 16, 8), (32, 256, 8), (5, 37, 8), (3, 80, 8))  # (B, S, H)
-HEAD_DIM, WIDTH = 64, 768
+HEAD_DIMS, WIDTH = (16, 32, 64), 768
 
 
 def save(root: str, out: str) -> None:
@@ -32,20 +33,20 @@ def save(root: str, out: str) -> None:
     from video_vae_tpu_torch.ops._build import build
 
     build(SOURCES)
-    dev, D, C = torch.device("cuda"), HEAD_DIM, WIDTH
+    dev, C = torch.device("cuda"), WIDTH
     gen = torch.Generator().manual_seed(0)
 
     def rn(*shape):
         return torch.randn(*shape, generator=gen)
 
     outputs = {}
-    for B, S, H in SHAPES:
+    for (B, S, H), D in ((shape, D) for D in HEAD_DIMS for shape in SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             qkv, g = rn(B, S, 3 * H * D).to(dev, dtype), rn(B, S, H * D).to(dev, dtype)
             qs, ks = (1 + 0.2 * rn(D)).to(dev), (1 + 0.2 * rn(D)).to(dev)
             lengths = torch.randint(0, S + 1, (B,), generator=gen)
             mask = (torch.arange(S)[None, :] < lengths[:, None]).to(dev)
-            key = f"{B}x{S}x{H} {dtype}"
+            key = f"{B}x{S}x{H} D{D} {dtype}"
             outputs[f"fused {key}"] = fa.fused_qkv_attention_cuda(qkv, qs, ks, mask, H)
             outputs[f"fused bwd {key}"] = fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
             q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
