@@ -63,8 +63,9 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    transformer cut to depth 1) with ``VVT_TAPDOT=1``, held to the same model
    and weights with ``VVT_TAPDOT=0``, launches counted exactly on both;
 7. drives the training entry point: ``Trainer`` on the config
-   ``cli/train.py --synthetic`` builds (the flagship at full width and depth,
-   b2 x 32 frames, remat on, perceptual on with the random VGG) over 6
+   ``cli/train.py --synthetic`` builds (the flagship at full width, the
+   transformer cut to ``TRAINER_DEPTH`` blocks, b2 x 32 frames, remat on,
+   perceptual on with the random VGG) over 6
    synthetic clips: ``run_epoch(0)`` (3 steps, the video dump on the last, a
    checkpoint) and ``run_eval(0)``, each step's launches counted; checks the
    logged metrics, restores a fresh ``Trainer`` from the checkpoint bit-exactly
@@ -97,7 +98,25 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    two synthetic clips through an in-memory video source ("cache-latents",
    "decode-latents": launches per video, the written latents and video
    equal to a hand-called model's bit for bit, clips/s, device ms a clip,
-   peak memory).
+   peak memory);
+10. runs the trainer of step 7 across ranks. "dist-nccl": a process group of
+   one rank on NCCL, in this process with the environment
+   ``torch.distributed.run`` gives rank 0 of 1; step 1 must equal step 7's
+   one-process step 1 bit for bit; launches held, ms per step, device ms and
+   peak memory beside step 7's. "dist-gloo-2": this script relaunches itself
+   (``--dist-worker``) under ``python -m torch.distributed.run`` as two ranks
+   on the one card on gloo, data=2 (b1 x 32 frames a rank), then fsdp=2 and tensor=2 (4 heads a
+   rank), these two stopped after their first step through the trainer's
+   shutdown flag: each rank's rows and launches held (tensor=2 launches no fused
+   attention: the chain, read from the dispatch log), step 1 held to the
+   one-process step 1. #1-#4 are held to their plain versions at the data=2
+   run's local shapes beforehand (the ``dist-gloo-2`` path of ``by_path``).
+
+``python3 chip_smoke.py --four-cards`` (a machine of 4 cards; not part of the
+one-card run) runs the parallel dry run on NCCL over 4 ranks and the trainer
+of step 7 at the flagship's full depth under data=4, fsdp=4, fsdp=2 x tensor=2
+and tensor=4 (or the meshes named after the flag), each held to one rank's
+run of the same global batch ("dist-nccl-4" line).
 
 Every failure ends the script with a non-zero exit and no result line. The
 last line of standard output is ``{"ok": true, "device": {...}}``; the line
@@ -108,6 +127,7 @@ the launches of the kernel's main path; every path's sums under ``by_path``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -192,6 +212,7 @@ PATHS = (
     "train", "serving", "serving-pallas", "serving-sublayer", "train-pallas", "train-sublayer",
     "serving-mlp", "train-mlp", "serving-sublayer-mlp", "serving-tapdot", "train-tapdot", "trainer", "tiny",
     "train-h4", "cache-latents", "decode-latents",  # the last two: launches per video
+    "dist-gloo-2",  # rank 0's step of the 2-rank data=2 run
 )
 # the path whose sums stand at the top level of a kernel's record
 MAIN_PATH = {
@@ -205,6 +226,10 @@ TAPDOT_TIMED_FORWARDS, TAPDOT_TIMED_STEPS = 3, 2
 # many synthetic clips, so that an epoch is 3 steps; its video dump on the last step
 TRAINER_BATCH, TRAINER_FRAMES, TRAINER_CLIPS = 2, 32, 6
 TRAINER_STEPS = TRAINER_CLIPS // TRAINER_BATCH
+# the one-card trainer and dist phases cut the transformer from the flagship's 9/12
+# blocks to these (width, UNet and VGG at full size), so that the script stays short;
+# the four-card runs keep the full depth
+TRAINER_DEPTH = (3, 3)
 # the JAX train step's metrics, which every logged step must carry
 TRAIN_METRICS = ("loss", "MSE", "per_sample_MAE", "perceptual_loss", "selection_loss", "kl_loss",
                  "kept_frame_density", "rl_loss", "mean_trajectory_prob", "grad_norm", "max_grad")
@@ -367,6 +392,22 @@ def per_path(per: dict, paths: dict) -> dict:
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+# wall seconds of each phase_* function over the run, nested calls included in
+# their caller's (filled by ``_timed``, printed as the "phase-seconds" line)
+PHASE_SECONDS: dict = {}
+
+
+def _timed(name: str, fn):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        started = time.monotonic()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.monotonic() - started
+    return run
 
 
 def time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -1761,17 +1802,22 @@ def phase_train(cfg, dev, path="fused", reference=None, timed=TIMED_STEPS, redra
     return launches, {"draws": (noise, uniforms), **fixed}
 
 
-def trainer_config(checkpoint_dir: str):
+def trainer_config(checkpoint_dir: str, clips: int = TRAINER_CLIPS, args=(), depth=TRAINER_DEPTH):
     """The config ``python -m video_vae_tpu_torch.cli.train --synthetic`` trains (the
-    flagship at full width and depth, b2 x 32 frames, remat on, bf16, perceptual on with
-    the random VGG), on ``TRAINER_CLIPS`` clips, every step logged, the video dump and a
-    checkpoint on the epoch's last step, everything written under ``checkpoint_dir``."""
+    flagship at full width, b2 x 32 frames, remat on, bf16, perceptual on with the
+    random VGG), its (encoder, decoder) ``depth`` cut (None: the flagship's), on
+    ``clips`` clips, every step logged, the video dump and a checkpoint on the epoch's
+    last step, everything written under ``checkpoint_dir``. ``args``: more of the
+    CLI's flags (``--fsdp``, ``--tensor``)."""
     from video_vae_tpu_torch.cli.train import build_parser, config_from_args
 
-    cfg = config_from_args(build_parser().parse_args(["--synthetic", "--checkpoint_dir", checkpoint_dir]))
+    cfg = config_from_args(build_parser().parse_args(["--synthetic", "--checkpoint_dir", checkpoint_dir, *args]))
+    if depth is not None:
+        cfg = cfg.replace(model=cfg.model.replace(encoder_depth=depth[0], decoder_depth=depth[1]))
+    steps = clips // TRAINER_BATCH
     return cfg.replace(
-        data=cfg.data.replace(synthetic_num_clips=TRAINER_CLIPS),
-        train=cfg.train.replace(log_every=1, video_every=TRAINER_STEPS, checkpoint_every_steps=TRAINER_STEPS,
+        data=cfg.data.replace(synthetic_num_clips=clips),
+        train=cfg.train.replace(log_every=1, video_every=steps, checkpoint_every_steps=steps,
                                 video_save_dir=os.path.join(checkpoint_dir, "videos")),
     )
 
@@ -1848,7 +1894,8 @@ def _finite(values: dict) -> bool:
 
 
 def phase_trainer(dev):
-    """The training entry point at the flagship's full width and depth on the card.
+    """The training entry point at the flagship's full width on the card (the
+    transformer cut to ``TRAINER_DEPTH``).
 
     ``Trainer(cfg)`` on :func:`trainer_config` runs ``run_epoch(0)`` (3 steps, the
     video dump on the last, a checkpoint) and ``run_eval(0)``; every launch is
@@ -2012,7 +2059,344 @@ def phase_trainer(dev):
         }))
         del trainer, fresh, model, opt, initial, first, steps
     torch.cuda.empty_cache()
-    return per_step
+    return per_step, {"step1": step1, "ms_per_step": ms, "device_ms_per_step": profile["device_busy_ms_per_run"],
+                      "peak_memory_gib": peak_gib}
+
+
+
+
+def dist_mesh(label: str, shape, batch: int = TRAINER_BATCH, full: bool = True, clips: int = TRAINER_CLIPS,
+              profile: bool = True, dump: bool = True, depth=TRAINER_DEPTH) -> dict:
+    """One run of the trainer across ranks: the (data, fsdp, tensor) ``shape`` as
+    ``cli/train.py`` flags, the global ``batch``, ``clips`` synthetic clips, the
+    model's ``depth`` (see :func:`trainer_config`), and
+    whether the whole epoch runs (else it stops after ``DIST_SHORT_STEPS`` steps
+    through the trainer's agreed shutdown, the stop raised on every rank); a whole
+    epoch ends with the video dump where ``dump``, and a step is profiled where
+    ``profile``."""
+    _, fsdp, tensor = shape
+    args = ["--batch_size", str(batch), "--fsdp", str(fsdp), "--tensor", str(tensor)]
+    return {"label": label, "shape": list(shape), "batch": batch, "args": args, "full": full, "clips": clips,
+            "profile": full and profile, "dump": full and dump, "depth": depth}
+
+
+DIST_SHORT_STEPS = 1
+# "dist-nccl": the trainer's config on a process group of one rank, NCCL, in this
+# process (the environment torchrun gives rank 0 of 1), without the dump
+DIST_NCCL_MESH = dist_mesh("data=1", (1, 1, 1), dump=False)
+# the 2-rank runs on the one card: gloo (NCCL takes one rank a card), each on the
+# trainer's config and clips (b2 x 32 frames global, 3 steps): data=2 (b1 a rank),
+# fsdp=2 (b1 a rank) and tensor=2 (both ranks b2, the flagship's 8 heads, 4 a rank);
+# the later two short, and no step profiled (gloo's collectives through host memory
+# are not what a card's time is read from), to keep the phase short
+DIST_GLOO_MESHES = (dist_mesh("data=2", (2, 1, 1), profile=False), dist_mesh("fsdp=2", (1, 2, 1), full=False),
+                    dist_mesh("tensor=2", (1, 1, 2), full=False))
+# ``python3 chip_smoke.py --four-cards`` (not part of the one-card run): the trainer on
+# NCCL over 4 cards, 3 steps of each; held to one rank's run of the same global batch
+FOUR_CARD_MESHES = (dist_mesh("data=4", (4, 1, 1), batch=4, clips=12, depth=None),
+                    dist_mesh("fsdp=4", (1, 4, 1), batch=4, clips=12, depth=None),
+                    dist_mesh("fsdp=2,tensor=2", (1, 2, 2), depth=None), dist_mesh("tensor=4", (1, 1, 4), depth=None))
+DIST_TIMEOUT_S = 420
+ATTENTION_KERNELS = ("vvt_fused_attention_fwd", "vvt_fused_attention_bwd")
+
+
+def dist_worker(spec: dict) -> int:
+    """One rank of a ``torch.distributed.run`` launch of this script (``--dist-worker``):
+    :func:`dist_record` for each mesh of ``spec``, written to ``<spec["out"]>.rank<N>``.
+    Rank 0 alone prints."""
+    import torch
+    import torch.distributed as dist
+
+    global log
+    warnings.filterwarnings("ignore", message="Perceptual loss is using RANDOM")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    if rank:
+        log = lambda *parts: None  # noqa: E731  (rank 0 speaks for the run)
+    records = [dist_record(spec, mesh) for mesh in spec["meshes"]]
+    with open(f"{spec['out']}.rank{rank}", "w") as f:
+        json.dump(records, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_record(spec: dict, mesh: dict) -> dict:
+    """One rank's run of ``mesh``: ``Trainer`` on :func:`trainer_config` with the
+    mesh's CLI flags (joining the process group its environment names, on
+    ``spec["backend"]``), ``run_epoch(0)`` with every step's launches counted, the
+    dispatch log read, ms per step timed and, where the mesh asks, one step profiled."""
+    import torch
+    import torch.distributed as dist
+
+    from video_vae_tpu_torch.parallel.sharding import clear_dispatch_log, dispatch_log
+    from video_vae_tpu_torch.train.trainer import Trainer
+
+    rank = int(os.environ["RANK"])
+    label, full = mesh["label"], mesh["full"]
+    cfg = trainer_config(os.path.join(spec["dir"], label), mesh["clips"], mesh["args"], mesh["depth"])
+    if not mesh["dump"]:
+        cfg = cfg.replace(train=cfg.train.replace(video_every=0))
+    started = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda", dist_backend=spec["backend"], install_signal_handlers=False)
+    build_s = time.perf_counter() - started
+    dev = trainer.device
+    steps, first = [], {}
+    inner = trainer.train_step
+
+    def counted_step(model, optimizer, video, mask, hp, **kw):
+        if not first:
+            first.update(video=video.clone(), mask=mask.clone(), hp=hp)
+        before = read_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = inner(model, optimizer, video, mask, hp, **kw)
+        end.record()
+        after = read_launches()
+        steps.append({"launches": {k: after[k] - before[k] for k in after}, "events": (start, end),
+                      "metrics": metrics})
+        if not full and len(steps) == DIST_SHORT_STEPS:
+            trainer.shutdown.should_stop = True
+        return metrics
+
+    trainer.train_step = counted_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    clear_dispatch_log()
+    started = time.perf_counter()
+    if trainer.run_epoch(0) != full:
+        raise AssertionError(f"{label}: run_epoch(0) after {len(steps)} steps, asked to stop: {not full}")
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - started
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    dispatch = sorted({f"{op}:{impl}" for op, impl, _ in dispatch_log()})
+    times = [start.elapsed_time(end) for start, end in (step["events"] for step in steps)]
+    ms = statistics.median(times[1:] or times)  # a one-step run: its first step, warm-up and all
+    rows, _, _, _ = trainer._shard(cfg.data.batch_size)
+
+    def one_step():
+        with trainer._mesh_and_rows(rows, cfg.data.batch_size):
+            inner(trainer.model, trainer.optimizer, first["video"], first["mask"], first["hp"],
+                  generator=trainer.generator)
+
+    profile = (profile_device(f"{spec['phase']}-{label}", one_step, ms, passes=1) if mesh["profile"]
+               else {"device_busy_ms_per_run": None, "idle_share_vs_median": None})
+    record = {
+        "label": label, "rank": rank, "world": dist.get_world_size(), "device": str(dev),
+        "rows": [rows.start, rows.stop], "steps": len(steps),
+        "launches": [step["launches"] for step in steps],
+        "step1": {k: float(v) for k, v in steps[0]["metrics"].items()},
+        "ms_per_step": ms, "ms_per_step_all": times,
+        "device_ms_per_step": profile["device_busy_ms_per_run"],
+        "idle_share": profile["idle_share_vs_median"], "peak_memory_gib": peak_gib,
+        "dispatch": dispatch, "trainer_build_s": build_s, "epoch_s": epoch_s, "backend": dist.get_backend(),
+        "checkpoint": sorted(os.listdir(cfg.train.checkpoint_dir)) if rank == 0 else None,
+    }
+    del trainer, first, steps, inner
+    torch.cuda.empty_cache()
+    return record
+
+
+def run_dist(phase: str, nproc: int, backend: str, meshes) -> list[list[dict]]:
+    """This script's ``dist_worker`` on ``nproc`` ranks under ``torch.distributed.run``
+    (a local rendezvous); each rank's records, by rank."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=f"vvt-{phase}-") as tmp:
+        spec = {"phase": phase, "backend": backend, "meshes": meshes, "dir": tmp,
+                "out": os.path.join(tmp, "records")}
+        subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+             os.path.abspath(__file__), "--dist-worker", json.dumps(spec)],
+            check=True, timeout=DIST_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        out = []
+        for rank in range(nproc):
+            with open(f"{spec['out']}.rank{rank}") as f:
+                out.append(json.load(f))
+    return out
+
+
+def _rel_errs(ours: dict, ref: dict) -> dict:
+    return {k: abs(ours[k] - ref[k]) / (1.0 if k == "rl_loss" or not ref[k] else abs(ref[k])) for k in ref}
+
+
+def _hold_step1(label: str, ours: dict, ref: dict, tol: float, perceptual_tol: float) -> dict:
+    errs = _rel_errs(ours, ref)
+    for key, err in errs.items():
+        if not err <= (perceptual_tol if key == "perceptual_loss" else tol):
+            raise AssertionError(f"{label} step 1 {key}: {ours[key]} vs the one-process trainer's {ref[key]}")
+    return errs
+
+
+def _hold_launches(label: str, record: dict, want: dict) -> None:
+    for i, got in enumerate(record["launches"]):
+        if got != want:
+            raise AssertionError(f"{label} rank {record['rank']} step {i + 1} launches {got}, expected {want}")
+
+
+def phase_dist_kernels(dev, rows):
+    """#1-#4 against their plain versions at the rank-local shapes of the 2-rank
+    data=2 run (b1 x 32 frames a rank, remat on), with rank 0's first clip's
+    padding (rank 1's calls have the same shapes), counted on the ``dist-gloo-2``
+    path."""
+    cfg = trainer_config("checkpoints")  # only its shapes are read: nothing is written
+    mask = trainer_frame_mask(cfg)
+    model = cfg.model
+    phase_attention_kernels(model, dev, rows, None, "dist-gloo-2", trainer_attention_cases(model, mask[:1]),
+                            remat=model.remat)
+    phase_conv_kernels(model, dev, rows, None, "dist-gloo-2", batch=2, frames=mask.shape[1], remat=model.remat)
+
+
+def _hold_dist(phase: str, mesh: dict, records: list[dict], ref_step1: dict, backend: str) -> dict:
+    """Every rank's backend, rows, steps, launches and attention dispatch for ``mesh``, and
+    rank 0's step 1 against the one-process ``ref_step1``: the rank's rows are its
+    (data, fsdp) block (ranks are data-major, tensor-minor), the whole batch where
+    data·fsdp does not divide it; under tensor > 1 the fused attention is the chain
+    (0 launches of #1 and #3). Returns the summary for the phase's line."""
+    label, (data, fsdp, tensor), batch = f"{phase} {mesh['label']}", mesh["shape"], mesh["batch"]
+    per_step = trainer_launches(trainer_config("checkpoints", depth=mesh["depth"]).model)  # nothing is written
+    if tensor > 1:
+        per_step = {**per_step, **{k: 0 for k in ATTENTION_KERNELS}}
+    shards = data * fsdp
+    local = batch // shards if batch % shards == 0 else batch
+    steps = mesh["clips"] // batch if mesh["full"] else DIST_SHORT_STEPS
+    for rank, record in enumerate(records):
+        if record["backend"] != backend:
+            raise AssertionError(f"{label} rank {rank}: backend {record['backend']}, expected {backend}")
+        block = rank // tensor if local < batch else 0
+        if record["rows"] != [block * local, (block + 1) * local] or record["steps"] != steps:
+            raise AssertionError(f"{label} rank {rank}: rows {record['rows']}, steps {record['steps']}")
+        _hold_launches(label, record, per_step)
+        attention = {d.split(":")[1] for d in record["dispatch"] if d.startswith("fused_attention:")}
+        if attention != ({"chain"} if tensor > 1 else {"kernel"}):
+            raise AssertionError(f"{label}: fused attention dispatches {record['dispatch']}")
+    if data * fsdp * tensor == 1 and records[0]["step1"] != ref_step1:
+        raise AssertionError(f"{label}: step 1 {records[0]['step1']} is not the one-process trainer's "
+                             f"{ref_step1} bit for bit")
+    # the tensor ranks' sums round in bf16 before the all-reduce, and the chain
+    # replaces the fused kernel: the bound of a path against the default path
+    tol = PATH_LOSS_TOL if tensor > 1 else TRAINER_STEP_TOL
+    errs = _hold_step1(label, records[0]["step1"], ref_step1, tol, max(tol, TRAINER_PERCEPTUAL_TOL))
+    return {
+        "ms_per_step": [r["ms_per_step"] for r in records],
+        "device_ms_per_step": [r["device_ms_per_step"] for r in records],
+        "peak_memory_gib": [r["peak_memory_gib"] for r in records],
+        "launches_per_step_per_rank": records[0]["launches"][0], "dispatch": records[0]["dispatch"],
+        "step1_equals_reference_bits": records[0]["step1"] == ref_step1, "step1_vs_reference_rel_err": errs,
+        "tol": tol, "checkpoint": records[0]["checkpoint"], "steps": records[0]["steps"],
+        "trainer_build_s": records[0]["trainer_build_s"],
+    }
+
+
+def phase_dist_nccl(trainer: dict) -> None:
+    """``Trainer`` on a process group of one rank, NCCL, at the trainer phase's
+    config, in this process, with the environment ``torch.distributed.run`` gives
+    rank 0 of 1 (the 2-rank phase runs under the launcher itself, and a fresh
+    process would pay its warm-up again). Its step 1 must equal the one-process
+    trainer's bit for bit: a (1, 1, 1) mesh leaves the model as built and a mean
+    over one rank is the identity. Its launches, times and peak memory."""
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory(prefix="vvt-dist-nccl-") as tmp:
+            record = dist_record({"phase": "dist-nccl", "backend": "nccl", "dir": tmp}, DIST_NCCL_MESH)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log("dist-nccl", json.dumps({
+        "config": "Trainer on a one-rank NCCL process group (torchrun's environment for rank 0 of 1), "
+                  f"the trainer phase's config, {TRAINER_CLIPS} clips, no dump",
+        **_hold_dist("dist-nccl", DIST_NCCL_MESH, [record], trainer["step1"], "nccl"),
+        "ms_per_step_all": record["ms_per_step_all"], "idle_share": record["idle_share"],
+        "epoch_s": record["epoch_s"],
+        "trainer": {k: trainer[k] for k in ("ms_per_step", "device_ms_per_step", "peak_memory_gib")},
+    }))
+
+
+def phase_dist_gloo(trainer: dict) -> dict:
+    """Two ranks on the one card under gloo: data=2 (step 1 held to the one-process
+    trainer's on the same global batch and draws, the kernels' launches per rank),
+    then fsdp=2 and tensor=2 (no fused attention launch: the chain). Returns rank 0's
+    launches of one data=2 step."""
+    ranks = run_dist("dist-gloo-2", 2, "gloo", DIST_GLOO_MESHES)
+    out = {mesh["label"]: _hold_dist("dist-gloo-2", mesh, [r[i] for r in ranks], trainer["step1"], "gloo")
+           for i, mesh in enumerate(DIST_GLOO_MESHES)}
+    log("dist-gloo-2", json.dumps({
+        "config": "the trainer phase's config over 2 ranks on one card, gloo (its all-reduce of the "
+                  "f32 gradients goes through host memory); data=2: b1 x 32 frames a rank; fsdp=2; "
+                  "tensor=2: 4 heads a rank", "meshes": out,
+        "trainer": {k: trainer[k] for k in ("ms_per_step", "device_ms_per_step", "peak_memory_gib")},
+    }))
+    return ranks[0][0]["launches"][0]
+
+
+def four_cards(labels=()) -> int:
+    """``python3 chip_smoke.py --four-cards [LABEL ...]``: what exists only across cards.
+
+    On a machine of 4 cards: the parallel dry run on NCCL (one tiny step under
+    each factorization of 4, the dispatch asserted), then the flagship trainer
+    under :data:`FOUR_CARD_MESHES` (those ``labels`` name, or all), each rank's
+    rows, launches and dispatch held and step 1 held to one rank's run of the same
+    global batch (b4 or b2), with ms per step, device ms and peak memory beside
+    that run's.
+    """
+    import torch
+
+    from video_vae_tpu_torch.ops import KERNELS
+    from video_vae_tpu_torch.ops._build import build
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        print("chip_smoke --four-cards: needs 4 CUDA cards", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    for line in smi.stdout.strip().splitlines():
+        log(line)
+    build([k.source for k in KERNELS])
+    started = time.monotonic()
+    subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "4",
+                    "-m", "video_vae_tpu_torch.parallel.dryrun"], check=True, timeout=DIST_TIMEOUT_S)
+    meshes = [m for m in FOUR_CARD_MESHES if not labels or m["label"] in labels]
+    if len(meshes) != (len(labels) or len(FOUR_CARD_MESHES)):
+        raise ValueError(f"--four-cards {list(labels)}: the meshes are {[m['label'] for m in FOUR_CARD_MESHES]}")
+    batches = sorted({m["batch"] for m in meshes})
+    reference = run_dist("dist-reference", 1, "nccl", [
+        dist_mesh(f"b{b}", (1, 1, 1), batch=b, clips=3 * b, depth=None) for b in batches])[0]
+    one_card = {r["label"]: r for r in reference}
+    ranks = run_dist("dist-nccl-4", 4, "nccl", meshes)
+    out = {}
+    for i, mesh in enumerate(meshes):
+        base = one_card[f"b{mesh['batch']}"]
+        out[mesh["label"]] = {
+            **_hold_dist("dist-nccl-4", mesh, [r[i] for r in ranks], base["step1"], "nccl"),
+            "one_card": {k: base[k] for k in ("ms_per_step", "device_ms_per_step", "peak_memory_gib")},
+        }
+    log("dist-nccl-4", json.dumps({
+        "config": "the trainer phase's config (flagship, b x 32 frames, remat on) under torch.distributed.run "
+                  "over 4 cards, NCCL; 3 steps a mesh; one_card: the same global batch on one rank",
+        "meshes": out, "seconds": time.monotonic() - started,
+    }))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
 
 
 def phase_head_dim_kernels(dev, rows):
@@ -2577,6 +2961,9 @@ def main() -> int:
             if "Used" in line or "spill" in line or "error" in line or "entry function" in line:
                 log(f"nvcc {source}: {line.strip()}")
 
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = _timed(name, fn)
     cfg = ModelConfig()
     wide = tapdot_model_config()
     log("cuts", json.dumps({
@@ -2584,13 +2971,19 @@ def main() -> int:
         "tap-dot path": f"{describe(wide)}: the transformer cut from depth {cfg.encoder_depth}/"
                         f"{cfg.decoder_depth} to 1/1, the UNet at full size; {TAPDOT_TIMED_FORWARDS} "
                         f"passes and {TAPDOT_TIMED_STEPS} steps timed",
-        "trainer": f"none of width or depth; {TRAINER_CLIPS} synthetic clips, so one epoch of "
-                   f"{TRAINER_STEPS} steps and an eval of {TRAINER_CLIPS // TRAINER_BATCH} batches",
+        "trainer": f"the transformer cut from depth {cfg.encoder_depth}/{cfg.decoder_depth} to "
+                   f"{TRAINER_DEPTH[0]}/{TRAINER_DEPTH[1]}, the width, UNet and VGG at full size; "
+                   f"{TRAINER_CLIPS} synthetic clips, so one epoch of {TRAINER_STEPS} steps and an eval of "
+                   f"{TRAINER_CLIPS // TRAINER_BATCH} batches",
         "tiny": "none: cli/train.py --synthetic --tiny --steps 5 as it stands (one epoch of 32 steps)",
         "train-small": "none of width or depth; one step timed 3 times",
         "train-h4": "none: the flagship's width and depth in 4 heads of 128; the float32 card-vs-CPU step at "
                     "depth 1",
         "cache-latents / decode-latents": f"none of width or depth; {LATENT_VIDEOS} synthetic clips",
+        "dist-nccl": f"the trainer's config and cut, {TRAINER_CLIPS} clips on one rank, no eval, no dump",
+        "dist-gloo-2": f"the trainer's config and cut; 2 ranks on one card (gloo); {TRAINER_CLIPS} clips a mesh, "
+                       f"no eval, no profiled step; fsdp=2 and tensor=2 stop after {DIST_SHORT_STEPS} step (its "
+                       "time holds the warm-up), without the video dump",
     }))
     if [sum(d.values()) for d in tapdot_launches(wide)] != [4, 4]:
         raise AssertionError(f"the tap-dot model's gate counts changed: {tapdot_launches(wide)}")
@@ -2609,6 +3002,8 @@ def main() -> int:
     phase_conv_kernels(wide, dev, rows, "serving-tapdot", "train-tapdot", tapdot=True)
     # the trainer's shapes: b2 x 32 frames with its first batch's padding, remat on
     phase_trainer_kernels(dev, rows)
+    # the 2-rank data=2 run's local shapes: b1 x 32 frames a rank
+    phase_dist_kernels(dev, rows)
     log("seconds", json.dumps({"kernel checks": time.monotonic() - started}))
     started = time.monotonic()
     # head_dim 16 and 32 (the tiny and small presets), tiny's UNet, the cf VGG's convs
@@ -2661,8 +3056,12 @@ def main() -> int:
     phase_f32_train(dev, h4=True)
     log("seconds", json.dumps({"head_dim 128 steps": time.monotonic() - started}))
     started = time.monotonic()
-    launches["trainer"] = phase_trainer(dev)
+    launches["trainer"], trainer = phase_trainer(dev)
     log("seconds", json.dumps({"trainer": time.monotonic() - started}))
+    started = time.monotonic()
+    phase_dist_nccl(trainer)
+    launches["dist-gloo-2"] = phase_dist_gloo(trainer)
+    log("seconds", json.dumps({"dist-nccl and dist-gloo-2": time.monotonic() - started}))
     started = time.monotonic()
     launches["tiny"] = phase_tiny(dev)
     phase_f32_train(dev, tiny=True)
@@ -2671,6 +3070,7 @@ def main() -> int:
     started = time.monotonic()
     launches.update(phase_latent_clis(dev))
     log("seconds", json.dumps({"latent CLIs": time.monotonic() - started}))
+    log("phase-seconds", json.dumps(PHASE_SECONDS))
     log(json.dumps(kernel_record(rows, launches)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -2679,4 +3079,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--four-cards"]:
+        sys.exit(four_cards(sys.argv[2:]))
     sys.exit(main())

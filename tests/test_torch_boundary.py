@@ -37,6 +37,8 @@ REQUIRED = (
     "video_vae_tpu_torch.cli.cache_latents", "video_vae_tpu_torch.cli.decode_latents",
     "video_vae_tpu_torch.cli.check_videos", "video_vae_tpu_torch.ops.embeddings",
     "video_vae_tpu_torch.utils.debug", "video_vae_tpu_torch.utils.metrics", "video_vae_tpu_torch.cli.train",
+    "video_vae_tpu_torch.parallel.mesh", "video_vae_tpu_torch.parallel.sharding",
+    "video_vae_tpu_torch.parallel.tensor_parallel", "video_vae_tpu_torch.parallel.dryrun",
 )
 
 

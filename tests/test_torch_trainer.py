@@ -300,9 +300,12 @@ def test_cli_main_runs_and_resumes(tmp_path):
 
 
 def test_cli_refuses_a_parallel_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    """A mesh whose product is not the number of ranks is refused, as JAX's
+    ``build_mesh`` refuses it; here one process is one rank (the meshes that
+    fit several ranks train in ``test_torch_distributed.py``)."""
+    with pytest.raises(ValueError, match="1 devices not divisible by fsdp\\*tensor=2"):
         cli.main(["--tiny", "--fsdp", "2", "--device", "cpu", "--checkpoint_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="mesh 2x1x1 != 1 devices"):
         Trainer(tiny_config().replace(mesh=tiny_config().mesh.replace(data=2)), device="cpu")
 
 

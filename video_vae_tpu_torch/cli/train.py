@@ -2,12 +2,16 @@
 
     python -m video_vae_tpu_torch.cli.train --data_dir /path/videos --run
     python -m video_vae_tpu_torch.cli.train --synthetic --tiny --steps 5 --device cpu
+    python -m torch.distributed.run --nproc_per_node 4 -m video_vae_tpu_torch.cli.train \
+        --synthetic --fsdp 2 --tensor 2
 
 The flags and the config they build are the JAX CLI's, plus ``--device``
-(default ``cuda``; without CUDA only ``--device cpu`` runs). ``--steps N``
-stops after the first epoch that ends at or past step N: the count is
-checked between epochs. ``--fsdp`` or ``--tensor`` above 1 raises: the port
-trains on one device.
+(default ``cuda``; without CUDA only ``--device cpu`` runs) and
+``--dist_backend`` (``nccl`` or ``gloo``; by default NCCL on CUDA, gloo on the
+CPU). ``--steps N`` stops after the first epoch that ends at or past step N:
+the count is checked between epochs. Under ``torch.distributed.run`` every
+rank trains over a (data, fsdp, tensor) mesh of all ranks with data = world /
+(fsdp·tensor); ``--batch_size`` is the global batch.
 """
 
 from __future__ import annotations
@@ -50,6 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
              "dataset instead of exact sharding",
     )
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument(
+        "--dist_backend", choices=["nccl", "gloo"], default=None,
+        help="process-group backend under torch.distributed.run (default: nccl on cuda, gloo on cpu)",
+    )
     return p
 
 
@@ -93,23 +101,30 @@ def config_from_args(args):
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    import torch.distributed as dist
+
     from video_vae_tpu_torch.train.trainer import Trainer
 
     cfg = config_from_args(args)
-    trainer = Trainer(
-        cfg,
-        vgg_weights=args.vgg_weights,
-        use_wandb=args.run,
-        restore_from=args.model_path,
-        device=args.device,
-    )
-    if args.steps:
-        for epoch in range(cfg.train.num_epochs):
-            if not trainer.run_epoch(epoch) or trainer.global_step >= args.steps:
-                break
-        trainer.ckpt.wait()
-    else:
-        trainer.fit()
+    try:
+        trainer = Trainer(
+            cfg,
+            vgg_weights=args.vgg_weights,
+            use_wandb=args.run,
+            restore_from=args.model_path,
+            device=args.device,
+            dist_backend=args.dist_backend,
+        )
+        if args.steps:
+            for epoch in range(cfg.train.num_epochs):
+                if not trainer.run_epoch(epoch) or trainer.global_step >= args.steps:
+                    break
+            trainer.ckpt.wait()
+        else:
+            trainer.fit()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

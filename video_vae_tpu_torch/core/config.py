@@ -23,8 +23,8 @@ block and each UNet down and up block runs under activation checkpointing
 
 ``MeshConfig``, ``DataConfig`` and ``TrainConfig`` carry the JAX package's
 fields and defaults for the data pipeline (``data/``) and the trainer
-(``train/trainer.py``, ``cli/train.py``). The port trains on one device: a
-mesh other than one data-parallel device is refused by the trainer.
+(``train/trainer.py``, ``cli/train.py``); ``MeshConfig`` is the
+(data, fsdp, tensor) mesh the trainer builds over its ranks (``parallel/``).
 ``DynamicHParams`` holds the per-step loss weights and the compression-rate
 target as plain floats.
 """
@@ -173,8 +173,9 @@ class OptimConfig:
 class MeshConfig:
     """Device mesh axes: data (over the batch), fsdp (parameter shards), tensor.
 
-    The port runs on one device (ROADMAP Queue 1 item 6): the trainer takes
-    data ∈ {-1, 1} with fsdp = tensor = 1 and refuses any other mesh.
+    One rank a device; the product is the number of ranks the trainer runs
+    on (``torch.distributed.run``), ``data=-1`` taking the rest
+    (``parallel/mesh.py``). One process is the (1, 1, 1) mesh.
     """
 
     data: int = -1  # -1: use all remaining devices

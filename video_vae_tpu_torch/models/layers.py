@@ -4,7 +4,10 @@ Counterparts of the JAX package's ``models/layers.py``, with the same module
 and parameter names so that weight paths match one to one. Parameters keep
 the JAX layouts: a Linear kernel is (in, out) and the port multiplies
 ``x @ kernel``. Each module computes in the config's compute dtype and holds
-its parameters in the param dtype, as the JAX modules do.
+its parameters in the param dtype, as the JAX modules do. Under a tensor > 1
+mesh (``parallel/tensor_parallel.py``) an ``Attention`` or ``MLP`` whose
+``tensor_parallel`` is set runs on the rank's heads or hidden columns through
+the module chain, and the sublayer kernels give way to it, as in JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from video_vae_tpu_torch.ops.flash_attention import fused_attention_sublayer, fu
 from video_vae_tpu_torch.ops.fused_block import fused_mlp_sublayer
 from video_vae_tpu_torch.ops.norm import LN_EPS, layer_norm
 from video_vae_tpu_torch.ops.rope import apply_rope
+from video_vae_tpu_torch.parallel import sharding, tensor_parallel
 
 # stddev of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -55,8 +59,11 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features))
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+    def forward(self, x: torch.Tensor, tp: Optional[tensor_parallel.TensorGroup] = None) -> torch.Tensor:
+        """``x @ kernel + bias``; with ``tp`` a row-parallel product, whose partial
+        sums are summed over the tensor ranks before the bias is added."""
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return tensor_parallel.reduce_from_tensor_region(y, tp) + self.bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -163,22 +170,32 @@ class Attention(nn.Module):
         )
         self.q_norm = LayerNorm(head_dim, use_bias=False)
         self.k_norm = LayerNorm(head_dim, use_bias=False)
+        # set by train/setup.py:create_sharded_model under a tensor > 1 mesh
+        self.tensor_parallel: Optional[tensor_parallel.TensorGroup] = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        qkv = self.qkv_projection(self.input_norm(x))
-        if self.attention_impl == "fused":
+        tp = self.tensor_parallel
+        if self.attention_impl == "fused" and tp is None:
+            qkv = self.qkv_projection(self.input_norm(x))
             out = fused_qkv_attention(
                 qkv, self.q_norm.scale, self.k_norm.scale, mask,
                 self.num_heads, self.rope_base, self.rope_alpha,
             )
             return self.out_projection(out)
+        impl = self.attention_impl
+        if impl == "fused":  # under tensor > 1 the kernel gives way to the chain (JAX layers.py:303)
+            sharding.log_chain("fused_attention")
+            impl = "xla"
+        qkv = self.qkv_projection(tensor_parallel.copy_to_tensor_region(self.input_norm(x), tp))
         b, s, _ = qkv.shape
-        q, k, v = (t.reshape(b, s, self.num_heads, -1) for t in qkv.chunk(3, dim=-1))
+        heads = tensor_parallel.local_heads(self.num_heads, tp)
+        q, k, v = (t.reshape(b, s, heads, -1) for t in qkv.chunk(3, dim=-1))
+        q_scale, k_scale = (tensor_parallel.copy_to_tensor_region(n.scale, tp) for n in (self.q_norm, self.k_norm))
         q, k = apply_rope(
-            self.q_norm(q), self.k_norm(k), base=self.rope_base, alpha=self.rope_alpha
+            layer_norm(q, q_scale, None), layer_norm(k, k_scale, None), base=self.rope_base, alpha=self.rope_alpha
         )
-        out = masked_attention(q, k, v, mask, impl=self.attention_impl)
-        return self.out_projection(out.reshape(b, s, -1))
+        out = masked_attention(q, k, v, mask, impl=impl)
+        return self.out_projection(out.reshape(b, s, -1), tp)
 
 
 def apply_attention(attn: Attention, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -187,9 +204,13 @@ def apply_attention(attn: Attention, x: torch.Tensor, mask: Optional[torch.Tenso
     With ``attention_impl="fused"`` and ``VVT_ATTN_SUBLAYER=1`` in the
     environment (read at every call, the JAX package's knob) the whole
     sublayer (input LN, QKV projection, attention, out projection, residual)
-    goes through :func:`fused_attention_sublayer`.
+    goes through :func:`fused_attention_sublayer`, except under a tensor > 1
+    mesh, where the module chain runs on the rank's heads.
     """
     if attn.attention_impl == "fused" and os.environ.get("VVT_ATTN_SUBLAYER", "0") == "1":
+        if attn.tensor_parallel is not None or sharding.takes_chain():
+            sharding.log_chain("fused_attention_sublayer")
+            return x + attn(x, mask)
         return fused_attention_sublayer(
             x,
             attn.input_norm.scale, attn.input_norm.bias,
@@ -210,9 +231,12 @@ class MLP(nn.Module):
         self.norm = LayerNorm(in_features)
         self.linear1 = Linear(in_features, mlp_dim, gen, dtype=dtype)
         self.linear2 = Linear(mlp_dim, in_features, gen, dtype=dtype, kernel_scale=SMALL_INIT_SCALE)
+        # set by train/setup.py:create_sharded_model under a tensor > 1 mesh
+        self.tensor_parallel: Optional[tensor_parallel.TensorGroup] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(F.silu(self.linear1(self.norm(x))))
+        tp = self.tensor_parallel
+        return self.linear2(F.silu(self.linear1(tensor_parallel.copy_to_tensor_region(self.norm(x), tp))), tp)
 
 
 def apply_mlp(mlp: MLP, x: torch.Tensor) -> torch.Tensor:
@@ -221,9 +245,13 @@ def apply_mlp(mlp: MLP, x: torch.Tensor) -> torch.Tensor:
     With ``VVT_MLP_FUSED=1`` in the environment (read at every call, the JAX
     package's knob) the whole sublayer (LN, both products, SiLU, residual)
     goes through :func:`fused_mlp_sublayer`, whose products run on bf16
-    operands whatever the compute dtype.
+    operands whatever the compute dtype. Under a tensor > 1 mesh the module
+    chain runs instead (JAX ``ops/fused_block.py:224-229``).
     """
     if os.environ.get("VVT_MLP_FUSED", "0") == "1":
+        if mlp.tensor_parallel is not None or sharding.takes_chain():
+            sharding.log_chain("fused_mlp")
+            return x + mlp(x)
         return fused_mlp_sublayer(
             x,
             mlp.norm.scale, mlp.norm.bias,

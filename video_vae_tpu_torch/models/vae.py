@@ -29,6 +29,7 @@ from video_vae_tpu_torch.models.layers import (
 )
 from video_vae_tpu_torch.models.unet import UNet3D
 from video_vae_tpu_torch.ops.ste import gumbel_sigmoid_sample
+from video_vae_tpu_torch.parallel.sharding import draw_local
 
 
 NUM_ROLLOUTS = 2  # paired rollouts for the REINFORCE advantage
@@ -203,15 +204,17 @@ class VideoVAE(nn.Module):
         and a frame is kept where uniform < p; in ``"ste"`` mode they are
         (b, t, 1) and feed the gate's logistic noise (no draw when ``train``
         is False). Rollouts repeat b-major, r-minor, as the JAX ``repeat(...,
-        "b ... -> (b r) ...")`` does.
+        "b ... -> (b r) ...")`` does. Under ``parallel.sharding.local_rows``
+        the draws are made for the whole global batch and this rank keeps its
+        rows.
         """
         cfg = self.cfg
         key_mask = _key_mask(frame_mask)
         mean, log_variance, logits = self.encoder(x, key_mask)
 
-        def draw(fn, shape, dtype):
+        def draw(fn, shape, dtype):  # this rank's rows of the global batch's draw
             dev = generator.device if generator is not None else mean.device
-            return fn(shape, generator=generator, dtype=dtype, device=dev).to(mean.device)
+            return draw_local(fn, shape, generator=generator, dtype=dtype, device=dev).to(mean.device)
 
         if train:
             if noise is None:

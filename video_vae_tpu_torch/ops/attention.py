@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from video_vae_tpu_torch.ops.flash_attention import flash_attention, key_mask
+from video_vae_tpu_torch.parallel.sharding import log_chain, takes_chain
 
 # jax.nn.dot_product_attention's masked score: 0.7 of the most negative f32
 _LARGE_NEGATIVE = -0.7 * torch.finfo(torch.float32).max
@@ -51,9 +52,13 @@ def masked_attention(
 
     mask: (B,1,1,S) or (B,S), True = attend. ``impl`` is ``"pallas"`` (the
     flash-attention kernel; its plain version on the CPU) or ``"xla"``.
+    Under a tensor > 1 mesh ``"pallas"`` gives way to ``"xla"``, as in JAX.
     """
     if impl == "pallas":
-        return flash_attention(q, k, v, mask)
+        if not takes_chain():
+            return flash_attention(q, k, v, mask)
+        log_chain("flash_attention")
+        impl = "xla"
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r}")
     b, s = q.shape[:2]

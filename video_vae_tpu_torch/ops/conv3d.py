@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from video_vae_tpu_torch.ops._build import DTYPE_CODES, CudaKernel
 from video_vae_tpu_torch.ops.norm import max_pool_2x_cf
+from video_vae_tpu_torch.parallel.sharding import log_kernel
 
 CONV3D = CudaKernel(
     "conv3d.cu",
@@ -126,6 +127,7 @@ def tapdot_supported(x1, x2, kernel) -> bool:
 def _dispatch(x1, x2, kernel, bias, pool=False):
     """The forward conv by device and gate; with ``pool`` also its 2×2 max pool."""
     tapdot = tapdot_supported(x1, x2, kernel)
+    log_kernel("conv3d_tapdot" if tapdot else "conv3d_cf", x1)
     if x1.device.type == "cpu":
         plain = conv3d_tapdot_plain if tapdot else conv3d_cf_plain
         return plain(x1, x2, kernel, bias, pool=pool)
@@ -224,6 +226,7 @@ def conv3d_wgrad(
     x1: torch.Tensor, x2: Optional[torch.Tensor], g: torch.Tensor, kt: int, kh: int, kw: int
 ) -> torch.Tensor:
     """f32 filter gradient (kt, kh, kw, c1 + c2, cout) of the conv of [x1; x2]."""
+    log_kernel("conv3d_cf_wgrad", x1)
     if x1.device.type == "cpu":
         return conv3d_wgrad_plain(x1, x2, g, kt, kh, kw)
     if x1.device.type == "cuda":

@@ -87,6 +87,7 @@ import torch
 from video_vae_tpu_torch.ops._build import DTYPE_CODES, CudaKernel
 from video_vae_tpu_torch.ops.norm import LN_EPS
 from video_vae_tpu_torch.ops.rope import rope_tables, rotate_half
+from video_vae_tpu_torch.parallel.sharding import log_kernel
 
 if TYPE_CHECKING:
     from video_vae_tpu_torch.ops.fused_block import GemmPlan
@@ -275,6 +276,7 @@ class _FusedQKVAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         qkv, q_scale, k_scale, mask = ctx.saved_tensors
+        log_kernel("fused_attention_bwd", qkv)
         args = (qkv, q_scale, k_scale, mask, g.contiguous(), *ctx.rope)
         if qkv.device.type == "cpu":
             dqkv, dqs, dks = fused_qkv_attention_bwd_plain(*args)
@@ -301,6 +303,7 @@ def fused_qkv_attention(
     """
     b, s, _ = qkv.shape
     m = key_mask(mask, b, s)
+    log_kernel("fused_attention", qkv)
     return _FusedQKVAttention.apply(qkv, q_scale, k_scale, m, num_heads, rope_base, rope_alpha)
 
 
@@ -561,6 +564,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, mask = ctx.saved_tensors
+        log_kernel("flash_attention_bwd", q)
         if q.device.type == "cpu":
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, mask, g)
         elif q.device.type == "cuda":
@@ -583,6 +587,7 @@ def flash_attention(
     not −inf).
     """
     b, s = q.shape[:2]
+    log_kernel("flash_attention", q)
     return _FlashAttention.apply(q, k, v, key_mask(mask, b, s))
 
 
@@ -875,6 +880,7 @@ def fused_attention_sublayer(
     (B,S) key-padding mask, or None.
     """
     b, s, _ = x.shape
+    log_kernel("fused_attention_sublayer", x)
     return _AttentionSublayer.apply(
         x, ln_scale, ln_bias, wqkv, bqkv, q_scale, k_scale, wout, bout, key_mask(mask, b, s),
         num_heads, rope_base, rope_alpha,

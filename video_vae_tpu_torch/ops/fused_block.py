@@ -38,6 +38,7 @@ import dataclasses
 import torch
 
 from video_vae_tpu_torch.ops._build import DTYPE_CODES, CudaKernel
+from video_vae_tpu_torch.parallel.sharding import log_kernel
 from video_vae_tpu_torch.ops.flash_attention import ln_affine, matmul_f32
 
 FUSED_MLP = CudaKernel(
@@ -205,6 +206,7 @@ def fused_mlp_sublayer(
     # Decided here and not in forward: there the grad mode is always off, and
     # needs_input_grad follows requires_grad even under no_grad or inference_mode.
     training = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    log_kernel("fused_mlp", x)
     return _MLPSublayer.apply(*args, training)
 
 

@@ -11,6 +11,14 @@ saves on a thread after a synchronous copy of the state to the host, and
 restores the newest. The JAX package's orbax format is not read here: orbax
 imports JAX.
 
+**Under a mesh** (a model from ``train/setup.py:create_sharded_model``) the
+file keeps the same format: every rank takes part in gathering the full
+tensors, rank 0 writes them, and :meth:`CheckpointManager.wait` ends in a
+barrier, so no rank reads a directory rank 0 is still writing. Every rank
+reads the file and keeps its own pieces, so a checkpoint saved under one
+mesh restores under another, as orbax's does. The ranks share the
+checkpoint directory's file system.
+
 **The weight bridge.** The port keeps the JAX module names and parameter
 layouts (Linear kernels (in, out), DHWIO conv kernels, the (1,2,2,ci,co)
 transpose-conv kernel whose spatial flip is applied at use, LN/GN scale and
@@ -40,15 +48,51 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from video_vae_tpu_torch.parallel.sharding import model_sharding
 from video_vae_tpu_torch.train.setup import Optimizer
 
 CHECKPOINT_FILE = "state.pt"
 
 
 def _state(model: nn.Module, optimizer: Optimizer) -> dict:
-    return {"model": model.state_dict(), "optimizer": optimizer.state_dict()}
+    """The model's and the optimizer's state, with full tensors under a mesh
+    (a collective there: every rank calls it)."""
+    sharding = model_sharding(model)
+    state = {"model": model.state_dict(), "optimizer": optimizer.state_dict()}
+    names = {n.replace("/", "."): n for n in sharding.names}
+    for k, v in state["model"].items():
+        if k in names:
+            state["model"][k] = sharding.full(names[k], v)
+    for key in ("mu", "nu"):
+        state["optimizer"][key] = [sharding.full(n, t, shard=True)
+                                   for n, t in zip(sharding.names, state["optimizer"][key])]
+    return state
+
+
+def _load_state(model: nn.Module, optimizer: Optional[Optimizer], state: dict) -> None:
+    """Load a full state (:func:`_state`'s) into the model and the optimizer,
+    each rank keeping its pieces under a mesh."""
+    sharding = model_sharding(model)
+    names = {n.replace("/", "."): n for n in sharding.names}
+    for k, v in state["model"].items():
+        if k in names:
+            if tuple(v.shape) != sharding.full_shapes[names[k]]:
+                raise ValueError(f"{k}: shape {tuple(v.shape)}, expected {sharding.full_shapes[names[k]]}")
+            state["model"][k] = sharding.compute_view(names[k], v)
+    model.load_state_dict(state["model"])
+    if optimizer is not None:
+        state["optimizer"] = dict(state["optimizer"])
+        for key in ("mu", "nu"):
+            state["optimizer"][key] = [sharding.shard(n, sharding.compute_view(n, t))
+                                       for n, t in zip(sharding.names, state["optimizer"][key])]
+        optimizer.load_state_dict(state["optimizer"])
+
+
+def _is_main() -> bool:
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def _write(state: dict, path: str) -> None:
@@ -59,8 +103,13 @@ def _write(state: dict, path: str) -> None:
 
 
 def save_checkpoint(model: nn.Module, optimizer: Optimizer, path: str) -> None:
-    """One synchronous save of {"model", "optimizer"} into the directory ``path``."""
-    _write(_state(model, optimizer), os.path.abspath(path))
+    """One synchronous save of {"model", "optimizer"} into the directory ``path``
+    (under a mesh every rank calls it and rank 0 writes)."""
+    state = _state(model, optimizer)
+    if _is_main():
+        _write(state, os.path.abspath(path))
+    if model_sharding(model).ranks > 1:
+        dist.barrier()
 
 
 def load_checkpoint(model: nn.Module, optimizer: Optimizer, path: str) -> None:
@@ -68,8 +117,7 @@ def load_checkpoint(model: nn.Module, optimizer: Optimizer, path: str) -> None:
     device = next(model.parameters()).device
     state = torch.load(os.path.join(os.path.abspath(path), CHECKPOINT_FILE),
                        map_location=device, weights_only=True)
-    model.load_state_dict(state["model"])
-    optimizer.load_state_dict(state["optimizer"])
+    _load_state(model, optimizer, state)
 
 
 def load_model_state(model: nn.Module, path: str) -> None:
@@ -78,7 +126,7 @@ def load_model_state(model: nn.Module, path: str) -> None:
     device = next(model.parameters()).device
     state = torch.load(os.path.join(os.path.abspath(path), CHECKPOINT_FILE),
                        map_location=device, weights_only=True)
-    model.load_state_dict(state["model"])
+    _load_state(model, None, state)
 
 
 class CheckpointManager:
@@ -87,12 +135,21 @@ class CheckpointManager:
     A step at or below the newest saved one is not saved again (as orbax's
     manager skips it). One save runs at a time: :meth:`save` first waits for
     the one in flight. :meth:`wait` joins it and raises its error, if any.
+    With ``distributed`` every rank calls :meth:`save` and :meth:`wait` at
+    the same steps: all gather, rank 0 writes, and :meth:`wait` ends in a
+    barrier of the process group. Rank 0 alone reads the directory to decide
+    which step is the newest, and tells the others.
     """
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, *, distributed: bool = False):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
+        self.distributed = distributed
+        self.is_main = _is_main()
+        if self.is_main:
+            os.makedirs(self.directory, exist_ok=True)
+        if distributed:
+            dist.barrier()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -113,10 +170,12 @@ class CheckpointManager:
     def save(self, step: int, model: nn.Module, optimizer: Optimizer) -> bool:
         """Copy the state to the host now and write it on a thread; False if ``step`` is not newer."""
         self.wait()
-        latest = self.latest_step()
+        latest = self._agreed_latest()
         if latest is not None and step <= latest:
             return False
         state = _state(model, optimizer)
+        if not self.is_main:
+            return True
         host = {
             "model": {k: v.detach().to("cpu", copy=True) for k, v in state["model"].items()},
             "optimizer": {
@@ -137,10 +196,19 @@ class CheckpointManager:
         except BaseException as e:  # noqa: BLE001 — raised again by wait()
             self._error = e
 
+    def _agreed_latest(self) -> Optional[int]:
+        """Rank 0's :meth:`latest_step`, on every rank."""
+        latest = self.latest_step() if self.is_main else None
+        if self.distributed:
+            box = [latest]
+            dist.broadcast_object_list(box, src=0)
+            latest = box[0]
+        return latest
+
     def restore_latest(self, model: nn.Module, optimizer: Optimizer) -> Optional[int]:
         """Load the newest checkpoint in place; its step, or None if there is none."""
         self.wait()
-        step = self.latest_step()
+        step = self._agreed_latest()
         if step is None:
             return None
         load_checkpoint(model, optimizer, self.step_dir(step))
@@ -150,6 +218,8 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.distributed:
+            dist.barrier()
         if self._error is not None:
             error, self._error = self._error, None
             raise error
@@ -184,8 +254,10 @@ def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> int:
     """Copy every parameter of ``model`` from ``params``, in place.
 
     Raises on a missing key, an unused key or a shape mismatch. Returns the
-    number of parameters copied.
+    number of parameters copied. On a sharded model the values are the full
+    tensors and each rank keeps its pieces.
     """
+    sharding = model_sharding(model)
     ours = {name.replace(".", "/"): p for name, p in model.named_parameters()}
     missing = sorted(set(ours) - set(params))
     unused = sorted(set(params) - set(ours))
@@ -194,9 +266,10 @@ def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> int:
     with torch.no_grad():
         for key, p in ours.items():
             value = np.asarray(params[key])
-            if value.shape != tuple(p.shape):
-                raise ValueError(f"{key}: shape {value.shape}, port expects {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+            full = sharding.full_shapes[key]
+            if value.shape != full:
+                raise ValueError(f"{key}: shape {value.shape}, port expects {full}")
+            p.copy_(sharding.compute_view(key, torch.from_numpy(np.array(value, dtype=np.float32))))
     return len(ours)
 
 
@@ -211,8 +284,10 @@ def load_jax_optimizer_state(
     ``count`` is optax's Adam count (the updates made); ``mu`` and ``nu`` are
     keyed by the parameter paths joined with ``/``, as :func:`load_jax_params`
     takes them. Raises on a missing or unused key or a shape mismatch.
-    Returns the number of parameters whose moments were copied.
+    Returns the number of parameters whose moments were copied. Under a
+    mesh each rank keeps its shard of each full moment.
     """
+    sharding = optimizer.sharding
     for label, moments in (("mu", mu), ("nu", nu)):
         missing = sorted(set(optimizer.names) - set(moments))
         unused = sorted(set(moments) - set(optimizer.names))
@@ -222,8 +297,10 @@ def load_jax_optimizer_state(
         for name, m, v in zip(optimizer.names, optimizer.mu, optimizer.nu):
             for label, ours, theirs in (("mu", m, mu[name]), ("nu", v, nu[name])):
                 value = np.asarray(theirs)
-                if value.shape != tuple(ours.shape):
-                    raise ValueError(f"{label} of {name}: shape {value.shape}, port expects {tuple(ours.shape)}")
-                ours.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+                full = sharding.full_shapes[name]
+                if value.shape != full:
+                    raise ValueError(f"{label} of {name}: shape {value.shape}, port expects {full}")
+                value = torch.from_numpy(np.array(value, dtype=np.float32))
+                ours.copy_(sharding.shard(name, sharding.compute_view(name, value)))
     optimizer.count = int(np.asarray(count))
     return len(optimizer.names)

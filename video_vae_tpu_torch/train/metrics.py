@@ -5,7 +5,8 @@ The JAX package's ``train/metrics.py`` in the port. The JSONL file in
 0-d tensors on the device: :meth:`MetricLogger.log` reads them to the host
 (``.item()``), so the trainer calls it only on the steps it logs, and the
 steps between never wait for the device. Tensors of higher rank are left
-out. The port runs one process, which is the main one.
+out. Only the main process (rank 0 of the process group, or the only process)
+opens the file and the sink and emits; the others' calls do nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class MetricLogger:
@@ -28,10 +30,12 @@ class MetricLogger:
         wandb_project: str = "video-vae-tpu",
         config: Optional[dict] = None,
     ):
-        self.is_main = True
+        self.is_main = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
         self._file = None
         self._wandb = None
         self._start = time.perf_counter()
+        if not self.is_main:
+            return
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._file = open(os.path.join(log_dir, f"{run_name}.jsonl"), "a")
@@ -45,6 +49,8 @@ class MetricLogger:
                 print("[metrics] wandb requested but not installed; using JSONL only")
 
     def log(self, metrics: Dict, step: int, prefix: str = "", echo: bool = True) -> None:
+        if not self.is_main:
+            return
         flat = {}
         for key, value in metrics.items():
             if getattr(value, "ndim", 0) > 0:

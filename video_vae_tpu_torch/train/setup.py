@@ -10,6 +10,10 @@ not ``torch.optim.Adam``, so that it follows optax's arithmetic:
 * the clip leaves the gradients alone when their global norm is below the
   limit and otherwise scales them by limit / norm, with no epsilon;
 * Adam has eps 1e-8, eps_root 0 and optax's bias correction.
+
+Under a mesh (:func:`create_sharded_model`) the optimizer updates each
+parameter's fsdp shard and keeps its moments at the shard's shape, as JAX's
+``create_optimizer`` places them; the clip's norm is over every shard.
 """
 
 from __future__ import annotations
@@ -18,9 +22,13 @@ import math
 from typing import Callable, Iterable, List, Optional
 
 import torch
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 
 from video_vae_tpu_torch.core.config import OptimConfig
-from video_vae_tpu_torch.utils.debug import global_norm
+from video_vae_tpu_torch.parallel.mesh import mesh_shape
+from video_vae_tpu_torch.parallel.sharding import ParamSharding, model_sharding
+from video_vae_tpu_torch.parallel.tensor_parallel import TensorGroup
 
 ADAM_EPS = 1e-8
 
@@ -51,29 +59,38 @@ class Optimizer:
     Holds the step count and the f32 first and second moments of each
     parameter. :meth:`update` changes the parameters in place. ``names``
     (the model's parameter paths, from :func:`create_optimizer`) key the
-    moments when a JAX optimizer state is loaded.
+    moments when a JAX optimizer state is loaded. With ``sharding`` (the
+    model's :class:`ParamSharding`) the update and the moments are the
+    rank's fsdp shards, and the updated shards are all-gathered afterwards.
     """
 
     def __init__(self, params: Iterable[torch.Tensor], cfg: OptimConfig,
-                 names: Optional[Iterable[str]] = None):
+                 names: Optional[Iterable[str]] = None, sharding: Optional[ParamSharding] = None):
         self.params: List[torch.Tensor] = list(params)
         self.names: List[str] = list(names) if names is not None else [str(i) for i in range(len(self.params))]
         if len(self.names) != len(self.params):
             raise ValueError(f"{len(self.names)} names for {len(self.params)} parameters")
         self.cfg = cfg
+        self.sharding = sharding if sharding is not None else ParamSharding(list(zip(self.names, self.params)))
         self.schedule = make_lr_schedule(cfg)
         self.count = 0
-        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.shards()]
+        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.shards()]
+
+    def shards(self) -> List[torch.Tensor]:
+        """The tensors the update writes: each parameter's fsdp shard (a view
+        into it; on one device its data)."""
+        return [self.sharding.shard(n, p.data) for n, p in zip(self.names, self.params)]
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """Apply one step for ``grads`` (one per parameter, same order).
+        """Apply one step for ``grads`` (one per parameter, same order; under a
+        mesh the global batch's gradient of each shard).
 
         Returns the gradients' f32 global norm before the clip.
         """
         cfg = self.cfg
-        norm = global_norm(grads)
+        norm = self.sharding.grad_norm(grads)
         factor = torch.where(norm < cfg.clip_global_norm, 1.0, cfg.clip_global_norm / norm)
         g = torch._foreach_mul([x.float() for x in grads], factor)
         torch._foreach_mul_(self.mu, cfg.b1)
@@ -86,12 +103,13 @@ class Optimizer:
         denom = torch._foreach_sqrt(torch._foreach_div(self.nu, 1.0 - cfg.b2**self.count))
         torch._foreach_add_(denom, ADAM_EPS)
         step = torch._foreach_div(mu_hat, denom)
-        params = [p.data for p in self.params]
+        params = self.shards()
         if all(p.dtype == torch.float32 for p in params):
             torch._foreach_add_(params, step, alpha=-lr)
         else:
             for p, s in zip(params, step):
                 p.copy_((p.float() - lr * s).to(p.dtype))
+        self.sharding.gather_shards(self.params)
         return norm
 
     def state_dict(self) -> dict:
@@ -112,7 +130,52 @@ class Optimizer:
         self.count = int(state["count"])
 
 
-def create_optimizer(model: torch.nn.Module, cfg: OptimConfig) -> Optimizer:
-    """The optimizer over every parameter of ``model``, in ``named_parameters`` order."""
+def create_optimizer(model: nn.Module, cfg: OptimConfig, mesh: Optional[DeviceMesh] = None) -> Optimizer:
+    """The optimizer over every parameter of ``model``, in ``named_parameters``
+    order; its moments sharded like their parameters where the model was
+    built by :func:`create_sharded_model` (``mesh`` is that model's)."""
     named = list(model.named_parameters())
-    return Optimizer([p for _, p in named], cfg, names=[n.replace(".", "/") for n, _ in named])
+    sharding = model_sharding(model)
+    if sharding.mesh is not None and mesh is not None and sharding.mesh is not mesh:
+        raise ValueError("the model was sharded over another mesh")
+    return Optimizer([p for _, p in named], cfg, names=[n.replace(".", "/") for n, _ in named],
+                     sharding=sharding)
+
+
+def create_sharded_model(model_fn: Callable[[], nn.Module], mesh: Optional[DeviceMesh] = None) -> nn.Module:
+    """``model_fn()``, its parameters cut to this rank's place on ``mesh``.
+
+    Every rank builds the model from the same seed, so the weights are the
+    one-process model's; then each parameter keeps its compute view (its
+    tensor piece, see ``parallel/sharding.py``) and each block's attention
+    and MLP get the tensor group where the rules split them. The model's
+    ``sharding`` attribute holds the layout. Without a mesh, or on a mesh of
+    one rank, the model is returned as built.
+    """
+    model = model_fn()
+    if mesh is None or all(s == 1 for s in mesh_shape(mesh).values()):
+        return model
+    from video_vae_tpu_torch.models.layers import MLP, Attention
+
+    sharding = ParamSharding(model, mesh)
+    tensor = sharding.sizes["tensor"]
+    if tensor > 1:
+        tp = TensorGroup(sharding.groups["tensor"], tensor)
+        for path, module in model.named_modules():
+            prefix = path.replace(".", "/") + "/"
+            if isinstance(module, Attention):
+                if module.num_heads % tensor:
+                    raise ValueError(f"{path}: {module.num_heads} heads do not split over tensor={tensor}")
+                split = [sharding.axis_dim(prefix + n, "tensor") for n in (
+                    "qkv_projection/kernel", "qkv_projection/bias", "out_projection/kernel")]
+                if split != [1, 0, 0]:
+                    raise ValueError(f"{path}: the rules split its products as {split}")
+                module.tensor_parallel = tp
+            elif isinstance(module, MLP) and sharding.axis_dim(prefix + "linear1/kernel", "tensor") is not None:
+                module.tensor_parallel = tp
+    with torch.no_grad():
+        for name, p in zip(sharding.names, model.parameters()):
+            view = sharding.compute_view(name, p.data)
+            p.data = p.data if view is p.data else view.clone(memory_format=torch.contiguous_format)
+    model.sharding = sharding
+    return model

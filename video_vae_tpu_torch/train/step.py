@@ -4,6 +4,16 @@ Counterparts of the JAX package's ``train/step.py``: ``make_train_step``
 (forward with paired rollouts → ``vae_loss`` → backward → gradient telemetry →
 clipped Adam) as :func:`train_step`, ``make_eval_step`` as :func:`eval_step`,
 ``build_perceptual`` and ``make_reconstruct_fn`` as :func:`reconstruct`.
+
+Under a mesh (a model from ``train/setup.py:create_sharded_model``) each
+rank computes its rows of the global batch; the loss metrics and the
+gradients are then averaged over the (data, fsdp) ranks, so every rank sees
+the global batch's, as the JAX step's are, and a gradient split over fsdp
+comes out as the rank's shard of it (``ParamSharding.reduce_gradients``: a
+reduce-scatter over fsdp). The gradients come from ``torch.autograd.grad`` on
+the rank's own parameter tensors and are reduced here: no wrapper module
+stands between the step and the parameters. On one device every collective
+is the identity.
 """
 
 from __future__ import annotations
@@ -18,9 +28,9 @@ from video_vae_tpu_torch.losses.losses import PerceptualFn, vae_loss
 from video_vae_tpu_torch.losses.perceptual import make_perceptual_loss_fn
 from video_vae_tpu_torch.models.vae import VideoVAE
 from video_vae_tpu_torch.models.vgg import load_vgg
+from video_vae_tpu_torch.parallel.sharding import model_sharding
 from video_vae_tpu_torch.train.setup import Optimizer
-from video_vae_tpu_torch.utils.debug import global_max_abs
-from video_vae_tpu_torch.utils.metrics import masked_psnr
+from video_vae_tpu_torch.utils.metrics import masked_sse, psnr_from_sse
 
 
 def loss_and_grads(
@@ -38,7 +48,10 @@ def loss_and_grads(
     """(loss, metrics, one gradient per ``model.parameters()``), no update.
 
     The video is cast to the compute dtype first, as the JAX step does. A
-    parameter the loss does not reach gets a zero gradient, as in JAX.
+    parameter the loss does not reach gets a zero gradient, as in JAX. Under
+    a mesh the metrics and the gradients are the global batch's, each
+    gradient that of the rank's shard of its parameter (see the module
+    docstring); the loss is the rank's own.
     """
     video = torch.as_tensor(video, device=model.device).to(model.cfg.compute_dtype())
     frame_mask = torch.as_tensor(frame_mask, device=model.device)
@@ -49,7 +62,9 @@ def loss_and_grads(
     params = list(model.parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    return loss, metrics, grads
+    keys = list(metrics)
+    reduced, grads = model_sharding(model).reduce_gradients([metrics[k].detach() for k in keys], grads)
+    return loss, dict(zip(keys, reduced)), grads
 
 
 def train_step(
@@ -79,7 +94,7 @@ def train_step(
         generator=generator, noise=noise, uniforms=uniforms,
     )
     metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["max_grad"] = global_max_abs(grads)
+    metrics["max_grad"] = model_sharding(model).grad_max_abs(grads)
     metrics["grad_norm"] = optimizer.update(grads)
     return metrics
 
@@ -114,10 +129,12 @@ def eval_step(
         )
         _, metrics = vae_loss(out, video, frame_mask, hp, loss_cfg, perceptual_fn)
         r = out.rollouts
-        metrics["psnr_sampled"] = masked_psnr(
-            out.reconstruction, video.repeat_interleave(r, dim=0),
-            frame_mask.repeat_interleave(r, dim=0),
-        )
+        target, mask = video.repeat_interleave(r, dim=0), frame_mask.repeat_interleave(r, dim=0)
+        keys = list(metrics)
+        sums = list(masked_sse(out.reconstruction, target, mask))
+        reduced = model_sharding(model).reduce_mean([metrics[k] for k in keys] + sums)
+        metrics = dict(zip(keys, reduced[: len(keys)]))
+        metrics["psnr_sampled"] = psnr_from_sse(*reduced[len(keys):])
     return metrics
 
 

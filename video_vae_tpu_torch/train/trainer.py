@@ -1,4 +1,4 @@
-"""Training driver: curriculum, schedules, checkpoints, logging — one loop on one device.
+"""The trainer: curriculum, schedules, checkpoints, logging — one loop on every rank.
 
 The JAX package's ``train/trainer.py`` in the port, batch for batch and step
 for step:
@@ -25,13 +25,27 @@ so the caching allocator cannot hand its memory out while the step reads it.
 stream just before its step. A ``torch.profiler`` trace of the steps after
 ``profile_start_step`` is written to ``profile_dir``.
 
-The port trains on one device: a mesh other than one data-parallel device
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 6); the process index
-is 0 and the process count 1.
+**Several ranks.** Launched by ``torch.distributed.run`` (its ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT`` in the
+environment), the trainer joins the process group (NCCL on CUDA, gloo on the
+CPU or when ``dist_backend`` asks), runs on ``cuda:LOCAL_RANK`` (several
+ranks may share a card under gloo) and trains over the ``cfg.mesh``
+(data, fsdp, tensor) mesh of every rank (``parallel/``). Each rank's loader
+reads its (data, fsdp) coordinate's share of each global batch of
+``batch_size`` clips (the whole batch where data·fsdp does not divide it);
+tensor ranks of one coordinate read the same clips. Every rank draws the
+global batch's noise and uniforms from the shared generator and keeps its
+rows, so a sharded step takes the draws one process takes for the same
+batch. The logged metrics are the global batch's; rank 0 alone logs, dumps
+videos (its own rows), writes checkpoints and mirrors them. A gloo group on
+the host agrees each step on whether every rank has a batch and none was
+asked to stop. Without that environment the trainer is one process, as
+before.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -41,17 +55,20 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
-from video_vae_tpu_torch.core.config import DynamicHParams, MeshConfig, VAEConfig
+from video_vae_tpu_torch.core.config import DynamicHParams, VAEConfig
 from video_vae_tpu_torch.core.device import resolve_device
 from video_vae_tpu_torch.data.pipeline import create_dataloader
 from video_vae_tpu_torch.data.video_io import write_video
 from video_vae_tpu_torch.models.vae import VideoVAE
+from video_vae_tpu_torch.parallel.mesh import batch_ranks, mesh_from_config
+from video_vae_tpu_torch.parallel.sharding import activate_mesh, batch_slice, local_rows, model_sharding
 from video_vae_tpu_torch.train.checkpoint import CheckpointManager, GracefulShutdown, load_checkpoint
 from video_vae_tpu_torch.train.metrics import MetricLogger
-from video_vae_tpu_torch.train.setup import create_optimizer
+from video_vae_tpu_torch.train.setup import create_optimizer, create_sharded_model
 from video_vae_tpu_torch.train.step import build_perceptual, eval_step, reconstruct, train_step
-from video_vae_tpu_torch.utils.metrics import count_params, masked_psnr
+from video_vae_tpu_torch.utils.metrics import masked_sse, psnr_from_sse
 
 
 @dataclass
@@ -77,13 +94,24 @@ def curriculum_plan(cfg: VAEConfig, epoch: int) -> EpochPlan:
     )
 
 
-def check_single_device(mesh: MeshConfig) -> None:
-    """Raise unless ``mesh`` is one data-parallel device, the only mesh the port trains on."""
-    if mesh.data not in (-1, 1) or mesh.fsdp != 1 or mesh.tensor != 1:
-        raise NotImplementedError(
-            f"the port trains on one device; data={mesh.data}, fsdp={mesh.fsdp}, "
-            f"tensor={mesh.tensor} needs the parallel slice (ROADMAP Queue 1 item 6)"
-        )
+def maybe_init_distributed(device: torch.device, backend: Optional[str] = None) -> torch.device:
+    """Join the process group ``torch.distributed.run`` describes in the
+    environment (the JAX package's ``maybe_init_distributed``), once; returns
+    the rank's device. Without ``WORLD_SIZE`` in the environment nothing
+    happens and ``device`` is returned: one process.
+
+    ``backend`` defaults to NCCL for CUDA and gloo for the CPU. A CUDA rank
+    runs on ``cuda:LOCAL_RANK`` (modulo the cards there are, so that ranks
+    can share a card under gloo).
+    """
+    if "WORLD_SIZE" not in os.environ and not dist.is_initialized():
+        return device
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group(backend or ("nccl" if device.type == "cuda" else "gloo"), init_method="env://")
+    return device
 
 
 class Trainer:
@@ -96,13 +124,21 @@ class Trainer:
         restore_from: Optional[str] = None,
         install_signal_handlers: bool = True,
         device: str | torch.device = "cuda",
+        dist_backend: Optional[str] = None,
     ):
-        check_single_device(cfg.mesh)
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.process_index, self.process_count = 0, 1
-        self.model = VideoVAE(cfg.model, device=self.device, seed=cfg.train.model_seed)
-        self.optimizer = create_optimizer(self.model, cfg.optim)
+        self.device = maybe_init_distributed(resolve_device(device), dist_backend)
+        self.distributed = dist.is_initialized()
+        self.rank = dist.get_rank() if self.distributed else 0
+        self.mesh = mesh_from_config(
+            cfg.mesh, world_size=dist.get_world_size() if self.distributed else 1, device_type=self.device.type
+        )
+        # the host-side group that agrees each step on whether to go on
+        self._control = dist.new_group(backend="gloo") if self.distributed and dist.get_world_size() > 1 else None
+        self.model = create_sharded_model(
+            lambda: VideoVAE(cfg.model, device=self.device, seed=cfg.train.model_seed), self.mesh
+        )
+        self.optimizer = create_optimizer(self.model, cfg.optim, self.mesh)
         self.perceptual_fn = build_perceptual(cfg.loss, vgg_weights, device=self.device)
         self.train_step = functools.partial(train_step, loss_cfg=cfg.loss, perceptual_fn=self.perceptual_fn)
         self.eval_step = functools.partial(eval_step, loss_cfg=cfg.loss, perceptual_fn=self.perceptual_fn)
@@ -110,12 +146,13 @@ class Trainer:
         self.global_step = 0
         # host seconds spent waiting for the loader's next batch, over every epoch
         self.data_wait_s = 0.0
-        self.ckpt = CheckpointManager(cfg.train.checkpoint_dir)
+        self.ckpt = CheckpointManager(cfg.train.checkpoint_dir, distributed=self.distributed)
         self.shutdown = GracefulShutdown(install=install_signal_handlers)
+        num_params = sum(math.prod(s) for s in model_sharding(self.model).full_shapes.values())
         self.logger = MetricLogger(
             log_dir=cfg.train.checkpoint_dir,
             use_wandb=use_wandb,
-            config={**dataclasses.asdict(cfg), "num_params": count_params(self.model)},
+            config={**dataclasses.asdict(cfg), "num_params": num_params},
         )
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._profiler = None
@@ -135,7 +172,7 @@ class Trainer:
     def _maybe_profile(self) -> None:
         """Trace the configured step window with ``torch.profiler``."""
         t = self.cfg.train
-        if not t.profile_dir or self.process_index != 0:
+        if not t.profile_dir or self.rank != 0:
             return
         if self._profiler is None and self.global_step == t.profile_start_step:
             os.makedirs(t.profile_dir, exist_ok=True)
@@ -161,7 +198,7 @@ class Trainer:
         must not kill training, and a misconfigured bucket still shows in the log.
         """
         prefix = self.cfg.train.gcs_upload_prefix
-        if not prefix or self.process_index != 0:
+        if not prefix or self.rank != 0:
             return
         import shutil as _shutil
         import subprocess as _subprocess
@@ -196,6 +233,30 @@ class Trainer:
             rate = t.initial_max_compression_rate
         return DynamicHParams.default(max_compression_rate=rate)
 
+    def _shard(self, global_batch: int):
+        """(this rank's rows of a global batch, the loader's process index and
+        count, the loader's batch size): its (data, fsdp) share, or the whole
+        batch where data·fsdp does not divide it."""
+        rows = batch_slice(global_batch, self.mesh)
+        local = rows.stop - rows.start
+        if local == global_batch:
+            return rows, 0, 1, global_batch
+        return rows, rows.start // local, batch_ranks(self.mesh), local
+
+    def _go_on(self, has_batch: bool) -> tuple[bool, bool]:
+        """(every rank has a batch, a rank was asked to stop), agreed by all ranks."""
+        if self._control is None:
+            return has_batch, self.shutdown.should_stop
+        flags = torch.tensor([int(has_batch), int(not self.shutdown.should_stop)])
+        dist.all_reduce(flags, op=dist.ReduceOp.MIN, group=self._control)
+        return bool(flags[0]), not bool(flags[1])
+
+    @contextlib.contextmanager
+    def _mesh_and_rows(self, rows: slice, global_batch: int):
+        """The context of a step: the active mesh, and this rank's rows for the draws."""
+        with activate_mesh(self.mesh), local_rows(rows, global_batch):
+            yield
+
     def _put(self, host_batch: dict, overlap: bool):
         """(the batch as tensors on the device, the event its copy records or None).
 
@@ -222,14 +283,17 @@ class Trainer:
 
     def _dump_videos(self, batch, device_batch, tag: str, step: int) -> None:
         """Periodic qualitative dump: the deterministic reconstruction of the batch,
-        its masked PSNR as ``dump_psnr_det``, and the two mp4s."""
+        its masked PSNR as ``dump_psnr_det`` (the global batch's), and the two
+        mp4s (rank 0's rows)."""
         t = self.cfg.train
-        recon = reconstruct(self.model, device_batch["video"], device_batch["mask"], device=self.device)
-        psnr = masked_psnr(recon.float(), device_batch["video"].float(), device_batch["mask"])
+        with activate_mesh(self.mesh):
+            recon = reconstruct(self.model, device_batch["video"], device_batch["mask"], device=self.device)
+        sums = masked_sse(recon.float(), device_batch["video"].float(), device_batch["mask"])
+        psnr = psnr_from_sse(*model_sharding(self.model).reduce_mean(list(sums)))
         self.logger.log({"dump_psnr_det": psnr}, step)
-        recon_np = recon.float().cpu().numpy()
-        if self.process_index != 0:
+        if self.rank != 0:
             return
+        recon_np = recon.float().cpu().numpy()
         out_dir = os.path.join(t.video_save_dir, tag)
         os.makedirs(out_dir, exist_ok=True)
         try:
@@ -252,12 +316,13 @@ class Trainer:
         """One training epoch. Returns False if a shutdown was requested."""
         cfg = self.cfg
         plan = curriculum_plan(cfg, epoch)
-        data_cfg = cfg.data.replace(batch_size=plan.batch_size, max_frames=plan.max_frames)
+        rows, index, count, local = self._shard(plan.batch_size)
+        data_cfg = cfg.data.replace(batch_size=local, max_frames=plan.max_frames)
         loader = create_dataloader(
             data_cfg,
             seed=cfg.data.seed + epoch,
-            process_index=self.process_index,
-            process_count=self.process_count,
+            process_index=index,
+            process_count=count,
         )
         # the next batch is fetched and its copy issued once the step is enqueued
         overlap = os.environ.get("VVT_H2D_OVERLAP", "1") != "0"
@@ -267,7 +332,9 @@ class Trainer:
             started = time.perf_counter()
             host_batch = next(batches, None)
             self.data_wait_s += time.perf_counter() - started
-            if host_batch is None:
+            has_batch, stop = self._go_on(host_batch is not None)
+            self.shutdown.should_stop = stop
+            if not has_batch:
                 return None
             if not to_device:
                 return host_batch, None
@@ -280,9 +347,10 @@ class Trainer:
                 put = self._put(host_batch, overlap=False)
             batch = self._ready(*put)
             hp = self.hparams_for_step(self.global_step)
-            metrics = self.train_step(
-                self.model, self.optimizer, batch["video"], batch["mask"], hp, generator=self.generator
-            )
+            with self._mesh_and_rows(rows, plan.batch_size):
+                metrics = self.train_step(
+                    self.model, self.optimizer, batch["video"], batch["mask"], hp, generator=self.generator
+                )
             pending = fetch_next(to_device=overlap)
             self.global_step += 1
             self._maybe_profile()
@@ -311,19 +379,24 @@ class Trainer:
         if not cfg.data.eval_dir and not cfg.data.synthetic:
             return None
         plan = curriculum_plan(cfg, epoch)
-        data_cfg = cfg.data.replace(batch_size=plan.batch_size, max_frames=plan.max_frames)
-        loader = create_dataloader(
+        rows, index, shards, local = self._shard(plan.batch_size)
+        data_cfg = cfg.data.replace(batch_size=local, max_frames=plan.max_frames)
+        loader = iter(create_dataloader(
             data_cfg,
             seed=cfg.data.seed + 10_000 + epoch,
             base_dir=cfg.data.eval_dir,
-            process_index=self.process_index,
-            process_count=self.process_count,
-        )
+            process_index=index,
+            process_count=shards,
+        ))
         totals, count = {}, 0
-        for host_batch in loader:
+        while True:
+            host_batch = next(loader, None)
+            if not self._go_on(host_batch is not None)[0]:
+                break
             batch = self._ready(*self._put(host_batch, overlap=False))
             hp = self.hparams_for_step(self.global_step)
-            metrics = self.eval_step(self.model, batch["video"], batch["mask"], hp, generator=self.generator)
+            with self._mesh_and_rows(rows, plan.batch_size):
+                metrics = self.eval_step(self.model, batch["video"], batch["mask"], hp, generator=self.generator)
             for key, val in metrics.items():
                 if getattr(val, "ndim", 1) == 0:
                     totals[key] = totals.get(key, 0.0) + float(val)

@@ -20,13 +20,23 @@ def masked_psnr(
     max_val: float = 1.0,
 ) -> torch.Tensor:
     """PSNR in dB over the valid frames of (b, t, h, w, c) videos in [0, max_val]."""
+    if frame_mask is not None:
+        return psnr_from_sse(*masked_sse(prediction, target, frame_mask), max_val)
+    mse = (prediction - target).float().square().mean()
+    return 10.0 * torch.log10(max_val**2 / torch.clamp(mse, min=1e-12))
+
+
+def masked_sse(prediction: torch.Tensor, target: torch.Tensor, frame_mask: torch.Tensor):
+    """(Σ squared error over the valid frames, their element count) of (b, t, h,
+    w, c) videos: :func:`masked_psnr`'s two sums, which add over batch shards."""
     err = (prediction - target).float().square()
-    if frame_mask is None:
-        mse = err.mean()
-    else:
-        m = frame_mask.float().reshape(*frame_mask.shape, 1, 1, 1)
-        pixels = err.shape[2] * err.shape[3] * err.shape[4]
-        mse = (err * m).sum() / torch.clamp(m.sum() * pixels, min=1.0)
+    m = frame_mask.float().reshape(*frame_mask.shape, 1, 1, 1)
+    return (err * m).sum(), m.sum() * (err.shape[2] * err.shape[3] * err.shape[4])
+
+
+def psnr_from_sse(sse: torch.Tensor, count: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
+    """:func:`masked_psnr` from the sums of :func:`masked_sse` (or their means over shards)."""
+    mse = sse / torch.clamp(count, min=1.0)
     return 10.0 * torch.log10(max_val**2 / torch.clamp(mse, min=1e-12))
 
 
