@@ -112,6 +112,21 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    one-process step 1. #1-#4 are held to their plain versions at the data=2
    run's local shapes beforehand (the ``dist-gloo-2`` path of ``by_path``).
 
+11. holds #1 and #3 at the VideoMAE's b4 x 16f calls at 224² ("mae-kernels": the
+   spatial calls at S = 196, a partial last 16-row tile, and the temporal ones under
+   clip 1's padding, each with SDPA beside it), then drives ``VideoMAE`` at the
+   flagship's width and depth at 224² with mask ratio 0.9 ("mae": a training
+   forward with ``torch.autograd.grad`` of ``mae_loss``, 52 launches of #1 and 26 of
+   #3, and an eval forward, 26 of #1; device ms, idle share, peak memory) and its
+   float32 depth-1 forward and gradients card against CPU with an injected token
+   mask ("f32-mae");
+12. drives the GAN step (``train/adversarial.py``) on step 5's model and batch with
+   a full-width ``Discriminator()`` ("train-gan": the train step's launches of
+   #1-#4 exactly, the discriminator's convs being cuDNN's; device ms, idle share,
+   peak memory and the discriminator's share of the device ms), and one float32
+   GAN step card against CPU at depth 1 with a smaller discriminator ("f32-gan":
+   metrics, both models' gradients, every spectral norm's ``u``).
+
 ``python3 chip_smoke.py --four-cards`` (a machine of 4 cards; not part of the
 one-card run) runs the parallel dry run on NCCL over 4 ranks and the trainer
 of step 7 at the flagship's full depth under data=4, fsdp=4, fsdp=2 x tensor=2
@@ -213,6 +228,7 @@ PATHS = (
     "serving-mlp", "train-mlp", "serving-sublayer-mlp", "serving-tapdot", "train-tapdot", "trainer", "tiny",
     "train-h4", "cache-latents", "decode-latents",  # the last two: launches per video
     "dist-gloo-2",  # rank 0's step of the 2-rank data=2 run
+    "mae", "mae-eval",  # the VideoMAE's gradient step and eval forward
 )
 # the path whose sums stand at the top level of a kernel's record
 MAIN_PATH = {
@@ -250,6 +266,17 @@ LATENT_RESIZE, LATENT_FRAMES = 256, 64
 LATENT_CLIP_FRAMES = (64, 40)
 LATENT_VIDEOS = len(LATENT_CLIP_FRAMES)
 H4_CLIPS, H4_FRAMES = 1, 16  # the head_dim-128 train step (ModelConfig(num_heads=4))
+# the "mae" phases: VideoMAE at the BASELINE config's 224 x 224 x 16 (the flagship otherwise:
+# 9 + 12 // 3 blocks, remat on), mask ratio 0.9, 4 clips, clip 1 ending in 3 padded frames
+MAE_SIDE, MAE_CLIPS, MAE_FRAMES, MAE_PADDED_CLIP = 224, 4, 16, 1
+MAE_TIMED = 3
+# the JAX GAN step's metrics (train/adversarial.py): the train step's loss metrics, no
+# gradient telemetry, and the adversarial terms
+GAN_METRICS = TRAIN_METRICS[:-2] + ("generator_adv_loss", "discriminator_loss", "discriminator_accuracy")
+# a discriminator leaf whose true gradient is 0 (a conv bias before a GroupNorm of one
+# channel a group) is rounding noise under this share of the largest gradient on both
+# devices: the GroupNorm backward sums 10^5-10^6 values a group
+D_NOISE_TOL = 1e-5
 # the cf VGG's convs on the direct conv kernel: (name, h = w, cin, cout, launches a step),
 # each forward run on the reconstruction and the target, each input gradient once
 VGG_CONV_CASES = (
@@ -350,6 +377,37 @@ def preset_attention_cases(label, cfg, clips, frames, full=True):
     ]
     f32 = [(name, B, S, padded, "float32", {}) for name, B, S, padded, _, _ in cases[:2]]
     return cases + f32 if full else cases[2:] + f32[:1]
+
+
+def mae_config():
+    """The VideoMAE phases' model: the flagship at 224 x 224 (a 14 x 14 patch grid)."""
+    from video_vae_tpu_torch import ModelConfig
+
+    return ModelConfig(height=MAE_SIDE, width=MAE_SIDE)
+
+
+def mae_frame_mask():
+    """The MAE batch's (clips, frames) frame mask: clip 1 ends in 3 padded frames."""
+    import torch
+
+    mask = torch.ones(MAE_CLIPS, MAE_FRAMES)
+    mask[MAE_PADDED_CLIP, MAE_FRAMES - 3:] = 0
+    return mask
+
+
+def mae_attention_cases(cfg):
+    """(name, B, S, frame mask, dtype, launches per entry) of the MAE's attention calls on
+    b4 x 16f: each of its ``encoder_depth + max(1, decoder_depth // 3)`` blocks makes a
+    temporal call under the frame mask and an unmasked spatial one over the 14 x 14 grid
+    (S = 196, a partial last 16-row tile); "serving" counts an eval forward's, "train"
+    a gradient step's backward (the caller doubles its forwards for remat)."""
+    blocks = cfg.encoder_depth + max(1, cfg.decoder_depth // 3)
+    per = {"serving": blocks, "train": blocks}
+    hw = cfg.num_patches
+    return [
+        (f"mae temporal b{MAE_CLIPS}x{MAE_FRAMES}", MAE_CLIPS * hw, MAE_FRAMES, mae_frame_mask(), "bfloat16", per),
+        (f"mae spatial b{MAE_CLIPS}x{MAE_FRAMES}", MAE_CLIPS * MAE_FRAMES, hw, False, "bfloat16", per),
+    ]
 
 
 def tapdot_model_config():
@@ -647,7 +705,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
             time_ms(lambda: fa.fused_qkv_attention_plain(qkv, qs, ks, mask, H), 5), sdpa_ms,
             "scaled_dot_product_attention, core only", bound_ms(moved, flops, dtype), fwd_per,
         )
-        if padded is True and masked_rows:
+        if padded is not False and masked_rows:
             # one sequence with every key masked: its rows average all S keys
             empty = mask.clone()
             empty[0] = False
@@ -668,7 +726,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
         if not all(torch.equal(a, b) for a, b in zip(got, again)):  # no atomics: the same bits on every run
             raise AssertionError(f"attention bwd {name} {dtype}: two launches gave different bits")
         del ref, again
-        if padded is True and masked_rows:
+        if padded is not False and masked_rows:
             # one sequence with every key masked: its rows spread P over all S keys
             empty = mask.clone()
             empty[0] = False
@@ -1504,6 +1562,48 @@ def _draws(model, video, mask, seed, rollouts_differ=False):
     raise AssertionError("no draw without a near-tie keep decision")
 
 
+def _hold_grads(label: str, names, card, cpu, noise: dict) -> tuple[float, str]:
+    """Each card gradient within ``GRAD_F32_TOL`` of its CPU leaf's largest value; a leaf
+    named in ``noise`` (its bound's share of the largest gradient) is rounding noise on
+    both devices and held under that. Returns the worst (relative error, leaf)."""
+    worst = (0.0, "")
+    scale = max((float(b.abs().max()) for b in cpu), default=0.0)
+    for name, a, b in zip(names, card, cpu):
+        if name in noise:
+            if not max(float(a.abs().max()), float(b.abs().max())) <= noise[name] * scale:
+                raise AssertionError(f"{label} gradient {name}: {float(a.abs().max())} on the card, "
+                                     f"{float(b.abs().max())} on the CPU, over {noise[name]} * {scale}")
+            continue
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        if not (a - b).abs().max() <= GRAD_F32_TOL * b.abs().max():
+            raise AssertionError(f"{label} gradient {name}: relative error {rel} > {GRAD_F32_TOL}")
+        worst = max(worst, (rel, name))
+    return worst
+
+
+def _noise_leaves(names, cpu) -> dict:
+    """{name: ZERO_GRAD_TOL} of the leaves whose CPU gradient is rounding noise, under
+    ``ZERO_GRAD_TOL`` of the largest: a true gradient of 0 (the selection head's biases,
+    some conv biases), held to stay noise on the card."""
+    scale = max(float(b.abs().max()) for b in cpu)
+    return {name: ZERO_GRAD_TOL for name, b in zip(names, cpu) if float(b.abs().max()) <= ZERO_GRAD_TOL * scale}
+
+
+def _hold_metrics(label: str, card: dict, cpu: dict) -> dict:
+    """Card metrics against the CPU's (perceptual 1e-3, the others 1e-4); ``rl_loss``,
+    0 up to rounding, is held absolutely. Returns the errors."""
+    if set(card) != set(cpu):
+        raise AssertionError(f"{label}: metrics {sorted(card)} on the card, {sorted(cpu)} on the CPU")
+    errs = {}
+    for key, ref in cpu.items():
+        tol = PERCEPTUAL_F32_TOL if key == "perceptual_loss" else TRAIN_F32_TOL
+        scale = 1.0 if key == "rl_loss" else abs(ref)
+        errs[key] = abs(card[key] - ref) / scale if scale else abs(card[key] - ref)
+        if not abs(card[key] - ref) <= tol * scale:
+            raise AssertionError(f"{label} {key}: card {card[key]} vs CPU {ref}")
+    return errs
+
+
 def phase_f32_train(dev, tiny=False, h4=False):
     """Flagship width, depth 1, b1 x 4 frames: one f32 train step, card against CPU.
 
@@ -1552,30 +1652,14 @@ def phase_f32_train(dev, tiny=False, h4=False):
         )
         results[name] = ({k: float(v.detach()) for k, v in metrics.items()}, [g.cpu() for g in grads])
     (m_cpu, g_cpu), (m_gpu, g_gpu) = results["cpu"], results["gpu"]
-    errs = {}
-    for key, ref in m_cpu.items():
-        tol = PERCEPTUAL_F32_TOL if key == "perceptual_loss" else TRAIN_F32_TOL
-        scale = 1.0 if key == "rl_loss" else abs(ref)  # rl_loss is 0 up to rounding
-        errs[key] = abs(m_gpu[key] - ref) / scale if scale else abs(m_gpu[key] - ref)
-        if not abs(m_gpu[key] - ref) <= tol * scale:
-            raise AssertionError(f"{label} step {key}: card {m_gpu[key]} vs CPU {ref}")
-    worst, noise_leaves = (0.0, ""), 0
-    scale = max(float(b.abs().max()) for b in g_cpu)
-    for (name, _), a, b in zip(cpu_model.named_parameters(), g_gpu, g_cpu):
-        if tiny and float(b.abs().max()) <= ZERO_GRAD_TOL * scale:
-            if not float(a.abs().max()) <= ZERO_GRAD_TOL * scale:
-                raise AssertionError(f"{label} gradient {name}: {float(a.abs().max())} on the card where "
-                                     f"the CPU's is rounding noise (<= {ZERO_GRAD_TOL} * {scale})")
-            noise_leaves += 1
-            continue
-        rel = ((a - b).abs().max() / b.abs().max()).item()
-        if not (a - b).abs().max() <= GRAD_F32_TOL * b.abs().max():
-            raise AssertionError(f"{label} step gradient {name}: relative error {rel} > {GRAD_F32_TOL}")
-        worst = max(worst, (rel, name))
+    errs = _hold_metrics(f"{label} step", m_gpu, m_cpu)
+    names = [name for name, _ in cpu_model.named_parameters()]
+    noise = _noise_leaves(names, g_cpu) if tiny else {}
+    worst = _hold_grads(f"{label} step", names, g_gpu, g_cpu, noise)
     log(label, json.dumps({
         "config": text,
         "metrics_cpu": m_cpu, "metric_rel_err": errs, "worst_grad_rel_err": worst[0],
-        "worst_grad_leaf": worst[1], "leaves": len(g_cpu), "leaves_at_rounding_noise": noise_leaves,
+        "worst_grad_leaf": worst[1], "leaves": len(g_cpu), "leaves_at_rounding_noise": len(noise),
         "tols": [TRAIN_F32_TOL, PERCEPTUAL_F32_TOL, GRAD_F32_TOL] + ([ZERO_GRAD_TOL] if tiny else []),
     }))
     del cpu_model, gpu_model
@@ -1639,30 +1723,14 @@ def phase_f32_modes(dev):
                                                    perceptual, **draws)
             results[name] = ({k: float(v.detach()) for k, v in metrics.items()}, [g.cpu() for g in grads])
         (m_cpu, g_cpu), (m_gpu, g_gpu) = results["cpu"], results["gpu"]
-        errs = {}
-        for key, ref in m_cpu.items():
-            tol = PERCEPTUAL_F32_TOL if key == "perceptual_loss" else TRAIN_F32_TOL
-            scale = 1.0 if key == "rl_loss" else abs(ref)  # rl_loss is 0 up to rounding
-            errs[key] = abs(m_gpu[key] - ref) / scale if scale else abs(m_gpu[key] - ref)
-            if not abs(m_gpu[key] - ref) <= tol * scale:
-                raise AssertionError(f"f32 {label} {key}: card {m_gpu[key]} vs CPU {ref}")
-        worst = (0.0, "")
-        scale = max((float(b.abs().max()) for b in g_cpu), default=0.0)
-        for (name, _), a, b in zip(cpu_model.named_parameters(), g_gpu, g_cpu):
-            if float(b.abs().max()) <= ZERO_GRAD_TOL * scale:
-                if not float(a.abs().max()) <= ZERO_GRAD_TOL * scale:
-                    raise AssertionError(f"f32 {label} gradient {name}: {float(a.abs().max())} on the card where "
-                                         f"the CPU's is rounding noise (<= {ZERO_GRAD_TOL} * {scale})")
-                continue
-            rel = ((a - b).abs().max() / b.abs().max()).item()
-            if not rel <= GRAD_F32_TOL:
-                raise AssertionError(f"f32 {label} gradient {name}: relative error {rel} > {GRAD_F32_TOL}")
-            worst = max(worst, (rel, name))
+        errs = _hold_metrics(f"f32 {label}", m_gpu, m_cpu)
+        names = [name for name, _ in cpu_model.named_parameters()]
+        noise = _noise_leaves(names, g_cpu) if g_cpu else {}
+        worst = _hold_grads(f"f32 {label}", names, g_gpu, g_cpu, noise)
         log(f"f32-{label}", json.dumps({
             "config": f"flagship width, encoder/decoder depth 1, b1 x 4 frames (1 padded), perceptual on, {overrides}",
             "metrics_cpu": m_cpu, "metric_rel_err": errs, "worst_grad_rel_err": worst[0],
-            "worst_grad_leaf": worst[1], "leaves": len(g_cpu),
-            "leaves_at_rounding_noise": sum(float(b.abs().max()) <= ZERO_GRAD_TOL * scale for b in g_cpu),
+            "worst_grad_leaf": worst[1], "leaves": len(g_cpu), "leaves_at_rounding_noise": len(noise),
             "tols": [TRAIN_F32_TOL, PERCEPTUAL_F32_TOL, GRAD_F32_TOL, ZERO_GRAD_TOL],
         }))
         del cpu_model, gpu_model
@@ -2874,6 +2942,338 @@ def phase_train_vgg_cf(cfg, dev, reference):
     torch.cuda.empty_cache()
 
 
+def phase_mae_kernels(dev, rows):
+    """Kernels #1 and #3 against their plain versions at the MAE's b4 x 16f calls
+    (:func:`mae_attention_cases`): the spatial calls at S = 196 (unmasked) and the
+    temporal ones at S = 16 under clip 1's padding, a sequence with every key masked,
+    the same bits twice, SDPA beside each; counted on ``"mae"`` (a gradient step,
+    remat on: each forward twice) and ``"mae-eval"`` (an eval forward)."""
+    cfg = mae_config()
+    phase_attention_kernels(cfg, dev, rows, "mae-eval", "mae", mae_attention_cases(cfg), remat=cfg.remat,
+                            masked_rows=True)
+
+
+def _mae_launches(cfg, train: bool) -> dict:
+    """Launches of every kernel in one MAE gradient step (``train``) or eval forward:
+    #1 twice per block (temporal, spatial), again under remat in a step, and #3 once
+    per forward call in a step; nothing else."""
+    from video_vae_tpu_torch.ops import KERNELS
+
+    calls = 2 * (cfg.encoder_depth + max(1, cfg.decoder_depth // 3))
+    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0}
+    want["vvt_fused_attention_fwd"] = calls * (2 if train and cfg.remat else 1)
+    want["vvt_fused_attention_bwd"] = calls if train else 0
+    return want
+
+
+def phase_mae(dev):
+    """``VideoMAE(mae_config())`` at full width and depth, mask ratio 0.9, bf16, b4 x 16f
+    with clip 1 padded: a training forward plus ``torch.autograd.grad`` of ``mae_loss``
+    (launches held: 52 of #1 and 26 of #3 on the flagship's 13 blocks), an eval
+    forward (26 of #1, no token masked), each timed ``MAE_TIMED`` times after a
+    warm-up and profiled (device ms, idle share), peak memory beside. Returns the
+    launches of (a step, an eval forward)."""
+    import torch
+
+    from video_vae_tpu_torch.models import VideoMAE, mae_loss
+
+    cfg = mae_config()
+    model = VideoMAE(cfg, device=dev, seed=0)
+    params = list(model.parameters())
+    gen = torch.Generator().manual_seed(41)
+    video = torch.rand(MAE_CLIPS, MAE_FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
+    mask = mae_frame_mask().to(dev)
+    draws = torch.Generator(device=dev).manual_seed(42)
+
+    def grad_step():
+        out = model(video, mask, generator=draws)
+        loss, metrics = mae_loss(out, mask)
+        return out, metrics, torch.autograd.grad(loss, params)
+
+    def eval_forward():
+        with torch.no_grad():
+            return model(video, mask, train=False)
+
+    launches = {}
+    for label, run, train in (("mae", grad_step, True), ("mae-eval", eval_forward, False)):
+        reset_launches()
+        result = run()
+        torch.cuda.synchronize()
+        launches[label] = read_launches()
+        if launches[label] != _mae_launches(cfg, train):
+            raise AssertionError(f"launches per {label} run {launches[label]}, expected {_mae_launches(cfg, train)}")
+        out = result[0] if train else result
+        want = (MAE_CLIPS, MAE_FRAMES, cfg.num_patches, cfg.embed_dim)
+        if tuple(out.prediction.shape) != want or not torch.isfinite(out.prediction).all():
+            raise AssertionError(f"{label}: prediction of shape {tuple(out.prediction.shape)} (want {want}) "
+                                 "or non-finite")
+        masked = float(out.token_mask.float().mean())
+        if train:
+            metrics = {k: float(v.detach()) for k, v in result[1].items()}
+            if not (0.85 < masked < 0.95 and _finite(metrics) and metrics["loss"] > 0
+                    and all(torch.isfinite(g).all() for g in result[2])):
+                raise AssertionError(f"mae step: masked share {masked}, metrics {metrics}, or non-finite gradients")
+        elif masked != 0.0:
+            raise AssertionError(f"mae eval forward masked {masked} of the tokens")
+        del result, out
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(MAE_TIMED):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        profile = profile_device(label, run, ms, passes=1)
+        log(label, json.dumps({
+            "config": f"VideoMAE {describe(cfg)}, {cfg.num_heads} heads of {cfg.head_dim}, "
+                      f"{cfg.encoder_depth} + {max(1, cfg.decoder_depth // 3)} blocks, remat {cfg.remat}, bf16 "
+                      f"compute, f32 params, mask ratio {model.mask_ratio}, b{MAE_CLIPS} x {MAE_FRAMES} frames "
+                      f"(clip {MAE_PADDED_CLIP} ends in 3 padded), "
+                      + ("training forward + autograd.grad of mae_loss" if train else "eval forward"),
+            "launches": launches[label], "ms_median": ms, "ms_all": times, "peak_memory_gib": peak,
+            "device_ms": profile["device_busy_ms_per_run"], "device_ops": profile["device_ops_per_run"],
+            "idle_share": profile["idle_share_vs_median"], "masked_token_share": masked,
+            **({"step_metrics": metrics} if train else {}),
+        }))
+    del model, params, video
+    torch.cuda.empty_cache()
+    return launches["mae"], launches["mae-eval"]
+
+
+def phase_f32_mae(dev):
+    """The MAE at 224² and the flagship's width, depth 1 + 1, float32, b1 x 4 frames (the
+    last padded), with an injected token mask: prediction, loss metrics and every
+    parameter's gradient on the card against the CPU."""
+    import torch
+
+    from video_vae_tpu_torch.models import VideoMAE, mae_loss
+
+    cfg = mae_config().replace(dtype="float32", encoder_depth=1, decoder_depth=1, remat=False)
+    cpu_model = VideoMAE(cfg, device="cpu", seed=43)
+    gpu_model = VideoMAE(cfg, device=dev, seed=43)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gen = torch.Generator().manual_seed(44)
+    video = torch.rand(1, 4, cfg.height, cfg.width, cfg.channels, generator=gen)
+    mask = torch.ones(1, 4)
+    mask[0, 3:] = 0
+    token_mask = torch.rand(1, 4, cfg.num_patches, generator=gen) < cpu_model.mask_ratio
+    results = {}
+    for name, model, device in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, dev)):
+        out = model(video.to(device), mask.to(device), token_mask=token_mask.to(device))
+        loss, metrics = mae_loss(out, mask.to(device))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        results[name] = (out.prediction.detach().cpu(), {k: float(v.detach()) for k, v in metrics.items()},
+                         [g.cpu() for g in grads])
+    (p_cpu, m_cpu, g_cpu), (p_gpu, m_gpu, g_gpu) = results["cpu"], results["gpu"]
+    rel = ((p_gpu - p_cpu).abs().max() / p_cpu.abs().max()).item()
+    if not rel <= FORWARD_F32_TOL:
+        raise AssertionError(f"f32 mae prediction card vs CPU: relative max-abs error {rel} > {FORWARD_F32_TOL}")
+    errs = _hold_metrics("f32 mae", m_gpu, m_cpu)
+    worst = _hold_grads("f32 mae", [n for n, _ in cpu_model.named_parameters()], g_gpu, g_cpu, {})
+    log("f32-mae", json.dumps({
+        "config": f"VideoMAE {describe(cfg)}, depth 1 + 1, float32, b1 x 4 frames (1 padded), injected token mask "
+                  f"({int(token_mask.sum())} of {token_mask.numel()} masked)",
+        "prediction_rel_max_abs_err": rel, "metrics_cpu": m_cpu, "metric_rel_err": errs,
+        "worst_grad_rel_err": worst[0], "worst_grad_leaf": worst[1], "leaves": len(g_cpu),
+        "tols": [FORWARD_F32_TOL, TRAIN_F32_TOL, GRAD_F32_TOL],
+    }))
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+
+
+def _recording(optimizer, into: dict, key: str):
+    """Make ``optimizer.update`` keep a host copy of the gradients it is handed under ``key``."""
+    update = optimizer.update
+
+    def record(grads):
+        into[key] = [g.detach().float().cpu() for g in grads]
+        return update(grads)
+
+    optimizer.update = record
+
+
+def _discriminator_noise(disc) -> dict:
+    """{path: bound} of the discriminator's conv biases whose GroupNorm has one channel a
+    group: the norm removes them, so their true gradient is 0 (``D_NOISE_TOL``)."""
+    from video_vae_tpu_torch.models.classifier import SNConvBlock3D
+
+    return {f"{n}.conv.layer.bias": D_NOISE_TOL for n, m in disc.named_modules()
+            if isinstance(m, SNConvBlock3D) and m.norm.num_groups == m.norm.scale.numel()}
+
+
+def phase_f32_gan(dev):
+    """One float32 GAN step (``train/adversarial.py``) on the card against the CPU: the
+    flagship's width at depth 1, b1 x 4 frames (1 padded), perceptual on, the same draws,
+    and a ``Discriminator(base_features=8, num_levels=2)``: every metric, the gradients
+    each optimizer is handed (the VAE's and the discriminator's), and every ``u`` after
+    the step's three discriminator calls."""
+    import torch
+
+    from video_vae_tpu_torch import DynamicHParams, LossConfig, ModelConfig, OptimConfig, VideoVAE, create_optimizer
+    from video_vae_tpu_torch.losses import make_perceptual_loss_fn
+    from video_vae_tpu_torch.models import Discriminator
+    from video_vae_tpu_torch.models.vgg import load_vgg
+    from video_vae_tpu_torch.train import make_adversarial_train_step
+
+    cfg = ModelConfig(dtype="float32", encoder_depth=1, decoder_depth=1, remat=False)
+    loss_cfg, hp = LossConfig(), DynamicHParams.default()
+    cpu_model = VideoVAE(cfg, device="cpu", seed=45)
+    gen = torch.Generator().manual_seed(46)
+    random_final_conv(cpu_model, gen)
+    gpu_model = VideoVAE(cfg, device=dev, seed=45)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    d_kw = dict(base_features=8, num_levels=2, dtype=torch.float32, seed=47)
+    cpu_disc = Discriminator(device="cpu", **d_kw)
+    gpu_disc = Discriminator(device=dev, **d_kw)
+    gpu_disc.load_state_dict(cpu_disc.state_dict())
+    video = torch.rand(1, 4, cfg.height, cfg.width, cfg.channels, generator=gen)
+    mask = torch.ones(1, 4)
+    mask[0, 3:] = 0
+    noise, uniforms = _draws(cpu_model, video, mask, seed=48, rollouts_differ=True)
+    results = {}
+    for name, model, disc, device in (("cpu", cpu_model, cpu_disc, "cpu"), ("gpu", gpu_model, gpu_disc, dev)):
+        perceptual = make_perceptual_loss_fn(load_vgg(None, device=device))
+        opt, d_opt = create_optimizer(model, OptimConfig()), create_optimizer(disc, OptimConfig())
+        grads = {}
+        _recording(opt, grads, "vae")
+        _recording(d_opt, grads, "discriminator")
+        metrics = make_adversarial_train_step(loss_cfg, perceptual)(
+            model, opt, disc, d_opt, video.to(device), mask.to(device), hp, 0,
+            noise=noise.to(device), uniforms=uniforms.to(device),
+        )
+        results[name] = ({k: float(v) for k, v in metrics.items()}, grads,
+                         {n: b.cpu() for n, b in disc.named_buffers()})
+    (m_cpu, g_cpu, u_cpu), (m_gpu, g_gpu, u_gpu) = results["cpu"], results["gpu"]
+    if set(m_cpu) != set(GAN_METRICS):
+        raise AssertionError(f"f32 gan metrics {sorted(m_cpu)}, expected {sorted(GAN_METRICS)}")
+    errs = _hold_metrics("f32 gan", m_gpu, m_cpu)
+    vae_names = [n for n, _ in cpu_model.named_parameters()]
+    vae_noise = _noise_leaves(vae_names, g_cpu["vae"])
+    worst = {
+        "vae": _hold_grads("f32 gan vae", vae_names, g_gpu["vae"], g_cpu["vae"], vae_noise),
+        "discriminator": _hold_grads("f32 gan discriminator", [n for n, _ in cpu_disc.named_parameters()],
+                                     g_gpu["discriminator"], g_cpu["discriminator"], _discriminator_noise(cpu_disc)),
+    }
+    u_err = 0.0
+    for key, ref in u_cpu.items():
+        u_err = max(u_err, ((u_gpu[key] - ref).abs().max() / ref.abs().max()).item())
+        if not u_err <= TRAIN_F32_TOL:
+            raise AssertionError(f"f32 gan {key} after the step: card vs CPU relative error {u_err}")
+    log("f32-gan", json.dumps({
+        "config": "flagship width, encoder/decoder depth 1, b1 x 4 frames (1 padded), perceptual on; "
+                  "Discriminator(base_features=8, num_levels=2), float32",
+        "metrics_cpu": m_cpu, "metric_rel_err": errs,
+        "worst_grad_rel_err": {k: w[0] for k, w in worst.items()}, "worst_grad_leaf": {k: w[1] for k, w in worst.items()},
+        "leaves_at_rounding_noise": {"vae": len(vae_noise), "discriminator": len(_discriminator_noise(cpu_disc))},
+        "u_rel_max_abs_err": u_err, "tols": [TRAIN_F32_TOL, PERCEPTUAL_F32_TOL, GRAD_F32_TOL, ZERO_GRAD_TOL, D_NOISE_TOL],
+    }))
+    del cpu_model, gpu_model, cpu_disc, gpu_disc
+    torch.cuda.empty_cache()
+
+
+def phase_train_gan(dev, train_launches: dict):
+    """The flagship GAN step: the "train" phase's ``ModelConfig(remat=False)`` and batch
+    (b1 x 16f, 2 rollouts, perceptual on) with a full-width ``Discriminator()`` (base 32,
+    4 levels, remat on, bf16), ``make_adversarial_train_step`` at its defaults. Its
+    launches of #1-#4 must equal ``train_launches`` (the discriminator runs cuDNN convs,
+    no kernel of the port); the metrics are the JAX step's and finite, every ``u`` moves,
+    the first step leaves both models as they were (lr 0). Then 3 timed steps after a
+    warm-up, a profiled one, and the discriminator's own device ms (its three calls and
+    the two backwards a step takes through it) for its share."""
+    import torch
+
+    from video_vae_tpu_torch import (
+        DynamicHParams,
+        LossConfig,
+        ModelConfig,
+        OptimConfig,
+        VideoVAE,
+        build_perceptual,
+        create_optimizer,
+    )
+    from video_vae_tpu_torch.losses import discriminator_loss, generator_adversarial_loss
+    from video_vae_tpu_torch.models import Discriminator
+    from video_vae_tpu_torch.train import make_adversarial_train_step
+
+    cfg = ModelConfig(remat=False)
+    model = VideoVAE(cfg, device=dev, seed=0)
+    disc = Discriminator(device=dev, seed=1)
+    opt, d_opt = create_optimizer(model, OptimConfig()), create_optimizer(disc, OptimConfig())
+    loss_cfg, hp = LossConfig(), DynamicHParams.default()
+    gan_step = make_adversarial_train_step(loss_cfg, build_perceptual(loss_cfg, device=dev))
+    gen = torch.Generator().manual_seed(8)
+    video = torch.rand(TRAIN_BATCH, FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
+    mask = torch.ones(TRAIN_BATCH, FRAMES, device=dev)
+    draws = torch.Generator(device=dev).manual_seed(9)
+    steps = [0]
+
+    def step():
+        metrics = gan_step(model, opt, disc, d_opt, video, mask, hp, steps[0], generator=draws)
+        steps[0] += 1
+        return metrics
+
+    u0 = {n: b.clone() for n, b in disc.named_buffers()}
+    before = [p.detach().clone() for p in [*model.parameters(), *disc.parameters()]]
+    reset_launches()
+    first = {k: float(v) for k, v in step().items()}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != train_launches:
+        raise AssertionError(f"launches per train-gan step {launches}, the train step's {train_launches}")
+    if set(first) != set(GAN_METRICS) or not _finite(first):
+        raise AssertionError(f"train-gan step 1 metrics {first}")
+    if any(torch.equal(b, u0[n]) for n, b in disc.named_buffers()):
+        raise AssertionError("a spectral norm's u did not move in the step")
+    if any(not torch.equal(p, q) for p, q in zip([*model.parameters(), *disc.parameters()], before)):
+        raise AssertionError("the first GAN step (lr 0) changed a parameter")
+    del before
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(NEW_PATH_TIMED_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    profile = profile_device("train-gan", step, ms, passes=1)
+
+    video_c = video.to(cfg.compute_dtype())
+    with torch.no_grad():
+        recon = model(video_c, mask, generator=draws).reconstruction
+
+    def discriminator_work():  # D's part of a step: D(recon) and its input gradient, then D's own step
+        x = recon.detach().requires_grad_()
+        torch.autograd.grad(generator_adversarial_loss(disc(x)), x)
+        d_loss, _ = discriminator_loss(disc(video_c), disc(recon[:TRAIN_BATCH]))
+        torch.autograd.grad(d_loss, list(disc.parameters()))
+
+    d_ms = device_ms(discriminator_work, iters=2, traces=3)
+    log("train-gan", json.dumps({
+        "config": f"{describe(cfg)}, bf16 compute, f32 params, b{TRAIN_BATCH} x {FRAMES} frames, rl (2 rollouts), "
+                  "perceptual on, remat off; Discriminator() (base 32, 4 levels, remat on, bf16), adversarial "
+                  "weight 0.1 from step 0",
+        "launches": launches, "ms_per_step_median": ms, "ms_per_step_all": times, "peak_memory_gib": peak,
+        "device_ms": profile["device_busy_ms_per_run"], "device_ops": profile["device_ops_per_run"],
+        "idle_share": profile["idle_share_vs_median"], "discriminator_device_ms": d_ms,
+        "discriminator_share_of_device_ms": d_ms / profile["device_busy_ms_per_run"],
+        "discriminator_params": sum(p.numel() for p in disc.parameters()), "step1_metrics": first,
+    }))
+    del model, disc, opt, d_opt, recon
+    torch.cuda.empty_cache()
+
+
 def kernel_record(rows, launches_by_path):
     """One entry per kernel; times and bounds summed over the launches of its main
     path (the default train step, or the train step of the path that runs it),
@@ -2984,6 +3384,12 @@ def main() -> int:
         "dist-gloo-2": f"the trainer's config and cut; 2 ranks on one card (gloo); {TRAINER_CLIPS} clips a mesh, "
                        f"no eval, no profiled step; fsdp=2 and tensor=2 stop after {DIST_SHORT_STEPS} step (its "
                        "time holds the warm-up), without the video dump",
+        "mae": f"none of width or depth: the flagship at {MAE_SIDE}² (BASELINE's video-MAE config), "
+               f"b{MAE_CLIPS} x {MAE_FRAMES}f (BASELINE names no batch); {MAE_TIMED} runs timed; the float32 "
+               "card-vs-CPU check at depth 1 + 1",
+        "train-gan": f"none: the train step's model and batch with Discriminator() at its defaults; "
+                     f"{NEW_PATH_TIMED_STEPS} steps timed; the float32 card-vs-CPU step at depth 1 with "
+                     "Discriminator(base_features=8, num_levels=2)",
     }))
     if [sum(d.values()) for d in tapdot_launches(wide)] != [4, 4]:
         raise AssertionError(f"the tap-dot model's gate counts changed: {tapdot_launches(wide)}")
@@ -3070,6 +3476,17 @@ def main() -> int:
     started = time.monotonic()
     launches.update(phase_latent_clis(dev))
     log("seconds", json.dumps({"latent CLIs": time.monotonic() - started}))
+    started = time.monotonic()
+    # the VideoMAE at 224² (S = 196): #1 and #3 at its calls, its step and eval forward, f32 card vs CPU
+    phase_mae_kernels(dev, rows)
+    launches["mae"], launches["mae-eval"] = phase_mae(dev)
+    phase_f32_mae(dev)
+    log("seconds", json.dumps({"mae-kernels and mae": time.monotonic() - started}))
+    started = time.monotonic()
+    # the GAN step: the train step's launches, the discriminator on cuDNN; f32 card vs CPU
+    phase_train_gan(dev, launches["train"])
+    phase_f32_gan(dev)
+    log("seconds", json.dumps({"train-gan": time.monotonic() - started}))
     log("phase-seconds", json.dumps(PHASE_SECONDS))
     log(json.dumps(kernel_record(rows, launches)))
     log(json.dumps({"ok": True, "device": {

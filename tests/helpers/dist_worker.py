@@ -6,7 +6,8 @@ parent meanwhile). The parent writes ``inputs.pt`` (weights, VGG filters,
 batch, draws); rank 0 writes ``results.pt``: per factorization the global
 metrics and full gradients (gathered from the shards) of one ``loss_and_grads``, the metrics of each
 ``train_step`` and the full parameters after them; then the step after a
-checkpoint saved under (1, 2, 2) and restored under (4, 1, 1).
+checkpoint saved under (1, 2, 2) and restored under (4, 1, 1), and two GAN
+steps (``train/adversarial.py``) under data=2 x fsdp=2.
 """
 
 import os
@@ -18,6 +19,7 @@ import torch.distributed as dist
 CASES = (("1,2,2", (1, 2, 2), 2, 3), ("4,1,1", (4, 1, 1), 2, 2), ("1,4,1", (1, 4, 1), 2, 2),
          ("1,1,4", (1, 1, 4), 4, 2))
 SAVED_AFTER = 2  # steps of the (1, 2, 2) run before its checkpoint
+GAN_MESH, GAN_STEPS = (2, 2, 1), 2  # the GAN step under data=2 x fsdp=2
 
 
 def _floats(metrics):
@@ -124,6 +126,40 @@ def rank_zero_writes(tmp):
     manager.wait()
 
 
+def gan_case(inp, pf):
+    """The GAN step under data=2 x fsdp=2 (one clip a rank), two steps: rank 0's
+    global metrics, the full parameters of both models and the spectral norms'
+    ``u`` after them, and whether every rank holds the same discriminator."""
+    from video_vae_tpu_torch import DynamicHParams, LossConfig, load_jax_params
+    from video_vae_tpu_torch.models import Discriminator
+    from video_vae_tpu_torch.parallel.sharding import activate_mesh, batch_slice
+    from video_vae_tpu_torch.train import create_optimizer, load_jax_batch_stats, make_adversarial_train_step
+
+    cfg, mesh, model, opt = _build(GAN_MESH, 2, inp)
+    disc = Discriminator(3, 4, 1, remat=False, dtype=torch.float32, device="cpu")
+    load_jax_params(disc, inp["gan"]["d_params"])
+    load_jax_batch_stats(disc, inp["gan"]["u"])
+    d_opt = create_optimizer(disc, cfg.optim)
+    step = make_adversarial_train_step(LossConfig(use_perceptual=True), pf)
+    rows = batch_slice(len(inp["video"]), mesh)
+    out = {"rows": (rows.start, rows.stop), "steps": []}
+    for i in range(GAN_STEPS):
+        noise, uniforms = inp["draws"][2][i]
+        with activate_mesh(mesh):
+            out["steps"].append(_floats(step(
+                model, opt, disc, d_opt, inp["video"][rows], inp["mask"][rows], DynamicHParams.default(), i,
+                noise=noise[rows], uniforms=uniforms[2 * rows.start: 2 * rows.stop],
+            )))
+    flat = torch.cat([p.detach().reshape(-1) for p in disc.parameters()] + [b.reshape(-1) for b in disc.buffers()])
+    everyone = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+    dist.all_gather(everyone, flat)
+    out["d_replicated"] = all(torch.equal(flat, other) for other in everyone)
+    out["params"] = _full_params(model, opt)
+    out["d_params"] = {n.replace(".", "/"): p.detach().clone() for n, p in disc.named_parameters()}
+    out["u"] = {n.replace(".", "/"): b.clone() for n, b in disc.named_buffers()}
+    return out
+
+
 def worker(rank, world, port, tmp):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
@@ -138,6 +174,7 @@ def worker(rank, world, port, tmp):
         pf = make_perceptual_loss_fn(vgg)
         out = {label: run_case(label, shape, heads, steps, inp, pf, tmp) for label, shape, heads, steps in CASES}
         out["restore"] = restore_case(inp, pf, tmp)
+        out["gan"] = gan_case(inp, pf)
         rank_zero_writes(tmp)
         if rank == 0:
             torch.save(out, os.path.join(tmp, "results.pt"))

@@ -31,7 +31,7 @@ from video_vae_tpu_torch.ops.flash_attention import (
     fused_attention_bwd_plan,
     mma_row_bytes,
 )
-from test_torch_attention_plan import D128_BATCHES, H4_CASES, LATENT_CASES
+from test_torch_attention_plan import D128_BATCHES, H4_CASES, LATENT_CASES, MAE_CASES
 
 # what the H100 accepts of one block and one grid; the kernel's __launch_bounds__ per variant
 # (the tile's at head_dim 128: attention_bwd_wide_kernel's)
@@ -278,3 +278,22 @@ def test_attention_bwd_plan_at_head_dim_128_is_as_designed():
 @pytest.mark.parametrize("name,B,S,H", LATENT_CASES, ids=[c[0] for c in LATENT_CASES])
 def test_attention_bwd_plan_at_latent_cli_shapes(name, B, S, H):
     _check_plan(B, S, H)
+
+
+@pytest.mark.parametrize("name,B,S,H", MAE_CASES, ids=[c[0] for c in MAE_CASES])
+def test_attention_bwd_plan_at_mae_shapes(name, B, S, H):
+    _check_plan(B, S, H)
+
+
+def test_attention_bwd_plan_at_mae_shapes_is_as_designed():
+    """The MAE at 224²: spatial S = 196 takes a tile block a pair with 13 warps of
+    16 rows on each side (the last tile 4 real rows), 32-key query chunks with a
+    last one of 16 (keys 192-207, of which 196-207 are padding); temporal S = 16
+    the flagship's slab of 4 pairs a block."""
+    spatial = Geometry(64, 196, 8)
+    assert (spatial.plan, spatial.grid, spatial.kt) == (("tile", 1, 13), 512, 2)
+    assert spatial.query_chunks()[-1] == (192, 1) and len(spatial.query_chunks()) == 7
+    assert len(spatial.key_steps()) == 13 and spatial.key_steps()[-1] == 192
+    assert spatial.smem <= MAX_SMEM
+    temporal = Geometry(784, 16, 8)
+    assert (temporal.plan, temporal.grid, temporal.kt) == (("slab", 4, 4), 1568, 1)

@@ -63,6 +63,9 @@ H4_CASES = [(name, B, S, H4.num_heads, H4.head_dim)
             for name, B, S, _, _, _ in chip_smoke.preset_attention_cases("h4", H4, chip_smoke.H4_CLIPS,
                                                                         chip_smoke.H4_FRAMES)]
 D128_BATCHES = [(1, 4), (3, 4), (5, 1), (2, 6)]  # (B, H)
+# the VideoMAE's calls at 224² (chip_smoke.mae_attention_cases): spatial S = 196, temporal S = 16
+MAE_CASES = [(name, B, S, chip_smoke.mae_config().num_heads)
+             for name, B, S, _, _, _ in chip_smoke.mae_attention_cases(chip_smoke.mae_config())]
 # the latent CLIs' calls at their defaults (b1 x 64 frames, the flagship's head_dim 64)
 LATENT_CASES = [(name, B, S, ModelConfig().num_heads)
                 for name, B, S, _, _, _ in chip_smoke.latent_attention_cases(ModelConfig())]
@@ -286,3 +289,22 @@ def test_check_head_dim_takes_the_four():
     for bad in (0, 8, 24, 48, 96, 192, 256):
         with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64, 128\), got " + str(bad)):
             check_head_dim(bad)
+
+
+@pytest.mark.parametrize("name,B,S,H", MAE_CASES, ids=[c[0] for c in MAE_CASES])
+def test_attention_plan_at_mae_shapes(name, B, S, H):
+    _check_plan(B, S, H)
+
+
+def test_attention_plan_at_mae_shapes_is_as_designed():
+    """The MAE at 224²: spatial S = 196 = 12·16 + 4 takes a tile block a (sequence,
+    head) pair, 13 warps of one 16-row tile each, the last tile holding 4 real
+    rows, and 4 key chunks of 64 staged rows over 208 (keys 196-207 staged as
+    padding); temporal S = 16 is the flagship's slab plan, a sequence a block."""
+    assert [(B, S) for _, B, S, _ in MAE_CASES] == [(784, 16), (64, 196)]
+    spatial = Geometry(64, 196, 8)
+    assert (spatial.plan, spatial.rows16, spatial.warps, spatial.grid) == (("tile", 1), 208, 13, 512)
+    assert spatial.key_steps() == [(0, 4), (64, 4), (128, 4), (192, 1)]
+    assert sorted(row0 for _, _, b, h, row0 in spatial.row_tiles() if (b, h) == (0, 0))[-1] == 192
+    temporal = Geometry(784, 16, 8)
+    assert (temporal.plan, temporal.grid) == (("slab", 1), 784)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers.threads import one_thread  # noqa: F401
 from video_vae_tpu.ops.conv3d import _conv3d_wgrad_pallas_cf
 from video_vae_tpu.ops.conv3d import conv3d_cf as jax_conv3d_cf
 from video_vae_tpu.ops.conv3d import conv3d_cf_cat2 as jax_conv3d_cf_cat2

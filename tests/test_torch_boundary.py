@@ -10,6 +10,7 @@ import torch
 
 from video_vae_tpu_torch import VideoVAE, reconstruct, tiny_config
 from video_vae_tpu_torch.cli import train as train_cli
+from video_vae_tpu_torch.models import Discriminator, VideoMAE
 from video_vae_tpu_torch.models.vgg import load_vgg
 from video_vae_tpu_torch.ops.conv3d import conv3d_cf_cuda, conv3d_tapdot_cuda
 from video_vae_tpu_torch.ops.flash_attention import fused_qkv_attention_cuda
@@ -39,6 +40,8 @@ REQUIRED = (
     "video_vae_tpu_torch.utils.debug", "video_vae_tpu_torch.utils.metrics", "video_vae_tpu_torch.cli.train",
     "video_vae_tpu_torch.parallel.mesh", "video_vae_tpu_torch.parallel.sharding",
     "video_vae_tpu_torch.parallel.tensor_parallel", "video_vae_tpu_torch.parallel.dryrun",
+    "video_vae_tpu_torch.models.classifier", "video_vae_tpu_torch.models.video_mae",
+    "video_vae_tpu_torch.train.adversarial", "video_vae_tpu_torch.losses.losses",
 )
 
 
@@ -67,6 +70,10 @@ def test_entry_points_raise_without_cuda(tmp_path):
         train_cli.main(["--tiny", "--steps", "1", "--checkpoint_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_vgg(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Discriminator()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VideoMAE(cfg)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -1390,3 +1390,85 @@ def test_latent_clis_on_the_card(device, tmp_path, monkeypatch, capsys):
                              "--tiny"])
         recon = written[str(tmp_path / name)]["video"]
         assert recon.shape == video.shape and np.isfinite(recon).all()
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_discriminator_matches_cpu(device, remat):
+    """The discriminator's f32 logits, gradients and ``u`` on the card against the CPU
+    (its convs are cuDNN's; no kernel of the port), remat on and off."""
+    from video_vae_tpu_torch.models import Discriminator
+
+    kw = dict(base_features=8, num_levels=2, remat=remat, dtype=torch.float32, seed=3)
+    cpu, gpu = Discriminator(device="cpu", **kw), Discriminator(device=device, **kw)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.rand(2, 4, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for name, disc, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, device)):
+        logits = disc(x.to(dev))
+        grads = torch.autograd.grad((logits * torch.tensor([[1.0], [-2.0]], device=dev)).sum(),
+                                    list(disc.parameters()))
+        out[name] = (logits.detach().cpu(), [g.cpu() for g in grads], [b.cpu() for b in disc.buffers()])
+    (l_cpu, g_cpu, u_cpu), (l_gpu, g_gpu, u_gpu) = out["cpu"], out["gpu"]
+    assert _rel_err(l_gpu, l_cpu) <= TOL[torch.float32]
+    scale = max(float(g.abs().max()) for g in g_cpu)
+    for a, b in zip(g_gpu, g_cpu):
+        if float(b.abs().max()) <= 1e-5 * scale:  # a conv bias the one-channel GroupNorm removes
+            assert float(a.abs().max()) <= 1e-5 * scale
+        else:
+            assert _rel_err(a, b) <= 1e-3
+    for a, b in zip(u_gpu, u_cpu):  # one power step a call, remat's recompute included
+        assert _rel_err(a, b) <= TOL[torch.float32]
+
+
+def test_gan_step_runs_on_the_card(device):
+    """One bf16 GAN step of the tiny VAE and a small discriminator: the train step's
+    kernels launch, the metrics are the JAX step's and finite, every ``u`` moves."""
+    from video_vae_tpu_torch import DynamicHParams, VideoVAE, create_optimizer, tiny_config
+    from video_vae_tpu_torch.models import Discriminator
+    from video_vae_tpu_torch.train import make_adversarial_train_step
+
+    cfg = tiny_config(dtype="bfloat16")
+    model = VideoVAE(cfg.model, device=device)
+    disc = Discriminator(base_features=8, num_levels=2, device=device)
+    opt, d_opt = create_optimizer(model, cfg.optim), create_optimizer(disc, cfg.optim)
+    u0 = [b.clone() for b in disc.buffers()]
+    before = {k: k.launches for k in (FUSED_ATTENTION, FUSED_ATTENTION_BWD, CONV3D, CONV3D_WGRAD)}
+    gen = torch.Generator().manual_seed(0)
+    video = torch.rand(2, 8, 32, 32, 3, generator=gen).to(device)
+    metrics = make_adversarial_train_step(cfg.loss, None)(
+        model, opt, disc, d_opt, video, torch.ones(2, 8, device=device), DynamicHParams.default(), 0,
+        generator=torch.Generator(device=device).manual_seed(1),
+    )
+    assert all(k.launches > n for k, n in before.items())
+    assert {"loss", "generator_adv_loss", "discriminator_loss", "discriminator_accuracy"} <= set(metrics)
+    assert all(math.isfinite(float(v)) for v in metrics.values())
+    assert all(not torch.equal(a, b) for a, b in zip(disc.buffers(), u0))
+
+
+def test_mae_matches_cpu_at_s196(device):
+    """The VideoMAE at 224² (spatial S = 196: the fused kernels' partial last tile),
+    f32, depth 1 + 1, with an injected token mask: prediction, loss and every
+    gradient on the card against the CPU, kernels #1 and #3 launched."""
+    from video_vae_tpu_torch import ModelConfig
+    from video_vae_tpu_torch.models import VideoMAE, mae_loss
+
+    cfg = ModelConfig(height=224, width=224, dtype="float32", encoder_depth=1, decoder_depth=1, remat=False)
+    cpu, gpu = VideoMAE(cfg, device="cpu", seed=2), VideoMAE(cfg, device=device, seed=2)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(3)
+    video = torch.rand(1, 4, 224, 224, 3, generator=gen)
+    mask = torch.tensor([[1.0, 1.0, 1.0, 0.0]])
+    token_mask = torch.rand(1, 4, 196, generator=gen) < 0.9
+    before = FUSED_ATTENTION.launches, FUSED_ATTENTION_BWD.launches
+    out = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, device)):
+        res = model(video.to(dev), mask.to(dev), token_mask=token_mask.to(dev))
+        loss, _ = mae_loss(res, mask.to(dev))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[name] = (res.prediction.detach().cpu(), float(loss.detach()), [g.cpu() for g in grads])
+    assert FUSED_ATTENTION.launches - before[0] == 4 and FUSED_ATTENTION_BWD.launches - before[1] == 4
+    (p_cpu, l_cpu, g_cpu), (p_gpu, l_gpu, g_gpu) = out["cpu"], out["gpu"]
+    assert _rel_err(p_gpu, p_cpu) <= TOL[torch.float32]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    for a, b in zip(g_gpu, g_cpu):
+        assert _rel_err(a, b) <= 1e-3

@@ -12,7 +12,8 @@ two steps (the global gradient norm among them) and JAX's parameters after
 them; no gradient may vanish where JAX's does not (wrappers that hide the
 parameters from ``torch.autograd.grad`` give zeros or a rank's own
 gradients). A checkpoint saved under (1,2,2) restores under (4,1,1) and its
-next step equals the uninterrupted run's. A 2-rank ``torch.distributed.run``
+next step equals the uninterrupted run's. Two GAN steps under data=2 x
+fsdp=2 equal JAX's one-device GAN step. A 2-rank ``torch.distributed.run``
 of the training CLI exits 0 and writes one checkpoint.
 """
 
@@ -37,11 +38,14 @@ from video_vae_tpu.core.config import DynamicHParams as JaxDynamicHParams
 from video_vae_tpu.core.config import LossConfig as JaxLossConfig
 from video_vae_tpu.core.config import tiny_config as jax_tiny_config
 from video_vae_tpu.losses.perceptual import make_perceptual_loss_fn as jax_make_perceptual
+from video_vae_tpu.models.classifier import Discriminator as JaxDiscriminator
 from video_vae_tpu.models.vae import VideoVAE as JaxVideoVAE
 from video_vae_tpu.models.vgg import load_vgg as jax_load_vgg
+from video_vae_tpu.train.adversarial import make_adversarial_train_step as jax_make_adversarial_train_step
 from video_vae_tpu.train.setup import create_optimizer as jax_create_optimizer
 from video_vae_tpu.train.step import _loss_fn, make_train_step
 from video_vae_tpu_torch import VideoVAE, load_jax_params, tiny_config
+from video_vae_tpu_torch.models import Discriminator
 from video_vae_tpu_torch.models.unet import ConvBlock3D
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -142,6 +146,27 @@ def _jax_run(heads, params, vgg, video, mask):
     return res
 
 
+def _jax_gan_run(params, gan, vgg, video, mask):
+    """The JAX one-device f32 GAN step, two steps: their metrics, then both
+    models' parameters and the discriminator's ``u``."""
+    jcfg = jax_tiny_config(dtype="float32", num_heads=2)
+    jax_model = nnx.jit(lambda: JaxVideoVAE(jcfg.model, nnx.Rngs(0, sampling=1)))()
+    set_jax_params(jax_model, params)
+    disc = nnx.jit(lambda: JaxDiscriminator(channels=3, base_features=4, num_levels=1, rngs=nnx.Rngs(5),
+                                            remat=False, dtype=jnp.float32))()
+    set_jax_params(disc, {**gan["d_params"], **gan["u"]})
+    opt, d_opt = jax_create_optimizer(jax_model, jcfg.optim), jax_create_optimizer(disc, jcfg.optim)
+    step = jax_make_adversarial_train_step(JaxLossConfig(use_perceptual=True), jax_make_perceptual(vgg),
+                                           compute_dtype=jnp.float32)
+    jv, jm = jnp.asarray(video), jnp.asarray(mask)
+    hp = JaxDynamicHParams.default()
+    steps = [{k: float(v) for k, v in step(jax_model, opt, disc, d_opt, jv, jm, nnx.Rngs(sampling=s), hp,
+                                            jnp.asarray(i)).items()}
+             for i, s in enumerate(DRAW_SEEDS[:dist_worker.GAN_STEPS])]
+    return {"steps": steps, "params": _flat(nnx.state(jax_model, nnx.Param)),
+            "d_params": _flat(nnx.state(disc, nnx.Param)), "u": _flat(nnx.state(disc, nnx.BatchStat))}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(the JAX references by head count, the ranks' results, the run's directory)."""
@@ -158,12 +183,16 @@ def runs(tmp_path_factory):
             params[heads] = _random_params(model, SEED)
             load_jax_params(model, params[heads])
             draws[heads] = _draws(model, video, mask)
+        disc = Discriminator(3, 4, 1, remat=False, dtype=torch.float32, device="cpu")
+        gan = {"d_params": _random_params(disc, SEED + 1),
+               "u": {n.replace(".", "/"): b.numpy() for n, b in disc.named_buffers()}}
         torch.save({"params": params, "vgg": vgg, "video": torch.from_numpy(video),
-                    "mask": torch.from_numpy(mask), "draws": draws}, os.path.join(tmp, "inputs.pt"))
+                    "mask": torch.from_numpy(mask), "draws": draws, "gan": gan}, os.path.join(tmp, "inputs.pt"))
         ctx = mp.start_processes(dist_worker.worker, args=(WORLD, _free_port(), tmp), nprocs=WORLD,
                                  join=False, start_method="spawn")
         try:
             refs = {heads: _jax_run(heads, params[heads], jax_vgg, video, mask) for heads in params}
+            refs["gan"] = _jax_gan_run(params[2], gan, jax_vgg, video, mask)
         finally:
             for p in ctx.processes:
                 p.join(JOIN_TIMEOUT_S)
@@ -268,6 +297,28 @@ def test_checkpoint_moves_across_meshes(runs):
     assert {k: tuple(v.shape) for k, v in state["model"].items()} == {
         k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert [tuple(m.shape) for m in state["optimizer"]["mu"]] == [tuple(p.shape) for p in model.parameters()]
+
+
+def test_sharded_gan_step_matches_the_jax_gan_step(runs):
+    """Two GAN steps under data=2 x fsdp=2 (one clip a rank) against JAX's
+    one-device step at b = 4: the discriminator trains on the global batch's
+    first 4 reconstructions (clips 0 and 1's rollouts, gathered from ranks 0
+    and 1 and dealt one a rank), stays the same on every rank, and its ``u``
+    moves three power steps a step."""
+    refs, results, _ = runs
+    ref, ours = refs["gan"], results["gan"]
+    assert ours["rows"] == (0, 1) and ours["d_replicated"]
+    for i, (mine, theirs) in enumerate(zip(ours["steps"], ref["steps"])):
+        assert set(mine) == set(theirs)
+        for key in theirs:
+            assert _close(mine[key], theirs[key], key, _tol(key)), (i, key, mine[key], theirs[key])
+    assert ref["steps"][1]["discriminator_loss"] > 0 and ref["steps"][1]["generator_adv_loss"] > 0
+    for label in ("params", "d_params", "u"):
+        assert set(ours[label]) == set(ref[label]), label
+        for name, value in ours[label].items():
+            theirs = ref[label][name]
+            err = np.abs(value.numpy() - theirs).max()
+            assert err <= GRAD_F32_TOL * np.abs(theirs).max(), (label, name, err)
 
 
 def test_only_rank_zero_writes(runs):

@@ -24,9 +24,11 @@ import numpy as np
 import pytest
 import torch
 from flax import nnx
-from test_torch_attention_paths import _draws, _inputs, _jax_loss_and_grads, _models
+from test_torch_attention_paths import _inputs, _models
+from test_torch_attention_steps import _draws, _jax_loss_and_grads
 from test_torch_model import random_params, set_jax_params
 
+from helpers.threads import one_thread  # noqa: F401
 from video_vae_tpu.core.config import tiny_config as jax_tiny_config
 from video_vae_tpu.models.layers import MLP as JaxMLP
 from video_vae_tpu.models.layers import FactoredAttention as JaxFactoredAttention
@@ -44,6 +46,7 @@ MIN_MARGIN = 0.02
 NAMES = ("x", "ln_scale", "ln_bias", "w1", "b1", "w2", "b2")
 # (B, S, C, F, x dtype): the JAX tests' shape, an f32 x, and a ragged row count
 CASES = [(4, 16, 128, 256, "bfloat16"), (4, 16, 128, 256, "float32"), (1, 13, 128, 256, "bfloat16")]
+
 
 
 def _setup(b, s, c, f, dtype, seed=4):

@@ -13,11 +13,11 @@ and ``tests/test_torch_train_step.py`` holds it.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from flax import nnx
 from test_torch_model import BF16_TOL, F32_TOL, random_params, set_jax_params
 from test_torch_train_step import _close, _draws, _flat_grads, _inputs
 
+from helpers.threads import one_thread  # noqa: F401
 from video_vae_tpu.core.config import DynamicHParams as JaxDynamicHParams
 from video_vae_tpu.core.config import LossConfig as JaxLossConfig
 from video_vae_tpu.core.config import tiny_config as jax_tiny_config
@@ -32,14 +32,6 @@ SEED = 12
 DRAW_SEED = 25  # the sampling stream of the step: no decision within 0.02 of its uniform
 OVERRIDES = dict(qkv_features=128, num_heads=1)  # one head of 128
 
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread beside the other test workers (tests/test_torch_trainer.py)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _jax_model(dtype):

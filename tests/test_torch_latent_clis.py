@@ -20,6 +20,7 @@ import torch
 from flax import nnx
 from test_torch_model import BF16_TOL
 
+from helpers.threads import one_thread  # noqa: F401
 from video_vae_tpu.cli import cache_latents as jax_cache
 from video_vae_tpu.cli import check_videos as jax_check
 from video_vae_tpu.cli import decode_latents as jax_decode
@@ -36,14 +37,6 @@ from video_vae_tpu_torch.utils import param_norm, profile_trace
 FRAMES = 8  # --max_frames: tiny_config's clips
 CLIPS = {"a": 8, "b": 6}  # name: frames (b is padded)
 
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread beside the other test workers (tests/test_torch_trainer.py)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _write_mp4(path, frames):

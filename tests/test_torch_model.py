@@ -16,6 +16,7 @@ import pytest
 import torch
 from flax import nnx
 
+from helpers.threads import one_thread  # noqa: F401
 from video_vae_tpu.core.config import tiny_config as jax_tiny_config
 from video_vae_tpu.models.vae import VideoVAE as JaxVideoVAE
 from video_vae_tpu.train.step import make_reconstruct_fn

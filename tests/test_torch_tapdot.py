@@ -28,6 +28,7 @@ import torch
 from flax import nnx
 from test_torch_model import random_params, set_jax_params
 
+from helpers.threads import one_thread  # noqa: F401
 from video_vae_tpu.models.unet import UNet3D as JaxUNet3D
 from video_vae_tpu.ops import conv3d as jconv
 from video_vae_tpu_torch import load_jax_params

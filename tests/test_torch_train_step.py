@@ -21,6 +21,7 @@ import torch
 from flax import nnx
 from test_torch_model import random_params, set_jax_params
 
+from helpers.threads import one_thread  # noqa: F401
 from video_vae_tpu.core.config import DynamicHParams as JaxDynamicHParams
 from video_vae_tpu.core.config import LossConfig as JaxLossConfig
 from video_vae_tpu.core.config import tiny_config as jax_tiny_config

@@ -22,6 +22,7 @@ import pytest
 import torch
 from flax import nnx
 
+from helpers.threads import one_thread  # noqa: F401
 from video_vae_tpu.cli.train import build_parser as jax_build_parser
 from video_vae_tpu.cli.train import config_from_args as jax_config_from_args
 from video_vae_tpu.core import config as jax_config
@@ -49,15 +50,6 @@ from video_vae_tpu_torch.train.metrics import MetricLogger
 from video_vae_tpu_torch.train.trainer import Trainer, curriculum_plan
 from video_vae_tpu_torch.utils.metrics import count_params, masked_psnr
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the tiny CPU steps: beside the other test workers,
-    torch's thread pool waits on busy cores and a 2-step epoch takes minutes."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _cfg(tmp_path, **train):

@@ -20,6 +20,7 @@ import pytest
 import torch
 from flax import nnx
 
+from helpers.threads import one_thread  # noqa: F401
 from video_vae_tpu.losses.perceptual import make_perceptual_loss_fn as jax_make_perceptual
 from video_vae_tpu.models.vgg import VGG16Features as JaxVGG16Features
 from video_vae_tpu_torch import LossConfig, load_jax_params
@@ -31,15 +32,6 @@ from video_vae_tpu_torch.train.step import build_perceptual
 # f32 on both sides, the same convolutions summed in other orders
 ATOL, RTOL = 1e-4, 1e-3
 
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: beside the other test workers, torch's thread pool
-    waits on busy cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

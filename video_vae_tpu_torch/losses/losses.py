@@ -10,7 +10,9 @@ Counterpart of the JAX package's ``losses/losses.py`` (``vae_loss``,
 
 Everything is masked by the (b, t) frame mask, so padded frames add nothing,
 and reduced in f32. Rollouts are b-major, r-minor (``repeat_interleave``).
-The GAN losses come with the adversarial slice.
+
+The GAN losses of ``train/adversarial.py``: the non-saturating generator loss
+and the discriminator's loss with its accuracy.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from video_vae_tpu_torch.core.config import DynamicHParams, LossConfig
 from video_vae_tpu_torch.models.vae import VAEOutput
@@ -154,3 +157,17 @@ def _reinforce_loss(out: VAEOutput, per_sample_loss, output_mask, cfg: LossConfi
         log_probs = torch.log(raw_probs) - torch.log(raw_probs).detach()
         trajectory = torch.where(rl_mask, log_probs, 0.0).sum(dim=2, keepdim=True)
     return trajectory * disadvantages, traj_prob
+
+
+def generator_adversarial_loss(fake_logits: torch.Tensor) -> torch.Tensor:
+    """Non-saturating generator loss: mean(softplus(−D(fake))) in f32."""
+    return F.softplus(-fake_logits.float()).mean()
+
+
+def discriminator_loss(real_logits: torch.Tensor, fake_logits: torch.Tensor):
+    """softplus(−D(real)) + softplus(D(fake)), each a mean in f32; returns
+    (loss, accuracy). A logit of exactly 0 counts as wrong on both sides."""
+    real_logits, fake_logits = real_logits.float(), fake_logits.float()
+    loss = F.softplus(-real_logits).mean() + F.softplus(fake_logits).mean()
+    accuracy = 0.5 * ((real_logits > 0).float().mean() + (fake_logits < 0).float().mean())
+    return loss, accuracy

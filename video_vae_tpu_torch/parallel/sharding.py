@@ -427,6 +427,13 @@ class ParamSharding:
         flat.div_(n)
         return _unflatten(flat, tensors)
 
+    def gather_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """Every (data, fsdp) rank's ``t`` of this tensor coordinate, concatenated
+        along dim 0 in batch order (the rows :func:`batch_slice` gives them)."""
+        if self.sizes["data"] * self.sizes["fsdp"] == 1:
+            return t
+        return torch.cat(_all_gather(t, self.batch_group))
+
     def reduce_gradients(self, metrics: List[torch.Tensor], grads: List[torch.Tensor]):
         """(the metrics, the gradients) of the global batch from this rank's, each
         averaged over the batch group. A gradient split over fsdp comes back as

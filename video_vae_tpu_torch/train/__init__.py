@@ -1,7 +1,9 @@
+from video_vae_tpu_torch.train.adversarial import make_adversarial_train_step
 from video_vae_tpu_torch.train.checkpoint import (
     CheckpointManager,
     GracefulShutdown,
     load_checkpoint,
+    load_jax_batch_stats,
     load_jax_optimizer_state,
     load_jax_params,
     save_checkpoint,
@@ -23,8 +25,10 @@ __all__ = [
     "curriculum_plan",
     "eval_step",
     "load_checkpoint",
+    "load_jax_batch_stats",
     "load_jax_optimizer_state",
     "load_jax_params",
+    "make_adversarial_train_step",
     "make_lr_schedule",
     "reconstruct",
     "save_checkpoint",

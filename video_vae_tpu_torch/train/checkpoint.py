@@ -29,6 +29,8 @@ the port's parameter ``encoder.layers.0.TemporalAttention.qkv_projection.kernel`
 nnx.Param).flat_state()`` with the paths joined by ``/``;
 :func:`load_jax_optimizer_state` takes the Adam state of an
 ``nnx.Optimizer`` (its count, and mu and nu keyed by the same paths).
+:func:`load_jax_batch_stats` takes ``nnx.state(model, nnx.BatchStat)``'s the
+same way into the port's buffers (the discriminator's spectral-norm ``u``).
 Together they carry a JAX run's whole training state into the port. The
 same bridge fills the perceptual loss's VGG (``models/vgg.py``) from the JAX
 ``VGG16Features``: its HWIO kernels sit under ``convs/<name>/kernel`` on
@@ -270,6 +272,29 @@ def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> int:
             if value.shape != full:
                 raise ValueError(f"{key}: shape {value.shape}, port expects {full}")
             p.copy_(sharding.compute_view(key, torch.from_numpy(np.array(value, dtype=np.float32))))
+    return len(ours)
+
+
+def load_jax_batch_stats(model: nn.Module, stats: Mapping[str, np.ndarray]) -> int:
+    """Copy every buffer of ``model`` from the JAX ``BatchStat`` values in ``stats``
+    (the spectral norms' ``u`` of ``models/classifier.py``), in place.
+
+    ``stats`` is the flat dict of ``nnx.state(model, nnx.BatchStat).flat_state()``
+    with the paths joined by ``/``, as :func:`load_jax_params` takes the
+    parameters. Raises on a missing key, an unused key or a shape mismatch.
+    Returns the number of buffers copied.
+    """
+    ours = {name.replace(".", "/"): b for name, b in model.named_buffers()}
+    missing = sorted(set(ours) - set(stats))
+    unused = sorted(set(stats) - set(ours))
+    if missing or unused:
+        raise KeyError(f"buffer sets differ: missing {missing}, unused {unused}")
+    with torch.no_grad():
+        for key, b in ours.items():
+            value = np.asarray(stats[key])
+            if value.shape != tuple(b.shape):
+                raise ValueError(f"{key}: shape {value.shape}, port expects {tuple(b.shape)}")
+            b.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
     return len(ours)
 
 
