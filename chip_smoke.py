@@ -125,7 +125,15 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    #1-#4 exactly, the discriminator's convs being cuDNN's; device ms, idle share,
    peak memory and the discriminator's share of the device ms), and one float32
    GAN step card against CPU at depth 1 with a smaller discriminator ("f32-gan":
-   metrics, both models' gradients, every spectral norm's ``u``).
+   metrics, both models' gradients, every spectral norm's ``u``);
+13. imports a reference checkpoint's tree ("reference-import": a seeded flagship's
+   parameters as nested dicts, lists and ``.value`` leaves with RoPE caches, into a
+   flagship of another seed through ``import_reference_state``: every parameter and
+   one bf16 b2 x 16f serving pass the same bits, a changed shape refused with the
+   model left as it was), and times the serving pass with the slope timer
+   ("slope-serving": ``utils/timing.py:robust_slope`` over chains of 2 and 6 passes,
+   beside the "serving" phase's median and device ms). Each pass launches the
+   serving path's kernels, counted and held.
 
 ``python3 chip_smoke.py --four-cards`` (a machine of 4 cards; not part of the
 one-card run) runs the parallel dry run on NCCL over 4 ranks and the trainer
@@ -277,6 +285,9 @@ GAN_METRICS = TRAIN_METRICS[:-2] + ("generator_adv_loss", "discriminator_loss", 
 # channel a group) is rounding noise under this share of the largest gradient on both
 # devices: the GroupNorm backward sums 10^5-10^6 values a group
 D_NOISE_TOL = 1e-5
+# the "slope-serving" phase: utils/timing.py's robust_slope over chains of this many
+# serving passes, each chain ended by torch.cuda.synchronize(), this many repeats
+SLOPE_CHAINS, SLOPE_REPEATS = (2, 6), 5
 # the cf VGG's convs on the direct conv kernel: (name, h = w, cin, cout, launches a step),
 # each forward run on the reconstruction and the target, each input gradient once
 VGG_CONV_CASES = (
@@ -1404,6 +1415,11 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
     return want
 
 
+# each serving phase's median ms and device ms a pass, by label (the "slope-serving" line
+# prints the default path's beside its slope)
+SERVING_RECORD: dict = {}
+
+
 def phase_serving(cfg, dev, path="fused", reference=None, timed=TIMED_FORWARDS, redraw_final_conv=False):
     """The bf16 b2 x 16f serving pass of ``cfg`` on one path: launch counts of
     one pass, its time, its profile. ``reference`` is the (output, keep
@@ -1418,12 +1434,9 @@ def phase_serving(cfg, dev, path="fused", reference=None, timed=TIMED_FORWARDS, 
     label = path_name("serving", path)
     with model_path(cfg, path) as cfg:
         model = VideoVAE(cfg, device=dev, seed=0)
-        gen = torch.Generator().manual_seed(3)
         if redraw_final_conv:
             random_final_conv(model, torch.Generator().manual_seed(33))
-        video = torch.rand(BATCH, FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
-        mask = torch.ones(BATCH, FRAMES, device=dev)
-        mask[1, FRAMES - 3:] = 0
+        video, mask = _serving_batch(cfg, dev)
 
         reset_launches()
         out = reconstruct(model, video, mask, device=dev)
@@ -1468,8 +1481,9 @@ def phase_serving(cfg, dev, path="fused", reference=None, timed=TIMED_FORWARDS, 
             "ms_per_forward_all": times,
             "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30, **versus,
         }))
-        profile_device(label, lambda: reconstruct(model, video, mask, device=dev), ms,
-                       passes=3 if path == "fused" else 2)
+        profile = profile_device(label, lambda: reconstruct(model, video, mask, device=dev), ms,
+                                 passes=3 if path == "fused" else 2)
+        SERVING_RECORD[label] = {"ms_per_forward_median": ms, "device_ms": profile["device_busy_ms_per_run"]}
     del model
     torch.cuda.empty_cache()
     return launches, (out, prob)
@@ -3274,6 +3288,162 @@ def phase_train_gan(dev, train_launches: dict):
     torch.cuda.empty_cache()
 
 
+def reference_tree(params: dict, cfg) -> dict:
+    """``params`` ({'/' path: host array}) as a reference checkpoint's model subtree:
+    nested dicts, block stacks as lists, every leaf an object with ``.value``, and a
+    ``ROPE`` cos/sin pair in each attention block, as the reference caches them (the
+    import drops them)."""
+    from video_vae_tpu_torch.ops.rope import rope_tables
+
+    class Leaf:
+        def __init__(self, value):
+            self.value = value
+
+    tree: dict = {}
+    for key, value in params.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = Leaf(value)
+    for stack in ("encoder", "decoder"):
+        for block in tree[stack]["layers"].values():
+            for name, seq in (("SpatialAttention", cfg.num_patches), ("TemporalAttention", cfg.max_temporal_len)):
+                cos, sin = rope_tables(seq, cfg.head_dim)
+                block[name]["ROPE"] = {"cos": Leaf(cos.numpy()), "sin": Leaf(sin.numpy())}
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        return [node[str(i)] for i in range(len(node))] if all(k.isdigit() for k in node) else node
+
+    return listify(tree)
+
+
+def _serving_batch(cfg, dev):
+    """The "serving" phase's b2 x 16f video and frame mask (clip 1 ends in 3 padded frames)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(3)
+    video = torch.rand(BATCH, FRAMES, cfg.height, cfg.width, cfg.channels, generator=gen).to(dev)
+    mask = torch.ones(BATCH, FRAMES, device=dev)
+    mask[1, FRAMES - 3:] = 0
+    return video, mask
+
+
+def phase_reference_import(cfg, dev):
+    """``train/checkpoint.py:import_reference_state`` at the flagship's width and depth.
+
+    One seeded flagship's parameters go to the host as a reference checkpoint's tree
+    and into a second flagship of another seed: first with one leaf's shape changed
+    (the walk's last), which must raise ``ValueError`` and leave the second model as
+    it was, then whole: the count must be the number of parameters and every
+    parameter the first model's bits. One bf16 b2 x 16f serving pass of each (the
+    "serving" phase's batch; the final conv redrawn, or its zero init would hide the
+    UNet) must give the same bits, each pass launching the serving path's kernels."""
+    import torch
+
+    from video_vae_tpu_torch import VideoVAE, reconstruct
+    from video_vae_tpu_torch.train import import_reference_state
+
+    started = time.monotonic()
+    source = VideoVAE(cfg, device=dev, seed=0)
+    random_final_conv(source, torch.Generator().manual_seed(34))
+    target = VideoVAE(cfg, device=dev, seed=1)
+    params = {name.replace(".", "/"): p.detach().cpu().numpy() for name, p in source.named_parameters()}
+    last = list(params)[-1]
+    bad = reference_tree({**params, last: params[last][..., None]}, cfg)
+    before = [p.detach().clone() for p in target.parameters()]
+    try:
+        import_reference_state(target, bad)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a reference tree with a changed shape was imported")
+    if any(not torch.equal(p, q) for p, q in zip(target.parameters(), before)):
+        raise AssertionError("a failed reference import changed the model")
+    del before, bad
+    copied = import_reference_state(target, reference_tree(params, cfg))
+    import_s = time.monotonic() - started
+    if copied != len(params):
+        raise AssertionError(f"reference import copied {copied} of {len(params)} parameters")
+    if any(not torch.equal(p, q) for p, q in zip(target.parameters(), source.parameters())):
+        raise AssertionError("an imported parameter differs from the reference tree's bits")
+    video, mask = _serving_batch(cfg, dev)
+    want = expected_launches(cfg, "serving", "fused")
+    outs = []
+    for model in (source, target):
+        reset_launches()
+        outs.append(reconstruct(model, video, mask, device=dev))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != want:
+            raise AssertionError(f"launches per reference-import pass {launches}, expected {want}")
+    if not torch.isfinite(outs[0].float()).all() or not torch.equal(outs[0], outs[1]):
+        raise AssertionError("the imported model's serving pass differs from the source model's bits")
+    log("reference-import", json.dumps({
+        "config": f"{describe(cfg)}, bf16, b{BATCH} x {FRAMES} frames, path fused",
+        "params": len(params), "copied": copied, "elements": sum(v.size for v in params.values()),
+        "same_bits": True, "serving_same_bits": True, "launches_per_pass": launches,
+        "changed_shape_refused": refused, "import_s": import_s, "seconds": time.monotonic() - started,
+    }))
+    del source, target, outs
+    torch.cuda.empty_cache()
+
+
+def phase_slope_serving(cfg, dev):
+    """``utils/timing.py:robust_slope`` on the flagship's bf16 b2 x 16f serving pass:
+    chains of ``SLOPE_CHAINS`` passes, each timed on the host clock and ended by
+    ``torch.cuda.synchronize()``, ``SLOPE_REPEATS`` repeats. Prints the per-step
+    estimate beside the "serving" phase's median and device ms; it is a record, held
+    only to be finite and positive. Every pass launches the serving path's kernels."""
+    import math
+
+    import torch
+
+    from video_vae_tpu_torch import VideoVAE, reconstruct
+    from video_vae_tpu_torch.utils import robust_slope
+
+    started = time.monotonic()
+    model = VideoVAE(cfg, device=dev, seed=0)
+    video, mask = _serving_batch(cfg, dev)
+
+    def chain(k):
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(k):
+                reconstruct(model, video, mask, device=dev)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        return run
+
+    for _ in range(2):
+        reconstruct(model, video, mask, device=dev)
+    torch.cuda.synchronize()
+    k_short, k_long = SLOPE_CHAINS
+    reset_launches()
+    est = robust_slope(chain(k_short), chain(k_long), k_short, k_long, repeats=SLOPE_REPEATS)
+    launches = read_launches()
+    passes = SLOPE_REPEATS * (k_short + k_long)
+    want = {k: n * passes for k, n in expected_launches(cfg, "serving", "fused").items()}
+    if launches != want:
+        raise AssertionError(f"launches over the slope's {passes} serving passes {launches}, expected {want}")
+    if not (math.isfinite(est.per_step) and est.per_step > 0):
+        raise AssertionError(f"slope-serving: per-step estimate {est.per_step} s")
+    log("slope-serving", json.dumps({
+        "config": f"{describe(cfg)}, bf16, b{BATCH} x {FRAMES} frames, path fused; chains of {k_short} and "
+                  f"{k_long} passes, {SLOPE_REPEATS} repeats, host clock after torch.cuda.synchronize()",
+        "per_step_ms": est.per_step * 1e3, "slopes_ms": [x * 1e3 for x in est.slopes],
+        "spread_ms": est.spread * 1e3, "outliers": est.outliers,
+        "t_short_s": est.t_shorts, "t_long_s": est.t_longs, "summary": est.summary(),
+        "serving": SERVING_RECORD.get("serving"), "passes": passes, "seconds": time.monotonic() - started,
+    }))
+    del model
+    torch.cuda.empty_cache()
+
+
 def kernel_record(rows, launches_by_path):
     """One entry per kernel; times and bounds summed over the launches of its main
     path (the default train step, or the train step of the path that runs it),
@@ -3390,6 +3560,8 @@ def main() -> int:
         "train-gan": f"none: the train step's model and batch with Discriminator() at its defaults; "
                      f"{NEW_PATH_TIMED_STEPS} steps timed; the float32 card-vs-CPU step at depth 1 with "
                      "Discriminator(base_features=8, num_levels=2)",
+        "reference-import / slope-serving": f"none: the flagship at full width and depth, the serving batch; "
+                                            f"{SLOPE_REPEATS} repeats of chains of {SLOPE_CHAINS} passes",
     }))
     if [sum(d.values()) for d in tapdot_launches(wide)] != [4, 4]:
         raise AssertionError(f"the tap-dot model's gate counts changed: {tapdot_launches(wide)}")
@@ -3487,6 +3659,11 @@ def main() -> int:
     phase_train_gan(dev, launches["train"])
     phase_f32_gan(dev)
     log("seconds", json.dumps({"train-gan": time.monotonic() - started}))
+    started = time.monotonic()
+    # the reference-checkpoint import and the slope timer on the flagship's serving pass
+    phase_reference_import(cfg, dev)
+    phase_slope_serving(cfg, dev)
+    log("seconds", json.dumps({"reference-import and slope-serving": time.monotonic() - started}))
     log("phase-seconds", json.dumps(PHASE_SECONDS))
     log(json.dumps(kernel_record(rows, launches)))
     log(json.dumps({"ok": True, "device": {

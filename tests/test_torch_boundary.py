@@ -42,6 +42,7 @@ REQUIRED = (
     "video_vae_tpu_torch.parallel.tensor_parallel", "video_vae_tpu_torch.parallel.dryrun",
     "video_vae_tpu_torch.models.classifier", "video_vae_tpu_torch.models.video_mae",
     "video_vae_tpu_torch.train.adversarial", "video_vae_tpu_torch.losses.losses",
+    "video_vae_tpu_torch.cli.download", "video_vae_tpu_torch.utils.timing",
 )
 
 

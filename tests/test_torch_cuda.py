@@ -1472,3 +1472,60 @@ def test_mae_matches_cpu_at_s196(device):
     assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
     for a, b in zip(g_gpu, g_cpu):
         assert _rel_err(a, b) <= 1e-3
+
+
+def test_reference_import_on_the_card(device):
+    """``import_reference_state`` at ``tiny_config`` on the card: one model's parameters as a
+    reference checkpoint's tree (nested dicts, block stacks as lists, ``.value`` leaves, RoPE
+    caches) into a model of another seed give every parameter and a bf16 serving pass the
+    same bits; a changed shape raises and leaves the model as it was."""
+    from video_vae_tpu_torch import VideoVAE, reconstruct, tiny_config
+    from video_vae_tpu_torch.train import import_reference_state
+
+    class Leaf:
+        def __init__(self, value):
+            self.value = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        return [node[str(i)] for i in range(len(node))] if all(k.isdigit() for k in node) else node
+
+    cfg = tiny_config(dtype="bfloat16").model
+
+    def reference_tree(values):
+        tree = {}
+        for key, value in values.items():
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = Leaf(value)
+        for stack in ("encoder", "decoder"):
+            for block in tree[stack]["layers"].values():
+                for name in ("SpatialAttention", "TemporalAttention"):
+                    block[name]["ROPE"] = {c: Leaf(torch.ones(8, cfg.head_dim).numpy()) for c in ("cos", "sin")}
+        return listify(tree)
+
+    source, target = VideoVAE(cfg, device=device, seed=0), VideoVAE(cfg, device=device, seed=1)
+    with torch.no_grad():
+        fc = source.decoder.unet.final_conv.kernel  # zero at init: it would hide the UNet
+        fc.copy_(torch.randn(fc.shape, generator=torch.Generator().manual_seed(2)).to(device))
+    params = {name.replace(".", "/"): p.detach().cpu().numpy() for name, p in source.named_parameters()}
+    last = list(params)[-1]
+    before = [p.detach().clone() for p in target.parameters()]
+    with pytest.raises(ValueError, match=f"shape mismatch at {last}"):
+        import_reference_state(target, reference_tree({**params, last: params[last][..., None]}))
+    assert all(torch.equal(p, q) for p, q in zip(target.parameters(), before))
+
+    assert import_reference_state(target, reference_tree(params)) == len(params)
+    assert all(torch.equal(p, q) for p, q in zip(target.parameters(), source.parameters()))
+    gen = torch.Generator().manual_seed(3)
+    video = torch.rand(2, 8, 32, 32, 3, generator=gen).to(device)
+    mask = torch.ones(2, 8, device=device)
+    mask[1, 5:] = 0
+    launches = FUSED_ATTENTION.launches, CONV3D.launches
+    out = [reconstruct(model, video, mask, device=device) for model in (source, target)]
+    assert FUSED_ATTENTION.launches > launches[0] and CONV3D.launches > launches[1]
+    assert torch.isfinite(out[0].float()).all() and torch.equal(out[0], out[1])

@@ -2,6 +2,7 @@ from video_vae_tpu_torch.train.adversarial import make_adversarial_train_step
 from video_vae_tpu_torch.train.checkpoint import (
     CheckpointManager,
     GracefulShutdown,
+    import_reference_state,
     load_checkpoint,
     load_jax_batch_stats,
     load_jax_optimizer_state,
@@ -24,6 +25,7 @@ __all__ = [
     "create_optimizer",
     "curriculum_plan",
     "eval_step",
+    "import_reference_state",
     "load_checkpoint",
     "load_jax_batch_stats",
     "load_jax_optimizer_state",

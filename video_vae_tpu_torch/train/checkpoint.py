@@ -36,6 +36,14 @@ same bridge fills the perceptual loss's VGG (``models/vgg.py``) from the JAX
 ``VGG16Features``: its HWIO kernels sit under ``convs/<name>/kernel`` on
 both sides.
 
+**The reference import.** :func:`import_reference_state` loads the model
+subtree of a checkpoint of the reference repository (floatingtrees/video-VAE),
+whose module names the JAX package kept, by the same paths: nested mappings,
+block stacks as lists, leaves wrapped in ``.value``, and the reference's RoPE
+cos/sin caches (``ROPE`` segments), which the port recomputes and drops. It
+checks every entry before it writes any, so a failed import leaves the model
+as it was (the JAX package's writes each entry as it walks).
+
 **Shutdown.** On SIGTERM or SIGINT, :class:`GracefulShutdown` raises a flag;
 the training loop saves a checkpoint and returns.
 """
@@ -46,7 +54,7 @@ import os
 import shutil
 import signal
 import threading
-from typing import Mapping, Optional
+from typing import Any, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -252,27 +260,102 @@ class GracefulShutdown:
             signal.signal(sig, prev)
 
 
+def _jax_paths(model: nn.Module) -> dict:
+    """The model's parameters keyed by their JAX path: the nnx path joined with ``/``."""
+    return {name.replace(".", "/"): p for name, p in model.named_parameters()}
+
+
+def _copy_full(model: nn.Module, values: Mapping[str, Any]) -> None:
+    """Copy each full value of ``values`` (keyed by JAX path, shapes already
+    checked) into the model's parameter, in place; on a sharded model each
+    rank keeps its pieces."""
+    sharding = model_sharding(model)
+    ours = _jax_paths(model)
+    with torch.no_grad():
+        for key, value in values.items():
+            full = torch.from_numpy(np.array(value, dtype=np.float32))
+            ours[key].copy_(sharding.compute_view(key, full))
+
+
 def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray]) -> int:
     """Copy every parameter of ``model`` from ``params``, in place.
 
-    Raises on a missing key, an unused key or a shape mismatch. Returns the
-    number of parameters copied. On a sharded model the values are the full
-    tensors and each rank keeps its pieces.
+    Raises on a missing key, an unused key or a shape mismatch, before it
+    writes anything. Returns the number of parameters copied. On a sharded
+    model the values are the full tensors and each rank keeps its pieces.
     """
     sharding = model_sharding(model)
-    ours = {name.replace(".", "/"): p for name, p in model.named_parameters()}
+    ours = _jax_paths(model)
     missing = sorted(set(ours) - set(params))
     unused = sorted(set(params) - set(ours))
     if missing or unused:
         raise KeyError(f"parameter sets differ: missing {missing}, unused {unused}")
-    with torch.no_grad():
-        for key, p in ours.items():
-            value = np.asarray(params[key])
-            full = sharding.full_shapes[key]
-            if value.shape != full:
-                raise ValueError(f"{key}: shape {value.shape}, port expects {full}")
-            p.copy_(sharding.compute_view(key, torch.from_numpy(np.array(value, dtype=np.float32))))
+    values = {key: np.asarray(params[key]) for key in ours}
+    for key, value in values.items():
+        full = sharding.full_shapes[key]
+        if value.shape != full:
+            raise ValueError(f"{key}: shape {value.shape}, port expects {full}")
+    _copy_full(model, values)
     return len(ours)
+
+
+def _flatten(tree, prefix: tuple = ()) -> Iterator[tuple]:
+    """(path, leaf) of every leaf of a reference state tree: mappings (an
+    ``nnx.State`` too) and lists or tuples (index ``i`` is the segment
+    ``str(i)``) nest; a leaf is its ``.value`` where it has one; None is skipped."""
+    if hasattr(tree, "items"):
+        for key, value in tree.items():
+            yield from _flatten(value, prefix + (str(key),))
+    elif isinstance(tree, (list, tuple)):
+        for i, value in enumerate(tree):
+            yield from _flatten(value, prefix + (str(i),))
+    else:
+        value = getattr(tree, "value", tree)
+        if value is not None:
+            yield prefix, value
+
+
+def import_reference_state(model: nn.Module, ref_model_state) -> int:
+    """Load a reference-repository VideoVAE state tree into the port's VideoVAE, in place.
+
+    ``ref_model_state`` is the ``{"model": ...}`` subtree of a reference
+    checkpoint, restored to host values: nested mappings, lists and tuples
+    whose leaves are arrays or objects with a ``.value``. The match is one to
+    one by path (``encoder/layers/0/SpatialAttention/qkv_projection/kernel``
+    is the parameter ``encoder.layers.0.SpatialAttention.qkv_projection.kernel``);
+    entries under a ``ROPE`` segment, the reference's cos/sin caches, are
+    dropped. Raises ``ValueError`` at the first shape mismatch, then
+    ``KeyError`` for reference entries with no counterpart, then
+    ``ValueError`` for parameters of the port the tree leaves unwritten
+    (paths with a segment holding ``rng`` are exempt), in that order and
+    before anything is written. Values take the model's parameter dtype on
+    its device; a sharded model takes the full tensors and each rank keeps
+    its pieces. Returns the number of parameters copied.
+    """
+    sharding = model_sharding(model)
+    ref = {path: np.asarray(value) for path, value in _flatten(ref_model_state) if "ROPE" not in path}
+    ours = dict.fromkeys(tuple(key.split("/")) for key in _jax_paths(model))
+    missing = []
+    for path, value in ref.items():
+        if path not in ours:
+            missing.append(path)
+            continue
+        full = sharding.full_shapes["/".join(path)]
+        if tuple(value.shape) != full:
+            raise ValueError(
+                f"shape mismatch at {'/'.join(path)}: ours {full} vs reference {tuple(value.shape)}"
+            )
+    if missing:
+        raise KeyError(f"reference params with no counterpart: {missing[:5]}")
+    # a parameter the tree does not hold would silently keep its random init
+    untouched = [p for p in ours if p not in ref and not any("rng" in seg.lower() for seg in p)]
+    if untouched:
+        raise ValueError(
+            f"{len(untouched)} of our params were not present in the reference "
+            f"checkpoint (would keep random init): {untouched[:5]}"
+        )
+    _copy_full(model, {"/".join(path): value for path, value in ref.items()})
+    return len(ref)
 
 
 def load_jax_batch_stats(model: nn.Module, stats: Mapping[str, np.ndarray]) -> int:
