@@ -133,7 +133,19 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    model left as it was), and times the serving pass with the slope timer
    ("slope-serving": ``utils/timing.py:robust_slope`` over chains of 2 and 6 passes,
    beside the "serving" phase's median and device ms). Each pass launches the
-   serving path's kernels, counted and held.
+   serving path's kernels, counted and held;
+14. drives the flagship at 512² (``cli/train.py --resize 512``), whose spatial calls
+   (S = 1024) take the attention kernels' split variant; its kernels are held
+   beforehand, after step 9's checks ("long-seq-kernels": #1, #3, #5, #6 and #7 at the
+   calls of its serving pass and train step, spatial S = 1024 and temporal S = 16,
+   counted on the 512² paths, with the flagship's gates; at S = 257 and 576 at head_dim
+   64, and also 1024 at 128, masked, bf16 and f32; #2 and #4 at its UNet's convs). At
+   full width and depth: its bf16 b2 x 16f
+   serving pass on the fused, sublayer and pallas paths ("serving-512",
+   "serving-512-sublayer", "serving-512-pallas"), its bf16 b1 x 16f train step (remat
+   off) on the fused and sublayer paths ("train-512", "train-512-sublayer") and the
+   trainer of step 7 on ``--synthetic --resize 512`` ("trainer-512"), every launch
+   counted and held.
 
 ``python3 chip_smoke.py --four-cards`` (a machine of 4 cards; not part of the
 one-card run) runs the parallel dry run on NCCL over 4 ranks and the trainer
@@ -237,6 +249,8 @@ PATHS = (
     "train-h4", "cache-latents", "decode-latents",  # the last two: launches per video
     "dist-gloo-2",  # rank 0's step of the 2-rank data=2 run
     "mae", "mae-eval",  # the VideoMAE's gradient step and eval forward
+    # the flagship at 512²: spatial S = 1024 on the split variant
+    "serving-512", "train-512", "serving-512-sublayer", "train-512-sublayer", "serving-512-pallas",
 )
 # the path whose sums stand at the top level of a kernel's record
 MAIN_PATH = {
@@ -285,6 +299,14 @@ GAN_METRICS = TRAIN_METRICS[:-2] + ("generator_adv_loss", "discriminator_loss", 
 # channel a group) is rounding noise under this share of the largest gradient on both
 # devices: the GroupNorm backward sums 10^5-10^6 values a group
 D_NOISE_TOL = 1e-5
+# the 512² phases ("long-seq-kernels", "serving-512*", "train-512*", "trainer-512"): the
+# flagship at cli/train.py's --resize 512, a 32 x 32 patch grid, so that its spatial
+# attention calls (S = 1024) take the attention kernels' split variant
+LONG_SIDE = 512
+LONG_ARGS = ("--resize", str(LONG_SIDE))
+# beside the 512² calls the split kernels are held at one key past the tile variant and
+# at --resize 384's 24² patches, on a b1 x 16f step's 16 spatial sequences
+LONG_SEQS = (257, 576)
 # the "slope-serving" phase: utils/timing.py's robust_slope over chains of this many
 # serving passes, each chain ended by torch.cuda.synchronize(), this many repeats
 SLOPE_CHAINS, SLOPE_REPEATS = (2, 6), 5
@@ -294,6 +316,18 @@ VGG_CONV_CASES = (
     ("conv1_1", 256, 3, 64, 2), ("conv1_2", 256, 64, 64, 2), ("conv2_1", 128, 64, 128, 2),
     ("conv2_1 dgrad", 128, 128, 64, 1), ("conv1_2 dgrad", 256, 64, 64, 1), ("conv1_1 dgrad", 256, 64, 3, 1),
 )
+
+
+def sublayer_launches(dtype: str, seq: int) -> tuple:
+    """The attention sublayer kernel's launches in order (``SUBLAYER_LAUNCHES``); past
+    ``TILE_MAX_SEQ`` bf16 x's attention is the split variant's two: its LN + RoPE pass
+    and its core."""
+    from video_vae_tpu_torch.ops.flash_attention import TILE_MAX_SEQ
+
+    if dtype == "bfloat16" and seq > TILE_MAX_SEQ:
+        ln, qkv, _, out = SUBLAYER_LAUNCHES[dtype]
+        return ln, qkv, ("norm_rope", "qk_norm_rope_kernel"), ("attention", "split_fwd_kernel"), out
+    return SUBLAYER_LAUNCHES[dtype]
 
 
 def path_name(entry: str, path: str) -> str:
@@ -534,6 +568,7 @@ def device_launch_ms(fn, names: tuple[str, ...], iters: int = 10, traces: int = 
 
     fn()
     torch.cuda.synchronize()
+    kept = []
     for _ in range(traces):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -544,7 +579,9 @@ def device_launch_ms(fn, names: tuple[str, ...], iters: int = 10, traces: int = 
                          and any(name in ev.name for name in names))
         if len(kernels) == len(names) * iters:
             return [sum(us for _, us in kernels[i::len(names)]) / iters / 1e3 for i in range(len(names))]
-    raise AssertionError(f"torch.profiler kept no whole trace of the launches {names} in {traces} traces")
+        kept.append(len(kernels))
+    raise AssertionError(f"torch.profiler kept no whole trace of the launches {names} in {traces} traces "
+                         f"(records kept {kept}, of {len(names) * iters})")
 
 
 def device_times(kernel_fn, library_fn, flops: float | None = None) -> dict:
@@ -636,10 +673,14 @@ def _key_mask(cfg, dev, name, B, S, padded):
 
     A temporal call's mask is the clips' frame mask expanded over the patches:
     ``padded`` is that (clips, S) mask itself, or True for clips whose last
-    ends in 3 padded frames. The bounds count only the keys it leaves in.
+    ends in 3 padded frames. A (B, S) ``padded`` is the key mask itself, on any
+    call. The bounds count only the keys it leaves in.
     """
     import torch
 
+    if isinstance(padded, torch.Tensor) and tuple(padded.shape) == (B, S):  # a key mask as it is
+        mask = padded.bool().to(dev)
+        return mask, int(mask.sum())
     if "temporal" not in name:
         return None, B * S
     clips = B // cfg.num_patches
@@ -667,7 +708,7 @@ def _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype):
 
 
 def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", cases=None, remat=False,
-                            masked_rows=None, backward=True):
+                            masked_rows=None, backward=True, sublayer_train=None):
     """Fused attention forward and backward kernels against their plain versions,
     at the launches of ``cfg``'s serving pass and train step on the paths named
     (``serving=None``: no serving path; ``train=None``: counted on no path either).
@@ -675,7 +716,9 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
     twice in a step (the recompute). ``masked_rows`` (by default on the flagship's
     serving path) also holds each padded case with one sequence's keys all masked.
     ``backward=False``: the backward is held at these shapes but counted on no path
-    (both paths named run forwards only)."""
+    (both paths named run forwards only). The backward also counts on
+    ``sublayer_train`` (the attention sublayer's train step, whose backward is
+    this kernel; ``"train-sublayer"`` beside ``"train"``)."""
     import torch
     import torch.nn.functional as F
 
@@ -684,6 +727,8 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
     gen = torch.Generator().manual_seed(0)
     H, D = cfg.num_heads, cfg.head_dim
     masked_rows = serving == "serving" if masked_rows is None else masked_rows
+    if sublayer_train is None and train == "train":
+        sublayer_train = "train-sublayer"
     for name, B, S, padded, dtype, per in attention_cases(cfg) if cases is None else cases:
         if not per and cases is None and serving != "serving":
             continue  # a case no path counts is checked once, with the flagship's
@@ -765,8 +810,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
             time_ms(lambda: torch.autograd.grad(o, leaves, g_heads, retain_graph=True), 10),
             "scaled_dot_product_attention backward, core only",
             bound_ms(nbytes(qkv, g, mask) + nbytes(*got), bwd_flops, dtype),
-            per_path(per, {train: "train", **({"train-sublayer": "train"} if train == "train" else {})})
-            if backward else {},
+            per_path(per, {train: "train", sublayer_train: "train"}) if backward else {},
             device_ms=dev_ms,
             library_device_ms=device_ms(lambda: torch.autograd.grad(o, leaves, g_heads, retain_graph=True), 10),
             tflops=bwd_flops / dev_ms / 1e9,
@@ -778,7 +822,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
 def phase_flash_kernels(cfg, dev, rows, cases=None, paths=True):
     """Plain masked attention forward and backward kernels against their plain versions,
     at ``attention_cases(cfg)`` or ``cases``, counted on the ``"pallas"`` paths
-    (``paths=False``: on none).
+    (``paths=False``: on none; a dict: on its paths, {path: "serving" or "train"}).
 
     q and k are contiguous (B, S, H, D) tensors and v a view into a fused QKV
     projection, as the model's ``"pallas"`` path hands them over.
@@ -790,8 +834,8 @@ def phase_flash_kernels(cfg, dev, rows, cases=None, paths=True):
 
     gen = torch.Generator().manual_seed(10)
     H, D = cfg.num_heads, cfg.head_dim
+    paths = {"serving-pallas": "serving", "train-pallas": "train"} if paths is True else paths or {}
     for name, B, S, padded, dtype, per in attention_cases(cfg) if cases is None else cases:
-        per = per if paths else {}
         qkv, g, _, _, mask, keys = _attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
         q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
         q, k, g = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
@@ -812,12 +856,11 @@ def phase_flash_kernels(cfg, dev, rows, cases=None, paths=True):
             time_ms(lambda: fa.flash_attention_plain(q, k, v, mask), 5),
             time_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask), 20),
             "scaled_dot_product_attention",
-            bound_ms(nbytes(q, k, v, out, mask), flops, dtype),
-            per_path(per, {"serving-pallas": "serving", "train-pallas": "train"}),
+            bound_ms(nbytes(q, k, v, out, mask), flops, dtype), per_path(per, paths),
             **device_times(lambda: fa.flash_attention_cuda(q, k, v, mask),
                            lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask), flops),
         )
-        if padded:
+        if padded is not False:
             # one sequence with every key masked: its rows average all S keys
             empty = mask.clone()
             empty[0] = False
@@ -838,7 +881,7 @@ def phase_flash_kernels(cfg, dev, rows, cases=None, paths=True):
         if not all(torch.equal(a, b) for a, b in zip(got, again)):  # no atomics: the same bits on every run
             raise AssertionError(f"flash bwd {name} {dtype}: two launches gave different bits")
         del ref, again
-        if padded:
+        if padded is not False:
             # one sequence with every key masked: its rows spread P over all S keys
             empty = mask.clone()
             empty[0] = False
@@ -864,7 +907,7 @@ def phase_flash_kernels(cfg, dev, rows, cases=None, paths=True):
             time_ms(lambda: torch.autograd.grad(o, leaves, lg, retain_graph=True), 10),
             "scaled_dot_product_attention backward",
             bound_ms(nbytes(q, k, v, g, mask) + nbytes(*got), bwd_flops, dtype),
-            per_path(per, {"train-pallas": "train"}),
+            per_path(per, {path: entry for path, entry in paths.items() if entry == "train"}),
             **device_times(lambda: fa.flash_attention_bwd_cuda(q, k, v, mask, g),
                            lambda: torch.autograd.grad(o, leaves, lg, retain_graph=True), bwd_flops),
         )
@@ -875,7 +918,7 @@ def phase_flash_kernels(cfg, dev, rows, cases=None, paths=True):
 def phase_sublayer_kernel(cfg, dev, rows, cases=None, paths=True):
     """The attention sublayer kernel against its plain version, both variants, at
     ``attention_cases(cfg)`` or ``cases``, counted on the sublayer paths
-    (``paths=False``: on none).
+    (``paths=False``: on none; a dict: on its paths, {path: "serving" or "train"}).
 
     The training variant returns y and the qkv and o residuals; the inference
     variant (the autograd wrapper under ``no_grad``) must give the same y. The
@@ -892,6 +935,7 @@ def phase_sublayer_kernel(cfg, dev, rows, cases=None, paths=True):
 
     from video_vae_tpu_torch.ops import flash_attention as fa
 
+    paths = {"serving-sublayer": "serving", "train-sublayer": "train"} if paths is True else paths or {}
     gen = torch.Generator().manual_seed(20)
     H, D, C = cfg.num_heads, cfg.head_dim, cfg.embed_dim
     HD = H * D
@@ -903,7 +947,6 @@ def phase_sublayer_kernel(cfg, dev, rows, cases=None, paths=True):
     lng, lnb, wqkv, bqkv, qs, ks, wout, bout = params
     w16 = [t.to(torch.bfloat16) for t in (wqkv, bqkv, wout, bout)]
     for name, B, S, padded, dtype, per in attention_cases(cfg) if cases is None else cases:
-        per = per if paths else {}
         tdt = getattr(torch, dtype)
         mask, keys = _key_mask(cfg, dev, name, B, S, padded)
         x = rn(B, S, C).to(dev, tdt)
@@ -934,7 +977,7 @@ def phase_sublayer_kernel(cfg, dev, rows, cases=None, paths=True):
             raise AssertionError(f"sublayer {name} {dtype}: the inference variant's y differs")
         qkv_flops, out_flops = 2.0 * B * S * C * 3 * HD, 2.0 * B * S * HD * C
         flops = qkv_flops + out_flops + 4.0 * H * S * keys * D
-        labels, names = zip(*SUBLAYER_LAUNCHES[dtype])
+        labels, names = zip(*sublayer_launches(dtype, S))
         # the wrapper's casts of the f32 weights to bf16 count in device_ms only
         launch_ms = dict(zip(labels, device_launch_ms(run, names)))
         _record(
@@ -942,8 +985,7 @@ def phase_sublayer_kernel(cfg, dev, rows, cases=None, paths=True):
             time_ms(run, 10), time_ms(plain, 2), time_ms(library, 10),
             "layer_norm -> matmul -> scaled_dot_product_attention -> matmul, bf16 weights",
             bound_ms(nbytes(x, x, *w16, lng, lnb, mask), flops, "bfloat16"),
-            per_path(per, {"serving-sublayer": "serving", "train-sublayer": "train"}),
-            **device_times(run, library), launch_device_ms=launch_ms,
+            per_path(per, paths), **device_times(run, library), launch_device_ms=launch_ms,
             tflops={"qkv": qkv_flops / launch_ms["qkv"] / 1e9, "out": out_flops / launch_ms["out"] / 1e9},
         )
         del x, got, y
@@ -1420,18 +1462,20 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
 SERVING_RECORD: dict = {}
 
 
-def phase_serving(cfg, dev, path="fused", reference=None, timed=TIMED_FORWARDS, redraw_final_conv=False):
+def phase_serving(cfg, dev, path="fused", reference=None, timed=TIMED_FORWARDS, redraw_final_conv=False,
+                  label=None):
     """The bf16 b2 x 16f serving pass of ``cfg`` on one path: launch counts of
     one pass, its time, its profile. ``reference`` is the (output, keep
     probabilities) of the path this one is held to: the default path's on the
     flagship, the knob-off run's on the tap-dot model (whose final conv is
     redrawn, or the zero-initialised one would hide the UNet from the
-    comparison). Returns (launches, (output, probabilities))."""
+    comparison). ``label`` names a model other than the path's. Returns
+    (launches, (output, probabilities))."""
     import torch
 
     from video_vae_tpu_torch import VideoVAE, reconstruct
 
-    label = path_name("serving", path)
+    label = label or path_name("serving", path)
     with model_path(cfg, path) as cfg:
         model = VideoVAE(cfg, device=dev, seed=0)
         if redraw_final_conv:
@@ -1975,9 +2019,10 @@ def _finite(values: dict) -> bool:
     return all(v == v and abs(v) != float("inf") for v in values.values())
 
 
-def phase_trainer(dev):
+def phase_trainer(dev, args=(), label="trainer"):
     """The training entry point at the flagship's full width on the card (the
-    transformer cut to ``TRAINER_DEPTH``).
+    transformer cut to ``TRAINER_DEPTH``), on the config ``cli/train.py
+    --synthetic`` with ``args`` builds (``--resize 512``: the "trainer-512" line).
 
     ``Trainer(cfg)`` on :func:`trainer_config` runs ``run_epoch(0)`` (3 steps, the
     video dump on the last, a checkpoint) and ``run_eval(0)``; every launch is
@@ -1996,7 +2041,7 @@ def phase_trainer(dev):
     from video_vae_tpu_torch.utils.metrics import count_params
 
     with tempfile.TemporaryDirectory(prefix="vvt-trainer-") as tmp:
-        cfg = trainer_config(tmp)
+        cfg = trainer_config(tmp, args=args)
         started = time.perf_counter()
         trainer = Trainer(cfg, device=dev, install_signal_handlers=False)
         build_s = time.perf_counter() - started
@@ -2117,14 +2162,14 @@ def phase_trainer(dev):
 
         ms = statistics.median(times[1:])
         profile = profile_device(
-            "trainer",
+            label,
             lambda: inner(model, opt, first["video"], first["mask"], first["hp"], generator=trainer.generator),
             ms, passes=2,
         )
-        log("trainer", json.dumps({
+        log(label, json.dumps({
             "config": f"{describe(cfg.model)}, bf16 compute, f32 params, b{TRAINER_BATCH} x {TRAINER_FRAMES} frames, "
                       f"rl (2 rollouts), perceptual on (random VGG), remat on, {TRAINER_CLIPS} synthetic clips; "
-                      f"cli/train.py --synthetic",
+                      f"cli/train.py {' '.join(('--synthetic', *args))}",
             "params": count_params(model), "steps": TRAINER_STEPS,
             "ms_per_step": ms, "ms_per_step_all": times,
             "device_ms_per_step": profile["device_busy_ms_per_run"],
@@ -3444,6 +3489,76 @@ def phase_slope_serving(cfg, dev):
     torch.cuda.empty_cache()
 
 
+def long_config(**overrides):
+    """The 512² phases' model: the flagship at ``--resize 512`` (spatial S = 1024)."""
+    from video_vae_tpu_torch import ModelConfig
+
+    return ModelConfig(height=LONG_SIDE, width=LONG_SIDE, **overrides)
+
+
+def long_seq_cases(seqs, batch=FRAMES):
+    """(name, B, S, key mask, dtype, {}) at each S of ``seqs``: ``batch`` sequences
+    (a b1 x 16f step's spatial calls), each keeping a prefix of at least one key and
+    the last every key, bf16 and f32; counted on no path."""
+    import torch
+
+    gen = torch.Generator().manual_seed(41)
+    cases = []
+    for S in seqs:
+        lengths = torch.randint(1, S + 1, (batch,), generator=gen)
+        lengths[-1] = S
+        mask = torch.arange(S)[None, :] < lengths[:, None]
+        cases += [(f"long S={S}", batch, S, mask, dtype, {}) for dtype in ("bfloat16", "float32")]
+    return cases
+
+
+def phase_long_seq_kernels(dev, rows):
+    """Kernels #1, #3, #5, #6 and #7 against their plain versions past 256 tokens,
+    where the bf16 kernels take their split variant: at the calls of the 512²
+    serving pass (b2 x 16f) and train step (b1 x 16f), spatial S = 1024 and
+    temporal S = 16 (the slab variant), counted on the 512² paths ("serving-512",
+    "train-512"; #3 also on "train-512-sublayer", #5 on "serving-512-pallas", #7
+    on "serving-512-sublayer" and "train-512-sublayer"), with the same gates as
+    the flagship's (the same bits twice, a sequence whose keys are all masked,
+    SDPA beside each); then at S = 257 and 576 at head_dim 64, and also at 1024
+    at head_dim 128 (the flagship's width in 4 heads), masked, bf16 and f32,
+    counted on no path; then #2 and #4 at the 512² UNet's convs (bf16), counted on
+    "serving-512" and "train-512"."""
+    cfg = long_config()
+    phase_attention_kernels(cfg, dev, rows, "serving-512", "train-512", masked_rows=True,
+                            sublayer_train="train-512-sublayer")
+    phase_flash_kernels(cfg, dev, rows, paths={"serving-512-pallas": "serving"})
+    phase_sublayer_kernel(cfg, dev, rows, paths={"serving-512-sublayer": "serving", "train-512-sublayer": "train"})
+    for model, seqs in ((cfg, LONG_SEQS), (long_config(num_heads=4), LONG_SEQS + (cfg.num_patches,))):
+        cases = long_seq_cases(seqs)
+        phase_attention_kernels(model, dev, rows, None, None, cases, masked_rows=True)
+        phase_flash_kernels(model, dev, rows, cases, paths=False)
+        phase_sublayer_kernel(model, dev, rows, cases, paths=False)
+    phase_conv_kernels(cfg, dev, rows, "serving-512", "train-512", f32=False)
+
+
+def phase_long(dev, launches):
+    """The flagship at 512² through its entry points: the bf16 b2 x 16f serving pass
+    on the fused path ("serving-512"), the sublayer path ("serving-512-sublayer")
+    and the pallas path ("serving-512-pallas"), each held to the first; the bf16
+    b1 x 16f train step (remat off) on the fused and the sublayer path
+    ("train-512", "train-512-sublayer", the second held to the first's loss for the
+    same draws); then the trainer on the config ``cli/train.py --synthetic --resize
+    512`` builds ("trainer-512", the trainer phase's cut and checks). Every pass's
+    and step's launches are held; ``launches`` takes those of each path."""
+    cfg = long_config()
+    launches["serving-512"], ref = phase_serving(cfg, dev, "fused", None, NEW_PATH_TIMED_FORWARDS, label="serving-512")
+    for path in ("sublayer", "pallas"):
+        launches[f"serving-512-{path}"], _ = phase_serving(cfg, dev, path, ref, NEW_PATH_TIMED_FORWARDS,
+                                                           label=f"serving-512-{path}")
+    del ref
+    train = cfg.replace(remat=False)
+    launches["train-512"], ref = phase_train(train, dev, "fused", None, NEW_PATH_TIMED_STEPS, label="train-512")
+    launches["train-512-sublayer"], _ = phase_train(train, dev, "sublayer", ref, NEW_PATH_TIMED_STEPS,
+                                                    label="train-512-sublayer")
+    phase_trainer(dev, LONG_ARGS, "trainer-512")
+
+
 def kernel_record(rows, launches_by_path):
     """One entry per kernel; times and bounds summed over the launches of its main
     path (the default train step, or the train step of the path that runs it),
@@ -3562,6 +3677,11 @@ def main() -> int:
                      "Discriminator(base_features=8, num_levels=2)",
         "reference-import / slope-serving": f"none: the flagship at full width and depth, the serving batch; "
                                             f"{SLOPE_REPEATS} repeats of chains of {SLOPE_CHAINS} passes",
+        "serving-512 / train-512": f"none of width or depth: the flagship at {LONG_SIDE}² (cli/train.py "
+                                   f"--resize {LONG_SIDE}), the serving batch and the train step's, remat off; "
+                                   f"{NEW_PATH_TIMED_FORWARDS} passes and {NEW_PATH_TIMED_STEPS} steps timed",
+        "trainer-512": f"the trainer's: the transformer cut to {TRAINER_DEPTH[0]}/{TRAINER_DEPTH[1]} blocks, "
+                       f"{TRAINER_CLIPS} synthetic clips; cli/train.py --synthetic {' '.join(LONG_ARGS)}",
     }))
     if [sum(d.values()) for d in tapdot_launches(wide)] != [4, 4]:
         raise AssertionError(f"the tap-dot model's gate counts changed: {tapdot_launches(wide)}")
@@ -3593,6 +3713,11 @@ def main() -> int:
     phase_h4_kernels(dev, rows)
     phase_latent_kernels(cfg, dev, rows)
     log("seconds", json.dumps({"head-dim-128 and b1x64f kernel checks": time.monotonic() - started}))
+    started = time.monotonic()
+    # past 256 tokens (the split variant): the flagship's calls at 512², S = 257 and 576, and
+    # S = 1024 at head_dim 128; #2 and #4 at the 512² UNet
+    phase_long_seq_kernels(dev, rows)
+    log("seconds", json.dumps({"long-seq-kernels": time.monotonic() - started}))
     started = time.monotonic()
     launches = {}
     serving_ref = train_ref = None
@@ -3664,6 +3789,10 @@ def main() -> int:
     phase_reference_import(cfg, dev)
     phase_slope_serving(cfg, dev)
     log("seconds", json.dumps({"reference-import and slope-serving": time.monotonic() - started}))
+    started = time.monotonic()
+    # the flagship at 512² (spatial S = 1024) through its entry points
+    phase_long(dev, launches)
+    log("seconds", json.dumps({"serving-512, train-512 and trainer-512": time.monotonic() - started}))
     log("phase-seconds", json.dumps(PHASE_SECONDS))
     log(json.dumps(kernel_record(rows, launches)))
     log(json.dumps({"ok": True, "device": {

@@ -12,7 +12,10 @@ chunk's keys lie in one word of key bits; shared memory, warps and grid stay
 within what the kernel and the H100 accept. :class:`Geometry` derives the
 rest of the launch from the plan as ``launch_attention_bwd_mma`` in
 ``csrc/fused_attention_bwd_mma.cuh`` does, and deals out the tiles and chunks
-as ``attention_bwd_kernel`` walks them.
+as ``attention_bwd_kernel`` walks them. Past 256 tokens the plan is
+``"split"`` (#1's LN + RoPE pass, a query-major and a key-major launch, then
+the f32 path's LN + RoPE backward), walked by ``helpers/split_geometry.py``;
+every S <= 256 keeps the plan it had before.
 """
 
 import dataclasses
@@ -21,17 +24,21 @@ import numpy as np
 import pytest
 
 import chip_smoke
+from helpers.split_geometry import check_split
 from video_vae_tpu_torch import ModelConfig
 from video_vae_tpu_torch.ops.flash_attention import (
+    BWD_ROWS_PER_BLOCK,
     BWD_SLAB_MAX_SEQ,
     BWD_SLAB_WARPS,
     BWD_TILE_WARPS,
     BWD_WIDE_TILE_WARPS,
     KERNEL_HEAD_DIMS,
+    SPLIT_WARPS,
+    TILE_MAX_SEQ,
     fused_attention_bwd_plan,
     mma_row_bytes,
 )
-from test_torch_attention_plan import D128_BATCHES, H4_CASES, LATENT_CASES, MAE_CASES
+from test_torch_attention_plan import D128_BATCHES, H4_CASES, LATENT_CASES, LONG_CASES, LONG_IDS, MAE_CASES, PINNED_BATCHES
 
 # what the H100 accepts of one block and one grid; the kernel's __launch_bounds__ per variant
 # (the tile's at head_dim 128: attention_bwd_wide_kernel's)
@@ -297,3 +304,34 @@ def test_attention_bwd_plan_at_mae_shapes_is_as_designed():
     assert spatial.smem <= MAX_SMEM
     temporal = Geometry(784, 16, 8)
     assert (temporal.plan, temporal.grid, temporal.kt) == (("slab", 4, 4), 1568, 1)
+
+
+
+def _bwd_plan_before_split(B, S, H, D):
+    """fused_attention_bwd_plan as it stood before the split variant, for S <= 256,
+    written out with its constants (slab to 64 keys, 4 slab warps, 16 tile warps,
+    8 at head_dim 128)."""
+    tiles = -(-S // 16)
+    if S <= 64:
+        unit = max(1, min(4 // tiles, B * H))
+        return "slab", unit, min(4, unit * tiles)
+    return "tile", 1, min(8 if D == 128 else 16, tiles)
+
+
+@pytest.mark.parametrize("D", KERNEL_HEAD_DIMS)
+def test_attention_bwd_plan_keeps_every_short_sequence(D):
+    """Every S <= 256 keeps its variant, pairs and warps a block; 257 splits."""
+    for B, H in PINNED_BATCHES:
+        for S in range(1, TILE_MAX_SEQ + 1):
+            assert fused_attention_bwd_plan(B, S, H, D) == _bwd_plan_before_split(B, S, H, D), (B, S, H)
+        assert fused_attention_bwd_plan(B, TILE_MAX_SEQ + 1, H, D) == ("split", 1, SPLIT_WARPS)
+
+
+@pytest.mark.parametrize("label,B,S,H,D", LONG_CASES, ids=LONG_IDS)
+def test_attention_bwd_plan_splits_long_sequences(label, B, S, H, D):
+    """#1's LN + RoPE pass, the query side (two walks over k~ and v), the key side
+    (one over q~, dO and the statistics); the LN + RoPE backward's partials a row
+    each BWD_ROWS_PER_BLOCK (sequence, head, position) rows, as the f32 path's."""
+    assert fused_attention_bwd_plan(B, S, H, D) == ("split", 1, SPLIT_WARPS)
+    check_split("fused_bwd", B, S, H, D)
+    assert BWD_ROWS_PER_BLOCK == 64

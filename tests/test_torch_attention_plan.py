@@ -5,13 +5,16 @@ At every attention call of the flagship and of the tap-dot model (the shapes
 presets (head_dim 16) and at the same shapes with head_dim 32, of a
 ``ModelConfig(num_heads=4)`` train step (head_dim 128) and of the latent
 CLIs (b1 × 64 frames), at every S at head_dim 128, and at ragged shapes at
-every head dim the kernel takes: every (sequence,
+every head dim the kernel takes (all of them S <= 256): every (sequence,
 head, query row) is computed by exactly one warp, that warp's block stages the
 (sequence, head) pair's keys and its chunks walk every key j < S and no row
 past the staged ones, and shared memory, warps and grid stay within CUDA's
 limits. :class:`Geometry` derives the rest of the launch from the plan as
 ``launch_attention_mma`` in ``csrc/fused_attention_mma.cuh`` does, and deals
 out the query tiles and key chunks as ``attention_mma_kernel`` walks them.
+Past 256 tokens the plan is ``"split"``, whose launches
+``helpers/split_geometry.py`` walks at the long sequences; every S <= 256
+keeps the plan it had before the split variant.
 """
 
 import dataclasses
@@ -20,11 +23,13 @@ import numpy as np
 import pytest
 
 import chip_smoke
+from helpers.split_geometry import LONG_BATCHES, LONG_SEQS, SplitGeometry, check_split
 from video_vae_tpu_torch import ModelConfig
 from video_vae_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
     MMA_SLAB_MAX_SEQ,
     MMA_SLAB_WARPS,
+    TILE_MAX_SEQ,
     fused_attention_plan,
     mma_max_warps,
     mma_row_bytes,
@@ -69,6 +74,21 @@ MAE_CASES = [(name, B, S, chip_smoke.mae_config().num_heads)
 # the latent CLIs' calls at their defaults (b1 x 64 frames, the flagship's head_dim 64)
 LATENT_CASES = [(name, B, S, ModelConfig().num_heads)
                 for name, B, S, _, _, _ in chip_smoke.latent_attention_cases(ModelConfig())]
+# sequences past TILE_MAX_SEQ at every head dim, at the flagship's, h4's and the MAE's batches
+LONG_CASES = [(label, B, S, H, D) for label, B, H in LONG_BATCHES for S in LONG_SEQS for D in KERNEL_HEAD_DIMS]
+LONG_IDS = [f"{c[0]}-S{c[2]}-D{c[4]}" for c in LONG_CASES]
+# (B, H) at which every S <= 256 is pinned to the plan it had before the split variant
+PINNED_BATCHES = [(1, 8), (3, 8), (5, 2), (32, 8), (512, 8), (16, 4), (64, 8), (784, 8), (2, 6)]
+
+
+def _plan_before_split(B, S, H, D):
+    """fused_attention_plan as it stood before the split variant, for S <= 256,
+    written out with its constants (8 slab warps, 64 keys, 100 KB)."""
+    rows16 = -(-S // 16) * 16
+    seq_smem = 3 * H * rows16 * 2 * (D + 8) + 8 * -(-S // 64)
+    if S <= 64 and seq_smem <= 100 * 1024:
+        return "slab", max(1, min(8 // (H * rows16 // 16), 100 * 1024 // seq_smem, B))
+    return "tile", 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,3 +328,35 @@ def test_attention_plan_at_mae_shapes_is_as_designed():
     assert sorted(row0 for _, _, b, h, row0 in spatial.row_tiles() if (b, h) == (0, 0))[-1] == 192
     temporal = Geometry(784, 16, 8)
     assert (temporal.plan, temporal.grid) == (("slab", 1), 784)
+
+
+@pytest.mark.parametrize("D", KERNEL_HEAD_DIMS)
+def test_attention_plan_keeps_every_short_sequence(D):
+    """Every S <= 256 keeps its variant and sequences a block; 257 splits."""
+    assert TILE_MAX_SEQ == 256
+    for B, H in PINNED_BATCHES:
+        for S in range(1, TILE_MAX_SEQ + 1):
+            assert fused_attention_plan(B, S, H, D) == _plan_before_split(B, S, H, D), (B, S, H)
+        assert fused_attention_plan(B, TILE_MAX_SEQ + 1, H, D) == ("split", 1)
+
+
+@pytest.mark.parametrize("label,B,S,H,D", LONG_CASES, ids=LONG_IDS)
+def test_attention_plan_splits_long_sequences(label, B, S, H, D):
+    assert fused_attention_plan(B, S, H, D) == ("split", 1)
+    check_split("fused", B, S, H, D)
+
+
+def test_attention_plan_at_512_is_as_designed():
+    """The flagship at 512² (a 32 x 32 patch grid): spatial S = 1024 splits, 16
+    query tiles a (sequence, head) pair, 4096 blocks of 4 warps at b2 x 16f,
+    each walking 16 key tiles; 45 KB a forward block at head_dim 64 (five an
+    SM by shared memory), 85 KB at 128. The temporal calls (S = 16) keep the
+    slab plan."""
+    cfg = ModelConfig(height=512, width=512)
+    assert cfg.num_patches == 1024 and cfg.head_dim == 64
+    spatial = SplitGeometry(32, 1024, 8, 64)
+    assert fused_attention_plan(32, 1024, 8, 64) == ("split", 1)
+    assert (spatial.row_tiles, spatial.grid, spatial.tiles) == (16, 4096, 16)
+    assert spatial.smem["forward"] == 320 * 144 == 46080
+    assert SplitGeometry(16, 1024, 4, 128).smem["forward"] == 320 * 272
+    assert fused_attention_plan(2 * 1024, 16, 8, 64) == ("slab", 1)

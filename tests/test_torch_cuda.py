@@ -834,6 +834,123 @@ def test_flash_attention_bwd_bf16_kernel_rounds_as_chain(device, B, S, H, D):
         assert min(other[part] for part in reach) > 2 * FLASH_BWD_ROUNDING_SHARE_TOL, name
 
 
+# ---- the split variant (S > 256, csrc/attention_split.cuh) ------------------
+# (B, S, H): one key past the tile variant, ragged against every 16- and 64-row
+# tile, and the flagship's 512² spatial calls (b1 x 16 frames, S = 1024)
+SPLIT_CASES = [(3, 257, 2), (16, 1024, 8)]
+SPLIT_HEAD_DIMS = pytest.mark.parametrize("D", [64, 128])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H", SPLIT_CASES)
+@SPLIT_HEAD_DIMS
+def test_split_fused_attention_matches_plain(device, dtype, B, S, H, D):
+    """#1 past 256 tokens, sequence 0 keeping no key: one launch a call, the
+    plain version's output, bf16 the same bits twice."""
+    _check_fused_attention(device, dtype, B, S, H, "empty", D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H", SPLIT_CASES)
+@SPLIT_HEAD_DIMS
+def test_split_fused_attention_bwd_matches_plain(device, dtype, B, S, H, D):
+    """#3 past 256 tokens: dqkv and both scale gradients within the bound,
+    sequence 0's too, the same bits twice (no atomics: dq has its own pass)."""
+    qkv, g, qs, ks, mask = _bwd_inputs(device, dtype, B, S, H, "empty", S + 3, D)
+    before = FUSED_ATTENTION_BWD.launches
+    out = fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
+    again = fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
+    torch.cuda.synchronize()
+    assert FUSED_ATTENTION_BWD.launches == before + 2
+    ref = fused_qkv_attention_bwd_plain(qkv, qs, ks, mask, g, H)
+    for a, b, c in zip(out, ref, again):
+        assert _within(a, b, TOL[dtype]) and torch.equal(a, c)
+    assert _within(out[0][0], ref[0][0], TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H", SPLIT_CASES)
+@SPLIT_HEAD_DIMS
+def test_split_flash_attention_matches_plain(device, dtype, B, S, H, D):
+    """#5 and #6 past 256 tokens, v a view into a fused projection, sequence 0
+    keeping no key: one launch a call each, the plain versions' outputs, the
+    backward the same bits twice."""
+    q, k, v, g, mask = _flash_inputs(device, dtype, B, S, True, True, H, seed=S + 5, D=D)
+    before = (FLASH_ATTENTION.launches, FLASH_ATTENTION_BWD.launches)
+    out = flash_attention_cuda(q, k, v, mask)
+    got = flash_attention_bwd_cuda(q, k, v, mask, g)
+    again = flash_attention_bwd_cuda(q, k, v, mask, g)
+    torch.cuda.synchronize()
+    assert (FLASH_ATTENTION.launches - before[0], FLASH_ATTENTION_BWD.launches - before[1]) == (1, 2)
+    assert _rel_err(out, flash_attention_plain(q, k, v, mask)) <= TOL[dtype]
+    for a, b, c in zip(got, flash_attention_bwd_plain(q, k, v, mask, g), again):
+        assert _within(a, b, TOL[dtype]) and _within(a[0], b[0], TOL[dtype]) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H", SPLIT_CASES)
+@SPLIT_HEAD_DIMS
+def test_split_attention_sublayer_matches_plain(device, dtype, B, S, H, D):
+    """#7 past 256 tokens (its attention #1's split variant): y, qkv and o within
+    the bf16 bound (both products on bf16 operands), one launch a call."""
+    args, mask = _sublayer_args(device, dtype, B, S, 768, H, True, D)
+    before = ATTENTION_SUBLAYER.launches
+    got = fused_attention_sublayer_cuda(*args, mask, H)
+    torch.cuda.synchronize()
+    assert ATTENTION_SUBLAYER.launches == before + 1
+    for a, b in zip(got, fused_attention_sublayer_plain(*args, mask, H)):
+        assert _rel_err(a, b) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("B,S,H", SPLIT_CASES)
+@SPLIT_HEAD_DIMS
+def test_split_bf16_kernels_round_as_their_chains(device, B, S, H, D):
+    """The split variant keeps each kernel's rounding rule: #1's output against
+    the JAX chain (q~, k~ and P unnormalised rounded, 64-key running max), #5's
+    against ``_fwd_kernel``'s (P normalised first), #3's and #6's gradients
+    against their chains (P and dS rounded), each matching but for a few flips
+    while the chain with P kept in f32 misses far more."""
+    qkv, g, qs, ks, mask = _bwd_inputs(device, torch.bfloat16, B, S, H, "empty", S * H, D)
+    out = fused_qkv_attention_cuda(qkv, qs, ks, mask, H)
+    assert _bits_differ(out, _jax_rounding_chain(qkv, qs, ks, mask, H)) <= ROUNDING_SHARE_TOL
+    assert _bits_differ(out, _jax_rounding_chain(qkv, qs, ks, mask, H, round_p=False)) > 5 * ROUNDING_SHARE_TOL
+    dqkv, dqs, dks = fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
+    ref, ref_qs, ref_ks = _bwd_rounding_chain(qkv, g, qs, ks, mask, H)
+    assert max(_bits_differ_parts(dqkv, ref).values()) <= BWD_ROUNDING_SHARE_TOL
+    assert max(_rel_err(dqs, ref_qs), _rel_err(dks, ref_ks)) <= BWD_SCALE_TOL
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
+    q, k, gh = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
+    out = flash_attention_cuda(q, k, v, mask)
+    assert _bits_differ(out, _flash_fwd_chain(q, k, v, mask)) <= ROUNDING_SHARE_TOL
+    assert _bits_differ(out, _flash_fwd_chain(q, k, v, mask, round_p=False)) > 5 * ROUNDING_SHARE_TOL
+    got = flash_attention_bwd_cuda(q, k, v, mask, gh)
+    for a, b in zip(got, _flash_rounding_chain(q, k, v, mask, gh)):
+        assert _bits_differ(a, b) <= FLASH_BWD_ROUNDING_SHARE_TOL
+
+
+def test_serving_pass_at_512_on_the_card(device):
+    """The flagship at 512² (spatial S = 1024: #1's split variant) at full width
+    and depth, bf16, b1 x 16 frames with 3 padded frames: a finite output of the
+    clip's shape, 42 launches of #1 and 15 of #2, and no other kernel."""
+    from video_vae_tpu_torch import ModelConfig, VideoVAE, reconstruct
+    from video_vae_tpu_torch.ops import KERNELS
+
+    cfg = ModelConfig(height=512, width=512)
+    assert cfg.num_patches == 1024 and cfg.attention_impl == "fused"
+    model = VideoVAE(cfg, device=device)
+    video = torch.rand(1, 16, 512, 512, 3, generator=torch.Generator().manual_seed(0)).to(device)
+    mask = torch.ones(1, 16, device=device)
+    mask[0, 13:] = 0
+    before = {k.symbol: k.launches for k in KERNELS}
+    out = reconstruct(model, video, mask, device=device)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 16, 512, 512, 3) and torch.isfinite(out.float()).all()
+    used = {"vvt_fused_attention_fwd": 2 * (cfg.encoder_depth + cfg.decoder_depth),
+            "vvt_conv3d_cf": 1 + 4 * cfg.unet_levels + 2}
+    assert {k.symbol: k.launches - before[k.symbol] for k in KERNELS} == {
+        k.symbol: used.get(k.symbol, 0) for k in KERNELS}
+
+
 def _sublayer_args(device, dtype, B, S, C, H, masked, D=64):
     gen = torch.Generator(device="cpu").manual_seed(B + S)
     rn = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731

@@ -13,12 +13,16 @@ key rows for the rounds, and deals each round's 16 × 16 tiles of dq in turn.
 :class:`FlashGeometry` derives the launch from the plan as
 ``launch_flash_bwd_mma`` in ``csrc/flash_attention_bwd_mma.cuh`` does, and
 walks the items as ``flash_bwd_slab_kernel`` and ``flash_bwd_tile_kernel`` do.
+Past 256 tokens the plan is the fused backward's ``"split"`` (its two
+launches on q, k, v and dO as they are), walked by
+``helpers/split_geometry.py``.
 """
 
 import dataclasses
 
 import numpy as np
 import pytest
+from helpers.split_geometry import check_split
 from test_torch_attention_bwd_plan import (
     LAUNCH_BOUND_WARPS,
     MAX_GRID_X,
@@ -28,16 +32,21 @@ from test_torch_attention_bwd_plan import (
     RAGGED_CASES,
     RAGGED_HEAD_DIM_CASES,
     Geometry,
+    _bwd_plan_before_split,
 )
-from test_torch_attention_plan import D128_BATCHES, H4_CASES
+from test_torch_attention_plan import D128_BATCHES, H4_CASES, LONG_CASES, LONG_IDS, PINNED_BATCHES
 
 from video_vae_tpu_torch.ops.flash_attention import (
     BWD_SLAB_MAX_SEQ,
     BWD_SLAB_WARPS,
     BWD_TILE_WARPS,
     FLASH_BWD_ROUND,
+    KERNEL_HEAD_DIMS,
+    SPLIT_WARPS,
+    TILE_MAX_SEQ,
     flash_attention_bwd_plan,
     mma_row_bytes,
+    split_grid,
 )
 
 KEY_GROUP = 64  # keys a cp.async group of a tile block brings
@@ -198,3 +207,23 @@ def test_flash_bwd_plan_at_head_dim_128_is_as_designed():
     assert (spatial.plan, spatial.variant) == (("tile", 1, 8), "wide tile")
     assert spatial.smem == 3 * 256 * 272 + 3 * 256 * 4 + 32 == 212000
     assert 4 * 256 * 272 + 256 * (FLASH_BWD_ROUND + 8) * 2 > MAX_SMEM
+
+
+
+@pytest.mark.parametrize("D", KERNEL_HEAD_DIMS)
+def test_flash_bwd_plan_keeps_every_short_sequence(D):
+    """Every S <= 256 keeps the fused backward's plan as it stood before the
+    split variant; 257 splits."""
+    for B, H in PINNED_BATCHES:
+        for S in range(1, TILE_MAX_SEQ + 1):
+            assert flash_attention_bwd_plan(B, S, H, D) == _bwd_plan_before_split(B, S, H, D), (B, S, H)
+        assert flash_attention_bwd_plan(B, TILE_MAX_SEQ + 1, H, D) == ("split", 1, SPLIT_WARPS)
+
+
+@pytest.mark.parametrize("label,B,S,H,D", LONG_CASES, ids=LONG_IDS)
+def test_flash_bwd_plan_splits_long_sequences(label, B, S, H, D):
+    """The query side and the key side on q, k, v and dO as they are; the wrapper
+    passes split_grid as the blocks, which the C entry point checks."""
+    assert flash_attention_bwd_plan(B, S, H, D) == ("split", 1, SPLIT_WARPS)
+    geo = check_split("flash_bwd", B, S, H, D)
+    assert geo.grid == split_grid(B, S, H)

@@ -11,7 +11,9 @@ the staged rows, and a chunk's keys lie in one word of key bits; shared
 memory, warps and grid stay within what the kernel and the H100 accept. :class:`FlashGeometry` derives the launch
 from the plan as ``launch_flash_mma`` in ``csrc/flash_attention_mma.cuh`` does,
 and walks the copies, the query tiles and the key chunks as
-``flash_fwd_kernel`` and ``attend`` do.
+``flash_fwd_kernel`` and ``attend`` do. Past 256 tokens the plan is the
+fused forward's ``"split"``, two walks over the key tiles (k, then k and v),
+walked by ``helpers/split_geometry.py``.
 """
 
 import dataclasses
@@ -19,11 +21,25 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from test_torch_attention_plan import D128_BATCHES, H4_CASES, MAX_GRID_X, MAX_SMEM, MODEL_CASES, PRESET_CASES, Geometry
+from helpers.split_geometry import check_split
+from test_torch_attention_plan import (
+    D128_BATCHES,
+    H4_CASES,
+    LONG_CASES,
+    LONG_IDS,
+    MAX_GRID_X,
+    MAX_SMEM,
+    MODEL_CASES,
+    PINNED_BATCHES,
+    PRESET_CASES,
+    Geometry,
+    _plan_before_split,
+)
 
 from video_vae_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
     MMA_SLAB_MAX_SEQ,
+    TILE_MAX_SEQ,
     _rows_of_heads,
     flash_attention_plan,
     mma_max_warps,
@@ -209,3 +225,28 @@ def test_flash_plan_at_head_dim_128_is_as_designed():
     assert (spatial.plan, spatial.warps, spatial.grid) == (("tile", 1), 8, 64)
     assert spatial.two_pass and spatial.smem == 3 * 256 * 272 + 4 * 8
     assert sorted(row0 for _, _, b, h, row0 in spatial.row_tiles() if (b, h) == (0, 0)) == list(range(0, 256, 16))
+
+
+@pytest.mark.parametrize("D", KERNEL_HEAD_DIMS)
+def test_flash_plan_keeps_every_short_sequence(D):
+    """Every S <= 256 keeps the fused forward's plan as it stood before the
+    split variant; 257 splits."""
+    for B, H in PINNED_BATCHES:
+        for S in range(1, TILE_MAX_SEQ + 1):
+            assert flash_attention_plan(B, S, H, D) == _plan_before_split(B, S, H, D), (B, S, H)
+        assert flash_attention_plan(B, TILE_MAX_SEQ + 1, H, D) == ("split", 1)
+
+
+@pytest.mark.parametrize("label,B,S,H,D", LONG_CASES, ids=LONG_IDS)
+def test_flash_plan_splits_long_sequences(label, B, S, H, D):
+    """Two walks over the key tiles (the exact row max and sum first), v staged
+    on the second only."""
+    assert flash_attention_plan(B, S, H, D) == ("split", 1)
+    check_split("flash", B, S, H, D)
+
+
+@pytest.mark.parametrize("S", [257, 1024])
+def test_flash_plan_split_sources_are_16_byte_aligned(S):
+    """The split blocks copy 16 bytes at a time from the rows _rows_of_heads hands
+    over, v a view into a fused QKV projection, as at the shorter sequences."""
+    _check_sources(3, S, 2, D)

@@ -138,10 +138,28 @@ ARGVS = {
 
 @pytest.mark.parametrize("name", sorted(ARGVS))
 def test_config_from_args_matches_jax(name):
+    """The JAX CLI's config, but for one deliberate difference: the port's data
+    frames take the model's size (``--resize``), where JAX's stay at 256²."""
     argv = ARGVS[name]
     ours = cli.config_from_args(cli.build_parser().parse_args(argv + ["--device", "cpu"]))
     theirs = jax_config_from_args(jax_build_parser().parse_args(argv))
-    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    want = dataclasses.asdict(theirs)
+    want["data"]["resize"] = (theirs.model.height, theirs.model.width)
+    assert dataclasses.asdict(ours) == want
+
+
+def test_resize_sizes_the_data_to_the_model():
+    """``--resize 64``: the synthetic loader's frames are the model's 64² (the JAX
+    CLI's would be 256², which its model at 64² cannot take)."""
+    from video_vae_tpu_torch.data.pipeline import create_dataloader
+
+    argv = ["--synthetic", "--small", "--resize", "64", "--batch_size", "1", "--max_frames", "4", "--device", "cpu"]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    theirs = jax_config_from_args(jax_build_parser().parse_args(argv[:-2]))
+    assert (cfg.model.height, cfg.model.width) == cfg.data.resize == (64, 64)
+    assert theirs.data.resize == (256, 256) != (theirs.model.height, theirs.model.width)
+    batch = next(iter(create_dataloader(cfg.data.replace(synthetic_num_clips=1), seed=0)))
+    assert batch["video"].shape == (1, 4, 64, 64, 3)
 
 
 def test_run_epoch_logs_the_hand_called_steps(tmp_path):

@@ -11,7 +11,10 @@ The flags and the config they build are the JAX CLI's, plus ``--device``
 CPU). ``--steps N`` stops after the first epoch that ends at or past step N:
 the count is checked between epochs. Under ``torch.distributed.run`` every
 rank trains over a (data, fsdp, tensor) mesh of all ranks with data = world /
-(fsdp·tensor); ``--batch_size`` is the global batch.
+(fsdp·tensor); ``--batch_size`` is the global batch. One difference in the
+config: ``--resize`` sizes the data's frames as well as the model (the JAX CLI
+leaves the data at 256², so that any other ``--resize`` fails at its first
+step's selection head, whose width is the model's patch count).
 """
 
 from __future__ import annotations
@@ -83,6 +86,7 @@ def config_from_args(args):
             batch_size=args.batch_size if not args.tiny else cfg.data.batch_size,
             max_frames=args.max_frames if not args.tiny else cfg.data.max_frames,
             synthetic=args.synthetic or args.tiny,
+            resize=cfg.data.resize if args.tiny else (args.resize, args.resize),
             independent_shards=args.independent_shards,
         ),
         train=cfg.train.replace(

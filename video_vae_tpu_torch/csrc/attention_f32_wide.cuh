@@ -1,8 +1,12 @@
-// The f32 attention kernels at head_dim 128, on the CUDA cores: the forward of
-// the fused attention (#1 and the attention sublayer's for f32 x, with LN and
-// RoPE) and of the plain attention (#5), and the query and key sides of both
-// backwards (#3's passes 2 and 3, #6's two passes). They back the f32
-// card-vs-CPU checks; f32 throughout, no rounding but the output's.
+// The f32 attention kernels at head_dim 128, and at every head dim past S =
+// 256, on the CUDA cores: the forward of the fused attention (#1 and the
+// attention sublayer's for f32 x, with LN and RoPE) and of the plain attention
+// (#5), and the query and key sides of both backwards (#3's passes 2 and 3,
+// #6's two passes). They back the f32 card-vs-CPU checks; f32 throughout, no
+// rounding but the output's. A block owns ROWS = 64 rows of its own side and
+// streams the other side in chunks, so no S caps it: past 256 rows the D <= 64
+// kernels, which stage a block's sequences whole (a thread a row, up to 256),
+// hand their calls to these.
 //
 // Why not the D <= 64 kernels: those give a thread (or two) a whole row in
 // registers and stage a block's other-side rows whole as f32. At D = 128 that
@@ -139,7 +143,8 @@ __device__ __forceinline__ void axpy_part(float (&acc)[PART<D>], float coef, con
 // LayerNorm (no bias; E[x^2] - mean^2 clamped at 0) times the scale, then
 // rotate-half RoPE, of the row whose quarter the lane holds: element 4 c + k is
 // dim 4 (4 c + q) + k, and for c < PART / 8 its partner dim + D/2 is element
-// 4 c + k + PART / 2.
+// 4 c + k + PART / 2; at D = 16 a lane's four dims have their partners in lane
+// q ^ 2 of its quad, taken by a shuffle.
 template <int D>
 __device__ __forceinline__ void norm_rope(float (&x)[PART<D>], int q, const float* __restrict__ scale,
                                           const float* __restrict__ cos_row, const float* __restrict__ sin_row) {
@@ -155,15 +160,24 @@ __device__ __forceinline__ void norm_rope(float (&x)[PART<D>], int q, const floa
   for (int c = 0; c < PART<D> / 4; ++c)
 #pragma unroll
     for (int k = 0; k < 4; ++k) x[4 * c + k] = (x[4 * c + k] - mean) * r * scale[4 * (4 * c + q) + k];
-#pragma unroll
-  for (int c = 0; c < PART<D> / 8; ++c)
+  if constexpr (D == 16) {  // a lane holds dims 4 q .. 4 q + 3; their partners are lane q ^ 2's
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int d = 4 * (4 * c + q) + k, e = 4 * c + k;
-      const float a = x[e], b = x[e + PART<D> / 2];
-      x[e] = a * cos_row[d] - b * sin_row[d];
-      x[e + PART<D> / 2] = b * cos_row[d + D / 2] + a * sin_row[d + D / 2];
+      const int d = 4 * q + k;
+      const float partner = __shfl_xor_sync(0xffffffffu, x[k], 2);
+      x[k] = q < 2 ? x[k] * cos_row[d] - partner * sin_row[d] : x[k] * cos_row[d] + partner * sin_row[d];
     }
+  } else {
+#pragma unroll
+    for (int c = 0; c < PART<D> / 8; ++c)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int d = 4 * (4 * c + q) + k, e = 4 * c + k;
+        const float a = x[e], b = x[e + PART<D> / 2];
+        x[e] = a * cos_row[d] - b * sin_row[d];
+        x[e + PART<D> / 2] = b * cos_row[d + D / 2] + a * sin_row[d + D / 2];
+      }
+  }
 }
 
 // Stage positions j0 .. j0 + n - 1 of two arrays of the block's pairs into

@@ -26,7 +26,9 @@
 //      gemm_sm90.cuh (TMA ring, two consumer warpgroups of m64nBNk16,
 //      persistent blocks), its EPI_BIAS epilogue rounding once;
 //   3. the attention: bf16 qkv takes #1's mma.sync kernel
-//      (fused_attention_mma.cuh, as fused_attention.cu launches it); f32 qkv
+//      (fused_attention_mma.cuh, as fused_attention.cu launches it; past S =
+//      256 #1's split variant, attention_split.cuh: its LN + RoPE pass into
+//      the caller's workspace, then its core, two launches); f32 qkv
 //      the CUDA-core kernel of fused_attention_core.cuh, whose f32 o one more
 //      launch casts to a bf16 scratch, since TMA loads the A operand in bf16;
 //   4. y = x + o . Wout + bout, the same GEMM with the residual in its epilogue.
@@ -46,6 +48,7 @@
 // Wout's K = 512 in 8 slabs); the attention launch is #1's at D = 128 (8
 // warps a bf16 block, the quad kernel for f32 x).
 
+#include "attention_split.cuh"
 #include "fused_attention_core.cuh"
 #include "fused_attention_mma.cuh"
 #include "gemm_sm90.cuh"
@@ -76,7 +79,7 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
                             const void* wqkv, const void* bqkv, const void* q_scale,
                             const void* k_scale, const void* cos_t, const void* sin_t,
                             const void* wout, const void* bout, void* y, void* qkv, void* o,
-                            void* xa, void* o16, int B, int S, int C, int H, GemmPlan qkv_plan,
+                            void* xa, void* o16, void* work, int B, int S, int C, int H, GemmPlan qkv_plan,
                             GemmPlan out_plan, int variant, int unit, cudaStream_t stream) {
   const int n = B * S;
   const int HD = H * D;
@@ -94,8 +97,13 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
 
   const bf16* o_bf16;
   if constexpr (sizeof(T) == 2) {
-    err = fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H,
-                                          variant, unit, stream);
+    if (variant == fa_mma::SPLIT)
+      err = unit != 1 ? cudaErrorInvalidValue
+                      : fa_mma::split::launch_fused_fwd<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, work, B, S,
+                                                           H, stream);
+    else
+      err = fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H,
+                                            variant, unit, stream);
     o_bf16 = static_cast<const bf16*>(o);
   } else {
     err = launch_fused_attention<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H, stream);
@@ -125,16 +133,18 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
 // 16-byte aligned. qkv_* and out_*: the plan of the first (xa . Wqkv) and the
 // second (o . Wout) product: tile width, stages, blocks and shared-memory bytes;
 // variant, unit: the bf16 attention's (ops/flash_attention.py:sublayer_plan).
+// work: for bf16 x with the split variant, a bf16 scratch of 2 * B * S * H *
+// head_dim (the attention's q~ and k~); null otherwise.
 extern "C" int vvt_attention_sublayer(const void* x, const void* mask, const void* ln_g,
                                       const void* ln_b, const void* wqkv, const void* bqkv,
                                       const void* q_scale, const void* k_scale, const void* cos_t,
                                       const void* sin_t, const void* wout, const void* bout,
-                                      void* y, void* qkv, void* o, void* xa, void* o16, int B,
-                                      int S, int C, int H, int head_dim, int dtype, int qkv_bn,
+                                      void* y, void* qkv, void* o, void* xa, void* o16, void* work,
+                                      int B, int S, int C, int H, int head_dim, int dtype, int qkv_bn,
                                       int qkv_stages, int qkv_blocks, int qkv_smem, int out_bn,
                                       int out_stages, int out_blocks, int out_smem, int variant,
                                       int unit, void* stream) {
-  if (S < 1 || S > MAX_ROWS || B < 1 || H < 1 || C < 8 || C % 8 || (long long)B * S > 0x7fffffffLL ||
+  if (S < 1 || B < 1 || H < 1 || C < 8 || C % 8 || (long long)B * S > 0x7fffffffLL ||
       (dtype != 0 && dtype != 1) || (dtype == 0 && o16 == nullptr))
     return (int)cudaErrorInvalidValue;
   const GemmPlan qkv_plan{qkv_bn, qkv_stages, qkv_blocks, qkv_smem};
@@ -144,9 +154,10 @@ extern "C" int vvt_attention_sublayer(const void* x, const void* mask, const voi
     constexpr int D = decltype(d)::value;
     if (dtype == 0)
       return launch_sublayer<float, D>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t, sin_t, wout,
-                                       bout, y, qkv, o, xa, o16, B, S, C, H, qkv_plan, out_plan, variant, unit, st);
+                                       bout, y, qkv, o, xa, o16, work, B, S, C, H, qkv_plan, out_plan, variant, unit,
+                                       st);
     return launch_sublayer<bf16, D>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t, sin_t, wout, bout,
-                                    y, qkv, o, xa, o16, B, S, C, H, qkv_plan, out_plan, variant, unit, st);
+                                    y, qkv, o, xa, o16, work, B, S, C, H, qkv_plan, out_plan, variant, unit, st);
   });
 }
 

@@ -5,7 +5,7 @@
 // keys set to -1e30 (so a fully masked row gets uniform weights), p =
 // exp(s - max) / sum in f32 with the exact row max and sum, p rounded to v's
 // dtype, o = p v accumulated in f32, one rounding to the output dtype. D in
-// {16, 32, 64, 128} (a template parameter of every kernel), 1 <= S <= 256; f32 or bf16. Each tensor is addressed as base + (b * S + i) *
+// {16, 32, 64, 128} (a template parameter of every kernel), any S >= 1; f32 or bf16. Each tensor is addressed as base + (b * S + i) *
 // row_stride + h * D + d, so v may be a view into the fused QKV projection
 // (row stride 3 * H * D, as the model's "pallas" path hands it over).
 //
@@ -46,7 +46,12 @@
 //   * "tile" (otherwise): a block owns one (sequence, head) pair, a warp for
 //     each 16 query rows (16 warps, 110 KB at S = 256). Past 64 keys each warp
 //     walks the keys twice: a first walk for the exact max and sum, then the
-//     scores again, P normalised, rounded and multiplied by V.
+//     scores again, P normalised, rounded and multiplied by V;
+//   * "split" (S > 256, attention_split.cuh, #1's core without its LN and
+//     RoPE pass): a block takes 64 query rows of one pair and walks the key
+//     tiles twice, k (then k and v) double-buffered through shared memory, 64
+//     keys a tile: the first walk for the exact max and sum, the second for
+//     P.V. Nothing in shared memory grows with S (45 KB at D = 64).
 // - Epilogue: o leaves through the warp's own q rows in shared memory, 16
 //   bytes a lane, whole 128-byte rows of the (B, S, H, D) output.
 // Measured on the H100 (PERF.md, utils/kernel_phases.py --kernel 5): the
@@ -68,15 +73,17 @@
 // D = 128: bf16 as above with at most 8 warps a block (FWD_WARPS<128>, each
 // warp of a tile block taking two 16-row query tiles at S = 256); f32 the
 // quad kernel of attention_f32_wide.cuh (the thread-a-row kernel would need
-// 256 registers and 270 KB of staged k and v).
+// 256 registers and 270 KB of staged k and v); past S = 256 f32 takes the quad
+// kernel at every D (the row-a-thread kernel stages a block's sequences whole).
 
 #include "attention_f32_wide.cuh"
+#include "attention_split.cuh"
 #include "flash_attention_mma.cuh"
 #include "flash_common.cuh"
 
 namespace {
 
-constexpr int MAX_ROWS = 256;  // query rows (= threads) per block
+constexpr int MAX_ROWS = 256;  // query rows (= threads) per block; a longer sequence takes the quad kernel
 
 template <int D>
 __device__ __forceinline__ float dot_row(const float (&q)[D], const float* row) {
@@ -169,13 +176,14 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < D; ++d) o[d] = from_float<T>(acc[d]);
 }
 
-// At D = 128 (f32 only) the quad kernel of attention_f32_wide.cuh.
+// At D = 128, and past S = MAX_ROWS at every D, the quad kernel of
+// attention_f32_wide.cuh (f32 only).
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    long long q_stride, long long k_stride, long long v_stride, int B, int S, int H,
                    cudaStream_t stream) {
-  if constexpr (D == 128) {
-    static_assert(sizeof(T) == 4, "the D = 128 CUDA-core attention takes f32");
+  static_assert(sizeof(T) == 4, "the CUDA-core attention takes f32");
+  if (D == 128 || S > MAX_ROWS) {
     const long long HD = (long long)H * D;
     auto rows = [&](const void* p, long long stride) {
       return fa_wide::Rows{static_cast<const float*>(p), S * stride, D, stride};
@@ -184,7 +192,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
                                   static_cast<const unsigned char*>(mask),
                                   fa_wide::OutRows{static_cast<float*>(out), S * HD, D, HD}, B, S, H, nullptr,
                                   nullptr, nullptr, nullptr, stream);
-  } else {
+  }
+  if constexpr (D < 128) {
   const int pairs_per_block = MAX_ROWS / S;
   const int rows = pairs_per_block * S;
   const int threads = (rows + 31) / 32 * 32;
@@ -200,6 +209,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
       static_cast<const unsigned char*>(mask), static_cast<T*>(out), q_stride, k_stride, v_stride,
       B, S, H, pairs_per_block, 1.f / sqrtf((float)D));
   return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;  // D = 128 took the quad kernel above
   }
 }
 
@@ -207,13 +218,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out). mask: (B, S) uint8 key mask, or null.
 // *_stride: elements between rows (b, i) and (b, i + 1) of that tensor; out is contiguous.
-// variant, unit: the bf16 kernel's plan (slab 0 or tile 1; sequences a slab
-// block, 1 for a tile); the f32 kernel takes its geometry from the shape.
+// variant, unit: the bf16 kernel's plan (slab 0, tile 1 or split 2; sequences
+// a slab block, 1 otherwise); the f32 kernel takes its geometry from the shape.
 extern "C" int vvt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const void* mask, void* out, long long q_stride,
                                        long long k_stride, long long v_stride, int B, int S, int H,
                                        int head_dim, int dtype, int variant, int unit, void* stream) {
-  if (S < 1 || S > MAX_ROWS || B < 1 || H < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (S < 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using fa_mma::bf16;
   const fa_mma::flash_fwd::Args a{
@@ -223,6 +234,11 @@ extern "C" int vvt_flash_attention_fwd(const void* q, const void* k, const void*
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (dtype == 0) return launch<float, D>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H, st);
+    if (variant == fa_mma::SPLIT) {  // P normalised before its rounding, as at every S
+      if (unit != 1) return cudaErrorInvalidValue;
+      const fa_mma::split::FwdArgs sa{{a.q, q_stride}, {a.k, k_stride}, {a.v, v_stride}, a.mask, a.out, B, S, H};
+      return fa_mma::split::launch_fwd<D>(sa, true, st);
+    }
     return fa_mma::flash_fwd::launch_flash_mma<D>(a, variant, st);
   });
 }

@@ -6,7 +6,7 @@
 // sum, then dv = p^T dO, dp = dO v^T, row = sum_j p_ij dp_ij,
 // ds = p o (dp - row) / sqrt(D), dq = ds k, dk = ds^T q, each written once in
 // its input's dtype. D in {16, 32, 64, 128} (a template parameter of every
-// kernel), 1 <= S <= 256. A row whose keys are all masked
+// kernel), any S >= 1. A row whose keys are all masked
 // spreads p evenly over all S keys; a key past S (a tile's padding) adds
 // exactly 0.
 //
@@ -48,6 +48,14 @@
 //     (bf16) in shared memory; after a barrier the warps take the round's
 //     16 x 16 tiles of dq = dS k. 7 products of S^2 D a pair and 2 exp a
 //     score, where the fused backward's tile takes 9 and 3.
+//   * S > 256, "split" (attention_split.cuh, shared with #3): two launches
+//     through an f32 workspace of (m, 1/l, row) per query. A query-major
+//     block (64 query rows of one pair, q and dO fragments in registers)
+//     walks the key tiles twice, k and v double-buffered, for the statistics
+//     and then dq; a key-major block (64 key rows, staged once) walks the
+//     query tiles, q, dO and their statistics double-buffered, for dv and dk.
+//     No atomics: every sum has one owner and one order. 9 products of S^2 D
+//     a pair; nothing in shared memory grows with S.
 // - Epilogue: a warp's 16 x D accumulators of dv, dk (and the slab's dq)
 //   pass through its own 8 staging rows in shared memory, so that D/4 lanes (a
 //   half-warp at D = 64) take a whole row and every global store of a row is
@@ -78,9 +86,12 @@
 // (bwd::wide_tile_bwd: q | k | v rows, then dO over v; dO and v fragments
 // from device memory; 8 warps, 212 KB): the exchange's four row arrays and a
 // round's dS^T (315 KB) do not fit, so the key side recomputes the scores (9
-// products, not 7). f32 runs the quad kernels of attention_f32_wide.cuh.
+// products, not 7). f32 runs the quad kernels of attention_f32_wide.cuh, as
+// it does past S = 256 at every D (the two-thread-a-row kernels stage the
+// other side whole).
 
 #include "attention_f32_wide.cuh"
+#include "attention_split.cuh"
 #include "flash_attention_bwd_mma.cuh"
 #include "flash_common.cuh"
 
@@ -88,7 +99,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int SIDE_ROWS = THREADS / 2;  // query or key rows per block
-constexpr int MAX_S = 256;
+constexpr int MAX_S = 256;  // a longer sequence takes the quad kernels
 
 // Thread half hf owns float4 chunks 2c + hf (c = 0..7) of a 64-element row.
 
@@ -310,14 +321,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
   const T* gt = static_cast<const T*>(d_o);
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
   float* stats = static_cast<float*>(work);
-  if constexpr (D == 128) {  // f32 only: the quad kernels of attention_f32_wide.cuh
-    static_assert(sizeof(T) == 4, "the D = 128 CUDA-core attention takes f32");
+  static_assert(sizeof(T) == 4, "the CUDA-core attention takes f32");
+  if (D == 128 || S > MAX_S) {  // the quad kernels of attention_f32_wide.cuh
     const long long HD = (long long)H * D;
     auto in = [&](const T* p, long long stride) { return fa_wide::Rows{p, S * stride, D, stride}; };
     auto out = [&](void* p) { return fa_wide::OutRows{static_cast<float*>(p), S * HD, D, HD}; };
     return fa_wide::launch_sides<D>(in(qt, st.q), in(kt, st.k), in(vt, st.v), in(gt, st.d_o), mk, out(dq), out(dk),
                                     out(dv), stats, B, S, H, stream);
-  } else {
+  }
+  if constexpr (D < 128) {
   const int ppb = S <= SIDE_ROWS ? SIDE_ROWS / S : 1;
   const int chunks = (S + SIDE_ROWS - 1) / SIDE_ROWS;
   const unsigned blocks = (unsigned)(((n_pairs + ppb - 1) / ppb) * chunks);
@@ -340,6 +352,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
   key_fn<<<blocks, THREADS, k_smem, stream>>>(qt, kt, vt, gt, mk, static_cast<T*>(dk),
                                               static_cast<T*>(dv), stats, st, S, H, n_pairs, scale);
   return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;  // D = 128 took the quad kernels above
   }
 }
 
@@ -348,10 +362,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the three outputs).
 // mask: (B, S) uint8 key mask, or null. *_stride: elements between rows (b, i)
 // and (b, i + 1) of that input; dq, dk, dv are contiguous (B, S, H, D).
-// work: f32 scratch of 3 * B * H * S floats for float32, null for bfloat16.
-// variant (0 slab, 1 tile), unit (pairs a slab block), warps and n_blocks: the
-// bf16 kernel's plan (ops/flash_attention.py:flash_attention_bwd_plan), checked
-// against the shape; float32 ignores them.
+// work: f32 scratch of 3 * B * H * S floats for float32 and for the bf16 split
+// variant (m, 1/l and row per query), null otherwise.
+// variant (0 slab, 1 tile, 2 split), unit (pairs a slab block), warps and
+// n_blocks: the bf16 kernel's plan (ops/flash_attention.py:flash_attention_bwd_plan;
+// split: unit 1, 4 warps, B * H * ceil(S / 64) blocks), checked against the
+// shape; float32 ignores them.
 extern "C" int vvt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* d_o, const void* mask, void* dq, void* dk,
                                        void* dv, void* work, long long q_stride,
@@ -359,7 +375,7 @@ extern "C" int vvt_flash_attention_bwd(const void* q, const void* k, const void*
                                        long long do_stride, int B, int S, int H, int head_dim,
                                        int dtype, int variant, int unit, int warps, int n_blocks,
                                        void* stream) {
-  if (S < 1 || S > MAX_S || B < 1 || H < 1 || (dtype != 0 && dtype != 1) || (dtype == 0 && work == nullptr))
+  if (S < 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1) || (dtype == 0 && work == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
   const Strides st{q_stride, k_stride, v_stride, do_stride};
@@ -372,6 +388,16 @@ extern "C" int vvt_flash_attention_bwd(const void* q, const void* k, const void*
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (dtype == 0) return launch<float, D>(q, k, v, d_o, mask, dq, dk, dv, work, st, B, S, H, stream_);
+    if (variant == fa_mma::SPLIT) {
+      namespace sp = fa_mma::split;
+      if (unit != 1 || warps != sp::WARPS || (long long)n_blocks != (long long)B * H * sp::tiles_of(S))
+        return cudaErrorInvalidValue;
+      const long long HD = (long long)H * D;
+      auto grad = [&](void* p) { return sp::Out<bf16>{static_cast<bf16*>(p), S * HD, D, HD}; };
+      const sp::BwdArgs<bf16> sa{{a.q, q_stride}, {a.k, k_stride}, {a.v, v_stride}, {a.g, do_stride}, a.mask,
+                                 grad(dq), grad(dk), grad(dv), static_cast<float*>(work), B, S, H};
+      return sp::launch_bwd<D, bf16>(sa, stream_);
+    }
     return fa_mma::flash_bwd::launch_flash_bwd_mma<D>(a, variant, warps, n_blocks, stream_);
   });
 }

@@ -370,7 +370,7 @@ cudaError_t launch_flash_bwd_mma(const Args& a, int variant, int warps, long lon
     blocks = (pairs + a.unit - 1) / a.unit;
   } else if (variant == TILE) {
     const int tile_warps = D == 128 ? std::min(rows16(a.S) / 16, bwd::WIDE_TILE_WARPS) : rows16(a.S) / 16;
-    if (a.unit != 1 || warps != tile_warps || warps > TILE_WARPS) return cudaErrorInvalidValue;
+    if (a.unit != 1 || a.S > TILE_MAX_SEQ || warps != tile_warps || warps > TILE_WARPS) return cudaErrorInvalidValue;
     blocks = pairs;
   } else {
     return cudaErrorInvalidValue;

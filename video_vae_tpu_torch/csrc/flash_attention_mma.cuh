@@ -136,7 +136,7 @@ cudaError_t launch_flash_mma(const Args& a, int variant, cudaStream_t stream) {
     blocks = ((long long)a.B + a.unit - 1) / a.unit;
     warps = std::min<long long>(SLAB_WARPS, (long long)a.unit * H * tiles);
   } else if (variant == TILE) {
-    if (a.unit != 1) return cudaErrorInvalidValue;
+    if (a.unit != 1 || S > TILE_MAX_SEQ) return cudaErrorInvalidValue;
     blocks = (long long)a.B * H;
     warps = std::min<long long>(tiles, FWD_WARPS<D>);  // tiles <= 16, as S <= 256
   } else {

@@ -6,7 +6,7 @@
 // E[x^2]-mean^2 clamped at 0, eps 1e-6, times the (D,) scale), rotate-half
 // RoPE with (S, D) f32 tables, softmax(q k^T / sqrt(D) + key mask) v, one
 // rounding to the output dtype. D in {16, 32, 64, 128} (a template parameter of
-// every kernel, one instantiation each), 1 <= S <= 256. A masked key (j < S,
+// every kernel, one instantiation each), any S >= 1. A masked key (j < S,
 // mask 0) scores -1e30, so a row whose keys are all masked averages all S
 // keys; a key past S (a tile's padding) adds exactly 0.
 //
@@ -43,7 +43,11 @@
 //   stores), and a warp takes one 16-query-row tile of one head at a time.
 //   S > 64, "tile": a block owns one (sequence, head) pair and all its query
 //   rows, a warp for each 16 (16 warps at S = 256, 110 KB of shared memory),
-//   so the pair's k and v are read and normalised once.
+//   so the pair's k and v are read and normalised once. S > 256, "split"
+//   (attention_split.cuh): a pass writes q~ and k~ (LN + RoPE, rounded to
+//   bf16, by the same code) to the caller's workspace, then a block takes 64
+//   query rows of one pair and streams its keys in double-buffered tiles of
+//   64, so no S caps it (45 KB at D = 64).
 // - Softmax: a warp holds its 16 query rows' q fragments in registers and
 //   walks the keys in chunks of up to 64 with a running (online) max: one
 //   chunk, so an exact max, up to S = 64; four at S = 256, where an exact max
@@ -73,24 +77,32 @@
 // block (205 KB of q, k, v rows at S = 256) then gives each warp two 16-row
 // query tiles in turn. f32 takes the quad kernel of attention_f32_wide.cuh
 // (four lanes a row, k~ and v staged in 64-key chunks): one thread a row would
-// need 256 registers and the whole sequence's f32 k and v 270 KB.
+// need 256 registers and the whole sequence's f32 k and v 270 KB. Past S =
+// 256 f32 takes that quad kernel at every D: the row-a-thread kernel stages a
+// block's sequences whole.
 
+#include "attention_split.cuh"
 #include "fused_attention_core.cuh"
 #include "fused_attention_mma.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. mask: (B, S) uint8 key mask, or null.
-// variant, unit: the bf16 kernel's plan (slab 0 or tile 1; sequences a slab
-// block, 1 for a tile); the f32 kernel takes its geometry from the shape.
-// head_dim: 16, 32, 64 or 128; any other is refused.
+// variant, unit: the bf16 kernel's plan (slab 0, tile 1 or split 2; sequences
+// a slab block, 1 otherwise); the f32 kernel takes its geometry from the shape.
+// work: for the bf16 split variant, a bf16 scratch of 2 * B * S * H * head_dim
+// (q~ and k~); null otherwise. head_dim: 16, 32, 64 or 128; any other is refused.
 extern "C" int vvt_fused_attention_fwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
-                                       void* out, int B, int S, int H, int head_dim, int dtype,
+                                       void* out, void* work, int B, int S, int H, int head_dim, int dtype,
                                        int variant, int unit, void* stream) {
-  if (S < 1 || S > MAX_ROWS || B < 1 || H < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (S < 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (dtype == 0) return launch_fused_attention<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, st);
+    if (variant == fa_mma::SPLIT) {
+      if (unit != 1) return cudaErrorInvalidValue;
+      return fa_mma::split::launch_fused_fwd<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, work, B, S, H, st);
+    }
     return fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, st);
   });
 }

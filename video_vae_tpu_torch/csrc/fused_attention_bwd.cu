@@ -7,7 +7,7 @@
 // row = sum_j P_ij dP_ij (f32), dS = P o (dP - row) / sqrt(D), dq~ = dS k~, dk~ = dS^T q~,
 // and back through RoPE (its transpose), the scale (a per-dim partial
 // sum_rows dln * xn) and the LN: dx = r * (dxn - mean(dxn) - xn * mean(dxn * xn)).
-// D in {16, 32, 64, 128} (a template parameter of every kernel), 1 <= S <= 256. A
+// D in {16, 32, 64, 128} (a template parameter of every kernel), any S >= 1. A
 // masked key (j < S, mask 0) scores -1e30, so a row
 // whose keys are all masked spreads P evenly over all S keys; a key past S (a
 // tile's padding) adds exactly 0.
@@ -49,6 +49,15 @@
 //     online, then again for P, dS and dq~; m, 1/l and row go to shared
 //     memory. The key side walks the queries in 16s: k~q~^T and v dO^T give
 //     P^T and dS^T, then dv and dk~. 9 products a pair, 3 exp a score.
+//   * S > 256, "split" (attention_split.cuh, shared with #6): #1's LN + RoPE
+//     pass writes q~ and k~ (bf16, rounded as above) to the workspace; a
+//     query-major launch (64 query rows of one pair a block, k~ and v
+//     double-buffered, two walks) writes the rows' (m, 1/l, row) and dq~ in
+//     f32; a key-major launch (64 key rows a block, q~, dO and the statistics
+//     double-buffered) writes dv and dk~ in f32; then pass 4 of the f32 path
+//     below runs the LN + RoPE backward on dq~ and dk~ and writes the scale
+//     partials, one (D,) row a 64-row block. 9 products a pair, no atomics,
+//     nothing in shared memory that grows with S.
 // - Epilogue: a warp's 16 x D accumulators pass through its own 8 staging rows
 //   in shared memory, so that D/4 lanes (a half-warp at D = 64) take a whole
 //   row, a lane holding dims d and d + D/2 (RoPE's transpose needs no shuffle) and every global access of
@@ -105,6 +114,7 @@
 #include <math.h>
 
 #include "attention_f32_wide.cuh"
+#include "attention_split.cuh"
 #include "fused_attention_bwd_mma.cuh"
 
 namespace {
@@ -113,7 +123,7 @@ template <int D> constexpr int F32_ROW = D + 4;  // smem row stride in floats (1
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int SIDE_ROWS = THREADS / 2;  // query or key rows per block in passes 2, 3
-constexpr int MAX_S = 256;
+constexpr int MAX_S = 256;  // passes 2 and 3 of a longer sequence take the quad kernels
 constexpr int LN_ROWS_PER_WARP = 8;     // pass 4: 64 rows per block
 constexpr float NEG_INF = -1e30f;
 constexpr float LN_EPS = 1e-6f;
@@ -575,14 +585,14 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  if constexpr (D == 128) {  // passes 2 and 3 by the quad kernels of attention_f32_wide.cuh
-    static_assert(sizeof(T) == 4, "the D = 128 CUDA-core attention takes f32");
+  static_assert(sizeof(T) == 4, "the CUDA-core attention takes f32");
+  if (D == 128 || S > MAX_S) {  // passes 2 and 3 by the quad kernels of attention_f32_wide.cuh
     const long long HD = (long long)H * D, token = 3 * HD;
     auto ws = [&](float* p) { return fa_wide::OutRows{p, H * (long long)S * D, (long long)S * D, D}; };
     auto in = [&](float* p) { return fa_wide::Rows{p, H * (long long)S * D, (long long)S * D, D}; };
     err = fa_wide::launch_sides<D>(in(w.qr), in(w.kr), in(w.v), in(w.d_o), mk, ws(w.dqr), ws(w.dkr),
                                    fa_wide::OutRows{dq + 2 * HD, S * token, D, token}, w.m, B, S, H, stream);
-  } else {
+  } else if constexpr (D < 128) {
   const int ppb = S <= SIDE_ROWS ? SIDE_ROWS / S : 1;
   const int chunks = (S + SIDE_ROWS - 1) / SIDE_ROWS;
   const unsigned side_blocks = (unsigned)(((n_pairs + ppb - 1) / ppb) * chunks);
@@ -610,6 +620,43 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
   return cudaGetLastError();
 }
 
+// The bf16 split variant (attention_split.cuh): q~ and k~ by #1's LN + RoPE
+// pass, the softmax backward's two launches on them with dq~ and dk~ in f32,
+// then pass 4 above on those. work (f32 words): dq~ | dk~ (B H S D each, row
+// pair * S + i, as Work's) | q~ | k~ (bf16, B S H D each) | m | 1/l | row (B H S each).
+template <int D>
+cudaError_t launch_split(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
+                         const void* sin_t, const void* mask, const void* g, void* dqkv, void* dqs_part,
+                         void* dks_part, void* work, int B, int S, int H, int n_blocks, cudaStream_t stream) {
+  namespace sp = fa_mma::split;
+  using bf16 = __nv_bfloat16;
+  const long long rows = (long long)B * H * S, HD = (long long)H * D, token = 3 * HD;
+  const int ln_rows = WARPS * LN_ROWS_PER_WARP;
+  if (work == nullptr || (long long)n_blocks != (rows + ln_rows - 1) / ln_rows) return cudaErrorInvalidValue;
+  float* base = static_cast<float*>(work);
+  Work w{};
+  w.dqr = base;
+  w.dkr = base + rows * D;
+  bf16* qn = reinterpret_cast<bf16*>(base + 2 * rows * D);
+  bf16* kn = qn + rows * D;
+  float* stats = base + 3 * rows * D;
+  cudaError_t err = sp::launch_norm_rope<D>(qkv, q_scale, k_scale, cos_t, sin_t, qn, kn, B, S, H, stream);
+  if (err != cudaSuccess) return err;
+  const bf16* x = static_cast<const bf16*>(qkv);
+  auto tilde = [&](float* p) { return sp::Out<float>{p, H * (long long)S * D, (long long)S * D, D}; };
+  const sp::BwdArgs<float> a{{qn, HD}, {kn, HD}, {x + 2 * HD, token}, {static_cast<const bf16*>(g), HD},
+                             static_cast<const unsigned char*>(mask), tilde(w.dqr), tilde(w.dkr),
+                             sp::Out<bf16>{static_cast<bf16*>(dqkv) + 2 * HD, S * token, D, token}, stats,
+                             B, S, H};
+  err = sp::launch_bwd<D, float>(a, stream);
+  if (err != cudaSuccess) return err;
+  ln_rope_bwd_kernel<bf16, D><<<(unsigned)n_blocks, THREADS, 0, stream>>>(
+      x, static_cast<const float*>(q_scale), static_cast<const float*>(k_scale), static_cast<const float*>(cos_t),
+      static_cast<const float*>(sin_t), w, static_cast<bf16*>(dqkv), static_cast<float*>(dqs_part),
+      static_cast<float*>(dks_part), S, H, rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // head_dim D: 16, 32, 64 or 128; any other is refused.
@@ -617,14 +664,16 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
 // dqs_part, dks_part: (n_blocks, D) f32 partials of the scale gradients.
 // f32: n_blocks = ceil(B * H * S / 64), work = f32 scratch of 6 * B * H * S * D +
 // 3 * B * H * S floats; variant, unit and warps are not read.
-// bf16: variant (slab 0, tile 1), unit (pairs a slab block, 1 for a tile) and
-// warps from the plan; n_blocks = the grid; work is not read.
+// bf16: variant (slab 0, tile 1, split 2), unit (pairs a slab block, 1
+// otherwise) and warps from the plan; slab and tile: n_blocks = the grid, work
+// is not read; split (4 warps): n_blocks = ceil(B * H * S / 64), work = f32
+// scratch of 3 * B * H * S * D + 3 * B * H * S floats.
 extern "C" int vvt_fused_attention_bwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
                                        const void* g, void* dqkv, void* dqs_part, void* dks_part,
                                        void* work, int B, int S, int H, int head_dim, int n_blocks,
                                        int dtype, int variant, int unit, int warps, void* stream) {
-  if (S < 1 || S > MAX_S || B < 1 || H < 1 || n_blocks < 1 || (dtype != 0 && dtype != 1))
+  if (S < 1 || B < 1 || H < 1 || n_blocks < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const fa_mma::bwd::Args a{static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(q_scale),
@@ -637,6 +686,11 @@ extern "C" int vvt_fused_attention_bwd(const void* qkv, const void* q_scale, con
     if (dtype == 0)
       return launch<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv, dqs_part, dks_part, work, B, S,
                               H, n_blocks, st);
+    if (variant == fa_mma::SPLIT) {
+      if (unit != 1 || warps != fa_mma::split::WARPS) return cudaErrorInvalidValue;
+      return launch_split<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv, dqs_part, dks_part, work, B, S, H,
+                             n_blocks, st);
+    }
     return fa_mma::bwd::launch_attention_bwd_mma<D>(a, variant, warps, n_blocks, st);
   });
 }

@@ -341,7 +341,8 @@ cudaError_t launch_attention_bwd_mma(const Args& a, int variant, int warps, int 
     if (a.S > SLAB_MAX_SEQ || a.unit < 1 || warps < 1 || warps > SLAB_WARPS) return cudaErrorInvalidValue;
     blocks = (pairs + a.unit - 1) / a.unit;
   } else if (variant == TILE) {
-    if (a.unit != 1 || warps < 1 || warps > (D == 128 ? WIDE_TILE_WARPS : TILE_WARPS)) return cudaErrorInvalidValue;
+    if (a.unit != 1 || a.S > TILE_MAX_SEQ || warps < 1 || warps > (D == 128 ? WIDE_TILE_WARPS : TILE_WARPS))
+      return cudaErrorInvalidValue;
     blocks = pairs;
   } else {
     return cudaErrorInvalidValue;

@@ -6,7 +6,9 @@
 // the kernel design notes are in fused_attention.cu.
 // launch_fused_attention<T, D>() enqueues the kernel for head dim D on a stream
 // and returns the launch's cudaError_t; at D = 128 it enqueues the quad kernel
-// of attention_f32_wide.cuh instead (a row per thread would take 256 registers).
+// of attention_f32_wide.cuh instead (a row per thread would take 256 registers),
+// and so it does past S = 256 at every D (a block here holds its sequences'
+// rows whole, a thread a query row).
 
 #pragma once
 
@@ -20,7 +22,7 @@ namespace {
 
 // smem row stride of a D-wide f32 row: 16-byte rows, conflict-free float4 by row
 template <int D> constexpr int CORE_ROW = D + 4;
-constexpr int MAX_ROWS = 256;  // query rows (= threads) per block
+constexpr int MAX_ROWS = 256;  // query rows (= threads) per block; a longer sequence takes the quad kernel
 constexpr int CHUNK = 16;      // keys per online-softmax step
 constexpr float NEG_INF = -1e30f;  // the JAX kernels' masked score
 constexpr float LN_EPS = 1e-6f;
@@ -201,13 +203,14 @@ fused_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ 
   for (int d = 0; d < D; ++d) o[d] = from_float<T>(acc[d] * inv);
 }
 
-// At D = 128 (f32 only) the quad kernel of attention_f32_wide.cuh.
+// At D = 128, and past S = MAX_ROWS at every D, the quad kernel of
+// attention_f32_wide.cuh (f32 only).
 template <typename T, int D>
 cudaError_t launch_fused_attention(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                    const void* sin_t, const void* mask, void* out, int B, int S, int H,
                    cudaStream_t stream) {
-  if constexpr (D == 128) {
-    static_assert(sizeof(T) == 4, "the D = 128 CUDA-core attention takes f32");
+  static_assert(sizeof(T) == 4, "the CUDA-core attention takes f32");
+  if (D == 128 || S > MAX_ROWS) {
     const long long HD = (long long)H * D, token = 3 * HD;
     const float* x = static_cast<const float*>(qkv);
     const fa_wide::Rows q{x, S * token, D, token}, k{x + HD, S * token, D, token}, v{x + 2 * HD, S * token, D, token};
@@ -215,7 +218,8 @@ cudaError_t launch_fused_attention(const void* qkv, const void* q_scale, const v
                                   fa_wide::OutRows{static_cast<float*>(out), S * HD, D, HD}, B, S, H,
                                   static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
                                   static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), stream);
-  } else {
+  }
+  if constexpr (D < 128) {
   const int pairs_per_block = MAX_ROWS / S;
   const int rows = pairs_per_block * S;
   const int threads = (rows + 31) / 32 * 32;
@@ -232,6 +236,8 @@ cudaError_t launch_fused_attention(const void* qkv, const void* q_scale, const v
       static_cast<const float*>(sin_t), static_cast<const unsigned char*>(mask),
       static_cast<T*>(out), B, S, H, pairs_per_block, 1.f / sqrtf((float)D));
   return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;  // D = 128 took the quad kernel above
   }
 }
 

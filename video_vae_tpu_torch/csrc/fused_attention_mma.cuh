@@ -335,7 +335,7 @@ cudaError_t launch_attention_mma(const void* qkv, const void* q_scale, const voi
     blocks = ((long long)B + unit - 1) / unit;
     warps = std::min<long long>(SLAB_WARPS, (long long)unit * H * tiles);
   } else if (variant == TILE) {
-    if (unit != 1) return cudaErrorInvalidValue;
+    if (unit != 1 || S > TILE_MAX_SEQ) return cudaErrorInvalidValue;
     blocks = (long long)B * H;
     warps = std::min<long long>(tiles, FWD_WARPS<D>);  // tiles <= 16, as S <= 256
   } else {

@@ -26,15 +26,26 @@ the tensor's device: a CPU tensor takes the plain PyTorch version
 The kernels take head dims ``KERNEL_HEAD_DIMS`` (16, 32, 64 and 128: every
 configuration the JAX package ships, ``tiny_config`` and the ``--small``
 preset at 16, the flagship at 64, and 128, where the JAX kernels also run,
-e.g. the flagship's width in 4 heads; one instantiation each) and sequences
-of 1 to ``KERNEL_MAX_SEQ`` = 256 tokens: a block holds a whole sequence's
-keys, as the JAX kernels hold it in VMEM, and no configuration the repo ships
-has a longer one. A CUDA tensor outside those raises; there is no fallback.
-At 128 the bf16 kernels cap a block at 8 warps (255 registers a thread for a
-warp's 16 × 128 f32 accumulators), and the backward's tile blocks keep three
-of a pair's four row arrays in shared memory (``csrc``:
+e.g. the flagship's width in 4 heads; one instantiation each; another head
+dim raises on a CUDA tensor, with no fallback) and any sequence length. Up to
+``TILE_MAX_SEQ`` = 256 tokens the bf16 kernels take their "slab" or "tile"
+variant, whose block holds a whole sequence's keys, as the JAX kernels hold
+it in VMEM. Longer sequences (the flagship at ``--resize 512``: spatial
+S = 1024) take the "split" variant (``csrc/attention_split.cuh``): a block
+owns 64 rows of one (sequence, head) pair and streams the other side through
+shared memory in double-buffered tiles of 64 rows, so nothing there grows
+with S; its forward is one walk over the keys with a running max (#1, and
+#7's attention) or two, for the exact row max and sum first (#5), and its
+backward (#3, #6) is a query-major launch (statistics and dq) and a
+key-major one (dv and dk), with no atomics, through an f32 workspace that
+the wrapper allocates. #1 and #3 first write q̃ and k̃ (LN and RoPE, rounded
+to bf16) to a workspace with the same LN and RoPE code as the tile variant.
+At 128 the bf16 slab and tile blocks cap at 8 warps (255 registers a thread
+for a warp's 16 × 128 f32 accumulators), and the backward's tile blocks keep
+three of a pair's four row arrays in shared memory (``csrc``:
 ``bwd::wide_tile_bwd``); the f32 kernels give a row four lanes and stage the
-other side's rows in chunks (``csrc/attention_f32_wide.cuh``).
+other side's rows in chunks (``csrc/attention_f32_wide.cuh``), as they do
+at every head dim past 256 tokens.
 
 Roundings of the fused forward, by dtype. The plain version computes in f32
 throughout and rounds once, to qkv's dtype. On the card, bf16 qkv takes the
@@ -44,6 +55,9 @@ JAX takes its packed small-S path, ``S < 128`` and ``S·H % 128 == 0``;
 otherwise unnormalised, with 1/l on the f32 output), the output once; its
 block layout comes from :func:`fused_attention_plan`. f32 qkv takes the
 CUDA-core kernel, f32 throughout with one rounding, as the plain version.
+The split variant (S > 256) rounds as the tile variant at those lengths: q̃
+and k̃ to bf16, P = exp(s − running max) to bf16 unnormalised (JAX's
+unpacked path), 1/l on the f32 output, one rounding of the output.
 
 Roundings of the fused backward, by dtype. The plain version is f32
 throughout with one rounding of dqkv. On the card, bf16 takes the
@@ -51,17 +65,20 @@ tensor-core kernel, one launch with no workspace: q̃ and k̃ rounded to bf16
 as the forward rounds them, P normalised (exact row max and sum) and then
 rounded to bf16 for dv = Pᵀ·dO, dS computed in f32 and rounded to bf16 for
 dq̃ = dS·k̃ and dk̃ = dSᵀ·q̃, everything else f32, dqkv rounded once; its block
-layout comes from :func:`fused_attention_bwd_plan`. f32 keeps the four-pass
-CUDA-core kernel through an f32 workspace, f32 throughout with one rounding.
+layout comes from :func:`fused_attention_bwd_plan`. Its split variant
+(S > 256) keeps these roundings, with dq̃ and dk̃ in f32 until the LN and
+RoPE backward, which the f32 path's fourth pass runs, per-block scale
+partials and all. f32 keeps the four-pass CUDA-core kernel through an f32
+workspace, f32 throughout with one rounding.
 
 Roundings of the plain attention forward, by dtype. The plain version and
 both kernels round as the JAX package's ``_fwd_kernel``: f32 scores and
 softmax with the exact row max and sum, P normalised and then rounded to v's
 dtype, P·V accumulated in f32, one rounding of o. On the card, bf16 takes the
 tensor-core kernel, the fused forward's softmax without its LN and RoPE
-(walking the keys twice past 64 of them, for the exact max and sum first);
-its block layout comes from :func:`flash_attention_plan`. f32 keeps the
-CUDA-core kernel.
+(walking the keys twice past 64 of them, for the exact max and sum first; so
+does its split variant); its block layout comes from
+:func:`flash_attention_plan`. f32 keeps the CUDA-core kernel.
 
 Roundings of the plain attention backward, by dtype. The plain version is
 f32 throughout, each gradient rounded once. On the card, bf16 takes the
@@ -94,12 +111,12 @@ if TYPE_CHECKING:
 
 NEG_INF = -1e30  # the masked score of the JAX kernels
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # the C entry points' instantiations (csrc: with_head_dim)
-KERNEL_MAX_SEQ = 256
+TILE_MAX_SEQ = 256  # the longest sequence of the slab and tile variants; "split" takes longer ones
 
 FUSED_ATTENTION = CudaKernel(
     "fused_attention.cu",
     "vvt_fused_attention_fwd",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 )
 FUSED_ATTENTION_BWD = CudaKernel(
     "fused_attention_bwd.cu",
@@ -120,7 +137,7 @@ FLASH_ATTENTION_BWD = CudaKernel(
 ATTENTION_SUBLAYER = CudaKernel(
     "attention_sublayer.cu",
     "vvt_attention_sublayer",
-    [ctypes.c_void_p] * 17 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
 )
 
 # rows of the f32 backward's LN/RoPE pass per block: its dscale partials are (blocks, D)
@@ -130,7 +147,19 @@ BWD_ROWS_PER_BLOCK = 64
 MMA_SLAB_WARPS = 8  # warps of a slab block at most
 MMA_SLAB_MAX_SEQ = 64  # the longest sequence a block stages whole, all heads
 MMA_SLAB_MAX_SMEM = 100 * 1024  # a slab block at most this, so that two fit an SM
-MMA_VARIANTS = ("slab", "tile")  # as csrc/fused_attention_mma_common.cuh numbers them
+MMA_VARIANTS = ("slab", "tile", "split")  # as csrc/fused_attention_mma_common.cuh numbers them
+
+# The split variant of the bf16 kernels (csrc/attention_split.cuh), S > TILE_MAX_SEQ:
+# a block owns this many rows of a pair, a warp each 16, and streams the other side in
+# tiles of 64 rows through two shared-memory buffers (45-104 KB a block at any S).
+SPLIT_ROWS = 64
+SPLIT_WARPS = SPLIT_ROWS // 16
+
+
+def split_grid(batch: int, seq: int, heads: int) -> int:
+    """Blocks of each split launch but the LN + RoPE pass: one per (sequence,
+    head) pair and tile of ``SPLIT_ROWS`` of its rows, a pair's tiles adjacent."""
+    return batch * heads * -(-seq // SPLIT_ROWS)
 
 
 def mma_max_warps(head_dim: int) -> int:
@@ -156,6 +185,10 @@ def check_head_dim(head_dim: int) -> None:
 def fused_attention_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, int]:
     """(variant, sequences a block) of the bf16 fused attention kernel.
 
+    ``"split"`` past ``TILE_MAX_SEQ`` = 256 tokens (unit 1): a block takes
+    ``SPLIT_ROWS`` query rows of one (sequence, head) pair and streams its keys
+    in tiles of 64 (:func:`split_grid` blocks).
+    Up to 256:
     ``"slab"`` where the sequence is at most 64 long and one sequence's q, k
     and v rows (``mma_row_bytes(head_dim)`` each) fit ``MMA_SLAB_MAX_SMEM``:
     a block stages whole sequences, all
@@ -169,6 +202,8 @@ def fused_attention_plan(batch: int, seq: int, heads: int, head_dim: int) -> tup
     shared memory and P's rounding rule from these and the shape.
     """
     check_head_dim(head_dim)
+    if seq > TILE_MAX_SEQ:
+        return "split", 1
     rows16 = -(-seq // 16) * 16
     seq_smem = 3 * heads * rows16 * mma_row_bytes(head_dim) + 8 * -(-seq // 64)  # q, k, v rows and key bits
     if seq <= MMA_SLAB_MAX_SEQ and seq_smem <= MMA_SLAB_MAX_SMEM:
@@ -186,8 +221,9 @@ def flash_attention_plan(batch: int, seq: int, heads: int, head_dim: int) -> tup
     heads, and its warps (up to 8) take the 16-row query tiles in turn.
     Otherwise ``"tile"``: a block stages one (sequence, head) pair with a warp
     for each 16 query rows; past 64 keys each warp walks the keys twice, for
-    the exact row max and sum first. The C entry point derives the warps and
-    the shared memory from these and the shape.
+    the exact row max and sum first; ``"split"`` past 256 tokens, whose
+    blocks take 64 query rows each and walk the key tiles twice. The C entry
+    point derives the warps and the shared memory from these and the shape.
     """
     return fused_attention_plan(batch, seq, heads, head_dim)
 
@@ -219,9 +255,13 @@ def fused_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) ->
     ``BWD_WIDE_TILE_WARPS`` warps. Either way a block's warps take its query
     tiles in turn, then its key tiles, and the grid is ceil(B·H / pairs a
     block). The C entry point derives the shared memory from these and the
-    shape.
+    shape. Past ``TILE_MAX_SEQ`` = 256 tokens, ``"split"``: a query-major
+    launch and a key-major one of :func:`split_grid` blocks, ``SPLIT_WARPS``
+    warps each (one pair each, unit 1).
     """
     check_head_dim(head_dim)
+    if seq > TILE_MAX_SEQ:
+        return "split", 1, SPLIT_WARPS
     tiles = -(-seq // 16)
     if seq <= BWD_SLAB_MAX_SEQ:
         unit = max(1, min(BWD_SLAB_WARPS // tiles, batch * heads))
@@ -247,7 +287,8 @@ def flash_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) ->
     block is the fused backward's (up to ``BWD_WIDE_TILE_WARPS`` warps taking
     the query tiles, then the key tiles, in turn) without LN or RoPE. The grid
     is ceil(B·H / pairs a block); the C entry point derives the shared memory
-    from these and the shape.
+    from these and the shape. Past 256 tokens, ``"split"``: the fused
+    backward's two launches on q, k, v and dO as they are.
     """
     return fused_attention_bwd_plan(batch, seq, heads, head_dim)
 
@@ -422,7 +463,7 @@ def fused_qkv_attention_bwd_plain(
 
 def _check_kernel_args(name, qkv, q_scale, k_scale, mask, num_heads):
     """Shared checks of both CUDA wrappers; returns (B, S, D). D in
-    ``KERNEL_HEAD_DIMS``, 1 <= S <= ``KERNEL_MAX_SEQ``."""
+    ``KERNEL_HEAD_DIMS``, S >= 1."""
     if not qkv.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor")
     if qkv.dtype not in DTYPE_CODES:
@@ -434,8 +475,8 @@ def _check_kernel_args(name, qkv, q_scale, k_scale, mask, num_heads):
         raise ValueError(f"last dim {three_hd} is not 3 * num_heads * head_dim")
     d = three_hd // (3 * num_heads)
     check_head_dim(d)
-    if not 1 <= s <= KERNEL_MAX_SEQ:
-        raise ValueError(f"kernel takes 1 <= S <= {KERNEL_MAX_SEQ}, got {s}")
+    if s < 1:
+        raise ValueError(f"kernel takes S >= 1, got {s}")
     if q_scale.shape != (d,) or k_scale.shape != (d,):
         raise ValueError("q_scale and k_scale must have shape (head_dim,)")
     if mask is not None and mask.shape != (b, s):
@@ -467,27 +508,34 @@ def fused_qkv_attention_cuda(
     """Launch the forward kernel. ``mask`` is a (B, S) bool key mask or None.
 
     bf16 qkv takes the tensor-core kernel with the geometry of
-    :func:`fused_attention_plan`, f32 qkv the CUDA-core kernel. head_dim in
-    ``KERNEL_HEAD_DIMS`` and 1 <= S <= ``KERNEL_MAX_SEQ``, or it raises.
+    :func:`fused_attention_plan` (its split variant with a bf16 workspace for
+    q̃ and k̃), f32 qkv the CUDA-core kernel. head_dim in
+    ``KERNEL_HEAD_DIMS`` and S >= 1, or it raises.
     """
     b, s, d = _check_kernel_args("fused_qkv_attention_cuda", qkv, q_scale, k_scale, mask, num_heads)
     device = qkv.device
     qs, ks, cos, sin, mask = _kernel_operands(qkv, q_scale, k_scale, mask, s, d, rope_base, rope_alpha)
     out = torch.empty((b, s, num_heads * d), dtype=qkv.dtype, device=device)
-    variant, unit = 0, 1  # the f32 kernel takes its geometry from the shape
+    variant, unit, work = 0, 1, None  # the f32 kernel takes its geometry from the shape
     if qkv.dtype == torch.bfloat16:
         name, unit = fused_attention_plan(b, s, num_heads, d)
         variant = MMA_VARIANTS.index(name)
+        work = _split_qk_work(name, b, s, num_heads, d, device)
         if qkv.data_ptr() % 16:  # the kernel copies 16 bytes at a time
             qkv = qkv.clone()
     with torch.cuda.device(device):
         FUSED_ATTENTION.launch(
             qkv.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(),
             b, s, num_heads, d, DTYPE_CODES[qkv.dtype], variant, unit,
             torch.cuda.current_stream(device).cuda_stream,
         )
     return out
+
+
+def _split_qk_work(variant: str, b: int, s: int, heads: int, d: int, device) -> Optional[torch.Tensor]:
+    """The split forward's bf16 workspace of q̃ and k̃, (B, S, H, D) each; None for another variant."""
+    return torch.empty(2 * b * s * heads * d, dtype=torch.bfloat16, device=device) if variant == "split" else None
 
 
 def fused_qkv_attention_bwd_cuda(
@@ -503,11 +551,11 @@ def fused_qkv_attention_bwd_cuda(
     """Launch the backward kernel: (dqkv, f32 dq_scale (D,), f32 dk_scale (D,)).
 
     bf16 takes the tensor-core kernel with the geometry of
-    :func:`fused_attention_bwd_plan`, f32 the four-pass CUDA-core kernel and
-    its workspace. Either writes per-block f32 partials of the two scale
-    gradients; they are summed here in a fixed order, so every run gives the
-    same bits. head_dim in ``KERNEL_HEAD_DIMS`` and 1 <= S <=
-    ``KERNEL_MAX_SEQ``, or it raises.
+    :func:`fused_attention_bwd_plan` (its split variant through an f32
+    workspace), f32 the four-pass CUDA-core kernel and its workspace. Either
+    writes per-block f32 partials of the two scale gradients; they are summed
+    here in a fixed order, so every run gives the same bits. head_dim in
+    ``KERNEL_HEAD_DIMS`` and S >= 1, or it raises.
     """
     b, s, d = _check_kernel_args(
         "fused_qkv_attention_bwd_cuda", qkv, q_scale, k_scale, mask, num_heads
@@ -521,14 +569,20 @@ def fused_qkv_attention_bwd_cuda(
     f32 = dict(dtype=torch.float32, device=device)
     work = None
     variant, unit, warps = 0, 1, 1  # the f32 kernel takes its geometry from the shape
+    rows = b * num_heads * s
     if qkv.dtype == torch.bfloat16:
         name, unit, warps = fused_attention_bwd_plan(b, s, num_heads, d)
         variant = MMA_VARIANTS.index(name)
-        n_blocks = -(-b * num_heads // unit)
+        if name == "split":
+            # dq̃, dk̃ (f32), q̃, k̃ (bf16, one f32 word a pair of them), then m, 1/l, row per query;
+            # the LN and RoPE backward's scale partials, a row each BWD_ROWS_PER_BLOCK rows
+            work = torch.empty(3 * rows * d + 3 * rows, **f32)
+            n_blocks = -(-rows // BWD_ROWS_PER_BLOCK)
+        else:
+            n_blocks = -(-b * num_heads // unit)
         # the kernel copies 16 bytes at a time
         qkv, g = (t.clone() if t.data_ptr() % 16 else t for t in (qkv, g))
     else:
-        rows = b * num_heads * s
         # q̃, k̃, v, dO, dq̃, dk̃ as f32 (pair, S, D) rows, then m, l, row per query
         work = torch.empty(6 * rows * d + 3 * rows, **f32)
         n_blocks = -(-rows // BWD_ROWS_PER_BLOCK)
@@ -656,8 +710,8 @@ def _check_flash_args(name, q, k, v, mask):
         raise ValueError("q, k, v must share one dtype and device")
     b, s, h, d = q.shape
     check_head_dim(d)
-    if not 1 <= s <= KERNEL_MAX_SEQ:
-        raise ValueError(f"kernel takes 1 <= S <= {KERNEL_MAX_SEQ}, got {s}")
+    if s < 1:
+        raise ValueError(f"kernel takes S >= 1, got {s}")
     if mask is not None and mask.shape != (b, s):
         raise ValueError("mask must be a (B, S) key mask")
     return b, s, h, d
@@ -673,9 +727,9 @@ def flash_attention_cuda(q, k, v, mask):
     bf16 takes the tensor-core kernel with the geometry of
     :func:`flash_attention_plan`: one launch, no workspace, no atomics, the
     roundings of :func:`flash_attention_plain` (P normalised with the exact
-    row max and sum, then rounded to bf16; P·V in f32; one rounding of o).
-    f32 takes the CUDA-core kernel, f32 throughout. head_dim in
-    ``KERNEL_HEAD_DIMS`` and 1 <= S <= ``KERNEL_MAX_SEQ``, or it raises.
+    row max and sum, then rounded to bf16; P·V in f32; one rounding of o),
+    split past 256 tokens. f32 takes the CUDA-core kernel, f32 throughout.
+    head_dim in ``KERNEL_HEAD_DIMS`` and S >= 1, or it raises.
     """
     b, s, h, d = _check_flash_args("flash_attention_cuda", q, k, v, mask)
     device = q.device
@@ -704,10 +758,11 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
     Its roundings: P normalised (exact row max and sum, f32) and then rounded
     to bf16 for dv = Pᵀ·dO; dS computed in f32 from f32 P and rounded to bf16
     for dq = dS·k and dk = dSᵀ·q; scores, softmax, dP, row and the sums in
-    f32; each gradient rounded once. f32 takes the two-pass CUDA-core kernel
-    through an f32 workspace of m, l and row per query, f32 throughout.
-    head_dim in ``KERNEL_HEAD_DIMS`` and 1 <= S <= ``KERNEL_MAX_SEQ``, or it
-    raises.
+    f32; each gradient rounded once. Its split variant (past 256 tokens) keeps
+    these roundings in two launches through an f32 workspace of m, 1/l and
+    row per query, still with no atomics. f32 takes the two-pass CUDA-core
+    kernel through an f32 workspace of m, l and row per query, f32
+    throughout. head_dim in ``KERNEL_HEAD_DIMS`` and S >= 1, or it raises.
     """
     b, s, h, d = _check_flash_args("flash_attention_bwd_cuda", q, k, v, mask)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
@@ -721,7 +776,11 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
     if q.dtype == torch.bfloat16:
         name, unit, warps = flash_attention_bwd_plan(b, s, h, d)
         variant = MMA_VARIANTS.index(name)
-        n_blocks = -(-b * h // unit)
+        if name == "split":
+            work = torch.empty(3 * b * h * s, dtype=torch.float32, device=device)  # m, 1/l, row per query
+            n_blocks = split_grid(b, s, h)
+        else:
+            n_blocks = -(-b * h // unit)
     else:
         work = torch.empty(3 * b * h * s, dtype=torch.float32, device=device)  # m, l, row per query
     with torch.cuda.device(device):
@@ -918,8 +977,9 @@ def fused_attention_sublayer_cuda(
     here, outside the kernel, as the JAX wrapper does; the geometry is
     :func:`sublayer_plan`'s for this card's SMs. bf16 x takes the fused
     attention's tensor-core kernel, f32 x its CUDA-core kernel, whose o the
-    kernel casts to a bf16 scratch for the second product. head_dim in
-    ``KERNEL_HEAD_DIMS``, 1 <= S <= ``KERNEL_MAX_SEQ`` and C % 8 == 0, or it
+    kernel casts to a bf16 scratch for the second product; past 256 tokens
+    bf16 x takes the attention's split variant with a bf16 workspace of q̃
+    and k̃. head_dim in ``KERNEL_HEAD_DIMS``, S >= 1 and C % 8 == 0, or it
     raises.
     """
     if not x.is_cuda:
@@ -934,8 +994,8 @@ def fused_attention_sublayer_cuda(
         raise ValueError("wqkv must be (C, 3*H*D) and wout (H*D, C)")
     d = hd // num_heads
     check_head_dim(d)
-    if not 1 <= s <= KERNEL_MAX_SEQ or c % 8:
-        raise ValueError(f"kernel takes 1 <= S <= {KERNEL_MAX_SEQ} and C % 8 == 0, got {s}, {c}")
+    if s < 1 or c % 8:
+        raise ValueError(f"kernel takes S >= 1 and C % 8 == 0, got {s}, {c}")
     if ln_scale.shape != (c,) or ln_bias.shape != (c,) or bqkv.shape != (3 * hd,) or bout.shape != (c,):
         raise ValueError("ln_scale, ln_bias, bout must be (C,) and bqkv (3*H*D,)")
     if q_scale.shape != (d,) or k_scale.shape != (d,):
@@ -959,18 +1019,19 @@ def fused_attention_sublayer_cuda(
     o = torch.empty((b, s, hd), dtype=x.dtype, device=device)
     xa = torch.empty((b, s, c), dtype=torch.bfloat16, device=device)
     o16 = torch.empty((b, s, hd), dtype=torch.bfloat16, device=device) if x.dtype == torch.float32 else None
-    tensors = (x, wq, wo, y, qkv, o, xa) + (() if o16 is None else (o16,))
+    plan = sublayer_plan(b, s, c, num_heads, d, torch.cuda.get_device_properties(device).multi_processor_count)
+    work = _split_qk_work(plan.attention[0], b, s, num_heads, d, device) if x.dtype == torch.bfloat16 else None
+    tensors = (x, wq, wo, y, qkv, o, xa) + tuple(t for t in (o16, work) if t is not None)
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the sublayer kernel needs 16-byte aligned tensors")
     if b * s >= 2**31:
         raise ValueError(f"the sublayer kernel takes fewer than 2^31 tokens, got {b * s}")
-    plan = sublayer_plan(b, s, c, num_heads, d, torch.cuda.get_device_properties(device).multi_processor_count)
     with torch.cuda.device(device):
         ATTENTION_SUBLAYER.launch(
             x.data_ptr(), None if mask is None else mask.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
             wq.data_ptr(), bq.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), y.data_ptr(), qkv.data_ptr(), o.data_ptr(), xa.data_ptr(),
-            None if o16 is None else o16.data_ptr(),
+            None if o16 is None else o16.data_ptr(), None if work is None else work.data_ptr(),
             b, s, c, num_heads, d, DTYPE_CODES[x.dtype], *plan.args,
             torch.cuda.current_stream(device).cuda_stream,
         )

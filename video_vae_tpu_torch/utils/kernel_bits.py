@@ -6,8 +6,9 @@
 ``save`` imports ``video_vae_tpu_torch`` from ``<package root>`` (the root of a
 checkout of this commit or of another, e.g. an unpacked ``git archive`` of the
 parent), builds its five attention kernels (#1, #3, #5, #6, #7) and runs each
-at head_dims 16, 32 and 64 (``HEAD_DIMS``), in bf16 and f32, on four shapes
-(the flagship's temporal and spatial calls and two ragged ones) with seeded
+at head_dims 16, 32, 64 and 128 (``HEAD_DIMS``), in bf16 and f32, on four
+shapes of at most 256 tokens (the flagship's temporal and spatial calls and
+two ragged ones; the slab and tile variants) with seeded
 inputs and key masks that leave some sequences no key, then saves every
 output. ``compare`` prints how
 many of two files' outputs are equal bit for bit. Run it by path, so that
@@ -22,7 +23,7 @@ import sys
 SOURCES = ("fused_attention.cu", "fused_attention_bwd.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "attention_sublayer.cu")
 SHAPES = ((512, 16, 8), (32, 256, 8), (5, 37, 8), (3, 80, 8))  # (B, S, H)
-HEAD_DIMS, WIDTH = (16, 32, 64), 768
+HEAD_DIMS, WIDTH = (16, 32, 64, 128), 768
 
 
 def save(root: str, out: str) -> None:
