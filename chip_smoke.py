@@ -139,7 +139,9 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    beforehand, after step 9's checks ("long-seq-kernels": #1, #3, #5, #6 and #7 at the
    calls of its serving pass and train step, spatial S = 1024 and temporal S = 16,
    counted on the 512² paths, with the flagship's gates; at S = 257 and 576 at head_dim
-   64, and also 1024 at 128, masked, bf16 and f32; #2 and #4 at its UNet's convs). At
+   64, and also 1024 at 128, masked, bf16 and f32; #3 and #6's split backward at head
+   dims 16 to 128, unmasked and masked, device ms beside SDPA's backward and the bound
+   ("split-bwd"); #2 and #4 at its UNet's convs). At
    full width and depth: its bf16 b2 x 16f
    serving pass on the fused, sublayer and pallas paths ("serving-512",
    "serving-512-sublayer", "serving-512-pallas"), its bf16 b1 x 16f train step (remat
@@ -3522,8 +3524,10 @@ def phase_long_seq_kernels(dev, rows):
     the flagship's (the same bits twice, a sequence whose keys are all masked,
     SDPA beside each); then at S = 257 and 576 at head_dim 64, and also at 1024
     at head_dim 128 (the flagship's width in 4 heads), masked, bf16 and f32,
-    counted on no path; then #2 and #4 at the 512² UNet's convs (bf16), counted on
-    "serving-512" and "train-512"."""
+    counted on no path; then #3 and #6's split backward at its own cases
+    (:func:`phase_split_bwd_kernels`: head dims 16 to 128, unmasked and masked, a
+    "split-bwd" line each beside SDPA's backward); then #2 and #4 at the 512²
+    UNet's convs (bf16), counted on "serving-512" and "train-512"."""
     cfg = long_config()
     phase_attention_kernels(cfg, dev, rows, "serving-512", "train-512", masked_rows=True,
                             sublayer_train="train-512-sublayer")
@@ -3534,7 +3538,26 @@ def phase_long_seq_kernels(dev, rows):
         phase_attention_kernels(model, dev, rows, None, None, cases, masked_rows=True)
         phase_flash_kernels(model, dev, rows, cases, paths=False)
         phase_sublayer_kernel(model, dev, rows, cases, paths=False)
+    phase_split_bwd_kernels(dev)
     phase_conv_kernels(cfg, dev, rows, "serving-512", "train-512", f32=False)
+
+
+def phase_split_bwd_kernels(dev):
+    """#3 and #6's split backward (past 256 tokens: wgmma launches at head dims 64
+    and 128, mma.sync at 16 and 32) at ``utils/split_bwd_times.py:CASES`` (the
+    512² spatial calls at b2 and b1, S = 257 and 576, D = 128 at S = 1024, D = 16
+    and 32 at S = 576), each without a key mask and with one that keeps a prefix
+    of each sequence (the first sequence none): each kernel against its plain
+    version within ``KERNEL_TOL``, the same bits from two launches; one
+    "split-bwd" line a case with the device ms a call of #3 and #6 beside SDPA's
+    backward on the same q, k, v and dO (the yardstick) and the bound. Counted
+    on no path and left out of the kernel record: the 512² paths count and
+    record these kernels at ``phase_attention_kernels``' and
+    ``phase_flash_kernels``' checks."""
+    from video_vae_tpu_torch.utils import split_bwd_times
+
+    for line in split_bwd_times.lines(dev):
+        log("split-bwd", json.dumps(line))
 
 
 def phase_long(dev, launches):

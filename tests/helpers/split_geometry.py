@@ -1,12 +1,17 @@
-"""The split variant of the bf16 attention kernels (``csrc/attention_split.cuh``),
+"""The split variant of the bf16 attention kernels (``csrc/attention_split.cuh``
+and, for the backward at head dims 64 and 128, ``csrc/attention_split_bwd.cuh``),
 walked on the CPU: the geometry each launch derives from the plan and the
 shape, and the rows, tiles, buffers and chunks its blocks and warps take.
 
 :class:`SplitGeometry` mirrors ``launch_fwd`` / ``launch_bwd`` /
 ``launch_norm_rope`` (grid, warps, shared memory) and deals out the work as
 ``split_fwd_kernel``, ``split_bwd_query_kernel``, ``split_bwd_key_kernel``
-and ``qk_norm_rope_kernel`` do; :func:`check_split` holds one shape to it.
-The plan tests of #1, #3, #5 and #6 call it at the long sequences.
+and ``qk_norm_rope_kernel`` do; :class:`WgmmaBwdGeometry` mirrors
+``split_wg::launch_bwd`` (grid, warpgroups, ring stages, TMA boxes, shared
+memory, registers, which loads are TMA and which cp.async) and the steps of
+``split_wg_query_kernel`` and ``split_wg_key_kernel``; :func:`check_split`
+holds one shape to them. The plan tests of #1, #3, #5 and #6 call it at the
+long sequences.
 """
 
 from __future__ import annotations
@@ -15,7 +20,18 @@ import dataclasses
 
 import numpy as np
 
-from video_vae_tpu_torch.ops.flash_attention import SPLIT_ROWS, SPLIT_WARPS, mma_max_warps, mma_row_bytes, split_grid
+from video_vae_tpu_torch.ops.flash_attention import (
+    SPLIT_BWD_ROWS,
+    SPLIT_BWD_WARPS,
+    SPLIT_ROWS,
+    SPLIT_WARPS,
+    WGMMA_HEAD_DIMS,
+    mma_max_warps,
+    mma_row_bytes,
+    split_bwd_grid,
+    split_bwd_warps,
+    split_grid,
+)
 
 # what the H100 accepts of one block and one grid; an SM's shared memory and what
 # the runtime keeps of it for each resident block
@@ -25,6 +41,14 @@ MAX_SMEM, MAX_GRID_X, SM_SMEM, BLOCK_RESERVED = 232448, 2**31 - 1, 233472, 1024
 # the LN + RoPE pass takes (split::PREP_ROWS), 16-key steps of a backward
 # query-side chunk (bwd::TILE_KT)
 SPLIT_TILE, MIN_BLOCKS, PREP_ROWS, BWD_KT = 64, 2, 64, 2
+
+# attention_split_bwd.cuh's constants (namespace split_wg): own rows of a consumer
+# warpgroup, consumer warpgroups a block, queries a key-side ring stage holds, ring
+# stages, the columns of a TMA box (128 bytes, the swizzle span), the alignment a
+# swizzled tile starts on, and the registers setmaxnreg gives the producer and the
+# consumers; keys a query-side stage holds: key_tile(D)
+WG_ROWS, CONSUMERS, QUERY_TILE, STAGES, PANEL, ALIGN = 64, 2, 64, 3, 64, 1024
+PRODUCER_REGS, CONSUMER_REGS, SM_REGS, MAX_REGS = 40, 232, 65536, 255
 
 # the long sequences the plan tests take: past the tile variant's 256, S not a
 # multiple of 16 or 64 (257, 300, 324 = 18² patches at 288², 576 = 24² at 384²),
@@ -153,12 +177,199 @@ def _check_norm_rope(geo: SplitGeometry):
     assert written.size == rows and np.unique(written).size == rows
 
 
+def key_tile(head_dim: int) -> int:
+    """Keys a query-side ring stage holds (``split_wg::KEY_TILE``): 128 at head dim
+    64, 64 at 128 (where a tile's f32 scores and dP beside dq fit the registers)."""
+    return 128 if head_dim == 64 else 64
+
+
+@dataclasses.dataclass(frozen=True)
+class WgmmaBwdGeometry:
+    """The split backward's two launches at head dims 64 and 128 (``split_wg``)."""
+
+    batch: int
+    seq: int
+    heads: int
+    head_dim: int
+
+    @property
+    def pairs(self) -> int:
+        return self.batch * self.heads
+
+    @property
+    def row_tiles(self) -> int:
+        """Blocks of a pair: ``split_wg::row_tiles``, BLOCK_ROWS own rows each."""
+        return -(-self.seq // (WG_ROWS * CONSUMERS))
+
+    def tiles(self, side: str) -> int:
+        """Tiles of the other side a walk streams (``split_wg::tiles_of``)."""
+        return -(-self.seq // self.stream_rows(side))
+
+    def stream_rows(self, side: str) -> int:
+        return key_tile(self.head_dim) if side == "query" else QUERY_TILE
+
+    @property
+    def grid(self) -> int:
+        return self.pairs * self.row_tiles
+
+    @property
+    def threads(self) -> int:
+        return 128 * (CONSUMERS + 1)  # the consumer warpgroups, then the producer
+
+    @property
+    def boxes(self) -> int:
+        """TMA boxes of one tile of one operand: D / 64 panels of 64 columns (128 bytes)."""
+        return self.head_dim // PANEL
+
+    def tile_bytes(self, rows: int) -> int:
+        return self.boxes * rows * PANEL * 2
+
+    @property
+    def smem(self) -> dict[str, int]:
+        """Each launch's dynamic shared memory, from the header's layout: the
+        alignment slack, own rows of two operands, the ring, (key side) the
+        ring's statistics, the mbarriers (own, full and empty a stage)."""
+        own = 2 * CONSUMERS * self.tile_bytes(WG_ROWS)
+        bars = (1 + 2 * STAGES) * 8
+        return {"query_side": ALIGN + own + STAGES * 2 * self.tile_bytes(self.stream_rows("query")) + bars,
+                "key_side": ALIGN + own + STAGES * 2 * self.tile_bytes(QUERY_TILE) + STAGES * 3 * QUERY_TILE * 4
+                + bars}
+
+    def stage_bytes(self, side: str) -> int:
+        """Bytes a ring stage's `full` mbarrier expects from TMA: two operand tiles."""
+        return 2 * self.tile_bytes(self.stream_rows(side))
+
+    def live(self, row0: int) -> int:
+        """Consumer warpgroups with own rows below S (``Block::live``)."""
+        return min(CONSUMERS, -(-(self.seq - row0) // WG_ROWS))
+
+    def blocks(self):
+        """(block, sequence, head, first own row) of every block, vectorised."""
+        x = np.arange(self.grid)
+        pair, tile = np.divmod(x, self.row_tiles)
+        return x, pair // self.heads, pair % self.heads, tile * WG_ROWS * CONSUMERS
+
+    def steps(self, side: str, walks: int):
+        """(step, tile, first row, stage, parity the consumers wait on `full`,
+        parity the producer waits on `empty`) of each step of a block's walks."""
+        tiles, rows = self.tiles(side), self.stream_rows(side)
+        return [(n, n % tiles, (n % tiles) * rows, n % STAGES, (n // STAGES) & 1, ((n // STAGES) & 1) ^ 1)
+                for n in range(walks * tiles)]
+
+
+def tma_operands(kind: str, B: int, S: int, H: int, D: int) -> dict[str, tuple[int, int]]:
+    """(row stride, offset of the base from its allocation), in bytes, of each
+    operand the split backward reads by TMA. #3 (``fused_attention_bwd.cu:
+    launch_split``): q~ and k~ in the f32 workspace after dq~ and dk~ (B H S D
+    floats each), k~ after q~; v a view into the fused qkv at 2 H D, rows 3 H D
+    apart; dO contiguous. #6: q, k and dO (B, S, H, D) and v a view into the
+    fused qkv, as the model's pallas path hands them over and
+    ``_rows_of_heads`` leaves them."""
+    HD, rows = H * D, B * H * S
+    v = (6 * HD, 4 * HD)
+    if kind == "fused_bwd":
+        return {"q": (2 * HD, 8 * rows * D), "k": (2 * HD, 8 * rows * D + 2 * rows * D), "v": v, "g": (2 * HD, 0)}
+    return {"q": (2 * HD, 0), "k": (2 * HD, 0), "v": v, "g": (2 * HD, 0)}
+
+
+def loads(stride: int, offset: int) -> str:
+    """The load an operand takes by the entry point's rule (``encode_rows``):
+    TMA where its row stride and base are 16-byte multiples (bytes); the
+    wrappers copy any other operand first (``_rows_of_heads``), as the mma.sync
+    kernels' 16-byte cp.async needed, so no operand reaches the kernel else."""
+    return "tma" if stride % 16 == 0 and offset % 16 == 0 else "copied first"
+
+
+def _check_wgmma_launch(geo: WgmmaBwdGeometry, kind: str):
+    assert geo.grid == split_bwd_grid(geo.batch, geo.seq, geo.heads, geo.head_dim) <= MAX_GRID_X
+    assert split_bwd_warps(geo.head_dim) == SPLIT_BWD_WARPS == geo.threads // 32
+    assert SPLIT_BWD_ROWS == WG_ROWS * CONSUMERS
+    # the boxes: 128 bytes a row (the 128-byte swizzle's span), D / 64 a tile, at most
+    # 256 rows; every tile and panel starts on the swizzle's 1024 bytes
+    assert PANEL * 2 == 128 and geo.boxes * PANEL == geo.head_dim
+    for side in ("query", "key"):
+        rows = geo.stream_rows(side)
+        assert rows <= 256 and rows % 64 == 0 and (rows * PANEL * 2) % ALIGN == 0
+        assert geo.stage_bytes(side) == 2 * geo.head_dim * rows * 2
+    for launch, smem in geo.smem.items():
+        # none grows with S; one block an SM (384 threads at these registers)
+        assert smem <= MAX_SMEM, launch
+        assert smem + BLOCK_RESERVED <= SM_SMEM, launch
+    assert (geo.smem["query_side"], geo.smem["key_side"]) == {64: (132152, 85304), 128: (164920, 167224)}[geo.head_dim]
+    # registers at the launch bounds (384, 1): what the compiler gives every thread at
+    # the launch, and what setmaxnreg moves from the producer to the consumers: a
+    # consumer's f32 accumulators (the walk's two score tiles and one or two 64 x D
+    # gradients, and at head dim 64 the own rows as A fragments) fit under CONSUMER_REGS
+    at_bounds = SM_REGS // geo.threads // 8 * 8
+    assert at_bounds == 168 and PRODUCER_REGS < at_bounds < CONSUMER_REGS <= MAX_REGS
+    assert 128 * (CONSUMERS * CONSUMER_REGS + PRODUCER_REGS) <= SM_REGS
+    assert PRODUCER_REGS % 8 == 0 and CONSUMER_REGS % 8 == 0
+    own = 2 * geo.head_dim // 4 if geo.head_dim == 64 else 0  # the own rows' A fragments (OWN_IN_REGS)
+    query_regs = 2 * geo.stream_rows("query") // 2 + geo.head_dim // 2 + own  # s, dP, dq a thread
+    key_regs = 2 * QUERY_TILE // 2 + 2 * geo.head_dim // 2 + own  # s, dP, dv, dk a thread
+    assert max(query_regs, key_regs) <= 192 < CONSUMER_REGS
+    # every operand by TMA: row strides and bases 16-byte multiples; the key side's
+    # statistics (f32 rows pair * S + i, 4-byte aligned at any S) by 4-byte cp.async
+    for name, (stride, offset) in tma_operands(kind, geo.batch, geo.seq, geo.heads, geo.head_dim).items():
+        assert loads(stride, offset) == "tma", name
+
+
+def _check_wgmma_rows(geo: WgmmaBwdGeometry):
+    """Every (sequence, head, own row < S) belongs to exactly one live consumer
+    warpgroup of one block; a warpgroup whose rows are all past S is not live, and
+    the `empty` mbarriers count one arrival for each warp of the live ones."""
+    _, b, h, row0 = geo.blocks()
+    owners = np.zeros((geo.batch, geo.heads, geo.row_tiles * WG_ROWS * CONSUMERS), dtype=np.int32)
+    for x in range(geo.grid):
+        live = geo.live(int(row0[x]))
+        assert 1 <= live <= CONSUMERS
+        for w in range(live):
+            first = int(row0[x]) + w * WG_ROWS
+            assert first < geo.seq
+            owners[b[x], h[x], first : first + WG_ROWS] += 1
+        for w in range(live, CONSUMERS):
+            assert int(row0[x]) + w * WG_ROWS >= geo.seq
+    assert (owners[:, :, : geo.seq] == 1).all()
+
+
+def _check_wgmma_walks(geo: WgmmaBwdGeometry, side: str, walks: int):
+    """Each walk streams every tile of the other side once, its keys in whole 64-bit
+    words of key bits; a stage is refilled only after the consumers freed it: step
+    n + STAGES waits on `empty` for the phase that step n's release completes."""
+    steps = geo.steps(side, walks)
+    tiles, rows = geo.tiles(side), geo.stream_rows(side)
+    assert len(steps) == walks * tiles
+    completed = {}  # stage -> times its `empty` phase completed (one per release)
+    for n, tile, first, stage, full_parity, empty_parity in steps:
+        assert first == tile * rows and first < geo.seq and first % 64 == 0
+        uses = completed.get(stage, 0)
+        # the producer's wait passes once `uses` phases completed: parity (uses - 1) & 1,
+        # the fresh barrier's "previous" phase (parity 1) for the first use
+        assert empty_parity == (uses - 1) & 1
+        assert full_parity == uses & 1  # the consumers wait on this stage's (uses + 1)-th fill
+        completed[stage] = uses + 1
+    for walk in range(walks):
+        seen = [t for _, t, *_ in steps[walk * tiles : (walk + 1) * tiles]]
+        assert seen == list(range(tiles))
+    # rows past S only in the last tile, zero-filled by TMA (their keys -inf, their P 0)
+    assert (tiles - 1) * rows < geo.seq <= tiles * rows
+
+
 def check_split(kind: str, B: int, S: int, H: int, D: int):
     """Hold the split launches of one kernel at (B, S, H, D) to their design.
 
     kind: "fused" (#1: the LN + RoPE pass, then one walk over k and v),
     "flash" (#5: two walks, v on the second), "fused_bwd" (#3: the pass, then
     both sides), "flash_bwd" (#6: both sides)."""
+    if kind in ("fused_bwd", "flash_bwd") and D in WGMMA_HEAD_DIMS:
+        wg = WgmmaBwdGeometry(B, S, H, D)
+        _check_wgmma_launch(wg, kind)
+        _check_wgmma_rows(wg)
+        _check_wgmma_walks(wg, "query", walks=2)  # statistics, then dq
+        _check_wgmma_walks(wg, "key", walks=1)
+        if kind == "fused_bwd":
+            _check_norm_rope(SplitGeometry(B, S, H, D))
+        return wg
     geo = SplitGeometry(B, S, H, D)
     _check_launch(geo)
     _check_own_rows(geo)

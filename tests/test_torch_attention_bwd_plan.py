@@ -33,10 +33,10 @@ from video_vae_tpu_torch.ops.flash_attention import (
     BWD_TILE_WARPS,
     BWD_WIDE_TILE_WARPS,
     KERNEL_HEAD_DIMS,
-    SPLIT_WARPS,
     TILE_MAX_SEQ,
     fused_attention_bwd_plan,
     mma_row_bytes,
+    split_bwd_warps,
 )
 from test_torch_attention_plan import D128_BATCHES, H4_CASES, LATENT_CASES, LONG_CASES, LONG_IDS, MAE_CASES, PINNED_BATCHES
 
@@ -324,14 +324,34 @@ def test_attention_bwd_plan_keeps_every_short_sequence(D):
     for B, H in PINNED_BATCHES:
         for S in range(1, TILE_MAX_SEQ + 1):
             assert fused_attention_bwd_plan(B, S, H, D) == _bwd_plan_before_split(B, S, H, D), (B, S, H)
-        assert fused_attention_bwd_plan(B, TILE_MAX_SEQ + 1, H, D) == ("split", 1, SPLIT_WARPS)
+        assert fused_attention_bwd_plan(B, TILE_MAX_SEQ + 1, H, D) == ("split", 1, split_bwd_warps(D))
 
 
 @pytest.mark.parametrize("label,B,S,H,D", LONG_CASES, ids=LONG_IDS)
 def test_attention_bwd_plan_splits_long_sequences(label, B, S, H, D):
     """#1's LN + RoPE pass, the query side (two walks over k~ and v), the key side
-    (one over q~, dO and the statistics); the LN + RoPE backward's partials a row
-    each BWD_ROWS_PER_BLOCK (sequence, head, position) rows, as the f32 path's."""
-    assert fused_attention_bwd_plan(B, S, H, D) == ("split", 1, SPLIT_WARPS)
+    (one over q~, dO and the statistics): wgmma launches of 12 warps at head dims
+    64 and 128, mma.sync ones of 4 at 16 and 32; the LN + RoPE backward's partials
+    a row each BWD_ROWS_PER_BLOCK (sequence, head, position) rows, as the f32 path's."""
+    assert fused_attention_bwd_plan(B, S, H, D) == ("split", 1, split_bwd_warps(D))
     check_split("fused_bwd", B, S, H, D)
     assert BWD_ROWS_PER_BLOCK == 64
+
+
+def test_attention_bwd_split_at_512_is_as_designed():
+    """The flagship's 512² spatial call (b2: 32 sequences x 8 heads of 64, S = 1024)
+    and its width in 4 heads of 128: wgmma launches of 128 own rows a block (8
+    blocks a pair), three warpgroups, rings of 3 stages (128 keys a query-side
+    stage at head dim 64, 64 at 128; 64 queries a key-side stage), one block an SM;
+    head dims 16 and 32 keep the mma.sync launches of 64 rows."""
+    flagship = check_split("fused_bwd", 32, 1024, 8, 64)
+    assert (flagship.grid, flagship.threads, flagship.boxes) == (2048, 384, 1)
+    assert (flagship.tiles("query"), flagship.tiles("key")) == (8, 16)  # 128 keys, 64 queries a stage
+    assert flagship.smem == {"query_side": 132152, "key_side": 85304}
+    h4 = check_split("fused_bwd", 16, 1024, 4, 128)
+    assert (h4.grid, h4.boxes, h4.stage_bytes("query"), h4.stage_bytes("key")) == (512, 2, 32768, 32768)
+    assert h4.smem == {"query_side": 164920, "key_side": 167224}
+    for D in (16, 32):
+        assert check_split("fused_bwd", 16, 576, 8, D).grid == 16 * 8 * 9
+        assert fused_attention_bwd_plan(16, 576, 8, D) == ("split", 1, 4)
+

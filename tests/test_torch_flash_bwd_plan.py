@@ -22,7 +22,7 @@ import dataclasses
 
 import numpy as np
 import pytest
-from helpers.split_geometry import check_split
+from helpers.split_geometry import check_split, loads, tma_operands
 from test_torch_attention_bwd_plan import (
     LAUNCH_BOUND_WARPS,
     MAX_GRID_X,
@@ -42,11 +42,11 @@ from video_vae_tpu_torch.ops.flash_attention import (
     BWD_TILE_WARPS,
     FLASH_BWD_ROUND,
     KERNEL_HEAD_DIMS,
-    SPLIT_WARPS,
     TILE_MAX_SEQ,
     flash_attention_bwd_plan,
     mma_row_bytes,
-    split_grid,
+    split_bwd_grid,
+    split_bwd_warps,
 )
 
 KEY_GROUP = 64  # keys a cp.async group of a tile block brings
@@ -217,13 +217,42 @@ def test_flash_bwd_plan_keeps_every_short_sequence(D):
     for B, H in PINNED_BATCHES:
         for S in range(1, TILE_MAX_SEQ + 1):
             assert flash_attention_bwd_plan(B, S, H, D) == _bwd_plan_before_split(B, S, H, D), (B, S, H)
-        assert flash_attention_bwd_plan(B, TILE_MAX_SEQ + 1, H, D) == ("split", 1, SPLIT_WARPS)
+        assert flash_attention_bwd_plan(B, TILE_MAX_SEQ + 1, H, D) == ("split", 1, split_bwd_warps(D))
 
 
 @pytest.mark.parametrize("label,B,S,H,D", LONG_CASES, ids=LONG_IDS)
 def test_flash_bwd_plan_splits_long_sequences(label, B, S, H, D):
     """The query side and the key side on q, k, v and dO as they are; the wrapper
-    passes split_grid as the blocks, which the C entry point checks."""
-    assert flash_attention_bwd_plan(B, S, H, D) == ("split", 1, SPLIT_WARPS)
+    passes split_bwd_grid as the blocks, which the C entry point checks."""
+    assert flash_attention_bwd_plan(B, S, H, D) == ("split", 1, split_bwd_warps(D))
     geo = check_split("flash_bwd", B, S, H, D)
-    assert geo.grid == split_grid(B, S, H)
+    assert geo.grid == split_bwd_grid(B, S, H, D)
+
+
+@pytest.mark.parametrize("D", KERNEL_HEAD_DIMS)
+def test_flash_bwd_split_operands_meet_tma_alignment(D):
+    """#6's strided inputs reach the split backward at 16-byte row strides and
+    bases, TMA's rule: q, k and dO contiguous and v a view into the fused qkv are
+    taken as they are; a view whose base or row stride is not a multiple of 16
+    bytes is copied first (``_rows_of_heads``), so no operand needs another load."""
+    import torch
+
+    from video_vae_tpu_torch.ops.flash_attention import _rows_of_heads
+
+    B, S, H = 2, 300, 4
+    HD = H * D
+    qkv = torch.zeros(B, S, 3 * HD, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(HD, -1))
+    for name, t, stride in (("q", q.contiguous(), HD), ("k", k.contiguous(), HD), ("v", v, 3 * HD)):
+        out, st = _rows_of_heads(t)
+        assert out.data_ptr() == t.data_ptr() and st == stride, name
+        assert loads(2 * st, out.data_ptr() % 256) == "tma", name
+    shifted = torch.zeros(B * S * HD + 1, dtype=torch.bfloat16)[1:].view(B, S, H, D)  # base 2 bytes off
+    padded = torch.zeros(B, S, HD + 4, dtype=torch.bfloat16)[..., :HD].reshape(B, S, H, D)  # rows HD + 4 apart
+    for name, t in (("shifted", shifted), ("padded", padded)):
+        assert loads(2 * t.stride(1), t.data_ptr() % 256) != "tma", name
+        out, st = _rows_of_heads(t)
+        assert out.data_ptr() != t.data_ptr() and loads(2 * st, out.data_ptr() % 256) == "tma", name
+        assert torch.equal(out, t)
+    for name, (stride, offset) in tma_operands("flash_bwd", B, S, H, D).items():
+        assert loads(stride, offset) == "tma", name

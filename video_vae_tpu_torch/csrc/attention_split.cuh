@@ -17,6 +17,8 @@
 // TB/s), a backward 10 S^2 D a pair on paper. This first version is right and
 // simple: mma.sync, not wgmma, and the backward recomputes the scores on each
 // side (9 products of S^2 D a pair, as the fused backward's tile variant).
+// The backward here serves head dims 16 and 32 only; 64 and 128 take the
+// wgmma launches of attention_split_bwd.cuh (same two sides, same roundings).
 //
 // Forward (split_fwd_kernel): a block takes ROWS = 64 query rows of one pair,
 // a warp each 16, whose q fragments stay in registers; it walks the keys in
@@ -37,8 +39,8 @@
 // every key once for each of a pair's query tiles (16 times at S = 1024); the
 // pass does it once and lets #1 and #5 share one core. #3 runs the same pass.
 //
-// Backward (FlashAttention-2's, in its simple form, two launches and no
-// atomics, so two runs give the same bits):
+// Backward at head dims 16 and 32 (FlashAttention-2's, in its simple form,
+// two launches and no atomics, so two runs give the same bits):
 // 1. split_bwd_query_kernel, query-major: a block takes 64 query rows (q and
 //    dO fragments in registers, read straight from device memory) and walks
 //    the key tiles twice, k and v double-buffered: the first walk gives each

@@ -48,12 +48,13 @@
 //     (bf16) in shared memory; after a barrier the warps take the round's
 //     16 x 16 tiles of dq = dS k. 7 products of S^2 D a pair and 2 exp a
 //     score, where the fused backward's tile takes 9 and 3.
-//   * S > 256, "split" (attention_split.cuh, shared with #3): two launches
-//     through an f32 workspace of (m, 1/l, row) per query. A query-major
-//     block (64 query rows of one pair, q and dO fragments in registers)
-//     walks the key tiles twice, k and v double-buffered, for the statistics
-//     and then dq; a key-major block (64 key rows, staged once) walks the
-//     query tiles, q, dO and their statistics double-buffered, for dv and dk.
+//   * S > 256, "split" (shared with #3): two launches through an f32
+//     workspace of (m, 1/l, row) per query. A query-major block walks the
+//     key tiles twice for the statistics and then dq; a key-major block
+//     walks the query tiles, with their statistics, for dv and dk. At head
+//     dims 64 and 128 on wgmma fed by TMA rings (attention_split_bwd.cuh:
+//     128 own rows a block, two consumer warpgroups and a producer), at
+//     16 and 32 on mma.sync (attention_split.cuh: 64 rows, double buffers).
 //     No atomics: every sum has one owner and one order. 9 products of S^2 D
 //     a pair; nothing in shared memory grows with S.
 // - Epilogue: a warp's 16 x D accumulators of dv, dk (and the slab's dq)
@@ -92,6 +93,7 @@
 
 #include "attention_f32_wide.cuh"
 #include "attention_split.cuh"
+#include "attention_split_bwd.cuh"
 #include "flash_attention_bwd_mma.cuh"
 #include "flash_common.cuh"
 
@@ -366,8 +368,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
 // variant (m, 1/l and row per query), null otherwise.
 // variant (0 slab, 1 tile, 2 split), unit (pairs a slab block), warps and
 // n_blocks: the bf16 kernel's plan (ops/flash_attention.py:flash_attention_bwd_plan;
-// split: unit 1, 4 warps, B * H * ceil(S / 64) blocks), checked against the
-// shape; float32 ignores them.
+// split: unit 1; at head dims 64 and 128 12 warps and B * H * ceil(S / 128)
+// blocks, at 16 and 32 4 warps and B * H * ceil(S / 64)), checked against
+// the shape; float32 ignores them.
 extern "C" int vvt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* d_o, const void* mask, void* dq, void* dk,
                                        void* dv, void* work, long long q_stride,
@@ -390,13 +393,13 @@ extern "C" int vvt_flash_attention_bwd(const void* q, const void* k, const void*
     if (dtype == 0) return launch<float, D>(q, k, v, d_o, mask, dq, dk, dv, work, st, B, S, H, stream_);
     if (variant == fa_mma::SPLIT) {
       namespace sp = fa_mma::split;
-      if (unit != 1 || warps != sp::WARPS || (long long)n_blocks != (long long)B * H * sp::tiles_of(S))
+      if (unit != 1 || warps != fa_mma::split_bwd_warps<D>() || n_blocks != fa_mma::split_bwd_grid<D>(B, S, H))
         return cudaErrorInvalidValue;
       const long long HD = (long long)H * D;
       auto grad = [&](void* p) { return sp::Out<bf16>{static_cast<bf16*>(p), S * HD, D, HD}; };
       const sp::BwdArgs<bf16> sa{{a.q, q_stride}, {a.k, k_stride}, {a.v, v_stride}, {a.g, do_stride}, a.mask,
                                  grad(dq), grad(dk), grad(dv), static_cast<float*>(work), B, S, H};
-      return sp::launch_bwd<D, bf16>(sa, stream_);
+      return fa_mma::launch_split_bwd<D, bf16>(sa, stream_);
     }
     return fa_mma::flash_bwd::launch_flash_bwd_mma<D>(a, variant, warps, n_blocks, stream_);
   });

@@ -49,15 +49,16 @@
 //     online, then again for P, dS and dq~; m, 1/l and row go to shared
 //     memory. The key side walks the queries in 16s: k~q~^T and v dO^T give
 //     P^T and dS^T, then dv and dk~. 9 products a pair, 3 exp a score.
-//   * S > 256, "split" (attention_split.cuh, shared with #6): #1's LN + RoPE
-//     pass writes q~ and k~ (bf16, rounded as above) to the workspace; a
-//     query-major launch (64 query rows of one pair a block, k~ and v
-//     double-buffered, two walks) writes the rows' (m, 1/l, row) and dq~ in
-//     f32; a key-major launch (64 key rows a block, q~, dO and the statistics
-//     double-buffered) writes dv and dk~ in f32; then pass 4 of the f32 path
-//     below runs the LN + RoPE backward on dq~ and dk~ and writes the scale
-//     partials, one (D,) row a 64-row block. 9 products a pair, no atomics,
-//     nothing in shared memory that grows with S.
+//   * S > 256, "split" (shared with #6): #1's LN + RoPE pass
+//     (attention_split.cuh) writes q~ and k~ (bf16, rounded as above) to the
+//     workspace; a query-major launch writes the rows' (m, 1/l, row) and dq~
+//     in f32, a key-major launch dv and dk~ (dk~ in f32): at head dims 64
+//     and 128 on wgmma fed by TMA rings (attention_split_bwd.cuh: 128 rows of
+//     one pair a block, two consumer warpgroups and a producer), at 16 and 32
+//     on mma.sync (attention_split.cuh: 64 rows a block, double buffers);
+//     then pass 4 of the f32 path below runs the LN + RoPE backward on dq~
+//     and dk~ and writes the scale partials, one (D,) row a 64-row block. 9
+//     products a pair, no atomics, nothing in shared memory that grows with S.
 // - Epilogue: a warp's 16 x D accumulators pass through its own 8 staging rows
 //   in shared memory, so that D/4 lanes (a half-warp at D = 64) take a whole
 //   row, a lane holding dims d and d + D/2 (RoPE's transpose needs no shuffle) and every global access of
@@ -115,6 +116,7 @@
 
 #include "attention_f32_wide.cuh"
 #include "attention_split.cuh"
+#include "attention_split_bwd.cuh"
 #include "fused_attention_bwd_mma.cuh"
 
 namespace {
@@ -620,8 +622,8 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
   return cudaGetLastError();
 }
 
-// The bf16 split variant (attention_split.cuh): q~ and k~ by #1's LN + RoPE
-// pass, the softmax backward's two launches on them with dq~ and dk~ in f32,
+// The bf16 split variant: q~ and k~ by #1's LN + RoPE pass, the softmax
+// backward's two launches on them (launch_split_bwd) with dq~ and dk~ in f32,
 // then pass 4 above on those. work (f32 words): dq~ | dk~ (B H S D each, row
 // pair * S + i, as Work's) | q~ | k~ (bf16, B S H D each) | m | 1/l | row (B H S each).
 template <int D>
@@ -648,7 +650,7 @@ cudaError_t launch_split(const void* qkv, const void* q_scale, const void* k_sca
                              static_cast<const unsigned char*>(mask), tilde(w.dqr), tilde(w.dkr),
                              sp::Out<bf16>{static_cast<bf16*>(dqkv) + 2 * HD, S * token, D, token}, stats,
                              B, S, H};
-  err = sp::launch_bwd<D, float>(a, stream);
+  err = fa_mma::launch_split_bwd<D, float>(a, stream);
   if (err != cudaSuccess) return err;
   ln_rope_bwd_kernel<bf16, D><<<(unsigned)n_blocks, THREADS, 0, stream>>>(
       x, static_cast<const float*>(q_scale), static_cast<const float*>(k_scale), static_cast<const float*>(cos_t),
@@ -666,8 +668,9 @@ cudaError_t launch_split(const void* qkv, const void* q_scale, const void* k_sca
 // 3 * B * H * S floats; variant, unit and warps are not read.
 // bf16: variant (slab 0, tile 1, split 2), unit (pairs a slab block, 1
 // otherwise) and warps from the plan; slab and tile: n_blocks = the grid, work
-// is not read; split (4 warps): n_blocks = ceil(B * H * S / 64), work = f32
-// scratch of 3 * B * H * S * D + 3 * B * H * S floats.
+// is not read; split (12 warps at head dims 64 and 128, 4 at 16 and 32):
+// n_blocks = ceil(B * H * S / 64), work = f32 scratch of 3 * B * H * S * D +
+// 3 * B * H * S floats.
 extern "C" int vvt_fused_attention_bwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
                                        const void* g, void* dqkv, void* dqs_part, void* dks_part,
@@ -687,7 +690,7 @@ extern "C" int vvt_fused_attention_bwd(const void* qkv, const void* q_scale, con
       return launch<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv, dqs_part, dks_part, work, B, S,
                               H, n_blocks, st);
     if (variant == fa_mma::SPLIT) {
-      if (unit != 1 || warps != fa_mma::split::WARPS) return cudaErrorInvalidValue;
+      if (unit != 1 || warps != fa_mma::split_bwd_warps<D>()) return cudaErrorInvalidValue;
       return launch_split<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv, dqs_part, dks_part, work, B, S, H,
                              n_blocks, st);
     }

@@ -38,7 +38,10 @@ with S; its forward is one walk over the keys with a running max (#1, and
 #7's attention) or two, for the exact row max and sum first (#5), and its
 backward (#3, #6) is a query-major launch (statistics and dq) and a
 key-major one (dv and dk), with no atomics, through an f32 workspace that
-the wrapper allocates. #1 and #3 first write q̃ and k̃ (LN and RoPE, rounded
+the wrapper allocates; at head dims 64 and 128 the backward's two launches
+run on wgmma fed by TMA rings (``csrc/attention_split_bwd.cuh``: 128 own
+rows a block, two consumer warpgroups and a producer), at 16 and 32 on
+mma.sync as above. #1 and #3 first write q̃ and k̃ (LN and RoPE, rounded
 to bf16) to a workspace with the same LN and RoPE code as the tile variant.
 At 128 the bf16 slab and tile blocks cap at 8 warps (255 registers a thread
 for a warp's 16 × 128 f32 accumulators), and the backward's tile blocks keep
@@ -156,10 +159,36 @@ SPLIT_ROWS = 64
 SPLIT_WARPS = SPLIT_ROWS // 16
 
 
+# The split backward at head dims 64 and 128 (csrc/attention_split_bwd.cuh): wgmma
+# fed by TMA rings, a block owns SPLIT_BWD_ROWS rows of a pair (64 for each of two
+# consumer warpgroups) beside a producer warpgroup; head dims 16 and 32 keep the
+# forward's geometry above (mma.sync), as their rows are below the 128-byte swizzle
+# span the wgmma tiles are laid out on.
+SPLIT_BWD_ROWS = 128
+SPLIT_BWD_WARPS = 12
+WGMMA_HEAD_DIMS = (64, 128)
+
+
 def split_grid(batch: int, seq: int, heads: int) -> int:
     """Blocks of each split launch but the LN + RoPE pass: one per (sequence,
     head) pair and tile of ``SPLIT_ROWS`` of its rows, a pair's tiles adjacent."""
     return batch * heads * -(-seq // SPLIT_ROWS)
+
+
+def split_bwd_grid(batch: int, seq: int, heads: int, head_dim: int) -> int:
+    """Blocks of each of the split backward's two launches: :func:`split_grid`
+    at head dims 16 and 32; one per pair and tile of ``SPLIT_BWD_ROWS`` rows at
+    64 and 128 (a pair's tiles adjacent either way)."""
+    if head_dim in WGMMA_HEAD_DIMS:
+        return batch * heads * -(-seq // SPLIT_BWD_ROWS)
+    return split_grid(batch, seq, heads)
+
+
+def split_bwd_warps(head_dim: int) -> int:
+    """Warps of a split backward block, by head dim alone: ``SPLIT_BWD_WARPS``
+    (two consumer warpgroups and a producer) at 64 and 128, ``SPLIT_WARPS`` at
+    16 and 32."""
+    return SPLIT_BWD_WARPS if head_dim in WGMMA_HEAD_DIMS else SPLIT_WARPS
 
 
 def mma_max_warps(head_dim: int) -> int:
@@ -256,12 +285,13 @@ def fused_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) ->
     tiles in turn, then its key tiles, and the grid is ceil(B·H / pairs a
     block). The C entry point derives the shared memory from these and the
     shape. Past ``TILE_MAX_SEQ`` = 256 tokens, ``"split"``: a query-major
-    launch and a key-major one of :func:`split_grid` blocks, ``SPLIT_WARPS``
-    warps each (one pair each, unit 1).
+    launch and a key-major one of :func:`split_bwd_grid` blocks,
+    :func:`split_bwd_warps` warps each (one pair each, unit 1): wgmma at head
+    dims 64 and 128, mma.sync at 16 and 32.
     """
     check_head_dim(head_dim)
     if seq > TILE_MAX_SEQ:
-        return "split", 1, SPLIT_WARPS
+        return "split", 1, split_bwd_warps(head_dim)
     tiles = -(-seq // 16)
     if seq <= BWD_SLAB_MAX_SEQ:
         unit = max(1, min(BWD_SLAB_WARPS // tiles, batch * heads))
@@ -688,14 +718,14 @@ def _rows_of_heads(t: torch.Tensor):
     A (B, S, H, D) tensor whose heads are dense and whose rows (b, i) are
     evenly spaced and 16-byte aligned (the kernels load 8 elements at a time)
     is taken as it is (v as a view into the fused QKV projection); anything
-    else is copied.
+    else is copied, a contiguous view at a base off 16 bytes too.
     """
     b, s, h, d = t.shape
     st = t.stride()
     dense_heads = st[3] == 1 and st[2] == d and st[1] >= h * d
     aligned = st[1] % 8 == 0 and t.data_ptr() % 16 == 0
     if not (dense_heads and aligned and (b == 1 or st[0] == s * st[1])):
-        t = t.contiguous()
+        t = t.clone(memory_format=torch.contiguous_format)
     return t, t.stride(1)
 
 
@@ -778,7 +808,7 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
         variant = MMA_VARIANTS.index(name)
         if name == "split":
             work = torch.empty(3 * b * h * s, dtype=torch.float32, device=device)  # m, 1/l, row per query
-            n_blocks = split_grid(b, s, h)
+            n_blocks = split_bwd_grid(b, s, h, d)
         else:
             n_blocks = -(-b * h // unit)
     else:

@@ -1,7 +1,7 @@
 """What sets the pace of the bf16 attention kernels (#3, #5, #6), of the
 MLP sublayer kernel (#8) and of the tap-dot conv (#9).
 
-    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 3|5|6|8|9]
+    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 3|5|6|8|9] [--split]
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
 It builds copies of the kernel's source (#3, the default:
@@ -18,8 +18,13 @@ per call of each copy: for #3, #5 and #6 at each bf16 attention call of the
 flagship train step (``chip_smoke.device_ms``), for #8 at its N = 8192 and N = 4096 calls,
 each of its three launches (``chip_smoke.device_launch_ms``), for #9 at each
 of its calls on the tap-dot model (b2 x 16 frames), the whole call and its
-launches (the channels-last copies, the GEMM). The time a phase takes is the
-full kernel's less the copy without it. Nothing here runs on import.
+launches (the channels-last copies, the GEMM). ``--split`` (#3 and #6)
+takes the split backward past 256 tokens instead: the cuts of ``SPLIT_CUTS``
+in ``csrc/attention_split_bwd.cuh`` (its query side's first walk, the dq
+product, the dv and dk products, the ring's TMA loads, the exps), timed at
+the bf16 spatial calls of the flagship's 512² serving pass and train step (S
+= 1024, b2 and b1; head dim 64). The time a phase takes is the full kernel's
+less the copy without it. Nothing here runs on import.
 """
 
 from __future__ import annotations
@@ -110,13 +115,38 @@ KERNELS = {
 }
 
 
-def _build_cut(kernel: str, name: str, edits):
+# the split backward's phases (csrc/attention_split_bwd.cuh, #3 and #6 past 256 tokens):
+# the query side's first walk (its steps, products and exps: the walk runs no times),
+# the query side's dq product, the key side's dv and dk products, the ring's TMA
+# loads (each stage's `full` mbarrier expects no bytes; the stages keep what they
+# held), every exp
+SPLIT_HEADER = "attention_split_bwd.cuh"
+SPLIT_CUTS = {
+    "full": [],
+    "no_walk1": [("steps = 2 * tiles;", "steps = tiles;"),
+                 ("const bool first_walk = n < tiles;", "const bool first_walk = false;")],
+    "no_dq": [("mma_rows<D, KT>(dq, ds, k_tile);", f"if ({_NEVER}) mma_rows<D, KT>(dq, ds, k_tile);")],
+    "no_dvdk": [("mma_rows<D, QT>(dv, pa, do_tile);", f"if ({_NEVER}) mma_rows<D, QT>(dv, pa, do_tile);"),
+                ("mma_rows<D, QT>(dk, da, q_tile);", f"if ({_NEVER}) mma_rows<D, QT>(dk, da, q_tile);")],
+    "no_ring_loads": [("mbar_expect_tx(&full[stage], 2 * KB);", "mbar_expect_tx(&full[stage], 0);"),
+                      ("mbar_expect_tx(&full[stage], 2 * QB);", "mbar_expect_tx(&full[stage], 0);"),
+                      ("load_tile<D, KT>(st, &maps.", f"if ({_NEVER}) load_tile<D, KT>(st, &maps."),
+                      ("load_tile<D, KT>(st + KB, &maps.", f"if ({_NEVER}) load_tile<D, KT>(st + KB, &maps."),
+                      ("load_tile<D, QT>(st, &maps.", f"if ({_NEVER}) load_tile<D, QT>(st, &maps."),
+                      ("load_tile<D, QT>(st + QB, &maps.", f"if ({_NEVER}) load_tile<D, QT>(st + QB, &maps.")],
+    "no_exp": [("exp2f(", "(")],
+}
+
+
+def _build_cut(kernel: str, name: str, edits, split: bool = False):
     """Start nvcc on a copy of csrc with the cut applied; (process, library path).
 
     Each replacement applies to every one of the kernel's headers that holds
     the text, and must be found in at least one."""
     source, headers, _, _, _ = KERNELS[kernel]
-    out_dir = _build.BUILD_DIR / "phases" / kernel / name
+    if split:
+        headers = (SPLIT_HEADER,)
+    out_dir = _build.BUILD_DIR / "phases" / (kernel + "-split" if split else kernel) / name
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.copytree(_build.CSRC, out_dir)
     texts = {h: (out_dir / h).read_text() for h in headers}
@@ -142,20 +172,22 @@ def _kernel(counter: _build.CudaKernel, lib_path) -> _build.CudaKernel:
     return kernel
 
 
-def _attention_calls(kernel_id, dev):
-    """(case, its fields, call) of each bf16 attention call of the flagship train step."""
+def _attention_calls(kernel_id, dev, split=False):
+    """(case, its fields, call) of each bf16 attention call of the flagship train step,
+    or with ``split`` each bf16 spatial call (S > 256) of its 512² serving pass and
+    train step."""
     import torch
 
     import chip_smoke
     from video_vae_tpu_torch import ModelConfig
 
-    cfg = ModelConfig()
+    cfg = chip_smoke.long_config() if split else ModelConfig()
     H, D = cfg.num_heads, cfg.head_dim
     gen = torch.Generator().manual_seed(0)
     for name, B, S, padded, dtype, _ in chip_smoke.attention_cases(cfg):
-        qkv, g, qs, ks, mask, _ = chip_smoke._attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
-        if dtype != "bfloat16":
+        if dtype != "bfloat16" or (split and S <= fa.TILE_MAX_SEQ):
             continue
+        qkv, g, qs, ks, mask, _ = chip_smoke._attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
         if kernel_id == "3":
             def call(qkv=qkv, qs=qs, ks=ks, mask=mask, g=g):
                 return fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
@@ -223,12 +255,18 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernel", choices=sorted(KERNELS), default="3")
-    kernel_id = parser.parse_args(argv).kernel
+    parser.add_argument("--split", action="store_true", help="#3 or #6: the split backward's phases at 512²")
+    args = parser.parse_args(argv)
+    kernel_id, split = args.kernel, args.split
+    if split and kernel_id not in ("3", "6"):
+        raise SystemExit("--split takes --kernel 3 or 6")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases needs a CUDA card")
     _, _, module, attr, cuts = KERNELS[kernel_id]
+    if split:
+        cuts = SPLIT_CUTS
     full = getattr(module, attr)
-    builds = {name: _build_cut(kernel_id, name, edits) for name, edits in cuts.items()}
+    builds = {name: _build_cut(kernel_id, name, edits, split) for name, edits in cuts.items()}
     kernels = {}
     for name, (proc, lib) in builds.items():
         log, _ = proc.communicate()
@@ -240,7 +278,7 @@ def main(argv=None) -> int:
     print(smi.stdout.strip(), flush=True)
     dev = torch.device("cuda")
     calls = {"8": lambda: _mlp_calls(dev), "9": lambda: _tapdot_calls(dev)}.get(
-        kernel_id, lambda: _attention_calls(kernel_id, dev))()
+        kernel_id, lambda: _attention_calls(kernel_id, dev, split))()
     try:
         for name, fields, call in calls:
             times = {}
@@ -252,8 +290,8 @@ def main(argv=None) -> int:
                     times[cut] = [chip_smoke.device_ms(call), chip_smoke.device_launch_ms(call, fields["launches"])]
                 else:
                     times[cut] = chip_smoke.device_ms(call)
-            print("kernel-phases", json.dumps({"kernel": kernel_id, "case": name, **fields, "device_ms": times}),
-                  flush=True)
+            print("kernel-phases", json.dumps({"kernel": kernel_id, "split": split, "case": name, **fields,
+                                               "device_ms": times}), flush=True)
     finally:
         setattr(module, attr, full)
     return 0
