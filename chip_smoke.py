@@ -139,9 +139,10 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    beforehand, after step 9's checks ("long-seq-kernels": #1, #3, #5, #6 and #7 at the
    calls of its serving pass and train step, spatial S = 1024 and temporal S = 16,
    counted on the 512² paths, with the flagship's gates; at S = 257 and 576 at head_dim
-   64, and also 1024 at 128, masked, bf16 and f32; #3 and #6's split backward at head
-   dims 16 to 128, unmasked and masked, device ms beside SDPA's backward and the bound
-   ("split-bwd"); #2 and #4 at its UNet's convs). At
+   64, and also 1024 at 128, masked, bf16 and f32; #1, #5 and #7's split forward at head
+   dims 16 to 128, unmasked and masked, device ms beside SDPA's forward, #7's chain and
+   the bound ("split-fwd"); #3 and #6's split backward at the same cases, device ms
+   beside SDPA's backward and the bound ("split-bwd"); #2 and #4 at its UNet's convs). At
    full width and depth: its bf16 b2 x 16f
    serving pass on the fused, sublayer and pallas paths ("serving-512",
    "serving-512-sublayer", "serving-512-pallas"), its bf16 b1 x 16f train step (remat
@@ -323,12 +324,13 @@ VGG_CONV_CASES = (
 def sublayer_launches(dtype: str, seq: int) -> tuple:
     """The attention sublayer kernel's launches in order (``SUBLAYER_LAUNCHES``); past
     ``TILE_MAX_SEQ`` bf16 x's attention is the split variant's two: its LN + RoPE pass
-    and its core."""
+    and its core (``split_wg_fwd_kernel`` at head dims 64 and 128, ``split_fwd_kernel``
+    at 16 and 32)."""
     from video_vae_tpu_torch.ops.flash_attention import TILE_MAX_SEQ
 
     if dtype == "bfloat16" and seq > TILE_MAX_SEQ:
         ln, qkv, _, out = SUBLAYER_LAUNCHES[dtype]
-        return ln, qkv, ("norm_rope", "qk_norm_rope_kernel"), ("attention", "split_fwd_kernel"), out
+        return ln, qkv, ("norm_rope", "qk_norm_rope_kernel"), ("attention", "_fwd_kernel"), out
     return SUBLAYER_LAUNCHES[dtype]
 
 
@@ -3524,8 +3526,10 @@ def phase_long_seq_kernels(dev, rows):
     the flagship's (the same bits twice, a sequence whose keys are all masked,
     SDPA beside each); then at S = 257 and 576 at head_dim 64, and also at 1024
     at head_dim 128 (the flagship's width in 4 heads), masked, bf16 and f32,
-    counted on no path; then #3 and #6's split backward at its own cases
-    (:func:`phase_split_bwd_kernels`: head dims 16 to 128, unmasked and masked, a
+    counted on no path; then #1, #5 and #7's split forward at its own cases
+    (:func:`phase_split_fwd_kernels`: head dims 16 to 128, unmasked and masked, a
+    "split-fwd" line each beside SDPA's forward and #7's chain); then #3 and #6's
+    split backward at the same cases (:func:`phase_split_bwd_kernels`, a
     "split-bwd" line each beside SDPA's backward); then #2 and #4 at the 512²
     UNet's convs (bf16), counted on "serving-512" and "train-512"."""
     cfg = long_config()
@@ -3538,8 +3542,24 @@ def phase_long_seq_kernels(dev, rows):
         phase_attention_kernels(model, dev, rows, None, None, cases, masked_rows=True)
         phase_flash_kernels(model, dev, rows, cases, paths=False)
         phase_sublayer_kernel(model, dev, rows, cases, paths=False)
+    phase_split_fwd_kernels(dev)
     phase_split_bwd_kernels(dev)
     phase_conv_kernels(cfg, dev, rows, "serving-512", "train-512", f32=False)
+
+
+def phase_split_fwd_kernels(dev):
+    """#1, #5 and #7's split forward (past 256 tokens: the wgmma launch at head dims
+    64 and 128, mma.sync at 16 and 32) at ``utils/split_bwd_times.py:CASES``, each
+    without a key mask and with one that keeps a prefix of each sequence (the first
+    sequence none, so its rows average all S keys): each kernel against its plain
+    version within ``KERNEL_TOL``, the same bits from two launches; one "split-fwd"
+    line a case with the device ms a call of #1, #5 and #7 beside SDPA's forward on
+    the same q, k and v and #7's chain (the yardsticks) and the bounds. Counted on
+    no path and left out of the kernel record, as :func:`phase_split_bwd_kernels`."""
+    from video_vae_tpu_torch.utils import split_fwd_times
+
+    for line in split_fwd_times.lines(dev):
+        log("split-fwd", json.dumps(line))
 
 
 def phase_split_bwd_kernels(dev):

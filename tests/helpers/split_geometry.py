@@ -1,17 +1,22 @@
 """The split variant of the bf16 attention kernels (``csrc/attention_split.cuh``
-and, for the backward at head dims 64 and 128, ``csrc/attention_split_bwd.cuh``),
-walked on the CPU: the geometry each launch derives from the plan and the
-shape, and the rows, tiles, buffers and chunks its blocks and warps take.
+at head dims 16 and 32; at 64 and 128 the forward of
+``csrc/attention_split_fwd.cuh`` and the backward of
+``csrc/attention_split_bwd.cuh``), walked on the CPU: the geometry each
+launch derives from the plan and the shape, and the rows, tiles, buffers and
+chunks its blocks and warps take.
 
 :class:`SplitGeometry` mirrors ``launch_fwd`` / ``launch_bwd`` /
 ``launch_norm_rope`` (grid, warps, shared memory) and deals out the work as
 ``split_fwd_kernel``, ``split_bwd_query_kernel``, ``split_bwd_key_kernel``
-and ``qk_norm_rope_kernel`` do; :class:`WgmmaBwdGeometry` mirrors
-``split_wg::launch_bwd`` (grid, warpgroups, ring stages, TMA boxes, shared
-memory, registers, which loads are TMA and which cp.async) and the steps of
-``split_wg_query_kernel`` and ``split_wg_key_kernel``; :func:`check_split`
-holds one shape to them. The plan tests of #1, #3, #5 and #6 call it at the
-long sequences.
+and ``qk_norm_rope_kernel`` do; :class:`WgmmaFwdGeometry` mirrors
+``split_wg::launch_fwd`` (grid, warpgroups, ring stages and what each
+stage's `full` mbarrier expects, TMA boxes, shared memory, registers, the
+warpgroups' turns) and the steps of ``split_wg_fwd_kernel``;
+:class:`WgmmaBwdGeometry` mirrors ``split_wg::launch_bwd`` (grid,
+warpgroups, ring stages, TMA boxes, shared memory, registers, which loads are
+TMA and which cp.async) and the steps of ``split_wg_query_kernel`` and
+``split_wg_key_kernel``; :func:`check_split` holds one shape to them. The
+plan tests of #1, #3, #5, #6 and #7 call it at the long sequences.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from video_vae_tpu_torch.ops.flash_attention import (
     mma_row_bytes,
     split_bwd_grid,
     split_bwd_warps,
+    split_fwd_grid,
+    split_fwd_warps,
     split_grid,
 )
 
@@ -49,6 +56,10 @@ SPLIT_TILE, MIN_BLOCKS, PREP_ROWS, BWD_KT = 64, 2, 64, 2
 # consumers; keys a query-side stage holds: key_tile(D)
 WG_ROWS, CONSUMERS, QUERY_TILE, STAGES, PANEL, ALIGN = 64, 2, 64, 3, 64, 1024
 PRODUCER_REGS, CONSUMER_REGS, SM_REGS, MAX_REGS = 40, 232, 65536, 255
+# attention_split_fwd.cuh's: the forward's ring stages, the first of the two named
+# barriers that hand the warpgroups their turns (the epilogue's are 1 + warpgroup),
+# and the barriers an SM has
+FWD_STAGES, TURN_BAR, NAMED_BARRIERS = 3, 3, 16
 
 # the long sequences the plan tests take: past the tile variant's 256, S not a
 # multiple of 16 or 64 (257, 300, 324 = 18² patches at 288², 576 = 24² at 384²),
@@ -257,18 +268,186 @@ class WgmmaBwdGeometry:
                 for n in range(walks * tiles)]
 
 
+@dataclasses.dataclass(frozen=True)
+class WgmmaFwdGeometry:
+    """The split forward's launches at head dims 64 and 128 (``split_wg::launch_fwd``):
+    #1 and #7's attention (``normalize=False``: one launch, ONLINE) and #5 (two:
+    STATS, which streams k alone and parks each row's max and 1/l in its own
+    output row, then NORMALIZED)."""
+
+    batch: int
+    seq: int
+    heads: int
+    head_dim: int
+    normalize: bool
+
+    @property
+    def pairs(self) -> int:
+        return self.batch * self.heads
+
+    @property
+    def row_tiles(self) -> int:
+        """Blocks of a pair: 64 query rows for each of two consumer warpgroups."""
+        return -(-self.seq // (WG_ROWS * CONSUMERS))
+
+    @property
+    def grid(self) -> int:
+        return self.pairs * self.row_tiles
+
+    @property
+    def threads(self) -> int:
+        return 128 * (CONSUMERS + 1)
+
+    @property
+    def key_tile(self) -> int:
+        return key_tile(self.head_dim)
+
+    @property
+    def tiles(self) -> int:
+        """Key tiles a walk streams (``split_wg::tiles_of``)."""
+        return -(-self.seq // self.key_tile)
+
+    @property
+    def launches(self) -> tuple[str, ...]:
+        return ("stats", "normalized") if self.normalize else ("online",)
+
+    @property
+    def boxes(self) -> int:
+        return self.head_dim // PANEL
+
+    def tile_bytes(self, rows: int) -> int:
+        return self.boxes * rows * PANEL * 2
+
+    @property
+    def smem(self) -> int:
+        """The alignment slack, the own q rows (each warpgroup's output leaves
+        through them), the ring of k and v tiles, the mbarriers (own, full and
+        empty a stage)."""
+        return (ALIGN + CONSUMERS * self.tile_bytes(WG_ROWS) + FWD_STAGES * 2 * self.tile_bytes(self.key_tile)
+                + (1 + 2 * FWD_STAGES) * 8)
+
+    def steps(self, launch: str):
+        """(step, key tile, first key, stage, parity the consumers wait on `full`,
+        parity the producer waits on `empty`, bytes `full` expects) of each step
+        of a block of ``launch``: every launch walks the key tiles once, through
+        a ring of fresh mbarriers."""
+        kb = self.tile_bytes(self.key_tile) * (1 if launch == "stats" else 2)
+        return [(n, n, n * self.key_tile, n % FWD_STAGES, (n // FWD_STAGES) & 1, ((n // FWD_STAGES) & 1) ^ 1, kb)
+                for n in range(self.tiles)]
+
+    def stat_slot(self, b: int, i: int, h: int) -> tuple[int, int]:
+        """Bytes [first, last) of the output (B, S, H, D) bf16 where #5's first
+        launch parks row (b, i, h)'s max and 1/l (two f32): the row's own output
+        row, which only its own block's second launch reads and then overwrites."""
+        first = ((b * self.seq + i) * self.heads + h) * self.head_dim * 2
+        return first, first + 8
+
+    def live(self, row0: int) -> int:
+        return min(CONSUMERS, -(-(self.seq - row0) // WG_ROWS))
+
+    def turns(self, live: int, launch: str) -> list[int]:
+        """The order in which a block's warpgroups issue their products: with both
+        live each takes one turn a step (and one for the last P.V, but in the
+        statistics launch), warpgroup 0 first, each turn waited on its own named
+        barrier (``TURN_BAR`` + warpgroup) and handed over on the other's; a lone
+        warpgroup takes no turns. Walks the barriers: raises if a turn would wait
+        on an arrival that never comes, or an arrival is left over."""
+        if live < CONSUMERS:
+            return []
+        n_turns = self.tiles + (0 if launch == "stats" else 1)
+        arrivals = {TURN_BAR: CONSUMERS - 1, TURN_BAR + 1: 0}  # warpgroup 1 lets 0 go first
+        taken, order = [0, 0], []
+        while min(taken) < n_turns:
+            moved = False
+            for wg in range(CONSUMERS):
+                if taken[wg] < n_turns and arrivals[TURN_BAR + wg] > 0:
+                    arrivals[TURN_BAR + wg] -= 1
+                    taken[wg] += 1
+                    order.append(wg)
+                    if wg == 0 or taken[wg] < n_turns:  # warpgroup 1's last turn hands over nothing
+                        arrivals[TURN_BAR + 1 - wg] += 1
+                    moved = True
+                    break
+            assert moved, "a warpgroup waits on a turn that never comes"
+        assert arrivals == {TURN_BAR: 0, TURN_BAR + 1: 0}, arrivals
+        return order
+
+
+def _check_wgmma_fwd(geo: WgmmaFwdGeometry, kind: str):
+    """The forward's launch: grid, warps, boxes, shared memory, registers,
+    operands; every own row in exactly one live warpgroup; the ring's steps and
+    parities; the warpgroups' turns."""
+    assert geo.grid == split_fwd_grid(geo.batch, geo.seq, geo.heads, geo.head_dim) <= MAX_GRID_X
+    assert split_fwd_warps(geo.head_dim) == SPLIT_BWD_WARPS == geo.threads // 32
+    assert PANEL * 2 == 128 and geo.boxes * PANEL == geo.head_dim
+    assert geo.key_tile % 64 == 0 and geo.key_tile <= 256 and (geo.key_tile * PANEL * 2) % ALIGN == 0
+    # one block an SM; the own q tile of a warpgroup holds its 64 x D bf16 output
+    assert geo.smem <= MAX_SMEM and geo.smem + BLOCK_RESERVED <= SM_SMEM
+    assert geo.smem == {64: 115768, 128: 132152}[geo.head_dim]
+    assert geo.tile_bytes(WG_ROWS) == WG_ROWS * geo.head_dim * 2
+    # a consumer's registers: the scores of a tile (f32), P of the last tile (bf16
+    # fragments, in flight under the scores), O (f32) and at head dim 64 q's
+    # fragments, under setmaxnreg's CONSUMER_REGS with room for the rest
+    own = geo.head_dim // 4 if geo.head_dim == 64 else 0
+    regs = geo.key_tile // 2 + geo.key_tile // 4 + geo.head_dim // 2 + own
+    assert regs == {64: 144, 128: 112}[geo.head_dim] and regs <= 192 < CONSUMER_REGS
+    # named barriers: the epilogue's 1 + warpgroup and the two turns, none of them 0
+    assert TURN_BAR > CONSUMERS and TURN_BAR + CONSUMERS <= NAMED_BARRIERS
+    for name, (stride, offset) in tma_operands(kind, geo.batch, geo.seq, geo.heads, geo.head_dim).items():
+        assert loads(stride, offset) == "tma", name
+    owners = np.zeros((geo.pairs, geo.row_tiles * WG_ROWS * CONSUMERS), dtype=np.int32)
+    for x in range(geo.grid):
+        pair, row0 = divmod(x, geo.row_tiles)
+        row0 *= WG_ROWS * CONSUMERS
+        live = geo.live(row0)
+        assert 1 <= live <= CONSUMERS
+        for w in range(live):
+            owners[pair, row0 + w * WG_ROWS : row0 + (w + 1) * WG_ROWS] += 1
+        assert all(row0 + w * WG_ROWS >= geo.seq for w in range(live, CONSUMERS))
+    assert (owners[:, : geo.seq] == 1).all()
+    for launch in geo.launches:
+        completed = {}
+        steps = geo.steps(launch)
+        assert [s[1] for s in steps] == list(range(geo.tiles))
+        for n, tile, first, stage, full_parity, empty_parity, expect in steps:
+            assert first == tile * geo.key_tile and first < geo.seq
+            uses = completed.get(stage, 0)
+            assert empty_parity == (uses - 1) & 1 and full_parity == uses & 1
+            completed[stage] = uses + 1
+            # the statistics launch streams k alone; a P.V walk k and v
+            assert expect == geo.tile_bytes(geo.key_tile) * (1 if launch == "stats" else 2)
+        # the turns alternate, each warpgroup one a step and (P.V) one for the last P.V
+        order = geo.turns(CONSUMERS, launch)
+        assert order == [0, 1] * (geo.tiles + (0 if launch == "stats" else 1))
+        assert geo.turns(1, launch) == []
+    assert (geo.tiles - 1) * geo.key_tile < geo.seq <= geo.tiles * geo.key_tile
+    if geo.normalize:  # every row's statistics in its own output row: disjoint, inside the output
+        slots = [geo.stat_slot(b, i, h) for b in (0, geo.batch - 1) for i in (0, geo.seq - 1) for h in (0, geo.heads - 1)]
+        out_bytes = geo.batch * geo.seq * geo.heads * geo.head_dim * 2
+        assert all(first % 8 == 0 and last <= out_bytes for first, last in slots)
+        assert len({first // (geo.head_dim * 2) for first, _ in slots}) == len(set(slots))
+
+
 def tma_operands(kind: str, B: int, S: int, H: int, D: int) -> dict[str, tuple[int, int]]:
     """(row stride, offset of the base from its allocation), in bytes, of each
-    operand the split backward reads by TMA. #3 (``fused_attention_bwd.cu:
-    launch_split``): q~ and k~ in the f32 workspace after dq~ and dk~ (B H S D
-    floats each), k~ after q~; v a view into the fused qkv at 2 H D, rows 3 H D
-    apart; dO contiguous. #6: q, k and dO (B, S, H, D) and v a view into the
-    fused qkv, as the model's pallas path hands them over and
-    ``_rows_of_heads`` leaves them."""
+    operand a split launch at head dims 64 and 128 reads or writes by TMA. #3
+    (``fused_attention_bwd.cu:launch_split``): q~ and k~ in the f32 workspace
+    after dq~ and dk~ (B H S D floats each), k~ after q~; v a view into the
+    fused qkv at 2 H D, rows 3 H D apart; dO contiguous. #6: q, k and dO (B, S,
+    H, D) and v a view into the fused qkv, as the model's pallas path hands them
+    over and ``_rows_of_heads`` leaves them. The forward: #1 and #7's attention
+    (``launch_split_fused_fwd``) the raw q rows and v, views into the fused qkv
+    (the sublayer's own qkv scratch; rows 3 H D apart, at 0 and 2 H D), k~ the
+    bf16 workspace (B S H D), the output (#7: its o scratch) contiguous; #5 q,
+    k, v as #6's, the output contiguous."""
     HD, rows = H * D, B * H * S
     v = (6 * HD, 4 * HD)
     if kind == "fused_bwd":
         return {"q": (2 * HD, 8 * rows * D), "k": (2 * HD, 8 * rows * D + 2 * rows * D), "v": v, "g": (2 * HD, 0)}
+    if kind in ("fused", "sublayer"):
+        return {"q": (6 * HD, 0), "k": (2 * HD, 0), "v": v, "o": (2 * HD, 0)}
+    if kind == "flash":
+        return {"q": (2 * HD, 0), "k": (2 * HD, 0), "v": v, "o": (2 * HD, 0)}
     return {"q": (2 * HD, 0), "k": (2 * HD, 0), "v": v, "g": (2 * HD, 0)}
 
 
@@ -359,8 +538,16 @@ def check_split(kind: str, B: int, S: int, H: int, D: int):
     """Hold the split launches of one kernel at (B, S, H, D) to their design.
 
     kind: "fused" (#1: the LN + RoPE pass, then one walk over k and v),
-    "flash" (#5: two walks, v on the second), "fused_bwd" (#3: the pass, then
-    both sides), "flash_bwd" (#6: both sides)."""
+    "sublayer" (#7's attention: #1's), "flash" (#5: two walks, v on the
+    second; two launches at head dims 64 and 128), "fused_bwd" (#3: the pass, then both sides), "flash_bwd" (#6:
+    both sides). At head dims 64 and 128 the wgmma launches, at 16 and 32 the
+    mma.sync ones."""
+    if kind in ("fused", "sublayer", "flash") and D in WGMMA_HEAD_DIMS:
+        wg = WgmmaFwdGeometry(B, S, H, D, normalize=kind == "flash")
+        _check_wgmma_fwd(wg, kind)
+        if kind != "flash":
+            _check_norm_rope(SplitGeometry(B, S, H, D))
+        return wg
     if kind in ("fused_bwd", "flash_bwd") and D in WGMMA_HEAD_DIMS:
         wg = WgmmaBwdGeometry(B, S, H, D)
         _check_wgmma_launch(wg, kind)
@@ -373,9 +560,9 @@ def check_split(kind: str, B: int, S: int, H: int, D: int):
     geo = SplitGeometry(B, S, H, D)
     _check_launch(geo)
     _check_own_rows(geo)
-    if kind in ("fused", "fused_bwd"):
+    if kind in ("fused", "sublayer", "fused_bwd"):
         _check_norm_rope(geo)
-    if kind == "fused":  # one walk, P.V online
+    if kind in ("fused", "sublayer"):  # one walk, P.V online
         _check_walks(geo, walks=1, kt=SPLIT_TILE // 16, v_each_walk=False, v_read_each_walk=True)
     elif kind == "flash":  # the statistics walk reads no v
         _check_walks(geo, walks=2, kt=SPLIT_TILE // 16, v_each_walk=False, v_read_each_walk=False)

@@ -13,7 +13,8 @@ limits. :class:`Geometry` derives the rest of the launch from the plan as
 ``launch_attention_mma`` in ``csrc/fused_attention_mma.cuh`` does, and deals
 out the query tiles and key chunks as ``attention_mma_kernel`` walks them.
 Past 256 tokens the plan is ``"split"``, whose launches
-``helpers/split_geometry.py`` walks at the long sequences; every S <= 256
+``helpers/split_geometry.py`` walks at the long sequences (the wgmma forward
+at head dims 64 and 128, the mma.sync one at 16 and 32); every S <= 256
 keeps the plan it had before the split variant.
 """
 
@@ -23,7 +24,7 @@ import numpy as np
 import pytest
 
 import chip_smoke
-from helpers.split_geometry import LONG_BATCHES, LONG_SEQS, SplitGeometry, check_split
+from helpers.split_geometry import LONG_BATCHES, LONG_SEQS, SplitGeometry, check_split, loads, tma_operands
 from video_vae_tpu_torch import ModelConfig
 from video_vae_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_DIMS,
@@ -33,6 +34,8 @@ from video_vae_tpu_torch.ops.flash_attention import (
     fused_attention_plan,
     mma_max_warps,
     mma_row_bytes,
+    split_fwd_grid,
+    split_fwd_warps,
 )
 
 # what the H100 accepts of one block and one grid (the kernel's __launch_bounds__ is mma_max_warps)
@@ -347,16 +350,80 @@ def test_attention_plan_splits_long_sequences(label, B, S, H, D):
 
 
 def test_attention_plan_at_512_is_as_designed():
-    """The flagship at 512² (a 32 x 32 patch grid): spatial S = 1024 splits, 16
-    query tiles a (sequence, head) pair, 4096 blocks of 4 warps at b2 x 16f,
-    each walking 16 key tiles; 45 KB a forward block at head_dim 64 (five an
-    SM by shared memory), 85 KB at 128. The temporal calls (S = 16) keep the
-    slab plan."""
+    """The flagship at 512² (a 32 x 32 patch grid): spatial S = 1024 splits; the
+    wgmma forward takes 128 query rows a block, 8 a (sequence, head) pair, 2048
+    blocks of 12 warps at b2 x 16f, each walking 8 key tiles of 128; 113 KB a
+    block at head_dim 64, 129 KB at 128 (64 keys a tile). Head dims 16 and 32
+    keep the mma.sync forward of 64 rows a block. The temporal calls (S = 16)
+    keep the slab plan."""
     cfg = ModelConfig(height=512, width=512)
     assert cfg.num_patches == 1024 and cfg.head_dim == 64
-    spatial = SplitGeometry(32, 1024, 8, 64)
     assert fused_attention_plan(32, 1024, 8, 64) == ("split", 1)
-    assert (spatial.row_tiles, spatial.grid, spatial.tiles) == (16, 4096, 16)
-    assert spatial.smem["forward"] == 320 * 144 == 46080
-    assert SplitGeometry(16, 1024, 4, 128).smem["forward"] == 320 * 272
+    spatial = check_split("fused", 32, 1024, 8, 64)
+    assert (spatial.row_tiles, spatial.grid, spatial.tiles, spatial.threads) == (8, 2048, 8, 384)
+    assert spatial.smem == 115768
+    h4 = check_split("fused", 16, 1024, 4, 128)
+    assert (h4.grid, h4.tiles, h4.boxes, h4.smem) == (512, 16, 2, 132152)
+    small = check_split("fused", 16, 576, 8, 16)
+    assert (small.grid, small.smem["forward"]) == (16 * 8 * 9, 320 * 48)
     assert fused_attention_plan(2 * 1024, 16, 8, 64) == ("slab", 1)
+
+
+@pytest.mark.parametrize("D", KERNEL_HEAD_DIMS)
+def test_split_fwd_grid_and_warps_follow_the_head_dim(D):
+    """The split forward's launch by head dim alone: the wgmma launch's 12 warps
+    (two consumer warpgroups and a producer) and a block a pair's 128 query rows
+    at 64 and 128, the mma.sync launch's 4 warps and 64 rows at 16 and 32; the
+    plan's unit stays 1 (the C entry points refuse another)."""
+    wgmma = D in (64, 128)
+    assert split_fwd_warps(D) == (12 if wgmma else 4)
+    for B, S, H in ((32, 1024, 8), (16, 257, 8), (3, 576, 2), (1, 4096, 4)):
+        assert split_fwd_grid(B, S, H, D) == B * H * -(-S // (128 if wgmma else 64))
+        assert fused_attention_plan(B, S, H, D) == ("split", 1)
+
+
+def test_attention_split_fwd_at_512_is_as_designed():
+    """#1's split forward at the 512² calls: the serving pass's b2 (32 x 8 pairs)
+    and the train step's b1 (16 x 8) at head dim 64, and the flagship's width in
+    4 heads of 128: 15.5, 7.8 and 3.9 waves of one block an SM on 132 SMs; one
+    walk, every stage k and v (32 KB); both warpgroups live in every block, so
+    each takes its turns in alternation (a step each and one for the last P.V)."""
+    for B, H, D, grid, tiles in ((32, 8, 64, 2048, 8), (16, 8, 64, 1024, 8), (16, 4, 128, 512, 16)):
+        geo = check_split("fused", B, 1024, H, D)
+        assert (geo.grid, geo.tiles, geo.launches) == (grid, tiles, ("online",))
+        assert {expect for *_, expect in geo.steps("online")} == {32768}
+        assert all(geo.live(row0) == 2 for row0 in range(0, 1024, 128))
+        assert len(geo.turns(2, "online")) == 2 * (tiles + 1)
+    assert [round(g / 132, 1) for g in (2048, 1024, 512)] == [15.5, 7.8, 3.9]
+    # S = 257: the last block's second warpgroup has no rows and the first takes no turns
+    ragged = check_split("fused", 16, 257, 8, 64)
+    assert (ragged.row_tiles, ragged.live(256), ragged.turns(ragged.live(256), "online")) == (3, 1, [])
+
+
+@pytest.mark.parametrize("D", KERNEL_HEAD_DIMS)
+def test_attention_split_operands_meet_tma_alignment(D):
+    """#1's and #7's split operands at every head dim: at 64 and 128 the raw q
+    rows and v, views into the fused qkv (rows 3 H D apart, at 0 and 2 H D),
+    and k~ in the bf16 workspace (B S H D: the blocks normalise their own q
+    rows); at 16 and 32 the workspace holds q~ | k~ for the mma.sync forward;
+    the output contiguous: every row stride and base a multiple of 16 bytes,
+    TMA's rule (and the mma.sync forward's 16-byte cp.async), at the 512² calls
+    and at ragged S."""
+    import torch
+
+    from video_vae_tpu_torch.ops.flash_attention import _split_qk_work
+
+    for B, S, H in ((32, 1024, 8), (3, 257, 2), (5, 300, 4)):
+        HD = H * D
+        if S < 1024:  # the wrappers' buffers, at the small shapes
+            work = _split_qk_work("split", B, S, H, D, "cpu")
+            assert work.numel() == (1 if D >= 64 else 2) * B * S * HD and work.data_ptr() % 16 == 0
+            assert (2 * B * S * HD) % 16 == 0  # k~ after q~ at 16 and 32
+            qkv = torch.zeros(B, S, 3 * HD, dtype=torch.bfloat16)
+            v = qkv[..., 2 * HD:]
+            assert (v.data_ptr() - qkv.data_ptr(), v.stride(1) * 2) == (4 * HD, 6 * HD)
+        for kind in ("fused", "sublayer"):
+            operands = tma_operands(kind, B, S, H, D)
+            assert operands["v"] == (6 * HD, 4 * HD) and operands["q"] == (6 * HD, 0)
+            for name, (stride, offset) in operands.items():
+                assert loads(stride, offset) == "tma", (kind, name)

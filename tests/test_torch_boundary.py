@@ -43,6 +43,7 @@ REQUIRED = (
     "video_vae_tpu_torch.models.classifier", "video_vae_tpu_torch.models.video_mae",
     "video_vae_tpu_torch.train.adversarial", "video_vae_tpu_torch.losses.losses",
     "video_vae_tpu_torch.cli.download", "video_vae_tpu_torch.utils.timing",
+    "video_vae_tpu_torch.utils.split_bwd_times", "video_vae_tpu_torch.utils.split_fwd_times",
 )
 
 

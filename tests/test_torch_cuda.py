@@ -171,8 +171,9 @@ def _jax_rounding_chain(qkv, qs, ks, mask, H, round_qk=True, round_p=True, norma
     LN + RoPE in f32, q~ and k~ rounded to bf16, f32 scores, P rounded to bf16
     before P.V: normalised first on JAX's packed rule (S < 128, S*H % 128 ==
     0), else unnormalised with 1/l on the f32 output, against the running max
-    of 64-key chunks as the kernel keeps it (exact up to 64 keys). The keyword
-    arguments leave a rounding out or take the other rule for P.
+    of key chunks as the kernel keeps it: 64 keys (exact up to 64), but 128 in
+    the split variant's wgmma forward at head_dim 64 (S > 256; its key tile).
+    The keyword arguments leave a rounding out or take the other rule for P.
     """
     B, S, three_hd = qkv.shape
     D = three_hd // (3 * H)
@@ -203,13 +204,14 @@ def _jax_rounding_chain(qkv, qs, ks, mask, H, round_qk=True, round_p=True, norma
         m = torch.full_like(scores[..., :1], -math.inf)
         l = torch.zeros_like(m)
         o = torch.zeros_like(q)
-        for c0 in range(0, S, 64):
-            s_c = scores[..., c0 : c0 + 64]
+        chunk = 128 if S > 256 and D == 64 else 64
+        for c0 in range(0, S, chunk):
+            s_c = scores[..., c0 : c0 + chunk]
             m_new = torch.maximum(m, s_c.amax(-1, keepdim=True))
             corr = torch.exp2((m - m_new) * c)
             p = torch.exp2((s_c - m_new) * c)
             l = l * corr + p.sum(-1, keepdim=True)
-            o = o * corr + rnd(p) @ v[..., c0 : c0 + 64, :]
+            o = o * corr + rnd(p) @ v[..., c0 : c0 + chunk, :]
             m = m_new
         o = o * (1 / l)
     return o.transpose(1, 2).reshape(B, S, H * D).bfloat16()
@@ -906,7 +908,8 @@ def test_split_attention_sublayer_matches_plain(device, dtype, B, S, H, D):
 @SPLIT_HEAD_DIMS
 def test_split_bf16_kernels_round_as_their_chains(device, B, S, H, D):
     """The split variant keeps each kernel's rounding rule: #1's output against
-    the JAX chain (q~, k~ and P unnormalised rounded, 64-key running max), #5's
+    the JAX chain (q~, k~ and P unnormalised rounded, the running max of the
+    kernel's key tile: 128 keys at head_dim 64, 64 at 128), #5's
     against ``_fwd_kernel``'s (P normalised first), #3's and #6's gradients
     against their chains (P and dS rounded), each matching but for a few flips
     while the chain with P kept in f32 misses far more."""
@@ -926,6 +929,64 @@ def test_split_bf16_kernels_round_as_their_chains(device, B, S, H, D):
     got = flash_attention_bwd_cuda(q, k, v, mask, gh)
     for a, b in zip(got, _flash_rounding_chain(q, k, v, mask, gh)):
         assert _bits_differ(a, b) <= FLASH_BWD_ROUNDING_SHARE_TOL
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_split_forward_takes_its_kernel_by_head_dim(device, D):
+    """Past 256 tokens #1, #5 and #7's attention launch the wgmma forward
+    (``split_wg_fwd_kernel``, attention_split_fwd.cuh; #5 twice, its statistics
+    and its P.V) at head dims 64 and 128 and the mma.sync one
+    (``split_fwd_kernel``, once) at 16 and 32, by the plan's head dim alone, as
+    the profiler's kernel names show (a trace that kept no kernel record, as
+    happens now and then on the H100, is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, S, H = 3, 300, 2
+    qkv, _, qs, ks, mask = _bwd_inputs(device, torch.bfloat16, B, S, H, "empty", 41, D)
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
+    args, smask = _sublayer_args(device, torch.bfloat16, B, S, 768, H, True, D)
+    want = "split_wg_fwd_kernel" if D >= 64 else "split_fwd_kernel"
+    for name, call in (("fused", lambda: fused_qkv_attention_cuda(qkv, qs, ks, mask, H)),
+                       ("flash", lambda: flash_attention_cuda(q.contiguous(), k.contiguous(), v, mask)),
+                       ("sublayer", lambda: fused_attention_sublayer_cuda(*args, smask, H))):
+        for _ in range(6):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+        split = [n for n in names if "split_wg_fwd_kernel" in n or "split_fwd_kernel" in n]
+        assert len(split) == (2 if name == "flash" and D >= 64 else 1), (name, names)
+        assert all(want in n for n in split), (name, names)
+
+
+@pytest.mark.parametrize("masked", [None, "empty"])
+@SPLIT_HEAD_DIMS
+def test_split_forward_same_bits_twice_at_512(device, masked, D):
+    """The wgmma split forward at the 512² spatial call (b2: 32 sequences of
+    1024 tokens, the flagship's width in heads of D), unmasked and with
+    sequence 0 keeping no key: #1, #5 and #7 each within the bf16 bound of its
+    plain version and the same bits on a second launch (no atomics, one owner
+    of every output row)."""
+    B, S, H = 32, 1024, 512 // D
+    qkv, _, qs, ks, mask = _bwd_inputs(device, torch.bfloat16, B, S, H, masked, 43, D)
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
+    q, k = q.contiguous(), k.contiguous()
+    for run, plain in ((lambda: fused_qkv_attention_cuda(qkv, qs, ks, mask, H),
+                        lambda: fused_qkv_attention_plain(qkv, qs, ks, mask, H)),
+                       (lambda: flash_attention_cuda(q, k, v, mask), lambda: flash_attention_plain(q, k, v, mask))):
+        out, again = run(), run()
+        torch.cuda.synchronize()
+        ref = plain()
+        assert _rel_err(out, ref) <= TOL[torch.bfloat16] and torch.equal(out, again)
+        if masked:
+            assert _rel_err(out[0], ref[0]) <= TOL[torch.bfloat16]
+    args, smask = _sublayer_args(device, torch.bfloat16, 4, S, 768, H, True, D)
+    got, again = (fused_attention_sublayer_cuda(*args, smask, H) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, fused_attention_sublayer_plain(*args, smask, H), again):
+        assert _rel_err(a, b) <= TOL[torch.bfloat16] and torch.equal(a, c)
 
 
 def test_serving_pass_at_512_on_the_card(device):

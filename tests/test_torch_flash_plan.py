@@ -13,7 +13,8 @@ from the plan as ``launch_flash_mma`` in ``csrc/flash_attention_mma.cuh`` does,
 and walks the copies, the query tiles and the key chunks as
 ``flash_fwd_kernel`` and ``attend`` do. Past 256 tokens the plan is the
 fused forward's ``"split"``, two walks over the key tiles (k, then k and v),
-walked by ``helpers/split_geometry.py``.
+walked by ``helpers/split_geometry.py`` (the wgmma launch at head dims 64 and
+128, the mma.sync one at 16 and 32).
 """
 
 import dataclasses
@@ -21,7 +22,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from helpers.split_geometry import check_split
+from helpers.split_geometry import check_split, loads, tma_operands
 from test_torch_attention_plan import (
     D128_BATCHES,
     H4_CASES,
@@ -43,6 +44,8 @@ from video_vae_tpu_torch.ops.flash_attention import (
     _rows_of_heads,
     flash_attention_plan,
     mma_max_warps,
+    split_fwd_grid,
+    split_fwd_warps,
 )
 
 D = 64
@@ -250,3 +253,48 @@ def test_flash_plan_split_sources_are_16_byte_aligned(S):
     """The split blocks copy 16 bytes at a time from the rows _rows_of_heads hands
     over, v a view into a fused QKV projection, as at the shorter sequences."""
     _check_sources(3, S, 2, D)
+
+
+def test_flash_split_fwd_at_512_is_as_designed():
+    """#5's split forward at the 512² calls (b2: 32 x 8 pairs, b1: 16 x 8, head
+    dim 64; 16 x 4 pairs at 128): two wgmma launches of 12 warps, 128 query rows
+    a block; the first streams k alone (16 KB a stage) for each row's max and
+    1/l, which it parks in the row's own output (8 of its 128 or 256 bytes), the
+    second k and v (32 KB); each starts its ring afresh; each live warpgroup
+    takes a turn a step (and the second one more, for the last P.V)."""
+    for B, H, Dh, grid, tiles in ((32, 8, 64, 2048, 8), (16, 8, 64, 1024, 8), (16, 4, 128, 512, 16)):
+        assert flash_attention_plan(B, 1024, H, Dh) == ("split", 1) and split_fwd_warps(Dh) == 12
+        geo = check_split("flash", B, 1024, H, Dh)
+        assert (geo.grid, geo.tiles, geo.launches) == (split_fwd_grid(B, 1024, H, Dh), tiles,
+                                                       ("stats", "normalized"))
+        assert geo.grid == grid
+        assert [expect for *_, expect in geo.steps("stats")] == [16384] * tiles
+        assert [expect for *_, expect in geo.steps("normalized")] == [32768] * tiles
+        assert [stage for _, _, _, stage, *_ in geo.steps("normalized")][:3] == [0, 1, 2]
+        assert (len(geo.turns(2, "stats")), len(geo.turns(2, "normalized"))) == (2 * tiles, 2 * (tiles + 1))
+        assert geo.stat_slot(0, 1, 0) == (H * Dh * 2, H * Dh * 2 + 8)
+    small = check_split("flash", 16, 576, 8, 32)  # head dim 32: the mma.sync launch, 64 rows a block
+    assert (small.grid, split_fwd_warps(32), split_fwd_grid(16, 576, 8, 32)) == (16 * 8 * 9, 4, 16 * 8 * 9)
+
+
+@pytest.mark.parametrize("Dh", KERNEL_HEAD_DIMS)
+def test_flash_split_operands_meet_tma_alignment(Dh):
+    """#5's strided inputs reach the split forward at 16-byte row strides and
+    bases at every head dim, TMA's rule: q and k contiguous and v a view into
+    the fused qkv are taken as they are, the output is contiguous; a view whose
+    base or row stride is not a multiple of 16 bytes is copied first
+    (``_rows_of_heads``), so no operand needs another load."""
+    B, S, H = 2, 300, 4
+    HD = H * Dh
+    qkv = torch.zeros(B, S, 3 * HD, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(B, S, H, Dh) for t in qkv.split(HD, -1))
+    for name, t, stride in (("q", q.contiguous(), HD), ("k", k.contiguous(), HD), ("v", v, 3 * HD)):
+        out, st = _rows_of_heads(t)
+        assert out.data_ptr() == t.data_ptr() and st == stride, name
+        assert loads(2 * st, out.data_ptr() % 256) == "tma", name
+    shifted = torch.zeros(B * S * HD + 1, dtype=torch.bfloat16)[1:].view(B, S, H, Dh)  # base 2 bytes off
+    out, st = _rows_of_heads(shifted)
+    assert loads(2 * shifted.stride(1), shifted.data_ptr() % 256) != "tma"
+    assert loads(2 * st, out.data_ptr() % 256) == "tma" and torch.equal(out, shifted)
+    for name, (stride, offset) in tma_operands("flash", B, S, H, Dh).items():
+        assert loads(stride, offset) == "tma", name

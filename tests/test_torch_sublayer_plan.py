@@ -18,6 +18,7 @@ arguments the C entry point takes are the plan's, in its order.
 import pytest
 
 import chip_smoke
+from helpers.split_geometry import check_split, loads, tma_operands
 from test_torch_mlp_plan import _check_gemm
 from video_vae_tpu_torch import ModelConfig
 from video_vae_tpu_torch.core.config import tiny_config
@@ -100,3 +101,18 @@ def test_sublayer_plan_shares_the_card():
     assert (small.out.bn, small.out.tiles, small.out.blocks) == (256, 96, 96)
     ragged = sublayer_plan(5, 37, 136, 3, 64)
     assert (ragged.qkv.k, ragged.qkv.m, -(-ragged.qkv.k // GEMM_BK)) == (136, 576, 3)
+
+
+@pytest.mark.parametrize("D", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("B,S,H", [(32, 1024, 8), (16, 1024, 8), (3, 257, 2)])
+def test_sublayer_split_attention_is_1s(B, S, H, D):
+    """Past 256 tokens (the 512² calls at b2 and b1, a ragged S) #7's attention is
+    #1's split forward on the sublayer's own buffers, between its two GEMMs: the
+    plan's ("split", 1), #1's launch (the wgmma one at head dims 64 and 128, the
+    mma.sync one at 16 and 32), and its q~, k~ workspace, qkv scratch (v rows 3
+    H D apart) and o scratch at TMA's 16-byte rule."""
+    plan = sublayer_plan(B, S, 768, H, D)
+    assert plan.attention == ("split", 1) and plan.args[-2:] == (MMA_VARIANTS.index("split"), 1)
+    assert check_split("sublayer", B, S, H, D).grid == check_split("fused", B, S, H, D).grid
+    for name, (stride, offset) in tma_operands("sublayer", B, S, H, D).items():
+        assert loads(stride, offset) == "tma", name

@@ -2,23 +2,27 @@
 // the tile variant's 256 tokens: the forward of #1 (fused_attention.cu, and the
 // attention of #7, attention_sublayer.cu) and of #5 (flash_attention.cu), and
 // the backward of #3 (fused_attention_bwd.cu) and of #6
-// (flash_attention_bwd.cu), on the tensor cores (mma.sync m16n8k16, bf16
-// operands, f32 accumulators, ldmatrix from D + 8-element shared-memory rows,
-// fused_attention_mma_common.cuh). The slab and tile variants stage whole
-// sequences in shared memory, as the TPU kernels hold them in VMEM; past 256
-// keys a pair's rows outgrow a block (and its warps its 16-row tiles). Here
-// nothing that grows with S stays in shared memory: a block owns ROWS rows of
-// one (sequence, head) pair and streams the other side through two buffers of
-// TILE_ROWS rows, cp.async filling one while the warps work on the other.
+// (flash_attention_bwd.cu). The slab and tile variants stage whole sequences
+// in shared memory, as the TPU kernels hold them in VMEM; past 256 keys a
+// pair's rows outgrow a block (and its warps its 16-row tiles). In the split
+// variant nothing that grows with S stays in shared memory: a block owns some
+// rows of one (sequence, head) pair and streams the other side's rows.
 //
-// What bounds it on the H100: the products. At the flagship's 512² spatial
-// calls (S = 1024, 8 heads of 64) a b2 forward is 4 S^2 D H 32 = 68.7 GFLOP
-// (69 us at the 989 TFLOP/s bf16 peak) over 134 MB of bytes (40 us at 3.35
-// TB/s), a backward 10 S^2 D a pair on paper. This first version is right and
-// simple: mma.sync, not wgmma, and the backward recomputes the scores on each
-// side (9 products of S^2 D a pair, as the fused backward's tile variant).
-// The backward here serves head dims 16 and 32 only; 64 and 128 take the
-// wgmma launches of attention_split_bwd.cuh (same two sides, same roundings).
+// This header holds what every head dim shares, #1's and #3's LN + RoPE pass
+// (qk_norm_rope_kernel), and the mma.sync launches (m16n8k16, bf16 operands,
+// f32 accumulators, ldmatrix from D + 8-element shared-memory rows,
+// fused_attention_mma_common.cuh) that serve head dims 16 and 32: their 32-
+// and 64-byte rows are below the 128-byte swizzle span of the wgmma launches
+// that serve 64 and 128, the forward in attention_split_fwd.cuh (which also
+// routes by head dim: launch_split_fwd, launch_split_fused_fwd) and the
+// backward in attention_split_bwd.cuh (launch_split_bwd). A block here owns
+// ROWS = 64 rows and streams the other side through two buffers of TILE_ROWS
+// rows, cp.async filling one while the warps work on the other.
+//
+// What bounds them on the H100: the products. A forward is 4 S^2 D a pair (#5
+// walks the keys twice: 6), a backward 10 S^2 D on paper; the backward here
+// recomputes the scores on each side (9 products of S^2 D a pair, as the fused
+// backward's tile variant) so that no gradient is summed by atomics.
 //
 // Forward (split_fwd_kernel): a block takes ROWS = 64 query rows of one pair,
 // a warp each 16, whose q fragments stay in registers; it walks the keys in
@@ -32,12 +36,14 @@
 // sum, a second (k and v) takes P.V.
 //
 // #1's q~ and k~: a short pass first (qk_norm_rope_kernel) writes LN + scale +
-// RoPE of every q and k head row, rounded to bf16 as the tile variant rounds
-// them (norm_rope_pair, the same code), to a (B, S, H, D) workspace; the
-// forward core then reads them as #5 reads q and k, and v straight from the
-// fused qkv. Normalising each key tile as it is staged would redo the LN of
-// every key once for each of a pair's query tiles (16 times at S = 1024); the
-// pass does it once and lets #1 and #5 share one core. #3 runs the same pass.
+// RoPE of every k (and, at head dims 16 and 32, q) head row, rounded to bf16
+// as the tile variant rounds them (norm_rope_pair, the same code), to a (B, S,
+// H, D) workspace; the forward then reads them as #5 reads q and k, and v
+// straight from the fused qkv. Normalising each key tile as it is staged would
+// redo the LN of every key once for each of a pair's query tiles (16 times at
+// S = 1024); the pass does it once and lets #1 and #5 share one core. The
+// wgmma forward (head dims 64 and 128) normalises its own q rows, which it
+// stages once. #3 runs the pass for q~ and k~.
 //
 // Backward at head dims 16 and 32 (FlashAttention-2's, in its simple form,
 // two launches and no atomics, so two runs give the same bits):
@@ -63,15 +69,15 @@
 // key tile whose keys are all masked leaves the running max finite (m moves
 // from -inf to -1e30, where exp2 gives 1, never NaN).
 //
-// Shared memory of a block (ROW_BYTES<D> = 2 (D + 8) a row; 144 bytes at D = 64;
+// Shared memory of a block (ROW_BYTES<D> = 2 (D + 8) a row; 48 bytes at D = 16;
 // T = TILE_ROWS):
-//   forward:    q [ROWS] | k [2][T] | v [2][T]                       45 KB at D = 64, 85 KB at 128
-//   query side: k [2][T] | v [2][T]                                  36 KB, 68 KB
+//   forward:    q [ROWS] | k [2][T] | v [2][T]                       15 KB at D = 16, 25 KB at 32
+//   query side: k [2][T] | v [2][T]                                  12 KB, 20 KB
 //   key side:   k [ROWS] | v [ROWS] | q [2][T] | dO [2][T],
-//               then (m, 1/l, row) [2][3][T] f32                     56 KB, 104 KB
-// so at least two blocks share an SM at every head dim (__launch_bounds__
-// (128, 2): up to 255 registers a thread, which the 16 x 128 f32 accumulators
-// of D = 128 need). tests/helpers/split_geometry.py mirrors these sizes.
+//               then (m, 1/l, row) [2][3][T] f32                     20 KB, 32 KB
+// so at least two blocks share an SM (__launch_bounds__(128, 2)); the sizes
+// hold at every head dim the launches are instantiated for.
+// tests/helpers/split_geometry.py mirrors these sizes.
 
 #pragma once
 
@@ -181,8 +187,9 @@ __device__ __forceinline__ void store_acc(const float (&acc)[D / 8][4], T* __res
 // LN (no bias; f32 statistics, E[x^2] - mean^2 clamped at 0) times the (D,)
 // scale, then rotate-half RoPE, of the q and k head rows of qkv (B, S, 3 H D),
 // rounded to bf16 into qn and kn, each (B, S, H, D): norm_rope_pair, as the
-// tile variant runs it in shared memory. A block takes PREP_ROWS consecutive
-// head rows r (position r / H, head r % H) of `rows` = B S H.
+// tile variant runs it in shared memory; qn null: k alone (the wgmma forward
+// normalises its own q rows). A block takes PREP_ROWS consecutive head rows r
+// (position r / H, head r % H) of `rows` = B S H.
 template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 qk_norm_rope_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_scale,
@@ -197,7 +204,7 @@ qk_norm_rope_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_sc
   for (int e = threadIdx.x; e < 2 * PREP_ROWS * P; e += blockDim.x) {
     const int piece = e % P, rr = (e / P) % PREP_ROWS, part = e / (P * PREP_ROWS);
     const long long r = r0 + rr;
-    const bool inside = r < rows;
+    const bool inside = r < rows && (part == 1 || qn != nullptr);
     const bf16* src = inside ? qkv + (r / H) * 3 * HD + part * HD + (r % H) * D + 8 * piece : qkv;
     cp_async16(rows_s + (part * PREP_ROWS + rr) * ROW + 8 * piece, src, inside ? 16 : 0);
   }
@@ -213,14 +220,14 @@ qk_norm_rope_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_sc
     const long long r = r0 + rr;
     const bool live = r < rows;
     const int i = live ? (int)((r / H) % S) : 0;
-    norm_rope_pair<D>(rows_s + rr * ROW, live, qsc, rows_s + (PREP_ROWS + rr) * ROW, live, ksc,
+    norm_rope_pair<D>(rows_s + rr * ROW, live && qn != nullptr, qsc, rows_s + (PREP_ROWS + rr) * ROW, live, ksc,
                       cos_t + (size_t)i * D, sin_t + (size_t)i * D);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < 2 * PREP_ROWS * P; e += blockDim.x) {
     const int piece = e % P, rr = (e / P) % PREP_ROWS, part = e / (P * PREP_ROWS);
     const long long r = r0 + rr;
-    if (r < rows)
+    if (r < rows && (part == 1 || qn != nullptr))
       *reinterpret_cast<uint4*>((part ? kn : qn) + r * D + 8 * piece) =
           *reinterpret_cast<const uint4*>(rows_s + (part * PREP_ROWS + rr) * ROW + 8 * piece);
   }
@@ -407,24 +414,6 @@ cudaError_t launch_fwd(const FwdArgs& a, bool normalize, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   kernel<<<(unsigned)blocks, WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
-}
-
-// #1 (and #7's attention): the LN + RoPE pass into work (qn | kn, each B S H D
-// bf16), then the core on q~, k~ and qkv's v, P rounded unnormalised (JAX's
-// unpacked path: the split variant runs S > 256, past its packed path's S < 128).
-template <int D>
-cudaError_t launch_fused_fwd(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
-                             const void* sin_t, const void* mask, void* out, void* work, int B, int S, int H,
-                             cudaStream_t stream) {
-  if (work == nullptr) return cudaErrorInvalidValue;
-  const long long HD = (long long)H * D;
-  bf16* qn = static_cast<bf16*>(work);
-  bf16* kn = qn + (long long)B * S * HD;
-  cudaError_t err = launch_norm_rope<D>(qkv, q_scale, k_scale, cos_t, sin_t, qn, kn, B, S, H, stream);
-  if (err != cudaSuccess) return err;
-  const FwdArgs a{{qn, HD}, {kn, HD}, {static_cast<const bf16*>(qkv) + 2 * HD, 3 * HD},
-                  static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), B, S, H};
-  return launch_fwd<D>(a, false, stream);
 }
 
 // ---- the backward: #3 and #6 ------------------------------------------------

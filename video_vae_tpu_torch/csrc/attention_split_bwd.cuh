@@ -367,6 +367,51 @@ __device__ __forceinline__ Keep<N> load_keep(const unsigned char* __restrict__ m
   return out;
 }
 
+// A tile's key bits (bit (j - j0) % 64 of word (j - j0) / 64 set where key j is
+// kept), ballotted from `kept`, and whether every key of the tile is kept and
+// below S. Every lane of the warp calls it.
+template <int N>
+struct KeyBits {
+  unsigned long long word[N / 64];
+  bool all_kept;
+};
+template <int N>
+__device__ __forceinline__ KeyBits<N> key_bits(const Keep<N>& kept, int j0, int S) {
+  KeyBits<N> out;
+  out.all_kept = j0 + N <= S;
+#pragma unroll
+  for (int w = 0; w < N / 64; ++w) {
+    out.word[w] = (unsigned long long)__ballot_sync(0xffffffffu, kept.k[2 * w]) |
+                  ((unsigned long long)__ballot_sync(0xffffffffu, kept.k[2 * w + 1]) << 32);
+    out.all_kept = out.all_kept && out.word[w] == ~0ull;
+  }
+  return out;
+}
+
+// Mask a warpgroup's 64 x N scores of keys j0 .. j0 + N - 1 (wgmma's layout:
+// s[4 j + 2 r + c] is column 8 j + 2 t + c): a masked key NEG_INF, a key past S
+// -inf.
+template <int N>
+__device__ __forceinline__ void mask_tile(float (&s)[N / 2], const KeyBits<N>& bits, int j0, int S) {
+  if (bits.all_kept) return;
+  const int t = threadIdx.x & 3;
+  if (j0 + N > S) {  // the last tile of a ragged S
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) {
+      const int jl = 8 * (e / 4) + 2 * t + (e & 1);
+      s[e] = j0 + jl >= S ? -INFINITY : ((bits.word[e / 32] >> (jl & 63)) & 1ull) ? s[e] : NEG_INF;
+    }
+  } else {  // this lane's columns 2 t + 8 j + c of each word: constant shifts
+#pragma unroll
+    for (int w = 0; w < N / 64; ++w) {
+      const unsigned long long mine = bits.word[w] >> (2 * t);
+#pragma unroll
+      for (int e = 32 * w; e < 32 * w + 32; ++e)
+        s[e] = ((mine >> (8 * ((e / 4) % 8) + (e & 1))) & 1ull) ? s[e] : NEG_INF;
+    }
+  }
+}
+
 struct Maps {
   CUtensorMap q, k, v, g;
 };
@@ -394,7 +439,6 @@ template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 split_wg_query_kernel(const __grid_constant__ Maps maps, const split::BwdArgs<T> a) {
   constexpr int KT = KEY_TILE<D>, OB = TILE_BYTES<D, WG_ROWS>, KB = TILE_BYTES<D, KT>;
-  constexpr int WORDS = KT / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~uintptr_t(ALIGN - 1));
   uint8_t* own_q = smem;                       // [CONSUMERS][OB]
@@ -469,33 +513,10 @@ split_wg_query_kernel(const __grid_constant__ Maps maps, const split::BwdArgs<T>
     wgmma_commit();
     scores<D, KT>(dp, do_tile, df, v_tile);
     wgmma_commit();
-    unsigned long long word[WORDS];  // the tile's key bits, while the products run
-    bool all_kept = j0 + KT <= S;
-#pragma unroll
-    for (int w = 0; w < WORDS; ++w) {
-      word[w] = (unsigned long long)__ballot_sync(0xffffffffu, kept.k[2 * w]) |
-                ((unsigned long long)__ballot_sync(0xffffffffu, kept.k[2 * w + 1]) << 32);
-      all_kept = all_kept && word[w] == ~0ull;
-    }
+    const KeyBits<KT> bits = key_bits<KT>(kept, j0, S);  // while the products run
     wgmma_wait_group<1>();
     fence_acc(s);
-    if (!all_kept) {  // a masked key NEG_INF, a key past S -inf
-      if (j0 + KT > S) {  // the last tile of a ragged S
-#pragma unroll
-        for (int e = 0; e < KT / 2; ++e) {
-          const int jl = 8 * (e / 4) + 2 * t + (e & 1);
-          s[e] = j0 + jl >= S ? -INFINITY : ((word[e / 32] >> (jl & 63)) & 1ull) ? s[e] : NEG_INF;
-        }
-      } else {  // this lane's columns 2 t + 8 j + c of each word: constant shifts
-#pragma unroll
-        for (int w = 0; w < WORDS; ++w) {
-          const unsigned long long mine = word[w] >> (2 * t);
-#pragma unroll
-          for (int e = 32 * w; e < 32 * w + 32; ++e)
-            s[e] = ((mine >> (8 * ((e / 4) % 8) + (e & 1))) & 1ull) ? s[e] : NEG_INF;
-        }
-      }
-    }
+    mask_tile<KT>(s, bits, j0, S);
     if (first_walk) {  // m, l and sum_j exp(s - m) dP, online
       float corr[2];
 #pragma unroll

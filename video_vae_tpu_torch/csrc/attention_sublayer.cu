@@ -27,8 +27,8 @@
 //      persistent blocks), its EPI_BIAS epilogue rounding once;
 //   3. the attention: bf16 qkv takes #1's mma.sync kernel
 //      (fused_attention_mma.cuh, as fused_attention.cu launches it; past S =
-//      256 #1's split variant, attention_split.cuh: its LN + RoPE pass into
-//      the caller's workspace, then its core, two launches); f32 qkv
+//      256 #1's split variant, attention_split_fwd.cuh: its LN + RoPE pass
+//      into the caller's workspace, then its core, two launches); f32 qkv
 //      the CUDA-core kernel of fused_attention_core.cuh, whose f32 o one more
 //      launch casts to a bf16 scratch, since TMA loads the A operand in bf16;
 //   4. y = x + o . Wout + bout, the same GEMM with the residual in its epilogue.
@@ -48,7 +48,7 @@
 // Wout's K = 512 in 8 slabs); the attention launch is #1's at D = 128 (8
 // warps a bf16 block, the quad kernel for f32 x).
 
-#include "attention_split.cuh"
+#include "attention_split_fwd.cuh"
 #include "fused_attention_core.cuh"
 #include "fused_attention_mma.cuh"
 #include "gemm_sm90.cuh"
@@ -99,8 +99,8 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
   if constexpr (sizeof(T) == 2) {
     if (variant == fa_mma::SPLIT)
       err = unit != 1 ? cudaErrorInvalidValue
-                      : fa_mma::split::launch_fused_fwd<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, work, B, S,
-                                                           H, stream);
+                      : fa_mma::launch_split_fused_fwd<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, work, B, S, H,
+                                                          stream);
     else
       err = fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H,
                                             variant, unit, stream);
@@ -133,8 +133,9 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
 // 16-byte aligned. qkv_* and out_*: the plan of the first (xa . Wqkv) and the
 // second (o . Wout) product: tile width, stages, blocks and shared-memory bytes;
 // variant, unit: the bf16 attention's (ops/flash_attention.py:sublayer_plan).
-// work: for bf16 x with the split variant, a bf16 scratch of 2 * B * S * H *
-// head_dim (the attention's q~ and k~); null otherwise.
+// work: for bf16 x with the split variant, #1's workspace (fused_attention.cu:
+// B * S * H * head_dim bf16 for k~ at head_dim 64 and 128, twice that for q~
+// and k~ at 16 and 32); null otherwise.
 extern "C" int vvt_attention_sublayer(const void* x, const void* mask, const void* ln_g,
                                       const void* ln_b, const void* wqkv, const void* bqkv,
                                       const void* q_scale, const void* k_scale, const void* cos_t,

@@ -47,11 +47,16 @@
 //     each 16 query rows (16 warps, 110 KB at S = 256). Past 64 keys each warp
 //     walks the keys twice: a first walk for the exact max and sum, then the
 //     scores again, P normalised, rounded and multiplied by V;
-//   * "split" (S > 256, attention_split.cuh, #1's core without its LN and
-//     RoPE pass): a block takes 64 query rows of one pair and walks the key
-//     tiles twice, k (then k and v) double-buffered through shared memory, 64
-//     keys a tile: the first walk for the exact max and sum, the second for
-//     P.V. Nothing in shared memory grows with S (45 KB at D = 64).
+//   * "split" (S > 256, #1's core without its LN and RoPE pass): a block
+//     takes some query rows of one pair and walks the key tiles twice, k
+//     (then k and v) streamed through shared memory: the first walk for the
+//     exact max and sum, the second for P.V. At head dims 64 and 128 two
+//     launches of a warp-specialised wgmma kernel fed by a TMA ring
+//     (attention_split_fwd.cuh: 128 rows a block, 128 or 64 keys a stage; the
+//     first parks each row's max and 1/l in its own output row, the second
+//     reads them back), at 16 and 32 one mma.sync launch (attention_split.cuh:
+//     64 rows, double buffers of 64 keys). Nothing in shared memory grows
+//     with S.
 // - Epilogue: o leaves through the warp's own q rows in shared memory, 16
 //   bytes a lane, whole 128-byte rows of the (B, S, H, D) output.
 // Measured on the H100 (PERF.md, utils/kernel_phases.py --kernel 5): the
@@ -77,7 +82,7 @@
 // kernel at every D (the row-a-thread kernel stages a block's sequences whole).
 
 #include "attention_f32_wide.cuh"
-#include "attention_split.cuh"
+#include "attention_split_fwd.cuh"
 #include "flash_attention_mma.cuh"
 #include "flash_common.cuh"
 
@@ -237,7 +242,7 @@ extern "C" int vvt_flash_attention_fwd(const void* q, const void* k, const void*
     if (variant == fa_mma::SPLIT) {  // P normalised before its rounding, as at every S
       if (unit != 1) return cudaErrorInvalidValue;
       const fa_mma::split::FwdArgs sa{{a.q, q_stride}, {a.k, k_stride}, {a.v, v_stride}, a.mask, a.out, B, S, H};
-      return fa_mma::split::launch_fwd<D>(sa, true, st);
+      return fa_mma::launch_split_fwd<D>(sa, true, st);
     }
     return fa_mma::flash_fwd::launch_flash_mma<D>(a, variant, st);
   });

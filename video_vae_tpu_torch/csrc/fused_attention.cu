@@ -44,10 +44,13 @@
 //   S > 64, "tile": a block owns one (sequence, head) pair and all its query
 //   rows, a warp for each 16 (16 warps at S = 256, 110 KB of shared memory),
 //   so the pair's k and v are read and normalised once. S > 256, "split"
-//   (attention_split.cuh): a pass writes q~ and k~ (LN + RoPE, rounded to
-//   bf16, by the same code) to the caller's workspace, then a block takes 64
-//   query rows of one pair and streams its keys in double-buffered tiles of
-//   64, so no S caps it (45 KB at D = 64).
+//   (attention_split.cuh): a pass writes k~ (and at head dims 16 and 32 q~;
+//   LN + RoPE, rounded to bf16, by the same code) to the caller's workspace,
+//   then a block takes some query rows of one pair and streams its keys, so
+//   no S caps it: at head dims 64 and 128 a warp-specialised wgmma launch fed
+//   by a TMA ring that normalises its own q rows (attention_split_fwd.cuh: 128
+//   rows a block, two consumer warpgroups and a producer), at 16 and 32 an
+//   mma.sync one (64 rows, double buffers).
 // - Softmax: a warp holds its 16 query rows' q fragments in registers and
 //   walks the keys in chunks of up to 64 with a running (online) max: one
 //   chunk, so an exact max, up to S = 64; four at S = 256, where an exact max
@@ -81,15 +84,16 @@
 // 256 f32 takes that quad kernel at every D: the row-a-thread kernel stages a
 // block's sequences whole.
 
-#include "attention_split.cuh"
+#include "attention_split_fwd.cuh"
 #include "fused_attention_core.cuh"
 #include "fused_attention_mma.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. mask: (B, S) uint8 key mask, or null.
 // variant, unit: the bf16 kernel's plan (slab 0, tile 1 or split 2; sequences
 // a slab block, 1 otherwise); the f32 kernel takes its geometry from the shape.
-// work: for the bf16 split variant, a bf16 scratch of 2 * B * S * H * head_dim
-// (q~ and k~); null otherwise. head_dim: 16, 32, 64 or 128; any other is refused.
+// work: for the bf16 split variant, a bf16 scratch of B * S * H * head_dim (k~)
+// at head_dim 64 and 128, twice that (q~ and k~) at 16 and 32; null otherwise.
+// head_dim: 16, 32, 64 or 128; any other is refused.
 extern "C" int vvt_fused_attention_fwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
                                        void* out, void* work, int B, int S, int H, int head_dim, int dtype,
@@ -101,7 +105,7 @@ extern "C" int vvt_fused_attention_fwd(const void* qkv, const void* q_scale, con
     if (dtype == 0) return launch_fused_attention<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, st);
     if (variant == fa_mma::SPLIT) {
       if (unit != 1) return cudaErrorInvalidValue;
-      return fa_mma::split::launch_fused_fwd<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, work, B, S, H, st);
+      return fa_mma::launch_split_fused_fwd<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, work, B, S, H, st);
     }
     return fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, st);
   });

@@ -32,17 +32,18 @@ dim raises on a CUDA tensor, with no fallback) and any sequence length. Up to
 variant, whose block holds a whole sequence's keys, as the JAX kernels hold
 it in VMEM. Longer sequences (the flagship at ``--resize 512``: spatial
 S = 1024) take the "split" variant (``csrc/attention_split.cuh``): a block
-owns 64 rows of one (sequence, head) pair and streams the other side through
-shared memory in double-buffered tiles of 64 rows, so nothing there grows
-with S; its forward is one walk over the keys with a running max (#1, and
-#7's attention) or two, for the exact row max and sum first (#5), and its
-backward (#3, #6) is a query-major launch (statistics and dq) and a
-key-major one (dv and dk), with no atomics, through an f32 workspace that
-the wrapper allocates; at head dims 64 and 128 the backward's two launches
-run on wgmma fed by TMA rings (``csrc/attention_split_bwd.cuh``: 128 own
-rows a block, two consumer warpgroups and a producer), at 16 and 32 on
-mma.sync as above. #1 and #3 first write q̃ and k̃ (LN and RoPE, rounded
-to bf16) to a workspace with the same LN and RoPE code as the tile variant.
+owns some rows of one (sequence, head) pair and streams the other side's
+rows through shared memory, so nothing there grows with S; its forward is
+one walk over the keys with a running max (#1, and #7's attention) or two,
+for the exact row max and sum first (#5), and its backward (#3, #6) is a
+query-major launch (statistics and dq) and a key-major one (dv and dk),
+with no atomics, through an f32 workspace that the wrapper allocates. At
+head dims 64 and 128 every split launch runs on wgmma fed by TMA rings
+(``csrc/attention_split_fwd.cuh``, ``csrc/attention_split_bwd.cuh``: 128
+own rows a block, two consumer warpgroups and a producer); at 16 and 32 on
+mma.sync (64 rows a block, double-buffered tiles of 64 rows). #1 and #3
+first write q̃ and k̃ (LN and RoPE, rounded to bf16) to a workspace with the
+same LN and RoPE code as the tile variant.
 At 128 the bf16 slab and tile blocks cap at 8 warps (255 registers a thread
 for a warp's 16 × 128 f32 accumulators), and the backward's tile blocks keep
 three of a pair's four row arrays in shared memory (``csrc``:
@@ -152,18 +153,19 @@ MMA_SLAB_MAX_SEQ = 64  # the longest sequence a block stages whole, all heads
 MMA_SLAB_MAX_SMEM = 100 * 1024  # a slab block at most this, so that two fit an SM
 MMA_VARIANTS = ("slab", "tile", "split")  # as csrc/fused_attention_mma_common.cuh numbers them
 
-# The split variant of the bf16 kernels (csrc/attention_split.cuh), S > TILE_MAX_SEQ:
-# a block owns this many rows of a pair, a warp each 16, and streams the other side in
-# tiles of 64 rows through two shared-memory buffers (45-104 KB a block at any S).
+# The split variant of the bf16 kernels at head dims 16 and 32 (csrc/attention_split.cuh),
+# S > TILE_MAX_SEQ: a block owns this many rows of a pair, a warp each 16, and streams
+# the other side in tiles of 64 rows through two shared-memory buffers (12-32 KB a block
+# at any S).
 SPLIT_ROWS = 64
 SPLIT_WARPS = SPLIT_ROWS // 16
 
 
-# The split backward at head dims 64 and 128 (csrc/attention_split_bwd.cuh): wgmma
-# fed by TMA rings, a block owns SPLIT_BWD_ROWS rows of a pair (64 for each of two
-# consumer warpgroups) beside a producer warpgroup; head dims 16 and 32 keep the
-# forward's geometry above (mma.sync), as their rows are below the 128-byte swizzle
-# span the wgmma tiles are laid out on.
+# The split forward and backward at head dims 64 and 128 (csrc/attention_split_fwd.cuh,
+# csrc/attention_split_bwd.cuh): wgmma fed by TMA rings, a block owns SPLIT_BWD_ROWS rows
+# of a pair (64 for each of two consumer warpgroups) beside a producer warpgroup; head
+# dims 16 and 32 keep the geometry above (mma.sync), as their rows are below the
+# 128-byte swizzle span the wgmma tiles are laid out on.
 SPLIT_BWD_ROWS = 128
 SPLIT_BWD_WARPS = 12
 WGMMA_HEAD_DIMS = (64, 128)
@@ -191,6 +193,21 @@ def split_bwd_warps(head_dim: int) -> int:
     return SPLIT_BWD_WARPS if head_dim in WGMMA_HEAD_DIMS else SPLIT_WARPS
 
 
+def split_fwd_grid(batch: int, seq: int, heads: int, head_dim: int) -> int:
+    """Blocks of the split forward's launch (after #1's LN + RoPE pass): at head
+    dims 64 and 128 the wgmma launch of ``csrc/attention_split_fwd.cuh``, one
+    block per pair and tile of ``SPLIT_BWD_ROWS`` query rows (two consumer
+    warpgroups of 64), as the backward's; at 16 and 32 the mma.sync launch's
+    :func:`split_grid`. A pair's tiles are adjacent either way."""
+    return split_bwd_grid(batch, seq, heads, head_dim)
+
+
+def split_fwd_warps(head_dim: int) -> int:
+    """Warps of a split forward block, by head dim alone: those of the
+    backward's (:func:`split_bwd_warps`): 12 at 64 and 128, 4 at 16 and 32."""
+    return split_bwd_warps(head_dim)
+
+
 def mma_max_warps(head_dim: int) -> int:
     """Warps of a bf16 forward block at most (csrc: ``FWD_WARPS``): 16, but 8 at
     head_dim 128, whose tile blocks then give each warp two 16-row query tiles
@@ -215,8 +232,10 @@ def fused_attention_plan(batch: int, seq: int, heads: int, head_dim: int) -> tup
     """(variant, sequences a block) of the bf16 fused attention kernel.
 
     ``"split"`` past ``TILE_MAX_SEQ`` = 256 tokens (unit 1): a block takes
-    ``SPLIT_ROWS`` query rows of one (sequence, head) pair and streams its keys
-    in tiles of 64 (:func:`split_grid` blocks).
+    some query rows of one (sequence, head) pair and streams its keys
+    (:func:`split_fwd_grid` blocks of :func:`split_fwd_warps` warps: at head
+    dims 64 and 128 128 rows and a TMA ring of 128 or 64 keys a stage, at 16
+    and 32 ``SPLIT_ROWS`` rows and double-buffered tiles of 64 keys).
     Up to 256:
     ``"slab"`` where the sequence is at most 64 long and one sequence's q, k
     and v rows (``mma_row_bytes(head_dim)`` each) fit ``MMA_SLAB_MAX_SMEM``:
@@ -251,8 +270,11 @@ def flash_attention_plan(batch: int, seq: int, heads: int, head_dim: int) -> tup
     Otherwise ``"tile"``: a block stages one (sequence, head) pair with a warp
     for each 16 query rows; past 64 keys each warp walks the keys twice, for
     the exact row max and sum first; ``"split"`` past 256 tokens, whose
-    blocks take 64 query rows each and walk the key tiles twice. The C entry
-    point derives the warps and the shared memory from these and the shape.
+    blocks (:func:`split_fwd_grid`, :func:`split_fwd_warps`) walk the key
+    tiles twice, k alone on the first walk (at head dims 64 and 128 as two
+    launches, the first parking each row's max and 1/l in its own output
+    row). The C entry point derives the warps and the shared memory from
+    these and the shape.
     """
     return fused_attention_plan(batch, seq, heads, head_dim)
 
@@ -539,7 +561,7 @@ def fused_qkv_attention_cuda(
 
     bf16 qkv takes the tensor-core kernel with the geometry of
     :func:`fused_attention_plan` (its split variant with a bf16 workspace for
-    q̃ and k̃), f32 qkv the CUDA-core kernel. head_dim in
+    k̃, and q̃ at head dims 16 and 32), f32 qkv the CUDA-core kernel. head_dim in
     ``KERNEL_HEAD_DIMS`` and S >= 1, or it raises.
     """
     b, s, d = _check_kernel_args("fused_qkv_attention_cuda", qkv, q_scale, k_scale, mask, num_heads)
@@ -564,8 +586,13 @@ def fused_qkv_attention_cuda(
 
 
 def _split_qk_work(variant: str, b: int, s: int, heads: int, d: int, device) -> Optional[torch.Tensor]:
-    """The split forward's bf16 workspace of q̃ and k̃, (B, S, H, D) each; None for another variant."""
-    return torch.empty(2 * b * s * heads * d, dtype=torch.bfloat16, device=device) if variant == "split" else None
+    """The split forward's bf16 workspace, (B, S, H, D) a part: k̃ at head dims 64
+    and 128 (the wgmma forward normalises its own q rows), q̃ | k̃ at 16 and 32;
+    None for another variant."""
+    if variant != "split":
+        return None
+    parts = 1 if d in WGMMA_HEAD_DIMS else 2
+    return torch.empty(parts * b * s * heads * d, dtype=torch.bfloat16, device=device)
 
 
 def fused_qkv_attention_bwd_cuda(

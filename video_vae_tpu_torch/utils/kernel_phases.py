@@ -1,7 +1,7 @@
-"""What sets the pace of the bf16 attention kernels (#3, #5, #6), of the
+"""What sets the pace of the bf16 attention kernels (#1, #3, #5, #6), of the
 MLP sublayer kernel (#8) and of the tap-dot conv (#9).
 
-    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 3|5|6|8|9] [--split]
+    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 1|3|5|6|8|9] [--split]
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
 It builds copies of the kernel's source (#3, the default:
@@ -18,13 +18,17 @@ per call of each copy: for #3, #5 and #6 at each bf16 attention call of the
 flagship train step (``chip_smoke.device_ms``), for #8 at its N = 8192 and N = 4096 calls,
 each of its three launches (``chip_smoke.device_launch_ms``), for #9 at each
 of its calls on the tap-dot model (b2 x 16 frames), the whole call and its
-launches (the channels-last copies, the GEMM). ``--split`` (#3 and #6)
-takes the split backward past 256 tokens instead: the cuts of ``SPLIT_CUTS``
-in ``csrc/attention_split_bwd.cuh`` (its query side's first walk, the dq
-product, the dv and dk products, the ring's TMA loads, the exps), timed at
-the bf16 spatial calls of the flagship's 512² serving pass and train step (S
-= 1024, b2 and b1; head dim 64). The time a phase takes is the full kernel's
-less the copy without it. Nothing here runs on import.
+launches (the channels-last copies, the GEMM). ``--split`` takes the split
+variant past 256 tokens instead, timed at the bf16 spatial calls of the
+flagship's 512² serving pass and train step (S = 1024, b2 and b1; head dim
+64): for #3 and #6 the backward's cuts, ``SPLIT_CUTS`` in
+``csrc/attention_split_bwd.cuh`` (its query side's first walk, the dq
+product, the dv and dk products, the ring's TMA loads, the exps); for #1
+(``csrc/fused_attention.cu``, which ``--kernel 1`` takes only with
+``--split``) and #5 the forward's, ``SPLIT_FWD_CUTS`` in
+``csrc/attention_split_fwd.cuh`` (the P.V product, the exps, the ring's TMA
+loads; #5's first walk; #1's LN + RoPE pass). The time a phase takes is the
+full kernel's less the copy without it. Nothing here runs on import.
 """
 
 from __future__ import annotations
@@ -137,16 +141,50 @@ SPLIT_CUTS = {
     "no_exp": [("exp2f(", "(")],
 }
 
+# the split forward's phases (csrc/attention_split_fwd.cuh, #1 and #5 past 256 tokens):
+# the P.V product, every exp, the ring's TMA loads (each stage's `full` mbarrier
+# expects no bytes; the stages keep what they held), #5's first walk (its statistics
+# launch; the second reads what the output holds; #5 only), #1's LN + RoPE pass (#1
+# only: the forward reads the workspace as it stands)
+SPLIT_FWD_HEADER = "attention_split_fwd.cuh"
+SPLIT_FWD_CUTS = {
+    "full": [],
+    "no_pv": [("  mma_rows<D, KT>(o, p, v_tile);", "  if (KT < 0) mma_rows<D, KT>(o, p, v_tile);")],
+    "no_exp": [('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = x;")],
+    "no_ring_loads": [("mbar_expect_tx(&full[stage], with_v ? 2 * KB : KB);", "mbar_expect_tx(&full[stage], 0);"),
+                      ("load_tile<D, KT>(st, &maps.k,", f"if ({_NEVER}) load_tile<D, KT>(st, &maps.k,"),
+                      ("if (with_v) load_tile<D, KT>(", f"if (with_v && {_NEVER}) load_tile<D, KT>(")],
+    "no_walk1": [("const cudaError_t err = run(&split_wg_fwd_kernel<D, STATS>);",
+                  "const cudaError_t err = a.S < 0 ? run(&split_wg_fwd_kernel<D, STATS>) : cudaSuccess;")],
+    "no_norm_rope": [("cudaError_t err = split::launch_norm_rope<D>(",
+                      f"cudaError_t err = cudaSuccess;\n  if ({_NEVER}) split::launch_norm_rope<D>(")],
+}
+SPLIT_FWD_ONLY = {"no_walk1": "5", "no_norm_rope": "1"}  # the cuts that reach one kernel
 
-def _build_cut(kernel: str, name: str, edits, split: bool = False):
+# --split: kernel -> (source, the ops module and the name of its launch counter there)
+SPLIT_KERNELS = {
+    "1": ("fused_attention.cu", fa, "FUSED_ATTENTION"),
+    "3": ("fused_attention_bwd.cu", fa, "FUSED_ATTENTION_BWD"),
+    "5": ("flash_attention.cu", fa, "FLASH_ATTENTION"),
+    "6": ("flash_attention_bwd.cu", fa, "FLASH_ATTENTION_BWD"),
+}
+
+
+def split_cuts(kernel: str):
+    """(header, cuts) of the split variant of an attention kernel: the backward's
+    for #3 and #6, the forward's for #1 and #5 (each without the other's own cut)."""
+    if kernel in ("3", "6"):
+        return SPLIT_HEADER, SPLIT_CUTS
+    return SPLIT_FWD_HEADER, {name: edits for name, edits in SPLIT_FWD_CUTS.items()
+                              if SPLIT_FWD_ONLY.get(name, kernel) == kernel}
+
+
+def _build_cut(source: str, headers, tag: str, name: str, edits):
     """Start nvcc on a copy of csrc with the cut applied; (process, library path).
 
-    Each replacement applies to every one of the kernel's headers that holds
+    Each replacement applies to every one of the kernel's ``headers`` that holds
     the text, and must be found in at least one."""
-    source, headers, _, _, _ = KERNELS[kernel]
-    if split:
-        headers = (SPLIT_HEADER,)
-    out_dir = _build.BUILD_DIR / "phases" / (kernel + "-split" if split else kernel) / name
+    out_dir = _build.BUILD_DIR / "phases" / tag / name
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.copytree(_build.CSRC, out_dir)
     texts = {h: (out_dir / h).read_text() for h in headers}
@@ -188,7 +226,10 @@ def _attention_calls(kernel_id, dev, split=False):
         if dtype != "bfloat16" or (split and S <= fa.TILE_MAX_SEQ):
             continue
         qkv, g, qs, ks, mask, _ = chip_smoke._attention_inputs(cfg, dev, gen, name, B, S, padded, dtype)
-        if kernel_id == "3":
+        if kernel_id == "1":
+            def call(qkv=qkv, qs=qs, ks=ks, mask=mask):
+                return fa.fused_qkv_attention_cuda(qkv, qs, ks, mask, H)
+        elif kernel_id == "3":
             def call(qkv=qkv, qs=qs, ks=ks, mask=mask, g=g):
                 return fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
         else:  # q and k contiguous, v a view into qkv, as the "pallas" path hands them over
@@ -254,19 +295,26 @@ def main(argv=None) -> int:
     import chip_smoke
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=sorted(KERNELS), default="3")
-    parser.add_argument("--split", action="store_true", help="#3 or #6: the split backward's phases at 512²")
+    parser.add_argument("--kernel", choices=sorted(set(KERNELS) | set(SPLIT_KERNELS)), default="3")
+    parser.add_argument("--split", action="store_true",
+                        help="#1, #3, #5 or #6: the split variant's phases at 512²")
     args = parser.parse_args(argv)
     kernel_id, split = args.kernel, args.split
-    if split and kernel_id not in ("3", "6"):
-        raise SystemExit("--split takes --kernel 3 or 6")
+    if split and kernel_id not in SPLIT_KERNELS:
+        raise SystemExit(f"--split takes --kernel {', '.join(sorted(SPLIT_KERNELS))}")
+    if not split and kernel_id not in KERNELS:
+        raise SystemExit(f"--kernel {kernel_id} takes --split")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_phases needs a CUDA card")
-    _, _, module, attr, cuts = KERNELS[kernel_id]
     if split:
-        cuts = SPLIT_CUTS
+        source, module, attr = SPLIT_KERNELS[kernel_id]
+        header, cuts = split_cuts(kernel_id)
+        headers, tag = (header,), kernel_id + "-split"
+    else:
+        source, headers, module, attr, cuts = KERNELS[kernel_id]
+        tag = kernel_id
     full = getattr(module, attr)
-    builds = {name: _build_cut(kernel_id, name, edits, split) for name, edits in cuts.items()}
+    builds = {name: _build_cut(source, headers, tag, name, edits) for name, edits in cuts.items()}
     kernels = {}
     for name, (proc, lib) in builds.items():
         log, _ = proc.communicate()
