@@ -233,6 +233,8 @@ SUBLAYER_LAUNCHES = {
 }
 # beside the nine kernels' counts: how many of the MLP kernel's launches wrote the residuals
 MLP_TRAINING_VARIANT = "vvt_fused_mlp, training variant"
+# the filter gradient's launches of its wgmma kernel (ops/conv3d.py:WGRAD_VARIANT_LAUNCHES)
+WGRAD_WGMMA_VARIANT = "vvt_conv3d_wgrad, wgmma variant"
 KNOBS = ("VVT_ATTN_SUBLAYER", "VVT_MLP_FUSED", "VVT_TAPDOT")
 # path -> (ModelConfig.attention_impl, the knobs set to 1 on it)
 MODEL_PATHS = {
@@ -1086,7 +1088,8 @@ def phase_conv_kernels(cfg, dev, rows, serving="serving", train="train", tapdot=
         ms = time_ms(lambda: conv3d.conv3d_wgrad_cuda(xs[0], x2, g, *k), 5)
         cudnn_ms = time_ms(lambda: torch.nn.grad.conv3d_weight(x_ncdhw, w_shape, g_ncdhw, padding=pad), 5)
         log("wgrad-vs-cudnn", json.dumps({
-            "case": name, "dtype": dtype, "ms": ms, "cudnn_ms": cudnn_ms, "tflops": flops / ms / 1e9,
+            "case": name, "dtype": dtype, "variant": conv3d.wgrad_variant(tdt, w), "ms": ms, "cudnn_ms": cudnn_ms,
+            "tflops": flops / ms / 1e9,
         }))
         _record(
             rows, conv3d.CONV3D_WGRAD, name, [batch, frames, list(cins), h, w, cout, list(k)], dtype, err,
@@ -1402,22 +1405,25 @@ def phase_f32_forward(dev, path="fused"):
 
 
 def reset_launches():
-    from video_vae_tpu_torch.ops import KERNELS, fused_block
+    from video_vae_tpu_torch.ops import KERNELS, conv3d, fused_block
 
     for kernel in KERNELS:
         kernel.launches = 0
-    for variant in fused_block.VARIANT_LAUNCHES:
-        fused_block.VARIANT_LAUNCHES[variant] = 0
+    for counts in (fused_block.VARIANT_LAUNCHES, conv3d.WGRAD_VARIANT_LAUNCHES):
+        for variant in counts:
+            counts[variant] = 0
 
 
 def read_launches() -> dict:
-    from video_vae_tpu_torch.ops import KERNELS, fused_block
+    from video_vae_tpu_torch.ops import KERNELS, conv3d, fused_block
 
     counts = {kernel.symbol: kernel.launches for kernel in KERNELS}
-    variants = fused_block.VARIANT_LAUNCHES
-    if sum(variants.values()) != counts["vvt_fused_mlp"]:
-        raise AssertionError(f"the MLP kernel's variants {variants} do not add up to its {counts['vvt_fused_mlp']}")
-    return {**counts, MLP_TRAINING_VARIANT: variants["training"]}
+    for variants, symbol in ((fused_block.VARIANT_LAUNCHES, "vvt_fused_mlp"),
+                             (conv3d.WGRAD_VARIANT_LAUNCHES, "vvt_conv3d_wgrad")):
+        if sum(variants.values()) != counts[symbol]:
+            raise AssertionError(f"{symbol}'s variants {variants} do not add up to its {counts[symbol]}")
+    return {**counts, MLP_TRAINING_VARIANT: fused_block.VARIANT_LAUNCHES["training"],
+            WGRAD_WGMMA_VARIANT: conv3d.WGRAD_VARIANT_LAUNCHES["wgmma"]}
 
 
 def expected_launches(cfg, entry: str, path: str) -> dict:
@@ -1427,13 +1433,17 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
     per down and up block and 2 bottleneck convs. A train step adds each
     conv's input gradient (a forward kernel again) and filter gradient, and
     each attention's backward; the attention sublayer's backward is the fused
-    attention backward, the MLP sublayer's has no kernel. The MLP kernel runs
+    attention backward, the MLP sublayer's has no kernel. Every filter gradient
+    of a bf16 step whose frame width is a multiple of 8 runs the wgmma kernel
+    (``conv3d.wgrad_variant``). The MLP kernel runs
     its training variant (the residuals written) in a train step and its
     inference variant in a serving pass, whose parameters require gradients
     all the same. With ``VVT_TAPDOT`` the convs and input gradients that pass
     its gate go to the tap-dot kernel.
     """
-    from video_vae_tpu_torch.ops import KERNELS
+    import torch
+
+    from video_vae_tpu_torch.ops import KERNELS, conv3d
 
     impl, knobs = MODEL_PATHS[path]
     attn = 2 * (cfg.encoder_depth + cfg.decoder_depth)
@@ -1445,7 +1455,7 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
     }[impl]
     if "VVT_ATTN_SUBLAYER" in knobs:
         forward = "vvt_attention_sublayer"
-    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0}
+    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0, WGRAD_WGMMA_VARIANT: 0}
     want["vvt_conv3d_cf"] = 2 * convs if train else convs
     want[forward] = attn
     if "VVT_MLP_FUSED" in knobs:
@@ -1453,6 +1463,8 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
         want[MLP_TRAINING_VARIANT] = attn if train else 0
     if train:
         want["vvt_conv3d_wgrad"] = convs
+        want[WGRAD_WGMMA_VARIANT] = sum(conv3d.wgrad_variant(torch.bfloat16, w) == "wgmma"
+                                        for _, _, w, _, _, _, dtype in conv_cases(cfg) if dtype == "bfloat16")
         want[backward] = attn
     if "VVT_TAPDOT" in knobs:
         fwd, dgrad = (sum(d.values()) for d in tapdot_launches(cfg))
@@ -3023,7 +3035,7 @@ def _mae_launches(cfg, train: bool) -> dict:
     from video_vae_tpu_torch.ops import KERNELS
 
     calls = 2 * (cfg.encoder_depth + max(1, cfg.decoder_depth // 3))
-    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0}
+    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0, WGRAD_WGMMA_VARIANT: 0}
     want["vvt_fused_attention_fwd"] = calls * (2 if train and cfg.remat else 1)
     want["vvt_fused_attention_bwd"] = calls if train else 0
     return want
@@ -3635,6 +3647,8 @@ def kernel_record(rows, launches_by_path):
             by_ops = total("bound_ms", [r for r in used if r["bound_by"] == "operations"])
             by_path[path] = {
                 "launches": launches_by_path[path][kernel.symbol],
+                **({"wgmma_launches": launches_by_path[path][WGRAD_WGMMA_VARIANT]}
+                   if kernel.symbol == "vvt_conv3d_wgrad" and WGRAD_WGMMA_VARIANT in launches_by_path[path] else {}),
                 "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
                 # the larger share of the summed bound
                 "bound_by": "operations" if 2 * by_ops >= total("bound_ms") else "bytes",

@@ -16,6 +16,7 @@ from video_vae_tpu_torch.ops.conv3d import (
     CONV3D,
     CONV3D_TAPDOT,
     CONV3D_WGRAD,
+    WGRAD_VARIANT_LAUNCHES,
     conv3d_cf,
     conv3d_cf_cat2,
     conv3d_cf_cuda,
@@ -25,6 +26,7 @@ from video_vae_tpu_torch.ops.conv3d import (
     conv3d_tapdot_plain,
     conv3d_wgrad_cuda,
     conv3d_wgrad_plain,
+    wgrad_variant,
 )
 from video_vae_tpu_torch.ops.flash_attention import (
     ATTENTION_SUBLAYER,
@@ -552,19 +554,28 @@ def test_fused_attention_bwd_bf16_kernel_rounds_as_chain(device, B, S, H, D):
         ((2, 2, 20, 48), (12,), 12, (1, 7, 7)),  # the tap-dot model's kt = 1 patch mixer
         ((1, 2, 8, 16), (256, 256), 256, (1, 3, 3)),  # its (256+256) -> 256 decoder conv
         ((2, 2, 12, 6), (16,), 32, (3, 3, 3)),  # a frame narrower than 16 pixels
+        ((1, 2, 256, 256), (16,), 16, (3, 3, 3)),  # the flagship's top level (encoders.0.conv2)
+        ((1, 3, 16, 64), (24, 40), 32, (3, 3, 3)),  # two sources, c1 = 24
+        ((2, 3, 16, 32), (16,), 12, (3, 3, 3)),  # cout = 12 with kt = 3
     ],
 )
 def test_conv3d_wgrad_kernel_matches_plain(device, dtype, shape, cins, cout, k):
+    """Each launch goes to the variant ``wgrad_variant`` names: the wgmma kernel
+    for bf16 at a width that is a multiple of 8, PR 6's wmma kernel for the
+    others, the CUDA-core kernel for f32."""
     b, t, h, w = shape
     gen = torch.Generator(device="cpu").manual_seed(sum(cins) * cout)
     xs = [torch.randn(b, t, c, h, w, generator=gen).to(device, dtype) for c in cins]
     g = torch.randn(b, t, cout, h, w, generator=gen).to(device, dtype)
     x2 = xs[1] if len(xs) == 2 else None
     before = CONV3D_WGRAD.launches
+    variant = wgrad_variant(dtype, w)
+    variants = dict(WGRAD_VARIANT_LAUNCHES)
     out = conv3d_wgrad_cuda(xs[0], x2, g, *k)
     again = conv3d_wgrad_cuda(xs[0], x2, g, *k)
     torch.cuda.synchronize()
     assert CONV3D_WGRAD.launches == before + 2
+    assert WGRAD_VARIANT_LAUNCHES == {**variants, variant: variants[variant] + 2}
     ref = conv3d_wgrad_plain(xs[0], x2, g, *k)
     # f32 output either way: bf16 operands multiply exactly, sums are f32
     assert out.dtype == torch.float32 and _rel_err(out, ref) <= TOL[torch.float32]

@@ -31,7 +31,8 @@
 //     outer dimension, but on the H100 a box whose innermost coordinate is
 //     not 16-byte aligned stops the kernel (an illegal instruction): the
 //     channels-first input cannot be shifted by one pixel along its rows.
-//     So a first launch, channels_last_kernel, copies each source to
+//     So a first launch, channels_last_kernel (channels_last.cuh, shared
+//     with the filter gradient's wgmma kernel), copies each source to
 //     (frames, H, W, C) in a scratch buffer (the wrapper's), and the tap's
 //     shift moves an outer coordinate: a 4-D tensor map over (C, W, H,
 //     frames) with a box of 64 channels x 64 pixels x 1 row x 1 frame gives
@@ -85,6 +86,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "channels_last.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
@@ -138,58 +140,6 @@ struct Ring {
     }
   }
 };
-
-// ---- the channels-last copy -----------------------------------------------
-
-constexpr int CL_TILE = 64;  // channels and pixels of a block's tile
-constexpr int CL_LD = CL_TILE + 2;  // a tile row in shared memory: 132 bytes, 33 banks apart
-constexpr int CL_THREADS = 256;
-
-// x: (frames, C, P) -> xt: (frames, P, C), C a multiple of 8, through a 64 x 64
-// tile in shared memory: 16-byte loads along the pixels (where P % 8 == 0),
-// 16-byte stores of 8 channels of a pixel.
-__global__ void __launch_bounds__(CL_THREADS)
-channels_last_kernel(const bf16* __restrict__ x, bf16* __restrict__ xt, int C, int P) {
-  __shared__ __align__(16) uint16_t tile[CL_TILE * CL_LD];
-  const int frame = blockIdx.z, c0 = blockIdx.y * CL_TILE, p0 = blockIdx.x * CL_TILE;
-  const uint16_t* src = reinterpret_cast<const uint16_t*>(x) + (size_t)frame * C * P;
-  const bool vec = P % 8 == 0;
-  for (int i = threadIdx.x; i < CL_TILE * CL_TILE / 8; i += CL_THREADS) {
-    const int c = i / 8, u = i % 8, p = p0 + 8 * u;
-    uint16_t v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-    if (c0 + c < C) {
-      const uint16_t* row = src + (size_t)(c0 + c) * P;
-      if (vec && p + 8 <= P) {
-        const uint4 q = *reinterpret_cast<const uint4*>(row + p);
-        const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          v[2 * k] = (uint16_t)(w[k] & 0xffffu);
-          v[2 * k + 1] = (uint16_t)(w[k] >> 16);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          if (p + k < P) v[k] = row[p + k];
-      }
-    }
-    unsigned* dst = reinterpret_cast<unsigned*>(tile + c * CL_LD + 8 * u);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) dst[k] = (unsigned)v[2 * k] | ((unsigned)v[2 * k + 1] << 16);
-  }
-  __syncthreads();
-  uint16_t* out = reinterpret_cast<uint16_t*>(xt) + (size_t)frame * P * C;
-  for (int i = threadIdx.x; i < CL_TILE * CL_TILE / 8; i += CL_THREADS) {
-    const int p = i / 8, u = i % 8, c = c0 + 8 * u;
-    if (p0 + p >= P || c >= C) continue;
-    unsigned w[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      w[k] = (unsigned)tile[(8 * u + 2 * k) * CL_LD + p] |
-             ((unsigned)tile[(8 * u + 2 * k + 1) * CL_LD + p] << 16);
-    *reinterpret_cast<uint4*>(out + (size_t)(p0 + p) * C + c) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
 
 // ---- the implicit GEMM ---------------------------------------------------------
 
@@ -470,13 +420,6 @@ tapdot_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__
   }
 }
 
-cudaError_t channels_last(const bf16* x, bf16* xt, int frames, int C, long long P, cudaStream_t s) {
-  const dim3 grid((unsigned)((P + CL_TILE - 1) / CL_TILE), (unsigned)((C + CL_TILE - 1) / CL_TILE),
-                  (unsigned)frames);
-  channels_last_kernel<<<grid, CL_THREADS, 0, s>>>(x, xt, C, (int)P);
-  return cudaGetLastError();
-}
-
 // The output (frames, cout, H, W) as a 4-D tensor map over (W, cout, H, frames),
 // so that a box of 64 pixels x 64 channels x `rows` rows lands as the staging
 // tile's lines: 128-byte swizzle, W % 8 == 0.
@@ -571,14 +514,14 @@ extern "C" int vvt_conv3d_tapdot(const void* x1, const void* x2, int c1, int c2,
   const long long dims1[4] = {c1, Ww, Hh, frames};
   err = vvt_sm90::encode_4d(&x1_map, static_cast<const bf16*>(xt1), dims1, box);
   if (err != cudaSuccess) return (int)err;
-  err = channels_last(static_cast<const bf16*>(x1), static_cast<bf16*>(xt1), frames, c1, P, s);
+  err = channels_last::copy(static_cast<const bf16*>(x1), static_cast<bf16*>(xt1), frames, c1, c1, P, s);
   if (err != cudaSuccess) return (int)err;
   x2_map = x1_map;
   if (c2 > 0) {
     const long long dims2[4] = {c2, Ww, Hh, frames};
     err = vvt_sm90::encode_4d(&x2_map, static_cast<const bf16*>(xt2), dims2, box);
     if (err != cudaSuccess) return (int)err;
-    err = channels_last(static_cast<const bf16*>(x2), static_cast<bf16*>(xt2), frames, c2, P, s);
+    err = channels_last::copy(static_cast<const bf16*>(x2), static_cast<bf16*>(xt2), frames, c2, c2, P, s);
     if (err != cudaSuccess) return (int)err;
   }
   const float* b = static_cast<const float*>(bias);

@@ -15,39 +15,50 @@
 // runs 2 rollouts), 0.55 ms at the 989 TFLOP/s bf16 tensor-core peak, against
 // ~0.1 GB of inputs; 2.3 TFLOP and 2.37 ms on the kt = 1, base-64 tap-dot model.
 //
-// What the design does about it. bf16 inputs (the train step): a tensor-core
-// implicit GEMM, wmma 16x16x16 bf16 with f32 accumulators, M = the 16 input
-// channels of a chunk, N = output channels, K = pixels. A block owns one
-// 16-channel chunk, one temporal tap dt and up to 64 output channels (nj
-// 16-wide fragments), and walks a range of 8 x 32-pixel tiles of the frames
-// whose tap dt lands inside the clip. Per tile it stages the halo'd window of
-// frame t + dt - kt/2 TRANSPOSED, [row][column][16 channels] (conv_window.cuh,
-// shared with the tap-dot conv), so every spatial tap's A operand (channels x
-// 16 pixels, col-major, ldm 16) is the same buffer read from a pixel offset:
-// each input element is read from memory once per tile, not once per tap. g is
-// staged as [channel][pixel], B col-major along the pixels. The block is warp
-// specialised: 4 producer warps stage tile k (g with cp.async, the window with
-// every load in flight before its transposed stores) into one of two buffers
-// while 8 consumer warps multiply tile k - 1 from the other, handing the
-// buffers over on named barriers. The kh*kw*nj accumulator fragments are dealt
-// out to the consumer warps (at most 7 a warp, in registers, the count a
-// template parameter so that a warp issues all its A loads before its
-// products); a warp's fragments share one output-channel block, so one B load
-// serves them all. Where there are fewer fragments than 8 warps can hold, the
-// warps also split the tile's rows into row_groups, each with its own partial.
-// No atomics: each (split, row group) writes an f32 partial of its fragments
-// into a padded workspace, and a second kernel sums the partials in a fixed
-// order, so every run gives the same bits.
+// Which kernel takes a call (ops/conv3d.py:wgrad_variant, by dtype and width
+// alone; the entry point's `variant`):
+//   - bf16, w % 8 == 0 (every conv of every train path): the wgmma implicit
+//     GEMM fed by TMA of conv3d_wgrad_wg.cuh (its header has the design): g
+//     copied channels-last so that a tap's shift is an outer TMA coordinate,
+//     M = output channels (up to four taps' 16-channel bands stacked in a
+//     64-row M-tile), N = input channels, K = pixels, one producer and two
+//     consumer warpgroups, split-K partials summed in a fixed order.
+//   - bf16 at a width a tensor map cannot describe (w % 8 != 0: the row
+//     stride is not a multiple of 16 bytes): PR 6's wmma kernel below (the
+//     `tc` namespace), as follows.
+//   - f32: the CUDA-core kernel below (wgrad_partial_kernel).
+//
+// PR 6's wmma kernel: a tensor-core implicit GEMM, wmma 16x16x16 bf16 with
+// f32 accumulators, M = the 16 input channels of a chunk, N = output
+// channels, K = pixels. A block owns one 16-channel chunk, one temporal tap
+// dt and up to 64 output channels (nj 16-wide fragments), and walks a range
+// of 8 x 32-pixel tiles of the frames whose tap dt lands inside the clip. Per
+// tile it stages the halo'd window of frame t + dt - kt/2 TRANSPOSED,
+// [row][column][16 channels] (conv_window.cuh), so every spatial tap's A
+// operand (channels x 16 pixels, col-major, ldm 16) is the same buffer read
+// from a pixel offset: each input element is read from memory once per tile,
+// not once per tap. g is staged as [channel][pixel], B col-major along the
+// pixels. The block is warp specialised: 4 producer warps stage tile k (g
+// with cp.async, the window with every load in flight before its transposed
+// stores) into one of two buffers while 8 consumer warps multiply tile k - 1
+// from the other, handing the buffers over on named barriers. The kh*kw*nj
+// accumulator fragments are dealt out to the consumer warps (at most 7 a
+// warp, in registers, the count a template parameter so that a warp issues
+// all its A loads before its products); a warp's fragments share one
+// output-channel block, so one B load serves them all. Where there are fewer
+// fragments than 8 warps can hold, the warps also split the tile's rows into
+// row_groups, each with its own partial. No atomics: each (split, row group)
+// writes an f32 partial of its fragments into a padded workspace, and a
+// second kernel sums the partials in a fixed order, so every run gives the
+// same bits. wmma is issued as mma.sync and ran at 85-96 TFLOP/s at most on
+// the H100 (PERF.md), which is why the widths TMA can describe moved to the
+// wgmma kernel.
 //
 // f32 inputs keep the first version on the CUDA cores (wgrad_partial_kernel):
 // a tile of 128 K rows x 16 output channels, the im2col slice of a 32-pixel row
 // segment gathered into shared memory, 4 x 4 f32 FMAs a thread per pixel, the
 // partials of the pixel splits summed by the same fixed-order pass. TF32 would
 // not hold the f32 train step to its bound.
-//
-// A later version would issue wgmma from a warpgroup over a TMA ring of g tiles
-// (the window's transposed layout is a gather a TMA box cannot make, so it stays
-// a register stage) and keep one persistent block per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +66,7 @@
 
 #include <cstdint>
 
+#include "conv3d_wgrad_wg.cuh"
 #include "conv_window.cuh"
 
 namespace {
@@ -458,26 +470,35 @@ cudaError_t launch(const void* x1, const void* x2, const void* g, void* partials
 }  // namespace
 
 // x2 may be null with c2 = 0. dtype: 0 = float32, 1 = bfloat16 (x1, x2, g).
-// dw: f32 (kt, kh, kw, c1 + c2, cout). partials: f32 scratch, for float32 of
-// splits * K * cout (K = kt * kh * kw * (c1 + c2); nj and row_groups unused),
-// for bfloat16 of splits * row_groups * kt * kh * kw * cin_pad * cout_pad with
-// cin_pad = c1 + c2 and cout_pad = cout rounded up to 16 and 16 * nj
-// (video_vae_tpu_torch/ops/conv3d.py: wgrad_plan).
-extern "C" int vvt_conv3d_wgrad(const void* x1, const void* x2, const void* g, void* partials,
+// variant (ops/conv3d.py:WGRAD_VARIANTS): 0 = the CUDA-core kernel (float32),
+// 1 = PR 6's wmma kernel, 2 = the wgmma kernel (bfloat16). dw: f32 (kt, kh,
+// kw, c1 + c2, cout). partials: f32 scratch, for variant 0 of splits * K *
+// cout (K = kt * kh * kw * (c1 + c2)), for variant 1 of splits * row_groups *
+// kt * kh * kw * cin_pad * cout_pad with cin_pad = c1 + c2 and cout_pad = cout
+// rounded up to 16 and 16 * nj (wgrad_plan), for variant 2 as wgrad_wg_plan's
+// workspace. gt: variant 2's channels-last copy of g (null otherwise). The
+// arguments a variant does not read are 0.
+extern "C" int vvt_conv3d_wgrad(const void* x1, const void* x2, const void* g, void* gt, void* partials,
                                 void* dw, int c1, int c2, int B, int Tn, int Hh, int Ww, int cout,
-                                int kt, int kh, int kw, int splits, int nj, int row_groups, int dtype,
+                                int kt, int kh, int kw, int variant, int splits, int nj, int row_groups,
+                                int band, int nb, int rows, int stages, int smem, int dtype,
                                 void* stream) {
   if (B < 1 || Tn < 1 || Hh < 1 || Ww < 1 || c1 < 1 || c2 < 0 || cout < 1) return (int)cudaErrorInvalidValue;
   if (kt < 1 || kt % 2 == 0 || kh < 1 || kh % 2 == 0 || kh > MAX_K || kw < 1 || kw % 2 == 0 ||
       kw > MAX_K)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0 && variant == 0)
     return (int)launch<float>(x1, x2, g, partials, dw, c1, c2, B, Tn, Hh, Ww, cout, kt, kh, kw,
                               splits, st);
-  if (dtype == 1)
+  if (dtype == 1 && variant == 1)
     return (int)tc::launch(x1, x2, g, partials, dw, c1, c2, B, Tn, Hh, Ww, cout, kt, kh, kw, splits,
                            nj, row_groups, st);
+  if (dtype == 1 && variant == 2)
+    return (int)wgrad_wg::launch(static_cast<const __nv_bfloat16*>(x1), static_cast<const __nv_bfloat16*>(x2),
+                                 static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(gt),
+                                 static_cast<float*>(partials), static_cast<float*>(dw), c1, c2, B, Tn, Hh,
+                                 Ww, cout, kt, kh, kw, splits, band, nb, rows, stages, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,8 @@
 // The halo'd input window of one conv tile, staged TRANSPOSED in shared memory:
 // [row][column][channel], the CK = 16 channels of a pixel in one 32-byte line.
-// Used by the bf16 filter gradient (conv3d_wgrad.cu).
+// Used by PR 6's bf16 wmma filter gradient (conv3d_wgrad.cu), which serves
+// only the frames a tensor map cannot describe (w % 8 != 0); every other bf16
+// filter gradient runs the wgmma kernel of conv3d_wgrad_wg.cuh, fed by TMA.
 //
 // A tile is TH x TW output pixels of one frame; its window is (TH + kh - 1) x
 // (TW + kw - 1) pixels of one 16-channel chunk, zero outside the frame and past

@@ -29,10 +29,14 @@ tensor takes the CUDA kernel or the call raises.
   IO-swapped kernel and a zero bias, through the same dispatch;
 * filter gradient, only where the filter needs one (a frozen VGG's launches
   none): ``csrc/conv3d_wgrad.cu`` over one or two sources (the
-  UpBlock's skip concat is never built): bf16 inputs take its tensor-core
-  implicit GEMM (wmma, f32 accumulators, the input window staged by
-  ``csrc/conv_window.cuh``; launch geometry from :func:`wgrad_plan`), f32
-  inputs its CUDA-core kernel in f32;
+  UpBlock's skip concat is never built), its kernel by :func:`wgrad_variant`:
+  bf16 inputs at a frame width that is a multiple of 8 take the wgmma
+  implicit GEMM fed by TMA of ``csrc/conv3d_wgrad_wg.cuh`` (g copied
+  channels-last so that a tap's shift is an outer TMA coordinate; geometry
+  from :func:`wgrad_wg_plan`, held and replayed by
+  ``tests/test_torch_wgrad_wg_plan.py`` on the CPU), bf16 at any other width
+  PR 6's wmma kernel (the input window staged by ``csrc/conv_window.cuh``;
+  geometry from :func:`wgrad_plan`), f32 inputs the CUDA-core kernel in f32;
 * bias gradient, likewise only where needed: the f32 sum of g over (b, t, h, w);
 * :func:`conv3d_cf_pooled` also returns the conv's 2×2 spatial max pool,
   written by the epilogue of whichever forward kernel ran.
@@ -67,8 +71,14 @@ CONV3D_TAPDOT = CudaKernel(
 CONV3D_WGRAD = CudaKernel(
     "conv3d_wgrad.cu",
     "vvt_conv3d_wgrad",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 20 + [ctypes.c_void_p],
 )
+# The filter gradient's three kernels, as ``vvt_conv3d_wgrad`` numbers them: the
+# f32 CUDA-core kernel, PR 6's bf16 wmma kernel (frames whose width is not a
+# multiple of 8, which a tensor map cannot describe) and the bf16 wgmma kernel
+# fed by TMA (every other bf16 conv); and the launches of each.
+WGRAD_VARIANTS = ("cuda_core", "wmma", "wgmma")
+WGRAD_VARIANT_LAUNCHES = dict.fromkeys(WGRAD_VARIANTS, 0)
 
 KERNEL_WIDTHS = (1, 3, 5, 7)
 KERNEL_MAX_HEIGHT = 7
@@ -85,6 +95,20 @@ WGRAD_MMA_TILE = (8, 32)
 WGRAD_MMA_WARPS, WGRAD_MMA_MAX_FRAGS, WGRAD_MMA_MAX_NJ = 8, 7, 4
 WGRAD_MMA_TARGET_BLOCKS, WGRAD_MMA_MAX_WORKSPACE = 528, 8 << 20
 CUDA_MAX_GRID_Y = 65535
+# The bf16 wgmma filter-gradient kernel, ``csrc/conv3d_wgrad_wg.cuh``: pixels of
+# a K block (one 128-byte row of B), its N-tile widths, the widest N tile for
+# each kh (kh * nb / 2 f32 accumulators a thread), the ring's slots at most,
+# the image rows of a pixel tile at most, the waves of blocks the pixel split
+# aims for by output-channel band (a 16-channel band's blocks, paced by their
+# A boxes' L2 traffic, ran 11 % faster in three waves than in one; wider bands
+# lose to the larger partials; a wave is ``CONV_MMA_BLOCKS``, one block an
+# SM), its alignment slack and the most f32 elements of partials it may take
+# (128 MiB).
+WGRAD_WG_KB, WGRAD_WG_NB = 64, (16, 32, 64, 128)
+WGRAD_WG_MAX_NB = {1: 128, 3: 128, 5: 32, 7: 32}
+WGRAD_WG_MAX_STAGES, WGRAD_WG_MAX_ROWS = 8, 64
+WGRAD_WG_WAVES = {16: 3, 32: 1, 64: 1}
+WGRAD_WG_SMEM_ALIGN, WGRAD_WG_MAX_WORKSPACE = 1024, 32 << 20
 # The bf16 (tensor-core) direct conv, ``csrc/conv3d_mma.cuh``: the tile width, the
 # consumer warps of a block (each 2 rows x 32 columns), the input channels of a
 # stage, the (n8 tiles a warp, warps side by side in N) that make up each
@@ -769,6 +793,257 @@ def wgrad_plan(cin: int, cout: int, b: int, t: int, h: int, w: int, kt: int, kh:
     return dataclasses.replace(one, splits=max(1, splits))
 
 
+def wgrad_variant(dtype: torch.dtype, w: int) -> str:
+    """Which of ``WGRAD_VARIANTS`` computes a filter gradient, from the dtype and
+    the frame width alone: f32 the CUDA-core kernel; bf16 the wgmma kernel where
+    a tensor map can describe the frame (its row stride a multiple of 16 bytes:
+    w % 8 == 0), else PR 6's wmma kernel."""
+    if dtype == torch.float32:
+        return "cuda_core"
+    return "wgmma" if w % 8 == 0 else "wmma"
+
+
+def wgrad_wg_smem(nb: int, kh: int, bw: int, rows: int, stages: int) -> int:
+    """Dynamic shared memory of a wgmma filter-gradient block
+    (``conv3d_wgrad_wg.cuh:wgrad_wg_smem_bytes``): alignment slack, ``stages``
+    ring slots of the A boxes (128 bytes a pixel of the rows + kh − 1 image
+    rows of bw columns) and the B box (nb channels × rows · bw pixels), a full
+    and an empty mbarrier a slot."""
+    return WGRAD_WG_SMEM_ALIGN + stages * (128 * bw * (rows + kh - 1) + 2 * nb * bw * rows) + stages * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradWgPlan:
+    """Launch geometry of the wgmma filter-gradient kernel for one conv.
+
+    dWᵀ[tap] = Σ_p g[p − off(tap)] · x[p]: M = output channels, N = input
+    channels, K = pixels. g is copied channels-last, (b, t, h, w, cp), its
+    channels padded to ``cp`` = band · co_bands; a box of that copy is ``band``
+    output channels × ``bw`` pixels × ``rows + kh − 1`` image rows of one
+    frame at the tap's (dt, dw) offset. Box j of an M-tile group holds
+    (dt, dw, output-channel band) ``box(group · bpm + j)``; the group's
+    ``bpm`` = 64 / band boxes side by side are the 64 rows of its kh M-tiles,
+    M-tile dh starting kh − 1 − dh rows into each box. An N tile is ``nb``
+    channels of one source (x1's tiles, then x2's), or, where both sources'
+    channels rounded up to 8 fit one (``joint``), x1's ``c1p`` rows then x2's.
+    A pixel tile is ``rows``
+    image rows × ``bw`` columns of one frame (``tile``); a K block is 64 of
+    its pixels (``64 / bw`` whole rows where the frame is narrower than 64).
+    The grid is (groups · N tiles, splits): block (x, split) owns group
+    x % groups and N tile x // groups, and the split-th share of the tiles,
+    which its two consumer warpgroups take in turns, through a ring of
+    ``stages`` slots; each (split, warpgroup) writes an f32 partial
+    [slot][m-tile][n][64] summed in slot order after.
+    """
+
+    c1: int
+    c2: int
+    cout: int
+    b: int
+    t: int
+    h: int
+    w: int
+    kt: int
+    kh: int
+    kw: int
+    band: int
+    nb: int
+    rows: int
+    stages: int
+    splits: int
+
+    @property
+    def bpm(self) -> int:
+        return 64 // self.band
+
+    @property
+    def co_bands(self) -> int:
+        return -(-self.cout // self.band)
+
+    @property
+    def cp(self) -> int:
+        return self.band * self.co_bands
+
+    @property
+    def boxes(self) -> int:
+        return self.kt * self.kw * self.co_bands
+
+    @property
+    def groups(self) -> int:
+        return -(-self.boxes // self.bpm)
+
+    @property
+    def mtiles(self) -> int:
+        return self.groups * self.kh
+
+    @property
+    def c1p(self) -> int:
+        return -(-self.c1 // 8) * 8
+
+    @property
+    def c2p(self) -> int:
+        return -(-self.c2 // 8) * 8
+
+    @property
+    def joint(self) -> bool:
+        """Both sources in one N tile: x1's c1p rows, then x2's c2p."""
+        return self.c2 > 0 and self.c1p + self.c2p <= self.nb
+
+    @property
+    def nt1(self) -> int:
+        return 1 if self.joint else -(-self.c1 // self.nb)
+
+    @property
+    def n_tiles(self) -> int:
+        return 1 if self.joint else self.nt1 + -(-self.c2 // self.nb)
+
+    @property
+    def n2(self) -> int:
+        """x2's first column of the padded N axis."""
+        return self.c1p if self.joint else self.nt1 * self.nb
+
+    @property
+    def cin_pad(self) -> int:
+        return self.nb * self.n_tiles
+
+    @property
+    def flat(self) -> bool:
+        """B from the (h·w, c, frames) map: a frame narrower than 64 that divides 64."""
+        return self.w < WGRAD_WG_KB and WGRAD_WG_KB % self.w == 0
+
+    @property
+    def bw(self) -> int:
+        return self.w if self.flat else WGRAD_WG_KB
+
+    @property
+    def kblocks(self) -> int:
+        return self.rows * self.bw // WGRAD_WG_KB
+
+    @property
+    def tiles_w(self) -> int:
+        return -(-self.w // self.bw)
+
+    @property
+    def tiles_h(self) -> int:
+        return -(-self.h // self.rows)
+
+    @property
+    def tiles(self) -> int:
+        return self.b * self.t * self.tiles_h * self.tiles_w
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return self.groups * self.n_tiles, self.splits
+
+    @property
+    def smem(self) -> int:
+        return wgrad_wg_smem(self.nb, self.kh, self.bw, self.rows, self.stages)
+
+    @property
+    def workspace(self) -> int:
+        """f32 elements of the partials."""
+        return self.splits * 2 * self.mtiles * self.cin_pad * 64
+
+    @property
+    def copy_elements(self) -> int:
+        """bf16 elements of g's channels-last copy."""
+        return self.b * self.t * self.h * self.w * self.cp
+
+    def box(self, j: int) -> tuple[int, int, int]:
+        """(dt, dw, first output channel) of box j."""
+        tap, cb = divmod(j, self.co_bands)
+        dt, dw = divmod(tap, self.kw)
+        return dt, dw, cb * self.band
+
+    def tile(self, i: int) -> tuple[int, int, int]:
+        """(frame, first row, first column) of pixel tile i (column tile fastest)."""
+        rest, tx = divmod(i, self.tiles_w)
+        frame, ty = divmod(rest, self.tiles_h)
+        return frame, ty * self.rows, tx * self.bw
+
+    def split_tiles(self, split: int) -> range:
+        return range(self.tiles * split // self.splits, self.tiles * (split + 1) // self.splits)
+
+    def a_coords(self, i: int, j: int) -> tuple[int, int, int, int, int]:
+        """(channel, x, y, t, b) of box j's TMA box for pixel tile i, innermost
+        first: g at the tile's pixels less the tap's offset, outside the frame
+        or the clip where SAME pads."""
+        frame, y0, x0 = self.tile(i)
+        dt, dw, co0 = self.box(j)
+        return co0, x0 - dw + self.kw // 2, y0 - self.kh // 2, frame % self.t - dt + self.kt // 2, frame // self.t
+
+    def maps(self) -> list[dict]:
+        """Every tensor map the entry point encodes: dims (innermost first), the
+        byte strides of dims 1.., the box and the swizzle's width in bytes."""
+        p, frames = self.h * self.w, self.b * self.t
+        out = [dict(name="g", dims=(self.cp, self.w, self.h, self.t, self.b),
+                    strides=(2 * self.cp, 2 * self.cp * self.w, 2 * self.cp * p, 2 * self.cp * p * self.t),
+                    box=(self.band, self.bw, self.rows + self.kh - 1, 1, 1), swizzle=2 * self.band)]
+        for name, c, rows in (("x1", self.c1, self.c1p), ("x2", self.c2, self.c2p)):
+            if c == 0:
+                continue
+            n = rows if self.joint else self.nb  # a joint tile's box: one K block of the source's rows
+            if self.flat:
+                out.append(dict(name=name, dims=(p, c, frames), strides=(2 * p, 2 * p * c),
+                                box=(WGRAD_WG_KB, n, 1), swizzle=128))
+            else:
+                out.append(dict(name=name, dims=(self.w, c, self.h, frames), strides=(2 * p, 2 * self.w, 2 * p * c),
+                                box=(WGRAD_WG_KB, n, 1 if self.joint else self.rows, 1), swizzle=128))
+        return out
+
+
+def wgrad_wg_plan(c1: int, c2: int, cout: int, b: int, t: int, h: int, w: int, kt: int, kh: int, kw: int
+                  ) -> WgradWgPlan:
+    """The wgmma filter-gradient kernel's geometry (see :class:`WgradWgPlan`).
+
+    Bands of 16, 32 or 64 output channels (the narrowest that holds cout, so a
+    12- or 16-channel conv stacks four taps in an M-tile); the narrowest N tile
+    that holds both sources' channels (each rounded up to 8: one joint tile),
+    or else the wider source, at most ``WGRAD_WG_MAX_NB[kh]``; the tallest
+    row tile (doubling from one K block, no taller than the frame needs) whose
+    ring holds two slots, with as many slots as fit (the A boxes' halo rows
+    cost more L2 traffic than a shallow ring costs waiting); then the pixel
+    split: the fewest splits that give ``WGRAD_WG_WAVES[band]`` waves of
+    ``CONV_MMA_BLOCKS`` blocks, 90 % full (else the best share), at most
+    half the tiles (both consumer warpgroups work) and within the workspace
+    bound.
+    """
+    if w % 8:
+        raise ValueError(f"the wgmma filter gradient takes frames whose width is a multiple of 8, got {w}")
+    band = next(n for n in (16, 32, 64) if n >= cout or n == 64)
+    max_nb = WGRAD_WG_MAX_NB[kh]
+    both = -(-c1 // 8) * 8 + -(-c2 // 8) * 8 if c2 else 0
+    nb = min(max_nb, next(n for n in WGRAD_WG_NB if n >= max(c1, c2, both) or n == WGRAD_WG_NB[-1]))
+    one = WgradWgPlan(c1, c2, cout, b, t, h, w, kt, kh, kw, band, nb, rows=1, stages=2, splits=1)
+    rk = WGRAD_WG_KB // one.bw
+    fits = []  # (rows, most stages)
+    rows = rk
+    while rows <= WGRAD_WG_MAX_ROWS:
+        per_slot = wgrad_wg_smem(nb, kh, one.bw, rows, 1) - WGRAD_WG_SMEM_ALIGN
+        stages = min(WGRAD_WG_MAX_STAGES, (CONV_MMA_MAX_SMEM - WGRAD_WG_SMEM_ALIGN) // per_slot)
+        if stages >= 2:
+            fits.append((rows, stages))
+        if rows >= h:
+            break
+        rows *= 2
+    if not fits:
+        raise ValueError(f"no wgmma filter-gradient tile fits a {kh}-row kernel")
+    rows, stages = fits[-1]
+    one = dataclasses.replace(one, rows=rows, stages=stages)
+    base = one.grid[0]
+    per_split = 2 * one.mtiles * one.cin_pad * 64
+    cap = max(1, min(one.tiles // 2, CUDA_MAX_GRID_Y, WGRAD_WG_MAX_WORKSPACE // per_split))
+
+    def share(s):  # the busy share of the last wave's SMs, over the whole grid
+        blocks = base * s
+        return blocks / (CONV_MMA_BLOCKS * -(-blocks // CONV_MMA_BLOCKS))
+
+    waves = WGRAD_WG_WAVES[band]
+    splits = next((s for s in range(1, cap + 1) if base * s >= waves * CONV_MMA_BLOCKS and share(s) >= 0.9),
+                  max(range(1, cap + 1), key=lambda s: (share(s), -s)))
+    return dataclasses.replace(one, splits=splits)
+
+
 def conv3d_wgrad_cuda(
     x1: torch.Tensor,
     x2: Optional[torch.Tensor],
@@ -779,10 +1054,13 @@ def conv3d_wgrad_cuda(
 ) -> torch.Tensor:
     """Launch the filter-gradient kernel: f32 (kt, kh, kw, c1 + c2, cout).
 
-    bf16 inputs take the tensor-core kernel (geometry from :func:`wgrad_plan`),
-    f32 inputs the CUDA-core one. Either splits the pixel reduction across
-    blocks, each writing an f32 partial of its output tile, and a second pass
-    sums the partials in a fixed order: no atomics, the same bits on every run.
+    The kernel by :func:`wgrad_variant`: bf16 inputs take the wgmma kernel
+    (geometry from :func:`wgrad_wg_plan`; its first launch copies g
+    channels-last into scratch allocated here) or, at a width a tensor map
+    cannot describe, PR 6's wmma kernel (:func:`wgrad_plan`); f32 inputs the
+    CUDA-core one. Each splits the pixel reduction across blocks, each writing
+    an f32 partial of its output tile, and a last launch sums the partials in a
+    fixed order: no atomics, the same bits on every run.
     """
     c2 = _check_sources("conv3d_wgrad_cuda", x1, x2)
     b, t, c1, h, w = x1.shape
@@ -792,21 +1070,34 @@ def conv3d_wgrad_cuda(
         raise ValueError("g must be contiguous, in the activations' dtype and device")
     _check_kernel_size(kt, kh, kw)
     cout = g.shape[2]
-    if x1.dtype == torch.bfloat16:
+    variant = wgrad_variant(x1.dtype, w)
+    # (splits, nj, row_groups, band, nb, rows, stages, smem), workspace, copy of g
+    gt = None
+    if variant == "wgmma":
+        plan = wgrad_wg_plan(c1, c2, cout, b, t, h, w, kt, kh, kw)
+        geometry = (plan.splits, 0, 0, plan.band, plan.nb, plan.rows, plan.stages, plan.smem)
+        workspace = plan.workspace
+        gt = torch.empty(plan.copy_elements, dtype=torch.bfloat16, device=x1.device)
+        if any(s.data_ptr() % 16 for s in (x1, x2, g) if s is not None):
+            raise ValueError("the wgmma filter gradient needs 16-byte aligned tensors")
+    elif variant == "wmma":
         plan = wgrad_plan(c1 + c2, cout, b, t, h, w, kt, kh, kw)
-        splits, nj, row_groups, workspace = plan.splits, plan.nj, plan.row_groups, plan.workspace
+        geometry = (plan.splits, plan.nj, plan.row_groups, 0, 0, 0, 0, 0)
+        workspace = plan.workspace
     else:
         k_rows = kt * kh * kw * (c1 + c2)
         # the pixel reduction runs over row segments of 32 pixels
         splits = wgrad_splits(k_rows, cout, b * t * h * -(-w // 32))
-        nj, row_groups, workspace = 1, 1, splits * k_rows * cout
+        geometry = (splits, 0, 0, 0, 0, 0, 0, 0)
+        workspace = splits * k_rows * cout
     partials = torch.empty(workspace, dtype=torch.float32, device=x1.device)
     dw = torch.empty((kt, kh, kw, c1 + c2, cout), dtype=torch.float32, device=x1.device)
     with torch.cuda.device(x1.device):
         CONV3D_WGRAD.launch(
             x1.data_ptr(), None if x2 is None else x2.data_ptr(), g.data_ptr(),
-            partials.data_ptr(), dw.data_ptr(),
-            c1, c2, b, t, h, w, cout, kt, kh, kw, splits, nj, row_groups, DTYPE_CODES[x1.dtype],
-            torch.cuda.current_stream(x1.device).cuda_stream,
+            None if gt is None else gt.data_ptr(), partials.data_ptr(), dw.data_ptr(),
+            c1, c2, b, t, h, w, cout, kt, kh, kw, WGRAD_VARIANTS.index(variant), *geometry,
+            DTYPE_CODES[x1.dtype], torch.cuda.current_stream(x1.device).cuda_stream,
         )
+    WGRAD_VARIANT_LAUNCHES[variant] += 1
     return dw

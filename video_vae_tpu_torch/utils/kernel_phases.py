@@ -1,13 +1,16 @@
 """What sets the pace of the bf16 attention kernels (#1, #3, #5, #6), of the
-MLP sublayer kernel (#8) and of the tap-dot conv (#9).
+conv filter gradient (#4), of the MLP sublayer kernel (#8) and of the tap-dot
+conv (#9).
 
-    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 1|3|5|6|8|9] [--split]
+    python3 -m video_vae_tpu_torch.utils.kernel_phases [--kernel 1|3|4|5|6|8|9] [--split]
 
 from the root of the repository, on a machine with a CUDA card and nvcc.
 It builds copies of the kernel's source (#3, the default:
 ``csrc/fused_attention_bwd.cu``; #5: ``csrc/flash_attention.cu``; #6:
 ``csrc/flash_attention_bwd.cu``; #8: ``csrc/fused_mlp.cu``; #9:
-``csrc/conv3d_tapdot.cu``) with one phase of
+``csrc/conv3d_tapdot.cu``; #4: ``csrc/conv3d_wgrad.cu``, its bf16 wgmma
+kernel's cuts in ``csrc/conv3d_wgrad_wg.cuh`` and the channels-last copy of
+``csrc/channels_last.cuh``) with one phase of
 its device code (its own headers: for #3 and #6 also the softmax backward
 they share in ``csrc/fused_attention_mma_common.cuh``, for #5 the fused
 forward's ``csrc/fused_attention_mma.cuh``, whose softmax it runs) cut out (a
@@ -18,7 +21,9 @@ per call of each copy: for #3, #5 and #6 at each bf16 attention call of the
 flagship train step (``chip_smoke.device_ms``), for #8 at its N = 8192 and N = 4096 calls,
 each of its three launches (``chip_smoke.device_launch_ms``), for #9 at each
 of its calls on the tap-dot model (b2 x 16 frames), the whole call and its
-launches (the channels-last copies, the GEMM). ``--split`` takes the split
+launches (the channels-last copies, the GEMM), for #4 at each bf16 conv of
+the flagship's and the tap-dot model's train steps (b2 x 16 frames), the
+whole call (the copy of g, the products, the reduce). ``--split`` takes the split
 variant past 256 tokens instead, timed at the bf16 spatial calls of the
 flagship's 512² serving pass and train step (S = 1024, b2 and b1; head dim
 64): for #3 and #6 the backward's cuts, ``SPLIT_CUTS`` in
@@ -54,6 +59,10 @@ SIDE_CUTS = {
     "no_key_side": [(_SIDE.format("key"), _CUT_SIDE)],
     "no_sides": [(_SIDE.format("query"), _CUT_SIDE), (_SIDE.format("key"), _CUT_SIDE)],
 }
+
+# the channels-last copy's two loops (csrc/channels_last.cuh), run no times
+_COPY_LOOP = "i < TILE * TILE / 8; i += THREADS) {"
+_NO_COPY_LOOP = "i < TILE * TILE / 8 && C < 0; i += THREADS) {"
 
 # kernel -> (source, its headers, the ops module and the name of its launch counter there,
 # cuts: name -> [(text, replacement)])
@@ -108,13 +117,29 @@ KERNELS = {
     }),
     # the products, the input's TMA boxes (the weights' still arrive), the
     # channels-last copy (its launches stay, empty), the epilogue's stores
-    "9": ("conv3d_tapdot.cu", ("conv3d_tapdot.cu",), conv3d, "CONV3D_TAPDOT", {
+    "9": ("conv3d_tapdot.cu", ("conv3d_tapdot.cu", "channels_last.cuh"), conv3d, "CONV3D_TAPDOT", {
         "full": [],
         "no_products": [("WgmmaKK<WG_N>::mma(d,", "if (g.H < 0) WgmmaKK<WG_N>::mma(d,")],
         "no_tap_loads": [("mbar_expect_tx(&b_full[b.slot], b_bytes);", "mbar_expect_tx(&b_full[b.slot], 0);"),
                          ("for (int q = 0; q < panels; ++q) {", "for (int q = 0; q < panels && g.H < 0; ++q) {")],
-        "no_copy": [("i < CL_TILE * CL_TILE / 8; i += CL_THREADS) {", "i < CL_TILE * CL_TILE / 8 && C < 0; i += CL_THREADS) {")],
+        "no_copy": [(_COPY_LOOP, _NO_COPY_LOOP)],
         "no_epilogue": [("for (int j = 0; j < WG_N / 8; ++j) {", "for (int j = 0; j < WG_N / 8 && g.H < 0; ++j) {")],
+    }),
+    # the bf16 wgmma filter gradient (csrc/conv3d_wgrad_wg.cuh): the channels-last
+    # copy of g (its launch stays, empty), the products, the ring's TMA loads (each
+    # slot's `full` mbarrier expects no bytes; the slots keep what they held: the
+    # "constant loads"), the reduce (its launch skipped)
+    "4": ("conv3d_wgrad.cu", ("conv3d_wgrad_wg.cuh", "channels_last.cuh"), conv3d, "CONV3D_WGRAD", {
+        "full": [],
+        "no_copy": [(_COPY_LOOP, _NO_COPY_LOOP)],
+        "no_products": [("WgmmaT<NB>::mma(d[m], smem_desc(", "if (geo.H < 0) WgmmaT<NB>::mma(d[m], smem_desc(")],
+        "constant_loads": [("mbar_expect_tx(&full[slot], bytes);", "mbar_expect_tx(&full[slot], 0);"),
+                           ("tma_load_5d(a_dst + j * box_bytes,", "if (geo.H < 0) tma_load_5d(a_dst + j * box_bytes,"),
+                           ("tma_load_3d(b_dst + j * NB * 128,", "if (geo.H < 0) tma_load_3d(b_dst + j * NB * 128,"),
+                           ("tma_load_4d(b_dst, x_map,", "if (geo.H < 0) tma_load_4d(b_dst, x_map,"),
+                           *[(f"tma_load_{d}d({dst}, &x{i}_map,", f"if (geo.H < 0) tma_load_{d}d({dst}, &x{i}_map,")
+                             for d in (3, 4) for i, dst in ((1, "dst"), (2, "dst + geo.c1p * 128"))]],
+        "no_reduce": [("  wgrad_wg_reduce_kernel<<<", "  if (total < 0) wgrad_wg_reduce_kernel<<<")],
     }),
 }
 
@@ -289,6 +314,25 @@ def _tapdot_calls(dev):
         yield f"{'+'.join(map(str, cins))}->{cout} @{h}x{w}", {"launches": names}, call
 
 
+def _wgrad_calls(dev):
+    """(case, its fields, call) of #4 at each bf16 conv of the flagship's and the
+    tap-dot model's train steps (b2 x 16 frames: the UNet's 2 rollouts)."""
+    import torch
+
+    from video_vae_tpu_torch.utils.wgrad_times import cases
+
+    gen = torch.Generator().manual_seed(32)
+    for name in ("flagship", "tapdot"):
+        for model, b, t, conv, h, w, cins, cout, k in cases(name):
+            xs = [torch.randn(b, t, c, h, w, generator=gen).to(dev, torch.bfloat16) for c in cins]
+            g = torch.randn(b, t, cout, h, w, generator=gen).to(dev, torch.bfloat16)
+            x2 = xs[1] if len(xs) == 2 else None
+
+            def call(xs=xs, x2=x2, g=g, k=k):
+                return conv3d.conv3d_wgrad_cuda(xs[0], x2, g, *k)
+            yield f"{model} {conv}", {"shape": [b, t, list(cins), h, w, cout, list(k)]}, call
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -325,7 +369,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
     dev = torch.device("cuda")
-    calls = {"8": lambda: _mlp_calls(dev), "9": lambda: _tapdot_calls(dev)}.get(
+    calls = {"4": lambda: _wgrad_calls(dev), "8": lambda: _mlp_calls(dev), "9": lambda: _tapdot_calls(dev)}.get(
         kernel_id, lambda: _attention_calls(kernel_id, dev, split))()
     try:
         for name, fields, call in calls:
