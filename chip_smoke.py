@@ -98,7 +98,11 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    two synthetic clips through an in-memory video source ("cache-latents",
    "decode-latents": launches per video, the written latents and video
    equal to a hand-called model's bit for bit, clips/s, device ms a clip,
-   peak memory);
+   peak memory); then #3's wgmma tile kernel (64 < S <= 256 at head dims 64
+   and 128) at the spatial calls of those steps, the MAE's S = 196 and S = 65,
+   masked with a sequence that keeps no key, the same bits twice ("tile-bwd":
+   device ms beside SDPA's backward and the bound; the "kernels" line counts its
+   launches as ``wgmma_tile_launches``);
 10. runs the trainer of step 7 across ranks. "dist-nccl": a process group of
    one rank on NCCL, in this process with the environment
    ``torch.distributed.run`` gives rank 0 of 1; step 1 must equal step 7's
@@ -235,6 +239,9 @@ SUBLAYER_LAUNCHES = {
 MLP_TRAINING_VARIANT = "vvt_fused_mlp, training variant"
 # the filter gradient's launches of its wgmma kernel (ops/conv3d.py:WGRAD_VARIANT_LAUNCHES)
 WGRAD_WGMMA_VARIANT = "vvt_conv3d_wgrad, wgmma variant"
+# the fused attention backward's launches of its wgmma tile kernel (64 < S <= 256 at head
+# dims 64 and 128; ops/flash_attention.py:BWD_VARIANT_LAUNCHES)
+ATTN_BWD_WGMMA_TILE = "vvt_fused_attention_bwd, wgmma tile variant"
 KNOBS = ("VVT_ATTN_SUBLAYER", "VVT_MLP_FUSED", "VVT_TAPDOT")
 # path -> (ModelConfig.attention_impl, the knobs set to 1 on it)
 MODEL_PATHS = {
@@ -1406,24 +1413,35 @@ def phase_f32_forward(dev, path="fused"):
 
 def reset_launches():
     from video_vae_tpu_torch.ops import KERNELS, conv3d, fused_block
+    from video_vae_tpu_torch.ops import flash_attention as fa
 
     for kernel in KERNELS:
         kernel.launches = 0
-    for counts in (fused_block.VARIANT_LAUNCHES, conv3d.WGRAD_VARIANT_LAUNCHES):
+    for counts in (fused_block.VARIANT_LAUNCHES, conv3d.WGRAD_VARIANT_LAUNCHES, fa.BWD_VARIANT_LAUNCHES):
         for variant in counts:
             counts[variant] = 0
 
 
 def read_launches() -> dict:
     from video_vae_tpu_torch.ops import KERNELS, conv3d, fused_block
+    from video_vae_tpu_torch.ops import flash_attention as fa
 
     counts = {kernel.symbol: kernel.launches for kernel in KERNELS}
     for variants, symbol in ((fused_block.VARIANT_LAUNCHES, "vvt_fused_mlp"),
-                             (conv3d.WGRAD_VARIANT_LAUNCHES, "vvt_conv3d_wgrad")):
+                             (conv3d.WGRAD_VARIANT_LAUNCHES, "vvt_conv3d_wgrad"),
+                             (fa.BWD_VARIANT_LAUNCHES, "vvt_fused_attention_bwd")):
         if sum(variants.values()) != counts[symbol]:
             raise AssertionError(f"{symbol}'s variants {variants} do not add up to its {counts[symbol]}")
     return {**counts, MLP_TRAINING_VARIANT: fused_block.VARIANT_LAUNCHES["training"],
-            WGRAD_WGMMA_VARIANT: conv3d.WGRAD_VARIANT_LAUNCHES["wgmma"]}
+            WGRAD_WGMMA_VARIANT: conv3d.WGRAD_VARIANT_LAUNCHES["wgmma"],
+            ATTN_BWD_WGMMA_TILE: fa.BWD_VARIANT_LAUNCHES["tile_wg"]}
+
+
+def takes_wgmma_tile(seq: int, head_dim: int) -> bool:
+    """Whether a bf16 fused attention backward at (S, D) runs the wgmma tile kernel."""
+    from video_vae_tpu_torch.ops import flash_attention as fa
+
+    return fa.fused_attention_bwd_plan(1, seq, 1, head_dim)[0] == "tile_wg"
 
 
 def expected_launches(cfg, entry: str, path: str) -> dict:
@@ -1433,7 +1451,10 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
     per down and up block and 2 bottleneck convs. A train step adds each
     conv's input gradient (a forward kernel again) and filter gradient, and
     each attention's backward; the attention sublayer's backward is the fused
-    attention backward, the MLP sublayer's has no kernel. Every filter gradient
+    attention backward, the MLP sublayer's has no kernel. The fused attention
+    backward's spatial calls run its wgmma tile kernel where the plan gives it
+    (``takes_wgmma_tile``: S = 196 or 256 at head dims 64 and 128); its temporal
+    ones (S = the frames, at most 64 at every entry here) the slab. Every filter gradient
     of a bf16 step whose frame width is a multiple of 8 runs the wgmma kernel
     (``conv3d.wgrad_variant``). The MLP kernel runs
     its training variant (the residuals written) in a train step and its
@@ -1455,7 +1476,8 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
     }[impl]
     if "VVT_ATTN_SUBLAYER" in knobs:
         forward = "vvt_attention_sublayer"
-    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0, WGRAD_WGMMA_VARIANT: 0}
+    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0, WGRAD_WGMMA_VARIANT: 0,
+            ATTN_BWD_WGMMA_TILE: 0}
     want["vvt_conv3d_cf"] = 2 * convs if train else convs
     want[forward] = attn
     if "VVT_MLP_FUSED" in knobs:
@@ -1466,6 +1488,8 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
         want[WGRAD_WGMMA_VARIANT] = sum(conv3d.wgrad_variant(torch.bfloat16, w) == "wgmma"
                                         for _, _, w, _, _, _, dtype in conv_cases(cfg) if dtype == "bfloat16")
         want[backward] = attn
+        if backward == "vvt_fused_attention_bwd" and takes_wgmma_tile(cfg.num_patches, cfg.head_dim):
+            want[ATTN_BWD_WGMMA_TILE] = attn // 2  # one spatial call a block
     if "VVT_TAPDOT" in knobs:
         fwd, dgrad = (sum(d.values()) for d in tapdot_launches(cfg))
         want["vvt_conv3d_tapdot"] = fwd + dgrad if train else fwd
@@ -2401,7 +2425,7 @@ def _hold_dist(phase: str, mesh: dict, records: list[dict], ref_step1: dict, bac
     label, (data, fsdp, tensor), batch = f"{phase} {mesh['label']}", mesh["shape"], mesh["batch"]
     per_step = trainer_launches(trainer_config("checkpoints", depth=mesh["depth"]).model)  # nothing is written
     if tensor > 1:
-        per_step = {**per_step, **{k: 0 for k in ATTENTION_KERNELS}}
+        per_step = {**per_step, **{k: 0 for k in (*ATTENTION_KERNELS, ATTN_BWD_WGMMA_TILE)}}
     shards = data * fsdp
     local = batch // shards if batch % shards == 0 else batch
     steps = mesh["clips"] // batch if mesh["full"] else DIST_SHORT_STEPS
@@ -3031,13 +3055,17 @@ def phase_mae_kernels(dev, rows):
 def _mae_launches(cfg, train: bool) -> dict:
     """Launches of every kernel in one MAE gradient step (``train``) or eval forward:
     #1 twice per block (temporal, spatial), again under remat in a step, and #3 once
-    per forward call in a step; nothing else."""
+    per forward call in a step (its spatial calls, S = 196, on the wgmma tile kernel);
+    nothing else."""
     from video_vae_tpu_torch.ops import KERNELS
 
     calls = 2 * (cfg.encoder_depth + max(1, cfg.decoder_depth // 3))
-    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0, WGRAD_WGMMA_VARIANT: 0}
+    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0, WGRAD_WGMMA_VARIANT: 0,
+            ATTN_BWD_WGMMA_TILE: 0}
     want["vvt_fused_attention_fwd"] = calls * (2 if train and cfg.remat else 1)
     want["vvt_fused_attention_bwd"] = calls if train else 0
+    if train and takes_wgmma_tile(cfg.num_patches, cfg.head_dim):
+        want[ATTN_BWD_WGMMA_TILE] = calls // 2
     return want
 
 
@@ -3574,6 +3602,23 @@ def phase_split_fwd_kernels(dev):
         log("split-fwd", json.dumps(line))
 
 
+def phase_tile_bwd_kernels(dev):
+    """#3's wgmma tile kernel (64 < S <= 256 at head dims 64 and 128) at
+    ``utils/tile_bwd_times.py:CASES`` (the spatial calls of the flagship's, the
+    trainer's and the 4-head model's steps, the MAE's S = 196, S = 65 at both
+    head dims), each without a key mask and with one that keeps a prefix of each
+    sequence (the first sequence none): against its plain version within
+    ``KERNEL_TOL``, the sequence with no key too, the same bits from two launches;
+    one "tile-bwd" line a case with its device ms beside SDPA's backward on the
+    same q, k, v and dO (the yardstick) and the bound. Counted on no path and left
+    out of the kernel record: the paths count and record #3 at
+    ``phase_attention_kernels``' checks of their own calls."""
+    from video_vae_tpu_torch.utils import tile_bwd_times
+
+    for line in tile_bwd_times.lines(dev):
+        log("tile-bwd", json.dumps(line))
+
+
 def phase_split_bwd_kernels(dev):
     """#3 and #6's split backward (past 256 tokens: wgmma launches at head dims 64
     and 128, mma.sync at 16 and 32) at ``utils/split_bwd_times.py:CASES`` (the
@@ -3649,6 +3694,9 @@ def kernel_record(rows, launches_by_path):
                 "launches": launches_by_path[path][kernel.symbol],
                 **({"wgmma_launches": launches_by_path[path][WGRAD_WGMMA_VARIANT]}
                    if kernel.symbol == "vvt_conv3d_wgrad" and WGRAD_WGMMA_VARIANT in launches_by_path[path] else {}),
+                **({"wgmma_tile_launches": launches_by_path[path][ATTN_BWD_WGMMA_TILE]}
+                   if kernel.symbol == "vvt_fused_attention_bwd" and ATTN_BWD_WGMMA_TILE in launches_by_path[path]
+                   else {}),
                 "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
                 # the larger share of the summed bound
                 "bound_by": "operations" if 2 * by_ops >= total("bound_ms") else "bytes",
@@ -3770,6 +3818,10 @@ def main() -> int:
     phase_h4_kernels(dev, rows)
     phase_latent_kernels(cfg, dev, rows)
     log("seconds", json.dumps({"head-dim-128 and b1x64f kernel checks": time.monotonic() - started}))
+    started = time.monotonic()
+    # #3's wgmma tile kernel at the paths' tile shapes, S = 65 and 196, a sequence with no key
+    phase_tile_bwd_kernels(dev)
+    log("seconds", json.dumps({"tile-bwd-kernels": time.monotonic() - started}))
     started = time.monotonic()
     # past 256 tokens (the split variant): the flagship's calls at 512², S = 257 and 576, and
     # S = 1024 at head_dim 128; #2 and #4 at the 512² UNet

@@ -15,7 +15,11 @@ rest of the launch from the plan as ``launch_attention_bwd_mma`` in
 as ``attention_bwd_kernel`` walks them. Past 256 tokens the plan is
 ``"split"`` (#1's LN + RoPE pass, a query-major and a key-major launch, then
 the f32 path's LN + RoPE backward), walked by ``helpers/split_geometry.py``;
-every S <= 256 keeps the plan it had before.
+every S <= 256 keeps the plan it had before. At head dims 64 and 128 with
+64 < S <= 256 the plan is ``"tile_wg"`` (one wgmma block a pair, TMA loads,
+two consumer warpgroups dealt 64-row tiles), walked by
+``helpers/tile_wg_geometry.py``; :func:`mma_bwd_plan` keeps the mma.sync tile there,
+and #6 takes it.
 """
 
 import dataclasses
@@ -25,23 +29,27 @@ import pytest
 
 import chip_smoke
 from helpers.split_geometry import check_split
+from helpers.tile_wg_geometry import TileWgGeometry, check_tile_wg
 from video_vae_tpu_torch import ModelConfig
 from video_vae_tpu_torch.ops.flash_attention import (
     BWD_ROWS_PER_BLOCK,
     BWD_SLAB_MAX_SEQ,
     BWD_SLAB_WARPS,
     BWD_TILE_WARPS,
+    BWD_TILE_WG_WARPS,
     BWD_WIDE_TILE_WARPS,
     KERNEL_HEAD_DIMS,
     TILE_MAX_SEQ,
+    WGMMA_HEAD_DIMS,
     fused_attention_bwd_plan,
+    mma_bwd_plan,
     mma_row_bytes,
     split_bwd_warps,
 )
 from test_torch_attention_plan import D128_BATCHES, H4_CASES, LATENT_CASES, LONG_CASES, LONG_IDS, MAE_CASES, PINNED_BATCHES
 
 # what the H100 accepts of one block and one grid; the kernel's __launch_bounds__ per variant
-# (the tile's at head_dim 128: attention_bwd_wide_kernel's)
+# (the tile's at head_dim 128: the wide tile, bwd::wide_tile_bwd, which #6 runs)
 MAX_SMEM, MAX_GRID_X = 232448, 2**31 - 1
 LAUNCH_BOUND_WARPS = {"slab": 4, "tile": 16, "wide tile": 8}
 
@@ -158,6 +166,10 @@ class Geometry:
 def _check_plan(B, S, H, D=64):
     geo = Geometry(B, S, H, D)
     variant, unit, warps = geo.plan
+    if variant == "tile_wg":  # the wgmma tile: its own geometry
+        assert D in WGMMA_HEAD_DIMS and BWD_SLAB_MAX_SEQ < S <= TILE_MAX_SEQ
+        check_tile_wg(B, S, H, D)
+        return
     assert variant in ("slab", "tile") and unit >= 1
     assert variant == "tile" or S <= BWD_SLAB_MAX_SEQ
     assert variant == "slab" or unit == 1
@@ -219,14 +231,21 @@ def test_attention_bwd_plan_at_ragged_shapes(B, S, H):
 
 def test_attention_bwd_plan_at_the_models_shapes_is_as_designed():
     """Temporal S = 16, 8 heads: a slab block of half a sequence's pairs, a
-    warp a pair, four blocks an SM; spatial S = 256: one block a pair, 16
-    warps of 16 rows on each side, 32-key chunks walked twice."""
+    warp a pair, four blocks an SM; spatial S = 256: one wgmma block a pair,
+    two consumer warpgroups taking two 64-row tiles on each side, the query
+    side's 128-key tiles walked twice, every row array resident (128 KB) beside
+    each warpgroup's 40 KB epilogue staging (216 KB in all).
+    The mma.sync tile block (16 warps of 16 rows, 32-key chunks walked twice) is
+    :func:`mma_bwd_plan`'s there."""
     temporal = Geometry(512, 16, 8)
     assert (temporal.plan, temporal.grid, temporal.kt) == (("slab", 4, 4), 1024, 1)
     assert 4 * temporal.smem <= MAX_SMEM
-    spatial = Geometry(32, 256, 8)
-    assert (spatial.plan, spatial.grid, spatial.kt) == (("tile", 1, 16), 256, 2)
-    assert len(spatial.query_chunks()) == 8 and len(spatial.key_steps()) == 16
+    spatial = check_tile_wg(32, 256, 8, 64)
+    assert Geometry(32, 256, 8).plan == ("tile_wg", 1, 12)
+    assert (spatial.grid, spatial.tiles, spatial.rounds, spatial.key_tiles) == (256, 4, 2, 2)
+    assert len(spatial.query_steps()) == 4 and not spatial.stream and spatial.epi_bytes == 40960
+    assert spatial.smem == 1024 + 4 * 32768 + 2 * 40960 + 3 * 256 * 4 + 8 * 2 * 64 * 4 + 6 * 8 == 221232
+    assert mma_bwd_plan(32, 256, 8, 64) == ("tile", 1, 16)
 
 
 @pytest.mark.parametrize("label,name,B,S,H,D", PRESET_CASES, ids=[f"{c[0]}-{c[1]}" for c in PRESET_CASES])
@@ -240,17 +259,25 @@ def test_attention_bwd_plan_at_ragged_shapes_other_head_dims(B, S, H, D):
 
 
 def test_attention_bwd_plan_is_the_same_at_every_head_dim():
-    """The variant and pairs do not depend on head_dim, nor the warps but at
-    head_dim 128's tile blocks (at most ``BWD_WIDE_TILE_WARPS``); the shared
-    memory grows with it and fits at each; other head dims are refused."""
+    """The mma.sync plan's variant and pairs do not depend on head_dim, nor its
+    warps but at head_dim 128's tile blocks (at most ``BWD_WIDE_TILE_WARPS``);
+    #3 takes it but at head dims 64 and 128 past 64 tokens, where it takes the
+    wgmma tile; the shared memory grows with the head dim within each kernel
+    and fits at each; other head dims are refused."""
     for B, S, H in RAGGED_CASES:
-        plans = {fused_attention_bwd_plan(B, S, H, D) for D in KERNEL_HEAD_DIMS if D != 128}
+        plans = {mma_bwd_plan(B, S, H, D) for D in KERNEL_HEAD_DIMS if D != 128}
         assert len(plans) == 1
         (variant, unit, warps), = plans
-        wide = fused_attention_bwd_plan(B, S, H, 128)
+        wide = mma_bwd_plan(B, S, H, 128)
         assert wide == (variant, unit, warps if variant == "slab" else min(warps, BWD_WIDE_TILE_WARPS))
-        smem = [Geometry(B, S, H, D).smem for D in KERNEL_HEAD_DIMS]
+        for D in KERNEL_HEAD_DIMS:
+            wg = variant == "tile" and D in WGMMA_HEAD_DIMS
+            want = ("tile_wg", 1, BWD_TILE_WG_WARPS) if wg else mma_bwd_plan(B, S, H, D)
+            assert fused_attention_bwd_plan(B, S, H, D) == want
+        smem = [Geometry(B, S, H, D).smem for D in KERNEL_HEAD_DIMS if Geometry(B, S, H, D).plan[0] != "tile_wg"]
         assert smem == sorted(smem) and smem[-1] <= MAX_SMEM
+        smem = [TileWgGeometry(B, S, H, D).smem for D in WGMMA_HEAD_DIMS if variant == "tile"]
+        assert smem == sorted(smem) and all(m <= MAX_SMEM for m in smem)
     for bad in (8, 48, 96, 256):
         with pytest.raises(ValueError, match="head_dim"):
             fused_attention_bwd_plan(4, 16, 8, bad)
@@ -269,17 +296,22 @@ def test_attention_bwd_plan_at_head_dim_128(S):
 
 def test_attention_bwd_plan_at_head_dim_128_is_as_designed():
     """ModelConfig(num_heads=4): temporal S = 16, slab blocks of 4 pairs (76 KB
-    with the warps' staging rows); spatial S = 256, a wide tile block a pair: 8
-    warps taking two 16-row tiles on each side, q~ | k~ | v rows (dO's after
-    the query side) in 220 KB, where four arrays would take 278 KB."""
+    with the warps' staging rows); spatial S = 256, a wgmma tile block a pair:
+    q~ and k~ resident (128 KB), each consumer warpgroup's own dO (query side)
+    or v (key side) tile in a 16 KB buffer, the walked v, then dO, through a
+    ring of three 16 KB stages, 64-key tiles: 220 KB, where four row arrays
+    would take 256 KB. The mma.sync wide tile block (8 warps, q~ | k~ | v rows in 220
+    KB, where four arrays of 272-byte rows would take 278 KB) is
+    :func:`mma_bwd_plan`'s there."""
     temporal = Geometry(256, 16, 4, 128)
     assert (temporal.plan, temporal.grid, temporal.kt) == (("slab", 4, 4), 256, 1)
     assert temporal.smem == 4 * (4 * 16 * 272 + 2 * 16 * 24 * 2 + 8) + 4 * (256 + 8 * 136) * 4
-    spatial = Geometry(16, 256, 4, 128)
-    assert (spatial.plan, spatial.variant, spatial.grid, spatial.kt) == (("tile", 1, 8), "wide tile", 64, 2)
-    assert spatial.smem == 3 * 256 * 272 + 3 * 256 * 4 + 32 + 8 * 256 * 4 == 220192
-    assert 4 * 256 * 272 > MAX_SMEM
-    assert {warp for _, warp, _, _ in spatial.tiles_dealt()} == set(range(8))
+    spatial = check_tile_wg(16, 256, 4, 128)
+    assert Geometry(16, 256, 4, 128).plan == ("tile_wg", 1, 12)
+    assert (spatial.grid, spatial.stream, spatial.key_tile, spatial.boxes) == (64, True, 64, 2)
+    assert spatial.smem == 1024 + 2 * 65536 + 2 * 16384 + 3 * 16384 + 3 * 256 * 4 + 8 * 256 * 4 + 11 * 8 == 225368
+    assert 4 * 256 * 256 > MAX_SMEM and 4 * 256 * 272 > MAX_SMEM
+    assert mma_bwd_plan(16, 256, 4, 128) == ("tile", 1, 8)
 
 
 @pytest.mark.parametrize("name,B,S,H", LATENT_CASES, ids=[c[0] for c in LATENT_CASES])
@@ -293,15 +325,17 @@ def test_attention_bwd_plan_at_mae_shapes(name, B, S, H):
 
 
 def test_attention_bwd_plan_at_mae_shapes_is_as_designed():
-    """The MAE at 224²: spatial S = 196 takes a tile block a pair with 13 warps of
-    16 rows on each side (the last tile 4 real rows), 32-key query chunks with a
-    last one of 16 (keys 192-207, of which 196-207 are padding); temporal S = 16
-    the flagship's slab of 4 pairs a block."""
-    spatial = Geometry(64, 196, 8)
-    assert (spatial.plan, spatial.grid, spatial.kt) == (("tile", 1, 13), 512, 2)
-    assert spatial.query_chunks()[-1] == (192, 1) and len(spatial.query_chunks()) == 7
-    assert len(spatial.key_steps()) == 13 and spatial.key_steps()[-1] == 192
-    assert spatial.smem <= MAX_SMEM
+    """The MAE at 224²: spatial S = 196 takes a wgmma tile block a pair, four
+    64-row tiles (the last 4 real rows, the rest zeros from TMA) in two rounds
+    of the two consumer warpgroups, two 128-key tiles a walk (keys 128-255, of
+    which 196-255 are padding); temporal S = 16 the flagship's slab of 4 pairs
+    a block. The mma.sync tile block (13 warps of 16 rows, 32-key chunks with a last
+    one of 16) is :func:`mma_bwd_plan`'s there."""
+    spatial = check_tile_wg(64, 196, 8, 64)
+    assert Geometry(64, 196, 8).plan == ("tile_wg", 1, 12)
+    assert (spatial.grid, spatial.tiles, spatial.key_tiles, spatial.resident_rows) == (512, 4, 2, 256)
+    assert spatial.query_steps()[-1] == (3, 128) and spatial.smem <= MAX_SMEM
+    assert mma_bwd_plan(64, 196, 8, 64) == ("tile", 1, 13)
     temporal = Geometry(784, 16, 8)
     assert (temporal.plan, temporal.grid, temporal.kt) == (("slab", 4, 4), 1568, 1)
 
@@ -320,10 +354,15 @@ def _bwd_plan_before_split(B, S, H, D):
 
 @pytest.mark.parametrize("D", KERNEL_HEAD_DIMS)
 def test_attention_bwd_plan_keeps_every_short_sequence(D):
-    """Every S <= 256 keeps its variant, pairs and warps a block; 257 splits."""
+    """Every S <= 256 keeps its variant, pairs and warps a block in the mma.sync
+    plan (which #6 takes, and #3 at head dims 16 and 32 and up to 64 tokens);
+    #3 at head dims 64 and 128 past 64 tokens takes the wgmma tile; 257 splits."""
     for B, H in PINNED_BATCHES:
         for S in range(1, TILE_MAX_SEQ + 1):
-            assert fused_attention_bwd_plan(B, S, H, D) == _bwd_plan_before_split(B, S, H, D), (B, S, H)
+            assert mma_bwd_plan(B, S, H, D) == _bwd_plan_before_split(B, S, H, D), (B, S, H)
+            wg = D in WGMMA_HEAD_DIMS and S > BWD_SLAB_MAX_SEQ
+            want = ("tile_wg", 1, BWD_TILE_WG_WARPS) if wg else _bwd_plan_before_split(B, S, H, D)
+            assert fused_attention_bwd_plan(B, S, H, D) == want, (B, S, H)
         assert fused_attention_bwd_plan(B, TILE_MAX_SEQ + 1, H, D) == ("split", 1, split_bwd_warps(D))
 
 
@@ -355,3 +394,48 @@ def test_attention_bwd_split_at_512_is_as_designed():
         assert check_split("fused_bwd", 16, 576, 8, D).grid == 16 * 8 * 9
         assert fused_attention_bwd_plan(16, 576, 8, D) == ("split", 1, 4)
 
+
+
+# the lengths the plan test names (one past the slab, 2 x 64, the MAE's 196, one short of
+# and at the tile's edge) at every head dim the kernels take
+TILE_EDGE_CASES = [(S, D) for S in (65, 128, 196, 255, 256) for D in KERNEL_HEAD_DIMS]
+
+
+@pytest.mark.parametrize("S,D", TILE_EDGE_CASES)
+def test_attention_bwd_plan_at_the_tile_lengths(S, D):
+    """Which kernel takes each: the wgmma tile (12 warps, one block a pair) at head
+    dims 64 and 128, the mma.sync tile (a warp each 16 rows) at 16 and 32; shared memory
+    within the H100's 227 KB at each."""
+    for B, H in ((1, 8), (32, 8), (16, 4)):
+        plan = fused_attention_bwd_plan(B, S, H, D)
+        if D in WGMMA_HEAD_DIMS:
+            assert plan == ("tile_wg", 1, 12)
+            assert check_tile_wg(B, S, H, D).smem <= MAX_SMEM
+        else:
+            assert plan == ("tile", 1, -(-S // 16))
+            assert Geometry(B, S, H, D).smem <= MAX_SMEM
+        _check_plan(B, S, H, D)
+
+
+@pytest.mark.parametrize("D", WGMMA_HEAD_DIMS)
+def test_attention_bwd_tile_wg_at_every_length(D):
+    """Every S in 65..256 at both head dims and batches of 1, 3 and 5 sequences:
+    the launch, its boxes, rows, walks and (D = 128) ring hold."""
+    for S in range(BWD_SLAB_MAX_SEQ + 1, TILE_MAX_SEQ + 1):
+        for B, H in ((1, 8), (3, 4), (5, 2)):
+            check_tile_wg(B, S, H, D)
+
+
+def test_attention_bwd_tile_wg_is_as_designed():
+    """Shared memory a block by length: at head dim 64 every row array resident in
+    S rounded up to 128 rows (so 129-192 keeps a zeroed fourth tile) beside the two
+    epilogue stagings, at 128 q~ and k~ in S rounded up to 64 beside the own
+    buffers and the ring; the tiles dealt in rounds of two, one warpgroup idle in
+    the last round of an odd count."""
+    sizes = {S: TileWgGeometry(1, S, 8, 64).smem for S in (65, 128, 129, 192, 193, 256)}
+    assert sizes[65] == sizes[128] == 1024 + 4 * 16384 + 2 * 40960 + 3 * 128 * 4 + 4096 + 48
+    assert sizes[129] == sizes[192] == sizes[193] == sizes[256] == 221232
+    geo = check_tile_wg(2, 150, 4, 128)
+    assert (geo.tiles, geo.rounds, geo.resident_rows, len(geo.ring_steps()) // 2) == (3, 2, 192, 2 * (2 * 3 + 3))
+    assert [(r, w) for r, w, _ in geo.dealt("query")] == [(0, 0), (0, 1), (1, 0)]
+    assert TileWgGeometry(1, 65, 4, 128).smem == 1024 + 2 * 32768 + 2 * 16384 + 3 * 16384 + 3 * 128 * 4 + 8192 + 88

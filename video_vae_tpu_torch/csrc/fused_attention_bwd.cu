@@ -43,12 +43,18 @@
 //     5 products of S^2 D a pair, the fewest the function needs.
 //     Small blocks (up to 4 warps, at least 4 blocks an SM, so 128 registers
 //     a thread), so that one block's copies overlap another's products.
-//   * S > 64, "tile": a block owns one pair, all its rows (147 KB at S = 256;
-//     P and dS of the pair would not fit beside them). The query side walks
-//     the keys in 32-key chunks twice: q~k~^T and dO v^T give m, l and row
-//     online, then again for P, dS and dq~; m, 1/l and row go to shared
-//     memory. The key side walks the queries in 16s: k~q~^T and v dO^T give
-//     P^T and dS^T, then dv and dk~. 9 products a pair, 3 exp a score.
+//   * S > 64, "tile" (head dims 16 and 32): a block owns one pair, all its
+//     rows (147 KB at S = 256 and D = 64; P and dS of the pair would not fit
+//     beside them). The query side walks the keys in 32-key chunks twice:
+//     q~k~^T and dO v^T give m, l and row online, then again for P, dS and
+//     dq~; m, 1/l and row go to shared memory. The key side walks the queries
+//     in 16s: k~q~^T and v dO^T give P^T and dS^T, then dv and dk~. 9
+//     products a pair, 3 exp a score.
+//   * 64 < S <= 256 at head dims 64 and 128, "tile_wg": the same walks and 9
+//     products on wgmma fed by TMA (fused_attention_bwd_wg.cuh: one block a
+//     pair, two consumer warpgroups dealt 64-row tiles and a producer; at
+//     D = 64 every row array resident and each epilogue's rows staged by TMA,
+//     at 128 v and dO streamed). The plan picks it by (S, D) alone.
 //   * S > 256, "split" (shared with #6): #1's LN + RoPE pass
 //     (attention_split.cuh) writes q~ and k~ (bf16, rounded as above) to the
 //     workspace; a query-major launch writes the rows' (m, 1/l, row) and dq~
@@ -68,11 +74,12 @@
 //   memory and the block writes one (D,) partial of each scale, summed by the
 //   wrapper.
 // Measured on the H100 (PERF.md; video_vae_tpu_torch/utils/kernel_phases.py
-// times copies with one phase cut out): neither call is near its bound. The
-// spatial call issues about one mma.sync per 7 cycles an SM: 16 warps capped at
-// 128 registers wait on their own chains. Its key side takes 46 % (19 %
+// times copies with one phase cut out), the mma.sync kernel at the flagship's calls
+// (the spatial call now takes "tile_wg"): neither call is near its bound. The
+// spatial call issued about one mma.sync per 7 cycles an SM: 16 warps capped at
+// 128 registers waited on their own chains. Its key side took 46 % (19 %
 // recomputing k~q~^T and v dO^T), the query side 40 %, the staging and LN
-// 18 %; within the sides, the epilogues take 24 % and the exp 10 %. The
+// 18 %; within the sides, the epilogues took 24 % and the exp 10 %. The
 // temporal call spends half its time staging and in the LN and 39 % in the
 // epilogues, whose chains of loads and row sums wait on L2.
 // Roundings (between the TPU kernel, whose products are f32, and the JAX
@@ -99,15 +106,9 @@
 //      l + D/2 (the RoPE pairs); per-block dscale partials, summed by the wrapper.
 //
 // D = 128. bf16 slab blocks are the same code with one block an SM at least
-// (bwd::SLAB_BLOCKS<128>: up to 255 registers for 16 x 128 accumulators). A
-// tile block cannot stage a pair's four row arrays (4 x 69.6 KB at S = 256):
-// it runs bwd::wide_tile_bwd (fused_attention_mma_common.cuh), which keeps
-// q~ | k~ | v in shared memory, reads the query side's dO and the key side's v
-// as mma.sync A fragments from device memory, copies dO over v between the
-// sides, and takes its epilogues (LN + RoPE backward, dv) straight from the
-// accumulators, whose lanes hold each column's RoPE partner: 8 warps, 220
-// KB, the same products and roundings. f32 passes 1 and 4 give a lane two
-// RoPE pairs (LANE_PAIRS<128>); passes 2 and 3 are the quad kernels of
+// (bwd::SLAB_BLOCKS<128>: up to 255 registers for 16 x 128 accumulators); past
+// 64 tokens the wgmma tile above. f32 passes 1 and 4 give a lane two RoPE
+// pairs (LANE_PAIRS<128>); passes 2 and 3 are the quad kernels of
 // attention_f32_wide.cuh (four lanes a row, the other side in 64-row chunks).
 
 #include <cuda_bf16.h>
@@ -118,6 +119,7 @@
 #include "attention_split.cuh"
 #include "attention_split_bwd.cuh"
 #include "fused_attention_bwd_mma.cuh"
+#include "fused_attention_bwd_wg.cuh"
 
 namespace {
 
@@ -666,11 +668,12 @@ cudaError_t launch_split(const void* qkv, const void* q_scale, const void* k_sca
 // dqs_part, dks_part: (n_blocks, D) f32 partials of the scale gradients.
 // f32: n_blocks = ceil(B * H * S / 64), work = f32 scratch of 6 * B * H * S * D +
 // 3 * B * H * S floats; variant, unit and warps are not read.
-// bf16: variant (slab 0, tile 1, split 2), unit (pairs a slab block, 1
-// otherwise) and warps from the plan; slab and tile: n_blocks = the grid, work
-// is not read; split (12 warps at head dims 64 and 128, 4 at 16 and 32):
-// n_blocks = ceil(B * H * S / 64), work = f32 scratch of 3 * B * H * S * D +
-// 3 * B * H * S floats.
+// bf16: variant (slab 0, tile 1, split 2, tile_wg 3: the wgmma tile at head
+// dims 64 and 128, 12 warps), unit (pairs a slab block, 1 otherwise) and warps
+// from the plan; slab, tile and tile_wg: n_blocks = the grid, work is not
+// read; split (12 warps at head dims 64 and 128, 4 at 16 and 32): n_blocks =
+// ceil(B * H * S / 64), work = f32 scratch of 3 * B * H * S * D + 3 * B * H * S
+// floats.
 extern "C" int vvt_fused_attention_bwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
                                        const void* g, void* dqkv, void* dqs_part, void* dks_part,
@@ -693,6 +696,12 @@ extern "C" int vvt_fused_attention_bwd(const void* qkv, const void* q_scale, con
       if (unit != 1 || warps != fa_mma::split_bwd_warps<D>()) return cudaErrorInvalidValue;
       return launch_split<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv, dqs_part, dks_part, work, B, S, H,
                              n_blocks, st);
+    }
+    if (variant == fa_mma::TILE_WG) {
+      if constexpr (D >= 64)
+        return fa_mma::tile_wg::launch_bwd<D>(a, warps, n_blocks, st);
+      else
+        return cudaErrorInvalidValue;
     }
     return fa_mma::bwd::launch_attention_bwd_mma<D>(a, variant, warps, n_blocks, st);
   });

@@ -305,21 +305,6 @@ __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_ke
   }
 }
 
-// The tile variant at D = 128 (wide_tile_bwd in fused_attention_mma_common.cuh):
-// one block per (sequence, head) pair.
-template <int D>
-__global__ void __launch_bounds__(WIDE_TILE_WARPS * 32, 1) attention_bwd_wide_kernel(Args a) {
-  const long long p = blockIdx.x, b = p / a.H;
-  const size_t token = 3 * (size_t)a.H * D, HD = (size_t)a.H * D;
-  const size_t base = (size_t)b * a.S * token + (size_t)(p % a.H) * D;
-  const PairRows io{{a.qkv + base, a.qkv + base + HD, a.qkv + base + 2 * HD, a.g + (size_t)b * a.S * HD + (p % a.H) * D},
-                    {token, token, token, HD},
-                    {a.dqkv + base, a.dqkv + base + HD, a.dqkv + base + 2 * HD},
-                    token};
-  wide_tile_bwd<D, true>(io, NormRope{a.q_scale, a.k_scale, a.cos_t, a.sin_t}, a.mask, b, a.S, a.dqs_part,
-                         a.dks_part);
-}
-
 template <int D, int KT, bool TILE>
 cudaError_t launch_bwd(const Args& a, int warps, int smem, unsigned blocks, cudaStream_t stream) {
   auto kernel = attention_bwd_kernel<D, KT, TILE, TILE ? TILE_WARPS : SLAB_WARPS, TILE ? 1 : SLAB_BLOCKS<D>>;
@@ -331,7 +316,9 @@ cudaError_t launch_bwd(const Args& a, int warps, int smem, unsigned blocks, cuda
 
 // Checks the plan (ops/flash_attention.py:fused_attention_bwd_plan: the variant,
 // the pairs a slab block and the warps a block) and the partials' row count
-// against the shape, and launches.
+// against the shape, and launches. The tile variant is this kernel's at head
+// dims 16 and 32 alone: at 64 and 128 the plan takes the wgmma tile
+// (fused_attention_bwd_wg.cuh).
 template <int D>
 cudaError_t launch_attention_bwd_mma(const Args& a, int variant, int warps, int n_blocks,
                                             cudaStream_t stream) {
@@ -341,26 +328,19 @@ cudaError_t launch_attention_bwd_mma(const Args& a, int variant, int warps, int 
     if (a.S > SLAB_MAX_SEQ || a.unit < 1 || warps < 1 || warps > SLAB_WARPS) return cudaErrorInvalidValue;
     blocks = (pairs + a.unit - 1) / a.unit;
   } else if (variant == TILE) {
-    if (a.unit != 1 || a.S > TILE_MAX_SEQ || warps < 1 || warps > (D == 128 ? WIDE_TILE_WARPS : TILE_WARPS))
-      return cudaErrorInvalidValue;
+    if (D >= 64 || a.unit != 1 || a.S > TILE_MAX_SEQ || warps < 1 || warps > TILE_WARPS) return cudaErrorInvalidValue;
     blocks = pairs;
   } else {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = D == 128 && variant == TILE ? wide_tile_smem_bytes<D>(a.S, warps, true)
-                                                  : bwd_smem_bytes<D>(variant, a.S, a.unit, warps);
+  const size_t smem = bwd_smem_bytes<D>(variant, a.S, a.unit, warps);
   if (blocks != n_blocks || blocks > 0x7fffffffLL || smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   const unsigned grid = (unsigned)blocks;
   if (variant == TILE) {
-    if constexpr (D == 128) {
-      cudaError_t err = cudaFuncSetAttribute(attention_bwd_wide_kernel<D>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-      attention_bwd_wide_kernel<D><<<grid, 32 * warps, smem, stream>>>(a);
-      return cudaGetLastError();
-    } else {
+    if constexpr (D < 64)
       return launch_bwd<D, TILE_KT, true>(a, warps, (int)smem, grid, stream);
-    }
+    else
+      return cudaErrorInvalidValue;
   }
   switch (chunk_steps(a.S)) {  // one chunk holds every key
     case 1:

@@ -44,9 +44,13 @@ own rows a block, two consumer warpgroups and a producer); at 16 and 32 on
 mma.sync (64 rows a block, double-buffered tiles of 64 rows). #1 and #3
 first write q̃ and k̃ (LN and RoPE, rounded to bf16) to a workspace with the
 same LN and RoPE code as the tile variant.
+#3's tile variant at head dims 64 and 128 (64 < S ≤ 256) is ``"tile_wg"``
+(``csrc/fused_attention_bwd_wg.cuh``): one block a (sequence, head) pair on
+wgmma fed by TMA, two consumer warpgroups dealt its 64-row tiles and a
+producer; #6's, and #3's at 16 and 32, stay on mma.sync.
 At 128 the bf16 slab and tile blocks cap at 8 warps (255 registers a thread
-for a warp's 16 × 128 f32 accumulators), and the backward's tile blocks keep
-three of a pair's four row arrays in shared memory (``csrc``:
+for a warp's 16 × 128 f32 accumulators), and #6's tile blocks keep three of
+a pair's four row arrays in shared memory (``csrc``:
 ``bwd::wide_tile_bwd``); the f32 kernels give a row four lanes and stage the
 other side's rows in chunks (``csrc/attention_f32_wide.cuh``), as they do
 at every head dim past 256 tokens.
@@ -151,7 +155,8 @@ BWD_ROWS_PER_BLOCK = 64
 MMA_SLAB_WARPS = 8  # warps of a slab block at most
 MMA_SLAB_MAX_SEQ = 64  # the longest sequence a block stages whole, all heads
 MMA_SLAB_MAX_SMEM = 100 * 1024  # a slab block at most this, so that two fit an SM
-MMA_VARIANTS = ("slab", "tile", "split")  # as csrc/fused_attention_mma_common.cuh numbers them
+# as csrc/fused_attention_mma_common.cuh numbers them; "tile_wg" is #3's alone (fused_attention_bwd_plan)
+MMA_VARIANTS = ("slab", "tile", "split", "tile_wg")
 
 # The split variant of the bf16 kernels at head dims 16 and 32 (csrc/attention_split.cuh),
 # S > TILE_MAX_SEQ: a block owns this many rows of a pair, a warp each 16, and streams
@@ -285,14 +290,17 @@ BWD_SLAB_MAX_SEQ = 64  # the longest sequence whose P and dS a block keeps
 BWD_SLAB_WARPS = 4  # warps of a slab block at most: four blocks or more an SM
 BWD_TILE_WARPS = 16  # warps of a tile block at most
 BWD_WIDE_TILE_WARPS = 8  # ... at head_dim 128 (csrc: bwd::WIDE_TILE_WARPS)
+# #3's wgmma tile block (csrc/fused_attention_bwd_wg.cuh): two consumer warpgroups and a producer
+BWD_TILE_WG_WARPS = SPLIT_BWD_WARPS
 
 
-@functools.lru_cache(maxsize=64)
-def fused_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, int, int]:
-    """(variant, (sequence, head) pairs a block, warps a block) of the bf16
-    fused attention backward kernel: the variant and the pairs are the same at
-    every head dim the kernels take (a slab pair's rows with its P and dS, 55
-    KB at S = 64 and D = 64, 88 KB at D = 128, fit a block at each).
+def mma_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, int, int]:
+    """(variant, (sequence, head) pairs a block, warps a block) of the
+    mma.sync backward blocks that #3 (at head dims 16 and 32) and #6 (at every
+    head dim) run up to ``TILE_MAX_SEQ`` = 256 tokens, and past it ``"split"``:
+    the variant and the pairs are the same at every head dim the kernels take
+    (a slab pair's rows with its P and dS, 55 KB at S = 64 and D = 64, 88 KB
+    at D = 128, fit a block at each).
 
     ``"slab"`` where the sequence is at most 64 long: a block stages
     consecutive pairs (the heads of a sequence, side by side in memory) with
@@ -321,14 +329,32 @@ def fused_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) ->
     return "tile", 1, min(BWD_WIDE_TILE_WARPS if head_dim == 128 else BWD_TILE_WARPS, tiles)
 
 
+@functools.lru_cache(maxsize=64)
+def fused_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, int, int]:
+    """(variant, (sequence, head) pairs a block, warps a block) of the bf16
+    fused attention backward kernel: :func:`mma_bwd_plan`, but at head dims 64
+    and 128 (``WGMMA_HEAD_DIMS``) with 64 < S <= ``TILE_MAX_SEQ`` the tile
+    variant on Hopper's warpgroup tensor cores, ``("tile_wg", 1,
+    BWD_TILE_WG_WARPS)`` (``csrc/fused_attention_bwd_wg.cuh``): one block a
+    pair, grid B·H, two consumer warpgroups dealt the 64-row query tiles and
+    then the key tiles in turns and a producer warpgroup loading with TMA
+    (216 KB at S = 256 and D = 64: every row array of the pair resident and
+    each warpgroup's epilogue rows staged; 220 KB at D = 128: q̃ and k̃
+    resident, v and dO streamed).
+    """
+    if BWD_SLAB_MAX_SEQ < seq <= TILE_MAX_SEQ and head_dim in WGMMA_HEAD_DIMS:
+        return "tile_wg", 1, BWD_TILE_WG_WARPS
+    return mma_bwd_plan(batch, seq, heads, head_dim)
+
+
 # The bf16 plain attention backward (csrc/flash_attention_bwd_mma.cuh) takes
-# the fused backward's plan; a tile block exchanges dS in rounds of this many queries.
+# mma_bwd_plan; a tile block exchanges dS in rounds of this many queries.
 FLASH_BWD_ROUND = 64
 
 
 def flash_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, int, int]:
     """(variant, (sequence, head) pairs a block, warps a block) of the bf16
-    plain attention backward kernel: those of :func:`fused_attention_bwd_plan`.
+    plain attention backward kernel: those of :func:`mma_bwd_plan`.
 
     ``"slab"`` for S ≤ 64: a block stages consecutive pairs with their P and
     dS, and its warps (up to 4) take the query tiles in turn, then the key
@@ -342,7 +368,7 @@ def flash_attention_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) ->
     from these and the shape. Past 256 tokens, ``"split"``: the fused
     backward's two launches on q, k, v and dO as they are.
     """
-    return fused_attention_bwd_plan(batch, seq, heads, head_dim)
+    return mma_bwd_plan(batch, seq, heads, head_dim)
 
 
 def key_mask(mask: Optional[torch.Tensor], batch: int, seq: int) -> Optional[torch.Tensor]:
@@ -595,6 +621,10 @@ def _split_qk_work(variant: str, b: int, s: int, heads: int, d: int, device) -> 
     return torch.empty(parts * b * s * heads * d, dtype=torch.bfloat16, device=device)
 
 
+# #3's launches by what they ran: the f32 kernel or a bf16 variant of fused_attention_bwd_plan
+BWD_VARIANT_LAUNCHES = dict.fromkeys(("f32", *MMA_VARIANTS), 0)
+
+
 def fused_qkv_attention_bwd_cuda(
     qkv: torch.Tensor,
     q_scale: torch.Tensor,
@@ -609,7 +639,8 @@ def fused_qkv_attention_bwd_cuda(
 
     bf16 takes the tensor-core kernel with the geometry of
     :func:`fused_attention_bwd_plan` (its split variant through an f32
-    workspace), f32 the four-pass CUDA-core kernel and its workspace. Either
+    workspace), f32 the four-pass CUDA-core kernel and its workspace; each
+    launch counts in ``BWD_VARIANT_LAUNCHES``. Either
     writes per-block f32 partials of the two scale gradients; they are summed
     here in a fixed order, so every run gives the same bits. head_dim in
     ``KERNEL_HEAD_DIMS`` and S >= 1, or it raises.
@@ -653,6 +684,7 @@ def fused_qkv_attention_bwd_cuda(
             b, s, num_heads, d, n_blocks, DTYPE_CODES[qkv.dtype], variant, unit, warps,
             torch.cuda.current_stream(device).cuda_stream,
         )
+    BWD_VARIANT_LAUNCHES[MMA_VARIANTS[variant] if qkv.dtype == torch.bfloat16 else "f32"] += 1
     dqs, dks = partials.sum(dim=1)
     return dqkv, dqs, dks
 

@@ -6,11 +6,11 @@
 ``save`` imports ``video_vae_tpu_torch`` from ``<package root>`` (the root of a
 checkout of this commit or of another, e.g. an unpacked ``git archive`` of the
 parent), builds its five attention kernels (#1, #3, #5, #6, #7) and runs each
-at head_dims 16, 32, 64 and 128 (``HEAD_DIMS``), in bf16 and f32, on four
-shapes of at most 256 tokens (the flagship's temporal and spatial calls and
-two ragged ones; the slab and tile variants) with seeded
-inputs and key masks that leave some sequences no key, then saves every
-output. ``compare`` prints how
+at head_dims 16, 32, 64 and 128 (``HEAD_DIMS``), in bf16 and f32, on five
+shapes: four of at most 256 tokens (the flagship's temporal and spatial calls
+and two ragged ones; the slab and tile variants) and one past 256 (the split
+variant), with seeded inputs and key masks that leave some sequences no key,
+then saves every output. ``compare`` prints how
 many of two files' outputs are equal bit for bit. Run it by path, so that
 the package comes from the root given, not from the working directory; run
 the two commits in turns on one card (a, b, b, a).
@@ -22,7 +22,7 @@ import sys
 
 SOURCES = ("fused_attention.cu", "fused_attention_bwd.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "attention_sublayer.cu")
-SHAPES = ((512, 16, 8), (32, 256, 8), (5, 37, 8), (3, 80, 8))  # (B, S, H)
+SHAPES = ((512, 16, 8), (32, 256, 8), (5, 37, 8), (3, 80, 8), (2, 300, 8))  # (B, S, H)
 HEAD_DIMS, WIDTH = (16, 32, 64, 128), 768
 
 

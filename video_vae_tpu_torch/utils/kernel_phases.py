@@ -18,8 +18,10 @@ loop that runs no times, a call that is skipped, a load replaced by a
 constant; the outputs of a cut copy are wrong, only its time counts), all at
 once, into ``video_vae_tpu_torch/_build/phases/``, and prints the device time
 per call of each copy: for #3, #5 and #6 at each bf16 attention call of the
-flagship train step (``chip_smoke.device_ms``), for #8 at its N = 8192 and N = 4096 calls,
-each of its three launches (``chip_smoke.device_launch_ms``), for #9 at each
+flagship train step (``chip_smoke.device_ms``; #3's spatial calls run the
+wgmma tile block, ``TILE_WG_CUTS``, its temporal ones the mma.sync slab, the other
+cuts), for #8 at its N = 8192 and N = 4096 calls, each of its three launches
+(``chip_smoke.device_launch_ms``), for #9 at each
 of its calls on the tap-dot model (b2 x 16 frames), the whole call and its
 launches (the channels-last copies, the GEMM), for #4 at each bf16 conv of
 the flagship's and the tap-dot model's train steps (b2 x 16 frames), the
@@ -64,10 +66,31 @@ SIDE_CUTS = {
 _COPY_LOOP = "i < TILE * TILE / 8; i += THREADS) {"
 _NO_COPY_LOOP = "i < TILE * TILE / 8 && C < 0; i += THREADS) {"
 
+# #3's wgmma tile block (csrc/fused_attention_bwd_wg.cuh, the flagship's spatial calls at
+# head dim 64, where every row array is resident and no ring streams): its TMA loads (the
+# mbarriers expect no bytes; shared memory keeps what it held), the LN + RoPE of q and k,
+# the query side's walks (statistics and dq~), the key side's walk (dv and dk~), the
+# epilogues (dv's stores and both LN + RoPE backwards). Cut copies at head dim 128 are
+# built but never run: its ring would wait on a walk cut out of the consumers.
+TILE_WG_HEADER = "fused_attention_bwd_wg.cuh"
+TILE_WG_CUTS = {
+    "wg_no_tma_loads": [("mbar_expect_tx(qk_full, 2 * T * B64);", "mbar_expect_tx(qk_full, 0);"),
+                        ("mbar_expect_tx(vg_full, 2 * T * B64);", "mbar_expect_tx(vg_full, 0);"),
+                        *[(f"split_wg::load_tile<D, ROWS>({dst} + t * B64,",
+                           f"if (S < 0) split_wg::load_tile<D, ROWS>({dst} + t * B64,")
+                          for dst in ("q_s", "k_s", "v_s", "g_s")]],
+    "wg_no_norm_rope": [("split_wg::norm_rope_own_q<D>(", "if (S < 0) split_wg::norm_rope_own_q<D>(")],
+    "wg_no_query_walks": [("n < steps; ++n) {  // query side", "n < steps && S < 0; ++n) {")],
+    "wg_no_key_walk": [("n < T; ++n) {  // key side", "n < T && S < 0; ++n) {")],
+    "wg_no_epilogues": [("epilogue_staged<D>(du,", "if (S < 0) epilogue_staged<D>(du,"),
+                        ("split_wg::store_rows<D, bf16>(dv,", "if (S < 0) split_wg::store_rows<D, bf16>(dv,")],
+}
+
 # kernel -> (source, its headers, the ops module and the name of its launch counter there,
 # cuts: name -> [(text, replacement)])
 KERNELS = {
-    "3": ("fused_attention_bwd.cu", ("fused_attention_bwd_mma.cuh", COMMON), fa, "FUSED_ATTENTION_BWD", {
+    "3": ("fused_attention_bwd.cu", ("fused_attention_bwd_mma.cuh", COMMON, TILE_WG_HEADER), fa,
+          "FUSED_ATTENTION_BWD", {
         "full": [],
         **SIDE_CUTS,
         "no_query_first_pass": [("c < (TWO_PASS ? chunks : 1); ++c) {", "c < (TWO_PASS ? 0 : 1); ++c) {")],
@@ -78,6 +101,7 @@ KERNELS = {
                          ("    store_rows<D>(dv,", f"    if ({_NEVER}) store_rows<D>(dv,")],
         "no_epilogue_tables": [(f"__ldg(reinterpret_cast<const float2*>({t} + d0{hi}))", "make_float2(0.5f, 0.25f)")
                                for t in ("c", "sn") for hi in ("", " + D / 2")],
+        **TILE_WG_CUTS,
     }),
     # the first walk over the keys (its products and exps), P.V, every exp, the
     # output's stores, the staging copies
