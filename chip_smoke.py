@@ -93,7 +93,14 @@ It builds the port's nine CUDA kernels from ``video_vae_tpu_torch/csrc``, then:
    fully masked sequence, the same bits twice, SDPA beside each; #1-#4 at the
    curriculum's second bucket, b1 x 64 frames; runs that model's full-depth
    bf16 b1 x 16f train step ("train-h4": 42 launches of #1 and of #3, device
-   ms) and its f32 depth-1 step card against CPU ("f32-h4"); then
+   ms) and its f32 depth-1 step card against CPU ("f32-h4"); likewise at head
+   dims the kernels pad to the next instantiation: the calls of
+   ``ModelConfig(qkv_features=768)`` (8 heads of 96, run at 128) and #1, #3,
+   #5, #6, #7 at D = 8, 24, 48 and 96 up to S = 1024 (SDPA at the true D and
+   the padding's own device ms beside each), then that model's full-depth bf16
+   b2 x 16f serving pass and b1 x 16f train step ("serving-d96", "train-d96":
+   the flagship's launches, 21 of #3 on its wgmma tile) and its f32 depth-1 step
+   card against CPU ("f32-d96"); then
    ``cli/cache_latents.py`` and ``cli/decode_latents.py`` at their defaults on
    two synthetic clips through an in-memory video source ("cache-latents",
    "decode-latents": launches per video, the written latents and video
@@ -259,6 +266,7 @@ PATHS = (
     "train", "serving", "serving-pallas", "serving-sublayer", "train-pallas", "train-sublayer",
     "serving-mlp", "train-mlp", "serving-sublayer-mlp", "serving-tapdot", "train-tapdot", "trainer", "tiny",
     "train-h4", "cache-latents", "decode-latents",  # the last two: launches per video
+    "serving-d96", "train-d96",  # the flagship's width in 8 heads of 96, padded to 128
     "dist-gloo-2",  # rank 0's step of the 2-rank data=2 run
     "mae", "mae-eval",  # the VideoMAE's gradient step and eval forward
     # the flagship at 512²: spatial S = 1024 on the split variant
@@ -300,6 +308,15 @@ LATENT_RESIZE, LATENT_FRAMES = 256, 64
 LATENT_CLIP_FRAMES = (64, 40)
 LATENT_VIDEOS = len(LATENT_CLIP_FRAMES)
 H4_CLIPS, H4_FRAMES = 1, 16  # the head_dim-128 train step (ModelConfig(num_heads=4))
+# the flagship's 768 features in its 8 heads: head_dim 96, which the kernels run padded to 128
+D96_QKV = 768
+# the attention kernels at head dims they pad (ops/flash_attention.py:padded_head_dim), each
+# at these sequence lengths, PADDED_HEADS heads and PADDED_TOKENS tokens a call (a ragged
+# key mask); #7 at width PADDED_WIDTH
+PADDED_CASES = ((48, (16, 256, 1024)), (96, (16, 256, 1024)), (8, (16, 256)), (24, (16, 256)))
+PADDED_HEADS, PADDED_TOKENS, PADDED_WIDTH = 8, 4096, 768
+# the d96 paths time as few runs as the tap-dot path's: their device ms is the stable figure
+D96_TIMED_FORWARDS, D96_TIMED_STEPS = 3, 2
 # the "mae" phases: VideoMAE at the BASELINE config's 224 x 224 x 16 (the flagship otherwise:
 # 9 + 12 // 3 blocks, remat on), mask ratio 0.9, 4 clips, clip 1 ending in 3 padded frames
 MAE_SIDE, MAE_CLIPS, MAE_FRAMES, MAE_PADDED_CLIP = 224, 4, 16, 1
@@ -404,6 +421,14 @@ def h4_config():
     from video_vae_tpu_torch import ModelConfig
 
     return ModelConfig(num_heads=4)
+
+
+def d96_config():
+    """The flagship with ``qkv_features=768`` (``D96_QKV``): 8 heads of 96, which the
+    attention kernels run padded to 128, the rest the flagship's."""
+    from video_vae_tpu_torch import ModelConfig
+
+    return ModelConfig(qkv_features=D96_QKV)
 
 
 def latent_attention_cases(cfg, frames=LATENT_FRAMES):
@@ -1438,10 +1463,11 @@ def read_launches() -> dict:
 
 
 def takes_wgmma_tile(seq: int, head_dim: int) -> bool:
-    """Whether a bf16 fused attention backward at (S, D) runs the wgmma tile kernel."""
+    """Whether a bf16 fused attention backward at (S, D) runs the wgmma tile kernel
+    (at the instantiation D pads to)."""
     from video_vae_tpu_torch.ops import flash_attention as fa
 
-    return fa.fused_attention_bwd_plan(1, seq, 1, head_dim)[0] == "tile_wg"
+    return fa.fused_attention_bwd_plan(1, seq, 1, fa.padded_head_dim(head_dim))[0] == "tile_wg"
 
 
 def expected_launches(cfg, entry: str, path: str) -> dict:
@@ -1702,14 +1728,15 @@ def _hold_metrics(label: str, card: dict, cpu: dict) -> dict:
     return errs
 
 
-def phase_f32_train(dev, tiny=False, h4=False):
+def phase_f32_train(dev, tiny=False, h4=False, d96=False):
     """Flagship width, depth 1, b1 x 4 frames: one f32 train step, card against CPU.
 
     ``tiny``: ``tiny_config`` itself in float32 (head_dim 16, no perceptual term, as
     its LossConfig) on 2 clips of 8 frames; a gradient that is rounding noise on the
     CPU (``ZERO_GRAD_TOL``) is held to stay noise, as :func:`phase_f32_modes` holds it.
     ``h4``: the flagship's width in 4 heads of 128 (:func:`h4_config`), otherwise as
-    the default ("f32-h4").
+    the default ("f32-h4"); ``d96``: in 8 heads of 96 (:func:`d96_config`, the
+    kernels padded to 128; "f32-d96").
     """
     import torch
 
@@ -1724,12 +1751,14 @@ def phase_f32_train(dev, tiny=False, h4=False):
                                         tiny_cfg.data.batch_size, tiny_cfg.data.max_frames)
         label, text = "f32-tiny", f"tiny_config, float32, b{clips} x {frames} frames (3 padded), perceptual off"
     else:
-        cfg = (h4_config() if h4 else ModelConfig()).replace(dtype="float32", encoder_depth=1, decoder_depth=1,
-                                                             remat=False)
+        base = h4_config() if h4 else d96_config() if d96 else ModelConfig()
+        cfg = base.replace(dtype="float32", encoder_depth=1, decoder_depth=1, remat=False)
         loss_cfg, clips, frames = LossConfig(), 1, 4
         label, text = "f32-train", "flagship width, encoder/decoder depth 1, b1 x 4 frames (1 padded), perceptual on"
         if h4:
             label, text = "f32-h4", text.replace("flagship width", "flagship width in 4 heads of 128")
+        if d96:
+            label, text = "f32-d96", text.replace("flagship width", "flagship width in 8 heads of 96")
     hp = DynamicHParams.default()
     cpu_model = VideoVAE(cfg, device="cpu", seed=4)
     gen = torch.Generator().manual_seed(5)
@@ -2601,6 +2630,174 @@ def phase_h4_kernels(dev, rows):
     side = cases[2:4] + cases[4:5]
     phase_flash_kernels(cfg, dev, rows, side, paths=False)
     phase_sublayer_kernel(cfg, dev, rows, side, paths=False)
+
+
+def phase_d96_kernels(dev, rows):
+    """Kernels #1, #3, #5, #6 and #7 against their plain versions at head_dim 96,
+    which they run padded to 128: at the calls of the :func:`d96_config` serving
+    pass and train step (counted on ``"serving-d96"`` and ``"train-d96"``) and the
+    temporal b2 call in float32, masked and with a sequence whose keys are all
+    masked, the same bits twice, SDPA at D = 96 beside each; #5, #6 and #7 at the
+    b2 calls and the float32 one (counted on no path: the model runs
+    ``attention_impl="fused"``). Padded, a temporal call's sequence is 3 x 8 x 16
+    rows of 272 bytes (104 KB, over ``MMA_SLAB_MAX_SMEM``): #1 and #5 take their
+    tile variant there, one warp a block."""
+    cfg = d96_config()
+    cases = attention_cases(cfg)
+    phase_attention_kernels(cfg, dev, rows, "serving-d96", "train-d96", cases, masked_rows=True)
+    side = cases[:2] + cases[4:5]
+    phase_flash_kernels(cfg, dev, rows, side, paths=False)
+    phase_sublayer_kernel(cfg, dev, rows, side, paths=False)
+
+
+def _padded_check(rows, kernel, dims, shape, dtype, run, plain, library, library_name, glue, moved, flops):
+    """One kernel at a padded head dim (``dims``: D and its Dp) against its plain
+    version (``moved`` and ``flops``: functions of the head dim, for the bound at
+    D and at Dp); records a "kernel-check" line with the bf16 call's device ms,
+    the library's and the glue's (see :func:`phase_padded_head_dim_kernels`)."""
+    import torch
+
+    from video_vae_tpu_torch.ops import flash_attention as fa
+
+    D, Dp = dims
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    got, again = (t if isinstance(t, tuple) else (t,) for t in (got, again))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):  # no atomics: the same bits on every run
+        raise AssertionError(f"{kernel.symbol} D = {D} {shape} {dtype}: two launches gave different bits")
+    ref = plain()
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    # #7's products take bf16 operands whatever x's dtype: its tolerance and its bound's peak
+    bf16_ops = "bfloat16" if kernel is fa.ATTENTION_SUBLAYER else dtype
+    err = max(check_close(f"{kernel.symbol} D = {D} {shape} {dtype} part {i}", a, b, bf16_ops)
+              for i, (a, b) in enumerate(zip(got, ref)))
+    del got, again, ref
+    padded = bound_ms(moved(Dp), flops(Dp), bf16_ops)
+    extra = {"head_dim": D, "padded_head_dim": Dp, "bound_ms_padded": padded[0], "bound_by_padded": padded[1]}
+    iters = 2  # float32: held, timed briefly
+    if dtype == "bfloat16":
+        iters = 5
+        extra.update(device_ms=device_ms(run, 10), library_device_ms=device_ms(library, 10),
+                     glue_device_ms=device_ms(glue, 10))
+    _record(rows, kernel, f"padded D{D} S{shape[1]} {dtype}", list(shape), dtype, err, time_ms(run, iters),
+            time_ms(plain, 1), time_ms(library, iters), library_name, bound_ms(moved(D), flops(D), bf16_ops), {},
+            **extra)
+
+
+def phase_padded_head_dim_kernels(dev, rows):
+    """#1, #3, #5, #6 and #7 against their plain versions at head dims the kernels
+    pad (``PADDED_CASES``: D = 48 and 96 at S = 16, 256 and 1024, D = 8 and 24 at
+    16 and 256; ``PADDED_HEADS`` heads, ``PADDED_TOKENS`` tokens a call, a key mask
+    that keeps a ragged prefix of each sequence and none of the first), bf16 at
+    every case and float32 up to 256 tokens, the same bits twice. Each
+    "kernel-check" line holds beside the kernel's times the library call's at the
+    true D (SDPA's forward or backward on q, k, v at D; #7's LN -> matmul -> SDPA
+    -> matmul chain), the device ms of the wrapper's padding and unpadding alone
+    (``glue_device_ms``: the heads and their gradients, the weights for #7, the
+    RoPE tables) and the bound at D and at the padded Dp (``bound_ms``,
+    ``bound_ms_padded``). Counted on no path."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_vae_tpu_torch.ops import flash_attention as fa
+    from video_vae_tpu_torch.ops.rope import rope_tables
+
+    gen = torch.Generator().manual_seed(40)
+    H, C = PADDED_HEADS, PADDED_WIDTH
+    rn = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    for D, seqs in PADDED_CASES:
+        Dp = fa.padded_head_dim(D)
+        HD = H * D
+
+        def pad(t, heads, D=D, Dp=Dp):
+            return fa.pad_heads(t, heads, D, Dp)
+
+        def unpad(t, heads, D=D, Dp=Dp):
+            return fa.unpad_heads(t, heads, D, Dp)
+
+        for S in seqs:
+            B = PADDED_TOKENS // S
+            lengths = torch.randint(1, S + 1, (B,), generator=gen)
+            lengths[0] = 0
+            mask = (torch.arange(S)[None, :] < lengths[:, None]).to(dev)
+            keys, amask = int(mask.sum()), mask[:, None, None, :]
+            cos, sin = rope_tables(S, D, device=str(dev))
+            for dtype in ("bfloat16", "float32") if S <= fa.TILE_MAX_SEQ else ("bfloat16",):
+                tdt = getattr(torch, dtype)
+                e = torch.finfo(tdt).bits // 8
+                qkv, g = rn(B, S, 3 * HD).to(dev, tdt), rn(B, S, HD).to(dev, tdt)
+                qs, ks = (1 + 0.2 * rn(D)).to(dev), (1 + 0.2 * rn(D)).to(dev)
+                q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(HD, -1))
+                q, k, g4 = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
+                lq, lk, lv, lg = (t.transpose(1, 2).contiguous() for t in (q, k, v, g4))
+                leaves = [t.detach().requires_grad_() for t in (lq, lk, lv)]
+                o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=amask)
+                x = rn(B, S, C).to(dev, tdt)
+                lng, lnb, wqkv, bqkv, wout, bout = (t.to(dev) for t in (
+                    1 + 0.2 * rn(C), 0.2 * rn(C), rn(C, 3 * HD) / C**0.5, 0.2 * rn(3 * HD),
+                    0.1 * rn(HD, C) / HD**0.5, 0.2 * rn(C)))
+                w16 = [t.to(torch.bfloat16) for t in (wqkv, bqkv, wout, bout)]
+                # outputs at Dp, for the unpadding's share of the glue
+                qkv_p, o_p = pad(qkv, 3 * H), torch.empty(B, S, H * Dp, dtype=tdt, device=dev)
+                q_p = torch.empty(B, S, H, Dp, dtype=tdt, device=dev)
+
+                def tables():
+                    return pad(cos, 1), pad(sin, 1)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=amask)
+
+                def sdpa_bwd():
+                    return torch.autograd.grad(o_lib, leaves, lg, retain_graph=True)
+
+                def chain():
+                    xa = F.layer_norm(x, (C,), lng.to(tdt), lnb.to(tdt), 1e-6).to(torch.bfloat16)
+                    qh, kh, vh = (t.reshape(B, S, H, D).transpose(1, 2)
+                                  for t in (torch.matmul(xa, w16[0]) + w16[1]).split(HD, -1))
+                    o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask)
+                    return x + (torch.matmul(o.transpose(1, 2).reshape(B, S, HD), w16[2]) + w16[3]).to(tdt)
+
+                mb, tok = mask.numel(), B * S
+                attn = lambda d, n=4.0: n * H * S * keys * d  # noqa: E731
+                sub_args = (x, lng, lnb, wqkv, bqkv, qs, ks, wout, bout, mask, H)
+                checks = (
+                    (fa.FUSED_ATTENTION, [B, S, 3 * HD],
+                     lambda: fa.fused_qkv_attention_cuda(qkv, qs, ks, mask, H),
+                     lambda: fa.fused_qkv_attention_plain(qkv, qs, ks, mask, H),
+                     sdpa, "scaled_dot_product_attention, core only",
+                     lambda: (pad(qkv, 3 * H), unpad(o_p, H), tables()),
+                     lambda d: 4 * tok * H * d * e + mb, attn),
+                    (fa.FUSED_ATTENTION_BWD, [B, S, 3 * HD],
+                     lambda: fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H),
+                     lambda: fa.fused_qkv_attention_bwd_plain(qkv, qs, ks, mask, g, H),
+                     sdpa_bwd, "scaled_dot_product_attention backward, core only",
+                     lambda: (pad(qkv, 3 * H), pad(g, H), unpad(qkv_p, 3 * H), tables()),
+                     lambda d: 7 * tok * H * d * e + mb, lambda d: attn(d, 10.0)),
+                    (fa.FLASH_ATTENTION, [B, S, H, D],
+                     lambda: fa.flash_attention_cuda(q, k, v, mask),
+                     lambda: fa.flash_attention_plain(q, k, v, mask),
+                     sdpa, "scaled_dot_product_attention",
+                     lambda: (pad(q, 1), pad(k, 1), pad(v, 1), unpad(q_p, 1)),
+                     lambda d: 4 * tok * H * d * e + mb, attn),
+                    (fa.FLASH_ATTENTION_BWD, [B, S, H, D],
+                     lambda: fa.flash_attention_bwd_cuda(q, k, v, mask, g4),
+                     lambda: fa.flash_attention_bwd_plain(q, k, v, mask, g4),
+                     sdpa_bwd, "scaled_dot_product_attention backward",
+                     lambda: (*(pad(t, 1) for t in (q, k, v, g4)), *(unpad(q_p, 1) for _ in range(3))),
+                     lambda d: 7 * tok * H * d * e + mb, lambda d: attn(d, 10.0)),
+                    (fa.ATTENTION_SUBLAYER, [B, S, C],
+                     lambda: fa.fused_attention_sublayer_cuda(*sub_args),
+                     lambda: fa.fused_attention_sublayer_plain(*sub_args),
+                     chain, "layer_norm -> matmul -> scaled_dot_product_attention -> matmul, bf16 weights",
+                     lambda: (pad(wqkv, 3 * H), pad(bqkv, 3 * H), pad(wout.t(), H), unpad(qkv_p, 3 * H),
+                              unpad(o_p, H), tables()),
+                     lambda d: 2 * tok * C * e + 4 * C * H * d * 2 + mb,
+                     lambda d: 8.0 * tok * C * H * d + attn(d)),
+                )
+                for kernel, shape, run, plain, library, name, glue, moved, flops in checks:
+                    _padded_check(rows, kernel, (D, Dp), shape, dtype, run, plain, library, name, glue, moved, flops)
+                del qkv, g, q, k, v, g4, lq, lk, lv, lg, leaves, o_lib, x, qkv_p, o_p, q_p
+    torch.cuda.empty_cache()
 
 
 def phase_latent_kernels(cfg, dev, rows):
@@ -3769,6 +3966,9 @@ def main() -> int:
         "train-small": "none of width or depth; one step timed 3 times",
         "train-h4": "none: the flagship's width and depth in 4 heads of 128; the float32 card-vs-CPU step at "
                     "depth 1",
+        "serving-d96 / train-d96": f"none: the flagship's width and depth with qkv_features={D96_QKV} (8 heads "
+                                   f"of 96, the kernels padded to 128); {D96_TIMED_FORWARDS} passes and "
+                                   f"{D96_TIMED_STEPS} steps timed; the float32 card-vs-CPU step at depth 1",
         "cache-latents / decode-latents": f"none of width or depth; {LATENT_VIDEOS} synthetic clips",
         "dist-nccl": f"the trainer's config and cut, {TRAINER_CLIPS} clips on one rank, no eval, no dump",
         "dist-gloo-2": f"the trainer's config and cut; 2 ranks on one card (gloo); {TRAINER_CLIPS} clips a mesh, "
@@ -3790,6 +3990,9 @@ def main() -> int:
     }))
     if [sum(d.values()) for d in tapdot_launches(wide)] != [4, 4]:
         raise AssertionError(f"the tap-dot model's gate counts changed: {tapdot_launches(wide)}")
+    for entry in ("serving", "train"):  # head_dim 96 runs the flagship's launches, #3's wgmma tile included
+        if expected_launches(d96_config(), entry, "fused") != expected_launches(cfg, entry, "fused"):
+            raise AssertionError(f"the d96 model's {entry} launches differ from the flagship's")
     rows = []
     started = time.monotonic()
     phase_attention_kernels(cfg, dev, rows)
@@ -3818,6 +4021,11 @@ def main() -> int:
     phase_h4_kernels(dev, rows)
     phase_latent_kernels(cfg, dev, rows)
     log("seconds", json.dumps({"head-dim-128 and b1x64f kernel checks": time.monotonic() - started}))
+    started = time.monotonic()
+    # head dims the kernels pad: the d96 model's calls, and D = 8, 24, 48 and 96 up to S = 1024
+    phase_d96_kernels(dev, rows)
+    phase_padded_head_dim_kernels(dev, rows)
+    log("seconds", json.dumps({"padded head-dim kernel checks": time.monotonic() - started}))
     started = time.monotonic()
     # #3's wgmma tile kernel at the paths' tile shapes, S = 65 and 196, a sequence with no key
     phase_tile_bwd_kernels(dev)
@@ -3867,6 +4075,13 @@ def main() -> int:
                                           label="train-h4")
     phase_f32_train(dev, h4=True)
     log("seconds", json.dumps({"head_dim 128 steps": time.monotonic() - started}))
+    started = time.monotonic()
+    launches["serving-d96"], _ = phase_serving(d96_config(), dev, "fused", None, D96_TIMED_FORWARDS,
+                                               label="serving-d96")
+    launches["train-d96"], _ = phase_train(d96_config().replace(remat=False), dev, "fused", None,
+                                           D96_TIMED_STEPS, label="train-d96")
+    phase_f32_train(dev, d96=True)
+    log("seconds", json.dumps({"head_dim 96 paths": time.monotonic() - started}))
     started = time.monotonic()
     launches["trainer"], trainer = phase_trainer(dev)
     log("seconds", json.dumps({"trainer": time.monotonic() - started}))

@@ -77,6 +77,15 @@ MAE_CASES = [(name, B, S, chip_smoke.mae_config().num_heads)
 # the latent CLIs' calls at their defaults (b1 x 64 frames, the flagship's head_dim 64)
 LATENT_CASES = [(name, B, S, ModelConfig().num_heads)
                 for name, B, S, _, _, _ in chip_smoke.latent_attention_cases(ModelConfig())]
+# head dims the kernels pad, at their instantiation: the calls of ModelConfig(qkv_features=768)'s
+# serving pass and train step (8 heads of 96, at 128) and of the same model at 384 (8 of 48, at 64)
+D96 = chip_smoke.d96_config()
+PADDED_MODEL_CASES = [(qkv, name, B, S, cfg.num_heads, cfg.head_dim)
+                      for qkv, cfg in ((768, D96), (384, ModelConfig(qkv_features=384)))
+                      for name, B, S, _, _, _ in chip_smoke.attention_cases(cfg)]
+# chip_smoke's padded kernel checks: D = 8, 24, 48, 96 up to S = 1024
+PADDED_CHECK_CASES = [(chip_smoke.PADDED_TOKENS // S, S, chip_smoke.PADDED_HEADS, D)
+                      for D, seqs in chip_smoke.PADDED_CASES for S in seqs]
 # sequences past TILE_MAX_SEQ at every head dim, at the flagship's, h4's and the MAE's batches
 LONG_CASES = [(label, B, S, H, D) for label, B, H in LONG_BATCHES for S in LONG_SEQS for D in KERNEL_HEAD_DIMS]
 LONG_IDS = [f"{c[0]}-S{c[2]}-D{c[4]}" for c in LONG_CASES]
@@ -303,15 +312,58 @@ def test_attention_plan_at_latent_cli_shapes(name, B, S, H):
 
 
 def test_check_head_dim_takes_the_four():
-    """The kernels take head_dim 16, 32, 64 and 128; another raises, naming the four."""
+    """The kernels are instantiated at head_dim 16, 32, 64 and 128 and take every
+    even head_dim from 2 to 128, padded to the next of the four; 0, an odd head_dim
+    and one past 128 raise, naming the range and the four."""
     from video_vae_tpu_torch.ops.flash_attention import check_head_dim
 
     assert KERNEL_HEAD_DIMS == (16, 32, 64, 128)
-    for d in KERNEL_HEAD_DIMS:
+    for d in range(2, 129, 2):
         check_head_dim(d)
-    for bad in (0, 8, 24, 48, 96, 192, 256):
-        with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64, 128\), got " + str(bad)):
+    for bad in (0, 1, 3, 15, 33, 95, 127, 129, 130, 192, 256):
+        with pytest.raises(ValueError, match=r"an even head_dim from 2 to 128 \(padded to the next of "
+                                             r"\(16, 32, 64, 128\)\), got " + str(bad)):
             check_head_dim(bad)
+
+
+@pytest.mark.parametrize("qkv,name,B,S,H,D", PADDED_MODEL_CASES, ids=[f"{c[0]}-{c[1]}" for c in PADDED_MODEL_CASES])
+def test_attention_plan_at_padded_model_shapes(qkv, name, B, S, H, D):
+    """A padded call's plan is the instantiation's: ``padded_head_dim(D)``."""
+    from video_vae_tpu_torch.ops.flash_attention import padded_head_dim
+
+    _check_plan(B, S, H, padded_head_dim(D))
+
+
+@pytest.mark.parametrize("B,S,H,D", PADDED_CHECK_CASES)
+def test_attention_plan_at_padded_kernel_checks(B, S, H, D):
+    from video_vae_tpu_torch.ops.flash_attention import padded_head_dim
+
+    if S > TILE_MAX_SEQ:
+        assert fused_attention_plan(B, S, H, padded_head_dim(D)) == ("split", 1)
+        check_split("fused", B, S, H, padded_head_dim(D))
+    else:
+        _check_plan(B, S, H, padded_head_dim(D))
+
+
+def test_attention_plan_at_head_dim_96_is_as_designed():
+    """ModelConfig(qkv_features=768): 8 heads of 96, run at 128. A temporal call's
+    sequence (S = 16) is then 3 x 8 x 16 rows of 272 bytes, 104,448 bytes with its
+    key bits over MMA_SLAB_MAX_SMEM (102,400; h4's 4 heads took 52 KB), so #1
+    takes the tile variant there: a block a (sequence, head) pair and one warp,
+    4096 blocks at b2 x 16f. The spatial call (S = 256) is h4's tile block at 8
+    heads: 8 warps of two 16-row tiles each. At 384 features (8 heads of 48, run
+    at 64) every call has the flagship's plan."""
+    from video_vae_tpu_torch.ops.flash_attention import MMA_SLAB_MAX_SMEM, padded_head_dim
+
+    assert (D96.num_heads, D96.head_dim, padded_head_dim(D96.head_dim)) == (8, 96, 128)
+    assert 3 * 8 * 16 * mma_row_bytes(128) + 8 == 104456 > MMA_SLAB_MAX_SMEM == 102400
+    temporal = Geometry(512, 16, 8, 128)
+    assert (temporal.plan, temporal.warps, temporal.grid, temporal.smem) == (("tile", 1), 1, 4096, 3 * 16 * 272 + 8)
+    assert temporal.normalize_first  # S * H = 128: JAX's packed path, P normalised before its rounding
+    spatial = Geometry(32, 256, 8, 128)
+    assert (spatial.plan, spatial.warps, spatial.grid, spatial.smem) == (("tile", 1), 8, 256, 208928)
+    for B, S in ((512, 16), (32, 256), (256, 16), (16, 256)):
+        assert fused_attention_plan(B, S, 8, padded_head_dim(48)) == fused_attention_plan(B, S, 8, 64)
 
 
 @pytest.mark.parametrize("name,B,S,H", MAE_CASES, ids=[c[0] for c in MAE_CASES])

@@ -133,10 +133,11 @@ def test_fused_attention_bf16_kernel_geometries(device, B, S, H, masked, D):
     _check_fused_attention(device, torch.bfloat16, B, S, H, masked, D)
 
 
-@pytest.mark.parametrize("D", [8, 48, 256])
+@pytest.mark.parametrize("D", [7, 130, 256])
 def test_attention_kernels_refuse_other_head_dims(device, D):
-    """A head dim the kernels are not instantiated for raises on the card, naming
-    the ones they take; nothing falls back to the plain version."""
+    """An odd head dim, or one past 128, raises on the card, naming the range the
+    kernels take; nothing falls back to the plain version. (Every even head dim up
+    to 128 runs, padded: ``test_padded_head_dims_launch_their_kernels``.)"""
     B, S, H = 2, 16, 2
     qkv = torch.zeros(B, S, 3 * H * D, device=device, dtype=torch.bfloat16)
     qs = torch.ones(D, device=device)
@@ -154,9 +155,116 @@ def test_attention_kernels_refuse_other_head_dims(device, D):
             torch.zeros(H * D, 64, device=device), torch.zeros(64, device=device), None, H),
     ]
     for call in calls:
-        with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64, 128\)"):
+        with pytest.raises(ValueError, match=r"an even head_dim from 2 to 128 \(padded to the next of "
+                                             r"\(16, 32, 64, 128\)\)"):
             call()
     assert before == [k.launches for k in kernels]
+
+
+# Head dims the kernels pad to the next instantiation (ops/flash_attention.py:pad_heads):
+# D = 8 and 24 (at 16 and 32: mma.sync everywhere), 48 and 96 (at 64 and 128: the
+# wgmma tile of #3 and the wgmma split launches); (B, S, H, masked) a slab, a ragged
+# slab, a tile and a split call
+PADDED_HEAD_DIMS = pytest.mark.parametrize("D", [8, 24, 48, 96])
+PADDED_CASES = [(40, 16, 8, True), (5, 37, 3, True), (3, 256, 8, "empty"), (3, 300, 2, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,masked", PADDED_CASES)
+@PADDED_HEAD_DIMS
+def test_padded_head_dims_launch_their_kernels(device, dtype, B, S, H, masked, D):
+    """#1, #3, #5, #6 and #7 at a padded head dim: each call launches its kernel
+    once (the counters), nothing takes the plain version, every output at D and
+    within the kernel tolerance of the plain version at D, a bf16 call the same
+    bits twice."""
+    qkv, g, qs, ks, mask = _bwd_inputs(device, dtype, B, S, H, masked, 7 * S + D, D)
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
+    q, k, g4 = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
+    args, smask = _sublayer_args(device, dtype, B, S, 64, H, masked, D)
+    calls = (
+        (FUSED_ATTENTION, lambda: fused_qkv_attention_cuda(qkv, qs, ks, mask, H),
+         lambda: fused_qkv_attention_plain(qkv, qs, ks, mask, H), dtype),
+        (FUSED_ATTENTION_BWD, lambda: fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H),
+         lambda: fused_qkv_attention_bwd_plain(qkv, qs, ks, mask, g, H), dtype),
+        (FLASH_ATTENTION, lambda: flash_attention_cuda(q, k, v, mask), lambda: flash_attention_plain(q, k, v, mask),
+         dtype),
+        (FLASH_ATTENTION_BWD, lambda: flash_attention_bwd_cuda(q, k, v, mask, g4),
+         lambda: flash_attention_bwd_plain(q, k, v, mask, g4), dtype),
+        # both sides round the GEMM operands to bf16 whatever x's dtype is
+        (ATTENTION_SUBLAYER, lambda: fused_attention_sublayer_cuda(*args, smask, H),
+         lambda: fused_attention_sublayer_plain(*args, smask, H), torch.bfloat16),
+    )
+    for kernel, run, plain, tol in calls:
+        before = kernel.launches
+        out = run()
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, kernel.symbol
+        out, ref = (t if isinstance(t, tuple) else (t,) for t in (out, plain()))
+        for a, b in zip(out, ref):
+            assert a.shape == b.shape and a.dtype == b.dtype and a.is_cuda, kernel.symbol
+            assert _within(a, b, TOL[tol]), (kernel.symbol, _rel_err(a, b))
+        if masked == "empty" and kernel in (FUSED_ATTENTION, FLASH_ATTENTION):
+            assert _within(out[0][0], ref[0][0], TOL[tol]), kernel.symbol
+        if dtype == torch.bfloat16:  # no atomics: the same bits on every run
+            again = run()
+            again = again if isinstance(again, tuple) else (again,)
+            assert all(torch.equal(a, b) for a, b in zip(out, again)), kernel.symbol
+
+
+@PADDED_HEAD_DIMS
+def test_padded_head_dims_through_autograd(device, D):
+    """The autograd wrappers on CUDA tensors at a padded head dim: the forward
+    and backward kernels launch, and the gradients (the scales' too) equal the
+    ``*_cuda`` wrappers' own."""
+    B, S, H = 4, 65, 2
+    qkv, g, qs, ks, mask = _bwd_inputs(device, torch.bfloat16, B, S, H, True, 11 + D, D)
+    leaves = [t.clone().requires_grad_() for t in (qkv, qs, ks)]
+    before = (FUSED_ATTENTION.launches, FUSED_ATTENTION_BWD.launches)
+    out = fused_qkv_attention(leaves[0], leaves[1], leaves[2], mask, H)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (FUSED_ATTENTION.launches - before[0], FUSED_ATTENTION_BWD.launches - before[1]) == (1, 1)
+    assert torch.equal(out, fused_qkv_attention_cuda(qkv, qs, ks, mask, H))
+    ref = fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
+    assert torch.equal(grads[0], ref[0]) and torch.equal(grads[1], ref[1]) and torch.equal(grads[2], ref[2])
+
+
+def test_head_dim_96_f32_step_matches_cpu(device):
+    """One float32 train step of ``ModelConfig(qkv_features=768)`` (8 heads of 96,
+    the kernels at 128) at depth 1/1 and 64², card against CPU with the same
+    weights and draws: loss and metrics within 1e-4, every gradient within 1e-3
+    of its leaf's largest value (``chip_smoke``'s f32 bounds), #1 and #3
+    launched once a call."""
+    import chip_smoke
+    from video_vae_tpu_torch import DynamicHParams, LossConfig, VideoVAE
+    from video_vae_tpu_torch.train.step import loss_and_grads
+
+    cfg = chip_smoke.d96_config().replace(height=64, width=64, encoder_depth=1, decoder_depth=1, dtype="float32",
+                                          remat=False)
+    assert (cfg.num_heads, cfg.head_dim) == (8, 96)
+    cpu_model = VideoVAE(cfg, device="cpu", seed=4)
+    gen = torch.Generator().manual_seed(5)
+    chip_smoke.random_final_conv(cpu_model, gen)
+    gpu_model = VideoVAE(cfg, device=device, seed=4)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    video = torch.rand(1, 4, 64, 64, 3, generator=gen)
+    mask = torch.ones(1, 4)
+    mask[0, 3:] = 0
+    noise, uniforms = chip_smoke._draws(cpu_model, video, mask, seed=6)
+    results = {}
+    for name, model, dev in (("cpu", cpu_model, "cpu"), ("gpu", gpu_model, device)):
+        before = (FUSED_ATTENTION.launches, FUSED_ATTENTION_BWD.launches)
+        _, metrics, grads = loss_and_grads(model, video.to(dev), mask.to(dev), DynamicHParams.default(),
+                                           LossConfig(use_perceptual=False), None, noise=noise.to(dev),
+                                           uniforms=uniforms.to(dev))
+        launched = (FUSED_ATTENTION.launches - before[0], FUSED_ATTENTION_BWD.launches - before[1])
+        results[name] = ({k: float(v.detach()) for k, v in metrics.items()}, [t.cpu() for t in grads], launched)
+    (m_cpu, g_cpu, l_cpu), (m_gpu, g_gpu, l_gpu) = results["cpu"], results["gpu"]
+    calls = 2 * (cfg.encoder_depth + cfg.decoder_depth)
+    assert l_cpu == (0, 0) and l_gpu == (calls, calls)
+    chip_smoke._hold_metrics("f32-d96", m_gpu, m_cpu)
+    names = [name for name, _ in cpu_model.named_parameters()]
+    chip_smoke._hold_grads("f32-d96", names, g_gpu, g_cpu, chip_smoke._noise_leaves(names, g_cpu))
 
 
 # Share of the bf16 outputs whose bits may differ from the JAX rounding chain:

@@ -6,7 +6,8 @@ the gap and crashes the launch on the card, where nothing checks it. For
 every ``CudaKernel`` of ``video_vae_tpu_torch.ops``, this parses the
 ``extern "C" int vvt_*(...)`` signature from its ``csrc`` source and holds
 the argument list to it: one entry a parameter, a pointer for a pointer, a
-64-bit int for a ``long long``, a 32-bit int for an ``int``.
+64-bit int for a ``long long``, a 32-bit int for an ``int``, a C float for a
+``float`` (the attention entry points' softmax scale).
 """
 
 import ctypes
@@ -19,7 +20,7 @@ import pytest
 import video_vae_tpu_torch.ops as ops
 from video_vae_tpu_torch.ops._build import CSRC, CudaKernel
 
-C_TYPES = {"long long": ctypes.c_longlong, "int": ctypes.c_int}
+C_TYPES = {"long long": ctypes.c_longlong, "int": ctypes.c_int, "float": ctypes.c_float}
 
 
 def _kernels():

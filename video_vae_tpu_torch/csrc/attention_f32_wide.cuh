@@ -144,18 +144,20 @@ __device__ __forceinline__ void axpy_part(float (&acc)[PART<D>], float coef, con
 // rotate-half RoPE, of the row whose quarter the lane holds: element 4 c + k is
 // dim 4 (4 c + q) + k, and for c < PART / 8 its partner dim + D/2 is element
 // 4 c + k + PART / 2; at D = 16 a lane's four dims have their partners in lane
-// q ^ 2 of its quad, taken by a shuffle.
+// q ^ 2 of its quad, taken by a shuffle. inv_d: 1/d of the true head dim d <= D,
+// whose heads the wrapper padded to D with zeros (the statistics' sums are d's).
 template <int D>
 __device__ __forceinline__ void norm_rope(float (&x)[PART<D>], int q, const float* __restrict__ scale,
-                                          const float* __restrict__ cos_row, const float* __restrict__ sin_row) {
+                                          const float* __restrict__ cos_row, const float* __restrict__ sin_row,
+                                          float inv_d) {
   float s = 0.f, sq = 0.f;
 #pragma unroll
   for (int e = 0; e < PART<D>; ++e) {
     s += x[e];
     sq += x[e] * x[e];
   }
-  const float mean = quad_sum(s) * (1.f / D);
-  const float r = rsqrtf(fmaxf(quad_sum(sq) * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+  const float mean = quad_sum(s) * inv_d;
+  const float r = rsqrtf(fmaxf(quad_sum(sq) * inv_d - mean * mean, 0.f) + LN_EPS);
 #pragma unroll
   for (int c = 0; c < PART<D> / 4; ++c)
 #pragma unroll
@@ -207,13 +209,14 @@ __device__ __forceinline__ void stage_chunk(float* a_s, float* b_s, float* kept,
     }
 }
 
-// Forward: out = softmax(q k^T / sqrt(D) + key mask) v, with LN_ROPE the q and
-// k rows first LayerNormed, scaled and rotated (the fused attention's q~, k~).
+// Forward: out = softmax(q k^T scale + key mask) v (scale: 1/sqrt(d) of the true
+// head dim), with LN_ROPE the q and k rows first LayerNormed, scaled and rotated
+// (the fused attention's q~, k~).
 template <int D, bool LN_ROPE>
 __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(Rows qr, Rows kr, Rows vr, const unsigned char* __restrict__ mask, OutRows out, int B, int S, int H,
            const float* __restrict__ q_scale, const float* __restrict__ k_scale, const float* __restrict__ cos_t,
-           const float* __restrict__ sin_t, float scale) {
+           const float* __restrict__ sin_t, float scale, float inv_d) {
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
   float* v_s = k_s + CHUNK * SROW<D>;
@@ -224,7 +227,7 @@ attention_fwd_kernel(Rows qr, Rows kr, Rows vr, const unsigned char* __restrict_
   const long long pair = geo.pair0 + geo.lp;
   float qv[PART<D>], acc[PART<D>];
   load_part<D>(qv, qr.at(pair, H, geo.i), q);
-  if (LN_ROPE) norm_rope<D>(qv, q, q_scale, cos_t + (size_t)geo.i * D, sin_t + (size_t)geo.i * D);
+  if (LN_ROPE) norm_rope<D>(qv, q, q_scale, cos_t + (size_t)geo.i * D, sin_t + (size_t)geo.i * D, inv_d);
 #pragma unroll
   for (int d = 0; d < PART<D>; ++d) acc[d] = 0.f;
   float m = -INFINITY, l = 0.f;
@@ -240,7 +243,7 @@ attention_fwd_kernel(Rows qr, Rows kr, Rows vr, const unsigned char* __restrict_
         const int at = live ? r : 0, j = j0 + at % n;
         float kv[PART<D>];
         load_part<D>(kv, k_s + at * SROW<D>, q);
-        norm_rope<D>(kv, q, k_scale, cos_t + (size_t)j * D, sin_t + (size_t)j * D);
+        norm_rope<D>(kv, q, k_scale, cos_t + (size_t)j * D, sin_t + (size_t)j * D, inv_d);
         if (live) store_part<D>(k_s + at * SROW<D>, kv, q);
       }
       __syncthreads();
@@ -401,24 +404,25 @@ inline unsigned grid(int S, long long n_pairs) {
   return (unsigned)(((n_pairs + ppb - 1) / ppb) * tiles_a_pair(S));
 }
 
+// scale, inv_d: 1/sqrt(d) and 1/d of the true head dim d <= D.
 template <int D>
 cudaError_t launch_fwd(bool ln_rope, Rows q, Rows k, Rows v, const unsigned char* mask, OutRows out, int B, int S,
                        int H, const float* q_scale, const float* k_scale, const float* cos_t, const float* sin_t,
-                       cudaStream_t stream) {
+                       float scale, float inv_d, cudaStream_t stream) {
   const size_t smem = (2 * (size_t)CHUNK * SROW<D> + CHUNK) * sizeof(float);
   auto kernel = ln_rope ? &attention_fwd_kernel<D, true> : &attention_fwd_kernel<D, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid(S, (long long)B * H), THREADS, smem, stream>>>(q, k, v, mask, out, B, S, H, q_scale, k_scale, cos_t,
-                                                               sin_t, 1.f / sqrtf((float)D));
+                                                               sin_t, scale, inv_d);
   return cudaGetLastError();
 }
 
-// Both sides of the backward, in turn; stats: an f32 scratch of 3 * B * H * S.
+// Both sides of the backward, in turn; stats: an f32 scratch of 3 * B * H * S;
+// scale: 1/sqrt(d) of the true head dim d <= D.
 template <int D>
 cudaError_t launch_sides(Rows q, Rows k, Rows v, Rows d_o, const unsigned char* mask, OutRows dq, OutRows dk,
-                         OutRows dv, float* stats, int B, int S, int H, cudaStream_t stream) {
-  const float scale = 1.f / sqrtf((float)D);
+                         OutRows dv, float* stats, int B, int S, int H, float scale, cudaStream_t stream) {
   const unsigned blocks = grid(S, (long long)B * H);
   const size_t q_smem = (2 * (size_t)CHUNK * SROW<D> + CHUNK) * sizeof(float);
   const size_t k_smem = (2 * (size_t)CHUNK * SROW<D> + 3 * CHUNK) * sizeof(float);

@@ -189,13 +189,13 @@ __device__ __forceinline__ void store_acc(const float (&acc)[D / 8][4], T* __res
 // rounded to bf16 into qn and kn, each (B, S, H, D): norm_rope_pair, as the
 // tile variant runs it in shared memory; qn null: k alone (the wgmma forward
 // normalises its own q rows). A block takes PREP_ROWS consecutive head rows r
-// (position r / H, head r % H) of `rows` = B S H.
+// (position r / H, head r % H) of `rows` = B S H. inv_d: 1/d of the true head dim.
 template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 qk_norm_rope_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_scale,
                     const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                     const float* __restrict__ sin_t, bf16* __restrict__ qn, bf16* __restrict__ kn, long long rows,
-                    int S, int H) {
+                    int S, int H, float inv_d) {
   extern __shared__ float4 smem4[];
   bf16* rows_s = reinterpret_cast<bf16*>(smem4);  // [q, k][PREP_ROWS][ROW]
   constexpr int ROW = fa_mma::ROW<D>, P = PIECES<D>, LANES = LN_LANES<D>;
@@ -221,7 +221,7 @@ qk_norm_rope_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_sc
     const bool live = r < rows;
     const int i = live ? (int)((r / H) % S) : 0;
     norm_rope_pair<D>(rows_s + rr * ROW, live && qn != nullptr, qsc, rows_s + (PREP_ROWS + rr) * ROW, live, ksc,
-                      cos_t + (size_t)i * D, sin_t + (size_t)i * D);
+                      cos_t + (size_t)i * D, sin_t + (size_t)i * D, inv_d);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < 2 * PREP_ROWS * P; e += blockDim.x) {
@@ -235,13 +235,14 @@ qk_norm_rope_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_sc
 
 template <int D>
 cudaError_t launch_norm_rope(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
-                             const void* sin_t, bf16* qn, bf16* kn, int B, int S, int H, cudaStream_t stream) {
+                             const void* sin_t, bf16* qn, bf16* kn, int B, int S, int H, float inv_d,
+                             cudaStream_t stream) {
   const long long rows = (long long)B * S * H, blocks = (rows + PREP_ROWS - 1) / PREP_ROWS;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)PREP_ROWS * ROW_BYTES<D>;  // 34 KB at D = 128: no opt-in needed
   qk_norm_rope_kernel<D><<<(unsigned)blocks, WARPS * 32, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), qn, kn, rows, S, H);
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), qn, kn, rows, S, H, inv_d);
   return cudaGetLastError();
 }
 
@@ -252,6 +253,7 @@ struct FwdArgs {
   const unsigned char* mask;  // (B, S) or null
   bf16* out;                  // (B, S, H, D), contiguous
   int B, S, H;
+  HeadScale hs;  // the true head dim's 1/d and softmax scale
 };
 
 // The scores of 16 query rows (fragments qf) against the 16 KT keys of a
@@ -276,7 +278,7 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) split_fwd_kernel(const
   extern __shared__ float4 smem4[];
   bf16* smem = reinterpret_cast<bf16*>(smem4);
   constexpr int ROW = fa_mma::ROW<D>, KT = FWD_KT;
-  constexpr float C = fa_mma::C<D>;  // 1/sqrt(D) in the exp2 domain
+  const float C = a.hs.c;  // the softmax scale in the exp2 domain
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
   const int S = a.S, H = a.H, qtiles = (S + ROWS - 1) / ROWS, tiles = tiles_of(S);
   const long long pair = blockIdx.x / qtiles, b = pair / H;
@@ -428,6 +430,7 @@ struct BwdArgs {
   Out<bf16> dv;
   float* stats;  // m | 1/l | row, each B H S long, row (pair, i) at pair S + i
   int B, S, H;
+  HeadScale hs;  // the true head dim's 1/d and softmax scale
 };
 
 // Query-major: one block per (pair, tile of ROWS query rows), a pair's tiles
@@ -488,13 +491,13 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) split_bwd_query_kernel
 #pragma unroll
             for (int nt = 0; nt < 2 * KT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
             const float m_new = fmaxf(m[r], quad_max(mx));
-            const float corr = exp2f((m[r] - m_new) * C<D>);  // 0 on the first chunk
+            const float corr = exp2f((m[r] - m_new) * a.hs.c);  // 0 on the first chunk
             float sum = 0.f, acc = 0.f;
 #pragma unroll
             for (int nt = 0; nt < 2 * KT; ++nt)
 #pragma unroll
               for (int e = 2 * r; e < 2 * r + 2; ++e) {
-                const float p = exp2f((s[nt][e] - m_new) * C<D>);
+                const float p = exp2f((s[nt][e] - m_new) * a.hs.c);
                 sum += p;
                 acc += p * dp[nt][e];
               }
@@ -507,8 +510,8 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) split_bwd_query_kernel
           for (int nt = 0; nt < 2 * KT; ++nt)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const float p = exp2f((s[nt][e] - m[e >> 1]) * C<D>) * il[e >> 1];
-              dp[nt][e] = p * (dp[nt][e] - row[e >> 1]) * SM_SCALE<D>;
+              const float p = exp2f((s[nt][e] - m[e >> 1]) * a.hs.c) * il[e >> 1];
+              dp[nt][e] = p * (dp[nt][e] - row[e >> 1]) * a.hs.scale;
             }
 #pragma unroll
           for (int kk = 0; kk < KT; ++kk) {
@@ -614,9 +617,9 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS) split_bwd_key_kernel(c
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               const int e = 2 * r + e1;
-              const float p = in ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * C<D>) * inv : 0.f;
+              const float p = in ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * a.hs.c) * inv : 0.f;
               st[nt][e] = p;
-              dt[nt][e] = p * (dt[nt][e] - row) * SM_SCALE<D>;
+              dt[nt][e] = p * (dt[nt][e] - row) * a.hs.scale;
             }
           }
         uint32_t ap[4], ad[4];

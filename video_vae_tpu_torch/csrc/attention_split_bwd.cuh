@@ -525,13 +525,13 @@ split_wg_query_kernel(const __grid_constant__ Maps maps, const split::BwdArgs<T>
 #pragma unroll
         for (int j = 0; j < KT / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
         const float m_new = fmaxf(m[r], quad_max(mx));
-        corr[r] = exp2f((m[r] - m_new) * C<D>);  // 0 on the first tile
+        corr[r] = exp2f((m[r] - m_new) * a.hs.c);  // 0 on the first tile
         float sum = 0.f;
 #pragma unroll
         for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            const float p = exp2f((s[4 * j + 2 * r + c] - m_new) * C<D>);
+            const float p = exp2f((s[4 * j + 2 * r + c] - m_new) * a.hs.c);
             s[4 * j + 2 * r + c] = p;
             sum += p;
           }
@@ -553,11 +553,11 @@ split_wg_query_kernel(const __grid_constant__ Maps maps, const split::BwdArgs<T>
       }
     } else {  // P (normalised, f32), dS, dq += dS (bf16) . k
 #pragma unroll
-      for (int e = 0; e < KT / 2; ++e) s[e] = exp2f((s[e] - m[(e >> 1) & 1]) * C<D>) * il[(e >> 1) & 1];
+      for (int e = 0; e < KT / 2; ++e) s[e] = exp2f((s[e] - m[(e >> 1) & 1]) * a.hs.c) * il[(e >> 1) & 1];
       wgmma_wait_group<0>();
       fence_acc(dp);
 #pragma unroll
-      for (int e = 0; e < KT / 2; ++e) dp[e] = s[e] * (dp[e] - row[(e >> 1) & 1]) * SM_SCALE<D>;
+      for (int e = 0; e < KT / 2; ++e) dp[e] = s[e] * (dp[e] - row[(e >> 1) & 1]) * a.hs.scale;
       uint32_t ds[KT / 16][4];
       pack_frags<KT>(ds, dp);
       wgmma_fence();
@@ -690,8 +690,8 @@ split_wg_key_kernel(const __grid_constant__ Maps maps, const split::BwdArgs<T> a
       for (int r = 0; r < 2; ++r) {
         float& p0 = s[4 * j + 2 * r];
         float& p1 = s[4 * j + 2 * r + 1];
-        p0 = exp2f(((masked[r] ? NEG_INF : p0) - mi.x) * C<D>) * inv.x;
-        p1 = exp2f(((masked[r] ? NEG_INF : p1) - mi.y) * C<D>) * inv.y;
+        p0 = exp2f(((masked[r] ? NEG_INF : p0) - mi.x) * a.hs.c) * inv.x;
+        p1 = exp2f(((masked[r] ? NEG_INF : p1) - mi.y) * a.hs.c) * inv.y;
       }
     }
     wgmma_wait_group<0>();
@@ -701,8 +701,8 @@ split_wg_key_kernel(const __grid_constant__ Maps maps, const split::BwdArgs<T> a
       const float2 rw = *reinterpret_cast<const float2*>(st + 2 * QT + 8 * j + 2 * t);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        dp[4 * j + 2 * r] = s[4 * j + 2 * r] * (dp[4 * j + 2 * r] - rw.x) * SM_SCALE<D>;
-        dp[4 * j + 2 * r + 1] = s[4 * j + 2 * r + 1] * (dp[4 * j + 2 * r + 1] - rw.y) * SM_SCALE<D>;
+        dp[4 * j + 2 * r] = s[4 * j + 2 * r] * (dp[4 * j + 2 * r] - rw.x) * a.hs.scale;
+        dp[4 * j + 2 * r + 1] = s[4 * j + 2 * r + 1] * (dp[4 * j + 2 * r + 1] - rw.y) * a.hs.scale;
       }
     }
     uint32_t pa[QT / 16][4], da[QT / 16][4];

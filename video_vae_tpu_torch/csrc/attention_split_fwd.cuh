@@ -143,7 +143,7 @@ __device__ __forceinline__ void load_q_tables(QTables<D>& tb, int own0, int S, c
 }
 
 template <int D>
-__device__ __forceinline__ void norm_rope_own_q(uint8_t* q_tile, int own0, int S, const QTables<D>& tb) {
+__device__ __forceinline__ void norm_rope_own_q(uint8_t* q_tile, int own0, int S, const QTables<D>& tb, float inv_d) {
   const int c = threadIdx.x & (Q_LANES<D> - 1);
 #pragma unroll
   for (int ps = 0; ps < Q_PASSES<D>; ++ps) {
@@ -175,8 +175,8 @@ __device__ __forceinline__ void norm_rope_own_q(uint8_t* q_tile, int own0, int S
       s += __shfl_xor_sync(0xffffffffu, s, off);
       sq += __shfl_xor_sync(0xffffffffu, sq, off);
     }
-    const float mean = s * (1.f / D);
-    const float rs = rsqrtf(fmaxf(sq * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+    const float mean = s * inv_d;
+    const float rs = rsqrtf(fmaxf(sq * inv_d - mean * mean, 0.f) + LN_EPS);
     uint32_t lo[4], hi[4];
 #pragma unroll
     for (int e = 0; e < 8; e += 2) {
@@ -240,7 +240,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 split_wg_fwd_kernel(const __grid_constant__ FwdMaps maps, const split::FwdArgs a, const QNorm qn) {
   constexpr bool NORMALIZE = MODE == NORMALIZED;
   constexpr int KT = KEY_TILE<D>, OB = TILE_BYTES<D, WG_ROWS>, KB = TILE_BYTES<D, KT>;
-  constexpr float SC = C<D>;  // 1/sqrt(D) in the exp2 domain
+  const float SC = a.hs.c;  // the softmax scale in the exp2 domain
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~uintptr_t(ALIGN - 1));
   uint8_t* own_q = smem;                   // [CONSUMERS][OB]; each warpgroup's output leaves through its own
@@ -304,7 +304,7 @@ split_wg_fwd_kernel(const __grid_constant__ FwdMaps maps, const split::FwdArgs a
     QTables<D> tables;
     load_q_tables<D>(tables, blk.row0 + wg * WG_ROWS, S, qn);
     mbar_wait(own_full, 0);
-    norm_rope_own_q<D>(q_tile, blk.row0 + wg * WG_ROWS, S, tables);
+    norm_rope_own_q<D>(q_tile, blk.row0 + wg * WG_ROWS, S, tables, a.hs.inv_d);
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for the products' reads of q (D = 128)
     asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
   } else {
@@ -537,16 +537,16 @@ cudaError_t launch_split_fwd(const split::FwdArgs& a, bool normalize, cudaStream
 template <int D>
 cudaError_t launch_split_fused_fwd(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                                    const void* sin_t, const void* mask, void* out, void* work, int B, int S, int H,
-                                   cudaStream_t stream) {
+                                   const HeadScale& hs, cudaStream_t stream) {
   if (work == nullptr) return cudaErrorInvalidValue;
   const long long HD = (long long)H * D;
   const bf16* raw = static_cast<const bf16*>(qkv);
   bf16* qn = D >= 64 ? nullptr : static_cast<bf16*>(work);
   bf16* kn = static_cast<bf16*>(work) + (D >= 64 ? 0 : (long long)B * S * HD);
-  cudaError_t err = split::launch_norm_rope<D>(qkv, q_scale, k_scale, cos_t, sin_t, qn, kn, B, S, H, stream);
+  cudaError_t err = split::launch_norm_rope<D>(qkv, q_scale, k_scale, cos_t, sin_t, qn, kn, B, S, H, hs.inv_d, stream);
   if (err != cudaSuccess) return err;
   const split::FwdArgs a{D >= 64 ? split::In{raw, 3 * HD} : split::In{qn, HD}, {kn, HD}, {raw + 2 * HD, 3 * HD},
-                         static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), B, S, H};
+                         static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), B, S, H, hs};
   if constexpr (D >= 64)
     return split_wg::launch_fwd<D>(a, false, stream,
                                    {static_cast<const float*>(q_scale), static_cast<const float*>(cos_t),

@@ -80,7 +80,8 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
                             const void* k_scale, const void* cos_t, const void* sin_t,
                             const void* wout, const void* bout, void* y, void* qkv, void* o,
                             void* xa, void* o16, void* work, int B, int S, int C, int H, GemmPlan qkv_plan,
-                            GemmPlan out_plan, int variant, int unit, cudaStream_t stream) {
+                            GemmPlan out_plan, int variant, int unit, const fa_mma::HeadScale& hs,
+                            cudaStream_t stream) {
   const int n = B * S;
   const int HD = H * D;
   const T* xt = static_cast<const T*>(x);
@@ -100,13 +101,14 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
     if (variant == fa_mma::SPLIT)
       err = unit != 1 ? cudaErrorInvalidValue
                       : fa_mma::launch_split_fused_fwd<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, work, B, S, H,
-                                                          stream);
+                                                          hs, stream);
     else
       err = fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H,
-                                            variant, unit, stream);
+                                            variant, unit, hs, stream);
     o_bf16 = static_cast<const bf16*>(o);
   } else {
-    err = launch_fused_attention<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H, stream);
+    err = launch_fused_attention<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H, hs.scale,
+                                           hs.inv_d, stream);
     if (err != cudaSuccess) return err;
     const long long vecs = (long long)n * HD / 8;
     const long long blocks = std::min<long long>((vecs + CAST_THREADS - 1) / CAST_THREADS, CAST_MAX_BLOCKS);
@@ -124,7 +126,11 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
 
 }  // namespace
 
-// head_dim D: 16, 32, 64 or 128; any other is refused.
+// head_dim D: 16, 32, 64 or 128; any other is refused. true_dim d and scale: the
+// call's head dim, even, 2 <= d <= D, and its softmax scale 1/sqrt(d) in f32; the
+// wrapper pads each head of d to D by halves (ops/flash_attention.py:pad_heads:
+// Wqkv's and bqkv's columns, Wout's rows, the scales and the tables), so that
+// qkv's and o's padded columns are zero.
 // dtype: 0 = float32, 1 = bfloat16 (x, y, qkv, o). x, y: (B, S, C); qkv: (B, S, 3*H*D);
 // o: (B, S, H*D); xa: bf16 scratch (B, S, C); o16: bf16 scratch (B, S, H*D) for
 // float32 x, null for bfloat16. ln_g, ln_b, bqkv, bout, q_scale, k_scale, cos_t,
@@ -141,13 +147,14 @@ extern "C" int vvt_attention_sublayer(const void* x, const void* mask, const voi
                                       const void* q_scale, const void* k_scale, const void* cos_t,
                                       const void* sin_t, const void* wout, const void* bout,
                                       void* y, void* qkv, void* o, void* xa, void* o16, void* work,
-                                      int B, int S, int C, int H, int head_dim, int dtype, int qkv_bn,
-                                      int qkv_stages, int qkv_blocks, int qkv_smem, int out_bn,
-                                      int out_stages, int out_blocks, int out_smem, int variant,
+                                      int B, int S, int C, int H, int head_dim, int true_dim, float scale,
+                                      int dtype, int qkv_bn, int qkv_stages, int qkv_blocks, int qkv_smem,
+                                      int out_bn, int out_stages, int out_blocks, int out_smem, int variant,
                                       int unit, void* stream) {
   if (S < 1 || B < 1 || H < 1 || C < 8 || C % 8 || (long long)B * S > 0x7fffffffLL ||
-      (dtype != 0 && dtype != 1) || (dtype == 0 && o16 == nullptr))
+      (dtype != 0 && dtype != 1) || (dtype == 0 && o16 == nullptr) || !fa_mma::takes_head(true_dim, head_dim, scale))
     return (int)cudaErrorInvalidValue;
+  const fa_mma::HeadScale hs = fa_mma::head_scale(true_dim, scale);
   const GemmPlan qkv_plan{qkv_bn, qkv_stages, qkv_blocks, qkv_smem};
   const GemmPlan out_plan{out_bn, out_stages, out_blocks, out_smem};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -156,9 +163,9 @@ extern "C" int vvt_attention_sublayer(const void* x, const void* mask, const voi
     if (dtype == 0)
       return launch_sublayer<float, D>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t, sin_t, wout,
                                        bout, y, qkv, o, xa, o16, work, B, S, C, H, qkv_plan, out_plan, variant, unit,
-                                       st);
+                                       hs, st);
     return launch_sublayer<bf16, D>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t, sin_t, wout, bout,
-                                    y, qkv, o, xa, o16, work, B, S, C, H, qkv_plan, out_plan, variant, unit, st);
+                                    y, qkv, o, xa, o16, work, B, S, C, H, qkv_plan, out_plan, variant, unit, hs, st);
   });
 }
 

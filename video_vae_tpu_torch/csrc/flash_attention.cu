@@ -5,7 +5,9 @@
 // keys set to -1e30 (so a fully masked row gets uniform weights), p =
 // exp(s - max) / sum in f32 with the exact row max and sum, p rounded to v's
 // dtype, o = p v accumulated in f32, one rounding to the output dtype. D in
-// {16, 32, 64, 128} (a template parameter of every kernel), any S >= 1; f32 or bf16. Each tensor is addressed as base + (b * S + i) *
+// {16, 32, 64, 128} (a template parameter of every kernel; another even D up to
+// 128 runs the next, zero-padded by the wrapper, with the true D's scale), any
+// S >= 1; f32 or bf16. Each tensor is addressed as base + (b * S + i) *
 // row_stride + h * D + d, so v may be a view into the fused QKV projection
 // (row stride 3 * H * D, as the model's "pallas" path hands it over).
 //
@@ -185,7 +187,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // attention_f32_wide.cuh (f32 only).
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   long long q_stride, long long k_stride, long long v_stride, int B, int S, int H,
+                   long long q_stride, long long k_stride, long long v_stride, int B, int S, int H, float scale,
                    cudaStream_t stream) {
   static_assert(sizeof(T) == 4, "the CUDA-core attention takes f32");
   if (D == 128 || S > MAX_ROWS) {
@@ -196,7 +198,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
     return fa_wide::launch_fwd<D>(false, rows(q, q_stride), rows(k, k_stride), rows(v, v_stride),
                                   static_cast<const unsigned char*>(mask),
                                   fa_wide::OutRows{static_cast<float*>(out), S * HD, D, HD}, B, S, H, nullptr,
-                                  nullptr, nullptr, nullptr, stream);
+                                  nullptr, nullptr, nullptr, scale, 0.f, stream);
   }
   if constexpr (D < 128) {
   const int pairs_per_block = MAX_ROWS / S;
@@ -212,7 +214,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
   kernel<<<blocks, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const unsigned char*>(mask), static_cast<T*>(out), q_stride, k_stride, v_stride,
-      B, S, H, pairs_per_block, 1.f / sqrtf((float)D));
+      B, S, H, pairs_per_block, scale);
   return cudaGetLastError();
   } else {
     return cudaErrorInvalidValue;  // D = 128 took the quad kernel above
@@ -225,23 +227,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 // *_stride: elements between rows (b, i) and (b, i + 1) of that tensor; out is contiguous.
 // variant, unit: the bf16 kernel's plan (slab 0, tile 1 or split 2; sequences
 // a slab block, 1 otherwise); the f32 kernel takes its geometry from the shape.
+// head_dim: 16, 32, 64 or 128; true_dim d and scale: the call's head dim (q, k and
+// v zero-padded past it to head_dim) and its softmax scale 1/sqrt(d) in f32.
 extern "C" int vvt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const void* mask, void* out, long long q_stride,
                                        long long k_stride, long long v_stride, int B, int S, int H,
-                                       int head_dim, int dtype, int variant, int unit, void* stream) {
-  if (S < 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+                                       int head_dim, int true_dim, float scale, int dtype, int variant, int unit,
+                                       void* stream) {
+  if (S < 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1) || !fa_mma::takes_head(true_dim, head_dim, scale))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using fa_mma::bf16;
+  const fa_mma::HeadScale hs = fa_mma::head_scale(true_dim, scale);
   const fa_mma::flash_fwd::Args a{
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), q_stride, k_stride, v_stride,
-      B, S, H, unit};
+      B, S, H, unit, hs};
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    if (dtype == 0) return launch<float, D>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H, st);
+    if (dtype == 0) return launch<float, D>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H, hs.scale, st);
     if (variant == fa_mma::SPLIT) {  // P normalised before its rounding, as at every S
       if (unit != 1) return cudaErrorInvalidValue;
-      const fa_mma::split::FwdArgs sa{{a.q, q_stride}, {a.k, k_stride}, {a.v, v_stride}, a.mask, a.out, B, S, H};
+      const fa_mma::split::FwdArgs sa{{a.q, q_stride}, {a.k, k_stride}, {a.v, v_stride}, a.mask, a.out, B, S, H,
+                                      hs};
       return fa_mma::launch_split_fwd<D>(sa, true, st);
     }
     return fa_mma::flash_fwd::launch_flash_mma<D>(a, variant, st);

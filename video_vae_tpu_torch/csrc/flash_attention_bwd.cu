@@ -6,7 +6,8 @@
 // sum, then dv = p^T dO, dp = dO v^T, row = sum_j p_ij dp_ij,
 // ds = p o (dp - row) / sqrt(D), dq = ds k, dk = ds^T q, each written once in
 // its input's dtype. D in {16, 32, 64, 128} (a template parameter of every
-// kernel), any S >= 1. A row whose keys are all masked
+// kernel; another even D up to 128 runs the next, zero-padded by the wrapper,
+// with the true D's scale), any S >= 1. A row whose keys are all masked
 // spreads p evenly over all S keys; a key past S (a tile's padding) adds
 // exactly 0.
 //
@@ -313,10 +314,9 @@ key_side_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o, const void* mask,
-                   void* dq, void* dk, void* dv, void* work, Strides st, int B, int S, int H,
+                   void* dq, void* dk, void* dv, void* work, Strides st, int B, int S, int H, float scale,
                    cudaStream_t stream) {
   const long long n_pairs = (long long)B * H;
-  const float scale = 1.f / sqrtf((float)D);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -329,7 +329,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
     auto in = [&](const T* p, long long stride) { return fa_wide::Rows{p, S * stride, D, stride}; };
     auto out = [&](void* p) { return fa_wide::OutRows{static_cast<float*>(p), S * HD, D, HD}; };
     return fa_wide::launch_sides<D>(in(qt, st.q), in(kt, st.k), in(vt, st.v), in(gt, st.d_o), mk, out(dq), out(dk),
-                                    out(dv), stats, B, S, H, stream);
+                                    out(dv), stats, B, S, H, scale, stream);
   }
   if constexpr (D < 128) {
   const int ppb = S <= SIDE_ROWS ? SIDE_ROWS / S : 1;
@@ -375,22 +375,24 @@ extern "C" int vvt_flash_attention_bwd(const void* q, const void* k, const void*
                                        const void* d_o, const void* mask, void* dq, void* dk,
                                        void* dv, void* work, long long q_stride,
                                        long long k_stride, long long v_stride,
-                                       long long do_stride, int B, int S, int H, int head_dim,
-                                       int dtype, int variant, int unit, int warps, int n_blocks,
+                                       long long do_stride, int B, int S, int H, int head_dim, int true_dim,
+                                       float scale, int dtype, int variant, int unit, int warps, int n_blocks,
                                        void* stream) {
-  if (S < 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1) || (dtype == 0 && work == nullptr))
+  if (S < 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1) || (dtype == 0 && work == nullptr) ||
+      !fa_mma::takes_head(true_dim, head_dim, scale))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
   const Strides st{q_stride, k_stride, v_stride, do_stride};
   using fa_mma::bf16;
+  const fa_mma::HeadScale hs = fa_mma::head_scale(true_dim, scale);
   const fa_mma::flash_bwd::Args a{
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(d_o), static_cast<const unsigned char*>(mask), static_cast<bf16*>(dq),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), q_stride, k_stride, v_stride, do_stride,
-      B, S, H, unit};
+      B, S, H, unit, hs};
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    if (dtype == 0) return launch<float, D>(q, k, v, d_o, mask, dq, dk, dv, work, st, B, S, H, stream_);
+    if (dtype == 0) return launch<float, D>(q, k, v, d_o, mask, dq, dk, dv, work, st, B, S, H, hs.scale, stream_);
     if (variant == fa_mma::SPLIT) {
       namespace sp = fa_mma::split;
       if (unit != 1 || warps != fa_mma::split_bwd_warps<D>() || n_blocks != fa_mma::split_bwd_grid<D>(B, S, H))
@@ -398,7 +400,7 @@ extern "C" int vvt_flash_attention_bwd(const void* q, const void* k, const void*
       const long long HD = (long long)H * D;
       auto grad = [&](void* p) { return sp::Out<bf16>{static_cast<bf16*>(p), S * HD, D, HD}; };
       const sp::BwdArgs<bf16> sa{{a.q, q_stride}, {a.k, k_stride}, {a.v, v_stride}, {a.g, do_stride}, a.mask,
-                                 grad(dq), grad(dk), grad(dv), static_cast<float*>(work), B, S, H};
+                                 grad(dq), grad(dk), grad(dv), static_cast<float*>(work), B, S, H, hs};
       return fa_mma::launch_split_bwd<D, bf16>(sa, stream_);
     }
     return fa_mma::flash_bwd::launch_flash_bwd_mma<D>(a, variant, warps, n_blocks, stream_);

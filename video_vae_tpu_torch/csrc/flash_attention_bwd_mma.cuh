@@ -56,6 +56,7 @@ struct Args {
   bf16* dv;
   long long q_stride, k_stride, v_stride, g_stride;
   int B, S, H, unit;
+  HeadScale hs;  // the true head dim's softmax scale (its 1/d is not read here)
 };
 
 // cp.async rows i0 .. i1 - 1 of parts part0 .. part1 - 1 (0 q, 1 dO, 2 k, 3 v)
@@ -134,8 +135,8 @@ __global__ void __launch_bounds__(SLAB_WARPS * 32, SLAB_BLOCKS<D>) flash_bwd_sla
     bf16* p_rows = rows_of(pl, 4) + (size_t)16 * mt * pstride;
     float dq[D / 8][4], st[2][3];
     bwd::query_side<D, KT, false>(rows_of(pl, 0) + (size_t)16 * mt * ROW, rows_of(pl, 1) + (size_t)16 * mt * ROW,
-                               rows_of(pl, 2), rows_of(pl, 3), keep + pl * words, S, dq, st, p_rows,
-                               p_rows + (size_t)s16 * pstride, pstride);
+                                  rows_of(pl, 2), rows_of(pl, 3), keep + pl * words, S, dq, st, p_rows,
+                                  p_rows + (size_t)s16 * pstride, pstride, a.hs);
     const size_t base = (size_t)(p / H) * S * HD + (size_t)(p % H) * D;
     bwd::store_rows<D>(dq, stage, a.dq + base, HD, 16 * mt, S);
   }
@@ -164,7 +165,7 @@ template <int D>
 __device__ __forceinline__ void key_round(const bf16* q_s, const bf16* do_s, const bf16* k_s, const bf16* v_s,
                                           const float* m_s, const float* il_s, const float* row_s, const bool (&masked)[2],
                                           int k0, int q0, int q1, int S, bf16* ds_t, float (&dv)[D / 8][4],
-                                          float (&dk)[D / 8][4]) {
+                                          float (&dk)[D / 8][4], const HeadScale& hs) {
   constexpr int ROW = fa_mma::ROW<D>;
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
   for (int i0 = q0; i0 < q1; i0 += 16) {
@@ -186,9 +187,9 @@ __device__ __forceinline__ void key_round(const bf16* q_s, const bf16* do_s, con
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int e = 2 * r + e1;
-          const float p = live ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * C<D>) * il : 0.f;
+          const float p = live ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * hs.c) * il : 0.f;
           st[nt][e] = p;
-          dt[nt][e] = p * (dt[nt][e] - row) * SM_SCALE<D>;
+          dt[nt][e] = p * (dt[nt][e] - row) * hs.scale;
         }
       }
     uint32_t ap[4], ad[4];
@@ -280,7 +281,7 @@ __global__ void __launch_bounds__(TILE_WARPS * 32, 1) flash_bwd_tile_kernel(Args
         cp_async_wait_at_most(key_groups - 1 - c0 / 64);
         __syncthreads();
       }
-      bwd::online_chunk<D, TILE_KT>(s, dp, qf, df, k_s, v_s, keep, S, c0, m, l, rs);
+      bwd::online_chunk<D, TILE_KT>(s, dp, qf, df, k_s, v_s, keep, S, c0, m, l, rs, a.hs.c);
     }
     float il[2], row[2], st[2][3];
     bwd::finish_stats(m, l, rs, il, row, st);
@@ -307,7 +308,7 @@ __global__ void __launch_bounds__(TILE_WARPS * 32, 1) flash_bwd_tile_kernel(Args
     for (int e = 0; e < 4; ++e) dv[dn][e] = dk[dn][e] = 0.f;
   for (int q0 = 0; q0 < s16; q0 += ROUND) {  // 2: rounds of queries
     const int q1 = min(q0 + ROUND, s16);
-    key_round<D>(q_s, do_s, k_s, v_s, m_s, il_s, row_s, masked, r0, q0, q1, S, ds_t, dv, dk);
+    key_round<D>(q_s, do_s, k_s, v_s, m_s, il_s, row_s, masked, r0, q0, q1, S, ds_t, dv, dk, a.hs);
     __syncthreads();
     for (int it = warp; it < (q1 - q0) / 16 * (D / 16); it += warps) {  // the round's dq tiles
       const int c0 = 16 * (it / (D / 16)), d0 = 16 * (it % (D / 16));
@@ -345,7 +346,7 @@ __global__ void __launch_bounds__(bwd::WIDE_TILE_WARPS * 32, 1) flash_bwd_wide_k
                          {(size_t)a.q_stride, (size_t)a.k_stride, (size_t)a.v_stride, (size_t)a.g_stride},
                          {a.dq + out, a.dk + out, a.dv + out},
                          (size_t)a.H * D};
-  bwd::wide_tile_bwd<D, false>(io, bwd::NormRope{}, a.mask, b, a.S, nullptr, nullptr);
+  bwd::wide_tile_bwd<D, false>(io, bwd::NormRope{}, a.hs, a.mask, b, a.S, nullptr, nullptr);
 }
 
 template <int D, int KT>

@@ -27,6 +27,7 @@ struct Args {
   bf16* out;                  // (B, S, H, D), contiguous
   long long q_stride, k_stride, v_stride;
   int B, S, H, unit;
+  HeadScale hs;  // the true head dim's softmax scale (its 1/d is not read here)
 };
 
 // cp.async the 16-byte piece `piece` of row i of head h of sequence b of
@@ -85,7 +86,7 @@ __global__ void __launch_bounds__(FWD_WARPS<D> * 32) flash_fwd_kernel(const Args
       const long long b = seq0 + sl;
       if (b >= a.B) continue;
       attend<D, KT>(row_of(sl, 0, h, 16 * mt), row_of(sl, 1, h, 0), row_of(sl, 2, h, 0), keep + sl * words, S, true,
-                 a.out + (size_t)b * S * out_row + h * D, 16 * mt, H);
+                    a.out + (size_t)b * S * out_row + h * D, 16 * mt, H, a.hs.c);
     }
     return;
   }
@@ -111,7 +112,7 @@ __global__ void __launch_bounds__(FWD_WARPS<D> * 32) flash_fwd_kernel(const Args
   // warps = min(rows16(S) / 16, FWD_WARPS<D>), so every warp has query rows
   for (int mt = warp; 16 * mt < S; mt += warps)
     attend<D, KT>(q_s + (size_t)16 * mt * ROW, k_s, v_s, keep, S, true, a.out + (size_t)b * S * out_row + h * D,
-                  16 * mt, H);
+                  16 * mt, H, a.hs.c);
 }
 
 template <int D, int KT>

@@ -6,7 +6,9 @@
 // E[x^2]-mean^2 clamped at 0, eps 1e-6, times the (D,) scale), rotate-half
 // RoPE with (S, D) f32 tables, softmax(q k^T / sqrt(D) + key mask) v, one
 // rounding to the output dtype. D in {16, 32, 64, 128} (a template parameter of
-// every kernel, one instantiation each), any S >= 1. A masked key (j < S,
+// every kernel, one instantiation each; another even D up to 128 runs the next,
+// its heads padded by the wrapper, with the true D's 1/D and 1/sqrt(D) taken at
+// run time: fa_mma::HeadScale), any S >= 1. A masked key (j < S,
 // mask 0) scores -1e30, so a row whose keys are all masked averages all S
 // keys; a key past S (a tile's padding) adds exactly 0.
 //
@@ -93,21 +95,30 @@
 // a slab block, 1 otherwise); the f32 kernel takes its geometry from the shape.
 // work: for the bf16 split variant, a bf16 scratch of B * S * H * head_dim (k~)
 // at head_dim 64 and 128, twice that (q~ and k~) at 16 and 32; null otherwise.
-// head_dim: 16, 32, 64 or 128; any other is refused.
+// head_dim: 16, 32, 64 or 128; any other is refused. true_dim d and scale: the
+// head dim of the call, even, 2 <= d <= head_dim (the wrapper pads each head of d
+// to head_dim by halves, ops/flash_attention.py:pad_heads, with the scales' and
+// the tables' columns), and its softmax scale 1/sqrt(d) rounded to f32; the
+// kernels take 1/d and that scale at run time (fa_mma::HeadScale).
 extern "C" int vvt_fused_attention_fwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
-                                       void* out, void* work, int B, int S, int H, int head_dim, int dtype,
-                                       int variant, int unit, void* stream) {
-  if (S < 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+                                       void* out, void* work, int B, int S, int H, int head_dim, int true_dim,
+                                       float scale, int dtype, int variant, int unit, void* stream) {
+  if (S < 1 || B < 1 || H < 1 || (dtype != 0 && dtype != 1) || !fa_mma::takes_head(true_dim, head_dim, scale))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const fa_mma::HeadScale hs = fa_mma::head_scale(true_dim, scale);
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    if (dtype == 0) return launch_fused_attention<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, st);
+    if (dtype == 0)
+      return launch_fused_attention<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, hs.scale,
+                                              hs.inv_d, st);
     if (variant == fa_mma::SPLIT) {
       if (unit != 1) return cudaErrorInvalidValue;
-      return fa_mma::launch_split_fused_fwd<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, work, B, S, H, st);
+      return fa_mma::launch_split_fused_fwd<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, work, B, S, H, hs, st);
     }
-    return fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, st);
+    return fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, hs,
+                                           st);
   });
 }
 

@@ -7,7 +7,9 @@
 // row = sum_j P_ij dP_ij (f32), dS = P o (dP - row) / sqrt(D), dq~ = dS k~, dk~ = dS^T q~,
 // and back through RoPE (its transpose), the scale (a per-dim partial
 // sum_rows dln * xn) and the LN: dx = r * (dxn - mean(dxn) - xn * mean(dxn * xn)).
-// D in {16, 32, 64, 128} (a template parameter of every kernel), any S >= 1. A
+// D in {16, 32, 64, 128} (a template parameter of every kernel; another even D
+// up to 128 runs the next, its heads padded by the wrapper, with the true D's
+// 1/D and 1/sqrt(D) taken at run time: fa_mma::HeadScale), any S >= 1. A
 // masked key (j < S, mask 0) scores -1e30, so a row
 // whose keys are all masked spreads P evenly over all S keys; a key past S (a
 // tile's padding) adds exactly 0.
@@ -179,7 +181,8 @@ __device__ __forceinline__ bool owns_dims(int lane) { return D >= 64 || lane < D
 // LN (no bias) then rotate-half RoPE; lane owns dims lane + 32 j and lane + 32 j + D/2.
 template <int D>
 __device__ __forceinline__ void norm_rope(float (&x0)[LANE_PAIRS<D>], float (&x1)[LANE_PAIRS<D>], int lane,
-                                          const float* scale, const float* cos_row, const float* sin_row) {
+                                          const float* scale, const float* cos_row, const float* sin_row,
+                                          float inv_d) {
   constexpr int HALF = D / 2;
   float s = x0[0] + x1[0], sq = x0[0] * x0[0] + x1[0] * x1[0];
 #pragma unroll
@@ -187,8 +190,8 @@ __device__ __forceinline__ void norm_rope(float (&x0)[LANE_PAIRS<D>], float (&x1
     s += x0[j] + x1[j];
     sq += x0[j] * x0[j] + x1[j] * x1[j];
   }
-  const float mean = warp_sum(s) * (1.f / D);
-  const float var = fmaxf(warp_sum(sq) * (1.f / D) - mean * mean, 0.f);
+  const float mean = warp_sum(s) * inv_d;
+  const float var = fmaxf(warp_sum(sq) * inv_d - mean * mean, 0.f);
   const float r = rsqrtf(var + LN_EPS);
   if (!owns_dims<D>(lane)) return;
 #pragma unroll
@@ -206,7 +209,7 @@ __global__ void __launch_bounds__(THREADS)
 prep_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
             const float* __restrict__ k_scale, const float* __restrict__ cos_t,
             const float* __restrict__ sin_t, const T* __restrict__ g, Work w, int S, int H,
-            long long rows) {
+            long long rows, float inv_d) {
   const int lane = threadIdx.x % 32;
   const long long rr = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (rr >= rows) return;  // uniform per warp
@@ -227,8 +230,8 @@ prep_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
     q0[j] = on ? to_float(src[d]) : 0.f, q1[j] = on ? to_float(src[d + HALF]) : 0.f;
     k0[j] = on ? to_float(src[HD + d]) : 0.f, k1[j] = on ? to_float(src[HD + d + HALF]) : 0.f;
   }
-  norm_rope<D>(q0, q1, lane, q_scale, c, s);
-  norm_rope<D>(k0, k1, lane, k_scale, c, s);
+  norm_rope<D>(q0, q1, lane, q_scale, c, s, inv_d);
+  norm_rope<D>(k0, k1, lane, k_scale, c, s, inv_d);
   if (!on) return;
   const size_t o = (size_t)rr * D;
   const T* go = g + ((size_t)b * S + i) * HD + h * D;
@@ -479,7 +482,7 @@ ln_rope_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
                    const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                    const float* __restrict__ sin_t, Work w, T* __restrict__ dqkv,
                    float* __restrict__ dqs_part, float* __restrict__ dks_part, int S, int H,
-                   long long rows) {
+                   long long rows, float inv_d) {
   constexpr int HALF = D / 2, J = LANE_PAIRS<D>;
   __shared__ float red[2][WARPS][D];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -511,8 +514,8 @@ ln_rope_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
         sx += x0[j] + x1[j];
         sxx += x0[j] * x0[j] + x1[j] * x1[j];
       }
-      const float mean = warp_sum(sx) * (1.f / D);
-      const float var = fmaxf(warp_sum(sxx) * (1.f / D) - mean * mean, 0.f);
+      const float mean = warp_sum(sx) * inv_d;
+      const float var = fmaxf(warp_sum(sxx) * inv_d - mean * mean, 0.f);
       const float r = rsqrtf(var + LN_EPS);
       // a lane without dims holds zeros: its xn, dln and dxn are 0
       float xn0[J], xn1[J], dxn0[J], dxn1[J];
@@ -534,8 +537,8 @@ ln_rope_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
         s1 += dxn0[j] + dxn1[j];
         s2 += dxn0[j] * xn0[j] + dxn1[j] * xn1[j];
       }
-      const float m1 = warp_sum(s1) * (1.f / D);
-      const float m2 = warp_sum(s2) * (1.f / D);
+      const float m1 = warp_sum(s1) * inv_d;
+      const float m2 = warp_sum(s2) * inv_d;
       T* dst = dqkv + base + part * HD;
       if (on) {
 #pragma unroll
@@ -568,14 +571,14 @@ ln_rope_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ q_scale,
 template <typename T, int D>
 cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                    const void* sin_t, const void* mask, const void* g, void* dqkv, void* dqs_part,
-                   void* dks_part, void* work, int B, int S, int H, int n_blocks,
+                   void* dks_part, void* work, int B, int S, int H, int n_blocks, const fa_mma::HeadScale& hs,
                    cudaStream_t stream) {
   const long long n_pairs = (long long)B * H;
   const long long rows = n_pairs * S;
   const int ln_rows = WARPS * LN_ROWS_PER_WARP;
   if ((long long)n_blocks != (rows + ln_rows - 1) / ln_rows) return cudaErrorInvalidValue;
   const Work w = carve<D>(static_cast<float*>(work), rows);
-  const float scale = 1.f / sqrtf((float)D);
+  const float scale = hs.scale;
   const T* qkv_t = static_cast<const T*>(qkv);
   const float* qs = static_cast<const float*>(q_scale);
   const float* ks = static_cast<const float*>(k_scale);
@@ -585,7 +588,7 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
   T* dq = static_cast<T*>(dqkv);
 
   prep_kernel<T, D><<<(unsigned)((rows + WARPS - 1) / WARPS), THREADS, 0, stream>>>(
-      qkv_t, qs, ks, ct, st, static_cast<const T*>(g), w, S, H, rows);
+      qkv_t, qs, ks, ct, st, static_cast<const T*>(g), w, S, H, rows, hs.inv_d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -595,7 +598,7 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
     auto ws = [&](float* p) { return fa_wide::OutRows{p, H * (long long)S * D, (long long)S * D, D}; };
     auto in = [&](float* p) { return fa_wide::Rows{p, H * (long long)S * D, (long long)S * D, D}; };
     err = fa_wide::launch_sides<D>(in(w.qr), in(w.kr), in(w.v), in(w.d_o), mk, ws(w.dqr), ws(w.dkr),
-                                   fa_wide::OutRows{dq + 2 * HD, S * token, D, token}, w.m, B, S, H, stream);
+                                   fa_wide::OutRows{dq + 2 * HD, S * token, D, token}, w.m, B, S, H, scale, stream);
   } else if constexpr (D < 128) {
   const int ppb = S <= SIDE_ROWS ? SIDE_ROWS / S : 1;
   const int chunks = (S + SIDE_ROWS - 1) / SIDE_ROWS;
@@ -620,7 +623,7 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
 
   ln_rope_bwd_kernel<T, D><<<(unsigned)n_blocks, THREADS, 0, stream>>>(
       qkv_t, qs, ks, ct, st, w, dq, static_cast<float*>(dqs_part),
-      static_cast<float*>(dks_part), S, H, rows);
+      static_cast<float*>(dks_part), S, H, rows, hs.inv_d);
   return cudaGetLastError();
 }
 
@@ -631,7 +634,8 @@ cudaError_t launch(const void* qkv, const void* q_scale, const void* k_scale, co
 template <int D>
 cudaError_t launch_split(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                          const void* sin_t, const void* mask, const void* g, void* dqkv, void* dqs_part,
-                         void* dks_part, void* work, int B, int S, int H, int n_blocks, cudaStream_t stream) {
+                         void* dks_part, void* work, int B, int S, int H, int n_blocks, const fa_mma::HeadScale& hs,
+                         cudaStream_t stream) {
   namespace sp = fa_mma::split;
   using bf16 = __nv_bfloat16;
   const long long rows = (long long)B * H * S, HD = (long long)H * D, token = 3 * HD;
@@ -644,26 +648,29 @@ cudaError_t launch_split(const void* qkv, const void* q_scale, const void* k_sca
   bf16* qn = reinterpret_cast<bf16*>(base + 2 * rows * D);
   bf16* kn = qn + rows * D;
   float* stats = base + 3 * rows * D;
-  cudaError_t err = sp::launch_norm_rope<D>(qkv, q_scale, k_scale, cos_t, sin_t, qn, kn, B, S, H, stream);
+  cudaError_t err = sp::launch_norm_rope<D>(qkv, q_scale, k_scale, cos_t, sin_t, qn, kn, B, S, H, hs.inv_d, stream);
   if (err != cudaSuccess) return err;
   const bf16* x = static_cast<const bf16*>(qkv);
   auto tilde = [&](float* p) { return sp::Out<float>{p, H * (long long)S * D, (long long)S * D, D}; };
   const sp::BwdArgs<float> a{{qn, HD}, {kn, HD}, {x + 2 * HD, token}, {static_cast<const bf16*>(g), HD},
                              static_cast<const unsigned char*>(mask), tilde(w.dqr), tilde(w.dkr),
                              sp::Out<bf16>{static_cast<bf16*>(dqkv) + 2 * HD, S * token, D, token}, stats,
-                             B, S, H};
+                             B, S, H, hs};
   err = fa_mma::launch_split_bwd<D, float>(a, stream);
   if (err != cudaSuccess) return err;
   ln_rope_bwd_kernel<bf16, D><<<(unsigned)n_blocks, THREADS, 0, stream>>>(
       x, static_cast<const float*>(q_scale), static_cast<const float*>(k_scale), static_cast<const float*>(cos_t),
       static_cast<const float*>(sin_t), w, static_cast<bf16*>(dqkv), static_cast<float*>(dqs_part),
-      static_cast<float*>(dks_part), S, H, rows);
+      static_cast<float*>(dks_part), S, H, rows, hs.inv_d);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// head_dim D: 16, 32, 64 or 128; any other is refused.
+// head_dim D: 16, 32, 64 or 128; any other is refused. true_dim d and scale: the
+// head dim of the call, even, 2 <= d <= D (the wrapper pads each head of d to D
+// by halves, ops/flash_attention.py:pad_heads), and its softmax scale 1/sqrt(d)
+// rounded to f32; the kernels take 1/d and that scale at run time (HeadScale).
 // dtype: 0 = float32, 1 = bfloat16 (qkv, g, dqkv). mask: (B, S) uint8 key mask, or null.
 // dqs_part, dks_part: (n_blocks, D) f32 partials of the scale gradients.
 // f32: n_blocks = ceil(B * H * S / 64), work = f32 scratch of 6 * B * H * S * D +
@@ -677,25 +684,27 @@ cudaError_t launch_split(const void* qkv, const void* q_scale, const void* k_sca
 extern "C" int vvt_fused_attention_bwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
                                        const void* g, void* dqkv, void* dqs_part, void* dks_part,
-                                       void* work, int B, int S, int H, int head_dim, int n_blocks,
-                                       int dtype, int variant, int unit, int warps, void* stream) {
-  if (S < 1 || B < 1 || H < 1 || n_blocks < 1 || (dtype != 0 && dtype != 1))
+                                       void* work, int B, int S, int H, int head_dim, int true_dim, float scale,
+                                       int n_blocks, int dtype, int variant, int unit, int warps, void* stream) {
+  if (S < 1 || B < 1 || H < 1 || n_blocks < 1 || (dtype != 0 && dtype != 1) ||
+      !fa_mma::takes_head(true_dim, head_dim, scale))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const fa_mma::HeadScale hs = fa_mma::head_scale(true_dim, scale);
   const fa_mma::bwd::Args a{static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(q_scale),
                             static_cast<const float*>(k_scale), static_cast<const float*>(cos_t),
                             static_cast<const float*>(sin_t), static_cast<const unsigned char*>(mask),
                             static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dqkv),
-                            static_cast<float*>(dqs_part), static_cast<float*>(dks_part), B, S, H, unit};
+                            static_cast<float*>(dqs_part), static_cast<float*>(dks_part), B, S, H, unit, hs};
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (dtype == 0)
       return launch<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv, dqs_part, dks_part, work, B, S,
-                              H, n_blocks, st);
+                              H, n_blocks, hs, st);
     if (variant == fa_mma::SPLIT) {
       if (unit != 1 || warps != fa_mma::split_bwd_warps<D>()) return cudaErrorInvalidValue;
       return launch_split<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv, dqs_part, dks_part, work, B, S, H,
-                             n_blocks, st);
+                             n_blocks, hs, st);
     }
     if (variant == fa_mma::TILE_WG) {
       if constexpr (D >= 64)

@@ -49,6 +49,7 @@ struct Args {
   float* dqs_part;            // (blocks, D)
   float* dks_part;
   int B, S, H, unit;
+  HeadScale hs;  // the true head dim's 1/d and softmax scale
 };
 
 // The key side of one warp in a tile block: key rows k0 .. k0 + 15 of the pair.
@@ -59,7 +60,7 @@ template <int D>
 __device__ __forceinline__ void key_side_tile(const bf16* q_s, const bf16* k_s, const bf16* v_s, const bf16* do_s,
                                               const float* m_s, const float* il_s, const float* row_s,
                                               const unsigned long long* keep, int k0, int S, float (&dv)[D / 8][4],
-                                              float (&dk)[D / 8][4]) {
+                                              float (&dk)[D / 8][4], const HeadScale& hs) {
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
   uint32_t kf[D / 16][4], vf[D / 16][4];
   load_rows<D>(kf, k_s + (size_t)k0 * ROW<D>);
@@ -87,9 +88,9 @@ __device__ __forceinline__ void key_side_tile(const bf16* q_s, const bf16* k_s, 
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int e = 2 * r + e1;
-          const float p = i < S ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * C<D>) * il : 0.f;
+          const float p = i < S ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * hs.c) * il : 0.f;
           st[nt][e] = p;
-          dt[nt][e] = p * (dt[nt][e] - row) * SM_SCALE<D>;
+          dt[nt][e] = p * (dt[nt][e] - row) * hs.scale;
         }
       }
     uint32_t ap[4], ad[4];
@@ -115,12 +116,13 @@ __device__ __forceinline__ float row_sum(float x) {  // over the ROW_LANES lanes
 // The accumulators pass through the warp's staging rows, 8 rows at a time, and
 // ROW_LANES lanes take a row (stage_half): a lane holds dims d and d + D/2, so
 // RoPE's transpose needs no shuffle, and every global access of a row is one
-// contiguous piece; the row's sums take __shfl_xor over its lanes.
+// contiguous piece; the row's sums take __shfl_xor over its lanes. inv_d: 1/d of
+// the true head dim (HeadScale), over which the LN's means are taken.
 template <int D>
 __device__ __forceinline__ void ln_rope_bwd(const float (&du)[D / 8][4], float* stage, const bf16* __restrict__ src,
                                             bf16* __restrict__ dst, size_t stride, int row0, int S,
                                             const float* __restrict__ scale, const float* __restrict__ cos_t,
-                                            const float* __restrict__ sin_t, float* red) {
+                                            const float* __restrict__ sin_t, float* red, float inv_d) {
   constexpr int LR = ROW_LANES<D>, RPI = 32 / LR;  // lanes a row, rows at a time
   constexpr int STAGE_ROW = bwd::STAGE_ROW<D>;
   const int lane = threadIdx.x & 31, d0 = 2 * (lane % LR);
@@ -142,9 +144,9 @@ __device__ __forceinline__ void ln_rope_bwd(const float (&du)[D / 8][4], float* 
                                : make_float2(0.f, 0.f);
       const float2 x_hi = live ? __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(row + d0 + D / 2)))
                                : make_float2(0.f, 0.f);
-      const float mean = row_sum<D>(x_lo.x + x_lo.y + x_hi.x + x_hi.y) * (1.f / D);
+      const float mean = row_sum<D>(x_lo.x + x_lo.y + x_hi.x + x_hi.y) * inv_d;
       const float sq = row_sum<D>(x_lo.x * x_lo.x + x_lo.y * x_lo.y + x_hi.x * x_hi.x + x_hi.y * x_hi.y);
-      const float rstd = rsqrtf(fmaxf(sq * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+      const float rstd = rsqrtf(fmaxf(sq * inv_d - mean * mean, 0.f) + LN_EPS);
       const float* c = cos_t + (size_t)at * D;
       const float* sn = sin_t + (size_t)at * D;
       const float2 c_lo = __ldg(reinterpret_cast<const float2*>(c + d0));
@@ -165,8 +167,8 @@ __device__ __forceinline__ void ln_rope_bwd(const float (&du)[D / 8][4], float* 
         m1 += dxn[k];
         m2 += dxn[k] * xn[k];
       }
-      m1 = row_sum<D>(m1) * (1.f / D);
-      m2 = row_sum<D>(m2) * (1.f / D);
+      m1 = row_sum<D>(m1) * inv_d;
+      m2 = row_sum<D>(m2) * inv_d;
       if (live) {
         bf16* out = dst + (size_t)i * stride;
         *reinterpret_cast<uint32_t*>(out + d0) =
@@ -251,7 +253,7 @@ __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_ke
       const int pl = tk % unit, i = tk / unit;
       const bool live = base + lane / LANES < tasks && p0 + pl < pairs;
       norm_rope_pair<D>(rows_of(pl, 0) + (size_t)i * ROW, live, qsc, rows_of(pl, 1) + (size_t)i * ROW, live, ksc,
-                     a.cos_t + (size_t)i * D, a.sin_t + (size_t)i * D);
+                        a.cos_t + (size_t)i * D, a.sin_t + (size_t)i * D, a.hs.inv_d);
     }
   }
   cp_async_wait<0>();
@@ -265,8 +267,8 @@ __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_ke
     bf16* p_rows = TILE ? nullptr : rows_of(pl, 4) + (size_t)16 * mt * pstride;
     float dq[D / 8][4], st[2][3];
     query_side<D, KT, TILE>(rows_of(pl, 0) + (size_t)16 * mt * ROW, rows_of(pl, 3) + (size_t)16 * mt * ROW,
-                         rows_of(pl, 1), rows_of(pl, 2), keep + pl * words, S, dq, st, p_rows,
-                         TILE ? nullptr : p_rows + (size_t)s16 * pstride, pstride);
+                            rows_of(pl, 1), rows_of(pl, 2), keep + pl * words, S, dq, st, p_rows,
+                            TILE ? nullptr : p_rows + (size_t)s16 * pstride, pstride, a.hs);
     if (TILE && (lane & 3) == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -276,7 +278,7 @@ __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_ke
     }
     const size_t base = (size_t)(p / H) * S * token + (size_t)(p % H) * D;
     ln_rope_bwd<D>(dq, stage, a.qkv + base, a.dqkv + base, token, 16 * mt, S, a.q_scale, a.cos_t, a.sin_t,
-                red + warp * 2 * D);
+                   red + warp * 2 * D, a.hs.inv_d);
   }
   __syncthreads();
   for (int it = warp; it < items; it += warps) {  // key side
@@ -286,14 +288,14 @@ __global__ void __launch_bounds__(MAX_WARPS_ * 32, MIN_BLOCKS_) attention_bwd_ke
     float dv[D / 8][4], dk[D / 8][4];
     if (TILE)
       key_side_tile<D>(rows_of(0, 0), rows_of(0, 1), rows_of(0, 2), rows_of(0, 3), stats, stats + s16, stats + 2 * s16,
-                    keep, 16 * kt, S, dv, dk);
+                       keep, 16 * kt, S, dv, dk, a.hs);
     else
       key_side_slab<D>(rows_of(pl, 4), rows_of(pl, 4) + (size_t)s16 * pstride, pstride, rows_of(pl, 0), rows_of(pl, 3),
                     16 * kt, S, dv, dk);
     const size_t base = (size_t)(p / H) * S * token + (size_t)(p % H) * D;
     store_rows<D>(dv, stage, a.dqkv + base + 2 * HD, token, 16 * kt, S);
     ln_rope_bwd<D>(dk, stage, a.qkv + base + HD, a.dqkv + base + HD, token, 16 * kt, S, a.k_scale, a.cos_t, a.sin_t,
-                red + warp * 2 * D + D);
+                   red + warp * 2 * D + D, a.hs.inv_d);
   }
   __syncthreads();
   // the block's dscale partials: the warps' sums in warp order

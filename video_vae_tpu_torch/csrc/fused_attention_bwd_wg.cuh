@@ -167,7 +167,8 @@ template <int D>
 __device__ __forceinline__ void key_step(float (&dv)[D / 2], float (&dk)[D / 2], const uint8_t* k_tile,
                                          const uint8_t* v_tile, const OwnFrags<D>& kf, const OwnFrags<D>& vf,
                                          const uint8_t* q_tile, const uint8_t* do_tile, const float* sm,
-                                         const float* si, const float* sr, const bool (&masked)[2]) {
+                                         const float* si, const float* sr, const bool (&masked)[2],
+                                         const HeadScale& hs) {
   constexpr int N = ROWS;
   const int t = threadIdx.x & 3;
   float s[N / 2], dp[N / 2];
@@ -186,8 +187,8 @@ __device__ __forceinline__ void key_step(float (&dv)[D / 2], float (&dk)[D / 2],
     for (int r2 = 0; r2 < 2; ++r2) {
       float& p0 = s[4 * j + 2 * r2];
       float& p1 = s[4 * j + 2 * r2 + 1];
-      p0 = exp2_ftz(((masked[r2] ? NEG_INF : p0) - mi.x) * C<D>) * inv.x;
-      p1 = exp2_ftz(((masked[r2] ? NEG_INF : p1) - mi.y) * C<D>) * inv.y;
+      p0 = exp2_ftz(((masked[r2] ? NEG_INF : p0) - mi.x) * hs.c) * inv.x;
+      p1 = exp2_ftz(((masked[r2] ? NEG_INF : p1) - mi.y) * hs.c) * inv.y;
     }
   }
   wgmma_wait_group<0>();
@@ -197,8 +198,8 @@ __device__ __forceinline__ void key_step(float (&dv)[D / 2], float (&dk)[D / 2],
     const float2 rw = *reinterpret_cast<const float2*>(sr + 8 * j + 2 * t);
 #pragma unroll
     for (int r2 = 0; r2 < 2; ++r2) {
-      dp[4 * j + 2 * r2] = s[4 * j + 2 * r2] * (dp[4 * j + 2 * r2] - rw.x) * SM_SCALE<D>;
-      dp[4 * j + 2 * r2 + 1] = s[4 * j + 2 * r2 + 1] * (dp[4 * j + 2 * r2 + 1] - rw.y) * SM_SCALE<D>;
+      dp[4 * j + 2 * r2] = s[4 * j + 2 * r2] * (dp[4 * j + 2 * r2] - rw.x) * hs.scale;
+      dp[4 * j + 2 * r2 + 1] = s[4 * j + 2 * r2 + 1] * (dp[4 * j + 2 * r2 + 1] - rw.y) * hs.scale;
     }
   }
   uint32_t pa[N / 16][4], da[N / 16][4];
@@ -223,7 +224,7 @@ __device__ __forceinline__ void key_step(float (&dv)[D / 2], float (&dk)[D / 2],
 template <int D>
 __device__ __forceinline__ void epilogue_staged(const float (&du)[D / 2], const uint8_t* stage, bf16* __restrict__ dst,
                                                 size_t stride, int row0, int S, const float* __restrict__ scale,
-                                                float* red) {
+                                                float* red, float inv_d) {
   constexpr int NT = D / 8, HT = D / 16;  // column groups of a row, of its first half
   constexpr int BOX = ROWS * 128;          // a table box's bytes
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, t = lane & 3, g = lane >> 2;
@@ -254,8 +255,8 @@ __device__ __forceinline__ void epilogue_staged(const float (&du)[D / 2], const 
       s += x.x + x.y;
       sq += x.x * x.x + x.y * x.y;
     }
-    const float mean = quad_sum(s) * (1.f / D);
-    const float rstd = rsqrtf(fmaxf(quad_sum(sq) * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+    const float mean = quad_sum(s) * inv_d;
+    const float rstd = rsqrtf(fmaxf(quad_sum(sq) * inv_d - mean * mean, 0.f) + LN_EPS);
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < HT; ++nt) {
@@ -280,8 +281,8 @@ __device__ __forceinline__ void epilogue_staged(const float (&du)[D / 2], const 
         }
       }
     }
-    m1 = quad_sum(m1) * (1.f / D);
-    m2 = quad_sum(m2) * (1.f / D);
+    m1 = quad_sum(m1) * inv_d;
+    m2 = quad_sum(m2) * inv_d;
     if (live) {
       bf16* out = dst + (size_t)i * stride;
 #pragma unroll
@@ -437,9 +438,9 @@ __global__ void __launch_bounds__(THREADS, 1) tile_wg_bwd_kernel(const __grid_co
       split_wg::QTables<D> tables;
       split_wg::load_q_tables<D>(tables, mt * ROWS, S, qn);
       mbar_wait(qk_full, 0);
-      split_wg::norm_rope_own_q<D>(q_s + mt * B64, mt * ROWS, S, tables);
+      split_wg::norm_rope_own_q<D>(q_s + mt * B64, mt * ROWS, S, tables, a.hs.inv_d);
       load_lane_scale<D>(tables.sc, a.k_scale);
-      split_wg::norm_rope_own_q<D>(k_s + mt * B64, mt * ROWS, S, tables);
+      split_wg::norm_rope_own_q<D>(k_s + mt * B64, mt * ROWS, S, tables, a.hs.inv_d);
     }
   }
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for the products' reads of q~ and k~
@@ -539,13 +540,13 @@ __global__ void __launch_bounds__(THREADS, 1) tile_wg_bwd_kernel(const __grid_co
 #pragma unroll
             for (int j = 0; j < K / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r2], s[4 * j + 2 * r2 + 1]));
             const float m_new = fmaxf(m[r2], quad_max(mx));
-            corr[r2] = exp2_ftz((m[r2] - m_new) * C<D>);  // 0 on the first tile
+            corr[r2] = exp2_ftz((m[r2] - m_new) * a.hs.c);  // 0 on the first tile
             float sum = 0.f;
 #pragma unroll
             for (int j = 0; j < K / 8; ++j)
 #pragma unroll
               for (int c = 0; c < 2; ++c) {
-                const float p = exp2_ftz((s[4 * j + 2 * r2 + c] - m_new) * C<D>);
+                const float p = exp2_ftz((s[4 * j + 2 * r2 + c] - m_new) * a.hs.c);
                 s[4 * j + 2 * r2 + c] = p;
                 sum += p;
               }
@@ -566,12 +567,12 @@ __global__ void __launch_bounds__(THREADS, 1) tile_wg_bwd_kernel(const __grid_co
           }
         } else {  // P (normalised, f32), dS, dq~ += dS (bf16) . k~
 #pragma unroll
-          for (int e = 0; e < K / 2; ++e) s[e] = exp2_ftz((s[e] - m[(e >> 1) & 1]) * C<D>) * il[(e >> 1) & 1];
+          for (int e = 0; e < K / 2; ++e) s[e] = exp2_ftz((s[e] - m[(e >> 1) & 1]) * a.hs.c) * il[(e >> 1) & 1];
           wgmma_wait_group<0>();
           fence_acc(dp);
           if constexpr (STREAM<D>) release_stage(ring0 + n);  // dq~'s product reads k~ alone
 #pragma unroll
-          for (int e = 0; e < K / 2; ++e) dp[e] = s[e] * (dp[e] - row[(e >> 1) & 1]) * SM_SCALE<D>;
+          for (int e = 0; e < K / 2; ++e) dp[e] = s[e] * (dp[e] - row[(e >> 1) & 1]) * a.hs.scale;
           uint32_t ds[K / 16][4];
           split_wg::pack_frags<K>(ds, dp);
           wgmma_fence();
@@ -614,7 +615,7 @@ __global__ void __launch_bounds__(THREADS, 1) tile_wg_bwd_kernel(const __grid_co
         const uint8_t* do_tile = STREAM<D> ? ring_tile(ring0 + n) : g_s + n * B64;
         __syncwarp();
         key_step<D>(dv, du, k_tile, v_tile, kf, vf, q_tile, do_tile, m_s + n * ROWS, il_s + n * ROWS,
-                    row_s + n * ROWS, masked);
+                    row_s + n * ROWS, masked, a.hs);
         if constexpr (STREAM<D>) release_stage(ring0 + n);
         __syncwarp();
       }
@@ -631,11 +632,11 @@ __global__ void __launch_bounds__(THREADS, 1) tile_wg_bwd_kernel(const __grid_co
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] = du[4 * j + e];
       bwd::ln_rope_bwd_acc<D>(acc, a.qkv + rows, a.dqkv + rows, token, own0 + 16 * warp, S, scale,
-                              a.cos_t, a.sin_t, red_side);
+                              a.cos_t, a.sin_t, red_side, a.hs.inv_d);
     } else {  // from the staging TMA filled while the walk ran
       const uint8_t* stage = epi + wg * EPI_BYTES<D>;
       mbar_wait(&epi_full[wg], uses & 1);
-      epilogue_staged<D>(du, stage, a.dqkv + rows, token, own0, S, scale, red_side);
+      epilogue_staged<D>(du, stage, a.dqkv + rows, token, own0, S, scale, red_side, a.hs.inv_d);
       __syncwarp();
       if (lane == 0) mbar_arrive(&epi_empty[wg]);
     }

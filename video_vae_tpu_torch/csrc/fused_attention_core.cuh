@@ -36,19 +36,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16(x);
 }
 
-// LayerNorm (no bias) then rotate-half RoPE of one D-row held in registers.
+// LayerNorm (no bias) then rotate-half RoPE of one D-row held in registers; its
+// statistics over the true head dim d <= D (inv_d = 1/d: a padded row's zeros
+// add nothing to the sums).
 template <int D>
 __device__ __forceinline__ void norm_rope(float (&x)[D], const float* __restrict__ scale,
                                           const float* __restrict__ cos_row,
-                                          const float* __restrict__ sin_row) {
+                                          const float* __restrict__ sin_row, float inv_d) {
   float s = 0.f, sq = 0.f;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     s += x[d];
     sq += x[d] * x[d];
   }
-  const float mean = s * (1.f / D);
-  const float var = fmaxf(sq * (1.f / D) - mean * mean, 0.f);
+  const float mean = s * inv_d;
+  const float var = fmaxf(sq * inv_d - mean * mean, 0.f);
   const float r = rsqrtf(var + LN_EPS);
 #pragma unroll
   for (int d = 0; d < D; ++d) x[d] = (x[d] - mean) * r * scale[d];
@@ -96,7 +98,7 @@ fused_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ 
                            const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                            const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
                            T* __restrict__ out, int B, int S, int H, int pairs_per_block,
-                           float scale) {
+                           float scale, float inv_d) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int ROW = CORE_ROW<D>;
@@ -124,13 +126,13 @@ fused_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ 
   if (active) {
     float k[D];
     load_row(k, buf_b + r * ROW);
-    norm_rope(k, k_scale, cos_t + (size_t)i * D, sin_t + (size_t)i * D);
+    norm_rope(k, k_scale, cos_t + (size_t)i * D, sin_t + (size_t)i * D, inv_d);
     float4* dst = reinterpret_cast<float4*>(buf_b + r * ROW);
 #pragma unroll
     for (int d4 = 0; d4 < D / 4; ++d4)
       dst[d4] = make_float4(k[4 * d4], k[4 * d4 + 1], k[4 * d4 + 2], k[4 * d4 + 3]);
     load_row(q, buf_a + r * ROW);
-    norm_rope(q, q_scale, cos_t + (size_t)i * D, sin_t + (size_t)i * D);
+    norm_rope(q, q_scale, cos_t + (size_t)i * D, sin_t + (size_t)i * D, inv_d);
   }
   __syncthreads();  // q is in registers: buf_a takes v
   stage<D>(buf_a, qkv, 2, pair0, rows, S, H, n_pairs);
@@ -204,11 +206,12 @@ fused_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ 
 }
 
 // At D = 128, and past S = MAX_ROWS at every D, the quad kernel of
-// attention_f32_wide.cuh (f32 only).
+// attention_f32_wide.cuh (f32 only). scale, inv_d: 1/sqrt(d) and 1/d of the true
+// head dim d <= D.
 template <typename T, int D>
 cudaError_t launch_fused_attention(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
-                   const void* sin_t, const void* mask, void* out, int B, int S, int H,
-                   cudaStream_t stream) {
+                   const void* sin_t, const void* mask, void* out, int B, int S, int H, float scale,
+                   float inv_d, cudaStream_t stream) {
   static_assert(sizeof(T) == 4, "the CUDA-core attention takes f32");
   if (D == 128 || S > MAX_ROWS) {
     const long long HD = (long long)H * D, token = 3 * HD;
@@ -217,7 +220,8 @@ cudaError_t launch_fused_attention(const void* qkv, const void* q_scale, const v
     return fa_wide::launch_fwd<D>(true, q, k, v, static_cast<const unsigned char*>(mask),
                                   fa_wide::OutRows{static_cast<float*>(out), S * HD, D, HD}, B, S, H,
                                   static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
-                                  static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), stream);
+                                  static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), scale, inv_d,
+                                  stream);
   }
   if constexpr (D < 128) {
   const int pairs_per_block = MAX_ROWS / S;
@@ -234,7 +238,7 @@ cudaError_t launch_fused_attention(const void* qkv, const void* q_scale, const v
       static_cast<const T*>(qkv), static_cast<const float*>(q_scale),
       static_cast<const float*>(k_scale), static_cast<const float*>(cos_t),
       static_cast<const float*>(sin_t), static_cast<const unsigned char*>(mask),
-      static_cast<T*>(out), B, S, H, pairs_per_block, 1.f / sqrtf((float)D));
+      static_cast<T*>(out), B, S, H, pairs_per_block, scale, inv_d);
   return cudaGetLastError();
   } else {
     return cudaErrorInvalidValue;  // D = 128 took the quad kernel above

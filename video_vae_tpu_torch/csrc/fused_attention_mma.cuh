@@ -67,12 +67,12 @@ __device__ __forceinline__ void chunk_scores(float (&s)[2 * KT][4], const uint32
 // shared memory, row0 their first position) against the S keys of k_s and v_s,
 // rounded to bf16 into out (row i at out + i * H * D). The output passes through
 // q_rows, which the warp owns and no longer needs once its fragments are loaded.
+// C: the softmax scale in the exp2 domain (HeadScale::c).
 template <int D, int KT>
 __device__ __forceinline__ void attend(bf16* q_rows, const bf16* k_s, const bf16* v_s,
                                        const unsigned long long* keep, int S, bool normalize,
-                                       bf16* __restrict__ out, int row0, int H) {
+                                       bf16* __restrict__ out, int row0, int H, float C) {
   constexpr int CH = 16 * KT;  // keys per chunk
-  constexpr float C = fa_mma::C<D>;  // 1/sqrt(D), in the exp2 domain
   constexpr int ROW = fa_mma::ROW<D>;
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
   uint32_t qf[D / 16][4];
@@ -200,7 +200,8 @@ __global__ void __launch_bounds__(FWD_WARPS<D> * 32)
 attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_scale,
                      const float* __restrict__ k_scale, const float* __restrict__ cos_t,
                      const float* __restrict__ sin_t, const unsigned char* __restrict__ mask,
-                     bf16* __restrict__ out, int B, int S, int H, int variant, int unit, bool normalize) {
+                     bf16* __restrict__ out, int B, int S, int H, int variant, int unit, bool normalize,
+                     const HeadScale hs) {
   extern __shared__ float4 smem4[];
   bf16* smem = reinterpret_cast<bf16*>(smem4);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
@@ -247,7 +248,7 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_s
       const int h = t % H, i = (t / H) % S, sl = t / (H * S);
       const bool live = base + lane / LANES < tasks && seq0 + sl < B;
       norm_rope_pair<D>(row_of(sl, 0, h, i), live, qsc, row_of(sl, 1, h, i), live, ksc, cos_t + (size_t)i * D,
-                     sin_t + (size_t)i * D);
+                        sin_t + (size_t)i * D, hs.inv_d);
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -257,7 +258,7 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_s
       const long long b = seq0 + sl;
       if (b >= B) continue;
       attend<D, KT>(row_of(sl, 0, h, 16 * mt), row_of(sl, 1, h, 0), row_of(sl, 2, h, 0), keep + sl * words, S,
-                 normalize, out + (size_t)b * S * part_stride + h * D, 16 * mt, H);
+                    normalize, out + (size_t)b * S * part_stride + h * D, 16 * mt, H, hs.c);
     }
     return;
   }
@@ -299,26 +300,27 @@ attention_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ q_s
     const bool live = i < S;
     const int at = live ? i : 0;
     norm_rope_pair<D>(k_s + (size_t)at * ROW, live, ksc, q_s + (size_t)at * ROW, live, qsc, cos_t + (size_t)at * D,
-                   sin_t + (size_t)at * D);
+                      sin_t + (size_t)at * D, hs.inv_d);
   }
   cp_async_wait<0>();
   __syncthreads();
   for (int mt = warp; 16 * mt < S; mt += warps)
     attend<D, KT>(q_s + (size_t)16 * mt * ROW, k_s, v_s, keep, S, normalize, out + (size_t)b * S * part_stride + h * D,
-                  16 * mt, H);
+                  16 * mt, H, hs.c);
 }
 
 template <int D, int KT>
 cudaError_t launch_kt(const void* qkv, const void* q_scale, const void* k_scale, const void* cos_t,
                       const void* sin_t, const void* mask, void* out, int B, int S, int H, int variant,
-                      int unit, int warps, bool normalize, int smem, unsigned blocks, cudaStream_t stream) {
+                      int unit, int warps, bool normalize, int smem, unsigned blocks, const HeadScale& hs,
+                      cudaStream_t stream) {
   auto kernel = attention_mma_kernel<D, KT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, 32 * warps, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(q_scale), static_cast<const float*>(k_scale),
       static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), B, S, H, variant, unit, normalize);
+      static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), B, S, H, variant, unit, normalize, hs);
   return cudaGetLastError();
 }
 
@@ -327,7 +329,8 @@ cudaError_t launch_kt(const void* qkv, const void* q_scale, const void* k_scale,
 template <int D>
 cudaError_t launch_attention_mma(const void* qkv, const void* q_scale, const void* k_scale,
                                         const void* cos_t, const void* sin_t, const void* mask, void* out,
-                                        int B, int S, int H, int variant, int unit, cudaStream_t stream) {
+                                        int B, int S, int H, int variant, int unit, const HeadScale& hs,
+                                        cudaStream_t stream) {
   const long long tiles = rows16(S) / 16;  // 16-row query tiles of one head
   long long blocks, warps;
   if (variant == SLAB) {
@@ -349,13 +352,13 @@ cudaError_t launch_attention_mma(const void* qkv, const void* q_scale, const voi
   switch (chunk_steps(S)) {
     case 1:
       return launch_kt<D, 1>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
-                          normalize, (int)smem, (unsigned)blocks, stream);
+                          normalize, (int)smem, (unsigned)blocks, hs, stream);
     case 2:
       return launch_kt<D, 2>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
-                          normalize, (int)smem, (unsigned)blocks, stream);
+                          normalize, (int)smem, (unsigned)blocks, hs, stream);
     default:
       return launch_kt<D, 4>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out, B, S, H, variant, unit, (int)warps,
-                          normalize, (int)smem, (unsigned)blocks, stream);
+                          normalize, (int)smem, (unsigned)blocks, hs, stream);
   }
 }
 

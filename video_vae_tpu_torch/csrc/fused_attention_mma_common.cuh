@@ -7,8 +7,9 @@
 // tile that both backward kernels run.
 //
 // The head dim D is a template parameter of every kernel and of every helper
-// that depends on it; HEAD_DIMS lists the values the entry points instantiate
-// (with_head_dim). Rows of D bf16 sit in shared memory in D + 8-element rows
+// that depends on it; with_head_dim lists the values the entry points
+// instantiate. A call at another even head dim d < D runs the instantiation D
+// with its heads padded by halves (HeadScale). Rows of D bf16 sit in shared memory in D + 8-element rows
 // (144 bytes at D = 64; 48, 80 and 272 at D = 16, 32 and 128): the 8 row
 // addresses of an ldmatrix then fall on 8 distinct 16-byte bank groups (row
 // strides of 12, 20, 36 and 68 words), so every ldmatrix is free of bank
@@ -38,15 +39,25 @@ constexpr int TILE_MAX_SEQ = 256;  // the longest sequence of the slab and tile 
 constexpr float NEG_INF = -1e30f;  // the JAX kernels' masked score
 constexpr float LN_EPS = 1e-6f;
 constexpr float LOG2E = 1.4426950408889634f;
-// The softmax scale 1/sqrt(D), the f32 rounding of the exact value (the JAX
-// kernels' Python float 1 / d**0.5), and the same in the exp2 domain.
-template <int D>
-constexpr float SM_SCALE = D == 16    ? 1.f / 4
-                           : D == 32  ? 0.17677669529663687f
-                           : D == 64  ? 1.f / 8
-                           : D == 128 ? 0.0883883461356163f
-                                      : 0.f;
-template <int D> constexpr float C = SM_SCALE<D> * LOG2E;
+
+// The true head dim d's constants, at run time. The wrapper pads a head of d
+// to the instantiation D >= d by halves (ops/flash_attention.py:pad_heads:
+// columns [0, d/2) stay, [d/2, d) move to [D/2, D/2 + d/2), the rest zero,
+// and so do the RoPE tables and the LN scales, a padded column's scale 0).
+// Zero columns add nothing to a row's sums or products, so the kernels run
+// at D with the LN statistics' 1/d and the scores' 1/sqrt(d); a padded
+// column of q~ and k~ is 0 (its scale is), and the LN backward's means take
+// nothing from it (dln times a zero scale). At d = D these are the constants
+// of the instantiation: 1/D, and 1/sqrt(D) rounded to f32.
+struct HeadScale {
+  float inv_d;  // 1/d
+  float scale;  // 1/sqrt(d) rounded to f32: the JAX kernels' Python float 1 / d**0.5
+  float c;      // scale * LOG2E: the scale in the exp2 domain
+};
+
+// The entry points' check of the true head dim against the instantiation.
+__host__ inline bool takes_head(int d, int D, float scale) { return d >= 2 && d <= D && d % 2 == 0 && scale > 0.f; }
+__host__ inline HeadScale head_scale(int d, float scale) { return {1.f / (float)d, scale, scale * LOG2E}; }
 
 // Calls f(std::integral_constant<int, D>{}) for the head dims the kernels are
 // instantiated for (ops/flash_attention.py:KERNEL_HEAD_DIMS); any other is refused.
@@ -168,17 +179,17 @@ __device__ __forceinline__ void load_lane_scale(float (&dst)[16], const float* _
   }
 }
 
-// LayerNorm (no bias; f32 statistics, E[x^2] - mean^2 clamped at 0) times the (D,)
-// scale, then rotate-half RoPE, of two D-element bf16 rows in shared memory that
-// share a position (a q row and a k row), in place, rounded to bf16: one load of
-// the cos/sin rows serves both, and their two chains run side by side. Every
-// lane of the warp calls it (the shuffles take all 32); a row whose `live` is
-// false is neither read nor written.
+// LayerNorm (no bias; f32 statistics, E[x^2] - mean^2 clamped at 0, over the
+// true head dim: inv_d = 1/d) times the (D,) scale, then rotate-half RoPE, of two
+// D-element bf16 rows in shared memory that share a position (a q row and a k
+// row), in place, rounded to bf16: one load of the cos/sin rows serves both, and
+// their two chains run side by side. Every lane of the warp calls it (the
+// shuffles take all 32); a row whose `live` is false is neither read nor written.
 template <int D>
 __device__ __forceinline__ void norm_rope_pair(bf16* row0, bool live0, const float (&scale0)[16],
                                                bf16* row1, bool live1, const float (&scale1)[16],
                                                const float* __restrict__ cos_row,
-                                               const float* __restrict__ sin_row) {
+                                               const float* __restrict__ sin_row, float inv_d) {
   const int c = threadIdx.x & (LN_LANES<D> - 1);
   bf16* rows[2] = {row0, row1};
   const bool live[2] = {live0, live1};
@@ -222,8 +233,8 @@ __device__ __forceinline__ void norm_rope_pair(bf16* row0, bool live0, const flo
     }
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
-    const float mean = s[u] * (1.f / D);
-    const float r = rsqrtf(fmaxf(sq[u] * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+    const float mean = s[u] * inv_d;
+    const float r = rsqrtf(fmaxf(sq[u] * inv_d - mean * mean, 0.f) + LN_EPS);
     uint32_t lo[4], hi[4];
 #pragma unroll
     for (int e = 0; e < 8; e += 2) {
@@ -347,11 +358,12 @@ __device__ __forceinline__ void mask_scores(float (&s)[2 * KT][4], int c0, int S
 // their q and dO fragments): the scores s (masked) and dP of keys c0 .. c0 +
 // 16 KT, folded into this lane's running max m, sum l = sum_j exp(s - m) and
 // rs = sum_j exp(s - m) dP of rows g and g + 8. s and dP stay for the caller.
+// c: the softmax scale in the exp2 domain (HeadScale::c).
 template <int D, int KT>
 __device__ __forceinline__ void online_chunk(float (&s)[2 * KT][4], float (&dp)[2 * KT][4], const uint32_t (&qf)[D / 16][4],
                                              const uint32_t (&df)[D / 16][4], const bf16* k_s, const bf16* v_s,
                                              const unsigned long long* keep, int S, int c0, float (&m)[2],
-                                             float (&l)[2], float (&rs)[2]) {
+                                             float (&l)[2], float (&rs)[2], float c) {
   const int steps = min(KT, (S - c0 + 15) / 16);
   row_dots<D, KT>(s, qf, k_s, c0, steps);
   mask_scores<KT>(s, c0, S, keep);
@@ -362,13 +374,13 @@ __device__ __forceinline__ void online_chunk(float (&s)[2 * KT][4], float (&dp)[
 #pragma unroll
     for (int nt = 0; nt < 2 * KT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
     const float m_new = fmaxf(m[r], quad_max(mx));
-    const float corr = exp2f((m[r] - m_new) * C<D>);  // 0 on the first chunk
+    const float corr = exp2f((m[r] - m_new) * c);  // 0 on the first chunk
     float sum = 0.f, acc = 0.f;
 #pragma unroll
     for (int nt = 0; nt < 2 * KT; ++nt)
 #pragma unroll
       for (int e = 2 * r; e < 2 * r + 2; ++e) {
-        const float p = exp2f((s[nt][e] - m_new) * C<D>);
+        const float p = exp2f((s[nt][e] - m_new) * c);
         sum += p;
         acc += p * dp[nt][e];
       }
@@ -405,7 +417,7 @@ template <int D, int KT, bool TWO_PASS>
 __device__ __forceinline__ void query_frags(const uint32_t (&qf)[D / 16][4], const uint32_t (&df)[D / 16][4],
                                             const bf16* k_s, const bf16* v_s, const unsigned long long* keep, int S,
                                             float (&dq)[D / 8][4], float (&stat)[2][3], bf16* p_rows, bf16* ds_rows,
-                                            int pstride) {
+                                            int pstride, const HeadScale& hs) {
   constexpr int CH = 16 * KT;
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
 #pragma unroll
@@ -414,7 +426,7 @@ __device__ __forceinline__ void query_frags(const uint32_t (&qf)[D / 16][4], con
   float s[2 * KT][4], dp[2 * KT][4];
   const int chunks = TWO_PASS ? (S + CH - 1) / CH : 1;
   for (int c = 0; c < (TWO_PASS ? chunks : 1); ++c) {  // m, l and sum_j exp(s - m) dP
-    online_chunk<D, KT>(s, dp, qf, df, k_s, v_s, keep, S, c * CH, m, l, rs);
+    online_chunk<D, KT>(s, dp, qf, df, k_s, v_s, keep, S, c * CH, m, l, rs, hs.c);
   }
   float il[2], row[2];
   finish_stats(m, l, rs, il, row, stat);
@@ -430,9 +442,9 @@ __device__ __forceinline__ void query_frags(const uint32_t (&qf)[D / 16][4], con
     for (int nt = 0; nt < 2 * KT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f((s[nt][e] - m[e >> 1]) * C<D>) * il[e >> 1];  // P, normalised, f32
+        const float p = exp2f((s[nt][e] - m[e >> 1]) * hs.c) * il[e >> 1];  // P, normalised, f32
         s[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - row[e >> 1]) * SM_SCALE<D>;  // dS, f32
+        dp[nt][e] = p * (dp[nt][e] - row[e >> 1]) * hs.scale;  // dS, f32
       }
     if (p_rows != nullptr) {  // P and dS as bf16 [query][key] for the key side
 #pragma unroll
@@ -462,11 +474,12 @@ __device__ __forceinline__ void query_frags(const uint32_t (&qf)[D / 16][4], con
 template <int D, int KT, bool TWO_PASS>
 __device__ __forceinline__ void query_side(const bf16* q_rows, const bf16* do_rows, const bf16* k_s, const bf16* v_s,
                                            const unsigned long long* keep, int S, float (&dq)[D / 8][4],
-                                           float (&stat)[2][3], bf16* p_rows, bf16* ds_rows, int pstride) {
+                                           float (&stat)[2][3], bf16* p_rows, bf16* ds_rows, int pstride,
+                                           const HeadScale& hs) {
   uint32_t qf[D / 16][4], df[D / 16][4];
   load_rows<D>(qf, q_rows);
   load_rows<D>(df, do_rows);
-  query_frags<D, KT, TWO_PASS>(qf, df, k_s, v_s, keep, S, dq, stat, p_rows, ds_rows, pstride);
+  query_frags<D, KT, TWO_PASS>(qf, df, k_s, v_s, keep, S, dq, stat, p_rows, ds_rows, pstride, hs);
 }
 
 // The key side of one warp in a slab block: key rows k0 .. k0 + 15 of one pair,
@@ -605,11 +618,12 @@ __device__ __forceinline__ void store_rows_acc(const float (&acc)[D / 8][4], bf1
 // quad_sum over its four lanes. xn and r come from the raw row re-read at src
 // (row i at src + i * stride, as dst). The rows' sum of dln xn is added to red
 // (this warp's D floats), summed over the warp's 8 row groups in a fixed order.
+// inv_d: 1/d of the true head dim (HeadScale).
 template <int D>
 __device__ __forceinline__ void ln_rope_bwd_acc(const float (&du)[D / 8][4], const bf16* __restrict__ src,
                                                 bf16* __restrict__ dst, size_t stride, int row0, int S,
                                                 const float* __restrict__ scale, const float* __restrict__ cos_t,
-                                                const float* __restrict__ sin_t, float* red) {
+                                                const float* __restrict__ sin_t, float* red, float inv_d) {
   constexpr int NT = D / 8, HT = D / 16;  // tiles of a row, of its first half
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
   float part[NT][2];  // the sum over the lane's rows of dln xn at its columns
@@ -630,8 +644,8 @@ __device__ __forceinline__ void ln_rope_bwd_acc(const float (&du)[D / 8][4], con
       s += x.x + x.y;
       sq += x.x * x.x + x.y * x.y;
     }
-    const float mean = quad_sum(s) * (1.f / D);
-    const float rstd = rsqrtf(fmaxf(quad_sum(sq) * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+    const float mean = quad_sum(s) * inv_d;
+    const float rstd = rsqrtf(fmaxf(quad_sum(sq) * inv_d - mean * mean, 0.f) + LN_EPS);
     const float* c = cos_t + (size_t)at * D;
     const float* sn = sin_t + (size_t)at * D;
     float m1 = 0.f, m2 = 0.f;
@@ -663,8 +677,8 @@ __device__ __forceinline__ void ln_rope_bwd_acc(const float (&du)[D / 8][4], con
         }
       }
     }
-    m1 = quad_sum(m1) * (1.f / D);
-    m2 = quad_sum(m2) * (1.f / D);
+    m1 = quad_sum(m1) * inv_d;
+    m2 = quad_sum(m2) * inv_d;
     if (live) {
       bf16* out = dst + (size_t)i * stride;
 #pragma unroll
@@ -694,7 +708,8 @@ template <int D>
 __device__ __forceinline__ void key_side_wide(const bf16* q_s, const bf16* do_s, const bf16* k_s,
                                               const bf16* __restrict__ v_rows, size_t v_stride, const float* m_s,
                                               const float* il_s, const float* row_s, const unsigned long long* keep,
-                                              int k0, int S, float (&dv)[D / 8][4], float (&dk)[D / 8][4]) {
+                                              int k0, int S, float (&dv)[D / 8][4], float (&dk)[D / 8][4],
+                                              const HeadScale& hs) {
   const int lane = threadIdx.x & 31, t = lane & 3, g = lane >> 2;
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn)
@@ -724,9 +739,9 @@ __device__ __forceinline__ void key_side_wide(const bf16* q_s, const bf16* do_s,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int e = 2 * r + e1;
-          const float p = i < S ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * C<D>) * il : 0.f;
+          const float p = i < S ? exp2f(((masked[r] ? NEG_INF : st[nt][e]) - mi) * hs.c) * il : 0.f;
           st[nt][e] = p;
-          dt[nt][e] = p * (dt[nt][e] - row) * SM_SCALE<D>;
+          dt[nt][e] = p * (dt[nt][e] - row) * hs.scale;
         }
       }
     uint32_t ap[4], ad[4];
@@ -757,7 +772,7 @@ struct NormRope {
 // the block's dscale partials at row blockIdx.x), the plain backward's
 // without. tests/test_torch_attention_bwd_plan.py walks the same items on the CPU.
 template <int D, bool FUSED>
-__device__ __forceinline__ void wide_tile_bwd(const PairRows& io, const NormRope& nr,
+__device__ __forceinline__ void wide_tile_bwd(const PairRows& io, const NormRope& nr, const HeadScale& hs,
                                               const unsigned char* __restrict__ mask, long long b, int S,
                                               float* dqs_part, float* dks_part) {
   extern __shared__ float4 smem4[];
@@ -801,7 +816,7 @@ __device__ __forceinline__ void wide_tile_bwd(const PairRows& io, const NormRope
       const bool live = i < S;
       const int at = live ? i : 0;
       norm_rope_pair<D>(q_s + (size_t)at * ROW, live, qsc, k_s + (size_t)at * ROW, live, ksc,
-                        nr.cos_t + (size_t)at * D, nr.sin_t + (size_t)at * D);
+                        nr.cos_t + (size_t)at * D, nr.sin_t + (size_t)at * D, hs.inv_d);
     }
   }
   cp_async_wait<0>();
@@ -812,7 +827,7 @@ __device__ __forceinline__ void wide_tile_bwd(const PairRows& io, const NormRope
     load_rows<D>(qf, q_s + (size_t)16 * mt * ROW);
     load_rows_global<D>(df, io.src[3], io.src_stride[3], 16 * mt, S);
     float dq[D / 8][4], st[2][3];
-    query_frags<D, TILE_KT, true>(qf, df, k_s, x_s, keep, S, dq, st, nullptr, nullptr, 0);
+    query_frags<D, TILE_KT, true>(qf, df, k_s, x_s, keep, S, dq, st, nullptr, nullptr, 0, hs);
     if ((lane & 3) == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -822,7 +837,7 @@ __device__ __forceinline__ void wide_tile_bwd(const PairRows& io, const NormRope
     }
     if constexpr (FUSED)
       ln_rope_bwd_acc<D>(dq, io.src[0], io.dst[0], io.dst_stride, 16 * mt, S, nr.q_scale, nr.cos_t, nr.sin_t,
-                         red + warp * 2 * D);
+                         red + warp * 2 * D, hs.inv_d);
     else
       store_rows_acc<D>(dq, io.dst[0], io.dst_stride, 16 * mt, S);
   }
@@ -833,11 +848,11 @@ __device__ __forceinline__ void wide_tile_bwd(const PairRows& io, const NormRope
   __syncthreads();
   for (int kt = warp; kt < tiles; kt += warps) {  // key side
     float dv[D / 8][4], dk[D / 8][4];
-    key_side_wide<D>(q_s, x_s, k_s, io.src[2], io.src_stride[2], m_s, il_s, row_s, keep, 16 * kt, S, dv, dk);
+    key_side_wide<D>(q_s, x_s, k_s, io.src[2], io.src_stride[2], m_s, il_s, row_s, keep, 16 * kt, S, dv, dk, hs);
     store_rows_acc<D>(dv, io.dst[2], io.dst_stride, 16 * kt, S);
     if constexpr (FUSED)
       ln_rope_bwd_acc<D>(dk, io.src[1], io.dst[1], io.dst_stride, 16 * kt, S, nr.k_scale, nr.cos_t, nr.sin_t,
-                         red + warp * 2 * D + D);
+                         red + warp * 2 * D + D, hs.inv_d);
     else
       store_rows_acc<D>(dk, io.dst[1], io.dst_stride, 16 * kt, S);
   }

@@ -23,11 +23,17 @@ the tensor's device: a CPU tensor takes the plain PyTorch version
 (``*_plain``), a CUDA tensor takes the CUDA kernel (``*_cuda``, sources in
 ``csrc/``) or the call raises.
 
-The kernels take head dims ``KERNEL_HEAD_DIMS`` (16, 32, 64 and 128: every
-configuration the JAX package ships, ``tiny_config`` and the ``--small``
-preset at 16, the flagship at 64, and 128, where the JAX kernels also run,
-e.g. the flagship's width in 4 heads; one instantiation each; another head
-dim raises on a CUDA tensor, with no fallback) and any sequence length. Up to
+The kernels are instantiated at head dims ``KERNEL_HEAD_DIMS`` (16, 32, 64
+and 128: ``tiny_config`` and the ``--small`` preset at 16, the flagship at
+64, its width in 4 heads at 128) and take every even head dim up to 128
+(``check_head_dim``) and any sequence length. A call at another even D pads
+each head to the next instantiation Dp (:func:`padded_head_dim`) with zeros
+(:func:`pad_heads`: the two halves of a head stay RoPE partners) and hands
+the kernel the true D beside Dp: its LN statistics take 1/D (zero columns
+add nothing to Σx and Σx²) and its scores 1/√D; the outputs and gradients
+are unpadded. D = 96 (``ModelConfig(qkv_features=768)``) runs at 128, D = 48
+at 64, D = 8 and 24 at 16 and 32. An odd D, or one past 128, raises on a
+CUDA tensor, with no fallback. Up to
 ``TILE_MAX_SEQ`` = 256 tokens the bf16 kernels take their "slab" or "tile"
 variant, whose block holds a whole sequence's keys, as the JAX kernels hold
 it in VMEM. Longer sequences (the flagship at ``--resize 512``: spatial
@@ -121,31 +127,37 @@ NEG_INF = -1e30  # the masked score of the JAX kernels
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # the C entry points' instantiations (csrc: with_head_dim)
 TILE_MAX_SEQ = 256  # the longest sequence of the slab and tile variants; "split" takes longer ones
 
+# Each entry point takes the instantiated head dim and, after it, the true one
+# and its softmax scale (f32): the kernels' 1/D and 1/√D (see padded_head_dim).
+HEAD_DIM_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+
 FUSED_ATTENTION = CudaKernel(
     "fused_attention.cu",
     "vvt_fused_attention_fwd",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + HEAD_DIM_ARGS + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 )
 FUSED_ATTENTION_BWD = CudaKernel(
     "fused_attention_bwd.cu",
     "vvt_fused_attention_bwd",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + HEAD_DIM_ARGS + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 )
 
 FLASH_ATTENTION = CudaKernel(
     "flash_attention.cu",
     "vvt_flash_attention_fwd",
-    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3 + HEAD_DIM_ARGS + [ctypes.c_int] * 3
+    + [ctypes.c_void_p],
 )
 FLASH_ATTENTION_BWD = CudaKernel(
     "flash_attention_bwd.cu",
     "vvt_flash_attention_bwd",
-    [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3 + HEAD_DIM_ARGS + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
 )
 ATTENTION_SUBLAYER = CudaKernel(
     "attention_sublayer.cu",
     "vvt_attention_sublayer",
-    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + HEAD_DIM_ARGS + [ctypes.c_int] * 11 + [ctypes.c_void_p],
 )
 
 # rows of the f32 backward's LN/RoPE pass per block: its dscale partials are (blocks, D)
@@ -227,9 +239,52 @@ def mma_row_bytes(head_dim: int) -> int:
 
 
 def check_head_dim(head_dim: int) -> None:
-    """Raise unless the kernels are instantiated for ``head_dim``."""
+    """Raise unless the kernels take ``head_dim``: an even number from 2 to 128."""
+    if not (2 <= head_dim <= KERNEL_HEAD_DIMS[-1] and head_dim % 2 == 0):
+        raise ValueError(
+            f"the attention kernels take an even head_dim from 2 to {KERNEL_HEAD_DIMS[-1]} (padded to the next "
+            f"of {KERNEL_HEAD_DIMS}), got {head_dim}"
+        )
+
+
+def _check_instantiated(head_dim: int) -> None:
+    """Raise unless the kernels are instantiated at ``head_dim``: the plans take a padded head dim."""
     if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the attention kernels take head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+        raise ValueError(f"the kernels are instantiated at head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The instantiation a call at ``head_dim`` runs: the least of ``KERNEL_HEAD_DIMS`` at or
+    above it (96 → 128, 48 → 64, 24 → 32, 8 → 16). Raises where :func:`check_head_dim` does."""
+    check_head_dim(head_dim)
+    return next(dp for dp in KERNEL_HEAD_DIMS if dp >= head_dim)
+
+
+def pad_heads(t: torch.Tensor, heads: int, d: int, dp: int) -> torch.Tensor:
+    """The last dim of ``t``, ``heads`` heads of ``d``, as heads of ``dp`` ≥ d, by halves.
+
+    A head's columns [0, d/2) stay where they are and [d/2, d) move to
+    [dp/2, dp/2 + d/2); every other column is zero. rotate_half's partner of
+    column i, i + dp/2, is then its partner at d, so a RoPE table padded the
+    same way rotates the real columns as at d. ``t`` itself where dp == d.
+    """
+    if dp == d:
+        return t
+    return torch.nn.functional.pad(t.unflatten(-1, (heads, 2, d // 2)), (0, (dp - d) // 2)).flatten(-3)
+
+
+def unpad_heads(t: torch.Tensor, heads: int, d: int, dp: int) -> torch.Tensor:
+    """The inverse of :func:`pad_heads`: the real columns of ``heads`` heads of ``dp``, contiguous."""
+    if dp == d:
+        return t
+    return t.unflatten(-1, (heads, 2, dp // 2))[..., : d // 2].flatten(-3).contiguous()
+
+
+def softmax_scale(head_dim: int) -> float:
+    """1/√head_dim as the JAX wrappers compute it (a Python float, which the C
+    entry points take rounded to f32): 1/4, 1/8 and the f32 roundings of 1/√32 and
+    1/√128 at the instantiations, the values the kernels held as constants."""
+    return 1.0 / head_dim**0.5
 
 
 @functools.lru_cache(maxsize=64)
@@ -254,7 +309,7 @@ def fused_attention_plan(batch: int, seq: int, heads: int, head_dim: int) -> tup
     at S = 256 and head_dim 128). The C entry point derives the warps, the
     shared memory and P's rounding rule from these and the shape.
     """
-    check_head_dim(head_dim)
+    _check_instantiated(head_dim)
     if seq > TILE_MAX_SEQ:
         return "split", 1
     rows16 = -(-seq // 16) * 16
@@ -319,7 +374,7 @@ def mma_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, 
     :func:`split_bwd_warps` warps each (one pair each, unit 1): wgmma at head
     dims 64 and 128, mma.sync at 16 and 32.
     """
-    check_head_dim(head_dim)
+    _check_instantiated(head_dim)
     if seq > TILE_MAX_SEQ:
         return "split", 1, split_bwd_warps(head_dim)
     tiles = -(-seq // 16)
@@ -436,20 +491,33 @@ def _split_heads(qkv: torch.Tensor, num_heads: int):
     )
 
 
-def _ln_unscaled(x: torch.Tensor):
-    """(xn, r): per-row LN without the scale (E[x²]−mean² clamped at 0)."""
-    mean = x.mean(dim=-1, keepdim=True)
-    var = torch.clamp(x.square().mean(dim=-1, keepdim=True) - mean.square(), min=0.0)
+def _row_mean(x: torch.Tensor, d: Optional[int] = None) -> torch.Tensor:
+    """The mean over the last dim: over its width, or over ``d`` columns, the
+    true head dim of a row zero-padded past it (:func:`pad_heads`), whose zeros
+    add nothing to the sum."""
+    return x.mean(dim=-1, keepdim=True) if d is None else x.sum(dim=-1, keepdim=True) / d
+
+
+def _ln_unscaled(x: torch.Tensor, d: Optional[int] = None):
+    """(xn, r): per-row LN without the scale (E[x²]−mean² clamped at 0), its
+    statistics over ``d`` columns (:func:`_row_mean`)."""
+    mean = _row_mean(x, d)
+    var = torch.clamp(_row_mean(x.square(), d) - mean.square(), min=0.0)
     r = torch.rsqrt(var + LN_EPS)
     return (x - mean) * r, r
 
 
 def _exp_scores(qr, kr, mask, d):
     """exp(S − rowmax S) of the masked scores S = q̃k̃ᵀ/√D, not yet normalised."""
-    scores = torch.matmul(qr, kr.transpose(-1, -2)) * (1.0 / d**0.5)
+    scores = torch.matmul(qr, kr.transpose(-1, -2)) * softmax_scale(d)
     if mask is not None:
         scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
     return torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+
+
+def _padded_tables(s, d, dp, rope_base, rope_alpha, device):
+    """The cos/sin tables of head dim ``d`` on the columns :func:`pad_heads` gives a head of ``dp``."""
+    return tuple(pad_heads(t, 1, d, dp) for t in rope_tables(s, d, rope_base, rope_alpha, str(device)))
 
 
 def fused_qkv_attention_plain(
@@ -460,19 +528,26 @@ def fused_qkv_attention_plain(
     num_heads: int,
     rope_base: float = 10000.0,
     rope_alpha: float = 1.0,
+    head_dim: Optional[int] = None,
 ) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: f32 throughout, one rounding.
 
-    ``mask`` is a (B, S) bool key mask or None.
+    ``mask`` is a (B, S) bool key mask or None. ``head_dim``: the padded
+    contract the kernels run at a head dim they are not instantiated for, in
+    plain form. qkv and the scales then hold heads of some Dp ≥ head_dim
+    padded by :func:`pad_heads`; the LN takes its statistics over head_dim
+    columns, RoPE the tables of head_dim on the padded columns, the scores
+    1/√head_dim; the output is padded as qkv (:func:`unpad_heads` undoes it).
     """
     b, s, three_hd = qkv.shape
     hd = three_hd // 3
-    d = hd // num_heads
-    cos, sin = rope_tables(s, d, rope_base, rope_alpha, str(qkv.device))
+    dp = hd // num_heads
+    d = head_dim or dp
+    cos, sin = _padded_tables(s, d, dp, rope_base, rope_alpha, qkv.device)
     q, k, v = _split_heads(qkv, num_heads)
 
     def norm_rope(x, scale):
-        xn = _ln_unscaled(x)[0] * scale.float()
+        xn = _ln_unscaled(x, head_dim)[0] * scale.float()
         return xn * cos + rotate_half(xn) * sin
 
     p = _exp_scores(norm_rope(q, q_scale), norm_rope(k, k_scale), mask, d)
@@ -495,21 +570,26 @@ def fused_qkv_attention_bwd_plain(
     num_heads: int,
     rope_base: float = 10000.0,
     rope_alpha: float = 1.0,
+    head_dim: Optional[int] = None,
 ):
     """The backward kernel's arithmetic in plain PyTorch, all in f32.
 
     Recomputes q̃, k̃ (LN, scale, RoPE) and P, then dv = Pᵀ·dO, dP = dO·vᵀ,
     row = Σ_j P∘dP, dS = P∘(dP − row)·scale, dq̃ = dS·k̃, dk̃ = dSᵀ·q̃, and back
     through RoPE, the scale and the LN. Returns (dqkv in qkv's dtype, f32
-    dq_scale (D,), f32 dk_scale (D,)).
+    dq_scale (D,), f32 dk_scale (D,)). ``head_dim``: the padded contract, as
+    :func:`fused_qkv_attention_plain`'s (g padded as the output); where the
+    padded scales are 0 the padded columns add nothing to the LN backward's
+    means, and the gradients come back padded.
     """
     b, s, three_hd = qkv.shape
     hd = three_hd // 3
-    d = hd // num_heads
-    cos, sin = rope_tables(s, d, rope_base, rope_alpha, str(qkv.device))
+    dp = hd // num_heads
+    d = head_dim or dp
+    cos, sin = _padded_tables(s, d, dp, rope_base, rope_alpha, qkv.device)
     q, k, v = _split_heads(qkv, num_heads)
-    xn_q, r_q = _ln_unscaled(q)
-    xn_k, r_k = _ln_unscaled(k)
+    xn_q, r_q = _ln_unscaled(q, head_dim)
+    xn_k, r_k = _ln_unscaled(k, head_dim)
     qs, ks = q_scale.float(), k_scale.float()
 
     def rope(x):
@@ -518,11 +598,11 @@ def fused_qkv_attention_bwd_plain(
     qr, kr = rope(xn_q * qs), rope(xn_k * ks)
     p = _exp_scores(qr, kr, mask, d)
     p = p / p.sum(dim=-1, keepdim=True)
-    do = g.float().reshape(b, s, num_heads, d).transpose(1, 2)
+    do = g.float().reshape(b, s, num_heads, dp).transpose(1, 2)
     dv = torch.matmul(p.transpose(-1, -2), do)
-    dp = torch.matmul(do, v.transpose(-1, -2))
-    row = (p * dp).sum(dim=-1, keepdim=True)
-    ds = p * (dp - row) * (1.0 / d**0.5)
+    dprob = torch.matmul(do, v.transpose(-1, -2))
+    row = (p * dprob).sum(dim=-1, keepdim=True)
+    ds = p * (dprob - row) * softmax_scale(d)
     dqr = torch.matmul(ds, kr)
     dkr = torch.matmul(ds.transpose(-1, -2), qr)
 
@@ -530,7 +610,7 @@ def fused_qkv_attention_bwd_plain(
         dln = _rope_bwd(dr, cos, sin)
         dscale = (dln * xn).sum(dim=(0, 1, 2))
         dxn = dln * scale
-        dx = r * (dxn - dxn.mean(dim=-1, keepdim=True) - xn * (dxn * xn).mean(dim=-1, keepdim=True))
+        dx = r * (dxn - _row_mean(dxn, head_dim) - xn * _row_mean(dxn * xn, head_dim))
         return dx, dscale
 
     dq, dqs = ln_scale_bwd(dqr, xn_q, r_q, qs)
@@ -540,8 +620,8 @@ def fused_qkv_attention_bwd_plain(
 
 
 def _check_kernel_args(name, qkv, q_scale, k_scale, mask, num_heads):
-    """Shared checks of both CUDA wrappers; returns (B, S, D). D in
-    ``KERNEL_HEAD_DIMS``, S >= 1."""
+    """Shared checks of both CUDA wrappers; returns (B, S, D). D even and at
+    most 128 (:func:`check_head_dim`), S >= 1."""
     if not qkv.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor")
     if qkv.dtype not in DTYPE_CODES:
@@ -562,11 +642,12 @@ def _check_kernel_args(name, qkv, q_scale, k_scale, mask, num_heads):
     return b, s, d
 
 
-def _kernel_operands(qkv, q_scale, k_scale, mask, s, d, rope_base, rope_alpha):
+def _kernel_operands(qkv, q_scale, k_scale, mask, s, d, dp, rope_base, rope_alpha):
+    """The f32 scales and RoPE tables at ``dp``, padded as :func:`pad_heads` pads
+    the heads (a padded column's scale 0), and the mask as bytes."""
     device = qkv.device
-    qs = q_scale.to(device=device, dtype=torch.float32).contiguous()
-    ks = k_scale.to(device=device, dtype=torch.float32).contiguous()
-    cos, sin = rope_tables(s, d, rope_base, rope_alpha, str(device))
+    qs, ks = (pad_heads(t.to(device=device, dtype=torch.float32), 1, d, dp).contiguous() for t in (q_scale, k_scale))
+    cos, sin = _padded_tables(s, d, dp, rope_base, rope_alpha, device)
     if mask is not None:  # a bool mask is read as its bytes (0 or 1), as a uint8 one
         if mask.dtype != torch.bool:
             mask = mask.to(torch.uint8)
@@ -587,28 +668,32 @@ def fused_qkv_attention_cuda(
 
     bf16 qkv takes the tensor-core kernel with the geometry of
     :func:`fused_attention_plan` (its split variant with a bf16 workspace for
-    k̃, and q̃ at head dims 16 and 32), f32 qkv the CUDA-core kernel. head_dim in
-    ``KERNEL_HEAD_DIMS`` and S >= 1, or it raises.
+    k̃, and q̃ at head dims 16 and 32), f32 qkv the CUDA-core kernel. A head
+    dim D outside ``KERNEL_HEAD_DIMS`` runs at :func:`padded_head_dim`, its
+    heads padded and the output unpadded here. D even and at most 128, S >= 1,
+    or it raises.
     """
     b, s, d = _check_kernel_args("fused_qkv_attention_cuda", qkv, q_scale, k_scale, mask, num_heads)
+    dp = padded_head_dim(d)
     device = qkv.device
-    qs, ks, cos, sin, mask = _kernel_operands(qkv, q_scale, k_scale, mask, s, d, rope_base, rope_alpha)
-    out = torch.empty((b, s, num_heads * d), dtype=qkv.dtype, device=device)
+    qkv = pad_heads(qkv, 3 * num_heads, d, dp)
+    qs, ks, cos, sin, mask = _kernel_operands(qkv, q_scale, k_scale, mask, s, d, dp, rope_base, rope_alpha)
+    out = torch.empty((b, s, num_heads * dp), dtype=qkv.dtype, device=device)
     variant, unit, work = 0, 1, None  # the f32 kernel takes its geometry from the shape
     if qkv.dtype == torch.bfloat16:
-        name, unit = fused_attention_plan(b, s, num_heads, d)
+        name, unit = fused_attention_plan(b, s, num_heads, dp)
         variant = MMA_VARIANTS.index(name)
-        work = _split_qk_work(name, b, s, num_heads, d, device)
+        work = _split_qk_work(name, b, s, num_heads, dp, device)
         if qkv.data_ptr() % 16:  # the kernel copies 16 bytes at a time
             qkv = qkv.clone()
     with torch.cuda.device(device):
         FUSED_ATTENTION.launch(
             qkv.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(),
-            b, s, num_heads, d, DTYPE_CODES[qkv.dtype], variant, unit,
+            b, s, num_heads, dp, d, softmax_scale(d), DTYPE_CODES[qkv.dtype], variant, unit,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    return out
+    return unpad_heads(out, num_heads, d, dp)
 
 
 def _split_qk_work(variant: str, b: int, s: int, heads: int, d: int, device) -> Optional[torch.Tensor]:
@@ -642,8 +727,10 @@ def fused_qkv_attention_bwd_cuda(
     workspace), f32 the four-pass CUDA-core kernel and its workspace; each
     launch counts in ``BWD_VARIANT_LAUNCHES``. Either
     writes per-block f32 partials of the two scale gradients; they are summed
-    here in a fixed order, so every run gives the same bits. head_dim in
-    ``KERNEL_HEAD_DIMS`` and S >= 1, or it raises.
+    here in a fixed order, so every run gives the same bits. A head dim D
+    outside ``KERNEL_HEAD_DIMS`` runs at :func:`padded_head_dim` as the
+    forward does, qkv and g padded, dqkv and the scale gradients unpadded. D
+    even and at most 128, S >= 1, or it raises.
     """
     b, s, d = _check_kernel_args(
         "fused_qkv_attention_bwd_cuda", qkv, q_scale, k_scale, mask, num_heads
@@ -652,19 +739,21 @@ def fused_qkv_attention_bwd_cuda(
         raise ValueError("g must be a contiguous (B, S, H*D) tensor in qkv's dtype")
     if g.device != qkv.device:
         raise ValueError("g must be on qkv's device")
+    dp = padded_head_dim(d)
     device = qkv.device
-    qs, ks, cos, sin, mask = _kernel_operands(qkv, q_scale, k_scale, mask, s, d, rope_base, rope_alpha)
+    qkv, g = pad_heads(qkv, 3 * num_heads, d, dp), pad_heads(g, num_heads, d, dp)
+    qs, ks, cos, sin, mask = _kernel_operands(qkv, q_scale, k_scale, mask, s, d, dp, rope_base, rope_alpha)
     f32 = dict(dtype=torch.float32, device=device)
     work = None
     variant, unit, warps = 0, 1, 1  # the f32 kernel takes its geometry from the shape
     rows = b * num_heads * s
     if qkv.dtype == torch.bfloat16:
-        name, unit, warps = fused_attention_bwd_plan(b, s, num_heads, d)
+        name, unit, warps = fused_attention_bwd_plan(b, s, num_heads, dp)
         variant = MMA_VARIANTS.index(name)
         if name == "split":
             # dq̃, dk̃ (f32), q̃, k̃ (bf16, one f32 word a pair of them), then m, 1/l, row per query;
             # the LN and RoPE backward's scale partials, a row each BWD_ROWS_PER_BLOCK rows
-            work = torch.empty(3 * rows * d + 3 * rows, **f32)
+            work = torch.empty(3 * rows * dp + 3 * rows, **f32)
             n_blocks = -(-rows // BWD_ROWS_PER_BLOCK)
         else:
             n_blocks = -(-b * num_heads // unit)
@@ -672,21 +761,21 @@ def fused_qkv_attention_bwd_cuda(
         qkv, g = (t.clone() if t.data_ptr() % 16 else t for t in (qkv, g))
     else:
         # q̃, k̃, v, dO, dq̃, dk̃ as f32 (pair, S, D) rows, then m, l, row per query
-        work = torch.empty(6 * rows * d + 3 * rows, **f32)
+        work = torch.empty(6 * rows * dp + 3 * rows, **f32)
         n_blocks = -(-rows // BWD_ROWS_PER_BLOCK)
-    partials = torch.empty((2, n_blocks, d), **f32)
+    partials = torch.empty((2, n_blocks, dp), **f32)
     dqkv = torch.empty_like(qkv)
     with torch.cuda.device(device):
         FUSED_ATTENTION_BWD.launch(
             qkv.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             None if mask is None else mask.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
             partials[0].data_ptr(), partials[1].data_ptr(), None if work is None else work.data_ptr(),
-            b, s, num_heads, d, n_blocks, DTYPE_CODES[qkv.dtype], variant, unit, warps,
+            b, s, num_heads, dp, d, softmax_scale(d), n_blocks, DTYPE_CODES[qkv.dtype], variant, unit, warps,
             torch.cuda.current_stream(device).cuda_stream,
         )
     BWD_VARIANT_LAUNCHES[MMA_VARIANTS[variant] if qkv.dtype == torch.bfloat16 else "f32"] += 1
-    dqs, dks = partials.sum(dim=1)
-    return dqkv, dqs, dks
+    dqs, dks = unpad_heads(partials.sum(dim=1), 1, d, dp)
+    return unpad_heads(dqkv, 3 * num_heads, d, dp), dqs, dks
 
 
 # ---------------------------------------------------------------------------
@@ -734,38 +823,42 @@ def flash_attention(
     return _FlashAttention.apply(q, k, v, key_mask(mask, b, s))
 
 
-def _masked_probs(q, k, mask):
-    """f32 softmax of the masked scores q·kᵀ/√D as (B, H, S, S)."""
-    scores = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * (1.0 / q.shape[-1] ** 0.5)
+def _masked_probs(q, k, mask, head_dim=None):
+    """f32 softmax of the masked scores q·kᵀ/√D as (B, H, S, S); D is ``head_dim``
+    where q and k are zero-padded past it, else their last dim."""
+    scores = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * softmax_scale(head_dim or q.shape[-1])
     if mask is not None:
         scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     return p / p.sum(dim=-1, keepdim=True)
 
 
-def flash_attention_plain(q, k, v, mask):
+def flash_attention_plain(q, k, v, mask, head_dim=None):
     """The forward kernel's arithmetic in plain PyTorch.
 
     f32 scores and softmax, the normalised probabilities rounded to v's dtype,
     P·V accumulated in f32, one rounding to q's dtype. ``mask`` is a (B, S)
-    bool key mask or None.
+    bool key mask or None. ``head_dim``: the padded contract in plain form, q,
+    k and v of a head dim Dp zero-padded past head_dim, whose scale the scores
+    take.
     """
-    p = _masked_probs(q, k, mask).to(v.dtype)
+    p = _masked_probs(q, k, mask, head_dim).to(v.dtype)
     return torch.einsum("bhij,bjhd->bihd", p.float(), v.float()).to(q.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, mask, g):
+def flash_attention_bwd_plain(q, k, v, mask, g, head_dim=None):
     """The backward kernel's arithmetic in plain PyTorch, all in f32.
 
     Recomputes P (not rounded), then dv = Pᵀ·dO, dP = dO·vᵀ, row = Σ_j P∘dP,
     dS = P∘(dP − row)/√D, dq = dS·k, dk = dSᵀ·q; each in its input's dtype.
+    ``head_dim``: the padded contract, as :func:`flash_attention_plain`'s.
     """
-    p = _masked_probs(q, k, mask)
+    p = _masked_probs(q, k, mask, head_dim)
     do = g.float()
     dv = torch.einsum("bhij,bihd->bjhd", p, do)
     dp = torch.einsum("bihd,bjhd->bhij", do, v.float())
     row = (p * dp).sum(dim=-1, keepdim=True)
-    ds = p * (dp - row) * (1.0 / q.shape[-1] ** 0.5)
+    ds = p * (dp - row) * softmax_scale(head_dim or q.shape[-1])
     dq = torch.einsum("bhij,bjhd->bihd", ds, k.float())
     dk = torch.einsum("bhij,bihd->bjhd", ds, q.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -818,25 +911,28 @@ def flash_attention_cuda(q, k, v, mask):
     roundings of :func:`flash_attention_plain` (P normalised with the exact
     row max and sum, then rounded to bf16; P·V in f32; one rounding of o),
     split past 256 tokens. f32 takes the CUDA-core kernel, f32 throughout.
-    head_dim in ``KERNEL_HEAD_DIMS`` and S >= 1, or it raises.
+    A head dim D outside ``KERNEL_HEAD_DIMS`` runs at :func:`padded_head_dim`,
+    q, k and v zero-padded and o unpadded. D even and at most 128, S >= 1, or
+    it raises.
     """
     b, s, h, d = _check_flash_args("flash_attention_cuda", q, k, v, mask)
+    dp = padded_head_dim(d)
     device = q.device
-    (q, qs), (k, ks), (v, vs) = _rows_of_heads(q), _rows_of_heads(k), _rows_of_heads(v)
+    (q, qs), (k, ks), (v, vs) = (_rows_of_heads(pad_heads(t, 1, d, dp)) for t in (q, k, v))
     mask = _mask_bytes(mask, device)
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=device)
+    out = torch.empty((b, s, h, dp), dtype=q.dtype, device=device)
     variant, unit = 0, 1  # the f32 kernel takes its geometry from the shape
     if q.dtype == torch.bfloat16:
-        name, unit = flash_attention_plan(b, s, h, d)
+        name, unit = flash_attention_plan(b, s, h, dp)
         variant = MMA_VARIANTS.index(name)
     with torch.cuda.device(device):
         FLASH_ATTENTION.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            qs, ks, vs, b, s, h, d, DTYPE_CODES[q.dtype], variant, unit,
+            qs, ks, vs, b, s, h, dp, d, softmax_scale(d), DTYPE_CODES[q.dtype], variant, unit,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    return out
+    return unpad_heads(out, 1, d, dp)
 
 
 def flash_attention_bwd_cuda(q, k, v, mask, g):
@@ -851,23 +947,26 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
     these roundings in two launches through an f32 workspace of m, 1/l and
     row per query, still with no atomics. f32 takes the two-pass CUDA-core
     kernel through an f32 workspace of m, l and row per query, f32
-    throughout. head_dim in ``KERNEL_HEAD_DIMS`` and S >= 1, or it raises.
+    throughout. A head dim D outside ``KERNEL_HEAD_DIMS`` runs at
+    :func:`padded_head_dim` as the forward does, the gradients unpadded. D
+    even and at most 128, S >= 1, or it raises.
     """
     b, s, h, d = _check_flash_args("flash_attention_bwd_cuda", q, k, v, mask)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError("g must have q's shape, dtype and device")
+    dp = padded_head_dim(d)
     device = q.device
-    (q, qs), (k, ks), (v, vs), (g, gs) = (_rows_of_heads(t) for t in (q, k, v, g))
+    (q, qs), (k, ks), (v, vs), (g, gs) = (_rows_of_heads(pad_heads(t, 1, d, dp)) for t in (q, k, v, g))
     mask = _mask_bytes(mask, device)
-    dq, dk, dv = (torch.empty((b, s, h, d), dtype=q.dtype, device=device) for _ in range(3))
+    dq, dk, dv = (torch.empty((b, s, h, dp), dtype=q.dtype, device=device) for _ in range(3))
     work = None
     variant, unit, warps, n_blocks = 0, 1, 1, 0  # the f32 kernel takes its geometry from the shape
     if q.dtype == torch.bfloat16:
-        name, unit, warps = flash_attention_bwd_plan(b, s, h, d)
+        name, unit, warps = flash_attention_bwd_plan(b, s, h, dp)
         variant = MMA_VARIANTS.index(name)
         if name == "split":
             work = torch.empty(3 * b * h * s, dtype=torch.float32, device=device)  # m, 1/l, row per query
-            n_blocks = split_bwd_grid(b, s, h, d)
+            n_blocks = split_bwd_grid(b, s, h, dp)
         else:
             n_blocks = -(-b * h // unit)
     else:
@@ -877,10 +976,10 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             None if mask is None else mask.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if work is None else work.data_ptr(),
-            qs, ks, vs, gs, b, s, h, d, DTYPE_CODES[q.dtype], variant, unit, warps, n_blocks,
-            torch.cuda.current_stream(device).cuda_stream,
+            qs, ks, vs, gs, b, s, h, dp, d, softmax_scale(d), DTYPE_CODES[q.dtype], variant, unit, warps,
+            n_blocks, torch.cuda.current_stream(device).cuda_stream,
         )
-    return dq, dk, dv
+    return tuple(unpad_heads(t, 1, d, dp) for t in (dq, dk, dv))
 
 
 # ---------------------------------------------------------------------------
@@ -928,7 +1027,8 @@ def sublayer_plan(
     batch: int, seq: int, width: int, heads: int, head_dim: int, sms: Optional[int] = None
 ) -> SublayerPlan:
     """The geometry of the sublayer kernel for ``batch`` sequences of ``seq``
-    tokens of width ``width`` and ``heads`` heads of ``head_dim``: each
+    tokens of width ``width`` and ``heads`` heads of ``head_dim`` (an
+    instantiation: :func:`padded_head_dim` of the model's head dim): each
     product's ``fused_block.gemm_plan`` (for ``sms`` SMs, the H100's 132 by
     default) and the attention's :func:`fused_attention_plan`. The f32
     attention kernel takes its geometry from the shape and ignores the latter.
@@ -1037,21 +1137,24 @@ def fused_attention_sublayer(
 
 def fused_attention_sublayer_plain(
     x, ln_scale, ln_bias, wqkv, bqkv, q_scale, k_scale, wout, bout, mask,
-    num_heads, rope_base=10000.0, rope_alpha=1.0,
+    num_heads, rope_base=10000.0, rope_alpha=1.0, head_dim=None,
 ):
     """The sublayer kernel's arithmetic in plain PyTorch: (y, qkv, o).
 
     xa = LN(x) rounded to bf16, qkv = xa·Wqkv (bf16 operands, f32
     accumulation) + bqkv rounded to x's dtype, o = the fused attention on that
     qkv in x's dtype, y = f32(x) + (o·Wout + bout in f32) with one rounding.
-    ``mask`` is a (B, S) bool key mask or None.
+    ``mask`` is a (B, S) bool key mask or None. ``head_dim``: the padded
+    contract in plain form (:func:`fused_qkv_attention_plain`), Wqkv's and
+    bqkv's columns and Wout's rows padded by heads with zeros, so that qkv and
+    o come out padded and y as at head_dim.
     """
     bf16 = torch.bfloat16
     b, s, c = x.shape
     xa, _, _ = ln_affine(x, ln_scale, ln_bias)
     qkv = matmul_f32(xa.reshape(b * s, c), wqkv.to(bf16)) + bqkv.float()
     qkv = qkv.reshape(b, s, -1).to(x.dtype)
-    o = fused_qkv_attention_plain(qkv, q_scale, k_scale, mask, num_heads, rope_base, rope_alpha)
+    o = fused_qkv_attention_plain(qkv, q_scale, k_scale, mask, num_heads, rope_base, rope_alpha, head_dim)
     y = matmul_f32(o.to(bf16).reshape(b * s, -1), wout.to(bf16)) + bout.float()
     return (x.float() + y.reshape(b, s, c)).to(x.dtype), qkv, o
 
@@ -1068,8 +1171,11 @@ def fused_attention_sublayer_cuda(
     attention's tensor-core kernel, f32 x its CUDA-core kernel, whose o the
     kernel casts to a bf16 scratch for the second product; past 256 tokens
     bf16 x takes the attention's split variant with a bf16 workspace of q̃
-    and k̃. head_dim in ``KERNEL_HEAD_DIMS``, S >= 1 and C % 8 == 0, or it
-    raises.
+    and k̃. A head dim D outside ``KERNEL_HEAD_DIMS`` runs at
+    :func:`padded_head_dim`: Wqkv's and bqkv's columns, Wout's rows and the
+    scales padded by heads with zeros, so that the padded columns of qkv and o
+    are zero and add nothing to y; qkv and o come back unpadded. D even and at
+    most 128, S >= 1 and C % 8 == 0, or it raises.
     """
     if not x.is_cuda:
         raise ValueError("fused_attention_sublayer_cuda needs a CUDA tensor")
@@ -1091,6 +1197,7 @@ def fused_attention_sublayer_cuda(
         raise ValueError("q_scale and k_scale must have shape (head_dim,)")
     if mask is not None and mask.shape != (b, s):
         raise ValueError("mask must be a (B, S) key mask")
+    dp = padded_head_dim(d)
     device = x.device
     x = x.contiguous()
 
@@ -1100,16 +1207,19 @@ def fused_attention_sublayer_cuda(
     def weight(t):
         return t.to(device=device, dtype=torch.bfloat16).contiguous()
 
-    lng, lnb, bq, bo = f32(ln_scale), f32(ln_bias), f32(bqkv), f32(bout)
-    wq, wo = weight(wqkv), weight(wout)
-    qs, ks, cos, sin, mask = _kernel_operands(x, q_scale, k_scale, mask, s, d, rope_base, rope_alpha)
+    lng, lnb, bo = f32(ln_scale), f32(ln_bias), f32(bout)
+    bq = f32(pad_heads(bqkv, 3 * num_heads, d, dp))
+    wq = weight(pad_heads(wqkv, 3 * num_heads, d, dp))
+    wo = weight(pad_heads(wout.t(), num_heads, d, dp).t())
+    qs, ks, cos, sin, mask = _kernel_operands(x, q_scale, k_scale, mask, s, d, dp, rope_base, rope_alpha)
+    hd = num_heads * dp
     y = torch.empty_like(x)
     qkv = torch.empty((b, s, 3 * hd), dtype=x.dtype, device=device)
     o = torch.empty((b, s, hd), dtype=x.dtype, device=device)
     xa = torch.empty((b, s, c), dtype=torch.bfloat16, device=device)
     o16 = torch.empty((b, s, hd), dtype=torch.bfloat16, device=device) if x.dtype == torch.float32 else None
-    plan = sublayer_plan(b, s, c, num_heads, d, torch.cuda.get_device_properties(device).multi_processor_count)
-    work = _split_qk_work(plan.attention[0], b, s, num_heads, d, device) if x.dtype == torch.bfloat16 else None
+    plan = sublayer_plan(b, s, c, num_heads, dp, torch.cuda.get_device_properties(device).multi_processor_count)
+    work = _split_qk_work(plan.attention[0], b, s, num_heads, dp, device) if x.dtype == torch.bfloat16 else None
     tensors = (x, wq, wo, y, qkv, o, xa) + tuple(t for t in (o16, work) if t is not None)
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the sublayer kernel needs 16-byte aligned tensors")
@@ -1121,7 +1231,7 @@ def fused_attention_sublayer_cuda(
             wq.data_ptr(), bq.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             wo.data_ptr(), bo.data_ptr(), y.data_ptr(), qkv.data_ptr(), o.data_ptr(), xa.data_ptr(),
             None if o16 is None else o16.data_ptr(), None if work is None else work.data_ptr(),
-            b, s, c, num_heads, d, DTYPE_CODES[x.dtype], *plan.args,
+            b, s, c, num_heads, dp, d, softmax_scale(d), DTYPE_CODES[x.dtype], *plan.args,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    return y, qkv, o
+    return y, unpad_heads(qkv, 3 * num_heads, d, dp), unpad_heads(o, num_heads, d, dp)
