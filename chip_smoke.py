@@ -207,8 +207,13 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 BATCH, FRAMES = 2, 16  # the serving batch; the train step's decoder runs 2 rollouts of 1 clip
 TRAIN_BATCH = 1
-TIMED_FORWARDS = 10
-TIMED_STEPS, WARMUP_STEPS = 10, 3
+# the default path's timed runs (and TIMED_STEPS): few, so that the script keeps within
+# its time limit; the paths' device ms are stable where their medians are not
+TIMED_FORWARDS = 5
+# calls of a kernel-check's function that one torch.profiler trace averages (device_ms,
+# device_launch_ms), few for the same reason
+PROFILED_CALLS = 3
+TIMED_STEPS, WARMUP_STEPS = 5, 3
 # the paths beside the default one time fewer runs, so that the script stays short
 NEW_PATH_TIMED_FORWARDS, NEW_PATH_TIMED_STEPS = 5, 3
 # bf16 serving pass of a new attention path against the default path's, same weights
@@ -249,6 +254,11 @@ WGRAD_WGMMA_VARIANT = "vvt_conv3d_wgrad, wgmma variant"
 # the fused attention backward's launches of its wgmma tile kernel (64 < S <= 256 at head
 # dims 64 and 128; ops/flash_attention.py:BWD_VARIANT_LAUNCHES)
 ATTN_BWD_WGMMA_TILE = "vvt_fused_attention_bwd, wgmma tile variant"
+# each attention kernel's launches of its wide variant (head dims past 128;
+# ops/flash_attention.py:WIDE_LAUNCHES)
+ATTN_WIDE = {symbol: f"{symbol}, wide variant" for symbol in (
+    "vvt_fused_attention_fwd", "vvt_fused_attention_bwd", "vvt_flash_attention_fwd", "vvt_flash_attention_bwd",
+    "vvt_attention_sublayer")}
 KNOBS = ("VVT_ATTN_SUBLAYER", "VVT_MLP_FUSED", "VVT_TAPDOT")
 # path -> (ModelConfig.attention_impl, the knobs set to 1 on it)
 MODEL_PATHS = {
@@ -267,6 +277,7 @@ PATHS = (
     "serving-mlp", "train-mlp", "serving-sublayer-mlp", "serving-tapdot", "train-tapdot", "trainer", "tiny",
     "train-h4", "cache-latents", "decode-latents",  # the last two: launches per video
     "serving-d96", "train-d96",  # the flagship's width in 8 heads of 96, padded to 128
+    "serving-d256", "train-d256",  # the flagship's width in 2 heads of 256: the wide variant
     "dist-gloo-2",  # rank 0's step of the 2-rank data=2 run
     "mae", "mae-eval",  # the VideoMAE's gradient step and eval forward
     # the flagship at 512²: spatial S = 1024 on the split variant
@@ -315,8 +326,18 @@ D96_QKV = 768
 # key mask); #7 at width PADDED_WIDTH
 PADDED_CASES = ((48, (16, 256, 1024)), (96, (16, 256, 1024)), (8, (16, 256)), (24, (16, 256)))
 PADDED_HEADS, PADDED_TOKENS, PADDED_WIDTH = 8, 4096, 768
-# the d96 paths time as few runs as the tap-dot path's: their device ms is the stable figure
+# the d96 paths time as few runs as the tap-dot path's: their device ms is the stable figure;
+# they run the trainer's depth, so that the d256 paths below fit the script's time
 D96_TIMED_FORWARDS, D96_TIMED_STEPS = 3, 2
+D96_DEPTH = TRAINER_DEPTH
+# the flagship's width in 2 heads of 256 (ModelConfig(num_heads=2)): every attention call on
+# the kernels' wide variant, full width and depth; as few timed runs as the d96 paths
+D256_HEADS = 2
+D256_TIMED_FORWARDS, D256_TIMED_STEPS = 3, 2
+# the wide variant at head dims past 128 (ops/flash_attention.py:padded_head_dim: 130 and 192
+# run at 256, 384 and 512 as they are), each at these sequence lengths, PADDED_HEADS heads and
+# PADDED_TOKENS tokens a call, in bf16 and float32
+WIDE_CASES = tuple((d, (16, 256, 1024)) for d in (130, 192, 256, 384, 512))
 # the "mae" phases: VideoMAE at the BASELINE config's 224 x 224 x 16 (the flagship otherwise:
 # 9 + 12 // 3 blocks, remat on), mask ratio 0.9, 4 clips, clip 1 ending in 3 padded frames
 MAE_SIDE, MAE_CLIPS, MAE_FRAMES, MAE_PADDED_CLIP = 224, 4, 16, 1
@@ -347,13 +368,18 @@ VGG_CONV_CASES = (
 )
 
 
-def sublayer_launches(dtype: str, seq: int) -> tuple:
+def sublayer_launches(dtype: str, seq: int, head_dim: int) -> tuple:
     """The attention sublayer kernel's launches in order (``SUBLAYER_LAUNCHES``); past
     ``TILE_MAX_SEQ`` bf16 x's attention is the split variant's two: its LN + RoPE pass
     and its core (``split_wg_fwd_kernel`` at head dims 64 and 128, ``split_fwd_kernel``
-    at 16 and 32)."""
+    at 16 and 32); past head dim 128 either dtype's is the wide variant's two
+    (``wide_norm_rope_kernel``, then ``wide_fwd_kernel`` or ``wide_f32_fwd_kernel``)."""
     from video_vae_tpu_torch.ops.flash_attention import TILE_MAX_SEQ
 
+    if takes_wide(head_dim):
+        ln, qkv, *_, out = SUBLAYER_LAUNCHES[dtype]
+        cast = SUBLAYER_LAUNCHES[dtype][3:-1]  # f32 o's cast to bf16
+        return ln, qkv, ("norm_rope", "wide_norm_rope_kernel"), ("attention", "_fwd_kernel"), *cast, out
     if dtype == "bfloat16" and seq > TILE_MAX_SEQ:
         ln, qkv, _, out = SUBLAYER_LAUNCHES[dtype]
         return ln, qkv, ("norm_rope", "qk_norm_rope_kernel"), ("attention", "_fwd_kernel"), out
@@ -425,10 +451,18 @@ def h4_config():
 
 def d96_config():
     """The flagship with ``qkv_features=768`` (``D96_QKV``): 8 heads of 96, which the
-    attention kernels run padded to 128, the rest the flagship's."""
+    attention kernels run padded to 128, at ``D96_DEPTH`` blocks, the rest the flagship's."""
     from video_vae_tpu_torch import ModelConfig
 
-    return ModelConfig(qkv_features=D96_QKV)
+    return ModelConfig(qkv_features=D96_QKV, encoder_depth=D96_DEPTH[0], decoder_depth=D96_DEPTH[1])
+
+
+def d256_config():
+    """The flagship at its full width and depth in 2 heads of 256 (``ModelConfig(num_heads=2)``):
+    every attention call on the kernels' wide variant, at a native head dim (no padding)."""
+    from video_vae_tpu_torch import ModelConfig
+
+    return ModelConfig(num_heads=D256_HEADS)
 
 
 def latent_attention_cases(cfg, frames=LATENT_FRAMES):
@@ -566,7 +600,7 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, traces: int = 6) -> float:
+def device_ms(fn, iters: int = PROFILED_CALLS, traces: int = 6) -> float:
     """Device time per call of the kernels ``fn`` launches, from ``torch.profiler``.
 
     Unlike :func:`time_ms`, whose events also count where the device waits on
@@ -595,7 +629,7 @@ def device_ms(fn, iters: int = 20, traces: int = 6) -> float:
     raise AssertionError(f"torch.profiler saw no kernel on the device in {traces} traces")
 
 
-def device_launch_ms(fn, names: tuple[str, ...], iters: int = 10, traces: int = 6) -> list[float]:
+def device_launch_ms(fn, names: tuple[str, ...], iters: int = PROFILED_CALLS, traces: int = 6) -> list[float]:
     """Device ms of the kernels one call of ``fn`` launches whose names hold one
     of ``names`` (other kernels it launches, such as casts, are left out), in
     launch order: each the mean over ``iters`` calls of one ``torch.profiler``
@@ -626,8 +660,8 @@ def device_times(kernel_fn, library_fn, flops: float | None = None) -> dict:
     """A kernel's and its library call's device time per call (:func:`device_ms`),
     and with ``flops`` the kernel's TFLOP/s (a conv's over the taps inside the
     clip and the frame)."""
-    ms = device_ms(kernel_fn, 10)
-    times = {"device_ms": ms, "library_device_ms": device_ms(library_fn, 10)}
+    ms = device_ms(kernel_fn)
+    times = {"device_ms": ms, "library_device_ms": device_ms(library_fn)}
     return times if flops is None else {**times, "tflops": flops / ms / 1e9}
 
 
@@ -840,7 +874,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
         g_heads = g.reshape(B, S, H, D).transpose(1, 2).contiguous()
         # recompute of the scores, dv, dP, dq, dk over the kept keys
         bwd_flops = 10.0 * H * S * keys * D
-        dev_ms = device_ms(lambda: fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H), 10)
+        dev_ms = device_ms(lambda: fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H))
         _record(
             rows, fa.FUSED_ATTENTION_BWD, f"{name} {dtype}", [B, S, 3 * H * D], dtype, err,
             time_ms(lambda: fa.fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H), 10),
@@ -850,7 +884,7 @@ def phase_attention_kernels(cfg, dev, rows, serving="serving", train="train", ca
             bound_ms(nbytes(qkv, g, mask) + nbytes(*got), bwd_flops, dtype),
             per_path(per, {train: "train", sublayer_train: "train"}) if backward else {},
             device_ms=dev_ms,
-            library_device_ms=device_ms(lambda: torch.autograd.grad(o, leaves, g_heads, retain_graph=True), 10),
+            library_device_ms=device_ms(lambda: torch.autograd.grad(o, leaves, g_heads, retain_graph=True)),
             tflops=bwd_flops / dev_ms / 1e9,
         )
         del qkv, g, out, got, q, k, v, leaves, o, g_heads
@@ -1015,7 +1049,7 @@ def phase_sublayer_kernel(cfg, dev, rows, cases=None, paths=True):
             raise AssertionError(f"sublayer {name} {dtype}: the inference variant's y differs")
         qkv_flops, out_flops = 2.0 * B * S * C * 3 * HD, 2.0 * B * S * HD * C
         flops = qkv_flops + out_flops + 4.0 * H * S * keys * D
-        labels, names = zip(*sublayer_launches(dtype, S))
+        labels, names = zip(*sublayer_launches(dtype, S, D))
         # the wrapper's casts of the f32 weights to bf16 count in device_ms only
         launch_ms = dict(zip(labels, device_launch_ms(run, names)))
         _record(
@@ -1208,7 +1242,7 @@ def phase_mlp_kernel(cfg, dev, rows):
         if not torch.equal(y, got[0]):
             raise AssertionError(f"mlp N={n} {dtype}: the inference variant's y differs")
         plain_ms, library_ms = time_ms(plain, 2), time_ms(library, 10)
-        library_device_ms = device_ms(library, 10)
+        library_device_ms = device_ms(library)
         product_flops = 2.0 * n * C * Fd
         for variant, save, per in (("inference", False, per_inference), ("training", True, per_training)):
             written = (x, *got[1:]) if save else (x,)
@@ -1220,7 +1254,7 @@ def phase_mlp_kernel(cfg, dev, rows):
                 time_ms(lambda: run(save), 10), plain_ms, library_ms,
                 "layer_norm -> linear -> silu -> linear -> add, bf16 weights",
                 bound_ms(nbytes(x, *written, *w16, lng, lnb), 2 * product_flops, "bfloat16"), per,
-                device_ms=device_ms(lambda: run(save), 10), library_device_ms=library_device_ms,
+                device_ms=device_ms(lambda: run(save)), library_device_ms=library_device_ms,
                 launch_device_ms={"ln": ln_ms, "up": up_ms, "down": down_ms},
                 tflops={"up": product_flops / up_ms / 1e9, "down": product_flops / down_ms / 1e9},
             )
@@ -1278,7 +1312,7 @@ def phase_tapdot_kernel(cfg, dev, rows):
                              lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=(0, k[1] // 2, k[2] // 2)), flops)
         *copies, gemm = device_launch_ms(lambda: conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias),
                                          TAPDOT_LAUNCHES[-len(xs) - 1:])
-        direct_ms = device_ms(lambda: conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias), 10)
+        direct_ms = device_ms(lambda: conv3d.conv3d_cf_cuda(xs[0], x2, kernel, bias))
         log("tapdot-vs-direct", json.dumps({
             "case": name, "launches_per_step": per.get("train-tapdot", 0), "tapdot_device_ms": times["device_ms"],
             "tapdot_tflops": times["tflops"], "direct_device_ms": direct_ms, "direct_tflops": flops / direct_ms / 1e9,
@@ -1442,7 +1476,8 @@ def reset_launches():
 
     for kernel in KERNELS:
         kernel.launches = 0
-    for counts in (fused_block.VARIANT_LAUNCHES, conv3d.WGRAD_VARIANT_LAUNCHES, fa.BWD_VARIANT_LAUNCHES):
+    for counts in (fused_block.VARIANT_LAUNCHES, conv3d.WGRAD_VARIANT_LAUNCHES, fa.FWD_VARIANT_LAUNCHES,
+                   fa.BWD_VARIANT_LAUNCHES, fa.WIDE_LAUNCHES):
         for variant in counts:
             counts[variant] = 0
 
@@ -1454,12 +1489,29 @@ def read_launches() -> dict:
     counts = {kernel.symbol: kernel.launches for kernel in KERNELS}
     for variants, symbol in ((fused_block.VARIANT_LAUNCHES, "vvt_fused_mlp"),
                              (conv3d.WGRAD_VARIANT_LAUNCHES, "vvt_conv3d_wgrad"),
+                             (fa.FWD_VARIANT_LAUNCHES, "vvt_fused_attention_fwd"),
                              (fa.BWD_VARIANT_LAUNCHES, "vvt_fused_attention_bwd")):
         if sum(variants.values()) != counts[symbol]:
             raise AssertionError(f"{symbol}'s variants {variants} do not add up to its {counts[symbol]}")
     return {**counts, MLP_TRAINING_VARIANT: fused_block.VARIANT_LAUNCHES["training"],
             WGRAD_WGMMA_VARIANT: conv3d.WGRAD_VARIANT_LAUNCHES["wgmma"],
-            ATTN_BWD_WGMMA_TILE: fa.BWD_VARIANT_LAUNCHES["tile_wg"]}
+            ATTN_BWD_WGMMA_TILE: fa.BWD_VARIANT_LAUNCHES["tile_wg"],
+            **{ATTN_WIDE[symbol]: fa.WIDE_LAUNCHES[symbol] for symbol in ATTN_WIDE}}
+
+
+def no_launches() -> dict:
+    """Every key :func:`read_launches` returns, at 0."""
+    from video_vae_tpu_torch.ops import KERNELS
+
+    return {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0, WGRAD_WGMMA_VARIANT: 0,
+            ATTN_BWD_WGMMA_TILE: 0, **{key: 0 for key in ATTN_WIDE.values()}}
+
+
+def takes_wide(head_dim: int) -> bool:
+    """Whether the attention kernels run a call at ``head_dim`` on their wide variant."""
+    from video_vae_tpu_torch.ops import flash_attention as fa
+
+    return fa.is_wide(fa.padded_head_dim(head_dim))
 
 
 def takes_wgmma_tile(seq: int, head_dim: int) -> bool:
@@ -1480,7 +1532,9 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
     attention backward, the MLP sublayer's has no kernel. The fused attention
     backward's spatial calls run its wgmma tile kernel where the plan gives it
     (``takes_wgmma_tile``: S = 196 or 256 at head dims 64 and 128); its temporal
-    ones (S = the frames, at most 64 at every entry here) the slab. Every filter gradient
+    ones (S = the frames, at most 64 at every entry here) the slab. Past head dim
+    128 every attention launch is on the kernel's wide variant (``takes_wide``),
+    counted under ``ATTN_WIDE``. Every filter gradient
     of a bf16 step whose frame width is a multiple of 8 runs the wgmma kernel
     (``conv3d.wgrad_variant``). The MLP kernel runs
     its training variant (the residuals written) in a train step and its
@@ -1490,7 +1544,7 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
     """
     import torch
 
-    from video_vae_tpu_torch.ops import KERNELS, conv3d
+    from video_vae_tpu_torch.ops import conv3d
 
     impl, knobs = MODEL_PATHS[path]
     attn = 2 * (cfg.encoder_depth + cfg.decoder_depth)
@@ -1502,10 +1556,12 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
     }[impl]
     if "VVT_ATTN_SUBLAYER" in knobs:
         forward = "vvt_attention_sublayer"
-    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0, WGRAD_WGMMA_VARIANT: 0,
-            ATTN_BWD_WGMMA_TILE: 0}
+    want = no_launches()
+    wide = takes_wide(cfg.head_dim)
     want["vvt_conv3d_cf"] = 2 * convs if train else convs
     want[forward] = attn
+    if wide:
+        want[ATTN_WIDE[forward]] = attn
     if "VVT_MLP_FUSED" in knobs:
         want["vvt_fused_mlp"] = attn
         want[MLP_TRAINING_VARIANT] = attn if train else 0
@@ -1514,6 +1570,8 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
         want[WGRAD_WGMMA_VARIANT] = sum(conv3d.wgrad_variant(torch.bfloat16, w) == "wgmma"
                                         for _, _, w, _, _, _, dtype in conv_cases(cfg) if dtype == "bfloat16")
         want[backward] = attn
+        if wide:
+            want[ATTN_WIDE[backward]] = attn
         if backward == "vvt_fused_attention_bwd" and takes_wgmma_tile(cfg.num_patches, cfg.head_dim):
             want[ATTN_BWD_WGMMA_TILE] = attn // 2  # one spatial call a block
     if "VVT_TAPDOT" in knobs:
@@ -1728,7 +1786,7 @@ def _hold_metrics(label: str, card: dict, cpu: dict) -> dict:
     return errs
 
 
-def phase_f32_train(dev, tiny=False, h4=False, d96=False):
+def phase_f32_train(dev, tiny=False, h4=False, d96=False, d256=False):
     """Flagship width, depth 1, b1 x 4 frames: one f32 train step, card against CPU.
 
     ``tiny``: ``tiny_config`` itself in float32 (head_dim 16, no perceptual term, as
@@ -1736,7 +1794,8 @@ def phase_f32_train(dev, tiny=False, h4=False, d96=False):
     CPU (``ZERO_GRAD_TOL``) is held to stay noise, as :func:`phase_f32_modes` holds it.
     ``h4``: the flagship's width in 4 heads of 128 (:func:`h4_config`), otherwise as
     the default ("f32-h4"); ``d96``: in 8 heads of 96 (:func:`d96_config`, the
-    kernels padded to 128; "f32-d96").
+    kernels padded to 128; "f32-d96"); ``d256``: in 2 heads of 256
+    (:func:`d256_config`, the kernels' wide variant; "f32-d256").
     """
     import torch
 
@@ -1751,7 +1810,7 @@ def phase_f32_train(dev, tiny=False, h4=False, d96=False):
                                         tiny_cfg.data.batch_size, tiny_cfg.data.max_frames)
         label, text = "f32-tiny", f"tiny_config, float32, b{clips} x {frames} frames (3 padded), perceptual off"
     else:
-        base = h4_config() if h4 else d96_config() if d96 else ModelConfig()
+        base = h4_config() if h4 else d96_config() if d96 else d256_config() if d256 else ModelConfig()
         cfg = base.replace(dtype="float32", encoder_depth=1, decoder_depth=1, remat=False)
         loss_cfg, clips, frames = LossConfig(), 1, 4
         label, text = "f32-train", "flagship width, encoder/decoder depth 1, b1 x 4 frames (1 padded), perceptual on"
@@ -1759,6 +1818,8 @@ def phase_f32_train(dev, tiny=False, h4=False, d96=False):
             label, text = "f32-h4", text.replace("flagship width", "flagship width in 4 heads of 128")
         if d96:
             label, text = "f32-d96", text.replace("flagship width", "flagship width in 8 heads of 96")
+        if d256:
+            label, text = "f32-d256", text.replace("flagship width", "flagship width in 2 heads of 256")
     hp = DynamicHParams.default()
     cpu_model = VideoVAE(cfg, device="cpu", seed=4)
     gen = torch.Generator().manual_seed(5)
@@ -2650,18 +2711,34 @@ def phase_d96_kernels(dev, rows):
     phase_sublayer_kernel(cfg, dev, rows, side, paths=False)
 
 
-def _padded_check(rows, kernel, dims, shape, dtype, run, plain, library, library_name, glue, moved, flops):
+def phase_d256_kernels(dev, rows):
+    """Kernels #1 and #3 against their plain versions at head_dim 256, which they run
+    on their wide variant: at the calls of the :func:`d256_config` serving pass and
+    train step (counted on ``"serving-d256"`` and ``"train-d256"``) and the temporal
+    b2 call in float32, masked and with a sequence whose keys are all masked, the same
+    bits twice, SDPA at D = 256 beside each. #5, #6 and #7, which the model does not
+    run, are held at D = 256 by :func:`phase_wide_head_dim_kernels`."""
+    cfg = d256_config()
+    phase_attention_kernels(cfg, dev, rows, "serving-d256", "train-d256", attention_cases(cfg), masked_rows=True)
+
+
+def _padded_check(rows, kernel, dims, shape, dtype, run, plain, library, library_name, glue, moved, flops,
+                  label="padded"):
     """One kernel at a padded head dim (``dims``: D and its Dp) against its plain
     version (``moved`` and ``flops``: functions of the head dim, for the bound at
     D and at Dp); records a "kernel-check" line with the bf16 call's device ms,
-    the library's and the glue's (see :func:`phase_padded_head_dim_kernels`)."""
+    the library's and the glue's (see :func:`phase_padded_head_dim_kernels`).
+    Past 128 each run must launch the kernel's wide variant."""
     import torch
 
     from video_vae_tpu_torch.ops import flash_attention as fa
 
     D, Dp = dims
+    wide = fa.WIDE_LAUNCHES[kernel.symbol]
     got, again = run(), run()
     torch.cuda.synchronize()
+    if fa.is_wide(Dp) and fa.WIDE_LAUNCHES[kernel.symbol] - wide != 2:
+        raise AssertionError(f"{kernel.symbol} D = {D} {shape} {dtype}: not launched on its wide variant")
     got, again = (t if isinstance(t, tuple) else (t,) for t in (got, again))
     if not all(torch.equal(a, b) for a, b in zip(got, again)):  # no atomics: the same bits on every run
         raise AssertionError(f"{kernel.symbol} D = {D} {shape} {dtype}: two launches gave different bits")
@@ -2677,19 +2754,21 @@ def _padded_check(rows, kernel, dims, shape, dtype, run, plain, library, library
     iters = 2  # float32: held, timed briefly
     if dtype == "bfloat16":
         iters = 5
-        extra.update(device_ms=device_ms(run, 10), library_device_ms=device_ms(library, 10),
-                     glue_device_ms=device_ms(glue, 10))
-    _record(rows, kernel, f"padded D{D} S{shape[1]} {dtype}", list(shape), dtype, err, time_ms(run, iters),
+        # at a native Dp (D = 256, 384, 512) nothing is padded: no glue launches
+        extra.update(device_ms=device_ms(run), library_device_ms=device_ms(library),
+                     glue_device_ms=device_ms(glue) if Dp != D else 0.0)
+    _record(rows, kernel, f"{label} D{D} S{shape[1]} {dtype}", list(shape), dtype, err, time_ms(run, iters),
             time_ms(plain, 1), time_ms(library, iters), library_name, bound_ms(moved(D), flops(D), bf16_ops), {},
             **extra)
 
 
-def phase_padded_head_dim_kernels(dev, rows):
+def phase_padded_head_dim_kernels(dev, rows, cases=PADDED_CASES, label="padded", f32_every_seq=False):
     """#1, #3, #5, #6 and #7 against their plain versions at head dims the kernels
     pad (``PADDED_CASES``: D = 48 and 96 at S = 16, 256 and 1024, D = 8 and 24 at
     16 and 256; ``PADDED_HEADS`` heads, ``PADDED_TOKENS`` tokens a call, a key mask
     that keeps a ragged prefix of each sequence and none of the first), bf16 at
-    every case and float32 up to 256 tokens, the same bits twice. Each
+    every case and float32 up to 256 tokens (at every case with
+    ``f32_every_seq``), the same bits twice; ``label`` names the lines. Each
     "kernel-check" line holds beside the kernel's times the library call's at the
     true D (SDPA's forward or backward on q, k, v at D; #7's LN -> matmul -> SDPA
     -> matmul chain), the device ms of the wrapper's padding and unpadding alone
@@ -2705,7 +2784,7 @@ def phase_padded_head_dim_kernels(dev, rows):
     gen = torch.Generator().manual_seed(40)
     H, C = PADDED_HEADS, PADDED_WIDTH
     rn = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
-    for D, seqs in PADDED_CASES:
+    for D, seqs in cases:
         Dp = fa.padded_head_dim(D)
         HD = H * D
 
@@ -2722,7 +2801,7 @@ def phase_padded_head_dim_kernels(dev, rows):
             mask = (torch.arange(S)[None, :] < lengths[:, None]).to(dev)
             keys, amask = int(mask.sum()), mask[:, None, None, :]
             cos, sin = rope_tables(S, D, device=str(dev))
-            for dtype in ("bfloat16", "float32") if S <= fa.TILE_MAX_SEQ else ("bfloat16",):
+            for dtype in ("bfloat16", "float32") if S <= fa.TILE_MAX_SEQ or f32_every_seq else ("bfloat16",):
                 tdt = getattr(torch, dtype)
                 e = torch.finfo(tdt).bits // 8
                 qkv, g = rn(B, S, 3 * HD).to(dev, tdt), rn(B, S, HD).to(dev, tdt)
@@ -2795,9 +2874,21 @@ def phase_padded_head_dim_kernels(dev, rows):
                      lambda d: 8.0 * tok * C * H * d + attn(d)),
                 )
                 for kernel, shape, run, plain, library, name, glue, moved, flops in checks:
-                    _padded_check(rows, kernel, (D, Dp), shape, dtype, run, plain, library, name, glue, moved, flops)
+                    _padded_check(rows, kernel, (D, Dp), shape, dtype, run, plain, library, name, glue, moved, flops,
+                                  label)
                 del qkv, g, q, k, v, g4, lq, lk, lv, lg, leaves, o_lib, x, qkv_p, o_p, q_p
     torch.cuda.empty_cache()
+
+
+def phase_wide_head_dim_kernels(dev, rows):
+    """#1, #3, #5, #6 and #7 against their plain versions on their wide variant
+    (``WIDE_CASES``: D = 130, 192, 256, 384 and 512, padded to 256, 256, 256, 384
+    and 512, at S = 16, 256 and 1024), bf16 and float32 at every case, as
+    :func:`phase_padded_head_dim_kernels` holds the padded head dims (a ragged key
+    mask, a sequence with no key, the same bits twice, SDPA at the true D, the
+    glue's device ms, the bound at D and at Dp); each run must launch the wide
+    variant. Counted on no path."""
+    phase_padded_head_dim_kernels(dev, rows, WIDE_CASES, "wide", f32_every_seq=True)
 
 
 def phase_latent_kernels(cfg, dev, rows):
@@ -3254,11 +3345,8 @@ def _mae_launches(cfg, train: bool) -> dict:
     #1 twice per block (temporal, spatial), again under remat in a step, and #3 once
     per forward call in a step (its spatial calls, S = 196, on the wgmma tile kernel);
     nothing else."""
-    from video_vae_tpu_torch.ops import KERNELS
-
     calls = 2 * (cfg.encoder_depth + max(1, cfg.decoder_depth // 3))
-    want = {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0, WGRAD_WGMMA_VARIANT: 0,
-            ATTN_BWD_WGMMA_TILE: 0}
+    want = no_launches()
     want["vvt_fused_attention_fwd"] = calls * (2 if train and cfg.remat else 1)
     want["vvt_fused_attention_bwd"] = calls if train else 0
     if train and takes_wgmma_tile(cfg.num_patches, cfg.head_dim):
@@ -3894,6 +3982,8 @@ def kernel_record(rows, launches_by_path):
                 **({"wgmma_tile_launches": launches_by_path[path][ATTN_BWD_WGMMA_TILE]}
                    if kernel.symbol == "vvt_fused_attention_bwd" and ATTN_BWD_WGMMA_TILE in launches_by_path[path]
                    else {}),
+                **({"wide_launches": launches_by_path[path][ATTN_WIDE[kernel.symbol]]}
+                   if ATTN_WIDE.get(kernel.symbol) in launches_by_path[path] else {}),
                 "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
                 # the larger share of the summed bound
                 "bound_by": "operations" if 2 * by_ops >= total("bound_ms") else "bytes",
@@ -3954,7 +4044,8 @@ def main() -> int:
     cfg = ModelConfig()
     wide = tapdot_model_config()
     log("cuts", json.dumps({
-        "flagship paths": "none: full width and depth; the float32 card-vs-CPU checks run at depth 1",
+        "flagship paths": f"none: full width and depth; {TIMED_FORWARDS} passes and {TIMED_STEPS} steps timed on "
+                          "the default path; the float32 card-vs-CPU checks run at depth 1",
         "tap-dot path": f"{describe(wide)}: the transformer cut from depth {cfg.encoder_depth}/"
                         f"{cfg.decoder_depth} to 1/1, the UNet at full size; {TAPDOT_TIMED_FORWARDS} "
                         f"passes and {TAPDOT_TIMED_STEPS} steps timed",
@@ -3966,9 +4057,14 @@ def main() -> int:
         "train-small": "none of width or depth; one step timed 3 times",
         "train-h4": "none: the flagship's width and depth in 4 heads of 128; the float32 card-vs-CPU step at "
                     "depth 1",
-        "serving-d96 / train-d96": f"none: the flagship's width and depth with qkv_features={D96_QKV} (8 heads "
-                                   f"of 96, the kernels padded to 128); {D96_TIMED_FORWARDS} passes and "
-                                   f"{D96_TIMED_STEPS} steps timed; the float32 card-vs-CPU step at depth 1",
+        "serving-d96 / train-d96": f"the flagship's width with qkv_features={D96_QKV} (8 heads of 96, the "
+                                   f"kernels padded to 128), the transformer cut from depth {cfg.encoder_depth}/"
+                                   f"{cfg.decoder_depth} to {D96_DEPTH[0]}/{D96_DEPTH[1]}; {D96_TIMED_FORWARDS} "
+                                   f"passes and {D96_TIMED_STEPS} steps timed; the float32 card-vs-CPU step at "
+                                   "depth 1",
+        "serving-d256 / train-d256": f"none: the flagship's width and depth in {D256_HEADS} heads of 256 (the "
+                                     f"kernels' wide variant); {D256_TIMED_FORWARDS} passes and {D256_TIMED_STEPS} "
+                                     "steps timed; the float32 card-vs-CPU step at depth 1",
         "cache-latents / decode-latents": f"none of width or depth; {LATENT_VIDEOS} synthetic clips",
         "dist-nccl": f"the trainer's config and cut, {TRAINER_CLIPS} clips on one rank, no eval, no dump",
         "dist-gloo-2": f"the trainer's config and cut; 2 ranks on one card (gloo); {TRAINER_CLIPS} clips a mesh, "
@@ -3991,8 +4087,14 @@ def main() -> int:
     if [sum(d.values()) for d in tapdot_launches(wide)] != [4, 4]:
         raise AssertionError(f"the tap-dot model's gate counts changed: {tapdot_launches(wide)}")
     for entry in ("serving", "train"):  # head_dim 96 runs the flagship's launches, #3's wgmma tile included
-        if expected_launches(d96_config(), entry, "fused") != expected_launches(cfg, entry, "fused"):
-            raise AssertionError(f"the d96 model's {entry} launches differ from the flagship's")
+        cut = cfg.replace(encoder_depth=D96_DEPTH[0], decoder_depth=D96_DEPTH[1])
+        if expected_launches(d96_config(), entry, "fused") != expected_launches(cut, entry, "fused"):
+            raise AssertionError(f"the d96 model's {entry} launches differ from the flagship's at its depth")
+        # head_dim 256 runs the flagship's launches, every attention launch on the wide variant
+        flagship, d256 = expected_launches(cfg, entry, "fused"), expected_launches(d256_config(), entry, "fused")
+        on_wide = {ATTN_WIDE[k]: flagship[k] for k in ("vvt_fused_attention_fwd", "vvt_fused_attention_bwd")}
+        if d256 != {**flagship, ATTN_BWD_WGMMA_TILE: 0, **on_wide}:
+            raise AssertionError(f"the d256 model's {entry} launches {d256} are not the flagship's on the wide variant")
     rows = []
     started = time.monotonic()
     phase_attention_kernels(cfg, dev, rows)
@@ -4026,6 +4128,11 @@ def main() -> int:
     phase_d96_kernels(dev, rows)
     phase_padded_head_dim_kernels(dev, rows)
     log("seconds", json.dumps({"padded head-dim kernel checks": time.monotonic() - started}))
+    started = time.monotonic()
+    # head dims past 128 (the wide variant): the d256 model's calls, and D = 130-512 up to S = 1024
+    phase_d256_kernels(dev, rows)
+    phase_wide_head_dim_kernels(dev, rows)
+    log("seconds", json.dumps({"wide head-dim kernel checks": time.monotonic() - started}))
     started = time.monotonic()
     # #3's wgmma tile kernel at the paths' tile shapes, S = 65 and 196, a sequence with no key
     phase_tile_bwd_kernels(dev)
@@ -4082,6 +4189,13 @@ def main() -> int:
                                            D96_TIMED_STEPS, label="train-d96")
     phase_f32_train(dev, d96=True)
     log("seconds", json.dumps({"head_dim 96 paths": time.monotonic() - started}))
+    started = time.monotonic()
+    launches["serving-d256"], _ = phase_serving(d256_config(), dev, "fused", None, D256_TIMED_FORWARDS,
+                                                label="serving-d256")
+    launches["train-d256"], _ = phase_train(d256_config().replace(remat=False), dev, "fused", None,
+                                            D256_TIMED_STEPS, label="train-d256")
+    phase_f32_train(dev, d256=True)
+    log("seconds", json.dumps({"head_dim 256 paths": time.monotonic() - started}))
     started = time.monotonic()
     launches["trainer"], trainer = phase_trainer(dev)
     log("seconds", json.dumps({"trainer": time.monotonic() - started}))

@@ -263,7 +263,8 @@ def test_attention_bwd_plan_is_the_same_at_every_head_dim():
     warps but at head_dim 128's tile blocks (at most ``BWD_WIDE_TILE_WARPS``);
     #3 takes it but at head dims 64 and 128 past 64 tokens, where it takes the
     wgmma tile; the shared memory grows with the head dim within each kernel
-    and fits at each; other head dims are refused."""
+    and fits at each; a multiple of 128 past 128 takes the wide variant; other
+    head dims (the wrappers pad them first) are refused."""
     for B, S, H in RAGGED_CASES:
         plans = {mma_bwd_plan(B, S, H, D) for D in KERNEL_HEAD_DIMS if D != 128}
         assert len(plans) == 1
@@ -278,7 +279,8 @@ def test_attention_bwd_plan_is_the_same_at_every_head_dim():
         assert smem == sorted(smem) and smem[-1] <= MAX_SMEM
         smem = [TileWgGeometry(B, S, H, D).smem for D in WGMMA_HEAD_DIMS if variant == "tile"]
         assert smem == sorted(smem) and all(m <= MAX_SMEM for m in smem)
-    for bad in (8, 48, 96, 256):
+    assert fused_attention_bwd_plan(4, 16, 8, 256) == mma_bwd_plan(4, 300, 8, 512) == ("wide", 1, 4)
+    for bad in (8, 48, 96, 130, 192):
         with pytest.raises(ValueError, match="head_dim"):
             fused_attention_bwd_plan(4, 16, 8, bad)
 

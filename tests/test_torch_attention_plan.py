@@ -266,15 +266,17 @@ def test_attention_plan_at_ragged_shapes_other_head_dims(B, S, H, D):
 def test_attention_plan_follows_the_head_dim():
     """A head row takes head_dim + 8 bf16: at S = 64 with 8 heads one sequence's
     rows (3 x 8 x 64 rows) are over a slab block's 100 KB at head_dim 64 (a tile
-    block a pair) and fit at 16 (a slab block a sequence); heads the kernels do
-    not take are refused."""
+    block a pair) and fit at 16 (a slab block a sequence); a multiple of 128 past
+    128 takes the wide variant; heads the kernels do not run as they are (the
+    wrappers pad them first) are refused."""
     assert [mma_row_bytes(d) for d in KERNEL_HEAD_DIMS] == [48, 80, 144, 272]
     assert fused_attention_plan(4, 64, 8, 64) == ("tile", 1)
     assert fused_attention_plan(4, 64, 8, 16) == ("slab", 1)
     assert Geometry(4, 64, 8, 16).smem == 3 * 8 * 64 * 48 + 8
     tiny = Geometry(32, 8, 2, 16)  # tiny_config's temporal call: 4 sequences a block, a warp a head
     assert (tiny.plan, tiny.warps, tiny.grid) == (("slab", 4), 8, 8)
-    for bad in (8, 48, 96, 256):
+    assert fused_attention_plan(4, 16, 8, 256) == fused_attention_plan(4, 1024, 8, 512) == ("wide", 1)
+    for bad in (8, 48, 96, 130, 192):
         with pytest.raises(ValueError, match="head_dim"):
             fused_attention_plan(4, 16, 8, bad)
 
@@ -313,16 +315,18 @@ def test_attention_plan_at_latent_cli_shapes(name, B, S, H):
 
 def test_check_head_dim_takes_the_four():
     """The kernels are instantiated at head_dim 16, 32, 64 and 128 and take every
-    even head_dim from 2 to 128, padded to the next of the four; 0, an odd head_dim
-    and one past 128 raise, naming the range and the four."""
+    even head_dim: up to 128 padded to the next of the four, past it (the wide
+    variant) to a multiple of 128; 0 and an odd head_dim raise, naming the range
+    and the four."""
     from video_vae_tpu_torch.ops.flash_attention import check_head_dim
 
     assert KERNEL_HEAD_DIMS == (16, 32, 64, 128)
-    for d in range(2, 129, 2):
+    for d in (*range(2, 1026, 2), 2048, 4098):
         check_head_dim(d)
-    for bad in (0, 1, 3, 15, 33, 95, 127, 129, 130, 192, 256):
-        with pytest.raises(ValueError, match=r"an even head_dim from 2 to 128 \(padded to the next of "
-                                             r"\(16, 32, 64, 128\)\), got " + str(bad)):
+    for bad in (0, 1, 3, 15, 33, 95, 127, 129, 131, 193, 257, 511):
+        with pytest.raises(ValueError, match=r"an even head_dim of at least 2 \(padded to the next of "
+                                             r"\(16, 32, 64, 128\), past 128 to a multiple of 128\), got "
+                           + str(bad)):
             check_head_dim(bad)
 
 

@@ -30,12 +30,15 @@ from video_vae_tpu_torch.ops.conv3d import (
 )
 from video_vae_tpu_torch.ops.flash_attention import (
     ATTENTION_SUBLAYER,
+    BWD_VARIANT_LAUNCHES,
     FLASH_ATTENTION,
     FLASH_ATTENTION_BWD,
     FUSED_ATTENTION,
     FUSED_ATTENTION_BWD,
+    FWD_VARIANT_LAUNCHES,
     KERNEL_HEAD_DIMS,
     NEG_INF,
+    WIDE_LAUNCHES,
     flash_attention_bwd_cuda,
     flash_attention_bwd_plain,
     flash_attention_cuda,
@@ -133,11 +136,12 @@ def test_fused_attention_bf16_kernel_geometries(device, B, S, H, masked, D):
     _check_fused_attention(device, torch.bfloat16, B, S, H, masked, D)
 
 
-@pytest.mark.parametrize("D", [7, 130, 256])
+@pytest.mark.parametrize("D", [0, 7, 129])
 def test_attention_kernels_refuse_other_head_dims(device, D):
-    """An odd head dim, or one past 128, raises on the card, naming the range the
-    kernels take; nothing falls back to the plain version. (Every even head dim up
-    to 128 runs, padded: ``test_padded_head_dims_launch_their_kernels``.)"""
+    """0 or an odd head dim raises on the card, naming the range the kernels
+    take; nothing falls back to the plain version. (Every even head dim up to
+    128 runs, padded: ``test_padded_head_dims_launch_their_kernels``; past 128
+    the wide variant: ``test_wide_head_dims_launch_their_kernels``.)"""
     B, S, H = 2, 16, 2
     qkv = torch.zeros(B, S, 3 * H * D, device=device, dtype=torch.bfloat16)
     qs = torch.ones(D, device=device)
@@ -155,10 +159,31 @@ def test_attention_kernels_refuse_other_head_dims(device, D):
             torch.zeros(H * D, 64, device=device), torch.zeros(64, device=device), None, H),
     ]
     for call in calls:
-        with pytest.raises(ValueError, match=r"an even head_dim from 2 to 128 \(padded to the next of "
-                                             r"\(16, 32, 64, 128\)\)"):
+        with pytest.raises(ValueError, match=r"an even head_dim of at least 2 \(padded to the next of "
+                                             r"\(16, 32, 64, 128\), past 128 to a multiple of 128\)"):
             call()
     assert before == [k.launches for k in kernels]
+
+
+def _attention_calls(device, dtype, B, S, H, masked, D, seed):
+    """(kernel, run, plain, tolerance dtype) of #1, #3, #5, #6 and #7 at one shape."""
+    qkv, g, qs, ks, mask = _bwd_inputs(device, dtype, B, S, H, masked, seed, D)
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
+    q, k, g4 = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
+    args, smask = _sublayer_args(device, dtype, B, S, 64, H, masked, D)
+    return (
+        (FUSED_ATTENTION, lambda: fused_qkv_attention_cuda(qkv, qs, ks, mask, H),
+         lambda: fused_qkv_attention_plain(qkv, qs, ks, mask, H), dtype),
+        (FUSED_ATTENTION_BWD, lambda: fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H),
+         lambda: fused_qkv_attention_bwd_plain(qkv, qs, ks, mask, g, H), dtype),
+        (FLASH_ATTENTION, lambda: flash_attention_cuda(q, k, v, mask), lambda: flash_attention_plain(q, k, v, mask),
+         dtype),
+        (FLASH_ATTENTION_BWD, lambda: flash_attention_bwd_cuda(q, k, v, mask, g4),
+         lambda: flash_attention_bwd_plain(q, k, v, mask, g4), dtype),
+        # both sides round the GEMM operands to bf16 whatever x's dtype is
+        (ATTENTION_SUBLAYER, lambda: fused_attention_sublayer_cuda(*args, smask, H),
+         lambda: fused_attention_sublayer_plain(*args, smask, H), torch.bfloat16),
+    )
 
 
 # Head dims the kernels pad to the next instantiation (ops/flash_attention.py:pad_heads):
@@ -177,23 +202,7 @@ def test_padded_head_dims_launch_their_kernels(device, dtype, B, S, H, masked, D
     once (the counters), nothing takes the plain version, every output at D and
     within the kernel tolerance of the plain version at D, a bf16 call the same
     bits twice."""
-    qkv, g, qs, ks, mask = _bwd_inputs(device, dtype, B, S, H, masked, 7 * S + D, D)
-    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
-    q, k, g4 = q.contiguous(), k.contiguous(), g.reshape(B, S, H, D)
-    args, smask = _sublayer_args(device, dtype, B, S, 64, H, masked, D)
-    calls = (
-        (FUSED_ATTENTION, lambda: fused_qkv_attention_cuda(qkv, qs, ks, mask, H),
-         lambda: fused_qkv_attention_plain(qkv, qs, ks, mask, H), dtype),
-        (FUSED_ATTENTION_BWD, lambda: fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H),
-         lambda: fused_qkv_attention_bwd_plain(qkv, qs, ks, mask, g, H), dtype),
-        (FLASH_ATTENTION, lambda: flash_attention_cuda(q, k, v, mask), lambda: flash_attention_plain(q, k, v, mask),
-         dtype),
-        (FLASH_ATTENTION_BWD, lambda: flash_attention_bwd_cuda(q, k, v, mask, g4),
-         lambda: flash_attention_bwd_plain(q, k, v, mask, g4), dtype),
-        # both sides round the GEMM operands to bf16 whatever x's dtype is
-        (ATTENTION_SUBLAYER, lambda: fused_attention_sublayer_cuda(*args, smask, H),
-         lambda: fused_attention_sublayer_plain(*args, smask, H), torch.bfloat16),
-    )
+    calls = _attention_calls(device, dtype, B, S, H, masked, D, 7 * S + D)
     for kernel, run, plain, tol in calls:
         before = kernel.launches
         out = run()
@@ -224,6 +233,55 @@ def test_padded_head_dims_through_autograd(device, D):
     grads = torch.autograd.grad(out, leaves, g)
     torch.cuda.synchronize()
     assert (FUSED_ATTENTION.launches - before[0], FUSED_ATTENTION_BWD.launches - before[1]) == (1, 1)
+    assert torch.equal(out, fused_qkv_attention_cuda(qkv, qs, ks, mask, H))
+    ref = fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
+    assert torch.equal(grads[0], ref[0]) and torch.equal(grads[1], ref[1]) and torch.equal(grads[2], ref[2])
+
+
+# Head dims past 128 (ops/flash_attention.py:padded_head_dim pads them to a multiple of
+# 128): the wide variant in both dtypes; (B, S, H, masked) cases as PADDED_CASES'
+WIDE_HEAD_DIMS = pytest.mark.parametrize("D", [130, 192, 256, 384, 512])
+WIDE_CASES = [(40, 16, 8, True), (5, 37, 3, True), (3, 256, 8, "empty"), (3, 300, 2, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,masked", WIDE_CASES)
+@WIDE_HEAD_DIMS
+def test_wide_head_dims_launch_their_kernels(device, dtype, B, S, H, masked, D):
+    """#1, #3, #5, #6 and #7 past head dim 128: each call launches its kernel
+    once, on its wide variant (``WIDE_LAUNCHES``), nothing takes the plain
+    version, every output within the kernel tolerance of the plain version at
+    D (bf16 2e-2, f32 1e-4 of the largest reference value), a sequence that
+    keeps no key too, and the same bits twice in either dtype."""
+    for kernel, run, plain, tol in _attention_calls(device, dtype, B, S, H, masked, D, 5 * S + D):
+        before, wide = kernel.launches, WIDE_LAUNCHES[kernel.symbol]
+        out = run()
+        torch.cuda.synchronize()
+        assert (kernel.launches - before, WIDE_LAUNCHES[kernel.symbol] - wide) == (1, 1), kernel.symbol
+        out, ref = (t if isinstance(t, tuple) else (t,) for t in (out, plain()))
+        for a, b in zip(out, ref):
+            assert a.shape == b.shape and a.dtype == b.dtype and a.is_cuda, kernel.symbol
+            assert _within(a, b, TOL[tol]), (kernel.symbol, _rel_err(a, b))
+        if masked == "empty" and kernel in (FUSED_ATTENTION, FLASH_ATTENTION):
+            assert _within(out[0][0], ref[0][0], TOL[tol]), kernel.symbol
+        again = run()  # no atomics: the same bits on every run
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(a, b) for a, b in zip(out, again)), kernel.symbol
+
+
+@WIDE_HEAD_DIMS
+def test_wide_head_dims_through_autograd(device, D):
+    """The autograd wrapper on CUDA tensors past head dim 128: the wide forward
+    and backward launch, and the gradients (the scales' too) equal the
+    ``*_cuda`` wrappers' own."""
+    B, S, H = 4, 65, 2
+    qkv, g, qs, ks, mask = _bwd_inputs(device, torch.bfloat16, B, S, H, True, 13 + D, D)
+    leaves = [t.clone().requires_grad_() for t in (qkv, qs, ks)]
+    before = (FWD_VARIANT_LAUNCHES["wide"], BWD_VARIANT_LAUNCHES["wide"])
+    out = fused_qkv_attention(leaves[0], leaves[1], leaves[2], mask, H)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (FWD_VARIANT_LAUNCHES["wide"] - before[0], BWD_VARIANT_LAUNCHES["wide"] - before[1]) == (1, 1)
     assert torch.equal(out, fused_qkv_attention_cuda(qkv, qs, ks, mask, H))
     ref = fused_qkv_attention_bwd_cuda(qkv, qs, ks, mask, g, H)
     assert torch.equal(grads[0], ref[0]) and torch.equal(grads[1], ref[1]) and torch.equal(grads[2], ref[2])

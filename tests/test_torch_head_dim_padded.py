@@ -76,10 +76,10 @@ def _close_to(name, got, ref, tol=CONTRACT_TOL):
 def test_padded_head_dim_is_the_next_instantiation():
     assert fa.KERNEL_HEAD_DIMS == (16, 32, 64, 128)
     want = {2: 16, 8: 16, 16: 16, 18: 32, 24: 32, 32: 32, 40: 64, 48: 64, 64: 64, 72: 128, 80: 128, 96: 128,
-            128: 128}
+            128: 128, 130: 256, 192: 256, 256: 256, 258: 384, 384: 384, 512: 512}
     assert {d: fa.padded_head_dim(d) for d in want} == want
-    for bad in (0, 7, 129, 130, 256):
-        with pytest.raises(ValueError, match="even head_dim from 2 to 128"):
+    for bad in (0, 7, 129, 131, 255):
+        with pytest.raises(ValueError, match="even head_dim of at least 2"):
             fa.padded_head_dim(bad)
 
 
@@ -217,9 +217,13 @@ def test_sublayer_padded_contract(d, s):
 
 
 def test_check_head_dim_raises_past_the_pads():
-    for bad in (0, 1, 3, 95, 130, 192, 256):
-        with pytest.raises(ValueError, match="even head_dim from 2 to 128"):
+    """0 and an odd head dim raise; an even one past the pads runs wide."""
+    for bad in (0, 1, 3, 95, 129, 193, 257):
+        with pytest.raises(ValueError, match="even head_dim of at least 2"):
             fa.check_head_dim(bad)
+    for wide in (130, 192, 256, 384, 512):
+        fa.check_head_dim(wide)
+        assert fa.fused_attention_plan(2, 16, 2, fa.padded_head_dim(wide)) == ("wide", 1)
 
 
 # ---------------------------------------------------------------------------

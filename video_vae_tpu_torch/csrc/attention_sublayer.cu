@@ -49,6 +49,7 @@
 // warps a bf16 block, the quad kernel for f32 x).
 
 #include "attention_split_fwd.cuh"
+#include "attention_wide.cuh"
 #include "fused_attention_core.cuh"
 #include "fused_attention_mma.cuh"
 #include "gemm_sm90.cuh"
@@ -74,16 +75,14 @@ o_to_bf16_kernel(const float* __restrict__ o, bf16* __restrict__ o16, long long 
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, const void* ln_b,
-                            const void* wqkv, const void* bqkv, const void* q_scale,
-                            const void* k_scale, const void* cos_t, const void* sin_t,
-                            const void* wout, const void* bout, void* y, void* qkv, void* o,
-                            void* xa, void* o16, void* work, int B, int S, int C, int H, GemmPlan qkv_plan,
-                            GemmPlan out_plan, int variant, int unit, const fa_mma::HeadScale& hs,
+// The token LN, the qkv product, the attention (attend: its launch, writing o
+// from qkv), then for f32 x o's cast to bf16, and the out projection with the residual.
+template <typename T, typename Attend>
+cudaError_t launch_sublayer(const void* x, const void* ln_g, const void* ln_b, const void* wqkv, const void* bqkv,
+                            const void* wout, const void* bout, void* y, void* qkv, void* o, void* xa, void* o16,
+                            int B, int S, int C, int HD, GemmPlan qkv_plan, GemmPlan out_plan, Attend attend,
                             cudaStream_t stream) {
   const int n = B * S;
-  const int HD = H * D;
   const T* xt = static_cast<const T*>(x);
   bf16* xa_t = static_cast<bf16*>(xa);
 
@@ -96,20 +95,12 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
       static_cast<T*>(qkv), nullptr, n, C, 3 * HD, qkv_plan, stream);
   if (err != cudaSuccess) return err;
 
+  err = attend();
+  if (err != cudaSuccess) return err;
   const bf16* o_bf16;
   if constexpr (sizeof(T) == 2) {
-    if (variant == fa_mma::SPLIT)
-      err = unit != 1 ? cudaErrorInvalidValue
-                      : fa_mma::launch_split_fused_fwd<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, work, B, S, H,
-                                                          hs, stream);
-    else
-      err = fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H,
-                                            variant, unit, hs, stream);
     o_bf16 = static_cast<const bf16*>(o);
   } else {
-    err = launch_fused_attention<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H, hs.scale,
-                                           hs.inv_d, stream);
-    if (err != cudaSuccess) return err;
     const long long vecs = (long long)n * HD / 8;
     const long long blocks = std::min<long long>((vecs + CAST_THREADS - 1) / CAST_THREADS, CAST_MAX_BLOCKS);
     o_to_bf16_kernel<<<(unsigned)blocks, CAST_THREADS, 0, stream>>>(static_cast<const float*>(o),
@@ -141,7 +132,9 @@ cudaError_t launch_sublayer(const void* x, const void* mask, const void* ln_g, c
 // variant, unit: the bf16 attention's (ops/flash_attention.py:sublayer_plan).
 // work: for bf16 x with the split variant, #1's workspace (fused_attention.cu:
 // B * S * H * head_dim bf16 for k~ at head_dim 64 and 128, twice that for q~
-// and k~ at 16 and 32); null otherwise.
+// and k~ at 16 and 32); with variant 4 ("wide", a head_dim past 128, a multiple of
+// 128), for either dtype, 2 * B * S * H * head_dim elements of x's dtype (q~ and k~);
+// null otherwise.
 extern "C" int vvt_attention_sublayer(const void* x, const void* mask, const void* ln_g,
                                       const void* ln_b, const void* wqkv, const void* bqkv,
                                       const void* q_scale, const void* k_scale, const void* cos_t,
@@ -158,14 +151,39 @@ extern "C" int vvt_attention_sublayer(const void* x, const void* mask, const voi
   const GemmPlan qkv_plan{qkv_bn, qkv_stages, qkv_blocks, qkv_smem};
   const GemmPlan out_plan{out_bn, out_stages, out_blocks, out_smem};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto zero, int HD, auto attend) {
+    using T = decltype(zero);
+    return launch_sublayer<T>(x, ln_g, ln_b, wqkv, bqkv, wout, bout, y, qkv, o, xa, o16, B, S, C, HD, qkv_plan,
+                              out_plan, attend, st);
+  };
+  if (variant == fa_mma::WIDE) {  // a head dim past 128, both dtypes (attention_wide.cuh)
+    if (unit != 1) return (int)cudaErrorInvalidValue;
+    const int HD = H * head_dim;
+    if (dtype == 0)
+      return (int)run(0.f, HD, [&] {
+        return fa_mma::wide::launch_fused_fwd<float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, work, B, S, H,
+                                                     head_dim, hs, st);
+      });
+    return (int)run(bf16(), HD, [&] {
+      return fa_mma::wide::launch_fused_fwd<bf16>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, work, B, S, H,
+                                                  head_dim, hs, st);
+    });
+  }
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (dtype == 0)
-      return launch_sublayer<float, D>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t, sin_t, wout,
-                                       bout, y, qkv, o, xa, o16, work, B, S, C, H, qkv_plan, out_plan, variant, unit,
-                                       hs, st);
-    return launch_sublayer<bf16, D>(x, mask, ln_g, ln_b, wqkv, bqkv, q_scale, k_scale, cos_t, sin_t, wout, bout,
-                                    y, qkv, o, xa, o16, work, B, S, C, H, qkv_plan, out_plan, variant, unit, hs, st);
+      return run(0.f, H * D, [&] {
+        return launch_fused_attention<float, D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H, hs.scale,
+                                                hs.inv_d, st);
+      });
+    return run(bf16(), H * D, [&] {
+      if (variant == fa_mma::SPLIT)
+        return unit != 1 ? cudaErrorInvalidValue
+                         : fa_mma::launch_split_fused_fwd<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, work, B, S,
+                                                             H, hs, st);
+      return fa_mma::launch_attention_mma<D>(qkv, q_scale, k_scale, cos_t, sin_t, mask, o, B, S, H, variant, unit,
+                                             hs, st);
+    });
   });
 }
 

@@ -85,6 +85,7 @@
 
 #include "attention_f32_wide.cuh"
 #include "attention_split_fwd.cuh"
+#include "attention_wide.cuh"
 #include "flash_attention_mma.cuh"
 #include "flash_common.cuh"
 
@@ -221,6 +222,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
   }
 }
 
+// A head dim past 128 (attention_wide.cuh): q, k and v row (b, i) at base + (b S + i) stride,
+// head h at + h Dp; out contiguous (B, S, H, Dp); P normalised before its rounding.
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* mask, void* out, long long q_stride,
+                        long long k_stride, long long v_stride, int B, int S, int H, int Dp,
+                        const fa_mma::HeadScale& hs, cudaStream_t stream) {
+  using fa_mma::wide::Arr;
+  auto in = [&](const void* p, long long stride) { return Arr<const T>{static_cast<const T*>(p), S * stride, Dp, stride}; };
+  const long long HD = (long long)H * Dp;
+  const fa_mma::wide::FwdArgs<T> a{in(q, q_stride), in(k, k_stride), in(v, v_stride),
+                                   static_cast<const unsigned char*>(mask), Arr<T>{static_cast<T*>(out), S * HD, Dp, HD},
+                                   B, S, H, Dp, hs};
+  return fa_mma::wide::launch_fwd<T>(a, true, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out). mask: (B, S) uint8 key mask, or null.
@@ -229,6 +245,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 // a slab block, 1 otherwise); the f32 kernel takes its geometry from the shape.
 // head_dim: 16, 32, 64 or 128; true_dim d and scale: the call's head dim (q, k and
 // v zero-padded past it to head_dim) and its softmax scale 1/sqrt(d) in f32.
+// variant 4 ("wide", both dtypes): head_dim a multiple of 128 past 128, unit 1.
 extern "C" int vvt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const void* mask, void* out, long long q_stride,
                                        long long k_stride, long long v_stride, int B, int S, int H,
@@ -243,6 +260,13 @@ extern "C" int vvt_flash_attention_fwd(const void* q, const void* k, const void*
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const unsigned char*>(mask), static_cast<bf16*>(out), q_stride, k_stride, v_stride,
       B, S, H, unit, hs};
+  if (variant == fa_mma::WIDE) {
+    if (unit != 1) return (int)cudaErrorInvalidValue;
+    return (int)(dtype == 0 ? launch_wide<float>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H, head_dim,
+                                                 hs, st)
+                            : launch_wide<bf16>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H, head_dim,
+                                                hs, st));
+  }
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (dtype == 0) return launch<float, D>(q, k, v, mask, out, q_stride, k_stride, v_stride, B, S, H, hs.scale, st);

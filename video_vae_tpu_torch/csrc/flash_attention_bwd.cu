@@ -95,6 +95,7 @@
 #include "attention_f32_wide.cuh"
 #include "attention_split.cuh"
 #include "attention_split_bwd.cuh"
+#include "attention_wide.cuh"
 #include "flash_attention_bwd_mma.cuh"
 #include "flash_common.cuh"
 
@@ -359,6 +360,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
   }
 }
 
+// A head dim past 128 (attention_wide.cuh): the inputs' rows as launch_wide's of the
+// forward, the gradients contiguous (B, S, H, Dp), work = m | 1/l | row (f32: m | l | row).
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* d_o, const void* mask, void* dq,
+                        void* dk, void* dv, void* work, const Strides& st, int B, int S, int H, int Dp,
+                        const fa_mma::HeadScale& hs, cudaStream_t stream) {
+  using fa_mma::wide::Arr;
+  auto in = [&](const void* p, long long stride) { return Arr<const T>{static_cast<const T*>(p), S * stride, Dp, stride}; };
+  const long long HD = (long long)H * Dp;
+  auto grad = [&](void* p) { return Arr<T>{static_cast<T*>(p), S * HD, Dp, HD}; };
+  const fa_mma::wide::BwdArgs<T, T> a{in(q, st.q), in(k, st.k), in(v, st.v), in(d_o, st.d_o),
+                                      static_cast<const unsigned char*>(mask), grad(dq), grad(dk), grad(dv),
+                                      static_cast<float*>(work), B, S, H, Dp, hs};
+  return fa_mma::wide::launch_bwd<T, T>(a, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and the three outputs).
@@ -371,6 +388,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* d_o,
 // split: unit 1; at head dims 64 and 128 12 warps and B * H * ceil(S / 128)
 // blocks, at 16 and 32 4 warps and B * H * ceil(S / 64)), checked against
 // the shape; float32 ignores them.
+// variant 4 ("wide", both dtypes, head_dim a multiple of 128 past 128): unit 1, 4 warps,
+// n_blocks = B * H * ceil(S / 64) * head_dim / 128, work as float32's.
 extern "C" int vvt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* d_o, const void* mask, void* dq, void* dk,
                                        void* dv, void* work, long long q_stride,
@@ -390,6 +409,15 @@ extern "C" int vvt_flash_attention_bwd(const void* q, const void* k, const void*
       static_cast<const bf16*>(d_o), static_cast<const unsigned char*>(mask), static_cast<bf16*>(dq),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), q_stride, k_stride, v_stride, do_stride,
       B, S, H, unit, hs};
+  if (variant == fa_mma::WIDE) {
+    if (unit != 1 || warps != fa_mma::wide::WARPS || work == nullptr || head_dim % fa_mma::wide::CHUNK ||
+        n_blocks != fa_mma::wide::grid(B, S, H, head_dim / fa_mma::wide::CHUNK))
+      return (int)cudaErrorInvalidValue;
+    return (int)(dtype == 0 ? launch_wide<float>(q, k, v, d_o, mask, dq, dk, dv, work, st, B, S, H, head_dim, hs,
+                                                 stream_)
+                            : launch_wide<bf16>(q, k, v, d_o, mask, dq, dk, dv, work, st, B, S, H, head_dim, hs,
+                                                stream_));
+  }
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (dtype == 0) return launch<float, D>(q, k, v, d_o, mask, dq, dk, dv, work, st, B, S, H, hs.scale, stream_);

@@ -87,6 +87,7 @@
 // block's sequences whole.
 
 #include "attention_split_fwd.cuh"
+#include "attention_wide.cuh"
 #include "fused_attention_core.cuh"
 #include "fused_attention_mma.cuh"
 
@@ -100,6 +101,8 @@
 // to head_dim by halves, ops/flash_attention.py:pad_heads, with the scales' and
 // the tables' columns), and its softmax scale 1/sqrt(d) rounded to f32; the
 // kernels take 1/d and that scale at run time (fa_mma::HeadScale).
+// variant 4 ("wide", both dtypes): head_dim a multiple of 128 past 128, unit 1, work
+// a scratch of 2 * B * S * H * head_dim elements of qkv's dtype (q~ and k~).
 extern "C" int vvt_fused_attention_fwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
                                        void* out, void* work, int B, int S, int H, int head_dim, int true_dim,
@@ -108,6 +111,13 @@ extern "C" int vvt_fused_attention_fwd(const void* qkv, const void* q_scale, con
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const fa_mma::HeadScale hs = fa_mma::head_scale(true_dim, scale);
+  if (variant == fa_mma::WIDE) {  // a head dim past 128 (attention_wide.cuh)
+    if (unit != 1) return (int)cudaErrorInvalidValue;
+    return (int)(dtype == 0 ? fa_mma::wide::launch_fused_fwd<float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, out,
+                                                                   work, B, S, H, head_dim, hs, st)
+                            : fa_mma::wide::launch_fused_fwd<fa_mma::bf16>(qkv, q_scale, k_scale, cos_t, sin_t, mask,
+                                                                          out, work, B, S, H, head_dim, hs, st));
+  }
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (dtype == 0)

@@ -120,6 +120,7 @@
 #include "attention_f32_wide.cuh"
 #include "attention_split.cuh"
 #include "attention_split_bwd.cuh"
+#include "attention_wide.cuh"
 #include "fused_attention_bwd_mma.cuh"
 #include "fused_attention_bwd_wg.cuh"
 
@@ -681,6 +682,10 @@ cudaError_t launch_split(const void* qkv, const void* q_scale, const void* k_sca
 // read; split (12 warps at head dims 64 and 128, 4 at 16 and 32): n_blocks =
 // ceil(B * H * S / 64), work = f32 scratch of 3 * B * H * S * D + 3 * B * H * S
 // floats.
+// variant 4 ("wide", both dtypes, head_dim a multiple of 128 past 128; unit 1):
+// n_blocks = ceil(B * H * S / 8) (a (head_dim,) partial a warp of its LN + RoPE
+// backward), work = f32 scratch of 2 * B * H * S * D floats, then 2 * B * H * S * D
+// elements of qkv's dtype, then 3 * B * H * S floats (fa_mma::wide::launch_fused_bwd).
 extern "C" int vvt_fused_attention_bwd(const void* qkv, const void* q_scale, const void* k_scale,
                                        const void* cos_t, const void* sin_t, const void* mask,
                                        const void* g, void* dqkv, void* dqs_part, void* dks_part,
@@ -696,6 +701,15 @@ extern "C" int vvt_fused_attention_bwd(const void* qkv, const void* q_scale, con
                             static_cast<const float*>(sin_t), static_cast<const unsigned char*>(mask),
                             static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dqkv),
                             static_cast<float*>(dqs_part), static_cast<float*>(dks_part), B, S, H, unit, hs};
+  if (variant == fa_mma::WIDE) {  // a head dim past 128 (attention_wide.cuh)
+    if (unit != 1 || warps != fa_mma::wide::WARPS) return (int)cudaErrorInvalidValue;
+    return (int)(dtype == 0 ? fa_mma::wide::launch_fused_bwd<float>(qkv, q_scale, k_scale, cos_t, sin_t, mask, g, dqkv,
+                                                                   dqs_part, dks_part, work, B, S, H, head_dim,
+                                                                   n_blocks, hs, st)
+                            : fa_mma::wide::launch_fused_bwd<__nv_bfloat16>(qkv, q_scale, k_scale, cos_t, sin_t,
+                                                                           mask, g, dqkv, dqs_part, dks_part, work, B,
+                                                                           S, H, head_dim, n_blocks, hs, st));
+  }
   return (int)fa_mma::with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (dtype == 0)

@@ -33,8 +33,9 @@ template <int D> constexpr int ROW = D + 8;  // shared-memory row in bf16
 template <int D> constexpr int ROW_BYTES = 2 * ROW<D>;
 template <int D> constexpr int PIECES = D / 8;  // 16-byte pieces of a head row
 constexpr int MAX_SMEM = 232448;  // what one block may ask for on the H100 (227 KB)
-// the plan's variant codes (ops/flash_attention.py:MMA_VARIANTS); TILE_WG, #3's wgmma tile, the backward's alone
-constexpr int SLAB = 0, TILE = 1, SPLIT = 2, TILE_WG = 3;
+// the plan's variant codes (ops/flash_attention.py:MMA_VARIANTS); TILE_WG, #3's wgmma tile, the backward's alone;
+// WIDE, every head dim past 128 in both dtypes (attention_wide.cuh)
+constexpr int SLAB = 0, TILE = 1, SPLIT = 2, TILE_WG = 3, WIDE = 4;
 constexpr int TILE_MAX_SEQ = 256;  // the longest sequence of the slab and tile variants; split takes longer ones
 constexpr float NEG_INF = -1e30f;  // the JAX kernels' masked score
 constexpr float LN_EPS = 1e-6f;

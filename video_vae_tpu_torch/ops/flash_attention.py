@@ -25,15 +25,21 @@ the tensor's device: a CPU tensor takes the plain PyTorch version
 
 The kernels are instantiated at head dims ``KERNEL_HEAD_DIMS`` (16, 32, 64
 and 128: ``tiny_config`` and the ``--small`` preset at 16, the flagship at
-64, its width in 4 heads at 128) and take every even head dim up to 128
-(``check_head_dim``) and any sequence length. A call at another even D pads
-each head to the next instantiation Dp (:func:`padded_head_dim`) with zeros
-(:func:`pad_heads`: the two halves of a head stay RoPE partners) and hands
-the kernel the true D beside Dp: its LN statistics take 1/D (zero columns
-add nothing to Σx and Σx²) and its scores 1/√D; the outputs and gradients
-are unpadded. D = 96 (``ModelConfig(qkv_features=768)``) runs at 128, D = 48
-at 64, D = 8 and 24 at 16 and 32. An odd D, or one past 128, raises on a
-CUDA tensor, with no fallback. Up to
+64, its width in 4 heads at 128) and take every even head dim
+(``check_head_dim``) and any sequence length. A call at another even D up to
+128 pads each head to the next instantiation Dp (:func:`padded_head_dim`)
+with zeros (:func:`pad_heads`: the two halves of a head stay RoPE partners)
+and hands the kernel the true D beside Dp: its LN statistics take 1/D (zero
+columns add nothing to Σx and Σx²) and its scores 1/√D; the outputs and
+gradients are unpadded. D = 96 (``ModelConfig(qkv_features=768)``) runs at
+128, D = 48 at 64, D = 8 and 24 at 16 and 32. Past 128 a head is padded the
+same way to the next multiple of ``WIDE_CHUNK`` = 128 (192 → 256, 258 →
+384; ``ModelConfig(num_heads=2)``'s 256 as it is) and every call, in bf16
+and f32, at every S, takes the "wide" variant (``csrc/attention_wide.cuh``):
+a block owns its rows and one 128-column chunk of the output and sums every
+product over the head dim chunk by chunk as the chunks stream through shared
+memory (:func:`wide_grid`); its launches count in ``WIDE_LAUNCHES``. An odd
+D, or 0, raises on a CUDA tensor, with no fallback. Up to
 ``TILE_MAX_SEQ`` = 256 tokens the bf16 kernels take their "slab" or "tile"
 variant, whose block holds a whole sequence's keys, as the JAX kernels hold
 it in VMEM. Longer sequences (the flagship at ``--resize 512``: spatial
@@ -167,8 +173,9 @@ BWD_ROWS_PER_BLOCK = 64
 MMA_SLAB_WARPS = 8  # warps of a slab block at most
 MMA_SLAB_MAX_SEQ = 64  # the longest sequence a block stages whole, all heads
 MMA_SLAB_MAX_SMEM = 100 * 1024  # a slab block at most this, so that two fit an SM
-# as csrc/fused_attention_mma_common.cuh numbers them; "tile_wg" is #3's alone (fused_attention_bwd_plan)
-MMA_VARIANTS = ("slab", "tile", "split", "tile_wg")
+# as csrc/fused_attention_mma_common.cuh numbers them; "tile_wg" is #3's alone (fused_attention_bwd_plan);
+# "wide" takes every head dim past 128 in both dtypes
+MMA_VARIANTS = ("slab", "tile", "split", "tile_wg", "wide")
 
 # The split variant of the bf16 kernels at head dims 16 and 32 (csrc/attention_split.cuh),
 # S > TILE_MAX_SEQ: a block owns this many rows of a pair, a warp each 16, and streams
@@ -186,6 +193,22 @@ SPLIT_WARPS = SPLIT_ROWS // 16
 SPLIT_BWD_ROWS = 128
 SPLIT_BWD_WARPS = 12
 WGMMA_HEAD_DIMS = (64, 128)
+
+# The wide variant (csrc/attention_wide.cuh), every head dim past 128 padded to a multiple
+# of WIDE_CHUNK: a block owns WIDE_ROWS rows of a pair (a warp each 16) and one chunk of
+# WIDE_CHUNK columns of the output, and streams chunks of the other side's rows; the #3
+# LN + RoPE backward writes a (Dp,) scale partial for every WIDE_LN_ROWS head rows.
+WIDE_CHUNK = 128
+WIDE_ROWS = 64
+WIDE_WARPS = WIDE_ROWS // 16
+WIDE_LN_ROWS = 8
+
+
+def wide_grid(batch: int, seq: int, heads: int, head_dim: int) -> int:
+    """Blocks of the wide forward and of each side of its backward: one per
+    (sequence, head) pair, tile of ``WIDE_ROWS`` own rows and chunk of
+    ``WIDE_CHUNK`` columns; the backward's statistics launch has one chunk."""
+    return batch * heads * -(-seq // WIDE_ROWS) * (head_dim // WIDE_CHUNK)
 
 
 def split_grid(batch: int, seq: int, heads: int) -> int:
@@ -239,24 +262,35 @@ def mma_row_bytes(head_dim: int) -> int:
 
 
 def check_head_dim(head_dim: int) -> None:
-    """Raise unless the kernels take ``head_dim``: an even number from 2 to 128."""
-    if not (2 <= head_dim <= KERNEL_HEAD_DIMS[-1] and head_dim % 2 == 0):
+    """Raise unless the kernels take ``head_dim``: an even number of at least 2
+    (RoPE rotates a head's two halves)."""
+    if not (head_dim >= 2 and head_dim % 2 == 0):
         raise ValueError(
-            f"the attention kernels take an even head_dim from 2 to {KERNEL_HEAD_DIMS[-1]} (padded to the next "
-            f"of {KERNEL_HEAD_DIMS}), got {head_dim}"
+            f"the attention kernels take an even head_dim of at least 2 (padded to the next of "
+            f"{KERNEL_HEAD_DIMS}, past {KERNEL_HEAD_DIMS[-1]} to a multiple of {WIDE_CHUNK}), got {head_dim}"
         )
 
 
+def is_wide(head_dim: int) -> bool:
+    """Whether a padded head dim runs the wide variant: past 128, a multiple of ``WIDE_CHUNK``."""
+    return head_dim > KERNEL_HEAD_DIMS[-1] and head_dim % WIDE_CHUNK == 0
+
+
 def _check_instantiated(head_dim: int) -> None:
-    """Raise unless the kernels are instantiated at ``head_dim``: the plans take a padded head dim."""
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernels are instantiated at head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+    """Raise unless the kernels run ``head_dim`` as it is: the plans take a padded head dim."""
+    if head_dim not in KERNEL_HEAD_DIMS and not is_wide(head_dim):
+        raise ValueError(f"the kernels are instantiated at head_dim in {KERNEL_HEAD_DIMS} and run multiples of "
+                         f"{WIDE_CHUNK} past them, got {head_dim}")
 
 
 def padded_head_dim(head_dim: int) -> int:
-    """The instantiation a call at ``head_dim`` runs: the least of ``KERNEL_HEAD_DIMS`` at or
-    above it (96 → 128, 48 → 64, 24 → 32, 8 → 16). Raises where :func:`check_head_dim` does."""
+    """The head dim a call at ``head_dim`` runs: up to 128 the least of ``KERNEL_HEAD_DIMS``
+    at or above it (96 → 128, 48 → 64, 24 → 32, 8 → 16), past it the next multiple of
+    ``WIDE_CHUNK`` (130 and 192 → 256, 258 → 384, 256 and 512 as they are). Raises where
+    :func:`check_head_dim` does."""
     check_head_dim(head_dim)
+    if head_dim > KERNEL_HEAD_DIMS[-1]:
+        return -(-head_dim // WIDE_CHUNK) * WIDE_CHUNK
     return next(dp for dp in KERNEL_HEAD_DIMS if dp >= head_dim)
 
 
@@ -307,9 +341,13 @@ def fused_attention_plan(batch: int, seq: int, heads: int, head_dim: int) -> tup
     :func:`mma_max_warps`, 8 at head_dim 128, each warp then taking the tiles
     in turn), so that the pair's keys are staged and normalised once (205 KB
     at S = 256 and head_dim 128). The C entry point derives the warps, the
-    shared memory and P's rounding rule from these and the shape.
+    shared memory and P's rounding rule from these and the shape. A head dim
+    past 128 (a multiple of ``WIDE_CHUNK``) takes ``"wide"`` at every S, in both
+    dtypes (:func:`wide_grid` blocks of ``WIDE_WARPS`` warps).
     """
     _check_instantiated(head_dim)
+    if is_wide(head_dim):
+        return "wide", 1
     if seq > TILE_MAX_SEQ:
         return "split", 1
     rows16 = -(-seq // 16) * 16
@@ -372,9 +410,13 @@ def mma_bwd_plan(batch: int, seq: int, heads: int, head_dim: int) -> tuple[str, 
     shape. Past ``TILE_MAX_SEQ`` = 256 tokens, ``"split"``: a query-major
     launch and a key-major one of :func:`split_bwd_grid` blocks,
     :func:`split_bwd_warps` warps each (one pair each, unit 1): wgmma at head
-    dims 64 and 128, mma.sync at 16 and 32.
+    dims 64 and 128, mma.sync at 16 and 32. A head dim past 128: ``("wide", 1,
+    WIDE_WARPS)`` at every S, in both dtypes (three launches: statistics, query
+    side, key side).
     """
     _check_instantiated(head_dim)
+    if is_wide(head_dim):
+        return "wide", 1, WIDE_WARPS
     if seq > TILE_MAX_SEQ:
         return "split", 1, split_bwd_warps(head_dim)
     tiles = -(-seq // 16)
@@ -621,7 +663,7 @@ def fused_qkv_attention_bwd_plain(
 
 def _check_kernel_args(name, qkv, q_scale, k_scale, mask, num_heads):
     """Shared checks of both CUDA wrappers; returns (B, S, D). D even and at
-    most 128 (:func:`check_head_dim`), S >= 1."""
+    least 2 (:func:`check_head_dim`), S >= 1."""
     if not qkv.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor")
     if qkv.dtype not in DTYPE_CODES:
@@ -668,10 +710,12 @@ def fused_qkv_attention_cuda(
 
     bf16 qkv takes the tensor-core kernel with the geometry of
     :func:`fused_attention_plan` (its split variant with a bf16 workspace for
-    k̃, and q̃ at head dims 16 and 32), f32 qkv the CUDA-core kernel. A head
-    dim D outside ``KERNEL_HEAD_DIMS`` runs at :func:`padded_head_dim`, its
-    heads padded and the output unpadded here. D even and at most 128, S >= 1,
-    or it raises.
+    k̃, and q̃ at head dims 16 and 32), f32 qkv the CUDA-core kernel; a head
+    dim past 128 the wide variant in either dtype, with a workspace of q̃ and
+    k̃ in qkv's dtype. A head dim D outside ``KERNEL_HEAD_DIMS`` runs at
+    :func:`padded_head_dim`, its heads padded and the output unpadded here.
+    Each launch counts in ``FWD_VARIANT_LAUNCHES`` (and a wide one in
+    ``WIDE_LAUNCHES``). D even and at least 2, S >= 1, or it raises.
     """
     b, s, d = _check_kernel_args("fused_qkv_attention_cuda", qkv, q_scale, k_scale, mask, num_heads)
     dp = padded_head_dim(d)
@@ -680,10 +724,11 @@ def fused_qkv_attention_cuda(
     qs, ks, cos, sin, mask = _kernel_operands(qkv, q_scale, k_scale, mask, s, d, dp, rope_base, rope_alpha)
     out = torch.empty((b, s, num_heads * dp), dtype=qkv.dtype, device=device)
     variant, unit, work = 0, 1, None  # the f32 kernel takes its geometry from the shape
-    if qkv.dtype == torch.bfloat16:
+    name = "f32"
+    if qkv.dtype == torch.bfloat16 or is_wide(dp):
         name, unit = fused_attention_plan(b, s, num_heads, dp)
         variant = MMA_VARIANTS.index(name)
-        work = _split_qk_work(name, b, s, num_heads, dp, device)
+        work = _split_qk_work(name, b, s, num_heads, dp, device, qkv.dtype)
         if qkv.data_ptr() % 16:  # the kernel copies 16 bytes at a time
             qkv = qkv.clone()
     with torch.cuda.device(device):
@@ -693,21 +738,40 @@ def fused_qkv_attention_cuda(
             b, s, num_heads, dp, d, softmax_scale(d), DTYPE_CODES[qkv.dtype], variant, unit,
             torch.cuda.current_stream(device).cuda_stream,
         )
+    _count(FWD_VARIANT_LAUNCHES, name, FUSED_ATTENTION)
     return unpad_heads(out, num_heads, d, dp)
 
 
-def _split_qk_work(variant: str, b: int, s: int, heads: int, d: int, device) -> Optional[torch.Tensor]:
-    """The split forward's bf16 workspace, (B, S, H, D) a part: k̃ at head dims 64
-    and 128 (the wgmma forward normalises its own q rows), q̃ | k̃ at 16 and 32;
-    None for another variant."""
+def _split_qk_work(variant: str, b: int, s: int, heads: int, d: int, device,
+                   dtype: torch.dtype = torch.bfloat16) -> Optional[torch.Tensor]:
+    """The forward's workspace of q̃ and k̃, (B, S, H, D) a part: for the split
+    variant in bf16, k̃ at head dims 64 and 128 (the wgmma forward normalises its
+    own q rows), q̃ | k̃ at 16 and 32; for the wide variant q̃ | k̃ in ``dtype``
+    (qkv's); None for another variant."""
+    if variant == "wide":
+        return torch.empty(2 * b * s * heads * d, dtype=dtype, device=device)
     if variant != "split":
         return None
     parts = 1 if d in WGMMA_HEAD_DIMS else 2
     return torch.empty(parts * b * s * heads * d, dtype=torch.bfloat16, device=device)
 
 
-# #3's launches by what they ran: the f32 kernel or a bf16 variant of fused_attention_bwd_plan
+# #1's and #3's launches by what they ran: the f32 kernel or a variant of their plan (a wide
+# launch counts under "wide" in either dtype)
+FWD_VARIANT_LAUNCHES = dict.fromkeys(("f32", *MMA_VARIANTS), 0)
 BWD_VARIANT_LAUNCHES = dict.fromkeys(("f32", *MMA_VARIANTS), 0)
+# the five attention kernels' launches of their wide variant (a head dim past 128)
+WIDE_LAUNCHES = dict.fromkeys(
+    ("vvt_fused_attention_fwd", "vvt_fused_attention_bwd", "vvt_flash_attention_fwd", "vvt_flash_attention_bwd",
+     "vvt_attention_sublayer"), 0)
+
+
+def _count(variants: Optional[dict], name: str, kernel: CudaKernel) -> None:
+    """Count one launch of ``kernel`` under its variant ``name``."""
+    if variants is not None:
+        variants[name] += 1
+    if name == "wide":
+        WIDE_LAUNCHES[kernel.symbol] += 1
 
 
 def fused_qkv_attention_bwd_cuda(
@@ -725,12 +789,14 @@ def fused_qkv_attention_bwd_cuda(
     bf16 takes the tensor-core kernel with the geometry of
     :func:`fused_attention_bwd_plan` (its split variant through an f32
     workspace), f32 the four-pass CUDA-core kernel and its workspace; each
-    launch counts in ``BWD_VARIANT_LAUNCHES``. Either
+    launch counts in ``BWD_VARIANT_LAUNCHES``; a head dim past 128 takes the
+    wide variant in either dtype, through a workspace of dq̃ and dk̃ (f32), q̃
+    and k̃ (qkv's dtype) and the rows' statistics. Each
     writes per-block f32 partials of the two scale gradients; they are summed
     here in a fixed order, so every run gives the same bits. A head dim D
     outside ``KERNEL_HEAD_DIMS`` runs at :func:`padded_head_dim` as the
     forward does, qkv and g padded, dqkv and the scale gradients unpadded. D
-    even and at most 128, S >= 1, or it raises.
+    even and at least 2, S >= 1, or it raises.
     """
     b, s, d = _check_kernel_args(
         "fused_qkv_attention_bwd_cuda", qkv, q_scale, k_scale, mask, num_heads
@@ -747,7 +813,15 @@ def fused_qkv_attention_bwd_cuda(
     work = None
     variant, unit, warps = 0, 1, 1  # the f32 kernel takes its geometry from the shape
     rows = b * num_heads * s
-    if qkv.dtype == torch.bfloat16:
+    name = "f32"
+    if is_wide(dp):
+        name, unit, warps = fused_attention_bwd_plan(b, s, num_heads, dp)
+        variant = MMA_VARIANTS.index(name)
+        # dq̃, dk̃ (f32), q̃, k̃ (qkv's dtype), then m, 1/l, row per query
+        work = torch.empty(2 * rows * dp + 2 * rows * dp * qkv.element_size() // 4 + 3 * rows, **f32)
+        n_blocks = -(-rows // WIDE_LN_ROWS)
+        qkv, g = (t.clone() if t.data_ptr() % 16 else t for t in (qkv, g))
+    elif qkv.dtype == torch.bfloat16:
         name, unit, warps = fused_attention_bwd_plan(b, s, num_heads, dp)
         variant = MMA_VARIANTS.index(name)
         if name == "split":
@@ -773,7 +847,7 @@ def fused_qkv_attention_bwd_cuda(
             b, s, num_heads, dp, d, softmax_scale(d), n_blocks, DTYPE_CODES[qkv.dtype], variant, unit, warps,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    BWD_VARIANT_LAUNCHES[MMA_VARIANTS[variant] if qkv.dtype == torch.bfloat16 else "f32"] += 1
+    _count(BWD_VARIANT_LAUNCHES, name, FUSED_ATTENTION_BWD)
     dqs, dks = unpad_heads(partials.sum(dim=1), 1, d, dp)
     return unpad_heads(dqkv, 3 * num_heads, d, dp), dqs, dks
 
@@ -910,9 +984,10 @@ def flash_attention_cuda(q, k, v, mask):
     :func:`flash_attention_plan`: one launch, no workspace, no atomics, the
     roundings of :func:`flash_attention_plain` (P normalised with the exact
     row max and sum, then rounded to bf16; P·V in f32; one rounding of o),
-    split past 256 tokens. f32 takes the CUDA-core kernel, f32 throughout.
+    split past 256 tokens. f32 takes the CUDA-core kernel, f32 throughout; a
+    head dim past 128 the wide variant in either dtype (``WIDE_LAUNCHES``).
     A head dim D outside ``KERNEL_HEAD_DIMS`` runs at :func:`padded_head_dim`,
-    q, k and v zero-padded and o unpadded. D even and at most 128, S >= 1, or
+    q, k and v zero-padded and o unpadded. D even and at least 2, S >= 1, or
     it raises.
     """
     b, s, h, d = _check_flash_args("flash_attention_cuda", q, k, v, mask)
@@ -922,7 +997,8 @@ def flash_attention_cuda(q, k, v, mask):
     mask = _mask_bytes(mask, device)
     out = torch.empty((b, s, h, dp), dtype=q.dtype, device=device)
     variant, unit = 0, 1  # the f32 kernel takes its geometry from the shape
-    if q.dtype == torch.bfloat16:
+    name = "f32"
+    if q.dtype == torch.bfloat16 or is_wide(dp):
         name, unit = flash_attention_plan(b, s, h, dp)
         variant = MMA_VARIANTS.index(name)
     with torch.cuda.device(device):
@@ -932,6 +1008,7 @@ def flash_attention_cuda(q, k, v, mask):
             qs, ks, vs, b, s, h, dp, d, softmax_scale(d), DTYPE_CODES[q.dtype], variant, unit,
             torch.cuda.current_stream(device).cuda_stream,
         )
+    _count(None, name, FLASH_ATTENTION)
     return unpad_heads(out, 1, d, dp)
 
 
@@ -947,9 +1024,11 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
     these roundings in two launches through an f32 workspace of m, 1/l and
     row per query, still with no atomics. f32 takes the two-pass CUDA-core
     kernel through an f32 workspace of m, l and row per query, f32
-    throughout. A head dim D outside ``KERNEL_HEAD_DIMS`` runs at
+    throughout. A head dim past 128 takes the wide variant in either dtype
+    (three launches, the workspace as the split variant's; ``WIDE_LAUNCHES``).
+    A head dim D outside ``KERNEL_HEAD_DIMS`` runs at
     :func:`padded_head_dim` as the forward does, the gradients unpadded. D
-    even and at most 128, S >= 1, or it raises.
+    even and at least 2, S >= 1, or it raises.
     """
     b, s, h, d = _check_flash_args("flash_attention_bwd_cuda", q, k, v, mask)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
@@ -961,7 +1040,13 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
     dq, dk, dv = (torch.empty((b, s, h, dp), dtype=q.dtype, device=device) for _ in range(3))
     work = None
     variant, unit, warps, n_blocks = 0, 1, 1, 0  # the f32 kernel takes its geometry from the shape
-    if q.dtype == torch.bfloat16:
+    name = "f32"
+    if is_wide(dp):
+        name, unit, warps = flash_attention_bwd_plan(b, s, h, dp)
+        variant = MMA_VARIANTS.index(name)
+        work = torch.empty(3 * b * h * s, dtype=torch.float32, device=device)  # m, 1/l (f32: l), row per query
+        n_blocks = wide_grid(b, s, h, dp)
+    elif q.dtype == torch.bfloat16:
         name, unit, warps = flash_attention_bwd_plan(b, s, h, dp)
         variant = MMA_VARIANTS.index(name)
         if name == "split":
@@ -979,6 +1064,7 @@ def flash_attention_bwd_cuda(q, k, v, mask, g):
             qs, ks, vs, gs, b, s, h, dp, d, softmax_scale(d), DTYPE_CODES[q.dtype], variant, unit, warps,
             n_blocks, torch.cuda.current_stream(device).cuda_stream,
         )
+    _count(None, name, FLASH_ATTENTION_BWD)
     return tuple(unpad_heads(t, 1, d, dp) for t in (dq, dk, dv))
 
 
@@ -1171,11 +1257,13 @@ def fused_attention_sublayer_cuda(
     attention's tensor-core kernel, f32 x its CUDA-core kernel, whose o the
     kernel casts to a bf16 scratch for the second product; past 256 tokens
     bf16 x takes the attention's split variant with a bf16 workspace of q̃
-    and k̃. A head dim D outside ``KERNEL_HEAD_DIMS`` runs at
+    and k̃; a head dim past 128 takes the wide variant in either dtype, with a
+    workspace of q̃ and k̃ in x's dtype (``WIDE_LAUNCHES``). A head dim D
+    outside ``KERNEL_HEAD_DIMS`` runs at
     :func:`padded_head_dim`: Wqkv's and bqkv's columns, Wout's rows and the
     scales padded by heads with zeros, so that the padded columns of qkv and o
     are zero and add nothing to y; qkv and o come back unpadded. D even and at
-    most 128, S >= 1 and C % 8 == 0, or it raises.
+    least 2, S >= 1 and C % 8 == 0, or it raises.
     """
     if not x.is_cuda:
         raise ValueError("fused_attention_sublayer_cuda needs a CUDA tensor")
@@ -1219,7 +1307,9 @@ def fused_attention_sublayer_cuda(
     xa = torch.empty((b, s, c), dtype=torch.bfloat16, device=device)
     o16 = torch.empty((b, s, hd), dtype=torch.bfloat16, device=device) if x.dtype == torch.float32 else None
     plan = sublayer_plan(b, s, c, num_heads, dp, torch.cuda.get_device_properties(device).multi_processor_count)
-    work = _split_qk_work(plan.attention[0], b, s, num_heads, dp, device) if x.dtype == torch.bfloat16 else None
+    name = plan.attention[0]
+    work = (_split_qk_work(name, b, s, num_heads, dp, device, x.dtype)
+            if x.dtype == torch.bfloat16 or name == "wide" else None)
     tensors = (x, wq, wo, y, qkv, o, xa) + tuple(t for t in (o16, work) if t is not None)
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the sublayer kernel needs 16-byte aligned tensors")
@@ -1234,4 +1324,5 @@ def fused_attention_sublayer_cuda(
             b, s, c, num_heads, dp, d, softmax_scale(d), DTYPE_CODES[x.dtype], *plan.args,
             torch.cuda.current_stream(device).cuda_stream,
         )
+    _count(None, name, ATTENTION_SUBLAYER)
     return y, unpad_heads(qkv, 3 * num_heads, d, dp), unpad_heads(o, num_heads, d, dp)

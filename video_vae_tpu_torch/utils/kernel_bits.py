@@ -6,12 +6,15 @@
 ``save`` imports ``video_vae_tpu_torch`` from ``<package root>`` (the root of a
 checkout of this commit or of another, e.g. an unpacked ``git archive`` of the
 parent), builds its five attention kernels (#1, #3, #5, #6, #7) and runs each
-at head_dims 16, 32, 64 and 128 (``HEAD_DIMS``), in bf16 and f32, on five
+at the head dims of ``HEAD_DIMS`` that its package takes (the instantiations
+16, 32, 64 and 128, the padded 8, 24, 48 and 96, and the wide 130, 192 and
+256; an older package refuses the last three), in bf16 and f32, on five
 shapes: four of at most 256 tokens (the flagship's temporal and spatial calls
 and two ragged ones; the slab and tile variants) and one past 256 (the split
 variant), with seeded inputs and key masks that leave some sequences no key,
 then saves every output. ``compare`` prints how
-many of two files' outputs are equal bit for bit. Run it by path, so that
+many of the outputs that both files hold are equal bit for bit, by head dim,
+and the outputs only one of them holds. Run it by path, so that
 the package comes from the root given, not from the working directory; run
 the two commits in turns on one card (a, b, b, a).
 """
@@ -23,7 +26,7 @@ import sys
 SOURCES = ("fused_attention.cu", "fused_attention_bwd.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "attention_sublayer.cu")
 SHAPES = ((512, 16, 8), (32, 256, 8), (5, 37, 8), (3, 80, 8), (2, 300, 8))  # (B, S, H)
-HEAD_DIMS, WIDTH = (16, 32, 64, 128), 768
+HEAD_DIMS, WIDTH = (16, 32, 64, 128, 8, 24, 48, 96, 130, 192, 256), 768
 
 
 def save(root: str, out: str) -> None:
@@ -40,8 +43,15 @@ def save(root: str, out: str) -> None:
     def rn(*shape):
         return torch.randn(*shape, generator=gen)
 
+    def takes(D):
+        try:
+            fa.check_head_dim(D)
+        except ValueError:
+            return False
+        return True
+
     outputs = {}
-    for (B, S, H), D in ((shape, D) for D in HEAD_DIMS for shape in SHAPES):
+    for (B, S, H), D in ((shape, D) for D in HEAD_DIMS if takes(D) for shape in SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             qkv, g = rn(B, S, 3 * H * D).to(dev, dtype), rn(B, S, H * D).to(dev, dtype)
             qs, ks = (1 + 0.2 * rn(D)).to(dev), (1 + 0.2 * rn(D)).to(dev)
@@ -66,12 +76,21 @@ def compare(a_path: str, b_path: str) -> int:
     import torch
 
     a, b = torch.load(a_path), torch.load(b_path)
-    differ = []
-    for key in a:
+    both = [key for key in a if key in b]
+    differ, by_dim = [], {}
+    for key in both:
         x, y = (a[key], b[key]) if isinstance(a[key], tuple) else ((a[key],), (b[key],))
-        if not all(torch.equal(p, q) for p, q in zip(x, y)):
+        same = all(torch.equal(p, q) for p, q in zip(x, y))
+        if not same:
             differ.append(key)
-    print(f"same bits: {len(a) - len(differ)} of {len(a)} outputs; differ: {differ}")
+        dim = next(word for word in key.split() if word.startswith("D") and word[1:].isdigit())
+        counts = by_dim.setdefault(dim, [0, 0])
+        counts[0] += same
+        counts[1] += 1
+    only = sorted(set(a) ^ set(b))
+    print(f"same bits: {len(both) - len(differ)} of {len(both)} outputs in both files; by head dim "
+          f"{ {dim: f'{n}/{total}' for dim, (n, total) in by_dim.items()} }; differ: {differ}; "
+          f"in one file only: {len(only)}")
     return 1 if differ else 0
 
 
