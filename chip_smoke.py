@@ -213,6 +213,11 @@ TIMED_FORWARDS = 5
 # calls of a kernel-check's function that one torch.profiler trace averages (device_ms,
 # device_launch_ms), few for the same reason
 PROFILED_CALLS = 3
+# torch.profiler traces taken of one measurement before it gives up, and the pause
+# before the second (doubled before each later one, at most PROFILER_PAUSE_MAX_S):
+# on the H100 CUPTI now and then keeps no record for a while, a paused retake rides
+# over that
+PROFILER_TRACES, PROFILER_PAUSE_S, PROFILER_PAUSE_MAX_S = 8, 0.25, 4.0
 TIMED_STEPS, WARMUP_STEPS = 5, 3
 # the paths beside the default one time fewer runs, so that the script stays short
 NEW_PATH_TIMED_FORWARDS, NEW_PATH_TIMED_STEPS = 5, 3
@@ -251,6 +256,8 @@ SUBLAYER_LAUNCHES = {
 MLP_TRAINING_VARIANT = "vvt_fused_mlp, training variant"
 # the filter gradient's launches of its wgmma kernel (ops/conv3d.py:WGRAD_VARIANT_LAUNCHES)
 WGRAD_WGMMA_VARIANT = "vvt_conv3d_wgrad, wgmma variant"
+# the direct conv's launches of its wgmma kernel (ops/conv3d.py:CONV_VARIANT_LAUNCHES)
+CONV_WGMMA_VARIANT = "vvt_conv3d_cf, wgmma variant"
 # the fused attention backward's launches of its wgmma tile kernel (64 < S <= 256 at head
 # dims 64 and 128; ops/flash_attention.py:BWD_VARIANT_LAUNCHES)
 ATTN_BWD_WGMMA_TILE = "vvt_fused_attention_bwd, wgmma tile variant"
@@ -600,7 +607,19 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = PROFILED_CALLS, traces: int = 6) -> float:
+def _profiler_pause(what: str, attempt: int, kept) -> None:
+    """Log a trace of ``what`` that kept ``kept`` (records, or their count) short
+    of what was asked, and pause before it is taken again."""
+    pause = min(PROFILER_PAUSE_S * 2 ** attempt, PROFILER_PAUSE_MAX_S)
+    log("profiler-retry", json.dumps({"what": what, "attempt": attempt + 1, "kept": kept, "pause_s": pause}))
+    time.sleep(pause)
+
+
+def _fn_name(fn) -> str:
+    return getattr(fn, "__qualname__", repr(fn))
+
+
+def device_ms(fn, iters: int = PROFILED_CALLS, traces: int = PROFILER_TRACES) -> float:
     """Device time per call of the kernels ``fn`` launches, from ``torch.profiler``.
 
     Unlike :func:`time_ms`, whose events also count where the device waits on
@@ -608,14 +627,17 @@ def device_ms(fn, iters: int = PROFILED_CALLS, traces: int = 6) -> float:
     than its Python wrapper is not timed at the host's pace. On the H100 a
     trace now and then lacks a kernel's record, or every record: each kernel
     counts as its mean over the records kept times the launches a call makes
-    of it, and a trace with no record is taken again.
+    of it, and a trace with no record is taken again after a pause. Where no
+    trace of ``traces`` kept a record, the call is timed with CUDA events
+    instead (:func:`time_ms`, host gaps included) and a "profiler-fallback"
+    line says so.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(traces):
+    for attempt in range(traces):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -626,22 +648,30 @@ def device_ms(fn, iters: int = PROFILED_CALLS, traces: int = 6) -> float:
                 us.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
         if us:
             return sum(sum(t) / len(t) * max(1, round(len(t) / iters)) for t in us.values()) / 1e3
-    raise AssertionError(f"torch.profiler saw no kernel on the device in {traces} traces")
+        if attempt + 1 < traces:
+            _profiler_pause(f"device_ms {_fn_name(fn)}", attempt, 0)
+    ms = time_ms(fn, iters)
+    log("profiler-fallback", json.dumps({"what": f"device_ms {_fn_name(fn)}", "traces": traces,
+                                         "cuda_event_ms": ms}))
+    return ms
 
 
-def device_launch_ms(fn, names: tuple[str, ...], iters: int = PROFILED_CALLS, traces: int = 6) -> list[float]:
+def device_launch_ms(fn, names: tuple[str, ...], iters: int = PROFILED_CALLS,
+                     traces: int = PROFILER_TRACES) -> list[float | None]:
     """Device ms of the kernels one call of ``fn`` launches whose names hold one
     of ``names`` (other kernels it launches, such as casts, are left out), in
     launch order: each the mean over ``iters`` calls of one ``torch.profiler``
     trace. A trace that kept other than ``len(names) * iters`` such records is
-    taken again (see :func:`device_ms`)."""
+    taken again after a pause (see :func:`device_ms`); where none of
+    ``traces`` was whole, a "profiler-fallback" line says so and every launch's
+    time is None (CUDA events cannot part one call's launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     kept = []
-    for _ in range(traces):
+    for attempt in range(traces):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -652,8 +682,16 @@ def device_launch_ms(fn, names: tuple[str, ...], iters: int = PROFILED_CALLS, tr
         if len(kernels) == len(names) * iters:
             return [sum(us for _, us in kernels[i::len(names)]) / iters / 1e3 for i in range(len(names))]
         kept.append(len(kernels))
-    raise AssertionError(f"torch.profiler kept no whole trace of the launches {names} in {traces} traces "
-                         f"(records kept {kept}, of {len(names) * iters})")
+        if attempt + 1 < traces:
+            _profiler_pause(f"device_launch_ms {names}", attempt, len(kernels))
+    log("profiler-fallback", json.dumps({"what": f"device_launch_ms {names}", "traces": traces,
+                                         "records_kept": kept, "of": len(names) * iters}))
+    return [None] * len(names)
+
+
+def per_flop_rate(flops: float, ms: float | None) -> float | None:
+    """TFLOP/s of ``flops`` in ``ms`` (None where the time is)."""
+    return None if ms is None else flops / ms / 1e9
 
 
 def device_times(kernel_fn, library_fn, flops: float | None = None) -> dict:
@@ -1058,7 +1096,8 @@ def phase_sublayer_kernel(cfg, dev, rows, cases=None, paths=True):
             "layer_norm -> matmul -> scaled_dot_product_attention -> matmul, bf16 weights",
             bound_ms(nbytes(x, x, *w16, lng, lnb, mask), flops, "bfloat16"),
             per_path(per, paths), **device_times(run, library), launch_device_ms=launch_ms,
-            tflops={"qkv": qkv_flops / launch_ms["qkv"] / 1e9, "out": out_flops / launch_ms["out"] / 1e9},
+            tflops={"qkv": per_flop_rate(qkv_flops, launch_ms["qkv"]),
+                    "out": per_flop_rate(out_flops, launch_ms["out"])},
         )
         del x, got, y
     torch.cuda.empty_cache()
@@ -1256,7 +1295,7 @@ def phase_mlp_kernel(cfg, dev, rows):
                 bound_ms(nbytes(x, *written, *w16, lng, lnb), 2 * product_flops, "bfloat16"), per,
                 device_ms=device_ms(lambda: run(save)), library_device_ms=library_device_ms,
                 launch_device_ms={"ln": ln_ms, "up": up_ms, "down": down_ms},
-                tflops={"up": product_flops / up_ms / 1e9, "down": product_flops / down_ms / 1e9},
+                tflops={"up": per_flop_rate(product_flops, up_ms), "down": per_flop_rate(product_flops, down_ms)},
             )
         del x, got, y
     torch.cuda.empty_cache()
@@ -1326,7 +1365,8 @@ def phase_tapdot_kernel(cfg, dev, rows):
             time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, lib_bias, padding=(0, k[1] // 2, k[2] // 2)), 5),
             "torch.nn.functional.conv3d (cuDNN), concatenated input",
             bound_ms(nbytes(*xs, kernel, bias, out), flops, dtype), per, **times,
-            launch_device_ms={"copy": sum(copies), "gemm": gemm}, direct_device_ms=direct_ms,
+            launch_device_ms={"copy": None if None in copies else sum(copies), "gemm": gemm},
+            direct_device_ms=direct_ms,
         )
         if pool:
             full, pooled = conv3d.conv3d_tapdot_cuda(xs[0], x2, kernel, bias, pool=True)
@@ -1476,8 +1516,8 @@ def reset_launches():
 
     for kernel in KERNELS:
         kernel.launches = 0
-    for counts in (fused_block.VARIANT_LAUNCHES, conv3d.WGRAD_VARIANT_LAUNCHES, fa.FWD_VARIANT_LAUNCHES,
-                   fa.BWD_VARIANT_LAUNCHES, fa.WIDE_LAUNCHES):
+    for counts in (fused_block.VARIANT_LAUNCHES, conv3d.WGRAD_VARIANT_LAUNCHES, conv3d.CONV_VARIANT_LAUNCHES,
+                   fa.FWD_VARIANT_LAUNCHES, fa.BWD_VARIANT_LAUNCHES, fa.WIDE_LAUNCHES):
         for variant in counts:
             counts[variant] = 0
 
@@ -1489,12 +1529,14 @@ def read_launches() -> dict:
     counts = {kernel.symbol: kernel.launches for kernel in KERNELS}
     for variants, symbol in ((fused_block.VARIANT_LAUNCHES, "vvt_fused_mlp"),
                              (conv3d.WGRAD_VARIANT_LAUNCHES, "vvt_conv3d_wgrad"),
+                             (conv3d.CONV_VARIANT_LAUNCHES, "vvt_conv3d_cf"),
                              (fa.FWD_VARIANT_LAUNCHES, "vvt_fused_attention_fwd"),
                              (fa.BWD_VARIANT_LAUNCHES, "vvt_fused_attention_bwd")):
         if sum(variants.values()) != counts[symbol]:
             raise AssertionError(f"{symbol}'s variants {variants} do not add up to its {counts[symbol]}")
     return {**counts, MLP_TRAINING_VARIANT: fused_block.VARIANT_LAUNCHES["training"],
             WGRAD_WGMMA_VARIANT: conv3d.WGRAD_VARIANT_LAUNCHES["wgmma"],
+            CONV_WGMMA_VARIANT: conv3d.CONV_VARIANT_LAUNCHES["wgmma"],
             ATTN_BWD_WGMMA_TILE: fa.BWD_VARIANT_LAUNCHES["tile_wg"],
             **{ATTN_WIDE[symbol]: fa.WIDE_LAUNCHES[symbol] for symbol in ATTN_WIDE}}
 
@@ -1504,7 +1546,7 @@ def no_launches() -> dict:
     from video_vae_tpu_torch.ops import KERNELS
 
     return {**{kernel.symbol: 0 for kernel in KERNELS}, MLP_TRAINING_VARIANT: 0, WGRAD_WGMMA_VARIANT: 0,
-            ATTN_BWD_WGMMA_TILE: 0, **{key: 0 for key in ATTN_WIDE.values()}}
+            CONV_WGMMA_VARIANT: 0, ATTN_BWD_WGMMA_TILE: 0, **{key: 0 for key in ATTN_WIDE.values()}}
 
 
 def takes_wide(head_dim: int) -> bool:
@@ -1536,7 +1578,8 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
     128 every attention launch is on the kernel's wide variant (``takes_wide``),
     counted under ``ATTN_WIDE``. Every filter gradient
     of a bf16 step whose frame width is a multiple of 8 runs the wgmma kernel
-    (``conv3d.wgrad_variant``). The MLP kernel runs
+    (``conv3d.wgrad_variant``); the direct convs and input gradients run
+    theirs where ``conv3d.conv_variant`` sends them. The MLP kernel runs
     its training variant (the residuals written) in a train step and its
     inference variant in a serving pass, whose parameters require gradients
     all the same. With ``VVT_TAPDOT`` the convs and input gradients that pass
@@ -1574,11 +1617,30 @@ def expected_launches(cfg, entry: str, path: str) -> dict:
             want[ATTN_WIDE[backward]] = attn
         if backward == "vvt_fused_attention_bwd" and takes_wgmma_tile(cfg.num_patches, cfg.head_dim):
             want[ATTN_BWD_WGMMA_TILE] = attn // 2  # one spatial call a block
-    if "VVT_TAPDOT" in knobs:
+    tapdot = "VVT_TAPDOT" in knobs
+    if tapdot:
         fwd, dgrad = (sum(d.values()) for d in tapdot_launches(cfg))
         want["vvt_conv3d_tapdot"] = fwd + dgrad if train else fwd
         want["vvt_conv3d_cf"] -= want["vvt_conv3d_tapdot"]
+    for _, h, w, cins, cout, k, dtype in conv_cases(cfg):  # #2's launches on its wgmma kernel
+        if dtype != "bfloat16":
+            continue
+        if conv3d.conv_variant(torch.bfloat16, h, w, k, cout) == "wgmma":
+            want[CONV_WGMMA_VARIANT] += not (tapdot and takes_tapdot(cins, cout, k, w))
+        if train and conv3d.conv_variant(torch.bfloat16, h, w, k, sum(cins)) == "wgmma":
+            want[CONV_WGMMA_VARIANT] += not (tapdot and takes_tapdot((cout,), sum(cins), k, w))
     return want
+
+
+def wgmma_convs(cfg, names=("",)) -> int:
+    """How many of ``cfg``'s bf16 UNet forward convs whose names start with one of
+    ``names`` run #2 on its wgmma kernel (``conv3d.conv_variant``)."""
+    import torch
+
+    from video_vae_tpu_torch.ops import conv3d
+
+    return sum(conv3d.conv_variant(torch.bfloat16, h, w, k, cout) == "wgmma"
+               for name, h, w, _, cout, k, dtype in conv_cases(cfg) if dtype == "bfloat16" and name.startswith(names))
 
 
 # each serving phase's median ms and device ms a pass, by label (the "slope-serving" line
@@ -1663,20 +1725,32 @@ def profile_device(label: str, run, ms_per_run: float, passes: int = 3):
     Each device kernel is charged to the innermost torch op that launched it
     (the profiler's launch correlation), keyed by the op's name and input
     shapes. The port's kernels launch through ctypes, outside any torch op:
-    they are the device time that no op claims, listed by kernel name.
+    they are the device time that no op claims, listed by kernel name. A trace
+    with no device record is taken again after a pause; where none of
+    ``PROFILER_TRACES`` kept one, a "profiler-fallback" line says so and the
+    device figures are None.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
-        start.record()
-        for _ in range(passes):
-            run()
-        end.record()
-        torch.cuda.synchronize()
+    for attempt in range(PROFILER_TRACES):  # a trace with no device record is taken again (see device_ms)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            start.record()
+            for _ in range(passes):
+                run()
+            end.record()
+            torch.cuda.synchronize()
+        if any(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events()):
+            break
+        if attempt + 1 < PROFILER_TRACES:
+            _profiler_pause(f"profile-{label}", attempt, 0)
+    else:
+        log("profiler-fallback", json.dumps({"what": f"profile-{label}", "traces": PROFILER_TRACES,
+                                             "ms_per_run_window": start.elapsed_time(end) / passes}))
+        return {"device_busy_ms_per_run": None, "device_ops_per_run": None, "idle_share_vs_median": None}
     window_ms = start.elapsed_time(end) / passes
     by_kernel: dict[str, float] = {}  # device ms per kernel name, all launches
     claimed: dict[str, float] = {}  # device ms per kernel name launched inside a torch op
@@ -2112,6 +2186,7 @@ def trainer_launches(cfg) -> dict:
     if cfg.remat:
         want["vvt_fused_attention_fwd"] *= 2
         want["vvt_conv3d_cf"] += 4 * cfg.unet_levels
+        want[CONV_WGMMA_VARIANT] += wgmma_convs(cfg, ("encoders", "decoders"))
     return want
 
 
@@ -2951,7 +3026,7 @@ def phase_latent_clis(dev, resize=LATENT_RESIZE, frames=LATENT_FRAMES, clip_fram
     want = {
         "cache-latents": {**{k: 0 for k in read_launches()}, "vvt_fused_attention_fwd": 2 * cfg.encoder_depth},
         "decode-latents": {**{k: 0 for k in read_launches()}, "vvt_fused_attention_fwd": 2 * cfg.decoder_depth,
-                           "vvt_conv3d_cf": convs},
+                           "vvt_conv3d_cf": convs, CONV_WGMMA_VARIANT: wgmma_convs(cfg)},
     }
     marks, written = [], {}
 
@@ -3251,6 +3326,7 @@ def phase_train_vgg_cf(cfg, dev, reference):
         create_optimizer,
         train_step,
     )
+    from video_vae_tpu_torch.ops import conv3d
     from video_vae_tpu_torch.train.step import loss_and_grads
 
     cfg = cfg.replace(remat=False)
@@ -3284,6 +3360,8 @@ def phase_train_vgg_cf(cfg, dev, reference):
     launches = read_launches()
     want = expected_launches(cfg, "train", "fused")
     want["vvt_conv3d_cf"] += sum(n for *_, n in VGG_CONV_CASES)
+    want[CONV_WGMMA_VARIANT] += sum(n for _, side, _, cout, n in VGG_CONV_CASES
+                                    if conv3d.conv_variant(torch.bfloat16, side, side, (1, 3, 3), cout) == "wgmma")
     if launches != want:
         raise AssertionError(f"train-vgg-cf launches {launches}, expected {want}")
     if not _finite(first) or not first["grad_norm"] > 0:
@@ -3655,7 +3733,8 @@ def phase_train_gan(dev, train_launches: dict):
         "launches": launches, "ms_per_step_median": ms, "ms_per_step_all": times, "peak_memory_gib": peak,
         "device_ms": profile["device_busy_ms_per_run"], "device_ops": profile["device_ops_per_run"],
         "idle_share": profile["idle_share_vs_median"], "discriminator_device_ms": d_ms,
-        "discriminator_share_of_device_ms": d_ms / profile["device_busy_ms_per_run"],
+        "discriminator_share_of_device_ms": (d_ms / profile["device_busy_ms_per_run"]
+                                             if profile["device_busy_ms_per_run"] else None),
         "discriminator_params": sum(p.numel() for p in disc.parameters()), "step1_metrics": first,
     }))
     del model, disc, opt, d_opt, recon
@@ -3979,6 +4058,8 @@ def kernel_record(rows, launches_by_path):
                 "launches": launches_by_path[path][kernel.symbol],
                 **({"wgmma_launches": launches_by_path[path][WGRAD_WGMMA_VARIANT]}
                    if kernel.symbol == "vvt_conv3d_wgrad" and WGRAD_WGMMA_VARIANT in launches_by_path[path] else {}),
+                **({"wgmma_launches": launches_by_path[path][CONV_WGMMA_VARIANT]}
+                   if kernel.symbol == "vvt_conv3d_cf" and CONV_WGMMA_VARIANT in launches_by_path[path] else {}),
                 **({"wgmma_tile_launches": launches_by_path[path][ATTN_BWD_WGMMA_TILE]}
                    if kernel.symbol == "vvt_fused_attention_bwd" and ATTN_BWD_WGMMA_TILE in launches_by_path[path]
                    else {}),
@@ -3992,9 +4073,10 @@ def kernel_record(rows, launches_by_path):
             for key in ("device_ms", "library_device_ms", "direct_device_ms"):  # profiler sums where each row has one
                 if all(key in r for r in used):
                     by_path[path][key] = total(key)
-            if all("launch_device_ms" in r for r in used):  # and by launch
+            if all("launch_device_ms" in r for r in used):  # and by launch (None where a trace was lost)
                 by_path[path]["launch_device_ms"] = {
-                    label: sum(r["launch_device_ms"][label] * r["per_pass"][path] for r in used)
+                    label: None if any(r["launch_device_ms"][label] is None for r in used)
+                    else sum(r["launch_device_ms"][label] * r["per_pass"][path] for r in used)
                     for label in used[0]["launch_device_ms"]
                 }
         main = by_path[MAIN_PATH.get(kernel.symbol, "train")]

@@ -16,6 +16,7 @@ from video_vae_tpu_torch.ops.conv3d import (
     CONV3D,
     CONV3D_TAPDOT,
     CONV3D_WGRAD,
+    CONV_VARIANT_LAUNCHES,
     WGRAD_VARIANT_LAUNCHES,
     conv3d_cf,
     conv3d_cf_cat2,
@@ -26,6 +27,7 @@ from video_vae_tpu_torch.ops.conv3d import (
     conv3d_tapdot_plain,
     conv3d_wgrad_cuda,
     conv3d_wgrad_plain,
+    conv_variant,
     wgrad_variant,
 )
 from video_vae_tpu_torch.ops.flash_attention import (
@@ -439,6 +441,13 @@ def test_fused_attention_bf16_kernel_rounds_as_jax(device, B, S, H, D):
         ((2, 3, 1, 37), (8,), 24, (3, 3, 5)),  # one row a frame
         ((1, 2, 32, 32), (512,), 512, (1, 3, 3)),  # the tap-dot model's bottleneck
         ((1, 3, 12, 24), (20, 12), 24, (3, 3, 3)),  # a chunk across both sources
+        # the flagship's narrow convs and input gradients (the cf VGG's 3 -> 64 and 64 -> 3)
+        ((2, 2, 64, 64), (12,), 12, (3, 7, 7)),
+        ((2, 2, 64, 64), (12,), 16, (3, 3, 3)),
+        ((2, 2, 64, 64), (16, 16), 16, (3, 3, 3)),
+        ((1, 2, 64, 64), (3,), 64, (1, 3, 3)),
+        ((1, 2, 64, 64), (64,), 3, (1, 3, 3)),
+        ((1, 2, 64, 64), (64, 64), 64, (3, 3, 3)),  # the decoders' two sources on the wgmma kernel
     ],
 )
 def test_conv3d_kernel_matches_plain(device, dtype, shape, cins, cout, k):
@@ -448,10 +457,13 @@ def test_conv3d_kernel_matches_plain(device, dtype, shape, cins, cout, k):
     kernel = (torch.randn(*k, sum(cins), cout, generator=gen) * 0.1).to(device, dtype)
     bias = torch.randn(cout, generator=gen).to(device)
     x2 = xs[1] if len(xs) == 2 else None
-    before = CONV3D.launches
+    before, variants = CONV3D.launches, dict(CONV_VARIANT_LAUNCHES)
     out = conv3d_cf_cuda(xs[0], x2, kernel, bias)
     torch.cuda.synchronize()
     assert CONV3D.launches == before + 1
+    variant = conv_variant(dtype, h, w, k, cout)
+    assert variant == "cuda_core" if dtype == torch.float32 else variant in ("mma", "wgmma")
+    assert CONV_VARIANT_LAUNCHES == {**variants, variant: variants[variant] + 1}
     ref = conv3d_cf_plain(xs[0], x2, kernel, bias)
     assert out.dtype == dtype and _rel_err(out, ref) <= TOL[dtype]
 
@@ -501,12 +513,22 @@ def _conv_rounding_gap(out, ref):
         ((1, 4, 24, 40), (48,), 32, (3, 3, 3)),  # 3 chunks x 3 temporal taps
         ((1, 3, 16, 48), (24, 24), 16, (3, 3, 3)),  # two sources
         ((2, 3, 20, 40), (12,), 12, (3, 7, 7)),  # the patch mixer
+        # the flagship's narrow convs and input gradients (the cf VGG's 3 -> 64 and 64 -> 3)
+        ((2, 2, 64, 64), (12,), 12, (3, 7, 7)),
+        ((2, 2, 64, 64), (12,), 16, (3, 3, 3)),
+        ((2, 2, 64, 64), (16, 16), 16, (3, 3, 3)),
+        ((1, 2, 64, 64), (3,), 64, (1, 3, 3)),
+        ((1, 2, 64, 64), (64,), 3, (1, 3, 3)),
+        ((1, 3, 64, 64), (64,), 64, (3, 3, 3)),  # the wgmma kernel (ops/conv3d.py:conv_variant)
+        ((1, 3, 32, 32), (64,), 128, (3, 3, 3)),
+        ((1, 2, 64, 64), (64, 64), 64, (3, 3, 3)),
     ],
 )
 def test_conv3d_bf16_kernel_rounds_as_jax(device, shape, cins, cout, k):
     """The bf16 direct conv sums every tap and channel in f32 and rounds once, as
     the JAX kernel and conv3d_cf_plain do; the same call twice gives the same
-    bits, and a bf16 and an f32 call each launch the kernel once. A variant that
+    bits, and a bf16 and an f32 call each launch the kernel once (bf16 on the
+    variant ``conv_variant`` gives, f32 on the CUDA-core one). A variant that
     rounds its partial sums to bf16 after every temporal tap and channel chunk
     misses the same bound."""
     b, t, h, w = shape
@@ -516,10 +538,11 @@ def test_conv3d_bf16_kernel_rounds_as_jax(device, shape, cins, cout, k):
     kernel = kernel.to(device, torch.bfloat16)
     bias = (0.1 * torch.randn(cout, generator=gen)).to(device)
     x2 = xs[1] if len(xs) == 2 else None
-    before = CONV3D.launches
+    variant = conv_variant(torch.bfloat16, h, w, k, cout)
+    before, launched = CONV3D.launches, CONV_VARIANT_LAUNCHES[variant]
     out = conv3d_cf_cuda(xs[0], x2, kernel, bias)
     torch.cuda.synchronize()
-    assert CONV3D.launches == before + 1
+    assert CONV3D.launches == before + 1 and CONV_VARIANT_LAUNCHES[variant] == launched + 1
     again = conv3d_cf_cuda(xs[0], x2, kernel, bias)
     torch.cuda.synchronize()
     assert torch.equal(out, again)  # no split-K, no atomics: the same bits on every launch
@@ -531,10 +554,10 @@ def test_conv3d_bf16_kernel_rounds_as_jax(device, shape, cins, cout, k):
     assert past == 0 and share < ROUNDING_SHARE_TOL
     assert rounded_past > 0 or rounded_share >= ROUNDING_SHARE_TOL
 
-    before = CONV3D.launches
+    before, core = CONV3D.launches, CONV_VARIANT_LAUNCHES["cuda_core"]
     conv3d_cf_cuda(xs[0].float(), None if x2 is None else x2.float(), kernel.float(), bias)
     torch.cuda.synchronize()
-    assert CONV3D.launches == before + 1
+    assert CONV3D.launches == before + 1 and CONV_VARIANT_LAUNCHES["cuda_core"] == core + 1
 
 
 def _within(out, ref, tol):
@@ -1479,7 +1502,14 @@ def test_tapdot_kernel_at_the_model_shapes(device, hw, cins, cout, pool):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "shape,cin,cout,k", [((1, 2, 64, 64), 12, 16, (3, 3, 3)), ((2, 2, 18, 44), 5, 19, (1, 3, 5))]
+    "shape,cin,cout,k",
+    [
+        ((1, 2, 64, 64), 12, 16, (3, 3, 3)),
+        ((2, 2, 18, 44), 5, 19, (1, 3, 5)),
+        # the wgmma kernel's pool: row pairs across two M-tiles, then inside one (32 wide)
+        ((1, 2, 64, 64), 64, 64, (3, 3, 3)),
+        ((1, 2, 32, 32), 64, 128, (3, 3, 3)),
+    ],
 )
 def test_conv3d_kernel_pooled_output_matches_plain(device, dtype, shape, cin, cout, k):
     b, t, h, w = shape
@@ -1487,10 +1517,12 @@ def test_conv3d_kernel_pooled_output_matches_plain(device, dtype, shape, cin, co
     x = torch.randn(b, t, cin, h, w, generator=gen).to(device, dtype)
     kernel = (torch.randn(*k, cin, cout, generator=gen) * 0.1).to(device, dtype)
     bias = torch.randn(cout, generator=gen).to(device)
-    before = CONV3D.launches
+    before, variants = CONV3D.launches, dict(CONV_VARIANT_LAUNCHES)
     full, pooled = conv3d_cf_cuda(x, None, kernel, bias, pool=True)
     torch.cuda.synchronize()
     assert CONV3D.launches == before + 1
+    variant = conv_variant(dtype, h, w, k, cout)  # the pool comes from whichever kernel's epilogue
+    assert CONV_VARIANT_LAUNCHES == {**variants, variant: variants[variant] + 1}
     ref_full, ref_pooled = conv3d_cf_plain(x, None, kernel, bias, pool=True)
     assert pooled.shape == (b, t, cout, h // 2, w // 2) and pooled.dtype == dtype
     assert _rel_err(full, ref_full) <= TOL[dtype] and _rel_err(pooled, ref_pooled) <= TOL[dtype]

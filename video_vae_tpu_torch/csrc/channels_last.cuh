@@ -2,8 +2,9 @@
 // pixel: on the H100 a box whose innermost coordinate is not 16-byte aligned
 // stops the kernel (an illegal instruction), so a shift along the pixels must
 // move an outer coordinate, which a (frames, P, C) copy makes of them. The
-// tap-dot conv (conv3d_tapdot.cu) copies its input sources, the filter
-// gradient's wgmma kernel (conv3d_wgrad_wg.cuh) its cotangent g.
+// tap-dot conv (conv3d_tapdot.cu) and the direct conv's wgmma kernel
+// (conv3d_wg.cuh) copy their input sources, the filter gradient's wgmma
+// kernel (conv3d_wgrad_wg.cuh) its cotangent g.
 //
 // x: (frames, C, P) -> xt: (frames, P, Cp), Cp >= C a multiple of 8, the
 // channels C .. Cp - 1 written as zeros, through a 64 x 64 tile in shared

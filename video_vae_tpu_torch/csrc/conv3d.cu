@@ -17,7 +17,24 @@
 // The 256^2 level carries 43 % of the work at cout <= 16, so the design has to
 // be good at narrow N.
 //
-// bf16 (conv3d_mma.cuh): an implicit GEMM on the tensor cores, mma.sync
+// Which kernel takes a call (ops/conv3d.py:conv_variant, by dtype and shape;
+// the entry point's `variant`):
+//   - bf16, w % 8 == 0, a kernel of at most 3 x 3 taps a frame and 64 or more
+//     output channels (128, or a frame of 64 x 64 or more), kt = 1 or more:
+//     where it was measured faster than the mma.sync kernel (PERF.md),
+//     the wgmma implicit GEMM fed by TMA of conv3d_wg.cuh
+//     (its header has the design): each source copied channels-last so that a
+//     pixel shift is an outer TMA coordinate, one input box a temporal tap and
+//     channel chunk for every spatial tap, A loaded from the box with ldmatrix
+//     at each tap's shift into registers (one fragment feeds the kh output rows
+//     it serves), M = output pixels, N = output channels, a producer and two
+//     consumer warpgroups, the output staged and stored by TMA.
+//   - every other bf16 conv (a narrower one, where a wgmma step's round trip
+//     and the copy cost more than the mma.sync kernel's products, or a width a tensor map
+//     cannot describe): the mma.sync kernel of conv3d_mma.cuh, as follows.
+//   - f32: the CUDA-core kernel below (conv3d_cf_kernel).
+//
+// The mma.sync kernel: an implicit GEMM on the tensor cores, mma.sync
 // m16n8k16 with f32 accumulators: M = output pixels, N = output channels,
 // K = 16-channel input chunks, once per (temporal, spatial) tap. A work item is
 // one output frame, a th x 32 pixel tile and nb = 8, 16, 32 or 64 output
@@ -44,13 +61,11 @@
 // run ahead across item boundaries and under the epilogue. Each output is
 // summed by one warp of one block in a fixed order: every launch gives the same
 // bits; no split-K, no atomics, no rounding before the end.
-// What sets its pace on the H100 (PERF.md): the staging. With it cut out the
-// block runs 1.3-1.55x faster, at about 160 TFLOP/s where N = 16 (one A
-// fragment feeds 2 products) and 400 where N = 64, near what mma.sync gives.
-// What is left for a later version: leaner staging, wgmma from a warpgroup (the
-// transposed window is a gather a TMA box cannot make, so it would stay a
-// producer stage), and an input frame reused across the kt output frames it
-// feeds.
+// What set its pace on the H100 (PERF.md): the staging. With it cut out the
+// block ran 1.3-1.55x faster, at about 160 TFLOP/s where N = 16 (one A
+// fragment feeds 2 products) and 400 where N = 64, near what mma.sync gives;
+// hence the wgmma kernel, whose TMA boxes need no transposing producer and
+// whose A fragments feed kh products.
 //
 // f32 keeps the first version on the CUDA cores (conv3d_cf_kernel below): a
 // block owns one output frame, a 16 x 32 pixel tile and 16 output channels;
@@ -65,6 +80,7 @@
 #include <cuda_runtime.h>
 
 #include "conv3d_mma.cuh"
+#include "conv3d_wg.cuh"
 
 namespace {
 
@@ -244,23 +260,35 @@ cudaError_t dispatch_kw(const void* x1, const void* x2, int c1, int c2, const vo
 
 // x2 may be null with c2 = 0. dtype: 0 = float32, 1 = bfloat16 (x1, x2, w, y, pooled).
 // pooled: (B, Tn, cout, Hh/2, Ww/2) or null; Hh and Ww must be even when it is given.
-// wn, wgn, blocks: the bf16 kernel's plan (video_vae_tpu_torch/ops/conv3d.py:
-// conv_plan); float32 ignores them.
+// variant (ops/conv3d.py:CONV_VARIANTS): 0 = the CUDA-core kernel (float32),
+// 1 = the mma.sync kernel, 2 = the wgmma kernel (bfloat16). wn, wgn, blocks:
+// variant 1's plan (conv_plan); kc, nb, mtw, stages, blocks, smem: variant 2's
+// (conv_wg_plan), with its scratch xt1, xt2 (the channels-last copies) and wt
+// (the weights' K-major re-layout). The arguments a variant does not read are
+// 0 or null.
 extern "C" int vvt_conv3d_cf(const void* x1, const void* x2, int c1, int c2, const void* w,
-                             const void* bias, void* y, void* pooled, int B, int Tn, int Hh,
-                             int Ww, int cout, int kt, int kh, int kw, int dtype, int wn, int wgn,
-                             int blocks, void* stream) {
+                             const void* bias, void* y, void* pooled, void* xt1, void* xt2, void* wt,
+                             int B, int Tn, int Hh, int Ww, int cout, int kt, int kh, int kw, int dtype,
+                             int variant, int wn, int wgn, int blocks, int kc, int nb, int mtw, int stages,
+                             int smem, void* stream) {
   if (B < 1 || Tn < 1 || Hh < 1 || Ww < 1 || c1 < 1 || c2 < 0 || cout < 1) return (int)cudaErrorInvalidValue;
   if (kt < 1 || kt % 2 == 0 || kh < 1 || kh % 2 == 0 || kh > MAX_K) return (int)cudaErrorInvalidValue;
   if ((long long)B * Tn > 65535) return (int)cudaErrorInvalidValue;
   if (pooled != nullptr && (Hh % 2 || Ww % 2)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0 && variant == 0)
     return (int)dispatch_kw<float>(x1, x2, c1, c2, w, bias, y, pooled, B, Tn, Hh, Ww, cout, kt, kh,
                                    kw, st);
-  if (dtype == 1)
+  if (dtype == 1 && variant == 1)
     return (int)conv_mma::launch_conv_mma(x1, x2, c1, c2, w, bias, y, pooled, B, Tn, Hh, Ww, cout,
                                           kt, kh, kw, wn, wgn, blocks, st);
+  if (dtype == 1 && variant == 2)
+    return (int)conv_wg::launch(static_cast<const __nv_bfloat16*>(x1), static_cast<const __nv_bfloat16*>(x2),
+                                static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
+                                static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(pooled),
+                                static_cast<__nv_bfloat16*>(xt1), static_cast<__nv_bfloat16*>(xt2),
+                                static_cast<__nv_bfloat16*>(wt), c1, c2, B, Tn, Hh, Ww, cout, kt, kh, kw, kc,
+                                nb, mtw, stages, blocks, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 

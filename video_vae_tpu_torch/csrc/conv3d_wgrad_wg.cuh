@@ -334,26 +334,6 @@ __global__ void wgrad_wg_reduce_kernel(const float* __restrict__ partials, float
   dw[e] = sum;
 }
 
-// A dense bf16 tensor of `rank` dims (dims[0] innermost) with the given byte
-// strides of dims 1.., cut in boxes; zeros past the edges.
-inline cudaError_t encode(CUtensorMap* map, const void* p, int rank, const long long* dims,
-                          const long long* strides, const int* box, CUtensorMapSwizzle swizzle) {
-  const vvt_sm90::EncodeTiledFn encode_fn = vvt_sm90::encode_tiled();
-  if (encode_fn == nullptr) return cudaErrorNotSupported;
-  cuuint64_t gdim[5], gstride[4];
-  cuuint32_t bdim[5], elem[5];
-  for (int i = 0; i < rank; ++i) {
-    gdim[i] = (cuuint64_t)dims[i];
-    bdim[i] = (cuuint32_t)box[i];
-    elem[i] = 1;
-    if (i > 0) gstride[i - 1] = (cuuint64_t)strides[i - 1];
-  }
-  const CUresult r = encode_fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), gdim,
-                               gstride, bdim, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int NB, int KH>
 cudaError_t launch_kernel(const CUtensorMap& g_map, const CUtensorMap& x1_map, const CUtensorMap& x2_map,
                           float* partials, const Geometry& geo, int smem, cudaStream_t s) {
@@ -446,7 +426,7 @@ inline cudaError_t launch(const bf16* x1, const bf16* x2, const bf16* g, bf16* g
     const CUtensorMapSwizzle sw = band == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
                                   : band == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                : CU_TENSOR_MAP_SWIZZLE_128B;
-    err = encode(&g_map, gt, 5, dims, strides, box, sw);
+    err = vvt_sm90::encode_map(&g_map, gt, 5, dims, strides, box, sw);
     if (err != cudaSuccess) return err;
   }
   // B: x in place, (w, c, h, frames) boxes of 64 x nb x rows, or (h * w, c, frames) boxes of 64 x nb;
@@ -460,12 +440,12 @@ inline cudaError_t launch(const bf16* x1, const bf16* x2, const bf16* g, bf16* g
       const long long dims[3] = {P, C, (long long)B * Tn};
       const long long strides[2] = {2 * P, 2 * P * C};
       const int box[3] = {KB, n_box, 1};
-      err = encode(map, base, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+      err = vvt_sm90::encode_map(map, base, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
     } else {
       const long long dims[4] = {W, C, H, (long long)B * Tn};
       const long long strides[3] = {2 * P, 2LL * W, 2 * P * C};
       const int box[4] = {KB, n_box, geo.joint ? 1 : rows, 1};
-      err = encode(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+      err = vvt_sm90::encode_map(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
     }
     if (err != cudaSuccess) return err;
   }

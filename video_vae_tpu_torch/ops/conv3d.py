@@ -18,13 +18,19 @@ tensor takes the CUDA kernel or the call raises.
   product per spatial tap, a wgmma implicit GEMM fed by TMA from a
   channels-last copy of the input (tiles, rings and store route from
   :func:`tapdot_plan`, held by ``tests/test_torch_tapdot_plan.py`` on the
-  CPU). ``csrc/conv3d.cu`` takes bf16 to its tensor-core implicit GEMM
-  (``csrc/conv3d_mma.cuh``: mma.sync with f32 accumulators over every tap
-  and input channel, the bias, one rounding; warp-specialised, with
-  the input window copied by cp.async a stage ahead and transposed in shared
-  memory; launch geometry from :func:`conv_plan`, held by
-  ``tests/test_torch_conv_plan.py`` on the CPU) at every shape it accepts, and
-  f32 to its CUDA-core kernel in f32 (TF32 would not hold the f32 gates);
+  CPU). ``csrc/conv3d.cu`` picks its kernel by :func:`conv_variant`: bf16 at
+  a frame width that is a multiple of 8, a 3 x 3 or smaller spatial kernel
+  and 64 or more output channels (128, or a frame of 64 x 64 or more) takes
+  the wgmma implicit GEMM fed by TMA of ``csrc/conv3d_wg.cuh`` (each source
+  copied channels-last, one input box a temporal tap and channel chunk for
+  every spatial tap, A fragments loaded from it with ldmatrix at each tap's
+  shift, f32 accumulators over every tap and input channel, the bias, one rounding; geometry from
+  :func:`conv_wg_plan`, held and replayed by
+  ``tests/test_torch_conv_wg_plan.py`` on the CPU), every other bf16 conv
+  the mma.sync kernel (``csrc/conv3d_mma.cuh``, the input window copied
+  by cp.async a stage ahead and transposed in shared memory; geometry from
+  :func:`conv_plan`, held by ``tests/test_torch_conv_plan.py``), and f32 its
+  CUDA-core kernel in f32 (TF32 would not hold the f32 gates);
 * input gradient: the forward conv of g with the spatially flipped,
   IO-swapped kernel and a zero bias, through the same dispatch;
 * filter gradient, only where the filter needs one (a frozen VGG's launches
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import os
 from typing import Iterator, Optional
 
@@ -59,9 +66,15 @@ from video_vae_tpu_torch.parallel.sharding import log_kernel
 CONV3D = CudaKernel(
     "conv3d.cu",
     "vvt_conv3d_cf",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 18 + [ctypes.c_void_p],
 )
+# The direct conv's three kernels, as ``vvt_conv3d_cf`` numbers them: the f32
+# CUDA-core kernel, the bf16 mma.sync kernel (frames whose width is not a
+# multiple of 8, which a tensor map cannot describe) and the bf16 wgmma kernel
+# fed by TMA (every other bf16 conv); and the launches of each.
+CONV_VARIANTS = ("cuda_core", "mma", "wgmma")
+CONV_VARIANT_LAUNCHES = dict.fromkeys(CONV_VARIANTS, 0)
 CONV3D_TAPDOT = CudaKernel(
     "conv3d_tapdot.cu",
     "vvt_conv3d_tapdot",
@@ -118,6 +131,19 @@ WGRAD_WG_SMEM_ALIGN, WGRAD_WG_MAX_WORKSPACE = 1024, 32 << 20
 CONV_MMA_TILE_W, CONV_MMA_WARPS, CONV_MMA_CHUNK = 32, 8, 16
 CONV_MMA_N_BLOCKS = {8: [(1, 1)], 16: [(2, 1), (1, 2)], 32: [(4, 1), (2, 2), (1, 4)], 64: [(4, 2), (2, 4)]}
 CONV_MMA_MAX_SMEM, CONV_MMA_BLOCKS = 232448, 132
+# The bf16 wgmma direct conv, ``csrc/conv3d_wg.cuh``: pixels of an M-tile, its
+# output-channel tile widths, its input-channel chunks (one 32-, 64- or 128-byte
+# pixel of the channels-last copy), the ring's slots at most and the fewest it
+# aims for, the alignment slack of its shared memory.
+CONV_WG_MTILE, CONV_WG_NB, CONV_WG_KC = 64, (64, 128), (16, 32, 64)
+CONV_WG_MAX_STAGES, CONV_WG_MIN_STAGES, CONV_WG_SMEM_ALIGN = 6, 3, 1024
+# Where the wgmma conv beats the mma.sync kernel on the H100 (``utils/conv_times.py``, both
+# variants in turns at every conv of five sets, PERF.md §6): at least 64 output
+# channels, and a frame of at least 64 x 64 pixels unless 128 or more output
+# channels, with or without temporal taps. It lost at every narrower conv (3-32
+# output channels: 1.3-2.1x the mma.sync kernel's time) and at 128 -> 64 on a 32 x 32 frame.
+# Every conv measured was 3 x 3; a 7 x 7 kernel's weight box does not fit twice.
+CONV_WG_MIN_COUT, CONV_WG_WIDE_COUT, CONV_WG_MIN_AREA = 64, 128, 64 * 64
 # The tap-dot conv, ``csrc/conv3d_tapdot.cu``: input channels a slab (K), pixels
 # of a B panel (one image row segment, one TMA box), the most slots of either
 # ring, the alignment slack of its shared memory; the shared memory and
@@ -622,6 +648,225 @@ def tapdot_plan(c1: int, c2: int, cout: int, b: int, t: int, h: int, w: int, kh:
     raise ValueError(f"no tap-dot tile fits a {kh}-row kernel")
 
 
+def conv_variant(dtype: torch.dtype, h: int, w: int, k: tuple, cout: int) -> str:
+    """Which of ``CONV_VARIANTS`` computes a direct conv (forward, input gradient
+    or pooled) with kernel ``k`` = (kt, kh, kw), from the dtype and the conv's
+    shape: f32 the CUDA-core kernel; bf16 the wgmma kernel where a tensor map can
+    describe the frame (its row stride a multiple of 16 bytes: w % 8 == 0) and
+    the conv is one it was measured faster at (``CONV_WG_MIN_COUT`` …), else
+    the mma.sync kernel."""
+    if dtype == torch.float32:
+        return "cuda_core"
+    wide = cout >= CONV_WG_WIDE_COUT or h * w >= CONV_WG_MIN_AREA
+    taken = w % 8 == 0 and max(k[1], k[2]) <= 3 and cout >= CONV_WG_MIN_COUT and wide
+    return "wgmma" if taken else "mma"
+
+
+def conv_wg_max_mtw(nb: int) -> int:
+    """M-tiles a consumer warpgroup of the wgmma conv holds at most
+    (``conv3d_wg.cuh:max_mtw``): mtw · nb / 2 f32 accumulators a thread beside
+    its two fragments, within 168 registers."""
+    return 256 // nb
+
+
+def _round1k(nbytes: int) -> int:
+    return -(-nbytes // 1024) * 1024
+
+
+def conv_wg_smem(kc: int, nb: int, bx: int, rx: int, taps: int, stages: int) -> int:
+    """Dynamic shared memory of a wgmma conv block (``conv3d_wg.cuh:conv_wg_smem_bytes``):
+    alignment slack, ``stages`` ring slots of an input box (kc channels × bx × rx
+    pixels) and a weight box (taps × nb × kc), each on a 1024-byte boundary, the
+    two consumer warpgroups' staging (two M-tiles of 64 pixels × nb channels
+    each), a full and an empty mbarrier a slot."""
+    slot = _round1k(2 * kc * bx * rx) + _round1k(2 * kc * nb * taps)
+    return CONV_WG_SMEM_ALIGN + stages * slot + 2 * 2 * CONV_WG_MTILE * nb * 2 + stages * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvWgPlan:
+    """Launch geometry of the wgmma direct conv for one conv.
+
+    M = output pixels, N = ``nb`` output channels a tile, K = input channels in
+    chunks of ``kc`` (each source copied channels-last, its channels padded to
+    ``cp1`` / ``cp2``, multiples of kc). An M-tile is ``rpm`` image rows of
+    ``bw`` columns (64 pixels); a tile is one frame, ``rows`` = 2 · mtw · rpm
+    image rows × bw columns and nb channels, the top and bottom mtw M-tiles
+    each a consumer warpgroup's; ``blocks`` persistent blocks deal the tiles
+    out in turn (block i takes tiles i, i + blocks, …; output-channel tile
+    fastest, then column tile, row tile, frame). A tile runs one stage for each
+    temporal tap inside the clip and each chunk (x1's, then x2's): the input box
+    of ``kc`` channels × ``bx`` columns × ``rx`` rows of the copy at the tile's
+    corner less the taps' half widths (``a_coords``), and the weight box of the
+    stage's kh · kw taps (``b_coords``) from the K-major re-layout
+    [tap][cout][cp1 + cp2], through a ring of ``stages`` slots.
+    """
+
+    c1: int
+    c2: int
+    cout: int
+    b: int
+    t: int
+    h: int
+    w: int
+    kt: int
+    kh: int
+    kw: int
+    kc: int
+    nb: int
+    mtw: int
+    stages: int
+    blocks: int
+
+    @property
+    def cp1(self) -> int:
+        return -(-self.c1 // self.kc) * self.kc
+
+    @property
+    def cp2(self) -> int:
+        return -(-self.c2 // self.kc) * self.kc
+
+    @property
+    def chunks1(self) -> int:
+        return self.cp1 // self.kc
+
+    @property
+    def chunks(self) -> int:
+        return (self.cp1 + self.cp2) // self.kc
+
+    @property
+    def bw(self) -> int:
+        """Columns of an M-tile row: 64, or the frame's width rounded down to a power of two."""
+        return CONV_WG_MTILE if self.w >= CONV_WG_MTILE else 1 << (self.w.bit_length() - 1)
+
+    @property
+    def rpm(self) -> int:
+        return CONV_WG_MTILE // self.bw
+
+    @property
+    def bx(self) -> int:
+        return self.bw + self.kw - 1
+
+    @property
+    def rows(self) -> int:
+        return 2 * self.mtw * self.rpm
+
+    @property
+    def rx(self) -> int:
+        return self.rows + self.kh - 1
+
+    @property
+    def tiles_w(self) -> int:
+        return -(-self.w // self.bw)
+
+    @property
+    def tiles_h(self) -> int:
+        return -(-self.h // self.rows)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.cout // self.nb)
+
+    @property
+    def tiles(self) -> int:
+        return self.b * self.t * self.tiles_h * self.tiles_w * self.n_tiles
+
+    @property
+    def smem(self) -> int:
+        return conv_wg_smem(self.kc, self.nb, self.bx, self.rx, self.kh * self.kw, self.stages)
+
+    @property
+    def weight_elements(self) -> int:
+        """bf16 elements of the weights' K-major re-layout."""
+        return self.kt * self.kh * self.kw * self.cout * (self.cp1 + self.cp2)
+
+    def copy_elements(self, source: int) -> int:
+        """bf16 elements of a source's channels-last copy (0 for a missing x2)."""
+        return self.b * self.t * self.h * self.w * (self.cp1 if source == 0 else self.cp2)
+
+    def tile(self, i: int) -> tuple[int, int, int, int, int]:
+        """(batch, frame time, first row, first column, first output channel) of tile i."""
+        nt, i = i % self.n_tiles, i // self.n_tiles
+        tx, i = i % self.tiles_w, i // self.tiles_w
+        frame, ty = divmod(i, self.tiles_h)
+        return frame // self.t, frame % self.t, ty * self.rows, tx * self.bw, nt * self.nb
+
+    def stages_of(self, i: int) -> list[tuple[int, int]]:
+        """(dt, chunk) of tile i's stages in order: the temporal taps inside the clip."""
+        t = self.tile(i)[1]
+        lo, hi = max(0, self.kt // 2 - t), min(self.kt, self.t - t + self.kt // 2)
+        return [(dt, c) for dt in range(lo, hi) for c in range(self.chunks)]
+
+    def a_coords(self, i: int, dt: int, chunk: int) -> tuple[int, int, tuple[int, int, int, int, int]]:
+        """(source, its first channel, the input box's TMA coordinates (channel,
+        x, y, t, b), innermost first) of tile i's stage (dt, chunk); negative or
+        past the edge where SAME pads."""
+        b, t, y0, x0, _ = self.tile(i)
+        source = 0 if chunk < self.chunks1 else 1
+        c0 = (chunk if source == 0 else chunk - self.chunks1) * self.kc
+        return source, c0, (c0, x0 - self.kw // 2, y0 - self.kh // 2, t + dt - self.kt // 2, b)
+
+    def b_coords(self, i: int, dt: int, chunk: int) -> tuple[int, int, int]:
+        """(K column, first output channel, first tap) of the stage's weight box."""
+        source, c0, _ = self.a_coords(i, dt, chunk)
+        return (c0 if source == 0 else self.cp1 + c0), self.tile(i)[4], dt * self.kh * self.kw
+
+    def maps(self) -> list[dict]:
+        """Every tensor map the entry point encodes: dims (innermost first), the
+        byte strides of dims 1.., the box and the swizzle's width in bytes (0:
+        none)."""
+        p = self.h * self.w
+        out = []
+        for name, cp in (("x1", self.cp1), ("x2", self.cp2)):
+            if cp:
+                out.append(dict(name=name, dims=(cp, self.w, self.h, self.t, self.b),
+                                strides=(2 * cp, 2 * cp * self.w, 2 * cp * p, 2 * cp * p * self.t),
+                                box=(self.kc, self.bx, self.rx, 1, 1), swizzle=2 * self.kc))
+        kp = self.cp1 + self.cp2
+        out.append(dict(name="w", dims=(kp, self.cout, self.kt * self.kh * self.kw),
+                        strides=(2 * kp, 2 * kp * self.cout), box=(self.kc, self.nb, self.kh * self.kw),
+                        swizzle=2 * self.kc))
+        out.append(dict(name="y", dims=(self.w, self.cout, self.h, self.b * self.t),
+                        strides=(2 * p, 2 * self.w, 2 * p * self.cout), box=(self.bw, self.nb, self.rpm, 1),
+                        swizzle=2 * self.bw if self.bw >= 16 else 0))
+        return out
+
+
+@functools.lru_cache(maxsize=None)
+def conv_wg_plan(c1: int, c2: int, cout: int, b: int, t: int, h: int, w: int, kt: int, kh: int, kw: int,
+                 pool: bool = False) -> ConvWgPlan:
+    """The wgmma direct conv's geometry (see :class:`ConvWgPlan`), kept per
+    shape so that its search runs once a shape, not once a launch.
+
+    The narrowest N tile that holds cout (64 or 128; wider couts take several);
+    the most M-tiles a warpgroup (``conv_wg_max_mtw``, no more than the frame's
+    rows need; an even count where the pool pairs rows across M-tiles), then
+    the widest chunk (16, 32 or 64 channels, no wider than the widest source
+    needs) whose ring holds ``CONV_WG_MIN_STAGES`` slots, else two; as many
+    slots as fit, at most ``CONV_WG_MAX_STAGES``; one persistent block an SM,
+    fewer where there are fewer tiles.
+    """
+    if w % 8:
+        raise ValueError(f"the wgmma conv takes frames whose width is a multiple of 8, got {w}")
+    nb = next(n for n in CONV_WG_NB if n >= cout or n == CONV_WG_NB[-1])
+    widest = max(c1, c2)
+    kcs = [kc for kc in reversed(CONV_WG_KC) if kc == CONV_WG_KC[0] or widest > kc // 2]
+    one = ConvWgPlan(c1, c2, cout, b, t, h, w, kt, kh, kw, kcs[0], nb, 1, 2, 1)
+    top = min(conv_wg_max_mtw(nb), max(1, -(-h // (2 * one.rpm))))
+    paired = pool and one.rpm == 1  # the pool's row pairs span two M-tiles
+    mtws = [m for m in range(max(top, 2 if paired else 1), 0, -1) if not (paired and m % 2)]
+    for least in (CONV_WG_MIN_STAGES, 2):
+        for mtw in mtws:
+            for kc in kcs:
+                plan = dataclasses.replace(one, kc=kc, mtw=mtw)
+                fit = [s for s in range(2, CONV_WG_MAX_STAGES + 1)
+                       if dataclasses.replace(plan, stages=s).smem <= CONV_MMA_MAX_SMEM]
+                if fit and max(fit) >= least and plan.rx <= 256:
+                    plan = dataclasses.replace(plan, stages=max(fit))
+                    return dataclasses.replace(plan, blocks=min(plan.tiles, CONV_MMA_BLOCKS))
+    raise ValueError(f"no wgmma conv tile fits a {kh}x{kw} kernel over {cout} channels")
+
+
 def conv3d_cf_cuda(
     x1: torch.Tensor,
     x2: Optional[torch.Tensor],
@@ -631,23 +876,42 @@ def conv3d_cf_cuda(
 ):
     """Launch the direct conv kernel over one source, or two without their concat.
 
-    bf16 takes the tensor-core kernel (geometry from :func:`conv_plan`), f32
-    the CUDA-core one. With ``pool`` the kernel's epilogue also writes the 2×2
-    spatial max pool and the call returns (full, pooled).
+    The kernel by :func:`conv_variant`: bf16 takes the wgmma kernel (geometry
+    from :func:`conv_wg_plan`; its first launches re-lay the weights K-major and
+    copy each source channels-last into scratch allocated here) where it was
+    measured faster, else the mma.sync kernel (:func:`conv_plan`);
+    f32 the CUDA-core one. With ``pool`` the kernel's epilogue also writes the
+    2×2 spatial max pool and the call returns (full, pooled).
     """
     c2 = _check_conv_operands("conv3d_cf_cuda", x1, x2, kernel, bias, pool)
     b, t, c1, h, w = x1.shape
     kt, kh, kw, _, cout = kernel.shape
-    plan = conv_plan(c1 + c2, cout, b, t, h, w, kt, kh, kw)
+    variant = conv_variant(x1.dtype, h, w, (kt, kh, kw), cout)
     y, pooled = _empty_outputs(x1, cout, pool)
+    # (wn, wgn, blocks, kc, nb, mtw, stages, smem) and the wgmma kernel's scratch
+    scratch = [None, None, None]
+    if variant == "wgmma":
+        plan = conv_wg_plan(c1, c2, cout, b, t, h, w, kt, kh, kw, pool)
+        geometry = (0, 0, plan.blocks, plan.kc, plan.nb, plan.mtw, plan.stages, plan.smem)
+        scratch = [torch.empty(n, dtype=x1.dtype, device=x1.device) if n else None
+                   for n in (plan.copy_elements(0), plan.copy_elements(1), plan.weight_elements)]
+        if any(s.data_ptr() % 16 for s in (x1, x2, y) if s is not None):
+            raise ValueError("the wgmma conv needs 16-byte aligned tensors")
+    elif variant == "mma":
+        plan = conv_plan(c1 + c2, cout, b, t, h, w, kt, kh, kw)
+        geometry = (plan.wn, plan.wgn, plan.blocks, 0, 0, 0, 0, 0)
+    else:
+        geometry = (0,) * 8
     with torch.cuda.device(x1.device):
         CONV3D.launch(
             x1.data_ptr(), None if x2 is None else x2.data_ptr(), c1, c2,
             kernel.data_ptr(), bias.data_ptr(), y.data_ptr(),
             None if pooled is None else pooled.data_ptr(),
-            b, t, h, w, cout, kt, kh, kw, DTYPE_CODES[x1.dtype], plan.wn, plan.wgn, plan.blocks,
+            *(None if s is None else s.data_ptr() for s in scratch),
+            b, t, h, w, cout, kt, kh, kw, DTYPE_CODES[x1.dtype], CONV_VARIANTS.index(variant), *geometry,
             torch.cuda.current_stream(x1.device).cuda_stream,
         )
+    CONV_VARIANT_LAUNCHES[variant] += 1
     return (y, pooled) if pool else y
 
 

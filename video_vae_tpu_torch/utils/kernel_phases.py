@@ -343,7 +343,7 @@ def _wgrad_calls(dev):
     tap-dot model's train steps (b2 x 16 frames: the UNet's 2 rollouts)."""
     import torch
 
-    from video_vae_tpu_torch.utils.wgrad_times import cases
+    from video_vae_tpu_torch.utils.conv_times import cases
 
     gen = torch.Generator().manual_seed(32)
     for name in ("flagship", "tapdot"):
